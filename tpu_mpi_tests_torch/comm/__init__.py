@@ -1,0 +1,3 @@
+"""Communication layer at world=1: topology (``mesh.py``), halo exchange
+and the hot-loop runners (``halo.py``), collectives (``collectives.py``).
+"""

@@ -1,0 +1,68 @@
+"""Process/device topology at world=1 (≅ ``tpu_mpi_tests/comm/mesh.py``).
+
+This slice of the port runs one rank on one device. ``bootstrap`` checks
+that nothing asks for more: a multi-rank launch (``WORLD_SIZE`` or
+``JAX_NUM_PROCESSES`` > 1) raises, naming the ROADMAP item that brings
+``torch.distributed`` (queue 1 item 2, ``comm/dist.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+
+from tpu_mpi_tests_torch.device import resolve_device
+from tpu_mpi_tests_torch.utils import TpuMtError
+
+
+class MeshError(TpuMtError):
+    """Invalid topology request."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Discovered topology; field names follow the JAX package's
+    ``Topology`` so drivers read the same attributes."""
+
+    global_device_count: int
+    platform: str
+    device_kinds: tuple[str, ...]
+    device: torch.device
+
+
+def _requested_world() -> int:
+    for var in ("WORLD_SIZE", "JAX_NUM_PROCESSES"):
+        val = os.environ.get(var)
+        if val:
+            return int(val)
+    return 1
+
+
+def bootstrap(device="cuda") -> torch.device:
+    """Resolve the run's device (the card unless ``device="cpu"``) and
+    refuse multi-rank launches, which this slice does not run."""
+    world = _requested_world()
+    if world > 1:
+        raise MeshError(
+            f"world size {world} requested, but the port runs world=1 "
+            f"only; multi-rank torch.distributed (comm/dist.py, NCCL/gloo "
+            f"exchange_shard) is ROADMAP queue 1 item 2"
+        )
+    return resolve_device(device)
+
+
+def topology(device: torch.device) -> Topology:
+    """World=1 topology on ``device``: platform ``gpu`` on the card
+    (kind = ``torch.cuda.get_device_name``), ``cpu`` otherwise."""
+    if device.type == "cuda":
+        platform, kind = "gpu", torch.cuda.get_device_name(device)
+    else:
+        platform, kind = "cpu", "cpu"
+    return Topology(
+        global_device_count=1,
+        platform=platform,
+        device_kinds=(kind,),
+        device=device,
+    )
