@@ -9,19 +9,23 @@ failure exits non-zero and prints no result line):
    (``nvcc`` for ``sm_90a``, one process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
-   and dynamic flags, float32 and bfloat16, ragged tile edges, and the two
-   main-path shapes; the derivative over dim 0/1 × float32/bfloat16 and
-   its main-path shapes. Tolerance: 0 — bit-exact in both dtypes. The
-   kernels round after every op exactly where the eager PyTorch ops round
-   (float32: one IEEE op each, no FMA contraction; bfloat16: each op in
-   float32, rounded to bf16), so any difference is a fault;
-4. the main path, with every launch count set to 0 just before and read
-   just after: the headline bench (``tpu_mpi_tests_torch.bench``) at
-   n=8192 in float32 (S=2 resident blocks, k=4) and bfloat16 (dim-1
-   single buffer, k=4), then the ``stencil2d`` driver with ``--kernel
-   hand`` at the reference sizes (n_local 1024, n_other 524288) plus its
-   iterate leg (``--iterate-tier blocks --iterate-steps 4``). Every
-   err-norm and eigen gate must pass and both kernels must have launched;
+   and dynamic flags, float32 and bfloat16, ragged tile edges, and every
+   operand the main path gives it (the bench's f32 blocks and bf16
+   buffer, the driver's periodic iterate blocks); the derivative over
+   dim 0/1 × float32/bfloat16 and its main-path shapes. Tolerance: 0 —
+   bit-exact in both dtypes. The kernels round after every op exactly
+   where the eager PyTorch ops round (float32: one IEEE op each, no FMA
+   contraction; bfloat16: each op in float32, rounded to bf16), so any
+   difference is a fault;
+4. the main path, three paths in turn, each with every launch count set
+   to 0 just before it and read just after: the headline bench
+   (``tpu_mpi_tests_torch.bench``) at n=8192 in float32 (S=2 resident
+   blocks, k=4), the same in bfloat16 (dim-1 single buffer, k=4), then
+   the ``stencil2d`` driver with ``--kernel hand`` at the reference
+   sizes (n_local 1024, n_other 524288) plus its iterate leg
+   (``--iterate-tier blocks --iterate-steps 4``). Every err-norm and
+   eigen gate must pass, each path's own kernels must have launched, and
+   its launches per timestep must be what its schedule makes;
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d`` for the derivative, TF32 off) and its bound: the
@@ -52,7 +56,12 @@ ITERATE_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:1177"
 DERIV_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:636"
 REF_N_LOCAL, REF_N_OTHER = 1024, 512 * 1024  # the driver's defaults
 BENCH_N = 8192  # the headline domain
+# the bench's own defaults, set explicitly so its timesteps are known
+BENCH_ITERS_SHORT, BENCH_ITERS_LONG, BENCH_SAMPLES = 100, 2100, 5
+DRIVER_N_ITER, DRIVER_N_WARMUP, DRIVER_ITERATE_ITERS = 5, 2, 4
 K4 = 2 * 4     # ghost width of the k=4 schedules
+BENCH_SE = 1e-6 * BENCH_N / 8.0  # the bench's eps × scale
+DRIVER_SE = 0.01                 # the driver's iterate-leg scale_eps
 
 
 class SmokeFailure(RuntimeError):
@@ -72,6 +81,27 @@ def card_line() -> str:
     if not out:
         raise SmokeFailure("nvidia-smi printed nothing")
     return out.splitlines()[0]
+
+
+def iterate_cases():
+    """The iterate kernel's operands on the main path, from the schedules
+    the bench and the driver build: (path, shape, dtype, dim, flags,
+    scale_eps). The bench's f32 blocks are physical at the domain's
+    outer edges; the driver's iterate leg runs a periodic self-ring."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+
+    S = H.PRIOR_BLOCKS["float32"]
+    bench_block = (BENCH_N // S + 2 * K4, BENCH_N)
+    driver_block = (REF_N_LOCAL // S + 2 * K4, REF_N_OTHER)
+    return [
+        ("bench float32", bench_block, torch.float32, 0, (1, 0), BENCH_SE),
+        ("bench float32", bench_block, torch.float32, 0, (0, 1), BENCH_SE),
+        ("bench bfloat16", (BENCH_N, BENCH_N + 2 * K4), torch.bfloat16, 1,
+         (1, 1), BENCH_SE),
+        ("stencil2d", driver_block, torch.float32, 0, (0, 0), DRIVER_SE),
+    ]
 
 
 def compare(name, got, want, failures):
@@ -139,13 +169,10 @@ def check_kernels(device):
                                        phys_static=(1, 0)), failures)
     n_cases += 1
 
-    # the main-path shapes (bench blocks f32, bench dim-1 bf16, driver)
+    # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
+    # the driver's periodic iterate blocks, the driver's derivatives
     errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0}
-    se = 1e-6 * BENCH_N / 8.0
-    for shape, dtype, dim, flags in (
-            ((BENCH_N // 2 + 2 * K4, BENCH_N), torch.float32, 0, (1, 0)),
-            ((BENCH_N // 2 + 2 * K4, BENCH_N), torch.float32, 0, (0, 1)),
-            ((BENCH_N, BENCH_N + 2 * K4), torch.bfloat16, 1, (1, 1))):
+    for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
         err = compare(
             f"iterate main-path {shape} {dtype} flags={flags}",
@@ -175,56 +202,125 @@ def check_kernels(device):
     return errs
 
 
-def run_main_path(device):
-    """Phase 4: the bench and the driver, counts zeroed before and read
-    after. Returns (counts, bench record)."""
-    from tpu_mpi_tests_torch import bench
-    from tpu_mpi_tests_torch.drivers import stencil2d
+def drive_path(path, fn, kernels):
+    """Run one main path with every launch count set to 0 just before and
+    read just after; fail unless each of ``kernels`` launched in it.
+    Returns (fn's result, the path's counts)."""
     from tpu_mpi_tests_torch.kernels import hand
 
-    # the bench's default schedules at the headline size, whatever the
-    # caller's environment selects
+    hand.reset_launch_counts()
+    result = fn()
+    counts = hand.launch_counts()
+    for name in kernels:
+        if counts[name] <= 0:
+            raise SmokeFailure(f"kernel {name} was never launched on the "
+                               f"{path} path")
+    return result, counts
+
+
+def check_per_timestep(path, name, launches, timesteps, want):
+    """Launches per timestep measured on a path, held against what its
+    schedule makes (S launches per k timesteps on S blocks, one per k on
+    a single buffer, one derivative per driver iteration)."""
+    got = launches / timesteps
+    if abs(got - want) > 1e-12:
+        raise SmokeFailure(f"{path}: {name} made {launches} launches in "
+                           f"{timesteps} timesteps ({got:g} per timestep), "
+                           f"its schedule makes {want:g}")
+    return got
+
+
+def run_main_path(device):
+    """Phase 4: the bench in each dtype and the driver, each path with
+    the counts zeroed just before it and read just after. Returns
+    (counts per path, launches per timestep per path, bench records)."""
+    from tpu_mpi_tests_torch import bench
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import stencil2d
+
+    # the bench's default schedules at the headline size, one dtype per
+    # run so each has counts of its own, whatever the caller's
+    # environment selects
     for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
         del os.environ[var]
-    os.environ["TPU_MPI_BENCH_N"] = str(BENCH_N)
-    hand.reset_launch_counts()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rec = bench.main(["--device", device.type])
-    bench_line = out.getvalue().strip().splitlines()[-1]
-    log(f"BENCH {bench_line}")
-    per_path = {"bench": hand.launch_counts()}
-    for r in (rec, rec.get("bfloat16", {})):
-        if r.get("tier") != "blocks" or not r.get("value", 0) > 0:
-            raise SmokeFailure(f"bench record not a measured blocks-tier "
-                               f"run: {r}")
+    os.environ.update({
+        "TPU_MPI_BENCH_N": str(BENCH_N),
+        "TPU_MPI_BENCH_SECOND_DTYPE": "none",
+        "TPU_MPI_BENCH_ITERS_SHORT": str(BENCH_ITERS_SHORT),
+        "TPU_MPI_BENCH_ITERS_LONG": str(BENCH_ITERS_LONG),
+        "TPU_MPI_BENCH_SAMPLES": str(BENCH_SAMPLES),
+    })
+    counts, per_step, recs = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        path = f"bench {dtype}"
+        os.environ["TPU_MPI_BENCH_DTYPE"] = dtype
 
+        def run_bench():
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rec = bench.main(["--device", device.type])
+            log(f"BENCH {out.getvalue().strip().splitlines()[-1]}")
+            return rec
+
+        rec, counts[path] = drive_path(path, run_bench,
+                                       ["stencil2d_iterate"])
+        if rec.get("tier") != "blocks" or not rec.get("value", 0) > 0:
+            raise SmokeFailure(f"{path}: not a measured blocks-tier run: "
+                               f"{rec}")
+        # chain_rate runs 3 warm calls, then n_short and n_long calls per
+        # sample; each call advances k timesteps (bench.measure)
+        k = rec["steps"]
+        n_short = max(1, BENCH_ITERS_SHORT // k)
+        n_long = max(n_short + 1, BENCH_ITERS_LONG // k)
+        timesteps = BENCH_SAMPLES * (3 + n_short + n_long) * k
+        n_blocks = (H.PRIOR_BLOCKS[dtype]
+                    if rec["schedule"].startswith("blocks") else 1)
+        per_step[path] = {"stencil2d_iterate": check_per_timestep(
+            path, "stencil2d_iterate", counts[path]["stencil2d_iterate"],
+            timesteps, n_blocks / k)}
+        recs[dtype] = rec
+
+    path = "stencil2d"
     argv = ["--device", device.type, "--n-local", str(REF_N_LOCAL),
             "--n-other", str(REF_N_OTHER),
-            "--n-iter", "5", "--n-warmup", "2", "--kernel", "hand",
-            "--iterate-tier", "blocks", "--iterate-steps", "4"]
+            "--n-iter", str(DRIVER_N_ITER), "--n-warmup",
+            str(DRIVER_N_WARMUP), "--kernel", "hand",
+            "--iterate-tier", "blocks", "--iterate-steps", "4",
+            "--iterate-iters", str(DRIVER_ITERATE_ITERS)]
     log("DRIVER python -m tpu_mpi_tests_torch.drivers.stencil2d "
         + " ".join(argv))
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = stencil2d.main(argv)
-    text = out.getvalue()
+
+    def run_driver():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = stencil2d.main(argv)
+        return rc, out.getvalue()
+
+    (rc, text), counts[path] = drive_path(
+        path, run_driver, ["stencil2d_iterate", "stencil2d_deriv"])
     for line in text.splitlines():
         log(f"  {line}")
-    counts = hand.launch_counts()
-    per_path["stencil2d"] = {k: counts[k] - per_path["bench"][k]
-                             for k in counts}
     if rc != 0 or "FAIL" in text:
         raise SmokeFailure(f"stencil2d driver failed (rc={rc})")
     for needed in ("TEST dim:0", "TEST dim:1", "ITER ERR rel="):
         if needed not in text:
             raise SmokeFailure(f"stencil2d output lacks {needed!r}")
-    log(f"LAUNCHES {json.dumps(per_path)}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise SmokeFailure(f"kernel {name} was never launched on the "
-                               f"main path")
-    return counts, rec
+    # the iterate leg: one warm call, then --iterate-iters calls, k
+    # timesteps each, S blocks; the derivative: dim × buf = 4 tests of
+    # n_warmup + n_iter iterations, one launch each
+    k = 4
+    n_blocks = H.PRIOR_BLOCKS["float32"]
+    per_step[path] = {
+        "stencil2d_iterate": check_per_timestep(
+            path, "stencil2d_iterate", counts[path]["stencil2d_iterate"],
+            (1 + DRIVER_ITERATE_ITERS) * k, n_blocks / k),
+        "stencil2d_deriv": check_per_timestep(
+            path, "stencil2d_deriv", counts[path]["stencil2d_deriv"],
+            4 * (DRIVER_N_WARMUP + DRIVER_N_ITER), 1.0),
+    }
+    log(f"LAUNCHES {json.dumps(counts)}")
+    log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
+    return counts, per_step, recs
 
 
 def time_cuda(fn, n_iter: int) -> float:
@@ -289,19 +385,18 @@ def time_kernels(device):
     gen = torch.Generator(device=device).manual_seed(99)
     rows = {}
 
-    def iterate_row(shape, dtype, dim, flags):
+    def iterate_row(path, shape, dtype, dim, flags, se):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
         out = torch.empty_like(z)
-        se = 1e-6 * BENCH_N / 8.0
         ms = time_cuda(lambda: hand.stencil2d_iterate(
             z, se, dim=dim, steps=4, phys_static=flags, out=out), 50)
         plain = time_cuda(lambda: hand.stencil2d_iterate_ref(
             z, se, dim=dim, steps=4, phys_static=flags), 5)
         b, why = bound_ms(*iterate_work(shape, dtype, dim, 4, flags))
-        return {"shape": list(shape), "dtype": str(dtype).split(".")[1],
-                "dim": dim, "steps": 4, "phys_static": list(flags),
-                "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": why,
-                "library_ms": None}
+        return {"path": path, "shape": list(shape),
+                "dtype": str(dtype).split(".")[1], "dim": dim, "steps": 4,
+                "phys_static": list(flags), "ms": ms, "plain_ms": plain,
+                "bound_ms": b, "bound_by": why, "library_ms": None}
 
     def deriv_row(shape, dtype, dim):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -320,16 +415,17 @@ def time_kernels(device):
             raise SmokeFailure("conv2d yardstick shape mismatch")
         lib = time_cuda(lambda: F.conv2d(z[None, None], w), 10)
         b, why = bound_ms(*deriv_work(shape, dtype, dim))
-        return {"shape": list(shape), "dtype": str(dtype).split(".")[1],
-                "dim": dim, "ms": ms, "plain_ms": plain, "bound_ms": b,
-                "bound_by": why, "library_ms": lib}
+        return {"path": "stencil2d", "shape": list(shape),
+                "dtype": str(dtype).split(".")[1], "dim": dim, "ms": ms,
+                "plain_ms": plain, "bound_ms": b, "bound_by": why,
+                "library_ms": lib}
 
-    rows["stencil2d_iterate"] = [
-        iterate_row((BENCH_N // 2 + 2 * K4, BENCH_N), torch.float32, 0,
-                    (1, 0)),
-        iterate_row((BENCH_N, BENCH_N + 2 * K4), torch.bfloat16, 1, (1, 1)),
-    ]
-    torch.cuda.empty_cache()
+    # one row per distinct schedule: bench f32 block 0, bench bf16, the
+    # driver's periodic block
+    rows["stencil2d_iterate"] = []
+    for i in (0, 2, 3):
+        rows["stencil2d_iterate"].append(iterate_row(*iterate_cases()[i]))
+        torch.cuda.empty_cache()
     rows["stencil2d_deriv"] = [
         deriv_row((REF_N_LOCAL + 4, REF_N_OTHER), torch.float32, 0),
         deriv_row((REF_N_LOCAL, REF_N_OTHER + 4), torch.float32, 1),
@@ -379,7 +475,7 @@ def main() -> int:
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
-        counts, rec = run_main_path(device)
+        counts, per_step, _ = run_main_path(device)
         torch.cuda.empty_cache()
         rows = time_kernels(device)
     except Exception:
@@ -394,7 +490,12 @@ def main() -> int:
         main_row = rows[name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces,
+            "launches": sum(c[name] for c in counts.values()),
+            "launches_per_path": {p: c[name] for p, c in counts.items()},
+            "launches_per_timestep": {p: s[name]
+                                      for p, s in per_step.items()
+                                      if name in s},
             "max_abs_err": errs[name],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
