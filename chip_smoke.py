@@ -5,33 +5,47 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build both hand kernels from ``tpu_mpi_tests_torch/kernels/csrc``
+2. build all four hand kernels from ``tpu_mpi_tests_torch/kernels/csrc``
    (``nvcc`` for ``sm_90a``, one process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
    operand the main path gives it (the bench's f32 blocks and bf16
    buffer, the driver's periodic iterate blocks); the derivative over
-   dim 0/1 × float32/bfloat16 and its main-path shapes. Tolerance: 0 —
-   bit-exact in both dtypes. The kernels round after every op exactly
-   where the eager PyTorch ops round (float32: one IEEE op each, no FMA
-   contraction; bfloat16: each op in float32, rounded to bf16), so any
-   difference is a fault;
-4. the main path, three paths in turn, each with every launch count set
-   to 0 just before it and read just after: the headline bench
-   (``tpu_mpi_tests_torch.bench``) at n=8192 in float32 (S=2 resident
-   blocks, k=4), the same in bfloat16 (dim-1 single buffer, k=4), then
-   the ``stencil2d`` driver with ``--kernel hand`` at the reference
-   sizes (n_local 1024, n_other 524288) plus its iterate leg
-   (``--iterate-tier blocks --iterate-steps 4``). Every err-norm and
-   eigen gate must pass, each path's own kernels must have launched, and
-   its launches per timestep must be what its schedule makes;
+   dim 0/1 × float32/bfloat16 and its main-path shapes; the heat update
+   over float32/bfloat16/float64 × steps 1..4 × ragged shapes (68×52,
+   1000×777), the heat runner (exchange + kernel) against its torch tier
+   at ghost width 1 and 4, and the heat path's operands (8200² at k=4 in
+   float32 and bfloat16, 8194² at k=1); the dual step over the three
+   dtypes × ragged shapes and its operand (8196² float32). Tolerance: 0 —
+   bit-exact in every dtype. The kernels round after every op exactly
+   where the eager PyTorch ops round (float32/float64: one IEEE op each,
+   no FMA contraction; bfloat16: each op in float32, rounded to bf16),
+   so any difference is a fault. The one exception is the dual step's
+   residual, a deterministic sum in another order than torch's, held to
+   ``hand.RESIDUAL_RTOL`` (relative);
+4. the main path, seven paths in turn, each with every launch count set
+   to 0 just before it and read just after (and its peak device memory
+   read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
+   in float32 (S=2 resident blocks, k=4), the same in bfloat16 (dim-1
+   single buffer, k=4), the ``stencil2d`` driver with ``--kernel hand``
+   at the reference sizes (n_local 1024, n_other 524288) plus its
+   iterate leg (``--iterate-tier blocks --iterate-steps 4``), the
+   ``heat2d`` driver with ``--kernel hand --mesh 1,1`` at 8192² for 200
+   steps (``--halo-steps 4`` float32, ``--halo-steps 1`` float32,
+   ``--halo-steps 4`` bfloat16), and the ``stencil2d_grid`` driver with
+   ``--kernel hand --mesh 1,1`` at 8192² (20 iterations after 2 warmup).
+   Every err-norm and eigen gate must pass, each path's own kernels must
+   have launched, and its launches per timestep must be what its
+   schedule makes;
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
-   exists (``F.conv2d`` for the derivative, TF32 off) and its bound: the
-   larger of bytes moved (each input read once, each output written
-   once) over 3.35 TB/s and flops over 67 TFLOP/s (H100 SXM float32
-   outside the tensor cores; bf16 arithmetic runs in float32 units);
+   exists (``F.conv2d``, TF32 off: for the derivative, and for the dual
+   step a (2,1,5,5) cross-shaped weight giving both derivatives but not
+   the residual; none for the k-step updates) and its bound: the larger
+   of bytes moved (each input read once, each output written once) over
+   3.35 TB/s and flops over 67 TFLOP/s (H100 SXM float32 outside the
+   tensor cores; bf16 arithmetic runs in float32 units);
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -52,8 +66,12 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 TOLERANCE = 0.0            # bit-exact, see the module docstring
 ITERATE_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/stencil_iterate.cu"
 DERIV_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/stencil_deriv.cu"
+HEAT_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/heat2d.cu"
+DUAL_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/dual_dim_step.cu"
 ITERATE_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:1177"
 DERIV_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:636"
+HEAT_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:1448"
+DUAL_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:1624"
 REF_N_LOCAL, REF_N_OTHER = 1024, 512 * 1024  # the driver's defaults
 BENCH_N = 8192  # the headline domain
 # the bench's own defaults, set explicitly so its timesteps are known
@@ -62,6 +80,11 @@ DRIVER_N_ITER, DRIVER_N_WARMUP, DRIVER_ITERATE_ITERS = 5, 2, 4
 K4 = 2 * 4     # ghost width of the k=4 schedules
 BENCH_SE = 1e-6 * BENCH_N / 8.0  # the bench's eps × scale
 DRIVER_SE = 0.01                 # the driver's iterate-leg scale_eps
+GRID_N = 8192                    # the 2-D grid paths' local extent
+HEAT_N_STEPS = 200               # the heat driver's default step count
+HEAT_RUNS = (("float32", 4), ("float32", 1), ("bfloat16", 4))
+GRID_N_ITER, GRID_N_WARMUP = 20, 2
+GRID_SCALE = GRID_N / 8.0        # dz scale of the grid driver (Domain1D)
 
 
 class SmokeFailure(RuntimeError):
@@ -102,6 +125,20 @@ def iterate_cases():
          (1, 1), BENCH_SE),
         ("stencil2d", driver_block, torch.float32, 0, (0, 0), DRIVER_SE),
     ]
+
+
+def heat_cases():
+    """The heat update's operands on the main path: (path, shape, dtype,
+    steps, cx, cy) — the driver's 8192² shard ghosted k deep on both
+    axes, with the driver's own coefficients."""
+    import torch
+
+    from tpu_mpi_tests_torch.drivers import heat2d
+
+    _, cx, cy = heat2d.coefficients(GRID_N, GRID_N, 0.1)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    return [(f"heat2d {dt} k={k}", (GRID_N + 2 * k, GRID_N + 2 * k),
+             dtypes[dt], k, cx, cy) for dt, k in HEAT_RUNS]
 
 
 def compare(name, got, want, failures):
@@ -169,9 +206,14 @@ def check_kernels(device):
                                        phys_static=(1, 0)), failures)
     n_cases += 1
 
+    n_cases += check_grid_kernels(device, rand, failures)
+
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
-    # the driver's periodic iterate blocks, the driver's derivatives
-    errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0}
+    # the driver's periodic iterate blocks, the driver's derivatives, the
+    # heat paths' shards, the grid path's block
+    errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0,
+            "heat2d": 0.0, "dual_dim_step": 0.0,
+            "dual_dim_step residual (relative)": 0.0}
     for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
         err = compare(
@@ -193,6 +235,22 @@ def check_kernels(device):
         errs["stencil2d_deriv"] = max(errs["stencil2d_deriv"], err)
         n_cases += 1
         del z
+    for path, shape, dtype, k, cx, cy in heat_cases():
+        z = rand(shape, dtype)
+        err = compare(f"heat2d main-path {path} {shape}",
+                      hand.heat2d(z, cx, cy, steps=k),
+                      hand.heat2d_ref(z, cx, cy, steps=k), failures)
+        errs["heat2d"] = max(errs["heat2d"], err)
+        n_cases += 1
+        del z
+        torch.cuda.empty_cache()
+    z = rand((GRID_N + 4, GRID_N + 4), torch.float32)
+    err, rel = compare_dual("dual_dim_step main-path", z, GRID_SCALE,
+                            GRID_SCALE, failures)
+    errs["dual_dim_step"] = max(errs["dual_dim_step"], err)
+    errs["dual_dim_step residual (relative)"] = rel
+    n_cases += 1
+    del z
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if failures:
@@ -202,20 +260,107 @@ def check_kernels(device):
     return errs
 
 
-def drive_path(path, fn, kernels):
-    """Run one main path with every launch count set to 0 just before and
-    read just after; fail unless each of ``kernels`` launched in it.
-    Returns (fn's result, the path's counts)."""
+def compare_dual(name, z, sx, sy, failures):
+    """The dual step against its plain version: both derivatives
+    bit-exact, the residual within ``hand.RESIDUAL_RTOL``. Returns (max
+    abs error of the derivatives, relative error of the residual)."""
     from tpu_mpi_tests_torch.kernels import hand
 
+    gx, gy, gr = hand.dual_dim_step(z, 2, sx, sy)
+    wx, wy, wr = hand.dual_dim_step_ref(z, 2, sx, sy)
+    err = max(compare(f"{name} {tuple(z.shape)} {z.dtype} dz_dx", gx, wx,
+                      failures),
+              compare(f"{name} {tuple(z.shape)} {z.dtype} dz_dy", gy, wy,
+                      failures))
+    want = float(wr)
+    rel = abs(float(gr) - want) / max(abs(want), 1e-300)
+    rtol = hand.RESIDUAL_RTOL[z.dtype]
+    if gr.dtype != z.dtype or not rel <= rtol:
+        failures.append(f"{name} {tuple(z.shape)} {z.dtype} residual: "
+                        f"{float(gr)!r} vs {want!r}, relative {rel:g} "
+                        f"(tolerance {rtol:g})")
+    return err, rel
+
+
+def check_grid_kernels(device, rand, failures) -> int:
+    """The heat update and the dual step at small ragged shapes in every
+    dtype, and the heat runner at ghost widths 1 and 4. Returns the
+    number of cases."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        # ragged against the 32x128 output tile on both axes
+        for shape in ((68, 52), (1000, 777)):
+            z = rand(shape, dtype)
+            for steps in (1, 2, 3, 4):
+                compare(f"heat2d {dtype} {shape} steps={steps}",
+                        hand.heat2d(z, 0.13, 0.21, steps=steps),
+                        hand.heat2d_ref(z, 0.13, 0.21, steps=steps),
+                        failures)
+                n_cases += 1
+            compare_dual("dual_dim_step", z, 3.0, 0.5, failures)
+            n_cases += 1
+    # the runner: periodic exchange on both axes + the kernel on two
+    # ping-ponged buffers, against the torch tier, 3 bodies
+    for n_bnd, steps in ((1, 1), (4, 1), (4, 2), (4, 3), (4, 4)):
+        z = rand((100 + 2 * n_bnd, 260 + 2 * n_bnd), torch.float32)
+        got = H.heat_step2d_fn(n_bnd, 0.2, 0.2, steps=steps,
+                               kernel="hand")(z.clone(), 3)
+        want = H.heat_step2d_fn(n_bnd, 0.2, 0.2, steps=steps,
+                                kernel="torch")(z.clone(), 3)
+        compare(f"heat runner n_bnd={n_bnd} steps={steps}", got, want,
+                failures)
+        n_cases += 1
+    return n_cases
+
+
+def drive_path(path, fn, kernels, peaks):
+    """Run one main path with every launch count set to 0 just before and
+    read just after; fail unless each of ``kernels`` launched in it.
+    Records the path's peak device memory in ``peaks``. Returns (fn's
+    result, the path's counts)."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     hand.reset_launch_counts()
     result = fn()
     counts = hand.launch_counts()
+    peaks[path] = torch.cuda.max_memory_allocated()
     for name in kernels:
         if counts[name] <= 0:
             raise SmokeFailure(f"kernel {name} was never launched on the "
                                f"{path} path")
     return result, counts
+
+
+def drive_driver(path, module, argv, kernels, needed, peaks):
+    """Run a driver's ``main(argv)`` as one main path (:func:`drive_path`)
+    with its output captured and logged; fail unless it exits 0 with no
+    FAIL line and prints each of ``needed``. Returns the path's counts."""
+    log(f"DRIVER python -m {module.__name__} " + " ".join(argv))
+
+    def run():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = module.main(argv)
+        return rc, out.getvalue()
+
+    (rc, text), counts = drive_path(path, run, kernels, peaks)
+    for line in text.splitlines():
+        log(f"  {line}")
+    if rc != 0 or "FAIL" in text:
+        raise SmokeFailure(f"{path} driver failed (rc={rc})")
+    for want in needed:
+        if want not in text:
+            raise SmokeFailure(f"{path} output lacks {want!r}")
+    return counts
 
 
 def check_per_timestep(path, name, launches, timesteps, want):
@@ -236,7 +381,7 @@ def run_main_path(device):
     (counts per path, launches per timestep per path, bench records)."""
     from tpu_mpi_tests_torch import bench
     from tpu_mpi_tests_torch.comm import halo as H
-    from tpu_mpi_tests_torch.drivers import stencil2d
+    from tpu_mpi_tests_torch.drivers import heat2d, stencil2d, stencil2d_grid
 
     # the bench's default schedules at the headline size, one dtype per
     # run so each has counts of its own, whatever the caller's
@@ -250,7 +395,7 @@ def run_main_path(device):
         "TPU_MPI_BENCH_ITERS_LONG": str(BENCH_ITERS_LONG),
         "TPU_MPI_BENCH_SAMPLES": str(BENCH_SAMPLES),
     })
-    counts, per_step, recs = {}, {}, {}
+    counts, per_step, recs, peaks = {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         path = f"bench {dtype}"
         os.environ["TPU_MPI_BENCH_DTYPE"] = dtype
@@ -263,7 +408,7 @@ def run_main_path(device):
             return rec
 
         rec, counts[path] = drive_path(path, run_bench,
-                                       ["stencil2d_iterate"])
+                                       ["stencil2d_iterate"], peaks)
         if rec.get("tier") != "blocks" or not rec.get("value", 0) > 0:
             raise SmokeFailure(f"{path}: not a measured blocks-tier run: "
                                f"{rec}")
@@ -287,24 +432,9 @@ def run_main_path(device):
             str(DRIVER_N_WARMUP), "--kernel", "hand",
             "--iterate-tier", "blocks", "--iterate-steps", "4",
             "--iterate-iters", str(DRIVER_ITERATE_ITERS)]
-    log("DRIVER python -m tpu_mpi_tests_torch.drivers.stencil2d "
-        + " ".join(argv))
-
-    def run_driver():
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = stencil2d.main(argv)
-        return rc, out.getvalue()
-
-    (rc, text), counts[path] = drive_path(
-        path, run_driver, ["stencil2d_iterate", "stencil2d_deriv"])
-    for line in text.splitlines():
-        log(f"  {line}")
-    if rc != 0 or "FAIL" in text:
-        raise SmokeFailure(f"stencil2d driver failed (rc={rc})")
-    for needed in ("TEST dim:0", "TEST dim:1", "ITER ERR rel="):
-        if needed not in text:
-            raise SmokeFailure(f"stencil2d output lacks {needed!r}")
+    counts[path] = drive_driver(
+        path, stencil2d, argv, ["stencil2d_iterate", "stencil2d_deriv"],
+        ("TEST dim:0", "TEST dim:1", "ITER ERR rel="), peaks)
     # the iterate leg: one warm call, then --iterate-iters calls, k
     # timesteps each, S blocks; the derivative: dim × buf = 4 tests of
     # n_warmup + n_iter iterations, one launch each
@@ -318,8 +448,36 @@ def run_main_path(device):
             path, "stencil2d_deriv", counts[path]["stencil2d_deriv"],
             4 * (DRIVER_N_WARMUP + DRIVER_N_ITER), 1.0),
     }
+
+    # the heat mini-app: one launch per outer body of k timesteps
+    for dtype, k in HEAT_RUNS:
+        path = f"heat2d {dtype} k={k}"
+        argv = ["--device", device.type, "--kernel", "hand", "--mesh", "1,1",
+                "--nx-local", str(GRID_N), "--ny-local", str(GRID_N),
+                "--n-steps", str(HEAT_N_STEPS), "--halo-steps", str(k),
+                "--dtype", dtype]
+        counts[path] = drive_driver(path, heat2d, argv, ["heat2d"],
+                                    ("HEAT mesh:1x1", "HEAT ERR rel="),
+                                    peaks)
+        per_step[path] = {"heat2d": check_per_timestep(
+            path, "heat2d", counts[path]["heat2d"], HEAT_N_STEPS, 1 / k)}
+
+    # the 2-D grid step: one dual-step launch per iteration
+    path = "stencil2d_grid"
+    argv = ["--device", device.type, "--kernel", "hand", "--mesh", "1,1",
+            "--nx-local", str(GRID_N), "--ny-local", str(GRID_N),
+            "--n-iter", str(GRID_N_ITER), "--n-warmup", str(GRID_N_WARMUP)]
+    counts[path] = drive_driver(path, stencil2d_grid, argv,
+                                ["dual_dim_step"],
+                                ("GRID TEST px:1 py:1", "step mean="),
+                                peaks)
+    per_step[path] = {"dual_dim_step": check_per_timestep(
+        path, "dual_dim_step", counts[path]["dual_dim_step"],
+        GRID_N_ITER + GRID_N_WARMUP, 1.0)}
+
     log(f"LAUNCHES {json.dumps(counts)}")
     log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
+    log(f"PEAK_BYTES {json.dumps(peaks)}")
     return counts, per_step, recs
 
 
@@ -364,6 +522,29 @@ def deriv_work(shape, dtype, dim):
     out[dim] -= 4
     n_out = out[0] * out[1]
     return (shape[0] * shape[1] + n_out) * itemsize, 8 * n_out
+
+
+def heat_work(shape, dtype, steps):
+    """(bytes, flops) of a k-step heat launch: the shard read once and
+    written once; 9 flops per updated cell ([1, n0−1) × [1, n1−1)) per
+    step."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    updated = (shape[0] - 2) * (shape[1] - 2)
+    return 2 * shape[0] * shape[1] * itemsize, 9 * updated * steps
+
+
+def dual_work(shape, dtype):
+    """(bytes, flops) of a dual step: the block read once, both
+    (n0−4, n1−4) derivatives written once (the residual scalar is
+    negligible); per output point 8 flops per derivative and 4 for the
+    two squares and their sums."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n_out = (shape[0] - 4) * (shape[1] - 4)
+    return (shape[0] * shape[1] + 2 * n_out) * itemsize, 20 * n_out
 
 
 def bound_ms(nbytes, flops):
@@ -420,6 +601,41 @@ def time_kernels(device):
                 "plain_ms": plain, "bound_ms": b, "bound_by": why,
                 "library_ms": lib}
 
+    def heat_row(path, shape, dtype, k, cx, cy):
+        z = torch.randn(shape, generator=gen, device=device).to(dtype)
+        out = torch.empty_like(z)
+        ms = time_cuda(lambda: hand.heat2d(z, cx, cy, steps=k, out=out), 50)
+        plain = time_cuda(lambda: hand.heat2d_ref(z, cx, cy, steps=k), 5)
+        b, why = bound_ms(*heat_work(shape, dtype, k))
+        return {"path": path, "shape": list(shape),
+                "dtype": str(dtype).split(".")[1], "steps": k, "ms": ms,
+                "plain_ms": plain, "bound_ms": b, "bound_by": why,
+                "library_ms": None}
+
+    def dual_row(shape, dtype):
+        z = torch.randn(shape, generator=gen, device=device).to(dtype)
+        s = GRID_SCALE
+        ms = time_cuda(lambda: hand.dual_dim_step(z, 2, s, s), 20)
+        plain = time_cuda(lambda: hand.dual_dim_step_ref(z, 2, s, s), 5)
+        # the yardstick: both derivatives from one cross-shaped (2,1,5,5)
+        # convolution, valid padding (no residual)
+        w = torch.zeros((2, 1, 5, 5), dtype=torch.float64)
+        w[0, 0, :, 2] = torch.from_numpy(STENCIL5 * s)
+        w[1, 0, 2, :] = torch.from_numpy(STENCIL5 * s)
+        w = w.to(device=device, dtype=dtype)
+        lib_out = F.conv2d(z[None, None], w)[0]
+        if tuple(lib_out.shape) != (2, shape[0] - 4, shape[1] - 4):
+            raise SmokeFailure("dual-step conv2d yardstick shape mismatch")
+        del lib_out
+        lib = time_cuda(lambda: F.conv2d(z[None, None], w), 10)
+        b, why = bound_ms(*dual_work(shape, dtype))
+        return {"path": "stencil2d_grid", "shape": list(shape),
+                "dtype": str(dtype).split(".")[1], "ms": ms,
+                "plain_ms": plain, "bound_ms": b, "bound_by": why,
+                "library_ms": lib,
+                "library_call": "F.conv2d (2,1,5,5) cross weight, TF32 off; "
+                                "both derivatives, no residual"}
+
     # one row per distinct schedule: bench f32 block 0, bench bf16, the
     # driver's periodic block
     rows["stencil2d_iterate"] = []
@@ -431,6 +647,13 @@ def time_kernels(device):
         deriv_row((REF_N_LOCAL, REF_N_OTHER + 4), torch.float32, 1),
         deriv_row((REF_N_LOCAL + 4, REF_N_OTHER), torch.bfloat16, 0),
     ]
+    torch.cuda.empty_cache()
+    rows["heat2d"] = []
+    for case in heat_cases():
+        rows["heat2d"].append(heat_row(*case))
+        torch.cuda.empty_cache()
+    rows["dual_dim_step"] = [dual_row((GRID_N + 4, GRID_N + 4),
+                                      torch.float32)]
     torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
@@ -449,7 +672,7 @@ def main() -> int:
               "smoke test needs a CUDA card", file=sys.stderr)
         return 2
     try:
-        from tpu_mpi_tests_torch.kernels import build
+        from tpu_mpi_tests_torch.kernels import build, hand
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable ({e}); run "
               f"from the repository root", file=sys.stderr)
@@ -486,8 +709,17 @@ def main() -> int:
     kernels = []
     for name, source, replaces in (
             ("stencil2d_iterate", ITERATE_SOURCE, ITERATE_REPLACES),
-            ("stencil2d_deriv", DERIV_SOURCE, DERIV_REPLACES)):
+            ("stencil2d_deriv", DERIV_SOURCE, DERIV_REPLACES),
+            ("heat2d", HEAT_SOURCE, HEAT_REPLACES),
+            ("dual_dim_step", DUAL_SOURCE, DUAL_REPLACES)):
         main_row = rows[name][0]
+        extra = {}
+        if name == "dual_dim_step":
+            # max_abs_err is the derivatives'; the residual is a sum in
+            # another order, held to a relative tolerance
+            extra = {"residual_rel_err": errs["dual_dim_step residual "
+                                              "(relative)"],
+                     "residual_rtol": hand.RESIDUAL_RTOL[torch.float32]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -502,6 +734,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "variants": rows[name],
+            **extra,
         })
     log(f"SECONDS {time.perf_counter() - t0:.1f}")
     log(card_line())

@@ -1,13 +1,12 @@
 """The port's copy of the domain layouts against the JAX package's.
 
 The numpy layouts are copies, so shapes, coordinates and ``init_shard``
-must be bit-identical. The device-init helpers differ by design: the
-JAX helpers compute in the target dtype (every op rounded to float32),
-the port's compute in float64 and cast once. So the port equals the JAX
-helper run in float64 exactly, its float32 field lies within one ulp of
-that value cast to float32 (it is the correctly rounded value), and it
-lies a few float32 ulps from the JAX helper run in float32 — at most 8,
-from the handful of float32 roundings in ``x³ + y²`` and the coordinates.
+must be bit-identical. The device-init helpers compute as the JAX
+helpers do — in the target dtype, op by op, in the same order, with
+Python scalars rounded to the dtype first, the index vector built as
+``jnp.arange`` builds it and ``x³`` as the multiplications XLA lowers it
+to — so they are bit-identical too, in float64, float32 and bfloat16
+(0 ulps).
 """
 
 import jax.numpy as jnp
@@ -25,11 +24,17 @@ GEOMS = [dict(n_local_deriv=12, n_global_other=20, n_shards=3, n_bnd=2),
          dict(n_local_deriv=8, n_global_other=6, n_shards=1, n_bnd=8)]
 
 
-def ulps(got, want, dtype):
-    """|got − want| in units of ``dtype``'s spacing at ``want``."""
-    want_d = np.asarray(want, np.float64)
-    sp = np.spacing(np.abs(want_d).astype(dtype)).astype(np.float64)
-    return np.abs(np.asarray(got, np.float64) - want_d) / sp
+DTYPES = [(jnp.float64, torch.float64), (jnp.float32, torch.float32),
+          (jnp.bfloat16, torch.bfloat16)]
+
+
+def assert_bits_equal(got: torch.Tensor, want):
+    """Equal values in the same dtype (bfloat16 compared widened, which
+    is exact)."""
+    want = np.asarray(want)
+    assert str(got.dtype).split(".")[1] == want.dtype.name
+    np.testing.assert_array_equal(got.double().numpy(),
+                                  want.astype(np.float64))
 
 
 @pytest.mark.parametrize("geom", GEOMS)
@@ -64,32 +69,32 @@ def test_domain1d_layout_identical():
     np.testing.assert_array_equal(td.init_global(f), zg)
     np.testing.assert_array_equal(td.strip_ghosts_global(zg),
                                   jd.strip_ghosts_global(zg))
-    tf, _ = torch_pairs()["1d"]
+    tf, tdf = torch_pairs()["1d"]
+    _, df = jax_pairs()["1d"]
     for r in range(4):
-        got = td.init_shard_torch(tf, r, torch.float64, "cpu").numpy()
-        want = np.asarray(jd.init_shard_jax(f, r, jnp.float64))
-        assert ulps(got, want, np.float64).max() <= 1
-        np.testing.assert_array_equal(got == 0, want == 0)
+        for jdt, tdt in DTYPES:
+            assert_bits_equal(td.init_shard_torch(tf, r, tdt, "cpu"),
+                              jd.init_shard_jax(f, r, jdt))
+            assert_bits_equal(td.interior_shard_torch(tdf, r, tdt, "cpu"),
+                              jd.interior_shard_jax(df, r, jdt))
     with pytest.raises(TpuMtError):
         TD.Domain1D(n_global=10, n_shards=4)
 
 
 @pytest.mark.parametrize("dim", [0, 1])
 def test_init_shard_torch_against_jax_helpers(dim):
-    geom = GEOMS[0]
-    jd, td = JD.Domain2D(dim=dim, **geom), TD.Domain2D(dim=dim, **geom)
-    f, df = jax_pairs()[f"2d_dim{dim}"]
-    tf, tdf = torch_pairs()[f"2d_dim{dim}"]
-    for r in range(geom["n_shards"]):
-        j64 = np.asarray(jd.init_shard_jax(f, r, jnp.float64))
-        j32 = np.asarray(jd.init_shard_jax(f, r, jnp.float32))
-        t64 = td.init_shard_torch(tf, r, torch.float64, "cpu").numpy()
-        t32 = td.init_shard_torch(tf, r, torch.float32, "cpu").numpy()
-        assert ulps(t64, j64, np.float64).max() <= 1
-        assert ulps(t32, j64.astype(np.float32), np.float32).max() <= 1
-        assert ulps(t32, j32, np.float32).max() <= 8
-        # the layout: interior ghosts are zero exactly where JAX's are
-        np.testing.assert_array_equal(t64 == 0, j64 == 0)
-        i64 = np.asarray(jd.interior_shard_jax(df, r, jnp.float64))
-        got = td.interior_shard_torch(tdf, r, torch.float64, "cpu").numpy()
-        assert ulps(got, i64, np.float64).max() <= 1
+    # the first geometry has 3 shards (edge and middle ranks); the wide
+    # one has coordinates past 256, where a bfloat16 iota rounds
+    for geom in (GEOMS[0], dict(n_local_deriv=300, n_global_other=280,
+                                n_shards=2, n_bnd=2)):
+        jd = JD.Domain2D(dim=dim, **geom)
+        td = TD.Domain2D(dim=dim, **geom)
+        f, df = jax_pairs()[f"2d_dim{dim}"]
+        tf, tdf = torch_pairs()[f"2d_dim{dim}"]
+        for r in range(geom["n_shards"]):
+            for jdt, tdt in DTYPES:
+                assert_bits_equal(td.init_shard_torch(tf, r, tdt, "cpu"),
+                                  jd.init_shard_jax(f, r, jdt))
+                assert_bits_equal(
+                    td.interior_shard_torch(tdf, r, tdt, "cpu"),
+                    jd.interior_shard_jax(df, r, jdt))

@@ -7,14 +7,18 @@ GPU). Run them on a machine with one:
 machine need not have; this file imports only torch and the port.)
 
 Each kernel is held against its plain version on the same CUDA tensors,
-bit for bit (the kernels round where the eager torch ops round), and a
-wrapper given a CUDA tensor returns a CUDA tensor and counts a launch.
+bit for bit (the kernels round where the eager torch ops round) — the
+dual step's residual, a sum in another order, within
+``hand.RESIDUAL_RTOL`` — and a wrapper given a CUDA tensor returns a
+CUDA tensor and counts a launch. The 2-D grid drivers run end to end on
+the card with ``--kernel hand`` at a small size.
 """
 
 import pytest
 import torch
 
 from tpu_mpi_tests_torch.comm import halo as TH
+from tpu_mpi_tests_torch.drivers import heat2d, stencil2d_grid
 from tpu_mpi_tests_torch.kernels import hand
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +80,66 @@ def test_blocks_runner_on_card_matches_cpu(card, periodic):
     got = TH.merge_blocks(run(TH.split_blocks(z, S, K), 3), K)
     want = TH.merge_blocks(run(TH.split_blocks(z.cpu(), S, K), 3), K)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("steps", [1, 2, 4])
+@pytest.mark.parametrize("shape", [(68, 52), (200, 300)])
+def test_heat2d_kernel_matches_plain(card, dtype, steps, shape):
+    z = rand(card, shape, dtype, seed=steps)
+    before = hand.heat2d.launches
+    got = hand.heat2d(z, 0.1, 0.2, steps=steps)
+    want = hand.heat2d_ref(z, 0.1, 0.2, steps=steps)
+    torch.cuda.synchronize(card)
+    assert got.device == card
+    assert hand.heat2d.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_heat2d_rejects_aliasing_and_too_deep_steps(card):
+    z = rand(card, (40, 40), torch.float32, seed=1)
+    with pytest.raises(ValueError, match="share storage"):
+        hand.heat2d(z, 0.1, 0.1, out=z)
+    deepest = hand.heat2d_max_steps(torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        hand.heat2d(z, 0.1, 0.1, steps=deepest + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("shape", [(68, 52), (301, 133)])
+def test_dual_dim_step_kernel_matches_plain(card, dtype, shape):
+    z = rand(card, shape, dtype, seed=5)
+    before = hand.dual_dim_step.launches
+    gx, gy, gr = hand.dual_dim_step(z, 2, 1.5, 0.75)
+    wx, wy, wr = hand.dual_dim_step_ref(z, 2, 1.5, 0.75)
+    torch.cuda.synchronize(card)
+    assert hand.dual_dim_step.launches == before + 1
+    assert torch.equal(gx, wx) and torch.equal(gy, wy)
+    assert gr.dtype == dtype and gr.device == card
+    assert abs(float(gr) - float(wr)) <= hand.RESIDUAL_RTOL[dtype] * abs(
+        float(wr))
+
+
+@pytest.mark.parametrize("halo_steps", [1, 4])
+def test_heat_step2d_hand_runner_on_card_matches_cpu(card, halo_steps):
+    z = rand(card, (64 + 2 * halo_steps, 48 + 2 * halo_steps),
+             torch.float32, seed=9)
+    run = TH.heat_step2d_fn(halo_steps, 0.1, 0.2, steps=halo_steps,
+                            kernel="hand")
+    got = run(z.clone(), 3)
+    want = run(z.cpu(), 3)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_grid_drivers_hand_on_card(card, capsys):
+    assert heat2d.main(["--mesh", "1,1", "--nx-local", "96", "--ny-local",
+                        "80", "--n-steps", "24", "--halo-steps", "4",
+                        "--kernel", "hand"]) == 0
+    assert stencil2d_grid.main(["--mesh", "1,1", "--nx-local", "96",
+                                "--ny-local", "80", "--n-iter", "3",
+                                "--n-warmup", "1", "--kernel", "hand"]) == 0
+    out = capsys.readouterr().out
+    assert "HEAT ERR rel=" in out and "GRID TEST px:1 py:1" in out
+    assert "FAIL" not in out

@@ -19,7 +19,7 @@ import torch
 from tpu_mpi_tests_torch import bench
 from tpu_mpi_tests_torch.comm.mesh import MeshError, bootstrap, topology
 from tpu_mpi_tests_torch.device import resolve_device
-from tpu_mpi_tests_torch.drivers import stencil2d
+from tpu_mpi_tests_torch.drivers import heat2d, stencil2d, stencil2d_grid
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.utils import TpuMtError
 
@@ -69,8 +69,9 @@ def test_port_imports_no_jax(path):
 
 def test_port_has_its_kernel_sources():
     csrc = REPO / "tpu_mpi_tests_torch" / "kernels" / "csrc"
-    assert (csrc / "stencil_iterate.cu").is_file()
-    assert (csrc / "stencil_deriv.cu").is_file()
+    for name in ("stencil_iterate.cu", "stencil_deriv.cu", "heat2d.cu",
+                 "dual_dim_step.cu"):
+        assert (csrc / name).is_file()
 
 
 def test_resolve_device_raises_without_a_card(monkeypatch):
@@ -92,6 +93,10 @@ def test_entry_points_asked_for_cuda_never_print_a_cpu_result(
         bench.main([])
     with pytest.raises(TpuMtError):
         stencil2d.main(["--n-local", "8", "--n-other", "8"])
+    with pytest.raises(TpuMtError):
+        heat2d.main(["--nx-local", "8", "--ny-local", "8"])
+    with pytest.raises(TpuMtError):
+        stencil2d_grid.main(["--nx-local", "8", "--ny-local", "8"])
     assert capsys.readouterr().out == ""
 
 
@@ -102,6 +107,10 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         hand.stencil2d_iterate(z, 0.1, dim=0, steps=2, phys_static=(1, 1))
     with pytest.raises(ValueError, match="unsupported device"):
         hand.stencil2d_deriv(z, 1.0, dim=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hand.heat2d(z, 0.1, 0.1, steps=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hand.dual_dim_step(z, 2, 1.0, 1.0)
     assert hand.launch_counts() == before
 
 

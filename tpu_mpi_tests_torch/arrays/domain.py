@@ -14,11 +14,12 @@ comparable:
   (``mpi_stencil_gt.cc:185-196``, ``mpi_stencil2d_gt.cc:458-497``).
 
 The JAX package's traceable ``*_jax`` helpers become ``*_torch`` helpers
-that compute the field ON THE DEVICE in float64 and cast once to the
-requested dtype. The JAX helpers compute in the target dtype instead, so
-a float32/bf16 field here is the correctly rounded f64 value (equal to
-the JAX helper run in float64 and cast), a few ulps from the JAX helper
-run in float32.
+that compute the field ON THE DEVICE the way the JAX helpers do: in the
+target dtype, op by op, in the same order (``start + idx·delta``, then
+``fn``), with every Python scalar rounded to that dtype first (JAX's
+weak-typed scalars) and the index vector built as ``jnp.arange`` builds
+it (an iota in the dtype, plus the start). So the fields equal the JAX
+helpers' bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +31,21 @@ import numpy as np
 import torch
 
 from tpu_mpi_tests_torch.utils import check_divisible
+
+
+def _scalar(value, dtype: torch.dtype) -> torch.Tensor:
+    """``value`` rounded to ``dtype`` as a 0-dim CPU tensor — what a
+    weak-typed Python scalar becomes in a JAX op on a ``dtype`` array."""
+    return torch.tensor(float(value), dtype=dtype)
+
+
+def _arange(lo: int, hi: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``jnp.arange(lo, hi, dtype=dtype)``: an iota in ``dtype`` (index
+    ``i`` rounded to the dtype), plus ``lo`` in the dtype when ``lo`` is
+    not 0 — in bfloat16 that differs from the correctly rounded values
+    past 256."""
+    idx = torch.arange(hi - lo, dtype=dtype, device=device)
+    return idx if lo == 0 else _scalar(lo, dtype) + idx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,28 +104,32 @@ class Domain1D:
             out[-self.n_bnd :] = fn(xg[-self.n_bnd :])
         return out
 
+    def _start(self, rank: int, dtype: torch.dtype) -> torch.Tensor:
+        return _scalar(rank, dtype) * _scalar(self.n_local * self.delta,
+                                              dtype)
+
     def init_shard_torch(self, fn, rank: int, dtype: torch.dtype,
                          device) -> torch.Tensor:
-        """Device-side ghosted-shard init (f64 on ``device``, one cast) —
-        same layout as :meth:`init_shard`."""
-        start = rank * (self.n_local * self.delta)
-        idx = torch.arange(-self.n_bnd, self.n_local + self.n_bnd,
-                           dtype=torch.float64, device=device)
-        full = fn(start + idx * self.delta)
+        """Device-side ghosted-shard init in ``dtype`` on ``device`` —
+        same layout as :meth:`init_shard`, same values as
+        ``init_shard_jax``."""
+        idx = _arange(-self.n_bnd, self.n_local + self.n_bnd, dtype, device)
+        x = self._start(rank, dtype) + idx * _scalar(self.delta, dtype)
+        full = fn(x).to(dtype)
         i = torch.arange(self.n_ghosted, device=device)
         keep = (i >= self.n_bnd) & (i < self.n_bnd + self.n_local)
         if rank == 0:
             keep |= i < self.n_bnd
         if rank == self.n_shards - 1:
             keep |= i >= self.n_bnd + self.n_local
-        return full.masked_fill_(~keep, 0.0).to(dtype)
+        return torch.where(keep, full, _scalar(0.0, dtype).to(device))
 
     def interior_shard_torch(self, fn, rank: int, dtype: torch.dtype,
                              device) -> torch.Tensor:
         """Device-side unghosted-shard field (err-norm references)."""
-        start = rank * (self.n_local * self.delta)
-        idx = torch.arange(self.n_local, dtype=torch.float64, device=device)
-        return fn(start + idx * self.delta).to(dtype)
+        idx = _arange(0, self.n_local, dtype, device)
+        x = self._start(rank, dtype) + idx * _scalar(self.delta, dtype)
+        return fn(x).to(dtype)
 
     def init_global(self, fn, dtype=np.float64) -> np.ndarray:
         """Ghosted-global concatenation of all shard blocks."""
@@ -225,16 +245,16 @@ class Domain2D:
             axis=self.dim,
         )
 
-    def _coords_torch(self, rank: int, ghosted: bool, device):
-        """(x, y) float64 coordinate vectors on ``device``."""
-        start = rank * (self.n_local_deriv * self.delta)
+    def _coords_torch(self, rank: int, ghosted: bool, dtype, device):
+        """(x, y) coordinate vectors in ``dtype`` on ``device``, computed
+        as ``_coords_jax`` computes them."""
+        start = _scalar(rank, dtype) * _scalar(
+            self.n_local_deriv * self.delta, dtype)
         lo = -self.n_bnd if ghosted else 0
         hi = self.n_local_deriv + (self.n_bnd if ghosted else 0)
-        f64 = torch.float64
-        deriv_c = start + torch.arange(lo, hi, dtype=f64,
-                                       device=device) * self.delta
-        other_c = torch.arange(self.n_global_other, dtype=f64,
-                               device=device) * self.delta
+        delta = _scalar(self.delta, dtype)
+        deriv_c = start + _arange(lo, hi, dtype, device) * delta
+        other_c = _arange(0, self.n_global_other, dtype, device) * delta
         return (
             (deriv_c, other_c) if self.dim == 0 else (other_c, deriv_c)
         )
@@ -243,9 +263,9 @@ class Domain2D:
                          device) -> torch.Tensor:
         """Device-side ghosted-shard init: interior = fn, physical ghosts
         analytic on edge shards, interior ghosts zero — the layout of
-        :meth:`init_shard`, computed in f64 on ``device``, cast once."""
-        x, y = self._coords_torch(rank, ghosted=True, device=device)
-        full = fn(x[:, None], y[None, :])
+        :meth:`init_shard`, the values of ``init_shard_jax``."""
+        x, y = self._coords_torch(rank, True, dtype, device)
+        full = fn(x[:, None], y[None, :]).to(dtype)
         i = torch.arange(self.n_local_deriv + 2 * self.n_bnd, device=device)
         keep = (i >= self.n_bnd) & (i < self.n_bnd + self.n_local_deriv)
         if rank == 0:
@@ -254,12 +274,13 @@ class Domain2D:
             keep |= i >= self.n_bnd + self.n_local_deriv
         shape = [1, 1]
         shape[self.dim] = keep.shape[0]
-        return full.masked_fill_(~keep.reshape(shape), 0.0).to(dtype)
+        return torch.where(keep.reshape(shape), full,
+                           _scalar(0.0, dtype).to(device))
 
     def interior_shard_torch(self, fn, rank: int, dtype: torch.dtype,
                              device) -> torch.Tensor:
         """Device-side unghosted-shard field — err-norm references."""
-        x, y = self._coords_torch(rank, ghosted=False, device=device)
+        x, y = self._coords_torch(rank, False, dtype, device)
         return fn(x[:, None], y[None, :]).to(dtype)
 
     def interior_shard(self, fn, rank: int, dtype=np.float64) -> np.ndarray:

@@ -17,8 +17,15 @@ a Python loop of launches:
 * :func:`iterate_hand_blocks_fn` — the hand kernel over S resident row
   blocks (≅ ``iterate_pallas_blocks_fn``, ``halo.py:955``).
 
+The 2-D process grid on the 1×1 grid: :func:`heat_step2d_fn` (the heat
+mini-app's chained Euler steps, ≅ ``halo.py:1371``) and
+:func:`step2d_fn` (exchange both axes, both-axis derivatives, residual
+allreduce, ≅ ``halo.py:1185``), each with ``kernel="torch"`` (the XLA
+body as torch ops) or ``"hand"`` (the CUDA kernel).
+
 The hand runners keep two buffers per block and swap them after each
-launch: the CUDA kernel is out-of-place (see ``csrc/stencil_iterate.cu``).
+launch: the CUDA kernels are out-of-place (see ``csrc/stencil_iterate.cu``
+and ``csrc/heat2d.cu``).
 """
 
 from __future__ import annotations
@@ -27,9 +34,17 @@ import enum
 
 import torch
 
+from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
+from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.hand import stencil2d_deriv, \
     stencil2d_iterate
-from tpu_mpi_tests_torch.kernels.stencil import N_BND, coef, stencil1d_5
+from tpu_mpi_tests_torch.kernels.stencil import (
+    N_BND,
+    coef,
+    dual_dim_step,
+    heat2d_steps_,
+    stencil1d_5,
+)
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
 #: every kernel tier the JAX package's iterate knows; the port runs
@@ -147,6 +162,71 @@ def stencil_fn(axis: int, scale: float, kernel: str = "torch"):
         return lambda z: stencil1d_5(z, scale=scale, axis=axis)
     raise TpuMtError(f"unknown stencil kernel {kernel!r}; valid: torch, "
                      f"hand")
+
+
+def _check_kernel(name: str, kernel: str) -> None:
+    if kernel not in ("torch", "hand"):
+        raise TpuMtError(f"{name}: unknown kernel {kernel!r}; valid: torch, "
+                         f"hand")
+
+
+def exchange2d(z: torch.Tensor, n_bnd: int, periodic: bool) -> torch.Tensor:
+    """Both-axis exchange of a both-axes-ghosted shard at world=1, in
+    place: axis 0 first, then axis 1 over every row (the corner ghosts
+    come right because the axis-1 bands include the fresh axis-0 ghost
+    rows) — the order of the JAX bodies."""
+    exchange_shard(z, axis=0, n_bnd=n_bnd, periodic=periodic)
+    return exchange_shard(z, axis=1, n_bnd=n_bnd, periodic=periodic)
+
+
+def heat_step2d_fn(n_bnd: int, cx: float, cy: float, steps: int = 1,
+                   kernel: str = "torch"):
+    """``run(z, n_outer)``: ``n_outer`` bodies of the heat mini-app on
+    the periodic 1×1 grid (≅ ``heat_step2d_fn``, ``halo.py:1371``) — per
+    body a periodic self-ring exchange on axis 0, then on axis 1, then
+    ``steps`` explicit-Euler updates over the maximal span. ``steps=k``
+    is temporal blocking: ghost width ``n_bnd >= k``, one exchange per k
+    steps. ``kernel="torch"`` updates in place with torch ops (the XLA
+    body); ``"hand"`` launches the CUDA kernel once per body on two
+    ping-ponged buffers and returns whichever holds the result."""
+    if n_bnd < steps:
+        raise TpuMtError(
+            f"heat_step2d_fn: ghost width n_bnd={n_bnd} must be >= "
+            f"steps={steps} (one Laplacian radius per fused timestep)"
+        )
+    _check_kernel("heat_step2d_fn", kernel)
+
+    def run(z: torch.Tensor, n_outer: int) -> torch.Tensor:
+        spare = torch.empty_like(z) if kernel == "hand" else None
+        for _ in range(n_outer):
+            exchange2d(z, n_bnd, periodic=True)
+            if kernel == "hand":
+                out = hand.heat2d(z, cx, cy, steps=steps, out=spare)
+                z, spare = out, z
+            else:
+                heat2d_steps_(z, cx, cy, steps)
+        return z
+
+    return run
+
+
+def step2d_fn(n_bnd: int, scale_x: float, scale_y: float,
+              kernel: str = "torch"):
+    """``step(z) -> (dz_dx, dz_dy, residual)``: the 2-D process grid's
+    full step on the 1×1 grid (≅ ``step2d_fn``, ``halo.py:1185``) —
+    non-periodic exchanges on both axes (nothing moves at world=1: the
+    physical ghosts come from init), both-axis derivatives and the
+    residual (``kernel="torch"``: torch ops; ``"hand"``: the CUDA kernel,
+    one read for all three), then the residual's allreduce."""
+    _check_kernel("step2d_fn", kernel)
+    dual = hand.dual_dim_step if kernel == "hand" else dual_dim_step
+
+    def step(z: torch.Tensor):
+        exchange2d(z, n_bnd, periodic=False)
+        dz_dx, dz_dy, residual = dual(z, n_bnd, scale_x, scale_y)
+        return dz_dx, dz_dy, allreduce_sum(residual.reshape(1))[0]
+
+    return step
 
 
 def iterate_fused_fn(axis: int, n_bnd: int, scale: float, eps: float = 1e-6,

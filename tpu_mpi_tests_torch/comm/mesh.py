@@ -53,6 +53,24 @@ def bootstrap(device="cuda") -> torch.device:
     return resolve_device(device)
 
 
+def check_grid(spec: "str | None") -> None:
+    """Refuse a ``'PX,PY'`` process grid of more than one rank: this
+    slice runs the 2-D grid drivers on the 1×1 grid only. A missing or
+    malformed spec passes (``drivers._common.parse_grid_mesh`` resolves
+    or reports it)."""
+    try:
+        px, py = (int(v) for v in spec.split(","))
+    except (AttributeError, ValueError):
+        return
+    if px * py > 1:
+        raise MeshError(
+            f"--mesh {px},{py} asks for a {px}x{py} process grid of "
+            f"{px * py} ranks, but the port runs world=1 (the 1x1 grid) "
+            f"only; multi-rank torch.distributed (comm/dist.py, row and "
+            f"column subgroups) is ROADMAP queue 1 item 2"
+        )
+
+
 def topology(device: torch.device) -> Topology:
     """World=1 topology on ``device``: platform ``gpu`` on the card
     (kind = ``torch.cuda.get_device_name``), ``cpu`` otherwise."""

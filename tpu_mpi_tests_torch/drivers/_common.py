@@ -1,6 +1,6 @@
 """Shared driver plumbing (≅ the minimal part of
 ``tpu_mpi_tests/drivers/_common.py``): the argument parser every driver
-starts from, the reporter, and the dtype map."""
+starts from, the reporter, the dtype map and the process-grid spec."""
 
 from __future__ import annotations
 
@@ -48,3 +48,32 @@ def torch_dtype(args) -> torch.dtype:
 
 def make_reporter(args, rank: int = 0, size: int = 1) -> Reporter:
     return Reporter(rank=rank, size=size, jsonl_path=args.jsonl)
+
+
+def parse_grid_mesh(spec: "str | None", n_dev: int):
+    """Resolve a 'PX,PY' process-grid spec (or auto-factor ``n_dev`` into
+    the squarest grid when None) → ``(px, py)``. Returns None after
+    printing an ERROR line when the spec is malformed, non-positive, or
+    does not multiply to the device count (a copy of the JAX package's
+    ``parse_grid_mesh``)."""
+    if spec:
+        try:
+            px, py = (int(v) for v in spec.split(","))
+        except ValueError:
+            print(f"ERROR --mesh must be 'PX,PY', got {spec!r}")
+            return None
+        if px < 1 or py < 1:
+            print(f"ERROR --mesh factors must be positive, got {px},{py}")
+            return None
+    else:
+        px = 1
+        for cand in range(int(n_dev**0.5), 0, -1):
+            if n_dev % cand == 0:
+                px = cand
+                break
+        py = n_dev // px
+    if px * py != n_dev:
+        print(f"ERROR --mesh {px},{py} needs {px * py} devices, "
+              f"have {n_dev}")
+        return None
+    return px, py

@@ -30,6 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = {
     "stencil_iterate": "stencil_iterate.cu",
     "stencil_deriv": "stencil_deriv.cu",
+    "heat2d": "heat2d.cu",
+    "dual_dim_step": "dual_dim_step.cu",
 }
 
 # -fmad=false: no mul+add contraction anywhere, so float results match

@@ -76,6 +76,33 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
     return dz_dx, dz_dy, residual
 
 
+def _pow(x, n: int):
+    """``x**n`` as JAX computes it: on a tensor, the multiplications XLA
+    lowers an integer power to (``x·(x·x)`` for n=3, rounded per op in
+    the tensor's dtype, whatever ``torch.pow`` does on the device); on a
+    numpy array, numpy's own ``**`` (the JAX package's host init)."""
+    if not isinstance(x, torch.Tensor):
+        return x**n
+    return x * x if n == 2 else x * (x * x)
+
+
+def heat2d_steps_(z: torch.Tensor, cx: float, cy: float, steps: int = 1
+                  ) -> torch.Tensor:
+    """``steps`` explicit-Euler heat updates of ``z`` IN PLACE — the XLA
+    body of ``heat_step2d_fn`` (``tpu_mpi_tests/comm/halo.py:1445-1457``)
+    op for op: every cell of ``[1, n0−1) × [1, n1−1)`` (the maximal span)
+    gets ``(mid + cx·((z₊₁ + z₋₁) − 2·mid)) + cy·(…)`` per axis, with
+    ``cx``, ``cy`` and 2 rounded to the array dtype; the outer ring keeps
+    its value. Returns ``z``."""
+    two, cxt, cyt = coef(2.0, z), coef(cx, z), coef(cy, z)
+    mid = z[1:-1, 1:-1]
+    for _ in range(steps):
+        d2x = z[2:, 1:-1] + z[:-2, 1:-1] - two * mid
+        d2y = z[1:-1, 2:] + z[1:-1, :-2] - two * mid
+        mid.copy_(mid + cxt * d2x + cyt * d2y)
+    return z
+
+
 def analytic_pairs():
     """The reference's test functions: (f, df) pairs used by the drivers.
     They work on numpy arrays and torch tensors alike.
@@ -86,16 +113,16 @@ def analytic_pairs():
     """
 
     def x_cubed(x):
-        return x**3
+        return _pow(x, 3)
 
     def x_cubed_deriv(x):
-        return 3 * x**2
+        return 3 * _pow(x, 2)
 
     def z_fn(x, y):
-        return x**3 + y**2
+        return _pow(x, 3) + _pow(y, 2)
 
     def dz_dx(x, y):
-        return 3 * x**2 + 0 * y
+        return 3 * _pow(x, 2) + 0 * y
 
     def dz_dy(x, y):
         return 0 * x + 2 * y
