@@ -5,8 +5,9 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all four hand kernels from ``tpu_mpi_tests_torch/kernels/csrc``
-   (``nvcc`` for ``sm_90a``, one process per source, in parallel);
+2. build all seven hand kernels (five libraries) from
+   ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
+   process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
@@ -23,7 +24,10 @@ failure exits non-zero and prints no result line):
    no FMA contraction; bfloat16: each op in float32, rounded to bf16),
    so any difference is a fault. The one exception is the dual step's
    residual, a deterministic sum in another order than torch's, held to
-   ``hand.RESIDUAL_RTOL`` (relative);
+   ``hand.RESIDUAL_RTOL`` (relative). The streaming kernels (daxpy,
+   scale, sum3) over float32/float64/bfloat16 × n 1, 127, 1000003 (and
+   one misaligned view) × a 2, 1e-7, 1+1e-9 × out of place and in place,
+   and at the microbench's operands (2^26 and 2^28 float32), tolerance 0;
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -37,7 +41,12 @@ failure exits non-zero and prints no result line):
    ``--kernel hand --mesh 1,1`` at 8192² (20 iterations after 2 warmup).
    Every err-norm and eigen gate must pass, each path's own kernels must
    have launched, and its launches per timestep must be what its
-   schedule makes;
+   schedule makes. Then the DAXPY slice, each path alone in the same
+   way: the microbench groups ``daxpy``, ``ceiling`` and ``streams``
+   (each must launch exactly the streaming kernels its schedule makes,
+   and every GB/s row must be finite and at most 1.05 × 3350), and the
+   five DAXPY drivers at the reference's sizes with every gate passing
+   and no hand kernel launched (the JAX drivers reach no Pallas kernel);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, and for the dual
@@ -45,7 +54,10 @@ failure exits non-zero and prints no result line):
    the residual; none for the k-step updates) and its bound: the larger
    of bytes moved (each input read once, each output written once) over
    3.35 TB/s and flops over 67 TFLOP/s (H100 SXM float32 outside the
-   tensor cores; bf16 arithmetic runs in float32 units);
+   tensor cores; bf16 arithmetic runs in float32 units). The streaming
+   kernels are timed in place at 2^26 (and daxpy at 2^28) float32 beside
+   ``y.add_(x, alpha=a)`` and ``x.mul_(a)``; the daxpy row also carries
+   ``dispatch_rate``'s host-clock time of the same launch;
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -85,6 +97,47 @@ HEAT_N_STEPS = 200               # the heat driver's default step count
 HEAT_RUNS = (("float32", 4), ("float32", 1), ("bfloat16", 4))
 GRID_N_ITER, GRID_N_WARMUP = 20, 2
 GRID_SCALE = GRID_N / 8.0        # dz scale of the grid driver (Domain1D)
+STREAMS_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/streams.cu"
+STREAM_REPLACES = {
+    "daxpy": "tpu_mpi_tests/kernels/pallas_kernels.py:84",
+    "stream_scale": "tpu_mpi_tests/kernels/pallas_kernels.py:144",
+    "stream_sum3": "tpu_mpi_tests/kernels/pallas_kernels.py:190",
+}
+STREAM_KERNELS = tuple(STREAM_REPLACES)
+GBPS_CAP = 1.05 * HBM_BYTES_PER_S / 1e9  # a faster row is a timing bug
+N26, N28 = 1 << 26, 1 << 28
+# launches each microbench group's schedule makes (microbench.py):
+# dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
+# 3 warm + n_short + n_long launches
+_DR = {1000: 1 + 100 + 1100, 500: 1 + 50 + 550}
+MICROBENCH_LAUNCHES = {
+    "daxpy": {"daxpy": 2 * _DR[1000] + _DR[500] + 2 * (3 + 100 + 1100),
+              "stream_scale": 0, "stream_sum3": 0},
+    "ceiling": {"daxpy": _DR[1000], "stream_scale": _DR[1000],
+                "stream_sum3": 0},
+    "streams": {"daxpy": (3 + 100 + 1000) + (3 + 30 + 300),
+                "stream_scale": 3 + 100 + 1000,
+                "stream_sum3": 3 + 100 + 1000},
+}
+# the DAXPY drivers at the reference's sizes: (path, module, argv, lines)
+DAXPY_DRIVERS = (
+    ("daxpy", "daxpy", ["--n", str(N26), "--dtype", "float64", "--iters",
+                        "20"], ("0/1 SUM = ", "TIME kernel : ")),
+    ("mpi_daxpy", "mpi_daxpy", ["--n-total", str(N26), "--ranks", "4",
+                                "--dtype", "float64"],
+     ("4 logical ranks over 1 devices", "3/4 SUM = ")),
+    ("mpi_daxpy_nvtx float32", "mpi_daxpy_nvtx", ["--dtype", "float32"],
+     ("0/1 ALLSUM = ", "TIME gather : ")),
+    ("mpi_daxpy_nvtx float64", "mpi_daxpy_nvtx", ["--dtype", "float64"],
+     ("0/1 ALLSUM = 25165824.500000", "TIME gather : ")),
+    ("mpi_daxpy_nvtx managed", "mpi_daxpy_nvtx",
+     ["--dtype", "float64", "--space", "managed", "--barrier"],
+     ("0/1 ALLSUM = 25165824.500000", "TIME barrier : ")),
+    ("gather_inplace", "gather_inplace",
+     ["--n-per-rank", str(128 << 20), "--dtype", "float64"],
+     ("0/1 lsum=134217728.0 asum=134217728.0",)),
+    ("envprobe", "envprobe", ["--verbose"], ("0/1 MEMORY_PER_CORE=",)),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -207,13 +260,15 @@ def check_kernels(device):
     n_cases += 1
 
     n_cases += check_grid_kernels(device, rand, failures)
+    n_stream, stream_errs = check_stream_kernels(device, gen, failures)
+    n_cases += n_stream
 
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
     # the driver's periodic iterate blocks, the driver's derivatives, the
     # heat paths' shards, the grid path's block
     errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0,
             "heat2d": 0.0, "dual_dim_step": 0.0,
-            "dual_dim_step residual (relative)": 0.0}
+            "dual_dim_step residual (relative)": 0.0, **stream_errs}
     for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
         err = compare(
@@ -316,6 +371,74 @@ def check_grid_kernels(device, rand, failures) -> int:
                 failures)
         n_cases += 1
     return n_cases
+
+
+def stream_calls(name, a, ops, inplace):
+    """(kernel call, plain call) of streaming kernel ``name`` on operands
+    ``ops`` (x, y for daxpy; x for scale; w, x, y for sum3); in place, the
+    kernel writes into a copy of its last operand, and returns it."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    kernel, plain = getattr(hand, name), getattr(hand, f"{name}_ref")
+    args = ops if name == "stream_sum3" else (a, *ops)
+
+    def run_kernel():
+        if not inplace:
+            return kernel(*args)
+        tgt = args[-1].clone()
+        return kernel(*args[:-1], tgt, out=tgt)
+
+    return run_kernel, lambda: plain(*args)
+
+
+def check_stream_kernels(device, gen, failures):
+    """The streaming kernels against their plain versions, tolerance 0:
+    every dtype × ragged n (and one view 4 bytes off 16-byte alignment,
+    which takes the element-wise path) × a × out of place / in place,
+    then the microbench's own operands at 2^26 and 2^28 float32. Returns
+    (number of cases, max abs error per kernel at the main-path
+    operands)."""
+    import torch
+
+    def rand(n, dtype, offset=0):
+        t = torch.rand(n + offset, generator=gen, device=device,
+                       dtype=torch.float32) * 4 - 2
+        return t.to(dtype)[offset:]
+
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        for n, offset in ((1, 0), (127, 0), (1000003, 0), (1000003, 1)):
+            w, x, y = (rand(n, dtype, offset) for _ in range(3))
+            for name in STREAM_KERNELS:
+                ops = {"daxpy": (x, y), "stream_scale": (x,),
+                       "stream_sum3": (w, x, y)}[name]
+                for a in ((None,) if name == "stream_sum3"
+                          else (2.0, 1e-7, 1.0 + 1e-9)):
+                    for inplace in (False, True):
+                        got, want = (f() for f in stream_calls(
+                            name, a, ops, inplace))
+                        compare(f"{name} {dtype} n={n} offset={offset} "
+                                f"a={a} inplace={inplace}", got, want,
+                                failures)
+                        n_cases += 1
+    # the main path's operands: the microbench's calls, each shape once
+    errs = dict.fromkeys(STREAM_KERNELS, 0.0)
+    for name, n, a, inplace in (
+            ("daxpy", N26, 2.0, False), ("daxpy", N26, 1e-7, True),
+            ("daxpy", N26, 1.0, True), ("daxpy", N28, 2.0, False),
+            ("daxpy", N28, 1.0, True), ("stream_scale", N26, 2.0, False),
+            ("stream_scale", N26, 1.0 + 1e-9, True),
+            ("stream_sum3", N26, None, True)):
+        k = {"daxpy": 2, "stream_scale": 1, "stream_sum3": 3}[name]
+        ops = tuple(rand(n, torch.float32) for _ in range(k))
+        got, want = (f() for f in stream_calls(name, a, ops, inplace))
+        errs[name] = max(errs[name], compare(
+            f"{name} main-path n={n} a={a} inplace={inplace}", got, want,
+            failures))
+        n_cases += 1
+        del ops, got, want
+        torch.cuda.empty_cache()
+    return n_cases, errs
 
 
 def drive_path(path, fn, kernels, peaks):
@@ -475,10 +598,60 @@ def run_main_path(device):
         path, "dual_dim_step", counts[path]["dual_dim_step"],
         GRID_N_ITER + GRID_N_WARMUP, 1.0)}
 
+    recs["microbench"] = run_daxpy_slice(device, counts, peaks)
+
     log(f"LAUNCHES {json.dumps(counts)}")
     log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
     log(f"PEAK_BYTES {json.dumps(peaks)}")
     return counts, per_step, recs
+
+
+def run_daxpy_slice(device, counts, peaks):
+    """The DAXPY slice's paths: the three microbench groups (each must
+    launch exactly what its schedule makes, every GB/s row finite and at
+    most ``GBPS_CAP``), then the five DAXPY drivers (every gate passing,
+    no hand kernel launched). Fills ``counts``/``peaks`` per path and
+    returns the microbench records."""
+    import importlib
+
+    from tpu_mpi_tests_torch import microbench
+
+    records = []
+    for group, want in MICROBENCH_LAUNCHES.items():
+        path = f"microbench {group}"
+
+        def run(group=group):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                recs = microbench.run_groups([group], device)
+            for line in out.getvalue().splitlines():
+                log(f"  {line}")
+            return recs
+
+        recs, counts[path] = drive_path(
+            path, run, [k for k, v in want.items() if v], peaks)
+        got = {k: counts[path][k] for k in want}
+        if got != want:
+            raise SmokeFailure(f"{path}: launches {got}, its schedule "
+                               f"makes {want}")
+        for r in recs:
+            v = r["value"]
+            if r["unit"] == "GB/s" and not 0 < v <= GBPS_CAP:
+                raise SmokeFailure(f"{path}: {r['metric']} = {v} GB/s is "
+                                   f"not finite in (0, {GBPS_CAP:g}]")
+        records += recs
+
+    for path, name, argv, needed in DAXPY_DRIVERS:
+        module = importlib.import_module(
+            f"tpu_mpi_tests_torch.drivers.{name}")
+        counts[path] = drive_driver(path, module,
+                                    ["--device", device.type] + argv, [],
+                                    needed, peaks)
+        if any(counts[path].values()):
+            raise SmokeFailure(f"{path}: the DAXPY drivers launch no hand "
+                               f"kernel (parity with the JAX drivers), "
+                               f"got {counts[path]}")
+    return records
 
 
 def time_cuda(fn, n_iter: int) -> float:
@@ -655,9 +828,66 @@ def time_kernels(device):
     rows["dual_dim_step"] = [dual_row((GRID_N + 4, GRID_N + 4),
                                       torch.float32)]
     torch.cuda.empty_cache()
+    rows.update(time_stream_kernels(device, gen))
     for name, rs in rows.items():
         for r in rs:
             log(f"TIME {name} {json.dumps(r)}")
+    return rows
+
+
+def time_stream_kernels(device, gen):
+    """Per-launch times of the streaming kernels in place (``out`` = the
+    written operand, as the chained microbench rows launch them) at the
+    microbench's sizes, beside the plain version, the one-call torch
+    yardstick (``y.add_(x, alpha=a)``, ``x.mul_(a)``; none for sum3) and
+    the byte bound; the 2^26 daxpy row also carries ``dispatch_rate``'s
+    host-clock time of the same launch, to check that clock."""
+    import torch
+
+    from tpu_mpi_tests_torch.instrument.timers import dispatch_rate
+    from tpu_mpi_tests_torch.kernels import hand
+
+    rows = {name: [] for name in STREAM_KERNELS}
+    a = 1e-7
+
+    def rand(n):
+        return torch.rand(n, generator=gen, device=device) + 1.0
+
+    flops_per_elt = {"daxpy": 2, "stream_scale": 1, "stream_sum3": 2}
+
+    def row(name, n, streams, ms, plain, lib, **extra):
+        # each stream read or written once; the ops of the table row
+        b, why = bound_ms(streams * n * 4, flops_per_elt[name] * n)
+        rows[name].append({"path": "microbench", "shape": [n],
+                           "dtype": "float32", "inplace": True, "ms": ms,
+                           "plain_ms": plain, "bound_ms": b, "bound_by": why,
+                           "library_ms": lib, **extra})
+
+    for n in (N26, N28):
+        x, y = rand(n), rand(n)
+        ms = time_cuda(lambda: hand.daxpy(a, x, y, out=y), 50)
+        plain = time_cuda(lambda: hand.daxpy_ref(a, x, y), 10)
+        lib = time_cuda(lambda: y.add_(x, alpha=a), 50)
+        extra = {}
+        if n == N26:
+            extra["dispatch_rate_ms"] = 1e3 * dispatch_rate(
+                lambda: hand.daxpy(a, x, y, out=y), n_iter=1000,
+                n_base=100)
+        row("daxpy", n, 3, ms, plain, lib,
+            library_call="y.add_(x, alpha=a)", **extra)
+        del x, y
+        torch.cuda.empty_cache()
+    x = rand(N26)
+    row("stream_scale", N26, 2,
+        time_cuda(lambda: hand.stream_scale(1.0, x, out=x), 50),
+        time_cuda(lambda: hand.stream_scale_ref(1.0, x), 10),
+        time_cuda(lambda: x.mul_(1.0), 50), library_call="x.mul_(a)")
+    w, y = rand(N26), rand(N26)
+    row("stream_sum3", N26, 4,
+        time_cuda(lambda: hand.stream_sum3(w, x, y, out=y), 50),
+        time_cuda(lambda: hand.stream_sum3_ref(w, x, y), 10), None)
+    del w, x, y
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -698,9 +928,14 @@ def main() -> int:
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
-        counts, per_step, _ = run_main_path(device)
+        counts, per_step, recs = run_main_path(device)
         torch.cuda.empty_cache()
         rows = time_kernels(device)
+        ceiling = next(r["value"] for r in recs["microbench"]
+                       if r["metric"] == "hbm_ceiling_fit_gbps")
+        log(f"HBM_CEILING measured hbm_ceiling_fit_gbps {ceiling} GB/s, "
+            f"published {HBM_BYTES_PER_S / 1e9:g} GB/s "
+            f"(ratio {ceiling / (HBM_BYTES_PER_S / 1e9):.4f})")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -711,7 +946,9 @@ def main() -> int:
             ("stencil2d_iterate", ITERATE_SOURCE, ITERATE_REPLACES),
             ("stencil2d_deriv", DERIV_SOURCE, DERIV_REPLACES),
             ("heat2d", HEAT_SOURCE, HEAT_REPLACES),
-            ("dual_dim_step", DUAL_SOURCE, DUAL_REPLACES)):
+            ("dual_dim_step", DUAL_SOURCE, DUAL_REPLACES),
+            *((name, STREAMS_SOURCE, STREAM_REPLACES[name])
+              for name in STREAM_KERNELS)):
         main_row = rows[name][0]
         extra = {}
         if name == "dual_dim_step":

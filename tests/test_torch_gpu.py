@@ -11,14 +11,26 @@ bit for bit (the kernels round where the eager torch ops round) — the
 dual step's residual, a sum in another order, within
 ``hand.RESIDUAL_RTOL`` — and a wrapper given a CUDA tensor returns a
 CUDA tensor and counts a launch. The 2-D grid drivers run end to end on
-the card with ``--kernel hand`` at a small size.
+the card with ``--kernel hand`` at a small size. The streaming kernels
+(daxpy, scale, sum3) are held against their plain versions bit for bit,
+out of place and in place, on ragged and misaligned operands; the DAXPY
+drivers and the microbench groups run on the card at small sizes.
 """
 
 import pytest
 import torch
 
+from tpu_mpi_tests_torch import microbench
 from tpu_mpi_tests_torch.comm import halo as TH
-from tpu_mpi_tests_torch.drivers import heat2d, stencil2d_grid
+from tpu_mpi_tests_torch.drivers import (
+    daxpy,
+    envprobe,
+    gather_inplace,
+    heat2d,
+    mpi_daxpy,
+    mpi_daxpy_nvtx,
+    stencil2d_grid,
+)
 from tpu_mpi_tests_torch.kernels import hand
 
 pytestmark = pytest.mark.cuda
@@ -143,3 +155,79 @@ def test_grid_drivers_hand_on_card(card, capsys):
     out = capsys.readouterr().out
     assert "HEAT ERR rel=" in out and "GRID TEST px:1 py:1" in out
     assert "FAIL" not in out
+
+
+def stream_case(name, ops, a, inplace):
+    """(kernel result, plain result) of one streaming kernel; in place,
+    the kernel writes into a copy of its last operand."""
+    kernel, plain = getattr(hand, name), getattr(hand, f"{name}_ref")
+    args = ops if name == "stream_sum3" else (a, *ops)
+    want = plain(*args)
+    if inplace:
+        tgt = args[-1].clone()
+        got = kernel(*args[:-1], tgt, out=tgt)
+        assert got.data_ptr() == tgt.data_ptr()
+    else:
+        got = kernel(*args)
+    return got, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("n,offset", [(1, 0), (127, 0), (4099, 0),
+                                      (4099, 1)])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_stream_kernels_match_plain(card, dtype, n, offset, inplace):
+    w, x, y = (rand(card, (n + offset,), dtype, seed=s)[offset:]
+               for s in (1, 2, 3))
+    for name, ops in (("daxpy", (x, y)), ("stream_scale", (x,)),
+                      ("stream_sum3", (w, x, y))):
+        for a in (2.0, 1e-7, 1.0 + 1e-9):
+            before = getattr(hand, name).launches
+            got, want = stream_case(name, ops, a, inplace)
+            torch.cuda.synchronize(card)
+            assert getattr(hand, name).launches == before + 1
+            assert got.device == card
+            assert torch.equal(got, want), (name, a)
+
+
+def test_stream_kernels_refuse_partial_overlap(card):
+    buf = rand(card, (300,), torch.float32, seed=4)
+    with pytest.raises(ValueError, match="overlaps"):
+        hand.daxpy(2.0, buf[:200], buf[100:], out=buf[50:250])
+    with pytest.raises(ValueError, match="shape"):
+        hand.stream_sum3(buf[:10], buf[:10], buf[:11])
+
+
+def test_microbench_groups_on_card(card, capsys):
+    hand.reset_launch_counts()
+    recs = microbench.run_groups(
+        ["daxpy", "ceiling", "streams"], card,
+        daxpy={"sizes": (1 << 16,), "chain_n": 1 << 16},
+        ceiling={"n": 1 << 16}, streams={"n": 1 << 16, "n_big": 1 << 18})
+    capsys.readouterr()
+    counts = hand.launch_counts()
+    # dispatch_rate 1 + 100 + 1100 calls; chain_rate 3 + n_short + n_long
+    assert counts["daxpy"] == 1201 + 2 * 1203 + 1201 + 1103 + 333
+    assert counts["stream_scale"] == 1201 + 1103
+    assert counts["stream_sum3"] == 1103
+    # at this size every launch is overhead-bound, so the stream-count
+    # fit's slope is noise and may come out negative; every measured row
+    # is a positive rate
+    assert len(recs) == 12
+    assert all(r["value"] > 0 for r in recs if "_fit_" not in r["metric"])
+
+
+def test_daxpy_drivers_on_card(card, capsys):
+    hand.reset_launch_counts()
+    assert daxpy.main(["--n", "100003", "--dtype", "float64"]) == 0
+    assert mpi_daxpy.main(["--n-total", "8192", "--ranks", "4"]) == 0
+    for extra in ([], ["--space", "managed", "--barrier"],
+                  ["--init", "device"]):
+        assert mpi_daxpy_nvtx.main(["--n-per-node", "65536", "--dtype",
+                                    "float64"] + extra) == 0
+    assert gather_inplace.main(["--n-per-rank", "4096"]) == 0
+    assert envprobe.main(["--verbose"]) == 0
+    out = capsys.readouterr().out
+    assert "FAIL" not in out and "0/1 ALLSUM = 32768.500000" in out
+    assert not any(hand.launch_counts().values())

@@ -70,7 +70,7 @@ def test_port_imports_no_jax(path):
 def test_port_has_its_kernel_sources():
     csrc = REPO / "tpu_mpi_tests_torch" / "kernels" / "csrc"
     for name in ("stencil_iterate.cu", "stencil_deriv.cu", "heat2d.cu",
-                 "dual_dim_step.cu"):
+                 "dual_dim_step.cu", "streams.cu"):
         assert (csrc / name).is_file()
 
 

@@ -1,8 +1,9 @@
 """Collectives and shard placement at world=1 — the subset of
-``tpu_mpi_tests/comm/collectives.py`` the stencil2d driver and the bench
-use. With one rank, the allreduce is the identity and the per-rank error
-vector has one entry; the functions keep the JAX signatures' roles so
-the multi-rank slice can fill them in.
+``tpu_mpi_tests/comm/collectives.py`` the stencil2d, grid and DAXPY
+drivers and the bench use. With one rank, the allreduce is the identity,
+a gather copies the one shard and the per-rank vectors have one entry
+per logical rank; the functions keep the JAX signatures' roles so the
+multi-rank slice (ROADMAP queue 1 item 2) can fill them in.
 """
 
 from __future__ import annotations
@@ -10,7 +11,50 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_mpi_tests_torch.utils import TpuMtError
+from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
+
+
+def shard_1d(arr, device) -> torch.Tensor:
+    """The global array placed on the ranks along axis 0 (≅ each rank
+    holding its block): at world=1 the whole array (numpy or tensor) on
+    ``device``."""
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(arr))
+    return t.to(device)
+
+
+def all_gather(x: torch.Tensor) -> torch.Tensor:
+    """``MPI_Allgather`` of each rank's shard into a full copy per rank:
+    at world=1 a new tensor holding the one shard."""
+    return x.clone()
+
+
+def all_gather_inplace(allx: torch.Tensor) -> torch.Tensor:
+    """``MPI_Allgather(MPI_IN_PLACE)`` parity: ``allx`` is the full-size
+    buffer whose own slice each rank has filled; the gathered buffer is
+    ``allx`` itself (the JAX function donates its input for the same
+    reason). At world=1 every slice is already in place."""
+    return allx
+
+
+def per_rank_sums(x: torch.Tensor, groups_per_shard: int = 1
+                  ) -> np.ndarray:
+    """Per-logical-rank local sums as a host numpy vector (≅ each rank's
+    local checksum, ``mpi_daxpy_nvtx.cc:251-267``): the one shard split
+    into ``groups_per_shard`` equal logical ranks (the reference's
+    ``ranks_per_device`` oversubscription, ``mpi_daxpy.cc:49-51``), each
+    summed on the device in the array's dtype, as the JAX function
+    sums."""
+    check_divisible(x.shape[0], groups_per_shard, "per_rank_sums groups")
+    return host_value(torch.sum(x.reshape(groups_per_shard, -1), dim=1))
+
+
+def barrier(device: torch.device) -> None:
+    """≅ ``MPI_Barrier``: at world=1, wait until the device has finished
+    all queued work (the JAX function completes a collective and blocks
+    on it)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def shard_blocks(global_shape, dtype: torch.dtype, block_fn, device,

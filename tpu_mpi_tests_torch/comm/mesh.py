@@ -14,7 +14,7 @@ import os
 import torch
 
 from tpu_mpi_tests_torch.device import resolve_device
-from tpu_mpi_tests_torch.utils import TpuMtError
+from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
 
 class MeshError(TpuMtError):
@@ -30,6 +30,9 @@ class Topology:
     platform: str
     device_kinds: tuple[str, ...]
     device: torch.device
+    process_index: int = 0
+    process_count: int = 1
+    local_device_count: int = 1
 
 
 def _requested_world() -> int:
@@ -84,3 +87,34 @@ def topology(device: torch.device) -> Topology:
         device_kinds=(kind,),
         device=device,
     )
+
+
+def device_report(device: torch.device, verbose: bool = False) -> str:
+    """One-line (or per-device) binding report, in the JAX package's
+    words (≅ the ``set_rank_device`` printouts, ``mpi_daxpy.cc:56-59``);
+    ``verbose`` adds the device's memory size on the card."""
+    topo = topology(device)
+    lines = [
+        f"{topo.process_index}/{topo.process_count} processes, "
+        f"{topo.local_device_count} local / {topo.global_device_count} "
+        f"global devices, platform={topo.platform}, "
+        f"kinds={list(topo.device_kinds)}"
+    ]
+    if verbose:
+        mem_s = ""
+        if device.type == "cuda":
+            mem = torch.cuda.get_device_properties(device).total_memory
+            mem_s = f", mem_limit={mem / 2**30:.1f}GiB"
+        lines.append(f"  device {device.index or 0}: "
+                     f"{topo.device_kinds[0]}{mem_s}")
+    return "\n".join(lines)
+
+
+def ranks_per_device(world_size: "int | None" = None) -> int:
+    """Oversubscription factor (reference ``ranks_per_device``,
+    ``mpi_daxpy.cc:49-51``): how many logical ranks the one device
+    carries for a requested world size, with the reference's
+    divisibility rule (at world=1 every logical rank is on it)."""
+    if world_size is None or world_size <= 1:
+        return 1
+    return check_divisible(world_size, 1, "world_size over devices")

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from tpu_mpi_tests_torch.device import DEVICES
@@ -39,11 +40,39 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         default=None,
         help="append JSONL records here",
     )
+    p.add_argument(
+        "--profile-dir",
+        default=None,
+        help="capture a torch.profiler trace (Chrome format) into this "
+        "dir (≅ nsys -c cudaProfilerApi)",
+    )
+    p.add_argument(
+        "--verbose", action="store_true", help="extra per-device reporting"
+    )
     return p
+
+
+#: the numpy dtype host arrays are built in; numpy has no bfloat16, so a
+#: bfloat16 run builds them in float32 and :func:`host_tensor` rounds
+NUMPY_DTYPES = {
+    "float32": np.float32,
+    "float64": np.float64,
+    "bfloat16": np.float32,
+}
 
 
 def torch_dtype(args) -> torch.dtype:
     return TORCH_DTYPES[args.dtype]
+
+
+def numpy_dtype(args):
+    return NUMPY_DTYPES[args.dtype]
+
+
+def host_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A host numpy array as a CPU tensor of ``dtype`` (shared memory
+    when the dtypes agree)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
 def make_reporter(args, rank: int = 0, size: int = 1) -> Reporter:

@@ -1,2 +1,3 @@
-"""Instrumentation: sync-honest timers (``timers.py``) and the stable
-report lines (``report.py``)."""
+"""Instrumentation: sync-honest timers (``timers.py``), the stable
+report lines (``report.py``), and trace ranges with profiler capture
+(``trace.py``)."""

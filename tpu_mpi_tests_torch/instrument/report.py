@@ -5,12 +5,14 @@ the reference's aggregation workflow parses the port's output):
   ``<rank>/<size> SUM = <v>``
   ``TEST dim:<d>, <space>, buf:<b>; <t>, err=<e>``
   ``ITER dim:<d>, <space>, buf:<b>; <phase> mean=<m>, min=<m>, max=<m>``
+  ``TIME <phase> : <s>``
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import time
 from typing import IO, Any
 
 
@@ -49,6 +51,42 @@ class Reporter:
             {"kind": "sum", "label": label, "rank": r, "size": self.size,
              "value": float(value)},
         )
+
+    def time_line(self, phase: str, seconds: float,
+                  t_start: float | None = None, t_end: float | None = None):
+        """One ``TIME`` line + ``time`` record; ``t_start``/``t_end`` are
+        the phase's wall-clock bounds (``PhaseTimer.wall_span``), taken as
+        ``[now − seconds, now]`` when the caller has none."""
+        if t_end is None:
+            t_end = time.time()
+        if t_start is None:
+            t_start = t_end - seconds
+        self.line(
+            f"TIME {phase} : {seconds:0.6f}",
+            {"kind": "time", "phase": phase, "seconds": float(seconds),
+             "t_start": t_start, "t_end": t_end, "rank": self.rank},
+        )
+
+    def time_lines(self, timer, stats: bool = False):
+        """One ``TIME`` line per accumulated phase of a ``PhaseTimer``
+        (with ``stats``: count/mean/min/max on the line); the JSONL
+        ``time`` record always carries the distribution."""
+        for text in timer.lines(stats=stats):
+            print(text, file=self.stream, flush=True)
+        for name in timer.seconds:
+            t_start, t_end = timer.wall_span(name)
+            self.jsonl(
+                {"kind": "time", "phase": name,
+                 "seconds": float(timer.seconds[name]),
+                 "count": timer.counts[name],
+                 "mean_s": timer.mean(name),
+                 "min_s": timer.mins.get(name, 0.0),
+                 "max_s": timer.maxs.get(name, 0.0),
+                 "t_start": t_start, "t_end": t_end,
+                 "mono_start": timer.mono_starts.get(name),
+                 "mono_end": timer.mono_ends.get(name),
+                 "rank": self.rank}
+            )
 
     def test_line(self, dim: int, space: str, buf, seconds: float,
                   err: float, extra_label: str | None = None,

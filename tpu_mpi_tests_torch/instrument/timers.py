@@ -39,6 +39,30 @@ def block(*trees):
     return trees[0] if len(trees) == 1 else trees
 
 
+def dispatch_rate(f, *args, n_iter: int = 2000, n_base: int = 200
+                  ) -> float:
+    """Mean seconds per call of ``f(*args)`` under asynchronous launch
+    (≅ ``timers.py:125``): ``n_base`` then ``n_base + n_iter``
+    independent calls, each batch timed on the host clock and ended by
+    one wait for the last result (the card runs a stream's launches in
+    order, so the last one's completion proves the batch drained); the
+    difference cancels the fixed launch ramp and wait. For ops that do
+    not chain shape-preservingly; the first call (untimed) warms up."""
+    block(f(*args))
+
+    def run(n):
+        t0 = time.perf_counter()
+        r = None
+        for _ in range(n):
+            r = f(*args)
+        block(r)
+        return time.perf_counter() - t0
+
+    t_base = run(n_base)
+    t_full = run(n_base + n_iter)
+    return max(t_full - t_base, 1e-12) / n_iter
+
+
 def chain_rate(run, state, n_short: int = 100, n_long: int = 2100):
     """Seconds per iteration of a chained loop (≅ ``timers.py:149``).
 
@@ -86,15 +110,28 @@ class PhaseTimer:
         self.counts: dict[str, int] = defaultdict(int)
         self.mins: dict[str, float] = {}
         self.maxs: dict[str, float] = {}
+        # wall-clock (Unix) and monotonic bounds of each phase's
+        # lifetime, first entry's start to last exit's end, warmup
+        # entries included
+        self.t_starts: dict[str, float] = {}
+        self.t_ends: dict[str, float] = {}
+        self.mono_starts: dict[str, float] = {}
+        self.mono_ends: dict[str, float] = {}
         self._entries: dict[str, int] = defaultdict(int)
         self.skip_first = skip_first
 
     @contextmanager
     def phase(self, name: str):
         """Time a phase (the caller waits for earlier queued work)."""
+        t0_wall = time.time()
         t0 = time.perf_counter()
         yield
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        self.t_starts.setdefault(name, t0_wall)
+        self.t_ends[name] = t0_wall + dt
+        self.mono_starts.setdefault(name, t0)
+        self.mono_ends[name] = t1
         self._entries[name] += 1
         if self._entries[name] > self.skip_first:
             self.seconds[name] += dt
@@ -111,3 +148,24 @@ class PhaseTimer:
     def mean(self, name: str) -> float:
         c = self.counts[name]
         return self.seconds[name] / c if c else 0.0
+
+    def wall_span(self, name: str) -> tuple[float | None, float | None]:
+        """Wall-clock ``(t_start, t_end)`` of the phase's lifetime, or
+        ``(None, None)`` if it was never entered."""
+        return self.t_starts.get(name), self.t_ends.get(name)
+
+    def lines(self, prefix: str = "TIME", stats: bool = False) -> list[str]:
+        """One ``TIME <phase> : <s>`` line per accumulated phase (≅
+        ``mpi_daxpy_nvtx.cc:333-340``); ``stats`` appends
+        count/mean/min/max after the reference-shaped prefix."""
+        out = []
+        for name in self.seconds:
+            line = f"{prefix} {name} : {self.seconds[name]:0.6f}"
+            if stats:
+                line += (
+                    f" count={self.counts[name]} mean={self.mean(name):e}"
+                    f" min={self.mins.get(name, 0.0):e}"
+                    f" max={self.maxs.get(name, 0.0):e}"
+                )
+            out.append(line)
+        return out

@@ -32,6 +32,7 @@ SOURCES = {
     "stencil_deriv": "stencil_deriv.cu",
     "heat2d": "heat2d.cu",
     "dual_dim_step": "dual_dim_step.cu",
+    "streams": "streams.cu",
 }
 
 # -fmad=false: no mul+add contraction anywhere, so float results match

@@ -14,6 +14,12 @@ Each replaces a Pallas kernel of
 * :func:`dual_dim_step` — both-axis derivatives and their residual from
   one read (``dual_dim_step_pallas``, :1624); source
   ``csrc/dual_dim_step.cu``.
+* :func:`daxpy`, :func:`stream_scale`, :func:`stream_sum3` — the
+  streaming passes ``a·x + y``, ``a·x`` and ``(w + x) + y``
+  (``daxpy_pallas`` :84, ``stream_scale_pallas`` :144,
+  ``stream_sum3_pallas`` :190); source ``csrc/streams.cu``. Unlike the
+  stencil kernels these may write in place: ``out`` may be the very
+  tensor of an input.
 
 A wrapper given a CUDA tensor launches its kernel on the current stream
 or raises; it takes the plain version (``*_ref``) only because the
@@ -76,6 +82,17 @@ _SIGNATURES = {
         _c_double, _c_double, _c_double, _c_void_p,
     ], _c_int),
     "tpumt_dual_dim_step_tiles": ([_c_ll, _c_ll], _c_ll),
+    "tpumt_daxpy": ([
+        _c_double, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
+        _c_void_p,
+    ], _c_int),
+    "tpumt_stream_scale": ([
+        _c_double, _c_void_p, _c_void_p, _c_int, _c_ll, _c_void_p,
+    ], _c_int),
+    "tpumt_stream_sum3": ([
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
+        _c_void_p,
+    ], _c_int),
 }
 
 
@@ -445,12 +462,158 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
 
 dual_dim_step.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# streaming passes: daxpy, scale, sum3
+# ---------------------------------------------------------------------------
+
+
+def _check_stream(name: str, *operands: torch.Tensor) -> None:
+    first = operands[0]
+    for t in operands[1:]:
+        if t.shape != first.shape or t.dtype != first.dtype \
+                or t.device != first.device:
+            raise ValueError(
+                f"{name}: operands must share shape, dtype and device, got "
+                f"{tuple(first.shape)} {first.dtype} on {first.device} and "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+
+
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    lo = t.data_ptr()
+    return lo, lo + t.numel() * t.element_size()
+
+
+def _check_stream_out(name: str, out: torch.Tensor, *operands) -> None:
+    """``out`` must be shaped like the operands and contiguous; it may be
+    the very buffer of an operand (an in-place launch: each element is
+    read, then written, by one thread) but never overlap one partly."""
+    _check_stream(name, out, *operands)
+    if not out.is_contiguous():
+        raise ValueError(f"{name}: out must be contiguous")
+    o_lo, o_hi = _span(out)
+    for t in operands:
+        lo, hi = _span(t)
+        if lo != o_lo and lo < o_hi and o_lo < hi:
+            raise ValueError(f"{name}: out overlaps an operand partly; it "
+                             f"may only be an operand itself or disjoint")
+
+
+def _stream_launch(name: str, fn_name: str, out, operands, *args) -> None:
+    """Check the CUDA operands and launch ``fn_name`` as
+    ``fn(*args, out, dtype, n, stream)`` (``args`` ends with the operand
+    pointers)."""
+    for t in operands:
+        _check_cuda_operand(t, name)
+    fn = _entry("streams", fn_name)
+    t0 = operands[0]
+    with torch.cuda.device(t0.device):
+        rc = fn(*args, out.data_ptr(), DTYPE_CODES[t0.dtype], t0.numel(),
+                torch.cuda.current_stream(t0.device).cuda_stream)
+    if rc != 0:
+        _raise_launch(name, rc)
+
+
+def daxpy_ref(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain-torch version of :func:`daxpy`: ``a`` rounded to the dtype,
+    then ``a·x`` and ``+ y`` as two ops, each rounded — never
+    ``torch.add(y, x, alpha=a)``, which the card contracts into an FMA."""
+    _check_stream("daxpy", x, y)
+    return coef(a, x) * x + y
+
+
+def daxpy(a: float, x: torch.Tensor, y: torch.Tensor,
+          out: "torch.Tensor | None" = None) -> torch.Tensor:
+    """``out = a·x + y`` elementwise (≅ ``daxpy_pallas``), ``a`` rounded
+    to the dtype first; ``out`` is a new tensor when None, and ``out=y``
+    is the in-place launch (``inplace=True``). Any length works."""
+    _check_stream("daxpy", x, y)
+    if out is not None:
+        _check_stream_out("daxpy", out, x, y)
+    if x.device.type == "cpu":
+        ref = daxpy_ref(a, x, y)
+        return ref if out is None else out.copy_(ref)
+    if x.device.type != "cuda":
+        raise ValueError(f"daxpy: unsupported device {x.device}")
+    if out is None:
+        out = torch.empty_like(y, memory_format=torch.contiguous_format)
+    _stream_launch("daxpy", "tpumt_daxpy", out, (x, y, out),
+                   _rounded(a, x.dtype), x.data_ptr(), y.data_ptr())
+    daxpy.launches += 1
+    return out
+
+
+daxpy.launches = 0
+
+
+def stream_scale_ref(a: float, x: torch.Tensor) -> torch.Tensor:
+    """Plain-torch version of :func:`stream_scale`: ``a`` rounded to the
+    dtype, times ``x``."""
+    return coef(a, x) * x
+
+
+def stream_scale(a: float, x: torch.Tensor,
+                 out: "torch.Tensor | None" = None) -> torch.Tensor:
+    """``out = a·x`` (≅ ``stream_scale_pallas``, the 2-stream probe);
+    ``out=x`` is the in-place launch."""
+    if out is not None:
+        _check_stream_out("stream_scale", out, x)
+    if x.device.type == "cpu":
+        ref = stream_scale_ref(a, x)
+        return ref if out is None else out.copy_(ref)
+    if x.device.type != "cuda":
+        raise ValueError(f"stream_scale: unsupported device {x.device}")
+    if out is None:
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _stream_launch("stream_scale", "tpumt_stream_scale", out, (x, out),
+                   _rounded(a, x.dtype), x.data_ptr())
+    stream_scale.launches += 1
+    return out
+
+
+stream_scale.launches = 0
+
+
+def stream_sum3_ref(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+                    ) -> torch.Tensor:
+    """Plain-torch version of :func:`stream_sum3`: ``(w + x) + y``."""
+    _check_stream("stream_sum3", w, x, y)
+    return (w + x) + y
+
+
+def stream_sum3(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                out: "torch.Tensor | None" = None) -> torch.Tensor:
+    """``out = (w + x) + y`` (≅ ``stream_sum3_pallas``, the 4-stream
+    probe: three reads and one write); ``out=y`` is the in-place
+    launch."""
+    _check_stream("stream_sum3", w, x, y)
+    if out is not None:
+        _check_stream_out("stream_sum3", out, w, x, y)
+    if y.device.type == "cpu":
+        ref = stream_sum3_ref(w, x, y)
+        return ref if out is None else out.copy_(ref)
+    if y.device.type != "cuda":
+        raise ValueError(f"stream_sum3: unsupported device {y.device}")
+    if out is None:
+        out = torch.empty_like(y, memory_format=torch.contiguous_format)
+    _stream_launch("stream_sum3", "tpumt_stream_sum3", out, (w, x, y, out),
+                   w.data_ptr(), x.data_ptr(), y.data_ptr())
+    stream_sum3.launches += 1
+    return out
+
+
+stream_sum3.launches = 0
+
 #: every wrapper of a hand kernel (name → function with a .launches count)
 WRAPPERS = {
     "stencil2d_iterate": stencil2d_iterate,
     "stencil2d_deriv": stencil2d_deriv,
     "heat2d": heat2d,
     "dual_dim_step": dual_dim_step,
+    "daxpy": daxpy,
+    "stream_scale": stream_scale,
+    "stream_sum3": stream_sum3,
 }
 
 
