@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all seven hand kernels (five libraries) from
+2. build all eight hand kernels (six libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -27,7 +27,15 @@ failure exits non-zero and prints no result line):
    ``hand.RESIDUAL_RTOL`` (relative). The streaming kernels (daxpy,
    scale, sum3) over float32/float64/bfloat16 × n 1, 127, 1000003 (and
    one misaligned view) × a 2, 1e-7, 1+1e-9 × out of place and in place,
-   and at the microbench's operands (2^26 and 2^28 float32), tolerance 0;
+   and at the microbench's operands (2^26 and 2^28 float32), tolerance 0.
+   The flash-attention fold (``check_flash_kernel``) over float32/bf16 ×
+   L 1..1024 × Lk 1..300 × d 4..256 × dense and causal (partly masked,
+   fully masked, fully live, stride 4) × HIGHEST/DEFAULT, a chain of two
+   folds, the (L, H, d) layout in one launch and the main path's
+   operands: HIGHEST holds the carry to FLASH_RTOL/FLASH_ATOL, DEFAULT
+   the normalised output to FLASH_DEFAULT_ATOL of the plain version at
+   HIGHEST (sums in another order, tensor-core operands rounded), the
+   largest error of each class printed;
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -46,7 +54,14 @@ failure exits non-zero and prints no result line):
    (each must launch exactly the streaming kernels its schedule makes,
    and every GB/s row must be finite and at most 1.05 × 3350), and the
    five DAXPY drivers at the reference's sizes with every gate passing
-   and no hand kernel launched (the JAX drivers reach no Pallas kernel);
+   and no hand kernel launched (the JAX drivers reach no Pallas kernel).
+   Then the attention slice, each path alone: ``attnbench`` at L=8192,
+   d=128 over the tiers xla, flash, ring, ulysses in float32, causal and
+   bfloat16 ``--fast``, and the striped causal ring, and the microbench
+   groups ``attention`` and ``causal`` at the JAX sizes: the flash kernel
+   launched once per attention call of the flash, ring and ulysses tiers
+   (none in xla), no FAIL, every TFLOP/s row finite and at most 1.05 ×
+   the peak of its arithmetic (67 f32, 495 TF32, 989 bf16);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, and for the dual
@@ -57,7 +72,11 @@ failure exits non-zero and prints no result line):
    tensor cores; bf16 arithmetic runs in float32 units). The streaming
    kernels are timed in place at 2^26 (and daxpy at 2^28) float32 beside
    ``y.add_(x, alpha=a)`` and ``x.mul_(a)``; the daxpy row also carries
-   ``dispatch_rate``'s host-clock time of the same launch;
+   ``dispatch_rate``'s host-clock time of the same launch. The flash
+   fold at (8192, 128) f32 HIGHEST dense and causal, bf16 DEFAULT, and
+   (32768, 128) bf16 DEFAULT causal, beside its plain version, its flop
+   bound over the peak of its arithmetic, and
+   ``F.scaled_dot_product_attention`` (TF32 off for f32);
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -105,6 +124,48 @@ STREAM_REPLACES = {
 }
 STREAM_KERNELS = tuple(STREAM_REPLACES)
 GBPS_CAP = 1.05 * HBM_BYTES_PER_S / 1e9  # a faster row is a timing bug
+FLASH_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:3230"
+FLASH_ALSO_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:3416"
+# H100 SXM dense peaks (published, 700 W) of each arithmetic the
+# attention paths run: f32 on the CUDA cores (HIGHEST), TF32 and bf16 on
+# the tensor cores (DEFAULT); a TFLOP/s row above 1.05x its peak is a
+# timing bug
+PEAK_FLOPS = {"f32": F32_FLOPS_PER_S, "tf32": 495e12, "bf16": 989e12}
+# kernel vs plain: f32 arithmetic (HIGHEST, either operand dtype) holds
+# the carry to rtol/atol 1e-5 (dot products and sums in another order) —
+# acc's atol times its row's weight l where l > 1: acc = Σ p·v sums up to
+# Lk terms of size p·|v|, so two summation orders differ by ~eps·l·|v|
+# where the terms cancel (at 8192×128: 3e-4 on acc, 4e-7 on acc/l);
+# the tensor-core route (DEFAULT) holds the normalised output acc/l to an
+# absolute 8e-3 (bf16: P rounded to bf16) and 5e-3 (TF32 operands) of
+# the plain version at HIGHEST
+FLASH_RTOL = FLASH_ATOL = 1e-5
+FLASH_DEFAULT_ATOL = {"bfloat16": 8e-3, "float32": 5e-3}
+ATTN_L, ATTN_D, ATTN_L_LONG = 8192, 128, 32768
+ATTN_N_ITER = 110
+# attnbench paths: (path, extra argv, flash-kernel tiers); every
+# flash-kernel tier chains 3 warm + n_iter/10 + n_iter calls, one launch
+# each (the ring at world=1 makes one step per call), the xla tier none
+_ATTN_ARGV = ["--seq-len", str(ATTN_L), "--head-dim", str(ATTN_D),
+              "--n-iter", str(ATTN_N_ITER)]
+ATTN_CALLS = 3 + ATTN_N_ITER // 10 + ATTN_N_ITER
+ATTNBENCH_PATHS = (
+    ("attnbench float32", ["--tiers", "xla,flash,ring,ulysses"], 3),
+    ("attnbench float32 causal",
+     ["--tiers", "xla,flash,ring,ulysses", "--causal"], 3),
+    ("attnbench bfloat16 fast", ["--tiers", "xla,flash,ring,ulysses",
+                                 "--dtype", "bfloat16", "--fast"], 3),
+    ("attnbench ring causal stripe",
+     ["--tiers", "ring", "--causal", "--stripe"], 1),
+)
+# the attention microbench groups: attention = 2 dtypes x one chained
+# flash arm of 3 + 100 + 1100 calls; causal = 5 arms per size of 3 +
+# iters/10 + iters calls, iters = 800 at L=8192 and 200 at L=32768
+ATTN_MICROBENCH_LAUNCHES = {
+    "attention": 2 * (3 + 100 + 1100),
+    "causal": 5 * (3 + 80 + 800) + 5 * (3 + 20 + 200),
+}
 N26, N28 = 1 << 26, 1 << 28
 # launches each microbench group's schedule makes (microbench.py):
 # dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
@@ -262,6 +323,8 @@ def check_kernels(device):
     n_cases += check_grid_kernels(device, rand, failures)
     n_stream, stream_errs = check_stream_kernels(device, gen, failures)
     n_cases += n_stream
+    n_flash, flash_errs, flash_main = check_flash_kernel(device, gen,
+                                                         failures)
 
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
     # the driver's periodic iterate blocks, the driver's derivatives, the
@@ -311,7 +374,14 @@ def check_kernels(device):
     if failures:
         raise SmokeFailure("kernel/plain mismatches:\n  "
                            + "\n  ".join(failures))
-    log(f"CHECK {n_cases} kernel-vs-plain cases bit-exact")
+    log(f"CHECK {n_cases} kernel-vs-plain cases bit-exact, {n_flash} flash "
+        f"cases within their tolerances")
+    # the flash kernel's main-path error: the normalised output at the
+    # f32 HIGHEST operand; every class beside it
+    errs["flash_attention_block"] = max(
+        v for k, v in flash_main.items() if "highest" in k)
+    errs["flash_attention_block classes"] = flash_errs
+    errs["flash_attention_block main path"] = flash_main
     return errs
 
 
@@ -439,6 +509,160 @@ def check_stream_kernels(device, gen, failures):
         del ops, got, want
         torch.cuda.empty_cache()
     return n_cases, errs
+
+
+def check_flash_kernel(device, gen, failures):
+    """The flash kernel against its plain version: f32 and bf16 × L 1, 7,
+    100, 257, 1024 × Lk 1, 64, 300 × d 4, 17, 64, 128, 256, non-causal
+    and causal with offsets that leave the block partly live (0, 0),
+    fully masked (0, 10^6), fully live (10^6, 0) and partly live at
+    pos_stride 4, each at HIGHEST (the carry, FLASH_RTOL/ATOL) and
+    DEFAULT (the normalised output against the plain version at HIGHEST,
+    FLASH_DEFAULT_ATOL); a chain of two folds against one fold over the
+    concatenated block; the (L, H, d) layout with H=4 in one launch; the
+    main path's operands (8192×128 f32 and bf16, 32768×128 bf16 causal).
+    Returns (number of cases, largest error per class, the main-path
+    errors)."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs: dict[str, float] = {}
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def carry(L, d, fresh=False):
+        if fresh:
+            return (torch.full((L, 1), float("-inf"), device=device),
+                    torch.zeros((L, 1), device=device),
+                    torch.zeros((L, d), device=device))
+        return rand((L, 1)), rand((L, 1)).abs() + 0.5, rand((L, d))
+
+    def note(cls, err):
+        errs[cls] = max(errs.get(cls, 0.0), err)
+        return err
+
+    def close(name, cls, got, want):
+        """Carries at HIGHEST: rtol/atol, -inf rows equal; acc's atol
+        scaled by its row's weight l where l > 1 (see FLASH_ATOL)."""
+        err = 0.0
+        for g, w, what in zip(got, want, ("m", "l", "acc")):
+            atol = FLASH_ATOL
+            if what == "acc":
+                atol = FLASH_ATOL * want[1].clamp(min=1.0)
+            ok = (g - w).abs() <= atol + FLASH_RTOL * w.abs()
+            ok |= g == w  # -inf rows
+            fin = torch.isfinite(w)
+            if fin.any():
+                err = max(err, float((g[fin] - w[fin]).abs().max()))
+            if not bool(ok.all()):
+                failures.append(f"flash {name} {what}: max |kernel - plain|"
+                                f" = {err:g} beyond rtol/atol {FLASH_RTOL:g}")
+        return note(cls, err)
+
+    def normalised_close(name, cls, got, want, dtype):
+        g, w = got[2] / got[1], want[2] / want[1]
+        err = float((g - w).abs().max())
+        tol = FLASH_DEFAULT_ATOL[str(dtype).split(".")[1]]
+        if not err <= tol:
+            failures.append(f"flash {name}: max |out - plain out| = {err:g}"
+                            f" beyond {tol:g}")
+        return note(cls, err)
+
+    def fold(q, k, v, c, offs, causal, precision, plain=False, **kw):
+        fn = hand.flash_attention_block_ref if plain \
+            else hand.flash_attention_block
+        args = [t.clone() for t in c] if not plain else list(c)
+        return fn(q, k, v, *args, offs[0], offs[1], scale=q.shape[1]**-0.5,
+                  causal=causal, pos_stride=offs[2], precision=precision,
+                  **kw)
+
+    n_cases = 0
+    big = 10**6
+    offsets = ((False, (0, 0, 1), "dense"),
+               (True, (0, 0, 1), "partly masked"),
+               (True, (0, big, 1), "fully masked"),
+               (True, (big, 0, 1), "fully live"),
+               (True, (40, 16, 4), "stride 4"))
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for L in (1, 7, 100, 257, 1024):
+            for Lk in (1, 64, 300):
+                for d in (4, 17, 64, 128, 256):
+                    q, k, v = rand((L, d), dtype), rand((Lk, d), dtype), \
+                        rand((Lk, d), dtype)
+                    c = carry(L, d)
+                    for causal, offs, what in offsets:
+                        name = f"{dn} L={L} Lk={Lk} d={d} {what}"
+                        want = fold(q, k, v, c, offs, causal, "highest",
+                                    plain=True)
+                        close(name + " highest", f"{dn} highest",
+                              fold(q, k, v, c, offs, causal, "highest"),
+                              want)
+                        normalised_close(
+                            name + " default", f"{dn} default",
+                            fold(q, k, v, c, offs, causal, "default"), want,
+                            dtype)
+                        n_cases += 2
+    # two folds chained against one fold over the concatenated block
+    for causal in (False, True):
+        q, k1, v1 = rand((300, 64)), rand((200, 64)), rand((200, 64))
+        k2, v2 = rand((150, 64)), rand((150, 64))
+        c = carry(300, 64, fresh=True)
+        mid = fold(q, k1, v1, c, (100, 0, 1), causal, "highest")
+        got = fold(q, k2, v2, mid, (100, 200, 1), causal, "highest")
+        want = fold(q, torch.cat([k1, k2]), torch.cat([v1, v2]), c,
+                    (100, 0, 1), causal, "highest", plain=True)
+        close(f"chain of two folds causal={causal}", "float32 highest", got,
+              want)
+        n_cases += 1
+    # (L, H, d) with H=4: one launch over the heads, no copy
+    for dtype, precision in ((torch.float32, "highest"),
+                             (torch.bfloat16, "default")):
+        q, k, v = (rand((333, 4, 64), dtype) for _ in range(3))
+        before = hand.flash_attention_block.launches
+        got = hand.flash_attention(q, k, v, causal=True, precision=precision)
+        if hand.flash_attention_block.launches != before + 1:
+            failures.append("flash (L, H, d): not one launch")
+        want = hand.flash_attention_ref(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        # in q's dtype: a bf16 output adds its own rounding (half an ulp)
+        tol = (FLASH_ATOL if precision == "highest" else
+               FLASH_DEFAULT_ATOL["bfloat16"]
+               + 2.0**-9 * float(want.float().abs().max()))
+        if not err <= tol:
+            failures.append(f"flash (L, 4, d) {dtype} {precision}: "
+                            f"{err:g} beyond {tol:g}")
+        note(f"(L, H, d) {str(dtype).split('.')[1]} {precision}", err)
+        n_cases += 1
+    # the main path's operands, from the fresh carry as flash_attention
+    # starts it
+    main = {}
+    for L, dtype, causal, precision in (
+            (ATTN_L, torch.float32, False, "highest"),
+            (ATTN_L, torch.float32, True, "highest"),
+            (ATTN_L, torch.bfloat16, False, "default"),
+            (ATTN_L_LONG, torch.bfloat16, True, "default")):
+        q, k, v = (rand((L, ATTN_D), dtype) for _ in range(3))
+        c = carry(L, ATTN_D, fresh=True)
+        name = f"main-path {L}x{ATTN_D} {dtype} causal={causal} {precision}"
+        want = fold(q, k, v, c, (0, 0, 1), causal, "highest", plain=True,
+                    k_tile=4096)
+        got = fold(q, k, v, c, (0, 0, 1), causal, precision)
+        if precision == "highest":
+            close(name, "main-path highest", got, want)
+        else:
+            normalised_close(name, "main-path default", got, want, dtype)
+        main[name] = float((got[2] / got[1] - want[2] / want[1]).abs().max())
+        n_cases += 1
+        del q, k, v, c, got, want
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    log(f"FLASH_ERRORS largest per class {json.dumps(errs)}")
+    log(f"FLASH_ERRORS main path (normalised output) {json.dumps(main)}")
+    return n_cases, errs, main
 
 
 def drive_path(path, fn, kernels, peaks):
@@ -599,6 +823,7 @@ def run_main_path(device):
         GRID_N_ITER + GRID_N_WARMUP, 1.0)}
 
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
+    recs["attention"] = run_attention_slice(device, counts, peaks)
 
     log(f"LAUNCHES {json.dumps(counts)}")
     log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
@@ -651,6 +876,96 @@ def run_daxpy_slice(device, counts, peaks):
             raise SmokeFailure(f"{path}: the DAXPY drivers launch no hand "
                                f"kernel (parity with the JAX drivers), "
                                f"got {counts[path]}")
+    return records
+
+
+def attn_peak(dtype: str, fast: bool, tier: str) -> float:
+    """The peak of the arithmetic an attnbench row runs: DEFAULT (--fast)
+    puts float32 on TF32 and bf16 on the bf16 tensor cores; HIGHEST runs
+    the flash kernel in f32 on the CUDA cores, and torch's matmul (the
+    xla tier) in f32 for float32 and on the bf16 tensor cores for bf16."""
+    if fast:
+        return PEAK_FLOPS["tf32" if dtype == "float32" else "bf16"]
+    if tier == "xla" and dtype == "bfloat16":
+        return PEAK_FLOPS["bf16"]
+    return PEAK_FLOPS["f32"]
+
+
+def check_rate(path, name, tflops, peak):
+    cap = 1.05 * peak / 1e12
+    if not 0 < tflops <= cap:
+        raise SmokeFailure(f"{path}: {name} = {tflops} TFLOP/s is not "
+                           f"finite in (0, {cap:g}] (1.05x its peak)")
+
+
+def run_attention_slice(device, counts, peaks):
+    """The attention slice's paths, each alone: attnbench at L=8192,
+    d=128 (float32; causal; bfloat16 --fast; the striped causal ring) and
+    the microbench groups ``attention`` and ``causal`` at the JAX sizes.
+    Each must launch the flash kernel exactly as its schedule makes,
+    print no FAIL, and keep every TFLOP/s row finite and at most 1.05x
+    the peak of its arithmetic. Returns the microbench records."""
+    import re
+
+    from tpu_mpi_tests_torch import microbench
+    from tpu_mpi_tests_torch.drivers import attnbench
+
+    line_re = re.compile(r"^ATTN (\w+)(\[striped\])? L=\d+ d=\d+ (\w+) "
+                         r"(\S+) TFLOP/s$")
+    for path, extra, n_flash_tiers in ATTNBENCH_PATHS:
+        argv = ["--device", device.type] + _ATTN_ARGV + extra
+        fast = "--fast" in extra
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            counts[path] = drive_driver(path, attnbench, argv,
+                                        ["flash_attention_block"],
+                                        ("ATTN ",), peaks)
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(line)
+        want = n_flash_tiers * ATTN_CALLS
+        got = counts[path]["flash_attention_block"]
+        if got != want:
+            raise SmokeFailure(f"{path}: {got} flash launches, its schedule "
+                               f"makes {want} ({n_flash_tiers} flash tiers "
+                               f"x {ATTN_CALLS} calls)")
+        # drive_driver logged the driver's lines indented, into ``out``
+        rows = [line_re.match(ln.strip()) for ln in text.splitlines()
+                if ln.strip().startswith("ATTN ")]
+        if not rows or not all(rows):
+            raise SmokeFailure(f"{path}: malformed ATTN lines")
+        for r in rows:
+            check_rate(path, f"ATTN {r[1]}", float(r[4]),
+                       attn_peak(r[3], fast, r[1]))
+
+    records = []
+    for group, want in ATTN_MICROBENCH_LAUNCHES.items():
+        path = f"microbench {group}"
+
+        def run(group=group):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                recs = microbench.run_groups([group], device)
+            for line in out.getvalue().splitlines():
+                log(f"  {line}")
+            return recs
+
+        recs, counts[path] = drive_path(path, run,
+                                        ["flash_attention_block"], peaks)
+        got = counts[path]["flash_attention_block"]
+        if got != want:
+            raise SmokeFailure(f"{path}: {got} flash launches, its schedule "
+                               f"makes {want}")
+        for r in recs:
+            if r["unit"] == "TFLOP/s":  # DEFAULT: TF32 or bf16
+                peak = PEAK_FLOPS["tf32" if "float32" in r["metric"]
+                                  else "bf16"]
+                check_rate(path, r["metric"], r["value"], peak)
+            else:  # ms/attn, bf16 DEFAULT, "useful <x> TFLOP/s"
+                useful = float(re.search(r"useful (\S+) TFLOP/s",
+                                         r["detail"])[1])
+                check_rate(path, r["metric"], useful, PEAK_FLOPS["bf16"])
+        records += recs
     return records
 
 
@@ -829,6 +1144,7 @@ def time_kernels(device):
                                       torch.float32)]
     torch.cuda.empty_cache()
     rows.update(time_stream_kernels(device, gen))
+    rows["flash_attention_block"] = time_flash_kernel(device, gen)
     for name, rs in rows.items():
         for r in rs:
             log(f"TIME {name} {json.dumps(r)}")
@@ -891,6 +1207,78 @@ def time_stream_kernels(device, gen):
     return rows
 
 
+def flash_work(L, d, dtype, causal):
+    """(bytes, flops) one fold needs on self-attention operands (L, d):
+    q, k, v read once and the f32 carry (m, l, acc) read and written
+    once; 4·d flops per live (query, key) pair — all L² of them, or the
+    L·(L+1)/2 on or below the diagonal when causal."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pairs = L * (L + 1) // 2 if causal else L * L
+    return 3 * L * d * itemsize + 2 * 4 * (2 * L + L * d), 4 * d * pairs
+
+
+def time_flash_kernel(device, gen):
+    """The flash kernel at the main path's shapes, CUDA events (warmed):
+    (8192, 128) f32 HIGHEST non-causal and causal, (8192, 128) bf16
+    DEFAULT, (32768, 128) bf16 DEFAULT causal — one fold from the fresh
+    carry into a second buffer (the same work every launch) — beside its
+    plain version at the same precision, the bound (flops over the peak
+    of the arithmetic, or bytes over 3.35 TB/s) and
+    ``F.scaled_dot_product_attention`` on (1, 1, L, d) as the one-call
+    yardstick (TF32 off for f32; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for L, dtype, causal, precision in (
+            (ATTN_L, torch.float32, False, "highest"),
+            (ATTN_L, torch.float32, True, "highest"),
+            (ATTN_L, torch.bfloat16, False, "default"),
+            (ATTN_L_LONG, torch.bfloat16, True, "default")):
+        d = ATTN_D
+        q, k, v = (torch.randn((L, d), generator=gen, device=device)
+                   .to(dtype) for _ in range(3))
+        kw = {"dtype": torch.float32, "device": device}
+        carry = (torch.full((L, 1), float("-inf"), **kw),
+                 torch.zeros((L, 1), **kw), torch.zeros((L, d), **kw))
+        out = tuple(torch.empty_like(t) for t in carry)
+        args = dict(scale=d**-0.5, causal=causal, precision=precision)
+        n = 20 if L == ATTN_L else 5
+        ms = time_cuda(lambda: hand.flash_attention_block(
+            q, k, v, *carry, 0, 0, out=out, **args), n)
+        plain = time_cuda(lambda: hand.flash_attention_block_ref(
+            q, k, v, *carry, 0, 0, k_tile=4096, **args), 2)
+        lib = time_cuda(lambda: F.scaled_dot_product_attention(
+            q[None, None], k[None, None], v[None, None], is_causal=causal),
+            n)
+        nbytes, flops = flash_work(L, d, dtype, causal)
+        arith = "f32" if precision == "highest" else (
+            "bf16" if dtype == torch.bfloat16 else "tf32")
+        t_ops = flops / PEAK_FLOPS[arith] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "path": "attnbench/microbench", "shape": [L, d],
+            "dtype": str(dtype).split(".")[1], "causal": causal,
+            "precision": precision, "arithmetic": arith,
+            "ctas": -(-L // hand.FLASH_Q_TILE), "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib,
+            "library_call": "F.scaled_dot_product_attention (1,1,L,d)"
+                            + (", TF32 off" if dtype == torch.float32
+                               else ""),
+            "tflops": flops / ms / 1e9})
+        del q, k, v, carry, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -923,7 +1311,9 @@ def main() -> int:
         for name, text in build.BUILD_LOGS.items():
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or \
-                        "error" in line.lower():
+                        "error" in line.lower() or (
+                            name == "flash_attention"
+                            and "Compiling entry" in line):
                     log(f"  ptxas {name}: {line.strip()}")
 
         errs = check_kernels(device)
@@ -948,9 +1338,18 @@ def main() -> int:
             ("heat2d", HEAT_SOURCE, HEAT_REPLACES),
             ("dual_dim_step", DUAL_SOURCE, DUAL_REPLACES),
             *((name, STREAMS_SOURCE, STREAM_REPLACES[name])
-              for name in STREAM_KERNELS)):
+              for name in STREAM_KERNELS),
+            ("flash_attention_block", FLASH_SOURCE, FLASH_REPLACES)):
         main_row = rows[name][0]
         extra = {}
+        if name == "flash_attention_block":
+            # max_abs_err: the normalised output at the f32 HIGHEST
+            # main-path operands; every class and main-path case beside it
+            extra = {"also_replaces": FLASH_ALSO_REPLACES,
+                     "max_abs_err_by_class":
+                         errs["flash_attention_block classes"],
+                     "max_abs_err_main_path":
+                         errs["flash_attention_block main path"]}
         if name == "dual_dim_step":
             # max_abs_err is the derivatives'; the residual is a sum in
             # another order, held to a relative tolerance

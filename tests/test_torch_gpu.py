@@ -14,7 +14,11 @@ CUDA tensor and counts a launch. The 2-D grid drivers run end to end on
 the card with ``--kernel hand`` at a small size. The streaming kernels
 (daxpy, scale, sum3) are held against their plain versions bit for bit,
 out of place and in place, on ragged and misaligned operands; the DAXPY
-drivers and the microbench groups run on the card at small sizes.
+drivers and the microbench groups run on the card at small sizes. The
+flash-attention fold is held against its plain version within stated
+tolerances (sums in another order; tensor-core operands rounded at
+DEFAULT), dense and causal with masked, live and strided offsets, and in
+the (L, H, d) layout in one launch.
 """
 
 import pytest
@@ -231,3 +235,74 @@ def test_daxpy_drivers_on_card(card, capsys):
     out = capsys.readouterr().out
     assert "FAIL" not in out and "0/1 ALLSUM = 32768.500000" in out
     assert not any(hand.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the hand kernel against its plain version
+# ---------------------------------------------------------------------------
+
+#: f32 HIGHEST: the carry within rtol/atol 1e-5 of the plain version (the
+#: dot products and softmax sums run in another order); DEFAULT: the
+#: normalised output within 8e-3 (bf16: P rounded to bf16) and 5e-3
+#: (TF32 operands) of the plain version at HIGHEST
+FLASH_DEFAULT_ATOL = {torch.bfloat16: 8e-3, torch.float32: 5e-3}
+
+
+def flash_case(card, L, Lk, d, dtype, seed):
+    q, k, v = (rand(card, shape, dtype, seed + i)
+               for i, shape in enumerate(((L, d), (Lk, d), (Lk, d))))
+    m = rand(card, (L, 1), torch.float32, seed + 3)
+    l = rand(card, (L, 1), torch.float32, seed + 4).abs() + 0.5
+    acc = rand(card, (L, d), torch.float32, seed + 5)
+    return q, k, v, m, l, acc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,Lk,d", [(1, 1, 4), (7, 64, 17), (100, 300, 64),
+                                    (257, 64, 128), (130, 300, 256)])
+@pytest.mark.parametrize("causal,offs", [(False, (0, 0, 1)),
+                                         (True, (0, 0, 1)),
+                                         (True, (1000, 0, 1)),
+                                         (True, (0, 5000, 1)),
+                                         (True, (90, 40, 4))])
+def test_flash_block_highest_matches_plain(card, dtype, L, Lk, d, causal,
+                                           offs):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, m, l, acc = flash_case(card, L, Lk, d, dtype, seed=L + d)
+    q_off, k_off, stride = offs
+    kw = dict(scale=d**-0.5, causal=causal, pos_stride=stride)
+    want = hand.flash_attention_block_ref(q, k, v, m, l, acc, q_off, k_off,
+                                          **kw)
+    before = hand.flash_attention_block.launches
+    got = hand.flash_attention_block(q, k, v, m, l, acc, q_off, k_off, **kw)
+    torch.cuda.synchronize(card)
+    assert hand.flash_attention_block.launches == before + 1
+    assert got[0].data_ptr() == m.data_ptr()  # in place
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L,d", [(7, 4), (257, 64), (300, 128), (64, 256)])
+def test_flash_attention_default_matches_plain(card, dtype, causal, L, d):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = (rand(card, (L, d), dtype, s) for s in (1, 2, 3))
+    want = hand.flash_attention_ref(q, k, v, causal=causal)
+    got = hand.flash_attention(q, k, v, causal=causal, precision="default")
+    torch.cuda.synchronize(card)
+    err = (got.float() - want.float()).abs().max().item()
+    # compared in the output dtype; a bf16 output adds its own rounding
+    tol = FLASH_DEFAULT_ATOL[dtype] + (2.0**-8 * want.float().abs().max()
+                                       .item() if dtype == torch.bfloat16
+                                       else 0.0)
+    assert err <= tol, err
+
+
+def test_flash_attention_heads_layout_one_launch(card):
+    q, k, v = (rand(card, (200, 4, 32), torch.float32, s) for s in (1, 2, 3))
+    before = hand.flash_attention_block.launches
+    got = hand.flash_attention(q, k, v, causal=True)
+    assert hand.flash_attention_block.launches == before + 1
+    want = hand.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -16,10 +16,16 @@ from pathlib import Path
 import pytest
 import torch
 
-from tpu_mpi_tests_torch import bench
+from tpu_mpi_tests_torch import bench, microbench
+from tpu_mpi_tests_torch.comm import alltoall, ring
 from tpu_mpi_tests_torch.comm.mesh import MeshError, bootstrap, topology
 from tpu_mpi_tests_torch.device import resolve_device
-from tpu_mpi_tests_torch.drivers import heat2d, stencil2d, stencil2d_grid
+from tpu_mpi_tests_torch.drivers import (
+    attnbench,
+    heat2d,
+    stencil2d,
+    stencil2d_grid,
+)
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.utils import TpuMtError
 
@@ -70,7 +76,7 @@ def test_port_imports_no_jax(path):
 def test_port_has_its_kernel_sources():
     csrc = REPO / "tpu_mpi_tests_torch" / "kernels" / "csrc"
     for name in ("stencil_iterate.cu", "stencil_deriv.cu", "heat2d.cu",
-                 "dual_dim_step.cu", "streams.cu"):
+                 "dual_dim_step.cu", "streams.cu", "flash_attention.cu"):
         assert (csrc / name).is_file()
 
 
@@ -97,6 +103,11 @@ def test_entry_points_asked_for_cuda_never_print_a_cpu_result(
         heat2d.main(["--nx-local", "8", "--ny-local", "8"])
     with pytest.raises(TpuMtError):
         stencil2d_grid.main(["--nx-local", "8", "--ny-local", "8"])
+    with pytest.raises(TpuMtError):
+        attnbench.main(["--seq-len", "64", "--head-dim", "8", "--tiers",
+                        "xla,flash,ring,ulysses", "--n-iter", "10"])
+    with pytest.raises(TpuMtError):
+        microbench.main(["attention", "causal"])
     assert capsys.readouterr().out == ""
 
 
@@ -111,6 +122,19 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         hand.heat2d(z, 0.1, 0.1, steps=2)
     with pytest.raises(ValueError, match="unsupported device"):
         hand.dual_dim_step(z, 2, 1.0, 1.0)
+    m, l, acc = (torch.zeros(shape, device="meta")
+                 for shape in ((24, 1), (24, 1), (24, 16)))
+    with pytest.raises(ValueError, match="unsupported device"):
+        hand.flash_attention_block(z, z, z, m, l, acc, 0, 0, scale=1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hand.flash_attention(z, z, z, causal=True)
+    # the attention modules reach the kernel wrapper, never its plain
+    # version, for a tensor off the CPU
+    with pytest.raises(ValueError, match="unsupported device"):
+        ring.ring_attention(z, z, z, flash=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        alltoall.ulysses_attention(z[:, None], z[:, None], z[:, None],
+                                   flash=True)
     assert hand.launch_counts() == before
 
 

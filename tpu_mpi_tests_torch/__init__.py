@@ -8,9 +8,11 @@ CUDA C++ for Hopper (``kernels/csrc/``). It imports ``torch`` and never
 
 Layer map (top to bottom, mirroring the JAX package):
   bench.py      headline JSON line (≅ the root ``bench.py``)
-  drivers/      benchmark drivers (``stencil2d``)
+  microbench.py the microbench groups (streams, attention)
+  drivers/      benchmark drivers (stencil, heat, DAXPY, ``attnbench``)
   instrument/   timers (CUDA events) and the stable report lines
-  comm/         world=1 topology, halo exchange, hot-loop runners
+  comm/         world=1 topology, halo exchange, hot-loop runners, ring
+                and all-to-all attention
   kernels/      torch-op stencils + hand CUDA kernels with plain twins
   arrays/       ghost-cell domain layouts
   convert.py    JAX-package state → torch tensors

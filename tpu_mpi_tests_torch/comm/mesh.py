@@ -56,6 +56,19 @@ def bootstrap(device="cuda") -> torch.device:
     return resolve_device(device)
 
 
+def check_world(world: int) -> int:
+    """Refuse a sequence-parallel ``world`` of more than one rank (the
+    ring and all-to-all attention paths run at world=1 only). Returns the
+    world."""
+    if world != 1:
+        raise MeshError(
+            f"sequence-parallel attention over world={world} ranks "
+            f"requested, but the port runs world=1 only; multi-rank "
+            f"torch.distributed (comm/dist.py) is ROADMAP queue 1 item 2"
+        )
+    return world
+
+
 def check_grid(spec: "str | None") -> None:
     """Refuse a ``'PX,PY'`` process grid of more than one rank: this
     slice runs the 2-D grid drivers on the 1×1 grid only. A missing or

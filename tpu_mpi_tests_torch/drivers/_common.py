@@ -79,6 +79,19 @@ def make_reporter(args, rank: int = 0, size: int = 1) -> Reporter:
     return Reporter(rank=rank, size=size, jsonl_path=args.jsonl)
 
 
+def parse_choice_list(spec: str, valid, what: str = "entries"):
+    """Split a comma list and validate each entry against ``valid``.
+    Returns the list, or None after printing an ERROR line (a copy of the
+    JAX package's ``parse_choice_list``)."""
+    names = [s.strip() for s in spec.split(",") if s.strip()]
+    bad = [n for n in names if n not in valid]
+    if bad or not names:
+        print(f"ERROR unknown {what} {bad or [spec]}; "
+              f"valid: {','.join(valid)}")
+        return None
+    return names
+
+
 def parse_grid_mesh(spec: "str | None", n_dev: int):
     """Resolve a 'PX,PY' process-grid spec (or auto-factor ``n_dev`` into
     the squarest grid when None) → ``(px, py)``. Returns None after

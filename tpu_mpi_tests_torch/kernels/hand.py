@@ -20,6 +20,11 @@ Each replaces a Pallas kernel of
   ``stream_sum3_pallas`` :190); source ``csrc/streams.cu``. Unlike the
   stencil kernels these may write in place: ``out`` may be the very
   tensor of an input.
+* :func:`flash_attention_block` — the online-softmax fold of one K/V
+  block into the (m, l, acc) carry, in place, causal in global positions
+  (``flash_attention_block_pallas`` :3230), and :func:`flash_attention`
+  on top of it (``flash_attention_pallas`` :3416); source
+  ``csrc/flash_attention.cu``.
 
 A wrapper given a CUDA tensor launches its kernel on the current stream
 or raises; it takes the plain version (``*_ref``) only because the
@@ -31,11 +36,13 @@ The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
 version agree bit for bit in float32, float64 and bfloat16 — all but the
 dual step's residual, a sum taken in another order (see
-:func:`dual_dim_step`).
+:func:`dual_dim_step`), and flash attention, whose dot products and
+softmax sums run in another order (stated tolerances, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -93,6 +100,12 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
         _c_void_p,
     ], _c_int),
+    # q, k, v, m/l/acc in, m/l/acc out; dtype, L, Lk, d, heads; (row,
+    # head) strides of q, k, v, m, l, acc; q_off, k_off, pos_stride;
+    # scale, causal, highest, stream
+    "tpumt_flash_attention_block": (
+        [_c_void_p] * 9 + [_c_int, _c_ll, _c_ll, _c_int, _c_int]
+        + [_c_ll] * 15 + [_c_double, _c_int, _c_int, _c_void_p], _c_int),
 }
 
 
@@ -605,6 +618,304 @@ def stream_sum3(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
 
 stream_sum3.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# flash attention: the online-softmax fold of one K/V block
+# ---------------------------------------------------------------------------
+
+#: the CUDA kernel's own tiles (kQT, kKT of csrc/flash_attention.cu):
+#: query rows per CTA and key columns per shared-memory tile
+FLASH_Q_TILE, FLASH_K_TILE = 64, 64
+#: the widest head the kernel takes (d is padded to 128 or 256)
+FLASH_MAX_D = 256
+#: "highest": f32 arithmetic (the CUDA cores); "default": the tensor
+#: cores (bf16, or TF32 for float32 operands)
+FLASH_PRECISIONS = ("highest", "default")
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """Run the enclosed float32 ``torch.matmul``s at ``precision``:
+    "highest" turns TF32 off on the card, "default" on (the card's
+    counterpart of the TPU's single-pass DEFAULT). Restores the flag."""
+    _check_precision(precision)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = precision == "default"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _check_precision(precision) -> None:
+    if precision not in FLASH_PRECISIONS:
+        raise ValueError(f"precision must be one of {FLASH_PRECISIONS}, got "
+                         f"{precision!r}")
+
+
+def _check_flash_operands(name: str, q, k, v) -> None:
+    """q (L, d) or (L, H, d); k and v (Lk, d) or (Lk, H, d); one dtype
+    (float32 or bfloat16) and one device; 1 <= d <= FLASH_MAX_D."""
+    if q.dim() not in (2, 3) or k.dim() != q.dim() or v.dim() != q.dim():
+        raise ValueError(f"{name}: q, k, v must all be (L, d) or (L, H, d), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape != v.shape or k.shape[1:] != q.shape[1:]:
+        raise ValueError(f"{name}: k and v must be (Lk,) + q.shape[1:], got "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if q.shape[0] < 1 or k.shape[0] < 1:
+        raise ValueError(f"{name}: empty sequence (L={q.shape[0]}, "
+                         f"Lk={k.shape[0]})")
+    if not 1 <= q.shape[-1] <= FLASH_MAX_D:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} outside [1, "
+                         f"{FLASH_MAX_D}], the widest the kernel takes")
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k, v must share a dtype of float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{name}: q, k, v on different devices")
+
+
+def _check_carry(q, m, l, acc) -> None:
+    L, d = q.shape[0], q.shape[-1]
+    want = {"m": (m, (L, 1)), "l": (l, (L, 1)), "acc": (acc, (L, d))}
+    for nm, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"flash_attention_block: {nm} must be {shape} "
+                             f"float32 on {q.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+
+
+def flash_attention_block_ref(q, k, v, m, l, acc, q_off, k_off, *, scale,
+                              causal: bool = False, pos_stride=1,
+                              precision: str = "highest",
+                              k_tile: "int | None" = None,
+                              skip_tile: "int | None" = None):
+    """Plain-torch version of :func:`flash_attention_block` (returns new
+    ``(m, l, acc)``): ``comm.ring.online_softmax_update`` over
+    ``k_tile``-wide key tiles (default: the whole block), operands cast as
+    ``_qk_operands``/``_pv_operands`` cast them (f32 products; under
+    "default" P rounded to a bf16 operand's type before the PV product).
+    Causal: a tile dead for every row is skipped, and with ``skip_tile``
+    a partly live tile folds in ``skip_tile``-wide sub-spans, each dead
+    one skipped — the TPU kernel's fold granularity; the result differs
+    only by rounding."""
+    from tpu_mpi_tests_torch.comm.ring import online_softmax_update
+
+    _check_flash_operands("flash_attention_block", q, k, v)
+    _check_precision(precision)
+    if q.dim() != 2:
+        raise ValueError("flash_attention_block: (L, d) operands (one head)")
+    _check_carry(q, m, l, acc)
+    L, Lk = q.shape[0], k.shape[0]
+    kt = Lk if not k_tile else int(k_tile)
+    qf = q.float()
+    q_pos = q_off + pos_stride * torch.arange(L, device=q.device)
+    q_min, q_max = int(q_pos[0]), int(q_pos[-1])
+    round_p = precision == "default" and v.dtype != torch.float32
+
+    def fold(carry, j0, w):
+        m, l, acc = carry
+        s = (qf @ k[j0:j0 + w].float().T) * scale
+        if causal:
+            k_pos = k_off + pos_stride * torch.arange(j0, j0 + w,
+                                                      device=q.device)
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                            float("-inf"))
+        m_new, l, p, corr = online_softmax_update(m, l, s, keepdims=True)
+        if round_p:
+            p = p.to(v.dtype).float()
+        return m_new, l, acc * corr + p @ v[j0:j0 + w].float()
+
+    def k_pos_of(j):
+        return k_off + pos_stride * j
+
+    carry = (m.clone(), l.clone(), acc.clone())
+    for j0 in range(0, Lk, kt):
+        w = min(kt, Lk - j0)
+        if causal and k_pos_of(j0) > q_max:
+            break  # this tile and every later one are dead for all rows
+        spans = [(j0, w)]
+        if causal and skip_tile and k_pos_of(j0 + w - 1) > q_min:
+            spans = [(a, min(skip_tile, j0 + w - a))
+                     for a in range(j0, j0 + w, skip_tile)]
+        for a, wa in spans:
+            if not (causal and k_pos_of(a) > q_max):
+                carry = fold(carry, a, wa)
+    return carry
+
+
+def _rows_heads(t: torch.Tensor, heads: int) -> tuple[int, int]:
+    """(row stride, head stride) in elements: operands (L, H, d) and
+    carries (L, H) hold the heads on axis 1; one head has no head axis."""
+    return t.stride(0), t.stride(1) if heads > 1 else 0
+
+
+def _flash_launch(q, k, v, carry_in, carry_out, *, scale, causal, q_off,
+                  k_off, pos_stride, precision) -> None:
+    """Launch the kernel over every head of ``q`` (the head axis of an
+    (L, H, d) operand through its strides), ``carry_in`` → ``carry_out``."""
+    for t, nm in ((q, "q"), (k, "k"), (v, "v"), (carry_in[2], "acc"),
+                  (carry_out[2], "acc out")):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash attention: {nm} needs a contiguous last "
+                             f"axis, got strides {t.stride()}")
+    if int(pos_stride) < 1:
+        raise ValueError(f"pos_stride must be >= 1, got {pos_stride}")
+    heads = q.shape[1] if q.dim() == 3 else 1
+    strides = [s for t in (q, k, v, *carry_in)
+               for s in _rows_heads(t, heads)]
+    fn = _entry("flash_attention", "tpumt_flash_attention_block")
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                *(t.data_ptr() for t in carry_in),
+                *(t.data_ptr() for t in carry_out),
+                _FLASH_DTYPES[q.dtype], q.shape[0], k.shape[0], q.shape[-1],
+                heads, *strides, int(q_off), int(k_off), int(pos_stride),
+                float(scale), int(bool(causal)),
+                int(precision == "highest"),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        _raise_launch("flash_attention_block", rc)
+    flash_attention_block.launches += 1
+
+
+def _check_flash_out(carry, out):
+    """``out`` is None (the in-place fold) or three tensors shaped and
+    strided like the carry, each the carry's own buffer or disjoint from
+    every carry buffer."""
+    if out is None:
+        return carry
+    out = tuple(out)
+    bufs = {t.untyped_storage().data_ptr() for t in carry}
+    for o, t in zip(out, carry, strict=True):
+        if o.shape != t.shape or o.dtype != t.dtype or o.device != t.device \
+                or o.stride() != t.stride():
+            raise ValueError("flash_attention_block: out must match (m, l, "
+                             "acc) in shape, dtype, device and strides")
+        same = o.data_ptr() == t.data_ptr()
+        if not same and o.untyped_storage().data_ptr() in bufs:
+            raise ValueError("flash_attention_block: out must be the carry "
+                             "itself or disjoint from it")
+    return out
+
+
+def flash_attention_block(q, k, v, m, l, acc, q_off, k_off, *, scale,
+                          causal: bool = False, pos_stride=1,
+                          precision: str = "highest", out=None,
+                          k_tile: "int | None" = None,
+                          skip_tile: "int | None" = None):
+    """Fold one K/V block into the online-softmax carry (≅
+    ``flash_attention_block_pallas``): q (L, d), k and v (Lk, d) float32
+    or bfloat16; ``m``, ``l`` (L, 1) and ``acc`` (L, d) float32, updated
+    IN PLACE (JAX donates and aliases them) unless ``out`` names three
+    other tensors. Returns the written ``(m, l, acc)``.
+
+    Causal masking runs in global positions ``off + pos_stride·idx``
+    (runtime ints); every K/V tile dead for all of a CTA's rows is
+    skipped. ``precision="highest"`` is f32 arithmetic on the CUDA cores
+    (bf16 operands widened, P kept f32); ``"default"`` is the tensor
+    cores: bf16 ``mma.sync`` with P rounded to bf16, or, for float32
+    operands, TF32 ``mma.sync`` (the card's counterpart of the TPU's
+    single-pass DEFAULT, ~3 decimal digits per operand). ``k_tile`` and
+    ``skip_tile`` are the TPU kernel's tile knobs: the plain version on
+    the CPU folds at them; the card runs the kernel's own 64×64 tiles."""
+    _check_flash_operands("flash_attention_block", q, k, v)
+    _check_precision(precision)
+    if q.dim() != 2:
+        raise ValueError("flash_attention_block: (L, d) operands (one head); "
+                         "flash_attention takes (L, H, d)")
+    _check_carry(q, m, l, acc)
+    carry = (m, l, acc)
+    dest = _check_flash_out(carry, out)
+    if q.device.type == "cpu":
+        got = flash_attention_block_ref(
+            q, k, v, m, l, acc, q_off, k_off, scale=scale, causal=causal,
+            pos_stride=pos_stride, precision=precision, k_tile=k_tile,
+            skip_tile=skip_tile)
+        for o, g in zip(dest, got):
+            o.copy_(g)
+        return dest
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_block: unsupported device "
+                         f"{q.device}")
+    _flash_launch(q, k, v, carry, dest, scale=scale, causal=causal,
+                  q_off=q_off, k_off=k_off, pos_stride=pos_stride,
+                  precision=precision)
+    return dest
+
+
+flash_attention_block.launches = 0
+
+
+def _attention_carry(q):
+    """The fresh carry of :func:`flash_attention`: m = -inf, l = 0 as
+    (L, H) ((L, 1) for one head) and acc = 0 shaped like q, float32."""
+    L = q.shape[0]
+    H = q.shape[1] if q.dim() == 3 else 1
+    kw = {"dtype": torch.float32, "device": q.device}
+    return (torch.full((L, H), float("-inf"), **kw),
+            torch.zeros((L, H), **kw), torch.zeros(q.shape, **kw))
+
+
+def _normalise(q, l, acc):
+    return (acc / (l[..., None] if q.dim() == 3 else l)).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, scale=None, causal: bool = False,
+                        precision: str = "highest",
+                        k_tile: "int | None" = None,
+                        skip_tile: "int | None" = None):
+    """Plain-torch version of :func:`flash_attention`: one
+    :func:`flash_attention_block_ref` per head from the fresh carry, then
+    ``(acc / l)`` in q's dtype."""
+    _check_flash_operands("flash_attention", q, k, v)
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if q.dim() == 3:
+        return torch.stack([
+            flash_attention_ref(q[:, h], k[:, h], v[:, h], scale=scale,
+                                causal=causal, precision=precision,
+                                k_tile=k_tile, skip_tile=skip_tile)
+            for h in range(q.shape[1])], dim=1)
+    m, l, acc = flash_attention_block_ref(
+        q, k, v, *_attention_carry(q), 0, 0, scale=scale, causal=causal,
+        precision=precision, k_tile=k_tile, skip_tile=skip_tile)
+    return _normalise(q, l, acc)
+
+
+def flash_attention(q, k, v, *, scale=None, causal: bool = False,
+                    precision: str = "highest",
+                    k_tile: "int | None" = None,
+                    skip_tile: "int | None" = None):
+    """softmax(q·kᵀ·scale)·v without an L×L score matrix (≅
+    ``flash_attention_pallas``; ``scale`` defaults to 1/√d): the carry
+    starts at (-inf, 0, 0), one :func:`flash_attention_block` launch over
+    all heads folds the whole block (causal: self-attention, offsets 0),
+    and ``(acc / l)`` comes back in q's dtype through torch ops. q, k, v
+    are (L, d), or (L, H, d) — every head in the one launch, read through
+    the strides, giving the layout of ``jax.vmap(flash_attention_pallas,
+    in_axes=1, out_axes=1)``."""
+    _check_flash_operands("flash_attention", q, k, v)
+    _check_precision(precision)
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, scale=scale, causal=causal,
+                                   precision=precision, k_tile=k_tile,
+                                   skip_tile=skip_tile)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    carry = _attention_carry(q)
+    _flash_launch(q, k, v, carry, carry, scale=scale, causal=causal,
+                  q_off=0, k_off=0, pos_stride=1, precision=precision)
+    return _normalise(q, carry[1], carry[2])
+
+
 #: every wrapper of a hand kernel (name → function with a .launches count)
 WRAPPERS = {
     "stencil2d_iterate": stencil2d_iterate,
@@ -614,6 +925,7 @@ WRAPPERS = {
     "daxpy": daxpy,
     "stream_scale": stream_scale,
     "stream_sum3": stream_sum3,
+    "flash_attention_block": flash_attention_block,
 }
 
 

@@ -1,10 +1,10 @@
-"""HBM streaming microbenchmarks on the card (≅ the ``daxpy``, ``ceiling``
-and ``streams`` groups of ``tpu/microbench.py``).
+"""Microbenchmarks on the card (≅ the ``daxpy``, ``ceiling``, ``streams``,
+``attention`` and ``causal`` groups of ``tpu/microbench.py``).
 
     python -m tpu_mpi_tests_torch.microbench [daxpy] [ceiling] [streams]
-        [--device cuda|cpu]
+        [attention] [causal] [--device cuda|cpu]
 
-Runs the selected groups (default: all three) and prints one JSON line
+Runs the selected groups (default: all five) and prints one JSON line
 ``{"metric", "value", "unit", "detail"}`` per measurement, then a summary
 table. The JAX groups' sizes (2^24/2^26/2^28 float32) and iteration
 counts are kept; their ``xla``/``pallas`` tiers are the port's ``torch``
@@ -15,7 +15,10 @@ the per-launch rows; ``chain_rate`` (CUDA events around a Python loop of
 launches, differenced) for the chained rows, whose aliased form writes
 into ``y`` itself (``out=y``). The JAX ``streams`` group's
 ``daxpy_block{br}_gbps`` sweep varies a TPU VMEM tile and has no
-counterpart here.
+counterpart here. The attention groups run the hand flash kernel
+(``csrc/flash_attention.cu``) and torch ops, chained with the output fed
+back as the next query; the TPU tile sweeps ``stripeskip`` and
+``stripebalance`` are not ported (ROADMAP queue 1 item 21).
 
 Each group function takes its sizes as keyword arguments (defaults: the
 JAX sizes), so the CPU tests run them small.
@@ -181,10 +184,97 @@ def bench_streams(results, device, n=1 << 26, n_big=1 << 28):
           "chained in-place, 4x bytes of the fit family")
 
 
+def _attention_operands(L: int, d: int, dtype, device):
+    """q, k, v (L, d) standard normal in ``dtype``, made on ``device``."""
+    g = torch.Generator(device=device).manual_seed(0)
+    return tuple(torch.randn((L, d), generator=g, device=device).to(dtype)
+                 for _ in range(3))
+
+
+def _chain_attention(attn, state, n_short, n_long):
+    """Seconds per call of ``attn`` chained with its output fed back as
+    the next query, and the final state."""
+    def run(st, n_iter):
+        qq, k, v = st
+        for _ in range(n_iter):
+            qq = attn(qq, k, v)
+        return qq, k, v
+
+    return chain_rate(run, state, n_short=n_short, n_long=n_long)
+
+
+def bench_attention(results, device, L=8192, d=128, n_short=100,
+                    n_long=1100):
+    """Flash vs torch-op local attention (≅ the JAX ``attention`` group):
+    softmax(q·kᵀ/√d)·v at L=8192, d=128 in float32 and bfloat16, both
+    tiers at DEFAULT precision (the hand kernel on the tensor cores —
+    TF32 for float32 — and ``torch.matmul`` with TF32 on), chained."""
+    flops = 4.0 * L * L * d  # two L×L×d matmuls per iteration
+
+    def xla_attn(q, k, v):
+        s = torch.matmul(q, k.T) / (d**0.5)
+        return torch.matmul(torch.softmax(s, dim=-1), v)
+
+    def flash_attn(q, k, v):
+        return hand.flash_attention(q, k, v, precision="default")
+
+    with hand.matmul_precision("default"):
+        for dtype in ("float32", "bfloat16"):
+            state = _attention_operands(L, d, getattr(torch, dtype), device)
+            for name, attn in (("flash", flash_attn), ("xla", xla_attn)):
+                per, state = _chain_attention(attn, state, n_short, n_long)
+                _emit(results, f"attention_{name}_{dtype}_tflops",
+                      flops / per / 1e12, "TFLOP/s",
+                      f"L={L} d={d} softmax(qk^T)v")
+            del state
+
+
+def bench_causal(results, device, sizes=((8192, "resident"),
+                                         (32768, "stream")), d=128,
+                 iters=None):
+    """Causal tile-skip A/B (≅ the JAX ``causal`` group): bf16 at DEFAULT,
+    the full and causal arms of the hand kernel at each size, the causal
+    pair alternating twice and the minimum reported (contention only
+    inflates). The TPU's "resident"/"stream" kernel paths and its
+    ``skip_tile=256`` decoupled arm keep their metric names; on the card
+    one kernel runs all of them at its own 64-wide skip tile. Emits ms
+    per attention with the useful TFLOP/s (causal counts half the
+    flops)."""
+    variants = [(False, None, "full"), (True, None, "causal"),
+                (True, 256, "causal_decoupled"), (True, None, "causal"),
+                (True, 256, "causal_decoupled")]
+    for L, path in sizes:
+        state = _attention_operands(L, d, torch.bfloat16, device)
+        n_long = iters or max(100, 800 * 8192 // L)
+        readings: dict[str, list] = {}
+        for causal, skt, tag in variants:
+            def attn(q, k, v, causal=causal, skt=skt):
+                return hand.flash_attention(q, k, v, causal=causal,
+                                            skip_tile=skt,
+                                            precision="default")
+
+            per, state = _chain_attention(attn, state, n_long // 10 or 1,
+                                          n_long)
+            readings.setdefault(tag, []).append((causal, per))
+        for tag, reads in readings.items():
+            causal = reads[0][0]
+            pers = [p for _, p in reads]
+            per = min(pers)
+            useful = 4.0 * L * L * d * (0.5 if causal else 1.0)
+            all_r = ",".join(f"{p * 1e3:.3f}" for p in pers)
+            _emit(results, f"attn_{path}_{tag}_bf16_L{L}", per * 1e3,
+                  "ms/attn",
+                  f"useful {useful / per / 1e12:.1f} TFLOP/s"
+                  + (f"; reads [{all_r}]" if len(pers) > 1 else ""))
+        del state
+
+
 GROUPS = {
     "daxpy": bench_daxpy,
     "ceiling": bench_ceiling,
     "streams": bench_streams,
+    "attention": bench_attention,
+    "causal": bench_causal,
 }
 
 
