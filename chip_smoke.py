@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all eight hand kernels (six libraries) from
+2. build all eleven hand kernels (eight libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -35,7 +35,22 @@ failure exits non-zero and prints no result line):
    operands: HIGHEST holds the carry to FLASH_RTOL/FLASH_ATOL, DEFAULT
    the normalised output to FLASH_DEFAULT_ATOL of the plain version at
    HIGHEST (sums in another order, tensor-core operands rounded), the
-   largest error of each class printed;
+   largest error of each class printed. The ALU probe
+   (``check_probe_kernel``) over its eight mixes × float32/bfloat16 ×
+   (8, 128), (16, 128), (37, 200), (512, 512), a (3, 70, 130) stack and
+   the main path's (B, 512, 512) stack × reps 1, 3, 64 × ``se`` 1e-9 and
+   0.05: ``fma``, ``step5*`` and ``heat5`` bit-exact; the two dual mixes,
+   which feed a sum taken in another order back into every element,
+   within ``hand.alu_probe_tolerance`` (2·reps·(eps·max|z| +
+   rtol·max|shift|)); the chain property
+   ``probe(probe(z, r1), r2) == probe(z, r1 + r2)`` bit for bit in every
+   mix; the capacity guard raising. Pack and unpack
+   (``check_pack_kernels``) over both axes × three dtypes × ``n_bnd`` 1,
+   2, 8 × ragged shapes, the round trip, and the staged exchange's
+   operands (1028 × 524288 axis 0, 524288 × 1028 axis 1, 8192 × 8196
+   axis 1), tolerance 0. The dual step's lean body over the shapes the
+   raw one has (derivatives bit-exact, residual within
+   ``hand.RESIDUAL_RTOL``);
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -61,7 +76,23 @@ failure exits non-zero and prints no result line):
    groups ``attention`` and ``causal`` at the JAX sizes: the flash kernel
    launched once per attention call of the flash, ring and ulysses tiers
    (none in xla), no FAIL, every TFLOP/s row finite and at most 1.05 ×
-   the peak of its arithmetic (67 f32, 495 TF32, 989 bf16);
+   the peak of its arithmetic (67 f32, 495 TF32, 989 bf16). Then the
+   one-card slice (``run_one_card_slice``), each path alone: the
+   microbench groups ``vpu`` and ``roofline2`` at the full (512, 512)
+   probe block and the JAX kernel sizes (fewer chained probe calls than
+   ``python -m tpu_mpi_tests_torch.microbench`` makes, the same reps
+   triples; ``roofline2`` a second time at 8192² and 4104..8200, where
+   one body's device work outlasts the host's enqueue time), then
+   ``stencil``, ``iterate``, ``splitfused``, ``blocks`` and ``heat`` at
+   the JAX sizes — every group launches exactly what its
+   schedule makes, every rate row is finite (or NaN by its own fit gate)
+   and none exceeds 1.05 × the peak of the instructions it issues (the
+   probe rows: issued lone mul/add/sub per element against 67 TFLOP/s
+   float32, which bfloat16 also runs on, rounding after every op); the
+   periodic DEVICE_STAGED exchange with ``kernel="hand"`` on both axes
+   (one pack and one unpack launch per exchange, the result equal to
+   DIRECT bit for bit); the ``stencil1d`` driver at 32 Mi points (gate
+   passing, no hand kernel launched);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, and for the dual
@@ -76,7 +107,14 @@ failure exits non-zero and prints no result line):
    fold at (8192, 128) f32 HIGHEST dense and causal, bf16 DEFAULT, and
    (32768, 128) bf16 DEFAULT causal, beside its plain version, its flop
    bound over the peak of its arithmetic, and
-   ``F.scaled_dot_product_attention`` (TF32 off for f32);
+   ``F.scaled_dot_product_attention`` (TF32 off for f32). The probe at
+   (B, 512, 512) per mix (bound: issued operations over 67 TFLOP/s; no
+   library call computes it); pack and unpack at the staged exchange's
+   operands beside ``torch.stack`` of the two ``narrow``s and two
+   ``copy_`` (bound: bytes, the strided side counted in 32-byte sectors
+   touched; timed with their launches queued behind a stall, since they
+   are shorter than their wrappers' host cost); the lean dual step
+   beside the raw one's yardstick;
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -166,6 +204,31 @@ ATTN_MICROBENCH_LAUNCHES = {
     "attention": 2 * (3 + 100 + 1100),
     "causal": 5 * (3 + 80 + 800) + 5 * (3 + 20 + 200),
 }
+PROBE_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/alu_probe.cu"
+PROBE_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:469"
+PACK_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/pack.cu"
+PACK_REPLACES = {
+    "pack_edges": "tpu_mpi_tests/kernels/pallas_kernels.py:2772",
+    "unpack_ghosts": "tpu_mpi_tests/kernels/pallas_kernels.py:2803",
+}
+PROBE_HW = 512                   # the probe block of the vpu/roofline2 groups
+PROBE_SE_VISIBLE = 0.05          # an update scale the arithmetic shows at
+# chained probe calls per timing point in this script (the microbench's
+# own default is 400); the reps triples are the groups' own
+SMOKE_PROBE_ITERS = 40
+SECTOR = 32                      # bytes the card moves per touched sector
+# the staged exchange's operands: (shape, axis) — the stencil2d driver's
+# two decompositions and the splitfused group's periodic field
+STAGED_CASES = (((REF_N_LOCAL + 4, REF_N_OTHER), 0),
+                ((REF_N_OTHER, REF_N_LOCAL + 4), 1),
+                ((BENCH_N, BENCH_N + 4), 1))
+STAGED_EXCHANGES = 20
+# roofline2 a second time at sizes whose per-body device work outlasts the
+# host's enqueue time on this card (the JAX sizes, 2048^2 and 2056..4104,
+# are host-bound in a Python loop of launches); same size ratios, so the
+# same chain lengths
+ROOFLINE_LARGE = {"n": GRID_N, "sizes": (4104, 5800, 8200)}
+STENCIL1D_N = 32 * 1024 * 1024   # the 1-D driver's default size
 N26, N28 = 1 << 26, 1 << 28
 # launches each microbench group's schedule makes (microbench.py):
 # dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
@@ -180,6 +243,50 @@ MICROBENCH_LAUNCHES = {
                 "stream_scale": 3 + 100 + 1000,
                 "stream_sum3": 3 + 100 + 1000},
 }
+
+
+def _chain(n_short, n_long, repeats=1):
+    """Calls one ``chain_rate`` makes: 3 warm, then the two runs."""
+    return 3 + repeats * (n_short + n_long)
+
+
+def _kstep_calls(short, floor, ks=(2, 4, 6, 8)):
+    return sum(_chain(max(short[1], short[0] // k), max(floor, 2000 // k))
+               for k in ks)
+
+
+def one_card_launches():
+    """Launches each one-card microbench group's schedule makes
+    (microbench.py), per kernel; a kernel not named launches nothing."""
+    point = _chain(max(1, SMOKE_PROBE_ITERS // 10), SMOKE_PROBE_ITERS)
+    kstep = _kstep_calls((50, 5), 50)
+    dual = sum(_chain(it // 10, it, repeats=2) for it in
+               (max(40, 400 * 2056**2 // nn**2) for nn in (2056, 2904, 4104)))
+    heat = sum(_chain(max(1, 40 // k), max(max(1, 40 // k) + 1, 2000 // k))
+               for k in (1, 4, 8))
+    return {
+        # 3 mixes x 2 dtypes x 3 reps values; S=2 blocks f32 + bf16 dim 1
+        "vpu": {"alu_probe": 18 * point, "stencil2d_iterate": 3 * kstep},
+        # the ceiling fit, 3 mixes x 2 dtypes x 3 reps, heat and both
+        # dual bodies in 2 dtypes
+        "roofline2": {"daxpy": _DR[1000], "stream_scale": _DR[1000],
+                      "alu_probe": 18 * point,
+                      "heat2d": 2 * _kstep_calls((50, 2), 20),
+                      "dual_dim_step": 2 * 2 * dual},
+        # the same schedule at sizes that keep the card busy
+        "roofline2 large": {"daxpy": _DR[1000], "stream_scale": _DR[1000],
+                            "alu_probe": 18 * point,
+                            "heat2d": 2 * _kstep_calls((50, 2), 20),
+                            "dual_dim_step": 2 * 2 * dual},
+        "stencil": {"stencil2d_deriv": 2 * (1 + 50 + 550)},
+        "iterate": {"stencil2d_iterate": 3 * _chain(100, 2100)
+                    + 3 * _chain(25, 525)},
+        "splitfused": {},
+        "blocks": {"stencil2d_iterate": 3 * _chain(25, 525)},
+        "heat": {"heat2d": 2 * heat},
+    }
+
+
 # the DAXPY drivers at the reference's sizes: (path, module, argv, lines)
 DAXPY_DRIVERS = (
     ("daxpy", "daxpy", ["--n", str(N26), "--dtype", "float64", "--iters",
@@ -325,13 +432,18 @@ def check_kernels(device):
     n_cases += n_stream
     n_flash, flash_errs, flash_main = check_flash_kernel(device, gen,
                                                          failures)
+    n_probe, probe_errs = check_probe_kernel(device, rand, failures)
+    n_cases += n_probe
+    n_pack, pack_errs = check_pack_kernels(device, rand, failures)
+    n_cases += n_pack
 
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
     # the driver's periodic iterate blocks, the driver's derivatives, the
     # heat paths' shards, the grid path's block
     errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0,
             "heat2d": 0.0, "dual_dim_step": 0.0,
-            "dual_dim_step residual (relative)": 0.0, **stream_errs}
+            "dual_dim_step residual (relative)": 0.0, **stream_errs,
+            **probe_errs, **pack_errs}
     for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
         err = compare(
@@ -367,15 +479,20 @@ def check_kernels(device):
                             GRID_SCALE, failures)
     errs["dual_dim_step"] = max(errs["dual_dim_step"], err)
     errs["dual_dim_step residual (relative)"] = rel
-    n_cases += 1
+    err, rel = compare_dual("dual_dim_step lean main-path", z, GRID_SCALE,
+                            GRID_SCALE, failures, lean=True)
+    errs["dual_dim_step"] = max(errs["dual_dim_step"], err)
+    errs["dual_dim_step lean residual (relative)"] = rel
+    n_cases += 2
     del z
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if failures:
         raise SmokeFailure("kernel/plain mismatches:\n  "
                            + "\n  ".join(failures))
-    log(f"CHECK {n_cases} kernel-vs-plain cases bit-exact, {n_flash} flash "
-        f"cases within their tolerances")
+    log(f"CHECK {n_cases} kernel-vs-plain cases bit-exact (the probe's dual "
+        f"mixes and the dual step's residuals within their tolerances), "
+        f"{n_flash} flash cases within their tolerances")
     # the flash kernel's main-path error: the normalised output at the
     # f32 HIGHEST operand; every class beside it
     errs["flash_attention_block"] = max(
@@ -385,14 +502,15 @@ def check_kernels(device):
     return errs
 
 
-def compare_dual(name, z, sx, sy, failures):
-    """The dual step against its plain version: both derivatives
-    bit-exact, the residual within ``hand.RESIDUAL_RTOL``. Returns (max
-    abs error of the derivatives, relative error of the residual)."""
+def compare_dual(name, z, sx, sy, failures, lean=False):
+    """The dual step (its raw or its lean body) against its plain
+    version: both derivatives bit-exact, the residual within
+    ``hand.RESIDUAL_RTOL``. Returns (max abs error of the derivatives,
+    relative error of the residual)."""
     from tpu_mpi_tests_torch.kernels import hand
 
-    gx, gy, gr = hand.dual_dim_step(z, 2, sx, sy)
-    wx, wy, wr = hand.dual_dim_step_ref(z, 2, sx, sy)
+    gx, gy, gr = hand.dual_dim_step(z, 2, sx, sy, lean=lean)
+    wx, wy, wr = hand.dual_dim_step_ref(z, 2, sx, sy, lean=lean)
     err = max(compare(f"{name} {tuple(z.shape)} {z.dtype} dz_dx", gx, wx,
                       failures),
               compare(f"{name} {tuple(z.shape)} {z.dtype} dz_dy", gy, wy,
@@ -428,7 +546,9 @@ def check_grid_kernels(device, rand, failures) -> int:
                         failures)
                 n_cases += 1
             compare_dual("dual_dim_step", z, 3.0, 0.5, failures)
-            n_cases += 1
+            compare_dual("dual_dim_step lean", z, 3.0, 0.5, failures,
+                         lean=True)
+            n_cases += 2
     # the runner: periodic exchange on both axes + the kernel on two
     # ping-ponged buffers, against the torch tier, 3 bodies
     for n_bnd, steps in ((1, 1), (4, 1), (4, 2), (4, 3), (4, 4)):
@@ -441,6 +561,145 @@ def check_grid_kernels(device, rand, failures) -> int:
                 failures)
         n_cases += 1
     return n_cases
+
+
+def probe_batch(device) -> int:
+    """Blocks per probe launch on the main path (the groups' own rule)."""
+    from tpu_mpi_tests_torch import microbench
+
+    return microbench.probe_batch(PROBE_HW, PROBE_HW, device)
+
+
+def check_probe_kernel(device, rand, failures):
+    """The ALU probe against its plain version: every mix × float32 and
+    bfloat16 × small, ragged, batched and main-path shapes × reps 1, 3,
+    64 × the inert and a visible ``se``. ``fma``, ``step5*`` and
+    ``heat5``: tolerance 0. The dual mixes: ``hand.alu_probe_tolerance``
+    from the plain run's largest value and shift. Then the chain
+    property, bit for bit in every mix, and the capacity guard. Returns
+    (number of cases, {"alu_probe": max abs error of the bit-exact mixes
+    at the main-path stack, "alu_probe dual mixes": their largest error
+    and the tolerance it was held to})."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    B = probe_batch(device)
+    main = (B, PROBE_HW, PROBE_HW)
+    shapes = ((8, 128), (16, 128), (37, 200), (PROBE_HW, PROBE_HW),
+              (3, 70, 130), main)
+    n_cases = 0
+    errs = {"alu_probe": 0.0}
+    dual = {"max_abs_err": 0.0, "tolerance_at_that_case": 0.0, "equal": 0,
+            "cases": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            z = rand(shape, dtype)
+            for mix in hand.ALU_PROBE_MIXES:
+                for reps in (1, 3, 64):
+                    for se in (1e-9, PROBE_SE_VISIBLE):
+                        name = (f"alu_probe {mix} {dtype} {shape} "
+                                f"reps={reps} se={se}")
+                        got = hand.alu_probe(z, reps, mix, se=se)
+                        shifts = []
+                        want = hand.alu_probe_ref(z, reps, mix, se=se,
+                                                  shifts=shifts)
+                        n_cases += 1
+                        if not mix.startswith("dualdim"):
+                            err = compare(name, got, want, failures)
+                            if shape == main:
+                                errs["alu_probe"] = max(errs["alu_probe"],
+                                                        err)
+                            continue
+                        err = float((got.double() - want.double()).abs()
+                                    .max())
+                        tol = hand.alu_probe_tolerance(
+                            dtype, reps, float(want.double().abs().max()),
+                            max(shifts))
+                        dual["cases"] += 1
+                        dual["equal"] += int(torch.equal(got, want))
+                        if err >= dual["max_abs_err"]:
+                            dual["max_abs_err"] = err
+                            dual["tolerance_at_that_case"] = tol
+                        if not err <= tol or not torch.isfinite(
+                                got.double()).all():
+                            failures.append(f"{name}: max |kernel - plain| "
+                                            f"= {err:g} beyond {tol:g}")
+            del z
+    errs["alu_probe dual mixes"] = dual
+    # chain property: two launches equal one, bit for bit, in every mix
+    z = rand((2, 100, 300), torch.float32)
+    for mix in hand.ALU_PROBE_MIXES:
+        once = hand.alu_probe(z, 7, mix, se=PROBE_SE_VISIBLE)
+        twice = hand.alu_probe(hand.alu_probe(z, 3, mix, se=PROBE_SE_VISIBLE),
+                               4, mix, se=PROBE_SE_VISIBLE)
+        if not torch.equal(once, twice) or torch.equal(once, z):
+            failures.append(f"alu_probe {mix}: probe(probe(z, 3), 4) != "
+                            f"probe(z, 7)")
+        n_cases += 1
+    # the capacity guard: two buffers over the L2 raise, nothing launches
+    l2 = hand.alu_probe_l2_bytes()
+    big = torch.zeros((l2 // 4 // 1024 // 2 + 1024, 1024), device=device)
+    before = hand.alu_probe.launches
+    try:
+        hand.alu_probe(big, 2, "fma")
+        failures.append("alu_probe: a block pair over the L2 did not raise")
+    except ValueError as e:
+        if "L2" not in str(e) or hand.alu_probe.launches != before:
+            failures.append(f"alu_probe capacity guard: {e}")
+    n_cases += 1
+    del big
+    log(f"PROBE {n_cases} cases; main-path stack {list(main)}, L2 {l2} B; "
+        f"dual mixes {json.dumps(dual)}")
+    return n_cases, errs
+
+
+def check_pack_kernels(device, rand, failures):
+    """Pack and unpack against their plain versions, tolerance 0: both
+    axes × float32/float64/bfloat16 × n_bnd 1, 2, 8 × ragged shapes, the
+    round trip (ghosts take the packed edges, the interior is untouched),
+    and the staged exchange's operands. Returns (number of cases, max abs
+    error per kernel at those operands)."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    def one(z, axis, n_bnd, where):
+        name = f"{where} {z.dtype} {tuple(z.shape)} axis={axis} b={n_bnd}"
+        lo, hi = hand.pack_edges(z, axis, n_bnd)
+        wlo, whi = hand.pack_edges_ref(z, axis, n_bnd)
+        e_pack = max(compare(f"pack_edges lo {name}", lo, wlo, failures),
+                     compare(f"pack_edges hi {name}", hi, whi, failures))
+        n = z.shape[axis]
+        got = hand.unpack_ghosts(z.clone(), lo, hi, axis, n_bnd)
+        want = hand.unpack_ghosts_ref(z.clone(), lo, hi, axis, n_bnd)
+        e_unpack = compare(f"unpack_ghosts {name}", got, want, failures)
+        inner = (n_bnd, n - 2 * n_bnd)
+        if not (torch.equal(got.narrow(axis, 0, n_bnd), lo)
+                and torch.equal(got.narrow(axis, n - n_bnd, n_bnd), hi)
+                and torch.equal(got.narrow(axis, *inner),
+                                z.narrow(axis, *inner))):
+            failures.append(f"pack/unpack round trip {name}")
+        return e_pack, e_unpack
+
+    n_cases = 0
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        for shape in ((37, 201), (300, 1028)):
+            z = rand(shape, dtype)
+            for axis in (0, 1):
+                for n_bnd in (1, 2, 8):
+                    one(z, axis, n_bnd, "ragged")
+                    n_cases += 1
+    errs = {"pack_edges": 0.0, "unpack_ghosts": 0.0}
+    for shape, axis in STAGED_CASES:
+        z = rand(shape, torch.float32)
+        e_pack, e_unpack = one(z, axis, 2, "main-path")
+        errs["pack_edges"] = max(errs["pack_edges"], e_pack)
+        errs["unpack_ghosts"] = max(errs["unpack_ghosts"], e_unpack)
+        n_cases += 1
+        del z
+        torch.cuda.empty_cache()
+    return n_cases, errs
 
 
 def stream_calls(name, a, ops, inplace):
@@ -824,6 +1083,14 @@ def run_main_path(device):
 
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
     recs["attention"] = run_attention_slice(device, counts, peaks)
+    recs["one_card"] = run_one_card_slice(device, counts, peaks)
+    # the staged legs of the stencil2d driver were handed the pack/unpack
+    # kernels; its non-periodic world=1 exchange moves nothing
+    for name in ("pack_edges", "unpack_ghosts"):
+        if counts["stencil2d"][name]:
+            raise SmokeFailure(f"stencil2d: {name} launched "
+                               f"{counts['stencil2d'][name]} times on a "
+                               f"non-periodic world=1 exchange")
 
     log(f"LAUNCHES {json.dumps(counts)}")
     log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
@@ -875,6 +1142,131 @@ def run_daxpy_slice(device, counts, peaks):
         if any(counts[path].values()):
             raise SmokeFailure(f"{path}: the DAXPY drivers launch no hand "
                                f"kernel (parity with the JAX drivers), "
+                               f"got {counts[path]}")
+    return records
+
+
+def check_one_card_rates(path, recs):
+    """Every rate row of a one-card group: finite and positive, or NaN
+    where the row's own fit gate said so (the ``vpu_*_gops`` and
+    ``roofline_*``/``dualdim_lean_gain_*`` rows: at the JAX sizes the
+    heat and dual-step chains are host-bound on a fast card); no GB/s row above
+    ``GBPS_CAP``; no probe row above 1.05 × 67 TFLOP/s counted in the
+    instructions it issues."""
+    import math
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    for r in recs:
+        v, metric = r["value"], r["metric"]
+        gated = (metric.endswith(("_gops", "_ceiling", "_marginal_ps"))
+                 or metric.startswith(("dualdim_lean_gain_",
+                                       "roofline_heat_")))
+        if gated and math.isnan(v):
+            log(f"  NOTE {path}: {metric} is NaN by its fit gate: "
+                f"{r.get('detail', '')[:160]}")
+            continue
+        if not (math.isfinite(v) and v > 0):
+            raise SmokeFailure(f"{path}: {metric} = {v} is not a finite "
+                               f"positive value")
+        if r["unit"] == "GB/s" and v > GBPS_CAP:
+            raise SmokeFailure(f"{path}: {metric} = {v} GB/s above "
+                               f"{GBPS_CAP:g}")
+        if r["unit"] == "Gop/s":
+            mix = next(m for m in sorted(hand.ALU_PROBE_MIXES, key=len,
+                                         reverse=True)
+                       if metric.startswith(f"vpu_{m}_"))
+            nominal = int(r["detail"].split("nominal ")[1].split()[0])
+            issued = v * hand.ALU_PROBE_REAL_OPS[mix] / nominal  # Gop/s
+            if issued > 1.05 * F32_FLOPS_PER_S / 1e9:
+                raise SmokeFailure(f"{path}: {metric} issues {issued:g} "
+                                   f"Gop/s, above 1.05x the float32 peak")
+
+
+def run_one_card_slice(device, counts, peaks):
+    """The one-card slice's paths, each alone: the microbench groups
+    ``vpu``, ``roofline2``, ``stencil``, ``iterate``, ``splitfused``,
+    ``blocks`` and ``heat`` (exact launch counts, rate checks), the
+    periodic hand-staged exchange on both axes against DIRECT, and the
+    ``stencil1d`` driver. Returns the microbench records."""
+    import torch
+
+    from tpu_mpi_tests_torch import microbench
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import stencil1d
+    from tpu_mpi_tests_torch.kernels import hand
+
+    os.environ.pop("TPU_MPI_VPU_STEP5FMA", None)
+    sizes = {"vpu": {"iters": SMOKE_PROBE_ITERS},
+             "roofline2": {"iters": SMOKE_PROBE_ITERS},
+             "roofline2 large": {"iters": SMOKE_PROBE_ITERS,
+                                 **ROOFLINE_LARGE}}
+    records = []
+    for name, want in one_card_launches().items():
+        path = f"microbench {name}"
+        group = name.split()[0]
+
+        def run(group=group, name=name):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                recs = microbench.run_groups(
+                    [group], device, **{group: sizes.get(name, {})})
+            for line in out.getvalue().splitlines():
+                log(f"  {line}")
+            return recs
+
+        t0 = time.perf_counter()
+        recs, counts[path] = drive_path(path, run, list(want), peaks)
+        want_all = dict.fromkeys(counts[path], 0) | want
+        if counts[path] != want_all:
+            raise SmokeFailure(f"{path}: launches {counts[path]}, its "
+                               f"schedule makes {want_all}")
+        check_one_card_rates(path, recs)
+        log(f"  {path}: {time.perf_counter() - t0:.1f} s")
+        records += recs
+
+    # the periodic self-ring exchange, DEVICE_STAGED through the hand
+    # pack/unpack kernels, against DIRECT on the same field
+    gen = torch.Generator(device=device).manual_seed(4321)
+    for shape, axis in STAGED_CASES:
+        path = f"staged exchange {shape[0]}x{shape[1]} axis {axis}"
+        z = torch.randn(shape, generator=gen, device=device)
+
+        def run(z=z, axis=axis):
+            got = z.clone()
+            for _ in range(STAGED_EXCHANGES):
+                got = H.halo_exchange(got, axis, 2, True, "device",
+                                      kernel="hand")
+            torch.cuda.synchronize(device)
+            return got
+
+        got, counts[path] = drive_path(path, run,
+                                       ["pack_edges", "unpack_ghosts"],
+                                       peaks)
+        want = dict.fromkeys(counts[path], 0) | {
+            "pack_edges": STAGED_EXCHANGES, "unpack_ghosts": STAGED_EXCHANGES}
+        if counts[path] != want:
+            raise SmokeFailure(f"{path}: launches {counts[path]}, one pack "
+                               f"and one unpack per exchange make {want}")
+        direct = H.halo_exchange(z.clone(), axis, 2, True, "direct")
+        if not torch.equal(got, direct) or torch.equal(got, z):
+            raise SmokeFailure(f"{path}: the hand-staged exchange differs "
+                               f"from DIRECT")
+        nbytes = H.halo_payload_bytes(z, axis, 1, 2, True)
+        log(f"STAGED {path}: {STAGED_EXCHANGES} exchanges equal DIRECT bit "
+            f"for bit, payload {nbytes} B each")
+        del z, got, direct
+        torch.cuda.empty_cache()
+
+    for dtype in ("float32", "float64"):
+        path = f"stencil1d {dtype}"
+        counts[path] = drive_driver(
+            path, stencil1d, ["--device", device.type, "--n-global",
+                              str(STENCIL1D_N), "--dtype", dtype], [],
+            ("0/1 exchange time ", "err_norm = "), peaks)
+        if any(counts[path].values()):
+            raise SmokeFailure(f"{path}: the 1-D stencil driver launches no "
+                               f"hand kernel (parity with the JAX driver), "
                                f"got {counts[path]}")
     return records
 
@@ -985,6 +1377,28 @@ def time_cuda(fn, n_iter: int) -> float:
     return start.elapsed_time(end) / n_iter
 
 
+def time_cuda_queued(fn, n_iter: int, stall_ms: float = 20.0) -> float:
+    """Mean device milliseconds per call of ``fn`` with the host taken
+    out: the stream is stalled first (a spin kernel of ``stall_ms``), so
+    the ``n_iter`` calls' launches queue up behind it and then run back
+    to back between the two events. For kernels shorter than their
+    wrapper's host cost, where :func:`time_cuda` would time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 1.7e6)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(stall_ms * khz))
+    start.record()
+    for _ in range(n_iter):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n_iter
+
+
 def iterate_work(shape, dtype, dim, steps, flags):
     """(bytes, flops) the k-step update needs: the array read once and
     written once; 7 flops per updated point per step (spans from the
@@ -1023,16 +1437,17 @@ def heat_work(shape, dtype, steps):
     return 2 * shape[0] * shape[1] * itemsize, 9 * updated * steps
 
 
-def dual_work(shape, dtype):
+def dual_work(shape, dtype, lean=False):
     """(bytes, flops) of a dual step: the block read once, both
     (n0−4, n1−4) derivatives written once (the residual scalar is
-    negligible); per output point 8 flops per derivative and 4 for the
-    two squares and their sums."""
+    negligible); per output point 8 flops per derivative (5 in the lean
+    body) and 4 for the two squares and their sums."""
     import torch
 
     itemsize = torch.empty((), dtype=dtype).element_size()
     n_out = (shape[0] - 4) * (shape[1] - 4)
-    return (shape[0] * shape[1] + 2 * n_out) * itemsize, 20 * n_out
+    return ((shape[0] * shape[1] + 2 * n_out) * itemsize,
+            (14 if lean else 20) * n_out)
 
 
 def bound_ms(nbytes, flops):
@@ -1100,11 +1515,12 @@ def time_kernels(device):
                 "plain_ms": plain, "bound_ms": b, "bound_by": why,
                 "library_ms": None}
 
-    def dual_row(shape, dtype):
+    def dual_row(shape, dtype, lean=False):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
         s = GRID_SCALE
-        ms = time_cuda(lambda: hand.dual_dim_step(z, 2, s, s), 20)
-        plain = time_cuda(lambda: hand.dual_dim_step_ref(z, 2, s, s), 5)
+        ms = time_cuda(lambda: hand.dual_dim_step(z, 2, s, s, lean=lean), 20)
+        plain = time_cuda(lambda: hand.dual_dim_step_ref(z, 2, s, s,
+                                                         lean=lean), 5)
         # the yardstick: both derivatives from one cross-shaped (2,1,5,5)
         # convolution, valid padding (no residual)
         w = torch.zeros((2, 1, 5, 5), dtype=torch.float64)
@@ -1116,8 +1532,10 @@ def time_kernels(device):
             raise SmokeFailure("dual-step conv2d yardstick shape mismatch")
         del lib_out
         lib = time_cuda(lambda: F.conv2d(z[None, None], w), 10)
-        b, why = bound_ms(*dual_work(shape, dtype))
-        return {"path": "stencil2d_grid", "shape": list(shape),
+        b, why = bound_ms(*dual_work(shape, dtype, lean))
+        return {"path": ("microbench roofline2" if lean
+                         else "stencil2d_grid"),
+                "body": "lean" if lean else "raw", "shape": list(shape),
                 "dtype": str(dtype).split(".")[1], "ms": ms,
                 "plain_ms": plain, "bound_ms": b, "bound_by": why,
                 "library_ms": lib,
@@ -1140,14 +1558,120 @@ def time_kernels(device):
     for case in heat_cases():
         rows["heat2d"].append(heat_row(*case))
         torch.cuda.empty_cache()
-    rows["dual_dim_step"] = [dual_row((GRID_N + 4, GRID_N + 4),
-                                      torch.float32)]
+    rows["dual_dim_step"] = [
+        dual_row((GRID_N + 4, GRID_N + 4), dtype, lean=lean)
+        for dtype in (torch.float32, torch.bfloat16)
+        for lean in (False, True)]
     torch.cuda.empty_cache()
+    rows.update(time_probe_and_pack(device, gen))
     rows.update(time_stream_kernels(device, gen))
     rows["flash_attention_block"] = time_flash_kernel(device, gen)
     for name, rs in rows.items():
         for r in rs:
             log(f"TIME {name} {json.dumps(r)}")
+    return rows
+
+
+def band_sectors(shape, axis, n_bnd, itemsize, starts):
+    """Bytes the strided side of a pack or unpack moves, counted in whole
+    32-byte sectors touched: along axis 0 a band is contiguous (its own
+    bytes); along axis 1 each row's ``n_bnd`` elements cost every sector
+    they touch."""
+    import numpy as np
+
+    n0, n1 = shape
+    if axis == 0:
+        return len(starts) * n_bnd * n1 * itemsize
+    rows = np.arange(n0, dtype=np.int64)
+    total = 0
+    for start in starts:
+        first = (rows * n1 + start) * itemsize
+        last = first + n_bnd * itemsize - 1
+        total += int((last // SECTOR - first // SECTOR + 1).sum()) * SECTOR
+    return total
+
+
+def time_probe_and_pack(device, gen):
+    """Per-launch times of the probe at the main path's (B, 512, 512)
+    stack — float32 per mix at the middle of its reps triple, and the
+    bfloat16 ``step5_d1`` the vpu group holds the bf16 kernel against —
+    with its bound (operations issued over 67 TFLOP/s against the stack
+    read and written once over 3.35 TB/s) and its plain version (no
+    library call computes it); and of pack and unpack at the staged
+    exchange's operands, with the byte bound (the strided side counted
+    in 32-byte sectors touched), the plain version and the one-call
+    yardsticks ``torch.stack`` of the two ``narrow``s and two
+    ``copy_``. These copies are shorter than their wrappers' host cost,
+    so they are timed queued behind a stall (:func:`time_cuda_queued`);
+    ``ms_host_loop`` is the plain loop's time, which is the host's."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    B = probe_batch(device)
+    shape = (B, PROBE_HW, PROBE_HW)
+    elems = B * PROBE_HW * PROBE_HW
+    rows = {"alu_probe": [], "pack_edges": [], "unpack_ghosts": []}
+    cases = [("step5_d0", torch.float32, 1024), ("fma", torch.float32, 2048),
+             ("step5_d1", torch.float32, 256), ("heat5", torch.float32, 256),
+             ("dualdim", torch.float32, 128),
+             ("dualdim_lean", torch.float32, 128),
+             ("step5_d1", torch.bfloat16, 256)]
+    for mix, dtype, reps in cases:
+        z = torch.randn(shape, generator=gen, device=device).to(dtype)
+        ms = time_cuda(lambda: hand.alu_probe(z, reps, mix), 10)
+        plain = time_cuda(lambda: hand.alu_probe_ref(z, reps, mix), 1)
+        ops = hand.ALU_PROBE_REAL_OPS[mix] * elems * reps
+        b, why = bound_ms(2 * elems * z.element_size(), ops)
+        rows["alu_probe"].append({
+            "path": "microbench vpu/roofline2", "shape": list(shape),
+            "dtype": str(dtype).split(".")[1], "mix": mix, "reps": reps,
+            "ctas": hand.alu_probe.last_ctas, "ms": ms,
+            "us_per_rep": 1e3 * ms / reps, "plain_ms": plain, "bound_ms": b,
+            "bound_by": why, "library_ms": None,
+            "issued_gops": ops / ms / 1e6,
+            "where": "two L2-resident ping-pong buffers in global memory, "
+                     "one cooperative launch, a grid barrier per rep"})
+        del z
+    for case_shape, axis in STAGED_CASES:
+        z = torch.randn(case_shape, generator=gen, device=device)
+        n = case_shape[axis]
+        lo, hi = hand.pack_edges(z, axis, 2)
+        contiguous = 2 * lo.numel() * 4
+        common = {"path": "staged exchange", "shape": list(case_shape),
+                  "dtype": "float32", "axis": axis, "n_bnd": 2,
+                  "bound_by": "bytes", "bound_counts":
+                  "32-byte sectors touched on the strided side"}
+        pack_bytes = band_sectors(case_shape, axis, 2, 4,
+                                  (2, n - 4)) + contiguous
+        rows["pack_edges"].append({
+            **common,
+            "ms": time_cuda_queued(lambda: hand.pack_edges(z, axis, 2), 20),
+            "ms_host_loop": time_cuda(lambda: hand.pack_edges(z, axis, 2),
+                                      20),
+            "plain_ms": time_cuda_queued(
+                lambda: hand.pack_edges_ref(z, axis, 2), 20),
+            "bound_ms": pack_bytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": time_cuda_queued(lambda: torch.stack(
+                (z.narrow(axis, 2, 2), z.narrow(axis, n - 4, 2))), 20),
+            "library_call": "torch.stack of the two narrows"})
+        unpack_bytes = band_sectors(case_shape, axis, 2, 4,
+                                    (0, n - 2)) + contiguous
+        rows["unpack_ghosts"].append({
+            **common,
+            "ms": time_cuda_queued(
+                lambda: hand.unpack_ghosts(z, lo, hi, axis, 2), 20),
+            "ms_host_loop": time_cuda(
+                lambda: hand.unpack_ghosts(z, lo, hi, axis, 2), 20),
+            "plain_ms": time_cuda_queued(lambda: hand.unpack_ghosts_ref(
+                z, lo, hi, axis, 2), 20),
+            "bound_ms": unpack_bytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": time_cuda_queued(lambda: (
+                z.narrow(axis, 0, 2).copy_(lo),
+                z.narrow(axis, n - 2, 2).copy_(hi)), 20),
+            "library_call": "two copy_ into the narrows"})
+        del z, lo, hi
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1337,6 +1861,9 @@ def main() -> int:
             ("stencil2d_deriv", DERIV_SOURCE, DERIV_REPLACES),
             ("heat2d", HEAT_SOURCE, HEAT_REPLACES),
             ("dual_dim_step", DUAL_SOURCE, DUAL_REPLACES),
+            ("alu_probe", PROBE_SOURCE, PROBE_REPLACES),
+            *((name, PACK_SOURCE, PACK_REPLACES[name])
+              for name in PACK_REPLACES),
             *((name, STREAMS_SOURCE, STREAM_REPLACES[name])
               for name in STREAM_KERNELS),
             ("flash_attention_block", FLASH_SOURCE, FLASH_REPLACES)):
@@ -1355,7 +1882,14 @@ def main() -> int:
             # another order, held to a relative tolerance
             extra = {"residual_rel_err": errs["dual_dim_step residual "
                                               "(relative)"],
+                     "lean_residual_rel_err": errs["dual_dim_step lean "
+                                                   "residual (relative)"],
                      "residual_rtol": hand.RESIDUAL_RTOL[torch.float32]}
+        if name == "alu_probe":
+            # max_abs_err is the bit-exact mixes' (fma, step5*, heat5);
+            # the dual mixes feed a sum in another order back and are
+            # held to hand.alu_probe_tolerance
+            extra = {"dual_mixes": errs["alu_probe dual mixes"]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

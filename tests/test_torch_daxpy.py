@@ -435,12 +435,12 @@ def test_collectives_world1():
 
 
 def test_workload_registry_and_umbrella_cli(capsys):
-    assert workloads.spec_names() == ("daxpy",)
+    assert workloads.spec_names() == ("daxpy", "stencil1d")
     assert workloads.get_spec("daxpy") is daxpy.SPEC
-    with pytest.raises(KeyError, match="registered: daxpy"):
+    with pytest.raises(KeyError, match="registered: daxpy,stencil1d"):
         workloads.get_spec("moe")
     assert runner.main(["--list"]) == 0
-    assert capsys.readouterr().out == "daxpy\n"
+    assert capsys.readouterr().out == "daxpy\nstencil1d\n"
     assert runner.main(["daxpy", "--device", "cpu", "--n", "16"]) == 0
     assert "0/1 SUM = 136.000000" in capsys.readouterr().out
-    assert runner.main(["stencil1d"]) == 2
+    assert runner.main(["moe"]) == 2

@@ -18,7 +18,12 @@ drivers and the microbench groups run on the card at small sizes. The
 flash-attention fold is held against its plain version within stated
 tolerances (sums in another order; tensor-core operands rounded at
 DEFAULT), dense and causal with masked, live and strided offsets, and in
-the (L, H, d) layout in one launch.
+the (L, H, d) layout in one launch. The ALU probe is held bit for bit
+(``fma``, ``step5*``, ``heat5``) or within ``hand.alu_probe_tolerance``
+(the dual mixes), with its chain property and capacity guard; pack and
+unpack bit for bit on both axes, and the hand-staged exchange against
+DIRECT; the dual step's lean body like the raw one; the ``vpu`` group
+and the ``stencil1d`` driver run on the card at small sizes.
 """
 
 import pytest
@@ -33,6 +38,7 @@ from tpu_mpi_tests_torch.drivers import (
     heat2d,
     mpi_daxpy,
     mpi_daxpy_nvtx,
+    stencil1d,
     stencil2d_grid,
 )
 from tpu_mpi_tests_torch.kernels import hand
@@ -306,3 +312,171 @@ def test_flash_attention_heads_layout_one_launch(card):
     assert hand.flash_attention_block.launches == before + 1
     want = hand.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the ALU probe, the halo staging copies, the dual step's lean body
+# ---------------------------------------------------------------------------
+
+_BIT_EXACT_MIXES = [m for m in hand.ALU_PROBE_MIXES
+                    if not m.startswith("dualdim")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128), (37, 200), (3, 70, 130),
+                                   (512, 512)])
+@pytest.mark.parametrize("mix", _BIT_EXACT_MIXES)
+def test_probe_kernel_matches_plain_bit_for_bit(card, mix, shape, dtype):
+    z = rand(card, shape, dtype, seed=11)
+    for reps, se in ((1, 0.05), (3, 0.05), (4, 1e-9)):
+        before = hand.alu_probe.launches
+        got = hand.alu_probe(z, reps, mix, se=se)
+        want = hand.alu_probe_ref(z, reps, mix, se=se)
+        torch.cuda.synchronize(card)
+        assert hand.alu_probe.launches == before + 1
+        assert got.device == card and hand.alu_probe.last_ctas >= 1
+        assert torch.equal(got, want), (reps, se)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 128), (37, 200), (3, 70, 130),
+                                   (512, 512)])
+@pytest.mark.parametrize("mix", ["dualdim", "dualdim_lean"])
+def test_probe_dual_mixes_within_tolerance(card, mix, shape, dtype):
+    z = rand(card, shape, dtype, seed=12)
+    for reps, se in ((1, 0.05), (3, 0.05), (16, 0.05), (4, 1e-9)):
+        shifts = []
+        got = hand.alu_probe(z, reps, mix, se=se)
+        want = hand.alu_probe_ref(z, reps, mix, se=se, shifts=shifts)
+        tol = hand.alu_probe_tolerance(
+            dtype, reps, float(want.float().abs().max()), max(shifts))
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol, (reps, se, err, tol)
+        # the same bits from run to run: the sums have a fixed order
+        assert torch.equal(got, hand.alu_probe(z, reps, mix, se=se))
+
+
+@pytest.mark.parametrize("mix", hand.ALU_PROBE_MIXES)
+def test_probe_chain_property_on_card(card, mix):
+    z = rand(card, (2, 100, 300), torch.float32, seed=13)
+    once = hand.alu_probe(z, 7, mix, se=0.05)
+    twice = hand.alu_probe(hand.alu_probe(z, 3, mix, se=0.05), 4, mix,
+                           se=0.05)
+    assert torch.equal(once, twice)
+    assert not torch.equal(once, z)
+
+
+def test_probe_capacity_guard_on_card(card):
+    l2 = hand.alu_probe_l2_bytes()
+    assert l2 > 0
+    n = l2 // 4 // 1024 // 2 + 1024  # one buffer just over half the L2
+    z = torch.zeros((n, 1024), device=card)
+    before = hand.alu_probe.launches
+    with pytest.raises(ValueError, match="L2"):
+        hand.alu_probe(z, 2, "fma")
+    with pytest.raises(ValueError, match="contiguous"):
+        hand.alu_probe(torch.zeros((64, 256), device=card)[:, ::2], 2)
+    assert hand.alu_probe.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n_bnd", [1, 2, 8])
+@pytest.mark.parametrize("shape", [(16, 16), (37, 201), (300, 1028)])
+def test_pack_unpack_kernels_match_plain(card, dtype, axis, n_bnd, shape):
+    z = rand(card, shape, dtype, seed=14)
+    before = hand.launch_counts()
+    lo, hi = hand.pack_edges(z, axis, n_bnd)
+    wlo, whi = hand.pack_edges_ref(z, axis, n_bnd)
+    assert lo.is_contiguous() and hi.is_contiguous()
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+    # the round trip of the JAX package's test_pack_unpack_roundtrip:
+    # ghosts <- the edges; the interior untouched
+    got = hand.unpack_ghosts(z.clone(), lo, hi, axis, n_bnd)
+    want = hand.unpack_ghosts_ref(z.clone(), lo, hi, axis, n_bnd)
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, want)
+    n = shape[axis]
+    assert torch.equal(got.narrow(axis, 0, n_bnd), lo)
+    assert torch.equal(got.narrow(axis, n - n_bnd, n_bnd), hi)
+    assert torch.equal(got.narrow(axis, n_bnd, n - 2 * n_bnd),
+                       z.narrow(axis, n_bnd, n - 2 * n_bnd))
+    after = hand.launch_counts()
+    assert after["pack_edges"] == before["pack_edges"] + 1
+    assert after["unpack_ghosts"] == before["unpack_ghosts"] + 1
+
+
+def test_pack_unpack_refuse_bad_operands(card):
+    z = rand(card, (16, 16), torch.float32, seed=15)
+    with pytest.raises(ValueError, match="contiguous"):
+        hand.pack_edges(z.T, 0, 2)
+    with pytest.raises(ValueError, match="bands"):
+        hand.pack_edges(z[:3].contiguous(), 0, 2)
+    lo, hi = hand.pack_edges(z, 0, 2)
+    with pytest.raises(ValueError, match="share storage"):
+        hand.unpack_ghosts(z, z[2:4], hi, 0, 2)
+    with pytest.raises(ValueError, match="must be"):
+        hand.unpack_ghosts(z, lo[:1], hi, 0, 2)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n_bnd", [2, 8])
+def test_hand_staged_exchange_equals_direct(card, axis, n_bnd):
+    z = rand(card, (64 + 2 * n_bnd, 96 + 2 * n_bnd), torch.float32, seed=16)
+    hand.reset_launch_counts()
+    got = TH.halo_exchange(z.clone(), axis, n_bnd, True, "device",
+                           kernel="hand")
+    counts = hand.launch_counts()
+    assert counts["pack_edges"] == 1 and counts["unpack_ghosts"] == 1
+    want = TH.halo_exchange(z.clone(), axis, n_bnd, True, "direct")
+    assert torch.equal(got, want)
+    # non-periodic at world=1: nothing moves, nothing launches
+    hand.reset_launch_counts()
+    same = TH.halo_exchange(z.clone(), axis, n_bnd, False, "device",
+                            kernel="hand")
+    assert torch.equal(same, z) and not any(hand.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("shape", [(68, 52), (301, 133)])
+def test_dual_dim_step_lean_kernel_matches_plain(card, dtype, shape):
+    z = rand(card, shape, dtype, seed=17)
+    before = hand.dual_dim_step.launches
+    gx, gy, gr = hand.dual_dim_step(z, 2, 1.5, 0.75, lean=True)
+    wx, wy, wr = hand.dual_dim_step_ref(z, 2, 1.5, 0.75, lean=True)
+    torch.cuda.synchronize(card)
+    assert hand.dual_dim_step.launches == before + 1
+    assert torch.equal(gx, wx) and torch.equal(gy, wy)
+    assert gr.dtype == dtype and gr.device == card
+    assert abs(float(gr) - float(wr)) <= hand.RESIDUAL_RTOL[dtype] * abs(
+        float(wr))
+    # the two bodies differ by association only
+    rx, _, rr = hand.dual_dim_step(z, 2, 1.5, 0.75, lean=False)
+    eps = {torch.float64: 1e-12, torch.float32: 1e-5,
+           torch.bfloat16: 0.1}[dtype]
+    assert float((gx.double() - rx.double()).abs().max()) <= eps * max(
+        1.0, float(rx.double().abs().max()))
+    assert abs(float(gr) - float(rr)) <= max(eps, 2.0**-6) * abs(float(rr))
+
+
+def test_vpu_group_and_stencil1d_on_card(card, capsys):
+    hand.reset_launch_counts()
+    recs = microbench.run_groups(
+        ["vpu"], card, vpu={"H_": 64, "W": 128, "batch": 2, "iters": 10,
+                            "n": 256, "long_steps": 100, "reps_div": 16})
+    counts = hand.launch_counts()
+    # 6 (mix, dtype) probes x 3 reps values x chain_rate's 3 + 1 + 10
+    assert counts["alu_probe"] == 18 * 14
+    assert counts["stencil2d_iterate"] > 0
+    probe_rows = [r for r in recs if r["metric"].endswith("_gops")]
+    assert len(probe_rows) == 6
+    assert all("cooperative launch of" in r["detail"]
+               and "not an ALU ceiling" in r["detail"] for r in probe_rows)
+    hand.reset_launch_counts()
+    assert stencil1d.main(["--n-global", "1048576", "--staging",
+                           "device"]) == 0
+    out = capsys.readouterr().out
+    assert "err_norm = " in out and "FAIL" not in out
+    assert not any(hand.launch_counts().values())

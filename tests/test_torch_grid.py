@@ -185,3 +185,57 @@ def test_driver_tight_tol_fails_and_bad_meshes(capsys):
     for argv in (["--nx-local", "4"], ["--kernel", "pallas"]):
         with pytest.raises(SystemExit):
             stencil2d_grid.main(["--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tile_rows", [None, 16])
+def test_dual_dim_step_lean_matches_pallas(dtype, tile_rows):
+    """The lean (difference-form) body's plain version against the Pallas
+    kernel's ``lean=True`` body in interpret mode: the tolerances of the
+    raw body's test above (bit-equal derivatives in bfloat16, where both
+    sides round every op and fold the scale into the taps the same
+    way). The bfloat16 residual is held to two bf16 ulps
+    (``hand.RESIDUAL_RTOL``; the JAX test allows 0.02): the Pallas body
+    rounds each row block's partial to bf16 and sums those in bf16, the
+    port rounds its one float32 sum once."""
+    z = field(32, (4 + 2 * 2 + 66, 52 + 2 * 2), dtype)
+    ax, ay, ar = dual_dim_step_pallas(jnp.asarray(z), 2, SX, SY,
+                                      interpret=True, tile_rows=tile_rows,
+                                      lean=True)
+    zt = array_from_jax(z)
+    before = hand.dual_dim_step.launches
+    bx, by, br = hand.dual_dim_step(zt, 2, SX, SY, lean=True)
+    assert hand.dual_dim_step.launches == before
+    assert bx.dtype == by.dtype == br.dtype == zt.dtype
+    ax, ay = np.asarray(ax, np.float64), np.asarray(ay, np.float64)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(wide(bx), ax)
+        np.testing.assert_array_equal(wide(by), ay)
+    else:
+        np.testing.assert_allclose(wide(bx), ax, atol=1e-5)
+        np.testing.assert_allclose(wide(by), ay, atol=1e-5)
+    rtol = (hand.RESIDUAL_RTOL[torch.bfloat16] if dtype == "bfloat16"
+            else 1e-3)
+    assert abs(float(br) - float(ar)) <= rtol * max(1.0, abs(float(ar)))
+    rx, ry, rr = hand.dual_dim_step_ref(zt, 2, SX, SY, lean=True)
+    assert torch.equal(rx, bx) and torch.equal(ry, by) and rr == br
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_lean_default_is_off_and_bodies_differ_by_association(dtype):
+    """``lean=None`` resolves through the copy of the JAX package's
+    ``_DUAL_DIM_LEAN_DEFAULT`` (both False), so no existing path changes;
+    the lean body's values differ from the raw body's by rounding only."""
+    from tpu_mpi_tests.kernels import pallas_kernels as PK
+
+    assert hand._DUAL_DIM_LEAN_DEFAULT == PK._DUAL_DIM_LEAN_DEFAULT
+    zt = array_from_jax(field(33, (30, 41), dtype))
+    raw = hand.dual_dim_step(zt, 2, SX, SY)
+    for got, want in zip(hand.dual_dim_step(zt, 2, SX, SY, lean=None), raw):
+        assert torch.equal(got, want)
+    lean = hand.dual_dim_step(zt, 2, SX, SY, lean=True)
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    for got, want in zip(lean, raw):
+        np.testing.assert_allclose(wide(got), wide(want), rtol=tol,
+                                   atol=tol)
+    assert not torch.equal(lean[0], raw[0])

@@ -5,13 +5,16 @@ At world=1 a non-periodic exchange moves nothing (the only shard keeps
 its physical ghosts) and a periodic one is a self-ring: the lo ghost band
 takes the hi interior edge and the hi ghost band the lo interior edge.
 Exchanges update the ghost bands IN PLACE and return the tensor (the JAX
-functions return a new, donated array).
+functions return a new, donated array). A staged exchange packs the edge
+bands into contiguous buffers first, by torch ops or, with
+``kernel="hand"``, by the CUDA pack/unpack kernels.
 
 Runners (``run(state, n_iter) -> state``) chain ``n_iter`` iterations as
 a Python loop of launches:
 
 * :func:`iterate_fused_fn` — the torch-op tier (≅ the XLA tier,
-  ``halo.py:591``): exchange, 5-point derivative, ``interior += eps·dz``;
+  ``halo.py:591``): exchange, 5-point derivative, ``interior += eps·dz``
+  (its ``split=`` keyword is accepted and changes nothing here);
 * :func:`iterate_hand_fn` — the hand kernel on one buffer
   (≅ ``iterate_pallas_fn``, ``halo.py:671``);
 * :func:`iterate_hand_blocks_fn` — the hand kernel over S resident row
@@ -104,16 +107,35 @@ class Staging(enum.Enum):
             ) from None
 
 
+def halo_payload_bytes(zg: torch.Tensor, axis: int, world: int, n_bnd: int,
+                       periodic: bool) -> int:
+    """Payload convention for one halo exchange (≅ the JAX function):
+    2 directions × one ghost band per neighbour pair (``world`` pairs on
+    a periodic ring, ``world − 1`` otherwise); a band is ``n_bnd`` slabs
+    of the non-decomposed extent."""
+    pairs = world if periodic else world - 1
+    band_bytes = n_bnd * (zg.numel() // zg.shape[axis]) * zg.element_size()
+    return 2 * pairs * band_bytes
+
+
 def exchange_shard(z: torch.Tensor, *, axis: int = 0, n_bnd: int = 2,
-                   periodic: bool = False, staged: bool = False
-                   ) -> torch.Tensor:
+                   periodic: bool = False, staged: bool = False,
+                   kernel: str = "torch") -> torch.Tensor:
     """World=1 halo exchange of one ghosted block, in place. Non-periodic:
-    nothing moves. Periodic: lo ghost ← hi interior edge, hi ghost ← lo
-    interior edge. ``staged`` packs both edges into contiguous buffers
-    first (≅ DEVICE_STAGED)."""
+    nothing moves (and nothing launches). Periodic: lo ghost ← hi
+    interior edge, hi ghost ← lo interior edge. ``staged`` packs both
+    edges into contiguous buffers first (≅ DEVICE_STAGED, the reference's
+    ``buf_from_view``/``buf_to_view``): with ``kernel="torch"`` by
+    ``clone``/``copy_``, with ``kernel="hand"`` by the CUDA kernels
+    ``hand.pack_edges`` and ``hand.unpack_ghosts`` (one launch each; a
+    2-D block). ``kernel`` changes nothing when not ``staged``."""
+    _check_kernel("exchange_shard", kernel)
     if not periodic:
         return z
     n = z.shape[axis]
+    if staged and kernel == "hand":
+        lo_edge, hi_edge = hand.pack_edges(z, axis, n_bnd)
+        return hand.unpack_ghosts(z, hi_edge, lo_edge, axis, n_bnd)
     lo_edge = z.narrow(axis, n_bnd, n_bnd)
     hi_edge = z.narrow(axis, n - 2 * n_bnd, n_bnd)
     if staged or n < 3 * n_bnd:
@@ -141,14 +163,18 @@ def _host_staged_exchange(z: torch.Tensor, axis: int, n_bnd: int,
 
 def halo_exchange(zg: torch.Tensor, axis: int = 0, n_bnd: int = 2,
                   periodic: bool = False,
-                  staging: "Staging | str" = Staging.DIRECT) -> torch.Tensor:
+                  staging: "Staging | str" = Staging.DIRECT,
+                  kernel: str = "torch") -> torch.Tensor:
     """Exchange the ghost bands of a ghosted domain at world=1 (in place;
-    returns ``zg``)."""
+    returns ``zg``). ``kernel="hand"`` stages the DEVICE_STAGED bands
+    through the CUDA pack/unpack kernels (:func:`exchange_shard`)."""
     staging = Staging.parse(staging)
+    _check_kernel("halo_exchange", kernel)
     if staging is Staging.HOST_STAGED:
         return _host_staged_exchange(zg, axis, n_bnd, periodic)
     return exchange_shard(zg, axis=axis, n_bnd=n_bnd, periodic=periodic,
-                          staged=staging is Staging.DEVICE_STAGED)
+                          staged=staging is Staging.DEVICE_STAGED,
+                          kernel=kernel)
 
 
 def stencil_fn(axis: int, scale: float, kernel: str = "torch"):
@@ -230,10 +256,18 @@ def step2d_fn(n_bnd: int, scale_x: float, scale_y: float,
 
 
 def iterate_fused_fn(axis: int, n_bnd: int, scale: float, eps: float = 1e-6,
-                     staged: bool = False, periodic: bool = False):
+                     staged: bool = False, periodic: bool = False,
+                     split: bool = False):
     """``n_iter`` × (exchange, stencil, ``interior += eps·dz``) — the
     reference's hot loop (``mpi_stencil2d_gt.cc:511-535``) as torch ops.
-    Updates ``z`` in place and returns it."""
+    Updates ``z`` in place and returns it.
+
+    ``split`` is the JAX function's split-vs-fused switch: there it puts
+    an ``optimization_barrier`` between the exchange and the stencil so
+    XLA cannot fuse them. Eager PyTorch launches every op on its own, so
+    there is no fusion for a barrier to break: the keyword is accepted
+    and the same ops run."""
+    del split
 
     def run(z: torch.Tensor, n_iter: int) -> torch.Tensor:
         n = z.shape[axis]

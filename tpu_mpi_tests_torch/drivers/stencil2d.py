@@ -19,7 +19,9 @@ device staged. At world=1 the non-periodic exchange moves nothing, as in
 the JAX package's single-device runs.
 
 ``--kernel hand`` runs the derivative through the hand CUDA kernel (≅
-``--kernel pallas``); ``--iterate-tier {blocks,xla,auto}`` adds the
+``--kernel pallas``) and hands the device-staged legs the hand
+pack/unpack kernels (which launch only when bands move: never on the
+non-periodic world=1 exchange); ``--iterate-tier {blocks,xla,auto}`` adds the
 iterate leg (exchange + k-step update hot loop) with its analytic eigen
 gate. The card is the default device; ``--device cpu`` runs the kernels'
 plain torch versions. Not ported yet: ``--managed``, ``--tune``,
@@ -77,7 +79,7 @@ def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
     dz = None
     for _ in range(args.n_warmup + args.n_iter):
         zg = timer.timed("exchange", H.halo_exchange, zg, dim, d.n_bnd,
-                         False, staging)
+                         False, staging, kernel=args.kernel)
         dz = block(stencil(zg))
     seconds = timer.seconds["exchange"]
 

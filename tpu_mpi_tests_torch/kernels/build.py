@@ -32,6 +32,8 @@ SOURCES = {
     "stencil_deriv": "stencil_deriv.cu",
     "heat2d": "heat2d.cu",
     "dual_dim_step": "dual_dim_step.cu",
+    "alu_probe": "alu_probe.cu",
+    "pack": "pack.cu",
     "streams": "streams.cu",
     "flash_attention": "flash_attention.cu",
 }

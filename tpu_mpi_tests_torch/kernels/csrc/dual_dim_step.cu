@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas kernel dual_dim_step_pallas
 // (tpu_mpi_tests/kernels/pallas_kernels.py:1624; body _dual_step_kernel
-// :1520, the raw-tap path — `lean` defaults off, :1618).
+// :1520), both of its bodies: the raw-tap one (the default, :1618) and
+// the `lean` one (:1547-1565, :1591).
 //
 // What it computes, for z of shape (n0, n1), m0 = n0-4, m1 = n1-4:
 //     dz_dx[i,j] = (((c0*z[i,j+2] + c1*z[i+1,j+2]) + c3*z[i+3,j+2])
@@ -15,6 +16,15 @@
 // plain torch stencil), both (m0, m1), and the residual
 //     sum(dz_dx^2) + sum(dz_dy^2),
 // each square rounded to the array dtype as torch.square rounds it.
+//
+// The lean body computes the same derivatives in difference form with
+// the per-axis scale folded into two coefficients,
+//     dz_dx[i,j] = c1x*(z[i+3,j+2] - z[i+1,j+2]) + c2x*(z[i+4,j+2] - z[i,j+2])
+//     dz_dy[i,j] = c1y*(z[i+2,j+3] - z[i+2,j+1]) + c2y*(z[i+2,j+4] - z[i+2,j])
+// (c1 = dtype(f32(s)*f32(C1)), c2 = dtype(f32(s)*f32(C2)), folded by the
+// wrapper), and ONE fused residual sum(dz_dx^2 + dz_dy^2), the squares
+// and their sum taken in the accumulation type without rounding to the
+// array dtype, the total rounded once.
 //
 // Design. Pass 1: a CTA owns TR x TC outputs of both derivatives; it
 // loads its (TR+4) x (TC+4) window into shared memory once and computes
@@ -71,7 +81,7 @@ __device__ A block_sum(A v, A* scratch) {
   return r;
 }
 
-template <typename T>
+template <typename T, bool LEAN>
 __global__ void __launch_bounds__(kThreads)
     dual_kernel(const T* __restrict__ z, T* __restrict__ dx,
                 T* __restrict__ dy, typename Acc<T>::A* __restrict__ part,
@@ -108,21 +118,37 @@ __global__ void __launch_bounds__(kThreads)
       const long long j = j0 + q;
       if (j >= m1) break;
       const C* px = win + p * kWC + q + 2;  // column j+2, rows i..i+4
-      C ax = E::mul(c0, px[0]);
-      ax = E::add(ax, E::mul(c1, px[kWC]));
-      ax = E::add(ax, E::mul(c3, px[3 * kWC]));
-      ax = E::add(ax, E::mul(c4, px[4 * kWC]));
-      const C vx = E::mul(ax, sx);
       const C* py = win + (p + 2) * kWC + q;  // row i+2, columns j..j+4
-      C ay = E::mul(c0, py[0]);
-      ay = E::add(ay, E::mul(c1, py[1]));
-      ay = E::add(ay, E::mul(c3, py[3]));
-      ay = E::add(ay, E::mul(c4, py[4]));
-      const C vy = E::mul(ay, sy);
+      C vx, vy;
+      if (LEAN) {
+        // c0, c1 hold (c1x, c2x) and c3, c4 hold (c1y, c2y)
+        vx = E::add(E::mul(c0, E::sub(px[3 * kWC], px[kWC])),
+                    E::mul(c1, E::sub(px[4 * kWC], px[0])));
+        vy = E::add(E::mul(c3, E::sub(py[3], py[1])),
+                    E::mul(c4, E::sub(py[4], py[0])));
+      } else {
+        C ax = E::mul(c0, px[0]);
+        ax = E::add(ax, E::mul(c1, px[kWC]));
+        ax = E::add(ax, E::mul(c3, px[3 * kWC]));
+        ax = E::add(ax, E::mul(c4, px[4 * kWC]));
+        vx = E::mul(ax, sx);
+        C ay = E::mul(c0, py[0]);
+        ay = E::add(ay, E::mul(c1, py[1]));
+        ay = E::add(ay, E::mul(c3, py[3]));
+        ay = E::add(ay, E::mul(c4, py[4]));
+        vy = E::mul(ay, sy);
+      }
       dx[i * m1 + j] = E::store(vx);
       dy[i * m1 + j] = E::store(vy);
-      sum_x = sum_x + static_cast<A>(E::mul(vx, vx));
-      sum_y = sum_y + static_cast<A>(E::mul(vy, vy));
+      if (LEAN) {
+        // one fused sum, squares kept in the accumulation type
+        const A ax2 = static_cast<A>(vx) * static_cast<A>(vx);
+        const A ay2 = static_cast<A>(vy) * static_cast<A>(vy);
+        sum_x = sum_x + (ax2 + ay2);
+      } else {
+        sum_x = sum_x + static_cast<A>(E::mul(vx, vx));
+        sum_y = sum_y + static_cast<A>(E::mul(vy, vy));
+      }
     }
   }
   const A bx = block_sum<A, kThreads>(sum_x, scratch);
@@ -133,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool LEAN>
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_kernel(const typename Acc<T>::A* __restrict__ part,
                   long long n_part, T* __restrict__ res) {
@@ -147,7 +173,10 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
   const A tx = block_sum<A, kReduceThreads>(sx, scratch);
   const A ty = block_sum<A, kReduceThreads>(sy, scratch);
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && LEAN) {
+    // the one fused sum (the y partials are zero), rounded once
+    *res = E::store(static_cast<typename E::C>(tx));
+  } else if (threadIdx.x == 0) {
     // each sum rounded to the array dtype, then added in it (the plain
     // version's torch.sum(...) + torch.sum(...))
     const auto rx = E::store(static_cast<typename E::C>(tx));
@@ -156,7 +185,7 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool LEAN>
 int launch(const void* z, void* dx, void* dy, void* part, void* res,
            long long n0, long long n1, const double* c, double sx, double sy,
            cudaStream_t stream) {
@@ -167,13 +196,14 @@ int launch(const void* z, void* dx, void* dy, void* part, void* res,
   const long long tiles_c = (m1 + TC - 1) / TC;
   const long long tiles = ((m0 + TR - 1) / TR) * tiles_c;
   if (tiles > INT_MAX) return cudaErrorInvalidConfiguration;
-  dual_kernel<T><<<static_cast<unsigned>(tiles), dim3(BX, BY), 0, stream>>>(
+  dual_kernel<T, LEAN>
+      <<<static_cast<unsigned>(tiles), dim3(BX, BY), 0, stream>>>(
       static_cast<const T*>(z), static_cast<T*>(dx), static_cast<T*>(dy),
       static_cast<A*>(part), n0, n1, E::coef(c[0]), E::coef(c[1]),
       E::coef(c[3]), E::coef(c[4]), E::coef(sx), E::coef(sy), tiles_c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(
+  reduce_kernel<T, LEAN><<<1, kReduceThreads, 0, stream>>>(
       static_cast<const A*>(part), tiles, static_cast<T*>(res));
   return cudaGetLastError();
 }
@@ -192,7 +222,9 @@ extern "C" long long tpumt_dual_dim_step_tiles(long long n0, long long n1) {
 
 // Plain C entry point (bound with ctypes). Returns a cudaError_t: 0 when
 // both launches were accepted. `c0..c4`, `sx` and `sy` arrive already
-// rounded to the array dtype; `c2` (the zero tap) is skipped. `part`
+// rounded to the array dtype; `c2` (the zero tap) is skipped. With
+// `lean` != 0 the lean body runs and (c0, c1, c3, c4) carry its folded
+// coefficients (c1x, c2x, c1y, c2y); `sx` and `sy` are then unused. `part`
 // holds 2 * tpumt_dual_dim_step_tiles(n0, n1) values of the accumulation
 // type (double for float64, float otherwise); `res` is one element of
 // the array dtype.
@@ -200,19 +232,23 @@ extern "C" int tpumt_dual_dim_step(const void* z, void* dx, void* dy,
                                    void* part, void* res, int dtype,
                                    long long n0, long long n1, double c0,
                                    double c1, double c2, double c3, double c4,
-                                   double sx, double sy, void* stream) {
+                                   double sx, double sy, int lean,
+                                   void* stream) {
   using namespace tpumt;
   const double c[5] = {c0, c1, c2, c3, c4};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TPUMT_DUAL(T)                                                      \
+  (lean ? launch<T, true>(z, dx, dy, part, res, n0, n1, c, sx, sy, s)     \
+        : launch<T, false>(z, dx, dy, part, res, n0, n1, c, sx, sy, s))
   switch (dtype) {
     case kF32:
-      return launch<float>(z, dx, dy, part, res, n0, n1, c, sx, sy, s);
+      return TPUMT_DUAL(float);
     case kF64:
-      return launch<double>(z, dx, dy, part, res, n0, n1, c, sx, sy, s);
+      return TPUMT_DUAL(double);
     case kBF16:
-      return launch<__nv_bfloat16>(z, dx, dy, part, res, n0, n1, c, sx, sy,
-                                   s);
+      return TPUMT_DUAL(__nv_bfloat16);
     default:
       return cudaErrorInvalidValue;
   }
+#undef TPUMT_DUAL
 }

@@ -12,8 +12,14 @@ Each replaces a Pallas kernel of
   both-axes-ghosted shard (``heat2d_pallas``, :1448); source
   ``csrc/heat2d.cu``.
 * :func:`dual_dim_step` — both-axis derivatives and their residual from
-  one read (``dual_dim_step_pallas``, :1624); source
-  ``csrc/dual_dim_step.cu``.
+  one read (``dual_dim_step_pallas``, :1624), in its raw-tap and its
+  ``lean`` body; source ``csrc/dual_dim_step.cu``.
+* :func:`alu_probe` — ``reps`` repetitions of an op mix on blocks that
+  stay on chip (``vpu_probe_pallas``, :469); source
+  ``csrc/alu_probe.cu``.
+* :func:`pack_edges`, :func:`unpack_ghosts` — the halo staging copies
+  (``pack_edges_pallas`` :2772, ``unpack_ghosts_pallas`` :2803); source
+  ``csrc/pack.cu``.
 * :func:`daxpy`, :func:`stream_scale`, :func:`stream_sum3` — the
   streaming passes ``a·x + y``, ``a·x`` and ``(w + x) + y``
   (``daxpy_pallas`` :84, ``stream_scale_pallas`` :144,
@@ -36,8 +42,10 @@ The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
 version agree bit for bit in float32, float64 and bfloat16 — all but the
 dual step's residual, a sum taken in another order (see
-:func:`dual_dim_step`), and flash attention, whose dot products and
-softmax sums run in another order (stated tolerances, ``chip_smoke.py``).
+:func:`dual_dim_step`), the probe's two dual mixes, which feed such a sum
+back into every element (:func:`alu_probe_tolerance`), and flash
+attention, whose dot products and softmax sums run in another order
+(stated tolerances, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -45,9 +53,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 
+import numpy as np
 import torch
 
 from tpu_mpi_tests_torch.kernels import build
+from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.stencil import (
     N_BND,
     STENCIL5,
@@ -86,9 +96,23 @@ _SIGNATURES = {
     "tpumt_dual_dim_step": ([
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
         _c_ll, _c_ll, _c_double, _c_double, _c_double, _c_double,
-        _c_double, _c_double, _c_double, _c_void_p,
+        _c_double, _c_double, _c_double, _c_int, _c_void_p,
     ], _c_int),
     "tpumt_dual_dim_step_tiles": ([_c_ll, _c_ll], _c_ll),
+    # z, buffer a, buffer b, partials; dtype, mix, blocks, H, W, reps;
+    # eight constants, float32(se); CTAs launched (out), stream
+    "tpumt_alu_probe": (
+        [_c_void_p] * 4 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_int]
+        + [_c_double] * 9 + [ctypes.POINTER(_c_int), _c_void_p], _c_int),
+    "tpumt_alu_probe_tiles": ([_c_ll, _c_ll], _c_ll),
+    "tpumt_alu_probe_l2_bytes": ([], _c_ll),
+    # z, lo, hi; itemsize, axis, n0, n1, n_bnd, stream
+    "tpumt_pack_edges": (
+        [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_void_p],
+        _c_int),
+    "tpumt_unpack_ghosts": (
+        [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_void_p],
+        _c_int),
     "tpumt_daxpy": ([
         _c_double, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
         _c_void_p,
@@ -416,11 +440,54 @@ def _check_dual(z: torch.Tensor, n_bnd: int) -> None:
         )
 
 
+#: the lean (difference-form) body per dtype when ``lean=None`` — a copy
+#: of the JAX package's ``_DUAL_DIM_LEAN_DEFAULT`` (the raw-tap body
+#: everywhere); the card's own verdict is the microbench row
+#: ``dualdim_lean_gain_{dtype}``
+_DUAL_DIM_LEAN_DEFAULT = {"float32": False, "bfloat16": False}
+
+
+def _resolve_lean(lean, dtype: torch.dtype) -> bool:
+    if lean is None:
+        return _DUAL_DIM_LEAN_DEFAULT.get(str(dtype).split(".")[1], False)
+    return bool(lean)
+
+
+def _lean_coefs(scale: float, dtype: torch.dtype) -> tuple[float, float]:
+    """The lean body's two coefficients of one axis: the scale (rounded
+    to the dtype first) times C1 and C2, each product taken in float32
+    and cast once to the dtype (``pallas_kernels.py:1549-1554``)."""
+    s32 = np.float32(_rounded(scale, dtype))
+    return tuple(_rounded(float(np.float32(s32 * np.float32(c))), dtype)
+                 for c in (_C1, _C2))
+
+
+def _dual_dim_step_lean(z: torch.Tensor, scale_x: float, scale_y: float):
+    """The lean body as torch ops: ``c1·(z₊₁−z₋₁) + c2·(z₊₂−z₋₂)`` per
+    axis on the both-axes interior, and one fused residual
+    ``Σ(dx² + dy²)`` in float32 (float64 for float64), rounded once."""
+    n0, n1 = z.shape
+    core = z[:, N_BND:n1 - N_BND]
+    mid = z[N_BND:n0 - N_BND]
+    c1x, c2x = (coef(c, z) for c in _lean_coefs(scale_x, z.dtype))
+    c1y, c2y = (coef(c, z) for c in _lean_coefs(scale_y, z.dtype))
+    dx = c1x * (core[3:n0 - 1] - core[1:n0 - 3]) \
+        + c2x * (core[4:n0] - core[0:n0 - 4])
+    dy = c1y * (mid[:, 3:n1 - 1] - mid[:, 1:n1 - 3]) \
+        + c2y * (mid[:, 4:n1] - mid[:, 0:n1 - 4])
+    acc = torch.float64 if z.dtype == torch.float64 else torch.float32
+    dxa, dya = dx.to(acc), dy.to(acc)
+    return dx, dy, torch.sum(dxa * dxa + dya * dya).to(z.dtype)
+
+
 def dual_dim_step_ref(z: torch.Tensor, n_bnd: int, scale_x: float,
-                      scale_y: float):
+                      scale_y: float, lean: "bool | None" = None):
     """Plain-torch version of :func:`dual_dim_step`: the torch-op
-    ``kernels.stencil.dual_dim_step``."""
+    ``kernels.stencil.dual_dim_step``, or with ``lean`` the
+    difference-form body."""
     _check_dual(z, n_bnd)
+    if _resolve_lean(lean, z.dtype):
+        return _dual_dim_step_lean(z, scale_x, scale_y)
     return _dual_dim_step_torch(z, n_bnd, scale_x, scale_y)
 
 
@@ -435,7 +502,7 @@ RESIDUAL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12,
 
 
 def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
-                  scale_y: float):
+                  scale_y: float, lean: "bool | None" = None):
     """``(dz_dx, dz_dy, residual)`` of a block ghosted ``n_bnd`` = N_BND
     along both axes (≅ ``dual_dim_step_pallas``): the 5-point derivative
     along rows on the interior columns × ``scale_x``, along columns on
@@ -444,10 +511,17 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
     derivatives match the plain version bit for bit; the residual is a
     deterministic sum in another order (:data:`RESIDUAL_RTOL`). One
     wrapper call is one count: the kernel runs as a tile pass and a
-    one-CTA pass over the tiles' partials."""
+    one-CTA pass over the tiles' partials.
+
+    ``lean`` selects the difference-form body (taps
+    ``c1·(z₊₁−z₋₁) + c2·(z₊₂−z₋₂)`` with the scale folded into the
+    coefficients, one fused float32 residual); ``None`` resolves through
+    :data:`_DUAL_DIM_LEAN_DEFAULT` (the raw-tap body). The two bodies
+    differ by floating-point association only."""
     _check_dual(z, n_bnd)
+    lean = _resolve_lean(lean, z.dtype)
     if z.device.type == "cpu":
-        return dual_dim_step_ref(z, n_bnd, scale_x, scale_y)
+        return dual_dim_step_ref(z, n_bnd, scale_x, scale_y, lean=lean)
     if z.device.type != "cuda":
         raise ValueError(f"dual_dim_step: unsupported device {z.device}")
     _check_cuda_operand(z, "dual_dim_step")
@@ -458,14 +532,19 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
     tiles = _entry("dual_dim_step", "tpumt_dual_dim_step_tiles")(n0, n1)
     acc = torch.float64 if z.dtype == torch.float64 else torch.float32
     part = torch.empty(2 * tiles, dtype=acc, device=z.device)
-    c = [_rounded(v, z.dtype) for v in STENCIL5.tolist()]
+    if lean:
+        (c1x, c2x), (c1y, c2y) = (_lean_coefs(s, z.dtype)
+                                  for s in (scale_x, scale_y))
+        c = [c1x, c2x, 0.0, c1y, c2y]
+    else:
+        c = [_rounded(v, z.dtype) for v in STENCIL5.tolist()]
     fn = _entry("dual_dim_step", "tpumt_dual_dim_step")
     with torch.cuda.device(z.device):
         rc = fn(
             z.data_ptr(), dx.data_ptr(), dy.data_ptr(), part.data_ptr(),
             res.data_ptr(), DTYPE_CODES[z.dtype], n0, n1, *c,
             _rounded(scale_x, z.dtype), _rounded(scale_y, z.dtype),
-            torch.cuda.current_stream(z.device).cuda_stream,
+            int(lean), torch.cuda.current_stream(z.device).cuda_stream,
         )
     if rc != 0:
         _raise_launch("dual_dim_step", rc)
@@ -474,6 +553,344 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
 
 
 dual_dim_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ALU op-rate probe
+# ---------------------------------------------------------------------------
+
+#: the op mixes of the probe, in the order of the kernel's mix codes
+ALU_PROBE_MIXES = ("fma", "step5_d0", "step5_d1", "step5fma_d0",
+                   "step5fma_d1", "heat5", "dualdim", "dualdim_lean")
+_PROBE_DTYPES = (torch.float32, torch.bfloat16)
+_PROBE_SCALE = 0.0078125  # 2⁻⁷: exact in bfloat16 and float32
+#: arithmetic instructions one element really costs per rep (a lone add,
+#: sub or mul each 1; built without FMA contraction), beside the JAX
+#: metric's nominal counts 2, 7, 7, 11, 22, 14
+ALU_PROBE_REAL_OPS = {"fma": 2, "step5_d0": 7, "step5_d1": 7,
+                      "step5fma_d0": 8, "step5fma_d1": 8, "heat5": 10,
+                      "dualdim": 25, "dualdim_lean": 19}
+
+
+def _probe_consts(mix: str, se: float, dtype: torch.dtype) -> list[float]:
+    """The mix's constants, each rounded to ``dtype`` (what the JAX body
+    makes with ``jnp.asarray(c, z.dtype)`` and weak-typed floats), in the
+    slots the kernel reads."""
+    def r(v):
+        return _rounded(v, dtype)
+
+    if mix == "fma":
+        return [r(0.9921875), r(1e-10)]
+    if mix in ("step5_d0", "step5_d1"):
+        return [r(se), r(_C1), r(_C2)]
+    if mix in ("step5fma_d0", "step5fma_d1"):
+        se = float(se)
+        return [r(se * _C1), r(-se * _C1), r(se * _C2), r(-se * _C2)]
+    if mix == "heat5":
+        return [r(_PROBE_SCALE), r(_PROBE_SCALE), r(2.0)]
+    if mix == "dualdim":
+        taps = [r(c) for c in STENCIL5.tolist() if c != 0.0]
+        return taps + [r(_PROBE_SCALE), r(_PROBE_SCALE), r(se)]
+    # dualdim_lean: the scale folded into the taps in float32
+    s32 = np.float32(_PROBE_SCALE)
+    fc1, fc2 = (r(float(np.float32(s32 * np.float32(c))))
+                for c in (_C1, _C2))
+    return [fc1, fc2, fc1, fc2, r(se)]
+
+
+def _check_probe(z: torch.Tensor, reps: int, mix: str) -> None:
+    if mix not in ALU_PROBE_MIXES:
+        raise ValueError(f"unknown mix {mix!r}; valid: {ALU_PROBE_MIXES}")
+    if z.dim() not in (2, 3):
+        raise ValueError(f"alu_probe: an (H, W) block or (B, H, W) blocks "
+                         f"required, got shape {tuple(z.shape)}")
+    if z.dtype not in _PROBE_DTYPES:
+        raise TypeError(f"alu_probe: dtype {z.dtype} unsupported (float32, "
+                        f"bfloat16)")
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    H, W = z.shape[-2:]
+    need_h = mix in ("step5_d0", "step5fma_d0", "dualdim", "dualdim_lean")
+    need_w = mix in ("step5_d1", "step5fma_d1", "dualdim", "dualdim_lean")
+    if z.numel() == 0 or (need_h and H < 2 * N_BND + 1) \
+            or (need_w and W < 2 * N_BND + 1):
+        raise ValueError(f"alu_probe: block {tuple(z.shape)} too small for "
+                         f"mix {mix!r} (the stencil axes need >= "
+                         f"{2 * N_BND + 1} points)")
+
+
+def _probe_rep(z: torch.Tensor, mix: str, k, se32: torch.Tensor):
+    """One repetition of ``mix`` on one (H, W) block, op for op as
+    ``_vpu_probe_kernel`` writes it. Returns (new block, the dual mixes'
+    shift as a 0-dim float32 tensor or None)."""
+    H, W = z.shape
+    G = N_BND
+    if mix == "fma":
+        return k[0] * z + k[1], None
+    if mix.startswith("step5"):
+        axis = 0 if mix.endswith("_d0") else 1
+        n = z.shape[axis]
+
+        def zs(off):
+            return z.narrow(axis, G + off, n - 2 * G)
+
+        if mix.startswith("step5fma"):
+            upd = zs(0) + k[0] * zs(1) + k[1] * zs(-1) + k[2] * zs(2) \
+                + k[3] * zs(-2)
+        else:
+            upd = zs(0) + k[0] * (k[1] * (zs(1) - zs(-1))
+                                  + k[2] * (zs(2) - zs(-2)))
+        out = z.clone()
+        out.narrow(axis, G, n - 2 * G).copy_(upd)
+        return out, None
+    if mix == "heat5":
+        out = z.clone()
+        if H >= 3 and W >= 3:
+            w = z[1:-1, 1:-1]
+            two_w = k[2] * w
+            lx = z[2:, 1:-1] + z[:-2, 1:-1] - two_w
+            ly = z[1:-1, :-2] + z[1:-1, 2:] - two_w
+            out[1:-1, 1:-1] = w + k[0] * lx + k[1] * ly
+        return out, None
+    if mix == "dualdim":
+        c0, c1, c3, c4, sx, sy, se_c = k
+        dx = (c0 * z[0:H - 4] + c1 * z[1:H - 3] + c3 * z[3:H - 1]
+              + c4 * z[4:H]) * sx                       # (H-2G, W)
+        dy = (c0 * z[:, 0:W - 4] + c1 * z[:, 1:W - 3] + c3 * z[:, 3:W - 1]
+              + c4 * z[:, 4:W]) * sy                    # (H, W-2G)
+        dxf, dyf = dx.float(), dy.float()
+        # two row-masked sums: each leaves out its last row
+        r = (torch.sum((dxf * dxf)[:H - 2 * G - 1])
+             + torch.sum((dyf * dyf)[:H - 1])) / 1024.0
+        shift = se32 * r
+        zx = z.clone()
+        zx[G:H - G] = z[G:H - G] + se_c * dx
+        zy = zx.clone()
+        zy[:, G:W - G] = zx[:, G:W - G] + se_c * dy
+        return zy + shift.to(z.dtype), shift
+    # dualdim_lean
+    c1x, c2x, c1y, c2y, se_c = k
+    core = z[:, G:W - G]
+    mid = z[G:H - G]
+    dx = c1x * (core[3:H - 1] - core[1:H - 3]) \
+        + c2x * (core[4:H] - core[0:H - 4])
+    dy = c1y * (mid[:, 3:W - 1] - mid[:, 1:W - 3]) \
+        + c2y * (mid[:, 4:W] - mid[:, 0:W - 4])
+    dxf, dyf = dx.float(), dy.float()
+    r = torch.sum((dxf * dxf + dyf * dyf)[:H - 2 * G - 1]) / 1024.0
+    shift = se32 * r
+    out = z.clone()
+    out[G:H - G, G:W - G] = mid[:, G:W - G] + se_c * dx + se_c * dy
+    return out + shift.to(z.dtype), shift
+
+
+def alu_probe_ref(z: torch.Tensor, reps: int, mix: str = "fma",
+                  se: float = 1e-9, shifts: "list | None" = None
+                  ) -> torch.Tensor:
+    """Plain-torch version of :func:`alu_probe` (returns a new tensor):
+    the mix's body as torch ops, op for op, in a Python loop over
+    ``reps``, each block of a (B, H, W) stack on its own. ``shifts``, when
+    a list, receives the largest ``|shift|`` of the dual mixes' every rep
+    (what :func:`alu_probe_tolerance` scales with)."""
+    _check_probe(z, reps, mix)
+    k = [coef(v, z) for v in _probe_consts(mix, se, z.dtype)]
+    se32 = torch.tensor(float(se), dtype=torch.float32)
+    blocks = [z] if z.dim() == 2 else list(z.unbind(0))
+    for _ in range(reps):
+        stepped = [_probe_rep(b, mix, k, se32) for b in blocks]
+        blocks = [b for b, _ in stepped]
+        if shifts is not None and stepped[0][1] is not None:
+            shifts.append(max(abs(float(s)) for _, s in stepped))
+    return blocks[0] if z.dim() == 2 else torch.stack(blocks)
+
+
+def alu_probe_tolerance(dtype: torch.dtype, reps: int, max_abs: float,
+                        max_shift: float) -> float:
+    """Largest |kernel − plain| the dual mixes may show after ``reps``
+    repetitions; 0 for every other mix, which is bit-exact. The kernel
+    and the plain version sum the same squares in another order, so each
+    rep's shift differs by :data:`RESIDUAL_RTOL` of its size at most
+    (bfloat16: one ulp of the rounded shift), and adding it can flip the
+    rounding of an element by one ulp of that element; the update is a
+    contraction at the probe's scales, so the per-rep errors add up and
+    do not grow: ``2·reps·(eps·max|z| + rtol·max|shift|)``."""
+    eps = 2.0**-8 if dtype == torch.bfloat16 else 2.0**-23
+    return 2.0 * reps * (eps * max_abs + RESIDUAL_RTOL[dtype] * max_shift)
+
+
+def alu_probe_l2_bytes() -> int:
+    """The L2 cache of the current CUDA device in bytes: the capacity two
+    ping-pong buffers of :func:`alu_probe` must fit in."""
+    return int(_entry("alu_probe", "tpumt_alu_probe_l2_bytes")())
+
+
+def check_probe_capacity(total_bytes: int, l2_bytes: int) -> None:
+    """Raise unless the probe's two ping-pong buffers of ``total_bytes``
+    each fit in an L2 cache of ``l2_bytes``: past that every rep would
+    stream device memory and the probe would price HBM, not an op mix."""
+    if 2 * total_bytes > l2_bytes:
+        raise ValueError(
+            f"alu_probe: two ping-pong buffers of {total_bytes} B exceed "
+            f"the card's {l2_bytes} B L2 cache; the blocks would not stay "
+            f"on chip between reps (fewer or smaller blocks)"
+        )
+
+
+def alu_probe(z: torch.Tensor, reps: int, mix: str = "fma",
+              se: float = 1e-9) -> torch.Tensor:
+    """``body^reps(z)``: ``reps`` repetitions of op mix ``mix`` on one
+    (H, W) block, or on each of the B independent blocks of a (B, H, W)
+    stack in one launch (≅ ``vpu_probe_pallas``), every rep reading only
+    the previous rep's values. Returns a new tensor (``z`` is only read),
+    so the probe chains. Mixes: ``fma`` (``a·z + b``), ``step5_d0/_d1``
+    (the k-step stencil update), ``step5fma_d0/_d1`` (its raw se-folded
+    4-tap form), ``heat5`` (the heat Laplacian step), ``dualdim`` and
+    ``dualdim_lean`` (the dual step's bodies, their residual fed back
+    into every element at ``se``); any other name raises. ``se`` is the
+    update scale: the 1e-9 default keeps long chains numerically inert.
+
+    On the card the blocks live in two ping-pong buffers that must fit
+    in the L2 cache together (:func:`check_probe_capacity` raises
+    otherwise), and one cooperative launch of at most the co-resident
+    number of CTAs advances them, a grid barrier between reps
+    (``csrc/alu_probe.cu``). ``alu_probe.last_ctas`` holds the CTAs of
+    the last launch. float32 and bfloat16."""
+    _check_probe(z, reps, mix)
+    if z.device.type == "cpu":
+        return alu_probe_ref(z, reps, mix, se)
+    if z.device.type != "cuda":
+        raise ValueError(f"alu_probe: unsupported device {z.device}")
+    _check_cuda_operand(z, "alu_probe")
+    H, W = z.shape[-2:]
+    n_blocks = z.shape[0] if z.dim() == 3 else 1
+    with torch.cuda.device(z.device):
+        check_probe_capacity(z.numel() * z.element_size(),
+                             alu_probe_l2_bytes())
+    buf = torch.empty((2,) + tuple(z.shape), dtype=z.dtype, device=z.device)
+    tiles = _entry("alu_probe", "tpumt_alu_probe_tiles")(H, W)
+    part = torch.empty(2 * n_blocks * tiles * 2, dtype=torch.float32,
+                       device=z.device)
+    k = _probe_consts(mix, se, z.dtype)
+    k += [0.0] * (8 - len(k))
+    ctas = _c_int(0)
+    fn = _entry("alu_probe", "tpumt_alu_probe")
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), buf[0].data_ptr(), buf[1].data_ptr(),
+                part.data_ptr(), DTYPE_CODES[z.dtype],
+                ALU_PROBE_MIXES.index(mix), n_blocks, H, W, int(reps), *k,
+                float(np.float32(se)), ctypes.byref(ctas),
+                torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        _raise_launch("alu_probe", rc)
+    alu_probe.launches += 1
+    alu_probe.last_ctas = ctas.value
+    return buf[(reps - 1) & 1]
+
+
+alu_probe.launches = 0
+alu_probe.last_ctas = 0
+
+
+# ---------------------------------------------------------------------------
+# halo staging: pack the edge bands, unpack into the ghost bands
+# ---------------------------------------------------------------------------
+
+
+def _check_pack(name: str, z: torch.Tensor, axis: int, n_bnd: int):
+    """The band shape of a 2-D ``z`` along ``axis``."""
+    if z.dim() != 2:
+        raise ValueError(f"{name}: 2-D input required, got shape "
+                         f"{tuple(z.shape)}")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    _pack.check_bands(z.shape[axis], n_bnd, name)
+    shape = list(z.shape)
+    shape[axis] = n_bnd
+    return tuple(shape)
+
+
+def pack_edges_ref(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
+    """Plain-torch version of :func:`pack_edges`:
+    ``kernels.pack.pack_edges``."""
+    _check_pack("pack_edges", z, axis, n_bnd)
+    return _pack.pack_edges(z, axis, n_bnd)
+
+
+def pack_edges(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
+    """``(lo, hi)``: the interior edge bands ``z[b:2b]`` and
+    ``z[n−2b:n−b]`` along ``axis`` of a contiguous 2-D array, as two new
+    contiguous buffers (≅ ``pack_edges_pallas``, the reference's
+    ``buf_from_view``). A non-contiguous view raises on the card."""
+    shape = _check_pack("pack_edges", z, axis, n_bnd)
+    if z.device.type == "cpu":
+        return pack_edges_ref(z, axis, n_bnd)
+    if z.device.type != "cuda":
+        raise ValueError(f"pack_edges: unsupported device {z.device}")
+    _check_cuda_operand(z, "pack_edges")
+    lo = torch.empty(shape, dtype=z.dtype, device=z.device)
+    hi = torch.empty_like(lo)
+    fn = _entry("pack", "tpumt_pack_edges")
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                z.element_size(), axis, z.shape[0], z.shape[1], n_bnd,
+                torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        _raise_launch("pack_edges", rc)
+    pack_edges.launches += 1
+    return lo, hi
+
+
+pack_edges.launches = 0
+
+
+def unpack_ghosts_ref(z: torch.Tensor, lo_ghost: torch.Tensor,
+                      hi_ghost: torch.Tensor, axis: int = 0,
+                      n_bnd: int = N_BND) -> torch.Tensor:
+    """Plain-torch version of :func:`unpack_ghosts`:
+    ``kernels.pack.unpack_ghosts`` (in place; returns ``z``)."""
+    _check_pack("unpack_ghosts", z, axis, n_bnd)
+    return _pack.unpack_ghosts(z, lo_ghost, hi_ghost, axis, n_bnd)
+
+
+def unpack_ghosts(z: torch.Tensor, lo_ghost: torch.Tensor,
+                  hi_ghost: torch.Tensor, axis: int = 0,
+                  n_bnd: int = N_BND) -> torch.Tensor:
+    """Write ``lo_ghost`` into ``z[0:b]`` and ``hi_ghost`` into
+    ``z[n−b:n]`` along ``axis``, IN PLACE, and return ``z`` (≅
+    ``unpack_ghosts_pallas``, the reference's ``buf_to_view``; the Pallas
+    kernel returns an updated copy because it is functional). The two
+    buffers are contiguous, band-shaped and share no storage with
+    ``z``."""
+    shape = _check_pack("unpack_ghosts", z, axis, n_bnd)
+    for t, nm in ((lo_ghost, "lo_ghost"), (hi_ghost, "hi_ghost")):
+        if tuple(t.shape) != shape or t.dtype != z.dtype \
+                or t.device != z.device:
+            raise ValueError(
+                f"unpack_ghosts: {nm} must be {shape} {z.dtype} on "
+                f"{z.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if z.device.type == "cpu":
+        return unpack_ghosts_ref(z, lo_ghost, hi_ghost, axis, n_bnd)
+    if z.device.type != "cuda":
+        raise ValueError(f"unpack_ghosts: unsupported device {z.device}")
+    _check_cuda_operand(z, "unpack_ghosts")
+    for t, nm in ((lo_ghost, "lo_ghost"), (hi_ghost, "hi_ghost")):
+        if not t.is_contiguous():
+            raise ValueError(f"unpack_ghosts: {nm} must be contiguous")
+        if t.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
+            raise ValueError(f"unpack_ghosts: {nm} must not share storage "
+                             f"with z (pack the bands into buffers first)")
+    fn = _entry("pack", "tpumt_unpack_ghosts")
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), lo_ghost.data_ptr(), hi_ghost.data_ptr(),
+                z.element_size(), axis, z.shape[0], z.shape[1], n_bnd,
+                torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        _raise_launch("unpack_ghosts", rc)
+    unpack_ghosts.launches += 1
+    return z
+
+
+unpack_ghosts.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -922,6 +1339,9 @@ WRAPPERS = {
     "stencil2d_deriv": stencil2d_deriv,
     "heat2d": heat2d,
     "dual_dim_step": dual_dim_step,
+    "alu_probe": alu_probe,
+    "pack_edges": pack_edges,
+    "unpack_ghosts": unpack_ghosts,
     "daxpy": daxpy,
     "stream_scale": stream_scale,
     "stream_sum3": stream_sum3,

@@ -3,8 +3,8 @@
 A spec holds what is particular to a pillar — its flags, the
 ``build → step → verify`` hooks, an optional bench row — and the generic
 runner (:mod:`~tpu_mpi_tests_torch.workloads.runner`) supplies the
-parser, device, reporter and phase timer. The port has one spec so far,
-``daxpy``; serve-mode registration waits for ``serve/`` (ROADMAP queue 1
+parser, device, reporter and phase timer. The port has two specs so far,
+``daxpy`` and ``stencil1d``; serve-mode registration waits for ``serve/`` (ROADMAP queue 1
 item 19).
 """
 
@@ -27,6 +27,7 @@ def register_spec(spec: "WorkloadSpec") -> "WorkloadSpec":
 def load_specs() -> None:
     """Import every spec module (their ``register_spec`` calls run now)."""
     import tpu_mpi_tests_torch.workloads.daxpy  # noqa: F401
+    import tpu_mpi_tests_torch.workloads.stencil1d  # noqa: F401
 
 
 def spec_names() -> tuple[str, ...]:
