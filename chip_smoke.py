@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all eleven hand kernels (eight libraries) from
+2. build all thirteen hand kernels (ten libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -50,7 +50,15 @@ failure exits non-zero and prints no result line):
    operands (1028 × 524288 axis 0, 524288 × 1028 axis 1, 8192 × 8196
    axis 1), tolerance 0. The dual step's lean body over the shapes the
    raw one has (derivatives bit-exact, residual within
-   ``hand.RESIDUAL_RTOL``);
+   ``hand.RESIDUAL_RTOL``). The two RDMA ring kernels on the self-ring
+   (``check_ring_kernels``): ``ring_halo`` over float32/bfloat16/float64
+   × axis 0, axis 1 and a 1-D column × n_bnd 1..8 × periodic and not ×
+   an extent under 3·n_bnd and one above, three chained calls each, and
+   the main path's operands; the fused kernel against the chained tier
+   (``ring_halo`` → ``stencil2d_iterate``) over 21 chained calls (the
+   epoch counters advance) × steps 1 and 4 × the periodic self-ring and
+   ``local_only`` × float32/bfloat16 × 2 and 10 row blocks, and against
+   its plain version at those and the bench's operands; tolerance 0;
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -64,7 +72,20 @@ failure exits non-zero and prints no result line):
    ``--kernel hand --mesh 1,1`` at 8192² (20 iterations after 2 warmup).
    Every err-norm and eigen gate must pass, each path's own kernels must
    have launched, and its launches per timestep must be what its
-   schedule makes. Then the DAXPY slice, each path alone in the same
+   schedule makes (the driver's iterate leg also runs the fused ==
+   chained gate and the OVERLAP probe). Then the RDMA slice
+   (``run_rdma_slice``), each path alone with exact launch counts: the
+   ``stencil2d`` driver with ``--rdma --kernel hand`` at the reference
+   sizes, its iterate leg alone under ``rdma-chained`` and
+   ``rdma-fused`` (k=4; the ``ITER BITWISE fused==chained`` and
+   ``OVERLAP`` lines required), ``stencil1d --staging pallas`` at 32 Mi
+   points, and the bench with ``TPU_MPI_BENCH_TIER`` ``rdma-chained``
+   and ``rdma-fused`` at 8192² in float32 and bfloat16 (one ring and one
+   iterate launch, or one fused launch, per k timesteps); then the
+   world=2 legs: two ranks on one card are left out (the symmetric-memory
+   allocator refuses them, a line says so) and the NCCL leg runs only
+   where ``torch.cuda.device_count() > 1`` (a line says when it did not).
+   Then the DAXPY slice, each path alone in the same
    way: the microbench groups ``daxpy``, ``ceiling`` and ``streams``
    (each must launch exactly the streaming kernels its schedule makes,
    and every GB/s row must be finite and at most 1.05 × 3350), and the
@@ -114,7 +135,13 @@ failure exits non-zero and prints no result line):
    ``copy_`` (bound: bytes, the strided side counted in 32-byte sectors
    touched; timed with their launches queued behind a stall, since they
    are shorter than their wrappers' host cost); the lean dual step
-   beside the raw one's yardstick;
+   beside the raw one's yardstick; ``ring_halo`` at the ``--rdma``
+   driver's dim-0 operand and the bench's chained dim-1 buffer on the
+   periodic self-ring (queued; bound: both bands read and written once,
+   the strided side in 32-byte sectors; yardstick: the torch exchange's
+   two ``copy_``), the fused kernel at the bench's dim-0 buffer, its
+   compute-only instance and the periodic self-ring, beside the chained
+   pair (bound: the iterate kernel's bytes; no library call);
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -229,6 +256,33 @@ STAGED_EXCHANGES = 20
 # same chain lengths
 ROOFLINE_LARGE = {"n": GRID_N, "sizes": (4104, 5800, 8200)}
 STENCIL1D_N = 32 * 1024 * 1024   # the 1-D driver's default size
+RING_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/ring_halo.cu"
+RING_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:1804"
+FUSED_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/fused_rdma.cu"
+FUSED_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2090"
+RING_CHAIN = 21  # chained ring calls per fused-vs-chained case
+# ring_halo's main-path operands: (shape, axis, n_bnd, dtype) — the
+# stencil2d --rdma legs (dim 0 and dim 1) and the bench's chained dim-1
+# buffer at k=4
+RING_MAIN_PATH = (
+    ((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "float32"),
+    ((REF_N_LOCAL, REF_N_OTHER + 4), 1, 2, "float32"),
+    ((BENCH_N, BENCH_N + 16), 1, 8, "float32"),
+    ((BENCH_N, BENCH_N + 16), 1, 8, "bfloat16"),
+)
+# the fused kernel's main-path operands: (shape, dtype, periodic) — the
+# bench's dim-0 buffer at k=4 (world=1 non-periodic: the compute-only
+# instance) and the same as a periodic self-ring, in both dtypes
+FUSED_MAIN_PATH = (
+    ((BENCH_N + 16, BENCH_N), "float32", False),
+    ((BENCH_N + 16, BENCH_N), "float32", True),
+    ((BENCH_N + 16, BENCH_N), "bfloat16", False),
+)
+# ring_halo timed: (shape, axis, n_bnd, dtype, path)
+RING_TIMED = (
+    ((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "float32", "stencil2d --rdma"),
+    ((BENCH_N, BENCH_N + 16), 1, 8, "float32", "bench rdma-chained"),
+)
 N26, N28 = 1 << 26, 1 << 28
 # launches each microbench group's schedule makes (microbench.py):
 # dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
@@ -436,6 +490,8 @@ def check_kernels(device):
     n_cases += n_probe
     n_pack, pack_errs = check_pack_kernels(device, rand, failures)
     n_cases += n_pack
+    n_ring, ring_errs = check_ring_kernels(device, rand, failures)
+    n_cases += n_ring
 
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
     # the driver's periodic iterate blocks, the driver's derivatives, the
@@ -443,7 +499,7 @@ def check_kernels(device):
     errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0,
             "heat2d": 0.0, "dual_dim_step": 0.0,
             "dual_dim_step residual (relative)": 0.0, **stream_errs,
-            **probe_errs, **pack_errs}
+            **probe_errs, **pack_errs, **ring_errs}
     for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
         err = compare(
@@ -1042,13 +1098,15 @@ def run_main_path(device):
         path, stencil2d, argv, ["stencil2d_iterate", "stencil2d_deriv"],
         ("TEST dim:0", "TEST dim:1", "ITER ERR rel="), peaks)
     # the iterate leg: one warm call, then --iterate-iters calls, k
-    # timesteps each, S blocks; the derivative: dim × buf = 4 tests of
-    # n_warmup + n_iter iterations, one launch each
+    # timesteps each, S blocks (the fused == chained gate's chained tier
+    # adds one iterate launch per call); the derivative: dim × buf = 4
+    # tests of n_warmup + n_iter iterations, one launch each
     k = 4
     n_blocks = H.PRIOR_BLOCKS["float32"]
     per_step[path] = {
         "stencil2d_iterate": check_per_timestep(
-            path, "stencil2d_iterate", counts[path]["stencil2d_iterate"],
+            path, "stencil2d_iterate",
+            counts[path]["stencil2d_iterate"] - DRIVER_ITERATE_ITERS,
             (1 + DRIVER_ITERATE_ITERS) * k, n_blocks / k),
         "stencil2d_deriv": check_per_timestep(
             path, "stencil2d_deriv", counts[path]["stencil2d_deriv"],
@@ -1081,6 +1139,9 @@ def run_main_path(device):
         path, "dual_dim_step", counts[path]["dual_dim_step"],
         GRID_N_ITER + GRID_N_WARMUP, 1.0)}
 
+    recs["rdma"] = run_rdma_slice(device, counts, per_step, peaks)
+    for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
+        del os.environ[var]
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
     recs["attention"] = run_attention_slice(device, counts, peaks)
     recs["one_card"] = run_one_card_slice(device, counts, peaks)
@@ -1361,6 +1422,347 @@ def run_attention_slice(device, counts, peaks):
     return records
 
 
+# ---------------------------------------------------------------------------
+# the RDMA slice: the ring halo and the fused ring kernel
+# ---------------------------------------------------------------------------
+
+
+def check_ring_kernels(device, rand, failures):
+    """The two RDMA ring kernels against their plain versions on the
+    self-ring, bit for bit: ``ring_halo`` over float32/bfloat16/float64 ×
+    axis 0, axis 1 and a 1-D column × n_bnd 1..8 × periodic and not ×
+    extents under 3·n_bnd and above, three chained calls each (the epoch
+    counters advance); the fused kernel against ring_halo →
+    stencil2d_iterate (the chained tier) over steps 1 and 4 × the
+    periodic self-ring and ``local_only`` × float32/bfloat16 × nb = 2 and
+    nb > 2 row blocks, 21 chained calls, and against its own plain
+    version. Returns (cases, max abs error per kernel)."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    errs = {"ring_halo": 0.0, "stencil2d_fused_rdma": 0.0}
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for axis in (0, 1, "1d"):
+            for n_bnd in range(1, 9):
+                for periodic in (True, False):
+                    for n in sorted({max(2 * n_bnd, 3 * n_bnd - 1), 97}):
+                        shape = ((n,) if axis == "1d" else
+                                 (n, 45) if axis == 0 else (37, n))
+                        ax = 0 if axis == "1d" else axis
+                        z = rand(shape, dtype)
+                        want = z.clone()
+                        for _ in range(3):
+                            hand.ring_halo(z, axis=ax, n_bnd=n_bnd,
+                                           periodic=periodic)
+                            hand.ring_halo_ref(want, axis=ax, n_bnd=n_bnd,
+                                               periodic=periodic)
+                        err = compare(f"ring_halo {dtype} axis={axis} "
+                                      f"n_bnd={n_bnd} n={n} "
+                                      f"periodic={periodic}", z, want,
+                                      failures)
+                        errs["ring_halo"] = max(errs["ring_halo"], err)
+                        n_cases += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for steps in (1, 4):
+            K = 2 * steps
+            for rows, tile in ((4 * K, 2 * K), (10 * K, 2 * K)):
+                for mode in ("periodic", "local_only"):
+                    z0 = rand((rows, 300), dtype)
+                    periodic = mode == "periodic"
+                    fused = H.iterate_fused_rdma_fn(
+                        K, 0.01, steps=steps, periodic=periodic,
+                        tile_rows=tile, local_only=not periodic)
+                    a = fused(z0.clone(), RING_CHAIN)
+                    if periodic:
+                        b = H.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
+                                              periodic=True,
+                                              rdma=True)(z0.clone(),
+                                                         RING_CHAIN)
+                    else:
+                        b = H.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
+                                              periodic=False)(z0.clone(),
+                                                              RING_CHAIN)
+                    nb = rows // hand.fused_block_rows(rows, steps, tile)
+                    err = compare(f"fused_rdma {dtype} steps={steps} nb={nb} "
+                                  f"{mode} vs chained x{RING_CHAIN}", a, b,
+                                  failures)
+                    flags = {"phys_static": (0, 0) if periodic else (1, 1)}
+                    got = hand.stencil2d_fused_rdma(
+                        z0.clone(), 0.01, steps=steps, periodic=periodic,
+                        tile_rows=tile, local_only=not periodic, **flags)
+                    want = hand.stencil2d_fused_rdma_ref(
+                        z0.clone(), 0.01, steps=steps, periodic=periodic,
+                        tile_rows=tile, local_only=not periodic, **flags)
+                    err = max(err, compare(
+                        f"fused_rdma {dtype} steps={steps} nb={nb} {mode} "
+                        f"vs plain", got, want, failures))
+                    errs["stencil2d_fused_rdma"] = max(
+                        errs["stencil2d_fused_rdma"], err)
+                    n_cases += 2
+    # the main path's operands: the stencil2d --rdma exchanges, the
+    # bench's chained dim-1 buffer, the fused operands (the bench's
+    # local_only dim-0 buffer and the driver's periodic iterate leg)
+    for shape, axis, n_bnd, dtype in RING_MAIN_PATH:
+        z = rand(shape, getattr(torch, dtype))
+        want = hand.ring_halo_ref(z.clone(), axis=axis, n_bnd=n_bnd,
+                                  periodic=True)
+        hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=True)
+        errs["ring_halo"] = max(errs["ring_halo"], compare(
+            f"ring_halo main-path {shape} axis={axis} {dtype}", z, want,
+            failures))
+        n_cases += 1
+        del z, want
+        torch.cuda.empty_cache()
+    for shape, dtype, periodic in FUSED_MAIN_PATH:
+        z = rand(shape, getattr(torch, dtype))
+        flags = {"phys_static": (0, 0) if periodic else (1, 1)}
+        got = hand.stencil2d_fused_rdma(z.clone(), BENCH_SE, steps=4,
+                                        periodic=periodic,
+                                        local_only=not periodic, **flags)
+        want = hand.stencil2d_fused_rdma_ref(z, BENCH_SE, steps=4,
+                                             periodic=periodic,
+                                             local_only=not periodic,
+                                             **flags)
+        errs["stencil2d_fused_rdma"] = max(
+            errs["stencil2d_fused_rdma"], compare(
+                f"fused_rdma main-path {shape} {dtype} periodic={periodic}",
+                got, want, failures))
+        n_cases += 1
+        del z, got, want
+        torch.cuda.empty_cache()
+    return n_cases, errs
+
+
+def rdma_world2_legs():
+    """The multi-rank legs on the card. Two ranks on one card cannot
+    share symmetric memory (PERF.md: the allocator refuses overlapping
+    devices), so that leg is left out; the NCCL leg needs two cards."""
+    import torch
+
+    n = torch.cuda.device_count()
+    log("RDMA world=2 on one card: not run — torch's symmetric-memory "
+        "rendezvous refuses two ranks on one device (\"detected "
+        "allocations from overlapping devices from different ranks\")")
+    if n < 2:
+        log(f"RDMA world=2 NCCL leg: not run — torch.cuda.device_count() "
+            f"is {n}, the leg needs two cards")
+        return
+    import torch.multiprocessing as mp
+
+    mp.spawn(_nccl_rank, args=(2,), nprocs=2, join=True)
+    log("RDMA world=2 NCCL leg: fused == chained bit for bit over "
+        f"{RING_CHAIN} calls and the RDMA exchange equal to DIRECT on both "
+        "ranks")
+
+
+def _nccl_rank(rank, world):
+    """One rank of the NCCL leg: the fused and chained tiers on a
+    periodic 2-card ring, and the RDMA exchange against DIRECT."""
+    import torch
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.comm import halo as H
+
+    torch.cuda.set_device(rank)
+    tdist.init_process_group("nccl", init_method="tcp://localhost:29631",
+                             rank=rank, world_size=world)
+    try:
+        dist.init("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(77)
+        z0 = torch.randn((1040, 8192), generator=gen, device="cuda")
+        a = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)(
+            z0.clone(), RING_CHAIN)
+        b = H.iterate_hand_fn(8, 0.01, axis=0, steps=4, periodic=True,
+                              rdma=True)(z0.clone(), RING_CHAIN)
+        c = H.halo_exchange(z0.clone(), 1, 8, True, "pallas")
+        d = H.halo_exchange(z0.clone(), 1, 8, True, "direct")
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(c, d)):
+            raise SmokeFailure(f"NCCL leg rank {rank}: the RDMA tiers "
+                               f"disagree")
+    finally:
+        dist.shutdown()
+
+
+def run_rdma_slice(device, counts, per_step, peaks):
+    """The RDMA slice's paths, each alone with exact launch counts: the
+    stencil2d driver with ``--rdma`` at the reference sizes, its iterate
+    leg under ``rdma-chained`` and ``rdma-fused`` (the fused == chained
+    bitwise gate and the OVERLAP line), ``stencil1d --staging pallas`` at
+    32 Mi points, and the bench's two RDMA tiers at 8192² in float32 and
+    bfloat16. Returns the bench records."""
+    from tpu_mpi_tests_torch import bench
+    from tpu_mpi_tests_torch.drivers import stencil1d, stencil2d
+
+    path = "stencil2d --rdma"
+    argv = ["--device", device.type, "--n-local", str(REF_N_LOCAL),
+            "--n-other", str(REF_N_OTHER), "--n-iter", str(DRIVER_N_ITER),
+            "--n-warmup", str(DRIVER_N_WARMUP), "--kernel", "hand",
+            "--rdma"]
+    counts[path] = drive_driver(path, stencil2d, argv,
+                                ["ring_halo", "stencil2d_deriv"],
+                                ("TEST dim:0", "TEST dim:1"), peaks)
+    calls = 4 * (DRIVER_N_WARMUP + DRIVER_N_ITER)  # dim × buf legs
+    want = {"ring_halo": calls, "stencil2d_deriv": calls}
+    _exact(path, counts[path], want)
+    per_step[path] = {"ring_halo": 1.0, "stencil2d_deriv": 1.0}
+
+    it = DRIVER_ITERATE_ITERS
+    for tier, want in (
+            ("rdma-chained", {"ring_halo": 1 + 2 * it,
+                              "stencil2d_iterate": 1 + 2 * it,
+                              "stencil2d_fused_rdma": 2 + 3 * it}),
+            ("rdma-fused", {"ring_halo": it, "stencil2d_iterate": it,
+                            "stencil2d_fused_rdma": 3 + 4 * it})):
+        # the timed leg (1 warm + it calls), the bitwise gate (it fused,
+        # it chained), the overlap probe (1 + it fused, 1 + it
+        # compute-only fused)
+        path = f"stencil2d --iterate-tier {tier}"
+        argv = ["--device", device.type, "--n-local", str(REF_N_LOCAL),
+                "--n-other", str(REF_N_OTHER), "--iterate-tier", tier,
+                "--iterate-steps", "4", "--iterate-iters", str(it),
+                "--iterate-only"]
+        counts[path] = drive_driver(
+            path, stencil2d, argv, list(want),
+            (f"ITER tier={tier}", f"ITER BITWISE fused==chained over {it} "
+             f"calls: OK", "OVERLAP stencil2d_fused_rdma overlap_frac=",
+             "ITER ERR rel="), peaks)
+        _exact(path, counts[path], want)
+
+    path = "stencil1d --staging pallas"
+    counts[path] = drive_driver(
+        path, stencil1d, ["--device", device.type, "--n-global",
+                          str(STENCIL1D_N), "--dtype", "float32",
+                          "--staging", "pallas"], ["ring_halo"],
+        ("0/1 exchange time ", "err_norm = "), peaks)
+    _exact(path, counts[path], {"ring_halo": 2})  # warm + timed
+
+    recs = {}
+    for tier in ("rdma-chained", "rdma-fused"):
+        os.environ["TPU_MPI_BENCH_TIER"] = tier
+        for dtype in ("float32", "bfloat16"):
+            path = f"bench {tier} {dtype}"
+            os.environ["TPU_MPI_BENCH_DTYPE"] = dtype
+
+            def run_bench():
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rec = bench.main(["--device", device.type])
+                log(f"BENCH {out.getvalue().strip().splitlines()[-1]}")
+                return rec
+
+            kernels = (["stencil2d_fused_rdma"] if tier == "rdma-fused"
+                       else ["ring_halo", "stencil2d_iterate"])
+            rec, counts[path] = drive_path(path, run_bench, kernels, peaks)
+            if rec.get("tier") != tier or not rec.get("value", 0) > 0:
+                raise SmokeFailure(f"{path}: not a measured {tier} run: "
+                                   f"{rec}")
+            k = rec["steps"]
+            n_short = max(1, BENCH_ITERS_SHORT // k)
+            n_long = max(n_short + 1, BENCH_ITERS_LONG // k)
+            calls = BENCH_SAMPLES * (3 + n_short + n_long)
+            _exact(path, counts[path], dict.fromkeys(kernels, calls))
+            per_step[path] = {name: check_per_timestep(
+                path, name, counts[path][name], calls * k, 1 / k)
+                for name in kernels}
+            recs[f"{tier} {dtype}"] = rec
+    del os.environ["TPU_MPI_BENCH_TIER"]
+    rdma_world2_legs()
+    return recs
+
+
+def _exact(path, counts, want):
+    """Fail unless the path launched exactly ``want`` (and nothing
+    else)."""
+    full = dict.fromkeys(counts, 0) | want
+    if counts != full:
+        raise SmokeFailure(f"{path}: launches {counts}, its schedule makes "
+                           f"{full}")
+
+
+def time_ring_kernels(device, gen):
+    """Per-launch times of the two RDMA ring kernels at main-path shapes
+    on the self-ring. ring_halo: the stencil2d --rdma dim-0 operand and
+    the bench's chained dim-1 buffer, periodic (so the bands move),
+    queued behind a stall (a few µs of work under the wrapper's host
+    cost); bound: the two bands read and written once over 3.35 TB/s
+    (the strided axis-1 side in 32-byte sectors touched); yardstick: the
+    two ``copy_`` of the torch exchange (``exchange_shard``). The fused
+    kernel at the bench's dim-0 buffer (8208 × 8192, k=4): its
+    compute-only instance (the bench's world=1 schedule) and the periodic
+    self-ring, each beside the chained pair ring_halo → stencil2d_iterate
+    on the same operand; bound: the iterate kernel's byte bound; no
+    library call computes it."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.kernels import hand
+
+    rows = {"ring_halo": [], "stencil2d_fused_rdma": []}
+    for shape, axis, n_bnd, dtype, path in RING_TIMED:
+        z = torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, dtype))
+        n = shape[axis]
+        itemsize = z.element_size()
+        contiguous = 2 * n_bnd * (z.numel() // n) * itemsize
+        nbytes = (band_sectors(shape, axis, n_bnd, itemsize,
+                               (n_bnd, n - 2 * n_bnd))
+                  + band_sectors(shape, axis, n_bnd, itemsize,
+                                 (0, n - n_bnd)))
+        rows["ring_halo"].append({
+            "path": path, "shape": list(shape),
+            "dtype": dtype, "axis": axis, "n_bnd": n_bnd, "periodic": True,
+            "ms": time_cuda_queued(lambda: hand.ring_halo(
+                z, axis=axis, n_bnd=n_bnd, periodic=True), 20),
+            "ms_host_loop": time_cuda(lambda: hand.ring_halo(
+                z, axis=axis, n_bnd=n_bnd, periodic=True), 20),
+            "plain_ms": time_cuda_queued(lambda: hand.ring_halo_ref(
+                z, axis=axis, n_bnd=n_bnd, periodic=True), 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "band_bytes": contiguous,
+            "library_ms": time_cuda_queued(lambda: H.exchange_shard(
+                z, axis=axis, n_bnd=n_bnd, periodic=True), 20),
+            "library_call": "the torch exchange's two copy_ into the ghost "
+                            "bands (exchange_shard, world=1)"})
+        del z
+        torch.cuda.empty_cache()
+    for shape, dtype, periodic in FUSED_MAIN_PATH:
+        dtype = getattr(torch, dtype)
+        z = torch.randn(shape, generator=gen, device=device).to(dtype)
+        out = torch.empty_like(z)
+        flags = (0, 0) if periodic else (1, 1)
+
+        def fused(z=z, out=out, periodic=periodic, flags=flags):
+            return hand.stencil2d_fused_rdma(
+                z, BENCH_SE, steps=4, periodic=periodic,
+                local_only=not periodic, phys_static=flags, out=out)
+
+        def chained(z=z, out=out, periodic=periodic, flags=flags):
+            hand.ring_halo(z, axis=0, n_bnd=8, periodic=periodic)
+            return hand.stencil2d_iterate(z, BENCH_SE, dim=0, steps=4,
+                                          phys_static=flags, out=out)
+
+        b, why = bound_ms(*iterate_work(shape, dtype, 0, 4, flags))
+        rows["stencil2d_fused_rdma"].append({
+            "path": "bench rdma-fused" if not periodic
+            else "stencil2d --iterate-tier rdma-fused (self-ring)",
+            "shape": list(shape), "dtype": str(dtype).split(".")[1],
+            "steps": 4, "periodic": periodic, "local_only": not periodic,
+            "ms": time_cuda(fused, 50), "chained_pair_ms":
+                time_cuda(chained, 50),
+            "plain_ms": time_cuda(lambda: hand.stencil2d_fused_rdma_ref(
+                z, BENCH_SE, steps=4, periodic=periodic,
+                local_only=not periodic, phys_static=flags), 3),
+            "bound_ms": b, "bound_by": why, "library_ms": None})
+        del z, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_cuda(fn, n_iter: int) -> float:
     """Mean milliseconds per call of ``fn`` (warmed), CUDA events."""
     import torch
@@ -1564,6 +1966,7 @@ def time_kernels(device):
         for lean in (False, True)]
     torch.cuda.empty_cache()
     rows.update(time_probe_and_pack(device, gen))
+    rows.update(time_ring_kernels(device, gen))
     rows.update(time_stream_kernels(device, gen))
     rows["flash_attention_block"] = time_flash_kernel(device, gen)
     for name, rs in rows.items():
@@ -1866,7 +2269,9 @@ def main() -> int:
               for name in PACK_REPLACES),
             *((name, STREAMS_SOURCE, STREAM_REPLACES[name])
               for name in STREAM_KERNELS),
-            ("flash_attention_block", FLASH_SOURCE, FLASH_REPLACES)):
+            ("flash_attention_block", FLASH_SOURCE, FLASH_REPLACES),
+            ("ring_halo", RING_SOURCE, RING_REPLACES),
+            ("stencil2d_fused_rdma", FUSED_SOURCE, FUSED_REPLACES)):
         main_row = rows[name][0]
         extra = {}
         if name == "flash_attention_block":

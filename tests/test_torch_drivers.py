@@ -124,11 +124,13 @@ def test_stencil2d_iterate_leg_eigen_gate(capsys, tier, steps):
     rel = float(re.search(r"ITER ERR rel=([\d.e+-]+)", out).group(1))
     assert rel < 1e-12  # float64 gate, far inside the driver's own
     assert "TEST dim:" not in out  # --iterate-only skips the matrix
-    assert "NOTE fused/chained bitwise gate skipped" in out
+    assert "ITER BITWISE fused==chained over 3 calls: OK" in out
+    assert "OVERLAP stencil2d_fused_rdma overlap_frac=" in out
+    assert "NOTE" not in out
 
 
 def test_stencil2d_rejects_unported_and_bad_arguments():
-    for argv in (["--iterate-tier", "rdma-fused"], ["--iterate-only"],
+    for argv in (["--iterate-tier", "fused"], ["--iterate-only"],
                  ["--n-local", "3"], ["--n-iter", "0"],
                  ["--kernel", "pallas"]):
         with pytest.raises(SystemExit):
@@ -170,7 +172,15 @@ def test_bench_xla_tier_and_rdma_refusal(monkeypatch, capsys):
     assert rec["schedule"] == "dim1_world1_float32_ov1_xla_h1x1"
     assert "bfloat16" not in rec
     monkeypatch.setenv("TPU_MPI_BENCH_TIER", "rdma-chained")
-    with pytest.raises(TpuMtError, match="ROADMAP queue 2"):
+    rec = bench.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert rec["schedule"] == "dim1_world1_float32_ov1_rdma-chained_h1x1"
+    monkeypatch.setenv("TPU_MPI_BENCH_TIER", "rdma-fused")
+    rec = bench.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert rec["schedule"] == "dim0_world1_float32_ov1_rdma-fused_h1x1"
+    monkeypatch.setenv("TPU_MPI_BENCH_TIER", "fused")
+    with pytest.raises(TpuMtError, match="unknown stencil tier"):
         bench.main(["--device", "cpu"])
 
 

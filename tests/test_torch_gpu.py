@@ -29,6 +29,7 @@ and the ``stencil1d`` driver run on the card at small sizes.
 import pytest
 import torch
 
+import torch_dist_workers as W
 from tpu_mpi_tests_torch import microbench
 from tpu_mpi_tests_torch.comm import halo as TH
 from tpu_mpi_tests_torch.drivers import (
@@ -480,3 +481,112 @@ def test_vpu_group_and_stencil1d_on_card(card, capsys):
     out = capsys.readouterr().out
     assert "err_norm = " in out and "FAIL" not in out
     assert not any(hand.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the RDMA ring kernels on the self-ring (world=1, one card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n_bnd", [1, 2, 8])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("extent", [5, 40, 301])
+def test_ring_halo_kernel_matches_plain(card, dtype, axis, n_bnd, periodic,
+                                        extent):
+    """Bit for bit against the plain self-ring copy, over five chained
+    calls (the epoch counters advance); extents under 3·n_bnd take the
+    staged path."""
+    if extent < 2 * n_bnd:
+        pytest.skip("the extent holds no two bands")
+    shape = (extent, 67) if axis == 0 else (45, extent)
+    z = rand(card, shape, dtype, seed=extent + n_bnd)
+    want = z.clone()
+    before = hand.ring_halo.launches
+    for _ in range(5):
+        got = hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
+        hand.ring_halo_ref(want, axis=axis, n_bnd=n_bnd, periodic=periodic)
+    torch.cuda.synchronize(card)
+    assert got is z
+    assert hand.ring_halo.launches == before + 5
+    assert torch.equal(z, want)
+
+
+def test_ring_halo_kernel_1d_column(card):
+    z = rand(card, (1000,), torch.float32, seed=3)
+    want = hand.ring_halo_ref(z.clone(), n_bnd=2, periodic=True)
+    hand.ring_halo(z, n_bnd=2, periodic=True)
+    torch.cuda.synchronize(card)
+    assert torch.equal(z, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("steps", [1, 4])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("rows,tile_rows", [(20, None), (40, None),
+                                            (64, 32), (112, 16),
+                                            (200, None)])
+def test_fused_rdma_kernel_matches_chained_and_plain(card, dtype, steps,
+                                                     periodic, rows,
+                                                     tile_rows):
+    """The fused launch against ring_halo -> stencil2d_iterate and
+    against its plain version, bit for bit, over 21 chained calls."""
+    K = 2 * steps
+    if rows <= 2 * K:
+        pytest.skip("height under the ghost width")
+    z0 = rand(card, (rows, 150), dtype, seed=rows + steps)
+    fused = TH.iterate_fused_rdma_fn(K, 0.01, steps=steps,
+                                     periodic=periodic, tile_rows=tile_rows)
+    chained = TH.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
+                                 periodic=periodic, rdma=True)
+    before = hand.stencil2d_fused_rdma.launches
+    a = fused(z0.clone(), 21)
+    b = chained(z0.clone(), 21)
+    torch.cuda.synchronize(card)
+    assert hand.stencil2d_fused_rdma.launches == before + 21
+    assert torch.equal(a, b)
+    flags = {"phys_static": (0, 0) if periodic else (1, 1)}
+    want = hand.stencil2d_fused_rdma_ref(z0.clone(), 0.01, steps=steps,
+                                         periodic=periodic,
+                                         tile_rows=tile_rows, **flags)
+    got = hand.stencil2d_fused_rdma(z0.clone(), 0.01, steps=steps,
+                                    periodic=periodic, tile_rows=tile_rows,
+                                    **flags)
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, want)
+
+
+def test_fused_rdma_local_only_is_the_iterate_kernel(card):
+    z = rand(card, (64, 200), torch.float32, seed=9)
+    got = hand.stencil2d_fused_rdma(z, 0.01, steps=2, local_only=True,
+                                    phys_static=(1, 1))
+    want = hand.stencil2d_iterate(z, 0.01, dim=0, steps=2,
+                                  phys_static=(1, 1))
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, want)
+
+
+def test_rdma_tiers_and_staging_on_card(card, capsys):
+    from tpu_mpi_tests_torch.drivers import stencil2d
+
+    rc = stencil2d.main(["--n-local", "64", "--n-other", "256", "--n-iter",
+                         "3", "--n-warmup", "1", "--rdma", "--iterate-tier",
+                         "rdma-fused", "--iterate-steps", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "ITER BITWISE fused==chained over 4 calls: OK" in out
+    assert "OVERLAP stencil2d_fused_rdma overlap_frac=" in out
+    assert out.count("TEST dim:") == 6
+
+
+def test_two_ranks_cannot_share_one_card(card, tmp_path):
+    """Two ranks on one card (a gloo world, both on card 0): torch's
+    symmetric-memory rendezvous refuses overlapping devices, and the peer
+    layer raises instead of falling back."""
+    W.spawn("symm_one_card", 2, tmp_path)
+    for r in range(2):
+        got = W.read_text(str(tmp_path), "symm", r)
+        assert got.startswith("PeerError: symmetric-memory rendezvous"), got
+        assert "overlapping devices" in got, got

@@ -51,10 +51,12 @@ def test_halo_exchange_matches(mesh1, axis, periodic, staging):
 
 
 def test_staging_rejects_unported_modes():
-    with pytest.raises(TpuMtError, match="ROADMAP"):
-        TH.Staging.parse("pallas")
+    assert TH.Staging.parse("pallas") is TH.Staging.PALLAS_RDMA
+    assert TH.Staging.parse("PALLAS") is TH.Staging.PALLAS_RDMA
     with pytest.raises(TpuMtError):
         TH.Staging.parse("bogus")
+    with pytest.raises(TpuMtError):
+        TH.Staging.parse("auto")
 
 
 @pytest.mark.parametrize("axis", [0, 1])
@@ -122,9 +124,10 @@ def test_runner_argument_checks():
         TH.iterate_hand_fn(4, 0.1, steps=1)  # ghost width != steps·2
     with pytest.raises(TpuMtError):
         TH.iterate_hand_blocks_fn(1, 2, 0.1)
-    with pytest.raises(TpuMtError, match="ROADMAP"):
-        TH.check_tier("rdma-fused")
-    assert TH.check_tier("blocks") == "blocks"
+    with pytest.raises(TpuMtError, match="unknown stencil tier"):
+        TH.check_tier("fused")
+    for tier in ("blocks", "rdma-chained", "rdma-fused", "xla"):
+        assert TH.check_tier(tier) == tier
 
 
 def test_stencil_fn_kernels_agree():

@@ -1,6 +1,7 @@
 """The port stands alone and never falls back.
 
-* No module of ``tpu_mpi_tests_torch`` and no line of ``chip_smoke.py``
+* No module of ``tpu_mpi_tests_torch``, no line of ``chip_smoke.py`` and
+  nothing of the spawned workers' helper ``tests/torch_dist_workers.py``
   imports ``jax`` (or ``jaxlib``) or the JAX package ``tpu_mpi_tests`` —
   matched on the exact top-level name, since ``tpu_mpi_tests_torch``
   shares the JAX package's prefix.
@@ -18,7 +19,13 @@ import torch
 
 from tpu_mpi_tests_torch import bench, microbench
 from tpu_mpi_tests_torch.comm import alltoall, ring
-from tpu_mpi_tests_torch.comm.mesh import MeshError, bootstrap, topology
+from tpu_mpi_tests_torch.comm import dist
+from tpu_mpi_tests_torch.comm.mesh import (
+    MeshError,
+    bootstrap,
+    check_single_rank,
+    topology,
+)
 from tpu_mpi_tests_torch.device import resolve_device
 from tpu_mpi_tests_torch.drivers import (
     attnbench,
@@ -32,7 +39,7 @@ from tpu_mpi_tests_torch.utils import TpuMtError
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "tpu_mpi_tests"}
 PORT_FILES = sorted((REPO / "tpu_mpi_tests_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_dist_workers.py"]
 
 
 def imported_roots(path: Path) -> set[str]:
@@ -76,7 +83,9 @@ def test_port_imports_no_jax(path):
 def test_port_has_its_kernel_sources():
     csrc = REPO / "tpu_mpi_tests_torch" / "kernels" / "csrc"
     for name in ("stencil_iterate.cu", "stencil_deriv.cu", "heat2d.cu",
-                 "dual_dim_step.cu", "streams.cu", "flash_attention.cu"):
+                 "dual_dim_step.cu", "streams.cu", "flash_attention.cu",
+                 "ring_halo.cu", "fused_rdma.cu", "stencil_kstep.cuh",
+                 "ring_common.cuh"):
         assert (csrc / name).is_file()
 
 
@@ -142,8 +151,14 @@ def test_world1_topology_and_multi_rank_refusal(monkeypatch):
     topo = topology(bootstrap("cpu"))
     assert (topo.platform, topo.device_kinds, topo.global_device_count) \
         == ("cpu", ("cpu",), 1)
+    # the launchers' variables start a world of several ranks now
+    # (tests/test_torch_dist.py); the paths that still run one rank only
+    # refuse one, naming the ROADMAP item
     for var in ("WORLD_SIZE", "JAX_NUM_PROCESSES"):
-        monkeypatch.setenv(var, "2")
+        assert dist.launch_env({var: "2"})["size"] == 2
+    monkeypatch.setattr(dist, "world", lambda: dist.World(
+        rank=0, size=2, local_rank=0, device=torch.device("cpu"),
+        backend="gloo"))
+    for what in ("mpi_daxpy", "gather_inplace", "heat2d"):
         with pytest.raises(MeshError, match="ROADMAP queue 1 item 2"):
-            bootstrap("cpu")
-        monkeypatch.delenv(var)
+            check_single_rank(what)

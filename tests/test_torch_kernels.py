@@ -252,3 +252,25 @@ def test_iterate_rejects_bad_arguments():
         hand.stencil2d_iterate(z, 0.1, dim=0, out=z)  # aliasing
     with pytest.raises(ValueError):
         hand.stencil2d_iterate(z, 0.1, dim=0, out=torch.zeros(12, 9))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_rounded_coefficients_are_cached(dtype):
+    """The wrappers' per-launch host work is cached: a coefficient is
+    rounded to the dtype once per (value, dtype) — a hit thereafter, the
+    same bits — and the entry points and heat2d's depth limit are
+    memoised too."""
+    value = 0.1234567891 + {torch.float32: 1, torch.bfloat16: 2,
+                            torch.float64: 3}[dtype]
+    before = hand._rounded.cache_info()
+    first = hand._rounded(value, dtype)
+    again = [hand._rounded(value, dtype) for _ in range(3)]
+    after = hand._rounded.cache_info()
+    assert after.hits - before.hits == 3
+    assert after.misses - before.misses == 1
+    assert again == [first] * 3
+    assert first == torch.tensor(value, dtype=dtype).item()
+    assert hand._rounded(0.5 + value, torch.float64) == 0.5 + value
+    assert hasattr(hand._entry, "cache_info")
+    assert hasattr(hand.heat2d_max_steps, "cache_info")

@@ -124,7 +124,6 @@ def test_mi_units_and_jsonl(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--staging", "pallas"], "queue 2 item 2"),
     (["--staging", "auto"], "queue 1 item 17"),
     (["--tune"], "queue 1 item 17"),
     (["--overlap", "2"], "queue 1 item 13"),
@@ -132,6 +131,14 @@ def test_mi_units_and_jsonl(capsys, tmp_path):
 def test_unported_options_raise_naming_the_roadmap(argv, item):
     with pytest.raises(TpuMtError, match=item):
         stencil1d.main(["--device", "cpu", "--n-global", "4096", *argv])
+
+
+def test_pallas_staging_runs_the_rdma_ring(capsys):
+    """``--staging pallas`` exchanges through ``hand.ring_halo`` (at
+    world=1 non-periodic it moves nothing, as the JAX ring does)."""
+    rc, out = run_port(capsys, "--n-global", "4096", "--dtype", "float64",
+                       "--staging", "pallas")
+    assert rc == 0 and "0/1 exchange time" in out and "FAIL" not in out
 
 
 def test_registered_as_a_workload_spec(capsys):

@@ -11,8 +11,9 @@ Layer map (top to bottom, mirroring the JAX package):
   microbench.py the microbench groups (streams, attention)
   drivers/      benchmark drivers (stencil, heat, DAXPY, ``attnbench``)
   instrument/   timers (CUDA events) and the stable report lines
-  comm/         world=1 topology, halo exchange, hot-loop runners, ring
-                and all-to-all attention
+  comm/         the world (torch.distributed), topology, peer memory,
+                halo exchange, hot-loop runners, collectives, ring and
+                all-to-all attention
   kernels/      torch-op stencils + hand CUDA kernels with plain twins
   arrays/       ghost-cell domain layouts
   convert.py    JAX-package state → torch tensors

@@ -6,8 +6,11 @@ stencil update, the ``mpi_stencil2d_gt.cc:511-535`` hot loop — on an
 8192×8192 domain and prints ONE JSON line with the root bench's keys
 (metric ``stencil2d_fullstep_8192_iters_per_s``).
 
-Default schedules (the JAX package's shipped priors, read from
-``comm/halo.py``; the tune cache is not ported):
+Each rank holds its block of rows (dim 0) or columns (dim 1) of the
+domain; the world comes from the process group (``comm.dist``: torchrun
+or ``native/tpumt_run``), one rank per card. Default schedules (the JAX
+package's shipped priors, read from ``comm/halo.py``; the tune cache is
+not ported):
 
 * float32: the ``blocks`` tier on S=2 resident row blocks at k=4 — two
   launches of the hand k-step kernel per 4 timesteps, dim 0;
@@ -16,7 +19,11 @@ Default schedules (the JAX package's shipped priors, read from
 
 The same ``TPU_MPI_BENCH_*`` variables as the root bench select the run:
 ``_N``, ``_DTYPE``, ``_SECOND_DTYPE``, ``_STEPS``, ``_BLOCKS``, ``_TIER``
-(``blocks`` or ``xla``; the rdma tiers raise), ``_ITERS_SHORT``,
+(``blocks``, ``xla``, ``rdma-chained`` — the hand RDMA ring chained to
+the k-step kernel on the dim-1 decomposition — or ``rdma-fused`` — the
+one-launch fused kernel on dim 0, a geometry it cannot block declining to
+``blocks`` with a NOTE; both on the JAX bench's non-periodic ring),
+``_ITERS_SHORT``,
 ``_ITERS_LONG``, ``_SAMPLES``. Chaining is a Python loop of launches;
 two run lengths are differenced with CUDA events on the card.
 ``vs_baseline`` compares against the V100 equal-width roofline the root
@@ -36,11 +43,13 @@ import numpy as np
 import torch
 
 from tpu_mpi_tests_torch.arrays.domain import Domain2D
+from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap
 from tpu_mpi_tests_torch.device import DEVICES
 from tpu_mpi_tests_torch.drivers._common import TORCH_DTYPES
 from tpu_mpi_tests_torch.instrument.timers import chain_rate
+from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
 
 METRIC = "stencil2d_fullstep_8192_iters_per_s"
@@ -56,26 +65,34 @@ def _note(msg: str) -> None:
 
 def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
                    tier: str, device):
-    """``(run, state, use_blocks, bench_dim)`` for one dtype: the
-    resident-block hand schedule where it applies (``blocks`` tier, k>1,
-    S>=2 dividing n), else the dim-1 single-buffer hand kernel, or the
-    torch-op ``xla`` tier (k=1, shallow ghosts). Initial fields are
-    computed on the device (f64, cast once)."""
+    """``(run, state, use_blocks, bench_dim)`` for one dtype on this
+    rank (≅ the root bench's ``_build_schedule``): the resident-block hand
+    schedule where it applies (``blocks`` tier, k>1, S>=2 dividing the
+    rank's rows), else the dim-1 single-buffer hand kernel; the RDMA tiers
+    (chained on dim 1, fused on dim 0); or the torch-op ``xla`` tier (k=1,
+    shallow ghosts). Initial fields are computed on the device (f64, cast
+    once)."""
+    w = dist.world()
     dtype = TORCH_DTYPES[dtype_name]
     eps = 1e-6
+    n_local = n // w.size
     use_blocks = (tier == "blocks" and steps > 1 and n_blocks >= 2
-                  and n % n_blocks == 0)
-    bench_dim = 0 if use_blocks else 1
-    d = Domain2D(n_local_deriv=n, n_global_other=n, n_shards=1,
+                  and n_local % n_blocks == 0)
+    bench_dim = 0 if (use_blocks or tier == "rdma-fused") else 1
+    d = Domain2D(n_local_deriv=n_local, n_global_other=n, n_shards=w.size,
                  dim=bench_dim, n_bnd=N_BND * steps)
     f, _ = analytic_pairs()[f"2d_dim{bench_dim}"]
-    zg = d.init_shard_torch(f, 0, dtype, device)
+    zg = d.init_shard_torch(f, w.rank, dtype, device)
+    se = eps * d.scale
     if use_blocks:
-        run = H.iterate_hand_blocks_fn(n_blocks, d.n_bnd, eps * d.scale,
-                                       steps=steps)
+        run = H.iterate_hand_blocks_fn(n_blocks, d.n_bnd, se, steps=steps)
         return run, H.split_blocks(zg, n_blocks, d.n_bnd), True, bench_dim
-    if tier == "blocks":
-        run = H.iterate_hand_fn(d.n_bnd, eps * d.scale, axis=1, steps=steps)
+    if tier == "rdma-fused":
+        run = H.iterate_fused_rdma_fn(d.n_bnd, se, steps=steps)
+    elif tier == "rdma-chained":
+        run = H.iterate_hand_fn(d.n_bnd, se, axis=1, steps=steps, rdma=True)
+    elif tier == "blocks":
+        run = H.iterate_hand_fn(d.n_bnd, se, axis=1, steps=steps)
     else:
         run = H.iterate_fused_fn(1, d.n_bnd, d.scale, eps)
     return run, zg, False, bench_dim
@@ -93,6 +110,16 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
     else:
         n_blocks = H.PRIOR_BLOCKS.get(dtype_name, H.PRIOR_BLOCKS["float32"])
     on_card = device.type == "cuda"
+    if tier == "rdma-fused":
+        world = dist.world().size
+        try:
+            hand.fused_block_rows(n // world + 2 * N_BND * steps, steps)
+        except ValueError as e:
+            # never a dead headline, never a mislabeled one: the JSON
+            # names the tier that ran
+            _note(f"tier rdma-fused infeasible at n={n} world={world} "
+                  f"steps={steps} ({e}); running the blocks tier")
+            tier = "blocks"
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     run, state, use_blocks, bench_dim = build_schedule(
@@ -101,8 +128,8 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
     )
     if blocks_env is not None and n_blocks >= 2 and not use_blocks:
         _note(f"TPU_MPI_BENCH_BLOCKS={n_blocks} not applicable (tier={tier} "
-              f"steps={steps} n={n}); running the dim-1 single-buffer "
-              f"schedule")
+              f"steps={steps} n={n}); running the dim-{bench_dim} "
+              f"single-buffer schedule")
 
     n_short = int(os.environ.get("TPU_MPI_BENCH_ITERS_SHORT", 100))
     n_long = int(os.environ.get("TPU_MPI_BENCH_ITERS_LONG", 2100))
@@ -124,11 +151,13 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
     if on_card:
         hbm = {"hbm_peak_bytes": torch.cuda.max_memory_allocated(device),
                "hbm_bytes_in_use": torch.cuda.memory_allocated(device)}
-    suffix = "_h1x1"
+    w = dist.world()
+    world = w.size
+    suffix = f"_h{w.hosts}x{w.ranks_per_host}"
     schedule = (
-        f"blocks{n_blocks}_dim0_world1_{dtype_name}_ov1_{tier}{suffix}"
+        f"blocks{n_blocks}_dim0_world{world}_{dtype_name}_ov1_{tier}{suffix}"
         if use_blocks
-        else f"dim{bench_dim}_world1_{dtype_name}_ov1_{tier}{suffix}"
+        else f"dim{bench_dim}_world{world}_{dtype_name}_ov1_{tier}{suffix}"
     )
     return {
         **hbm,
@@ -201,7 +230,8 @@ def main(argv=None) -> dict:
             second_dtype, n=n, steps=steps, device=device,
             blocks_env=None, tier_env=tier_env,
         )
-    print(json.dumps(rec), flush=True)
+    if dist.world().rank == 0:
+        print(json.dumps(rec), flush=True)
     return rec
 
 

@@ -1,13 +1,19 @@
-"""Halo exchange and the stencil hot-loop runners at world=1
-(≅ ``tpu_mpi_tests/comm/halo.py``).
+"""Halo exchange and the stencil hot-loop runners (≅
+``tpu_mpi_tests/comm/halo.py``), one process per rank.
 
-At world=1 a non-periodic exchange moves nothing (the only shard keeps
-its physical ghosts) and a periodic one is a self-ring: the lo ghost band
-takes the hi interior edge and the hi ghost band the lo interior edge.
-Exchanges update the ghost bands IN PLACE and return the tensor (the JAX
-functions return a new, donated array). A staged exchange packs the edge
-bands into contiguous buffers first, by torch ops or, with
-``kernel="hand"``, by the CUDA pack/unpack kernels.
+Each rank holds its ghosted block. At world=1 a non-periodic exchange
+moves nothing (the only shard keeps its physical ghosts) and a periodic
+one is a self-ring: the lo ghost band takes the hi interior edge and the
+hi ghost band the lo interior edge. At world > 1 the edge bands travel to
+the ±1 ring neighbours over the process group (``Ring.sendrecv``: NCCL on
+the card, gloo on the CPU), and the ends of a non-periodic ring keep their
+physical ghosts. Exchanges update the ghost bands IN PLACE and return the
+tensor (the JAX functions return a new, donated array); the hand RDMA
+exchange at world > 1 on the card may return a copy of the tensor in peer
+memory instead (``comm/peer.py``), which later calls then reuse. A staged
+exchange packs the edge bands into contiguous buffers first, by torch ops
+or, with ``kernel="hand"``, by the CUDA pack/unpack kernels; torch is
+row-major, so the dim-1 bands are always packed before a send.
 
 Runners (``run(state, n_iter) -> state``) chain ``n_iter`` iterations as
 a Python loop of launches:
@@ -16,15 +22,21 @@ a Python loop of launches:
   ``halo.py:591``): exchange, 5-point derivative, ``interior += eps·dz``
   (its ``split=`` keyword is accepted and changes nothing here);
 * :func:`iterate_hand_fn` — the hand kernel on one buffer
-  (≅ ``iterate_pallas_fn``, ``halo.py:671``);
+  (≅ ``iterate_pallas_fn``, ``halo.py:671``); ``rdma=True`` exchanges
+  through the hand RDMA ring (``hand.ring_halo``) — the ``rdma-chained``
+  tier;
+* :func:`iterate_fused_rdma_fn` — exchange and update in one hand launch
+  (``hand.stencil2d_fused_rdma``, ≅ ``halo.py:803``) — the ``rdma-fused``
+  tier, with :func:`fused_overlap_record` for its OVERLAP probe;
 * :func:`iterate_hand_blocks_fn` — the hand kernel over S resident row
-  blocks (≅ ``iterate_pallas_blocks_fn``, ``halo.py:955``).
+  blocks per rank (≅ ``iterate_pallas_blocks_fn``, ``halo.py:955``).
 
 The 2-D process grid on the 1×1 grid: :func:`heat_step2d_fn` (the heat
 mini-app's chained Euler steps, ≅ ``halo.py:1371``) and
 :func:`step2d_fn` (exchange both axes, both-axis derivatives, residual
 allreduce, ≅ ``halo.py:1185``), each with ``kernel="torch"`` (the XLA
-body as torch ops) or ``"hand"`` (the CUDA kernel).
+body as torch ops) or ``"hand"`` (the CUDA kernel); the grid over ranks
+is the next slice (``comm.mesh.check_grid``).
 
 The hand runners keep two buffers per block and swap them after each
 launch: the CUDA kernels are out-of-place (see ``csrc/stencil_iterate.cu``
@@ -38,7 +50,9 @@ import enum
 import torch
 
 from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
+from tpu_mpi_tests_torch.comm.mesh import make_mesh
 from tpu_mpi_tests_torch.kernels import hand
+from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.hand import stencil2d_deriv, \
     stencil2d_iterate
 from tpu_mpi_tests_torch.kernels.stencil import (
@@ -50,10 +64,10 @@ from tpu_mpi_tests_torch.kernels.stencil import (
 )
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
-#: every kernel tier the JAX package's iterate knows; the port runs
-#: "blocks" (the hand kernel) and "xla" (the torch-op formulation)
+#: every kernel tier the JAX package's iterate knows: "blocks" (the hand
+#: kernel over resident blocks), the hand RDMA ring chained to it or fused
+#: with it, and "xla" (the torch-op formulation)
 STENCIL_TIERS = ("blocks", "rdma-chained", "rdma-fused", "xla")
-PORTED_TIERS = ("blocks", "xla")
 
 # The JAX package's shipped schedule priors (tpu_mpi_tests/tune/priors.py
 # :55-56,67), taken as they are: S=2 resident blocks for float32, the
@@ -66,38 +80,28 @@ PRIOR_TIER = "blocks"
 
 
 def check_tier(tier: str) -> str:
-    """``tier`` if this port runs it; raise for the RDMA tiers, which
-    need the multi-chip kernels still to port."""
+    """``tier`` if it names a stencil tier; raise otherwise."""
     if tier not in STENCIL_TIERS:
         raise TpuMtError(
             f"unknown stencil tier {tier!r}; valid: {STENCIL_TIERS}"
-        )
-    if tier not in PORTED_TIERS:
-        raise TpuMtError(
-            f"stencil tier {tier!r} is not ported yet: it needs the RDMA "
-            f"ring kernels (ROADMAP queue 2 items 2-3); ported tiers: "
-            f"{PORTED_TIERS}"
         )
     return tier
 
 
 class Staging(enum.Enum):
-    """Halo staging modes (≅ the JAX enum; the reference's ``buf`` flag).
-    The hand RDMA ring and the tuned ``auto`` mode are not ported."""
+    """Halo staging modes (≅ the JAX enum; the reference's ``buf`` flag):
+    ``PALLAS_RDMA`` ("pallas") is the hand RDMA ring, ``hand.ring_halo``.
+    The tuned ``auto`` mode is ROADMAP queue 1 item 17."""
 
     DIRECT = "direct"
     DEVICE_STAGED = "device"
     HOST_STAGED = "host"
+    PALLAS_RDMA = "pallas"
 
     @classmethod
     def parse(cls, s: "str | Staging") -> "Staging":
         if isinstance(s, Staging):
             return s
-        if s.lower() == "pallas":
-            raise TpuMtError(
-                "staging 'pallas' (the hand RDMA ring) is not ported yet: "
-                "ROADMAP queue 2 item 2"
-            )
         try:
             return cls(s.lower())
         except ValueError:
@@ -118,18 +122,41 @@ def halo_payload_bytes(zg: torch.Tensor, axis: int, world: int, n_bnd: int,
     return 2 * pairs * band_bytes
 
 
+def _write_ghosts(z: torch.Tensor, axis: int, n_bnd: int, from_left,
+                  from_right) -> torch.Tensor:
+    """Arrived bands into the ghost bands (a None side keeps its
+    physical ghosts); returns ``z``."""
+    n = z.shape[axis]
+    if from_left is not None:
+        z.narrow(axis, 0, n_bnd).copy_(from_left)
+    if from_right is not None:
+        z.narrow(axis, n - n_bnd, n_bnd).copy_(from_right)
+    return z
+
+
 def exchange_shard(z: torch.Tensor, *, axis: int = 0, n_bnd: int = 2,
                    periodic: bool = False, staged: bool = False,
                    kernel: str = "torch") -> torch.Tensor:
-    """World=1 halo exchange of one ghosted block, in place. Non-periodic:
-    nothing moves (and nothing launches). Periodic: lo ghost ← hi
-    interior edge, hi ghost ← lo interior edge. ``staged`` packs both
-    edges into contiguous buffers first (≅ DEVICE_STAGED, the reference's
-    ``buf_from_view``/``buf_to_view``): with ``kernel="torch"`` by
-    ``clone``/``copy_``, with ``kernel="hand"`` by the CUDA kernels
-    ``hand.pack_edges`` and ``hand.unpack_ghosts`` (one launch each; a
-    2-D block). ``kernel`` changes nothing when not ``staged``."""
+    """Halo exchange of this rank's ghosted block, in place (≅ the JAX
+    ``exchange_shard``): the interior edge bands go to the ±1 ring
+    neighbours and the received bands land in the ghost bands; the ends of
+    a non-periodic ring keep their physical ghosts.
+
+    World=1: non-periodic, nothing moves (and nothing launches); periodic,
+    lo ghost ← hi interior edge, hi ghost ← lo interior edge. World > 1:
+    one ``Ring.sendrecv`` over the process group.
+
+    ``staged`` packs both edges into contiguous buffers first (≅
+    DEVICE_STAGED, the reference's ``buf_from_view``/``buf_to_view``):
+    with ``kernel="torch"`` by ``clone``/``copy_``, with ``kernel="hand"``
+    by the CUDA kernels ``hand.pack_edges`` and ``hand.unpack_ghosts``
+    (one launch each; a 2-D block). A strided band (axis 1) is packed
+    before any send whatever ``staged`` says; ``kernel`` changes nothing
+    when neither applies."""
     _check_kernel("exchange_shard", kernel)
+    ring = make_mesh()
+    if ring.size > 1:
+        return _exchange_ring(z, ring, axis, n_bnd, periodic, staged, kernel)
     if not periodic:
         return z
     n = z.shape[axis]
@@ -147,31 +174,71 @@ def exchange_shard(z: torch.Tensor, *, axis: int = 0, n_bnd: int = 2,
     return z
 
 
+def _exchange_ring(z, ring, axis, n_bnd, periodic, staged, kernel):
+    """The world > 1 leg of :func:`exchange_shard`."""
+    n = z.shape[axis]
+    hand_pack = kernel == "hand" and z.dim() == 2 and (staged or axis == 1)
+    if hand_pack:
+        lo_edge, hi_edge = hand.pack_edges(z, axis, n_bnd)
+    elif staged or not z.narrow(axis, n_bnd, n_bnd).is_contiguous():
+        lo_edge, hi_edge = _pack.pack_edges(z, axis, n_bnd)
+    else:  # rows of a row-major block: the bands are contiguous views
+        lo_edge = z.narrow(axis, n_bnd, n_bnd)
+        hi_edge = z.narrow(axis, n - 2 * n_bnd, n_bnd)
+        if n < 3 * n_bnd:
+            lo_edge, hi_edge = lo_edge.clone(), hi_edge.clone()
+    from_left, from_right = ring.sendrecv(lo_edge, hi_edge, periodic)
+    if hand_pack:
+        # the unpack kernel writes both bands: a side that received nothing
+        # gets its own physical ghosts back
+        if from_left is None:
+            from_left = z.narrow(axis, 0, n_bnd).clone(
+                memory_format=torch.contiguous_format)
+        if from_right is None:
+            from_right = z.narrow(axis, n - n_bnd, n_bnd).clone(
+                memory_format=torch.contiguous_format)
+        return hand.unpack_ghosts(z, from_left, from_right, axis, n_bnd)
+    return _write_ghosts(z, axis, n_bnd, from_left, from_right)
+
+
 def _host_staged_exchange(z: torch.Tensor, axis: int, n_bnd: int,
                           periodic: bool) -> torch.Tensor:
     """Edge bands round-trip through host memory (≅ the reference's
-    ``stage_host`` paths): only the two bands touch the host."""
-    if not periodic:
+    ``stage_host`` paths): only the two bands touch the host; at world > 1
+    the host copies travel over the gloo group."""
+    ring = make_mesh()
+    if not periodic and ring.size == 1:
         return z
-    n = z.shape[axis]
-    lo_edge = z.narrow(axis, n_bnd, n_bnd).cpu()
-    hi_edge = z.narrow(axis, n - 2 * n_bnd, n_bnd).cpu()
-    z.narrow(axis, 0, n_bnd).copy_(hi_edge)
-    z.narrow(axis, n - n_bnd, n_bnd).copy_(lo_edge)
-    return z
+    lo_edge, hi_edge = (t.cpu() for t in _pack.pack_edges(z, axis, n_bnd))
+    if ring.size == 1:
+        from_left, from_right = hi_edge, lo_edge
+    else:
+        from_left, from_right = ring.sendrecv(lo_edge, hi_edge, periodic)
+    return _write_ghosts(z, axis, n_bnd, from_left, from_right)
 
 
 def halo_exchange(zg: torch.Tensor, axis: int = 0, n_bnd: int = 2,
                   periodic: bool = False,
                   staging: "Staging | str" = Staging.DIRECT,
                   kernel: str = "torch") -> torch.Tensor:
-    """Exchange the ghost bands of a ghosted domain at world=1 (in place;
+    """Exchange the ghost bands of this rank's ghosted block (in place;
     returns ``zg``). ``kernel="hand"`` stages the DEVICE_STAGED bands
-    through the CUDA pack/unpack kernels (:func:`exchange_shard`)."""
+    through the CUDA pack/unpack kernels (:func:`exchange_shard`).
+    ``PALLAS_RDMA`` is one ``hand.ring_halo`` launch (≅
+    ``_exchange_pallas_fn``; world=1 non-periodic still launches and no
+    store fires, as in the JAX package); at world > 1 on the card ``zg``
+    is adopted into peer memory first, so the result may be that copy,
+    which later calls then reuse."""
     staging = Staging.parse(staging)
     _check_kernel("halo_exchange", kernel)
     if staging is Staging.HOST_STAGED:
         return _host_staged_exchange(zg, axis, n_bnd, periodic)
+    if staging is Staging.PALLAS_RDMA:
+        if zg.device.type == "cuda":
+            from tpu_mpi_tests_torch.comm.peer import peer_ring
+
+            zg = peer_ring(zg.device).adopt(zg)
+        return hand.ring_halo(zg, axis=axis, n_bnd=n_bnd, periodic=periodic)
     return exchange_shard(zg, axis=axis, n_bnd=n_bnd, periodic=periodic,
                           staged=staging is Staging.DEVICE_STAGED,
                           kernel=kernel)
@@ -292,37 +359,169 @@ def _check_deep(name: str, n_bnd: int, steps: int) -> None:
         )
 
 
+def _phys_kwargs(ring, periodic: bool, device, side=(True, True)):
+    """The iterate kernel's flags for this rank (≅ ``halo.py:735-752``):
+    static on a periodic ring ((0, 0)) and at world=1 ((1, 1)); at
+    world > 1 dynamic, a device int pair, since whether a side is
+    physical depends on the rank. ``side`` masks the flags of a block that
+    owns only one of the shard's ends (the resident-block schedule)."""
+    if periodic:
+        return {"phys_static": (0, 0)}
+    if ring.size == 1:
+        return {"phys_static": tuple(int(s) for s in side)}
+    lo, hi = ring.phys(periodic)
+    flags = [lo if side[0] else 0, hi if side[1] else 0]
+    return {"phys": torch.tensor(flags, dtype=torch.int32, device=device)}
+
+
+class _PingPong:
+    """The two buffers a hand runner alternates between — in peer memory
+    when its kernel stores into the neighbours' copies (``peer=True``),
+    where at world > 1 on the card they are one symmetric allocation made
+    once per shape. ``start(z)`` returns ``(current, spare)``: ``z`` itself
+    when it is one of the pair (a runner's own earlier result), else a copy
+    of it in the first buffer."""
+
+    def __init__(self, peer: bool):
+        self.peer = peer
+        self.pair = None
+
+    def start(self, z: torch.Tensor):
+        if not self.peer:
+            return z, torch.empty_like(z)
+        p = self.pair
+        if p is not None and p[0].shape == z.shape and p[0].dtype == z.dtype:
+            if z.data_ptr() == p[0].data_ptr():
+                return p[0], p[1]
+            if z.data_ptr() == p[1].data_ptr():
+                return p[1], p[0]
+        from tpu_mpi_tests_torch.comm.peer import peer_ring
+
+        self.pair = p = peer_ring(z.device).empty(z.shape, z.dtype, count=2)
+        p[0].copy_(z)
+        return p[0], p[1]
+
+
 def iterate_hand_fn(n_bnd: int, scale_eps: float, axis: int = 1,
-                    steps: int = 1, periodic: bool = False):
+                    steps: int = 1, periodic: bool = False,
+                    rdma: bool = False):
     """k-step hand-kernel iterate on one buffer (≅ ``iterate_pallas_fn``):
     per outer iteration one exchange of the k·N_BND-deep ghosts and one
     kernel launch advancing k timesteps. ``n_iter`` counts outer
-    iterations (= n_iter·k timesteps). At world=1 the flags are static:
-    both sides physical, or neither on a periodic self-ring."""
+    iterations (= n_iter·k timesteps). Flags: static on a periodic ring
+    and at world=1, dynamic (a device pair) on a non-periodic ring at
+    world > 1, where only the ring's ends are physical.
+
+    ``rdma=True`` swaps the exchange for the hand RDMA ring
+    (``hand.ring_halo``, ≅ ``iterate_pallas_fn(rdma=True)``): the
+    ``rdma-chained`` tier, 100 % hand kernels; its two buffers live in peer
+    memory (:class:`_PingPong`) and the result is one of them."""
     _check_deep("iterate_hand_fn", n_bnd, steps)
-    flags = (0, 0) if periodic else (1, 1)
+    buffers = _PingPong(peer=rdma)
 
     def run(z: torch.Tensor, n_iter: int) -> torch.Tensor:
-        spare = torch.empty_like(z)
+        ring = make_mesh()
+        flags = _phys_kwargs(ring, periodic, z.device)
+        z, spare = buffers.start(z)
         for _ in range(n_iter):
-            exchange_shard(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
+            if rdma:
+                hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
+            else:
+                exchange_shard(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
             out = stencil2d_iterate(z, scale_eps, dim=axis, steps=steps,
-                                    phys_static=flags, out=spare)
+                                    out=spare, **flags)
             z, spare = out, z
         return z
 
     return run
 
 
+def iterate_fused_rdma_fn(n_bnd: int, scale_eps: float, axis: int = 0,
+                          steps: int = 1, periodic: bool = False,
+                          tile_rows: "int | None" = None,
+                          local_only: bool = False):
+    """The one-launch fused tier (≅ ``iterate_fused_rdma_fn``,
+    ``halo.py:803``): per outer iteration ONE ``hand.stencil2d_fused_rdma``
+    launch stores the edge bands into the neighbours' ghosts while the
+    interior row blocks advance k timesteps, then finishes the seam
+    blocks — no ghost-byte round trip through device memory between an
+    exchange kernel and a compute kernel. Bitwise equal to
+    ``iterate_hand_fn(axis=0, rdma=True)``.
+
+    Dim 0 only (the fused schedule is a row-block stream); deep ghosts as
+    ever (``n_bnd = k·N_BND``). A 1-shard non-periodic ring degenerates to
+    the pure compute pass; ``local_only=True`` forces that compute-only
+    twin on any ring — the baseline :func:`fused_overlap_record` prices
+    the seam wait against (its ghosts are then fixed bands, so its VALUES
+    mean something only on a 1-shard ring). ``tile_rows`` caps the row
+    block (``hand.fused_block_rows``)."""
+    if axis != 0:
+        raise TpuMtError(
+            "iterate_fused_rdma_fn: the fused tier streams row blocks — "
+            "dim-0 decomposition only (decompose the other way or use "
+            "iterate_hand_fn)"
+        )
+    _check_deep("iterate_fused_rdma_fn", n_bnd, steps)
+    buffers = _PingPong(peer=True)
+
+    def run(z: torch.Tensor, n_iter: int) -> torch.Tensor:
+        ring = make_mesh()
+        pure_compute = local_only or (ring.size == 1 and not periodic)
+        flags = _phys_kwargs(ring, periodic, z.device)
+        z, spare = buffers.start(z)
+        for _ in range(n_iter):
+            out = hand.stencil2d_fused_rdma(
+                z, scale_eps, steps=steps, periodic=periodic,
+                tile_rows=tile_rows, local_only=pure_compute, out=spare,
+                **flags)
+            z, spare = out, z
+        return z
+
+    return run
+
+
+def fused_overlap_record(op: str, *, steps: int, fused_s: float,
+                         compute_s: float, world: int, **extra) -> dict:
+    """The fused tier's ``kind: "overlap"`` record (≅
+    ``fused_overlap_record``, ``halo.py:924``, the same fields):
+    ``fused_s`` is the host-bracketed wall time of the one-launch fused
+    runner, ``compute_s`` that of its compute-only twin
+    (``iterate_fused_rdma_fn(local_only=True)`` — the same kernel and
+    geometry, the exchange compiled out). Their difference is the
+    SEAM-WAIT cost (barrier, sends, arrival waits and whatever the
+    interior failed to hide); ``overlap_frac = 1 − seam_wait/total`` and
+    ``drain_s`` carries the seam wait."""
+    seam_wait = max(0.0, float(fused_s) - float(compute_s))
+    frac = (1.0 - seam_wait / fused_s) if fused_s > 0 else 0.0
+    return {
+        "kind": "overlap",
+        "op": op,
+        "depth": 2,
+        "steps": steps,
+        "overlap_frac": frac,
+        "comm_s": float(fused_s),
+        "compute_s": float(compute_s),
+        "drain_s": seam_wait,
+        "world": world,
+        "tier": "rdma-fused",
+        **extra,
+    }
+
+
 def iterate_hand_blocks_fn(n_blocks: int, n_bnd: int, scale_eps: float,
                            steps: int = 1, periodic: bool = False):
-    """k-step iterate over ``n_blocks`` resident row blocks (dim 0) —
-    ≅ ``iterate_pallas_blocks_fn`` on one device. Per outer iteration the
-    blocks' ghost bands are refreshed from their neighbours' interiors
-    (the periodic self-ring wraps block 0 and block S−1), then each block
-    takes one kernel launch. The refresh sources are interior rows,
-    disjoint from every ghost band, so refreshing in place equals the
-    JAX function's read-everything-first order.
+    """k-step iterate over ``n_blocks`` resident row blocks (dim 0) per
+    rank — ≅ ``iterate_pallas_blocks_fn`` (``mesh=None`` at world=1, the
+    rank's shard of the mesh otherwise). Per outer iteration the blocks'
+    ghost bands are refreshed from their neighbours' interiors, then each
+    block takes one kernel launch. The two OUTERMOST ghost bands (block
+    0's top, block S−1's bottom) come from the ring: at world=1 the
+    periodic self-ring wraps block 0 and block S−1; at world > 1 they ride
+    ``Ring.sendrecv`` to the neighbour ranks, whose ends keep their
+    physical ghosts on a non-periodic ring (dynamic flags on the edge
+    blocks). Every refresh source is an interior row, disjoint from every
+    ghost band, so refreshing in place equals the JAX function's
+    read-everything-first order.
 
     ``run(state, n_iter)`` takes and returns a tuple of S blocks
     ``(H/S + 2·n_bnd, W)`` (:func:`split_blocks` / :func:`merge_blocks`)."""
@@ -334,11 +533,6 @@ def iterate_hand_blocks_fn(n_blocks: int, n_bnd: int, scale_eps: float,
         )
     S, K = n_blocks, n_bnd
 
-    def flags(s):
-        if periodic:
-            return (0, 0)
-        return (1 if s == 0 else 0, 1 if s == S - 1 else 0)
-
     def run(state, n_iter: int):
         blocks = list(state)
         if len(blocks) != S:
@@ -349,19 +543,33 @@ def iterate_hand_blocks_fn(n_blocks: int, n_bnd: int, scale_eps: float,
                 f"iterate_hand_blocks_fn: {hb} interior rows per block < "
                 f"ghost width {K}"
             )
+        ring = make_mesh()
+        device = blocks[0].device
+        flags = [_phys_kwargs(ring, periodic, device,
+                              side=(s == 0, s == S - 1)) for s in range(S)]
         spares = [torch.empty_like(b) for b in blocks]
         for _ in range(n_iter):
+            outer = (None, None)
+            if ring.size > 1:  # the shard's edges to the neighbour ranks
+                outer = ring.sendrecv(blocks[0][K:2 * K].contiguous(),
+                                      blocks[S - 1][hb:hb + K].contiguous(),
+                                      periodic)
             for s in range(1, S):  # top ghost ← upper block's last rows
                 blocks[s][0:K].copy_(blocks[s - 1][hb:hb + K])
             for s in range(S - 1):  # bottom ghost ← lower block's first
                 blocks[s][hb + K:hb + 2 * K].copy_(blocks[s + 1][K:2 * K])
-            if periodic:  # world=1 self-ring across the block tuple
+            if ring.size > 1:
+                if outer[0] is not None:
+                    blocks[0][0:K].copy_(outer[0])
+                if outer[1] is not None:
+                    blocks[S - 1][hb + K:hb + 2 * K].copy_(outer[1])
+            elif periodic:  # world=1 self-ring across the block tuple
                 blocks[0][0:K].copy_(blocks[S - 1][hb:hb + K])
                 blocks[S - 1][hb + K:hb + 2 * K].copy_(blocks[0][K:2 * K])
             for s in range(S):
                 out = stencil2d_iterate(
                     blocks[s], scale_eps, dim=0, steps=steps,
-                    phys_static=flags(s), out=spares[s],
+                    out=spares[s], **flags[s],
                 )
                 blocks[s], spares[s] = out, blocks[s]
         return tuple(blocks)

@@ -75,8 +75,17 @@ def host_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
-def make_reporter(args, rank: int = 0, size: int = 1) -> Reporter:
-    return Reporter(rank=rank, size=size, jsonl_path=args.jsonl)
+def make_reporter(args, rank: "int | None" = None,
+                  size: "int | None" = None) -> Reporter:
+    """The run's reporter; ``rank`` and ``size`` default to this process's
+    place in the world (``comm.dist``); drivers emulating logical ranks in
+    one process pass their own."""
+    from tpu_mpi_tests_torch.comm import dist
+
+    w = dist.world()
+    return Reporter(rank=w.rank if rank is None else rank,
+                    size=w.size if size is None else size,
+                    jsonl_path=args.jsonl)
 
 
 def parse_choice_list(spec: str, valid, what: str = "entries"):

@@ -33,7 +33,7 @@ def run(args) -> int:
     import torch
 
     from tpu_mpi_tests_torch.comm.alltoall import ulysses_attention_fn
-    from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
+    from tpu_mpi_tests_torch.comm.mesh import bootstrap, check_world, topology
     from tpu_mpi_tests_torch.comm.ring import ring_attention_fn, to_striped
     from tpu_mpi_tests_torch.instrument.timers import chain_rate
     from tpu_mpi_tests_torch.kernels import hand
@@ -49,6 +49,7 @@ def run(args) -> int:
                          "package)")
     device = bootstrap(args.device)
     topo = topology(device)
+    check_world(topo.process_count)
     world = topo.global_device_count
     precision = "default" if args.fast else "highest"
 

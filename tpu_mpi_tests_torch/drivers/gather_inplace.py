@@ -25,7 +25,11 @@ from tpu_mpi_tests_torch.drivers import _common
 
 def run(args) -> int:
     from tpu_mpi_tests_torch.comm import collectives as C
-    from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
+    from tpu_mpi_tests_torch.comm.mesh import (
+        bootstrap,
+        check_single_rank,
+        topology,
+    )
     from tpu_mpi_tests_torch.instrument.timers import block
     from tpu_mpi_tests_torch.utils import TpuMtError
 
@@ -37,6 +41,7 @@ def run(args) -> int:
         )
     dtype = _common.torch_dtype(args)
     device = bootstrap(args.device)
+    check_single_rank("gather_inplace")
     topo = topology(device)
     world = topo.global_device_count
     n = args.n_per_rank

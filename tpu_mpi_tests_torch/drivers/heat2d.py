@@ -35,7 +35,14 @@ import torch
 
 from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm import halo as H
-from tpu_mpi_tests_torch.comm.mesh import bootstrap, check_grid, topology
+from tpu_mpi_tests_torch.comm.mesh import (
+    bootstrap,
+    check_grid,
+    check_single_rank,
+    topology,
+)
+
+PROG = "heat2d"
 from tpu_mpi_tests_torch.drivers import _common
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
 
@@ -82,6 +89,7 @@ def run(args) -> int:
     topo = topology(device)
     n_dev = topo.global_device_count
     check_grid(args.mesh)
+    check_single_rank(PROG)
     grid = _common.parse_grid_mesh(args.mesh, n_dev)
     if grid is None:
         return 2

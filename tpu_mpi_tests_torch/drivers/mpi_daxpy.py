@@ -36,6 +36,7 @@ def run(args) -> int:
     from tpu_mpi_tests_torch.comm import collectives as C
     from tpu_mpi_tests_torch.comm.mesh import (
         bootstrap,
+        check_single_rank,
         device_report,
         ranks_per_device,
         topology,
@@ -45,6 +46,7 @@ def run(args) -> int:
 
     dtype = _common.torch_dtype(args)
     device = bootstrap(args.device)
+    check_single_rank("mpi_daxpy")
     topo = topology(device)
     n_dev = topo.global_device_count
     world = args.ranks or n_dev

@@ -41,6 +41,7 @@ def run(args) -> int:
     from tpu_mpi_tests_torch.comm import collectives as C
     from tpu_mpi_tests_torch.comm.mesh import (
         bootstrap,
+        check_single_rank,
         device_report,
         topology,
     )
@@ -50,6 +51,7 @@ def run(args) -> int:
 
     dtype = _common.torch_dtype(args)
     device = bootstrap(args.device)
+    check_single_rank("mpi_daxpy_nvtx")
     topo = topology(device)
     world = topo.global_device_count
     managed = args.space == "managed"

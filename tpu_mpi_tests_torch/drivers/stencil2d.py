@@ -1,10 +1,10 @@
-"""Flagship 2-D stencil benchmark at world=1 (≅
-``tpu_mpi_tests/drivers/stencil2d.py``, itself ≅ ``mpi_stencil2d_gt.cc``).
+"""Flagship 2-D stencil benchmark (≅ ``tpu_mpi_tests/drivers/stencil2d.py``,
+itself ≅ ``mpi_stencil2d_gt.cc``), one process per rank.
 
-A 2-D array is decomposed along the derivative dim (0 or 1); each test
-runs ``n_warmup`` untimed + ``n_iter`` timed halo exchanges, applies the
-5-point stencil, and reports the exchange time plus the error norm vs the
-analytic derivative of z = x³ + y²::
+A 2-D array is decomposed along the derivative dim (0 or 1) over the
+ranks; each test runs ``n_warmup`` untimed + ``n_iter`` timed halo
+exchanges, applies the 5-point stencil, and reports the exchange time plus
+the error norm vs the analytic derivative of z = x³ + y²::
 
     TEST dim:<d>, device , buf:<b>; <seconds>, err=<e>
 
@@ -15,17 +15,20 @@ followed by the axis-reduction + allreduce benchmark (``test_sum``,
 
 Staging per the reference's ``buf`` flag: dim 0 → ``buf:0`` device
 staged, ``buf:1`` host staged; dim 1 → ``buf:0`` direct, ``buf:1``
-device staged. At world=1 the non-periodic exchange moves nothing, as in
-the JAX package's single-device runs.
+device staged; ``--rdma`` runs every leg through the hand RDMA ring
+(``hand.ring_halo``, ≅ the SYCL hand-kernel variant of the matrix). At
+world=1 the non-periodic exchange moves nothing, as in the JAX package's
+single-device runs (the RDMA ring still launches).
 
 ``--kernel hand`` runs the derivative through the hand CUDA kernel (≅
 ``--kernel pallas``) and hands the device-staged legs the hand
-pack/unpack kernels (which launch only when bands move: never on the
-non-periodic world=1 exchange); ``--iterate-tier {blocks,xla,auto}`` adds the
-iterate leg (exchange + k-step update hot loop) with its analytic eigen
-gate. The card is the default device; ``--device cpu`` runs the kernels'
-plain torch versions. Not ported yet: ``--managed``, ``--tune``,
-``--kernel auto``, ``--fused``, ``--rdma`` and the RDMA iterate tiers.
+pack/unpack kernels. ``--iterate-tier {blocks,rdma-chained,rdma-fused,
+xla,auto}`` adds the iterate leg (exchange + k-step update hot loop) with
+its analytic eigen gate, the fused == chained bitwise gate (``ITER
+BITWISE``) and the fused tier's OVERLAP record. The card is the default
+device; ``--device cpu`` runs the kernels' plain torch versions (over gloo
+at world > 1). Not ported yet: ``--managed``, ``--tune``, ``--kernel
+auto``, ``--fused``, ``--debug-dump``.
 """
 
 from __future__ import annotations
@@ -42,13 +45,13 @@ from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
 from tpu_mpi_tests_torch.drivers import _common
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
+from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.reductions import sum_axis
 from tpu_mpi_tests_torch.kernels.stencil import (
     N_BND,
     STENCIL5,
     analytic_pairs,
 )
-from tpu_mpi_tests_torch.utils import TpuMtError
 
 
 def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
@@ -58,7 +61,10 @@ def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
     d = Domain2D(n_local_deriv=args.n_local, n_global_other=args.n_other,
                  n_shards=world, dim=dim)
     f, df = analytic_pairs()[f"2d_dim{dim}"]
-    if dim == 0:
+    if args.rdma:
+        # the hand RDMA ring replaces every staged path
+        staging = H.Staging.PALLAS_RDMA
+    elif dim == 0:
         staging = H.Staging.HOST_STAGED if buf else H.Staging.DEVICE_STAGED
     else:
         staging = H.Staging.DEVICE_STAGED if buf else H.Staging.DIRECT
@@ -170,27 +176,30 @@ def _sum_test(args, topo, rep, dim: int) -> int:
 
 def _iterate_tiers(args, topo):
     """Tier-runner builders for the iterate leg on ONE dim-0 periodic
-    geometry: rows hold the eigenfield sin(2π·m·i/n), ghosts start zero
-    (the first exchange fills them). Returns ``(build, make_state,
-    timesteps_per_call, geom)``."""
+    geometry: each rank's interior rows hold its part of the eigenfield
+    sin(2π·m·i/n), ghosts start zero (the first exchange fills them).
+    Returns ``(build, make_state, timesteps_per_call, geom)``; ``build``
+    may raise ``ValueError`` for a tier the geometry does not fit."""
     dtype = _common.torch_dtype(args)
     device = topo.device
+    world, rank = topo.global_device_count, topo.process_index
     steps = args.iterate_steps
     K = N_BND * steps
     nloc, cols = args.n_local, args.n_other
-    n_glob = topo.global_device_count * nloc
+    n_glob = world * nloc
     se = 0.01  # scale_eps of the iterate update
     m = 2
     phase = 2.0 * np.pi * m / n_glob
 
     def ghost_width(tier):
         # the torch-op tier exchanges every timestep over radius-wide
-        # ghosts; the k-step hand tier carries deep halos
+        # ghosts; the k-step hand tiers carry deep halos
         return N_BND if tier == "xla" else K
 
     def make_state(gw=K):
         z = torch.zeros((nloc + 2 * gw, cols), dtype=dtype, device=device)
-        rows = torch.arange(nloc, dtype=torch.float64, device=device)
+        rows = torch.arange(rank * nloc, (rank + 1) * nloc,
+                            dtype=torch.float64, device=device)
         z[gw:gw + nloc] = torch.sin(phase * rows).to(dtype)[:, None]
         return z
 
@@ -199,6 +208,13 @@ def _iterate_tiers(args, topo):
     def build(tier):
         if tier == "xla":
             return H.iterate_fused_fn(0, N_BND, 1.0, se, periodic=True)
+        if tier == "rdma-chained":
+            return H.iterate_hand_fn(K, se, axis=0, steps=steps,
+                                     periodic=True, rdma=True)
+        if tier == "rdma-fused":
+            hand.fused_block_rows(nloc + 2 * K, steps)  # raises if no fit
+            return H.iterate_fused_rdma_fn(K, se, steps=steps,
+                                           periodic=True)
         if n_blocks >= 2 and nloc % n_blocks == 0:
             inner = H.iterate_hand_blocks_fn(n_blocks, K, se, steps=steps,
                                              periodic=True)
@@ -215,33 +231,63 @@ def _iterate_tiers(args, topo):
     return build, make_state, (lambda t: 1 if t == "xla" else steps), geom
 
 
+def _all_ranks_agree(ok: bool) -> bool:
+    """``ok`` on every rank (a count of the ranks where it fails)."""
+    return C.reduce_sum([0.0 if ok else 1.0]) == 0.0
+
+
 def _iterate_tier_test(args, topo, rep) -> int:
     """The kernel-tier iterate leg: time the exchange + update hot loop
-    under the chosen tier (``auto`` = the prior, ``blocks``), then check
-    the timed field against the analytic eigen gate — on the periodic ring
-    the eigenfield sin(m·x) rotates through (sin, cos) by an exactly known
-    2×2 map per timestep, so a broken exchange or seam destroys it."""
+    under the chosen tier (``auto`` = the prior, ``blocks``), then run the
+    honesty checks of the JAX driver (``drivers/stencil2d.py:471``):
+
+    * fused == chained, bitwise (``ITER BITWISE``): the two RDMA tiers
+      share the tile update and the ghost bytes, so a seam or exchange bug
+      breaks the equality at once;
+    * the analytic eigen gate on the timed field: on the periodic ring the
+      eigenfield sin(m·x) rotates through (sin, cos) by an exactly known
+      2×2 map per timestep;
+    * the fused tier's OVERLAP record: the fused runner against its
+      compute-only twin, host-bracketed (:func:`H.fused_overlap_record`).
+    """
     world = topo.global_device_count
     build, make_state, steps_per_call, g = _iterate_tiers(args, topo)
-    steps, n_glob = g["steps"], g["n_glob"]
+    steps, K, n_glob = g["steps"], g["K"], g["n_glob"]
     tier = H.PRIOR_TIER if args.iterate_tier == "auto" else args.iterate_tier
     H.check_tier(tier)
 
     gw = g["ghost_width"](tier)
     run = build(tier)
     z = block(run(make_state(gw), 1))  # build kernels + warm
+    C.barrier(topo.device)
     t0 = time.perf_counter()
     z = block(run(z, args.iterate_iters))
     seconds = time.perf_counter() - t0
+    # the warm call advanced the field too: the eigen gate checks the
+    # TOTAL evolution, the rate only the timed window
     timesteps = (1 + args.iterate_iters) * steps_per_call(tier)
     rate = (args.iterate_iters * steps_per_call(tier) / seconds
             if seconds > 0 else float("inf"))
     rep.line(f"ITER tier={tier} steps={steps} n={n_glob}x{g['cols']} "
              f"world={world}: {rate:0.1f} steps/s")
-    rep.line("NOTE fused/chained bitwise gate skipped (the rdma tiers are "
-             "not ported: ROADMAP queue 2 items 2-3)")
 
     rc = 0
+    try:
+        fused, chained = build("rdma-fused"), build("rdma-chained")
+        za = C.host_value(block(fused(make_state(), args.iterate_iters)))
+        zb = C.host_value(block(chained(make_state(), args.iterate_iters)))
+        if _all_ranks_agree(bool(np.array_equal(za, zb))):
+            rep.line(f"ITER BITWISE fused==chained over "
+                     f"{args.iterate_iters} calls: OK")
+        else:
+            d = np.abs(za.astype(np.float64) - zb.astype(np.float64))
+            rep.line(f"ITER BITWISE FAIL: fused and chained tiers diverge "
+                     f"(max |d|={np.nanmax(d):.8g} on rank "
+                     f"{topo.process_index})")
+            rc = 1
+    except ValueError as e:
+        rep.line(f"NOTE fused/chained bitwise gate skipped ({e})")
+
     c1, c2 = float(STENCIL5[3]), float(STENCIL5[4])
     a = g["se"] * (2.0 * c1 * np.sin(g["phase"])
                    + 2.0 * c2 * np.sin(2.0 * g["phase"]))
@@ -252,7 +298,8 @@ def _iterate_tier_test(args, topo, rep) -> int:
     rows = np.arange(n_glob)
     want = sc[0] * np.sin(g["phase"] * rows) + sc[1] * np.cos(
         g["phase"] * rows)
-    got = C.host_value(z[gw:gw + n_glob, 0]).astype(np.float64)
+    col = z[gw:gw + args.n_local, 0].contiguous()
+    got = C.host_value(C.all_gather(col)).astype(np.float64)
     denom = max(float(np.sqrt(np.mean(want**2))), 1e-300)
     rel = float(np.sqrt(np.mean((got - want) ** 2))) / denom
     eps = {"float64": 2.3e-16, "float32": 1.2e-7,
@@ -262,8 +309,36 @@ def _iterate_tier_test(args, topo, rep) -> int:
     if not np.isfinite(rel) or rel > tol:
         rep.line(f"ITER FAIL rel={rel:.8g} > tol {tol:.8g}")
         rc = 1
-    rep.line("NOTE fused overlap probe skipped (the rdma-fused tier is not "
-             "ported: ROADMAP queue 2 item 3)")
+
+    # kernel-level overlap record: the fused runner against its
+    # compute-only twin (same kernel, the exchange compiled out)
+    try:
+        fused = build("rdma-fused")
+        comp = H.iterate_fused_rdma_fn(K, g["se"], steps=steps,
+                                       periodic=True, local_only=True)
+        zf = block(fused(make_state(), 1))  # warm
+        zc = block(comp(make_state(), 1))
+        C.barrier(topo.device)
+        t0 = time.perf_counter()
+        zf = block(fused(zf, args.iterate_iters))
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zc = block(comp(zc, args.iterate_iters))
+        compute_s = time.perf_counter() - t0
+        del zf, zc
+        ov = H.fused_overlap_record(
+            "stencil2d_fused_rdma", steps=args.iterate_iters,
+            fused_s=fused_s, compute_s=compute_s, world=world,
+            dtype=args.dtype,
+        )
+        rep.line(
+            f"OVERLAP stencil2d_fused_rdma "
+            f"overlap_frac={ov['overlap_frac']:0.3f} "
+            f"seam_wait_s={ov['drain_s']:0.6f}",
+            ov,
+        )
+    except ValueError as e:
+        rep.line(f"NOTE fused overlap probe skipped ({e})")
     return rc
 
 
@@ -271,12 +346,12 @@ def run(args) -> int:
     device = bootstrap(args.device)
     topo = topology(device)
     world = topo.global_device_count
-    with _common.make_reporter(args, rank=0, size=world) as rep:
+    with _common.make_reporter(args) as rep:
         rep.banner(
             f"stencil2d: n_local={args.n_local} n_other={args.n_other} "
             f"world={world} n_iter={args.n_iter} n_warmup={args.n_warmup} "
             f"dtype={args.dtype} managed=False device={topo.device_kinds[0]}"
-            f" kernel={args.kernel}"
+            f" kernel={args.kernel} rdma={args.rdma}"
         )
         rc = 0
         if args.iterate_tier != "off":
@@ -317,10 +392,16 @@ def main(argv=None) -> int:
                    help="derivative implementation: torch ops (≅ gtensor / "
                    "the XLA tier) or the hand CUDA kernel (≅ the SYCL "
                    "kernel / --kernel pallas)")
+    p.add_argument("--rdma", action="store_true",
+                   help="use the hand RDMA ring (hand.ring_halo) for every "
+                   "exchange (≅ the SYCL hand-kernel variant of the "
+                   "matrix)")
     p.add_argument("--iterate-tier", default="off",
                    choices=["off", "auto", *H.STENCIL_TIERS],
                    help="run the iterate leg under the named tier (auto = "
-                   "the prior, blocks); the rdma tiers are not ported")
+                   "the prior, blocks), with the fused-vs-chained bitwise "
+                   "gate, the analytic eigen gate and the fused tier's "
+                   "OVERLAP record")
     p.add_argument("--iterate-steps", type=int, default=1,
                    help="temporal-blocking depth of the iterate leg")
     p.add_argument("--iterate-iters", type=int, default=4,
@@ -345,11 +426,6 @@ def main(argv=None) -> int:
         p.error("--n-local must be >= 5 (stencil width)")
     if args.iterate_only and args.iterate_tier == "off":
         p.error("--iterate-only needs an --iterate-tier selection")
-    if args.iterate_tier not in ("off", "auto"):
-        try:
-            H.check_tier(args.iterate_tier)
-        except TpuMtError as e:
-            p.error(str(e))
     return run(args)
 
 

@@ -32,7 +32,14 @@ import torch
 from tpu_mpi_tests_torch.arrays.domain import Domain1D
 from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm import halo as H
-from tpu_mpi_tests_torch.comm.mesh import bootstrap, check_grid, topology
+from tpu_mpi_tests_torch.comm.mesh import (
+    bootstrap,
+    check_grid,
+    check_single_rank,
+    topology,
+)
+
+PROG = "stencil2d_grid"
 from tpu_mpi_tests_torch.drivers import _common
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
@@ -66,6 +73,7 @@ def run(args) -> int:
     topo = topology(device)
     n_dev = topo.global_device_count
     check_grid(args.mesh)
+    check_single_rank(PROG)
     grid = _common.parse_grid_mesh(args.mesh, n_dev)
     if grid is None:
         return 2

@@ -13,18 +13,30 @@ from __future__ import annotations
 import json
 import sys
 import time
+from pathlib import Path
 from typing import IO, Any
+
+
+def rank_suffixed_path(path: str, proc_index: int) -> str:
+    """``out.jsonl`` → ``out.p<i>.jsonl``: one file per rank (≅ the JAX
+    function), so ranks never interleave partial lines in one file."""
+    p = Path(path)
+    return str(p.with_suffix("")) + f".p{proc_index}" + p.suffix
 
 
 class Reporter:
     """Line + JSONL emitter; a context manager that closes the JSONL file.
-    Banner lines are rank-0 only, like the reference's."""
+    Every rank prints its lines; banner lines are rank-0 only, like the
+    reference's (``mpi_stencil2d_gt.cc:682-688``). With more than one rank
+    the JSONL path is suffixed per rank (:func:`rank_suffixed_path`)."""
 
     def __init__(self, rank: int = 0, size: int = 1,
                  jsonl_path: str | None = None,
                  stream: IO[str] | None = None):
         self.rank = rank
         self.size = size
+        if jsonl_path and size > 1:
+            jsonl_path = rank_suffixed_path(jsonl_path, rank)
         self.jsonl_path = jsonl_path
         self.stream = stream or sys.stdout
         self._jsonl_file: IO[str] | None = None

@@ -36,6 +36,8 @@ SOURCES = {
     "pack": "pack.cu",
     "streams": "streams.cu",
     "flash_attention": "flash_attention.cu",
+    "ring_halo": "ring_halo.cu",
+    "fused_rdma": "fused_rdma.cu",
 }
 
 # -fmad=false: no mul+add contraction anywhere, so float results match

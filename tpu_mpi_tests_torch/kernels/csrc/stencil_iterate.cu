@@ -7,26 +7,19 @@
 // :915). One template, parameterised on the stencil axis DIM, covers the
 // full-height dim-0, the dim-1 strip and the dim-0 row-stream paths.
 //
-// What it computes: `steps` timesteps of
-//     z[a] += se * (C1*(z[a+1]-z[a-1]) + C2*(z[a+2]-z[a-2]))
-// along the stencil axis. At step s an index a is updated iff
-// a ∈ [dlo_s, dhi_s), dlo_s = K if phys_lo else s*R and
-// dhi_s = N - (K if phys_hi else s*R), K = steps*R, R = N_BND = 2 —
-// physical sides keep their K-deep band fixed, exchange-fed sides shrink
-// by R per step (the deep-halo temporal-blocking contract). Indices never
-// updated keep their input value; the whole array is written.
+// What it computes: `steps` timesteps of the 5-point update along one
+// axis over k*N_BND-deep ghosts, physical sides kept, exchange-fed sides
+// shrinking by N_BND per step; the whole array is written. The tile body
+// (kstep_tile, stencil_kstep.cuh) is shared with the fused ring kernel
+// (fused_rdma.cu), which is what makes the fused and the chained RDMA
+// tiers bitwise equal.
 //
 // Design. A CTA owns an output tile of TA indices along the stencil axis
-// by TB along the other axis. It loads the tile plus a K-deep apron on
-// each side (clipped at the array edge) into shared memory and runs the
-// k steps there, ping-ponging between two shared buffers: at step s it
-// updates [max(win_lo + s*R, dlo_s), min(win_hi - s*R, dhi_s)), the part
-// of its window whose inputs are still exact (an unclipped side loses R
-// per step; at a clipped side the window reaches the array edge). Then
-// it writes its own TA indices. The output goes to a SECOND buffer: the
-// TPU kernel aliases input and output because each of its grid strips
-// holds the whole stencil extent, but CTAs that split the stencil axis
-// would read indices a neighbour had already overwritten.
+// by TB along the other axis, loads it with a K-deep apron into shared
+// memory, runs the k steps there and writes its TA indices to a SECOND
+// buffer: the TPU kernel aliases input and output because each of its
+// grid strips holds the whole stencil extent, but CTAs that split the
+// stencil axis would read indices a neighbour had already overwritten.
 //
 // Bound on the H100: memory. At k=4 the update costs 7 flops × 4 steps
 // per element against 8 bytes (f32 read + write): ~3.5 flop/byte, far
@@ -37,30 +30,21 @@
 #include <climits>
 #include <cstdint>
 
-#include "stencil_common.cuh"
+#include "stencil_kstep.cuh"
 
 namespace tpumt {
 namespace {
 
-constexpr int kRadius = 2;  // N_BND
-
-// Tile geometry per stencil axis. The contiguous axis (columns) maps to
-// threadIdx.x so global loads and stores coalesce.
+// output indices per CTA along the stencil axis
 template <int DIM>
-struct Tile;
+struct TileA;
 template <>
-struct Tile<0> {                // stencil along rows
-  static constexpr int TA = 64;  // output rows per CTA
-  static constexpr int TB = 64;  // columns per CTA
-  static constexpr int BX = 64;
-  static constexpr int BY = 4;
+struct TileA<0> {
+  static constexpr int TA = 64;
 };
 template <>
-struct Tile<1> {                 // stencil along columns
-  static constexpr int TA = 256;  // output columns per CTA
-  static constexpr int TB = 8;    // rows per CTA
-  static constexpr int BX = 128;
-  static constexpr int BY = 2;
+struct TileA<1> {
+  static constexpr int TA = 256;
 };
 
 template <typename T, int DIM>
@@ -70,93 +54,16 @@ __global__ void __launch_bounds__(256)
                    typename Elt<T>::C c1, typename Elt<T>::C c2, int phys_lo,
                    int phys_hi, const int* __restrict__ phys,
                    long long tiles_a) {
-  using E = Elt<T>;
-  using C = typename E::C;
-  using G = Tile<DIM>;
+  using C = typename Elt<T>::C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int K = steps * kRadius;
-  const int WA = G::TA + 2 * K;             // window extent, stencil axis
-  // int(...) keeps the constexpr members values, never references
-  const int INNER = DIM == 0 ? int(G::TB) : WA;  // contiguous extent
-  const int OUTER = DIM == 0 ? WA : int(G::TB);
-  C* buf0 = reinterpret_cast<C*>(smem_raw);
-  C* buf1 = buf0 + static_cast<size_t>(WA) * G::TB;
-
-  const long long N = DIM == 0 ? n0 : n1;  // extent along the stencil axis
-  const long long M = DIM == 0 ? n1 : n0;  // extent along the other axis
   const long long tile = blockIdx.x;
-  const long long a0 = (tile % tiles_a) * G::TA;
-  const long long b0 = (tile / tiles_a) * G::TB;
-  const long long origin = a0 - K;  // absolute index of window position 0
-  const long long wa0 = origin > 0 ? origin : 0;
-  const long long wa1 = a0 + G::TA + K < N ? a0 + G::TA + K : N;
-
+  const long long a0 = (tile % tiles_a) * TileA<DIM>::TA;
+  const long long b0 = (tile / tiles_a) * KTile<DIM>::TB;
   // dynamic flags (device int pair) win over the static ones
   const int plo = phys ? (phys[0] != 0) : phys_lo;
   const int phi = phys ? (phys[1] != 0) : phys_hi;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-
-  for (int pi = ty; pi < OUTER; pi += G::BY) {
-    for (int pj = tx; pj < INNER; pj += G::BX) {
-      const int pa = DIM == 0 ? pi : pj;
-      const int pb = DIM == 0 ? pj : pi;
-      const long long a = origin + pa, b = b0 + pb;
-      C v = C(0);
-      if (a >= wa0 && a < wa1 && b < M) {
-        const long long g = DIM == 0 ? a * n1 + b : b * n1 + a;
-        v = E::load(z + g);
-      }
-      buf0[pi * INNER + pj] = v;
-    }
-  }
-  __syncthreads();
-
-  const int st = DIM == 0 ? int(G::TB) : 1;  // smem stride along the stencil axis
-  C* src = buf0;
-  C* dst = buf1;
-  for (int s = 1; s <= steps; ++s) {
-    const long long shrink = static_cast<long long>(s) * kRadius;
-    const long long dlo = plo ? K : shrink;
-    const long long dhi = N - (phi ? K : shrink);
-    long long lo = wa0 + shrink;
-    long long hi = wa1 - shrink;
-    lo = lo > dlo ? lo : dlo;
-    hi = hi < dhi ? hi : dhi;
-    for (int pi = ty; pi < OUTER; pi += G::BY) {
-      for (int pj = tx; pj < INNER; pj += G::BX) {
-        const int pa = DIM == 0 ? pi : pj;
-        const long long a = origin + pa;
-        const int e = pi * INNER + pj;
-        C v = src[e];
-        if (a >= lo && a < hi) {
-          // _step5's order: z0 + se*(C1*(z+1 - z-1) + C2*(z+2 - z-2))
-          const C* p = src + e;
-          const C d1 = E::sub(p[st], p[-st]);
-          const C d2 = E::sub(p[2 * st], p[-2 * st]);
-          const C acc = E::add(E::mul(c1, d1), E::mul(c2, d2));
-          v = E::add(v, E::mul(se, acc));
-        }
-        dst[e] = v;
-      }
-    }
-    __syncthreads();
-    C* t = src;
-    src = dst;
-    dst = t;
-  }
-
-  for (int pi = ty; pi < OUTER; pi += G::BY) {
-    for (int pj = tx; pj < INNER; pj += G::BX) {
-      const int pa = DIM == 0 ? pi : pj;
-      const int pb = DIM == 0 ? pj : pi;
-      if (pa < K || pa >= K + G::TA) continue;
-      const long long a = origin + pa, b = b0 + pb;
-      if (a < N && b < M) {
-        const long long g = DIM == 0 ? a * n1 + b : b * n1 + a;
-        out[g] = E::store(src[pi * INNER + pj]);
-      }
-    }
-  }
+  kstep_tile<T, DIM>(z, out, n0, n1, steps, se, c1, c2, plo, phi, a0,
+                     TileA<DIM>::TA, b0, reinterpret_cast<C*>(smem_raw));
 }
 
 template <typename T, int DIM>
@@ -164,16 +71,15 @@ int launch(const void* z, void* out, long long n0, long long n1, int steps,
            double se, double c1, double c2, int phys_lo, int phys_hi,
            const int* phys, cudaStream_t stream) {
   using E = Elt<T>;
-  using G = Tile<DIM>;
+  using G = KTile<DIM>;
+  constexpr int TA = TileA<DIM>::TA;
   const long long N = DIM == 0 ? n0 : n1;
   const long long M = DIM == 0 ? n1 : n0;
-  const int K = steps * kRadius;
-  const long long tiles_a = (N + G::TA - 1) / G::TA;
+  const long long tiles_a = (N + TA - 1) / TA;
   const long long tiles = tiles_a * ((M + G::TB - 1) / G::TB);
   if (tiles == 0) return cudaSuccess;
   if (tiles > INT_MAX) return cudaErrorInvalidConfiguration;
-  const size_t smem =
-      2 * static_cast<size_t>(G::TA + 2 * K) * G::TB * sizeof(typename E::C);
+  const size_t smem = kstep_smem_bytes<T, DIM>(TA, steps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         iterate_kernel<T, DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -26,6 +26,15 @@ Each replaces a Pallas kernel of
   ``stream_sum3_pallas`` :190); source ``csrc/streams.cu``. Unlike the
   stencil kernels these may write in place: ``out`` may be the very
   tensor of an input.
+* :func:`ring_halo` — both ``n_bnd``-wide interior edge bands stored
+  straight into the ring neighbours' ghost bands (``ring_halo_pallas``,
+  :1804); source ``csrc/ring_halo.cu``.
+* :func:`stencil2d_fused_rdma` — that exchange and the k-step update
+  along dim 0 in one launch, the interior computed while the edges fly
+  (``stencil2d_fused_rdma_pallas``, :2090); source ``csrc/fused_rdma.cu``.
+  The two ring kernels take their neighbours' addresses and signal pads
+  from ``comm/peer.py``; their plain versions exchange over the process
+  group (gloo on the CPU), or copy locally on the world=1 self-ring.
 * :func:`flash_attention_block` — the online-softmax fold of one K/V
   block into the (m, l, acc) carry, in place, causal in global positions
   (``flash_attention_block_pallas`` :3230), and :func:`flash_attention`
@@ -52,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -130,19 +140,36 @@ _SIGNATURES = {
     "tpumt_flash_attention_block": (
         [_c_void_p] * 9 + [_c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_ll] * 15 + [_c_double, _c_int, _c_int, _c_void_p], _c_int),
+    # z, left z, right z, pad, left pad, right pad; epoch, itemsize, axis,
+    # n0, n1, n_bnd, send_lo, send_hi; stage, stream
+    "tpumt_ring_halo": (
+        [_c_void_p] * 6 + [_c_int, _c_int, _c_int, _c_ll, _c_ll, _c_ll,
+                           _c_int, _c_int, _c_void_p, _c_void_p], _c_int),
+    # z, out, left z, right z, pad, left pad, right pad; epoch, dtype, n0,
+    # n1, steps, rows per block; se, c1, c2; phys_lo, phys_hi, phys;
+    # send_lo, send_hi; stage, stream
+    "tpumt_stencil2d_fused_rdma": (
+        [_c_void_p] * 7 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int]
+        + [_c_double] * 3 + [_c_int, _c_int, _c_void_p, _c_int, _c_int,
+                             _c_void_p, _c_void_p], _c_int),
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _entry(lib_name: str, fn_name: str):
+    """The C entry point, its argument types set once (cached: a launch
+    does no symbol lookup)."""
     fn = getattr(build.load(lib_name), fn_name)
     fn.argtypes, fn.restype = _SIGNATURES[fn_name]
     return fn
 
 
+@functools.lru_cache(maxsize=4096)
 def _rounded(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` (what :func:`coef` multiplies by),
     as a Python float — exactly representable, so the kernel's
-    double → dtype conversion is exact."""
+    double → dtype conversion is exact. Cached per (value, dtype): a
+    launch builds no tensor for its coefficients."""
     return torch.tensor(float(value), dtype=dtype).item()
 
 
@@ -166,7 +193,9 @@ def _check_out(out: torch.Tensor, z: torch.Tensor, shape, name: str):
         )
     if not out.is_contiguous():
         raise ValueError(f"{name}: out must be contiguous")
-    if out.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
+    o_lo, o_hi = _span(out)
+    z_lo, z_hi = _span(z)
+    if o_lo < z_hi and z_lo < o_hi:
         raise ValueError(
             f"{name}: out must not share storage with z (the kernel is "
             f"out-of-place: CTAs that split the stencil axis would read "
@@ -378,9 +407,11 @@ def heat2d_ref(z: torch.Tensor, cx: float, cy: float, steps: int = 1
     return heat2d_steps_(z.clone(), cx, cy, steps)
 
 
+@functools.lru_cache(maxsize=None)
 def heat2d_max_steps(dtype: torch.dtype) -> int:
     """The deepest ``steps`` one :func:`heat2d` launch takes in
-    ``dtype`` (the tile and its apron must fit in shared memory)."""
+    ``dtype`` (the tile and its apron must fit in shared memory; asked of
+    the library once per dtype)."""
     fn = _entry("heat2d", "tpumt_heat2d_max_steps")
     return fn(DTYPE_CODES[dtype])
 
@@ -894,6 +925,243 @@ unpack_ghosts.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the RDMA ring: halo exchange by peer stores, and the fused exchange+update
+# ---------------------------------------------------------------------------
+
+
+def _peer(peer, device):
+    """``peer`` or the process's peer ring on ``device``
+    (``comm.peer.peer_ring``)."""
+    if peer is None:
+        from tpu_mpi_tests_torch.comm.peer import peer_ring
+
+        peer = peer_ring(device)
+    return peer
+
+
+def _ring_operand(z: torch.Tensor, axis: int, n_bnd: int, name: str):
+    """The 2-D view of a ring operand (a 1-D shard is an (n, 1) column,
+    ``pallas_kernels.py:1827-1838``) and its axis, checked."""
+    if z.dim() == 1:
+        if axis != 0:
+            raise ValueError(f"{name}: a 1-D shard exchanges along axis 0")
+        z = z.view(-1, 1)
+    if z.dim() != 2:
+        raise ValueError(f"{name}: 1-D or 2-D input required, got shape "
+                         f"{tuple(z.shape)}")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    _pack.check_bands(z.shape[axis], n_bnd, name)
+    return z
+
+
+def ring_halo_ref(z: torch.Tensor, peer=None, axis: int = 0,
+                  n_bnd: int = N_BND, periodic: bool = False
+                  ) -> torch.Tensor:
+    """Plain version of :func:`ring_halo` (IN PLACE; returns ``z``): the
+    edges packed into contiguous copies first (so an extent under
+    3·``n_bnd``, where an edge overlaps the other ghost band, reads both
+    edges before either ghost is written), then a local self-ring copy at
+    world=1 or one ``Ring.sendrecv`` over the process group, each arrived
+    band written into its ghost band; a side that receives nothing keeps
+    its physical ghosts."""
+    zz = _ring_operand(z, axis, n_bnd, "ring_halo")
+    ring = _peer(peer, z.device).ring
+    n = zz.shape[axis]
+    lo_edge, hi_edge = _pack.pack_edges(zz, axis, n_bnd)
+    if ring.size == 1:
+        if not periodic:
+            return z
+        from_left, from_right = hi_edge, lo_edge
+    else:
+        from_left, from_right = ring.sendrecv(lo_edge, hi_edge, periodic)
+    if from_left is not None:
+        zz.narrow(axis, 0, n_bnd).copy_(from_left)
+    if from_right is not None:
+        zz.narrow(axis, n - n_bnd, n_bnd).copy_(from_right)
+    return z
+
+
+def ring_halo(z: torch.Tensor, peer=None, axis: int = 0,
+              n_bnd: int = N_BND, periodic: bool = False) -> torch.Tensor:
+    """Fill ``z``'s two ghost bands along ``axis`` from the ring
+    neighbours, IN PLACE (≅ ``ring_halo_pallas``): my hi interior edge
+    goes to the right neighbour's lo ghost and my lo edge to the left's hi
+    ghost, each rank storing its edges straight into its neighbours'
+    memory behind an entry barrier; the ends of a non-periodic ring keep
+    their physical ghosts. At world=1 periodic it is the self-ring; at
+    world=1 non-periodic it launches and moves nothing, as the JAX package
+    does. Any dtype, either axis; a 1-D shard runs as an (n, 1) column.
+
+    ``peer`` is a ``comm.peer.PeerRing`` (default: the process's ring on
+    ``z``'s device). At world > 1 on the card ``z`` must live in peer
+    memory (``PeerRing.empty`` / ``adopt``). One launch per call; all ranks
+    must make the same sequence of ring calls."""
+    zz = _ring_operand(z, axis, n_bnd, "ring_halo")
+    if z.device.type == "cpu":
+        return ring_halo_ref(z, peer, axis, n_bnd, periodic)
+    if z.device.type != "cuda":
+        raise ValueError(f"ring_halo: unsupported device {z.device}")
+    if not zz.is_contiguous():
+        raise ValueError("ring_halo: the CUDA kernel needs a contiguous "
+                         "tensor")
+    if zz.element_size() not in (2, 4, 8):
+        raise TypeError(f"ring_halo: {z.dtype} elements of "
+                        f"{zz.element_size()} bytes are unsupported")
+    peer = _peer(peer, z.device)
+    left_z, right_z = peer.peer_ptrs(zz)
+    pad, left_pad, right_pad = peer.pad_ptrs()
+    send_lo, send_hi = peer.ring.sends(periodic)
+    n0, n1 = zz.shape
+    stage = None
+    if zz.shape[axis] < 3 * n_bnd and (send_lo or send_hi):
+        stage = torch.empty(2 * n_bnd * (zz.numel() // zz.shape[axis]),
+                            dtype=z.dtype, device=z.device)
+    fn = _entry("ring_halo", "tpumt_ring_halo")
+    with torch.cuda.device(z.device):
+        rc = fn(zz.data_ptr(), left_z, right_z, pad, left_pad, right_pad,
+                peer.next_epoch(), zz.element_size(), axis, n0, n1, n_bnd,
+                int(send_lo), int(send_hi),
+                None if stage is None else stage.data_ptr(),
+                torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        _raise_launch("ring_halo", rc)
+    ring_halo.launches += 1
+    return z
+
+
+ring_halo.launches = 0
+
+#: rows per block of the fused ring kernel when ``tile_rows`` is None
+#: (the largest divisor of the height up to this that holds the seam)
+FUSED_BLOCK_ROWS = 64
+#: the tallest row block the fused kernel's shared memory takes
+FUSED_MAX_BLOCK_ROWS = 256
+
+
+def fused_block_rows(height: int, steps: int,
+                     tile_rows: "int | None" = None) -> int:
+    """Rows per block of the fused ring kernel for a ghosted ``height``:
+    blocks must tile the height exactly and hold the whole 2K-row seam (B
+    ≥ 2K, K = ``steps``·N_BND: only the first and the last block then
+    touch a ghost band). ``tile_rows`` caps B as in the JAX kernel (the
+    largest divisor of the height up to it); without it, the largest
+    divisor up to :data:`FUSED_BLOCK_ROWS` that holds the seam, else the
+    smallest that does up to :data:`FUSED_MAX_BLOCK_ROWS`. Raises
+    ``ValueError`` (naming the seam) when none does."""
+    K = steps * N_BND
+    if height <= 2 * K:
+        raise ValueError(f"height {height} too small for {steps}-step ghost "
+                         f"width {2 * K}")
+    divisors = [d for d in range(1, min(height, FUSED_MAX_BLOCK_ROWS) + 1)
+                if height % d == 0]
+    if tile_rows is not None:
+        B = max(d for d in divisors + [1] if d <= tile_rows)
+    else:
+        fits = [d for d in divisors if d >= 2 * K]
+        small = [d for d in fits if d <= FUSED_BLOCK_ROWS]
+        B = max(small) if small else (min(fits) if fits else 1)
+    if B < 2 * K:
+        raise ValueError(
+            f"stencil2d_fused_rdma: no row blocking of height {height} holds "
+            f"the {2 * K}-row seam (largest fitting divisor {B}); pad the "
+            f"domain or use another tier")
+    return B
+
+
+def stencil2d_fused_rdma_ref(z: torch.Tensor, scale_eps: float, peer=None,
+                             steps: int = 1, periodic: bool = False,
+                             phys_static=None, phys=None,
+                             tile_rows: "int | None" = None,
+                             local_only: bool = False) -> torch.Tensor:
+    """Plain version of :func:`stencil2d_fused_rdma` (returns a new
+    tensor): :func:`ring_halo_ref` along dim 0 over K-deep ghosts (which,
+    like the kernel's peer stores, writes ``z``'s own ghost bands; skipped
+    when ``local_only``), then :func:`stencil2d_iterate_ref` along dim 0."""
+    if z.dim() != 2:
+        raise ValueError("stencil2d_fused_rdma: 2-D shards only")
+    fused_block_rows(z.shape[0], steps, tile_rows)
+    if not local_only:
+        ring_halo_ref(z, peer, 0, steps * N_BND, periodic)
+    return stencil2d_iterate_ref(z, scale_eps, dim=0, steps=steps,
+                                 phys_static=phys_static, phys=phys)
+
+
+def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float, peer=None,
+                         steps: int = 1, periodic: bool = False,
+                         phys_static=None, phys=None,
+                         tile_rows: "int | None" = None,
+                         local_only: bool = False,
+                         out: "torch.Tensor | None" = None) -> torch.Tensor:
+    """One launch of exchange + ``steps`` timesteps along dim 0 (≅
+    ``stencil2d_fused_rdma_pallas``): the K-row edge bands (K =
+    ``steps``·N_BND) are stored into the ring neighbours' ghost bands of
+    THEIR copy of ``z`` while the interior row blocks are computed, then
+    the two seam blocks are computed once the neighbours' edges have
+    landed in ``z``'s ghosts. Written to ``out`` (a new tensor when None),
+    never in place; equal bit for bit to :func:`ring_halo` followed by
+    :func:`stencil2d_iterate` (dim 0) with the same flags. ``local_only``
+    (which world=1 non-periodic reduces to) exchanges nothing: the pure
+    compute pass. ``peer`` and the peer-memory rule are
+    :func:`ring_halo`'s. Row blocks: :func:`fused_block_rows`."""
+    if z.dim() != 2:
+        raise ValueError("stencil2d_fused_rdma: 2-D shards only")
+    B = fused_block_rows(z.shape[0], steps, tile_rows)
+    if out is not None:
+        _check_out(out, z, z.shape, "stencil2d_fused_rdma")
+    if z.device.type == "cpu":
+        ref = stencil2d_fused_rdma_ref(z, scale_eps, peer, steps, periodic,
+                                       phys_static, phys, tile_rows,
+                                       local_only)
+        return ref if out is None else out.copy_(ref)
+    if z.device.type != "cuda":
+        raise ValueError(f"stencil2d_fused_rdma: unsupported device "
+                         f"{z.device}")
+    _check_cuda_operand(z, "stencil2d_fused_rdma")
+    phys_static, phys = _iterate_flags(steps, phys_static, phys)
+    plo = phi = 0
+    ph = None
+    if phys_static is None:
+        ph = torch.as_tensor(phys, dtype=torch.int32,
+                             device=z.device).reshape(-1).contiguous()
+        if ph.numel() != 2:
+            raise ValueError("phys must hold two flags (lo, hi)")
+    else:
+        plo, phi = int(bool(phys_static[0])), int(bool(phys_static[1]))
+    peer = _peer(peer, z.device)
+    send_lo, send_hi = (False, False) if local_only else \
+        peer.ring.sends(periodic)
+    left_z = right_z = z.data_ptr()
+    if send_lo or send_hi:
+        left_z, right_z = peer.peer_ptrs(z)
+    pad, left_pad, right_pad = peer.pad_ptrs()
+    K = steps * N_BND
+    stage = None
+    if z.shape[0] < 3 * K and (send_lo or send_hi):
+        stage = torch.empty(2 * K * z.shape[1], dtype=z.dtype,
+                            device=z.device)
+    if out is None:
+        out = torch.empty_like(z)
+    fn = _entry("fused_rdma", "tpumt_stencil2d_fused_rdma")
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), out.data_ptr(), left_z, right_z, pad,
+                left_pad, right_pad, peer.next_epoch(), DTYPE_CODES[z.dtype],
+                z.shape[0], z.shape[1], steps, B,
+                _rounded(scale_eps, z.dtype), _rounded(_C1, z.dtype),
+                _rounded(_C2, z.dtype), plo, phi,
+                None if ph is None else ph.data_ptr(), int(send_lo),
+                int(send_hi), None if stage is None else stage.data_ptr(),
+                torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        _raise_launch("stencil2d_fused_rdma", rc)
+    stencil2d_fused_rdma.launches += 1
+    return out
+
+
+stencil2d_fused_rdma.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # streaming passes: daxpy, scale, sum3
 # ---------------------------------------------------------------------------
 
@@ -1342,6 +1610,8 @@ WRAPPERS = {
     "alu_probe": alu_probe,
     "pack_edges": pack_edges,
     "unpack_ghosts": unpack_ghosts,
+    "ring_halo": ring_halo,
+    "stencil2d_fused_rdma": stencil2d_fused_rdma,
     "daxpy": daxpy,
     "stream_scale": stream_scale,
     "stream_sum3": stream_sum3,

@@ -62,6 +62,9 @@ class DaxpySpec(WorkloadSpec):
         from tpu_mpi_tests_torch.drivers import _common
         from tpu_mpi_tests_torch.instrument.timers import block
 
+        from tpu_mpi_tests_torch.comm.mesh import check_single_rank
+
+        check_single_rank("daxpy")
         dtype = ctx.dtype()
         # initializeArrays on host, then copyInput H2D (daxpy_nvtx.cu:72-79)
         h_x, h_y = (_common.host_tensor(a, dtype) for a in

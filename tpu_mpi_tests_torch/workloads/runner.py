@@ -29,7 +29,7 @@ def run_body(spec: WorkloadSpec, args) -> int:
 
     device = bootstrap(args.device)
     topo = topology(device)
-    with _common.make_reporter(args, rank=0, size=1) as rep:
+    with _common.make_reporter(args) as rep:
         ctx = RunContext(spec=spec, args=args, rep=rep, topo=topo,
                          device=device, timer=PhaseTimer())
         with ProfilerGate(args.profile_dir):

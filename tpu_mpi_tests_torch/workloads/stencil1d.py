@@ -1,26 +1,27 @@
-"""1-D 5-point stencil with halo exchange at world=1 — as a workload spec
-(≅ ``tpu_mpi_tests/workloads/stencil1d.py``, itself ≅
-``mpi_stencil_gt.cc``).
+"""1-D 5-point stencil with halo exchange — as a workload spec (≅
+``tpu_mpi_tests/workloads/stencil1d.py``, itself ≅ ``mpi_stencil_gt.cc``),
+one process per rank.
 
 y = x³ over n_global points (default 32Mi, ``--n-global-mi`` in Mi units
-like the reference argv) on the one rank, ghost width 2; one timed halo
-exchange; the stencil derivative; the per-rank ``err_norm`` against the
-analytic 3x², exact to rounding for a cubic. Output lines preserved::
+like the reference argv) split over the ranks, ghost width 2; one timed
+halo exchange; the stencil derivative; the per-rank ``err_norm`` against
+the analytic 3x², exact to rounding for a cubic. Output lines preserved,
+each rank printing its own::
 
     <rank>/<size> exchange time <s>
     <rank>/<size> [<device>] err_norm = <v>
 
 At world=1 the non-periodic exchange moves nothing (the one shard keeps
-its physical ghosts), as in the JAX package's single-device runs; the
-three ported stagings (``direct``, ``device``, ``host``) all take that
-path. No hand kernel lies under this driver, in the JAX package or here:
-the derivative is the torch-op stencil (the XLA tier's counterpart).
+its physical ghosts), as in the JAX package's single-device runs.
+``--staging`` takes ``direct``, ``device``, ``host`` and ``pallas`` (the
+hand RDMA ring, ``hand.ring_halo``, the shard running as an (n, 1)
+column; at world=1 it launches and moves nothing). The derivative is the
+torch-op stencil (the XLA tier's counterpart), as in the JAX package.
 
 Not ported yet, each raising with the ROADMAP item that brings it:
-``--staging pallas`` (the hand RDMA ring, queue 2 item 2), ``--staging
-auto`` and ``--tune`` (the tune cache, queue 1 item 17), ``--overlap``
-other than 0 (the overlap engine, queue 1 item 13). The serve-mode
-``halo`` handler waits for ``serve/`` (queue 1 item 19).
+``--staging auto`` and ``--tune`` (the tune cache, queue 1 item 17),
+``--overlap`` other than 0 (the overlap engine, queue 1 item 13). The
+serve-mode ``halo`` handler waits for ``serve/`` (queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ class Stencil1dSpec(WorkloadSpec):
             default="direct",
             choices=["direct", "device", "host", "pallas", "auto"],
             help="halo staging mode (≅ reference stage_host/device "
-            "variants); 'pallas' (the hand RDMA ring) and 'auto' (the "
-            "tuned winner) are not ported and raise",
+            "variants; 'pallas' is the hand RDMA ring); 'auto' (the tuned "
+            "winner) is not ported and raises",
         )
         p.add_argument(
             "--tol",
@@ -116,7 +117,6 @@ class Stencil1dSpec(WorkloadSpec):
         args = ctx.args
         world = ctx.topo.global_device_count
         dtype = ctx.dtype()
-        # raises for 'pallas', naming ROADMAP queue 2 item 2
         staging = H.Staging.parse(args.staging)
         d = Domain1D(n_global=args.n_global, n_shards=world, n_bnd=2)
         f, df = analytic_pairs()["1d"]
@@ -137,7 +137,7 @@ class Stencil1dSpec(WorkloadSpec):
         from tpu_mpi_tests_torch.comm import halo as H
         from tpu_mpi_tests_torch.instrument.timers import block
 
-        world = ctx.topo.global_device_count
+        world, rank = ctx.topo.global_device_count, ctx.topo.process_index
         zg, staging, d = state["zg"], state["staging"], state["d"]
         # untimed warmup, then one timed exchange (mpi_stencil_gt.cc:
         # 200-205); the exchange is idempotent
@@ -145,11 +145,10 @@ class Stencil1dSpec(WorkloadSpec):
         t0 = time.perf_counter()
         zg = block(H.halo_exchange(zg, 0, d.n_bnd, False, staging))
         seconds = time.perf_counter() - t0
-        for r in range(world):
-            ctx.rep.line(
-                f"{r}/{world} exchange time {seconds:0.8f}",
-                {"kind": "exchange1d", "rank": r, "seconds": seconds},
-            )
+        ctx.rep.line(
+            f"{rank}/{world} exchange time {seconds:0.8f}",
+            {"kind": "exchange1d", "rank": rank, "seconds": seconds},
+        )
         state["deriv"] = block(H.stencil_fn(0, d.scale)(zg))
         state["zg"] = zg
         return state
@@ -158,7 +157,7 @@ class Stencil1dSpec(WorkloadSpec):
         from tpu_mpi_tests_torch.comm import collectives as C
 
         args = ctx.args
-        world = ctx.topo.global_device_count
+        world, rank = ctx.topo.global_device_count, ctx.topo.process_index
         d, df, dtype = state["d"], state["df"], state["dtype"]
         n_global = args.n_global
         # per-rank err norms against the analytic derivative, computed on
@@ -167,12 +166,11 @@ class Stencil1dSpec(WorkloadSpec):
             lambda r: d.interior_shard_torch(df, r, dtype, ctx.device))
         per_rank_err = C.per_rank_err_norms(state["deriv"], actual)
         kind = ctx.topo.device_kinds[0]
-        for r in range(world):
-            ctx.rep.line(
-                f"{r}/{world} [{kind}] err_norm = {per_rank_err[r]:.8f}",
-                {"kind": "err_norm", "rank": r,
-                 "err": float(per_rank_err[r])},
-            )
+        ctx.rep.line(
+            f"{rank}/{world} [{kind}] err_norm = {per_rank_err[rank]:.8f}",
+            {"kind": "err_norm", "rank": rank,
+             "err": float(per_rank_err[rank])},
+        )
 
         if args.tol is not None:
             tol = args.tol
