@@ -154,6 +154,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -288,15 +289,27 @@ N26, N28 = 1 << 26, 1 << 28
 # dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
 # 3 warm + n_short + n_long launches
 _DR = {1000: 1 + 100 + 1100, 500: 1 + 50 + 550}
-MICROBENCH_LAUNCHES = {
-    "daxpy": {"daxpy": 2 * _DR[1000] + _DR[500] + 2 * (3 + 100 + 1100),
-              "stream_scale": 0, "stream_sum3": 0},
-    "ceiling": {"daxpy": _DR[1000], "stream_scale": _DR[1000],
-                "stream_sum3": 0},
-    "streams": {"daxpy": (3 + 100 + 1000) + (3 + 30 + 300),
-                "stream_scale": 3 + 100 + 1000,
-                "stream_sum3": 3 + 100 + 1000},
-}
+
+
+def _ceiling_calls():
+    """Calls of each kernel in the HBM ceiling fit: one dispatch_rate per
+    kernel per interleaved pair."""
+    from tpu_mpi_tests_torch.microbench import CEILING_PAIRS
+
+    return CEILING_PAIRS * _DR[1000]
+
+
+def microbench_launches():
+    """Launches each DAXPY-slice microbench group's schedule makes."""
+    return {
+        "daxpy": {"daxpy": 2 * _DR[1000] + _DR[500] + 2 * (3 + 100 + 1100),
+                  "stream_scale": 0, "stream_sum3": 0},
+        "ceiling": {"daxpy": _ceiling_calls(),
+                    "stream_scale": _ceiling_calls(), "stream_sum3": 0},
+        "streams": {"daxpy": (3 + 100 + 1000) + (3 + 30 + 300),
+                    "stream_scale": 3 + 100 + 1000,
+                    "stream_sum3": 3 + 100 + 1000},
+    }
 
 
 def _chain(n_short, n_long, repeats=1):
@@ -323,12 +336,14 @@ def one_card_launches():
         "vpu": {"alu_probe": 18 * point, "stencil2d_iterate": 3 * kstep},
         # the ceiling fit, 3 mixes x 2 dtypes x 3 reps, heat and both
         # dual bodies in 2 dtypes
-        "roofline2": {"daxpy": _DR[1000], "stream_scale": _DR[1000],
+        "roofline2": {"daxpy": _ceiling_calls(),
+                      "stream_scale": _ceiling_calls(),
                       "alu_probe": 18 * point,
                       "heat2d": 2 * _kstep_calls((50, 2), 20),
                       "dual_dim_step": 2 * 2 * dual},
         # the same schedule at sizes that keep the card busy
-        "roofline2 large": {"daxpy": _DR[1000], "stream_scale": _DR[1000],
+        "roofline2 large": {"daxpy": _ceiling_calls(),
+                            "stream_scale": _ceiling_calls(),
                             "alu_probe": 18 * point,
                             "heat2d": 2 * _kstep_calls((50, 2), 20),
                             "dual_dim_step": 2 * 2 * dual},
@@ -1170,7 +1185,7 @@ def run_daxpy_slice(device, counts, peaks):
     from tpu_mpi_tests_torch import microbench
 
     records = []
-    for group, want in MICROBENCH_LAUNCHES.items():
+    for group, want in microbench_launches().items():
         path = f"microbench {group}"
 
         def run(group=group):
@@ -1552,13 +1567,21 @@ def rdma_world2_legs():
         return
     import torch.multiprocessing as mp
 
-    mp.spawn(_nccl_rank, args=(2,), nprocs=2, join=True)
+    # the ranks meet through a file of their own, so that runs sharing a
+    # host never meet on one port
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_nccl_rank, args=(2, f"file://{tmp}/rendezvous"), nprocs=2,
+                 join=True)
     log("RDMA world=2 NCCL leg: fused == chained bit for bit over "
-        f"{RING_CHAIN} calls and the RDMA exchange equal to DIRECT on both "
-        "ranks")
+        f"{RING_CHAIN} calls, the RDMA exchange equal to DIRECT on both "
+        f"ranks, and {PAIR_RUNS} runs on fresh inputs without growth")
 
 
-def _nccl_rank(rank, world):
+#: runs on fresh inputs in the NCCL leg's peer-memory lifetime check
+PAIR_RUNS = 6
+
+
+def _nccl_rank(rank, world, init_method):
     """One rank of the NCCL leg: the fused and chained tiers on a
     periodic 2-card ring, and the RDMA exchange against DIRECT."""
     import torch
@@ -1568,8 +1591,8 @@ def _nccl_rank(rank, world):
     from tpu_mpi_tests_torch.comm import halo as H
 
     torch.cuda.set_device(rank)
-    tdist.init_process_group("nccl", init_method="tcp://localhost:29631",
-                             rank=rank, world_size=world)
+    tdist.init_process_group("nccl", init_method=init_method, rank=rank,
+                             world_size=world)
     try:
         dist.init("cuda")
         gen = torch.Generator(device="cuda").manual_seed(77)
@@ -1578,12 +1601,32 @@ def _nccl_rank(rank, world):
             z0.clone(), RING_CHAIN)
         b = H.iterate_hand_fn(8, 0.01, axis=0, steps=4, periodic=True,
                               rdma=True)(z0.clone(), RING_CHAIN)
-        c = H.halo_exchange(z0.clone(), 1, 8, True, "pallas")
+        c = H.halo_exchange(H.staging_buffer(z0, "pallas"), 1, 8, True,
+                            "pallas")
         d = H.halo_exchange(z0.clone(), 1, 8, True, "direct")
         torch.cuda.synchronize()
         if not (torch.equal(a, b) and torch.equal(c, d)):
             raise SmokeFailure(f"NCCL leg rank {rank}: the RDMA tiers "
                                f"disagree")
+        del a, b, c, d
+        # a runner's symmetric pair goes with its result: runs on fresh
+        # inputs, their results dropped, must not grow the card's use
+        fused = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)
+        fused(z0.clone(), 1)
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+        for _ in range(PAIR_RUNS):
+            fused(z0.clone(), 1)
+        torch.cuda.synchronize()
+        grown = free0 - torch.cuda.mem_get_info()[0]
+        pair_bytes = 2 * z0.numel() * z0.element_size()
+        log(f"RDMA world=2 NCCL leg rank {rank}: {PAIR_RUNS} runs on fresh "
+            f"inputs grew the card's use by {grown} bytes (a pair is "
+            f"{pair_bytes})")
+        if grown >= pair_bytes:
+            raise SmokeFailure(f"NCCL leg rank {rank}: the runners' peer "
+                               f"pairs outlive their results ({grown} "
+                               f"bytes after {PAIR_RUNS} runs)")
     finally:
         dist.shutdown()
 

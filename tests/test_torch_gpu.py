@@ -218,9 +218,11 @@ def test_microbench_groups_on_card(card, capsys):
         ceiling={"n": 1 << 16}, streams={"n": 1 << 16, "n_big": 1 << 18})
     capsys.readouterr()
     counts = hand.launch_counts()
-    # dispatch_rate 1 + 100 + 1100 calls; chain_rate 3 + n_short + n_long
-    assert counts["daxpy"] == 1201 + 2 * 1203 + 1201 + 1103 + 333
-    assert counts["stream_scale"] == 1201 + 1103
+    # dispatch_rate 1 + 100 + 1100 calls; chain_rate 3 + n_short + n_long;
+    # the ceiling fit one dispatch_rate per kernel per pair
+    ceiling = microbench.CEILING_PAIRS * 1201
+    assert counts["daxpy"] == 1201 + 2 * 1203 + ceiling + 1103 + 333
+    assert counts["stream_scale"] == ceiling + 1103
     assert counts["stream_sum3"] == 1103
     # at this size every launch is overhead-bound, so the stream-count
     # fit's slope is noise and may come out negative; every measured row

@@ -117,6 +117,18 @@ def test_fused_rdma_equals_chained_and_jax(runs, meshes, w, i):
 
 
 @pytest.mark.parametrize("w", WORLDS)
+def test_peer_pairs_freed_with_their_results(runs, w):
+    """A runner called on a fresh input takes one new pair, called on its
+    own result reuses it, and the pair goes when the results go: the
+    ring's allocations stay the same in number however often the fused
+    and the chained runner run."""
+    for r in range(w):
+        counts = W.load_rank(runs[w], "pair_allocs", r).tolist()
+        n0 = counts[0]
+        assert counts[1:] == [n0 + 1, 1, n0] * 4, counts
+
+
+@pytest.mark.parametrize("w", WORLDS)
 @pytest.mark.parametrize("tier", ["rdma-chained", "rdma-fused"])
 def test_stencil2d_rdma_driver_at_world(runs, w, tier):
     for r in range(w):
@@ -155,6 +167,16 @@ def test_bench_rdma_tiers_at_world(runs, w, tier, dim):
         assert rec["unit"] == "iter/s" and len(rec["samples"]) == 1
         printed = text.splitlines()[1:]
         assert (len(printed) == 1) == (r == 0)
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_bench_refuses_n_not_dividing_world(runs, w):
+    """A TPU_MPI_BENCH_N the world does not divide raises rather than
+    timing a smaller domain than the row's name says."""
+    for r in range(w):
+        got = W.read_text(runs[w], "bench_n65", r)
+        assert got == f"TPU_MPI_BENCH_N over the world: 65 not evenly " \
+                      f"divisible by {w}", got
 
 
 # ---------------------------------------------------------------------------

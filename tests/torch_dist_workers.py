@@ -266,13 +266,15 @@ def suite_rdma(rank, world, out_dir):
     exchange, the chained and the fused tier, the drivers' RDMA legs."""
     from tpu_mpi_tests_torch import bench
     from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm import peer
+    from tpu_mpi_tests_torch.utils import TpuMtError
 
     for st, ax, per, nd in EXCHANGE_CASES:
         if st != "pallas":
             continue
         g = global_field(exchange_seed(st, ax, per, nd),
                          exchange_shape(world, ax, nd))
-        z = _tensor(block_of(g, world, rank, ax)).clone()
+        z = H.staging_buffer(_tensor(block_of(g, world, rank, ax)), st)
         z = H.halo_exchange(z, axis=ax, n_bnd=2, periodic=per, staging=st)
         _save(out_dir, exchange_name(st, ax, per, nd), rank, z)
 
@@ -297,6 +299,26 @@ def suite_rdma(rank, world, out_dir):
         _save(out_dir, f"fused_rdma_{i}", rank, fused(z.clone(), 3))
         _save(out_dir, f"chained_rdma_{i}", rank, chained(z.clone(), 3))
 
+    # the runners' peer-memory pairs: a fresh input takes a new pair, a
+    # runner's own result reuses its pair, and a pair is freed with the
+    # last result that views it
+    ring = peer.peer_ring(torch.device("cpu"))
+    z = _tensor(block_of(global_field(59, (world * 24, 32), np.float32),
+                         world, rank))
+    counts = [len(ring._allocs)]
+    for run in (H.iterate_fused_rdma_fn(4, 1e-2, steps=2, periodic=True),
+                H.iterate_hand_fn(4, 1e-2, axis=0, steps=2, periodic=True,
+                                  rdma=True)):
+        for _ in range(2):
+            out = run(z.clone(), 2)
+            again = run(out, 2)
+            same = (again.untyped_storage().data_ptr()
+                    == out.untyped_storage().data_ptr())
+            counts += [len(ring._allocs), int(same)]
+            del out, again
+            counts.append(len(ring._allocs))
+    _save(out_dir, "pair_allocs", rank, np.array(counts))
+
     from tpu_mpi_tests_torch.drivers import stencil1d, stencil2d
 
     for tier in ("rdma-chained", "rdma-fused"):
@@ -317,6 +339,14 @@ def suite_rdma(rank, world, out_dir):
         _run_main(out_dir, f"bench_{tier}", rank,
                   lambda argv: json.dumps(bench.main(argv)), ["--device",
                                                                "cpu"])
+    os.environ["TPU_MPI_BENCH_N"] = "65"  # not a multiple of the world
+    try:
+        bench.main(["--device", "cpu"])
+        got = "no error"
+    except TpuMtError as e:
+        got = str(e)
+    with open(os.path.join(out_dir, f"bench_n65.r{rank}.txt"), "w") as f:
+        f.write(got)
 
 
 def suite_symm_one_card(rank, world, out_dir):

@@ -51,6 +51,7 @@ from tpu_mpi_tests_torch.drivers._common import TORCH_DTYPES
 from tpu_mpi_tests_torch.instrument.timers import chain_rate
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
+from tpu_mpi_tests_torch.utils import check_divisible
 
 METRIC = "stencil2d_fullstep_8192_iters_per_s"
 V100_HBM_GBPS = 810.0  # STREAM-class HBM2 bandwidth (root bench.py:47)
@@ -75,7 +76,7 @@ def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
     w = dist.world()
     dtype = TORCH_DTYPES[dtype_name]
     eps = 1e-6
-    n_local = n // w.size
+    n_local = check_divisible(n, w.size, "TPU_MPI_BENCH_N over the world")
     use_blocks = (tier == "blocks" and steps > 1 and n_blocks >= 2
                   and n_local % n_blocks == 0)
     bench_dim = 0 if (use_blocks or tier == "rdma-fused") else 1

@@ -8,9 +8,10 @@ hi ghost band the lo interior edge. At world > 1 the edge bands travel to
 the ±1 ring neighbours over the process group (``Ring.sendrecv``: NCCL on
 the card, gloo on the CPU), and the ends of a non-periodic ring keep their
 physical ghosts. Exchanges update the ghost bands IN PLACE and return the
-tensor (the JAX functions return a new, donated array); the hand RDMA
-exchange at world > 1 on the card may return a copy of the tensor in peer
-memory instead (``comm/peer.py``), which later calls then reuse. A staged
+tensor (the JAX functions return a new, donated array). The hand RDMA
+exchange at world > 1 on the card stores into the neighbours' copies of
+the tensor, so the tensor must live in the ring's peer memory
+(``comm/peer.py``): :func:`staging_buffer` puts a shard there. A staged
 exchange packs the edge bands into contiguous buffers first, by torch ops
 or, with ``kernel="hand"``, by the CUDA pack/unpack kernels; torch is
 row-major, so the dim-1 bands are always packed before a send.
@@ -51,6 +52,7 @@ import torch
 
 from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
 from tpu_mpi_tests_torch.comm.mesh import make_mesh
+from tpu_mpi_tests_torch.comm.peer import peer_ring
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.hand import stencil2d_deriv, \
@@ -227,21 +229,29 @@ def halo_exchange(zg: torch.Tensor, axis: int = 0, n_bnd: int = 2,
     ``PALLAS_RDMA`` is one ``hand.ring_halo`` launch (≅
     ``_exchange_pallas_fn``; world=1 non-periodic still launches and no
     store fires, as in the JAX package); at world > 1 on the card ``zg``
-    is adopted into peer memory first, so the result may be that copy,
-    which later calls then reuse."""
+    must live in peer memory (:func:`staging_buffer`)."""
     staging = Staging.parse(staging)
     _check_kernel("halo_exchange", kernel)
     if staging is Staging.HOST_STAGED:
         return _host_staged_exchange(zg, axis, n_bnd, periodic)
     if staging is Staging.PALLAS_RDMA:
-        if zg.device.type == "cuda":
-            from tpu_mpi_tests_torch.comm.peer import peer_ring
-
-            zg = peer_ring(zg.device).adopt(zg)
         return hand.ring_halo(zg, axis=axis, n_bnd=n_bnd, periodic=periodic)
     return exchange_shard(zg, axis=axis, n_bnd=n_bnd, periodic=periodic,
                           staged=staging is Staging.DEVICE_STAGED,
                           kernel=kernel)
+
+
+def staging_buffer(zg: torch.Tensor,
+                   staging: "Staging | str") -> torch.Tensor:
+    """``zg`` where :func:`halo_exchange` with ``staging`` can exchange it
+    in place: for ``PALLAS_RDMA`` a copy in the ring's peer memory
+    (``PeerRing.empty``; collective at world > 1), for every other
+    staging ``zg`` itself. A driver calls it once, when it makes its
+    shard."""
+    if Staging.parse(staging) is not Staging.PALLAS_RDMA:
+        return zg
+    out = peer_ring(zg.device).empty(zg.shape, zg.dtype)
+    return out.copy_(zg)
 
 
 def stencil_fn(axis: int, scale: float, kernel: str = "torch"):
@@ -374,34 +384,6 @@ def _phys_kwargs(ring, periodic: bool, device, side=(True, True)):
     return {"phys": torch.tensor(flags, dtype=torch.int32, device=device)}
 
 
-class _PingPong:
-    """The two buffers a hand runner alternates between — in peer memory
-    when its kernel stores into the neighbours' copies (``peer=True``),
-    where at world > 1 on the card they are one symmetric allocation made
-    once per shape. ``start(z)`` returns ``(current, spare)``: ``z`` itself
-    when it is one of the pair (a runner's own earlier result), else a copy
-    of it in the first buffer."""
-
-    def __init__(self, peer: bool):
-        self.peer = peer
-        self.pair = None
-
-    def start(self, z: torch.Tensor):
-        if not self.peer:
-            return z, torch.empty_like(z)
-        p = self.pair
-        if p is not None and p[0].shape == z.shape and p[0].dtype == z.dtype:
-            if z.data_ptr() == p[0].data_ptr():
-                return p[0], p[1]
-            if z.data_ptr() == p[1].data_ptr():
-                return p[1], p[0]
-        from tpu_mpi_tests_torch.comm.peer import peer_ring
-
-        self.pair = p = peer_ring(z.device).empty(z.shape, z.dtype, count=2)
-        p[0].copy_(z)
-        return p[0], p[1]
-
-
 def iterate_hand_fn(n_bnd: int, scale_eps: float, axis: int = 1,
                     steps: int = 1, periodic: bool = False,
                     rdma: bool = False):
@@ -414,15 +396,17 @@ def iterate_hand_fn(n_bnd: int, scale_eps: float, axis: int = 1,
 
     ``rdma=True`` swaps the exchange for the hand RDMA ring
     (``hand.ring_halo``, ≅ ``iterate_pallas_fn(rdma=True)``): the
-    ``rdma-chained`` tier, 100 % hand kernels; its two buffers live in peer
-    memory (:class:`_PingPong`) and the result is one of them."""
+    ``rdma-chained`` tier, 100 % hand kernels; its two buffers are a pair
+    in peer memory (``PeerRing.pair``) and the result is one of them."""
     _check_deep("iterate_hand_fn", n_bnd, steps)
-    buffers = _PingPong(peer=rdma)
 
     def run(z: torch.Tensor, n_iter: int) -> torch.Tensor:
         ring = make_mesh()
         flags = _phys_kwargs(ring, periodic, z.device)
-        z, spare = buffers.start(z)
+        if rdma:
+            z, spare = peer_ring(z.device).pair(z)
+        else:
+            spare = torch.empty_like(z)
         for _ in range(n_iter):
             if rdma:
                 hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
@@ -462,13 +446,12 @@ def iterate_fused_rdma_fn(n_bnd: int, scale_eps: float, axis: int = 0,
             "iterate_hand_fn)"
         )
     _check_deep("iterate_fused_rdma_fn", n_bnd, steps)
-    buffers = _PingPong(peer=True)
 
     def run(z: torch.Tensor, n_iter: int) -> torch.Tensor:
         ring = make_mesh()
         pure_compute = local_only or (ring.size == 1 and not periodic)
         flags = _phys_kwargs(ring, periodic, z.device)
-        z, spare = buffers.start(z)
+        z, spare = peer_ring(z.device).pair(z)
         for _ in range(n_iter):
             out = hand.stencil2d_fused_rdma(
                 z, scale_eps, steps=steps, periodic=periodic,

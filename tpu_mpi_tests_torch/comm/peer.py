@@ -9,10 +9,11 @@ knows where a peer pointer comes from:
   memory (``torch.distributed._symmetric_memory.empty`` + ``rendezvous``
   on the ring's group), so every rank maps every other rank's allocation
   and a kernel stores straight into a neighbour's ghost band (over NVLink
-  between cards). Allocation is collective: every rank adopts the same
-  shapes in the same order, so the i-th allocation lines up on all ranks
-  and a neighbour's copy of a buffer sits at the same offset in its
-  allocation.
+  between cards). Allocation is collective: every rank allocates the
+  same shapes in the same order, so each allocation has its counterpart
+  on every rank and a neighbour's copy of a buffer sits at the same
+  offset in it. An allocation is freed with the last tensor that views
+  it.
 * world = 1 (the self-ring): the rank's own tensors and pad; any tensor
   on the card is its own "peer" buffer.
 
@@ -32,6 +33,7 @@ later epoch never reads as an earlier one.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 
@@ -48,50 +50,52 @@ class PeerError(TpuMtError):
 
 @dataclasses.dataclass
 class _Allocation:
-    base: torch.Tensor  # uint8 view of the whole allocation
-    ptrs: tuple[int, ...]  # every rank's base address of it
-
-    def holds(self, t: torch.Tensor) -> bool:
-        lo = self.base.data_ptr()
-        return lo <= t.data_ptr() < lo + self.base.numel()
+    storage: weakref.ref  # the allocation's storage, while a tensor holds it
+    ptrs: "tuple[int, ...] | None"  # every rank's address of its first byte
+    handle: object  # the rendezvous handle: keeps the peers' mappings
+    pair: "tuple | None"  # (shape, dtype, half stride in bytes) of a pair
 
 
 class PeerRing:
     """The ring's peer memory on one device: the signal pad, the
-    allocations adopted into peer memory, and the epoch counter."""
+    allocations made in peer memory, and the epoch counter.
+
+    An allocation lives as long as a tensor views it: when the last one
+    goes, torch frees the memory and the ring forgets the allocation and
+    drops its rendezvous handle, so a runner called again and again on
+    fresh inputs holds no more memory than the results its caller keeps."""
 
     def __init__(self, ring: Ring, device: torch.device):
         self.ring = ring
         self.device = device
         self.epoch = 0
-        self._allocs: list[_Allocation] = []
-        self._handles: list = []  # symmetric-memory handles keep mappings
+        self._allocs: dict[int, _Allocation] = {}
         self.symmetric = device.type == "cuda" and ring.size > 1
         if device.type != "cuda":
             self.pad = None
             self._pad_ptrs = (0, 0, 0)
             return
-        base = self._allocate(PAD_WORDS * 4)
+        base, ptrs, self._pad_handle = self._allocate(PAD_WORDS * 4)
         self.pad = base.view(torch.int32)
         self.pad.zero_()
         if self.symmetric:
             torch.cuda.synchronize(device)
             torch.distributed.barrier(group=dist.cpu_group())
-            a = self._allocs.pop()  # the pad is no data buffer
-            self._pad_ptrs = (a.ptrs[ring.rank], a.ptrs[ring.left],
-                              a.ptrs[ring.right])
+            self._pad_ptrs = (ptrs[ring.rank], ptrs[ring.left],
+                              ptrs[ring.right])
         else:
             self._pad_ptrs = (self.pad.data_ptr(),) * 3
 
     # -- allocation ---------------------------------------------------------
 
-    def _allocate(self, nbytes: int) -> torch.Tensor:
-        """``nbytes`` of peer memory on the device (uint8). At world > 1
-        the allocation is symmetric and registered for life (its mapping
-        in every rank must outlive any launch that may store into it);
-        otherwise it is a plain tensor, freed with its last reference."""
+    def _allocate(self, nbytes: int):
+        """``(base, ptrs, handle)``: ``nbytes`` of peer memory on the
+        device (uint8), every rank's address of it and the rendezvous
+        handle. At world > 1 on the card the allocation is symmetric;
+        otherwise it is a plain tensor (``ptrs`` and ``handle`` None)."""
         if not self.symmetric:
-            return torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            base = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            return base, None, None
         import torch.distributed._symmetric_memory as symm_mem
 
         base = symm_mem.empty(nbytes, dtype=torch.uint8, device=self.device)
@@ -104,41 +108,64 @@ class PeerRing:
                 f"ring to map its neighbours' memory (peer access between "
                 f"the ranks' cards)") from e
         off = base.data_ptr() - int(handle.buffer_ptrs[self.ring.rank])
-        ptrs = tuple(int(p) + off for p in handle.buffer_ptrs)
-        self._handles.append(handle)
-        self._allocs.append(_Allocation(base, ptrs))
-        return base
+        return base, tuple(int(p) + off for p in handle.buffer_ptrs), handle
 
     def empty(self, shape, dtype: torch.dtype, count: int = 1):
         """``count`` new tensors of ``shape`` and ``dtype`` in one peer
-        allocation (``count=2``: a ping-pong pair). Collective at world
-        > 1. Returns a tuple when ``count > 1``."""
-        shape = tuple(shape)
+        allocation (``count=2``: a ping-pong pair, see :meth:`pair`).
+        Collective at world > 1. Returns a tuple when ``count > 1``."""
+        shape = tuple(int(s) for s in shape)
         numel = 1
         for s in shape:
-            numel *= int(s)
+            numel *= s
         itemsize = torch.empty((), dtype=dtype).element_size()
         stride = -(-numel * itemsize // 256) * 256  # 256-byte aligned
-        base = self._allocate(max(stride * count, 1))
+        base, ptrs, handle = self._allocate(max(stride * count, 1))
+        storage = base.untyped_storage()
+        key = storage.data_ptr()
+        entry = _Allocation(weakref.ref(storage), ptrs, handle,
+                            (shape, dtype, stride) if count == 2 else None)
+        self._allocs[key] = entry
+        weakref.finalize(storage, self._forget, key, entry).atexit = False
         out = tuple(base[i * stride:i * stride + numel * itemsize]
                     .view(dtype).view(shape) for i in range(count))
         return out if count > 1 else out[0]
 
-    def adopt(self, z: torch.Tensor) -> torch.Tensor:
-        """``z`` itself when it already lives in peer memory (always at
-        world = 1), else a copy of it in a new peer allocation
-        (collective at world > 1)."""
-        if not self.symmetric or self._find(z) is not None:
-            return z
-        out = self.empty(z.shape, z.dtype)
-        out.copy_(z)
-        return out
+    def _forget(self, key: int, entry: _Allocation) -> None:
+        if self._allocs.get(key) is entry:
+            if entry.handle is not None:
+                # the handle maps the neighbours' copies: no launch of
+                # this rank may still store into them when it goes
+                torch.cuda.synchronize(self.device)
+            del self._allocs[key]
 
     def _find(self, z: torch.Tensor) -> "_Allocation | None":
-        for a in self._allocs:
-            if a.holds(z):
-                return a
-        return None
+        storage = z.untyped_storage()
+        a = self._allocs.get(storage.data_ptr())
+        return a if a is not None and a.storage() is storage else None
+
+    def pair(self, z: torch.Tensor):
+        """``(current, spare)``, the two halves of a ping-pong pair in
+        peer memory with ``current`` holding ``z``'s values: ``z`` itself
+        and the other half when ``z`` is a half of such a pair (a runner's
+        own earlier result, which the call then overwrites), else a new
+        pair (collective at world > 1) with ``z`` copied into its first
+        half. A pair is freed with the last tensor that views either
+        half."""
+        a = self._find(z)
+        if a is not None and a.pair is not None:
+            shape, dtype, stride = a.pair
+            storage = a.storage()
+            off = z.data_ptr() - storage.data_ptr()
+            if (tuple(z.shape) == shape and z.dtype == dtype
+                    and z.is_contiguous() and off in (0, stride)):
+                spare = torch.empty(0, dtype=dtype, device=z.device)
+                spare.set_(storage, (stride - off) // z.element_size(),
+                           shape)
+                return z, spare
+        current, spare = self.empty(z.shape, z.dtype, count=2)
+        current.copy_(z)
+        return current, spare
 
     # -- what the kernels take ----------------------------------------------
 
@@ -152,8 +179,8 @@ class PeerRing:
             raise PeerError(
                 "the RDMA kernels store into the neighbours' copies of a "
                 "buffer, so the tensor must live in peer memory: allocate "
-                "it with PeerRing.empty() or adopt() it first")
-        off = z.data_ptr() - a.base.data_ptr()
+                "it with PeerRing.empty()")
+        off = z.data_ptr() - a.storage().data_ptr()
         return a.ptrs[self.ring.left] + off, a.ptrs[self.ring.right] + off
 
     def pad_ptrs(self) -> tuple[int, int, int]:

@@ -81,7 +81,7 @@ def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
     # closing each iteration; warmup entries are not accumulated
     stencil = H.stencil_fn(dim, d.scale, kernel=args.kernel)
     timer = PhaseTimer(skip_first=args.n_warmup)
-    zg = block(zg)
+    zg = block(H.staging_buffer(zg, staging))
     dz = None
     for _ in range(args.n_warmup + args.n_iter):
         zg = timer.timed("exchange", H.halo_exchange, zg, dim, d.n_bnd,

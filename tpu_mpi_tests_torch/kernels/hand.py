@@ -66,6 +66,8 @@ import functools
 import numpy as np
 import torch
 
+from tpu_mpi_tests_torch.comm.mesh import make_mesh
+from tpu_mpi_tests_torch.comm.peer import peer_ring
 from tpu_mpi_tests_torch.kernels import build
 from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.stencil import (
@@ -929,16 +931,6 @@ unpack_ghosts.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _peer(peer, device):
-    """``peer`` or the process's peer ring on ``device``
-    (``comm.peer.peer_ring``)."""
-    if peer is None:
-        from tpu_mpi_tests_torch.comm.peer import peer_ring
-
-        peer = peer_ring(device)
-    return peer
-
-
 def _ring_operand(z: torch.Tensor, axis: int, n_bnd: int, name: str):
     """The 2-D view of a ring operand (a 1-D shard is an (n, 1) column,
     ``pallas_kernels.py:1827-1838``) and its axis, checked."""
@@ -955,7 +947,7 @@ def _ring_operand(z: torch.Tensor, axis: int, n_bnd: int, name: str):
     return z
 
 
-def ring_halo_ref(z: torch.Tensor, peer=None, axis: int = 0,
+def ring_halo_ref(z: torch.Tensor, axis: int = 0,
                   n_bnd: int = N_BND, periodic: bool = False
                   ) -> torch.Tensor:
     """Plain version of :func:`ring_halo` (IN PLACE; returns ``z``): the
@@ -966,7 +958,7 @@ def ring_halo_ref(z: torch.Tensor, peer=None, axis: int = 0,
     band written into its ghost band; a side that receives nothing keeps
     its physical ghosts."""
     zz = _ring_operand(z, axis, n_bnd, "ring_halo")
-    ring = _peer(peer, z.device).ring
+    ring = make_mesh()
     n = zz.shape[axis]
     lo_edge, hi_edge = _pack.pack_edges(zz, axis, n_bnd)
     if ring.size == 1:
@@ -982,7 +974,7 @@ def ring_halo_ref(z: torch.Tensor, peer=None, axis: int = 0,
     return z
 
 
-def ring_halo(z: torch.Tensor, peer=None, axis: int = 0,
+def ring_halo(z: torch.Tensor, axis: int = 0,
               n_bnd: int = N_BND, periodic: bool = False) -> torch.Tensor:
     """Fill ``z``'s two ghost bands along ``axis`` from the ring
     neighbours, IN PLACE (≅ ``ring_halo_pallas``): my hi interior edge
@@ -993,13 +985,13 @@ def ring_halo(z: torch.Tensor, peer=None, axis: int = 0,
     world=1 non-periodic it launches and moves nothing, as the JAX package
     does. Any dtype, either axis; a 1-D shard runs as an (n, 1) column.
 
-    ``peer`` is a ``comm.peer.PeerRing`` (default: the process's ring on
-    ``z``'s device). At world > 1 on the card ``z`` must live in peer
-    memory (``PeerRing.empty`` / ``adopt``). One launch per call; all ranks
+    The neighbours are those of the process's ring on ``z``'s device
+    (``comm.peer.peer_ring``). At world > 1 on the card ``z`` must live in
+    peer memory (``PeerRing.empty``). One launch per call; all ranks
     must make the same sequence of ring calls."""
     zz = _ring_operand(z, axis, n_bnd, "ring_halo")
     if z.device.type == "cpu":
-        return ring_halo_ref(z, peer, axis, n_bnd, periodic)
+        return ring_halo_ref(z, axis, n_bnd, periodic)
     if z.device.type != "cuda":
         raise ValueError(f"ring_halo: unsupported device {z.device}")
     if not zz.is_contiguous():
@@ -1008,7 +1000,7 @@ def ring_halo(z: torch.Tensor, peer=None, axis: int = 0,
     if zz.element_size() not in (2, 4, 8):
         raise TypeError(f"ring_halo: {z.dtype} elements of "
                         f"{zz.element_size()} bytes are unsupported")
-    peer = _peer(peer, z.device)
+    peer = peer_ring(z.device)
     left_z, right_z = peer.peer_ptrs(zz)
     pad, left_pad, right_pad = peer.pad_ptrs()
     send_lo, send_hi = peer.ring.sends(periodic)
@@ -1069,7 +1061,7 @@ def fused_block_rows(height: int, steps: int,
     return B
 
 
-def stencil2d_fused_rdma_ref(z: torch.Tensor, scale_eps: float, peer=None,
+def stencil2d_fused_rdma_ref(z: torch.Tensor, scale_eps: float,
                              steps: int = 1, periodic: bool = False,
                              phys_static=None, phys=None,
                              tile_rows: "int | None" = None,
@@ -1082,12 +1074,12 @@ def stencil2d_fused_rdma_ref(z: torch.Tensor, scale_eps: float, peer=None,
         raise ValueError("stencil2d_fused_rdma: 2-D shards only")
     fused_block_rows(z.shape[0], steps, tile_rows)
     if not local_only:
-        ring_halo_ref(z, peer, 0, steps * N_BND, periodic)
+        ring_halo_ref(z, 0, steps * N_BND, periodic)
     return stencil2d_iterate_ref(z, scale_eps, dim=0, steps=steps,
                                  phys_static=phys_static, phys=phys)
 
 
-def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float, peer=None,
+def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float,
                          steps: int = 1, periodic: bool = False,
                          phys_static=None, phys=None,
                          tile_rows: "int | None" = None,
@@ -1102,7 +1094,7 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float, peer=None,
     never in place; equal bit for bit to :func:`ring_halo` followed by
     :func:`stencil2d_iterate` (dim 0) with the same flags. ``local_only``
     (which world=1 non-periodic reduces to) exchanges nothing: the pure
-    compute pass. ``peer`` and the peer-memory rule are
+    compute pass. The ring and the peer-memory rule are
     :func:`ring_halo`'s. Row blocks: :func:`fused_block_rows`."""
     if z.dim() != 2:
         raise ValueError("stencil2d_fused_rdma: 2-D shards only")
@@ -1110,7 +1102,7 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float, peer=None,
     if out is not None:
         _check_out(out, z, z.shape, "stencil2d_fused_rdma")
     if z.device.type == "cpu":
-        ref = stencil2d_fused_rdma_ref(z, scale_eps, peer, steps, periodic,
+        ref = stencil2d_fused_rdma_ref(z, scale_eps, steps, periodic,
                                        phys_static, phys, tile_rows,
                                        local_only)
         return ref if out is None else out.copy_(ref)
@@ -1128,7 +1120,7 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float, peer=None,
             raise ValueError("phys must hold two flags (lo, hi)")
     else:
         plo, phi = int(bool(phys_static[0])), int(bool(phys_static[1]))
-    peer = _peer(peer, z.device)
+    peer = peer_ring(z.device)
     send_lo, send_hi = (False, False) if local_only else \
         peer.ring.sends(periodic)
     left_z = right_z = z.data_ptr()

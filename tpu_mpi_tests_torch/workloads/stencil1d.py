@@ -128,8 +128,8 @@ class Stencil1dSpec(WorkloadSpec):
         )
         # the shard is computed on its device (a multi-GB host→device
         # init transfer is the wrong tool at 32Mi+ scale)
-        zg = block(C.device_init(
-            lambda r: d.init_shard_torch(f, r, dtype, ctx.device)))
+        zg = block(H.staging_buffer(C.device_init(
+            lambda r: d.init_shard_torch(f, r, dtype, ctx.device)), staging))
         return {"zg": zg, "staging": staging, "d": d, "df": df,
                 "dtype": dtype}
 
