@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all thirteen hand kernels (ten libraries) from
+2. build all sixteen hand kernels (twelve libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -58,7 +58,16 @@ failure exits non-zero and prints no result line):
    (``ring_halo`` → ``stencil2d_iterate``) over 21 chained calls (the
    epoch counters advance) × steps 1 and 4 × the periodic self-ring and
    ``local_only`` × float32/bfloat16 × 2 and 10 row blocks, and against
-   its plain version at those and the bench's operands; tolerance 0;
+   its plain version at those and the bench's operands; tolerance 0.
+   The three collective kernels (``check_coll_kernels``): the ring
+   all-gather and the ring reduce-scatter (credits 1 and 2) at world=1
+   and on the self-ring k = 2, 4, 8, the one-shot gather and sum at
+   world=1, over float32/bfloat16/float64 × 1-D and 2-D shards of
+   1001·k rows and a 7-element one-shot (sizes no TPU tile admits), and
+   the main paths' operands; then w = 2 and 4 instances of each kernel
+   launched from this one process on their own streams, their peer
+   pointers cross-wired, against the plain versions' world computed on
+   the CPU; tolerance 0;
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -81,8 +90,14 @@ failure exits non-zero and prints no result line):
    ``OVERLAP`` lines required), ``stencil1d --staging pallas`` at 32 Mi
    points, and the bench with ``TPU_MPI_BENCH_TIER`` ``rdma-chained``
    and ``rdma-fused`` at 8192² in float32 and bfloat16 (one ring and one
-   iterate launch, or one fused launch, per k timesteps); then the
-   world=2 legs: two ranks on one card are left out (the symmetric-memory
+   iterate launch, or one fused launch, per k timesteps) — the
+   ``stencil2d --rdma`` path runs the driver's 1000 iterations, so its
+   allreduce leg makes 2002 ring reduce-scatter launches; then the
+   collective slice (``run_coll_slice``): ``gather_inplace --rdma`` at
+   128 Mi float64 (one ring all-gather) and ``collbench`` over the
+   library and both hand tiers at its default ladder (one kernel launch
+   per chained iteration of a hand-tier row, every row measured); then
+   the world=2 legs: two ranks on one card are left out (the symmetric-memory
    allocator refuses them, a line says so) and the NCCL leg runs only
    where ``torch.cuda.device_count() > 1`` (a line says when it did not).
    Then the DAXPY slice, each path alone in the same
@@ -141,7 +156,12 @@ failure exits non-zero and prints no result line):
    the strided side in 32-byte sectors; yardstick: the torch exchange's
    two ``copy_``), the fused kernel at the bench's dim-0 buffer, its
    compute-only instance and the periodic self-ring, beside the chained
-   pair (bound: the iterate kernel's bytes; no library call);
+   pair (bound: the iterate kernel's bytes; no library call); the
+   collective kernels at a 16 MiB float32 shard on the 4-step self-ring
+   (all-gather; reduce-scatter at credits 1 and 2) and the world=1
+   one-shot (gather and sum), then at the main paths' world=1 operands,
+   beside ``torch.tile``, ``x.view(k, -1).sum(0)`` and ``x.clone()``
+   (bound: the shard read once and the output written once);
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -284,6 +304,28 @@ RING_TIMED = (
     ((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "float32", "stencil2d --rdma"),
     ((BENCH_N, BENCH_N + 16), 1, 8, "float32", "bench rdma-chained"),
 )
+# the collective kernels (ring all-gather, ring reduce-scatter, one-shot)
+COLL_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/ring_collectives.cu"
+ONESHOT_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/oneshot.cu"
+AG_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2339"
+RS_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2576"
+RS_ALSO_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2717"
+ONESHOT_REPLACES = "tpu_mpi_tests/kernels/collectives_pallas.py:179"
+ONESHOT_ALSO_REPLACES = ("tpu_mpi_tests/kernels/collectives_pallas.py:74, "
+                         ":274, :308")
+#: stencil2d --rdma's timed iterations (the driver's default): its
+#: allreduce leg makes 2 dims × (1 warm + 1000) reduce-scatter launches
+RDMA_DRIVER_N_ITER = 1000
+#: gather_inplace --rdma at the reference size: 128 Mi float64 per rank
+GATHER_N = 128 * 1024 * 1024
+#: collbench's tiers on the main path, at its default ladder
+COLLBENCH_NAMES = ("allgather", "allreduce", "reducescatter",
+                   "allgather_rdma", "allreduce_rdma", "allgather_oneshot",
+                   "allreduce_oneshot")
+COLLBENCH_SIZES_KIB = (4, 64, 1024, 16384)
+COLLBENCH_N_ITER = 500
+#: the timed operand: a 16 MiB float32 shard, on a 4-step self-ring
+COLL_TIMED_N, COLL_TIMED_K = 4 * 1024 * 1024, 4
 N26, N28 = 1 << 26, 1 << 28
 # launches each microbench group's schedule makes (microbench.py):
 # dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
@@ -507,6 +549,8 @@ def check_kernels(device):
     n_cases += n_pack
     n_ring, ring_errs = check_ring_kernels(device, rand, failures)
     n_cases += n_ring
+    n_coll, coll_errs = check_coll_kernels(device, rand, failures)
+    n_cases += n_coll
 
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
     # the driver's periodic iterate blocks, the driver's derivatives, the
@@ -514,7 +558,7 @@ def check_kernels(device):
     errs = {"stencil2d_iterate": 0.0, "stencil2d_deriv": 0.0,
             "heat2d": 0.0, "dual_dim_step": 0.0,
             "dual_dim_step residual (relative)": 0.0, **stream_errs,
-            **probe_errs, **pack_errs, **ring_errs}
+            **probe_errs, **pack_errs, **ring_errs, **coll_errs}
     for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
         err = compare(
@@ -1155,6 +1199,8 @@ def run_main_path(device):
         GRID_N_ITER + GRID_N_WARMUP, 1.0)}
 
     recs["rdma"] = run_rdma_slice(device, counts, per_step, peaks)
+    recs["coll"] = run_coll_slice(device, counts, peaks)
+    rdma_world2_legs()
     for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
         del os.environ[var]
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
@@ -1551,6 +1597,271 @@ def check_ring_kernels(device, rand, failures):
     return n_cases, errs
 
 
+# ---------------------------------------------------------------------------
+# the collective slice: the ring all-gather, ring reduce-scatter, one-shot
+# ---------------------------------------------------------------------------
+
+
+def coll_main_operands():
+    """(kernel, shape, dtype, what) the main paths give the collective
+    kernels at world=1: stencil2d --rdma's 2 MiB row, gather_inplace's
+    128 Mi float64 shard, collbench's largest (16 MiB) shard."""
+    return (("ring_reduce_scatter", (REF_N_OTHER,), "float32",
+             "stencil2d --rdma allreduce row"),
+            ("ring_allgather", (GATHER_N,), "float64",
+             "gather_inplace --rdma"),
+            ("ring_allgather", (COLL_TIMED_N,), "float32",
+             "collbench allgather_rdma 16 MiB"),
+            ("ring_reduce_scatter", (COLL_TIMED_N,), "float32",
+             "collbench allreduce_rdma 16 MiB"),
+            ("oneshot", (COLL_TIMED_N,), "float32",
+             "collbench *_oneshot 16 MiB"))
+
+
+def check_coll_kernels(device, rand, failures):
+    """The three collective kernels against their plain versions, bit for
+    bit: ``ring_allgather`` and ``ring_reduce_scatter`` (credits 1 and 2)
+    at world=1 and on the self-ring k = 2, 4, 8 × float32/bfloat16/float64
+    × a 1-D and a 2-D shard of 1001·k rows (sizes no TPU tile admits);
+    ``oneshot`` gather and sum at world=1 over the three dtypes × 7 and
+    4096 elements and a (33, 5) shard; the main paths' operands
+    (:func:`coll_main_operands`); then w = 2 and 4 instances of each
+    kernel in this one process, cross-wired on one card
+    (``hand.cross_wired``), against the plain versions' world computed on
+    the CPU (``hand.coll_world_ref``). Returns (cases, max abs error per
+    kernel, and the cross-wired one's)."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    errs = {"ring_allgather": 0.0, "ring_reduce_scatter": 0.0,
+            "oneshot": 0.0, "cross-wired": 0.0}
+
+    def check(name, label, got, want):
+        nonlocal n_cases
+        errs[name] = max(errs[name], compare(label, got, want, failures))
+        n_cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for k in (None, 2, 4, 8):
+            rows = 1001 * (k or 1)
+            for shape in ((rows,), (rows, 3)):
+                x = rand(shape, dtype)
+                check("ring_allgather",
+                      f"ring_allgather {dtype} {shape} self_ring={k}",
+                      hand.ring_allgather(x, self_ring=k),
+                      hand.ring_allgather_ref(x, self_ring=k))
+                for credits in (1, 2):
+                    check("ring_reduce_scatter",
+                          f"ring_reduce_scatter {dtype} {shape} "
+                          f"self_ring={k} credits={credits}",
+                          hand.ring_reduce_scatter(x, credits, self_ring=k),
+                          hand.ring_reduce_scatter_ref(x, credits,
+                                                       self_ring=k))
+        for shape in ((7,), (4096,), (33, 5)):
+            x = rand(shape, dtype)
+            for op in ("gather", "sum"):
+                check("oneshot", f"oneshot {op} {dtype} {shape}",
+                      hand.oneshot(x, op), hand.oneshot_ref(x, op))
+    wrappers = {"ring_allgather": (hand.ring_allgather,
+                                   hand.ring_allgather_ref),
+                "ring_reduce_scatter": (hand.ring_reduce_scatter,
+                                        hand.ring_reduce_scatter_ref),
+                "oneshot": (hand.oneshot, hand.oneshot_ref)}
+    for name, shape, dtype, what in coll_main_operands():
+        x = rand(shape, getattr(torch, dtype))
+        kernel, plain = wrappers[name]
+        check(name, f"{name} main-path {what} {shape} {dtype}", kernel(x),
+              plain(x))
+        if name == "oneshot":
+            check(name, f"oneshot sum main-path {what}", kernel(x, "sum"),
+                  plain(x, "sum"))
+        del x
+        torch.cuda.empty_cache()
+    for name in ("ring_allgather", "ring_reduce_scatter",
+                 "oneshot_allgather", "oneshot_allreduce"):
+        for w in (2, 4):
+            for dtype in (torch.float32, torch.bfloat16):
+                for credits in ((1, 2) if name == "ring_reduce_scatter"
+                                else (1,)):
+                    shards = [rand((w * 1001, 3), dtype) for _ in range(w)]
+                    got = hand.cross_wired(name, shards, credits=credits)
+                    want = hand.coll_world_ref(
+                        name, [t.cpu() for t in shards])
+                    for r, (g, e) in enumerate(zip(got, want)):
+                        errs["cross-wired"] = max(
+                            errs["cross-wired"],
+                            compare(f"cross-wired {name} w={w} {dtype} "
+                                    f"credits={credits} rank {r}", g,
+                                    e.to(device), failures))
+                    n_cases += 1
+    log(f"CHECK collectives: {n_cases} cases bit-exact so far "
+        f"(cross-wired w = 2 and 4 on one card among them)")
+    return n_cases, errs
+
+
+def collbench_calls():
+    """Launches of one collbench row's body per size of the ladder:
+    chain_rate's 3 warm calls, n_short and n_long (the JAX n_eff rule)."""
+    calls = 0
+    for kib in COLLBENCH_SIZES_KIB:
+        shard = kib * 1024
+        n_eff = min(max(COLLBENCH_N_ITER, 100_000),
+                    max(COLLBENCH_N_ITER,
+                        COLLBENCH_N_ITER * (1 << 20) // shard))
+        calls += 3 + (n_eff // 10 or 1) + n_eff
+    return calls
+
+
+def run_coll_slice(device, counts, peaks):
+    """The collective slice's paths, each alone with exact launch counts:
+    ``gather_inplace --rdma`` at 128 Mi float64 (one ring all-gather), and
+    ``collbench`` over the library and both hand tiers at its default
+    ladder (one kernel launch per chained iteration of a hand-tier row;
+    at world=1 the ring allreduce is one reduce-scatter launch). Returns
+    the collbench rows."""
+    import re
+
+    from tpu_mpi_tests_torch.drivers import collbench, gather_inplace
+
+    path = "gather_inplace --rdma"
+    counts[path] = drive_driver(
+        path, gather_inplace, ["--device", device.type, "--n-per-rank",
+                               str(GATHER_N), "--dtype", "float64",
+                               "--rdma"], ["ring_allgather"],
+        (f"0/1 lsum={GATHER_N:.1f} asum={GATHER_N:.1f}",), peaks)
+    _exact(path, counts[path], {"ring_allgather": 1})
+
+    path = "collbench"
+    out = {}
+
+    def run():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = collbench.main(["--device", device.type, "--collectives",
+                                 ",".join(COLLBENCH_NAMES)])
+        out["text"] = buf.getvalue()
+        return rc
+
+    log("DRIVER python -m tpu_mpi_tests_torch.drivers.collbench "
+        f"--collectives {','.join(COLLBENCH_NAMES)}")
+    rc, counts[path] = drive_path(path, run, ["ring_allgather",
+                                              "ring_reduce_scatter",
+                                              "oneshot"], peaks)
+    for line in out["text"].splitlines():
+        log(f"  {line}")
+    rows = re.findall(collbench.COLL_LINE_RE, out["text"])
+    if rc != 0 or [r[0] for r in rows] != [
+            n for n in COLLBENCH_NAMES for _ in COLLBENCH_SIZES_KIB]:
+        raise SmokeFailure(f"{path}: rc={rc}, rows {rows}")
+    # a row is NaN where its chain's two lengths did not difference to a
+    # positive time (chain_rate; the JAX driver prints such rows too):
+    # host noise over a host-bound chain, counted here, not a fault
+    nan_rows = [f"{r[0]} bytes={r[1]}" for r in rows if r[2] == "nan"]
+    for name, nbytes, us, busbw, n_iter, _ in rows:
+        if not (float(us) > 0 or us == "nan") or busbw not in ("0", "nan"):
+            raise SmokeFailure(f"{path}: row {name} bytes={nbytes} is not "
+                               f"a world=1 row ({us} us/iter, busbw "
+                               f"{busbw})")
+    log(f"COLLBENCH {len(rows)} rows, {len(nan_rows)} NaN {nan_rows}")
+    calls = collbench_calls()
+    _exact(path, counts[path], {"ring_allgather": calls,
+                                "ring_reduce_scatter": calls,
+                                "oneshot": 2 * calls})
+    return [{"collective": r[0], "bytes": int(r[1]), "us_per_iter":
+             float(r[2]), "n": int(r[4])} for r in rows]
+
+
+def time_coll_kernels(device, gen):
+    """Per-launch device times of the collective kernels (CUDA events,
+    warmed, the launches queued behind a stall: most of these launches are
+    shorter than their wrappers' host cost, which ``ms_host_loop`` shows):
+    at a 16 MiB float32 shard on the 4-step self-ring (the all-gather and
+    the reduce-scatter at credits 1 and 2) and the world=1 one-shot
+    (gather and sum), then at the main paths' world=1 operands (copies).
+    Bound: bytes, the shard read once and the output written once, over
+    3.35 TB/s. Yardsticks, one torch call each: ``torch.tile(x, (k,))``
+    for the all-gather self-ring, ``x.view(k, -1).sum(0)`` for the
+    reduce-scatter self-ring, ``x.clone()`` for a world=1 copy."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    k = COLL_TIMED_K
+    rows = {"ring_allgather": [], "ring_reduce_scatter": [], "oneshot": []}
+
+    def timed(fn, n=20):
+        return {"ms": time_cuda_queued(fn, n),
+                "ms_host_loop": time_cuda(fn, n)}
+
+    x = torch.randn(COLL_TIMED_N, generator=gen, device=device)
+    nb = x.numel() * x.element_size()
+    rows["ring_allgather"].append({
+        "path": "self-ring (k=4), 16 MiB float32 shard", "self_ring": k,
+        "shape": [COLL_TIMED_N], "dtype": "float32",
+        **timed(lambda: hand.ring_allgather(x, self_ring=k)),
+        "plain_ms": time_cuda_queued(lambda: hand.ring_allgather_ref(
+            x, self_ring=k), 20),
+        "bound_ms": (nb + k * nb) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_cuda_queued(lambda: torch.tile(x, (k,)), 20),
+        "library_call": "torch.tile(x, (k,))"})
+    for credits in (1, 2):
+        rows["ring_reduce_scatter"].append({
+            "path": "self-ring (k=4), 16 MiB float32 shard", "self_ring": k,
+            "credits": credits, "shape": [COLL_TIMED_N], "dtype": "float32",
+            **timed(lambda: hand.ring_reduce_scatter(
+                x, credits, self_ring=k)),
+            "plain_ms": time_cuda_queued(lambda: hand.ring_reduce_scatter_ref(
+                x, credits, self_ring=k), 20),
+            "bound_ms": (nb + nb // k) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_cuda_queued(lambda: x.view(k, -1).sum(0),
+                                           20),
+            "library_call": "x.view(k, -1).sum(0)"})
+    for op in ("gather", "sum"):
+        rows["oneshot"].append({
+            "path": "world=1, 16 MiB float32 shard", "op": op,
+            "shape": [COLL_TIMED_N], "dtype": "float32",
+            **timed(lambda: hand.oneshot(x, op)),
+            "plain_ms": time_cuda_queued(lambda: hand.oneshot_ref(x, op),
+                                         20),
+            "bound_ms": 2 * nb / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_cuda_queued(lambda: x.clone(), 20),
+            "library_call": "x.clone()"})
+    del x
+    kernels = {"ring_allgather": (hand.ring_allgather,
+                                  hand.ring_allgather_ref),
+               "ring_reduce_scatter": (hand.ring_reduce_scatter,
+                                       hand.ring_reduce_scatter_ref)}
+    for name, shape, dtype, what in coll_main_operands():
+        if name not in kernels:
+            continue
+        x = torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, dtype))
+        kernel, plain = kernels[name]
+        nb = x.numel() * x.element_size()
+        n = 5 if nb > 1 << 28 else 20
+        rows[name].append({
+            "path": f"{what} (world=1: a copy)", "shape": list(shape),
+            "dtype": dtype,
+            **timed(lambda: kernel(x), n),
+            "plain_ms": time_cuda_queued(lambda: plain(x), n),
+            "bound_ms": 2 * nb / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_cuda_queued(lambda: x.clone(), n),
+            "library_call": "x.clone()"})
+        del x
+        torch.cuda.empty_cache()
+    if torch.cuda.device_count() < 2:
+        log(f"TIME collectives: NCCL's calls not timed — "
+            f"torch.cuda.device_count() is {torch.cuda.device_count()}; "
+            f"the world=2 NCCL leg times them where there are two cards")
+    return rows
+
+
 def rdma_world2_legs():
     """The multi-rank legs on the card. Two ranks on one card cannot
     share symmetric memory (PERF.md: the allocator refuses overlapping
@@ -1574,7 +1885,8 @@ def rdma_world2_legs():
                  join=True)
     log("RDMA world=2 NCCL leg: fused == chained bit for bit over "
         f"{RING_CHAIN} calls, the RDMA exchange equal to DIRECT on both "
-        f"ranks, and {PAIR_RUNS} runs on fresh inputs without growth")
+        f"ranks, {PAIR_RUNS} runs on fresh inputs without growth, and the "
+        f"collective kernels' tiers equal to NCCL's calls")
 
 
 #: runs on fresh inputs in the NCCL leg's peer-memory lifetime check
@@ -1627,8 +1939,48 @@ def _nccl_rank(rank, world, init_method):
             raise SmokeFailure(f"NCCL leg rank {rank}: the runners' peer "
                                f"pairs outlive their results ({grown} "
                                f"bytes after {PAIR_RUNS} runs)")
+        _nccl_collectives(rank, world, gen)
     finally:
         dist.shutdown()
+
+
+def _nccl_collectives(rank, world, gen):
+    """The collective kernels' tiers at world=2 over symmetric memory,
+    held against NCCL's calls (integer-valued rows: any sum order is
+    exact), then timed beside them at a 16 MiB float32 shard."""
+    import torch
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.kernels import hand
+
+    row = (torch.arange(8192, device="cuda", dtype=torch.float32) % 13
+           + rank)[None]
+    want_sum = row.clone()
+    tdist.all_reduce(want_sum)
+    want_g = torch.empty(world * row.shape[1], device="cuda")
+    tdist.all_gather_into_tensor(want_g, row[0])
+    for name, got, want in (
+            ("all_gather_rdma", C.all_gather_rdma(row[0]), want_g),
+            ("all_gather_oneshot", C.all_gather_oneshot(row[0]), want_g),
+            ("allreduce_rdma credits=1", C.allreduce_rdma(row, 1), want_sum),
+            ("allreduce_rdma credits=2", C.allreduce_rdma(row, 2), want_sum),
+            ("allreduce_oneshot", C.allreduce_oneshot(row), want_sum)):
+        if not torch.equal(got, want):
+            raise SmokeFailure(f"NCCL leg rank {rank}: {name} != NCCL")
+    x = torch.randn(COLL_TIMED_N, generator=gen, device="cuda")
+    gathered = torch.empty(world * COLL_TIMED_N, device="cuda")
+    summed = x.clone()
+    times = {
+        "ring_allgather": time_cuda(lambda: hand.ring_allgather(x), 20),
+        "nccl all_gather_into_tensor": time_cuda(
+            lambda: tdist.all_gather_into_tensor(gathered, x), 20),
+        "ring_allreduce": time_cuda(lambda: hand.ring_allreduce(x), 20),
+        "oneshot sum": time_cuda(lambda: hand.oneshot(x, "sum"), 20),
+        "nccl all_reduce": time_cuda(lambda: tdist.all_reduce(summed), 20),
+    }
+    log(f"TIME NCCL leg rank {rank} world={world}, 16 MiB float32 shard "
+        f"(ms): {json.dumps(times)}")
 
 
 def run_rdma_slice(device, counts, per_step, peaks):
@@ -1643,14 +1995,19 @@ def run_rdma_slice(device, counts, per_step, peaks):
 
     path = "stencil2d --rdma"
     argv = ["--device", device.type, "--n-local", str(REF_N_LOCAL),
-            "--n-other", str(REF_N_OTHER), "--n-iter", str(DRIVER_N_ITER),
-            "--n-warmup", str(DRIVER_N_WARMUP), "--kernel", "hand",
-            "--rdma"]
+            "--n-other", str(REF_N_OTHER), "--n-iter",
+            str(RDMA_DRIVER_N_ITER), "--n-warmup", str(DRIVER_N_WARMUP),
+            "--kernel", "hand", "--rdma"]
     counts[path] = drive_driver(path, stencil2d, argv,
-                                ["ring_halo", "stencil2d_deriv"],
-                                ("TEST dim:0", "TEST dim:1"), peaks)
-    calls = 4 * (DRIVER_N_WARMUP + DRIVER_N_ITER)  # dim × buf legs
-    want = {"ring_halo": calls, "stencil2d_deriv": calls}
+                                ["ring_halo", "stencil2d_deriv",
+                                 "ring_reduce_scatter"],
+                                ("TEST dim:0", "TEST dim:1",
+                                 "allreduce="), peaks)
+    calls = 4 * (DRIVER_N_WARMUP + RDMA_DRIVER_N_ITER)  # dim × buf legs
+    # the allreduce leg: per dim one warm call and n_iter timed ones, each
+    # one ring reduce-scatter launch (a copy at world=1)
+    want = {"ring_halo": calls, "stencil2d_deriv": calls,
+            "ring_reduce_scatter": 2 * (1 + RDMA_DRIVER_N_ITER)}
     _exact(path, counts[path], want)
     per_step[path] = {"ring_halo": 1.0, "stencil2d_deriv": 1.0}
 
@@ -1714,7 +2071,6 @@ def run_rdma_slice(device, counts, per_step, peaks):
                 for name in kernels}
             recs[f"{tier} {dtype}"] = rec
     del os.environ["TPU_MPI_BENCH_TIER"]
-    rdma_world2_legs()
     return recs
 
 
@@ -2010,6 +2366,7 @@ def time_kernels(device):
     torch.cuda.empty_cache()
     rows.update(time_probe_and_pack(device, gen))
     rows.update(time_ring_kernels(device, gen))
+    rows.update(time_coll_kernels(device, gen))
     rows.update(time_stream_kernels(device, gen))
     rows["flash_attention_block"] = time_flash_kernel(device, gen)
     for name, rs in rows.items():
@@ -2314,7 +2671,10 @@ def main() -> int:
               for name in STREAM_KERNELS),
             ("flash_attention_block", FLASH_SOURCE, FLASH_REPLACES),
             ("ring_halo", RING_SOURCE, RING_REPLACES),
-            ("stencil2d_fused_rdma", FUSED_SOURCE, FUSED_REPLACES)):
+            ("stencil2d_fused_rdma", FUSED_SOURCE, FUSED_REPLACES),
+            ("ring_allgather", COLL_SOURCE, AG_REPLACES),
+            ("ring_reduce_scatter", COLL_SOURCE, RS_REPLACES),
+            ("oneshot", ONESHOT_SOURCE, ONESHOT_REPLACES)):
         main_row = rows[name][0]
         extra = {}
         if name == "flash_attention_block":
@@ -2333,6 +2693,14 @@ def main() -> int:
                      "lean_residual_rel_err": errs["dual_dim_step lean "
                                                    "residual (relative)"],
                      "residual_rtol": hand.RESIDUAL_RTOL[torch.float32]}
+        if name == "ring_reduce_scatter":
+            extra = {"also_replaces": RS_ALSO_REPLACES,
+                     "cross_wired_max_abs_err": errs["cross-wired"]}
+        if name == "ring_allgather":
+            extra = {"cross_wired_max_abs_err": errs["cross-wired"]}
+        if name == "oneshot":
+            extra = {"also_replaces": ONESHOT_ALSO_REPLACES,
+                     "cross_wired_max_abs_err": errs["cross-wired"]}
         if name == "alu_probe":
             # max_abs_err is the bit-exact mixes' (fma, step5*, heat5);
             # the dual mixes feed a sum in another order back and are

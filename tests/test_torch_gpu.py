@@ -592,3 +592,132 @@ def test_two_ranks_cannot_share_one_card(card, tmp_path):
         got = W.read_text(str(tmp_path), "symm", r)
         assert got.startswith("PeerError: symmetric-memory rendezvous"), got
         assert "overlapping devices" in got, got
+
+
+# ---------------------------------------------------------------------------
+# the collective kernels: ring all-gather, ring reduce-scatter, one-shot
+# ---------------------------------------------------------------------------
+
+COLL_DTYPES = [torch.float32, torch.bfloat16, torch.float64]
+
+
+def coll_shape(kind, k):
+    """A shard no TPU tile admits: 1001·k rows (elements of a 1-D one)."""
+    return (1001 * k,) if kind == "1d" else (1001 * k, 3)
+
+
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+def test_ring_allgather_kernel_matches_plain(card, dtype, kind, k):
+    x = rand(card, coll_shape(kind, k or 1), dtype, seed=3 + (k or 1))
+    before = hand.ring_allgather.launches
+    got = hand.ring_allgather(x, self_ring=k)
+    torch.cuda.synchronize(card)
+    assert hand.ring_allgather.launches == before + 1
+    assert torch.equal(got, hand.ring_allgather_ref(x, self_ring=k))
+    assert torch.equal(got, x.repeat((k or 1,) + (1,) * (x.dim() - 1)))
+
+
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+@pytest.mark.parametrize("credits", [1, 2])
+def test_ring_reduce_scatter_kernel_matches_plain(card, dtype, kind, k,
+                                                  credits):
+    x = rand(card, coll_shape(kind, k or 1), dtype, seed=5 + (k or 1))
+    before = hand.ring_reduce_scatter.launches
+    got = hand.ring_reduce_scatter(x, credits=credits, self_ring=k)
+    torch.cuda.synchronize(card)
+    assert hand.ring_reduce_scatter.launches == before + 1
+    assert torch.equal(got, hand.ring_reduce_scatter_ref(
+        x, credits=credits, self_ring=k))
+
+
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("shape", [(7,), (4096,), (33, 5)])
+@pytest.mark.parametrize("op", ["gather", "sum"])
+def test_oneshot_kernel_matches_plain(card, dtype, shape, op):
+    x = rand(card, shape, dtype, seed=len(shape) + shape[0])
+    before = hand.oneshot.launches
+    got = hand.oneshot(x, op)
+    torch.cuda.synchronize(card)
+    assert hand.oneshot.launches == before + 1
+    assert torch.equal(got, hand.oneshot_ref(x, op))
+    assert torch.equal(got, x)
+
+
+def test_ring_collectives_chain_on_the_card(card):
+    """Chained launches on one pad (the epochs advance, the local words
+    reset): 20 alternating self-ring reduce-scatters and all-gathers."""
+    x = rand(card, (4 * 1001, 2), torch.float32, seed=11)
+    for i in range(20):
+        got = hand.ring_reduce_scatter(x, credits=1 + i % 2, self_ring=4)
+        again = hand.ring_allgather(got, self_ring=4)
+    torch.cuda.synchronize(card)
+    want = hand.ring_reduce_scatter_ref(x, self_ring=4)
+    assert torch.equal(got, want)
+    assert torch.equal(again, want.repeat(4, 1))
+
+
+def test_ring_allreduce_at_world1_is_one_copy(card):
+    x = rand(card, (1001,), torch.bfloat16, seed=13)
+    before = hand.launch_counts()
+    got = hand.ring_allreduce(x, credits=2)
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, x)
+    after = hand.launch_counts()
+    assert after["ring_reduce_scatter"] == before["ring_reduce_scatter"] + 1
+    assert after["ring_allgather"] == before["ring_allgather"]
+
+
+def test_collectives_refuse_bad_worlds_on_card(card):
+    from tpu_mpi_tests_torch.comm.peer import PeerError
+
+    x = rand(card, (40,), torch.float32, seed=1)
+    with pytest.raises(PeerError, match="at most 8"):
+        hand.ring_allgather(x, self_ring=9)
+    with pytest.raises(PeerError, match="at most 8"):
+        hand.cross_wired("ring_allgather", [x] * 9)
+    with pytest.raises(ValueError, match="elements % w == 0"):
+        hand.ring_reduce_scatter(x, self_ring=3)
+    with pytest.raises(ValueError, match="elements % w == 0"):
+        hand.cross_wired("ring_reduce_scatter", [x[:39]] * 2)
+
+
+@pytest.mark.parametrize("name", ["ring_allgather", "ring_reduce_scatter",
+                                  "oneshot_allgather", "oneshot_allreduce"])
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("credits", [1, 2])
+def test_cross_wired_instances_match_the_plain_world(card, name, w, dtype,
+                                                     credits):
+    """w instances of a kernel in one process, cross-wired, each on its
+    own stream: the w > 1 data path and signalling, held bit for bit
+    against the plain versions' world (computed on the CPU)."""
+    if credits == 2 and name != "ring_reduce_scatter":
+        pytest.skip("credits apply to the reduce-scatter only")
+    shards = [rand(card, (w * 1001, 3), dtype, seed=20 + r)
+              for r in range(w)]
+    got = hand.cross_wired(name, shards, credits=credits)
+    want = hand.coll_world_ref(name, [s.cpu() for s in shards])
+    for g, e in zip(got, want):
+        assert torch.equal(g.cpu(), e)
+
+
+def test_collective_drivers_on_card(card, capsys):
+    from tpu_mpi_tests_torch.drivers import collbench
+
+    names = ",".join(collbench.COLLECTIVES + collbench.COLLECTIVES_RDMA
+                     + collbench.COLLECTIVES_ONESHOT)
+    before = hand.launch_counts()
+    assert collbench.main(["--collectives", names, "--sizes-kib", "1024",
+                           "--n-iter", "10"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("COLL ") == 9 and "nan" not in out
+    after = hand.launch_counts()
+    assert after["oneshot"] > before["oneshot"]
+    assert after["ring_allgather"] > before["ring_allgather"]
+    assert after["ring_reduce_scatter"] > before["ring_reduce_scatter"]
+    assert gather_inplace.main(["--n-per-rank", "4096", "--rdma"]) == 0
+    assert capsys.readouterr().out == "0/1 lsum=4096.0 asum=4096.0\n"

@@ -29,6 +29,7 @@ from tpu_mpi_tests_torch.comm.mesh import (
 from tpu_mpi_tests_torch.device import resolve_device
 from tpu_mpi_tests_torch.drivers import (
     attnbench,
+    collbench,
     heat2d,
     stencil2d,
     stencil2d_grid,
@@ -85,7 +86,7 @@ def test_port_has_its_kernel_sources():
     for name in ("stencil_iterate.cu", "stencil_deriv.cu", "heat2d.cu",
                  "dual_dim_step.cu", "streams.cu", "flash_attention.cu",
                  "ring_halo.cu", "fused_rdma.cu", "stencil_kstep.cuh",
-                 "ring_common.cuh"):
+                 "ring_common.cuh", "ring_collectives.cu", "oneshot.cu"):
         assert (csrc / name).is_file()
 
 
@@ -117,6 +118,8 @@ def test_entry_points_asked_for_cuda_never_print_a_cpu_result(
                         "xla,flash,ring,ulysses", "--n-iter", "10"])
     with pytest.raises(TpuMtError):
         microbench.main(["attention", "causal"])
+    with pytest.raises(TpuMtError):
+        collbench.main(["--sizes-kib", "4", "--n-iter", "10"])
     assert capsys.readouterr().out == ""
 
 
@@ -144,6 +147,11 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         alltoall.ulysses_attention(z[:, None], z[:, None], z[:, None],
                                    flash=True)
+    for collective in (hand.ring_allgather, hand.ring_reduce_scatter,
+                       hand.ring_allreduce, hand.oneshot_allgather,
+                       hand.oneshot_allreduce):
+        with pytest.raises(ValueError, match="unsupported device"):
+            collective(z)
     assert hand.launch_counts() == before
 
 

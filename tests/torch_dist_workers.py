@@ -349,6 +349,135 @@ def suite_rdma(rank, world, out_dir):
         f.write(got)
 
 
+#: the collectives' shard cases: (name, global shape, dtype); the 1-D and
+#: 2-D shapes meet the JAX kernels' tile floors at worlds 2 and 4, the
+#: "small" ones only the port's n % w rule
+COLL_CASES = [
+    ("1d", (8192,), "float32"), ("1d_bf16", (16384,), "bfloat16"),
+    ("2d", (4 * 64, 8), "float32"), ("2d_bf16", (4 * 64, 8), "bfloat16"),
+    ("small_1d", (4 * 12,), "float32"), ("small_2d", (4 * 5, 3), "float64"),
+]
+#: one-shot row lengths: a full row and the decode payloads
+ONESHOT_ROWS = (4096, 8, 4)
+#: collbench's ladder in the multi-rank runs (small: cheap chains)
+COLL_SIZES_KIB = "64,1024"
+
+
+def coll_shard(case, world, rank):
+    """This rank's shard of a collectives case: the global array is
+    ``world`` copies of the case's shape stacked, each rank taking one."""
+    i = [c[0] for c in COLL_CASES].index(case)
+    _, shape, dt = COLL_CASES[i]
+    g = global_field(200 + i, (world,) + shape, dtype=np.float32)
+    if dt == "float64":
+        g = global_field(200 + i, (world,) + shape)
+    return g, torch.from_numpy(np.ascontiguousarray(g[rank])).to(
+        getattr(torch, dt))
+
+
+def suite_coll(rank, world, out_dir):
+    """The collective kernels' plain versions and tiers over gloo, the
+    collbench and gather_inplace drivers, and the stencil2d --rdma
+    allreduce leg."""
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.kernels import hand
+
+    for case, _, _ in COLL_CASES:
+        _, x = coll_shard(case, world, rank)
+        _save(out_dir, f"ag_{case}", rank, hand.ring_allgather(x))
+        for credits in (1, 2):
+            _save(out_dir, f"rs_{case}_c{credits}", rank,
+                  hand.ring_reduce_scatter(x, credits=credits))
+            _save(out_dir, f"ar_{case}_c{credits}", rank,
+                  hand.ring_allreduce(x, credits=credits))
+        _save(out_dir, f"os_gather_{case}", rank, hand.oneshot_allgather(x))
+        _save(out_dir, f"os_sum_{case}", rank, hand.oneshot_allreduce(x))
+    # the world simulation of the plain versions, run on every rank's
+    # shards in one process (the card's cross-wired check uses it)
+    for case, _, dt in COLL_CASES[:3]:
+        g, _ = coll_shard(case, world, rank)
+        shards = [torch.from_numpy(np.ascontiguousarray(b)).to(
+            getattr(torch, dt)) for b in g]
+        for name in ("ring_allgather", "ring_reduce_scatter",
+                     "oneshot_allgather", "oneshot_allreduce"):
+            _save(out_dir, f"world_ref_{name}_{case}", rank,
+                  hand.coll_world_ref(name, shards)[rank])
+
+    # the tiers on (1, L) rows
+    for L in ONESHOT_ROWS:
+        row = torch.from_numpy(global_field(300 + L, (world, L),
+                                            np.float32)[rank:rank + 1])
+        _save(out_dir, f"allreduce_oneshot_{L}", rank,
+              C.allreduce_oneshot(row))
+        _save(out_dir, f"all_gather_oneshot_{L}", rank,
+              C.all_gather_oneshot(row[0]))
+    def ints():  # this rank's integer-valued (1, 8·world) row
+        return torch.from_numpy(
+            np.arange(world * 8 * world, dtype=np.float32)
+            .reshape(world, 8 * world)[rank:rank + 1] % 13)
+
+    _save(out_dir, "reduce_scatter_sum", rank, C.reduce_scatter_sum(ints()))
+    for credits in (1, 2):
+        _save(out_dir, f"allreduce_rdma_c{credits}", rank,
+              C.allreduce_rdma(ints(), credits=credits))
+    _save(out_dir, "all_gather_rdma", rank, C.all_gather_rdma(ints()[0]))
+    errors = []
+    for call in (lambda: C.allreduce_rdma(ints().repeat(2, 1)),
+                 lambda: C.allreduce_oneshot(ints()[0]),
+                 lambda: C.reduce_scatter_sum(ints().repeat(2, 1)),
+                 lambda: hand.ring_reduce_scatter(torch.ones(4 * world + 1)),
+                 lambda: C.allreduce_rdma(torch.ones(1, 4 * world + 1))):
+        try:
+            call()
+            errors.append("no error")
+        except ValueError as e:
+            errors.append(f"{type(e).__name__}: {e}")
+    with open(os.path.join(out_dir, f"errors.r{rank}.txt"), "w") as f:
+        f.write("\n".join(errors))
+
+    from tpu_mpi_tests_torch.drivers import collbench, gather_inplace, stencil2d
+
+    names = ",".join(collbench.COLLECTIVES + collbench.COLLECTIVES_RDMA
+                     + collbench.COLLECTIVES_ONESHOT)
+    _run_main(out_dir, "collbench", rank, collbench.main,
+              ["--device", "cpu", "--collectives", names, "--sizes-kib",
+               COLL_SIZES_KIB, "--n-iter", "10", "--jsonl",
+               os.path.join(out_dir, "collbench.jsonl")])
+    _run_main(out_dir, "collbench_c2", rank, collbench.main,
+              ["--device", "cpu", "--collectives", "allreduce_rdma",
+               "--sizes-kib", "64", "--n-iter", "10", "--rdma-credits", "2"])
+    for rdma in (False, True):
+        _run_main(out_dir, f"gather_inplace_rdma{int(rdma)}", rank,
+                  gather_inplace.main,
+                  ["--device", "cpu", "--n-per-rank", "1024", "--dtype",
+                   "float64"] + (["--rdma"] if rdma else []))
+
+    # stencil2d --rdma: the allreduce leg goes through allreduce_rdma
+    calls = []
+    real = C.allreduce_rdma
+
+    def counted(per_rank, credits=1):
+        calls.append(per_rank.shape)
+        return real(per_rank, credits)
+
+    C.allreduce_rdma = counted
+    try:
+        _run_main(out_dir, "stencil2d_rdma", rank, stencil2d.main,
+                  ["--device", "cpu", "--n-local", "24", "--n-other", "16",
+                   "--n-iter", "2", "--n-warmup", "1", "--dtype", "float64",
+                   "--rdma"])
+    finally:
+        C.allreduce_rdma = real
+    with open(os.path.join(out_dir, f"stencil2d_rdma_calls.r{rank}.txt"),
+              "w") as f:
+        f.write(str(len(calls)))
+    # a row the world does not divide: the library tier, with the NOTE
+    _run_main(out_dir, "stencil2d_rdma_note", rank, stencil2d.main,
+              ["--device", "cpu", "--n-local", "24", "--n-other",
+               str(4 * world + 1), "--n-iter", "2", "--n-warmup", "1",
+               "--dtype", "float64", "--rdma"])
+
+
 def suite_symm_one_card(rank, world, out_dir):
     """Every rank on card 0 asks for the RDMA kernels' peer memory: the
     symmetric-memory rendezvous refuses ranks that share a card, and the
@@ -364,7 +493,7 @@ def suite_symm_one_card(rank, world, out_dir):
         f.write(got)
 
 
-SUITES = {"dist": suite_dist, "rdma": suite_rdma,
+SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
           "symm_one_card": suite_symm_one_card}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

@@ -7,8 +7,13 @@ the world group (NCCL), host tensors through the gloo group
 (``comm.dist.cpu_group``). At world=1 nothing communicates: the
 allreduce is the identity, a gather copies the one shard.
 
-The hand-kernel tiers of these collectives (``all_gather_rdma``,
-``allreduce_rdma``, the one-shot tiers) are ROADMAP queue 2 items 10-12.
+The hand-kernel tiers (≅ JAX ``:363-684``) run the collectives through
+the hand CUDA kernels (``kernels/hand.py``): :func:`all_gather_rdma` and
+:func:`allreduce_rdma` through the ring all-gather and ring
+reduce-scatter, :func:`all_gather_oneshot` and :func:`allreduce_oneshot`
+through the one-shot kernel; :func:`reduce_scatter_sum` is the library
+tier of the reduce-scatter. On the CPU the kernels' plain versions run
+over the gloo group.
 """
 
 from __future__ import annotations
@@ -159,6 +164,94 @@ def allreduce_sum(per_rank: torch.Tensor) -> torch.Tensor:
         tdist.all_reduce(per_rank, op=tdist.ReduceOp.SUM,
                          group=_group_for(per_rank))
     return per_rank
+
+
+def _check_row(per_rank: torch.Tensor, name: str) -> int:
+    """The world size, after checking that ``per_rank`` is this rank's
+    (1, L) row of the JAX function's (n_ranks, L) array."""
+    w = dist.world().size
+    if per_rank.dim() != 2 or per_rank.shape[0] != 1:
+        raise ValueError(
+            f"{name}: need this rank's (1, L) row of the (n_ranks={w}, L) "
+            f"array, got shape {tuple(per_rank.shape)}")
+    return w
+
+
+def reduce_scatter_sum(per_rank: torch.Tensor) -> torch.Tensor:
+    """Library-tier reduce-scatter (≅ ``reduce_scatter_sum``, :539;
+    ``MPI_Reduce_scatter_block``): ``per_rank`` is this rank's (1, L) row,
+    ``L % n_ranks == 0``; returns the (1, L/n_ranks) chunk ``rank`` of the
+    elementwise sum (``reduce_scatter_tensor`` over the process group; a
+    copy at world=1)."""
+    w = _check_row(per_rank, "reduce_scatter_sum")
+    n = check_divisible(per_rank.shape[1], w, "reduce_scatter_sum chunking")
+    if w == 1:
+        return per_rank.clone()
+    out = torch.empty(n, dtype=per_rank.dtype, device=per_rank.device)
+    tdist.reduce_scatter_tensor(out, per_rank[0].contiguous(),
+                                op=tdist.ReduceOp.SUM,
+                                group=_group_for(per_rank))
+    return out[None]
+
+
+def all_gather_rdma(x: torch.Tensor) -> torch.Tensor:
+    """Hand-tier ``all_gather`` along axis 0 (≅ ``all_gather_rdma``,
+    :383): this rank's block in, every rank's blocks in rank order out,
+    through the ring all-gather kernel (``hand.ring_allgather``, w−1 hops;
+    ≅ hand-writing the ``MPI_Allgather`` of ``mpi_daxpy_nvtx.cc:285-288``)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    return hand.ring_allgather(x.contiguous())
+
+
+def all_gather_oneshot(x: torch.Tensor) -> torch.Tensor:
+    """Fixed-cost tier ``all_gather`` along axis 0 (≅
+    ``all_gather_oneshot``, :431): one in-kernel burst into every peer
+    instead of the ring's w−1 dependent hops (``hand.oneshot_allgather``)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    return hand.oneshot_allgather(x.contiguous())
+
+
+def allreduce_rdma(per_rank: torch.Tensor, credits: int = 1
+                   ) -> torch.Tensor:
+    """Hand-tier :func:`allreduce_sum` (≅ ``allreduce_rdma``, :589): this
+    rank's (1, L) row in, the (1, L) elementwise sum over the ranks out,
+    through the ring reduce-scatter and the ring all-gather
+    (``hand.ring_allreduce``; ≅ hand-writing the in-place device
+    ``MPI_Allreduce(MPI_SUM)`` of ``mpi_stencil2d_gt.cc:615-625`` as
+    2(w−1) ring hops). ``L % n_ranks == 0`` (the ring's chunking;
+    ``ValueError`` otherwise). ``credits=2``: the double-buffered
+    reduce-scatter. A new tensor (the JAX function returns one too)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    _check_row(per_rank, "allreduce_rdma")
+    return hand.ring_allreduce(per_rank[0].contiguous(), credits)[None]
+
+
+def allreduce_rdma_refusal(length: int) -> "str | None":
+    """Why :func:`allreduce_rdma` cannot take a row of ``length``
+    elements at this world (the ring reduce-scatter's chunking rule,
+    ``hand.ring_chunk_rows``), or None when it can."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    try:
+        hand.ring_chunk_rows(torch.empty(length, device="meta"),
+                             dist.world().size, "ring_reduce_scatter")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def allreduce_oneshot(per_rank: torch.Tensor) -> torch.Tensor:
+    """Fixed-cost tier :func:`allreduce_sum` (≅ ``allreduce_oneshot``,
+    :647): one in-kernel burst and a local ascending-rank fold
+    (``hand.oneshot_allreduce``), so every rank holds bitwise
+    ``reduce(add, rows)``; any L."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    _check_row(per_rank, "allreduce_oneshot")
+    return hand.oneshot_allreduce(per_rank[0].contiguous())[None]
 
 
 def reduce_sum(values) -> float:

@@ -10,7 +10,7 @@ Still one rank only, each raising with the next slice of ROADMAP queue 1
 item 2: the sequence-parallel attention paths over ranks
 (:func:`check_world`), the 2-D process grids of ``heat2d`` and
 ``stencil2d_grid`` (:func:`check_grid`), and the drivers that
-:func:`check_single_rank` guards (the DAXPY drivers, ``gather_inplace``).
+:func:`check_single_rank` guards (the DAXPY drivers).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
 #: where the paths that still run one rank only are queued
 NEXT_SLICE = ("the next slice of ROADMAP queue 1 item 2 (the 2-D grid, "
-              "attention, DAXPY and gather paths over ranks)")
+              "attention and DAXPY paths over ranks)")
 
 
 class MeshError(TpuMtError):
@@ -119,6 +119,20 @@ class Ring:
             for req in tdist.batch_isend_irecv(ops):
                 req.wait()
         return from_left, from_right
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """One hop to the right on the periodic ring (≅ ``lax.ppermute``
+        with ``(i, i+1 mod w)``): sends ``x`` to the right neighbour and
+        returns what the left one sent. ``x`` must be contiguous."""
+        if self.size == 1:
+            raise MeshError("Ring.shift: world=1 has no peer to send to")
+        got = torch.empty_like(x)
+        group = tdist.group.WORLD if x.is_cuda else dist.cpu_group()
+        ops = [tdist.P2POp(tdist.isend, x, self.right, group, tag=2),
+               tdist.P2POp(tdist.irecv, got, self.left, group, tag=2)]
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+        return got
 
 
 def bootstrap(device="cuda") -> torch.device:

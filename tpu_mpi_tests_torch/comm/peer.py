@@ -1,6 +1,7 @@
 """The peer-memory layer of the hand RDMA kernels (``ring_halo``,
-``stencil2d_fused_rdma``): where a rank's neighbours' buffers and signal
-pads live, as raw device addresses.
+``stencil2d_fused_rdma``, and the collectives ``ring_allgather``,
+``ring_reduce_scatter`` and ``oneshot``): where a rank's peers' buffers
+and signal pads live, as raw device addresses.
 
 The kernels take only raw pointers; this module is the only code that
 knows where a peer pointer comes from:
@@ -20,14 +21,28 @@ knows where a peer pointer comes from:
 There is no fallback: a failed rendezvous raises, and so does a world > 1
 ring on the card whose ranks cannot map each other's memory.
 
-The signal pad is 64 int32 words per rank, zeroed once. Words 0-3 are
-written by neighbours (epoch counters: barrier from the left, barrier
+The ring kernels store into the left and right neighbours' copies
+(:meth:`PeerRing.peer_ptrs`, :meth:`PeerRing.pad_ptrs`); the one-shot
+kernel into every rank's (:meth:`PeerRing.peer_ptrs_all`,
+:meth:`PeerRing.pad_ptrs_all`). The collectives' comm buffers are
+workspaces kept for the life of the ring (:meth:`PeerRing.workspace`).
+
+The signal pad is 64 int32 words per rank, zeroed once; the word map is
+``kernels/csrc/ring_common.cuh``'s. Words 0-3 are written by neighbours
+(epoch counters of the ring halo kernels: barrier from the left, barrier
 from the right, arrival from the left, arrival from the right), words 4-5
 only by the rank's own CTAs (the work ticket and the done counter, each
-reset to 0 by the last CTA of a launch). Epochs count every RDMA launch
-of the process up from 1, so they agree across ranks as long as every
-rank makes the same sequence of RDMA calls (SPMD), and a neighbour's
-later epoch never reads as an earlier one.
+reset to 0 by the last CTA of a launch). Words 6-59 belong to the
+collective kernels: per-step arrival flags for the all-gather, arrival
+and credit flags for the reduce-scatter, per-rank barrier and arrival
+flags for the one-shot, and their CTAs' own counters; so the collectives
+run on at most :data:`COLL_MAX_WORLD` ranks (:class:`PeerError` beyond).
+
+Epochs count every RDMA launch of the process up from 1 (:meth:`PeerRing.
+next_epoch`), one per launch of any RDMA kernel — the ring halo kernels
+and the collectives share the count — so they agree across ranks as long
+as every rank makes the same sequence of RDMA launches (SPMD), and a
+peer's later epoch never reads as an earlier one.
 """
 
 from __future__ import annotations
@@ -42,6 +57,9 @@ from tpu_mpi_tests_torch.comm.mesh import Ring, make_mesh
 from tpu_mpi_tests_torch.utils import TpuMtError
 
 PAD_WORDS = 64
+#: the most ranks (or self-ring steps + 1) the collective kernels' words
+#: in the pad serve (``kCollMaxWorld``, ``csrc/ring_common.cuh``)
+COLL_MAX_WORLD = 8
 
 
 class PeerError(TpuMtError):
@@ -70,10 +88,12 @@ class PeerRing:
         self.device = device
         self.epoch = 0
         self._allocs: dict[int, _Allocation] = {}
+        self._workspaces: dict[str, torch.Tensor] = {}
         self.symmetric = device.type == "cuda" and ring.size > 1
         if device.type != "cuda":
             self.pad = None
             self._pad_ptrs = (0, 0, 0)
+            self._all_pads = (0,) * ring.size
             return
         base, ptrs, self._pad_handle = self._allocate(PAD_WORDS * 4)
         self.pad = base.view(torch.int32)
@@ -83,8 +103,10 @@ class PeerRing:
             torch.distributed.barrier(group=dist.cpu_group())
             self._pad_ptrs = (ptrs[ring.rank], ptrs[ring.left],
                               ptrs[ring.right])
+            self._all_pads = tuple(ptrs)
         else:
             self._pad_ptrs = (self.pad.data_ptr(),) * 3
+            self._all_pads = (self.pad.data_ptr(),)
 
     # -- allocation ---------------------------------------------------------
 
@@ -172,20 +194,47 @@ class PeerRing:
     def peer_ptrs(self, z: torch.Tensor) -> tuple[int, int]:
         """The device addresses of ``z``'s counterpart in the left and the
         right neighbour's memory (world = 1: ``z``'s own address twice)."""
+        ptrs = self.peer_ptrs_all(z)
+        if len(ptrs) == 1:
+            return ptrs[0], ptrs[0]
+        return ptrs[self.ring.left], ptrs[self.ring.right]
+
+    def peer_ptrs_all(self, z: torch.Tensor) -> tuple[int, ...]:
+        """The device addresses of ``z``'s counterpart in every rank's
+        memory, indexed by rank (world = 1: ``z``'s own address)."""
         if not self.symmetric:
-            return z.data_ptr(), z.data_ptr()
+            return (z.data_ptr(),)
         a = self._find(z)
         if a is None:
             raise PeerError(
-                "the RDMA kernels store into the neighbours' copies of a "
+                "the RDMA kernels store into their peers' copies of a "
                 "buffer, so the tensor must live in peer memory: allocate "
                 "it with PeerRing.empty()")
         off = z.data_ptr() - a.storage().data_ptr()
-        return a.ptrs[self.ring.left] + off, a.ptrs[self.ring.right] + off
+        return tuple(p + off for p in a.ptrs)
 
     def pad_ptrs(self) -> tuple[int, int, int]:
         """(mine, the left neighbour's, the right neighbour's) pads."""
         return self._pad_ptrs
+
+    def pad_ptrs_all(self) -> tuple[int, ...]:
+        """Every rank's pad, indexed by rank (world = 1: mine)."""
+        return self._all_pads
+
+    def workspace(self, name: str, nbytes: int) -> torch.Tensor:
+        """``nbytes`` (uint8) of peer memory kept under ``name`` for the
+        life of the ring: a collective kernel's comm buffer, which the
+        peers write. Grown (collective at world > 1: every rank asks for
+        the same sizes in the same order) when a call needs more than it
+        holds; chained launches reuse it, the kernels' entry barriers
+        keeping a peer from writing it before this rank's previous launch
+        on it has finished."""
+        nbytes = max(int(nbytes), 1)
+        ws = self._workspaces.get(name)
+        if ws is None or ws.numel() < nbytes:
+            self._workspaces.pop(name, None)
+            ws = self._workspaces[name] = self.empty((nbytes,), torch.uint8)
+        return ws[:nbytes]
 
     def next_epoch(self) -> int:
         """The epoch of the next RDMA launch (1, 2, ...)."""
@@ -196,6 +245,17 @@ class PeerRing:
 
 
 _RINGS: dict = {}
+
+
+def check_collective_world(size: int, what: str) -> int:
+    """Refuse a collective over more ranks (or self-ring steps + 1) than
+    the signal pad serves; returns ``size``."""
+    if size > COLL_MAX_WORLD:
+        raise PeerError(
+            f"{what} over {size} ranks: the collective kernels' signal words "
+            f"serve at most {COLL_MAX_WORLD} (the {PAD_WORDS}-word pad, "
+            f"csrc/ring_common.cuh)")
+    return size
 
 
 def peer_ring(device: torch.device) -> PeerRing:

@@ -1,4 +1,4 @@
-"""In-place allgather semantics probe, at world=1 (≅
+"""In-place allgather semantics probe, one process per rank (≅
 ``tpu_mpi_tests/drivers/gather_inplace.py``).
 
 ≅ ``mpigatherinplace.f90``: every rank fills its own slice of a shared
@@ -10,8 +10,10 @@ default here is smaller and flag-scalable.
 Rank r's slice is filled with ``r + 1`` (``mpigatherinplace.f90:33-36``),
 so local sums are ``(r+1)*n`` and the global sum is ``n *
 world*(world+1)/2`` — integer-exact in every dtype up to large n. The
-port runs the lax tier on one rank; ``--rdma`` (the hand ring gather) is
-ROADMAP queue 2 item 10 and raises.
+library tier gathers the full-size buffer in place over the process group
+(``C.all_gather_inplace``); ``--rdma`` gathers each rank's slice through
+the hand ring all-gather kernel (``C.all_gather_rdma``), as the JAX
+driver does.
 """
 
 from __future__ import annotations
@@ -19,42 +21,38 @@ from __future__ import annotations
 import sys
 
 import numpy as np
+import torch
 
 from tpu_mpi_tests_torch.drivers import _common
 
 
 def run(args) -> int:
     from tpu_mpi_tests_torch.comm import collectives as C
-    from tpu_mpi_tests_torch.comm.mesh import (
-        bootstrap,
-        check_single_rank,
-        topology,
-    )
+    from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
     from tpu_mpi_tests_torch.instrument.timers import block
-    from tpu_mpi_tests_torch.utils import TpuMtError
 
-    if args.rdma:
-        raise TpuMtError(
-            "--rdma (the hand-written ring all-gather, "
-            "ring_allgather_pallas) is not ported yet: ROADMAP queue 2 "
-            "item 10"
-        )
     dtype = _common.torch_dtype(args)
     device = bootstrap(args.device)
-    check_single_rank("gather_inplace")
     topo = topology(device)
     world = topo.global_device_count
+    rank = topo.process_index
     n = args.n_per_rank
 
-    rep = _common.make_reporter(args, rank=topo.process_index, size=world)
+    rep = _common.make_reporter(args, rank=rank, size=world)
     with rep:
-        # fill own slice: global buffer whose shard r holds (r+1)
-        fill = np.repeat(np.arange(1, world + 1, dtype=np.float64), n)
-        allx = C.shard_1d(_common.host_tensor(fill, dtype), device)
-        del fill
         local_sums = [(r + 1) * n for r in range(world)]
-
-        g = block(C.all_gather_inplace(allx))
+        if args.rdma:
+            # hand-written RDMA ring tier (≅ hand-coding the
+            # MPI_Allgather): each rank's own slice in, the gathered
+            # global buffer out
+            mine = torch.full((n,), float(rank + 1), dtype=dtype,
+                              device=device)
+            g = block(C.all_gather_rdma(mine))
+        else:
+            # fill own slice of the full-size buffer, gather in place
+            allx = torch.zeros(world * n, dtype=dtype, device=device)
+            allx[rank * n:(rank + 1) * n] = rank + 1
+            g = block(C.all_gather_inplace(allx))
         asum = float(C.host_value(g).astype(np.float64, copy=False).sum())
 
         for r in range(world):
@@ -82,8 +80,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--rdma",
         action="store_true",
-        help="gather through the hand-written RDMA ring (not ported: "
-        "ROADMAP queue 2 item 10; raises)",
+        help="gather through the hand-written RDMA ring "
+        "(collectives.all_gather_rdma) instead of the library all-gather",
     )
     args = p.parse_args(argv)
     if args.n_per_rank < 1:

@@ -16,7 +16,9 @@ followed by the axis-reduction + allreduce benchmark (``test_sum``,
 Staging per the reference's ``buf`` flag: dim 0 → ``buf:0`` device
 staged, ``buf:1`` host staged; dim 1 → ``buf:0`` direct, ``buf:1``
 device staged; ``--rdma`` runs every leg through the hand RDMA ring
-(``hand.ring_halo``, ≅ the SYCL hand-kernel variant of the matrix). At
+(``hand.ring_halo``, ≅ the SYCL hand-kernel variant of the matrix) and
+the allreduce through the hand ring reduce-scatter + all-gather
+(``C.allreduce_rdma``, as the JAX driver does). At
 world=1 the non-periodic exchange moves nothing, as in the JAX package's
 single-device runs (the RDMA ring still launches).
 
@@ -127,8 +129,9 @@ def _default_tol(args, d) -> float:
 
 def _sum_test(args, topo, rep, dim: int) -> int:
     """Axis reduction + timed allreduce (≅ test_sum, :574-649): local sum
-    along the decomposed dim, then the allreduce; its cost is the
-    difference of loops with and without it."""
+    along the decomposed dim, then the allreduce (under ``--rdma`` the
+    hand ring, ``C.allreduce_rdma``); its cost is the difference of loops
+    with and without it."""
     dtype = _common.torch_dtype(args)
     world = topo.global_device_count
     d = Domain2D(n_local_deriv=args.n_local, n_global_other=args.n_other,
@@ -139,8 +142,22 @@ def _sum_test(args, topo, rep, dim: int) -> int:
     def local_sum(zz):
         return sum_axis(zz, axis=dim).reshape(1, -1)
 
+    allreduce = C.allreduce_sum
+    if args.rdma:
+        # hand tier: the ring reduce-scatter + all-gather kernels instead
+        # of the library allreduce (≅ hand-writing the in-place
+        # MPI_Allreduce the reference times, mpi_stencil2d_gt.cc:615-625);
+        # where the ring's chunking refuses the row, the library tier runs
+        # with a visible NOTE, never silently
+        why = C.allreduce_rdma_refusal(d.n_global_other)
+        if why is None:
+            allreduce = C.allreduce_rdma
+        else:
+            rep.line(f"NOTE dim:{dim} device: rdma allreduce below "
+                     f"alignment floor, using allreduce_sum ({why})")
+
     expected = np.full(d.n_global_other, np.pi * args.n_local)
-    s = block(C.allreduce_sum(local_sum(z)))
+    s = block(allreduce(local_sum(z)))
     got = C.host_value(s).reshape(-1)
     if not np.allclose(got, expected,
                        rtol=1e-3 if args.dtype == "bfloat16" else 1e-5):
@@ -150,7 +167,7 @@ def _sum_test(args, topo, rep, dim: int) -> int:
 
     t0 = time.perf_counter()
     for _ in range(args.n_iter):
-        s = C.allreduce_sum(local_sum(z))
+        s = allreduce(local_sum(z))
     block(s)
     t_with = time.perf_counter() - t0
     t0 = time.perf_counter()

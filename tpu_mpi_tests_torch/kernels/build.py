@@ -38,6 +38,8 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "ring_halo": "ring_halo.cu",
     "fused_rdma": "fused_rdma.cu",
+    "ring_collectives": "ring_collectives.cu",
+    "oneshot": "oneshot.cu",
 }
 
 # -fmad=false: no mul+add contraction anywhere, so float results match

@@ -1,30 +1,66 @@
-// Signalling and edge-band copies shared by the two RDMA ring kernels
-// (ring_halo.cu, fused_rdma.cu).
+// Signalling and edge-band copies shared by the RDMA kernels: the two
+// ring halo kernels (ring_halo.cu, fused_rdma.cu) and the collective
+// kernels (ring_collectives.cu, oneshot.cu).
 //
-// A rank's signal pad (comm/peer.py) holds int32 words; neighbours write
-// words 0-3 (epoch counters), the rank's own CTAs words 4-5:
-//   kBarFromLeft / kBarFromRight   the left / right neighbour entered
-//                                  launch `epoch` (it may now be written)
-//   kArrFromLeft / kArrFromRight   the left / right neighbour's edge band
-//                                  of launch `epoch` landed in my ghosts
-//   kTicket                        work tickets of this launch's CTAs
-//   kDone                          send CTAs that finished their stores
-// Epochs count every RDMA launch up from 1 on every rank, so a wait for
-// `word >= epoch` is met by this launch's signal or a later one, never by
-// an earlier one, and no counter is ever reset across ranks. kTicket and
-// kDone are reset to 0 by the last CTA that touches them, before the
-// launch ends, so the next launch on the stream finds them at 0.
+// A rank's signal pad (comm/peer.py) holds 64 int32 words. Remote words
+// are epoch counters written by other ranks; local words are counters of
+// the rank's own CTAs, reset to 0 by the last CTA that touches them
+// before the launch ends, so the next launch on the stream finds them at
+// 0. The map:
+//   0 kBarFromLeft / 1 kBarFromRight  remote, ring halo: the left / right
+//                                  neighbour entered launch `epoch` (it
+//                                  may now be written)
+//   2 kArrFromLeft / 3 kArrFromRight  remote, ring halo: the left / right
+//                                  neighbour's edge band of launch
+//                                  `epoch` landed in my ghosts
+//   4 kTicket                      local: work tickets of this launch's CTAs
+//   5 kDone                        local: send CTAs that finished storing
+//   6 kCollExit                    local, collectives: CTAs that finished
+//   7 kAgBar                       remote, all-gather: the right neighbour
+//                                  entered launch `epoch`
+//   8 kRsBar                       remote, reduce-scatter: the same
+//   9 + s  kCollSent[s]            local, collectives: CTAs that finished
+//                                  their stores of step s
+//   16 + s kCollFolded[s]          local, reduce-scatter: CTAs that
+//                                  finished reading the arrival of step s
+//   23 + s kAgArr[s]               remote, all-gather: the left
+//                                  neighbour's step-s region landed
+//   30 + s kRsArr[s]               remote, reduce-scatter: the left
+//                                  neighbour's step-s payload landed
+//   37 + s kRsCred[s]              remote, reduce-scatter: the right
+//                                  neighbour consumed my step-s payload
+//                                  (its comm slot is free again)
+//   44 + p kOsBar[p]               remote, one-shot: rank p entered
+//                                  launch `epoch`
+//   52 + p kOsArr[p]               remote, one-shot: rank p's shard
+//                                  landed in my slot p
+//   60-63                          unused
+// with s < kCollMaxSteps and p < kCollMaxWorld: the collectives run on at
+// most 8 ranks (or an 8-step self-ring), which is what the pad holds.
+// Epochs count every RDMA launch up from 1 on every rank (all kernel
+// families share the count), so a wait for `word >= epoch` is met by this
+// launch's signal or a later one, never by an earlier one, and no remote
+// word is ever reset. Per-step words keep a step's wait from being met by
+// a later step's signal.
 //
 // Memory order: a signal is a st.release.sys after __threadfence_system()
-// has ordered the sender's peer stores; a wait is a ld.acquire.sys loop.
-// A wait gives up after kWaitTimeoutNs and traps, so a lost peer makes
-// the launch fail (the next synchronise raises) instead of hanging the
-// card.
+// has ordered the sender's peer stores; a wait is a ld.acquire.sys loop,
+// and data that peers write during a launch is read with ld.global.cg
+// (L2, never a stale L1 line). A wait gives up after kWaitTimeoutNs and
+// traps, so a lost peer makes the launch fail (the next synchronise
+// raises) instead of hanging the card. One stream per pad: two launches
+// that share a pad must not run at once.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace tpumt {
+
+constexpr int kPadWords = 64;
+constexpr int kCollMaxWorld = 8;
+constexpr int kCollMaxSteps = kCollMaxWorld - 1;
 
 enum PadWord : int {
   kBarFromLeft = 0,
@@ -33,7 +69,22 @@ enum PadWord : int {
   kArrFromRight = 3,
   kTicket = 4,
   kDone = 5,
+  kCollExit = 6,
+  kAgBar = 7,
+  kRsBar = 8,
+  kCollSent = 9,
+  kCollFolded = kCollSent + kCollMaxSteps,
+  kAgArr = kCollFolded + kCollMaxSteps,
+  kRsArr = kAgArr + kCollMaxSteps,
+  kRsCred = kRsArr + kCollMaxSteps,
+  kOsBar = kRsCred + kCollMaxSteps,
+  kOsArr = kOsBar + kCollMaxWorld,
+  kPadWordsUsed = kOsArr + kCollMaxWorld,
 };
+static_assert(kCollFolded == 16 && kAgArr == 23 && kOsBar == 44 &&
+                  kPadWordsUsed == 60,
+              "the pad map above");
+static_assert(kPadWordsUsed <= kPadWords, "the pad holds 64 words");
 
 constexpr unsigned long long kWaitTimeoutNs = 20ull * 1000 * 1000 * 1000;
 
@@ -183,6 +234,85 @@ __device__ __forceinline__ int take_ticket(int* pad, int* slot) {
   }
   __syncthreads();
   return *slot;
+}
+
+
+// ---------------------------------------------------------------------------
+// the collective kernels' helpers (ring_collectives.cu, oneshot.cu)
+// ---------------------------------------------------------------------------
+
+template <int Bytes>
+struct Bits;
+template <>
+struct Bits<2> {
+  using U = unsigned short;
+};
+template <>
+struct Bits<4> {
+  using U = unsigned int;
+};
+template <>
+struct Bits<8> {
+  using U = unsigned long long;
+};
+
+// A load of data a peer wrote during this launch: through L2 (.cg), so no
+// L1 line read earlier in the launch can answer it.
+template <typename T>
+__device__ __forceinline__ T load_cg(const T* p) {
+  using U = typename Bits<sizeof(T)>::U;
+  const U u = __ldcg(reinterpret_cast<const U*>(p));
+  T v;
+  memcpy(&v, &u, sizeof(T));
+  return v;
+}
+
+// Thread 0 waits until *word >= epoch; then the whole CTA goes on.
+__device__ __forceinline__ void coll_wait(const int* word, int epoch) {
+  if (threadIdx.x == 0) pad_wait(word, epoch);
+  __syncthreads();
+}
+
+// After a CTA's part of a step: order its stores (or its reads of an
+// arrival) system-wide, count the CTA in `counter` (a local word), and
+// let the last of `ctas` CTAs signal `remote` with the epoch.
+__device__ __forceinline__ void coll_arrive(int* counter, int ctas,
+                                            int* remote, int epoch) {
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(counter, 1) == ctas - 1) {
+    __threadfence_system();
+    pad_signal(remote, epoch);
+  }
+}
+
+// The end of a collective launch: the last CTA to finish resets the local
+// words (kCollExit, kCollSent[], kCollFolded[]) for the next launch.
+__device__ __forceinline__ void coll_exit(int* pad) {
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  if (atomicAdd(pad + kCollExit, 1) != static_cast<int>(gridDim.x) - 1)
+    return;
+  for (int s = 0; s < kCollMaxSteps; ++s) {
+    atomicExch(pad + kCollSent + s, 0);
+    atomicExch(pad + kCollFolded + s, 0);
+  }
+  atomicExch(pad + kCollExit, 0);
+}
+
+// The default grid of a collective launch over `work` elements: enough
+// CTAs for four elements a thread, at most two per SM, so that every CTA
+// of the launch is resident at once (the CTAs wait for each other's
+// peers: a CTA that could not be scheduled would stall the ring).
+inline int coll_ctas(long long work, int threads, int max_ctas) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long ctas = (work + threads * 4LL - 1) / (threads * 4LL);
+  const long long cap = max_ctas > 0 ? max_ctas : 2LL * sms;
+  if (ctas > cap) ctas = cap;
+  if (ctas < 1) ctas = 1;
+  return static_cast<int>(ctas);
 }
 
 }  // namespace tpumt

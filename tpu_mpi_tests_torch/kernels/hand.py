@@ -35,6 +35,17 @@ Each replaces a Pallas kernel of
   The two ring kernels take their neighbours' addresses and signal pads
   from ``comm/peer.py``; their plain versions exchange over the process
   group (gloo on the CPU), or copy locally on the world=1 self-ring.
+* :func:`ring_allgather` — the (w−1)-hop ring all-gather
+  (``ring_allgather_pallas``, :2339), and :func:`ring_reduce_scatter` —
+  the ring reduce-scatter with receiver credits
+  (``ring_reduce_scatter_pallas``, :2576); :func:`ring_allreduce` is the
+  two, one after the other (``ring_allreduce_pallas``, :2717); source
+  ``csrc/ring_collectives.cu``. :func:`oneshot_allgather` and
+  :func:`oneshot_allreduce` — one burst into every peer, then a copy or
+  an ascending-rank fold (``collectives_pallas.py`` ``_oneshot_call``
+  :179, kernel :74); source ``csrc/oneshot.cu``. Their plain versions
+  move data over the process group (``Ring.shift``,
+  ``collectives.all_gather``) and fold in the kernels' order.
 * :func:`flash_attention_block` — the online-softmax fold of one K/V
   block into the (m, l, acc) carry, in place, causal in global positions
   (``flash_attention_block_pallas`` :3230), and :func:`flash_attention`
@@ -66,8 +77,9 @@ import functools
 import numpy as np
 import torch
 
+from tpu_mpi_tests_torch.comm.collectives import all_gather
 from tpu_mpi_tests_torch.comm.mesh import make_mesh
-from tpu_mpi_tests_torch.comm.peer import peer_ring
+from tpu_mpi_tests_torch.comm.peer import check_collective_world, peer_ring
 from tpu_mpi_tests_torch.kernels import build
 from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.stencil import (
@@ -154,6 +166,21 @@ _SIGNATURES = {
         [_c_void_p] * 7 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_double] * 3 + [_c_int, _c_int, _c_void_p, _c_int, _c_int,
                              _c_void_p, _c_void_p], _c_int),
+    # x, out, buf, right buf, pad, left pad, right pad; epoch, itemsize, w,
+    # my, n, seed_all, max_ctas, stream
+    "tpumt_ring_allgather": (
+        [_c_void_p] * 7 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
+                           _c_int, _c_void_p], _c_int),
+    # x, out, comm, right comm, send, pad, left pad, right pad; epoch,
+    # dtype, w, my, chunk elements, credits, max_ctas, stream
+    "tpumt_ring_reduce_scatter": (
+        [_c_void_p] * 8 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
+                           _c_int, _c_void_p], _c_int),
+    # x, out, comm buffers (w), pads (w); epoch, dtype, w, my, n, sum,
+    # max_ctas, stream
+    "tpumt_oneshot": (
+        [_c_void_p] * 4 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
+                           _c_int, _c_void_p], _c_int),
 }
 
 
@@ -1154,6 +1181,390 @@ stencil2d_fused_rdma.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the collectives: ring all-gather, ring reduce-scatter / allreduce, one-shot
+# ---------------------------------------------------------------------------
+
+
+def _coll_shard(x: torch.Tensor, name: str) -> None:
+    if x.dim() not in (1, 2) or x.numel() == 0:
+        raise ValueError(f"{name}: a non-empty 1-D or 2-D shard required, "
+                         f"got shape {tuple(x.shape)}")
+
+
+def _coll_ring(name: str, self_ring: "int | None" = None):
+    """``(k, my, ring)``: the ring's size and this rank's place in it —
+    the world's ring, or at world=1 the ``self_ring=k`` validation mode
+    (both neighbours the rank itself, ``my`` 0). Checked against the
+    pad's limit (:class:`~tpu_mpi_tests_torch.comm.peer.PeerError`)."""
+    ring = make_mesh()
+    if self_ring is None:
+        k, my = ring.size, ring.rank
+    else:
+        if ring.size != 1 or self_ring < 2:
+            raise ValueError(
+                f"{name}: self_ring={self_ring} is a single-device "
+                f"validation mode (needs world 1 and self_ring >= 2, got "
+                f"w={ring.size})")
+        k, my = int(self_ring), 0
+    check_collective_world(k, name)
+    return k, my, ring
+
+
+def _coll_cuda(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_cuda_operand(x, name)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def ring_allgather_ref(x: torch.Tensor, self_ring: "int | None" = None
+                       ) -> torch.Tensor:
+    """Plain version of :func:`ring_allgather`: the ranks' shards stacked
+    along dim 0 in rank order (``collectives.all_gather`` over the
+    process group); at world=1 a copy, or ``self_ring=k`` copies of the
+    shard."""
+    _coll_shard(x, "ring_allgather")
+    k, _, _ = _coll_ring("ring_allgather", self_ring)
+    if self_ring is not None:
+        return torch.cat([x] * k)
+    return all_gather(x)
+
+
+def ring_allgather(x: torch.Tensor, self_ring: "int | None" = None
+                   ) -> torch.Tensor:
+    """All-gather along dim 0 over the ring in w−1 hops (≅
+    ``ring_allgather_pallas``): ``x`` is this rank's (n,) or (n, m) shard;
+    returns the (w·n, …) array of every rank's shard in rank order. Step
+    s stores region (rank − s) mod w into the right neighbour's buffer,
+    each forward waiting for exactly the previous step's arrival. Any
+    dtype of 2, 4 or 8 bytes and any n: the TPU's tile floor is Mosaic's
+    and is not kept.
+
+    ``self_ring=k`` (world=1 only, 2 ≤ k ≤ 8): every region seeded with
+    ``x``, then the full k-step schedule into the rank's own buffer; the
+    result is ``tile(x, k)``. One launch per call; every rank must make
+    the same sequence of RDMA calls."""
+    _coll_shard(x, "ring_allgather")
+    k, my, _ = _coll_ring("ring_allgather", self_ring)
+    if x.device.type == "cpu":
+        return ring_allgather_ref(x, self_ring)
+    if x.device.type != "cuda":
+        raise ValueError(f"ring_allgather: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("ring_allgather: the CUDA kernel needs a "
+                         "contiguous tensor")
+    if x.element_size() not in (2, 4, 8):
+        raise TypeError(f"ring_allgather: {x.dtype} elements of "
+                        f"{x.element_size()} bytes are unsupported")
+    peer = peer_ring(x.device)
+    out = torch.empty((k * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    buf = right = out.data_ptr()
+    if peer.symmetric:  # the peers store into my receive buffer
+        ws = peer.workspace("ring_allgather", out.numel() * x.element_size())
+        buf, right = ws.data_ptr(), peer.peer_ptrs(ws)[1]
+    pad, left_pad, right_pad = peer.pad_ptrs()
+    fn = _entry("ring_collectives", "tpumt_ring_allgather")
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), out.data_ptr(), buf, right, pad, left_pad,
+                right_pad, peer.next_epoch(), x.element_size(), k, my,
+                x.numel(), int(self_ring is not None), 0, _stream(x))
+    if rc != 0:
+        _raise_launch("ring_allgather", rc)
+    ring_allgather.launches += 1
+    return out
+
+
+ring_allgather.launches = 0
+
+
+def ring_chunk_rows(x: torch.Tensor, k: int, name: str) -> int:
+    """The rows (elements of a 1-D shard) of one of the k chunks, or
+    ``ValueError`` with the rule."""
+    n = x.shape[0]
+    if n % k:
+        what = "elements" if x.dim() == 1 else "rows"
+        raise ValueError(
+            f"{name}: a shard of {n} {what} does not split into {k} equal "
+            f"chunks (the ring reduce-scatter needs {what} % w == 0)")
+    return n // k
+
+
+def ring_fold(chunk, k: int, my: int, shift) -> torch.Tensor:
+    """The ring reduce-scatter's folds at rank ``my`` of a k-ring, step for
+    step: ``chunk(c)`` is the rank's chunk c, ``shift(t)`` moves a partial
+    one hop right and returns what arrives from the left. Step s sends
+    the partial of chunk (my − s − 1) mod k and folds what arrives as
+    ``received + local chunk``; the last fold is chunk ``my`` of the sum."""
+    send = chunk((my - 1) % k)
+    for s in range(k - 1):
+        send = shift(send) + chunk((my - s - 2) % k)
+    return send
+
+
+def ring_reduce_scatter_ref(x: torch.Tensor, credits: int = 1,
+                            self_ring: "int | None" = None) -> torch.Tensor:
+    """Plain version of :func:`ring_reduce_scatter`: :func:`ring_fold`
+    with ``Ring.shift`` over the process group (the self-ring: the shift
+    is the identity); at world=1 a copy. ``credits`` changes when a
+    payload may move, never the result."""
+    _coll_shard(x, "ring_reduce_scatter")
+    _check_credits(credits)
+    k, my, ring = _coll_ring("ring_reduce_scatter", self_ring)
+    rows = ring_chunk_rows(x, k, "ring_reduce_scatter")
+    if k == 1:
+        return x.clone()
+    shift = (lambda t: t) if self_ring is not None else ring.shift
+    return ring_fold(lambda c: x[c * rows:(c + 1) * rows], k, my,
+                     shift).contiguous()
+
+
+def _check_credits(credits: int) -> None:
+    if credits not in (1, 2):
+        raise ValueError(f"credits={credits} must be 1 or 2")
+
+
+def ring_reduce_scatter(x: torch.Tensor, credits: int = 1,
+                        self_ring: "int | None" = None) -> torch.Tensor:
+    """Reduce-scatter along dim 0 over the ring (≅
+    ``ring_reduce_scatter_pallas``): this rank's (n,) or (n, m) shard in;
+    rank r returns chunk r (n/w rows, or elements of a 1-D shard) of the
+    elementwise sum. w−1 hops; step s stores the running partial of chunk
+    (r − s − 1) mod w into the right neighbour's comm slot s % credits,
+    and the receiver folds ``received + local chunk`` in the dtype (bf16
+    rounded per op): equal bit for bit to :func:`ring_reduce_scatter_ref`.
+    ``credits=2`` lets two payloads be in flight. The one alignment rule is
+    the algorithm's: n % w == 0 (``ValueError`` otherwise); world=1 is one
+    copy. ``self_ring=k`` (world=1 only, 2 ≤ k ≤ 8) runs the k-step
+    schedule on the rank itself and returns the fold of its own k chunks
+    in the ring's order. float32, float64, bfloat16. One launch per
+    call."""
+    _coll_shard(x, "ring_reduce_scatter")
+    _check_credits(credits)
+    k, my, _ = _coll_ring("ring_reduce_scatter", self_ring)
+    rows = ring_chunk_rows(x, k, "ring_reduce_scatter")
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_ref(x, credits, self_ring)
+    _coll_cuda(x, "ring_reduce_scatter")
+    peer = peer_ring(x.device)
+    out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    cn = out.numel()
+    comm = right = send = out.data_ptr()  # one rank: one copy, no slots
+    scratch = None
+    if k > 1:
+        ws = peer.workspace("ring_reduce_scatter",
+                            credits * cn * x.element_size())
+        comm = right = ws.data_ptr()
+        if peer.symmetric:
+            right = peer.peer_ptrs(ws)[1]
+        scratch = torch.empty(cn, dtype=x.dtype, device=x.device)
+        send = scratch.data_ptr()
+    pad, left_pad, right_pad = peer.pad_ptrs()
+    fn = _entry("ring_collectives", "tpumt_ring_reduce_scatter")
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), out.data_ptr(), comm, right, send, pad,
+                left_pad, right_pad, peer.next_epoch(),
+                DTYPE_CODES[x.dtype], k, my, cn, credits, 0, _stream(x))
+    if rc != 0:
+        _raise_launch("ring_reduce_scatter", rc)
+    ring_reduce_scatter.launches += 1
+    return out
+
+
+ring_reduce_scatter.launches = 0
+
+
+def ring_allreduce(x: torch.Tensor, credits: int = 1) -> torch.Tensor:
+    """Ring allreduce (≅ ``ring_allreduce_pallas``): every rank returns
+    the elementwise sum of the ranks' shards — :func:`ring_reduce_scatter`
+    then :func:`ring_allgather`, two launches with no barrier between
+    them (the all-gather's entry barrier orders the phases, :2732-2734);
+    one reduce-scatter launch (a copy) at world=1. On the CPU the two
+    wrappers take their plain versions."""
+    rs = ring_reduce_scatter(x, credits)
+    return rs if make_mesh().size == 1 else ring_allgather(rs)
+
+
+def oneshot_ref(x: torch.Tensor, op: str = "gather") -> torch.Tensor:
+    """Plain version of :func:`oneshot`: the ranks' shards gathered
+    (``collectives.all_gather``); for ``op="sum"`` folded in ascending source
+    rank, ``acc = shard_0; acc = acc + shard_s`` — bitwise
+    ``functools.reduce(add, shards)``."""
+    _coll_shard(x, "oneshot")
+    _check_op(op)
+    k, _, _ = _coll_ring("oneshot")
+    g = all_gather(x)
+    if op == "gather":
+        return g
+    n = x.shape[0]
+    acc = g[:n]
+    for s in range(1, k):
+        acc = acc + g[s * n:(s + 1) * n]
+    return acc.contiguous()
+
+
+def _check_op(op: str) -> None:
+    if op not in ("gather", "sum"):
+        raise ValueError(f"op must be 'gather' or 'sum', got {op!r}")
+
+
+def oneshot(x: torch.Tensor, op: str = "gather") -> torch.Tensor:
+    """One-shot all-gather (``op="gather"``) or allreduce (``"sum"``) along
+    dim 0 (≅ ``_oneshot_call``): one launch in which every rank stores its
+    whole shard into its slot of every peer's comm buffer behind an
+    all-to-all entry barrier, waits for the w−1 arrivals, then copies the
+    slots to the (w·n, …) output or folds them in ascending source rank
+    into the (n, …) output — the same bits on every rank. Any n (the JAX
+    wrapper's pad to a TPU tile is Mosaic's); float32, float64, bfloat16;
+    at most 8 ranks. World=1: one copy."""
+    _coll_shard(x, "oneshot")
+    _check_op(op)
+    k, my, _ = _coll_ring("oneshot")
+    if x.device.type == "cpu":
+        return oneshot_ref(x, op)
+    _coll_cuda(x, "oneshot")
+    peer = peer_ring(x.device)
+    rows = x.shape[0] * (k if op == "gather" else 1)
+    out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    comms = (out.data_ptr(),)  # world=1: no comm buffer is read
+    if k > 1:
+        ws = peer.workspace("oneshot", k * x.numel() * x.element_size())
+        comms = peer.peer_ptrs_all(ws)
+    pads = peer.pad_ptrs_all()
+    fn = _entry("oneshot", "tpumt_oneshot")
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), out.data_ptr(), (_c_void_p * k)(*comms),
+                (_c_void_p * k)(*pads), peer.next_epoch(),
+                DTYPE_CODES[x.dtype], k, my, x.numel(), int(op == "sum"), 0,
+                _stream(x))
+    if rc != 0:
+        _raise_launch("oneshot", rc)
+    oneshot.launches += 1
+    return out
+
+
+oneshot.launches = 0
+
+
+def oneshot_allgather(x: torch.Tensor) -> torch.Tensor:
+    """≅ ``oneshot_allgather_pallas``: :func:`oneshot` with ``op="gather"``."""
+    return oneshot(x, "gather")
+
+
+def oneshot_allreduce(x: torch.Tensor) -> torch.Tensor:
+    """≅ ``oneshot_allreduce_pallas``: :func:`oneshot` with ``op="sum"``."""
+    return oneshot(x, "sum")
+
+
+def coll_world_ref(name: str, shards) -> list:
+    """Every rank's result of the collective ``name`` (``ring_allgather``,
+    ``ring_reduce_scatter``, ``oneshot_allgather``, ``oneshot_allreduce``)
+    over the ranks' ``shards`` (one per rank, on any device), computed in
+    one process: the plain versions' copies and folds with the ring's hops
+    done by indexing. Holds the card's cross-wired instances
+    (:func:`cross_wired`) against the plain versions' values."""
+    k = len(shards)
+    if name in ("ring_allgather", "oneshot_allgather"):
+        g = torch.cat(list(shards))
+        return [g.clone() for _ in range(k)]
+    if name == "oneshot_allreduce":
+        acc = shards[0]
+        for s in range(1, k):
+            acc = acc + shards[s]
+        return [acc.clone() for _ in range(k)]
+    if name != "ring_reduce_scatter":
+        raise ValueError(f"unknown collective {name!r}")
+    rows = ring_chunk_rows(shards[0], k, name)
+    # step-synchronous ring: sends[r] moves to rank r + 1 each step
+    sends = [shards[r][((r - 1) % k) * rows:((r - 1) % k + 1) * rows]
+             for r in range(k)]
+    for s in range(k - 1):
+        sends = [sends[(r - 1) % k] + shards[r][
+            ((r - s - 2) % k) * rows:((r - s - 2) % k + 1) * rows]
+            for r in range(k)]
+    return [t.contiguous() for t in sends]
+
+
+def cross_wired(name: str, shards, credits: int = 1,
+                max_ctas: int = 4) -> list:
+    """``len(shards)`` instances of a collective kernel launched from one
+    process on one card, each on its own stream with its own buffers and
+    signal pad, their peer pointers wired to each other's: the kernels'
+    w > 1 data path and cross-rank signalling on a single card. Each
+    instance's grid is capped at ``max_ctas`` so that every instance is
+    resident at once. Counts no launch (a check, not a path). Returns the
+    instances' outputs (in rank order)."""
+    k = len(shards)
+    check_collective_world(k, name)
+    x0 = shards[0]
+    dev = x0.device
+    item = x0.element_size()
+    pads = [torch.zeros(64, dtype=torch.int32, device=dev) for _ in range(k)]
+    streams = [torch.cuda.Stream(dev) for _ in range(k)]
+    torch.cuda.synchronize(dev)
+    if name == "ring_allgather":
+        outs = [torch.empty((k * x0.shape[0],) + tuple(x0.shape[1:]),
+                            dtype=x0.dtype, device=dev) for _ in range(k)]
+        bufs = [torch.empty_like(o) for o in outs]
+        fn = _entry("ring_collectives", "tpumt_ring_allgather")
+
+        def launch(r):
+            return fn(shards[r].data_ptr(), outs[r].data_ptr(),
+                      bufs[r].data_ptr(), bufs[(r + 1) % k].data_ptr(),
+                      pads[r].data_ptr(), pads[(r - 1) % k].data_ptr(),
+                      pads[(r + 1) % k].data_ptr(), 1, item, k, r,
+                      x0.numel(), 0, max_ctas, streams[r].cuda_stream)
+    elif name == "ring_reduce_scatter":
+        rows = ring_chunk_rows(x0, k, name)
+        outs = [torch.empty((rows,) + tuple(x0.shape[1:]), dtype=x0.dtype,
+                            device=dev) for _ in range(k)]
+        cn = outs[0].numel()
+        comms = [torch.empty(credits * cn, dtype=x0.dtype, device=dev)
+                 for _ in range(k)]
+        sends = [torch.empty(cn, dtype=x0.dtype, device=dev)
+                 for _ in range(k)]
+        fn = _entry("ring_collectives", "tpumt_ring_reduce_scatter")
+
+        def launch(r):
+            return fn(shards[r].data_ptr(), outs[r].data_ptr(),
+                      comms[r].data_ptr(), comms[(r + 1) % k].data_ptr(),
+                      sends[r].data_ptr(), pads[r].data_ptr(),
+                      pads[(r - 1) % k].data_ptr(),
+                      pads[(r + 1) % k].data_ptr(), 1,
+                      DTYPE_CODES[x0.dtype], k, r, cn, credits, max_ctas,
+                      streams[r].cuda_stream)
+    elif name in ("oneshot_allgather", "oneshot_allreduce"):
+        gather = name == "oneshot_allgather"
+        rows = x0.shape[0] * (k if gather else 1)
+        outs = [torch.empty((rows,) + tuple(x0.shape[1:]), dtype=x0.dtype,
+                            device=dev) for _ in range(k)]
+        comms = [torch.empty(k * x0.numel(), dtype=x0.dtype, device=dev)
+                 for _ in range(k)]
+        comm_ptrs = (_c_void_p * k)(*[c.data_ptr() for c in comms])
+        pad_ptrs = (_c_void_p * k)(*[p.data_ptr() for p in pads])
+        fn = _entry("oneshot", "tpumt_oneshot")
+
+        def launch(r):
+            return fn(shards[r].data_ptr(), outs[r].data_ptr(), comm_ptrs,
+                      pad_ptrs, 1, DTYPE_CODES[x0.dtype], k, r, x0.numel(),
+                      int(not gather), max_ctas, streams[r].cuda_stream)
+    else:
+        raise ValueError(f"unknown collective {name!r}")
+    with torch.cuda.device(dev):
+        for r in range(k):
+            rc = launch(r)
+            if rc != 0:
+                _raise_launch(f"cross-wired {name} instance {r}", rc)
+    torch.cuda.synchronize(dev)
+    return outs
+
+
+# ---------------------------------------------------------------------------
 # streaming passes: daxpy, scale, sum3
 # ---------------------------------------------------------------------------
 
@@ -1604,6 +2015,9 @@ WRAPPERS = {
     "unpack_ghosts": unpack_ghosts,
     "ring_halo": ring_halo,
     "stencil2d_fused_rdma": stencil2d_fused_rdma,
+    "ring_allgather": ring_allgather,
+    "ring_reduce_scatter": ring_reduce_scatter,
+    "oneshot": oneshot,
     "daxpy": daxpy,
     "stream_scale": stream_scale,
     "stream_sum3": stream_sum3,
