@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card. Phases (any
 failure exits non-zero and prints no result line):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build all sixteen hand kernels (twelve libraries) from
+2. build all seventeen hand kernels (thirteen libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -67,7 +67,14 @@ failure exits non-zero and prints no result line):
    the main paths' operands; then w = 2 and 4 instances of each kernel
    launched from this one process on their own streams, their peer
    pointers cross-wired, against the plain versions' world computed on
-   the CPU; tolerance 0;
+   the CPU; tolerance 0. The fused ring attention
+   (``check_fused_ring_kernel``) over float32/bfloat16 × HIGHEST/DEFAULT
+   × {dense, causal, causal striped} at world=1 and on the self-ring k =
+   2, 4, 8 at (333, 17) and (1000, 128), as w = 2 and 4 cross-wired
+   instances at (500, 64) a rank, and at the main path's (8192, 128):
+   every case bit for bit the pipelined tier's flash launches (the same
+   tile body, ``csrc/flash_fold.cuh``), and within the flash kernel's
+   tolerances of its plain version (the ring's hops done by indexing);
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -111,11 +118,16 @@ failure exits non-zero and prints no result line):
    bfloat16 ``--fast``, and the striped causal ring, and the microbench
    groups ``attention`` and ``causal`` at the JAX sizes: the flash kernel
    launched once per attention call of the flash, ring and ulysses tiers
-   (none in xla), no FAIL, every TFLOP/s row finite and at most 1.05 ×
-   the peak of its arithmetic (67 f32, 495 TF32, 989 bf16). Then the
-   one-card slice (``run_one_card_slice``), each path alone: the
-   microbench groups ``vpu`` and ``roofline2`` at the full (512, 512)
-   probe block and the JAX kernel sizes (fewer chained probe calls than
+   (none in xla); and ``attnbench --tiers ring,ulysses`` under
+   ``--ring-tier pipelined`` and ``fused`` in float32, bfloat16
+   ``--fast`` and the striped causal layout — exactly one flash launch
+   per call of each pipelined tier, one fused launch per fused ring call,
+   the ``[fused]`` tag exactly on the fused rows — no FAIL, every
+   TFLOP/s row finite and at most 1.05 × the peak of its arithmetic (67
+   f32, 495 TF32, 989 bf16). Then the one-card slice
+   (``run_one_card_slice``), each path alone: the microbench groups
+   ``vpu`` and ``roofline2`` at the full (512, 512) probe block and the
+   JAX kernel sizes (fewer chained probe calls than
    ``python -m tpu_mpi_tests_torch.microbench`` makes, the same reps
    triples; ``roofline2`` a second time at 8192² and 4104..8200, where
    one body's device work outlasts the host's enqueue time), then
@@ -161,7 +173,12 @@ failure exits non-zero and prints no result line):
    (all-gather; reduce-scatter at credits 1 and 2) and the world=1
    one-shot (gather and sum), then at the main paths' world=1 operands,
    beside ``torch.tile``, ``x.view(k, -1).sum(0)`` and ``x.clone()``
-   (bound: the shard read once and the output written once);
+   (bound: the shard read once and the output written once); the fused
+   ring attention at (8192, 128) at world=1 and on the self-ring k = 4
+   beside its plain version, the pipelined tier's flash launches, its
+   flop bound (live pairs of this run's masks) and
+   ``F.scaled_dot_product_attention`` where one call computes the same
+   function (K/V tiled k times on the dense self-ring);
 6. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
@@ -245,6 +262,23 @@ ATTNBENCH_PATHS = (
     ("attnbench ring causal stripe",
      ["--tiers", "ring", "--causal", "--stripe"], 1),
 )
+# the ring over ranks' paths: ring and ulysses under each rotation tier,
+# f32 HIGHEST, bf16 --fast and the striped causal f32 layout; the
+# pipelined ring makes one flash launch per call (a ring of one), the
+# fused one one fused launch per call; ulysses one flash launch per call
+ATTN_RING_CONFIGS = (("float32", []), ("bfloat16 fast",
+                                       ["--dtype", "bfloat16", "--fast"]),
+                     ("float32 causal stripe", ["--causal", "--stripe"]))
+ATTN_RING_PATHS = tuple(
+    (f"attnbench ring,ulysses {tier} {name}",
+     ["--tiers", "ring,ulysses", "--ring-tier", tier] + extra,
+     {"flash_attention_block": (2 if tier == "pipelined" else 1) * ATTN_CALLS,
+      "fused_ring_attention": (tier == "fused") * ATTN_CALLS})
+    for tier in ("pipelined", "fused") for name, extra in ATTN_RING_CONFIGS)
+FRA_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/fused_ring_attention.cu"
+FRA_REPLACES = "tpu_mpi_tests/kernels/collectives_pallas.py:529"
+FRA_ALSO_REPLACES = ("tpu_mpi_tests/kernels/collectives_pallas.py:376 "
+                     "(kernel body), :361 (fused_ring_feasible)")
 # the attention microbench groups: attention = 2 dtypes x one chained
 # flash arm of 3 + 100 + 1100 calls; causal = 5 arms per size of 3 +
 # iters/10 + iters calls, iters = 800 at L=8192 and 200 at L=32768
@@ -551,6 +585,8 @@ def check_kernels(device):
     n_cases += n_ring
     n_coll, coll_errs = check_coll_kernels(device, rand, failures)
     n_cases += n_coll
+    n_fused, fused_main, fused_classes = check_fused_ring_kernel(
+        device, gen, failures)
 
     # the main-path shapes: the bench's f32 blocks and bf16 dim-1 buffer,
     # the driver's periodic iterate blocks, the driver's derivatives, the
@@ -607,7 +643,11 @@ def check_kernels(device):
                            + "\n  ".join(failures))
     log(f"CHECK {n_cases} kernel-vs-plain cases bit-exact (the probe's dual "
         f"mixes and the dual step's residuals within their tolerances), "
-        f"{n_flash} flash cases within their tolerances")
+        f"{n_flash} flash cases within their tolerances, {n_fused} fused "
+        f"ring attention cases bit for bit the pipelined flash launches and "
+        f"within the flash tolerances of their plain version")
+    errs["fused_ring_attention"] = fused_main
+    errs["fused_ring_attention classes"] = fused_classes
     # the flash kernel's main-path error: the normalised output at the
     # f32 HIGHEST operand; every class beside it
     errs["flash_attention_block"] = max(
@@ -1424,25 +1464,26 @@ def run_attention_slice(device, counts, peaks):
     from tpu_mpi_tests_torch import microbench
     from tpu_mpi_tests_torch.drivers import attnbench
 
-    line_re = re.compile(r"^ATTN (\w+)(\[striped\])? L=\d+ d=\d+ (\w+) "
+    line_re = re.compile(r"^ATTN (\w+)((?:\[\w+\])*) L=\d+ d=\d+ (\w+) "
                          r"(\S+) TFLOP/s$")
-    for path, extra, n_flash_tiers in ATTNBENCH_PATHS:
+    paths = [(path, extra, {"flash_attention_block": n * ATTN_CALLS})
+             for path, extra, n in ATTNBENCH_PATHS] + list(ATTN_RING_PATHS)
+    for path, extra, want in paths:
         argv = ["--device", device.type] + _ATTN_ARGV + extra
         fast = "--fast" in extra
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            counts[path] = drive_driver(path, attnbench, argv,
-                                        ["flash_attention_block"],
-                                        ("ATTN ",), peaks)
+            counts[path] = drive_driver(
+                path, attnbench, argv, [k for k, n in want.items() if n],
+                ("ATTN ",), peaks)
         text = out.getvalue()
         for line in text.splitlines():
             log(line)
-        want = n_flash_tiers * ATTN_CALLS
-        got = counts[path]["flash_attention_block"]
-        if got != want:
-            raise SmokeFailure(f"{path}: {got} flash launches, its schedule "
-                               f"makes {want} ({n_flash_tiers} flash tiers "
-                               f"x {ATTN_CALLS} calls)")
+        _exact(path, counts[path], want)
+        fused = "fused" in extra
+        if ("[fused]" in text) != fused:
+            raise SmokeFailure(f"{path}: the [fused] tag must appear exactly "
+                               f"when the fused kernel ran")
         # drive_driver logged the driver's lines indented, into ``out``
         rows = [line_re.match(ln.strip()) for ln in text.splitlines()
                 if ln.strip().startswith("ATTN ")]
@@ -1481,6 +1522,217 @@ def run_attention_slice(device, counts, peaks):
                 check_rate(path, r["metric"], useful, PEAK_FLOPS["bf16"])
         records += recs
     return records
+
+
+# ---------------------------------------------------------------------------
+# the fused ring attention: every ring step in one launch
+# ---------------------------------------------------------------------------
+
+FRA_CONFIGS = tuple((dt, precision) for dt in ("float32", "bfloat16")
+                    for precision in ("highest", "default"))
+FRA_LAYOUTS = ((False, False), (True, False), (True, True))
+# the main path's operands: attnbench at world 1 (one step) in its fused
+# configurations — f32 HIGHEST, bf16 --fast, f32 causal striped
+FRA_MAIN = (("float32", "highest", False, False),
+            ("bfloat16", "default", False, False),
+            ("float32", "highest", True, True))
+
+
+def fused_tolerance(dtype: str, precision: str, want) -> float:
+    """Kernel vs plain on the normalised output: f32 arithmetic (HIGHEST)
+    to FLASH_ATOL, the tensor cores (DEFAULT) to FLASH_DEFAULT_ATOL of
+    the plain version at HIGHEST — the flash kernel's tolerances, since
+    each step is its fold; a bf16 output adds its own rounding (one ulp,
+    2^-8 relative)."""
+    tol = FLASH_ATOL if precision == "highest" else FLASH_DEFAULT_ATOL[dtype]
+    if dtype == "bfloat16":
+        tol += 2.0**-8 * float(want.float().abs().max())
+    return tol
+
+
+def check_fused_ring_kernel(device, gen, failures):
+    """The fused ring attention against its plain version and, bit for
+    bit, against the pipelined tier's flash launches
+    (``hand.ring_attention_steps(kernel=True)``: w launches of
+    ``flash_attention_block``, whose tile body the kernel shares):
+    float32/bfloat16 × HIGHEST/DEFAULT × {plain, causal, causal+striped}
+    at world 1 and on the self-ring k = 2, 4, 8 at (333, 17) and (1000,
+    128); w = 2 and 4 instances cross-wired on one card at (500, 64) a
+    rank, against the one-process world (``hand.fused_ring_world_ref``,
+    the hops by indexing); the main path's operands at (8192, 128).
+    Returns (cases, the main path's largest error, the error per class,
+    the cross-wired one's)."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    classes: dict[str, float] = {}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def check(name, cls, got, flash, plain, dtype, precision):
+        if not torch.equal(got, flash):
+            diff = float((got.float() - flash.float()).abs().max())
+            failures.append(f"fused {name}: not bitwise the pipelined "
+                            f"flash launches (max |diff| {diff:g})")
+        err = float((got.float() - plain.float()).abs().max())
+        tol = fused_tolerance(dtype, precision, plain)
+        if not err <= tol or not bool(torch.isfinite(got.float()).all()):
+            failures.append(f"fused {name}: max |kernel - plain| = {err:g} "
+                            f"beyond {tol:g}")
+        classes[cls] = max(classes.get(cls, 0.0), err)
+        return err
+
+    n_cases = 0
+    for dt, precision in FRA_CONFIGS:
+        dtype = getattr(torch, dt)
+        for causal, stripe in FRA_LAYOUTS:
+            kw = dict(causal=causal, stripe=stripe, precision=precision)
+            for L, d in ((333, 17), (1000, 128)):
+                q, k, v = (rand((L, d), dtype) for _ in range(3))
+                for ring in (None, 2, 4, 8):
+                    w = ring or 1
+                    got = hand.fused_ring_attention(q, k, v, self_ring=ring,
+                                                    **kw)
+                    flash = hand.fused_ring_world_ref([(q, k, v)] * w,
+                                                      kernel=True, **kw)[0]
+                    plain = hand.fused_ring_attention_ref(
+                        q, k, v, self_ring=ring, causal=causal,
+                        stripe=stripe)
+                    check(f"{dt} {precision} causal={causal} stripe="
+                          f"{stripe} ({L}, {d}) self_ring={ring}",
+                          f"{dt} {precision} "
+                          f"{'world 1' if ring is None else 'self-ring'}",
+                          got, flash, plain, dt, precision)
+                    n_cases += 1
+            for w in (2, 4):
+                blocks = [tuple(rand((500, 64), dtype) for _ in range(3))
+                          for _ in range(w)]
+                got = hand.cross_wired("fused_ring_attention", blocks, **kw)
+                flash = hand.fused_ring_world_ref(blocks, kernel=True, **kw)
+                plain = hand.fused_ring_world_ref(blocks, causal=causal,
+                                                  stripe=stripe)
+                for r in range(w):
+                    check(f"cross-wired w={w} rank {r} {dt} {precision} "
+                          f"causal={causal} stripe={stripe}",
+                          "cross-wired", got[r], flash[r], plain[r], dt,
+                          precision)
+                n_cases += 1
+    main = 0.0
+    for dt, precision, causal, stripe in FRA_MAIN:
+        dtype = getattr(torch, dt)
+        q, k, v = (rand((ATTN_L, ATTN_D), dtype) for _ in range(3))
+        kw = dict(causal=causal, stripe=stripe, precision=precision)
+        got = hand.fused_ring_attention(q, k, v, **kw)
+        flash = hand.fused_ring_world_ref([(q, k, v)], kernel=True, **kw)[0]
+        plain = hand.fused_ring_attention_ref(q, k, v, causal=causal,
+                                              stripe=stripe)
+        err = check(f"main-path ({ATTN_L}, {ATTN_D}) {dt} {precision} "
+                    f"causal={causal} stripe={stripe}", "main path", got,
+                    flash, plain, dt, precision)
+        if precision == "highest":
+            main = max(main, err)
+        n_cases += 1
+        del q, k, v, got, flash, plain
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    log(f"FUSED_RING_ERRORS largest per class {json.dumps(classes)}")
+    return n_cases, main, classes
+
+
+def fused_ring_work(lq, d, dtype, w, causal, stripe):
+    """(bytes, flops) of one fused launch on rank 0 of a w-ring of
+    identical blocks (the self-ring): q, k, v read once, out written
+    once, the (w-1) forwarded K/V blocks written and read once; 4·d flops
+    per live (query, key) pair of the w steps, counted from the masks."""
+    import torch
+
+    item = torch.empty((), dtype=dtype).element_size()
+    i = torch.arange(lq, dtype=torch.float64)
+    pairs = 0
+    for s in range(w):
+        src = (-s) % w
+        if not causal:
+            pairs += lq * lq
+        elif stripe:  # q_pos = i·w, k_pos = j·w + src: j <= i - (src > 0)
+            pairs += int((i + (src == 0)).clamp(0, lq).sum())
+        else:         # q_pos = i, k_pos = src·lq + j
+            pairs += int((i + 1 - src * lq).clamp(0, lq).sum())
+    nbytes = 4 * lq * d * item + 2 * (w - 1) * 2 * lq * d * item
+    return nbytes, 4 * d * pairs
+
+
+def time_fused_ring_kernel(device, gen):
+    """The fused ring attention at (8192, 128), CUDA events (warmed): at
+    world 1 (f32 HIGHEST dense and causal, bf16 DEFAULT) and on the
+    self-ring k = 4 (f32 HIGHEST dense, bf16 DEFAULT dense, f32 HIGHEST
+    causal striped), beside its plain version, its bound (flops over the
+    peak of the arithmetic, or bytes over 3.35 TB/s) and, where one call
+    computes the same function, ``F.scaled_dot_product_attention``: q, k,
+    v at world 1; K/V tiled k times on the non-causal self-ring (each key
+    k times: the same softmax); none on the causal self-ring."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for ring, dt, precision, causal, stripe in (
+            (None, "float32", "highest", False, False),
+            (None, "float32", "highest", True, False),
+            (None, "bfloat16", "default", False, False),
+            (4, "float32", "highest", False, False),
+            (4, "bfloat16", "default", False, False),
+            (4, "float32", "highest", True, True)):
+        dtype = getattr(torch, dt)
+        L, d, w = ATTN_L, ATTN_D, ring or 1
+        q, k, v = (torch.randn((L, d), generator=gen, device=device)
+                   .to(dtype) for _ in range(3))
+        kw = dict(causal=causal, stripe=stripe, precision=precision)
+        n = 10 if w == 1 else 4
+        ms = time_cuda(lambda: hand.fused_ring_attention(
+            q, k, v, self_ring=ring, **kw), n)
+        plain = time_cuda(lambda: hand.fused_ring_attention_ref(
+            q, k, v, self_ring=ring, **kw), 2)
+        # the pipelined tier's w flash launches for rank 0 of the ring
+        flash = time_cuda(lambda: hand.ring_attention_steps(
+            q, lambda s: (k, v), 0, w, scale=d**-0.5, kernel=True, **kw), n)
+        lib = None
+        if w == 1:
+            lib = time_cuda(lambda: F.scaled_dot_product_attention(
+                q[None, None], k[None, None], v[None, None],
+                is_causal=causal), n)
+        elif not causal:
+            kt, vt = k.repeat(w, 1), v.repeat(w, 1)
+            lib = time_cuda(lambda: F.scaled_dot_product_attention(
+                q[None, None], kt[None, None], vt[None, None]), n)
+        nbytes, flops = fused_ring_work(L, d, dtype, w, causal, stripe)
+        arith = "f32" if precision == "highest" else (
+            "bf16" if dtype == torch.bfloat16 else "tf32")
+        t_ops = flops / PEAK_FLOPS[arith] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "path": ("attnbench --ring-tier fused" if w == 1
+                     else "self-ring k=4"),
+            "shape": [L, d], "self_ring": ring, "dtype": dt,
+            "causal": causal, "stripe": stripe, "precision": precision,
+            "arithmetic": arith, "ms": ms, "plain_ms": plain,
+            "pipelined_flash_ms": flash,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib,
+            "library_call": None if lib is None else (
+                "F.scaled_dot_product_attention (1,1,L,d)"
+                + ("" if w == 1 else f", K/V tiled {w}x")
+                + (", TF32 off" if dtype == torch.float32 else "")),
+            "live_pairs": flops // (4 * d), "tflops": flops / ms / 1e9})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1885,8 +2137,10 @@ def rdma_world2_legs():
                  join=True)
     log("RDMA world=2 NCCL leg: fused == chained bit for bit over "
         f"{RING_CHAIN} calls, the RDMA exchange equal to DIRECT on both "
-        f"ranks, {PAIR_RUNS} runs on fresh inputs without growth, and the "
-        f"collective kernels' tiers equal to NCCL's calls")
+        f"ranks, {PAIR_RUNS} runs on fresh inputs without growth, the "
+        f"collective kernels' tiers equal to NCCL's calls, and ring "
+        f"attention's tiers (depth 1 and 2, fused) and Ulysses over the "
+        f"two ranks bit for bit their one-process counterparts")
 
 
 #: runs on fresh inputs in the NCCL leg's peer-memory lifetime check
@@ -1940,8 +2194,66 @@ def _nccl_rank(rank, world, init_method):
                                f"pairs outlive their results ({grown} "
                                f"bytes after {PAIR_RUNS} runs)")
         _nccl_collectives(rank, world, gen)
+        _nccl_attention(rank, world)
     finally:
         dist.shutdown()
+
+
+def _nccl_attention(rank, world):
+    """Attention over the ranks at world=2 (NCCL hops and all-to-alls,
+    symmetric-memory slots): ring attention's flash tier at depth 1 and
+    2, its fused tier and the one-process world of flash launches
+    (``hand.fused_ring_world_ref(kernel=True)``) bit for bit alike, the
+    torch-op tier depth-invariant bit for bit, and Ulysses' flash form
+    equal to ``flash_attention`` over the whole sequence (each head the
+    same fold); then the fused and pipelined tiers timed side by side at
+    L=8192, d=128."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import alltoall as A
+    from tpu_mpi_tests_torch.comm import ring as R
+    from tpu_mpi_tests_torch.comm.collectives import shard_1d
+    from tpu_mpi_tests_torch.kernels import hand
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    L, d = ATTN_L, ATTN_D
+    lq = L // world
+    g = [torch.randn((L, d), generator=gen, device="cuda") for _ in range(3)]
+    for causal, stripe in ((False, False), (True, False), (True, True)):
+        glob = [R.to_striped(t, world) for t in g] if stripe else g
+        mine = [shard_1d(t, "cuda") for t in glob]
+        kw = dict(causal=causal, stripe=stripe)
+        outs = {f"flash depth {dp}": R.ring_attention_fn(
+            world, flash=True, depth=dp, **kw)(*mine) for dp in (1, 2)}
+        outs["fused"] = R.ring_attention_fn(world, tier="fused", **kw)(*mine)
+        outs["world of flash launches"] = hand.fused_ring_world_ref(
+            [tuple(t[r * lq:(r + 1) * lq] for t in glob)
+             for r in range(world)], kernel=True, **kw)[rank]
+        xla = [R.ring_attention_fn(world, depth=dp, **kw)(*mine)
+               for dp in (1, 2)]
+        torch.cuda.synchronize()
+        first = outs["flash depth 1"]
+        bad = [name for name, o in outs.items() if not torch.equal(o, first)]
+        if bad or not torch.equal(*xla):
+            raise SmokeFailure(f"NCCL leg rank {rank} causal={causal} "
+                               f"stripe={stripe}: {bad or 'xla depth 2'} "
+                               f"differs")
+    heads = 2 * world
+    h = [torch.randn((L, heads, 64), generator=gen, device="cuda")
+         for _ in range(3)]
+    got = A.ulysses_attention_fn(world, causal=True, flash=True)(
+        *(shard_1d(t, "cuda") for t in h))
+    want = hand.flash_attention(*h, causal=True)[rank * lq:(rank + 1) * lq]
+    if not torch.equal(got, want):
+        raise SmokeFailure(f"NCCL leg rank {rank}: Ulysses differs from "
+                           f"flash_attention over the whole sequence")
+    mine = [shard_1d(t, "cuda") for t in g]
+    times = [[tier, time_cuda(lambda tier=tier: R.ring_attention_fn(
+        world, flash=True, tier=tier)(*mine), 20)]
+        for tier in ("pipelined", "fused", "fused", "pipelined")]
+    log(f"TIME NCCL leg rank {rank} world={world} ring attention L={L} "
+        f"d={d} f32 HIGHEST (ms per call): {json.dumps(times)}")
 
 
 def _nccl_collectives(rank, world, gen):
@@ -2369,6 +2681,7 @@ def time_kernels(device):
     rows.update(time_coll_kernels(device, gen))
     rows.update(time_stream_kernels(device, gen))
     rows["flash_attention_block"] = time_flash_kernel(device, gen)
+    rows["fused_ring_attention"] = time_fused_ring_kernel(device, gen)
     for name, rs in rows.items():
         for r in rs:
             log(f"TIME {name} {json.dumps(r)}")
@@ -2639,7 +2952,8 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line or \
                         "error" in line.lower() or (
-                            name == "flash_attention"
+                            name in ("flash_attention",
+                                     "fused_ring_attention")
                             and "Compiling entry" in line):
                     log(f"  ptxas {name}: {line.strip()}")
 
@@ -2674,7 +2988,8 @@ def main() -> int:
             ("stencil2d_fused_rdma", FUSED_SOURCE, FUSED_REPLACES),
             ("ring_allgather", COLL_SOURCE, AG_REPLACES),
             ("ring_reduce_scatter", COLL_SOURCE, RS_REPLACES),
-            ("oneshot", ONESHOT_SOURCE, ONESHOT_REPLACES)):
+            ("oneshot", ONESHOT_SOURCE, ONESHOT_REPLACES),
+            ("fused_ring_attention", FRA_SOURCE, FRA_REPLACES)):
         main_row = rows[name][0]
         extra = {}
         if name == "flash_attention_block":
@@ -2701,6 +3016,13 @@ def main() -> int:
         if name == "oneshot":
             extra = {"also_replaces": ONESHOT_ALSO_REPLACES,
                      "cross_wired_max_abs_err": errs["cross-wired"]}
+        if name == "fused_ring_attention":
+            # max_abs_err: the normalised output at the main path's f32
+            # HIGHEST operands (8192, 128); every class beside it, each
+            # case also bit for bit the pipelined tier's flash launches
+            extra = {"also_replaces": FRA_ALSO_REPLACES,
+                     "max_abs_err_by_class":
+                         errs["fused_ring_attention classes"]}
         if name == "alu_probe":
             # max_abs_err is the bit-exact mixes' (fma, step5*, heat5);
             # the dual mixes feed a sum in another order back and are

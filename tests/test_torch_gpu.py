@@ -18,7 +18,11 @@ drivers and the microbench groups run on the card at small sizes. The
 flash-attention fold is held against its plain version within stated
 tolerances (sums in another order; tensor-core operands rounded at
 DEFAULT), dense and causal with masked, live and strided offsets, and in
-the (L, H, d) layout in one launch. The ALU probe is held bit for bit
+the (L, H, d) layout in one launch. The fused ring attention is held
+bit for bit against the pipelined tier's flash launches and within the
+flash tolerances against its plain version, at world=1, on the self-ring
+(k = 2, 4, 8) and as w = 2 and 4 instances cross-wired on one card,
+chained on the 128-word pad. The ALU probe is held bit for bit
 (``fma``, ``step5*``, ``heat5``) or within ``hand.alu_probe_tolerance``
 (the dual mixes), with its chain property and capacity guard; pack and
 unpack bit for bit on both axes, and the hand-staged exchange against
@@ -721,3 +725,120 @@ def test_collective_drivers_on_card(card, capsys):
     assert after["ring_reduce_scatter"] > before["ring_reduce_scatter"]
     assert gather_inplace.main(["--n-per-rank", "4096", "--rdma"]) == 0
     assert capsys.readouterr().out == "0/1 lsum=4096.0 asum=4096.0\n"
+
+
+# ---------------------------------------------------------------------------
+# the fused ring attention: every ring step in one launch
+# ---------------------------------------------------------------------------
+
+FUSED_LAYOUTS = [(False, False), (True, False), (True, True)]
+
+
+def fused_tolerance(dtype, precision, want):
+    """Kernel vs plain: f32 arithmetic (HIGHEST) to 1e-5, the tensor cores
+    (DEFAULT) to FLASH_DEFAULT_ATOL of the plain version at HIGHEST; a
+    bf16 output adds its own rounding (one ulp, 2^-8 relative)."""
+    tol = 1e-5 if precision == "highest" else FLASH_DEFAULT_ATOL[dtype]
+    if dtype == torch.bfloat16:
+        tol += 2.0**-8 * want.float().abs().max().item()
+    return tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("causal,stripe", FUSED_LAYOUTS)
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+@pytest.mark.parametrize("L,d", [(7, 17), (200, 64), (130, 256)])
+def test_fused_ring_kernel_matches_plain_and_pipelined(card, dtype, precision,
+                                                       causal, stripe, k, L,
+                                                       d):
+    """At world=1 (one step) and on the self-ring (k steps into the rank's
+    own slots): bit for bit the pipelined tier's flash launches, and the
+    plain version within the flash kernel's tolerances."""
+    q, kk, v = (rand(card, (L, d), dtype, s) for s in (1, 2, 3))
+    kw = dict(causal=causal, stripe=stripe, precision=precision)
+    before = hand.fused_ring_attention.launches
+    got = hand.fused_ring_attention(q, kk, v, self_ring=k, **kw)
+    torch.cuda.synchronize(card)
+    assert hand.fused_ring_attention.launches == before + 1
+    w = k or 1
+    flash = hand.fused_ring_world_ref([(q, kk, v)] * w, kernel=True, **kw)[0]
+    assert torch.equal(got, flash)
+    want = hand.fused_ring_attention_ref(q, kk, v, self_ring=k, causal=causal,
+                                         stripe=stripe)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= fused_tolerance(dtype, precision, want), err
+
+
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("causal,stripe", FUSED_LAYOUTS)
+def test_fused_ring_cross_wired_instances(card, w, dtype, precision, causal,
+                                          stripe):
+    """w instances cross-wired on one card (the w > 1 data path, credits
+    and flags): each rank's output bit for bit the pipelined tier's flash
+    launches over the ranks' blocks, and the plain world within the
+    flash kernel's tolerances."""
+    blocks = [tuple(rand(card, (200, 64), dtype, 10 * r + s)
+                    for s in (1, 2, 3)) for r in range(w)]
+    kw = dict(causal=causal, stripe=stripe, precision=precision)
+    got = hand.cross_wired("fused_ring_attention", blocks, **kw)
+    flash = hand.fused_ring_world_ref(blocks, kernel=True, **kw)
+    plain = hand.fused_ring_world_ref(blocks, causal=causal, stripe=stripe)
+    for g, f, p in zip(got, flash, plain):
+        assert torch.equal(g, f)
+        err = (g.float() - p.float()).abs().max().item()
+        assert err <= fused_tolerance(dtype, precision, p), err
+
+
+def test_fused_ring_chain_shares_the_pad(card):
+    """Chained launches on one pad, interleaved with a collective (the
+    epochs advance across kernel families, the local words reset): the
+    128-word pad ends with the fused kernel's local counters at 0."""
+    from tpu_mpi_tests_torch.comm.peer import PAD_WORDS, peer_ring
+
+    q, kk, v = (rand(card, (300, 128), torch.float32, s) for s in (1, 2, 3))
+    x = rand(card, (4 * 1001,), torch.float32, seed=4)
+    ks = [2 + i % 7 for i in range(12)]  # 2..8, then 2..6
+    for k in ks:
+        got = hand.fused_ring_attention(q, kk, v, causal=True, stripe=True,
+                                        self_ring=k)
+        hand.ring_allgather(x, self_ring=4)
+    torch.cuda.synchronize(card)
+    want = hand.fused_ring_world_ref([(q, kk, v)] * ks[-1], causal=True,
+                                     stripe=True, kernel=True)[0]
+    assert torch.equal(got, want)
+    pad = peer_ring(card).pad
+    assert pad.numel() == PAD_WORDS == 128
+    assert int(pad[82:99].abs().sum()) == 0  # kFraSent..kFraExit
+
+
+def test_fused_ring_refusals_on_card(card):
+    from tpu_mpi_tests_torch.comm.peer import PeerError
+
+    q = rand(card, (64, 32), torch.float32, seed=1)
+    with pytest.raises(PeerError, match="at most 8"):
+        hand.fused_ring_attention(q, q, q, self_ring=9)
+    with pytest.raises(ValueError, match="stripe=True only"):
+        hand.fused_ring_attention(q, q, q, stripe=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        hand.fused_ring_attention(q.T.contiguous().T, q, q)
+    with pytest.raises(PeerError, match="at most 8"):
+        hand.cross_wired("fused_ring_attention", [(q, q, q)] * 9)
+
+
+def test_attnbench_fused_tier_on_card(card, capsys):
+    from tpu_mpi_tests_torch.drivers import attnbench
+
+    before = hand.launch_counts()
+    assert attnbench.main(["--seq-len", "1024", "--head-dim", "64",
+                           "--tiers", "ring", "--ring-tier", "fused",
+                           "--causal", "--stripe", "--n-iter", "10"]) == 0
+    out = capsys.readouterr().out
+    assert "ATTN ring[striped][fused] L=1024 d=64 float32 " in out
+    after = hand.launch_counts()
+    # chain_rate: 3 warm calls, then 1 and 10: one launch per call
+    assert after["fused_ring_attention"] - \
+        before["fused_ring_attention"] == 14
+    assert after["flash_attention_block"] == before["flash_attention_block"]

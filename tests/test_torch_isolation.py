@@ -86,7 +86,8 @@ def test_port_has_its_kernel_sources():
     for name in ("stencil_iterate.cu", "stencil_deriv.cu", "heat2d.cu",
                  "dual_dim_step.cu", "streams.cu", "flash_attention.cu",
                  "ring_halo.cu", "fused_rdma.cu", "stencil_kstep.cuh",
-                 "ring_common.cuh", "ring_collectives.cu", "oneshot.cu"):
+                 "ring_common.cuh", "ring_collectives.cu", "oneshot.cu",
+                 "flash_fold.cuh", "fused_ring_attention.cu"):
         assert (csrc / name).is_file()
 
 
@@ -147,6 +148,10 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         alltoall.ulysses_attention(z[:, None], z[:, None], z[:, None],
                                    flash=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        hand.fused_ring_attention(z, z, z, causal=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ring.ring_attention(z, z, z, tier="fused")
     for collective in (hand.ring_allgather, hand.ring_reduce_scatter,
                        hand.ring_allreduce, hand.oneshot_allgather,
                        hand.oneshot_allreduce):

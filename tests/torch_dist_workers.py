@@ -478,6 +478,152 @@ def suite_coll(rank, world, out_dir):
                "--dtype", "float64", "--rdma"])
 
 
+#: ring attention: (flash, causal, stripe) layouts, and the cases
+#: (flash, causal, stripe, depth) running each at depth 1, 2 and 4 (4 is
+#: clamped to the world at 2 ranks)
+RING_LAYOUTS = [(flash, causal, stripe) for flash in (False, True)
+                for causal, stripe in ((False, False), (True, False),
+                                       (True, True))]
+RING_CASES = [layout + (depth,) for layout in RING_LAYOUTS
+              for depth in (1, 2, 4)]
+#: the sequence per rank and the head width of the ring cases
+RING_L_LOCAL, RING_D = 16, 16
+#: Ulysses: (form, block_keys, flash) × causal; heads per rank
+ULYSSES_FORMS = (("full", 512, False), ("blockwise", 8, False),
+                 ("flash", 512, True))
+ULYSSES_HEADS_PER_RANK = 2
+
+
+def ring_global(seed: int, world: int, stripe: bool = False,
+                heads: "int | None" = None, dtype=np.float32):
+    """The global q, k, v of a ring (or, with ``heads``, Ulysses) case:
+    (world·L_local, d), or (world·L_local, heads, d); striped when
+    asked (``comm.ring.to_striped``'s permutation)."""
+    L = world * RING_L_LOCAL
+    shape = (L, RING_D) if heads is None else (L, heads, RING_D)
+    qkv = [global_field(seed + i, shape, dtype) for i in range(3)]
+    if stripe:
+        lloc = L // world
+        qkv = [t.reshape((lloc, world) + t.shape[1:]).swapaxes(0, 1)
+               .reshape(t.shape) for t in qkv]
+    return qkv
+
+
+def ring_case(flash, causal, stripe, depth, dtype="float32"):
+    return (f"ring_{'flash' if flash else 'xla'}_c{int(causal)}"
+            f"_s{int(stripe)}_d{depth}_{dtype}")
+
+
+def ring_seed(causal, stripe):
+    return 500 + 10 * causal + 20 * stripe
+
+
+def _run_main_both(out_dir, case, rank, main, argv):
+    """:func:`_run_main` with stderr (the NOTE lines) kept after an
+    ``ERR`` marker line."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    with open(os.path.join(out_dir, f"{case}.r{rank}.txt"), "w") as f:
+        f.write(f"RC {rc}\n" + out.getvalue() + "ERR\n" + err.getvalue())
+
+
+def suite_ring(rank, world, out_dir):
+    """Ring and Ulysses attention over gloo: the torch-op and flash tiers
+    at depth 1, 2 and 4, the fused tier (the kernel's plain version), the
+    all-to-all reshards, the refusals and attnbench."""
+    from tpu_mpi_tests_torch.comm import alltoall as A
+    from tpu_mpi_tests_torch.comm import ring as R
+    from tpu_mpi_tests_torch.comm.mesh import MeshError
+    from tpu_mpi_tests_torch.kernels import hand
+
+    def blocks(arrs, dt=torch.float32):
+        return [_tensor(block_of(a, world, rank)).to(dt) for a in arrs]
+
+    for flash, causal, stripe, depth in RING_CASES:
+        qkv = blocks(ring_global(ring_seed(causal, stripe), world, stripe))
+        attn = R.ring_attention_fn(world, causal=causal, flash=flash,
+                                   stripe=stripe, depth=depth)
+        _save(out_dir, ring_case(flash, causal, stripe, depth), rank,
+              attn(*qkv))
+    for flash, causal, stripe in RING_LAYOUTS:
+        if flash:
+            for dt in ("float32", "bfloat16"):
+                tq = blocks(ring_global(ring_seed(causal, stripe), world,
+                                        stripe), getattr(torch, dt))
+                _save(out_dir, f"fused_c{int(causal)}_s{int(stripe)}_{dt}",
+                      rank, R.ring_attention_fn(
+                          world, causal=causal, stripe=stripe,
+                          tier="fused")(*tq))
+                _save(out_dir, f"pipelined_c{int(causal)}_s{int(stripe)}_"
+                      f"{dt}", rank, R.ring_attention_fn(
+                          world, causal=causal, stripe=stripe, flash=True,
+                          tier="pipelined")(*tq))
+                # the world simulation the card's cross-wired check uses
+                g = ring_global(ring_seed(causal, stripe), world, stripe)
+                every = [[_tensor(block_of(a, world, r)).to(
+                    getattr(torch, dt)) for a in g] for r in range(world)]
+                _save(out_dir, f"fused_world_ref_c{int(causal)}_"
+                      f"s{int(stripe)}_{dt}", rank, hand.fused_ring_world_ref(
+                          every, causal=causal, stripe=stripe)[rank])
+    for flash in (False, True):  # bfloat16, contiguous causal, depth 1
+        qkv = blocks(ring_global(ring_seed(True, False), world),
+                     torch.bfloat16)
+        _save(out_dir, ring_case(flash, True, False, 1, "bfloat16"), rank,
+              R.ring_attention_fn(world, causal=True, flash=flash)(*qkv))
+
+    heads = ULYSSES_HEADS_PER_RANK * world
+    for form, block_keys, flash in ULYSSES_FORMS:
+        for causal in (False, True):
+            qkv = blocks(ring_global(600 + 10 * causal, world, heads=heads))
+            _save(out_dir, f"ulysses_{form}_c{int(causal)}", rank,
+                  A.ulysses_attention_fn(world, causal=causal,
+                                         block_keys=block_keys,
+                                         flash=flash)(*qkv))
+    x = blocks(ring_global(700, world, heads=heads))[0]
+    sh = A.seq_to_heads(x, world)
+    _save(out_dir, "seq_to_heads", rank, sh)
+    _save(out_dir, "heads_to_seq", rank, A.heads_to_seq(sh, world))
+    _save(out_dir, "seq_to_heads_bf16", rank,
+          A.seq_to_heads(x.to(torch.bfloat16), world))
+
+    errors = []
+    q = torch.zeros(RING_L_LOCAL, RING_D)
+    for call in (lambda: R.ring_attention(q, q, q, world=world + 1),
+                 lambda: A.ulysses_attention_fn(world=2 * world),
+                 lambda: R.ring_attention(q, q, q, stripe=True, world=world),
+                 lambda: hand.fused_ring_attention(q, q, q, stripe=True),
+                 lambda: hand.fused_ring_attention(q, q, q, self_ring=2),
+                 lambda: A.seq_to_heads(torch.zeros(4, world + 1, 2),
+                                        world)):
+        try:
+            call()
+            errors.append("no error")
+        except (MeshError, ValueError) as e:
+            errors.append(f"{type(e).__name__}: {e}")
+    with open(os.path.join(out_dir, f"errors.r{rank}.txt"), "w") as f:
+        f.write("\n".join(errors))
+
+    from tpu_mpi_tests_torch.drivers import attnbench
+
+    argv = ["--device", "cpu", "--seq-len", str(RING_L_LOCAL * world),
+            "--head-dim", str(RING_D), "--n-iter", "10",
+            "--tiers", "ring,ulysses"]
+    _run_main_both(out_dir, "attnbench", rank, attnbench.main,
+                   argv + ["--jsonl", os.path.join(out_dir, "a.jsonl")])
+    _run_main_both(out_dir, "attnbench_fused", rank, attnbench.main,
+                   argv + ["--ring-tier", "fused", "--ring-depth", "2",
+                           "--causal", "--stripe", "--jsonl",
+                           os.path.join(out_dir, "f.jsonl")])
+    real = hand.fused_ring_feasible
+    hand.fused_ring_feasible = lambda *a, **k: False
+    try:
+        _run_main_both(out_dir, "attnbench_declined", rank, attnbench.main,
+                       argv[:-1] + ["ring", "--ring-tier", "fused"])
+    finally:
+        hand.fused_ring_feasible = real
+
+
 def suite_symm_one_card(rank, world, out_dir):
     """Every rank on card 0 asks for the RDMA kernels' peer memory: the
     symmetric-memory rendezvous refuses ranks that share a card, and the
@@ -494,6 +640,6 @@ def suite_symm_one_card(rank, world, out_dir):
 
 
 SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
-          "symm_one_card": suite_symm_one_card}
+          "ring": suite_ring, "symm_one_card": suite_symm_one_card}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

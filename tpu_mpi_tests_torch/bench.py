@@ -37,7 +37,6 @@ import argparse
 import json
 import os
 import statistics
-import sys
 
 import numpy as np
 import torch
@@ -47,7 +46,7 @@ from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap
 from tpu_mpi_tests_torch.device import DEVICES
-from tpu_mpi_tests_torch.drivers._common import TORCH_DTYPES
+from tpu_mpi_tests_torch.drivers._common import TORCH_DTYPES, decline_note
 from tpu_mpi_tests_torch.instrument.timers import chain_rate
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
@@ -57,11 +56,6 @@ METRIC = "stencil2d_fullstep_8192_iters_per_s"
 V100_HBM_GBPS = 810.0  # STREAM-class HBM2 bandwidth (root bench.py:47)
 V100_F64_ITERS_PER_S = 503.0  # 810e9 / (3 * 8 * 8192**2)
 BENCH_DTYPES = ("float32", "bfloat16")
-
-
-def _note(msg: str) -> None:
-    # stdout stays the one JSON line
-    print(f"NOTE {msg}", file=sys.stderr, flush=True)
 
 
 def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
@@ -118,8 +112,9 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
         except ValueError as e:
             # never a dead headline, never a mislabeled one: the JSON
             # names the tier that ran
-            _note(f"tier rdma-fused infeasible at n={n} world={world} "
-                  f"steps={steps} ({e}); running the blocks tier")
+            decline_note(f"tier rdma-fused infeasible at n={n} "
+                         f"world={world} steps={steps} ({e}); running the "
+                         f"blocks tier")
             tier = "blocks"
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -128,9 +123,9 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
         device=device,
     )
     if blocks_env is not None and n_blocks >= 2 and not use_blocks:
-        _note(f"TPU_MPI_BENCH_BLOCKS={n_blocks} not applicable (tier={tier} "
-              f"steps={steps} n={n}); running the dim-{bench_dim} "
-              f"single-buffer schedule")
+        decline_note(f"TPU_MPI_BENCH_BLOCKS={n_blocks} not applicable "
+                     f"(tier={tier} steps={steps} n={n}); running the "
+                     f"dim-{bench_dim} single-buffer schedule")
 
     n_short = int(os.environ.get("TPU_MPI_BENCH_ITERS_SHORT", 100))
     n_long = int(os.environ.get("TPU_MPI_BENCH_ITERS_LONG", 2100))
@@ -198,11 +193,11 @@ def main(argv=None) -> dict:
                             BENCH_DTYPES)
     if os.environ.get("TPU_MPI_BENCH_TUNE", "").lower() not in (
             "", "0", "false"):
-        _note("TPU_MPI_BENCH_TUNE: the tune cache is not ported; running "
-              "the prior schedule")
+        decline_note("TPU_MPI_BENCH_TUNE: the tune cache is not ported; "
+                     "running the prior schedule")
     if int(os.environ.get("TPU_MPI_BENCH_OVERLAP", "1")) > 1:
-        _note("TPU_MPI_BENCH_OVERLAP>1: the overlap engine is not ported; "
-              "running the serialized schedule (_ov1)")
+        decline_note("TPU_MPI_BENCH_OVERLAP>1: the overlap engine is not "
+                     "ported; running the serialized schedule (_ov1)")
     steps_env = os.environ.get("TPU_MPI_BENCH_STEPS")
     steps = int(steps_env) if steps_env is not None else H.PRIOR_STEPS
     tier_env = os.environ.get("TPU_MPI_BENCH_TIER")
@@ -222,8 +217,8 @@ def main(argv=None) -> dict:
     else:
         second_dtype = "bfloat16" if dtype_name == "float32" else "float32"
     if second_dtype == dtype_name:
-        _note(f"TPU_MPI_BENCH_SECOND_DTYPE={second!r} equals the primary "
-              f"dtype; no second measurement")
+        decline_note(f"TPU_MPI_BENCH_SECOND_DTYPE={second!r} equals the "
+                     f"primary dtype; no second measurement")
     elif second_dtype:
         # the secondary always runs its default schedule (the explicit
         # block count applies to the primary only, as in the root bench)

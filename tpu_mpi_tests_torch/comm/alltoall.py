@@ -1,13 +1,15 @@
-"""All-to-all (Ulysses) sequence parallelism at world=1 (≅
+"""All-to-all (Ulysses) sequence parallelism over the world's ranks (≅
 ``tpu_mpi_tests/comm/alltoall.py``).
 
-The JAX module reshards (L_local, H, Dh) activations from sequence-split
-to head-split with one ``lax.all_to_all``, runs attention over the full
-sequence for its heads, and reshards back. On one rank both reshards are
-the identity (the head-divisibility check is kept); a ``world`` other
-than 1 raises through ``comm.mesh.check_world``. The local attention is
-torch ops (the full or the blockwise form, the JAX XLA tiers) or, with
-``flash=True``, one launch of the hand CUDA kernel over every head
+One all-to-all (``torch.distributed.all_to_all_single`` over the world
+group; the gloo group for host tensors) reshards (L_local, H, Dh)
+activations from sequence-split to head-split, each rank runs attention
+over the full sequence for its H/w heads, and a second all-to-all
+reshards back — the split and concat axes of JAX's ``tiled=True``
+``lax.all_to_all``. At world=1 both reshards are the identity (the
+head-divisibility check is kept). The local attention is torch ops (the
+full or the blockwise form, the JAX XLA tiers) or, with ``flash=True``,
+one launch of the hand CUDA kernel over every head
 (``kernels.hand.flash_attention``), reading the (L, H, Dh) layout through
 its strides.
 """
@@ -15,25 +17,52 @@ its strides.
 from __future__ import annotations
 
 import torch
+import torch.distributed as tdist
 
+from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm.mesh import check_world
 from tpu_mpi_tests_torch.comm.ring import online_softmax_update
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.utils import check_divisible
 
 
+def _all_to_all(chunks: torch.Tensor) -> torch.Tensor:
+    """Send ``chunks[j]`` (a (w, ...) tensor) to rank j and return the
+    (w, ...) tensor whose row i came from rank i. The payload moves as
+    bytes, so every dtype crosses gloo and NCCL alike."""
+    chunks = chunks.contiguous()
+    out = torch.empty_like(chunks)
+    group = tdist.group.WORLD if chunks.is_cuda else dist.cpu_group()
+    tdist.all_to_all_single(out.view(-1).view(torch.uint8),
+                            chunks.view(-1).view(torch.uint8), group=group)
+    return out
+
+
 def seq_to_heads(x: torch.Tensor, world: int = 1) -> torch.Tensor:
     """Reshard (L_local, H, Dh) sequence-split → (L_global, H_local, Dh)
-    head-split; H must divide over the ranks."""
-    check_world(world)
-    check_divisible(x.shape[1], world, "ulysses heads over mesh axis")
-    return x
+    head-split (≅ ``lax.all_to_all(split_axis=1, concat_axis=0,
+    tiled=True)``): head block j goes to rank j; the rows of rank i land
+    at ``i·L_local``. H must divide over the ranks."""
+    w = check_world(world)
+    hl = check_divisible(x.shape[1], w, "ulysses heads over mesh axis")
+    if w == 1:
+        return x
+    L, _, dh = x.shape
+    got = _all_to_all(x.reshape(L, w, hl, dh).transpose(0, 1))
+    return got.reshape(w * L, hl, dh)
 
 
 def heads_to_seq(x: torch.Tensor, world: int = 1) -> torch.Tensor:
-    """Inverse of :func:`seq_to_heads`."""
-    check_world(world)
-    return x
+    """Inverse of :func:`seq_to_heads` (≅ ``lax.all_to_all(split_axis=0,
+    concat_axis=1, tiled=True)``): rows ``[j·L_local, (j+1)·L_local)`` go
+    to rank j; the heads of rank i land at ``i·H_local``."""
+    w = check_world(world)
+    if w == 1:
+        return x
+    lg, hl, dh = x.shape
+    L = check_divisible(lg, w, "ulysses sequence over mesh axis")
+    got = _all_to_all(x.reshape(w, L, hl, dh))
+    return got.transpose(0, 1).reshape(L, w * hl, dh)
 
 
 def _local_attention_full(q, k, v, causal: bool, precision: str):
@@ -99,7 +128,8 @@ def ulysses_attention(q, k, v, causal: bool = False,
                       flash: bool = False, k_tile=None, skip_tile=None,
                       world: int = 1):
     """Per-rank Ulysses attention (≅ ``alltoall.py:120``): inputs
-    (L_local, H, Dh) sequence-split, H divisible by the ranks. The local
+    (L_local, H, Dh), this rank's block of the sequence, H divisible by
+    the ranks; returns this rank's (L_local, H, Dh) block of the output. The local
     attention is blockwise (``block_keys``-wide key tiles) or, with
     ``flash=True``, the hand kernel (``k_tile``/``skip_tile`` reach its
     plain version only)."""
@@ -117,9 +147,9 @@ def ulysses_attention_fn(world: int = 1, causal: bool = False,
                          block_keys: int = 512, flash: bool = False,
                          k_tile=None, skip_tile=None,
                          precision: str = "highest"):
-    """Ulysses attention over (L, H, Dh) arrays split along the sequence
-    (≅ ``alltoall.py:159``): checks the world when built, then returns
-    ``attn(q, k, v)``."""
+    """Ulysses attention over (L_local, H, Dh) blocks of a sequence split
+    over the ranks (≅ ``alltoall.py:159``): checks the world when built,
+    then returns ``attn(q, k, v)``."""
     check_world(world)
 
     def attn(q, k, v):

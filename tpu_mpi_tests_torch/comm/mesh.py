@@ -3,14 +3,16 @@
 ``bootstrap`` joins the world through :mod:`comm.dist` (one process per
 rank; world=1 with no process group when no launcher set one) and returns
 the rank's device. ``make_mesh`` gives the 1-D ``shard`` ring the
-stencil paths run on: the world group and each rank's left and right
-neighbours.
+stencil and attention paths run on: the world group and each rank's left
+and right neighbours, with a blocking and a non-blocking hop
+(:meth:`Ring.shift`, :meth:`Ring.shift_start`). :func:`check_world`
+holds a sequence-parallel attention path's ``world`` to the process
+group's size.
 
 Still one rank only, each raising with the next slice of ROADMAP queue 1
-item 2: the sequence-parallel attention paths over ranks
-(:func:`check_world`), the 2-D process grids of ``heat2d`` and
-``stencil2d_grid`` (:func:`check_grid`), and the drivers that
-:func:`check_single_rank` guards (the DAXPY drivers).
+item 2: the 2-D process grids of ``heat2d`` and ``stencil2d_grid``
+(:func:`check_grid`) and the drivers that :func:`check_single_rank`
+guards (the DAXPY drivers).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
 #: where the paths that still run one rank only are queued
-NEXT_SLICE = ("the next slice of ROADMAP queue 1 item 2 (the 2-D grid, "
-              "attention and DAXPY paths over ranks)")
+NEXT_SLICE = ("the next slice of ROADMAP queue 1 item 2 (the 2-D grid "
+              "and DAXPY paths over ranks)")
 
 
 class MeshError(TpuMtError):
@@ -120,19 +122,47 @@ class Ring:
                 req.wait()
         return from_left, from_right
 
-    def shift(self, x: torch.Tensor) -> torch.Tensor:
-        """One hop to the right on the periodic ring (≅ ``lax.ppermute``
-        with ``(i, i+1 mod w)``): sends ``x`` to the right neighbour and
-        returns what the left one sent. ``x`` must be contiguous."""
+    def shift_start(self, x) -> "Hop":
+        """Start one hop to the right on the periodic ring (≅
+        ``lax.ppermute`` with ``(i, i+1 mod w)``) and return at once:
+        ``x`` (a contiguous tensor, or a tuple of them, moved in one
+        batch) goes to the right neighbour, and :meth:`Hop.wait` returns
+        what the left one sent, shaped alike. Card tensors go over the
+        world group, host tensors over the gloo group."""
         if self.size == 1:
             raise MeshError("Ring.shift: world=1 has no peer to send to")
-        got = torch.empty_like(x)
-        group = tdist.group.WORLD if x.is_cuda else dist.cpu_group()
-        ops = [tdist.P2POp(tdist.isend, x, self.right, group, tag=2),
-               tdist.P2POp(tdist.irecv, got, self.left, group, tag=2)]
-        for req in tdist.batch_isend_irecv(ops):
+        xs = x if isinstance(x, tuple) else (x,)
+        got = tuple(torch.empty_like(t) for t in xs)
+        group = tdist.group.WORLD if xs[0].is_cuda else dist.cpu_group()
+        ops = []
+        for i, (t, g) in enumerate(zip(xs, got)):
+            ops.append(tdist.P2POp(tdist.isend, t, self.right, group,
+                                   tag=2 + i))
+            ops.append(tdist.P2POp(tdist.irecv, g, self.left, group,
+                                   tag=2 + i))
+        return Hop(tdist.batch_isend_irecv(ops),
+                   got if isinstance(x, tuple) else got[0])
+
+    def shift(self, x):
+        """One hop to the right, waited for: :meth:`shift_start` then
+        :meth:`Hop.wait`."""
+        return self.shift_start(x).wait()
+
+
+class Hop:
+    """A hop in flight (:meth:`Ring.shift_start`). On the card ``wait``
+    orders the current stream after the transfer; on the CPU it blocks
+    until the block has arrived."""
+
+    def __init__(self, reqs, got):
+        self._reqs, self._got = reqs, got
+
+    def wait(self):
+        """What the left neighbour sent (a tensor, or a tuple of them)."""
+        for req in self._reqs:
             req.wait()
-        return got
+        self._reqs = ()
+        return self._got
 
 
 def bootstrap(device="cuda") -> torch.device:
@@ -148,13 +178,15 @@ def make_mesh() -> Ring:
 
 
 def check_world(world: int) -> int:
-    """Refuse a sequence-parallel ``world`` of more than one rank (the
-    ring and all-to-all attention paths run at world=1 only). Returns the
-    world."""
-    if world != 1:
+    """A sequence-parallel attention path's ``world`` (the ring and
+    all-to-all paths, ``attnbench``): it must be the process group's size
+    (1 with no group). Returns the world."""
+    size = dist.world().size
+    if world != size:
         raise MeshError(
             f"sequence-parallel attention over world={world} ranks "
-            f"requested, but attention over ranks is {NEXT_SLICE}"
+            f"requested, but the process group has {size} rank(s): start "
+            f"one process per rank (torchrun, tpumt_run)"
         )
     return world
 

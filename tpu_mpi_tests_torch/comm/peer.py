@@ -1,7 +1,8 @@
 """The peer-memory layer of the hand RDMA kernels (``ring_halo``,
-``stencil2d_fused_rdma``, and the collectives ``ring_allgather``,
-``ring_reduce_scatter`` and ``oneshot``): where a rank's peers' buffers
-and signal pads live, as raw device addresses.
+``stencil2d_fused_rdma``, the collectives ``ring_allgather``,
+``ring_reduce_scatter`` and ``oneshot``, and ``fused_ring_attention``):
+where a rank's peers' buffers and signal pads live, as raw device
+addresses.
 
 The kernels take only raw pointers; this module is the only code that
 knows where a peer pointer comes from:
@@ -24,10 +25,11 @@ ring on the card whose ranks cannot map each other's memory.
 The ring kernels store into the left and right neighbours' copies
 (:meth:`PeerRing.peer_ptrs`, :meth:`PeerRing.pad_ptrs`); the one-shot
 kernel into every rank's (:meth:`PeerRing.peer_ptrs_all`,
-:meth:`PeerRing.pad_ptrs_all`). The collectives' comm buffers are
-workspaces kept for the life of the ring (:meth:`PeerRing.workspace`).
+:meth:`PeerRing.pad_ptrs_all`). The collectives' comm buffers and the
+fused ring attention's K/V slots are workspaces kept for the life of the
+ring (:meth:`PeerRing.workspace`).
 
-The signal pad is 64 int32 words per rank, zeroed once; the word map is
+The signal pad is 128 int32 words per rank, zeroed once; the word map is
 ``kernels/csrc/ring_common.cuh``'s. Words 0-3 are written by neighbours
 (epoch counters of the ring halo kernels: barrier from the left, barrier
 from the right, arrival from the left, arrival from the right), words 4-5
@@ -35,12 +37,16 @@ only by the rank's own CTAs (the work ticket and the done counter, each
 reset to 0 by the last CTA of a launch). Words 6-59 belong to the
 collective kernels: per-step arrival flags for the all-gather, arrival
 and credit flags for the reduce-scatter, per-rank barrier and arrival
-flags for the one-shot, and their CTAs' own counters; so the collectives
-run on at most :data:`COLL_MAX_WORLD` ranks (:class:`PeerError` beyond).
+flags for the one-shot, and their CTAs' own counters. Words 64-98
+belong to the fused ring attention: its entry barrier from either
+neighbour, per-step arrival and credit flags, and its CTAs' per-step
+send and retire counters and exit counter. So the collectives and the
+fused ring attention run on at most :data:`COLL_MAX_WORLD` ranks
+(:class:`PeerError` beyond).
 
 Epochs count every RDMA launch of the process up from 1 (:meth:`PeerRing.
-next_epoch`), one per launch of any RDMA kernel — the ring halo kernels
-and the collectives share the count — so they agree across ranks as long
+next_epoch`), one per launch of any RDMA kernel — the ring halo kernels,
+the collectives and the fused ring attention share the count — so they agree across ranks as long
 as every rank makes the same sequence of RDMA launches (SPMD), and a
 peer's later epoch never reads as an earlier one.
 """
@@ -56,9 +62,10 @@ from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm.mesh import Ring, make_mesh
 from tpu_mpi_tests_torch.utils import TpuMtError
 
-PAD_WORDS = 64
-#: the most ranks (or self-ring steps + 1) the collective kernels' words
-#: in the pad serve (``kCollMaxWorld``, ``csrc/ring_common.cuh``)
+PAD_WORDS = 128
+#: the most ranks (or self-ring steps) the collective kernels' and the
+#: fused ring attention's words in the pad serve (``kCollMaxWorld``,
+#: ``csrc/ring_common.cuh``)
 COLL_MAX_WORLD = 8
 
 
@@ -248,11 +255,11 @@ _RINGS: dict = {}
 
 
 def check_collective_world(size: int, what: str) -> int:
-    """Refuse a collective over more ranks (or self-ring steps + 1) than
-    the signal pad serves; returns ``size``."""
+    """Refuse a collective or a fused ring attention over more ranks (or
+    self-ring steps) than the signal pad serves; returns ``size``."""
     if size > COLL_MAX_WORLD:
         raise PeerError(
-            f"{what} over {size} ranks: the collective kernels' signal words "
+            f"{what} over {size} ranks: the ring kernels' signal words "
             f"serve at most {COLL_MAX_WORLD} (the {PAD_WORDS}-word pad, "
             f"csrc/ring_common.cuh)")
     return size

@@ -1,20 +1,22 @@
-"""Ring attention at world=1 (≅ ``tpu_mpi_tests/comm/ring.py``).
+"""Ring attention over the world's ranks (≅ ``tpu_mpi_tests/comm/ring.py``).
 
-The JAX module rotates K/V blocks around a mesh-axis ring with
-``lax.ppermute`` while each shard folds its queries' attention online.
-This slice of the port runs one rank, so the ring has one member: a
-rotation returns the block itself, :func:`ring_scan` makes one step with
-``src = 0``, and the pipeline depth is clamped to 1 (the JAX clamp to
-the ring size, ``ring.py:139``). A ``world`` other than 1 raises through
-``comm.mesh.check_world`` (multi-rank is ROADMAP queue 1 item 2).
+K/V blocks rotate around the 1-D ring of ranks (``Ring.shift``: one
+``batch_isend_irecv`` hop to the right, NCCL on the card, gloo on the CPU)
+while each rank folds its queries' attention online. At world=1 the ring
+has one member: a rotation returns the block itself.
 
 * :func:`online_softmax_update` — the one recurrence every attention
   tier shares (ring, Ulysses, the flash kernel's plain version).
 * :func:`to_striped` / :func:`from_striped` — the striped causal layout.
-* :func:`ring_pass` / :func:`ring_scan` — rotate, and fold over the ring.
-* :func:`ring_attention` / :func:`ring_attention_fn` — the flash tier
-  (``kernels.hand.flash_attention_block``, the hand CUDA kernel) and
-  the torch-op tier (the JAX package's XLA tier).
+* :func:`ring_pass` / :func:`ring_scan` — rotate, and fold over the ring;
+  ``depth = d ≥ 2`` keeps the K/V queue d − 1 blocks ahead (JAX's
+  ``ring.py:141-186``), bit for bit the same result.
+* :func:`ring_attention` / :func:`ring_attention_fn` — the torch-op tier
+  (the JAX package's XLA tier), the flash tier
+  (``kernels.hand.flash_attention_block``, the hand CUDA kernel, at every
+  step) and ``tier="fused"``: all w steps in one launch of
+  ``kernels.hand.fused_ring_attention``, the K/V rotation by peer stores
+  inside the kernel.
 
 The TPU tile knobs (``k_tile``, ``skip_tile``) are accepted and reach the
 flash kernel's plain version; the card runs the kernel's own tile. The
@@ -27,12 +29,12 @@ from __future__ import annotations
 
 import torch
 
-from tpu_mpi_tests_torch.comm.mesh import check_world
+from tpu_mpi_tests_torch.comm.mesh import check_world, make_mesh
 from tpu_mpi_tests_torch.kernels import hand
-from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
+from tpu_mpi_tests_torch.utils import check_divisible
 
-#: the ring K/V rotation tiers; "fused" (the one-launch RDMA kernel,
-#: ``fused_ring_attention_pallas``) is not ported
+#: the ring K/V rotation tiers: the host-scheduled hops ("pipelined",
+#: paced by ``depth``) and the one-launch peer-store kernel ("fused")
 RING_TIERS = ("pipelined", "fused")
 
 
@@ -73,39 +75,65 @@ def from_striped(x: torch.Tensor, world: int) -> torch.Tensor:
 
 
 def ring_pass(x, shift: int = 1, world: int = 1):
-    """Rotate ``x`` ``shift`` steps around the ring (each rank receives
-    the block of ``rank - shift``); on a ring of one it is ``x``."""
-    check_world(world)
+    """Rotate ``x`` (a tensor or a tuple of them) ``shift`` steps around
+    the ring: each rank receives the block of ``rank - shift``. On a ring
+    of one it is ``x`` itself."""
+    n = check_world(world)
+    if n == 1 or shift % n == 0:
+        return x
+    ring = make_mesh()
+    for _ in range(shift % n):
+        x = ring.shift(x)
     return x
 
 
 def ring_scan(f, init, block, world: int = 1, depth: int = 1):
     """Fold ``f(carry, block_j, j)`` over every rank's block as the blocks
     rotate; step ``s`` on rank ``r`` sees the block of rank ``(r - s) %
-    n``. ``depth`` (the K/V prefetch pipeline) is clamped to the ring
-    size; results do not depend on it."""
+    n``. ``block`` is a tensor or a tuple of them.
+
+    ``depth`` is the K/V prefetch depth, clamped to the ring size (JAX's
+    queue, ``ring.py:141-186``): 1 rotates the block after consuming it;
+    ``d ≥ 2`` keeps the queue ``rot^s .. rot^{s+d-1}`` with the hop that
+    delivers its last block in flight under step ``s``'s fold (each hop
+    sends the block the previous one delivered, so one hop flies at a
+    time; on the card it is queued on the NCCL stream and the fold does
+    not wait for it). Every step consumes ``rot^s(block)`` whatever the
+    depth, so results are bit for bit depth-invariant; no rotation past
+    the last step is sent."""
     n = check_world(world)
     if int(depth) < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
-    # min(depth, n) − 1 rotations would be in flight: none on a ring of one
-    r = 0
-    carry, blk = init, block
+    d = min(int(depth), n)
+    ring = make_mesh() if n > 1 else None
+    r = ring.rank if ring is not None else 0
+    carry = init
+    if d == 1:
+        blk = block
+        for s in range(n):
+            carry = f(carry, blk, (r - s) % n)
+            if s < n - 1:
+                blk = ring.shift(blk)
+        return carry
+    # the queue holds rot^s .. rot^{s+d-2} ready and rot^{s+d-1} in flight
+    ready = [block]
+    for _ in range(d - 2):
+        ready.append(ring.shift(ready[-1]))
+    hop = ring.shift_start(ready[-1])
     for s in range(n):
-        carry = f(carry, blk, (r - s + n) % n)
-        blk = ring_pass(blk, world=world)
+        carry = f(carry, ready.pop(0), (r - s) % n)
+        if hop is not None:
+            ready.append(hop.wait())
+            hop = ring.shift_start(ready[-1]) if s + d < n else None
     return carry
 
 
 def _resolve_tier(tier) -> str:
+    """The K/V rotation tier: an explicit one, or the prior "pipelined"
+    (the port has no tuned-schedule cache, ROADMAP queue 1 item 17)."""
     if tier is None:
         return "pipelined"
-    if tier == "fused":
-        raise TpuMtError(
-            "ring tier 'fused' (the one-launch fused-RDMA kernel, "
-            "fused_ring_attention_pallas) is not ported: ROADMAP queue 2 "
-            "item 14"
-        )
-    if tier != "pipelined":
+    if tier not in RING_TIERS:
         raise ValueError(f"ring tier must be one of {RING_TIERS}, got "
                          f"{tier!r}")
     return tier
@@ -127,8 +155,18 @@ def ring_attention(q, k, v, scale=None, causal: bool = False,
     "highest" (f32 arithmetic; TF32 off) or "default" (the tensor cores).
     ``stripe=True`` (causal only) takes and returns the striped layout
     (positions ``i·n + r``). The TPU tile knobs ``k_tile``/``skip_tile``
-    reach the plain version only.
-    ``tier="fused"`` raises (ROADMAP queue 2 item 14)."""
+    reach the plain version only. ``world`` is the process group's size
+    (:func:`~tpu_mpi_tests_torch.comm.mesh.check_world`); this rank's
+    queries sit at ``q_off = r·lq`` (striped: ``r``, stride ``n``) and
+    step ``s``'s keys at ``k_off = src·lk`` (striped: ``src``), as in
+    JAX's ``ring.py:421-426``.
+
+    ``tier="fused"`` runs every step in one launch of
+    :func:`kernels.hand.fused_ring_attention` (whatever ``flash``, as the
+    JAX tier does); at a geometry its gate refuses
+    (:func:`kernels.hand.fused_ring_feasible`) the explicit request
+    raises ``ValueError`` naming the pipelined tier. ``None`` resolves to
+    "pipelined"; ``depth`` paces the pipelined tier only."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d**0.5)
@@ -137,10 +175,13 @@ def ring_attention(q, k, v, scale=None, causal: bool = False,
             "stripe=True only makes sense for causal ring attention "
             "(non-causal work is already balanced)"
         )
-    _resolve_tier(tier)
-    depth = 1 if depth is None else depth
     n = check_world(world)
-    r = 0
+    if _resolve_tier(tier) == "fused":
+        return hand.fused_ring_attention(q, k, v, scale=float(scale),
+                                         causal=causal, stripe=stripe,
+                                         precision=precision)
+    depth = 1 if depth is None else depth
+    r = make_mesh().rank if n > 1 else 0
     lq = q.shape[0]
 
     if flash:
@@ -198,9 +239,9 @@ def ring_attention_fn(world: int = 1, causal: bool = False,
                       precision: str = "highest", stripe: bool = False,
                       depth=None, tier=None):
     """Ring attention over a sequence split along the ring (≅
-    ``ring.py:473``; inputs (L, d), here one rank's whole sequence).
-    Checks the world and the tier when built, then returns ``attn(q, k,
-    v)``."""
+    ``ring.py:473``; inputs (L_local, d): this rank's block of the global
+    sequence, ``comm.collectives.shard_1d``). Checks the world and the
+    tier when built, then returns ``attn(q, k, v)``."""
     check_world(world)
     _resolve_tier(tier)
 

@@ -5,6 +5,7 @@ starts from, the reporter, the dtype map and the process-grid spec."""
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -86,6 +87,13 @@ def make_reporter(args, rank: "int | None" = None,
     return Reporter(rank=w.rank if rank is None else rank,
                     size=w.size if size is None else size,
                     jsonl_path=args.jsonl)
+
+
+def decline_note(msg: str) -> None:
+    """Print a schedule-decline ``NOTE`` to stderr, flushed (the JAX
+    package's ``decline_note``): a requested schedule cannot run here and
+    another runs instead. Callers pass the message without the prefix."""
+    print(f"NOTE {msg}", file=sys.stderr, flush=True)
 
 
 def parse_choice_list(spec: str, valid, what: str = "entries"):

@@ -1,18 +1,25 @@
-"""Attention-tier benchmark driver at world=1 (≅
-``tpu_mpi_tests/drivers/attnbench.py``): flash vs torch-op local
-attention, plus the sequence-parallel flavours, at CLI-selectable shapes.
+"""Attention-tier benchmark driver (≅ ``tpu_mpi_tests/drivers/attnbench.py``):
+flash vs torch-op local attention, plus the sequence-parallel flavours over
+the world's ranks, at CLI-selectable shapes.
 
     ATTN <tier> L=<L> d=<D> <dtype> <tflops> TFLOP/s
 
 Tiers: ``xla`` (torch ops materialising the scores: the JAX XLA tier),
 ``flash`` (the hand CUDA kernel, ``kernels.hand.flash_attention``),
 ``ring`` / ``ulysses`` (``comm.ring`` / ``comm.alltoall`` with the hand
-kernel as local compute; at world=1 the ring has one member and the
-all-to-alls are the identity). Iterations chain with the output fed back
-as the next query (``instrument.timers.chain_rate``: CUDA events on the
-card, two run lengths differenced). FLOPs are 4·L²·d per attention (2·L²·d
-when causal). HIGHEST (the default) turns TF32 off; ``--fast`` runs
-DEFAULT (TF32 / bf16 tensor cores). The TPU tile knobs ``--k-tile`` and
+kernel as local compute, the sequence split over the ranks: each rank
+takes its block of the global q, k, v made from one seed, so every world
+solves the same problem). ``--ring-depth`` paces the ring's K/V hops and
+``--ring-tier fused`` runs every ring step in one launch of
+``kernels.hand.fused_ring_attention`` — at a geometry its gate refuses
+(``hand.fused_ring_feasible``) a ``NOTE`` says so and the pipelined tier
+runs; the line carries ``[fused]`` only when the fused kernel ran, and
+the row the depth and tier that ran. Iterations chain with the output fed
+back as the next query (``instrument.timers.chain_rate``: CUDA events on
+the card, two run lengths differenced). FLOPs are 4·L²·d per attention
+(2·L²·d when causal), counted globally, times ``world`` heads for
+Ulysses. HIGHEST (the default) turns TF32 off; ``--fast`` runs DEFAULT
+(TF32 / bf16 tensor cores). The TPU tile knobs ``--k-tile`` and
 ``--skip-tile`` reach the kernel's plain version; the card runs the
 kernel's own 64×64 tile, which each row records.
 
@@ -33,6 +40,7 @@ def run(args) -> int:
     import torch
 
     from tpu_mpi_tests_torch.comm.alltoall import ulysses_attention_fn
+    from tpu_mpi_tests_torch.comm.collectives import shard_1d
     from tpu_mpi_tests_torch.comm.mesh import bootstrap, check_world, topology
     from tpu_mpi_tests_torch.comm.ring import ring_attention_fn, to_striped
     from tpu_mpi_tests_torch.instrument.timers import chain_rate
@@ -49,8 +57,7 @@ def run(args) -> int:
                          "package)")
     device = bootstrap(args.device)
     topo = topology(device)
-    check_world(topo.process_count)
-    world = topo.global_device_count
+    world = check_world(topo.global_device_count)
     precision = "default" if args.fast else "highest"
 
     rep = _common.make_reporter(args, rank=topo.process_index, size=world)
@@ -80,6 +87,7 @@ def run(args) -> int:
             striped = tier == "ring" and args.stripe
 
             def make_qkv(tier=tier):
+                # the global problem from one seed; each rank its block
                 gen = torch.Generator(device=device).manual_seed(0)
                 shape = (L, world, d) if tier == "ulysses" else (L, d)
                 if tier in ("ring", "ulysses"):
@@ -91,14 +99,33 @@ def run(args) -> int:
                     # the striped causal layout; the chained output stays
                     # in it, position-consistent with the next query
                     q, k, v = (to_striped(t, world) for t in (q, k, v))
+                if tier in ("ring", "ulysses"):
+                    q, k, v = (shard_1d(t, device) for t in (q, k, v))
                 return q, k, v
+
+            # the ring's rotation tier that runs: a fused request at a
+            # geometry the kernel's gate refuses runs the pipelined tier
+            # with a NOTE (the JAX driver's decline), never a crash
+            ring_tier_eff = None
+            if tier == "ring":
+                ring_tier_eff = args.ring_tier or "pipelined"
+                lq_local = L // world
+                if ring_tier_eff == "fused" and not hand.fused_ring_feasible(
+                        lq_local, lq_local, d, dtype,
+                        device if device.type == "cuda" else None):
+                    _common.decline_note(
+                        f"ring tier fused infeasible at lq={lq_local} "
+                        f"d={d} {args.dtype} (fused_ring_feasible: at most "
+                        f"8 ranks, d <= {hand.FLASH_MAX_D}, the comm slots "
+                        f"in free memory); running the pipelined tier")
+                    ring_tier_eff = "pipelined"
 
             if tier == "ring":
                 attn = ring_attention_fn(
                     world, causal=args.causal, flash=True,
                     precision=precision, stripe=args.stripe,
                     k_tile=args.k_tile, skip_tile=args.skip_tile,
-                    depth=args.ring_depth, tier=args.ring_tier)
+                    depth=args.ring_depth, tier=ring_tier_eff)
             elif tier == "ulysses":
                 attn = ulysses_attention_fn(
                     world, causal=args.causal, flash=True,
@@ -127,21 +154,25 @@ def run(args) -> int:
             del state
             tflops = flops / sec / 1e12
             heads = world if tier == "ulysses" else 1
-            tag = "[striped]" if striped else ""
+            tag = ("[striped]" if striped else "") + (
+                "[fused]" if ring_tier_eff == "fused" else "")
             row = {"kind": "attn", "tier": tier, "L": L, "d": d,
                    "dtype": args.dtype, "causal": args.causal,
                    "stripe": striped,
                    "tflops": tflops * heads, "us_per_iter": sec * 1e6,
                    "world": world}
             if tier == "ring":
-                row["ring_depth"] = 1  # a ring of one: no rotation in flight
-                row["ring_tier"] = "pipelined"
+                # the depth asked for (the JAX row's resolved value; the
+                # ring clamps it to the world) and the tier that ran
+                row["ring_depth"] = args.ring_depth or 1
+                row["ring_tier"] = ring_tier_eff
             if tier != "xla":  # flash-kernel tiers only
                 # the key tile the fold ran at: the kernel's own on the
                 # card, the requested one (else the whole block) on the CPU
                 on_card = device.type == "cuda"
+                block = L // world if tier == "ring" else L
                 row["k_tile_ceiling"] = (hand.FLASH_K_TILE if on_card
-                                         else args.k_tile or L)
+                                         else args.k_tile or block)
                 if args.skip_tile is not None:
                     row["skip_tile_ceiling"] = (hand.FLASH_K_TILE if on_card
                                                 else args.skip_tile)
@@ -184,14 +215,18 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--ring-depth", type=int, default=None,
-        help="ring K/V prefetch pipeline depth; a ring of one rank runs "
-        "depth 1 whatever is asked (results are depth-invariant)",
+        help="ring K/V prefetch depth: 1 (the default) rotates after each "
+        "step's fold, d>=2 keeps the K/V queue d-1 blocks ahead with the "
+        "next hop in flight under the fold (clamped to the world; results "
+        "are depth-invariant bit for bit)",
     )
     p.add_argument(
         "--ring-tier", default=None,
-        help="ring K/V rotation tier: 'pipelined' (the default); 'fused' "
-        "(the one-launch fused-RDMA kernel) is not ported and raises "
-        "(ROADMAP queue 2 item 14)",
+        help="ring K/V rotation tier: 'pipelined' (the default: host-"
+        "scheduled hops, paced by --ring-depth) or 'fused' (every step in "
+        "one launch of the fused ring-attention kernel, the K/V rotation "
+        "by peer stores; a geometry its gate refuses runs pipelined with "
+        "a NOTE)",
     )
     p.add_argument(
         "--fast", action="store_true",

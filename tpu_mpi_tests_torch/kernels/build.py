@@ -40,6 +40,7 @@ SOURCES = {
     "fused_rdma": "fused_rdma.cu",
     "ring_collectives": "ring_collectives.cu",
     "oneshot": "oneshot.cu",
+    "fused_ring_attention": "fused_ring_attention.cu",
 }
 
 # -fmad=false: no mul+add contraction anywhere, so float results match

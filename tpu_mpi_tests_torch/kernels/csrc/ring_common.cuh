@@ -1,8 +1,9 @@
 // Signalling and edge-band copies shared by the RDMA kernels: the two
-// ring halo kernels (ring_halo.cu, fused_rdma.cu) and the collective
-// kernels (ring_collectives.cu, oneshot.cu).
+// ring halo kernels (ring_halo.cu, fused_rdma.cu), the collective
+// kernels (ring_collectives.cu, oneshot.cu) and the fused ring attention
+// (fused_ring_attention.cu).
 //
-// A rank's signal pad (comm/peer.py) holds 64 int32 words. Remote words
+// A rank's signal pad (comm/peer.py) holds 128 int32 words. Remote words
 // are epoch counters written by other ranks; local words are counters of
 // the rank's own CTAs, reset to 0 by the last CTA that touches them
 // before the launch ends, so the next launch on the stream finds them at
@@ -35,8 +36,24 @@
 //   52 + p kOsArr[p]               remote, one-shot: rank p's shard
 //                                  landed in my slot p
 //   60-63                          unused
-// with s < kCollMaxSteps and p < kCollMaxWorld: the collectives run on at
-// most 8 ranks (or an 8-step self-ring), which is what the pad holds.
+//   64 kFraBarFromLeft / 65 kFraBarFromRight  remote, fused ring
+//                                  attention: the left / right neighbour
+//                                  entered launch `epoch`
+//   66 + s kFraArr[s]              remote: the left neighbour's step-(s-1)
+//                                  K/V block landed in my slot s % 2
+//   74 + s kFraCred[s]             remote: the right neighbour retired the
+//                                  block it received for its step s (its
+//                                  slot s % 2 is free again)
+//   82 + s kFraSent[s]             local: CTAs that finished their share
+//                                  of step s's send
+//   90 + s kFraRetired[s]          local: CTAs that finished folding (and
+//                                  forwarding) step s's block
+//   98 kFraExit                    local: CTAs that finished the launch
+//   99-127                         unused
+// with s < kCollMaxSteps (kFraArr, kFraCred, kFraSent, kFraRetired: s <
+// kCollMaxWorld) and p < kCollMaxWorld: the collectives and the fused
+// ring attention run on at most 8 ranks (or an 8-step self-ring), which
+// is what the pad holds.
 // Epochs count every RDMA launch up from 1 on every rank (all kernel
 // families share the count), so a wait for `word >= epoch` is met by this
 // launch's signal or a later one, never by an earlier one, and no remote
@@ -58,7 +75,7 @@
 
 namespace tpumt {
 
-constexpr int kPadWords = 64;
+constexpr int kPadWords = 128;
 constexpr int kCollMaxWorld = 8;
 constexpr int kCollMaxSteps = kCollMaxWorld - 1;
 
@@ -79,12 +96,23 @@ enum PadWord : int {
   kRsCred = kRsArr + kCollMaxSteps,
   kOsBar = kRsCred + kCollMaxSteps,
   kOsArr = kOsBar + kCollMaxWorld,
-  kPadWordsUsed = kOsArr + kCollMaxWorld,
+  kCollWordsEnd = kOsArr + kCollMaxWorld,
+  kFraBarFromLeft = 64,
+  kFraBarFromRight = kFraBarFromLeft + 1,
+  kFraArr = kFraBarFromRight + 1,
+  kFraCred = kFraArr + kCollMaxWorld,
+  kFraSent = kFraCred + kCollMaxWorld,
+  kFraRetired = kFraSent + kCollMaxWorld,
+  kFraExit = kFraRetired + kCollMaxWorld,
+  kPadWordsUsed = kFraExit + 1,
 };
 static_assert(kCollFolded == 16 && kAgArr == 23 && kOsBar == 44 &&
-                  kPadWordsUsed == 60,
+                  kCollWordsEnd == 60,
               "the pad map above");
-static_assert(kPadWordsUsed <= kPadWords, "the pad holds 64 words");
+static_assert(kFraArr == 66 && kFraCred == 74 && kFraSent == 82 &&
+                  kFraRetired == 90 && kFraExit == 98,
+              "the pad map above");
+static_assert(kPadWordsUsed <= kPadWords, "the pad holds 128 words");
 
 constexpr unsigned long long kWaitTimeoutNs = 20ull * 1000 * 1000 * 1000;
 

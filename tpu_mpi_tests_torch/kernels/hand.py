@@ -50,7 +50,14 @@ Each replaces a Pallas kernel of
   block into the (m, l, acc) carry, in place, causal in global positions
   (``flash_attention_block_pallas`` :3230), and :func:`flash_attention`
   on top of it (``flash_attention_pallas`` :3416); source
-  ``csrc/flash_attention.cu``.
+  ``csrc/flash_attention.cu``, its tile body ``csrc/flash_fold.cuh``.
+* :func:`fused_ring_attention` — every step of ring attention in one
+  launch, the K/V blocks forwarded to the right neighbour by peer stores
+  under entry-barrier, arrival and credit flags, each step folded with
+  the flash kernel's tile body (``collectives_pallas.py``
+  ``fused_ring_attention_pallas`` :529); source
+  ``csrc/fused_ring_attention.cu``. Its plain version runs the ring over
+  the process group with :func:`flash_attention_block_ref` at each step.
 
 A wrapper given a CUDA tensor launches its kernel on the current stream
 or raises; it takes the plain version (``*_ref``) only because the
@@ -79,7 +86,12 @@ import torch
 
 from tpu_mpi_tests_torch.comm.collectives import all_gather
 from tpu_mpi_tests_torch.comm.mesh import make_mesh
-from tpu_mpi_tests_torch.comm.peer import check_collective_world, peer_ring
+from tpu_mpi_tests_torch.comm.peer import (
+    COLL_MAX_WORLD,
+    PAD_WORDS,
+    check_collective_world,
+    peer_ring,
+)
 from tpu_mpi_tests_torch.kernels import build
 from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.stencil import (
@@ -181,6 +193,14 @@ _SIGNATURES = {
     "tpumt_oneshot": (
         [_c_void_p] * 4 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
                            _c_int, _c_void_p], _c_int),
+    # q, k, v, out, m, l, acc, slots, right slots, pad, left pad, right
+    # pad; epoch, dtype, lq, lk, d, w, my, v_off; scale; causal, stripe,
+    # highest, max_ctas; CTAs launched (out), stream
+    "tpumt_fused_ring_attention": (
+        [_c_void_p] * 12 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int,
+                            _c_int, _c_ll, _c_double, _c_int, _c_int,
+                            _c_int, _c_int, ctypes.POINTER(_c_int),
+                            _c_void_p], _c_int),
 }
 
 
@@ -1491,20 +1511,25 @@ def coll_world_ref(name: str, shards) -> list:
 
 
 def cross_wired(name: str, shards, credits: int = 1,
-                max_ctas: int = 4) -> list:
-    """``len(shards)`` instances of a collective kernel launched from one
-    process on one card, each on its own stream with its own buffers and
-    signal pad, their peer pointers wired to each other's: the kernels'
-    w > 1 data path and cross-rank signalling on a single card. Each
-    instance's grid is capped at ``max_ctas`` so that every instance is
-    resident at once. Counts no launch (a check, not a path). Returns the
-    instances' outputs (in rank order)."""
+                max_ctas: int = 4, **attn) -> list:
+    """``len(shards)`` instances of a collective kernel, or of the fused
+    ring attention, launched from one process on one card, each on its
+    own stream with its own buffers and signal pad, their peer pointers
+    wired to each other's: the kernels' w > 1 data path and cross-rank
+    signalling on a single card. Each instance's grid is capped at
+    ``max_ctas`` so that every instance is resident at once. For
+    ``"fused_ring_attention"`` each shard is a rank's ``(q, k, v)`` and
+    ``attn`` holds the keywords of :func:`fused_ring_attention` (``scale``,
+    ``causal``, ``stripe``, ``precision``). Counts no launch (a check, not
+    a path). Returns the instances' outputs (in rank order)."""
     k = len(shards)
     check_collective_world(k, name)
-    x0 = shards[0]
+    attention = name == "fused_ring_attention"
+    x0 = shards[0][0] if attention else shards[0]
     dev = x0.device
     item = x0.element_size()
-    pads = [torch.zeros(64, dtype=torch.int32, device=dev) for _ in range(k)]
+    pads = [torch.zeros(PAD_WORDS, dtype=torch.int32, device=dev)
+            for _ in range(k)]
     streams = [torch.cuda.Stream(dev) for _ in range(k)]
     torch.cuda.synchronize(dev)
     if name == "ring_allgather":
@@ -1538,6 +1563,9 @@ def cross_wired(name: str, shards, credits: int = 1,
                       pads[(r + 1) % k].data_ptr(), 1,
                       DTYPE_CODES[x0.dtype], k, r, cn, credits, max_ctas,
                       streams[r].cuda_stream)
+    elif attention:
+        outs, launch = _fused_ring_cross(shards, pads, streams, max_ctas,
+                                         **attn)
     elif name in ("oneshot_allgather", "oneshot_allreduce"):
         gather = name == "oneshot_allgather"
         rows = x0.shape[0] * (k if gather else 1)
@@ -2004,6 +2032,251 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = False,
     return _normalise(q, carry[1], carry[2])
 
 
+# ---------------------------------------------------------------------------
+# fused ring attention: every ring step in one launch
+# ---------------------------------------------------------------------------
+
+
+def fused_ring_slot_offset(lk: int, d: int, itemsize: int) -> int:
+    """Bytes from K to V in one K/V slot of the fused ring attention: the
+    block's bytes rounded up to 16. A slot is twice that; the comm
+    workspace holds two slots (the parities)."""
+    return -(-lk * d * itemsize // 16) * 16
+
+
+def fused_ring_feasible(lq: int, lk: int, d: int, dtype,
+                        device=None) -> bool:
+    """Can the fused ring-attention kernel run this geometry on this
+    world? True iff the dtype is float32 or bfloat16, 1 <= d <=
+    :data:`FLASH_MAX_D`, the world has at most :data:`COLL_MAX_WORLD`
+    ranks (the signal pad's words) and, on more than one rank, the comm
+    workspace (two parity slots of K ‖ V, about 4·lk·d·itemsize bytes)
+    fits the card's free memory — ``device``'s, or the current card's
+    where one exists (on the CPU the plain version needs none; one rank
+    forwards nothing). The JAX gate's VMEM model and
+    sublane rule (``collectives_pallas.py:344-373``) are the TPU's: the
+    CUDA kernel streams 64-row tiles through shared memory at any length.
+    Drivers consult it to decline with a NOTE (``attnbench``)."""
+    if dtype not in _FLASH_DTYPES or not 1 <= d <= FLASH_MAX_D \
+            or lq < 1 or lk < 1:
+        return False
+    w = make_mesh().size
+    if w > COLL_MAX_WORLD:
+        return False
+    if w == 1:
+        return True
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device is not None and torch.device(device).type == "cuda":
+        item = torch.empty((), dtype=dtype).element_size()
+        need = 4 * fused_ring_slot_offset(lk, d, item)
+        return need <= torch.cuda.mem_get_info(torch.device(device))[0]
+    return True
+
+
+def _check_fused(q, k, v, causal, stripe, precision) -> None:
+    _check_flash_operands("fused_ring_attention", q, k, v)
+    _check_precision(precision)
+    if q.dim() != 2:
+        raise ValueError("fused_ring_attention: (L, d) blocks (one head)")
+    if stripe and not causal:
+        raise ValueError(
+            "stripe=True only makes sense for causal ring attention "
+            "(non-causal work is already balanced)")
+
+
+def ring_attention_steps(q, block_of_step, my: int, w: int, *, scale,
+                         causal: bool = False, stripe: bool = False,
+                         precision: str = "highest", kernel: bool = False):
+    """The fused tier's fold, step by step, on rank ``my`` of a
+    ``w``-ring: step ``s`` folds ``block_of_step(s)`` — the (k, v) block
+    of source rank ``(my - s) mod w`` — into the f32 carry at JAX's
+    causal positions (contiguous: ``q_off = my·lq``, ``k_off = src·lk``;
+    striped: ``my``, ``src``, stride ``w``), with
+    :func:`flash_attention_block_ref`, or with ``kernel=True`` the
+    :func:`flash_attention_block` wrapper (on the card: the pipelined
+    tier's w launches, which the fused kernel equals bit for bit).
+    Returns ``acc / l`` in q's dtype."""
+    fold = flash_attention_block if kernel else flash_attention_block_ref
+    lq = q.shape[0]
+    kw = {"dtype": torch.float32, "device": q.device}
+    carry = (torch.full((lq, 1), float("-inf"), **kw),
+             torch.zeros((lq, 1), **kw), torch.zeros(q.shape, **kw))
+    for s in range(w):
+        kb, vb = block_of_step(s)
+        src = (my - s) % w
+        if stripe:
+            q_off, k_off, stride = my, src, w
+        else:
+            q_off, k_off, stride = my * lq, src * kb.shape[0], 1
+        carry = fold(q, kb, vb, *carry, q_off, k_off, scale=scale,
+                     causal=causal, pos_stride=stride, precision=precision)
+    return (carry[2] / carry[1]).to(q.dtype)
+
+
+def fused_ring_attention_ref(q, k, v, *, scale=None, causal: bool = False,
+                             stripe: bool = False,
+                             precision: str = "highest",
+                             self_ring: "int | None" = None):
+    """Plain version of :func:`fused_ring_attention`: the ring over the
+    process group (``Ring.shift`` of (k, v) after each step but the last)
+    with :func:`flash_attention_block_ref` at each step
+    (:func:`ring_attention_steps`) — bit for bit the port's pipelined
+    flash tier on the CPU. ``self_ring=k`` folds the rank's own block k
+    times, the sources of a k-ring's rank 0."""
+    _check_fused(q, k, v, causal, stripe, precision)
+    w, my, ring = _coll_ring("fused_ring_attention", self_ring)
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
+    state = {"kv": (k, v)}
+
+    def block_of_step(s):
+        if s > 0 and self_ring is None:
+            state["kv"] = ring.shift(state["kv"])
+        return state["kv"]
+
+    return ring_attention_steps(q, block_of_step, my, w, scale=float(scale),
+                                causal=causal, stripe=stripe,
+                                precision=precision)
+
+
+def fused_ring_world_ref(blocks, *, scale=None, causal: bool = False,
+                         stripe: bool = False, precision: str = "highest",
+                         kernel: bool = False) -> list:
+    """Every rank's result of :func:`fused_ring_attention` over the ranks'
+    ``(q, k, v)`` ``blocks``, in one process, the hops done by indexing
+    (≅ :func:`coll_world_ref`): the plain versions' values, or with
+    ``kernel=True`` the pipelined tier's flash launches on the card. Holds
+    the cross-wired instances (:func:`cross_wired`) to both."""
+    w = len(blocks)
+    if scale is None:
+        scale = 1.0 / blocks[0][0].shape[-1] ** 0.5
+    return [ring_attention_steps(
+        blocks[r][0], lambda s, r=r: blocks[(r - s) % w][1:], r, w,
+        scale=float(scale), causal=causal, stripe=stripe,
+        precision=precision, kernel=kernel) for r in range(w)]
+
+
+def fused_ring_attention(q, k, v, *, scale=None, causal: bool = False,
+                         stripe: bool = False, precision: str = "highest",
+                         self_ring: "int | None" = None):
+    """Ring attention of this rank's block in one launch (≅
+    ``fused_ring_attention_pallas``): q (lq, d), k and v (lk, d), float32
+    or bfloat16, d <= 256; returns (lq, d) in q's dtype. At step s the
+    kernel forwards the current K/V block into the right neighbour's
+    comm slot (peer stores, ``comm/peer.py``; credits=2) and folds the
+    block of source rank (rank − s) mod w with the flash kernel's tile
+    body at JAX's causal positions (contiguous or ``stripe``d), so the
+    result equals the pipelined flash tier's (w launches of
+    :func:`flash_attention_block`) bit for bit. ``precision``: "highest"
+    (f32 on the CUDA cores) or "default" (the tensor cores).
+
+    ``self_ring=k`` (world 1 only, 2 <= k <= 8): the full k-step schedule
+    into the rank's own slots, folding its own block k times. An
+    explicit request at a geometry :func:`fused_ring_feasible` refuses
+    raises ``ValueError`` naming the pipelined tier; more than 8 ranks
+    raise :class:`~tpu_mpi_tests_torch.comm.peer.PeerError`. One launch
+    per call; every rank must make the same sequence of RDMA calls."""
+    _check_fused(q, k, v, causal, stripe, precision)
+    w, my, _ = _coll_ring("fused_ring_attention", self_ring)
+    lq, d = q.shape
+    lk = k.shape[0]
+    if not fused_ring_feasible(lq, lk, d, q.dtype,
+                               q.device if q.is_cuda else None):
+        raise ValueError(
+            f"fused ring attention cannot run lq={lq} lk={lk} d={d} "
+            f"{q.dtype} on {w} rank(s) (fused_ring_feasible: float32 or "
+            f"bfloat16, d <= {FLASH_MAX_D}, at most {COLL_MAX_WORLD} "
+            f"ranks, the comm slots in free memory); use the pipelined "
+            f"tier (ring tier 'pipelined') at this geometry")
+    if scale is None:
+        scale = 1.0 / d**0.5
+    if q.device.type == "cpu":
+        return fused_ring_attention_ref(q, k, v, scale=scale, causal=causal,
+                                        stripe=stripe, precision=precision,
+                                        self_ring=self_ring)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_ring_attention: unsupported device "
+                         f"{q.device}")
+    for t, nm in ((q, "q"), (k, "k"), (v, "v")):
+        if not t.is_contiguous():
+            raise ValueError(f"fused_ring_attention: {nm} must be "
+                             f"contiguous")
+    peer = peer_ring(q.device)
+    v_off = fused_ring_slot_offset(lk, d, k.element_size())
+    slots = right = 0  # one rank: no slot is read
+    if w > 1:
+        ws = peer.workspace("fused_ring_attention", 4 * v_off)
+        slots = right = ws.data_ptr()
+        if peer.symmetric:
+            right = peer.peer_ptrs(ws)[1]
+    out = torch.empty_like(q)
+    m, l, acc = _fused_carry(q)
+    pad, left_pad, right_pad = peer.pad_ptrs()
+    fn = _entry("fused_ring_attention", "tpumt_fused_ring_attention")
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                m.data_ptr(), l.data_ptr(), acc.data_ptr(), slots, right,
+                pad, left_pad, right_pad, peer.next_epoch(),
+                _FLASH_DTYPES[q.dtype], lq, lk, d, w, my, v_off,
+                float(scale), int(bool(causal)), int(bool(stripe)),
+                int(precision == "highest"), 0, None, _stream(q))
+    if rc != 0:
+        _raise_launch("fused_ring_attention", rc)
+    fused_ring_attention.launches += 1
+    return out
+
+
+fused_ring_attention.launches = 0
+
+
+def _fused_carry(q):
+    """The kernel's carry scratch: m, l (lq,) and acc (lq, d) float32,
+    written by the kernel before its first fold."""
+    kw = {"dtype": torch.float32, "device": q.device}
+    return (torch.empty(q.shape[0], **kw), torch.empty(q.shape[0], **kw),
+            torch.empty(q.shape, **kw))
+
+
+def _fused_ring_cross(blocks, pads, streams, max_ctas, *, scale=None,
+                      causal: bool = False, stripe: bool = False,
+                      precision: str = "highest"):
+    """(outputs, launch(r)) of :func:`cross_wired`'s fused ring attention
+    instances: rank r's slots, pads and streams wired to its neighbours'."""
+    w = len(blocks)
+    q0, k0, _ = blocks[0]
+    for q, k, v in blocks:
+        _check_fused(q, k, v, causal, stripe, precision)
+        if q.shape != q0.shape or k.shape != k0.shape or not (
+                q.is_contiguous() and k.is_contiguous()
+                and v.is_contiguous()):
+            raise ValueError("cross-wired fused_ring_attention: contiguous "
+                             "blocks of one shape on every rank")
+    lq, d = q0.shape
+    lk = k0.shape[0]
+    if scale is None:
+        scale = 1.0 / d**0.5
+    v_off = fused_ring_slot_offset(lk, d, k0.element_size())
+    slots = [torch.empty(4 * v_off, dtype=torch.uint8, device=q0.device)
+             for _ in range(w)]
+    outs = [torch.empty_like(q) for q, _, _ in blocks]
+    carries = [_fused_carry(q) for q, _, _ in blocks]
+    fn = _entry("fused_ring_attention", "tpumt_fused_ring_attention")
+
+    def launch(r):
+        q, k, v = blocks[r]
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[r].data_ptr(),
+                  *(t.data_ptr() for t in carries[r]), slots[r].data_ptr(),
+                  slots[(r + 1) % w].data_ptr(), pads[r].data_ptr(),
+                  pads[(r - 1) % w].data_ptr(), pads[(r + 1) % w].data_ptr(),
+                  1, _FLASH_DTYPES[q.dtype], lq, lk, d, w, r, v_off,
+                  float(scale), int(bool(causal)), int(bool(stripe)),
+                  int(precision == "highest"), max_ctas, None,
+                  streams[r].cuda_stream)
+
+    return outs, launch
+
+
 #: every wrapper of a hand kernel (name → function with a .launches count)
 WRAPPERS = {
     "stencil2d_iterate": stencil2d_iterate,
@@ -2022,6 +2295,7 @@ WRAPPERS = {
     "stream_scale": stream_scale,
     "stream_sum3": stream_sum3,
     "flash_attention_block": flash_attention_block,
+    "fused_ring_attention": fused_ring_attention,
 }
 
 
