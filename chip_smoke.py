@@ -7,7 +7,8 @@ failure exits non-zero and prints no result line):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build all seventeen hand kernels (thirteen libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
-   process per source, in parallel);
+   process per source, in parallel), and print the registers, stack and
+   spills of every flash and fused ring attention instance (``PTXAS``);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
@@ -31,11 +32,15 @@ failure exits non-zero and prints no result line):
    The flash-attention fold (``check_flash_kernel``) over float32/bf16 ×
    L 1..1024 × Lk 1..300 × d 4..256 × dense and causal (partly masked,
    fully masked, fully live, stride 4) × HIGHEST/DEFAULT, a chain of two
-   folds, the (L, H, d) layout in one launch and the main path's
-   operands: HIGHEST holds the carry to FLASH_RTOL/FLASH_ATOL, DEFAULT
-   the normalised output to FLASH_DEFAULT_ATOL of the plain version at
-   HIGHEST (sums in another order, tensor-core operands rounded), the
-   largest error of each class printed. The ALU probe
+   folds, the (L, H, d) layout in one launch, the wgmma route (bf16
+   DEFAULT, d <= 128) at L 1, 7, 65, 8191 × d 64 and 128 × dense,
+   self-causal, offset, striped and fully masked, and (L, 4, d) with the
+   heads inside and outside the rows, each of its launches counted on
+   that route, and the main path's operands: HIGHEST holds the carry to
+   FLASH_RTOL/FLASH_ATOL, DEFAULT the normalised output to
+   FLASH_DEFAULT_ATOL of the plain version at HIGHEST (sums in another
+   order, tensor-core operands rounded), the largest error of each class
+   printed. The ALU probe
    (``check_probe_kernel``) over its eight mixes × float32/bfloat16 ×
    (8, 128), (16, 128), (37, 200), (512, 512), a (3, 70, 130) stack and
    the main path's (B, 512, 512) stack × reps 1, 3, 64 × ``se`` 1e-9 and
@@ -75,6 +80,7 @@ failure exits non-zero and prints no result line):
    every case bit for bit the pipelined tier's flash launches (the same
    tile body, ``csrc/flash_fold.cuh``), and within the flash kernel's
    tolerances of its plain version (the ring's hops done by indexing);
+   every fused launch counted on the route its operands take;
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
@@ -122,7 +128,10 @@ failure exits non-zero and prints no result line):
    ``--ring-tier pipelined`` and ``fused`` in float32, bfloat16
    ``--fast`` and the striped causal layout — exactly one flash launch
    per call of each pipelined tier, one fused launch per fused ring call,
-   the ``[fused]`` tag exactly on the fused rows — no FAIL, every
+   the ``[fused]`` tag exactly on the fused rows, and every launch on
+   its operands' route (bf16 ``--fast`` on wgmma, f32 HIGHEST on fma;
+   microbench ``attention``'s f32 arm on mma, its bf16 arm and
+   ``causal`` on wgmma) — no FAIL, every
    TFLOP/s row finite and at most 1.05 × the peak of its arithmetic (67
    f32, 495 TF32, 989 bf16). Then the one-card slice
    (``run_one_card_slice``), each path alone: the microbench groups
@@ -153,8 +162,9 @@ failure exits non-zero and prints no result line):
    ``y.add_(x, alpha=a)`` and ``x.mul_(a)``; the daxpy row also carries
    ``dispatch_rate``'s host-clock time of the same launch. The flash
    fold at (8192, 128) f32 HIGHEST dense and causal, bf16 DEFAULT, and
-   (32768, 128) bf16 DEFAULT causal, beside its plain version, its flop
-   bound over the peak of its arithmetic, and
+   (32768, 128) bf16 DEFAULT causal, timed with CUDA events and queued
+   behind a stall (the wrapper's host time out), beside its plain
+   version, its flop bound over the peak of its arithmetic, and
    ``F.scaled_dot_product_attention`` (TF32 off for f32). The probe at
    (B, 512, 512) per mix (bound: issued operations over 67 TFLOP/s; no
    library call computes it); pack and unpack at the staged exchange's
@@ -175,8 +185,8 @@ failure exits non-zero and prints no result line):
    beside ``torch.tile``, ``x.view(k, -1).sum(0)`` and ``x.clone()``
    (bound: the shard read once and the output written once); the fused
    ring attention at (8192, 128) at world=1 and on the self-ring k = 4
-   beside its plain version, the pipelined tier's flash launches, its
-   flop bound (live pairs of this run's masks) and
+   beside its plain version, the pipelined tier's flash launches (both
+   also queued), its flop bound (live pairs of this run's masks) and
    ``F.scaled_dot_product_attention`` where one call computes the same
    function (K/V tiled k times on the dense self-ring);
 6. print the card line, the ``kernels`` JSON line and, last, the device
@@ -285,6 +295,12 @@ FRA_ALSO_REPLACES = ("tpu_mpi_tests/kernels/collectives_pallas.py:376 "
 ATTN_MICROBENCH_LAUNCHES = {
     "attention": 2 * (3 + 100 + 1100),
     "causal": 5 * (3 + 80 + 800) + 5 * (3 + 20 + 200),
+}
+# their routes: attention's float32 arm on TF32 mma.sync, its bf16 arm
+# and every causal arm (bf16) on wgmma
+ATTN_MICROBENCH_ROUTES = {
+    "attention": {"mma": 3 + 100 + 1100, "wgmma": 3 + 100 + 1100},
+    "causal": {"wgmma": ATTN_MICROBENCH_LAUNCHES["causal"]},
 }
 PROBE_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/alu_probe.cu"
 PROBE_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:469"
@@ -934,9 +950,12 @@ def check_flash_kernel(device, gen, failures):
     DEFAULT (the normalised output against the plain version at HIGHEST,
     FLASH_DEFAULT_ATOL); a chain of two folds against one fold over the
     concatenated block; the (L, H, d) layout with H=4 in one launch; the
-    main path's operands (8192×128 f32 and bf16, 32768×128 bf16 causal).
-    Returns (number of cases, largest error per class, the main-path
-    errors)."""
+    wgmma route (bf16 DEFAULT) at L 1, 7, 65, 8191 × (Lk, d) (L, 128) and
+    (129, 64) × dense, self-causal, offset, striped and fully masked, and
+    (L, 4, d) with the heads inside and outside the rows, each launch
+    counted on that route; the main path's operands (8192×128 f32 and
+    bf16, 32768×128 bf16 causal). Returns (number of cases, largest error
+    per class, the main-path errors)."""
     import torch
 
     from tpu_mpi_tests_torch.kernels import hand
@@ -1051,6 +1070,55 @@ def check_flash_kernel(device, gen, failures):
                             f"{err:g} beyond {tol:g}")
         note(f"(L, H, d) {str(dtype).split('.')[1]} {precision}", err)
         n_cases += 1
+    # the wgmma route (bf16 DEFAULT, d <= 128, 16-byte chunks): ragged L,
+    # causal with offsets and the striped ring's stride, fully masked;
+    # (L, H, d) with the heads inside and outside the rows; every launch
+    # counted on that route
+    wg0 = hand.flash_attention_block.launches_by_route["wgmma"]
+    n_wg = 0
+    wg_offsets = ((False, (0, 0, 1), "dense"),
+                  (True, (0, 0, 1), "self-causal"),
+                  (True, (1000, 37, 1), "offsets"),
+                  (True, (3, 1, 4), "striped p=3 of 4 from 1"),
+                  (True, (0, big, 1), "fully masked"))
+    for L in (1, 7, 65, 8191):
+        for Lk, d in ((L, 128), (129, 64)):
+            q = rand((L, d), torch.bfloat16)
+            k, v = (rand((Lk, d), torch.bfloat16) for _ in range(2))
+            c = carry(L, d)
+            for causal, offs, what in wg_offsets:
+                name = f"wgmma L={L} Lk={Lk} d={d} {what}"
+                want = fold(q, k, v, c, offs, causal, "highest", plain=True)
+                normalised_close(name, "bfloat16 wgmma", fold(
+                    q, k, v, c, offs, causal, "default"), want,
+                    torch.bfloat16)
+                n_wg += 1
+                n_cases += 1
+            del q, k, v, c
+    for heads_outer in (False, True):
+        for d in (64, 128):
+            if heads_outer:  # head stride L·d above the row stride d
+                q, k, v = (rand((4, 333, d), torch.bfloat16).transpose(0, 1)
+                           for _ in range(3))
+            else:
+                q, k, v = (rand((333, 4, d), torch.bfloat16)
+                           for _ in range(3))
+            got = hand.flash_attention(q, k, v, causal=True,
+                                       precision="default")
+            want = hand.flash_attention_ref(q, k, v, causal=True)
+            err = float((got.float() - want.float()).abs().max())
+            tol = (FLASH_DEFAULT_ATOL["bfloat16"]
+                   + 2.0**-9 * float(want.float().abs().max()))
+            if not err <= tol:
+                failures.append(f"flash wgmma (L, 4, {d}) heads_outer="
+                                f"{heads_outer}: {err:g} beyond {tol:g}")
+            note("bfloat16 wgmma (L, H, d)", err)
+            n_wg += 1
+            n_cases += 1
+    got_wg = hand.flash_attention_block.launches_by_route["wgmma"] - wg0
+    if got_wg != n_wg:
+        failures.append(f"flash wgmma cases: {got_wg} launches on the wgmma "
+                        f"route, {n_wg} cases")
     # the main path's operands, from the fresh carry as flash_attention
     # starts it
     main = {}
@@ -1079,6 +1147,23 @@ def check_flash_kernel(device, gen, failures):
     return n_cases, errs, main
 
 
+#: path -> the two attention kernels' launches per route on that path
+#: (hand.route_counts(), read with the path's counts)
+ROUTE_COUNTS: dict = {}
+
+
+def check_routes(path, name, want):
+    """Fail unless ``name``'s launches on ``path`` took exactly the routes
+    ``want`` names (route -> count; every other route none)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    full = dict.fromkeys(hand.FLASH_ROUTES, 0) | want
+    got = ROUTE_COUNTS[path][name]
+    if got != full:
+        raise SmokeFailure(f"{path}: {name} launches by route {got}, its "
+                           f"operands' route makes {full}")
+
+
 def drive_path(path, fn, kernels, peaks):
     """Run one main path with every launch count set to 0 just before and
     read just after; fail unless each of ``kernels`` launched in it.
@@ -1093,6 +1178,7 @@ def drive_path(path, fn, kernels, peaks):
     hand.reset_launch_counts()
     result = fn()
     counts = hand.launch_counts()
+    ROUTE_COUNTS[path] = hand.route_counts()
     peaks[path] = torch.cuda.max_memory_allocated()
     for name in kernels:
         if counts[name] <= 0:
@@ -1480,6 +1566,11 @@ def run_attention_slice(device, counts, peaks):
         for line in text.splitlines():
             log(line)
         _exact(path, counts[path], want)
+        # every launch on the route of its operands: bf16 --fast on the
+        # wgmma route, f32 HIGHEST on the CUDA cores
+        route = "wgmma" if "--fast" in extra else "fma"
+        for name, n in want.items():
+            check_routes(path, name, {route: n} if n else {})
         fused = "fused" in extra
         if ("[fused]" in text) != fused:
             raise SmokeFailure(f"{path}: the [fused] tag must appear exactly "
@@ -1511,6 +1602,9 @@ def run_attention_slice(device, counts, peaks):
         if got != want:
             raise SmokeFailure(f"{path}: {got} flash launches, its schedule "
                                f"makes {want}")
+        # DEFAULT: f32 on TF32 mma.sync, bf16 on wgmma
+        check_routes(path, "flash_attention_block",
+                     ATTN_MICROBENCH_ROUTES[group])
         for r in recs:
             if r["unit"] == "TFLOP/s":  # DEFAULT: TF32 or bf16
                 peak = PEAK_FLOPS["tf32" if "float32" in r["metric"]
@@ -1586,6 +1680,15 @@ def check_fused_ring_kernel(device, gen, failures):
         return err
 
     n_cases = 0
+    routes0 = dict(hand.fused_ring_attention.launches_by_route)
+    routes_want = dict.fromkeys(hand.FLASH_ROUTES, 0)
+
+    def fused(q, k, v, **kw):
+        d = q.shape[-1]
+        routes_want[hand.flash_route(q.dtype, kw["precision"], d,
+                                     hand.flash_aligned(d, q, k, v))] += 1
+        return hand.fused_ring_attention(q, k, v, **kw)
+
     for dt, precision in FRA_CONFIGS:
         dtype = getattr(torch, dt)
         for causal, stripe in FRA_LAYOUTS:
@@ -1594,8 +1697,7 @@ def check_fused_ring_kernel(device, gen, failures):
                 q, k, v = (rand((L, d), dtype) for _ in range(3))
                 for ring in (None, 2, 4, 8):
                     w = ring or 1
-                    got = hand.fused_ring_attention(q, k, v, self_ring=ring,
-                                                    **kw)
+                    got = fused(q, k, v, self_ring=ring, **kw)
                     flash = hand.fused_ring_world_ref([(q, k, v)] * w,
                                                       kernel=True, **kw)[0]
                     plain = hand.fused_ring_attention_ref(
@@ -1625,7 +1727,7 @@ def check_fused_ring_kernel(device, gen, failures):
         dtype = getattr(torch, dt)
         q, k, v = (rand((ATTN_L, ATTN_D), dtype) for _ in range(3))
         kw = dict(causal=causal, stripe=stripe, precision=precision)
-        got = hand.fused_ring_attention(q, k, v, **kw)
+        got = fused(q, k, v, **kw)
         flash = hand.fused_ring_world_ref([(q, k, v)], kernel=True, **kw)[0]
         plain = hand.fused_ring_attention_ref(q, k, v, causal=causal,
                                               stripe=stripe)
@@ -1638,6 +1740,12 @@ def check_fused_ring_kernel(device, gen, failures):
         del q, k, v, got, flash, plain
         torch.cuda.empty_cache()
     torch.cuda.synchronize(device)
+    got_routes = {r: n - routes0[r] for r, n in
+                  hand.fused_ring_attention.launches_by_route.items()}
+    if got_routes != routes_want:
+        failures.append(f"fused launches by route {got_routes}, the "
+                        f"operands' routes make {routes_want}")
+    log(f"FUSED_RING_ROUTES {json.dumps(got_routes)}")
     log(f"FUSED_RING_ERRORS largest per class {json.dumps(classes)}")
     return n_cases, main, classes
 
@@ -1672,7 +1780,9 @@ def time_fused_ring_kernel(device, gen):
     peak of the arithmetic, or bytes over 3.35 TB/s) and, where one call
     computes the same function, ``F.scaled_dot_product_attention``: q, k,
     v at world 1; K/V tiled k times on the non-causal self-ring (each key
-    k times: the same softmax); none on the causal self-ring."""
+    k times: the same softmax); none on the causal self-ring. The kernel
+    and the pipelined launches are also timed queued behind a stall
+    (``queued_ms``: the wrappers' host time taken out)."""
     import torch
     import torch.nn.functional as F
 
@@ -1694,13 +1804,20 @@ def time_fused_ring_kernel(device, gen):
                    .to(dtype) for _ in range(3))
         kw = dict(causal=causal, stripe=stripe, precision=precision)
         n = 10 if w == 1 else 4
-        ms = time_cuda(lambda: hand.fused_ring_attention(
-            q, k, v, self_ring=ring, **kw), n)
+
+        def launch():
+            return hand.fused_ring_attention(q, k, v, self_ring=ring, **kw)
+
+        def pipelined():  # the pipelined tier's w flash launches, rank 0
+            return hand.ring_attention_steps(
+                q, lambda s: (k, v), 0, w, scale=d**-0.5, kernel=True, **kw)
+
+        ms = time_cuda(launch, n)
+        queued = time_cuda_queued(launch, n)
         plain = time_cuda(lambda: hand.fused_ring_attention_ref(
             q, k, v, self_ring=ring, **kw), 2)
-        # the pipelined tier's w flash launches for rank 0 of the ring
-        flash = time_cuda(lambda: hand.ring_attention_steps(
-            q, lambda s: (k, v), 0, w, scale=d**-0.5, kernel=True, **kw), n)
+        flash = time_cuda(pipelined, n)
+        flash_queued = time_cuda_queued(pipelined, n)
         lib = None
         if w == 1:
             lib = time_cuda(lambda: F.scaled_dot_product_attention(
@@ -1720,8 +1837,11 @@ def time_fused_ring_kernel(device, gen):
                      else "self-ring k=4"),
             "shape": [L, d], "self_ring": ring, "dtype": dt,
             "causal": causal, "stripe": stripe, "precision": precision,
-            "arithmetic": arith, "ms": ms, "plain_ms": plain,
+            "arithmetic": arith,
+            "route": hand.flash_route(dtype, precision, d, True),
+            "ms": ms, "queued_ms": queued, "plain_ms": plain,
             "pipelined_flash_ms": flash,
+            "pipelined_flash_queued_ms": flash_queued,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib,
@@ -2206,8 +2326,9 @@ def _nccl_attention(rank, world):
     (``hand.fused_ring_world_ref(kernel=True)``) bit for bit alike, the
     torch-op tier depth-invariant bit for bit, and Ulysses' flash form
     equal to ``flash_attention`` over the whole sequence (each head the
-    same fold); then the fused and pipelined tiers timed side by side at
-    L=8192, d=128."""
+    same fold); the ring checks in f32 HIGHEST and in bf16 DEFAULT (the
+    wgmma route); then the fused and pipelined tiers timed side by side
+    at L=8192, d=128 in both."""
     import torch
 
     from tpu_mpi_tests_torch.comm import alltoall as A
@@ -2220,25 +2341,35 @@ def _nccl_attention(rank, world):
     L, d = ATTN_L, ATTN_D
     lq = L // world
     g = [torch.randn((L, d), generator=gen, device="cuda") for _ in range(3)]
-    for causal, stripe in ((False, False), (True, False), (True, True)):
-        glob = [R.to_striped(t, world) for t in g] if stripe else g
-        mine = [shard_1d(t, "cuda") for t in glob]
-        kw = dict(causal=causal, stripe=stripe)
-        outs = {f"flash depth {dp}": R.ring_attention_fn(
-            world, flash=True, depth=dp, **kw)(*mine) for dp in (1, 2)}
-        outs["fused"] = R.ring_attention_fn(world, tier="fused", **kw)(*mine)
-        outs["world of flash launches"] = hand.fused_ring_world_ref(
-            [tuple(t[r * lq:(r + 1) * lq] for t in glob)
-             for r in range(world)], kernel=True, **kw)[rank]
-        xla = [R.ring_attention_fn(world, depth=dp, **kw)(*mine)
-               for dp in (1, 2)]
-        torch.cuda.synchronize()
-        first = outs["flash depth 1"]
-        bad = [name for name, o in outs.items() if not torch.equal(o, first)]
-        if bad or not torch.equal(*xla):
-            raise SmokeFailure(f"NCCL leg rank {rank} causal={causal} "
-                               f"stripe={stripe}: {bad or 'xla depth 2'} "
-                               f"differs")
+    # f32 HIGHEST and bf16 DEFAULT (the wgmma route: TMA reads of the
+    # slots a peer stored into over NVLink, after the proxy fence)
+    for dtype, precision in ((torch.float32, "highest"),
+                             (torch.bfloat16, "default")):
+        for causal, stripe in ((False, False), (True, False), (True, True)):
+            glob = [R.to_striped(t, world) for t in g] if stripe else g
+            glob = [t.to(dtype) for t in glob]
+            mine = [shard_1d(t, "cuda") for t in glob]
+            kw = dict(causal=causal, stripe=stripe)
+            outs = {f"flash depth {dp}": R.ring_attention_fn(
+                world, flash=True, depth=dp, precision=precision,
+                **kw)(*mine) for dp in (1, 2)}
+            outs["fused"] = R.ring_attention_fn(
+                world, tier="fused", precision=precision, **kw)(*mine)
+            outs["world of flash launches"] = hand.fused_ring_world_ref(
+                [tuple(t[r * lq:(r + 1) * lq] for t in glob)
+                 for r in range(world)], kernel=True, precision=precision,
+                **kw)[rank]
+            xla = [R.ring_attention_fn(world, depth=dp, precision=precision,
+                                       **kw)(*mine) for dp in (1, 2)]
+            torch.cuda.synchronize()
+            first = outs["flash depth 1"]
+            bad = [name for name, o in outs.items()
+                   if not torch.equal(o, first)]
+            if bad or not torch.equal(*xla):
+                raise SmokeFailure(
+                    f"NCCL leg rank {rank} {dtype} {precision} causal="
+                    f"{causal} stripe={stripe}: {bad or 'xla depth 2'} "
+                    f"differs")
     heads = 2 * world
     h = [torch.randn((L, heads, 64), generator=gen, device="cuda")
          for _ in range(3)]
@@ -2248,12 +2379,15 @@ def _nccl_attention(rank, world):
     if not torch.equal(got, want):
         raise SmokeFailure(f"NCCL leg rank {rank}: Ulysses differs from "
                            f"flash_attention over the whole sequence")
-    mine = [shard_1d(t, "cuda") for t in g]
-    times = [[tier, time_cuda(lambda tier=tier: R.ring_attention_fn(
-        world, flash=True, tier=tier)(*mine), 20)]
-        for tier in ("pipelined", "fused", "fused", "pipelined")]
-    log(f"TIME NCCL leg rank {rank} world={world} ring attention L={L} "
-        f"d={d} f32 HIGHEST (ms per call): {json.dumps(times)}")
+    for dtype, precision in ((torch.float32, "highest"),
+                             (torch.bfloat16, "default")):
+        mine = [shard_1d(t.to(dtype), "cuda") for t in g]
+        times = [[tier, time_cuda(lambda tier=tier: R.ring_attention_fn(
+            world, flash=True, tier=tier, precision=precision)(*mine), 20)]
+            for tier in ("pipelined", "fused", "fused", "pipelined")]
+        log(f"TIME NCCL leg rank {rank} world={world} ring attention L={L} "
+            f"d={d} {str(dtype).split('.')[1]} {precision.upper()} (ms per "
+            f"call): {json.dumps(times)}")
 
 
 def _nccl_collectives(rank, world, gen):
@@ -2867,7 +3001,9 @@ def time_flash_kernel(device, gen):
     plain version at the same precision, the bound (flops over the peak
     of the arithmetic, or bytes over 3.35 TB/s) and
     ``F.scaled_dot_product_attention`` on (1, 1, L, d) as the one-call
-    yardstick (TF32 off for f32; the port never calls it)."""
+    yardstick (TF32 off for f32; the port never calls it). ``queued_ms``
+    times the same launches queued behind a stall (the wrapper's host
+    time taken out), beside ``ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -2890,8 +3026,13 @@ def time_flash_kernel(device, gen):
         out = tuple(torch.empty_like(t) for t in carry)
         args = dict(scale=d**-0.5, causal=causal, precision=precision)
         n = 20 if L == ATTN_L else 5
-        ms = time_cuda(lambda: hand.flash_attention_block(
-            q, k, v, *carry, 0, 0, out=out, **args), n)
+
+        def launch():
+            return hand.flash_attention_block(q, k, v, *carry, 0, 0, out=out,
+                                              **args)
+
+        ms = time_cuda(launch, n)
+        queued = time_cuda_queued(launch, n)
         plain = time_cuda(lambda: hand.flash_attention_block_ref(
             q, k, v, *carry, 0, 0, k_tile=4096, **args), 2)
         lib = time_cuda(lambda: F.scaled_dot_product_attention(
@@ -2906,17 +3047,52 @@ def time_flash_kernel(device, gen):
             "path": "attnbench/microbench", "shape": [L, d],
             "dtype": str(dtype).split(".")[1], "causal": causal,
             "precision": precision, "arithmetic": arith,
-            "ctas": -(-L // hand.FLASH_Q_TILE), "ms": ms, "plain_ms": plain,
+            "route": hand.flash_route(dtype, precision, d, True),
+            "ctas": -(-L // hand.FLASH_Q_TILE), "ms": ms,
+            "queued_ms": queued, "plain_ms": plain,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib,
             "library_call": "F.scaled_dot_product_attention (1,1,L,d)"
                             + (", TF32 off" if dtype == torch.float32
                                else ""),
-            "tflops": flops / ms / 1e9})
+            "tflops": flops / ms / 1e9, "queued_tflops": flops / queued / 1e9})
         del q, k, v, carry, out
         torch.cuda.empty_cache()
     return rows
+
+
+def ptxas_summary(build) -> dict:
+    """Registers, stack and spill bytes of every flash and fused ring
+    attention instance, and ptxas's performance notes (C75xx: wgmmas
+    serialised, setmaxnreg ignored), from this process's builds."""
+    import re
+
+    out = {}
+    for lib in ("flash_attention", "fused_ring_attention"):
+        entry = None
+        for line in build.BUILD_LOGS.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                k = re.search(r"\d+((?:flash|fused_ring)_\w*?kernel)(\w*)",
+                              m[1])
+                entry = (k[1] + (k[2].split("EEv")[0] if k[2].startswith("I")
+                                 else "")) if k else m[1]
+                out[entry] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and entry:
+                out[entry].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                  spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                out[entry]["registers"] = int(m[1])
+            m = re.search(r"\((C75\d\d)\)[^']*'[^']*?\d+((?:flash|fused_ring)"
+                          r"_\w*?kernel)", line)
+            if m:
+                out.setdefault("notes", []).append(f"{m[1]} {m[2]}")
+    return out
 
 
 def main() -> int:
@@ -2956,6 +3132,8 @@ def main() -> int:
                                      "fused_ring_attention")
                             and "Compiling entry" in line):
                     log(f"  ptxas {name}: {line.strip()}")
+        ptxas = ptxas_summary(build)
+        log(f"PTXAS attention instances {json.dumps(ptxas)}")
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -3000,6 +3178,13 @@ def main() -> int:
                          errs["flash_attention_block classes"],
                      "max_abs_err_main_path":
                          errs["flash_attention_block main path"]}
+        if name in ("flash_attention_block", "fused_ring_attention"):
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()}
+            prefix = "flash_" if name == "flash_attention_block" \
+                else "fused_"
+            extra["ptxas"] = {k: v for k, v in ptxas.items()
+                              if k.startswith(prefix)}
         if name == "dual_dim_step":
             # max_abs_err is the derivatives'; the residual is a sum in
             # another order, held to a relative tolerance
@@ -3020,9 +3205,9 @@ def main() -> int:
             # max_abs_err: the normalised output at the main path's f32
             # HIGHEST operands (8192, 128); every class beside it, each
             # case also bit for bit the pipelined tier's flash launches
-            extra = {"also_replaces": FRA_ALSO_REPLACES,
-                     "max_abs_err_by_class":
-                         errs["fused_ring_attention classes"]}
+            extra |= {"also_replaces": FRA_ALSO_REPLACES,
+                      "max_abs_err_by_class":
+                          errs["fused_ring_attention classes"]}
         if name == "alu_probe":
             # max_abs_err is the bit-exact mixes' (fma, step5*, heat5);
             # the dual mixes feed a sum in another order back and are

@@ -18,7 +18,10 @@ drivers and the microbench groups run on the card at small sizes. The
 flash-attention fold is held against its plain version within stated
 tolerances (sums in another order; tensor-core operands rounded at
 DEFAULT), dense and causal with masked, live and strided offsets, and in
-the (L, H, d) layout in one launch. The fused ring attention is held
+the (L, H, d) layout in one launch; its wgmma route (bf16 DEFAULT) on
+ragged shapes, causal offsets and both (L, H, d) stride orders, every
+geometry class counted on its route, and a launch given another route
+than the rule's refused. The fused ring attention is held
 bit for bit against the pipelined tier's flash launches and within the
 flash tolerances against its plain version, at world=1, on the self-ring
 (k = 2, 4, 8) and as w = 2 and 4 instances cross-wired on one card,
@@ -319,6 +322,111 @@ def test_flash_attention_heads_layout_one_launch(card):
     assert hand.flash_attention_block.launches == before + 1
     want = hand.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# the wgmma route: bf16 DEFAULT at d <= 128, every operand in 16-byte
+# chunks (TMA loads, a producer warpgroup, wgmma products)
+WG_OFFSETS = [(False, (0, 0, 1)), (True, (0, 0, 1)), (True, (1000, 37, 1)),
+              (True, (3, 1, 4)), (True, (0, 10**6, 1))]
+
+
+def wg_routes():
+    return dict(hand.flash_attention_block.launches_by_route)
+
+
+@pytest.mark.parametrize("L,Lk,d", [(1, 1, 128), (7, 65, 128),
+                                    (65, 129, 64), (300, 1000, 128),
+                                    (129, 7, 8), (8191, 300, 72)])
+@pytest.mark.parametrize("causal,offs", WG_OFFSETS)
+def test_flash_wgmma_route_matches_plain(card, L, Lk, d, causal, offs):
+    """Ragged L and Lk, d that leaves the second 64-column half empty or
+    partly filled, causal offsets (the striped ring's stride, a fully
+    masked block): the normalised carry within 8e-3 of the plain version
+    at HIGHEST, the launch counted on the wgmma route."""
+    q, k, v, m, l, acc = flash_case(card, L, Lk, d, torch.bfloat16,
+                                    seed=L + d)
+    kw = dict(scale=d**-0.5, causal=causal, pos_stride=offs[2])
+    want = hand.flash_attention_block_ref(q, k, v, m, l, acc, *offs[:2], **kw)
+    before = wg_routes()
+    got = hand.flash_attention_block(q, k, v, m, l, acc, *offs[:2],
+                                     precision="default", **kw)
+    torch.cuda.synchronize(card)
+    assert wg_routes()["wgmma"] == before["wgmma"] + 1
+    err = (got[2] / got[1] - want[2] / want[1]).abs().max().item()
+    assert err <= FLASH_DEFAULT_ATOL[torch.bfloat16], err
+
+
+@pytest.mark.parametrize("heads_outer", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_route_heads_layouts(card, heads_outer, d):
+    """(L, H, d) in one launch with the heads inside the rows (head stride
+    d) and outside them (head stride L·d): both tensor-map orders."""
+    if heads_outer:
+        q, k, v = (rand(card, (4, 333, d), torch.bfloat16, s).transpose(0, 1)
+                   for s in (1, 2, 3))
+    else:
+        q, k, v = (rand(card, (333, 4, d), torch.bfloat16, s)
+                   for s in (1, 2, 3))
+    before = wg_routes()
+    got = hand.flash_attention(q, k, v, causal=True, precision="default")
+    torch.cuda.synchronize(card)
+    assert wg_routes()["wgmma"] == before["wgmma"] + 1
+    want = hand.flash_attention_ref(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 8e-3 + 2.0**-8 * want.float().abs().max().item(), err
+
+
+def test_flash_routes_counted_per_geometry(card):
+    """bf16 DEFAULT aligned on wgmma, misaligned or d > 128 on mma, f32
+    DEFAULT on mma, HIGHEST on fma: one launch each, on its route."""
+    base = rand(card, (64 * 128 + 4,), torch.bfloat16, seed=1)
+    cases = [
+        (rand(card, (64, 128), torch.bfloat16, 2), "default", "wgmma"),
+        (base[4:].view(64, 128), "default", "mma"),  # 8 bytes off
+        (rand(card, (64, 136), torch.bfloat16, 3), "default", "mma"),
+        (rand(card, (64, 128), torch.float32, 4), "default", "mma"),
+        (rand(card, (64, 128), torch.bfloat16, 5), "highest", "fma"),
+    ]
+    for q, precision, route in cases:
+        assert hand.flash_route(q.dtype, precision, q.shape[-1],
+                                hand.flash_aligned(q.shape[-1], q)) == route
+        before = wg_routes()
+        hand.flash_attention(q, q, q, precision=precision)
+        after = wg_routes()
+        assert {r: after[r] - before[r] for r in after} == \
+            {r: int(r == route) for r in after}
+
+
+def test_flash_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    q = rand(card, (64, 128), torch.float32, seed=1)
+    monkeypatch.setattr(hand, "flash_route", lambda *a: "wgmma")
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        hand.flash_attention(q, q, q, precision="default")
+    with pytest.raises(RuntimeError, match="wgmma route"):
+        hand.fused_ring_attention(q, q, q, precision="default")
+
+
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+@pytest.mark.parametrize("causal,stripe", [(False, False), (True, False),
+                                           (True, True)])
+def test_fused_ring_wgmma_route(card, k, causal, stripe):
+    """The fused kernel on the wgmma route (its send warp, the producer's
+    proxy fence after each arrival): bit for bit the pipelined tier's
+    flash launches on the same route, counted on it."""
+    q, kk, v = (rand(card, (1000, 128), torch.bfloat16, s) for s in (1, 2, 3))
+    kw = dict(causal=causal, stripe=stripe, precision="default")
+    before = dict(hand.fused_ring_attention.launches_by_route)
+    got = hand.fused_ring_attention(q, kk, v, self_ring=k, **kw)
+    torch.cuda.synchronize(card)
+    assert hand.fused_ring_attention.launches_by_route["wgmma"] == \
+        before["wgmma"] + 1
+    flash_before = wg_routes()
+    flash = hand.fused_ring_world_ref([(q, kk, v)] * (k or 1), kernel=True,
+                                      **kw)[0]
+    assert wg_routes()["wgmma"] == flash_before["wgmma"] + (k or 1) ** 2
+    assert torch.equal(got, flash)
 
 
 # ---------------------------------------------------------------------------

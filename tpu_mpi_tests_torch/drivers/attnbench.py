@@ -21,7 +21,8 @@ the card, two run lengths differenced). FLOPs are 4·L²·d per attention
 Ulysses. HIGHEST (the default) turns TF32 off; ``--fast`` runs DEFAULT
 (TF32 / bf16 tensor cores). The TPU tile knobs ``--k-tile`` and
 ``--skip-tile`` reach the kernel's plain version; the card runs the
-kernel's own 64×64 tile, which each row records.
+tile of the route that ran (``hand.FLASH_K_TILES``), which each row
+records.
 
 Not ported (ROADMAP queue 1): ``--tune`` (item 17, raises), the compile
 probe (item 18) and the ``attn`` serve workload (item 19).
@@ -167,14 +168,16 @@ def run(args) -> int:
                 row["ring_depth"] = args.ring_depth or 1
                 row["ring_tier"] = ring_tier_eff
             if tier != "xla":  # flash-kernel tiers only
-                # the key tile the fold ran at: the kernel's own on the
-                # card, the requested one (else the whole block) on the CPU
+                # the key tile the fold ran at: the tile of the route that
+                # ran on the card, the requested one (else the whole block)
+                # on the CPU
                 on_card = device.type == "cuda"
                 block = L // world if tier == "ring" else L
-                row["k_tile_ceiling"] = (hand.FLASH_K_TILE if on_card
+                card_tile = card_k_tile(dtype, precision, d)
+                row["k_tile_ceiling"] = (card_tile if on_card
                                          else args.k_tile or block)
                 if args.skip_tile is not None:
-                    row["skip_tile_ceiling"] = (hand.FLASH_K_TILE if on_card
+                    row["skip_tile_ceiling"] = (card_tile if on_card
                                                 else args.skip_tile)
                 else:
                     row["skip_tile_req"] = None
@@ -187,6 +190,20 @@ def run(args) -> int:
                 rep.line(f"ATTN FAIL {tier}: non-positive rate {tflops}")
                 rc = 1
         return rc
+
+
+def card_k_tile(dtype, precision: str, d: int) -> int:
+    """The key tile of the fold on the card for this driver's operands:
+    the tile of the route (``hand.flash_route``) that its contiguous
+    (L, d), (L, H, d) or shard operands take — every one of them moves in
+    16-byte chunks exactly when d does."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    chunk = 16 // torch.empty((), dtype=dtype).element_size()
+    return hand.FLASH_K_TILES[hand.flash_route(dtype, precision, d,
+                                               d % chunk == 0)]
 
 
 def main(argv=None) -> int:

@@ -63,7 +63,10 @@ A wrapper given a CUDA tensor launches its kernel on the current stream
 or raises; it takes the plain version (``*_ref``) only because the
 tensor it was given lies on the CPU. Each wrapper counts its launches in
 a plain integer attribute (``stencil2d_iterate.launches``), so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; the two attention
+wrappers also count per route (``launches_by_route``, keys
+:data:`FLASH_ROUTES`, :func:`route_counts`), so a run shows which fold
+body — ``wgmma``, ``mma`` or ``fma`` — its launches took.
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -162,7 +165,7 @@ _SIGNATURES = {
     ], _c_int),
     # q, k, v, m/l/acc in, m/l/acc out; dtype, L, Lk, d, heads; (row,
     # head) strides of q, k, v, m, l, acc; q_off, k_off, pos_stride;
-    # scale, causal, highest, stream
+    # scale, causal, route (FLASH_ROUTES index), stream
     "tpumt_flash_attention_block": (
         [_c_void_p] * 9 + [_c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_ll] * 15 + [_c_double, _c_int, _c_int, _c_void_p], _c_int),
@@ -195,7 +198,7 @@ _SIGNATURES = {
                            _c_int, _c_void_p], _c_int),
     # q, k, v, out, m, l, acc, slots, right slots, pad, left pad, right
     # pad; epoch, dtype, lq, lk, d, w, my, v_off; scale; causal, stripe,
-    # highest, max_ctas; CTAs launched (out), stream
+    # route (FLASH_ROUTES index), max_ctas; CTAs launched (out), stream
     "tpumt_fused_ring_attention": (
         [_c_void_p] * 12 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int,
                             _c_int, _c_ll, _c_double, _c_int, _c_int,
@@ -1739,15 +1742,61 @@ stream_sum3.launches = 0
 # flash attention: the online-softmax fold of one K/V block
 # ---------------------------------------------------------------------------
 
-#: the CUDA kernel's own tiles (kQT, kKT of csrc/flash_attention.cu):
-#: query rows per CTA and key columns per shared-memory tile
-FLASH_Q_TILE, FLASH_K_TILE = 64, 64
+#: query rows per CTA (kQT of csrc/flash_fold.cuh), every route
+FLASH_Q_TILE = 64
+#: the fold's routes (csrc/flash_fold.cuh; a route's code is its index):
+#: "fma" — HIGHEST, f32 on the CUDA cores; "mma" — DEFAULT on mma.sync
+#: (TF32 for float32, and bf16 where wgmma does not take the geometry);
+#: "wgmma" — bf16 DEFAULT at d <= FLASH_WGMMA_MAX_D with every operand in
+#: 16-byte chunks: TMA loads, a producer warpgroup, wgmma products
+FLASH_ROUTES = ("fma", "mma", "wgmma")
+#: key rows per shared-memory tile of each route (kKT, kWgKT)
+FLASH_K_TILES = {"fma": 64, "mma": 64, "wgmma": 128}
 #: the widest head the kernel takes (d is padded to 128 or 256)
 FLASH_MAX_D = 256
+#: the widest head of the wgmma route (d is padded to 128)
+FLASH_WGMMA_MAX_D = 128
 #: "highest": f32 arithmetic (the CUDA cores); "default": the tensor
 #: cores (bf16, or TF32 for float32 operands)
 FLASH_PRECISIONS = ("highest", "default")
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def flash_route(dtype, precision: str, d: int, aligned: bool) -> str:
+    """The route a fold takes (one of :data:`FLASH_ROUTES`), by the rule
+    the C launchers check: HIGHEST → "fma"; DEFAULT → "wgmma" for
+    bfloat16 at d <= :data:`FLASH_WGMMA_MAX_D` with ``aligned`` operands
+    (every pointer, row and head start on 16 bytes and d a whole number of
+    16-byte chunks, :func:`flash_aligned`), else "mma"."""
+    _check_precision(precision)
+    if precision == "highest":
+        return "fma"
+    if dtype == torch.bfloat16 and d <= FLASH_WGMMA_MAX_D and aligned:
+        return "wgmma"
+    return "mma"
+
+
+def flash_aligned(d: int, *operands) -> bool:
+    """Do ``operands`` move in 16-byte chunks: every data pointer 16-byte
+    aligned, and d and every stride but the last a whole number of
+    chunks. The launchers' ``vec`` (csrc/flash_attention.cu,
+    csrc/fused_ring_attention.cu)."""
+    n = 16 // operands[0].element_size()
+    return d % n == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % n == 0 for st in t.stride()[:-1])
+        for t in operands)
+
+
+def _route_of(precision: str, q, k, v) -> str:
+    d = q.shape[-1]
+    return flash_route(q.dtype, precision, d, flash_aligned(d, q, k, v))
+
+
+def route_counts() -> dict:
+    """Launches per route of the two attention kernels since the last
+    :func:`reset_launch_counts`."""
+    return {fn.__name__: dict(fn.launches_by_route)
+            for fn in (flash_attention_block, fused_ring_attention)}
 
 
 @contextlib.contextmanager
@@ -1885,6 +1934,7 @@ def _flash_launch(q, k, v, carry_in, carry_out, *, scale, causal, q_off,
     heads = q.shape[1] if q.dim() == 3 else 1
     strides = [s for t in (q, k, v, *carry_in)
                for s in _rows_heads(t, heads)]
+    route = _route_of(precision, q, k, v)
     fn = _entry("flash_attention", "tpumt_flash_attention_block")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -1892,12 +1942,12 @@ def _flash_launch(q, k, v, carry_in, carry_out, *, scale, causal, q_off,
                 *(t.data_ptr() for t in carry_out),
                 _FLASH_DTYPES[q.dtype], q.shape[0], k.shape[0], q.shape[-1],
                 heads, *strides, int(q_off), int(k_off), int(pos_stride),
-                float(scale), int(bool(causal)),
-                int(precision == "highest"),
+                float(scale), int(bool(causal)), FLASH_ROUTES.index(route),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        _raise_launch("flash_attention_block", rc)
+        _raise_launch(f"flash_attention_block ({route} route)", rc)
     flash_attention_block.launches += 1
+    flash_attention_block.launches_by_route[route] += 1
 
 
 def _check_flash_out(carry, out):
@@ -1966,6 +2016,7 @@ def flash_attention_block(q, k, v, m, l, acc, q_off, k_off, *, scale,
 
 
 flash_attention_block.launches = 0
+flash_attention_block.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def _attention_carry(q):
@@ -2213,6 +2264,7 @@ def fused_ring_attention(q, k, v, *, scale=None, causal: bool = False,
     out = torch.empty_like(q)
     m, l, acc = _fused_carry(q)
     pad, left_pad, right_pad = peer.pad_ptrs()
+    route = _route_of(precision, q, k, v)
     fn = _entry("fused_ring_attention", "tpumt_fused_ring_attention")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -2220,14 +2272,16 @@ def fused_ring_attention(q, k, v, *, scale=None, causal: bool = False,
                 pad, left_pad, right_pad, peer.next_epoch(),
                 _FLASH_DTYPES[q.dtype], lq, lk, d, w, my, v_off,
                 float(scale), int(bool(causal)), int(bool(stripe)),
-                int(precision == "highest"), 0, None, _stream(q))
+                FLASH_ROUTES.index(route), 0, None, _stream(q))
     if rc != 0:
-        _raise_launch("fused_ring_attention", rc)
+        _raise_launch(f"fused_ring_attention ({route} route)", rc)
     fused_ring_attention.launches += 1
+    fused_ring_attention.launches_by_route[route] += 1
     return out
 
 
 fused_ring_attention.launches = 0
+fused_ring_attention.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def _fused_carry(q):
@@ -2265,13 +2319,14 @@ def _fused_ring_cross(blocks, pads, streams, max_ctas, *, scale=None,
 
     def launch(r):
         q, k, v = blocks[r]
+        route = _route_of(precision, q, k, v)
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[r].data_ptr(),
                   *(t.data_ptr() for t in carries[r]), slots[r].data_ptr(),
                   slots[(r + 1) % w].data_ptr(), pads[r].data_ptr(),
                   pads[(r - 1) % w].data_ptr(), pads[(r + 1) % w].data_ptr(),
                   1, _FLASH_DTYPES[q.dtype], lq, lk, d, w, r, v_off,
                   float(scale), int(bool(causal)), int(bool(stripe)),
-                  int(precision == "highest"), max_ctas, None,
+                  FLASH_ROUTES.index(route), max_ctas, None,
                   streams[r].cuda_stream)
 
     return outs, launch
@@ -2302,6 +2357,8 @@ WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
 
 
 def launch_counts() -> dict[str, int]:
