@@ -8,7 +8,8 @@ failure exits non-zero and prints no result line):
 2. build all seventeen hand kernels (thirteen libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel), and print the registers, stack and
-   spills of every flash and fused ring attention instance (``PTXAS``);
+   spills of every flash and fused ring attention instance and of every
+   ring collective instance (the two ``PTXAS`` lines);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
@@ -68,8 +69,10 @@ failure exits non-zero and prints no result line):
    all-gather and the ring reduce-scatter (credits 1 and 2) at world=1
    and on the self-ring k = 2, 4, 8, the one-shot gather and sum at
    world=1, over float32/bfloat16/float64 × 1-D and 2-D shards of
-   1001·k rows and a 7-element one-shot (sizes no TPU tile admits), and
-   the main paths' operands; then w = 2 and 4 instances of each kernel
+   1001·k rows and a 7-element one-shot (sizes no TPU tile admits) and
+   of 1024·k rows, so that both ring kernels launch on both routes
+   (``vec16``, ``scalar``), and the main paths' operands, each on the
+   ``vec16`` route; then w = 2 and 4 instances of each kernel
    launched from this one process on their own streams, their peer
    pointers cross-wired, against the plain versions' world computed on
    the CPU; tolerance 0. The fused ring attention
@@ -109,7 +112,8 @@ failure exits non-zero and prints no result line):
    collective slice (``run_coll_slice``): ``gather_inplace --rdma`` at
    128 Mi float64 (one ring all-gather) and ``collbench`` over the
    library and both hand tiers at its default ladder (one kernel launch
-   per chained iteration of a hand-tier row, every row measured); then
+   per chained iteration of a hand-tier row, every row measured); every
+   ring collective launch of these paths on the ``vec16`` route; then
    the world=2 legs: two ranks on one card are left out (the symmetric-memory
    allocator refuses them, a line says so) and the NCCL leg runs only
    where ``torch.cuda.device_count() > 1`` (a line says when it did not).
@@ -197,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -356,6 +361,8 @@ RING_TIMED = (
 )
 # the collective kernels (ring all-gather, ring reduce-scatter, one-shot)
 COLL_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/ring_collectives.cu"
+#: the kernels of COLL_SOURCE, whose launches count per route
+RING_COLLECTIVES = ("ring_allgather", "ring_reduce_scatter")
 ONESHOT_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/oneshot.cu"
 AG_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2339"
 RS_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2576"
@@ -1147,18 +1154,16 @@ def check_flash_kernel(device, gen, failures):
     return n_cases, errs, main
 
 
-#: path -> the two attention kernels' launches per route on that path
-#: (hand.route_counts(), read with the path's counts)
+#: path -> the attention kernels' and the ring collectives' launches per
+#: route on that path (hand.route_counts(), read with the path's counts)
 ROUTE_COUNTS: dict = {}
 
 
 def check_routes(path, name, want):
     """Fail unless ``name``'s launches on ``path`` took exactly the routes
     ``want`` names (route -> count; every other route none)."""
-    from tpu_mpi_tests_torch.kernels import hand
-
-    full = dict.fromkeys(hand.FLASH_ROUTES, 0) | want
     got = ROUTE_COUNTS[path][name]
+    full = dict.fromkeys(got, 0) | want
     if got != full:
         raise SmokeFailure(f"{path}: {name} launches by route {got}, its "
                            f"operands' route makes {full}")
@@ -1994,14 +1999,18 @@ def check_coll_kernels(device, rand, failures):
     """The three collective kernels against their plain versions, bit for
     bit: ``ring_allgather`` and ``ring_reduce_scatter`` (credits 1 and 2)
     at world=1 and on the self-ring k = 2, 4, 8 × float32/bfloat16/float64
-    × a 1-D and a 2-D shard of 1001·k rows (sizes no TPU tile admits);
-    ``oneshot`` gather and sum at world=1 over the three dtypes × 7 and
-    4096 elements and a (33, 5) shard; the main paths' operands
-    (:func:`coll_main_operands`); then w = 2 and 4 instances of each
-    kernel in this one process, cross-wired on one card
-    (``hand.cross_wired``), against the plain versions' world computed on
-    the CPU (``hand.coll_world_ref``). Returns (cases, max abs error per
-    kernel, and the cross-wired one's)."""
+    × a 1-D and a 2-D shard of 1001·k rows (sizes no TPU tile admits;
+    the reduce-scatter's chunks on the scalar route) and of 1024·k rows
+    (whole 16-byte vectors: the vec16 route); ``oneshot`` gather and sum
+    at world=1 over the three dtypes × 7 and 4096 elements and a (33, 5)
+    shard; the main paths' operands (:func:`coll_main_operands`), each
+    ring launch counted on the vec16 route; then w = 2 and 4 instances of
+    each kernel in this one process, cross-wired on one card
+    (``hand.cross_wired``) on shards of 1001·w and 1024·w rows, against
+    the plain versions' world computed on the CPU
+    (``hand.coll_world_ref``). Both ring kernels must have launched on
+    both routes. Returns (cases, max abs error per kernel, and the
+    cross-wired one's)."""
     import torch
 
     from tpu_mpi_tests_torch.kernels import hand
@@ -2015,9 +2024,10 @@ def check_coll_kernels(device, rand, failures):
         errs[name] = max(errs[name], compare(label, got, want, failures))
         n_cases += 1
 
+    routes0 = hand.route_counts()
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
-        for k in (None, 2, 4, 8):
-            rows = 1001 * (k or 1)
+        for k, per in itertools.product((None, 2, 4, 8), (1001, 1024)):
+            rows = per * (k or 1)
             for shape in ((rows,), (rows, 3)):
                 x = rand(shape, dtype)
                 check("ring_allgather",
@@ -2041,11 +2051,26 @@ def check_coll_kernels(device, rand, failures):
                 "ring_reduce_scatter": (hand.ring_reduce_scatter,
                                         hand.ring_reduce_scatter_ref),
                 "oneshot": (hand.oneshot, hand.oneshot_ref)}
+    routes = {n: hand.route_counts()[n] for n in RING_COLLECTIVES}
+    for n in RING_COLLECTIVES:
+        took = {r: routes[n][r] - routes0[n][r] for r in routes[n]}
+        log(f"CHECK {n} launches by route (self-ring and world=1 "
+            f"cases): {json.dumps(took)}")
+        if min(took.values()) <= 0:
+            failures.append(f"{n}: the checks did not launch both routes "
+                            f"({took})")
     for name, shape, dtype, what in coll_main_operands():
         x = rand(shape, getattr(torch, dtype))
         kernel, plain = wrappers[name]
+        before = hand.route_counts().get(name)
         check(name, f"{name} main-path {what} {shape} {dtype}", kernel(x),
               plain(x))
+        if before is not None:  # a ring collective: on the vec16 route
+            after = hand.route_counts()[name]
+            took = {r: after[r] - before[r] for r in after}
+            if took != {"scalar": 0, "vec16": 1}:
+                failures.append(f"{name} main-path {what}: launches by "
+                                f"route {took}, want one on vec16")
         if name == "oneshot":
             check(name, f"oneshot sum main-path {what}", kernel(x, "sum"),
                   plain(x, "sum"))
@@ -2055,9 +2080,10 @@ def check_coll_kernels(device, rand, failures):
                  "oneshot_allgather", "oneshot_allreduce"):
         for w in (2, 4):
             for dtype in (torch.float32, torch.bfloat16):
-                for credits in ((1, 2) if name == "ring_reduce_scatter"
-                                else (1,)):
-                    shards = [rand((w * 1001, 3), dtype) for _ in range(w)]
+                for credits, per in itertools.product(
+                        (1, 2) if name == "ring_reduce_scatter" else (1,),
+                        (1001, 1024)):
+                    shards = [rand((w * per, 3), dtype) for _ in range(w)]
                     got = hand.cross_wired(name, shards, credits=credits)
                     want = hand.coll_world_ref(
                         name, [t.cpu() for t in shards])
@@ -2065,7 +2091,8 @@ def check_coll_kernels(device, rand, failures):
                         errs["cross-wired"] = max(
                             errs["cross-wired"],
                             compare(f"cross-wired {name} w={w} {dtype} "
-                                    f"credits={credits} rank {r}", g,
+                                    f"credits={credits} rows={w * per} "
+                                    f"rank {r}", g,
                                     e.to(device), failures))
                     n_cases += 1
     log(f"CHECK collectives: {n_cases} cases bit-exact so far "
@@ -2104,6 +2131,7 @@ def run_coll_slice(device, counts, peaks):
                                "--rdma"], ["ring_allgather"],
         (f"0/1 lsum={GATHER_N:.1f} asum={GATHER_N:.1f}",), peaks)
     _exact(path, counts[path], {"ring_allgather": 1})
+    check_routes(path, "ring_allgather", {"vec16": 1})
 
     path = "collbench"
     out = {}
@@ -2141,6 +2169,9 @@ def run_coll_slice(device, counts, peaks):
     _exact(path, counts[path], {"ring_allgather": calls,
                                 "ring_reduce_scatter": calls,
                                 "oneshot": 2 * calls})
+    # every hand-tier row's shard (4 KiB-16 MiB) is whole 16-byte vectors
+    for name in ("ring_allgather", "ring_reduce_scatter"):
+        check_routes(path, name, {"vec16": calls})
     return [{"collective": r[0], "bytes": int(r[1]), "us_per_iter":
              float(r[2]), "n": int(r[4])} for r in rows]
 
@@ -2172,6 +2203,7 @@ def time_coll_kernels(device, gen):
     rows["ring_allgather"].append({
         "path": "self-ring (k=4), 16 MiB float32 shard", "self_ring": k,
         "shape": [COLL_TIMED_N], "dtype": "float32",
+        "route": hand.coll_route(x, x.numel()),
         **timed(lambda: hand.ring_allgather(x, self_ring=k)),
         "plain_ms": time_cuda_queued(lambda: hand.ring_allgather_ref(
             x, self_ring=k), 20),
@@ -2183,6 +2215,7 @@ def time_coll_kernels(device, gen):
         rows["ring_reduce_scatter"].append({
             "path": "self-ring (k=4), 16 MiB float32 shard", "self_ring": k,
             "credits": credits, "shape": [COLL_TIMED_N], "dtype": "float32",
+            "route": hand.coll_route(x, x.numel() // k),
             **timed(lambda: hand.ring_reduce_scatter(
                 x, credits, self_ring=k)),
             "plain_ms": time_cuda_queued(lambda: hand.ring_reduce_scatter_ref(
@@ -2218,7 +2251,7 @@ def time_coll_kernels(device, gen):
         n = 5 if nb > 1 << 28 else 20
         rows[name].append({
             "path": f"{what} (world=1: a copy)", "shape": list(shape),
-            "dtype": dtype,
+            "dtype": dtype, "route": hand.coll_route(x, x.numel()),
             **timed(lambda: kernel(x), n),
             "plain_ms": time_cuda_queued(lambda: plain(x), n),
             "bound_ms": 2 * nb / HBM_BYTES_PER_S * 1e3,
@@ -2234,12 +2267,23 @@ def time_coll_kernels(device, gen):
     return rows
 
 
-def rdma_world2_legs():
+#: the NCCL leg's parts, in the order a rank runs them
+WORLD2_LEGS = ("rdma", "collectives", "attention")
+
+
+def rdma_world2_legs(legs=WORLD2_LEGS):
     """The multi-rank legs on the card. Two ranks on one card cannot
     share symmetric memory (PERF.md: the allocator refuses overlapping
-    devices), so that leg is left out; the NCCL leg needs two cards."""
+    devices), so that leg is left out; the NCCL leg needs two cards.
+    ``legs`` picks its parts (:data:`WORLD2_LEGS`): the RDMA halo tiers,
+    the collective kernels against NCCL and timed beside it, attention
+    over the ranks."""
     import torch
 
+    unknown = set(legs) - set(WORLD2_LEGS)
+    if unknown:
+        raise SmokeFailure(f"unknown world=2 legs {sorted(unknown)}; "
+                           f"the legs are {WORLD2_LEGS}")
     n = torch.cuda.device_count()
     log("RDMA world=2 on one card: not run — torch's symmetric-memory "
         "rendezvous refuses two ranks on one device (\"detected "
@@ -2253,28 +2297,33 @@ def rdma_world2_legs():
     # the ranks meet through a file of their own, so that runs sharing a
     # host never meet on one port
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_nccl_rank, args=(2, f"file://{tmp}/rendezvous"), nprocs=2,
-                 join=True)
-    log("RDMA world=2 NCCL leg: fused == chained bit for bit over "
-        f"{RING_CHAIN} calls, the RDMA exchange equal to DIRECT on both "
-        f"ranks, {PAIR_RUNS} runs on fresh inputs without growth, the "
-        f"collective kernels' tiers equal to NCCL's calls, and ring "
-        f"attention's tiers (depth 1 and 2, fused) and Ulysses over the "
-        f"two ranks bit for bit their one-process counterparts")
+        mp.spawn(_nccl_rank, args=(2, f"file://{tmp}/rendezvous",
+                                   tuple(legs)), nprocs=2, join=True)
+    done = {"rdma": f"fused == chained bit for bit over {RING_CHAIN} "
+                    f"calls, the RDMA exchange equal to DIRECT on both "
+                    f"ranks, {PAIR_RUNS} runs on fresh inputs without "
+                    f"growth",
+            "collectives": "the collective kernels' tiers equal to NCCL's "
+                           "calls on both routes, timed beside them",
+            "attention": "ring attention's tiers (depth 1 and 2, fused) "
+                         "and Ulysses over the two ranks bit for bit "
+                         "their one-process counterparts"}
+    log("RDMA world=2 NCCL leg: " + "; ".join(done[leg] for leg in legs))
 
 
 #: runs on fresh inputs in the NCCL leg's peer-memory lifetime check
 PAIR_RUNS = 6
 
 
-def _nccl_rank(rank, world, init_method):
-    """One rank of the NCCL leg: the fused and chained tiers on a
-    periodic 2-card ring, and the RDMA exchange against DIRECT."""
+def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
+    """One rank of the NCCL leg, the parts ``legs`` picks: the RDMA halo
+    tiers (:func:`_nccl_rdma`), the collective kernels
+    (:func:`_nccl_collectives`), attention over the ranks
+    (:func:`_nccl_attention`)."""
     import torch
     import torch.distributed as tdist
 
     from tpu_mpi_tests_torch.comm import dist
-    from tpu_mpi_tests_torch.comm import halo as H
 
     torch.cuda.set_device(rank)
     tdist.init_process_group("nccl", init_method=init_method, rank=rank,
@@ -2282,41 +2331,55 @@ def _nccl_rank(rank, world, init_method):
     try:
         dist.init("cuda")
         gen = torch.Generator(device="cuda").manual_seed(77)
-        z0 = torch.randn((1040, 8192), generator=gen, device="cuda")
-        a = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)(
-            z0.clone(), RING_CHAIN)
-        b = H.iterate_hand_fn(8, 0.01, axis=0, steps=4, periodic=True,
-                              rdma=True)(z0.clone(), RING_CHAIN)
-        c = H.halo_exchange(H.staging_buffer(z0, "pallas"), 1, 8, True,
-                            "pallas")
-        d = H.halo_exchange(z0.clone(), 1, 8, True, "direct")
-        torch.cuda.synchronize()
-        if not (torch.equal(a, b) and torch.equal(c, d)):
-            raise SmokeFailure(f"NCCL leg rank {rank}: the RDMA tiers "
-                               f"disagree")
-        del a, b, c, d
-        # a runner's symmetric pair goes with its result: runs on fresh
-        # inputs, their results dropped, must not grow the card's use
-        fused = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)
-        fused(z0.clone(), 1)
-        torch.cuda.synchronize()
-        free0 = torch.cuda.mem_get_info()[0]
-        for _ in range(PAIR_RUNS):
-            fused(z0.clone(), 1)
-        torch.cuda.synchronize()
-        grown = free0 - torch.cuda.mem_get_info()[0]
-        pair_bytes = 2 * z0.numel() * z0.element_size()
-        log(f"RDMA world=2 NCCL leg rank {rank}: {PAIR_RUNS} runs on fresh "
-            f"inputs grew the card's use by {grown} bytes (a pair is "
-            f"{pair_bytes})")
-        if grown >= pair_bytes:
-            raise SmokeFailure(f"NCCL leg rank {rank}: the runners' peer "
-                               f"pairs outlive their results ({grown} "
-                               f"bytes after {PAIR_RUNS} runs)")
-        _nccl_collectives(rank, world, gen)
-        _nccl_attention(rank, world)
+        if "rdma" in legs:
+            _nccl_rdma(rank, gen)
+        if "collectives" in legs:
+            _nccl_collectives(rank, world, gen)
+        if "attention" in legs:
+            _nccl_attention(rank, world)
     finally:
         dist.shutdown()
+
+
+def _nccl_rdma(rank, gen):
+    """The fused and chained tiers on a periodic 2-card ring, the RDMA
+    exchange against DIRECT, and the runners' peer pairs freed with their
+    results."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+
+    z0 = torch.randn((1040, 8192), generator=gen, device="cuda")
+    a = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)(
+        z0.clone(), RING_CHAIN)
+    b = H.iterate_hand_fn(8, 0.01, axis=0, steps=4, periodic=True,
+                          rdma=True)(z0.clone(), RING_CHAIN)
+    c = H.halo_exchange(H.staging_buffer(z0, "pallas"), 1, 8, True,
+                        "pallas")
+    d = H.halo_exchange(z0.clone(), 1, 8, True, "direct")
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and torch.equal(c, d)):
+        raise SmokeFailure(f"NCCL leg rank {rank}: the RDMA tiers "
+                           f"disagree")
+    del a, b, c, d
+    # a runner's symmetric pair goes with its result: runs on fresh
+    # inputs, their results dropped, must not grow the card's use
+    fused = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)
+    fused(z0.clone(), 1)
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    for _ in range(PAIR_RUNS):
+        fused(z0.clone(), 1)
+    torch.cuda.synchronize()
+    grown = free0 - torch.cuda.mem_get_info()[0]
+    pair_bytes = 2 * z0.numel() * z0.element_size()
+    log(f"RDMA world=2 NCCL leg rank {rank}: {PAIR_RUNS} runs on fresh "
+        f"inputs grew the card's use by {grown} bytes (a pair is "
+        f"{pair_bytes})")
+    if grown >= pair_bytes:
+        raise SmokeFailure(f"NCCL leg rank {rank}: the runners' peer "
+                           f"pairs outlive their results ({grown} "
+                           f"bytes after {PAIR_RUNS} runs)")
 
 
 def _nccl_attention(rank, world):
@@ -2393,40 +2456,78 @@ def _nccl_attention(rank, world):
 def _nccl_collectives(rank, world, gen):
     """The collective kernels' tiers at world=2 over symmetric memory,
     held against NCCL's calls (integer-valued rows: any sum order is
-    exact), then timed beside them at a 16 MiB float32 shard."""
+    exact) on a row of whole 16-byte vectors (the ring kernels' vec16
+    route) and on one that is not (their scalar route), then timed beside
+    NCCL's calls at a 16 MiB float32 shard: queued behind a stall (the
+    device's time per call, the wrappers' host cost out; one call before
+    the start event lines the two ranks' queues up) and in a host loop,
+    each after a barrier so that the two ranks start together."""
     import torch
     import torch.distributed as tdist
 
     from tpu_mpi_tests_torch.comm import collectives as C
     from tpu_mpi_tests_torch.kernels import hand
 
-    row = (torch.arange(8192, device="cuda", dtype=torch.float32) % 13
-           + rank)[None]
-    want_sum = row.clone()
-    tdist.all_reduce(want_sum)
-    want_g = torch.empty(world * row.shape[1], device="cuda")
-    tdist.all_gather_into_tensor(want_g, row[0])
-    for name, got, want in (
-            ("all_gather_rdma", C.all_gather_rdma(row[0]), want_g),
-            ("all_gather_oneshot", C.all_gather_oneshot(row[0]), want_g),
-            ("allreduce_rdma credits=1", C.allreduce_rdma(row, 1), want_sum),
-            ("allreduce_rdma credits=2", C.allreduce_rdma(row, 2), want_sum),
-            ("allreduce_oneshot", C.allreduce_oneshot(row), want_sum)):
-        if not torch.equal(got, want):
-            raise SmokeFailure(f"NCCL leg rank {rank}: {name} != NCCL")
+    routes0 = hand.route_counts()
+    for length in (8192, 8190):  # vec16; 8190 / 2 · 4 bytes: scalar
+        row = (torch.arange(length, device="cuda", dtype=torch.float32)
+               % 13 + rank)[None]
+        want_sum = row.clone()
+        tdist.all_reduce(want_sum)
+        want_g = torch.empty(world * row.shape[1], device="cuda")
+        tdist.all_gather_into_tensor(want_g, row[0])
+        for name, got, want in (
+                ("all_gather_rdma", C.all_gather_rdma(row[0]), want_g),
+                ("all_gather_oneshot", C.all_gather_oneshot(row[0]),
+                 want_g),
+                ("allreduce_rdma credits=1", C.allreduce_rdma(row, 1),
+                 want_sum),
+                ("allreduce_rdma credits=2", C.allreduce_rdma(row, 2),
+                 want_sum),
+                ("allreduce_oneshot", C.allreduce_oneshot(row), want_sum)):
+            if not torch.equal(got, want):
+                raise SmokeFailure(f"NCCL leg rank {rank}: {name} != NCCL "
+                                   f"(row of {length})")
+    took = {n: {r: hand.route_counts()[n][r] - routes0[n][r]
+                for r in routes0[n]} for n in RING_COLLECTIVES}
+    # per row: one all-gather, two allreduces (a reduce-scatter and an
+    # all-gather each), every launch of the 8190 row on the scalar route
+    want = {"ring_allgather": {"scalar": 3, "vec16": 3},
+            "ring_reduce_scatter": {"scalar": 2, "vec16": 2}}
+    if took != want:
+        raise SmokeFailure(f"NCCL leg rank {rank}: ring launches by route "
+                           f"{took}, the rows' routes make {want}")
     x = torch.randn(COLL_TIMED_N, generator=gen, device="cuda")
     gathered = torch.empty(world * COLL_TIMED_N, device="cuda")
+    scattered = torch.empty(COLL_TIMED_N // world, device="cuda")
     summed = x.clone()
+
+    def both(fn, n=50):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        queued = time_cuda_queued(fn, n, lead=1)
+        torch.cuda.synchronize()
+        tdist.barrier()
+        return {"queued": queued, "host_loop": time_cuda(fn, n)}
+
     times = {
-        "ring_allgather": time_cuda(lambda: hand.ring_allgather(x), 20),
-        "nccl all_gather_into_tensor": time_cuda(
-            lambda: tdist.all_gather_into_tensor(gathered, x), 20),
-        "ring_allreduce": time_cuda(lambda: hand.ring_allreduce(x), 20),
-        "oneshot sum": time_cuda(lambda: hand.oneshot(x, "sum"), 20),
-        "nccl all_reduce": time_cuda(lambda: tdist.all_reduce(summed), 20),
+        "ring_allgather": both(lambda: hand.ring_allgather(x)),
+        "nccl all_gather_into_tensor": both(
+            lambda: tdist.all_gather_into_tensor(gathered, x)),
+        "ring_reduce_scatter credits=1": both(
+            lambda: hand.ring_reduce_scatter(x, 1)),
+        "ring_reduce_scatter credits=2": both(
+            lambda: hand.ring_reduce_scatter(x, 2)),
+        "nccl reduce_scatter_tensor": both(
+            lambda: tdist.reduce_scatter_tensor(scattered, x)),
+        "ring_allreduce": both(lambda: hand.ring_allreduce(x)),
+        "ring_allreduce credits=2": both(
+            lambda: hand.ring_allreduce(x, 2)),
+        "oneshot sum": both(lambda: hand.oneshot(x, "sum")),
+        "nccl all_reduce": both(lambda: tdist.all_reduce(summed)),
     }
     log(f"TIME NCCL leg rank {rank} world={world}, 16 MiB float32 shard "
-        f"(ms): {json.dumps(times)}")
+        f"(ms per call): {json.dumps(times)}")
 
 
 def run_rdma_slice(device, counts, per_step, peaks):
@@ -2455,6 +2556,9 @@ def run_rdma_slice(device, counts, per_step, peaks):
     want = {"ring_halo": calls, "stencil2d_deriv": calls,
             "ring_reduce_scatter": 2 * (1 + RDMA_DRIVER_N_ITER)}
     _exact(path, counts[path], want)
+    # the 2 MiB row is whole 16-byte vectors: every launch on vec16
+    check_routes(path, "ring_reduce_scatter",
+                 {"vec16": want["ring_reduce_scatter"]})
     per_step[path] = {"ring_halo": 1.0, "stencil2d_deriv": 1.0}
 
     it = DRIVER_ITERATE_ITERS
@@ -2624,12 +2728,18 @@ def time_cuda(fn, n_iter: int) -> float:
     return start.elapsed_time(end) / n_iter
 
 
-def time_cuda_queued(fn, n_iter: int, stall_ms: float = 20.0) -> float:
+def time_cuda_queued(fn, n_iter: int, stall_ms: float = 20.0,
+                     lead: int = 0) -> float:
     """Mean device milliseconds per call of ``fn`` with the host taken
     out: the stream is stalled first (a spin kernel of ``stall_ms``), so
     the ``n_iter`` calls' launches queue up behind it and then run back
     to back between the two events. For kernels shorter than their
-    wrapper's host cost, where :func:`time_cuda` would time the host."""
+    wrapper's host cost, where :func:`time_cuda` would time the host.
+    ``lead`` calls run between the stall and the start event: for a
+    collective over ranks one lines the ranks' queues up (each rank's
+    launch waits for its peers'), so that a rank whose stall ends first
+    (the spin counts its own card's clock) does not time its wait for
+    the others."""
     import torch
 
     fn()
@@ -2638,6 +2748,8 @@ def time_cuda_queued(fn, n_iter: int, stall_ms: float = 20.0) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(stall_ms * khz))
+    for _ in range(lead):
+        fn()
     start.record()
     for _ in range(n_iter):
         fn()
@@ -3095,6 +3207,57 @@ def ptxas_summary(build) -> dict:
     return out
 
 
+#: the template arguments of the ring collectives' instances, as the
+#: Itanium ABI mangles them
+_MANGLED_ARGS = {"5uint4": "uint4", "13__nv_bfloat16": "bf16",
+                 "t": "u16", "j": "u32", "y": "u64", "f": "float",
+                 "d": "double"}
+
+
+def coll_kernel_name(mangled: str) -> str:
+    """``ring_allgather_kernel<uint4, 4>`` for the mangled name of a ring
+    collective instance (the name itself when it is not one)."""
+    import re
+
+    m = re.search(r"(ring_allgather_kernel|ring_reduce_scatter_kernel|"
+                  r"coll_copy_kernel)I(\w*?)EEv", mangled)
+    if not m:
+        return mangled
+    args, rest = [], m[2]
+    while rest:
+        t = re.match(r"5uint4|13__nv_bfloat16|S\d*_|Li(\d+)E|[tjyfd]", rest)
+        if not t:
+            return mangled
+        args.append(t[1] or (args[-1] if t[0].startswith("S")
+                             else _MANGLED_ARGS[t[0]]))
+        rest = rest[t.end():]
+    return f"{m[1]}<{', '.join(args)}>"
+
+
+def coll_ptxas_summary(build) -> dict:
+    """Registers, stack and spill bytes of every kernel instance of the
+    ring collectives (both routes' all-gather and reduce-scatter, the
+    world=1 copies), from this process's build."""
+    import re
+
+    out, entry = {}, None
+    for line in build.BUILD_LOGS.get("ring_collectives", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = coll_kernel_name(m[1])
+            out[entry] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            out[entry].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m[1])
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3134,6 +3297,8 @@ def main() -> int:
                     log(f"  ptxas {name}: {line.strip()}")
         ptxas = ptxas_summary(build)
         log(f"PTXAS attention instances {json.dumps(ptxas)}")
+        coll_ptxas = coll_ptxas_summary(build)
+        log(f"PTXAS ring collective instances {json.dumps(coll_ptxas)}")
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -3198,6 +3363,11 @@ def main() -> int:
                      "cross_wired_max_abs_err": errs["cross-wired"]}
         if name == "ring_allgather":
             extra = {"cross_wired_max_abs_err": errs["cross-wired"]}
+        if name in RING_COLLECTIVES:
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()}
+            extra["ptxas"] = {k: v for k, v in coll_ptxas.items()
+                              if name in k or "copy" in k}
         if name == "oneshot":
             extra = {"also_replaces": ONESHOT_ALSO_REPLACES,
                      "cross_wired_max_abs_err": errs["cross-wired"]}

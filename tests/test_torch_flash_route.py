@@ -191,8 +191,12 @@ def test_bf16_default_at_the_wgmma_tile_matches_pallas(causal, L, d):
 def test_cpu_wrappers_are_the_plain_version_and_count_no_route():
     hand.reset_launch_counts()
     assert hand.route_counts() == {
-        name: dict.fromkeys(hand.FLASH_ROUTES, 0)
-        for name in ("flash_attention_block", "fused_ring_attention")}
+        name: dict.fromkeys(routes, 0)
+        for name, routes in (
+            ("flash_attention_block", hand.FLASH_ROUTES),
+            ("fused_ring_attention", hand.FLASH_ROUTES),
+            ("ring_allgather", hand.COLL_ROUTES),
+            ("ring_reduce_scatter", hand.COLL_ROUTES))}
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(normal(rng, (130, 64))).to(BF16)
                for _ in range(3))

@@ -25,7 +25,13 @@ than the rule's refused. The fused ring attention is held
 bit for bit against the pipelined tier's flash launches and within the
 flash tolerances against its plain version, at world=1, on the self-ring
 (k = 2, 4, 8) and as w = 2 and 4 instances cross-wired on one card,
-chained on the 128-word pad. The ALU probe is held bit for bit
+chained on the 128-word pad. The ring all-gather and reduce-scatter
+are held bit for bit on both routes (``vec16`` on shards of whole
+16-byte vectors, ``scalar`` on 1001-row shards and misaligned views) at
+world=1, on the self-ring (k = 2, 4, 8, credits 1 and 2) and cross-wired
+(w = 2 and 4), each launch counted on its route, in a chain across
+kernels, credits and routes on one pad, and a launch given another
+route than the rule's refused. The ALU probe is held bit for bit
 (``fma``, ``step5*``, ``heat5``) or within ``hand.alu_probe_tolerance``
 (the dual mixes), with its chain property and capacity guard; pack and
 unpack bit for bit on both axes, and the hand-staged exchange against
@@ -815,6 +821,166 @@ def test_cross_wired_instances_match_the_plain_world(card, name, w, dtype,
     want = hand.coll_world_ref(name, [s.cpu() for s in shards])
     for g, e in zip(got, want):
         assert torch.equal(g.cpu(), e)
+
+
+# ---------------------------------------------------------------------------
+# the ring collectives' two routes: vec16 (16-byte vectors) and scalar
+# ---------------------------------------------------------------------------
+
+
+def coll_routes(name):
+    return dict(getattr(hand, name).launches_by_route)
+
+
+def route_shard(card, kernel, route, kind, k, dtype, seed):
+    """A shard of ``kernel`` whose launch takes ``route``: 1024-row
+    regions (chunks) are whole 16-byte vectors in every dtype; the
+    all-gather's 1001-row shard and the reduce-scatter's 1001-row chunks
+    are not, in any dtype."""
+    rows = 1024 if route == "vec16" else 1001
+    if kernel == "ring_reduce_scatter":
+        rows *= k or 1
+    shape = (rows,) if kind == "1d" else (rows, 3)
+    return rand(card, shape, dtype, seed)
+
+
+def check_route(name, before, route):
+    after = coll_routes(name)
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: int(r == route) for r in after}
+
+
+@pytest.mark.parametrize("route", ["vec16", "scalar"])
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+def test_ring_allgather_route_matches_plain(card, route, dtype, kind, k):
+    """World 1 (one copy) and the self-ring k = 2, 4, 8 on each route:
+    bit for bit the plain version, one launch counted on the route."""
+    x = route_shard(card, "ring_allgather", route, kind, k, dtype,
+                    40 + (k or 1))
+    assert hand.coll_route(x, x.numel()) == route
+    before = coll_routes("ring_allgather")
+    got = hand.ring_allgather(x, self_ring=k)
+    torch.cuda.synchronize(card)
+    check_route("ring_allgather", before, route)
+    assert torch.equal(got, hand.ring_allgather_ref(x, self_ring=k))
+
+
+@pytest.mark.parametrize("route", ["vec16", "scalar"])
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+@pytest.mark.parametrize("credits", [1, 2])
+def test_ring_reduce_scatter_route_matches_plain(card, route, dtype, kind, k,
+                                                 credits):
+    """World 1 and the self-ring k = 2, 4, 8 at credits 1 (the send
+    buffer) and 2 (the one-pass fold) on each route: the float32,
+    float64 and per-op-rounded bfloat16 folds bit for bit the plain
+    version, one launch counted on the route."""
+    x = route_shard(card, "ring_reduce_scatter", route, kind, k, dtype,
+                    50 + (k or 1))
+    assert hand.coll_route(x, x.numel() // (k or 1)) == route
+    before = coll_routes("ring_reduce_scatter")
+    got = hand.ring_reduce_scatter(x, credits=credits, self_ring=k)
+    torch.cuda.synchronize(card)
+    check_route("ring_reduce_scatter", before, route)
+    assert torch.equal(got, hand.ring_reduce_scatter_ref(
+        x, credits=credits, self_ring=k))
+
+
+@pytest.mark.parametrize("name", ["ring_allgather", "ring_reduce_scatter"])
+@pytest.mark.parametrize("off", [1, 2, 3])
+def test_misaligned_shard_takes_the_scalar_route(card, name, off):
+    """A shard that starts off 16 bytes (a contiguous view) takes the
+    scalar route, whatever its length."""
+    base = rand(card, (4 * 1024 + 4,), torch.float32, seed=60 + off)
+    x = base[off:off + 4 * 1024]
+    kw = {"self_ring": 4}
+    before = coll_routes(name)
+    got = getattr(hand, name)(x, **kw)
+    torch.cuda.synchronize(card)
+    check_route(name, before, "scalar")
+    assert torch.equal(got, getattr(hand, f"{name}_ref")(x, **kw))
+
+
+@pytest.mark.parametrize("name,n,dtype", [
+    ("ring_reduce_scatter", 524288, torch.float32),
+    ("ring_allgather", 4194304, torch.float32),
+    ("ring_reduce_scatter", 4194304, torch.float32),
+    ("ring_allgather", 1 << 24, torch.float64)])
+def test_main_path_sizes_take_vec16(card, name, n, dtype):
+    """The main paths' world=1 operands (stencil2d --rdma's 2 MiB row,
+    collbench's 16 MiB shard, a 128 MiB float64 shard of
+    gather_inplace's kind) take vec16 and copy bit for bit."""
+    x = rand(card, (n,), dtype, seed=70)
+    before = coll_routes(name)
+    got = getattr(hand, name)(x)
+    torch.cuda.synchronize(card)
+    check_route(name, before, "vec16")
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("name", ["ring_allgather", "ring_reduce_scatter"])
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("credits", [1, 2])
+def test_cross_wired_vec16_instances_match_the_plain_world(card, name, w,
+                                                           dtype, credits):
+    """w instances cross-wired on one card, on shards of 1024·w rows
+    (whole 16-byte vectors: the vec16 route), held bit for bit against
+    the plain versions' world."""
+    if credits == 2 and name != "ring_reduce_scatter":
+        pytest.skip("credits apply to the reduce-scatter only")
+    shards = [rand(card, (w * 1024, 3), dtype, seed=80 + r)
+              for r in range(w)]
+    n = shards[0].numel() // (w if name == "ring_reduce_scatter" else 1)
+    assert hand.coll_route(shards[0], n) == "vec16"
+    got = hand.cross_wired(name, shards, credits=credits)
+    want = hand.coll_world_ref(name, [s.cpu() for s in shards])
+    for g, e in zip(got, want):
+        assert torch.equal(g.cpu(), e)
+
+
+def test_ring_collectives_chain_across_routes_on_the_card(card):
+    """Chained launches on one pad that alternate the two kernels, both
+    credits and both routes: 24 reduce-scatters and all-gathers on the
+    self-ring k = 4, the epochs advancing and the local words reset."""
+    xs = {"vec16": rand(card, (4 * 1024, 2), torch.float32, seed=90),
+          "scalar": rand(card, (4 * 1001, 2), torch.float32, seed=91)}
+    before = {n: coll_routes(n) for n in ("ring_allgather",
+                                          "ring_reduce_scatter")}
+    got = {}
+    for i in range(24):
+        route = "vec16" if i % 4 < 2 else "scalar"
+        rs = hand.ring_reduce_scatter(xs[route], credits=1 + i % 2,
+                                      self_ring=4)
+        got[route, 1 + i % 2] = (rs, hand.ring_allgather(rs, self_ring=4))
+    torch.cuda.synchronize(card)
+    for (route, credits), (rs, ag) in got.items():
+        want = hand.ring_reduce_scatter_ref(xs[route], credits, self_ring=4)
+        assert torch.equal(rs, want)
+        assert torch.equal(ag, want.repeat(4, 1))
+    for n in before:
+        after = coll_routes(n)
+        assert {r: after[r] - before[n][r] for r in after} == \
+            {"vec16": 12, "scalar": 12}
+
+
+def test_collective_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    x = rand(card, (4096,), torch.float32, seed=1)
+    monkeypatch.setattr(hand, "coll_route", lambda *a: "scalar")
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.ring_allgather(x)
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.ring_reduce_scatter(x, self_ring=2)
+    monkeypatch.setattr(hand, "coll_route", lambda *a: "vec16")
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.ring_allgather(x[1:])
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.ring_reduce_scatter(x[:4002], self_ring=2)
 
 
 def test_collective_drivers_on_card(card, capsys):

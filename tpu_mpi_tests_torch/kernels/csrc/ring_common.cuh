@@ -1,7 +1,9 @@
 // Signalling and edge-band copies shared by the RDMA kernels: the two
 // ring halo kernels (ring_halo.cu, fused_rdma.cu), the collective
 // kernels (ring_collectives.cu, oneshot.cu) and the fused ring attention
-// (fused_ring_attention.cu).
+// (fused_ring_attention.cu). The ring collectives alone use the 16-byte
+// helpers at the end (load_peer, coll_sweep, coll_arrive_cta,
+// coll_resident_ctas, coll_grid).
 //
 // A rank's signal pad (comm/peer.py) holds 128 int32 words. Remote words
 // are epoch counters written by other ranks; local words are counters of
@@ -339,6 +341,96 @@ inline int coll_ctas(long long work, int threads, int max_ctas) {
   long long ctas = (work + threads * 4LL - 1) / (threads * 4LL);
   const long long cap = max_ctas > 0 ? max_ctas : 2LL * sms;
   if (ctas > cap) ctas = cap;
+  if (ctas < 1) ctas = 1;
+  return static_cast<int>(ctas);
+}
+
+// ---------------------------------------------------------------------------
+// the ring collectives' 16-byte helpers (ring_collectives.cu)
+// ---------------------------------------------------------------------------
+
+// A load of data a peer wrote during this launch, through L2 (.cg), of
+// any width the collectives move: 2, 4 and 8 bytes through load_cg, 16
+// as one uint4.
+template <typename V>
+__device__ __forceinline__ V load_peer(const V* p) {
+  if constexpr (sizeof(V) == 16) {
+    const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+    V v;
+    memcpy(&v, &u, sizeof(V));
+    return v;
+  } else {
+    return load_cg(p);
+  }
+}
+
+// Every item of [0, n) once, by the whole grid: item e belongs to thread
+// e mod (gridDim.x · blockDim.x), as in a plain grid-stride loop, so a
+// thread owns the same items at every step of a launch. Each thread
+// issues kU independent loads (`load(e)`) before it stores them
+// (`store(e, v)`), to keep kU loads of every thread in flight.
+template <int kU, typename V, typename Load, typename Store>
+__device__ __forceinline__ void coll_sweep(long long n, Load load,
+                                           Store store) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e0 = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+       e0 < n; e0 += stride * kU) {
+    V v[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (e0 + u * stride < n) v[u] = load(e0 + u * stride);
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (e0 + u * stride < n) store(e0 + u * stride, v[u]);
+  }
+}
+
+// After a CTA's part of a step, with one ordering operation a CTA (the
+// grid-sync pattern of cooperative groups): the barrier orders every
+// thread's stores and reads of the step before thread 0's count, an add
+// to `counter` (a local word) with acquire-release semantics at system
+// scope. Its release is cumulative, so it covers the whole CTA's work;
+// its acquire, in the last of `ctas` CTAs, takes in every CTA counted
+// before, so the signals that CTA sends next (st.release.sys) order the
+// whole grid's work of the step. True in thread 0 of that last CTA.
+__device__ __forceinline__ bool coll_arrive_cta(int* counter, int ctas) {
+  __syncthreads();
+  if (threadIdx.x != 0) return false;
+  int old;
+  asm volatile("atom.acq_rel.sys.global.add.s32 %0, [%1], 1;"
+               : "=r"(old) : "l"(counter) : "memory");
+  return old == ctas - 1;
+}
+
+// CTAs of `kernel` at `threads` threads that the card keeps resident at
+// once, when the kernel runs alone on it: the occupancy API's CTAs per SM
+// × SMs. Asked once; `*cache` (0 before) keeps the answer.
+inline cudaError_t coll_resident_ctas(const void* kernel, int threads,
+                                      int* cache) {
+  if (*cache > 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       threads, 0);
+  if (rc != cudaSuccess) return rc;
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+  *cache = per_sm * sms;
+  return cudaSuccess;
+}
+
+// The grid of a collective launch: `resident` CTAs (every CTA of the
+// launch resident at once: they wait for each other's signals), clipped
+// to the work (`items` at `per_cta` a CTA) and to `max_ctas` (> 0: several
+// instances resident on one card together).
+inline int coll_grid(int resident, long long items, long long per_cta,
+                     int max_ctas) {
+  long long ctas = (items + per_cta - 1) / per_cta;
+  if (ctas > resident) ctas = resident;
+  if (max_ctas > 0 && ctas > max_ctas) ctas = max_ctas;
   if (ctas < 1) ctas = 1;
   return static_cast<int>(ctas);
 }

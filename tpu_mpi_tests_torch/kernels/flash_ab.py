@@ -44,16 +44,17 @@ VARIANTS = {
 }
 
 
-def make(name: str) -> Path:
-    """The package copy of variant ``name``; its libraries build into
-    its own ``build/torch_kernels``."""
-    root = ROOT / "build" / "flash_ab" / name
+def make(name: str, variants=VARIANTS, folder: str = "flash_ab") -> Path:
+    """The package copy of variant ``name`` of ``variants`` under
+    ``build/<folder>/``; its libraries build into its own
+    ``build/torch_kernels``."""
+    root = ROOT / "build" / folder / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(ROOT / "tpu_mpi_tests_torch",
                     root / "tpu_mpi_tests_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     csrc = root / "tpu_mpi_tests_torch" / "kernels" / "csrc"
-    for file, old, new in VARIANTS[name]:
+    for file, old, new in variants[name]:
         text = (csrc / file).read_text()
         if old not in text:
             raise ValueError(f"variant {name}: {old!r} is not in {file}")
@@ -123,19 +124,22 @@ def measure(name: str) -> dict:
     return row
 
 
-def main(argv=None) -> int:
-    names = list(sys.argv[1:] if argv is None else argv) or ["base", "kt64"]
+def main(argv=None, module: str = "flash_ab", variants=VARIANTS,
+         default=("base", "kt64")) -> int:
+    """Build and time each variant named in ``argv`` in its own process,
+    ``module``'s ``measure`` printing one JSON line each."""
+    names = list(sys.argv[1:] if argv is None else argv) or list(default)
     for name in names:
-        if name not in VARIANTS:
-            print(f"flash_ab: unknown variant {name!r}; one of "
-                  f"{', '.join(VARIANTS)}", file=sys.stderr)
+        if name not in variants:
+            print(f"{module}: unknown variant {name!r}; one of "
+                  f"{', '.join(variants)}", file=sys.stderr)
             return 2
     for name in names:
-        root = make(name)
+        root = make(name, variants, module)
         run = subprocess.run(
             [sys.executable, "-c",
              "import json, sys; from tpu_mpi_tests_torch.kernels import "
-             "flash_ab; print(json.dumps(flash_ab.measure(sys.argv[1])))",
+             f"{module}; print(json.dumps({module}.measure(sys.argv[1])))",
              name], cwd=root, capture_output=True, text=True)
         if run.returncode != 0:
             print(json.dumps({"variant": name, "failed": run.returncode,

@@ -66,7 +66,9 @@ a plain integer attribute (``stencil2d_iterate.launches``), so a run can
 show that its main path went through the kernel; the two attention
 wrappers also count per route (``launches_by_route``, keys
 :data:`FLASH_ROUTES`, :func:`route_counts`), so a run shows which fold
-body — ``wgmma``, ``mma`` or ``fma`` — its launches took.
+body — ``wgmma``, ``mma`` or ``fma`` — its launches took, and so do the
+two ring collectives (keys :data:`COLL_ROUTES`: ``vec16`` or
+``scalar``).
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -182,15 +184,16 @@ _SIGNATURES = {
         + [_c_double] * 3 + [_c_int, _c_int, _c_void_p, _c_int, _c_int,
                              _c_void_p, _c_void_p], _c_int),
     # x, out, buf, right buf, pad, left pad, right pad; epoch, itemsize, w,
-    # my, n, seed_all, max_ctas, stream
+    # my, n, seed_all, route (COLL_ROUTES index), max_ctas, stream
     "tpumt_ring_allgather": (
         [_c_void_p] * 7 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
-                           _c_int, _c_void_p], _c_int),
+                           _c_int, _c_int, _c_void_p], _c_int),
     # x, out, comm, right comm, send, pad, left pad, right pad; epoch,
-    # dtype, w, my, chunk elements, credits, max_ctas, stream
+    # dtype, w, my, chunk elements, credits, route (COLL_ROUTES index),
+    # max_ctas, stream
     "tpumt_ring_reduce_scatter": (
         [_c_void_p] * 8 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
-                           _c_int, _c_void_p], _c_int),
+                           _c_int, _c_int, _c_void_p], _c_int),
     # x, out, comm buffers (w), pads (w); epoch, dtype, w, my, n, sum,
     # max_ctas, stream
     "tpumt_oneshot": (
@@ -1243,6 +1246,36 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+#: the ring collectives' routes (csrc/ring_collectives.cu; a route's code
+#: is its index): "vec16" — every pointer on 16 bytes and a region (chunk)
+#: a whole number of 16-byte vectors, each thread moving uint4s, several
+#: in flight; "scalar" — any other shard, one element at a time
+COLL_ROUTES = ("scalar", "vec16")
+#: the bytes a thread moves at a time on the vec16 route
+COLL_VEC_BYTES = 16
+
+
+def coll_route(x: torch.Tensor, n: int, *ptrs: int) -> str:
+    """The route (one of :data:`COLL_ROUTES`) of a ring collective's
+    launch over ``x`` whose regions (the all-gather) or chunks (the
+    reduce-scatter) are ``n`` elements, by the rule the C launchers
+    check: "vec16" when ``x``'s data and every pointer in ``ptrs`` (the
+    launch's other buffers) start on 16 bytes and ``n`` elements are a
+    whole number of 16-byte vectors, else "scalar"."""
+    aligned = all(p % COLL_VEC_BYTES == 0 for p in (x.data_ptr(), *ptrs))
+    whole = n * x.element_size() % COLL_VEC_BYTES == 0
+    return "vec16" if aligned and whole else "scalar"
+
+
+def coll_route_code(route: str) -> int:
+    """The code the C launchers take for ``route`` (its index in
+    :data:`COLL_ROUTES`); ``ValueError`` for any other name."""
+    if route not in COLL_ROUTES:
+        raise ValueError(f"unknown collective route {route!r}; one of "
+                         f"{', '.join(COLL_ROUTES)}")
+    return COLL_ROUTES.index(route)
+
+
 def ring_allgather_ref(x: torch.Tensor, self_ring: "int | None" = None
                        ) -> torch.Tensor:
     """Plain version of :func:`ring_allgather`: the ranks' shards stacked
@@ -1269,7 +1302,11 @@ def ring_allgather(x: torch.Tensor, self_ring: "int | None" = None
     ``self_ring=k`` (world=1 only, 2 ≤ k ≤ 8): every region seeded with
     ``x``, then the full k-step schedule into the rank's own buffer; the
     result is ``tile(x, k)``. One launch per call; every rank must make
-    the same sequence of RDMA calls."""
+    the same sequence of RDMA calls.
+
+    The launch takes the route :func:`coll_route` names for its buffers
+    and the shard's bytes ("vec16" for every main-path operand), counted
+    in ``ring_allgather.launches_by_route``."""
     _coll_shard(x, "ring_allgather")
     k, my, _ = _coll_ring("ring_allgather", self_ring)
     if x.device.type == "cpu":
@@ -1290,18 +1327,22 @@ def ring_allgather(x: torch.Tensor, self_ring: "int | None" = None
         ws = peer.workspace("ring_allgather", out.numel() * x.element_size())
         buf, right = ws.data_ptr(), peer.peer_ptrs(ws)[1]
     pad, left_pad, right_pad = peer.pad_ptrs()
+    route = coll_route(x, x.numel(), out.data_ptr(), buf, right)
     fn = _entry("ring_collectives", "tpumt_ring_allgather")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), buf, right, pad, left_pad,
                 right_pad, peer.next_epoch(), x.element_size(), k, my,
-                x.numel(), int(self_ring is not None), 0, _stream(x))
+                x.numel(), int(self_ring is not None),
+                coll_route_code(route), 0, _stream(x))
     if rc != 0:
-        _raise_launch("ring_allgather", rc)
+        _raise_launch(f"ring_allgather ({route} route)", rc)
     ring_allgather.launches += 1
+    ring_allgather.launches_by_route[route] += 1
     return out
 
 
 ring_allgather.launches = 0
+ring_allgather.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
 def ring_chunk_rows(x: torch.Tensor, k: int, name: str) -> int:
@@ -1364,7 +1405,11 @@ def ring_reduce_scatter(x: torch.Tensor, credits: int = 1,
     copy. ``self_ring=k`` (world=1 only, 2 ≤ k ≤ 8) runs the k-step
     schedule on the rank itself and returns the fold of its own k chunks
     in the ring's order. float32, float64, bfloat16. One launch per
-    call."""
+    call, on the route :func:`coll_route` names for its buffers and the
+    chunk's bytes ("vec16" for every main-path operand), counted in
+    ``ring_reduce_scatter.launches_by_route``; at ``credits=2`` the fold
+    goes straight into the right neighbour's slot, at ``credits=1``
+    through a local send buffer."""
     _coll_shard(x, "ring_reduce_scatter")
     _check_credits(credits)
     k, my, _ = _coll_ring("ring_reduce_scatter", self_ring)
@@ -1376,7 +1421,9 @@ def ring_reduce_scatter(x: torch.Tensor, credits: int = 1,
     out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     cn = out.numel()
-    comm = right = send = out.data_ptr()  # one rank: one copy, no slots
+    # one rank: one copy, no slots; credits=2 folds into the right's slot
+    # and reads no send buffer
+    comm = right = send = out.data_ptr()
     scratch = None
     if k > 1:
         ws = peer.workspace("ring_reduce_scatter",
@@ -1384,21 +1431,26 @@ def ring_reduce_scatter(x: torch.Tensor, credits: int = 1,
         comm = right = ws.data_ptr()
         if peer.symmetric:
             right = peer.peer_ptrs(ws)[1]
-        scratch = torch.empty(cn, dtype=x.dtype, device=x.device)
-        send = scratch.data_ptr()
+        if credits == 1:
+            scratch = torch.empty(cn, dtype=x.dtype, device=x.device)
+            send = scratch.data_ptr()
     pad, left_pad, right_pad = peer.pad_ptrs()
+    route = coll_route(x, cn, out.data_ptr(), comm, right, send)
     fn = _entry("ring_collectives", "tpumt_ring_reduce_scatter")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), comm, right, send, pad,
                 left_pad, right_pad, peer.next_epoch(),
-                DTYPE_CODES[x.dtype], k, my, cn, credits, 0, _stream(x))
+                DTYPE_CODES[x.dtype], k, my, cn, credits,
+                coll_route_code(route), 0, _stream(x))
     if rc != 0:
-        _raise_launch("ring_reduce_scatter", rc)
+        _raise_launch(f"ring_reduce_scatter ({route} route)", rc)
     ring_reduce_scatter.launches += 1
+    ring_reduce_scatter.launches_by_route[route] += 1
     return out
 
 
 ring_reduce_scatter.launches = 0
+ring_reduce_scatter.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
 def ring_allreduce(x: torch.Tensor, credits: int = 1) -> torch.Tensor:
@@ -1542,11 +1594,14 @@ def cross_wired(name: str, shards, credits: int = 1,
         fn = _entry("ring_collectives", "tpumt_ring_allgather")
 
         def launch(r):
-            return fn(shards[r].data_ptr(), outs[r].data_ptr(),
-                      bufs[r].data_ptr(), bufs[(r + 1) % k].data_ptr(),
+            ptrs = (outs[r].data_ptr(), bufs[r].data_ptr(),
+                    bufs[(r + 1) % k].data_ptr())
+            route = coll_route(shards[r], x0.numel(), *ptrs)
+            return fn(shards[r].data_ptr(), *ptrs,
                       pads[r].data_ptr(), pads[(r - 1) % k].data_ptr(),
                       pads[(r + 1) % k].data_ptr(), 1, item, k, r,
-                      x0.numel(), 0, max_ctas, streams[r].cuda_stream)
+                      x0.numel(), 0, coll_route_code(route), max_ctas,
+                      streams[r].cuda_stream)
     elif name == "ring_reduce_scatter":
         rows = ring_chunk_rows(x0, k, name)
         outs = [torch.empty((rows,) + tuple(x0.shape[1:]), dtype=x0.dtype,
@@ -1559,12 +1614,14 @@ def cross_wired(name: str, shards, credits: int = 1,
         fn = _entry("ring_collectives", "tpumt_ring_reduce_scatter")
 
         def launch(r):
-            return fn(shards[r].data_ptr(), outs[r].data_ptr(),
-                      comms[r].data_ptr(), comms[(r + 1) % k].data_ptr(),
-                      sends[r].data_ptr(), pads[r].data_ptr(),
+            ptrs = (outs[r].data_ptr(), comms[r].data_ptr(),
+                    comms[(r + 1) % k].data_ptr(), sends[r].data_ptr())
+            route = coll_route(shards[r], cn, *ptrs)
+            return fn(shards[r].data_ptr(), *ptrs, pads[r].data_ptr(),
                       pads[(r - 1) % k].data_ptr(),
                       pads[(r + 1) % k].data_ptr(), 1,
-                      DTYPE_CODES[x0.dtype], k, r, cn, credits, max_ctas,
+                      DTYPE_CODES[x0.dtype], k, r, cn, credits,
+                      coll_route_code(route), max_ctas,
                       streams[r].cuda_stream)
     elif attention:
         outs, launch = _fused_ring_cross(shards, pads, streams, max_ctas,
@@ -1793,10 +1850,12 @@ def _route_of(precision: str, q, k, v) -> str:
 
 
 def route_counts() -> dict:
-    """Launches per route of the two attention kernels since the last
-    :func:`reset_launch_counts`."""
+    """Launches per route of the two attention kernels (keys
+    :data:`FLASH_ROUTES`) and the two ring collectives (keys
+    :data:`COLL_ROUTES`) since the last :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
-            for fn in (flash_attention_block, fused_ring_attention)}
+            for fn in (flash_attention_block, fused_ring_attention,
+                       ring_allgather, ring_reduce_scatter)}
 
 
 @contextlib.contextmanager
@@ -2358,7 +2417,7 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
-            fn.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def launch_counts() -> dict[str, int]:
