@@ -8,8 +8,9 @@ failure exits non-zero and prints no result line):
 2. build all seventeen hand kernels (thirteen libraries) from
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel), and print the registers, stack and
-   spills of every flash and fused ring attention instance and of every
-   ring collective instance (the two ``PTXAS`` lines);
+   spills of every flash and fused ring attention instance, of every
+   ring collective instance and of every ring halo and one-shot instance
+   (the three ``PTXAS`` lines);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
@@ -58,9 +59,11 @@ failure exits non-zero and prints no result line):
    raw one has (derivatives bit-exact, residual within
    ``hand.RESIDUAL_RTOL``). The two RDMA ring kernels on the self-ring
    (``check_ring_kernels``): ``ring_halo`` over float32/bfloat16/float64
-   × axis 0, axis 1 and a 1-D column × n_bnd 1..8 × periodic and not ×
-   an extent under 3·n_bnd and one above, three chained calls each, and
-   the main path's operands; the fused kernel against the chained tier
+   × axis 0 (45 and 48 columns), axis 1 and a 1-D column × n_bnd 1..8 ×
+   periodic and not × an extent under 3·n_bnd, 96 and 97, three chained
+   calls each, so that both routes launch (``vec16``, ``scalar``), the
+   main path's operands each on its route, and w = 2 and 4 cross-wired
+   instances against the plain world; the fused kernel against the chained tier
    (``ring_halo`` → ``stencil2d_iterate``) over 21 chained calls (the
    epoch counters advance) × steps 1 and 4 × the periodic self-ring and
    ``local_only`` × float32/bfloat16 × 2 and 10 row blocks, and against
@@ -70,12 +73,12 @@ failure exits non-zero and prints no result line):
    and on the self-ring k = 2, 4, 8, the one-shot gather and sum at
    world=1, over float32/bfloat16/float64 × 1-D and 2-D shards of
    1001·k rows and a 7-element one-shot (sizes no TPU tile admits) and
-   of 1024·k rows, so that both ring kernels launch on both routes
+   of 1024·k rows, so that all three kernels launch on both routes
    (``vec16``, ``scalar``), and the main paths' operands, each on the
-   ``vec16`` route; then w = 2 and 4 instances of each kernel
-   launched from this one process on their own streams, their peer
-   pointers cross-wired, against the plain versions' world computed on
-   the CPU; tolerance 0. The fused ring attention
+   ``vec16`` route; then w = 2 and 4 (and 8 for the one-shot kernel)
+   instances of each kernel launched from this one process on their own
+   streams, their peer pointers cross-wired, against the plain versions'
+   world computed on the CPU; tolerance 0. The fused ring attention
    (``check_fused_ring_kernel``) over float32/bfloat16 × HIGHEST/DEFAULT
    × {dense, causal, causal striped} at world=1 and on the self-ring k =
    2, 4, 8 at (333, 17) and (1000, 128), as w = 2 and 4 cross-wired
@@ -113,7 +116,9 @@ failure exits non-zero and prints no result line):
    128 Mi float64 (one ring all-gather) and ``collbench`` over the
    library and both hand tiers at its default ladder (one kernel launch
    per chained iteration of a hand-tier row, every row measured); every
-   ring collective launch of these paths on the ``vec16`` route; then
+   ring collective and one-shot launch of these paths on the ``vec16``
+   route, and every ring halo launch of the RDMA slice on its operand's
+   route, counted exactly per path; then
    the world=2 legs: two ranks on one card are left out (the symmetric-memory
    allocator refuses them, a line says so) and the NCCL leg runs only
    where ``torch.cuda.device_count() > 1`` (a line says when it did not).
@@ -177,8 +182,9 @@ failure exits non-zero and prints no result line):
    touched; timed with their launches queued behind a stall, since they
    are shorter than their wrappers' host cost); the lean dual step
    beside the raw one's yardstick; ``ring_halo`` at the ``--rdma``
-   driver's dim-0 operand and the bench's chained dim-1 buffer on the
-   periodic self-ring (queued; bound: both bands read and written once,
+   driver's dim-0 operand, the bench's chained dim-1 buffer and the
+   driver's dim-1 operand (the scalar route) on the periodic self-ring
+   (queued; bound: both bands read and written once,
    the strided side in 32-byte sectors; yardstick: the torch exchange's
    two ``copy_``), the fused kernel at the bench's dim-0 buffer, its
    compute-only instance and the periodic self-ring, beside the chained
@@ -337,14 +343,24 @@ RING_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:1804"
 FUSED_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/fused_rdma.cu"
 FUSED_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2090"
 RING_CHAIN = 21  # chained ring calls per fused-vs-chained case
-# ring_halo's main-path operands: (shape, axis, n_bnd, dtype) — the
-# stencil2d --rdma legs (dim 0 and dim 1) and the bench's chained dim-1
-# buffer at k=4
+# ring_halo's main-path operands: (shape, axis, n_bnd, dtype, route,
+# leg) — the stencil2d --rdma legs (dim 0 and dim 1; the dim-1 band is 8
+# bytes a row: scalar), the driver's iterate leg at k=4, the bench's
+# chained dim-1 buffer at k=4 and stencil1d's (n, 1) column; every buffer
+# a fresh allocation (16-byte aligned), so the route is the geometry's
 RING_MAIN_PATH = (
-    ((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "float32"),
-    ((REF_N_LOCAL, REF_N_OTHER + 4), 1, 2, "float32"),
-    ((BENCH_N, BENCH_N + 16), 1, 8, "float32"),
-    ((BENCH_N, BENCH_N + 16), 1, 8, "bfloat16"),
+    ((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "float32", "vec16",
+     "stencil2d --rdma dim 0"),
+    ((REF_N_OTHER, REF_N_LOCAL + 4), 1, 2, "float32", "scalar",
+     "stencil2d --rdma dim 1"),
+    ((REF_N_LOCAL + 16, REF_N_OTHER), 0, 8, "float32", "vec16",
+     "stencil2d iterate leg"),
+    ((BENCH_N, BENCH_N + 16), 1, 8, "float32", "vec16",
+     "bench rdma-chained float32"),
+    ((BENCH_N, BENCH_N + 16), 1, 8, "bfloat16", "vec16",
+     "bench rdma-chained bfloat16"),
+    ((STENCIL1D_N + 4,), 0, 2, "float32", "scalar",
+     "stencil1d --staging pallas"),
 )
 # the fused kernel's main-path operands: (shape, dtype, periodic) — the
 # bench's dim-0 buffer at k=4 (world=1 non-periodic: the compute-only
@@ -358,11 +374,15 @@ FUSED_MAIN_PATH = (
 RING_TIMED = (
     ((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "float32", "stencil2d --rdma"),
     ((BENCH_N, BENCH_N + 16), 1, 8, "float32", "bench rdma-chained"),
+    ((REF_N_OTHER, REF_N_LOCAL + 4), 1, 2, "float32",
+     "stencil2d --rdma dim 1"),
 )
 # the collective kernels (ring all-gather, ring reduce-scatter, one-shot)
 COLL_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/ring_collectives.cu"
 #: the kernels of COLL_SOURCE, whose launches count per route
 RING_COLLECTIVES = ("ring_allgather", "ring_reduce_scatter")
+#: the collective kernels whose launches count per route
+ROUTED_COLLECTIVES = RING_COLLECTIVES + ("oneshot",)
 ONESHOT_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/oneshot.cu"
 AG_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2339"
 RS_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:2576"
@@ -1293,6 +1313,10 @@ def run_main_path(device):
     # tests of n_warmup + n_iter iterations, one launch each
     k = 4
     n_blocks = H.PRIOR_BLOCKS["float32"]
+    # the fused == chained gate's chained tier exchanges the iterate leg's
+    # operand through ring_halo
+    check_routes(path, "ring_halo", ring_routes(
+        ("stencil2d iterate leg", counts[path]["ring_halo"])))
     per_step[path] = {
         "stencil2d_iterate": check_per_timestep(
             path, "stencil2d_iterate",
@@ -1868,27 +1892,36 @@ def time_fused_ring_kernel(device, gen):
 def check_ring_kernels(device, rand, failures):
     """The two RDMA ring kernels against their plain versions on the
     self-ring, bit for bit: ``ring_halo`` over float32/bfloat16/float64 ×
-    axis 0, axis 1 and a 1-D column × n_bnd 1..8 × periodic and not ×
-    extents under 3·n_bnd and above, three chained calls each (the epoch
-    counters advance); the fused kernel against ring_halo →
+    axis 0 (45 and 48 columns), axis 1 and a 1-D column × n_bnd 1..8 ×
+    periodic and not × extents under 3·n_bnd, 96 and 97, three chained
+    calls each (the epoch counters advance), so that both routes launch
+    (``vec16`` where a 48-column row or a 96-wide row's band is whole
+    16-byte vectors, ``scalar`` elsewhere and on every staged extent);
+    the main paths' operands, each on its route; w = 2 and 4 cross-wired
+    instances on both routes and a staged extent, periodic and not,
+    against the plain world; the fused kernel against ring_halo →
     stencil2d_iterate (the chained tier) over steps 1 and 4 × the
     periodic self-ring and ``local_only`` × float32/bfloat16 × nb = 2 and
     nb > 2 row blocks, 21 chained calls, and against its own plain
-    version. Returns (cases, max abs error per kernel)."""
+    version. Returns (cases, max abs error per kernel and of the
+    cross-wired ring halo)."""
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
     from tpu_mpi_tests_torch.kernels import hand
 
     n_cases = 0
-    errs = {"ring_halo": 0.0, "stencil2d_fused_rdma": 0.0}
+    errs = {"ring_halo": 0.0, "stencil2d_fused_rdma": 0.0,
+            "ring_halo cross-wired": 0.0}
+    routes0 = dict(hand.ring_halo.launches_by_route)
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
-        for axis in (0, 1, "1d"):
+        for axis, width in ((0, 45), (0, 48), (1, 37), ("1d", 1)):
             for n_bnd in range(1, 9):
                 for periodic in (True, False):
-                    for n in sorted({max(2 * n_bnd, 3 * n_bnd - 1), 97}):
+                    for n in sorted({max(2 * n_bnd, 3 * n_bnd - 1), 96,
+                                     97}):
                         shape = ((n,) if axis == "1d" else
-                                 (n, 45) if axis == 0 else (37, n))
+                                 (n, width) if axis == 0 else (width, n))
                         ax = 0 if axis == "1d" else axis
                         z = rand(shape, dtype)
                         want = z.clone()
@@ -1897,12 +1930,20 @@ def check_ring_kernels(device, rand, failures):
                                            periodic=periodic)
                             hand.ring_halo_ref(want, axis=ax, n_bnd=n_bnd,
                                                periodic=periodic)
-                        err = compare(f"ring_halo {dtype} axis={axis} "
-                                      f"n_bnd={n_bnd} n={n} "
-                                      f"periodic={periodic}", z, want,
-                                      failures)
+                        err = compare(f"ring_halo {dtype} {shape} "
+                                      f"axis={axis} n_bnd={n_bnd} "
+                                      f"periodic={periodic} route="
+                                      f"{hand.halo_route(z, ax, n_bnd)}", z,
+                                      want, failures)
                         errs["ring_halo"] = max(errs["ring_halo"], err)
                         n_cases += 1
+    took = {r: hand.ring_halo.launches_by_route[r] - routes0[r]
+            for r in routes0}
+    log(f"CHECK ring_halo launches by route (self-ring cases): "
+        f"{json.dumps(took)}")
+    if min(took.values()) <= 0:
+        failures.append(f"ring_halo: the checks did not launch both routes "
+                        f"({took})")
     for dtype in (torch.float32, torch.bfloat16):
         for steps in (1, 4):
             K = 2 * steps
@@ -1943,17 +1984,44 @@ def check_ring_kernels(device, rand, failures):
     # the main path's operands: the stencil2d --rdma exchanges, the
     # bench's chained dim-1 buffer, the fused operands (the bench's
     # local_only dim-0 buffer and the driver's periodic iterate leg)
-    for shape, axis, n_bnd, dtype in RING_MAIN_PATH:
+    for shape, axis, n_bnd, dtype, route, leg in RING_MAIN_PATH:
         z = rand(shape, getattr(torch, dtype))
         want = hand.ring_halo_ref(z.clone(), axis=axis, n_bnd=n_bnd,
                                   periodic=True)
+        before = hand.ring_halo.launches_by_route[route]
         hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=True)
         errs["ring_halo"] = max(errs["ring_halo"], compare(
-            f"ring_halo main-path {shape} axis={axis} {dtype}", z, want,
-            failures))
+            f"ring_halo main-path {leg} {shape} axis={axis} {dtype}", z,
+            want, failures))
+        if hand.ring_halo.launches_by_route[route] != before + 1:
+            failures.append(f"ring_halo main-path {leg}: not launched on "
+                            f"its operand's route, {route}")
         n_cases += 1
         del z, want
         torch.cuda.empty_cache()
+    # cross-wired instances: (dtype, axis, n_bnd, shape) on vec16, vec16,
+    # scalar and the staged extent
+    for w in (2, 4):
+        for periodic in (True, False):
+            for dtype, axis, n_bnd, shape in (
+                    (torch.float32, 0, 2, (40, 24)),
+                    (torch.bfloat16, 1, 8, (37, 96)),
+                    (torch.float64, 1, 3, (45, 40)),
+                    (torch.float32, 0, 3, (8, 45))):
+                shards = [rand(shape, dtype) for _ in range(w)]
+                got = hand.cross_wired("ring_halo", shards, axis=axis,
+                                       n_bnd=n_bnd, periodic=periodic)
+                want = hand.ring_halo_world_ref(
+                    [t.cpu() for t in shards], axis=axis, n_bnd=n_bnd,
+                    periodic=periodic)
+                for r, (g, e) in enumerate(zip(got, want)):
+                    errs["ring_halo cross-wired"] = max(
+                        errs["ring_halo cross-wired"],
+                        compare(f"cross-wired ring_halo w={w} {dtype} "
+                                f"{shape} axis={axis} n_bnd={n_bnd} "
+                                f"periodic={periodic} rank {r}", g,
+                                e.to(device), failures))
+                n_cases += 1
     for shape, dtype, periodic in FUSED_MAIN_PATH:
         z = rand(shape, getattr(torch, dtype))
         flags = {"phys_static": (0, 0) if periodic else (1, 1)}
@@ -2008,9 +2076,10 @@ def check_coll_kernels(device, rand, failures):
     each kernel in this one process, cross-wired on one card
     (``hand.cross_wired``) on shards of 1001·w and 1024·w rows, against
     the plain versions' world computed on the CPU
-    (``hand.coll_world_ref``). Both ring kernels must have launched on
-    both routes. Returns (cases, max abs error per kernel, and the
-    cross-wired one's)."""
+    (``hand.coll_world_ref``); the one-shot kernel also at w = 8, on
+    1001 × 3 (scalar) and 1024 × 3 (vec16) shards. All three kernels
+    must have launched on both routes. Returns (cases, max abs error per
+    kernel, and the cross-wired one's)."""
     import torch
 
     from tpu_mpi_tests_torch.kernels import hand
@@ -2051,8 +2120,8 @@ def check_coll_kernels(device, rand, failures):
                 "ring_reduce_scatter": (hand.ring_reduce_scatter,
                                         hand.ring_reduce_scatter_ref),
                 "oneshot": (hand.oneshot, hand.oneshot_ref)}
-    routes = {n: hand.route_counts()[n] for n in RING_COLLECTIVES}
-    for n in RING_COLLECTIVES:
+    routes = {n: hand.route_counts()[n] for n in ROUTED_COLLECTIVES}
+    for n in ROUTED_COLLECTIVES:
         took = {r: routes[n][r] - routes0[n][r] for r in routes[n]}
         log(f"CHECK {n} launches by route (self-ring and world=1 "
             f"cases): {json.dumps(took)}")
@@ -2065,7 +2134,7 @@ def check_coll_kernels(device, rand, failures):
         before = hand.route_counts().get(name)
         check(name, f"{name} main-path {what} {shape} {dtype}", kernel(x),
               plain(x))
-        if before is not None:  # a ring collective: on the vec16 route
+        if before is not None:  # every main-path shard: on vec16
             after = hand.route_counts()[name]
             took = {r: after[r] - before[r] for r in after}
             if took != {"scalar": 0, "vec16": 1}:
@@ -2078,12 +2147,16 @@ def check_coll_kernels(device, rand, failures):
         torch.cuda.empty_cache()
     for name in ("ring_allgather", "ring_reduce_scatter",
                  "oneshot_allgather", "oneshot_allreduce"):
-        for w in (2, 4):
+        ring = name.startswith("ring")
+        for w in (2, 4) if ring else (2, 4, 8):
             for dtype in (torch.float32, torch.bfloat16):
                 for credits, per in itertools.product(
                         (1, 2) if name == "ring_reduce_scatter" else (1,),
                         (1001, 1024)):
-                    shards = [rand((w * per, 3), dtype) for _ in range(w)]
+                    # one-shot shards of 1001 × 3 elements take the scalar
+                    # route, of 1024 × 3 vec16, at every w
+                    rows = w * per if ring else per
+                    shards = [rand((rows, 3), dtype) for _ in range(w)]
                     got = hand.cross_wired(name, shards, credits=credits)
                     want = hand.coll_world_ref(
                         name, [t.cpu() for t in shards])
@@ -2091,12 +2164,13 @@ def check_coll_kernels(device, rand, failures):
                         errs["cross-wired"] = max(
                             errs["cross-wired"],
                             compare(f"cross-wired {name} w={w} {dtype} "
-                                    f"credits={credits} rows={w * per} "
+                                    f"credits={credits} rows={rows} "
                                     f"rank {r}", g,
                                     e.to(device), failures))
                     n_cases += 1
     log(f"CHECK collectives: {n_cases} cases bit-exact so far "
-        f"(cross-wired w = 2 and 4 on one card among them)")
+        f"(cross-wired w = 2 and 4, and 8 for the one-shot kernel, on one "
+        f"card among them)")
     return n_cases, errs
 
 
@@ -2172,6 +2246,7 @@ def run_coll_slice(device, counts, peaks):
     # every hand-tier row's shard (4 KiB-16 MiB) is whole 16-byte vectors
     for name in ("ring_allgather", "ring_reduce_scatter"):
         check_routes(path, name, {"vec16": calls})
+    check_routes(path, "oneshot", {"vec16": 2 * calls})
     return [{"collective": r[0], "bytes": int(r[1]), "us_per_iter":
              float(r[2]), "n": int(r[4])} for r in rows]
 
@@ -2229,6 +2304,7 @@ def time_coll_kernels(device, gen):
         rows["oneshot"].append({
             "path": "world=1, 16 MiB float32 shard", "op": op,
             "shape": [COLL_TIMED_N], "dtype": "float32",
+            "route": hand.coll_route(x, x.numel()),
             **timed(lambda: hand.oneshot(x, op)),
             "plain_ms": time_cuda_queued(lambda: hand.oneshot_ref(x, op),
                                          20),
@@ -2301,8 +2377,9 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
                                    tuple(legs)), nprocs=2, join=True)
     done = {"rdma": f"fused == chained bit for bit over {RING_CHAIN} "
                     f"calls, the RDMA exchange equal to DIRECT on both "
-                    f"ranks, {PAIR_RUNS} runs on fresh inputs without "
-                    f"growth",
+                    f"ranks and both routes, {PAIR_RUNS} runs on fresh "
+                    f"inputs without growth, ring_halo timed beside the "
+                    f"torch exchange",
             "collectives": "the collective kernels' tiers equal to NCCL's "
                            "calls on both routes, timed beside them",
             "attention": "ring attention's tiers (depth 1 and 2, fused) "
@@ -2343,13 +2420,18 @@ def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
 
 def _nccl_rdma(rank, gen):
     """The fused and chained tiers on a periodic 2-card ring, the RDMA
-    exchange against DIRECT, and the runners' peer pairs freed with their
-    results."""
+    exchange against DIRECT on both of ``ring_halo``'s routes (a 32-byte
+    band a row: vec16; 8 bytes: scalar), the runners' peer pairs freed
+    with their results, then ``ring_halo`` timed beside the torch
+    exchange (:func:`_nccl_time_halo`)."""
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.kernels import hand
 
+    routes0 = dict(hand.ring_halo.launches_by_route)
     z0 = torch.randn((1040, 8192), generator=gen, device="cuda")
+    z1 = torch.randn((1040, 8190), generator=gen, device="cuda")
     a = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)(
         z0.clone(), RING_CHAIN)
     b = H.iterate_hand_fn(8, 0.01, axis=0, steps=4, periodic=True,
@@ -2357,11 +2439,20 @@ def _nccl_rdma(rank, gen):
     c = H.halo_exchange(H.staging_buffer(z0, "pallas"), 1, 8, True,
                         "pallas")
     d = H.halo_exchange(z0.clone(), 1, 8, True, "direct")
+    c1 = H.halo_exchange(H.staging_buffer(z1, "pallas"), 1, 2, True,
+                         "pallas")
+    d1 = H.halo_exchange(z1.clone(), 1, 2, True, "direct")
     torch.cuda.synchronize()
-    if not (torch.equal(a, b) and torch.equal(c, d)):
+    if not (torch.equal(a, b) and torch.equal(c, d) and torch.equal(c1, d1)):
         raise SmokeFailure(f"NCCL leg rank {rank}: the RDMA tiers "
                            f"disagree")
-    del a, b, c, d
+    took = {r: hand.ring_halo.launches_by_route[r] - routes0[r]
+            for r in routes0}
+    # the chained tier's axis-0 exchanges and c on vec16, c1 on scalar
+    if took != {"vec16": RING_CHAIN + 1, "scalar": 1}:
+        raise SmokeFailure(f"NCCL leg rank {rank}: ring_halo launches by "
+                           f"route {took}")
+    del a, b, c, d, c1, d1
     # a runner's symmetric pair goes with its result: runs on fresh
     # inputs, their results dropped, must not grow the card's use
     fused = H.iterate_fused_rdma_fn(8, 0.01, steps=4, periodic=True)
@@ -2380,6 +2471,55 @@ def _nccl_rdma(rank, gen):
         raise SmokeFailure(f"NCCL leg rank {rank}: the runners' peer "
                            f"pairs outlive their results ({grown} "
                            f"bytes after {PAIR_RUNS} runs)")
+    del z0, z1, fused
+    _nccl_time_halo(rank, gen)
+
+
+def _both_timed(fn, n=50):
+    """``fn``'s ms per call at world > 1: queued behind a stall (the
+    device's time, the wrapper's host cost out; one call before the start
+    event lines the ranks' queues up) and in a host loop, each after a
+    barrier so that the ranks start together."""
+    import torch
+    import torch.distributed as tdist
+
+    torch.cuda.synchronize()
+    tdist.barrier()
+    queued = time_cuda_queued(fn, n, lead=1)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    return {"queued": queued, "host_loop": time_cuda(fn, n)}
+
+
+#: ring_halo timed across two cards: (shape, axis, n_bnd, what) — the
+#: stencil2d --rdma dim-0 shard and the bench's rdma-chained buffer
+HALO_WORLD2 = (((REF_N_LOCAL + 4, REF_N_OTHER), 0, 2, "stencil2d dim 0"),
+               ((BENCH_N, BENCH_N + 16), 1, 8, "bench rdma-chained"))
+
+
+def _nccl_time_halo(rank, gen):
+    """``ring_halo`` on the periodic two-card ring (peer stores over
+    NVLink) beside the torch exchange (``halo_exchange(..., "direct")``:
+    pack, NCCL send/recv, unpack) at the main paths' float32 shards,
+    ms per call (:func:`_both_timed`)."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.kernels import hand
+
+    times = {}
+    for shape, axis, n_bnd, what in HALO_WORLD2:
+        z = torch.randn(shape, generator=gen, device="cuda")
+        zp = H.staging_buffer(z, "pallas")
+        times[what] = {
+            "ring_halo": _both_timed(lambda: hand.ring_halo(
+                zp, axis=axis, n_bnd=n_bnd, periodic=True)),
+            "torch exchange (direct)": _both_timed(lambda: H.halo_exchange(
+                z, axis, n_bnd, True, "direct"))}
+        del z, zp
+        torch.cuda.empty_cache()
+    log(f"TIME NCCL leg rank {rank} world=2 ring_halo, float32 shards "
+        f"(ms per call): {json.dumps(times)}")
 
 
 def _nccl_attention(rank, world):
@@ -2457,11 +2597,9 @@ def _nccl_collectives(rank, world, gen):
     """The collective kernels' tiers at world=2 over symmetric memory,
     held against NCCL's calls (integer-valued rows: any sum order is
     exact) on a row of whole 16-byte vectors (the ring kernels' vec16
-    route) and on one that is not (their scalar route), then timed beside
-    NCCL's calls at a 16 MiB float32 shard: queued behind a stall (the
-    device's time per call, the wrappers' host cost out; one call before
-    the start event lines the two ranks' queues up) and in a host loop,
-    each after a barrier so that the two ranks start together."""
+    route) and on one that is not (their scalar route), each launch
+    counted on its route, then timed beside NCCL's calls
+    (:func:`_nccl_time_collectives`)."""
     import torch
     import torch.distributed as tdist
 
@@ -2489,27 +2627,32 @@ def _nccl_collectives(rank, world, gen):
                 raise SmokeFailure(f"NCCL leg rank {rank}: {name} != NCCL "
                                    f"(row of {length})")
     took = {n: {r: hand.route_counts()[n][r] - routes0[n][r]
-                for r in routes0[n]} for n in RING_COLLECTIVES}
+                for r in routes0[n]} for n in ROUTED_COLLECTIVES}
     # per row: one all-gather, two allreduces (a reduce-scatter and an
-    # all-gather each), every launch of the 8190 row on the scalar route
+    # all-gather each), a one-shot gather and sum, every launch of the
+    # 8190 row on the scalar route
     want = {"ring_allgather": {"scalar": 3, "vec16": 3},
-            "ring_reduce_scatter": {"scalar": 2, "vec16": 2}}
+            "ring_reduce_scatter": {"scalar": 2, "vec16": 2},
+            "oneshot": {"scalar": 2, "vec16": 2}}
     if took != want:
-        raise SmokeFailure(f"NCCL leg rank {rank}: ring launches by route "
+        raise SmokeFailure(f"NCCL leg rank {rank}: launches by route "
                            f"{took}, the rows' routes make {want}")
+    _nccl_time_collectives(rank, world, gen)
+
+
+def _nccl_time_collectives(rank, world, gen):
+    """The collective kernels beside NCCL's calls at a 16 MiB float32
+    shard, ms per call (:func:`_both_timed`)."""
+    import torch
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.kernels import hand
+
     x = torch.randn(COLL_TIMED_N, generator=gen, device="cuda")
     gathered = torch.empty(world * COLL_TIMED_N, device="cuda")
     scattered = torch.empty(COLL_TIMED_N // world, device="cuda")
     summed = x.clone()
-
-    def both(fn, n=50):
-        torch.cuda.synchronize()
-        tdist.barrier()
-        queued = time_cuda_queued(fn, n, lead=1)
-        torch.cuda.synchronize()
-        tdist.barrier()
-        return {"queued": queued, "host_loop": time_cuda(fn, n)}
-
+    both = _both_timed
     times = {
         "ring_allgather": both(lambda: hand.ring_allgather(x)),
         "nccl all_gather_into_tensor": both(
@@ -2523,6 +2666,7 @@ def _nccl_collectives(rank, world, gen):
         "ring_allreduce": both(lambda: hand.ring_allreduce(x)),
         "ring_allreduce credits=2": both(
             lambda: hand.ring_allreduce(x, 2)),
+        "oneshot gather": both(lambda: hand.oneshot(x, "gather")),
         "oneshot sum": both(lambda: hand.oneshot(x, "sum")),
         "nccl all_reduce": both(lambda: tdist.all_reduce(summed)),
     }
@@ -2559,6 +2703,10 @@ def run_rdma_slice(device, counts, per_step, peaks):
     # the 2 MiB row is whole 16-byte vectors: every launch on vec16
     check_routes(path, "ring_reduce_scatter",
                  {"vec16": want["ring_reduce_scatter"]})
+    # the exchange: per dim two legs (buf) of n_warmup + n_iter launches
+    legs = 2 * (DRIVER_N_WARMUP + RDMA_DRIVER_N_ITER)
+    check_routes(path, "ring_halo", ring_routes(
+        ("stencil2d --rdma dim 0", legs), ("stencil2d --rdma dim 1", legs)))
     per_step[path] = {"ring_halo": 1.0, "stencil2d_deriv": 1.0}
 
     it = DRIVER_ITERATE_ITERS
@@ -2582,6 +2730,8 @@ def run_rdma_slice(device, counts, per_step, peaks):
              f"calls: OK", "OVERLAP stencil2d_fused_rdma overlap_frac=",
              "ITER ERR rel="), peaks)
         _exact(path, counts[path], want)
+        check_routes(path, "ring_halo", ring_routes(
+            ("stencil2d iterate leg", want["ring_halo"])))
 
     path = "stencil1d --staging pallas"
     counts[path] = drive_driver(
@@ -2590,6 +2740,8 @@ def run_rdma_slice(device, counts, per_step, peaks):
                           "--staging", "pallas"], ["ring_halo"],
         ("0/1 exchange time ", "err_norm = "), peaks)
     _exact(path, counts[path], {"ring_halo": 2})  # warm + timed
+    check_routes(path, "ring_halo", ring_routes(
+        ("stencil1d --staging pallas", 2)))
 
     recs = {}
     for tier in ("rdma-chained", "rdma-fused"):
@@ -2616,12 +2768,26 @@ def run_rdma_slice(device, counts, per_step, peaks):
             n_long = max(n_short + 1, BENCH_ITERS_LONG // k)
             calls = BENCH_SAMPLES * (3 + n_short + n_long)
             _exact(path, counts[path], dict.fromkeys(kernels, calls))
+            check_routes(path, "ring_halo", ring_routes(
+                (f"bench rdma-chained {dtype}",
+                 counts[path]["ring_halo"])))
             per_step[path] = {name: check_per_timestep(
                 path, name, counts[path][name], calls * k, 1 / k)
                 for name in kernels}
             recs[f"{tier} {dtype}"] = rec
     del os.environ["TPU_MPI_BENCH_TIER"]
     return recs
+
+
+def ring_routes(*legs):
+    """``ring_halo``'s launches per route on a path made of ``legs``,
+    (:data:`RING_MAIN_PATH` leg, launches) pairs: each leg's launches on
+    its operand's route."""
+    want = {}
+    for leg, n in legs:
+        route = next(r[4] for r in RING_MAIN_PATH if r[5] == leg)
+        want[route] = want.get(route, 0) + n
+    return want
 
 
 def _exact(path, counts, want):
@@ -2665,6 +2831,7 @@ def time_ring_kernels(device, gen):
         rows["ring_halo"].append({
             "path": path, "shape": list(shape),
             "dtype": dtype, "axis": axis, "n_bnd": n_bnd, "periodic": True,
+            "route": hand.halo_route(z, axis, n_bnd),
             "ms": time_cuda_queued(lambda: hand.ring_halo(
                 z, axis=axis, n_bnd=n_bnd, periodic=True), 20),
             "ms_host_loop": time_cuda(lambda: hand.ring_halo(
@@ -3210,38 +3377,43 @@ def ptxas_summary(build) -> dict:
 #: the template arguments of the ring collectives' instances, as the
 #: Itanium ABI mangles them
 _MANGLED_ARGS = {"5uint4": "uint4", "13__nv_bfloat16": "bf16",
-                 "t": "u16", "j": "u32", "y": "u64", "f": "float",
-                 "d": "double"}
+                 "t": "u16", "j": "u32", "y": "u64", "m": "u64",
+                 "f": "float", "d": "double"}
 
 
 def coll_kernel_name(mangled: str) -> str:
-    """``ring_allgather_kernel<uint4, 4>`` for the mangled name of a ring
-    collective instance (the name itself when it is not one)."""
+    """``ring_allgather_kernel<uint4, 4>`` for the mangled name of a
+    peer-store kernel instance (the ring collectives, the one-shot
+    kernel, the ring halo; the name itself when it is not one)."""
     import re
 
     m = re.search(r"(ring_allgather_kernel|ring_reduce_scatter_kernel|"
-                  r"coll_copy_kernel)I(\w*?)EEv", mangled)
+                  r"coll_copy_kernel|oneshot_kernel|ring_halo_kernel)"
+                  r"I(\w*?)EEv", mangled)
     if not m:
         return mangled
     args, rest = [], m[2]
     while rest:
-        t = re.match(r"5uint4|13__nv_bfloat16|S\d*_|Li(\d+)E|[tjyfd]", rest)
+        t = re.match(r"5uint4|13__nv_bfloat16|S\d*_|Li(\d+)E|Lb([01])E|"
+                     r"[tjymfd]", rest)
         if not t:
             return mangled
-        args.append(t[1] or (args[-1] if t[0].startswith("S")
+        args.append(t[1] or ({"0": "false", "1": "true"}[t[2]] if t[2]
+                             else args[-1] if t[0].startswith("S")
                              else _MANGLED_ARGS[t[0]]))
         rest = rest[t.end():]
     return f"{m[1]}<{', '.join(args)}>"
 
 
-def coll_ptxas_summary(build) -> dict:
-    """Registers, stack and spill bytes of every kernel instance of the
-    ring collectives (both routes' all-gather and reduce-scatter, the
-    world=1 copies), from this process's build."""
+def coll_ptxas_summary(build, lib="ring_collectives") -> dict:
+    """Registers, stack and spill bytes of every kernel instance of a
+    peer-store library from this process's build: the ring collectives
+    (both routes' all-gather and reduce-scatter, the world=1 copies),
+    ``oneshot`` or ``ring_halo`` (each route's instances)."""
     import re
 
     out, entry = {}, None
-    for line in build.BUILD_LOGS.get("ring_collectives", "").splitlines():
+    for line in build.BUILD_LOGS.get(lib, "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = coll_kernel_name(m[1])
@@ -3299,6 +3471,10 @@ def main() -> int:
         log(f"PTXAS attention instances {json.dumps(ptxas)}")
         coll_ptxas = coll_ptxas_summary(build)
         log(f"PTXAS ring collective instances {json.dumps(coll_ptxas)}")
+        halo_ptxas = {lib: coll_ptxas_summary(build, lib)
+                      for lib in ("ring_halo", "oneshot")}
+        log(f"PTXAS ring_halo and oneshot instances "
+            f"{json.dumps(halo_ptxas)}")
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -3371,6 +3547,13 @@ def main() -> int:
         if name == "oneshot":
             extra = {"also_replaces": ONESHOT_ALSO_REPLACES,
                      "cross_wired_max_abs_err": errs["cross-wired"]}
+        if name == "ring_halo":
+            extra = {"cross_wired_max_abs_err":
+                     errs["ring_halo cross-wired"]}
+        if name in ("ring_halo", "oneshot"):
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()}
+            extra["ptxas"] = halo_ptxas[name]
         if name == "fused_ring_attention":
             # max_abs_err: the normalised output at the main path's f32
             # HIGHEST operands (8192, 128); every class beside it, each

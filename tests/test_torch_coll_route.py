@@ -168,7 +168,7 @@ def test_coll_ab_variants_edit_text_the_sources_hold():
     from tpu_mpi_tests_torch.kernels import build, coll_ab
 
     assert set(coll_ab.VARIANTS) == {"base", "u1", "u2", "u8", "fence",
-                                     "acqrel"}
+                                     "acqrel", "sys"}
     for name, edits in coll_ab.VARIANTS.items():
         for file, old, new in edits:
             text = (build.CSRC / file).read_text()

@@ -31,9 +31,16 @@ are held bit for bit on both routes (``vec16`` on shards of whole
 world=1, on the self-ring (k = 2, 4, 8, credits 1 and 2) and cross-wired
 (w = 2 and 4), each launch counted on its route, in a chain across
 kernels, credits and routes on one pad, and a launch given another
-route than the rule's refused. The ALU probe is held bit for bit
-(``fma``, ``step5*``, ``heat5``) or within ``hand.alu_probe_tolerance``
-(the dual mixes), with its chain property and capacity guard; pack and
+route than the rule's refused. The ring halo and the one-shot kernel are
+held bit for bit on both routes (``vec16`` where the rule admits 16-byte
+vectors, ``scalar`` on other widths, staged extents and views off 16
+bytes), each launch counted on its route, at world=1, on the self-ring
+and as cross-wired instances (the ring halo at w = 2 and 4, the one-shot
+kernel at w = 2, 4 and 8), at the main paths' operands, chained on one
+pad with the fused RDMA kernel, and refusing another route. The ALU
+probe is held bit for bit (``fma``, ``step5*``, ``heat5``) or within
+``hand.alu_probe_tolerance`` (the dual mixes), with its chain property
+and capacity guard; pack and
 unpack bit for bit on both axes, and the hand-staged exchange against
 DIRECT; the dual step's lean body like the raw one; the ``vpu`` group
 and the ``stencil1d`` driver run on the card at small sizes.
@@ -642,6 +649,164 @@ def test_ring_halo_kernel_1d_column(card):
     assert torch.equal(z, want)
 
 
+# the ring halo's two routes: vec16 (16-byte vectors) and scalar
+
+def halo_routes():
+    return dict(hand.ring_halo.launches_by_route)
+
+
+def halo_cases():
+    """(dtype, axis, route, n_bnd, extent, other): vec16 where the row
+    pitch (and on axis 1 a row's band) is whole 16-byte vectors and the
+    extent is at least 3·n_bnd; scalar on odd widths, 3-wide bands and
+    the staged extents 2·n_bnd and 3·n_bnd − 1."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        v = 16 // torch.empty((), dtype=dtype).element_size()
+        for axis in (0, 1):
+            b = v if axis == 1 else 2
+            extents = (3 * b, 37 * v) if axis == 1 else (3 * b, 301)
+            other = 45 if axis == 1 else 24
+            cases += [(dtype, axis, "vec16", b, n, other) for n in extents]
+            cases += [(dtype, axis, "scalar", 3, n, 45)
+                      for n in (6, 8, 9, 301)]
+    return cases
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype,axis,route,n_bnd,extent,other", halo_cases())
+def test_ring_halo_route_matches_plain(card, periodic, dtype, axis, route,
+                                       n_bnd, extent, other):
+    """2-, 4- and 8-byte elements on both axes and both routes, periodic
+    and not, staged and not: five chained calls bit for bit the plain
+    self-ring, each launch counted on its route."""
+    shape = (extent, other) if axis == 0 else (other, extent)
+    z = rand(card, shape, dtype, seed=extent + 7 * n_bnd + axis)
+    assert hand.halo_route(z, axis, n_bnd) == route
+    want = z.clone()
+    before = halo_routes()
+    for _ in range(5):
+        hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
+        hand.ring_halo_ref(want, axis=axis, n_bnd=n_bnd, periodic=periodic)
+    torch.cuda.synchronize(card)
+    after = halo_routes()
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: 5 * (r == route) for r in after}
+    assert torch.equal(z, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_ring_halo_view_off_16_bytes_takes_scalar(card, dtype, axis):
+    """A view one element off 16 bytes, of a geometry that is vec16 when
+    aligned, lands on the scalar route and still matches bit for bit."""
+    v = 16 // torch.empty((), dtype=dtype).element_size()
+    n_bnd = v if axis == 1 else 2
+    shape = (40, 8 * v) if axis == 0 else (40, 8 * v)
+    base = rand(card, (shape[0] * shape[1] + 1,), dtype, seed=31 + axis)
+    z = base[1:].view(shape)
+    assert hand.halo_route(z.clone(), axis, n_bnd) == "vec16"
+    assert hand.halo_route(z, axis, n_bnd) == "scalar"
+    want = hand.ring_halo_ref(z.clone(), axis=axis, n_bnd=n_bnd,
+                              periodic=True)
+    before = halo_routes()
+    hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=True)
+    torch.cuda.synchronize(card)
+    assert halo_routes()["scalar"] == before["scalar"] + 1
+    assert torch.equal(z, want)
+
+
+@pytest.mark.parametrize("shape,axis,n_bnd,dtype,route", [
+    ((1028, 524288), 0, 2, torch.float32, "vec16"),
+    ((524288, 1028), 1, 2, torch.float32, "scalar"),
+    ((8192, 8208), 1, 8, torch.float32, "vec16"),
+    ((8192, 8208), 1, 8, torch.bfloat16, "vec16"),
+    ((1040, 524288), 0, 8, torch.float32, "vec16"),
+    ((33554436,), 0, 2, torch.float32, "scalar")])
+def test_ring_halo_main_path_operands(card, shape, axis, n_bnd, dtype,
+                                      route):
+    """stencil2d --rdma's two legs, the bench's rdma-chained buffer in
+    both dtypes, the driver's iterate leg and stencil1d's column: each on
+    its route, bit for bit the plain self-ring."""
+    z = rand(card, shape, dtype, seed=17)
+    want = hand.ring_halo_ref(z.clone(), axis=axis, n_bnd=n_bnd,
+                              periodic=True)
+    before = halo_routes()
+    hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=True)
+    torch.cuda.synchronize(card)
+    assert halo_routes()[route] == before[route] + 1
+    assert torch.equal(z, want)
+
+
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype,axis,route,n_bnd,extent,other", [
+    (torch.float32, 0, "vec16", 2, 40, 24),
+    (torch.bfloat16, 1, "vec16", 8, 96, 37),
+    (torch.float64, 1, "scalar", 3, 40, 45),
+    (torch.float32, 0, "scalar", 3, 8, 45)])
+def test_cross_wired_ring_halo_matches_the_plain_world(card, w, periodic,
+                                                        dtype, axis, route,
+                                                        n_bnd, extent,
+                                                        other):
+    """w ring-halo instances on one card, each with its own pad, stream
+    and grid cap, their neighbours wired to each other's (distinct left
+    and right at w = 4): bit for bit the plain world, on both routes and
+    the staged extent."""
+    shape = (extent, other) if axis == 0 else (other, extent)
+    shards = [rand(card, shape, dtype, seed=100 + r) for r in range(w)]
+    assert hand.halo_route(shards[0], axis, n_bnd, shards[1].data_ptr(),
+                           shards[-1].data_ptr()) == route
+    got = hand.cross_wired("ring_halo", shards, axis=axis, n_bnd=n_bnd,
+                           periodic=periodic)
+    want = hand.ring_halo_world_ref([s.cpu() for s in shards], axis=axis,
+                                    n_bnd=n_bnd, periodic=periodic)
+    for g, e in zip(got, want):
+        assert torch.equal(g.cpu(), e)
+
+
+def test_ring_halo_chain_across_routes_and_the_fused_kernel(card):
+    """Chained launches on one pad that alternate the ring halo's two
+    routes and the fused RDMA kernel (which counts its sends the old way
+    on the same words): the epochs advance, the local words reset, every
+    result bit for bit its plain version."""
+    zs = {"vec16": rand(card, (40, 64), torch.float32, seed=41),
+          "scalar": rand(card, (40, 45), torch.float32, seed=42)}
+    want = {k: t.clone() for k, t in zs.items()}
+    fz = rand(card, (40, 64), torch.float32, seed=43)
+    before = halo_routes()
+    for i in range(12):
+        route = "vec16" if i % 2 else "scalar"
+        hand.ring_halo(zs[route], axis=0, n_bnd=4, periodic=True)
+        hand.ring_halo_ref(want[route], axis=0, n_bnd=4, periodic=True)
+        got = hand.stencil2d_fused_rdma(fz, 0.01, steps=2, periodic=True,
+                                        phys_static=(0, 0))
+        assert torch.equal(got, hand.stencil2d_fused_rdma_ref(
+            fz.clone(), 0.01, steps=2, periodic=True, phys_static=(0, 0)))
+    torch.cuda.synchronize(card)
+    for k in zs:
+        assert torch.equal(zs[k], want[k])
+    after = halo_routes()
+    assert {r: after[r] - before[r] for r in after} == \
+        {"vec16": 6, "scalar": 6}
+
+
+def test_ring_halo_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    z = rand(card, (40, 64), torch.float32, seed=1)
+    monkeypatch.setattr(hand, "halo_route", lambda *a: "scalar")
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.ring_halo(z, axis=0, n_bnd=2, periodic=True)
+    monkeypatch.setattr(hand, "halo_route", lambda *a: "vec16")
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.ring_halo(rand(card, (40, 45), torch.float32, seed=2),
+                       axis=0, n_bnd=2, periodic=True)
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.ring_halo(z[:5], axis=0, n_bnd=2, periodic=True)  # staged
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("steps", [1, 4])
 @pytest.mark.parametrize("periodic", [True, False])
@@ -763,6 +928,59 @@ def test_oneshot_kernel_matches_plain(card, dtype, shape, op):
     assert hand.oneshot.launches == before + 1
     assert torch.equal(got, hand.oneshot_ref(x, op))
     assert torch.equal(got, x)
+
+
+def oneshot_routes():
+    return dict(hand.oneshot.launches_by_route)
+
+
+@pytest.mark.parametrize("route,n,off", [("vec16", 4096, 0),
+                                         ("vec16", 1 << 20, 0),
+                                         ("scalar", 4095, 0),
+                                         ("scalar", 4096, 1)])
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("op", ["gather", "sum"])
+def test_oneshot_route_matches_plain(card, route, n, off, dtype, op):
+    """World 1 on each route: whole 16-byte vectors, an odd length and a
+    view off 16 bytes; bit for bit the plain version (a copy), one launch
+    counted on the route."""
+    base = rand(card, (n + off,), dtype, seed=n + off)
+    x = base[off:]
+    before = oneshot_routes()
+    got = hand.oneshot(x, op)
+    torch.cuda.synchronize(card)
+    after = oneshot_routes()
+    assert {r: after[r] - before[r] for r in after} == \
+        {r: int(r == route) for r in after}
+    assert torch.equal(got, hand.oneshot_ref(x, op))
+
+
+@pytest.mark.parametrize("name", ["oneshot_allgather", "oneshot_allreduce"])
+@pytest.mark.parametrize("w", [2, 4, 8])
+@pytest.mark.parametrize("dtype", COLL_DTYPES)
+@pytest.mark.parametrize("route", ["vec16", "scalar"])
+def test_cross_wired_oneshot_routes_match_the_plain_world(card, name, w,
+                                                          dtype, route):
+    """w one-shot instances on one card, cross-wired, on shards of 1024
+    rows (vec16) and 1001 rows (scalar): the fold in ascending rank and
+    the gather bit for bit the plain world."""
+    rows = 1024 if route == "vec16" else 1001
+    shards = [rand(card, (rows, 3), dtype, seed=120 + r) for r in range(w)]
+    assert hand.coll_route(shards[0], shards[0].numel()) == route
+    got = hand.cross_wired(name, shards)
+    want = hand.coll_world_ref(name, [s.cpu() for s in shards])
+    for g, e in zip(got, want):
+        assert torch.equal(g.cpu(), e)
+
+
+def test_oneshot_launch_refuses_another_route(card, monkeypatch):
+    x = rand(card, (4096,), torch.float32, seed=1)
+    monkeypatch.setattr(hand, "coll_route", lambda *a: "scalar")
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.oneshot(x, "sum")
+    monkeypatch.setattr(hand, "coll_route", lambda *a: "vec16")
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.oneshot(x[1:], "gather")
 
 
 def test_ring_collectives_chain_on_the_card(card):

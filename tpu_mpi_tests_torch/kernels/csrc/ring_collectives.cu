@@ -74,9 +74,6 @@
 // in ring_halo.cu.
 #include <climits>
 #include <cstdint>
-#include <cstring>
-#include <initializer_list>
-#include <type_traits>
 
 #include "ring_common.cuh"
 #include "stencil_common.cuh"
@@ -88,32 +85,8 @@ constexpr int kThreads = 256;
 // 16-byte vectors each thread has in flight on the vec16 route
 constexpr int kUnroll = 4;
 
-// the routes' codes (hand.COLL_ROUTES indices)
-enum CollRoute : int { kRouteScalar = 0, kRouteVec16 = 1 };
-
 __device__ __forceinline__ long long ring_mod(long long a, long long w) {
   return ((a % w) + w) % w;
-}
-
-// received + local, element by element in the dtype (bfloat16 rounded
-// per op), for a V that packs one T or 16 / sizeof(T) of them.
-template <typename T, typename V>
-__device__ __forceinline__ V fold(const V& recv, const V& local) {
-  using E = Elt<T>;
-  if constexpr (std::is_same_v<T, V>) {
-    return E::store(E::add(E::load(&recv), E::load(&local)));
-  } else {
-    constexpr int k = sizeof(V) / sizeof(T);
-    T r[k], l[k];
-    memcpy(r, &recv, sizeof(V));
-    memcpy(l, &local, sizeof(V));
-#pragma unroll
-    for (int i = 0; i < k; ++i)
-      r[i] = E::store(E::add(E::load(&r[i]), E::load(&l[i])));
-    V out;
-    memcpy(&out, r, sizeof(V));
-    return out;
-  }
 }
 
 // World = 1: out = x, n items.
@@ -322,15 +295,6 @@ int launch_reduce_scatter(const void* x, void* out, void* comm,
   static int resident = 0;
   return launch_resident<kU>(ring_reduce_scatter_kernel<T, V, kU>, &resident,
                              cn, max_ctas, s, a);
-}
-
-// The route the rule gives (hand.coll_route): vec16 when every pointer
-// starts on 16 bytes and a region (chunk) of `bytes` is whole vectors.
-int coll_route(long long bytes, std::initializer_list<const void*> ptrs) {
-  if (bytes % 16) return kRouteScalar;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<std::uintptr_t>(p) % 16) return kRouteScalar;
-  return kRouteVec16;
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // Signalling and edge-band copies shared by the RDMA kernels: the two
 // ring halo kernels (ring_halo.cu, fused_rdma.cu), the collective
 // kernels (ring_collectives.cu, oneshot.cu) and the fused ring attention
-// (fused_ring_attention.cu). The ring collectives alone use the 16-byte
-// helpers at the end (load_peer, coll_sweep, coll_arrive_cta,
-// coll_resident_ctas, coll_grid).
+// (fused_ring_attention.cu). The helpers at the end (the routes,
+// load_peer, coll_sweep, coll_arrive_cta, ring_arrive_cta,
+// coll_resident_ctas, coll_grid) serve ring_collectives.cu, oneshot.cu
+// and ring_halo.cu; fused_rdma.cu sends through ring_store / ring_arrive.
 //
 // A rank's signal pad (comm/peer.py) holds 128 int32 words. Remote words
 // are epoch counters written by other ranks; local words are counters of
@@ -62,18 +63,23 @@
 // word is ever reset. Per-step words keep a step's wait from being met by
 // a later step's signal.
 //
-// Memory order: a signal is a st.release.sys after __threadfence_system()
-// has ordered the sender's peer stores; a wait is a ld.acquire.sys loop,
-// and data that peers write during a launch is read with ld.global.cg
-// (L2, never a stale L1 line). A wait gives up after kWaitTimeoutNs and
-// traps, so a lost peer makes the launch fail (the next synchronise
-// raises) instead of hanging the card. One stream per pad: two launches
-// that share a pad must not run at once.
+// Memory order: a signal is a st.release.sys after the sender's peer
+// stores were ordered, by __threadfence_system() in every thread
+// (ring_arrive, coll_arrive) or by one acquire-release count a CTA
+// (coll_arrive_cta, ring_arrive_cta); a wait is a ld.acquire.sys loop;
+// the ring halo's one-card self-ring does all of this at gpu scope (no
+// other card takes part). Data that peers write during a launch is read
+// with ld.global.cg (L2, never a stale L1 line). A wait gives up after
+// kWaitTimeoutNs and traps, so a lost peer makes the launch fail (the next
+// synchronise raises) instead of hanging the card. One stream per pad: two
+// launches that share a pad must not run at once.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
+#include <initializer_list>
 
 namespace tpumt {
 
@@ -118,17 +124,35 @@ static_assert(kPadWordsUsed <= kPadWords, "the pad holds 128 words");
 
 constexpr unsigned long long kWaitTimeoutNs = 20ull * 1000 * 1000 * 1000;
 
+// kSys: at system scope, what a peer card's pad and buffers need; false:
+// at gpu scope, enough where every pad and buffer of the launch is this
+// card's own (a one-card self-ring), and cheaper — a system-scope release
+// waits until the card's stores are visible to every other card too.
+template <bool kSys = true>
 __device__ __forceinline__ void pad_signal(int* word, int epoch) {
-  asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(word), "r"(epoch)
-               : "memory");
+  if constexpr (kSys)
+    asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(word),
+                 "r"(epoch)
+                 : "memory");
+  else
+    asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(word),
+                 "r"(epoch)
+                 : "memory");
 }
 
+template <bool kSys = true>
 __device__ __forceinline__ int pad_load(const int* word) {
   int v;
-  asm volatile("ld.acquire.sys.global.s32 %0, [%1];"
-               : "=r"(v)
-               : "l"(word)
-               : "memory");
+  if constexpr (kSys)
+    asm volatile("ld.acquire.sys.global.s32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(word)
+                 : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(word)
+                 : "memory");
   return v;
 }
 
@@ -139,10 +163,11 @@ __device__ __forceinline__ unsigned long long global_ns() {
 }
 
 // Spin until *word >= epoch (one thread).
+template <bool kSys = true>
 __device__ __forceinline__ void pad_wait(const int* word, int epoch) {
-  if (pad_load(word) - epoch >= 0) return;
+  if (pad_load<kSys>(word) - epoch >= 0) return;
   const unsigned long long t0 = global_ns();
-  while (pad_load(word) - epoch < 0) {
+  while (pad_load<kSys>(word) - epoch < 0) {
     __nanosleep(64);
     if (global_ns() - t0 > kWaitTimeoutNs) __trap();
   }
@@ -190,14 +215,14 @@ __device__ __forceinline__ long long ring_band(const RingView<W>& r) {
 // the buffer, which wrote or read it, has finished). A rank receives from
 // a side exactly when it sends to it, so the signal and wait predicates
 // are the send predicates (pallas_kernels.py:1775-1801).
-template <typename W>
+template <bool kSys = true, typename W>
 __device__ __forceinline__ void ring_enter(const RingView<W>& r, bool signal) {
   if (signal) {
-    if (r.send_lo) pad_signal(r.left_pad + kBarFromRight, r.epoch);
-    if (r.send_hi) pad_signal(r.right_pad + kBarFromLeft, r.epoch);
+    if (r.send_lo) pad_signal<kSys>(r.left_pad + kBarFromRight, r.epoch);
+    if (r.send_hi) pad_signal<kSys>(r.right_pad + kBarFromLeft, r.epoch);
   }
-  if (r.send_lo) pad_wait(r.pad + kBarFromLeft, r.epoch);
-  if (r.send_hi) pad_wait(r.pad + kBarFromRight, r.epoch);
+  if (r.send_lo) pad_wait<kSys>(r.pad + kBarFromLeft, r.epoch);
+  if (r.send_hi) pad_wait<kSys>(r.pad + kBarFromRight, r.epoch);
 }
 
 // Copy this CTA's share (work index `part` of `parts`) of both edge bands
@@ -330,24 +355,29 @@ __device__ __forceinline__ void coll_exit(int* pad) {
   atomicExch(pad + kCollExit, 0);
 }
 
-// The default grid of a collective launch over `work` elements: enough
-// CTAs for four elements a thread, at most two per SM, so that every CTA
-// of the launch is resident at once (the CTAs wait for each other's
-// peers: a CTA that could not be scheduled would stall the ring).
-inline int coll_ctas(long long work, int threads, int max_ctas) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long ctas = (work + threads * 4LL - 1) / (threads * 4LL);
-  const long long cap = max_ctas > 0 ? max_ctas : 2LL * sms;
-  if (ctas > cap) ctas = cap;
-  if (ctas < 1) ctas = 1;
-  return static_cast<int>(ctas);
+// ---------------------------------------------------------------------------
+// the 16-byte helpers (ring_collectives.cu, oneshot.cu, ring_halo.cu)
+// ---------------------------------------------------------------------------
+
+// The routes' codes (hand.COLL_ROUTES indices): "vec16" moves 16-byte
+// vectors, "scalar" one element at a time. A launcher recomputes its
+// kernel's rule and refuses any other code, so a count never lies.
+enum CollRoute : int { kRouteScalar = 0, kRouteVec16 = 1 };
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
-// ---------------------------------------------------------------------------
-// the ring collectives' 16-byte helpers (ring_collectives.cu)
-// ---------------------------------------------------------------------------
+// The collectives' rule (hand.coll_route): vec16 when every pointer
+// starts on 16 bytes and a region (chunk, shard) of `bytes` is whole
+// vectors.
+inline int coll_route(long long bytes,
+                      std::initializer_list<const void*> ptrs) {
+  if (bytes % 16) return kRouteScalar;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return kRouteScalar;
+  return kRouteVec16;
+}
 
 // A load of data a peer wrote during this launch, through L2 (.cg), of
 // any width the collectives move: 2, 4 and 8 bytes through load_cg, 16
@@ -394,13 +424,35 @@ __device__ __forceinline__ void coll_sweep(long long n, Load load,
 // its acquire, in the last of `ctas` CTAs, takes in every CTA counted
 // before, so the signals that CTA sends next (st.release.sys) order the
 // whole grid's work of the step. True in thread 0 of that last CTA.
+// (At gpu scope, !kSys, for a launch that involves no other card.)
+template <bool kSys = true>
 __device__ __forceinline__ bool coll_arrive_cta(int* counter, int ctas) {
   __syncthreads();
   if (threadIdx.x != 0) return false;
+  if constexpr (!kSys) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(old) : "l"(counter) : "memory");
+    return old == ctas - 1;
+  }
   int old;
   asm volatile("atom.acq_rel.sys.global.add.s32 %0, [%1], 1;"
                : "=r"(old) : "l"(counter) : "memory");
   return old == ctas - 1;
+}
+
+// ring_arrive with one ordering operation a CTA (coll_arrive_cta's
+// pattern on kDone): the last of `senders` CTAs resets the count for the
+// next launch and signals the arrivals to the neighbours it sent to.
+// True in that last CTA's thread 0.
+template <bool kSys = true, typename W>
+__device__ __forceinline__ bool ring_arrive_cta(const RingView<W>& r,
+                                                int senders) {
+  if (!coll_arrive_cta<kSys>(r.pad + kDone, senders)) return false;
+  atomicExch(r.pad + kDone, 0);
+  if (r.send_hi) pad_signal<kSys>(r.right_pad + kArrFromLeft, r.epoch);
+  if (r.send_lo) pad_signal<kSys>(r.left_pad + kArrFromRight, r.epoch);
+  return true;
 }
 
 // CTAs of `kernel` at `threads` threads that the card keeps resident at

@@ -13,6 +13,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+#include <type_traits>
+
 namespace tpumt {
 
 // dtype codes shared with the Python wrappers (kernels/hand.py)
@@ -62,5 +65,27 @@ struct Elt<__nv_bfloat16> {
   // double → float conversion here is exact
   static C coef(double v) { return static_cast<float>(v); }
 };
+
+// a + b, element by element in the dtype (bfloat16 rounded per op), for
+// a V that packs one T or 16 / sizeof(T) of them: the collectives' folds
+// (ring_collectives.cu: received + local; oneshot.cu: acc + slot).
+template <typename T, typename V>
+__device__ __forceinline__ V fold(const V& a, const V& b) {
+  using E = Elt<T>;
+  if constexpr (std::is_same_v<T, V>) {
+    return E::store(E::add(E::load(&a), E::load(&b)));
+  } else {
+    constexpr int k = sizeof(V) / sizeof(T);
+    T x[k], y[k];
+    memcpy(x, &a, sizeof(V));
+    memcpy(y, &b, sizeof(V));
+#pragma unroll
+    for (int i = 0; i < k; ++i)
+      x[i] = E::store(E::add(E::load(&x[i]), E::load(&y[i])));
+    V out;
+    memcpy(&out, x, sizeof(V));
+    return out;
+  }
+}
 
 }  // namespace tpumt

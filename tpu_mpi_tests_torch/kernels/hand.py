@@ -67,8 +67,9 @@ show that its main path went through the kernel; the two attention
 wrappers also count per route (``launches_by_route``, keys
 :data:`FLASH_ROUTES`, :func:`route_counts`), so a run shows which fold
 body — ``wgmma``, ``mma`` or ``fma`` — its launches took, and so do the
-two ring collectives (keys :data:`COLL_ROUTES`: ``vec16`` or
-``scalar``).
+two ring collectives, the one-shot kernel and the ring halo (keys
+:data:`COLL_ROUTES`: ``vec16`` or ``scalar``; :func:`coll_route`,
+:func:`halo_route`).
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -90,7 +91,7 @@ import numpy as np
 import torch
 
 from tpu_mpi_tests_torch.comm.collectives import all_gather
-from tpu_mpi_tests_torch.comm.mesh import make_mesh
+from tpu_mpi_tests_torch.comm.mesh import Ring, make_mesh
 from tpu_mpi_tests_torch.comm.peer import (
     COLL_MAX_WORLD,
     PAD_WORDS,
@@ -172,10 +173,12 @@ _SIGNATURES = {
         [_c_void_p] * 9 + [_c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_ll] * 15 + [_c_double, _c_int, _c_int, _c_void_p], _c_int),
     # z, left z, right z, pad, left pad, right pad; epoch, itemsize, axis,
-    # n0, n1, n_bnd, send_lo, send_hi; stage, stream
+    # n0, n1, n_bnd, send_lo, send_hi; stage; route (COLL_ROUTES index),
+    # max_ctas, stream
     "tpumt_ring_halo": (
         [_c_void_p] * 6 + [_c_int, _c_int, _c_int, _c_ll, _c_ll, _c_ll,
-                           _c_int, _c_int, _c_void_p, _c_void_p], _c_int),
+                           _c_int, _c_int, _c_void_p, _c_int, _c_int,
+                           _c_void_p], _c_int),
     # z, out, left z, right z, pad, left pad, right pad; epoch, dtype, n0,
     # n1, steps, rows per block; se, c1, c2; phys_lo, phys_hi, phys;
     # send_lo, send_hi; stage, stream
@@ -195,10 +198,10 @@ _SIGNATURES = {
         [_c_void_p] * 8 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
                            _c_int, _c_int, _c_void_p], _c_int),
     # x, out, comm buffers (w), pads (w); epoch, dtype, w, my, n, sum,
-    # max_ctas, stream
+    # route (COLL_ROUTES index), max_ctas, stream
     "tpumt_oneshot": (
         [_c_void_p] * 4 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
-                           _c_int, _c_void_p], _c_int),
+                           _c_int, _c_int, _c_void_p], _c_int),
     # q, k, v, out, m, l, acc, slots, right slots, pad, left pad, right
     # pad; epoch, dtype, lq, lk, d, w, my, v_off; scale; causal, stripe,
     # route (FLASH_ROUTES index), max_ctas; CTAs launched (out), stream
@@ -984,6 +987,43 @@ unpack_ghosts.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+#: the routes of the peer-store kernels (csrc/ring_common.cuh; a route's
+#: code is its index): "vec16" — every pointer on 16 bytes and what each
+#: thread walks (a ring collective's region or chunk, the one-shot shard,
+#: a ring-halo row or band) whole 16-byte vectors, each thread moving
+#: uint4s, several in flight; "scalar" — any other operand, one element at
+#: a time
+COLL_ROUTES = ("scalar", "vec16")
+#: the bytes a thread moves at a time on the vec16 route
+COLL_VEC_BYTES = 16
+
+
+def coll_route(x: torch.Tensor, n: int, *ptrs: int) -> str:
+    """The route (one of :data:`COLL_ROUTES`) of a collective kernel's
+    launch over ``x`` whose regions (the ring all-gather), chunks (the
+    ring reduce-scatter) or shard (the one-shot kernel) are ``n``
+    elements, by the rule the C launchers check: "vec16" when ``x``'s
+    data and every pointer in ``ptrs`` (the launch's other buffers) start
+    on 16 bytes and ``n`` elements are a whole number of 16-byte vectors,
+    else "scalar"."""
+    aligned = all(p % COLL_VEC_BYTES == 0 for p in (x.data_ptr(), *ptrs))
+    whole = n * x.element_size() % COLL_VEC_BYTES == 0
+    return "vec16" if aligned and whole else "scalar"
+
+
+def coll_route_code(route: str) -> int:
+    """The code the C launchers take for ``route`` (its index in
+    :data:`COLL_ROUTES`); ``ValueError`` for any other name."""
+    if route not in COLL_ROUTES:
+        raise ValueError(f"unknown collective route {route!r}; one of "
+                         f"{', '.join(COLL_ROUTES)}")
+    return COLL_ROUTES.index(route)
+
+
 def _ring_operand(z: torch.Tensor, axis: int, n_bnd: int, name: str):
     """The 2-D view of a ring operand (a 1-D shard is an (n, 1) column,
     ``pallas_kernels.py:1827-1838``) and its axis, checked."""
@@ -1041,7 +1081,9 @@ def ring_halo(z: torch.Tensor, axis: int = 0,
     The neighbours are those of the process's ring on ``z``'s device
     (``comm.peer.peer_ring``). At world > 1 on the card ``z`` must live in
     peer memory (``PeerRing.empty``). One launch per call; all ranks
-    must make the same sequence of ring calls."""
+    must make the same sequence of ring calls. The launch takes the route
+    :func:`halo_route` names for ``z``, its neighbours' copies and the
+    band, counted in ``ring_halo.launches_by_route``."""
     zz = _ring_operand(z, axis, n_bnd, "ring_halo")
     if z.device.type == "cpu":
         return ring_halo_ref(z, axis, n_bnd, periodic)
@@ -1062,20 +1104,66 @@ def ring_halo(z: torch.Tensor, axis: int = 0,
     if zz.shape[axis] < 3 * n_bnd and (send_lo or send_hi):
         stage = torch.empty(2 * n_bnd * (zz.numel() // zz.shape[axis]),
                             dtype=z.dtype, device=z.device)
+    route = halo_route(zz, axis, n_bnd, left_z, right_z)
     fn = _entry("ring_halo", "tpumt_ring_halo")
     with torch.cuda.device(z.device):
         rc = fn(zz.data_ptr(), left_z, right_z, pad, left_pad, right_pad,
                 peer.next_epoch(), zz.element_size(), axis, n0, n1, n_bnd,
                 int(send_lo), int(send_hi),
                 None if stage is None else stage.data_ptr(),
-                torch.cuda.current_stream(z.device).cuda_stream)
+                coll_route_code(route), 0, _stream(z))
     if rc != 0:
-        _raise_launch("ring_halo", rc)
+        _raise_launch(f"ring_halo ({route} route)", rc)
     ring_halo.launches += 1
+    ring_halo.launches_by_route[route] += 1
     return z
 
 
 ring_halo.launches = 0
+ring_halo.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
+
+
+def halo_route(z: torch.Tensor, axis: int, n_bnd: int, *ptrs: int) -> str:
+    """The route (one of :data:`COLL_ROUTES`) of a :func:`ring_halo`
+    launch on ``z`` (1-D: an (n, 1) column) along ``axis``, by the rule
+    the C launcher checks: "vec16" when ``z``'s data and every pointer in
+    ``ptrs`` (the neighbours' copies) start on 16 bytes, the row pitch is
+    a whole number of 16-byte vectors and, along axis 1, so is a row's
+    ``n_bnd``-wide band; else "scalar" — and always for an extent under
+    3·``n_bnd``, which is staged through one CTA."""
+    zz = _ring_operand(z, axis, n_bnd, "ring_halo")
+    item = zz.element_size()
+    if zz.shape[axis] < 3 * n_bnd or zz.shape[1] * item % COLL_VEC_BYTES:
+        return "scalar"
+    whole = zz.shape[1] if axis == 0 else n_bnd
+    return coll_route(zz, whole, *ptrs)
+
+
+def ring_halo_world_ref(shards, axis: int = 0, n_bnd: int = N_BND,
+                        periodic: bool = True) -> list:
+    """Every rank's result of :func:`ring_halo` over the ranks' ghosted
+    ``shards`` (one per rank, on any device), computed in one process:
+    rank r's lo ghost band takes rank r−1's hi edge and its hi ghost band
+    rank r+1's lo edge, each where the send predicates (``Ring.sends``)
+    let the band move; the other ghosts keep their values. Holds the
+    card's cross-wired instances (:func:`cross_wired`) against the plain
+    version's values."""
+    w = len(shards)
+    views = [_ring_operand(t, axis, n_bnd, "ring_halo") for t in shards]
+    edges = [_pack.pack_edges(v, axis, n_bnd) for v in views]
+    outs = []
+    for r, t in enumerate(shards):
+        out = t.clone()
+        zz = _ring_operand(out, axis, n_bnd, "ring_halo")
+        n = zz.shape[axis]
+        from_left, from_right = Ring(r, w).sends(periodic)
+        if from_left:
+            zz.narrow(axis, 0, n_bnd).copy_(edges[(r - 1) % w][1])
+        if from_right:
+            zz.narrow(axis, n - n_bnd, n_bnd).copy_(edges[(r + 1) % w][0])
+        outs.append(out)
+    return outs
+
 
 #: rows per block of the fused ring kernel when ``tile_rows`` is None
 #: (the largest divisor of the height up to this that holds the seam)
@@ -1240,40 +1328,6 @@ def _coll_cuda(x: torch.Tensor, name: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     _check_cuda_operand(x, name)
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-#: the ring collectives' routes (csrc/ring_collectives.cu; a route's code
-#: is its index): "vec16" — every pointer on 16 bytes and a region (chunk)
-#: a whole number of 16-byte vectors, each thread moving uint4s, several
-#: in flight; "scalar" — any other shard, one element at a time
-COLL_ROUTES = ("scalar", "vec16")
-#: the bytes a thread moves at a time on the vec16 route
-COLL_VEC_BYTES = 16
-
-
-def coll_route(x: torch.Tensor, n: int, *ptrs: int) -> str:
-    """The route (one of :data:`COLL_ROUTES`) of a ring collective's
-    launch over ``x`` whose regions (the all-gather) or chunks (the
-    reduce-scatter) are ``n`` elements, by the rule the C launchers
-    check: "vec16" when ``x``'s data and every pointer in ``ptrs`` (the
-    launch's other buffers) start on 16 bytes and ``n`` elements are a
-    whole number of 16-byte vectors, else "scalar"."""
-    aligned = all(p % COLL_VEC_BYTES == 0 for p in (x.data_ptr(), *ptrs))
-    whole = n * x.element_size() % COLL_VEC_BYTES == 0
-    return "vec16" if aligned and whole else "scalar"
-
-
-def coll_route_code(route: str) -> int:
-    """The code the C launchers take for ``route`` (its index in
-    :data:`COLL_ROUTES`); ``ValueError`` for any other name."""
-    if route not in COLL_ROUTES:
-        raise ValueError(f"unknown collective route {route!r}; one of "
-                         f"{', '.join(COLL_ROUTES)}")
-    return COLL_ROUTES.index(route)
 
 
 def ring_allgather_ref(x: torch.Tensor, self_ring: "int | None" = None
@@ -1495,7 +1549,10 @@ def oneshot(x: torch.Tensor, op: str = "gather") -> torch.Tensor:
     slots to the (w·n, …) output or folds them in ascending source rank
     into the (n, …) output — the same bits on every rank. Any n (the JAX
     wrapper's pad to a TPU tile is Mosaic's); float32, float64, bfloat16;
-    at most 8 ranks. World=1: one copy."""
+    at most 8 ranks. World=1: one copy. The launch takes the route
+    :func:`coll_route` names for ``x``, the output and the comm buffers
+    over the shard's elements ("vec16" for every main-path shard),
+    counted in ``oneshot.launches_by_route``."""
     _coll_shard(x, "oneshot")
     _check_op(op)
     k, my, _ = _coll_ring("oneshot")
@@ -1511,19 +1568,22 @@ def oneshot(x: torch.Tensor, op: str = "gather") -> torch.Tensor:
         ws = peer.workspace("oneshot", k * x.numel() * x.element_size())
         comms = peer.peer_ptrs_all(ws)
     pads = peer.pad_ptrs_all()
+    route = coll_route(x, x.numel(), out.data_ptr(), *comms)
     fn = _entry("oneshot", "tpumt_oneshot")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), (_c_void_p * k)(*comms),
                 (_c_void_p * k)(*pads), peer.next_epoch(),
-                DTYPE_CODES[x.dtype], k, my, x.numel(), int(op == "sum"), 0,
-                _stream(x))
+                DTYPE_CODES[x.dtype], k, my, x.numel(), int(op == "sum"),
+                coll_route_code(route), 0, _stream(x))
     if rc != 0:
-        _raise_launch("oneshot", rc)
+        _raise_launch(f"oneshot ({route} route)", rc)
     oneshot.launches += 1
+    oneshot.launches_by_route[route] += 1
     return out
 
 
 oneshot.launches = 0
+oneshot.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
 def oneshot_allgather(x: torch.Tensor) -> torch.Tensor:
@@ -1566,17 +1626,22 @@ def coll_world_ref(name: str, shards) -> list:
 
 
 def cross_wired(name: str, shards, credits: int = 1,
-                max_ctas: int = 4, **attn) -> list:
-    """``len(shards)`` instances of a collective kernel, or of the fused
-    ring attention, launched from one process on one card, each on its
-    own stream with its own buffers and signal pad, their peer pointers
-    wired to each other's: the kernels' w > 1 data path and cross-rank
-    signalling on a single card. Each instance's grid is capped at
-    ``max_ctas`` so that every instance is resident at once. For
+                max_ctas: int = 4, **kw) -> list:
+    """``len(shards)`` instances of a collective kernel, of the ring halo
+    or of the fused ring attention, launched from one process on one
+    card, each on its own stream with its own buffers and signal pad,
+    their peer pointers wired to each other's: the kernels' w > 1 data
+    path and cross-rank signalling on a single card. Each instance's grid
+    is capped at ``max_ctas`` so that every instance is resident at once.
+    For ``"ring_halo"`` each shard is a rank's ghosted array (copied:
+    the instances exchange the copies' bands, distinct left and right
+    neighbours from w = 3) and ``kw`` holds ``axis``, ``n_bnd`` and
+    ``periodic`` (:func:`ring_halo_world_ref` is its plain world). For
     ``"fused_ring_attention"`` each shard is a rank's ``(q, k, v)`` and
-    ``attn`` holds the keywords of :func:`fused_ring_attention` (``scale``,
-    ``causal``, ``stripe``, ``precision``). Counts no launch (a check, not
-    a path). Returns the instances' outputs (in rank order)."""
+    ``kw`` holds the keywords of :func:`fused_ring_attention` (``scale``,
+    ``causal``, ``stripe``, ``precision``). Every launch takes the route
+    its operands' rule names. Counts no launch (a check, not a path).
+    Returns the instances' outputs (in rank order)."""
     k = len(shards)
     check_collective_world(k, name)
     attention = name == "fused_ring_attention"
@@ -1625,7 +1690,10 @@ def cross_wired(name: str, shards, credits: int = 1,
                       streams[r].cuda_stream)
     elif attention:
         outs, launch = _fused_ring_cross(shards, pads, streams, max_ctas,
-                                         **attn)
+                                         **kw)
+    elif name == "ring_halo":
+        outs, launch = _ring_halo_cross(shards, pads, streams, max_ctas,
+                                        **kw)
     elif name in ("oneshot_allgather", "oneshot_allreduce"):
         gather = name == "oneshot_allgather"
         rows = x0.shape[0] * (k if gather else 1)
@@ -1638,9 +1706,12 @@ def cross_wired(name: str, shards, credits: int = 1,
         fn = _entry("oneshot", "tpumt_oneshot")
 
         def launch(r):
+            route = coll_route(shards[r], x0.numel(), outs[r].data_ptr(),
+                               *(c.data_ptr() for c in comms))
             return fn(shards[r].data_ptr(), outs[r].data_ptr(), comm_ptrs,
                       pad_ptrs, 1, DTYPE_CODES[x0.dtype], k, r, x0.numel(),
-                      int(not gather), max_ctas, streams[r].cuda_stream)
+                      int(not gather), coll_route_code(route), max_ctas,
+                      streams[r].cuda_stream)
     else:
         raise ValueError(f"unknown collective {name!r}")
     with torch.cuda.device(dev):
@@ -1851,11 +1922,13 @@ def _route_of(precision: str, q, k, v) -> str:
 
 def route_counts() -> dict:
     """Launches per route of the two attention kernels (keys
-    :data:`FLASH_ROUTES`) and the two ring collectives (keys
-    :data:`COLL_ROUTES`) since the last :func:`reset_launch_counts`."""
+    :data:`FLASH_ROUTES`), the two ring collectives, the one-shot kernel
+    and the ring halo (keys :data:`COLL_ROUTES`) since the last
+    :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
             for fn in (flash_attention_block, fused_ring_attention,
-                       ring_allgather, ring_reduce_scatter)}
+                       ring_allgather, ring_reduce_scatter, oneshot,
+                       ring_halo)}
 
 
 @contextlib.contextmanager
@@ -2349,6 +2422,42 @@ def _fused_carry(q):
     kw = {"dtype": torch.float32, "device": q.device}
     return (torch.empty(q.shape[0], **kw), torch.empty(q.shape[0], **kw),
             torch.empty(q.shape, **kw))
+
+
+def _ring_halo_cross(shards, pads, streams, max_ctas, *, axis: int = 0,
+                     n_bnd: int = N_BND, periodic: bool = True):
+    """:func:`cross_wired`'s ring halo: the instances' arrays (copies of
+    ``shards``), and the launch of instance r into its neighbours r−1 and
+    r+1, on the route :func:`halo_route` names, staged through a scratch
+    buffer of its own where the extent is under 3·``n_bnd``."""
+    w = len(shards)
+    outs = [t.clone() for t in shards]
+    views = [_ring_operand(t, axis, n_bnd, "ring_halo") for t in outs]
+    z0 = views[0]
+    for v in views:
+        if v.shape != z0.shape or v.dtype != z0.dtype:
+            raise ValueError("ring_halo: cross-wired shards must share "
+                             "shape and dtype")
+    n = z0.shape[axis]
+    stages = [torch.empty(2 * n_bnd * (z0.numel() // n), dtype=z0.dtype,
+                          device=z0.device) if n < 3 * n_bnd else None
+              for _ in range(w)]
+    fn = _entry("ring_halo", "tpumt_ring_halo")
+
+    def launch(r):
+        left, right = views[(r - 1) % w], views[(r + 1) % w]
+        send_lo, send_hi = Ring(r, w).sends(periodic)
+        route = halo_route(views[r], axis, n_bnd, left.data_ptr(),
+                           right.data_ptr())
+        return fn(views[r].data_ptr(), left.data_ptr(), right.data_ptr(),
+                  pads[r].data_ptr(), pads[(r - 1) % w].data_ptr(),
+                  pads[(r + 1) % w].data_ptr(), 1, z0.element_size(), axis,
+                  z0.shape[0], z0.shape[1], n_bnd, int(send_lo),
+                  int(send_hi),
+                  None if stages[r] is None else stages[r].data_ptr(),
+                  coll_route_code(route), max_ctas, streams[r].cuda_stream)
+
+    return outs, launch
 
 
 def _fused_ring_cross(blocks, pads, streams, max_ctas, *, scale=None,
