@@ -9,8 +9,8 @@ failure exits non-zero and prints no result line):
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel), and print the registers, stack and
    spills of every flash and fused ring attention instance, of every
-   ring collective instance and of every ring halo and one-shot instance
-   (the three ``PTXAS`` lines);
+   ring collective instance, of every ring halo and one-shot instance
+   and of every pack/unpack instance (the four ``PTXAS`` lines);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
@@ -53,10 +53,12 @@ failure exits non-zero and prints no result line):
    ``probe(probe(z, r1), r2) == probe(z, r1 + r2)`` bit for bit in every
    mix; the capacity guard raising. Pack and unpack
    (``check_pack_kernels``) over both axes × three dtypes × ``n_bnd`` 1,
-   2, 8 × ragged shapes, the round trip, and the staged exchange's
-   operands (1028 × 524288 axis 0, 524288 × 1028 axis 1, 8192 × 8196
-   axis 1), tolerance 0. The dual step's lean body over the shapes the
-   raw one has (derivatives bit-exact, residual within
+   2, 3, 8 × ragged shapes (odd widths, one and two rows along axis 1,
+   views one element off 16 bytes), so that both kernels launch on every
+   route (``vec16``, ``vec8``, ``scalar``), the round trip, and the
+   staged exchange's operands (1028 × 524288 axis 0, 524288 × 1028 axis
+   1, 8192 × 8196 axis 1), tolerance 0. The dual step's lean body over
+   the shapes the raw one has (derivatives bit-exact, residual within
    ``hand.RESIDUAL_RTOL``). The two RDMA ring kernels on the self-ring
    (``check_ring_kernels``): ``ring_halo`` over float32/bfloat16/float64
    × axis 0 (45 and 48 columns), axis 1 and a 1-D column × n_bnd 1..8 ×
@@ -156,9 +158,10 @@ failure exits non-zero and prints no result line):
    probe rows: issued lone mul/add/sub per element against 67 TFLOP/s
    float32, which bfloat16 also runs on, rounding after every op); the
    periodic DEVICE_STAGED exchange with ``kernel="hand"`` on both axes
-   (one pack and one unpack launch per exchange, the result equal to
-   DIRECT bit for bit); the ``stencil1d`` driver at 32 Mi points (gate
-   passing, no hand kernel launched);
+   (one pack and one unpack launch per exchange, each on its operand's
+   route — ``vec16`` along axis 0, ``vec8`` along axis 1 — counted
+   exactly, the result equal to DIRECT bit for bit); the ``stencil1d``
+   driver at 32 Mi points (gate passing, no hand kernel launched);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, and for the dual
@@ -177,9 +180,10 @@ failure exits non-zero and prints no result line):
    ``F.scaled_dot_product_attention`` (TF32 off for f32). The probe at
    (B, 512, 512) per mix (bound: issued operations over 67 TFLOP/s; no
    library call computes it); pack and unpack at the staged exchange's
-   operands beside ``torch.stack`` of the two ``narrow``s and two
-   ``copy_`` (bound: bytes, the strided side counted in 32-byte sectors
-   touched; timed with their launches queued behind a stall, since they
+   operands on their routes beside ``torch.stack`` of the two
+   ``narrow``s and two ``copy_`` (bound: bytes, the strided side counted
+   as the union of the 32-byte sectors it touches; timed with their
+   launches queued behind a stall, since they
    are shorter than their wrappers' host cost); the lean dual step
    beside the raw one's yardstick; ``ring_halo`` at the ``--rdma``
    driver's dim-0 operand, the bench's chained dim-1 buffer and the
@@ -332,6 +336,9 @@ STAGED_CASES = (((REF_N_LOCAL + 4, REF_N_OTHER), 0),
                 ((REF_N_OTHER, REF_N_LOCAL + 4), 1),
                 ((BENCH_N, BENCH_N + 4), 1))
 STAGED_EXCHANGES = 20
+# the route each staged operand's pack and unpack take (hand.pack_route):
+# whole 16-byte vectors along axis 0; an 8-byte band a row along axis 1
+STAGED_ROUTES = {0: "vec16", 1: "vec8"}
 # roofline2 a second time at sizes whose per-body device work outlasts the
 # host's enqueue time on this card (the JAX sizes, 2048^2 and 2056..4104,
 # are host-bound in a Python loop of launches); same size ratios, so the
@@ -854,22 +861,35 @@ def check_probe_kernel(device, rand, failures):
 
 def check_pack_kernels(device, rand, failures):
     """Pack and unpack against their plain versions, tolerance 0: both
-    axes × float32/float64/bfloat16 × n_bnd 1, 2, 8 × ragged shapes, the
-    round trip (ghosts take the packed edges, the interior is untouched),
-    and the staged exchange's operands. Returns (number of cases, max abs
-    error per kernel at those operands)."""
+    axes × float32/float64/bfloat16 × n_bnd 1, 2, 3, 8 × ragged shapes
+    (odd widths, n0 = 1 and 2 along axis 1, views one element off 16
+    bytes), the round trip (ghosts take the packed edges, the interior is
+    untouched), and the staged exchange's operands; every route
+    (``hand.pack_route``) launched by both kernels. Returns (number of
+    cases, max abs error per kernel at those operands)."""
     import torch
 
     from tpu_mpi_tests_torch.kernels import hand
 
+    routes0 = hand.route_counts()
+
+    def clone_at(z):
+        """A copy of ``z`` as many elements past its allocation's start
+        (the unpack launch takes the same route as the pack)."""
+        at = z.storage_offset()
+        out = torch.empty(at + z.numel(), dtype=z.dtype, device=z.device)
+        return out[at:].view(z.shape).copy_(z)
+
     def one(z, axis, n_bnd, where):
-        name = f"{where} {z.dtype} {tuple(z.shape)} axis={axis} b={n_bnd}"
+        route = hand.pack_route(z, axis, n_bnd)
+        name = (f"{where} {z.dtype} {tuple(z.shape)} axis={axis} b={n_bnd} "
+                f"{route}")
         lo, hi = hand.pack_edges(z, axis, n_bnd)
         wlo, whi = hand.pack_edges_ref(z, axis, n_bnd)
         e_pack = max(compare(f"pack_edges lo {name}", lo, wlo, failures),
                      compare(f"pack_edges hi {name}", hi, whi, failures))
         n = z.shape[axis]
-        got = hand.unpack_ghosts(z.clone(), lo, hi, axis, n_bnd)
+        got = hand.unpack_ghosts(clone_at(z), lo, hi, axis, n_bnd)
         want = hand.unpack_ghosts_ref(z.clone(), lo, hi, axis, n_bnd)
         e_unpack = compare(f"unpack_ghosts {name}", got, want, failures)
         inner = (n_bnd, n - 2 * n_bnd)
@@ -882,12 +902,25 @@ def check_pack_kernels(device, rand, failures):
 
     n_cases = 0
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
-        for shape in ((37, 201), (300, 1028)):
+        for shape in ((37, 201), (300, 1028), (64, 1027), (1, 1028),
+                      (2, 1028)):
             z = rand(shape, dtype)
+            # the same array one element off 16 bytes: a narrower route
+            off = rand((shape[0] * shape[1] + 1,), dtype)[1:].view(shape)
+            off.copy_(z)
             for axis in (0, 1):
-                for n_bnd in (1, 2, 8):
+                for n_bnd in (1, 2, 3, 8):
+                    if z.shape[axis] < 2 * n_bnd:
+                        continue
                     one(z, axis, n_bnd, "ragged")
-                    n_cases += 1
+                    one(off, axis, n_bnd, "off 16 bytes")
+                    n_cases += 2
+    routes = hand.route_counts()
+    for name in ("pack_edges", "unpack_ghosts"):
+        took = {r: routes[name][r] - routes0[name][r] for r in routes[name]}
+        if not all(took.values()):
+            failures.append(f"{name}: a route was never launched by the "
+                            f"checks: {took}")
     errs = {"pack_edges": 0.0, "unpack_ghosts": 0.0}
     for shape, axis in STAGED_CASES:
         z = rand(shape, torch.float32)
@@ -1525,13 +1558,16 @@ def run_one_card_slice(device, counts, peaks):
         if counts[path] != want:
             raise SmokeFailure(f"{path}: launches {counts[path]}, one pack "
                                f"and one unpack per exchange make {want}")
+        for name in ("pack_edges", "unpack_ghosts"):
+            check_routes(path, name, {STAGED_ROUTES[axis]: STAGED_EXCHANGES})
         direct = H.halo_exchange(z.clone(), axis, 2, True, "direct")
         if not torch.equal(got, direct) or torch.equal(got, z):
             raise SmokeFailure(f"{path}: the hand-staged exchange differs "
                                f"from DIRECT")
         nbytes = H.halo_payload_bytes(z, axis, 1, 2, True)
         log(f"STAGED {path}: {STAGED_EXCHANGES} exchanges equal DIRECT bit "
-            f"for bit, payload {nbytes} B each")
+            f"for bit on the {STAGED_ROUTES[axis]} route, payload {nbytes} "
+            f"B each")
         del z, got, direct
         torch.cuda.empty_cache()
 
@@ -2344,7 +2380,7 @@ def time_coll_kernels(device, gen):
 
 
 #: the NCCL leg's parts, in the order a rank runs them
-WORLD2_LEGS = ("rdma", "collectives", "attention")
+WORLD2_LEGS = ("rdma", "staged", "collectives", "attention")
 
 
 def rdma_world2_legs(legs=WORLD2_LEGS):
@@ -2352,8 +2388,8 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
     share symmetric memory (PERF.md: the allocator refuses overlapping
     devices), so that leg is left out; the NCCL leg needs two cards.
     ``legs`` picks its parts (:data:`WORLD2_LEGS`): the RDMA halo tiers,
-    the collective kernels against NCCL and timed beside it, attention
-    over the ranks."""
+    the hand-staged exchange, the collective kernels against NCCL and
+    timed beside it, attention over the ranks."""
     import torch
 
     unknown = set(legs) - set(WORLD2_LEGS)
@@ -2380,6 +2416,9 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
                     f"ranks and both routes, {PAIR_RUNS} runs on fresh "
                     f"inputs without growth, ring_halo timed beside the "
                     f"torch exchange",
+            "staged": "the hand-staged exchange equal to DIRECT at the "
+                      "stencil2d dim-1 shard, pack and unpack on vec8, "
+                      "timed beside DIRECT",
             "collectives": "the collective kernels' tiers equal to NCCL's "
                            "calls on both routes, timed beside them",
             "attention": "ring attention's tiers (depth 1 and 2, fused) "
@@ -2394,7 +2433,8 @@ PAIR_RUNS = 6
 
 def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
     """One rank of the NCCL leg, the parts ``legs`` picks: the RDMA halo
-    tiers (:func:`_nccl_rdma`), the collective kernels
+    tiers (:func:`_nccl_rdma`), the hand-staged exchange
+    (:func:`_nccl_staged`), the collective kernels
     (:func:`_nccl_collectives`), attention over the ranks
     (:func:`_nccl_attention`)."""
     import torch
@@ -2410,6 +2450,8 @@ def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
         gen = torch.Generator(device="cuda").manual_seed(77)
         if "rdma" in legs:
             _nccl_rdma(rank, gen)
+        if "staged" in legs:
+            _nccl_staged(rank, gen)
         if "collectives" in legs:
             _nccl_collectives(rank, world, gen)
         if "attention" in legs:
@@ -2520,6 +2562,56 @@ def _nccl_time_halo(rank, gen):
         torch.cuda.empty_cache()
     log(f"TIME NCCL leg rank {rank} world=2 ring_halo, float32 shards "
         f"(ms per call): {json.dumps(times)}")
+
+
+#: the hand-staged exchange across two cards: the stencil2d dim-1 shard
+STAGED_WORLD2 = ((REF_N_OTHER, REF_N_LOCAL + 4), 1, 2)
+
+
+def _nccl_staged(rank, gen):
+    """The hand-staged exchange on the periodic two-card ring
+    (``halo_exchange(z, 1, 2, True, "device", kernel="hand")``: the pack
+    kernel, NCCL send/recv, the unpack kernel) at the stencil2d dim-1
+    shard, equal to DIRECT bit for bit with one launch of each kernel on
+    the ``vec8`` route, then timed beside DIRECT (:func:`_both_timed`)."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.kernels import hand
+
+    shape, axis, n_bnd = STAGED_WORLD2
+    z = torch.randn(shape, generator=gen, device="cuda") + rank
+
+    def staged():
+        return H.halo_exchange(z, axis, n_bnd, True, "device",
+                               kernel="hand")
+
+    routes0 = hand.route_counts()
+    got = H.halo_exchange(z.clone(), axis, n_bnd, True, "device",
+                          kernel="hand")
+    want = H.halo_exchange(z.clone(), axis, n_bnd, True, "direct")
+    torch.cuda.synchronize()
+    routes = hand.route_counts()
+    took = {name: {r: routes[name][r] - routes0[name][r]
+                   for r in routes[name]}
+            for name in ("pack_edges", "unpack_ghosts")}
+    if not torch.equal(got, want) or torch.equal(got, z):
+        raise SmokeFailure(f"NCCL leg rank {rank}: the hand-staged "
+                           f"exchange differs from DIRECT")
+    if any(t != dict.fromkeys(t, 0) | {STAGED_ROUTES[axis]: 1}
+           for t in took.values()):
+        raise SmokeFailure(f"NCCL leg rank {rank}: hand-staged launches "
+                           f"by route {took}")
+    del got, want
+    times = {"hand-staged (device, kernel=hand)": _both_timed(staged),
+             "torch exchange (direct)": _both_timed(lambda: H.halo_exchange(
+                 z, axis, n_bnd, True, "direct"))}
+    log(f"TIME NCCL leg rank {rank} world=2 hand-staged exchange "
+        f"{shape[0]}x{shape[1]} axis {axis} n_bnd {n_bnd} float32, equal "
+        f"to DIRECT, pack and unpack on {STAGED_ROUTES[axis]} (ms per "
+        f"call): {json.dumps(times)}")
+    del z
+    torch.cuda.empty_cache()
 
 
 def _nccl_attention(rank, world):
@@ -3102,22 +3194,26 @@ def time_kernels(device):
 
 
 def band_sectors(shape, axis, n_bnd, itemsize, starts):
-    """Bytes the strided side of a pack or unpack moves, counted in whole
-    32-byte sectors touched: along axis 0 a band is contiguous (its own
-    bytes); along axis 1 each row's ``n_bnd`` elements cost every sector
-    they touch."""
+    """Bytes the strided side of a pack or unpack moves: the union of the
+    32-byte sectors that its bands (``n_bnd`` wide, first index
+    ``starts`` along ``axis``) touch. Along axis 0 a band is contiguous
+    (its own bytes); along axis 1 each row's ``n_bnd`` elements cost every
+    sector they touch, and a sector that two bands touch (row r−1's hi
+    band and row r's lo band are neighbours in memory) counts once."""
     import numpy as np
 
     n0, n1 = shape
     if axis == 0:
         return len(starts) * n_bnd * n1 * itemsize
     rows = np.arange(n0, dtype=np.int64)
-    total = 0
+    span = (n_bnd * itemsize - 1) // SECTOR + 2  # sectors a band may touch
+    ids = []
     for start in starts:
-        first = (rows * n1 + start) * itemsize
-        last = first + n_bnd * itemsize - 1
-        total += int((last // SECTOR - first // SECTOR + 1).sum()) * SECTOR
-    return total
+        first = (rows * n1 + start) * itemsize // SECTOR
+        last = ((rows * n1 + start + n_bnd) * itemsize - 1) // SECTOR
+        for k in range(span):
+            ids.append((first + k)[first + k <= last])
+    return int(np.unique(np.concatenate(ids)).size) * SECTOR
 
 
 def time_probe_and_pack(device, gen):
@@ -3127,8 +3223,9 @@ def time_probe_and_pack(device, gen):
     with its bound (operations issued over 67 TFLOP/s against the stack
     read and written once over 3.35 TB/s) and its plain version (no
     library call computes it); and of pack and unpack at the staged
-    exchange's operands, with the byte bound (the strided side counted
-    in 32-byte sectors touched), the plain version and the one-call
+    exchange's operands on their routes, with the byte bound (the strided
+    side counted as the union of the 32-byte sectors it touches), the
+    plain version and the one-call
     yardsticks ``torch.stack`` of the two ``narrow``s and two
     ``copy_``. These copies are shorter than their wrappers' host cost,
     so they are timed queued behind a stall (:func:`time_cuda_queued`);
@@ -3169,8 +3266,11 @@ def time_probe_and_pack(device, gen):
         contiguous = 2 * lo.numel() * 4
         common = {"path": "staged exchange", "shape": list(case_shape),
                   "dtype": "float32", "axis": axis, "n_bnd": 2,
+                  "route": hand.pack_route(z, axis, 2, lo.data_ptr(),
+                                           hi.data_ptr()),
                   "bound_by": "bytes", "bound_counts":
-                  "32-byte sectors touched on the strided side"}
+                  "the union of the 32-byte sectors touched on the "
+                  "strided side"}
         pack_bytes = band_sectors(case_shape, axis, 2, 4,
                                   (2, n - 4)) + contiguous
         rows["pack_edges"].append({
@@ -3376,7 +3476,8 @@ def ptxas_summary(build) -> dict:
 
 #: the template arguments of the ring collectives' instances, as the
 #: Itanium ABI mangles them
-_MANGLED_ARGS = {"5uint4": "uint4", "13__nv_bfloat16": "bf16",
+_MANGLED_ARGS = {"5uint4": "uint4", "5uint2": "uint2",
+                 "13__nv_bfloat16": "bf16",
                  "t": "u16", "j": "u32", "y": "u64", "m": "u64",
                  "f": "float", "d": "double"}
 
@@ -3384,18 +3485,19 @@ _MANGLED_ARGS = {"5uint4": "uint4", "13__nv_bfloat16": "bf16",
 def coll_kernel_name(mangled: str) -> str:
     """``ring_allgather_kernel<uint4, 4>`` for the mangled name of a
     peer-store kernel instance (the ring collectives, the one-shot
-    kernel, the ring halo; the name itself when it is not one)."""
+    kernel, the ring halo) or a halo staging copy (``pack.cu``); the name
+    itself when it is not one."""
     import re
 
     m = re.search(r"(ring_allgather_kernel|ring_reduce_scatter_kernel|"
-                  r"coll_copy_kernel|oneshot_kernel|ring_halo_kernel)"
-                  r"I(\w*?)EEv", mangled)
+                  r"coll_copy_kernel|oneshot_kernel|ring_halo_kernel|"
+                  r"flat_copy_kernel|seam_walk_kernel)I(\w*?)EEv", mangled)
     if not m:
         return mangled
     args, rest = [], m[2]
     while rest:
-        t = re.match(r"5uint4|13__nv_bfloat16|S\d*_|Li(\d+)E|Lb([01])E|"
-                     r"[tjymfd]", rest)
+        t = re.match(r"5uint[24]|13__nv_bfloat16|S\d*_|Li(\d+)E|"
+                     r"Lb([01])E|[tjymfd]", rest)
         if not t:
             return mangled
         args.append(t[1] or ({"0": "false", "1": "true"}[t[2]] if t[2]
@@ -3407,9 +3509,9 @@ def coll_kernel_name(mangled: str) -> str:
 
 def coll_ptxas_summary(build, lib="ring_collectives") -> dict:
     """Registers, stack and spill bytes of every kernel instance of a
-    peer-store library from this process's build: the ring collectives
-    (both routes' all-gather and reduce-scatter, the world=1 copies),
-    ``oneshot`` or ``ring_halo`` (each route's instances)."""
+    library from this process's build: the ring collectives (both
+    routes' all-gather and reduce-scatter, the world=1 copies),
+    ``oneshot``, ``ring_halo`` or ``pack`` (each route's instances)."""
     import re
 
     out, entry = {}, None
@@ -3475,6 +3577,8 @@ def main() -> int:
                       for lib in ("ring_halo", "oneshot")}
         log(f"PTXAS ring_halo and oneshot instances "
             f"{json.dumps(halo_ptxas)}")
+        pack_ptxas = coll_ptxas_summary(build, "pack")
+        log(f"PTXAS pack instances {json.dumps(pack_ptxas)}")
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -3554,6 +3658,14 @@ def main() -> int:
             extra["launches_by_route_per_path"] = {
                 p: r[name] for p, r in ROUTE_COUNTS.items()}
             extra["ptxas"] = halo_ptxas[name]
+        if name in PACK_REPLACES:
+            # the flat copies serve both; the seam walk is one per kernel
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()}
+            extra["ptxas"] = {
+                k: v for k, v in pack_ptxas.items()
+                if k.startswith("flat") or ("true" in k) == (
+                    name == "pack_edges")}
         if name == "fused_ring_attention":
             # max_abs_err: the normalised output at the main path's f32
             # HIGHEST operands (8192, 128); every class beside it, each

@@ -198,7 +198,9 @@ def test_cpu_wrappers_are_the_plain_version_and_count_no_route():
             ("ring_allgather", hand.COLL_ROUTES),
             ("ring_reduce_scatter", hand.COLL_ROUTES),
             ("oneshot", hand.COLL_ROUTES),
-            ("ring_halo", hand.COLL_ROUTES))}
+            ("ring_halo", hand.COLL_ROUTES),
+            ("pack_edges", hand.PACK_ROUTES),
+            ("unpack_ghosts", hand.PACK_ROUTES))}
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(normal(rng, (130, 64))).to(BF16)
                for _ in range(3))

@@ -40,10 +40,13 @@ kernel at w = 2, 4 and 8), at the main paths' operands, chained on one
 pad with the fused RDMA kernel, and refusing another route. The ALU
 probe is held bit for bit (``fma``, ``step5*``, ``heat5``) or within
 ``hand.alu_probe_tolerance`` (the dual mixes), with its chain property
-and capacity guard; pack and
-unpack bit for bit on both axes, and the hand-staged exchange against
-DIRECT; the dual step's lean body like the raw one; the ``vpu`` group
-and the ``stencil1d`` driver run on the card at small sizes.
+and capacity guard; pack and unpack bit for bit on both axes and on
+every route (``vec16``, ``vec8``, ``scalar``: 2-, 4- and 8-byte
+elements, n_bnd 1, 2, 3, 8, odd widths, one and two rows, views off 16
+bytes), each launch counted on its route, a launch given another route
+refused, and the hand-staged exchange against DIRECT on each route;
+the dual step's lean body like the raw one; the ``vpu`` group and the
+``stencil1d`` driver run on the card at small sizes.
 """
 
 import pytest
@@ -548,15 +551,125 @@ def test_pack_unpack_refuse_bad_operands(card):
         hand.unpack_ghosts(z, lo[:1], hi, 0, 2)
 
 
+def pack_routes():
+    return {name: dict(fn.launches_by_route) for name, fn in (
+        ("pack_edges", hand.pack_edges),
+        ("unpack_ghosts", hand.unpack_ghosts))}
+
+
+def pack_cases():
+    """(dtype, shape, axis, n_bnd, route): 2-, 4- and 8-byte elements on
+    both axes, n_bnd 1, 2, 3 and 8, every route; odd widths (seams
+    straddling sectors), one and two rows along axis 1 (the first and
+    last seams), extents of 2·n_bnd."""
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    return [
+        (f32, (37, 64), 0, 2, "vec16"), (f32, (37, 66), 0, 1, "vec8"),
+        (f32, (37, 201), 0, 3, "scalar"), (f32, (301, 1028), 0, 8, "vec16"),
+        (bf16, (37, 64), 0, 3, "vec16"), (bf16, (37, 68), 0, 2, "vec8"),
+        (bf16, (37, 70), 0, 2, "scalar"), (f64, (37, 64), 0, 1, "vec16"),
+        (f64, (37, 65), 0, 8, "scalar"), (f32, (4, 64), 0, 2, "vec16"),
+        (f32, (45, 1028), 1, 1, "scalar"), (f32, (45, 1028), 1, 2, "vec8"),
+        (f32, (45, 1028), 1, 3, "scalar"), (f32, (45, 1028), 1, 4, "vec16"),
+        (f32, (45, 1028), 1, 8, "vec16"), (f32, (45, 1026), 1, 2, "vec8"),
+        (f32, (45, 1027), 1, 2, "scalar"), (f32, (301, 1027), 1, 8, "scalar"),
+        (bf16, (45, 1028), 1, 2, "scalar"), (bf16, (45, 1028), 1, 4, "vec8"),
+        (bf16, (45, 1028), 1, 8, "vec8"), (bf16, (45, 1024), 1, 8, "vec16"),
+        (bf16, (45, 1027), 1, 4, "scalar"), (f64, (45, 1028), 1, 1, "scalar"),
+        (f64, (45, 1028), 1, 2, "vec16"), (f64, (45, 1027), 1, 3, "scalar"),
+        (f64, (45, 1028), 1, 8, "vec16"), (f32, (1, 1028), 1, 2, "vec8"),
+        (f32, (2, 1028), 1, 2, "vec8"), (f32, (1, 1028), 1, 8, "vec16"),
+        (f32, (2, 1027), 1, 3, "scalar"), (bf16, (1, 1028), 1, 4, "vec8"),
+        (f64, (2, 1028), 1, 1, "scalar"), (f32, (45, 4), 1, 2, "vec8"),
+        (f32, (3000, 8196), 1, 2, "vec8"), (f32, (1028, 8192), 0, 2, "vec16"),
+    ]
+
+
+@pytest.mark.parametrize("dtype,shape,axis,n_bnd,route", pack_cases())
+def test_pack_unpack_routes_match_plain(card, dtype, shape, axis, n_bnd,
+                                        route):
+    """Each route bit for bit against the plain versions, pack and unpack
+    each counted once on the route the rule names."""
+    z = rand(card, shape, dtype, seed=shape[1] + 7 * n_bnd + axis)
+    assert hand.pack_route(z, axis, n_bnd) == route
+    before = pack_routes()
+    lo, hi = hand.pack_edges(z, axis, n_bnd)
+    wlo, whi = hand.pack_edges_ref(z, axis, n_bnd)
+    ghosts = [rand(card, lo.shape, dtype, seed=s) for s in (1, 2)]
+    got = hand.unpack_ghosts(z.clone(), *ghosts, axis, n_bnd)
+    want = hand.unpack_ghosts_ref(z.clone(), *ghosts, axis, n_bnd)
+    torch.cuda.synchronize(card)
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+    assert torch.equal(got, want)
+    after = pack_routes()
+    for name in after:
+        assert {r: after[name][r] - before[name][r] for r in after[name]} \
+            == {r: int(r == route) for r in after[name]}
+
+
+@pytest.mark.parametrize("dtype,off,narrow", [
+    (torch.float32, 1, "scalar"), (torch.float32, 2, "vec8"),
+    (torch.bfloat16, 1, "scalar"), (torch.bfloat16, 4, "vec8"),
+    (torch.float64, 1, "scalar")])
 @pytest.mark.parametrize("axis", [0, 1])
-@pytest.mark.parametrize("n_bnd", [2, 8])
-def test_hand_staged_exchange_equals_direct(card, axis, n_bnd):
-    z = rand(card, (64 + 2 * n_bnd, 96 + 2 * n_bnd), torch.float32, seed=16)
+def test_pack_view_off_16_bytes_takes_a_narrower_route(card, dtype, off,
+                                                       narrow, axis):
+    """The same array as a view ``off`` elements past a 16-byte boundary
+    (and unpack's buffers likewise): a narrower route, still bit for
+    bit, counted on that route."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n_bnd = 16 // item
+    shape = (40, 512 // item)
+    whole = rand(card, (shape[0] * shape[1] + off,), dtype, seed=off + axis)
+    z = whole[off:].view(shape)
+    assert hand.pack_route(z.clone(), axis, n_bnd) == "vec16"
+    assert hand.pack_route(z, axis, n_bnd) == narrow
+    before = pack_routes()
+    lo, hi = hand.pack_edges(z, axis, n_bnd)
+    wlo, whi = hand.pack_edges_ref(z, axis, n_bnd)
+    bufs = [rand(card, (lo.numel() + off,), dtype, seed=s)[off:]
+            .view(lo.shape) for s in (3, 4)]
+    assert hand.pack_route(z, axis, n_bnd, *(b.data_ptr() for b in bufs)) \
+        == narrow
+    want = hand.unpack_ghosts_ref(z.clone(), *bufs, axis, n_bnd)
+    got = hand.unpack_ghosts(z, *bufs, axis, n_bnd)
+    torch.cuda.synchronize(card)
+    assert torch.equal(lo, wlo) and torch.equal(hi, whi)
+    assert torch.equal(got, want)
+    after = pack_routes()
+    for name in after:
+        assert after[name][narrow] == before[name][narrow] + 1
+
+
+def test_pack_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    z = rand(card, (40, 64), torch.float32, seed=1)
+    lo, hi = hand.pack_edges(z, 0, 2)
+    for wrong in ("scalar", "vec8"):
+        monkeypatch.setattr(hand, "_pack_route", lambda *a, w=wrong: w)
+        with pytest.raises(RuntimeError, match=f"{wrong} route"):
+            hand.pack_edges(z, 0, 2)
+        with pytest.raises(RuntimeError, match=f"{wrong} route"):
+            hand.unpack_ghosts(z, lo, hi, 0, 2)
+    monkeypatch.setattr(hand, "_pack_route", lambda *a: "vec16")
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.pack_edges(rand(card, (40, 65), torch.float32, seed=2), 0, 2)
+
+
+@pytest.mark.parametrize("axis,n_bnd,width,route", [
+    (0, 2, 100, "vec16"), (0, 8, 112, "vec16"), (0, 2, 102, "vec8"),
+    (0, 2, 101, "scalar"), (1, 2, 100, "vec8"), (1, 4, 100, "vec16"),
+    (1, 8, 112, "vec16"), (1, 2, 101, "scalar"), (1, 3, 100, "scalar")])
+def test_hand_staged_exchange_equals_direct(card, axis, n_bnd, width, route):
+    z = rand(card, (64 + 2 * n_bnd, width), torch.float32, seed=16)
+    assert hand.pack_route(z, axis, n_bnd) == route
     hand.reset_launch_counts()
     got = TH.halo_exchange(z.clone(), axis, n_bnd, True, "device",
                            kernel="hand")
     counts = hand.launch_counts()
     assert counts["pack_edges"] == 1 and counts["unpack_ghosts"] == 1
+    assert all(r[route] == 1 for r in pack_routes().values())
     want = TH.halo_exchange(z.clone(), axis, n_bnd, True, "direct")
     assert torch.equal(got, want)
     # non-periodic at world=1: nothing moves, nothing launches

@@ -2,9 +2,10 @@
 // ring halo kernels (ring_halo.cu, fused_rdma.cu), the collective
 // kernels (ring_collectives.cu, oneshot.cu) and the fused ring attention
 // (fused_ring_attention.cu). The helpers at the end (the routes,
-// load_peer, coll_sweep, coll_arrive_cta, ring_arrive_cta,
-// coll_resident_ctas, coll_grid) serve ring_collectives.cu, oneshot.cu
-// and ring_halo.cu; fused_rdma.cu sends through ring_store / ring_arrive.
+// load_peer, coll_sweep, coll_arrive_cta, ring_arrive_cta) and those of
+// occupancy.cuh (coll_resident_ctas, coll_grid) serve
+// ring_collectives.cu, oneshot.cu and ring_halo.cu; fused_rdma.cu sends
+// through ring_store / ring_arrive.
 //
 // A rank's signal pad (comm/peer.py) holds 128 int32 words. Remote words
 // are epoch counters written by other ranks; local words are counters of
@@ -80,6 +81,8 @@
 #include <cstdint>
 #include <cstring>
 #include <initializer_list>
+
+#include "occupancy.cuh"
 
 namespace tpumt {
 
@@ -453,38 +456,6 @@ __device__ __forceinline__ bool ring_arrive_cta(const RingView<W>& r,
   if (r.send_hi) pad_signal<kSys>(r.right_pad + kArrFromLeft, r.epoch);
   if (r.send_lo) pad_signal<kSys>(r.left_pad + kArrFromRight, r.epoch);
   return true;
-}
-
-// CTAs of `kernel` at `threads` threads that the card keeps resident at
-// once, when the kernel runs alone on it: the occupancy API's CTAs per SM
-// × SMs. Asked once; `*cache` (0 before) keeps the answer.
-inline cudaError_t coll_resident_ctas(const void* kernel, int threads,
-                                      int* cache) {
-  if (*cache > 0) return cudaSuccess;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess)
-    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                       threads, 0);
-  if (rc != cudaSuccess) return rc;
-  if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
-  *cache = per_sm * sms;
-  return cudaSuccess;
-}
-
-// The grid of a collective launch: `resident` CTAs (every CTA of the
-// launch resident at once: they wait for each other's signals), clipped
-// to the work (`items` at `per_cta` a CTA) and to `max_ctas` (> 0: several
-// instances resident on one card together).
-inline int coll_grid(int resident, long long items, long long per_cta,
-                     int max_ctas) {
-  long long ctas = (items + per_cta - 1) / per_cta;
-  if (ctas > resident) ctas = resident;
-  if (max_ctas > 0 && ctas > max_ctas) ctas = max_ctas;
-  if (ctas < 1) ctas = 1;
-  return static_cast<int>(ctas);
 }
 
 }  // namespace tpumt

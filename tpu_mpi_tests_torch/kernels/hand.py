@@ -69,7 +69,9 @@ wrappers also count per route (``launches_by_route``, keys
 body — ``wgmma``, ``mma`` or ``fma`` — its launches took, and so do the
 two ring collectives, the one-shot kernel and the ring halo (keys
 :data:`COLL_ROUTES`: ``vec16`` or ``scalar``; :func:`coll_route`,
-:func:`halo_route`).
+:func:`halo_route`) and the two halo staging copies (keys
+:data:`PACK_ROUTES`: ``vec16``, ``vec8`` or ``scalar``;
+:func:`pack_route`).
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -148,13 +150,14 @@ _SIGNATURES = {
         + [_c_double] * 9 + [ctypes.POINTER(_c_int), _c_void_p], _c_int),
     "tpumt_alu_probe_tiles": ([_c_ll, _c_ll], _c_ll),
     "tpumt_alu_probe_l2_bytes": ([], _c_ll),
-    # z, lo, hi; itemsize, axis, n0, n1, n_bnd, stream
+    # z, lo, hi; itemsize, axis, n0, n1, n_bnd, route (PACK_ROUTES
+    # index), stream
     "tpumt_pack_edges": (
-        [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_void_p],
-        _c_int),
+        [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_int,
+                           _c_void_p], _c_int),
     "tpumt_unpack_ghosts": (
-        [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_void_p],
-        _c_int),
+        [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_int,
+                           _c_void_p], _c_int),
     "tpumt_daxpy": ([
         _c_double, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
         _c_void_p,
@@ -898,6 +901,45 @@ def _check_pack(name: str, z: torch.Tensor, axis: int, n_bnd: int):
     return tuple(shape)
 
 
+#: the routes of the halo staging copies (csrc/pack.cu; a route's code is
+#: its index), named after the word a thread moves: "vec16" (16 bytes),
+#: "vec8" (8 bytes), "scalar" (one element)
+PACK_ROUTES = ("scalar", "vec8", "vec16")
+
+
+def pack_route(z: torch.Tensor, axis: int, n_bnd: int, *ptrs: int) -> str:
+    """The route (one of :data:`PACK_ROUTES`) of a :func:`pack_edges` or
+    :func:`unpack_ghosts` launch on the contiguous 2-D ``z`` along
+    ``axis``, by the rule the C launcher checks: the widest word, 16 then
+    8 bytes, that is wider than an element, on which ``z``'s data and
+    every pointer in ``ptrs`` (the two band buffers) start, of which the
+    row pitch is whole words and, along axis 1, so is a row's ``n_bnd``
+    band (then so is each band's first column: b and n1−2b for pack, 0
+    and n1−b for unpack); else "scalar". Integer arithmetic on the shape
+    and the pointers only. Refuses what the launch refuses."""
+    _check_pack("pack_route", z, axis, n_bnd)
+    if not z.is_contiguous():
+        raise ValueError("pack_route: the CUDA kernels need a contiguous "
+                         "tensor")
+    if z.element_size() not in (2, 4, 8):
+        raise TypeError(f"pack_route: {z.dtype} elements of "
+                        f"{z.element_size()} bytes are unsupported")
+    return _pack_route(z, axis, n_bnd, ptrs)
+
+
+def _pack_route(z: torch.Tensor, axis: int, n_bnd: int, ptrs) -> str:
+    """:func:`pack_route` on an operand the wrapper has checked."""
+    item = z.element_size()
+    ptrs = (z.data_ptr(), *ptrs)
+    for word, route in ((16, "vec16"), (8, "vec8")):
+        if word <= item or z.shape[1] * item % word \
+                or (axis == 1 and n_bnd * item % word):
+            continue
+        if all(p % word == 0 for p in ptrs):
+            return route
+    return "scalar"
+
+
 def pack_edges_ref(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
     """Plain-torch version of :func:`pack_edges`:
     ``kernels.pack.pack_edges``."""
@@ -909,7 +951,9 @@ def pack_edges(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
     """``(lo, hi)``: the interior edge bands ``z[b:2b]`` and
     ``z[n−2b:n−b]`` along ``axis`` of a contiguous 2-D array, as two new
     contiguous buffers (≅ ``pack_edges_pallas``, the reference's
-    ``buf_from_view``). A non-contiguous view raises on the card."""
+    ``buf_from_view``). A non-contiguous view raises on the card. The
+    launch takes the route :func:`pack_route` names for ``z`` and the two
+    buffers, counted in ``pack_edges.launches_by_route``."""
     shape = _check_pack("pack_edges", z, axis, n_bnd)
     if z.device.type == "cpu":
         return pack_edges_ref(z, axis, n_bnd)
@@ -918,18 +962,22 @@ def pack_edges(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
     _check_cuda_operand(z, "pack_edges")
     lo = torch.empty(shape, dtype=z.dtype, device=z.device)
     hi = torch.empty_like(lo)
+    route = _pack_route(z, axis, n_bnd, (lo.data_ptr(), hi.data_ptr()))
     fn = _entry("pack", "tpumt_pack_edges")
     with torch.cuda.device(z.device):
         rc = fn(z.data_ptr(), lo.data_ptr(), hi.data_ptr(),
                 z.element_size(), axis, z.shape[0], z.shape[1], n_bnd,
+                PACK_ROUTES.index(route),
                 torch.cuda.current_stream(z.device).cuda_stream)
     if rc != 0:
-        _raise_launch("pack_edges", rc)
+        _raise_launch(f"pack_edges ({route} route)", rc)
     pack_edges.launches += 1
+    pack_edges.launches_by_route[route] += 1
     return lo, hi
 
 
 pack_edges.launches = 0
+pack_edges.launches_by_route = dict.fromkeys(PACK_ROUTES, 0)
 
 
 def unpack_ghosts_ref(z: torch.Tensor, lo_ghost: torch.Tensor,
@@ -949,7 +997,9 @@ def unpack_ghosts(z: torch.Tensor, lo_ghost: torch.Tensor,
     ``unpack_ghosts_pallas``, the reference's ``buf_to_view``; the Pallas
     kernel returns an updated copy because it is functional). The two
     buffers are contiguous, band-shaped and share no storage with
-    ``z``."""
+    ``z``. The launch takes the route :func:`pack_route` names for ``z``
+    and the two buffers, counted in
+    ``unpack_ghosts.launches_by_route``."""
     shape = _check_pack("unpack_ghosts", z, axis, n_bnd)
     for t, nm in ((lo_ghost, "lo_ghost"), (hi_ghost, "hi_ghost")):
         if tuple(t.shape) != shape or t.dtype != z.dtype \
@@ -968,18 +1018,23 @@ def unpack_ghosts(z: torch.Tensor, lo_ghost: torch.Tensor,
         if t.untyped_storage().data_ptr() == z.untyped_storage().data_ptr():
             raise ValueError(f"unpack_ghosts: {nm} must not share storage "
                              f"with z (pack the bands into buffers first)")
+    route = _pack_route(z, axis, n_bnd,
+                        (lo_ghost.data_ptr(), hi_ghost.data_ptr()))
     fn = _entry("pack", "tpumt_unpack_ghosts")
     with torch.cuda.device(z.device):
         rc = fn(z.data_ptr(), lo_ghost.data_ptr(), hi_ghost.data_ptr(),
                 z.element_size(), axis, z.shape[0], z.shape[1], n_bnd,
+                PACK_ROUTES.index(route),
                 torch.cuda.current_stream(z.device).cuda_stream)
     if rc != 0:
-        _raise_launch("unpack_ghosts", rc)
+        _raise_launch(f"unpack_ghosts ({route} route)", rc)
     unpack_ghosts.launches += 1
+    unpack_ghosts.launches_by_route[route] += 1
     return z
 
 
 unpack_ghosts.launches = 0
+unpack_ghosts.launches_by_route = dict.fromkeys(PACK_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1923,12 +1978,13 @@ def _route_of(precision: str, q, k, v) -> str:
 def route_counts() -> dict:
     """Launches per route of the two attention kernels (keys
     :data:`FLASH_ROUTES`), the two ring collectives, the one-shot kernel
-    and the ring halo (keys :data:`COLL_ROUTES`) since the last
+    and the ring halo (keys :data:`COLL_ROUTES`) and the two halo staging
+    copies (keys :data:`PACK_ROUTES`) since the last
     :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
             for fn in (flash_attention_block, fused_ring_attention,
                        ring_allgather, ring_reduce_scatter, oneshot,
-                       ring_halo)}
+                       ring_halo, pack_edges, unpack_ghosts)}
 
 
 @contextlib.contextmanager
