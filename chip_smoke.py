@@ -9,8 +9,9 @@ failure exits non-zero and prints no result line):
    ``tpu_mpi_tests_torch/kernels/csrc`` (``nvcc`` for ``sm_90a``, one
    process per source, in parallel), and print the registers, stack and
    spills of every flash and fused ring attention instance, of every
-   ring collective instance, of every ring halo and one-shot instance
-   and of every pack/unpack instance (the four ``PTXAS`` lines);
+   ring collective instance, of every ring halo and one-shot instance,
+   of every pack/unpack instance and of every streaming-kernel instance
+   (the five ``PTXAS`` lines);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
    and dynamic flags, float32 and bfloat16, ragged tile edges, and every
@@ -28,9 +29,12 @@ failure exits non-zero and prints no result line):
    so any difference is a fault. The one exception is the dual step's
    residual, a deterministic sum in another order than torch's, held to
    ``hand.RESIDUAL_RTOL`` (relative). The streaming kernels (daxpy,
-   scale, sum3) over float32/float64/bfloat16 × n 1, 127, 1000003 (and
-   one misaligned view) × a 2, 1e-7, 1+1e-9 × out of place and in place,
-   and at the microbench's operands (2^26 and 2^28 float32), tolerance 0.
+   scale, sum3) over float32/float64/bfloat16 × n 1, 127, 1000003 and
+   the edges of a vec16 group (one pack, a group ± 1 pack, two groups ±
+   1 element) on the vec16 route, and one view 4 bytes
+   off 16 on the scalar route, × a 2, 1e-7, 1+1e-9 × out of place and in
+   place, each launch counted on its route, and at the microbench's
+   operands (2^26 and 2^28 float32, vec16), tolerance 0.
    The flash-attention fold (``check_flash_kernel``) over float32/bf16 ×
    L 1..1024 × Lk 1..300 × d 4..256 × dense and causal (partly masked,
    fully masked, fully live, stride 4) × HIGHEST/DEFAULT, a chain of two
@@ -41,7 +45,9 @@ failure exits non-zero and prints no result line):
    that route, and the main path's operands: HIGHEST holds the carry to
    FLASH_RTOL/FLASH_ATOL, DEFAULT the normalised output to
    FLASH_DEFAULT_ATOL of the plain version at HIGHEST (sums in another
-   order, tensor-core operands rounded), the largest error of each class
+   order, tensor-core operands rounded) and a bf16 (L, H, d) output to
+   that plus half a bf16 ulp of its largest value (its own rounding,
+   against the plain output in float32), the largest error of each class
    printed. The ALU probe
    (``check_probe_kernel``) over its eight mixes × float32/bfloat16 ×
    (8, 128), (16, 128), (37, 200), (512, 512), a (3, 70, 130) stack and
@@ -127,7 +133,8 @@ failure exits non-zero and prints no result line):
    Then the DAXPY slice, each path alone in the same
    way: the microbench groups ``daxpy``, ``ceiling`` and ``streams``
    (each must launch exactly the streaming kernels its schedule makes,
-   and every GB/s row must be finite and at most 1.05 × 3350), and the
+   every launch on the vec16 route, and every GB/s row must be finite
+   and at most 1.05 × 3350; so must ``roofline2``'s ceiling fit), and the
    five DAXPY drivers at the reference's sizes with every gate passing
    and no hand kernel launched (the JAX drivers reach no Pallas kernel).
    Then the attention slice, each path alone: ``attnbench`` at L=8192,
@@ -170,9 +177,12 @@ failure exits non-zero and prints no result line):
    of bytes moved (each input read once, each output written once) over
    3.35 TB/s and flops over 67 TFLOP/s (H100 SXM float32 outside the
    tensor cores; bf16 arithmetic runs in float32 units). The streaming
-   kernels are timed in place at 2^26 (and daxpy at 2^28) float32 beside
-   ``y.add_(x, alpha=a)`` and ``x.mul_(a)``; the daxpy row also carries
-   ``dispatch_rate``'s host-clock time of the same launch. The flash
+   kernels are timed in place at 2^26 (and daxpy at 2^24 and 2^28)
+   float32, back to back and queued behind a stall, beside
+   ``y.add_(x, alpha=a)`` and ``x.mul_(a)`` timed both ways; the daxpy
+   row also carries ``dispatch_rate``'s host-clock time of the same
+   launch, and the ``HBM_CEILING`` line the queued times' two-point fit
+   beside the microbench's. The flash
    fold at (8192, 128) f32 HIGHEST dense and causal, bf16 DEFAULT, and
    (32768, 128) bf16 DEFAULT causal, timed with CUDA events and queued
    behind a stall (the wrapper's host time out), beside its plain
@@ -213,6 +223,7 @@ import contextlib
 import io
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -251,6 +262,9 @@ STREAM_REPLACES = {
     "stream_sum3": "tpu_mpi_tests/kernels/pallas_kernels.py:190",
 }
 STREAM_KERNELS = tuple(STREAM_REPLACES)
+#: the functor of each streaming kernel in csrc/streams.cu's instances
+STREAM_FUNCTORS = {"daxpy": "Daxpy", "stream_scale": "Scale",
+              "stream_sum3": "Sum3"}
 GBPS_CAP = 1.05 * HBM_BYTES_PER_S / 1e9  # a faster row is a timing bug
 FLASH_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:3230"
@@ -933,10 +947,21 @@ def check_pack_kernels(device, rand, failures):
     return n_cases, errs
 
 
+def same_offset_copy(t):
+    """A copy of 1-D ``t`` that starts as far past 16 bytes as ``t`` does
+    (so an in-place launch on it takes ``t``'s route)."""
+    import torch
+
+    off = t.data_ptr() % 16 // t.element_size()
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    return buf[off:].copy_(t)
+
+
 def stream_calls(name, a, ops, inplace):
     """(kernel call, plain call) of streaming kernel ``name`` on operands
     ``ops`` (x, y for daxpy; x for scale; w, x, y for sum3); in place, the
-    kernel writes into a copy of its last operand, and returns it."""
+    kernel writes into a copy of its last operand at the same offset from
+    16 bytes, and returns it."""
     from tpu_mpi_tests_torch.kernels import hand
 
     kernel, plain = getattr(hand, name), getattr(hand, f"{name}_ref")
@@ -945,42 +970,73 @@ def stream_calls(name, a, ops, inplace):
     def run_kernel():
         if not inplace:
             return kernel(*args)
-        tgt = args[-1].clone()
+        tgt = same_offset_copy(args[-1])
         return kernel(*args[:-1], tgt, out=tgt)
 
     return run_kernel, lambda: plain(*args)
 
 
+def stream_edges(dtype):
+    """n at the edges of a vec16 group (``hand.STREAM_GROUP_PACKS``
+    16-byte packs, one CTA's work) for ``dtype``: one pack, one group ± 1
+    pack, and two groups ± 1 element (the grid's CTAs × the group ± 1:
+    the last group one pack short with a tail of a pack less one, or two
+    whole groups, a tail of one element and a third CTA)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    pack = 16 // dtype.itemsize
+    group = hand.STREAM_GROUP_PACKS * pack
+    return (pack, group - pack, group + pack, 2 * group - 1, 2 * group + 1)
+
+
 def check_stream_kernels(device, gen, failures):
     """The streaming kernels against their plain versions, tolerance 0:
-    every dtype × ragged n (and one view 4 bytes off 16-byte alignment,
-    which takes the element-wise path) × a × out of place / in place,
-    then the microbench's own operands at 2^26 and 2^28 float32. Returns
-    (number of cases, max abs error per kernel at the main-path
-    operands)."""
+    every dtype × n 1, 127, 1000003 on 16-byte operands (the vec16 route)
+    and a view 4 bytes off 16 (the scalar route), then the edges of a
+    vec16 group (:func:`stream_edges`), × a × out of place / in place,
+    each launch counted on the route its operands take; then the
+    microbench's own operands at 2^26 and 2^28 float32. Returns (number
+    of cases, max abs error per kernel at the main-path operands)."""
     import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
 
     def rand(n, dtype, offset=0):
         t = torch.rand(n + offset, generator=gen, device=device,
                        dtype=torch.float32) * 4 - 2
         return t.to(dtype)[offset:]
 
+    def cases(dtype, n, offset):
+        nonlocal n_cases
+        w, x, y = (rand(n, dtype, offset) for _ in range(3))
+        route = "scalar" if offset else "vec16"
+        for name in STREAM_KERNELS:
+            ops = {"daxpy": (x, y), "stream_scale": (x,),
+                   "stream_sum3": (w, x, y)}[name]
+            for a in ((None,) if name == "stream_sum3"
+                      else (2.0, 1e-7, 1.0 + 1e-9)):
+                for inplace in (False, True):
+                    before = hand.route_counts()[name]
+                    got, want = (f() for f in stream_calls(
+                        name, a, ops, inplace))
+                    label = (f"{name} {dtype} n={n} offset={offset} a={a} "
+                             f"inplace={inplace}")
+                    compare(label, got, want, failures)
+                    after = hand.route_counts()[name]
+                    took = {r: after[r] - before[r] for r in after}
+                    if took != {r: int(r == route) for r in after}:
+                        failures.append(f"{label}: launched {took}, its "
+                                        f"operands take {route}")
+                    n_cases += 1
+
     n_cases = 0
-    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+    dtypes = (torch.float32, torch.float64, torch.bfloat16)
+    for dtype in dtypes:
         for n, offset in ((1, 0), (127, 0), (1000003, 0), (1000003, 1)):
-            w, x, y = (rand(n, dtype, offset) for _ in range(3))
-            for name in STREAM_KERNELS:
-                ops = {"daxpy": (x, y), "stream_scale": (x,),
-                       "stream_sum3": (w, x, y)}[name]
-                for a in ((None,) if name == "stream_sum3"
-                          else (2.0, 1e-7, 1.0 + 1e-9)):
-                    for inplace in (False, True):
-                        got, want = (f() for f in stream_calls(
-                            name, a, ops, inplace))
-                        compare(f"{name} {dtype} n={n} offset={offset} "
-                                f"a={a} inplace={inplace}", got, want,
-                                failures)
-                        n_cases += 1
+            cases(dtype, n, offset)
+    for dtype in dtypes:
+        for n in stream_edges(dtype):
+            cases(dtype, n, 0)
     # the main path's operands: the microbench's calls, each shape once
     errs = dict.fromkeys(STREAM_KERNELS, 0.0)
     for name, n, a, inplace in (
@@ -991,14 +1047,103 @@ def check_stream_kernels(device, gen, failures):
             ("stream_sum3", N26, None, True)):
         k = {"daxpy": 2, "stream_scale": 1, "stream_sum3": 3}[name]
         ops = tuple(rand(n, torch.float32) for _ in range(k))
+        before = hand.route_counts()[name]["vec16"]
         got, want = (f() for f in stream_calls(name, a, ops, inplace))
-        errs[name] = max(errs[name], compare(
-            f"{name} main-path n={n} a={a} inplace={inplace}", got, want,
-            failures))
+        label = f"{name} main-path n={n} a={a} inplace={inplace}"
+        errs[name] = max(errs[name], compare(label, got, want, failures))
+        if hand.route_counts()[name]["vec16"] != before + 1:
+            failures.append(f"{label}: not launched on the vec16 route")
         n_cases += 1
         del ops, got, want
         torch.cuda.empty_cache()
     return n_cases, errs
+
+
+def wgmma_heads_operands(rand, heads_outer, d):
+    """q, k, v of ``check_flash_kernel``'s (L, 4, d) wgmma cases, bf16,
+    L 333, drawn by ``rand(shape, dtype)``: the heads inside the rows
+    (333, 4, d), or outside them (a head stride L·d above the row stride
+    d)."""
+    import torch
+
+    if heads_outer:
+        return tuple(rand((4, 333, d), torch.bfloat16).transpose(0, 1)
+                     for _ in range(3))
+    return tuple(rand((333, 4, d), torch.bfloat16) for _ in range(3))
+
+
+def heads_error(q, k, v, precision):
+    """(max |out - plain out|, its tolerance) of ``hand.flash_attention``
+    over (L, H, d) causal operands against the plain version at HIGHEST
+    in float32 on the same values. HIGHEST is held to FLASH_ATOL; DEFAULT
+    to FLASH_DEFAULT_ATOL plus, for a bf16 output, its own rounding: half
+    an ulp of the largest output, 2^-8 × max|want| (bf16 keeps 8
+    significant bits). The plain output is not rounded to bf16, so the
+    bound counts one rounding, the kernel's."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    got = hand.flash_attention(q, k, v, causal=True, precision=precision)
+    want = hand.flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=True)
+    err = float((got.float() - want).abs().max())
+    if precision == "highest":
+        return err, FLASH_ATOL
+    dt = str(q.dtype).split(".")[1]
+    half_ulp = 2.0**-8 * float(want.abs().max()) if dt == "bfloat16" else 0
+    return err, FLASH_DEFAULT_ATOL[dt] + half_ulp
+
+
+def flash_heads_witness(device, seeds):
+    """The (L, 4, d) wgmma cases of ``check_flash_kernel`` on operands
+    from each of ``seeds``: per case, max |out - plain out| against the
+    plain output in float32 (``err``) and rounded to bf16 as the output
+    is (``err_rounded``), max|want|, and at the worst element of the
+    rounded comparison the gap in bf16 ulps there and the float32 gap;
+    then the cases beyond each bound: the bound before (FLASH_DEFAULT_ATOL
+    + 2^-9 × max|want| against the rounded plain output) and
+    :func:`heads_error`'s."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    rows = []
+    for seed in seeds:
+        gen = torch.Generator(device=device).manual_seed(seed)
+
+        def rand(shape, dtype):
+            return torch.randn(shape, generator=gen,
+                               device=device).to(dtype)
+
+        for heads_outer in (False, True):
+            for d in (64, 128):
+                q, k, v = wgmma_heads_operands(rand, heads_outer, d)
+                err, tol = heads_error(q, k, v, "default")
+                got = hand.flash_attention(q, k, v, causal=True,
+                                           precision="default").float()
+                want = hand.flash_attention_ref(
+                    q.float(), k.float(), v.float(), causal=True)
+                rounded = want.to(torch.bfloat16).float()
+                gap = (got - rounded).abs()
+                i = int(gap.argmax())
+                top = float(want.abs().max())
+                w = float(rounded.flatten()[i])
+                ulp = 2.0 ** (math.floor(math.log2(abs(w))) - 7) if w else 0
+                rows.append({
+                    "seed": seed, "heads_outer": heads_outer, "d": d,
+                    "err": err, "tol": tol, "max_want": top,
+                    "err_rounded": float(gap.max()),
+                    "tol_before": FLASH_DEFAULT_ATOL["bfloat16"]
+                    + 2.0**-9 * top,
+                    "worst_ulps": float(gap.flatten()[i]) / ulp if ulp
+                    else None,
+                    "worst_f32_gap": float((got - want).abs().flatten()[i]),
+                })
+    return {"cases": len(rows),
+            "beyond_before": [r for r in rows
+                              if r["err_rounded"] > r["tol_before"]],
+            "beyond_now": [r for r in rows if r["err"] > r["tol"]],
+            "max_err_over_tol": max(r["err"] / r["tol"] for r in rows),
+            "max_err_rounded": max(r["err_rounded"] for r in rows)}
 
 
 def check_flash_kernel(device, gen, failures):
@@ -1116,15 +1261,9 @@ def check_flash_kernel(device, gen, failures):
                              (torch.bfloat16, "default")):
         q, k, v = (rand((333, 4, 64), dtype) for _ in range(3))
         before = hand.flash_attention_block.launches
-        got = hand.flash_attention(q, k, v, causal=True, precision=precision)
+        err, tol = heads_error(q, k, v, precision)
         if hand.flash_attention_block.launches != before + 1:
             failures.append("flash (L, H, d): not one launch")
-        want = hand.flash_attention_ref(q, k, v, causal=True)
-        err = float((got.float() - want.float()).abs().max())
-        # in q's dtype: a bf16 output adds its own rounding (half an ulp)
-        tol = (FLASH_ATOL if precision == "highest" else
-               FLASH_DEFAULT_ATOL["bfloat16"]
-               + 2.0**-9 * float(want.float().abs().max()))
         if not err <= tol:
             failures.append(f"flash (L, 4, d) {dtype} {precision}: "
                             f"{err:g} beyond {tol:g}")
@@ -1157,18 +1296,8 @@ def check_flash_kernel(device, gen, failures):
             del q, k, v, c
     for heads_outer in (False, True):
         for d in (64, 128):
-            if heads_outer:  # head stride L·d above the row stride d
-                q, k, v = (rand((4, 333, d), torch.bfloat16).transpose(0, 1)
-                           for _ in range(3))
-            else:
-                q, k, v = (rand((333, 4, d), torch.bfloat16)
-                           for _ in range(3))
-            got = hand.flash_attention(q, k, v, causal=True,
-                                       precision="default")
-            want = hand.flash_attention_ref(q, k, v, causal=True)
-            err = float((got.float() - want.float()).abs().max())
-            tol = (FLASH_DEFAULT_ATOL["bfloat16"]
-                   + 2.0**-9 * float(want.float().abs().max()))
+            q, k, v = wgmma_heads_operands(rand, heads_outer, d)
+            err, tol = heads_error(q, k, v, "default")
             if not err <= tol:
                 failures.append(f"flash wgmma (L, 4, {d}) heads_outer="
                                 f"{heads_outer}: {err:g} beyond {tol:g}")
@@ -1220,6 +1349,15 @@ def check_routes(path, name, want):
     if got != full:
         raise SmokeFailure(f"{path}: {name} launches by route {got}, its "
                            f"operands' route makes {full}")
+
+
+def check_stream_routes(path, launches):
+    """Every streaming-kernel launch of ``path`` (``launches``: kernel ->
+    count) on the vec16 route: the microbench's operands are fresh
+    allocations, which start on 16 bytes."""
+    for name in STREAM_KERNELS:
+        n = launches.get(name, 0)
+        check_routes(path, name, {"vec16": n} if n else {})
 
 
 def drive_path(path, fn, kernels, peaks):
@@ -1436,6 +1574,7 @@ def run_daxpy_slice(device, counts, peaks):
         if got != want:
             raise SmokeFailure(f"{path}: launches {got}, its schedule "
                                f"makes {want}")
+        check_stream_routes(path, want)
         for r in recs:
             v = r["value"]
             if r["unit"] == "GB/s" and not 0 < v <= GBPS_CAP:
@@ -1531,6 +1670,7 @@ def run_one_card_slice(device, counts, peaks):
         if counts[path] != want_all:
             raise SmokeFailure(f"{path}: launches {counts[path]}, its "
                                f"schedule makes {want_all}")
+        check_stream_routes(path, want_all)
         check_one_card_rates(path, recs)
         log(f"  {path}: {time.perf_counter() - t0:.1f} s")
         records += recs
@@ -1701,8 +1841,10 @@ def fused_tolerance(dtype: str, precision: str, want) -> float:
     """Kernel vs plain on the normalised output: f32 arithmetic (HIGHEST)
     to FLASH_ATOL, the tensor cores (DEFAULT) to FLASH_DEFAULT_ATOL of
     the plain version at HIGHEST — the flash kernel's tolerances, since
-    each step is its fold; a bf16 output adds its own rounding (one ulp,
-    2^-8 relative)."""
+    each step is its fold; a bf16 output adds its own rounding, half an
+    ulp, 2^-8 × max|want|, against ``want``, the plain output in float32
+    (not rounded to bf16, so the bound counts one rounding, the
+    kernel's)."""
     tol = FLASH_ATOL if precision == "highest" else FLASH_DEFAULT_ATOL[dtype]
     if dtype == "bfloat16":
         tol += 2.0**-8 * float(want.float().abs().max())
@@ -1731,12 +1873,16 @@ def check_fused_ring_kernel(device, gen, failures):
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
+    def f32(*ts):
+        return tuple(t.float() for t in ts)
+
     def check(name, cls, got, flash, plain, dtype, precision):
+        """``plain``: the plain output in float32."""
         if not torch.equal(got, flash):
             diff = float((got.float() - flash.float()).abs().max())
             failures.append(f"fused {name}: not bitwise the pipelined "
                             f"flash launches (max |diff| {diff:g})")
-        err = float((got.float() - plain.float()).abs().max())
+        err = float((got.float() - plain).abs().max())
         tol = fused_tolerance(dtype, precision, plain)
         if not err <= tol or not bool(torch.isfinite(got.float()).all()):
             failures.append(f"fused {name}: max |kernel - plain| = {err:g} "
@@ -1766,7 +1912,7 @@ def check_fused_ring_kernel(device, gen, failures):
                     flash = hand.fused_ring_world_ref([(q, k, v)] * w,
                                                       kernel=True, **kw)[0]
                     plain = hand.fused_ring_attention_ref(
-                        q, k, v, self_ring=ring, causal=causal,
+                        *f32(q, k, v), self_ring=ring, causal=causal,
                         stripe=stripe)
                     check(f"{dt} {precision} causal={causal} stripe="
                           f"{stripe} ({L}, {d}) self_ring={ring}",
@@ -1779,8 +1925,8 @@ def check_fused_ring_kernel(device, gen, failures):
                           for _ in range(w)]
                 got = hand.cross_wired("fused_ring_attention", blocks, **kw)
                 flash = hand.fused_ring_world_ref(blocks, kernel=True, **kw)
-                plain = hand.fused_ring_world_ref(blocks, causal=causal,
-                                                  stripe=stripe)
+                plain = hand.fused_ring_world_ref(
+                    [f32(*b) for b in blocks], causal=causal, stripe=stripe)
                 for r in range(w):
                     check(f"cross-wired w={w} rank {r} {dt} {precision} "
                           f"causal={causal} stripe={stripe}",
@@ -1794,7 +1940,7 @@ def check_fused_ring_kernel(device, gen, failures):
         kw = dict(causal=causal, stripe=stripe, precision=precision)
         got = fused(q, k, v, **kw)
         flash = hand.fused_ring_world_ref([(q, k, v)], kernel=True, **kw)[0]
-        plain = hand.fused_ring_attention_ref(q, k, v, causal=causal,
+        plain = hand.fused_ring_attention_ref(*f32(q, k, v), causal=causal,
                                               stripe=stripe)
         err = check(f"main-path ({ATTN_L}, {ATTN_D}) {dt} {precision} "
                     f"causal={causal} stripe={stripe}", "main path", got,
@@ -3307,10 +3453,14 @@ def time_probe_and_pack(device, gen):
 def time_stream_kernels(device, gen):
     """Per-launch times of the streaming kernels in place (``out`` = the
     written operand, as the chained microbench rows launch them) at the
-    microbench's sizes, beside the plain version, the one-call torch
-    yardstick (``y.add_(x, alpha=a)``, ``x.mul_(a)``; none for sum3) and
-    the byte bound; the 2^26 daxpy row also carries ``dispatch_rate``'s
-    host-clock time of the same launch, to check that clock."""
+    microbench's sizes (daxpy at 2^26, 2^24 and 2^28, scale and sum3 at
+    2^26, float32), each with CUDA events back to back (``ms``) and
+    queued behind a stall (``queued_ms``: the wrapper's host time out),
+    beside the plain version, the one-call torch yardstick timed both
+    ways (``y.add_(x, alpha=a)``, ``x.mul_(a)``; none for sum3), the
+    route and the byte bound; the 2^26 daxpy row also carries
+    ``dispatch_rate``'s host-clock time of the same launch, to check that
+    clock."""
     import torch
 
     from tpu_mpi_tests_torch.instrument.timers import dispatch_rate
@@ -3324,40 +3474,52 @@ def time_stream_kernels(device, gen):
 
     flops_per_elt = {"daxpy": 2, "stream_scale": 1, "stream_sum3": 2}
 
-    def row(name, n, streams, ms, plain, lib, **extra):
+    def row(name, n, streams, ops, kernel, plain, lib=None, **extra):
         # each stream read or written once; the ops of the table row
         b, why = bound_ms(streams * n * 4, flops_per_elt[name] * n)
-        rows[name].append({"path": "microbench", "shape": [n],
-                           "dtype": "float32", "inplace": True, "ms": ms,
-                           "plain_ms": plain, "bound_ms": b, "bound_by": why,
-                           "library_ms": lib, **extra})
+        rec = {"path": "microbench", "shape": [n], "dtype": "float32",
+               "inplace": True, "route": hand.stream_route(*ops),
+               "ms": time_cuda(kernel, 50),
+               "queued_ms": time_cuda_queued(kernel, 20),
+               "plain_ms": time_cuda(plain, 10), "bound_ms": b,
+               "bound_by": why, "library_ms": None, **extra}
+        if lib is not None:
+            rec |= {"library_ms": time_cuda(lib, 50),
+                    "library_queued_ms": time_cuda_queued(lib, 20)}
+        rows[name].append(rec)
 
-    for n in (N26, N28):
+    for n in (N26, 1 << 24, N28):
         x, y = rand(n), rand(n)
-        ms = time_cuda(lambda: hand.daxpy(a, x, y, out=y), 50)
-        plain = time_cuda(lambda: hand.daxpy_ref(a, x, y), 10)
-        lib = time_cuda(lambda: y.add_(x, alpha=a), 50)
         extra = {}
         if n == N26:
             extra["dispatch_rate_ms"] = 1e3 * dispatch_rate(
                 lambda: hand.daxpy(a, x, y, out=y), n_iter=1000,
                 n_base=100)
-        row("daxpy", n, 3, ms, plain, lib,
+        row("daxpy", n, 3, (x, y), lambda: hand.daxpy(a, x, y, out=y),
+            lambda: hand.daxpy_ref(a, x, y), lambda: y.add_(x, alpha=a),
             library_call="y.add_(x, alpha=a)", **extra)
         del x, y
         torch.cuda.empty_cache()
     x = rand(N26)
-    row("stream_scale", N26, 2,
-        time_cuda(lambda: hand.stream_scale(1.0, x, out=x), 50),
-        time_cuda(lambda: hand.stream_scale_ref(1.0, x), 10),
-        time_cuda(lambda: x.mul_(1.0), 50), library_call="x.mul_(a)")
+    row("stream_scale", N26, 2, (x,),
+        lambda: hand.stream_scale(1.0, x, out=x),
+        lambda: hand.stream_scale_ref(1.0, x), lambda: x.mul_(1.0),
+        library_call="x.mul_(a)")
     w, y = rand(N26), rand(N26)
-    row("stream_sum3", N26, 4,
-        time_cuda(lambda: hand.stream_sum3(w, x, y, out=y), 50),
-        time_cuda(lambda: hand.stream_sum3_ref(w, x, y), 10), None)
+    row("stream_sum3", N26, 4, (w, x, y),
+        lambda: hand.stream_sum3(w, x, y, out=y),
+        lambda: hand.stream_sum3_ref(w, x, y))
     del w, x, y
     torch.cuda.empty_cache()
     return rows
+
+
+def stream_queued_fit(rows):
+    """The two-point fit b/(t3 − t2) of this run's queued 2^26 daxpy
+    (3 passes) and scale (2 passes): GB/s, NaN where t3 <= t2."""
+    t3 = rows["daxpy"][0]["queued_ms"]
+    t2 = rows["stream_scale"][0]["queued_ms"]
+    return 4 * N26 / 1e6 / (t3 - t2) if t3 > t2 else float("nan")
 
 
 def flash_work(L, d, dtype, causal):
@@ -3512,24 +3674,7 @@ def coll_ptxas_summary(build, lib="ring_collectives") -> dict:
     library from this process's build: the ring collectives (both
     routes' all-gather and reduce-scatter, the world=1 copies),
     ``oneshot``, ``ring_halo`` or ``pack`` (each route's instances)."""
-    import re
-
-    out, entry = {}, None
-    for line in build.BUILD_LOGS.get(lib, "").splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry = coll_kernel_name(m[1])
-            out[entry] = {}
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                      r"stores, (\d+) bytes spill loads", line)
-        if m and entry:
-            out[entry].update(stack=int(m[1]), spill_stores=int(m[2]),
-                              spill_loads=int(m[3]))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            out[entry]["registers"] = int(m[1])
-    return out
+    return build.ptxas_summary(lib, coll_kernel_name)
 
 
 def main() -> int:
@@ -3543,7 +3688,7 @@ def main() -> int:
               "smoke test needs a CUDA card", file=sys.stderr)
         return 2
     try:
-        from tpu_mpi_tests_torch.kernels import build, hand
+        from tpu_mpi_tests_torch.kernels import build, hand, stream_ab
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable ({e}); run "
               f"from the repository root", file=sys.stderr)
@@ -3579,6 +3724,9 @@ def main() -> int:
             f"{json.dumps(halo_ptxas)}")
         pack_ptxas = coll_ptxas_summary(build, "pack")
         log(f"PTXAS pack instances {json.dumps(pack_ptxas)}")
+        stream_ptxas = build.ptxas_summary("streams",
+                                           stream_ab.kernel_name)
+        log(f"PTXAS stream instances {json.dumps(stream_ptxas)}")
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -3589,7 +3737,9 @@ def main() -> int:
                        if r["metric"] == "hbm_ceiling_fit_gbps")
         log(f"HBM_CEILING measured hbm_ceiling_fit_gbps {ceiling} GB/s, "
             f"published {HBM_BYTES_PER_S / 1e9:g} GB/s "
-            f"(ratio {ceiling / (HBM_BYTES_PER_S / 1e9):.4f})")
+            f"(ratio {ceiling / (HBM_BYTES_PER_S / 1e9):.4f}); the same "
+            f"run's queued two-point fit (TIME daxpy and stream_scale "
+            f"2^26) {stream_queued_fit(rows)} GB/s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3666,6 +3816,12 @@ def main() -> int:
                 k: v for k, v in pack_ptxas.items()
                 if k.startswith("flat") or ("true" in k) == (
                     name == "pack_edges")}
+        if name in STREAM_REPLACES:
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()}
+            extra["ptxas"] = {
+                k: v for k, v in stream_ptxas.items()
+                if k.endswith(f", {STREAM_FUNCTORS[name]}>")}
         if name == "fused_ring_attention":
             # max_abs_err: the normalised output at the main path's f32
             # HIGHEST operands (8192, 128); every class beside it, each

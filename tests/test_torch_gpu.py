@@ -13,7 +13,12 @@ dual step's residual, a sum in another order, within
 CUDA tensor and counts a launch. The 2-D grid drivers run end to end on
 the card with ``--kernel hand`` at a small size. The streaming kernels
 (daxpy, scale, sum3) are held against their plain versions bit for bit,
-out of place and in place, on ragged and misaligned operands; the DAXPY
+out of place and in place, on ragged and misaligned operands, on both
+routes (``vec16`` on operands that start on 16 bytes, ``scalar`` on a
+view one element past them) at the edges of a vec16 group (one pack, a
+group ± 1 pack, two groups ± 1 element), each launch
+counted on its route, and a launch given another route than the
+rule's refused; the DAXPY
 drivers and the microbench groups run on the card at small sizes. The
 flash-attention fold is held against its plain version within stated
 tolerances (sums in another order; tensor-core operands rounded at
@@ -49,6 +54,9 @@ the dual step's lean body like the raw one; the ``vpu`` group and the
 ``stencil1d`` driver run on the card at small sizes.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -68,6 +76,11 @@ from tpu_mpi_tests_torch.drivers import (
 from tpu_mpi_tests_torch.kernels import hand
 
 pytestmark = pytest.mark.cuda
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+CS = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(CS)
 
 
 @pytest.fixture
@@ -193,12 +206,13 @@ def test_grid_drivers_hand_on_card(card, capsys):
 
 def stream_case(name, ops, a, inplace):
     """(kernel result, plain result) of one streaming kernel; in place,
-    the kernel writes into a copy of its last operand."""
+    the kernel writes into a copy of its last operand at the same offset
+    from 16 bytes."""
     kernel, plain = getattr(hand, name), getattr(hand, f"{name}_ref")
     args = ops if name == "stream_sum3" else (a, *ops)
     want = plain(*args)
     if inplace:
-        tgt = args[-1].clone()
+        tgt = CS.same_offset_copy(args[-1])
         got = kernel(*args[:-1], tgt, out=tgt)
         assert got.data_ptr() == tgt.data_ptr()
     else:
@@ -223,6 +237,54 @@ def test_stream_kernels_match_plain(card, dtype, n, offset, inplace):
             assert getattr(hand, name).launches == before + 1
             assert got.device == card
             assert torch.equal(got, want), (name, a)
+
+
+def stream_routes():
+    return {name: dict(getattr(hand, name).launches_by_route)
+            for name in CS.STREAM_KERNELS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("edge", range(5))
+@pytest.mark.parametrize("route", ["vec16", "scalar"])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_stream_routes_at_group_edges(card, dtype, edge, route, inplace):
+    """Each route, each dtype, in and out of place, at n on the edges of
+    a vec16 group (``chip_smoke.stream_edges``: one pack, one group ± 1
+    pack, the grid's CTAs × the group ± 1 element); operands on 16 bytes
+    take vec16, a view one element past them scalar. Bit for bit against
+    the plain version, each launch counted on its route."""
+    n = CS.stream_edges(dtype)[edge]
+    for i, name in enumerate(CS.STREAM_KERNELS):
+        off = int(route == "scalar")
+        w, x, y = (rand(card, (n + off,), dtype, seed=10 * i + s)[off:]
+                   for s in (1, 2, 3))
+        ops = {"daxpy": (x, y), "stream_scale": (x,),
+               "stream_sum3": (w, x, y)}[name]
+        assert hand.stream_route(*ops) == route
+        before = stream_routes()[name]
+        got, want = stream_case(name, ops, 1.0 + 1e-9, inplace)
+        torch.cuda.synchronize(card)
+        assert torch.equal(got, want), (name, n)
+        after = stream_routes()[name]
+        assert {r: after[r] - before[r] for r in after} == \
+            {r: int(r == route) for r in after}, (name, n)
+
+
+def test_stream_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    x = rand(card, (1000,), torch.float32, seed=5)
+    y = rand(card, (1000,), torch.float32, seed=6)
+    monkeypatch.setattr(hand, "stream_route", lambda *a: "scalar")
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.daxpy(2.0, x, y)
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.stream_scale(2.0, x, out=x)
+    monkeypatch.setattr(hand, "stream_route", lambda *a: "vec16")
+    with pytest.raises(RuntimeError, match="vec16 route"):
+        hand.stream_sum3(x[1:], y[1:], x[1:])
 
 
 def test_stream_kernels_refuse_partial_overlap(card):

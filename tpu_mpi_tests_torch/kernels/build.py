@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -123,6 +124,26 @@ def build(names=None) -> dict[str, Path]:
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_summary(name: str, name_of=lambda mangled: mangled) -> dict:
+    """Registers, stack and spill bytes of every kernel instance in this
+    process's build of library ``name`` (its ``-Xptxas -v`` report in
+    :data:`BUILD_LOGS`), keyed by ``name_of(mangled entry name)``."""
+    out, entry = {}, None
+    for line in BUILD_LOGS.get(name, "").splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = name_of(m[1])
+            out[entry] = {}
+        elif not entry:
+            continue
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            out[entry].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            out[entry]["registers"] = int(m[1])
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

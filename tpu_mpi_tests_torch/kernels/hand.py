@@ -67,9 +67,10 @@ show that its main path went through the kernel; the two attention
 wrappers also count per route (``launches_by_route``, keys
 :data:`FLASH_ROUTES`, :func:`route_counts`), so a run shows which fold
 body — ``wgmma``, ``mma`` or ``fma`` — its launches took, and so do the
-two ring collectives, the one-shot kernel and the ring halo (keys
-:data:`COLL_ROUTES`: ``vec16`` or ``scalar``; :func:`coll_route`,
-:func:`halo_route`) and the two halo staging copies (keys
+two ring collectives, the one-shot kernel, the ring halo and the three
+streaming kernels (keys :data:`COLL_ROUTES`: ``vec16`` or ``scalar``;
+:func:`coll_route`, :func:`halo_route`, :func:`stream_route`) and the
+two halo staging copies (keys
 :data:`PACK_ROUTES`: ``vec16``, ``vec8`` or ``scalar``;
 :func:`pack_route`).
 
@@ -158,15 +159,16 @@ _SIGNATURES = {
     "tpumt_unpack_ghosts": (
         [_c_void_p] * 3 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_int,
                            _c_void_p], _c_int),
+    # a; x, y, out; dtype, n, route (COLL_ROUTES index), stream
     "tpumt_daxpy": ([
-        _c_double, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
+        _c_double, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int,
         _c_void_p,
     ], _c_int),
     "tpumt_stream_scale": ([
-        _c_double, _c_void_p, _c_void_p, _c_int, _c_ll, _c_void_p,
+        _c_double, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,
     ], _c_int),
     "tpumt_stream_sum3": ([
-        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll,
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int,
         _c_void_p,
     ], _c_int),
     # q, k, v, m/l/acc in, m/l/acc out; dtype, L, Lk, d, heads; (row,
@@ -1815,19 +1817,46 @@ def _check_stream_out(name: str, out: torch.Tensor, *operands) -> None:
                              f"may only be an operand itself or disjoint")
 
 
-def _stream_launch(name: str, fn_name: str, out, operands, *args) -> None:
-    """Check the CUDA operands and launch ``fn_name`` as
-    ``fn(*args, out, dtype, n, stream)`` (``args`` ends with the operand
-    pointers)."""
+def stream_route(*operands: "torch.Tensor | None") -> str:
+    """The route (one of :data:`COLL_ROUTES`, whose names fit: the same
+    rule over the same 16-byte vectors) of a streaming launch over
+    ``operands`` — its inputs and ``out``; a None ``out`` is a fresh
+    allocation, which starts on 16 bytes — by the rule the C launchers
+    check (``csrc/streams.cu``): "vec16" when every data pointer starts
+    on 16 bytes (any n: the ragged tail runs element by element in the
+    same launch), else "scalar"."""
+    aligned = all(t.data_ptr() % COLL_VEC_BYTES == 0
+                  for t in operands if t is not None)
+    return "vec16" if aligned else "scalar"
+
+
+#: the 16-byte packs one CTA takes on the vec16 route, kUnroll × kThreads
+#: of ``csrc/streams.cu``: the group whose edges the card's tests cross
+STREAM_GROUP_PACKS = 256
+
+
+def _stream_launch(fn, fn_name: str, out, operands, *args) -> None:
+    """Check the CUDA operands (``out`` among them) and launch
+    ``fn_name`` as ``fn(*args, out, dtype, n, route, stream)`` (``args``
+    ends with the operand pointers) on the route :func:`stream_route`
+    names, counted on wrapper ``fn``; an empty operand launches
+    nothing."""
+    name = fn.__name__
     for t in operands:
         _check_cuda_operand(t, name)
-    fn = _entry("streams", fn_name)
     t0 = operands[0]
+    if t0.numel() == 0:
+        return
+    route = stream_route(*operands)
+    entry = _entry("streams", fn_name)
     with torch.cuda.device(t0.device):
-        rc = fn(*args, out.data_ptr(), DTYPE_CODES[t0.dtype], t0.numel(),
-                torch.cuda.current_stream(t0.device).cuda_stream)
+        rc = entry(*args, out.data_ptr(), DTYPE_CODES[t0.dtype], t0.numel(),
+                   coll_route_code(route),
+                   torch.cuda.current_stream(t0.device).cuda_stream)
     if rc != 0:
-        _raise_launch(name, rc)
+        _raise_launch(f"{name} ({route} route)", rc)
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
 
 
 def daxpy_ref(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -1842,7 +1871,9 @@ def daxpy(a: float, x: torch.Tensor, y: torch.Tensor,
           out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``out = a·x + y`` elementwise (≅ ``daxpy_pallas``), ``a`` rounded
     to the dtype first; ``out`` is a new tensor when None, and ``out=y``
-    is the in-place launch (``inplace=True``). Any length works."""
+    is the in-place launch (``inplace=True``). Any length works. The
+    launch takes the route :func:`stream_route` names for ``x``, ``y`` and
+    ``out``, counted in ``daxpy.launches_by_route``."""
     _check_stream("daxpy", x, y)
     if out is not None:
         _check_stream_out("daxpy", out, x, y)
@@ -1853,13 +1884,13 @@ def daxpy(a: float, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"daxpy: unsupported device {x.device}")
     if out is None:
         out = torch.empty_like(y, memory_format=torch.contiguous_format)
-    _stream_launch("daxpy", "tpumt_daxpy", out, (x, y, out),
+    _stream_launch(daxpy, "tpumt_daxpy", out, (x, y, out),
                    _rounded(a, x.dtype), x.data_ptr(), y.data_ptr())
-    daxpy.launches += 1
     return out
 
 
 daxpy.launches = 0
+daxpy.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
 def stream_scale_ref(a: float, x: torch.Tensor) -> torch.Tensor:
@@ -1871,7 +1902,8 @@ def stream_scale_ref(a: float, x: torch.Tensor) -> torch.Tensor:
 def stream_scale(a: float, x: torch.Tensor,
                  out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``out = a·x`` (≅ ``stream_scale_pallas``, the 2-stream probe);
-    ``out=x`` is the in-place launch."""
+    ``out=x`` is the in-place launch, on the route :func:`stream_route`
+    names (``stream_scale.launches_by_route``)."""
     if out is not None:
         _check_stream_out("stream_scale", out, x)
     if x.device.type == "cpu":
@@ -1881,13 +1913,13 @@ def stream_scale(a: float, x: torch.Tensor,
         raise ValueError(f"stream_scale: unsupported device {x.device}")
     if out is None:
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    _stream_launch("stream_scale", "tpumt_stream_scale", out, (x, out),
+    _stream_launch(stream_scale, "tpumt_stream_scale", out, (x, out),
                    _rounded(a, x.dtype), x.data_ptr())
-    stream_scale.launches += 1
     return out
 
 
 stream_scale.launches = 0
+stream_scale.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
 def stream_sum3_ref(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor
@@ -1901,7 +1933,8 @@ def stream_sum3(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``out = (w + x) + y`` (≅ ``stream_sum3_pallas``, the 4-stream
     probe: three reads and one write); ``out=y`` is the in-place
-    launch."""
+    launch, on the route :func:`stream_route` names
+    (``stream_sum3.launches_by_route``)."""
     _check_stream("stream_sum3", w, x, y)
     if out is not None:
         _check_stream_out("stream_sum3", out, w, x, y)
@@ -1912,13 +1945,13 @@ def stream_sum3(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"stream_sum3: unsupported device {y.device}")
     if out is None:
         out = torch.empty_like(y, memory_format=torch.contiguous_format)
-    _stream_launch("stream_sum3", "tpumt_stream_sum3", out, (w, x, y, out),
+    _stream_launch(stream_sum3, "tpumt_stream_sum3", out, (w, x, y, out),
                    w.data_ptr(), x.data_ptr(), y.data_ptr())
-    stream_sum3.launches += 1
     return out
 
 
 stream_sum3.launches = 0
+stream_sum3.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1977,14 +2010,15 @@ def _route_of(precision: str, q, k, v) -> str:
 
 def route_counts() -> dict:
     """Launches per route of the two attention kernels (keys
-    :data:`FLASH_ROUTES`), the two ring collectives, the one-shot kernel
-    and the ring halo (keys :data:`COLL_ROUTES`) and the two halo staging
-    copies (keys :data:`PACK_ROUTES`) since the last
-    :func:`reset_launch_counts`."""
+    :data:`FLASH_ROUTES`), the two ring collectives, the one-shot kernel,
+    the ring halo and the three streaming kernels (keys
+    :data:`COLL_ROUTES`) and the two halo staging copies (keys
+    :data:`PACK_ROUTES`) since the last :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
             for fn in (flash_attention_block, fused_ring_attention,
                        ring_allgather, ring_reduce_scatter, oneshot,
-                       ring_halo, pack_edges, unpack_ghosts)}
+                       ring_halo, pack_edges, unpack_ghosts, daxpy,
+                       stream_scale, stream_sum3)}
 
 
 @contextlib.contextmanager
