@@ -10,13 +10,19 @@ failure exits non-zero and prints no result line):
    process per source, in parallel), and print the registers, stack and
    spills of every flash and fused ring attention instance, of every
    ring collective instance, of every ring halo and one-shot instance,
-   of every pack/unpack instance and of every streaming-kernel instance
-   (the five ``PTXAS`` lines);
+   of every pack/unpack instance, of every streaming-kernel instance and
+   of every iterate and fused RDMA instance (the six ``PTXAS`` lines; no
+   instance of the k-step kernels' regs route may spill);
 3. hold each kernel against its plain PyTorch version on the card: the
-   k-step iterate over dim 0/1 × steps 1/4 × static flags (0,0)/(1,1)/(1,0)
-   and dynamic flags, float32 and bfloat16, ragged tile edges, and every
+   k-step iterate on both routes (``check_iterate_routes``: ``regs`` on
+   rows that start on 8 bytes up to 8 steps, in 16-byte vectors where
+   they start on 16, ``smem`` otherwise) over float32/bfloat16/float64 ×
+   dim 0/1 × steps 1-9 and 12 × static flags (0,0)/(1,1)/(1,0)/(0,1) and
+   dynamic flags × shapes ragged against the smem tiles and the regs run,
+   strip and segment, on rows of 16 and of 8 bytes, and views one element
+   and 8 bytes off 16 bytes, each launch counted on its route; and every
    operand the main path gives it (the bench's f32 blocks and bf16
-   buffer, the driver's periodic iterate blocks); the derivative over
+   buffer, the driver's periodic iterate blocks), each on regs; the derivative over
    dim 0/1 × float32/bfloat16 and its main-path shapes; the heat update
    over float32/bfloat16/float64 × steps 1..4 × ragged shapes (68×52,
    1000×777), the heat runner (exchange + kernel) against its torch tier
@@ -73,9 +79,12 @@ failure exits non-zero and prints no result line):
    main path's operands each on its route, and w = 2 and 4 cross-wired
    instances against the plain world; the fused kernel against the chained tier
    (``ring_halo`` → ``stencil2d_iterate``) over 21 chained calls (the
-   epoch counters advance) × steps 1 and 4 × the periodic self-ring and
-   ``local_only`` × float32/bfloat16 × 2 and 10 row blocks, and against
-   its plain version at those and the bench's operands; tolerance 0.
+   epoch counters advance) × steps 1, 4, 8 and 9 × the periodic
+   self-ring and ``local_only`` × float32/bfloat16 × rows on 16 bytes
+   (regs), on 8 and off 8 (smem) × 1 to 10 row blocks, and against its plain
+   version at those and the bench's operands (each on regs), and w = 2
+   and 4 cross-wired fused instances with the sends on vec16, scalar and
+   staged against the plain world; tolerance 0.
    The three collective kernels (``check_coll_kernels``): the ring
    all-gather and the ring reduce-scatter (credits 1 and 2) at world=1
    and on the self-ring k = 2, 4, 8, the one-shot gather and sum at
@@ -126,6 +135,8 @@ failure exits non-zero and prints no result line):
    per chained iteration of a hand-tier row, every row measured); every
    ring collective and one-shot launch of these paths on the ``vec16``
    route, and every ring halo launch of the RDMA slice on its operand's
+   route, counted exactly per path, and every k-step launch of every
+   path (``stencil2d_iterate``, ``stencil2d_fused_rdma``) on the regs
    route, counted exactly per path; then
    the world=2 legs: two ranks on one card are left out (the symmetric-memory
    allocator refuses them, a line says so) and the NCCL leg runs only
@@ -176,7 +187,11 @@ failure exits non-zero and prints no result line):
    the residual; none for the k-step updates) and its bound: the larger
    of bytes moved (each input read once, each output written once) over
    3.35 TB/s and flops over 67 TFLOP/s (H100 SXM float32 outside the
-   tensor cores; bf16 arithmetic runs in float32 units). The streaming
+   tensor cores; bf16 arithmetic runs in float32 units). The iterate at
+   the bench's f32 block and bf16 buffer, the driver's block,
+   ``rdma-chained``'s f32 dim-1 buffer and microbench ``iterate``'s bf16
+   k = 1 field (8-byte rows), back to back and queued, each with its
+   route and vector. The streaming
    kernels are timed in place at 2^26 (and daxpy at 2^24 and 2^28)
    float32, back to back and queued behind a stall, beside
    ``y.add_(x, alpha=a)`` and ``x.mul_(a)`` timed both ways; the daxpy
@@ -601,26 +616,8 @@ def check_kernels(device):
                            dtype=torch.float32).to(dtype)
 
     failures = []
-    n_cases = 0
+    n_cases = check_iterate_routes(device, rand, failures)
     for dtype in (torch.float32, torch.bfloat16):
-        for dim in (0, 1):
-            for steps in (1, 4):
-                K = 2 * steps
-                # ragged against both tile shapes (64x64 at dim 0,
-                # 8x256 at dim 1)
-                shape = (2 * K + 150, 200) if dim == 0 else (37, 2 * K + 600)
-                z = rand(shape, dtype)
-                for flags in ((0, 0), (1, 1), (1, 0), "dynamic"):
-                    kw = ({"phys": torch.tensor([0, 1], dtype=torch.int32,
-                                                device=device)}
-                          if flags == "dynamic" else {"phys_static": flags})
-                    got = hand.stencil2d_iterate(z, 0.37, dim=dim,
-                                                 steps=steps, **kw)
-                    want = hand.stencil2d_iterate_ref(z, 0.37, dim=dim,
-                                                      steps=steps, **kw)
-                    compare(f"iterate {dtype} dim={dim} steps={steps} "
-                            f"flags={flags}", got, want, failures)
-                    n_cases += 1
         for dim in (0, 1):
             shape = (133, 301) if dim == 0 else (301, 133)
             z = rand(shape, dtype)
@@ -628,13 +625,6 @@ def check_kernels(device):
                     hand.stencil2d_deriv(z, 3.0, dim=dim),
                     hand.stencil2d_deriv_ref(z, 3.0, dim=dim), failures)
             n_cases += 1
-    z = rand((70, 40), torch.float64)
-    compare("iterate float64 dim=0 steps=4",
-            hand.stencil2d_iterate(z, 0.37, dim=0, steps=4,
-                                   phys_static=(1, 0)),
-            hand.stencil2d_iterate_ref(z, 0.37, dim=0, steps=4,
-                                       phys_static=(1, 0)), failures)
-    n_cases += 1
 
     n_cases += check_grid_kernels(device, rand, failures)
     n_stream, stream_errs = check_stream_kernels(device, gen, failures)
@@ -661,6 +651,7 @@ def check_kernels(device):
             **probe_errs, **pack_errs, **ring_errs, **coll_errs}
     for _, shape, dtype, dim, flags, se in iterate_cases():
         z = rand(shape, dtype)
+        before = hand.stencil2d_iterate.launches_by_route["regs"]
         err = compare(
             f"iterate main-path {shape} {dtype} flags={flags}",
             hand.stencil2d_iterate(z, se, dim=dim, steps=4,
@@ -668,6 +659,9 @@ def check_kernels(device):
             hand.stencil2d_iterate_ref(z, se, dim=dim, steps=4,
                                        phys_static=flags), failures)
         errs["stencil2d_iterate"] = max(errs["stencil2d_iterate"], err)
+        if hand.stencil2d_iterate.launches_by_route["regs"] != before + 1:
+            failures.append(f"iterate main-path {shape} {dtype}: not "
+                            f"launched on the regs route")
         n_cases += 1
         del z
     for shape, dim in (((REF_N_LOCAL + 4, REF_N_OTHER), 0),
@@ -719,6 +713,90 @@ def check_kernels(device):
     errs["flash_attention_block classes"] = flash_errs
     errs["flash_attention_block main path"] = flash_main
     return errs
+
+
+def iterate_edges(dtype, dim, steps):
+    """Shapes of the iterate's checks: ragged against the smem tiles
+    (64×64 at dim 0, 8×256 at dim 1) and against the regs route's run
+    (two runs of kRunRows rows and 37: three balanced runs), strip (a
+    CTA's kRegsThreads column vectors and 3) and segment (150 vectors
+    a row) in 16-byte vectors, and the same in 8-byte vectors (rows of
+    1208 bytes, on 8 bytes and off 16)."""
+    import torch
+
+    item = torch.empty((), dtype=dtype).element_size()
+    E = 16 // item
+    K = 2 * steps
+    if dim == 0:
+        return ((2 * K + 150, 200), (2 * 128 + 37, (128 + 3) * E),
+                (2 * 128 + 37, 1208 // item))
+    return ((37, 2 * K + 600), (5, 150 * E), (5, 1208 // item))
+
+
+def check_iterate_routes(device, rand, failures) -> int:
+    """The iterate against its plain version on both routes, bit for
+    bit: float32/bfloat16/float64 × dim 0/1 × steps 1-9 and 12 × static
+    flags (0,0)/(1,1)/(1,0)/(0,1) and dynamic flags × the ragged shapes
+    of :func:`iterate_edges` (steps up to 8 on rows on 8 bytes take
+    regs, 9 and 12 smem), and views one element off 16 bytes (smem, but
+    regs for float64) and 8 bytes off (regs); each launch counted on the
+    route :func:`hand.kstep_route` names. Fails unless both routes
+    launched."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    took0 = dict(hand.stencil2d_iterate.launches_by_route)
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        for dim in (0, 1):
+            for steps in (*range(1, 10), 12):
+                for shape in iterate_edges(dtype, dim, steps):
+                    z = rand(shape, dtype)
+                    route = hand.kstep_route(z, dim, steps)
+                    for flags in ((0, 0), (1, 1), (1, 0), (0, 1),
+                                  "dynamic"):
+                        kw = ({"phys": torch.tensor(
+                            [0, 1], dtype=torch.int32, device=device)}
+                              if flags == "dynamic"
+                              else {"phys_static": flags})
+                        before = hand.stencil2d_iterate.launches_by_route[
+                            route]
+                        got = hand.stencil2d_iterate(z, 0.37, dim=dim,
+                                                     steps=steps, **kw)
+                        want = hand.stencil2d_iterate_ref(
+                            z, 0.37, dim=dim, steps=steps, **kw)
+                        name = (f"iterate {dtype} dim={dim} steps={steps} "
+                                f"{shape} flags={flags} route={route}")
+                        compare(name, got, want, failures)
+                        if hand.stencil2d_iterate.launches_by_route[
+                                route] != before + 1:
+                            failures.append(f"{name}: not counted on its "
+                                            f"route")
+                        n_cases += 1
+        item = torch.empty((), dtype=dtype).element_size()
+        # one element off 16 bytes; 8 bytes off, on rows of 264 bytes
+        for off, width in ((1, 129), (8 // item, 264 // item)):
+            buf = rand((60 * width + off,), dtype)
+            z = buf[off:].view(60, width)
+            for dim in (0, 1):
+                got = hand.stencil2d_iterate(z, 0.37, dim=dim, steps=4,
+                                             phys_static=(1, 0))
+                compare(f"iterate {dtype} dim={dim} view {off * item} "
+                        f"bytes off route={hand.kstep_route(z, dim, 4)} "
+                        f"vec={hand.kstep_vec_bytes(z)}", got,
+                        hand.stencil2d_iterate_ref(z, 0.37, dim=dim,
+                                                   steps=4,
+                                                   phys_static=(1, 0)),
+                        failures)
+                n_cases += 1
+    took = {r: hand.stencil2d_iterate.launches_by_route[r] - took0[r]
+            for r in took0}
+    log(f"CHECK stencil2d_iterate launches by route: {json.dumps(took)}")
+    if min(took.values()) <= 0:
+        failures.append(f"stencil2d_iterate: the checks did not launch "
+                        f"both routes ({took})")
+    return n_cases
 
 
 def compare_dual(name, z, sx, sy, failures, lean=False):
@@ -1360,6 +1438,18 @@ def check_stream_routes(path, launches):
         check_routes(path, name, {"vec16": n} if n else {})
 
 
+#: the k-step kernels, whose launches count per route (hand.KSTEP_ROUTES)
+KSTEP_KERNELS = ("stencil2d_iterate", "stencil2d_fused_rdma")
+
+
+def check_kstep_routes(path, launches):
+    """Every k-step launch of ``path`` (``launches``: kernel -> count) on
+    the regs route: every main-path operand's rows start on 8 bytes."""
+    for name in KSTEP_KERNELS:
+        n = launches.get(name, 0)
+        check_routes(path, name, {"regs": n} if n else {})
+
+
 def drive_path(path, fn, kernels, peaks):
     """Run one main path with every launch count set to 0 just before and
     read just after; fail unless each of ``kernels`` launched in it.
@@ -1532,6 +1622,10 @@ def run_main_path(device):
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
     recs["attention"] = run_attention_slice(device, counts, peaks)
     recs["one_card"] = run_one_card_slice(device, counts, peaks)
+    # every k-step launch of every path on the regs route
+    for path, c in counts.items():
+        check_kstep_routes(path, c)
+    log(f"KSTEP_ROUTES {json.dumps({p: {n: r[n] for n in KSTEP_KERNELS if sum(r[n].values())} for p, r in ROUTE_COUNTS.items()})}")
     # the staged legs of the stencil2d driver were handed the pack/unpack
     # kernels; its non-periodic world=1 exchange moves nothing
     for name in ("pack_edges", "unpack_ghosts"):
@@ -2082,11 +2176,15 @@ def check_ring_kernels(device, rand, failures):
     the main paths' operands, each on its route; w = 2 and 4 cross-wired
     instances on both routes and a staged extent, periodic and not,
     against the plain world; the fused kernel against ring_halo →
-    stencil2d_iterate (the chained tier) over steps 1 and 4 × the
-    periodic self-ring and ``local_only`` × float32/bfloat16 × nb = 2 and
-    nb > 2 row blocks, 21 chained calls, and against its own plain
-    version. Returns (cases, max abs error per kernel and of the
-    cross-wired ring halo)."""
+    stencil2d_iterate (the chained tier) over steps 1, 4, 8 (regs) and 9
+    (smem) × the periodic self-ring and ``local_only`` × float32/bfloat16
+    × a 16-byte row pitch (regs) and one off it (smem) × nb = 2 and nb > 2
+    row blocks, capped and at the default block, 21 chained calls, and
+    against its own plain version; w = 2 and 4 cross-wired fused
+    instances, periodic and not, with the sends on vec16, scalar and
+    staged and the body on both routes, against the plain world; the
+    fused main-path operands each on regs. Returns (cases, max abs error
+    per kernel and of the cross-wired instances)."""
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
@@ -2094,7 +2192,8 @@ def check_ring_kernels(device, rand, failures):
 
     n_cases = 0
     errs = {"ring_halo": 0.0, "stencil2d_fused_rdma": 0.0,
-            "ring_halo cross-wired": 0.0}
+            "ring_halo cross-wired": 0.0,
+            "stencil2d_fused_rdma cross-wired": 0.0}
     routes0 = dict(hand.ring_halo.launches_by_route)
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
         for axis, width in ((0, 45), (0, 48), (1, 37), ("1d", 1)):
@@ -2126,43 +2225,49 @@ def check_ring_kernels(device, rand, failures):
     if min(took.values()) <= 0:
         failures.append(f"ring_halo: the checks did not launch both routes "
                         f"({took})")
-    for dtype in (torch.float32, torch.bfloat16):
-        for steps in (1, 4):
+    fused0 = dict(hand.stencil2d_fused_rdma.launches_by_route)
+    # rows on 16 bytes (regs), on 8 bytes and off 8 (smem)
+    for dtype, widths in ((torch.float32, (300, 302, 301)),
+                          (torch.bfloat16, (304, 300, 301))):
+        for steps, width, blocks, capped in itertools.product(
+                (1, 4, 8, 9), widths, (4, 10), (True, False)):
             K = 2 * steps
-            for rows, tile in ((4 * K, 2 * K), (10 * K, 2 * K)):
-                for mode in ("periodic", "local_only"):
-                    z0 = rand((rows, 300), dtype)
-                    periodic = mode == "periodic"
-                    fused = H.iterate_fused_rdma_fn(
-                        K, 0.01, steps=steps, periodic=periodic,
-                        tile_rows=tile, local_only=not periodic)
-                    a = fused(z0.clone(), RING_CHAIN)
-                    if periodic:
-                        b = H.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
-                                              periodic=True,
-                                              rdma=True)(z0.clone(),
-                                                         RING_CHAIN)
-                    else:
-                        b = H.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
-                                              periodic=False)(z0.clone(),
-                                                              RING_CHAIN)
-                    nb = rows // hand.fused_block_rows(rows, steps, tile)
-                    err = compare(f"fused_rdma {dtype} steps={steps} nb={nb} "
-                                  f"{mode} vs chained x{RING_CHAIN}", a, b,
-                                  failures)
-                    flags = {"phys_static": (0, 0) if periodic else (1, 1)}
-                    got = hand.stencil2d_fused_rdma(
-                        z0.clone(), 0.01, steps=steps, periodic=periodic,
-                        tile_rows=tile, local_only=not periodic, **flags)
-                    want = hand.stencil2d_fused_rdma_ref(
-                        z0.clone(), 0.01, steps=steps, periodic=periodic,
-                        tile_rows=tile, local_only=not periodic, **flags)
-                    err = max(err, compare(
-                        f"fused_rdma {dtype} steps={steps} nb={nb} {mode} "
-                        f"vs plain", got, want, failures))
-                    errs["stencil2d_fused_rdma"] = max(
-                        errs["stencil2d_fused_rdma"], err)
-                    n_cases += 2
+            rows, tile = blocks * K, 2 * K if capped else None
+            for mode in ("periodic", "local_only"):
+                z0 = rand((rows, width), dtype)
+                periodic = mode == "periodic"
+                fused = H.iterate_fused_rdma_fn(
+                    K, 0.01, steps=steps, periodic=periodic,
+                    tile_rows=tile, local_only=not periodic)
+                a = fused(z0.clone(), RING_CHAIN)
+                if periodic:
+                    b = H.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
+                                          periodic=True,
+                                          rdma=True)(z0.clone(),
+                                                     RING_CHAIN)
+                else:
+                    b = H.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
+                                          periodic=False)(z0.clone(),
+                                                          RING_CHAIN)
+                route = hand.kstep_route(z0, 0, steps, fused=True)
+                nb = rows // hand.stencil2d_fused_rdma.block_rows
+                err = compare(f"fused_rdma {dtype} steps={steps} "
+                              f"width={width} nb={nb} {mode} {route} vs "
+                              f"chained x{RING_CHAIN}", a, b, failures)
+                flags = {"phys_static": (0, 0) if periodic else (1, 1)}
+                got = hand.stencil2d_fused_rdma(
+                    z0.clone(), 0.01, steps=steps, periodic=periodic,
+                    tile_rows=tile, local_only=not periodic, **flags)
+                want = hand.stencil2d_fused_rdma_ref(
+                    z0.clone(), 0.01, steps=steps, periodic=periodic,
+                    tile_rows=tile, local_only=not periodic, **flags)
+                err = max(err, compare(
+                    f"fused_rdma {dtype} steps={steps} width={width} "
+                    f"nb={nb} {mode} {route} vs plain", got, want,
+                    failures))
+                errs["stencil2d_fused_rdma"] = max(
+                    errs["stencil2d_fused_rdma"], err)
+                n_cases += 2
     # the main path's operands: the stencil2d --rdma exchanges, the
     # bench's chained dim-1 buffer, the fused operands (the bench's
     # local_only dim-0 buffer and the driver's periodic iterate leg)
@@ -2204,9 +2309,41 @@ def check_ring_kernels(device, rand, failures):
                                 f"periodic={periodic} rank {r}", g,
                                 e.to(device), failures))
                 n_cases += 1
+    # cross-wired fused instances: (dtype, shape, steps) with the sends
+    # on vec16 and the body on regs, the sends scalar and the body on
+    # smem (45-element rows), a staged height under 3K (regs), and steps
+    # 9 (smem) with vec16 sends
+    for w in (2, 4):
+        for periodic in (True, False):
+            for dtype, shape, steps in (
+                    (torch.float32, (40, 96), 2),
+                    (torch.bfloat16, (40, 45), 2),
+                    (torch.float32, (10, 96), 2),
+                    (torch.float64, (60, 40), 9)):
+                shards = [rand(shape, dtype) for _ in range(w)]
+                kw = {"scale_eps": 0.01, "steps": steps,
+                      "periodic": periodic}
+                got = hand.cross_wired("stencil2d_fused_rdma", shards, **kw)
+                want = hand.stencil2d_fused_rdma_world_ref(
+                    [t.cpu() for t in shards], **kw)
+                for r, (g, e) in enumerate(zip(got, want)):
+                    errs["stencil2d_fused_rdma cross-wired"] = max(
+                        errs["stencil2d_fused_rdma cross-wired"],
+                        compare(f"cross-wired fused_rdma w={w} {dtype} "
+                                f"{shape} steps={steps} periodic={periodic} "
+                                f"rank {r}", g, e.to(device), failures))
+                n_cases += 1
+    took = {r: hand.stencil2d_fused_rdma.launches_by_route[r] - fused0[r]
+            for r in fused0}
+    log(f"CHECK stencil2d_fused_rdma launches by route (self-ring "
+        f"cases): {json.dumps(took)}")
+    if min(took.values()) <= 0:
+        failures.append(f"stencil2d_fused_rdma: the checks did not launch "
+                        f"both routes ({took})")
     for shape, dtype, periodic in FUSED_MAIN_PATH:
         z = rand(shape, getattr(torch, dtype))
         flags = {"phys_static": (0, 0) if periodic else (1, 1)}
+        before = hand.stencil2d_fused_rdma.launches_by_route["regs"]
         got = hand.stencil2d_fused_rdma(z.clone(), BENCH_SE, steps=4,
                                         periodic=periodic,
                                         local_only=not periodic, **flags)
@@ -2218,6 +2355,9 @@ def check_ring_kernels(device, rand, failures):
             errs["stencil2d_fused_rdma"], compare(
                 f"fused_rdma main-path {shape} {dtype} periodic={periodic}",
                 got, want, failures))
+        if hand.stencil2d_fused_rdma.launches_by_route["regs"] != before + 1:
+            failures.append(f"fused_rdma main-path {shape} {dtype}: not "
+                            f"launched on the regs route")
         n_cases += 1
         del z, got, want
         torch.cuda.empty_cache()
@@ -2561,7 +2701,8 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
                     f"calls, the RDMA exchange equal to DIRECT on both "
                     f"ranks and both routes, {PAIR_RUNS} runs on fresh "
                     f"inputs without growth, ring_halo timed beside the "
-                    f"torch exchange",
+                    f"torch exchange, the fused kernel beside the "
+                    f"chained pair",
             "staged": "the hand-staged exchange equal to DIRECT at the "
                       "stencil2d dim-1 shard, pack and unpack on vec8, "
                       "timed beside DIRECT",
@@ -2611,7 +2752,8 @@ def _nccl_rdma(rank, gen):
     exchange against DIRECT on both of ``ring_halo``'s routes (a 32-byte
     band a row: vec16; 8 bytes: scalar), the runners' peer pairs freed
     with their results, then ``ring_halo`` timed beside the torch
-    exchange (:func:`_nccl_time_halo`)."""
+    exchange (:func:`_nccl_time_halo`) and the fused kernel beside the
+    chained pair (:func:`_nccl_time_fused`)."""
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
@@ -2661,6 +2803,7 @@ def _nccl_rdma(rank, gen):
                            f"bytes after {PAIR_RUNS} runs)")
     del z0, z1, fused
     _nccl_time_halo(rank, gen)
+    _nccl_time_fused(rank, gen)
 
 
 def _both_timed(fn, n=50):
@@ -2708,6 +2851,50 @@ def _nccl_time_halo(rank, gen):
         torch.cuda.empty_cache()
     log(f"TIME NCCL leg rank {rank} world=2 ring_halo, float32 shards "
         f"(ms per call): {json.dumps(times)}")
+
+
+def _nccl_time_fused(rank, gen):
+    """The fused kernel on the periodic two-card ring (its sends peer
+    stores into the other card, signalled at system scope) beside the
+    chained pair it replaces (``ring_halo``, then ``stencil2d_iterate``)
+    at the bench's ``rdma-fused`` f32 buffer, k = 4: equal bit for bit
+    on the same input, then ms per call (:func:`_both_timed`), with the
+    route and the rows per block the launch took."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm.peer import peer_ring
+    from tpu_mpi_tests_torch.kernels import hand
+
+    shape = (BENCH_N + 2 * K4, BENCH_N)
+    z = peer_ring(torch.device("cuda", rank)).empty(shape, torch.float32)
+    z.copy_(torch.randn(shape, generator=gen, device="cuda"))
+    out, out2 = torch.empty_like(z), torch.empty_like(z)
+
+    def fused():
+        return hand.stencil2d_fused_rdma(z, BENCH_SE, steps=4,
+                                         periodic=True, phys_static=(0, 0),
+                                         out=out)
+
+    def chained():
+        hand.ring_halo(z, axis=0, n_bnd=K4, periodic=True)
+        return hand.stencil2d_iterate(z, BENCH_SE, dim=0, steps=4,
+                                      phys_static=(0, 0), out=out2)
+
+    fused()
+    chained()
+    torch.cuda.synchronize()
+    if not torch.equal(out, out2):
+        raise SmokeFailure(f"NCCL leg rank {rank}: the fused kernel at "
+                           f"world 2 differs from the chained pair")
+    times = {"stencil2d_fused_rdma": _both_timed(fused),
+             "chained pair": _both_timed(chained)}
+    log(f"TIME NCCL leg rank {rank} world=2 stencil2d_fused_rdma "
+        f"{list(shape)} float32 k=4, equal to the chained pair, route "
+        f"{hand.kstep_route(z, 0, 4, out, fused=True)}, "
+        f"{hand.stencil2d_fused_rdma.block_rows} rows a block (ms per "
+        f"call): {json.dumps(times)}")
+    del z, out, out2
+    torch.cuda.empty_cache()
 
 
 #: the hand-staged exchange across two cards: the stencil2d dim-1 shard
@@ -3106,8 +3293,13 @@ def time_ring_kernels(device, gen):
             else "stencil2d --iterate-tier rdma-fused (self-ring)",
             "shape": list(shape), "dtype": str(dtype).split(".")[1],
             "steps": 4, "periodic": periodic, "local_only": not periodic,
-            "ms": time_cuda(fused, 50), "chained_pair_ms":
+            "route": hand.kstep_route(z, 0, 4, out, fused=True),
+            "ms": time_cuda(fused, 50),
+            "block_rows": hand.stencil2d_fused_rdma.block_rows,
+            "chained_pair_ms":
                 time_cuda(chained, 50),
+            "queued_ms": time_cuda_queued(fused, 20),
+            "chained_pair_queued_ms": time_cuda_queued(chained, 20),
             "plain_ms": time_cuda(lambda: hand.stencil2d_fused_rdma_ref(
                 z, BENCH_SE, steps=4, periodic=periodic,
                 local_only=not periodic, phys_static=flags), 3),
@@ -3233,18 +3425,24 @@ def time_kernels(device):
     gen = torch.Generator(device=device).manual_seed(99)
     rows = {}
 
-    def iterate_row(path, shape, dtype, dim, flags, se):
+    def iterate_row(path, shape, dtype, dim, flags, se, steps=4):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
         out = torch.empty_like(z)
         ms = time_cuda(lambda: hand.stencil2d_iterate(
-            z, se, dim=dim, steps=4, phys_static=flags, out=out), 50)
+            z, se, dim=dim, steps=steps, phys_static=flags, out=out), 50)
         plain = time_cuda(lambda: hand.stencil2d_iterate_ref(
-            z, se, dim=dim, steps=4, phys_static=flags), 5)
-        b, why = bound_ms(*iterate_work(shape, dtype, dim, 4, flags))
+            z, se, dim=dim, steps=steps, phys_static=flags), 5)
+        b, why = bound_ms(*iterate_work(shape, dtype, dim, steps, flags))
         return {"path": path, "shape": list(shape),
-                "dtype": str(dtype).split(".")[1], "dim": dim, "steps": 4,
-                "phys_static": list(flags), "ms": ms, "plain_ms": plain,
-                "bound_ms": b, "bound_by": why, "library_ms": None}
+                "dtype": str(dtype).split(".")[1], "dim": dim,
+                "steps": steps, "phys_static": list(flags),
+                "route": hand.kstep_route(z, dim, steps, out),
+                "vec_bytes": hand.kstep_vec_bytes(z, out), "ms": ms,
+                "queued_ms": time_cuda_queued(lambda: hand.stencil2d_iterate(
+                    z, se, dim=dim, steps=steps, phys_static=flags,
+                    out=out), 20),
+                "plain_ms": plain, "bound_ms": b, "bound_by": why,
+                "library_ms": None}
 
     def deriv_row(shape, dtype, dim):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -3307,10 +3505,15 @@ def time_kernels(device):
                                 "both derivatives, no residual"}
 
     # one row per distinct schedule: bench f32 block 0, bench bf16, the
-    # driver's periodic block
+    # driver's periodic block, rdma-chained's f32 dim-1 buffer, microbench
+    # iterate's bf16 k = 1 field (rows of 16392 bytes: 8-byte vectors)
     rows["stencil2d_iterate"] = []
-    for i in (0, 2, 3):
-        rows["stencil2d_iterate"].append(iterate_row(*iterate_cases()[i]))
+    for case in [iterate_cases()[i] for i in (0, 2, 3)] + [
+            ("bench rdma-chained float32", (BENCH_N, BENCH_N + 2 * K4),
+             torch.float32, 1, (1, 1), BENCH_SE),
+            ("microbench iterate bfloat16 k=1", (BENCH_N, BENCH_N + 4),
+             torch.bfloat16, 1, (0, 0), 1e-6, 1)]:
+        rows["stencil2d_iterate"].append(iterate_row(*case))
         torch.cuda.empty_cache()
     rows["stencil2d_deriv"] = [
         deriv_row((REF_N_LOCAL + 4, REF_N_OTHER), torch.float32, 0),
@@ -3669,6 +3872,26 @@ def coll_kernel_name(mangled: str) -> str:
     return f"{m[1]}<{', '.join(args)}>"
 
 
+def check_regs_spills(kstep_ptxas) -> None:
+    """Fail unless every regs instance of the k-step kernels (the iterate's
+    ``iterate_regs_dim*``, the fused kernel's instances of k >= 1 steps)
+    runs without spills. A library this process did not build (found
+    built under ``build/torch_kernels``) has no report to read."""
+    for lib, instances in kstep_ptxas.items():
+        regs = {k: v for k, v in instances.items()
+                if k.startswith("iterate_regs_dim")
+                or (k.startswith("fused_rdma_kernel<")
+                    and k.split(", ")[1] != "0")}
+        if not instances:
+            log(f"PTXAS {lib}: built before this process, no report")
+            continue
+        if not regs:
+            raise SmokeFailure(f"PTXAS {lib}: no regs instance read")
+        for k, v in regs.items():
+            if v.get("spill_stores", 0) or v.get("spill_loads", 0):
+                raise SmokeFailure(f"PTXAS {lib}: {k} spills {v}")
+
+
 def coll_ptxas_summary(build, lib="ring_collectives") -> dict:
     """Registers, stack and spill bytes of every kernel instance of a
     library from this process's build: the ring collectives (both
@@ -3688,7 +3911,8 @@ def main() -> int:
               "smoke test needs a CUDA card", file=sys.stderr)
         return 2
     try:
-        from tpu_mpi_tests_torch.kernels import build, hand, stream_ab
+        from tpu_mpi_tests_torch.kernels import (build, hand, kstep_ab,
+                                                 stream_ab)
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable ({e}); run "
               f"from the repository root", file=sys.stderr)
@@ -3727,6 +3951,10 @@ def main() -> int:
         stream_ptxas = build.ptxas_summary("streams",
                                            stream_ab.kernel_name)
         log(f"PTXAS stream instances {json.dumps(stream_ptxas)}")
+        kstep_ptxas = {lib: build.ptxas_summary(lib, kstep_ab.kernel_name)
+                       for lib in ("stencil_iterate", "fused_rdma")}
+        log(f"PTXAS iterate and fused instances {json.dumps(kstep_ptxas)}")
+        check_regs_spills(kstep_ptxas)
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -3808,6 +4036,16 @@ def main() -> int:
             extra["launches_by_route_per_path"] = {
                 p: r[name] for p, r in ROUTE_COUNTS.items()}
             extra["ptxas"] = halo_ptxas[name]
+        if name in KSTEP_KERNELS:
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()
+                if sum(r[name].values())}
+            extra["ptxas"] = kstep_ptxas[
+                "stencil_iterate" if name == "stencil2d_iterate"
+                else "fused_rdma"]
+        if name == "stencil2d_fused_rdma":
+            extra["cross_wired_max_abs_err"] = errs[
+                "stencil2d_fused_rdma cross-wired"]
         if name in PACK_REPLACES:
             # the flat copies serve both; the seam walk is one per kernel
             extra["launches_by_route_per_path"] = {

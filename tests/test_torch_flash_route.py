@@ -203,7 +203,9 @@ def test_cpu_wrappers_are_the_plain_version_and_count_no_route():
             ("unpack_ghosts", hand.PACK_ROUTES),
             ("daxpy", hand.COLL_ROUTES),
             ("stream_scale", hand.COLL_ROUTES),
-            ("stream_sum3", hand.COLL_ROUTES))}
+            ("stream_sum3", hand.COLL_ROUTES),
+            ("stencil2d_iterate", hand.KSTEP_ROUTES),
+            ("stencil2d_fused_rdma", hand.KSTEP_ROUTES))}
     rng = np.random.default_rng(9)
     q, k, v = (torch.from_numpy(normal(rng, (130, 64))).to(BF16)
                for _ in range(3))

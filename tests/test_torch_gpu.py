@@ -42,7 +42,15 @@ vectors, ``scalar`` on other widths, staged extents and views off 16
 bytes), each launch counted on its route, at world=1, on the self-ring
 and as cross-wired instances (the ring halo at w = 2 and 4, the one-shot
 kernel at w = 2, 4 and 8), at the main paths' operands, chained on one
-pad with the fused RDMA kernel, and refusing another route. The ALU
+pad with the fused RDMA kernel, and refusing another route. The k-step
+kernels on both routes (``regs`` up to 8 steps on rows that start on 8
+bytes for the iterate, in 16- or 8-byte vectors, and on 16 bytes for the
+fused kernel; ``smem`` at 9 and 12 steps and off them), every launch
+counted on its route, bit for bit: the iterate in three dtypes, both
+dims, every flag pair; the fused kernel against the chained tier over 21
+calls, against its plain version, and as w = 2 and 4 cross-wired
+instances with its sends on vec16, scalar and staged; a launch given
+another route than the rule's refused. The ALU
 probe is held bit for bit (``fma``, ``step5*``, ``heat5``) or within
 ``hand.alu_probe_tolerance`` (the dual mixes), with its chain property
 and capacity guard; pack and unpack bit for bit on both axes and on
@@ -1016,6 +1024,143 @@ def test_fused_rdma_kernel_matches_chained_and_plain(card, dtype, steps,
                                     **flags)
     torch.cuda.synchronize(card)
     assert torch.equal(got, want)
+
+
+FLAG_CASES = [(0, 0), (1, 1), (1, 0), (0, 1), "dynamic"]
+
+
+def kstep_operand(card, dtype, dim, steps, geometry, seed):
+    """A k-step operand: ``aligned`` rows of whole 16-byte vectors ragged
+    against the regs route's run, strip and segment
+    (``chip_smoke.iterate_edges``), ``rows8`` the same 8 bytes wider
+    (rows on 8 bytes, off 16), ``pitch`` one element wider, ``view`` the
+    aligned shape one element past 16 bytes."""
+    item = torch.empty((), dtype=dtype).element_size()
+    shape = list(CS.iterate_edges(dtype, dim, steps)[1])
+    shape[1] += {"rows8": 8 // item, "pitch": 1}.get(geometry, 0)
+    n = shape[0] * shape[1]
+    off = 1 if geometry == "view" else 0
+    return rand(card, (n + off,), dtype, seed)[off:].view(shape)
+
+
+def kstep_vec(dtype, geometry):
+    """The regs route's vector bytes a :func:`kstep_operand` takes (0:
+    none, the smem route)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return {"aligned": 16, "rows8": 8}.get(geometry, 8 if item == 8 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("steps", [*range(1, 10), 12])
+@pytest.mark.parametrize("geometry", ["aligned", "rows8", "pitch", "view"])
+def test_iterate_both_routes_match_plain(card, dtype, dim, steps, geometry):
+    """Both routes bit for bit: regs at steps <= 8 on rows on 8 bytes
+    (16-byte vectors where they are on 16), smem at 9 and 12 steps and on
+    rows or a view off 8 bytes; every static flag pair and the dynamic
+    flags, each launch counted on the route the rule names."""
+    z = kstep_operand(card, dtype, dim, steps, geometry, seed=steps + dim)
+    route = hand.kstep_route(z, dim, steps)
+    vec = kstep_vec(dtype, geometry)
+    assert hand.kstep_vec_bytes(z) == vec
+    assert route == ("regs" if steps <= 8 and vec else "smem")
+    for flags in FLAG_CASES:
+        kw = ({"phys": torch.tensor([0, 1], dtype=torch.int32, device=card)}
+              if flags == "dynamic" else {"phys_static": flags})
+        before = dict(hand.stencil2d_iterate.launches_by_route)
+        got = hand.stencil2d_iterate(z, 0.37, dim=dim, steps=steps, **kw)
+        want = hand.stencil2d_iterate_ref(z, 0.37, dim=dim, steps=steps,
+                                          **kw)
+        torch.cuda.synchronize(card)
+        assert torch.equal(got, want), flags
+        after = hand.stencil2d_iterate.launches_by_route
+        assert {r: after[r] - before[r] for r in after} == {
+            r: int(r == route) for r in hand.KSTEP_ROUTES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("steps", [1, 4, 8, 9])
+@pytest.mark.parametrize("geometry", ["aligned", "rows8", "pitch"])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_fused_rdma_both_routes_match_chained_and_plain(
+        card, dtype, steps, geometry, periodic):
+    """The fused kernel on both routes (regs on rows of whole 16-byte
+    vectors up to 8 steps; smem otherwise, rows on 8 bytes among them)
+    against the chained tier over 21 calls and against its plain version,
+    bit for bit, each launch on its route, its row block the
+    launcher's."""
+    K = 2 * steps
+    item = torch.empty((), dtype=dtype).element_size()
+    width = 16 // item * 19 + {"aligned": 0, "rows8": 8 // item,
+                               "pitch": 1}[geometry]
+    z0 = rand(card, (10 * K, width), dtype, seed=steps)
+    route = hand.kstep_route(z0, 0, steps, fused=True)
+    assert hand.kstep_vec_bytes(z0) == kstep_vec(dtype, geometry)
+    assert route == ("regs" if geometry == "aligned" and steps <= 8
+                     else "smem")
+    fused = TH.iterate_fused_rdma_fn(K, 0.01, steps=steps,
+                                     periodic=periodic)
+    chained = TH.iterate_hand_fn(K, 0.01, axis=0, steps=steps,
+                                 periodic=periodic, rdma=True)
+    before = dict(hand.stencil2d_fused_rdma.launches_by_route)
+    a = fused(z0.clone(), 21)
+    b = chained(z0.clone(), 21)
+    torch.cuda.synchronize(card)
+    after = hand.stencil2d_fused_rdma.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: 21 * int(r == route) for r in hand.KSTEP_ROUTES}
+    B = hand.stencil2d_fused_rdma.block_rows
+    assert B >= 2 * K and (10 * K) % B == 0
+    assert B == hand.fused_block_rows(10 * K, steps, None, route) or (
+        route == "regs")
+    assert torch.equal(a, b)
+    flags = {"phys_static": (0, 0) if periodic else (1, 1)}
+    got = hand.stencil2d_fused_rdma(z0.clone(), 0.01, steps=steps,
+                                    periodic=periodic, **flags)
+    want = hand.stencil2d_fused_rdma_ref(z0.clone(), 0.01, steps=steps,
+                                         periodic=periodic, **flags)
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("dtype,shape,steps", [
+    (torch.float32, (40, 96), 2),     # vec16 sends, regs body
+    (torch.float32, (40, 98), 2),     # scalar sends, smem body (8 bytes)
+    (torch.bfloat16, (40, 45), 2),    # scalar sends, smem body
+    (torch.float32, (10, 96), 2),     # staged sends (height under 3K)
+    (torch.float64, (60, 40), 9)])    # vec16 sends, smem body (9 steps)
+def test_fused_rdma_cross_wired(card, w, periodic, dtype, shape, steps):
+    """w instances of the fused kernel on one card, their peer pointers
+    cross-wired, against the plain world bit for bit."""
+    shards = [rand(card, shape, dtype, seed=r) for r in range(w)]
+    kw = {"scale_eps": 0.01, "steps": steps, "periodic": periodic}
+    got = hand.cross_wired("stencil2d_fused_rdma", shards, **kw)
+    want = hand.stencil2d_fused_rdma_world_ref([t.cpu() for t in shards],
+                                               **kw)
+    for g, e in zip(got, want):
+        assert torch.equal(g.cpu(), e)
+
+
+def test_kstep_launch_refuses_another_route(card, monkeypatch):
+    """The launchers check the route they are given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    z = rand(card, (64, 128), torch.float32, seed=3)
+    odd = rand(card, (64, 129), torch.float32, seed=4)
+    monkeypatch.setattr(hand, "kstep_route", lambda *a, **k: "smem")
+    with pytest.raises(RuntimeError, match="smem route"):
+        hand.stencil2d_iterate(z, 0.1, dim=0, steps=2)
+    with pytest.raises(RuntimeError, match="smem route"):
+        hand.stencil2d_fused_rdma(z, 0.1, steps=2, local_only=True)
+    monkeypatch.setattr(hand, "kstep_route", lambda *a, **k: "regs")
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.stencil2d_iterate(odd, 0.1, dim=1, steps=2)
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.stencil2d_iterate(z, 0.1, dim=1, steps=9)
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.stencil2d_fused_rdma(odd, 0.1, steps=2, local_only=True)
 
 
 def test_fused_rdma_local_only_is_the_iterate_kernel(card):

@@ -254,8 +254,9 @@ def test_fused_rdma_geometry_checks():
                                   local_only=True, tile_rows=8)
     with pytest.raises(ValueError, match="too small"):
         hand.stencil2d_fused_rdma(torch.zeros(16, 16), 1e-2, steps=4)
-    assert hand.fused_block_rows(8208, 4) == 57
-    assert hand.fused_block_rows(40, 4) == 40
+    assert hand.fused_block_rows(8208, 4, route="smem") == 57
+    assert hand.fused_block_rows(8208, 4) == 0  # the launcher's block
+    assert hand.fused_block_rows(40, 4, route="smem") == 40
     assert hand.fused_block_rows(112, 1, tile_rows=16) == 16
 
 

@@ -54,6 +54,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+#: flags of one library beside NVCC_FLAGS: the k-step kernels' regs
+#: route holds up to eight stages of register windows, and at ptxas's
+#: default register-usage level a few instances trade registers for
+#: spills; level 0 lets each take the registers it needs
+KSTEP_PTXAS = ("-Xptxas", "--register-usage-level=0")
+LIBRARY_FLAGS = {"stencil_iterate": KSTEP_PTXAS, "fused_rdma": KSTEP_PTXAS}
+
 _LOADED: dict[str, ctypes.CDLL] = {}
 #: ptxas reports (registers, shared memory, spills) of this process's builds
 BUILD_LOGS: dict[str, str] = {}
@@ -77,7 +84,8 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS
+                                + LIBRARY_FLAGS.get(name, ())).encode())
     src = CSRC / SOURCES[name]
     for p in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
@@ -105,8 +113,8 @@ def build(names=None) -> dict[str, Path]:
         fd, tmp = tempfile.mkstemp(prefix=f"lib{n}.", suffix=".so.tmp",
                                    dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               str(CSRC / SOURCES[n])]
+        cmd = [nvcc, *NVCC_FLAGS, *LIBRARY_FLAGS.get(n, ()), "-I",
+               str(CSRC), "-o", tmp, str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,

@@ -2,10 +2,11 @@
 // ring halo kernels (ring_halo.cu, fused_rdma.cu), the collective
 // kernels (ring_collectives.cu, oneshot.cu) and the fused ring attention
 // (fused_ring_attention.cu). The helpers at the end (the routes,
-// load_peer, coll_sweep, coll_arrive_cta, ring_arrive_cta) and those of
-// occupancy.cuh (coll_resident_ctas, coll_grid) serve
-// ring_collectives.cu, oneshot.cu and ring_halo.cu; fused_rdma.cu sends
-// through ring_store / ring_arrive.
+// load_peer, coll_sweep, coll_arrive_cta, ring_arrive_cta, the halo walk)
+// and those of occupancy.cuh (coll_resident_ctas, coll_grid) serve
+// ring_collectives.cu, oneshot.cu, ring_halo.cu and fused_rdma.cu, whose
+// sends take ring_halo's walk (ring_stage / ring_store for extents under
+// three bands).
 //
 // A rank's signal pad (comm/peer.py) holds 128 int32 words. Remote words
 // are epoch counters written by other ranks; local words are counters of
@@ -66,10 +67,10 @@
 //
 // Memory order: a signal is a st.release.sys after the sender's peer
 // stores were ordered, by __threadfence_system() in every thread
-// (ring_arrive, coll_arrive) or by one acquire-release count a CTA
-// (coll_arrive_cta, ring_arrive_cta); a wait is a ld.acquire.sys loop;
-// the ring halo's one-card self-ring does all of this at gpu scope (no
-// other card takes part). Data that peers write during a launch is read
+// (coll_arrive) or by one acquire-release count a CTA (coll_arrive_cta,
+// ring_arrive_cta); a wait is a ld.acquire.sys loop; the two ring halo
+// kernels' one-card self-ring does all of this at gpu scope (no other
+// card takes part). Data that peers write during a launch is read
 // with ld.global.cg (L2, never a stale L1 line). A wait gives up after
 // kWaitTimeoutNs and traps, so a lost peer makes the launch fail (the next
 // synchronise raises) instead of hanging the card. One stream per pad: two
@@ -265,23 +266,6 @@ __device__ __forceinline__ void ring_stage(const RingView<W>& r, W* stage) {
   }
 }
 
-// After a CTA's stores: fence them system-wide, count the CTA done, and let
-// the last of `senders` CTAs signal the arrivals to the neighbours. Returns
-// true in that last CTA's thread 0.
-template <typename W>
-__device__ __forceinline__ bool ring_arrive(const RingView<W>& r,
-                                            int senders) {
-  __threadfence_system();
-  __syncthreads();
-  if (threadIdx.x != 0 || threadIdx.y != 0) return false;
-  if (atomicAdd(r.pad + kDone, 1) != senders - 1) return false;
-  atomicExch(r.pad + kDone, 0);
-  __threadfence_system();
-  if (r.send_hi) pad_signal(r.right_pad + kArrFromLeft, r.epoch);
-  if (r.send_lo) pad_signal(r.left_pad + kArrFromRight, r.epoch);
-  return true;
-}
-
 // This CTA's work ticket (the order CTAs started in); the last ticket
 // resets the counter.
 __device__ __forceinline__ int take_ticket(int* pad, int* slot) {
@@ -431,7 +415,7 @@ __device__ __forceinline__ void coll_sweep(long long n, Load load,
 template <bool kSys = true>
 __device__ __forceinline__ bool coll_arrive_cta(int* counter, int ctas) {
   __syncthreads();
-  if (threadIdx.x != 0) return false;
+  if (threadIdx.x != 0 || threadIdx.y != 0) return false;
   if constexpr (!kSys) {
     int old;
     asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
@@ -444,10 +428,11 @@ __device__ __forceinline__ bool coll_arrive_cta(int* counter, int ctas) {
   return old == ctas - 1;
 }
 
-// ring_arrive with one ordering operation a CTA (coll_arrive_cta's
-// pattern on kDone): the last of `senders` CTAs resets the count for the
-// next launch and signals the arrivals to the neighbours it sent to.
-// True in that last CTA's thread 0.
+// The two ring halo kernels' arrival, with one ordering operation a CTA
+// (coll_arrive_cta's pattern on kDone), after each CTA's share of the
+// bands: the last of `senders` CTAs resets the count for the next launch
+// and signals the arrivals to the neighbours it sent to. True in that
+// last CTA's thread 0.
 template <bool kSys = true, typename W>
 __device__ __forceinline__ bool ring_arrive_cta(const RingView<W>& r,
                                                 int senders) {
@@ -456,6 +441,87 @@ __device__ __forceinline__ bool ring_arrive_cta(const RingView<W>& r,
   if (r.send_hi) pad_signal<kSys>(r.right_pad + kArrFromLeft, r.epoch);
   if (r.send_lo) pad_signal<kSys>(r.left_pad + kArrFromRight, r.epoch);
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// the halo walk (ring_halo.cu, and fused_rdma.cu's send CTAs)
+// ---------------------------------------------------------------------------
+
+// Both bands as `rows` runs of `vb` items of V each, `pitch` items apart
+// (axis 0: one run of the band's whole rows; axis 1: a row's share of the
+// band), with each band's first item in my array (src) and in the
+// neighbour's (dst).
+struct HaloWalk {
+  long long rows, vb, pitch;
+  long long lo_src, lo_dst, hi_src, hi_dst;
+};
+
+// The walk of an (n0, n1) array's bands `b` wide along `axis`, in items
+// of `v` elements (1, or 16 / itemsize on the vec16 route).
+inline HaloWalk walk_of(int axis, long long n0, long long n1, long long b,
+                        long long v) {
+  if (axis == 0) {
+    const long long row = n1 / v;
+    return {1, b * row, 0, b * row, (n0 - b) * row, (n0 - 2 * b) * row, 0};
+  }
+  const long long pitch = n1 / v, vb = b / v;
+  return {n0, vb, pitch, vb, pitch - vb, pitch - 2 * vb, 0};
+}
+
+// The ring halo's route rule (hand.halo_route): vec16 when my buffer and
+// both neighbours' start on 16 bytes, the row pitch is whole vectors and,
+// on axis 1, so is a row's band; never for an extent under 3·b (staged).
+inline int halo_route(int itemsize, int axis, long long n0, long long n1,
+                      long long b, const void* z, const void* left_z,
+                      const void* right_z) {
+  if ((axis == 0 ? n0 : n1) < 3 * b || n1 * itemsize % 16)
+    return kRouteScalar;
+  return coll_route(axis == 0 ? n1 * itemsize : b * itemsize,
+                    {z, left_z, right_z});
+}
+
+// This CTA's share (work index `part` of `parts`) of the walk: item e =
+// row·vb + j of both bands, e = first + i·stride as in a grid-stride loop
+// over parts × the CTA's threads. (row, j) is divided out once and stepped
+// on after that; kU items are loaded before any is stored.
+template <int kU, typename V>
+__device__ __forceinline__ void halo_walk(const RingView<V>& r,
+                                          const HaloWalk& h, long long part,
+                                          long long parts) {
+  const bool lo = r.send_lo, hi = r.send_hi;
+  if (!lo && !hi) return;
+  const long long threads = blockDim.x * blockDim.y;
+  const long long stride = parts * threads;
+  const long long first =
+      part * threads + threadIdx.y * blockDim.x + threadIdx.x;
+  const long long drow = stride / h.vb, dj = stride % h.vb;
+  long long row = first / h.vb, j = first % h.vb;
+  while (row < h.rows) {
+    long long at[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      at[u] = row < h.rows ? row * h.pitch + j : -1;
+      row += drow;
+      j += dj;
+      if (j >= h.vb) {
+        j -= h.vb;
+        ++row;
+      }
+    }
+    V vlo[kU], vhi[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (at[u] < 0) continue;
+      if (lo) vlo[u] = r.z[h.lo_src + at[u]];
+      if (hi) vhi[u] = r.z[h.hi_src + at[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (at[u] < 0) continue;
+      if (lo) r.left_z[h.lo_dst + at[u]] = vlo[u];
+      if (hi) r.right_z[h.hi_dst + at[u]] = vhi[u];
+    }
+  }
 }
 
 }  // namespace tpumt

@@ -72,57 +72,6 @@ constexpr int kThreads = 256;
 // more only crowds the strided rows' 32-byte sectors
 constexpr int kUnroll = 4;
 
-// Both bands as `rows` runs of `vb` items of V each, `pitch` items apart
-// (axis 0: one run of the band's whole rows; axis 1: a row's share of the
-// band), with each band's first item in my array (src) and in the
-// neighbour's (dst).
-struct HaloWalk {
-  long long rows, vb, pitch;
-  long long lo_src, lo_dst, hi_src, hi_dst;
-};
-
-// This thread's share of the walk: item e = row·vb + j of both bands,
-// e = first + i·stride as in a grid-stride loop. (row, j) is divided out
-// once and stepped on after that; kU items are loaded before any is
-// stored.
-template <int kU, typename V>
-__device__ __forceinline__ void halo_walk(const RingView<V>& r,
-                                          const HaloWalk& h) {
-  const bool lo = r.send_lo, hi = r.send_hi;
-  if (!lo && !hi) return;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first =
-      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  const long long drow = stride / h.vb, dj = stride % h.vb;
-  long long row = first / h.vb, j = first % h.vb;
-  while (row < h.rows) {
-    long long at[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      at[u] = row < h.rows ? row * h.pitch + j : -1;
-      row += drow;
-      j += dj;
-      if (j >= h.vb) {
-        j -= h.vb;
-        ++row;
-      }
-    }
-    V vlo[kU], vhi[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (at[u] < 0) continue;
-      if (lo) vlo[u] = r.z[h.lo_src + at[u]];
-      if (hi) vhi[u] = r.z[h.hi_src + at[u]];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (at[u] < 0) continue;
-      if (lo) r.left_z[h.lo_dst + at[u]] = vlo[u];
-      if (hi) r.right_z[h.hi_dst + at[u]] = vhi[u];
-    }
-  }
-}
-
 // V: uint4 (vec16) or the element's bits (scalar); `stage` (scalar
 // route, one CTA) holds both edges for extents under 3·n_bnd. kSys:
 // signals at system scope (neighbours on other cards); false on the
@@ -145,26 +94,14 @@ __global__ void __launch_bounds__(kThreads)
     if (stage)
       ring_store(r, stage, 0, 1);
     else
-      halo_walk<1>(r, h);
+      halo_walk<1>(r, h, blockIdx.x, gridDim.x);
   } else {
-    halo_walk<kUnroll>(r, h);
+    halo_walk<kUnroll>(r, h, blockIdx.x, gridDim.x);
   }
   if (ring_arrive_cta<kSys>(r, static_cast<int>(gridDim.x))) {
     if (r.send_lo) pad_wait<kSys>(r.pad + kArrFromLeft, r.epoch);
     if (r.send_hi) pad_wait<kSys>(r.pad + kArrFromRight, r.epoch);
   }
-}
-
-// The walk of an (n0, n1) array's bands `b` wide along `axis`, in items
-// of `v` elements (1, or 16 / itemsize on the vec16 route).
-HaloWalk walk_of(int axis, long long n0, long long n1, long long b,
-                 long long v) {
-  if (axis == 0) {
-    const long long row = n1 / v;
-    return {1, b * row, 0, b * row, (n0 - b) * row, (n0 - 2 * b) * row, 0};
-  }
-  const long long pitch = n1 / v, vb = b / v;
-  return {n0, vb, pitch, vb, pitch - vb, pitch - 2 * vb, 0};
 }
 
 template <typename V, bool kSys>
@@ -202,18 +139,6 @@ int launch_scoped(void* z, void* left_z, void* right_z, int* pad,
   const auto go = one_card ? launch<V, false> : launch<V, true>;
   return go(z, left_z, right_z, pad, left_pad, right_pad, epoch, axis, n0,
             n1, b, send_lo, send_hi, v, stage, max_ctas, s);
-}
-
-// The route the rule gives (hand.halo_route): vec16 when my buffer and
-// both neighbours' start on 16 bytes, the row pitch is whole vectors and,
-// on axis 1, so is a row's band; never for an extent under 3·b (staged).
-int halo_route(int itemsize, int axis, long long n0, long long n1,
-               long long b, const void* z, const void* left_z,
-               const void* right_z) {
-  if ((axis == 0 ? n0 : n1) < 3 * b || n1 * itemsize % 16)
-    return kRouteScalar;
-  return coll_route(axis == 0 ? n1 * itemsize : b * itemsize,
-                    {z, left_z, right_z});
 }
 
 }  // namespace

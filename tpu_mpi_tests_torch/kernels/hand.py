@@ -72,7 +72,8 @@ streaming kernels (keys :data:`COLL_ROUTES`: ``vec16`` or ``scalar``;
 :func:`coll_route`, :func:`halo_route`, :func:`stream_route`) and the
 two halo staging copies (keys
 :data:`PACK_ROUTES`: ``vec16``, ``vec8`` or ``scalar``;
-:func:`pack_route`).
+:func:`pack_route`) and the two k-step kernels (keys
+:data:`KSTEP_ROUTES`: ``regs`` or ``smem``; :func:`kstep_route`).
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -123,9 +124,11 @@ _c_void_p, _c_int, _c_ll, _c_double = (
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double)
 # C entry point → (argument types, return type)
 _SIGNATURES = {
+    # z, out; dtype, dim, n0, n1, steps; se, c1, c2; phys_lo, phys_hi,
+    # phys; route (KSTEP_ROUTES index), stream
     "tpumt_stencil2d_iterate": ([
         _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_ll, _c_int,
-        _c_double, _c_double, _c_double, _c_int, _c_int, _c_void_p,
+        _c_double, _c_double, _c_double, _c_int, _c_int, _c_void_p, _c_int,
         _c_void_p,
     ], _c_int),
     "tpumt_stencil2d_deriv": ([
@@ -186,11 +189,13 @@ _SIGNATURES = {
                            _c_void_p], _c_int),
     # z, out, left z, right z, pad, left pad, right pad; epoch, dtype, n0,
     # n1, steps, rows per block; se, c1, c2; phys_lo, phys_hi, phys;
-    # send_lo, send_hi; stage, stream
+    # send_lo, send_hi; route (KSTEP_ROUTES index); stage; rows per block
+    # launched (out), stream
     "tpumt_stencil2d_fused_rdma": (
         [_c_void_p] * 7 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_double] * 3 + [_c_int, _c_int, _c_void_p, _c_int, _c_int,
-                             _c_void_p, _c_void_p], _c_int),
+                             _c_int, _c_void_p, ctypes.POINTER(_c_int),
+                             _c_void_p], _c_int),
     # x, out, buf, right buf, pad, left pad, right pad; epoch, itemsize, w,
     # my, n, seed_all, route (COLL_ROUTES index), max_ctas, stream
     "tpumt_ring_allgather": (
@@ -277,6 +282,53 @@ def _raise_launch(name: str, rc: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+#: the routes of the k-step body (csrc/stencil_kstep.cuh; a route's code
+#: is its index): "regs" — every k step in registers, a thread a column
+#: vector through a row pipeline (dim 0), a warp a row segment stepped by
+#: shuffles (dim 1); "smem" — the tile stepped in shared memory, any
+#: steps, any alignment
+KSTEP_ROUTES = ("smem", "regs")
+#: the most steps the regs route's registers hold (kRegsMaxSteps)
+KSTEP_REGS_MAX_STEPS = 8
+#: the bytes every row of z and out starts on for the regs route of the
+#: iterate (kIterateRowBytes) and of the fused kernel (kFusedRowBytes)
+KSTEP_ROW_BYTES = 8
+FUSED_ROW_BYTES = 16
+
+
+def kstep_vec_bytes(z: torch.Tensor,
+                    out: "torch.Tensor | None" = None) -> int:
+    """The regs route's vector for the contiguous 2-D ``z`` and ``out``
+    (None: a fresh allocation, which starts on 16 bytes), as the C
+    launchers take it (``kstep_vec_bytes``): 16 bytes where every row of
+    both starts on 16 bytes (both start there and the row pitch is whole
+    16-byte vectors), else 8 where every row starts on 8, else 0."""
+    ptrs = (z.data_ptr(),) + (() if out is None else (out.data_ptr(),))
+    pitch = z.shape[-1] * z.element_size()
+    for b in (16, 8):
+        if pitch % b == 0 and all(p % b == 0 for p in ptrs):
+            return b
+    return 0
+
+
+def kstep_route(z: torch.Tensor, dim: int, steps: int,
+                out: "torch.Tensor | None" = None,
+                fused: bool = False) -> str:
+    """The route (one of :data:`KSTEP_ROUTES`) of a k-step launch of
+    :func:`stencil2d_iterate` (or, ``fused``, of
+    :func:`stencil2d_fused_rdma`) on the contiguous 2-D ``z`` along
+    ``dim`` into ``out``, by the rule the C launchers check: "regs" when
+    1 ≤ ``steps`` ≤ :data:`KSTEP_REGS_MAX_STEPS` and every row of ``z``
+    and ``out`` starts on :data:`KSTEP_ROW_BYTES` (the fused kernel:
+    :data:`FUSED_ROW_BYTES`), else "smem"."""
+    if dim not in (0, 1):
+        raise ValueError(f"dim must be 0 or 1, got {dim}")
+    least = FUSED_ROW_BYTES if fused else KSTEP_ROW_BYTES
+    regs = (1 <= steps <= KSTEP_REGS_MAX_STEPS
+            and kstep_vec_bytes(z, out) >= least)
+    return "regs" if regs else "smem"
+
+
 def _iterate_flags(steps, phys_static, phys):
     # spans coincide at s=1, so the flags are irrelevant there; with no
     # flags at all both sides are exchange-fed (the JAX signature's rule)
@@ -343,7 +395,9 @@ def stencil2d_iterate(z: torch.Tensor, scale_eps: float, dim: int = 1,
     dynamically (``phys``, two ints — a device tensor on the card); with
     neither, both sides are exchange-fed. Ghost rows are part of the
     result: on an exchange-fed side rows [N_BND, K) come back partly
-    advanced, as the JAX kernel returns them."""
+    advanced, as the JAX kernel returns them. The launch takes the route
+    :func:`kstep_route` names for ``z``, ``out`` and ``steps``, counted in
+    ``stencil2d_iterate.launches_by_route``."""
     _check_iterate(z, dim, steps)
     if out is not None:
         _check_out(out, z, z.shape, "stencil2d_iterate")
@@ -366,6 +420,7 @@ def stencil2d_iterate(z: torch.Tensor, scale_eps: float, dim: int = 1,
         plo, phi = int(bool(phys_static[0])), int(bool(phys_static[1]))
     if out is None:
         out = torch.empty_like(z)
+    route = kstep_route(z, dim, steps, out)
     fn = _entry("stencil_iterate", "tpumt_stencil2d_iterate")
     with torch.cuda.device(z.device):
         rc = fn(
@@ -374,15 +429,18 @@ def stencil2d_iterate(z: torch.Tensor, scale_eps: float, dim: int = 1,
             _rounded(scale_eps, z.dtype), _rounded(_C1, z.dtype),
             _rounded(_C2, z.dtype), plo, phi,
             None if ph is None else ph.data_ptr(),
+            KSTEP_ROUTES.index(route),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     if rc != 0:
-        _raise_launch("stencil2d_iterate", rc)
+        _raise_launch(f"stencil2d_iterate ({route} route)", rc)
     stencil2d_iterate.launches += 1
+    stencil2d_iterate.launches_by_route[route] += 1
     return out
 
 
 stencil2d_iterate.launches = 0
+stencil2d_iterate.launches_by_route = dict.fromkeys(KSTEP_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1222,33 +1280,45 @@ def ring_halo_world_ref(shards, axis: int = 0, n_bnd: int = N_BND,
     return outs
 
 
-#: rows per block of the fused ring kernel when ``tile_rows`` is None
-#: (the largest divisor of the height up to this that holds the seam)
+#: rows per block of the fused ring kernel's smem route when ``tile_rows``
+#: is None (the largest divisor of the height up to this that holds the
+#: seam)
 FUSED_BLOCK_ROWS = 64
-#: the tallest row block the fused kernel's shared memory takes
+#: the tallest row block the smem route's shared memory takes
 FUSED_MAX_BLOCK_ROWS = 256
 
 
 def fused_block_rows(height: int, steps: int,
-                     tile_rows: "int | None" = None) -> int:
-    """Rows per block of the fused ring kernel for a ghosted ``height``:
-    blocks must tile the height exactly and hold the whole 2K-row seam (B
-    ≥ 2K, K = ``steps``·N_BND: only the first and the last block then
-    touch a ghost band). ``tile_rows`` caps B as in the JAX kernel (the
-    largest divisor of the height up to it); without it, the largest
-    divisor up to :data:`FUSED_BLOCK_ROWS` that holds the seam, else the
-    smallest that does up to :data:`FUSED_MAX_BLOCK_ROWS`. Raises
-    ``ValueError`` (naming the seam) when none does."""
+                     tile_rows: "int | None" = None,
+                     route: str = "regs") -> int:
+    """Rows per block of the fused ring kernel for a ghosted ``height``
+    on ``route`` (:func:`kstep_route`): blocks must tile the height
+    exactly and hold the whole 2K-row seam (B ≥ 2K, K = ``steps``·N_BND:
+    only the first and the last block then touch a ghost band).
+    ``tile_rows`` caps B as in the JAX kernel (the largest divisor of the
+    height up to it). Without it, 0 on the regs route: the launcher takes
+    the shortest divisor no shorter than the seam, 128 rows and the rows
+    that fill the card once (``csrc/fused_rdma.cu``; the wrapper reports
+    it as ``stencil2d_fused_rdma.block_rows``); on the smem route the
+    largest divisor up to :data:`FUSED_BLOCK_ROWS` that holds the seam,
+    else the smallest that does. The smem route takes none over
+    :data:`FUSED_MAX_BLOCK_ROWS` (its shared memory). Raises
+    ``ValueError`` (naming the seam) when none fits."""
+    if route not in KSTEP_ROUTES:
+        raise ValueError(f"unknown k-step route {route!r}; one of "
+                         f"{', '.join(KSTEP_ROUTES)}")
     K = steps * N_BND
     if height <= 2 * K:
         raise ValueError(f"height {height} too small for {steps}-step ghost "
                          f"width {2 * K}")
-    divisors = [d for d in range(1, min(height, FUSED_MAX_BLOCK_ROWS) + 1)
-                if height % d == 0]
+    if tile_rows is None and route == "regs":
+        return 0
+    cap = height if route == "regs" else min(height, FUSED_MAX_BLOCK_ROWS)
     if tile_rows is not None:
-        B = max(d for d in divisors + [1] if d <= tile_rows)
+        B = next((d for d in range(min(tile_rows, cap), 0, -1)
+                  if height % d == 0), 1)
     else:
-        fits = [d for d in divisors if d >= 2 * K]
+        fits = [d for d in range(2 * K, cap + 1) if height % d == 0]
         small = [d for d in fits if d <= FUSED_BLOCK_ROWS]
         B = max(small) if small else (min(fits) if fits else 1)
     if B < 2 * K:
@@ -1293,12 +1363,18 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float,
     :func:`stencil2d_iterate` (dim 0) with the same flags. ``local_only``
     (which world=1 non-periodic reduces to) exchanges nothing: the pure
     compute pass. The ring and the peer-memory rule are
-    :func:`ring_halo`'s. Row blocks: :func:`fused_block_rows`."""
+    :func:`ring_halo`'s; the sends take its walk, on the route
+    :func:`halo_route` would name. Row blocks: :func:`fused_block_rows`
+    on the route :func:`kstep_route` names for ``z``, ``out`` and
+    ``steps`` (the launch counted in
+    ``stencil2d_fused_rdma.launches_by_route``, its rows per block left in
+    ``stencil2d_fused_rdma.block_rows``)."""
     if z.dim() != 2:
         raise ValueError("stencil2d_fused_rdma: 2-D shards only")
-    B = fused_block_rows(z.shape[0], steps, tile_rows)
     if out is not None:
         _check_out(out, z, z.shape, "stencil2d_fused_rdma")
+    fused_block_rows(z.shape[0], steps, tile_rows,
+                     kstep_route(z, 0, steps, out, fused=True))
     if z.device.type == "cpu":
         ref = stencil2d_fused_rdma_ref(z, scale_eps, steps, periodic,
                                        phys_static, phys, tile_rows,
@@ -1332,6 +1408,8 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float,
                             device=z.device)
     if out is None:
         out = torch.empty_like(z)
+    route = kstep_route(z, 0, steps, out, fused=True)
+    B = fused_block_rows(z.shape[0], steps, tile_rows, route)
     fn = _entry("fused_rdma", "tpumt_stencil2d_fused_rdma")
     with torch.cuda.device(z.device):
         rc = fn(z.data_ptr(), out.data_ptr(), left_z, right_z, pad,
@@ -1340,15 +1418,23 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float,
                 _rounded(scale_eps, z.dtype), _rounded(_C1, z.dtype),
                 _rounded(_C2, z.dtype), plo, phi,
                 None if ph is None else ph.data_ptr(), int(send_lo),
-                int(send_hi), None if stage is None else stage.data_ptr(),
+                int(send_hi), KSTEP_ROUTES.index(route),
+                None if stage is None else stage.data_ptr(), _FUSED_B_REF,
                 torch.cuda.current_stream(z.device).cuda_stream)
     if rc != 0:
-        _raise_launch("stencil2d_fused_rdma", rc)
+        _raise_launch(f"stencil2d_fused_rdma ({route} route)", rc)
     stencil2d_fused_rdma.launches += 1
+    stencil2d_fused_rdma.launches_by_route[route] += 1
+    stencil2d_fused_rdma.block_rows = _FUSED_B.value
     return out
 
 
+# the rows per block a fused launch reports
+_FUSED_B = ctypes.c_int(0)
+_FUSED_B_REF = ctypes.byref(_FUSED_B)
 stencil2d_fused_rdma.launches = 0
+stencil2d_fused_rdma.launches_by_route = dict.fromkeys(KSTEP_ROUTES, 0)
+stencil2d_fused_rdma.block_rows = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1693,7 +1779,11 @@ def cross_wired(name: str, shards, credits: int = 1,
     For ``"ring_halo"`` each shard is a rank's ghosted array (copied:
     the instances exchange the copies' bands, distinct left and right
     neighbours from w = 3) and ``kw`` holds ``axis``, ``n_bnd`` and
-    ``periodic`` (:func:`ring_halo_world_ref` is its plain world). For
+    ``periodic`` (:func:`ring_halo_world_ref` is its plain world); for
+    ``"stencil2d_fused_rdma"`` the same, ``kw`` holding ``scale_eps``,
+    ``steps`` and ``periodic`` (:func:`stencil2d_fused_rdma_world_ref`;
+    its grid is its geometry's, so the shards are kept small enough that
+    every instance is resident at once). For
     ``"fused_ring_attention"`` each shard is a rank's ``(q, k, v)`` and
     ``kw`` holds the keywords of :func:`fused_ring_attention` (``scale``,
     ``causal``, ``stripe``, ``precision``). Every launch takes the route
@@ -1751,6 +1841,8 @@ def cross_wired(name: str, shards, credits: int = 1,
     elif name == "ring_halo":
         outs, launch = _ring_halo_cross(shards, pads, streams, max_ctas,
                                         **kw)
+    elif name == "stencil2d_fused_rdma":
+        outs, launch = _fused_rdma_cross(shards, pads, streams, **kw)
     elif name in ("oneshot_allgather", "oneshot_allreduce"):
         gather = name == "oneshot_allgather"
         rows = x0.shape[0] * (k if gather else 1)
@@ -2012,13 +2104,15 @@ def route_counts() -> dict:
     """Launches per route of the two attention kernels (keys
     :data:`FLASH_ROUTES`), the two ring collectives, the one-shot kernel,
     the ring halo and the three streaming kernels (keys
-    :data:`COLL_ROUTES`) and the two halo staging copies (keys
-    :data:`PACK_ROUTES`) since the last :func:`reset_launch_counts`."""
+    :data:`COLL_ROUTES`), the two halo staging copies (keys
+    :data:`PACK_ROUTES`) and the two k-step kernels (keys
+    :data:`KSTEP_ROUTES`) since the last :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
             for fn in (flash_attention_block, fused_ring_attention,
                        ring_allgather, ring_reduce_scatter, oneshot,
                        ring_halo, pack_edges, unpack_ghosts, daxpy,
-                       stream_scale, stream_sum3)}
+                       stream_scale, stream_sum3, stencil2d_iterate,
+                       stencil2d_fused_rdma)}
 
 
 @contextlib.contextmanager
@@ -2548,6 +2642,59 @@ def _ring_halo_cross(shards, pads, streams, max_ctas, *, axis: int = 0,
                   coll_route_code(route), max_ctas, streams[r].cuda_stream)
 
     return outs, launch
+
+
+def _fused_rdma_cross(shards, pads, streams, *, scale_eps: float,
+                      steps: int = 1, periodic: bool = True):
+    """:func:`cross_wired`'s fused ring kernel: instance r's input (a copy
+    of ``shards[r]``, also written by its neighbours' sends) and output,
+    launched into its neighbours r−1 and r+1 on the k-step route
+    :func:`kstep_route` names, the ring's ends physical when not
+    ``periodic`` (``Ring.phys``), staged through a scratch buffer of its
+    own where the height is under 3K."""
+    w = len(shards)
+    zs = [t.clone() for t in shards]
+    outs = [torch.empty_like(t) for t in shards]
+    z0 = zs[0]
+    K = steps * N_BND
+    stages = [torch.empty(2 * K * z0.shape[1], dtype=z0.dtype,
+                          device=z0.device) if z0.shape[0] < 3 * K else None
+              for _ in range(w)]
+    fn = _entry("fused_rdma", "tpumt_stencil2d_fused_rdma")
+
+    def launch(r):
+        ring = Ring(r, w)
+        send_lo, send_hi = ring.sends(periodic)
+        plo, phi = ring.phys(periodic) if steps > 1 else (0, 0)
+        route = kstep_route(zs[r], 0, steps, outs[r], fused=True)
+        B = fused_block_rows(z0.shape[0], steps, None, route)
+        return fn(zs[r].data_ptr(), outs[r].data_ptr(),
+                  zs[(r - 1) % w].data_ptr(), zs[(r + 1) % w].data_ptr(),
+                  pads[r].data_ptr(), pads[(r - 1) % w].data_ptr(),
+                  pads[(r + 1) % w].data_ptr(), 1, DTYPE_CODES[z0.dtype],
+                  z0.shape[0], z0.shape[1], steps, B,
+                  _rounded(scale_eps, z0.dtype), _rounded(_C1, z0.dtype),
+                  _rounded(_C2, z0.dtype), plo, phi, None, int(send_lo),
+                  int(send_hi), KSTEP_ROUTES.index(route),
+                  None if stages[r] is None else stages[r].data_ptr(), None,
+                  streams[r].cuda_stream)
+
+    return outs, launch
+
+
+def stencil2d_fused_rdma_world_ref(shards, scale_eps: float, steps: int = 1,
+                                   periodic: bool = True) -> list:
+    """Every rank's result of :func:`stencil2d_fused_rdma` over the
+    ranks' ghosted ``shards`` (one per rank, on any device), computed in
+    one process: :func:`ring_halo_world_ref` along dim 0 over K-deep
+    ghosts, then :func:`stencil2d_iterate_ref` along dim 0 on each, the
+    ring's ends physical when not ``periodic``. Holds the card's
+    cross-wired fused instances against the plain version's values."""
+    w = len(shards)
+    halo = ring_halo_world_ref(shards, 0, steps * N_BND, periodic)
+    return [stencil2d_iterate_ref(h, scale_eps, dim=0, steps=steps,
+                                  phys_static=Ring(r, w).phys(periodic))
+            for r, h in enumerate(halo)]
 
 
 def _fused_ring_cross(blocks, pads, streams, max_ctas, *, scale=None,
