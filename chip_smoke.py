@@ -58,12 +58,15 @@ failure exits non-zero and prints no result line):
    (``check_probe_kernel``) over its eight mixes × float32/bfloat16 ×
    (8, 128), (16, 128), (37, 200), (512, 512), a (3, 70, 130) stack and
    the main path's (B, 512, 512) stack × reps 1, 3, 64 × ``se`` 1e-9 and
-   0.05: ``fma``, ``step5*`` and ``heat5`` bit-exact; the two dual mixes,
-   which feed a sum taken in another order back into every element,
-   within ``hand.alu_probe_tolerance`` (2·reps·(eps·max|z| +
-   rtol·max|shift|)); the chain property
-   ``probe(probe(z, r1), r2) == probe(z, r1 + r2)`` bit for bit in every
-   mix; the capacity guard raising. Pack and unpack
+   0.05, and blocks on clusters of 2 to 16 CTAs and on the l2 route
+   (``PROBE_ROUTE_SHAPES``) × reps 1, 3: ``fma``, ``step5*`` and
+   ``heat5`` bit-exact; the two dual mixes, which feed a sum taken in
+   another order back into every element, within
+   ``hand.alu_probe_tolerance`` (2·reps·(eps·max|z| + rtol·max|shift|));
+   the chain property ``probe(probe(z, r1), r2) == probe(z, r1 + r2)``
+   bit for bit in every mix on both routes; every launch counted on the
+   route ``hand.probe_route`` names, both routes launched; the capacity
+   guard raising. Pack and unpack
    (``check_pack_kernels``) over both axes × three dtypes × ``n_bnd`` 1,
    2, 3, 8 × ragged shapes (odd widths, one and two rows along axis 1,
    views one element off 16 bytes), so that both kernels launch on every
@@ -173,8 +176,11 @@ failure exits non-zero and prints no result line):
    the JAX sizes — every group launches exactly what its
    schedule makes, every rate row is finite (or NaN by its own fit gate)
    and none exceeds 1.05 × the peak of the instructions it issues (the
-   probe rows: issued lone mul/add/sub per element against 67 TFLOP/s
-   float32, which bfloat16 also runs on, rounding after every op); the
+   probe rows: issued lone mul/add/sub per element against the card's
+   issue rate, SMs × 128 lanes × the peak SM clock, bfloat16 two
+   elements an instruction; every probe launch on the cluster route,
+   every bfloat16 dual-step launch on the regs route and every float32
+   one on smem, exactly); the
    periodic DEVICE_STAGED exchange with ``kernel="hand"`` on both axes
    (one pack and one unpack launch per exchange, each on its operand's
    route — ``vec16`` along axis 0, ``vec8`` along axis 1 — counted
@@ -203,8 +209,9 @@ failure exits non-zero and prints no result line):
    behind a stall (the wrapper's host time out), beside its plain
    version, its flop bound over the peak of its arithmetic, and
    ``F.scaled_dot_product_attention`` (TF32 off for f32). The probe at
-   (B, 512, 512) per mix (bound: issued operations over 67 TFLOP/s; no
-   library call computes it); pack and unpack at the staged exchange's
+   (B, 512, 512) per mix, its per-rep cost as the slope between two reps
+   counts, queued (bound: issued lone operations over the card's issue
+   rate, ``hand.probe_bound_s``; no library call computes it); pack and unpack at the staged exchange's
    operands on their routes beside ``torch.stack`` of the two
    ``narrow``s and two ``copy_`` (bound: bytes, the strided side counted
    as the union of the 32-byte sectors it touches; timed with their
@@ -358,6 +365,17 @@ PROBE_SE_VISIBLE = 0.05          # an update scale the arithmetic shows at
 # chained probe calls per timing point in this script (the microbench's
 # own default is 400); the reps triples are the groups' own
 SMOKE_PROBE_ITERS = 40
+# the probe's route cases: (shape, dtype, route) — blocks on clusters of
+# 2, 4, 8 and 16 CTAs, ragged against the slab and the vector, and blocks
+# no cluster's shared memory holds
+PROBE_ROUTE_SHAPES = (((1000, 40), "float32", "cluster"),
+                      ((997, 100), "float32", "cluster"),
+                      ((250, 520), "float32", "cluster"),
+                      ((515, 500), "float32", "cluster"),
+                      ((1023, 130), "bfloat16", "cluster"),
+                      ((300, 2000), "bfloat16", "cluster"),
+                      ((700, 1000), "float32", "l2"),
+                      ((2, 1030, 1024), "bfloat16", "l2"))
 SECTOR = 32                      # bytes the card moves per touched sector
 # the staged exchange's operands: (shape, axis) — the stencil2d driver's
 # two decompositions and the splitfused group's periodic field
@@ -506,7 +524,7 @@ def one_card_launches():
         "iterate": {"stencil2d_iterate": 3 * _chain(100, 2100)
                     + 3 * _chain(25, 525)},
         "splitfused": {},
-        "blocks": {"stencil2d_iterate": 3 * _chain(25, 525)},
+        "blocks": {"stencil2d_iterate": 3 * _chain(25, 525, repeats=2)},
         "heat": {"heat2d": 2 * heat},
     }
 
@@ -683,17 +701,29 @@ def check_kernels(device):
         n_cases += 1
         del z
         torch.cuda.empty_cache()
-    z = rand((GRID_N + 4, GRID_N + 4), torch.float32)
-    err, rel = compare_dual("dual_dim_step main-path", z, GRID_SCALE,
-                            GRID_SCALE, failures)
-    errs["dual_dim_step"] = max(errs["dual_dim_step"], err)
-    errs["dual_dim_step residual (relative)"] = rel
-    err, rel = compare_dual("dual_dim_step lean main-path", z, GRID_SCALE,
-                            GRID_SCALE, failures, lean=True)
-    errs["dual_dim_step"] = max(errs["dual_dim_step"], err)
-    errs["dual_dim_step lean residual (relative)"] = rel
-    n_cases += 2
-    del z
+    # the grid path's float32 block (smem), and the bfloat16 blocks
+    # roofline2 and the dual step's timing row launch (regs): (GRID_N + 4)²
+    # (outputs' rows on 16 bytes) and 4104² (z's rows on 16 bytes, a
+    # short last thread a row)
+    for n, dtype, route in ((GRID_N + 4, torch.float32, "smem"),
+                            (GRID_N + 4, torch.bfloat16, "regs"),
+                            (4104, torch.bfloat16, "regs")):
+        z = rand((n, n), dtype)
+        for lean in (False, True):
+            name = (f"dual_dim_step{' lean' if lean else ''} main-path")
+            before = hand.dual_dim_step.launches_by_route[route]
+            err, rel = compare_dual(name, z, GRID_SCALE, GRID_SCALE,
+                                    failures, lean=lean)
+            if hand.dual_dim_step.launches_by_route[route] != before + 1:
+                failures.append(f"{name} {n}² {dtype}: not launched on the "
+                                f"{route} route")
+            errs["dual_dim_step"] = max(errs["dual_dim_step"], err)
+            key = (f"dual_dim_step{' lean' if lean else ''} residual "
+                   f"(relative){'' if dtype == torch.float32 else ' bf16'}")
+            errs[key] = max(errs.get(key, 0.0), rel)
+            n_cases += 1
+        del z
+        torch.cuda.empty_cache()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     if failures:
@@ -832,8 +862,10 @@ def check_grid_kernels(device, rand, failures) -> int:
     from tpu_mpi_tests_torch.kernels import hand
 
     n_cases = 0
+    took0 = dict(hand.dual_dim_step.launches_by_route)
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
-        # ragged against the 32x128 output tile on both axes
+        # ragged against the 32x128 output tile on both axes; rows on 4
+        # elements (the regs route for bfloat16) and off them (smem)
         for shape in ((68, 52), (1000, 777)):
             z = rand(shape, dtype)
             for steps in (1, 2, 3, 4):
@@ -846,6 +878,12 @@ def check_grid_kernels(device, rand, failures) -> int:
             compare_dual("dual_dim_step lean", z, 3.0, 0.5, failures,
                          lean=True)
             n_cases += 2
+    took = {r: hand.dual_dim_step.launches_by_route[r] - took0[r]
+            for r in took0}
+    log(f"CHECK dual_dim_step launches by route: {json.dumps(took)}")
+    if min(took.values()) <= 0:
+        failures.append(f"dual_dim_step: the checks did not launch both "
+                        f"routes ({took})")
     # the runner: periodic exchange on both axes + the kernel on two
     # ping-ponged buffers, against the torch tier, 3 bodies
     for n_bnd, steps in ((1, 1), (4, 1), (4, 2), (4, 3), (4, 4)):
@@ -860,11 +898,16 @@ def check_grid_kernels(device, rand, failures) -> int:
     return n_cases
 
 
-def probe_batch(device) -> int:
-    """Blocks per probe launch on the main path (the groups' own rule)."""
+def probe_batch(device, dtype=None) -> int:
+    """Blocks per probe launch on the main path (the groups' own rule):
+    the clusters of (512, 512) blocks of ``dtype`` (float32 when None)
+    the card holds at once."""
+    import torch
+
     from tpu_mpi_tests_torch import microbench
 
-    return microbench.probe_batch(PROBE_HW, PROBE_HW, device)
+    return microbench.probe_batch(PROBE_HW, PROBE_HW, device,
+                                  dtype or torch.float32)
 
 
 def check_probe_kernel(device, rand, failures):
@@ -890,7 +933,8 @@ def check_probe_kernel(device, rand, failures):
     dual = {"max_abs_err": 0.0, "tolerance_at_that_case": 0.0, "equal": 0,
             "cases": 0}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in shapes:
+        main = (probe_batch(device, dtype), PROBE_HW, PROBE_HW)
+        for shape in shapes[:-1] + (main,):
             z = rand(shape, dtype)
             for mix in hand.ALU_PROBE_MIXES:
                 for reps in (1, 3, 64):
@@ -923,17 +967,63 @@ def check_probe_kernel(device, rand, failures):
                             failures.append(f"{name}: max |kernel - plain| "
                                             f"= {err:g} beyond {tol:g}")
             del z
+    # every route: clusters of 2 to 16 CTAs and the l2 route, each launch
+    # counted on the route hand.probe_route names
+    took0 = dict(hand.alu_probe.launches_by_route)
+    for shape, dname, route in PROBE_ROUTE_SHAPES:
+        dtype = getattr(torch, dname)
+        z = rand(shape, dtype)
+        if hand.probe_route(z) != route:
+            failures.append(f"alu_probe {shape} {dname}: route "
+                            f"{hand.probe_route(z)}, expected {route}")
+        for mix in hand.ALU_PROBE_MIXES:
+            for reps in (1, 3):
+                name = (f"alu_probe {mix} {dtype} {shape} reps={reps} "
+                        f"route={route}")
+                before = hand.alu_probe.launches_by_route[route]
+                got = hand.alu_probe(z, reps, mix, se=PROBE_SE_VISIBLE)
+                shifts = []
+                want = hand.alu_probe_ref(z, reps, mix, se=PROBE_SE_VISIBLE,
+                                          shifts=shifts)
+                n_cases += 1
+                if hand.alu_probe.launches_by_route[route] != before + 1:
+                    failures.append(f"{name}: not counted on its route")
+                if not mix.startswith("dualdim"):
+                    compare(name, got, want, failures)
+                    continue
+                err = float((got.double() - want.double()).abs().max())
+                tol = hand.alu_probe_tolerance(
+                    dtype, reps, float(want.double().abs().max()),
+                    max(shifts))
+                if not err <= tol:
+                    failures.append(f"{name}: max |kernel - plain| = "
+                                    f"{err:g} beyond {tol:g}")
+        del z
+    took = {r: hand.alu_probe.launches_by_route[r] - took0[r]
+            for r in took0}
+    log(f"CHECK alu_probe route cases launches by route: "
+        f"{json.dumps(took)}")
+    if min(took.values()) <= 0:
+        failures.append(f"alu_probe: the route cases did not launch both "
+                        f"routes ({took})")
     errs["alu_probe dual mixes"] = dual
-    # chain property: two launches equal one, bit for bit, in every mix
-    z = rand((2, 100, 300), torch.float32)
-    for mix in hand.ALU_PROBE_MIXES:
-        once = hand.alu_probe(z, 7, mix, se=PROBE_SE_VISIBLE)
-        twice = hand.alu_probe(hand.alu_probe(z, 3, mix, se=PROBE_SE_VISIBLE),
-                               4, mix, se=PROBE_SE_VISIBLE)
-        if not torch.equal(once, twice) or torch.equal(once, z):
-            failures.append(f"alu_probe {mix}: probe(probe(z, 3), 4) != "
-                            f"probe(z, 7)")
-        n_cases += 1
+    # chain property: two launches equal one, bit for bit, in every mix,
+    # on both routes
+    for shape, dtype in (((2, 100, 300), torch.float32),
+                         ((515, 500), torch.float32),
+                         ((700, 1000), torch.float32)):
+        z = rand(shape, dtype)
+        for mix in hand.ALU_PROBE_MIXES:
+            once = hand.alu_probe(z, 7, mix, se=PROBE_SE_VISIBLE)
+            twice = hand.alu_probe(
+                hand.alu_probe(z, 3, mix, se=PROBE_SE_VISIBLE), 4, mix,
+                se=PROBE_SE_VISIBLE)
+            if not torch.equal(once, twice) or torch.equal(once, z):
+                failures.append(f"alu_probe {mix} {shape} route="
+                                f"{hand.probe_route(z)}: probe(probe(z, 3), "
+                                f"4) != probe(z, 7)")
+            n_cases += 1
+        del z
     # the capacity guard: two buffers over the L2 raise, nothing launches
     l2 = hand.alu_probe_l2_bytes()
     big = torch.zeros((l2 // 4 // 1024 // 2 + 1024, 1024), device=device)
@@ -946,8 +1036,11 @@ def check_probe_kernel(device, rand, failures):
             failures.append(f"alu_probe capacity guard: {e}")
     n_cases += 1
     del big
-    log(f"PROBE {n_cases} cases; main-path stack {list(main)}, L2 {l2} B; "
-        f"dual mixes {json.dumps(dual)}")
+    log(f"PROBE {n_cases} cases; main-path stack {list(main)} on "
+        f"{hand.probe_route(torch.empty(main))} (cluster of "
+        f"{hand.probe_cluster(PROBE_HW, PROBE_HW, torch.float32)[0]} CTAs "
+        f"float32, {hand.probe_cluster(PROBE_HW, PROBE_HW, torch.bfloat16)[0]}"
+        f" bfloat16), L2 {l2} B; dual mixes {json.dumps(dual)}")
     return n_cases, errs
 
 
@@ -1450,6 +1543,20 @@ def check_kstep_routes(path, launches):
         check_routes(path, name, {"regs": n} if n else {})
 
 
+def check_probe_dual_routes(path, launches, dual_bf16):
+    """Every probe launch of ``path`` (``launches``: kernel -> count) on
+    the cluster route, ``dual_bf16`` of its dual-step launches on the regs
+    route and the rest on smem: the main path's (512, 512) blocks fit a
+    cluster, its bfloat16 dual-step blocks have rows on 4 elements and
+    its float32 ones take smem."""
+    n = launches.get("alu_probe", 0)
+    check_routes(path, "alu_probe", {"cluster": n} if n else {})
+    n = launches.get("dual_dim_step", 0)
+    check_routes(path, "dual_dim_step",
+                 {r: c for r, c in (("regs", dual_bf16),
+                                    ("smem", n - dual_bf16)) if c})
+
+
 def drive_path(path, fn, kernels, peaks):
     """Run one main path with every launch count set to 0 just before and
     read just after; fail unless each of ``kernels`` launched in it.
@@ -1613,6 +1720,7 @@ def run_main_path(device):
     per_step[path] = {"dual_dim_step": check_per_timestep(
         path, "dual_dim_step", counts[path]["dual_dim_step"],
         GRID_N_ITER + GRID_N_WARMUP, 1.0)}
+    check_probe_dual_routes(path, counts[path], 0)  # float32 blocks
 
     recs["rdma"] = run_rdma_slice(device, counts, per_step, peaks)
     recs["coll"] = run_coll_slice(device, counts, peaks)
@@ -1689,13 +1797,22 @@ def run_daxpy_slice(device, counts, peaks):
     return records
 
 
+def issue_rate() -> float:
+    """Lone float32 mul/add/sub the card issues a second
+    (``hand.alu_issue_rate``: SMs × 128 lanes × the peak SM clock)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    return hand.alu_issue_rate()
+
+
 def check_one_card_rates(path, recs):
     """Every rate row of a one-card group: finite and positive, or NaN
     where the row's own fit gate said so (the ``vpu_*_gops`` and
     ``roofline_*``/``dualdim_lean_gain_*`` rows: at the JAX sizes the
-    heat and dual-step chains are host-bound on a fast card); no GB/s row above
-    ``GBPS_CAP``; no probe row above 1.05 × 67 TFLOP/s counted in the
-    instructions it issues."""
+    heat and dual-step chains are host-bound on a fast card); no GB/s row
+    above ``GBPS_CAP``; no probe row above 1.05 × the card's issue rate
+    (:func:`issue_rate`) counted in the lone instructions it issues, a
+    bfloat16 row's elements at twice that (bf16x2)."""
     import math
 
     from tpu_mpi_tests_torch.kernels import hand
@@ -1721,9 +1838,12 @@ def check_one_card_rates(path, recs):
                        if metric.startswith(f"vpu_{m}_"))
             nominal = int(r["detail"].split("nominal ")[1].split()[0])
             issued = v * hand.ALU_PROBE_REAL_OPS[mix] / nominal  # Gop/s
-            if issued > 1.05 * F32_FLOPS_PER_S / 1e9:
+            per = 2 if metric.endswith("_bfloat16_gops") else 1
+            cap = 1.05 * per * issue_rate() / 1e9
+            if issued > cap:
                 raise SmokeFailure(f"{path}: {metric} issues {issued:g} "
-                                   f"Gop/s, above 1.05x the float32 peak")
+                                   f"G element-ops/s, above 1.05x the "
+                                   f"card's issue rate ({cap:g})")
 
 
 def run_one_card_slice(device, counts, peaks):
@@ -1765,6 +1885,9 @@ def run_one_card_slice(device, counts, peaks):
             raise SmokeFailure(f"{path}: launches {counts[path]}, its "
                                f"schedule makes {want_all}")
         check_stream_routes(path, want_all)
+        # roofline2's dual fit runs float32 and bfloat16 alike
+        check_probe_dual_routes(path, want_all,
+                                want_all.get("dual_dim_step", 0) // 2)
         check_one_card_rates(path, recs)
         log(f"  {path}: {time.perf_counter() - t0:.1f} s")
         records += recs
@@ -3498,6 +3621,7 @@ def time_kernels(device):
         return {"path": ("microbench roofline2" if lean
                          else "stencil2d_grid"),
                 "body": "lean" if lean else "raw", "shape": list(shape),
+                "route": hand.dual_route(z),
                 "dtype": str(dtype).split(".")[1], "ms": ms,
                 "plain_ms": plain, "bound_ms": b, "bound_by": why,
                 "library_ms": lib,
@@ -3567,46 +3691,62 @@ def band_sectors(shape, axis, n_bnd, itemsize, starts):
 
 def time_probe_and_pack(device, gen):
     """Per-launch times of the probe at the main path's (B, 512, 512)
-    stack — float32 per mix at the middle of its reps triple, and the
-    bfloat16 ``step5_d1`` the vpu group holds the bf16 kernel against —
-    with its bound (operations issued over 67 TFLOP/s against the stack
-    read and written once over 3.35 TB/s) and its plain version (no
-    library call computes it); and of pack and unpack at the staged
-    exchange's operands on their routes, with the byte bound (the strided
-    side counted as the union of the 32-byte sectors it touches), the
-    plain version and the one-call
-    yardsticks ``torch.stack`` of the two ``narrow``s and two
-    ``copy_``. These copies are shorter than their wrappers' host cost,
-    so they are timed queued behind a stall (:func:`time_cuda_queued`);
+    stack — each main-path mix in float32 at the middle of its reps
+    triple, and ``step5_d1`` (the bf16 kernel's yardstick), ``fma`` and
+    ``dualdim`` in bfloat16 — queued, with the per-rep cost as the slope
+    between that reps count and a quarter of it (launch, first load and
+    last store in the intercept), the route, the bound (the lone ops it
+    issues over the card's issue rate, :func:`issue_rate`, bfloat16 two
+    elements an instruction, against the stack read and written once over
+    3.35 TB/s) and its plain version (no library call computes it); and of
+    pack and unpack at the staged exchange's operands on their routes,
+    with the byte bound (the strided side counted as the union of the
+    32-byte sectors it touches), the plain version and the one-call
+    yardsticks ``torch.stack`` of the two ``narrow``s and two ``copy_``.
+    These copies are shorter than their wrappers' host cost, so they are
+    timed queued behind a stall (:func:`time_cuda_queued`);
     ``ms_host_loop`` is the plain loop's time, which is the host's."""
     import torch
 
     from tpu_mpi_tests_torch.kernels import hand
 
-    B = probe_batch(device)
-    shape = (B, PROBE_HW, PROBE_HW)
-    elems = B * PROBE_HW * PROBE_HW
+    rate = issue_rate()
     rows = {"alu_probe": [], "pack_edges": [], "unpack_ghosts": []}
     cases = [("step5_d0", torch.float32, 1024), ("fma", torch.float32, 2048),
              ("step5_d1", torch.float32, 256), ("heat5", torch.float32, 256),
              ("dualdim", torch.float32, 128),
              ("dualdim_lean", torch.float32, 128),
-             ("step5_d1", torch.bfloat16, 256)]
+             ("step5_d1", torch.bfloat16, 256), ("fma", torch.bfloat16, 2048),
+             ("dualdim", torch.bfloat16, 128)]
     for mix, dtype, reps in cases:
+        B = probe_batch(device, dtype)
+        shape = (B, PROBE_HW, PROBE_HW)
+        elems = B * PROBE_HW * PROBE_HW
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
-        ms = time_cuda(lambda: hand.alu_probe(z, reps, mix), 10)
+        ms = time_cuda_queued(lambda: hand.alu_probe(z, reps, mix), 5)
+        ms_q = time_cuda_queued(lambda: hand.alu_probe(z, reps // 4, mix),
+                                5)
+        per_rep = (ms - ms_q) / (reps - reps // 4)  # ms
         plain = time_cuda(lambda: hand.alu_probe_ref(z, reps, mix), 1)
-        ops = hand.ALU_PROBE_REAL_OPS[mix] * elems * reps
-        b, why = bound_ms(2 * elems * z.element_size(), ops)
+        t_ops = hand.probe_bound_s(mix, dtype, elems, reps, rate) * 1e3
+        t_bytes = 2 * elems * z.element_size() / HBM_BYTES_PER_S * 1e3
+        b, why = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+        route = hand.probe_route(z, mix)
+        cs = hand.probe_cluster(PROBE_HW, PROBE_HW, dtype)
         rows["alu_probe"].append({
             "path": "microbench vpu/roofline2", "shape": list(shape),
             "dtype": str(dtype).split(".")[1], "mix": mix, "reps": reps,
-            "ctas": hand.alu_probe.last_ctas, "ms": ms,
-            "us_per_rep": 1e3 * ms / reps, "plain_ms": plain, "bound_ms": b,
-            "bound_by": why, "library_ms": None,
-            "issued_gops": ops / ms / 1e6,
-            "where": "two L2-resident ping-pong buffers in global memory, "
-                     "one cooperative launch, a grid barrier per rep"})
+            "route": route, "ctas": hand.alu_probe.last_ctas,
+            "cluster_ctas": cs[0] if cs else None, "ms": ms,
+            "ms_at_quarter_reps": ms_q, "us_per_rep": 1e3 * per_rep,
+            "ps_per_elt_rep": 1e9 * per_rep / elems,
+            "bound_ps_per_elt_rep": 1e12 * hand.probe_bound_s(
+                mix, dtype, 1, 1, rate),
+            "plain_ms": plain, "bound_ms": b, "bound_by": why,
+            "issue_rate": rate, "library_ms": None,
+            "issued_gops": hand.ALU_PROBE_REAL_OPS[mix] * elems * reps
+            / ms / 1e6})
         del z
     for case_shape, axis in STAGED_CASES:
         z = torch.randn(case_shape, generator=gen, device=device)
@@ -3872,24 +4012,28 @@ def coll_kernel_name(mangled: str) -> str:
     return f"{m[1]}<{', '.join(args)}>"
 
 
-def check_regs_spills(kstep_ptxas) -> None:
-    """Fail unless every regs instance of the k-step kernels (the iterate's
-    ``iterate_regs_dim*``, the fused kernel's instances of k >= 1 steps)
-    runs without spills. A library this process did not build (found
-    built under ``build/torch_kernels``) has no report to read."""
-    for lib, instances in kstep_ptxas.items():
-        regs = {k: v for k, v in instances.items()
-                if k.startswith("iterate_regs_dim")
-                or (k.startswith("fused_rdma_kernel<")
-                    and k.split(", ")[1] != "0")}
+def check_no_spills(ptxas, is_main) -> None:
+    """Fail unless every instance of each library in ``ptxas`` that
+    ``is_main(name)`` picks (a main-path route's instance) runs without
+    spills. A library this process did not build (found built under
+    ``build/torch_kernels``) has no report to read."""
+    for lib, instances in ptxas.items():
         if not instances:
             log(f"PTXAS {lib}: built before this process, no report")
             continue
-        if not regs:
-            raise SmokeFailure(f"PTXAS {lib}: no regs instance read")
-        for k, v in regs.items():
+        main = {k: v for k, v in instances.items() if is_main(k)}
+        if not main:
+            raise SmokeFailure(f"PTXAS {lib}: no main-path instance read")
+        for k, v in main.items():
             if v.get("spill_stores", 0) or v.get("spill_loads", 0):
                 raise SmokeFailure(f"PTXAS {lib}: {k} spills {v}")
+
+
+def is_kstep_regs(name: str) -> bool:
+    """The k-step kernels' regs instances: the iterate's
+    ``iterate_regs_dim*``, the fused kernel's instances of k >= 1 steps."""
+    return name.startswith("iterate_regs_dim") or (
+        name.startswith("fused_rdma_kernel<") and name.split(", ")[1] != "0")
 
 
 def coll_ptxas_summary(build, lib="ring_collectives") -> dict:
@@ -3911,7 +4055,8 @@ def main() -> int:
               "smoke test needs a CUDA card", file=sys.stderr)
         return 2
     try:
-        from tpu_mpi_tests_torch.kernels import (build, hand, kstep_ab,
+        from tpu_mpi_tests_torch.kernels import (build, dual_ab, hand,
+                                                 kstep_ab, probe_ab,
                                                  stream_ab)
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable ({e}); run "
@@ -3954,7 +4099,17 @@ def main() -> int:
         kstep_ptxas = {lib: build.ptxas_summary(lib, kstep_ab.kernel_name)
                        for lib in ("stencil_iterate", "fused_rdma")}
         log(f"PTXAS iterate and fused instances {json.dumps(kstep_ptxas)}")
-        check_regs_spills(kstep_ptxas)
+        check_no_spills(kstep_ptxas, is_kstep_regs)
+        probe_ptxas = build.ptxas_summary("alu_probe", probe_ab.kernel_name)
+        dual_ptxas = build.ptxas_summary("dual_dim_step", dual_ab.kernel_name)
+        log(f"PTXAS probe and dual-step instances "
+            f"{json.dumps({'alu_probe': probe_ptxas, 'dual_dim_step': dual_ptxas})}")
+        check_no_spills({"alu_probe": probe_ptxas,
+                         "dual_dim_step": dual_ptxas},
+                        lambda k: k.startswith(("probe_cluster_kernel<",
+                                                "dual_regs_kernel<")))
+        log(f"ISSUE_RATE {issue_rate():.6g} lone ops/s (SMs x 128 lanes x "
+            f"the peak SM clock)")
 
         errs = check_kernels(device)
         torch.cuda.empty_cache()
@@ -4015,7 +4170,17 @@ def main() -> int:
                                               "(relative)"],
                      "lean_residual_rel_err": errs["dual_dim_step lean "
                                                    "residual (relative)"],
-                     "residual_rtol": hand.RESIDUAL_RTOL[torch.float32]}
+                     "residual_rtol": hand.RESIDUAL_RTOL[torch.float32],
+                     "bf16_residual_rel_err": errs["dual_dim_step residual "
+                                                   "(relative) bf16"],
+                     "bf16_lean_residual_rel_err": errs[
+                         "dual_dim_step lean residual (relative) bf16"],
+                     "bf16_residual_rtol": hand.RESIDUAL_RTOL[
+                         torch.bfloat16],
+                     "launches_by_route_per_path": {
+                         p: r[name] for p, r in ROUTE_COUNTS.items()
+                         if sum(r[name].values())},
+                     "ptxas": dual_ptxas}
         if name == "ring_reduce_scatter":
             extra = {"also_replaces": RS_ALSO_REPLACES,
                      "cross_wired_max_abs_err": errs["cross-wired"]}
@@ -4071,7 +4236,15 @@ def main() -> int:
             # max_abs_err is the bit-exact mixes' (fma, step5*, heat5);
             # the dual mixes feed a sum in another order back and are
             # held to hand.alu_probe_tolerance
-            extra = {"dual_mixes": errs["alu_probe dual mixes"]}
+            extra = {"dual_mixes": errs["alu_probe dual mixes"],
+                     "launches_by_route_per_path": {
+                         p: r[name] for p, r in ROUTE_COUNTS.items()
+                         if sum(r[name].values())},
+                     "ptxas": probe_ptxas,
+                     "issue_rate": issue_rate(),
+                     "bound_counts": "issued lone mul/add/sub over the "
+                                     "issue rate, bf16 two elements an "
+                                     "instruction"}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

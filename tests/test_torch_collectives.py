@@ -386,10 +386,19 @@ def test_collbench_rows_at_world(runs, w):
         rows = coll_rows(out)
         assert [row[0] for row in rows] == [n for n in names
                                             for _ in range(2)]
+        # a row whose time and busbw both print nan is a chain whose two
+        # lengths did not difference to a positive time (chain_rate: host
+        # noise over a gloo chain), counted, as chip_smoke.py's collbench
+        # check counts it; the row's structure holds all the same, and
+        # every other row is a positive time and busbw
+        timed = 0
         for name, nbytes, us, busbw, n_iter, credits in rows:
-            assert float(us) > 0 and float(busbw) > 0
+            if us != "nan" or busbw != "nan":
+                assert float(us) > 0 and float(busbw) > 0
+                timed += 1
             assert int(n_iter) == (160 if nbytes == "65536" else 10)
             assert credits == ("1" if name == "allreduce_rdma" else "")
+        assert timed > 0
         c2 = coll_rows(W.read_text(runs[w], "collbench_c2", r))
         assert [(row[0], row[5]) for row in c2] == [("allreduce_rdma", "2")]
     recs = [json.loads(line) for line in

@@ -516,6 +516,157 @@ def test_fused_ring_wgmma_route(card, k, causal, stripe):
 
 
 # ---------------------------------------------------------------------------
+# the routes of the probe (cluster / l2) and of the dual step (regs / smem)
+# ---------------------------------------------------------------------------
+
+#: (shape, dtype, route): blocks on clusters of 1, 2, 4, 8 and 16 CTAs,
+#: ragged against the slab and the vector, and blocks no cluster holds
+PROBE_ROUTE_CASES = [
+    ((2, 37, 200), torch.float32, "cluster"),
+    ((1000, 40), torch.float32, "cluster"),
+    ((997, 100), torch.float32, "cluster"),
+    ((250, 520), torch.float32, "cluster"),
+    ((515, 500), torch.float32, "cluster"),
+    ((2, 512, 512), torch.float32, "cluster"),
+    ((1023, 130), torch.bfloat16, "cluster"),
+    ((2, 512, 512), torch.bfloat16, "cluster"),
+    ((300, 2000), torch.bfloat16, "cluster"),
+    ((700, 1000), torch.float32, "l2"),
+    ((1030, 1024), torch.bfloat16, "l2"),
+]
+
+
+@pytest.mark.parametrize("shape, dtype, route", PROBE_ROUTE_CASES)
+@pytest.mark.parametrize("mix", hand.ALU_PROBE_MIXES)
+def test_probe_routes_match_plain(card, mix, shape, dtype, route):
+    """Each route against the plain version: bit for bit but for the dual
+    mixes (their tolerance), each launch counted on its route."""
+    z = rand(card, shape, dtype, seed=21)
+    assert hand.probe_route(z, mix) == route
+    for reps in (1, 3):
+        before = dict(hand.alu_probe.launches_by_route)
+        got = hand.alu_probe(z, reps, mix, se=0.05)
+        shifts = []
+        want = hand.alu_probe_ref(z, reps, mix, se=0.05, shifts=shifts)
+        torch.cuda.synchronize(card)
+        assert hand.alu_probe.launches_by_route == before | {
+            route: before[route] + 1}
+        if mix.startswith("dualdim"):
+            tol = hand.alu_probe_tolerance(
+                dtype, reps, float(want.float().abs().max()), max(shifts))
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= tol, (reps, err, tol)
+            assert torch.equal(got, hand.alu_probe(z, reps, mix, se=0.05))
+        else:
+            assert torch.equal(got, want), reps
+
+
+@pytest.mark.parametrize("shape, dtype, route", [
+    ((515, 500), torch.float32, "cluster"),
+    ((2, 512, 512), torch.bfloat16, "cluster"),
+    ((700, 1000), torch.float32, "l2")])
+@pytest.mark.parametrize("mix", hand.ALU_PROBE_MIXES)
+def test_probe_chain_property_on_both_routes(card, mix, shape, dtype, route):
+    z = rand(card, shape, dtype, seed=22)
+    assert hand.probe_route(z, mix) == route
+    once = hand.alu_probe(z, 7, mix, se=0.05)
+    twice = hand.alu_probe(hand.alu_probe(z, 3, mix, se=0.05), 4, mix,
+                           se=0.05)
+    assert torch.equal(once, twice)
+    assert not torch.equal(once, z)
+
+
+def test_probe_block_over_a_cluster_takes_l2(card):
+    """A block no cluster's shared memory holds runs on the l2 route;
+    one that fits takes the cluster, with one cluster a block."""
+    hand.reset_launch_counts()
+    big = rand(card, (1024, 1024), torch.float32, seed=23)
+    assert hand.probe_cluster(1024, 1024, torch.float32) is None
+    got = hand.alu_probe(big, 2, "step5_d0")
+    assert torch.equal(got, hand.alu_probe_ref(big, 2, "step5_d0"))
+    z = rand(card, (3, 512, 512), torch.float32, seed=24)
+    hand.alu_probe(z, 2, "heat5")
+    assert hand.route_counts()["alu_probe"] == {"l2": 1, "cluster": 1}
+    cs = hand.probe_cluster(512, 512, torch.float32)[0]
+    assert hand.alu_probe.last_ctas == 3 * cs
+
+
+def test_probe_clusters_fill_the_card(card):
+    """The main path's batch is the clusters the card holds at once."""
+    for dtype in (torch.float32, torch.bfloat16):
+        n = hand.alu_probe_clusters(512, 512, dtype)
+        assert n >= 1
+        assert microbench.probe_batch(512, 512, card, dtype) == n
+    assert hand.alu_probe_clusters(1024, 1024, torch.float32) == 0
+
+
+def test_probe_launch_refuses_another_route(card, monkeypatch):
+    z = rand(card, (64, 256), torch.float32, seed=25)
+    big = rand(card, (1024, 1024), torch.float32, seed=26)
+    monkeypatch.setattr(hand, "probe_route", lambda *a, **k: "l2")
+    with pytest.raises(RuntimeError, match="l2 route"):
+        hand.alu_probe(z, 2, "step5_d1")
+    monkeypatch.setattr(hand, "probe_route", lambda *a, **k: "cluster")
+    with pytest.raises(RuntimeError, match="cluster route"):
+        hand.alu_probe(big, 2, "step5_d1")
+
+
+#: (shape, dtype, offset in elements, route)
+DUAL_ROUTE_CASES = [
+    ((68, 52), torch.float32, 0, "smem"),
+    ((301, 136), torch.float32, 0, "smem"),
+    ((1000, 777), torch.float32, 0, "smem"),
+    ((130, 260), torch.float32, 2, "smem"),
+    ((2052, 1028), torch.float32, 0, "smem"),
+    ((68, 52), torch.bfloat16, 0, "regs"),
+    ((301, 136), torch.bfloat16, 0, "regs"),
+    ((1000, 777), torch.bfloat16, 0, "smem"),
+    ((130, 260), torch.bfloat16, 4, "regs"),
+    ((130, 260), torch.bfloat16, 2, "smem"),
+    ((130, 264), torch.bfloat16, 4, "regs"),
+    ((1030, 1032), torch.bfloat16, 0, "regs"),
+    ((2052, 1028), torch.bfloat16, 0, "regs"),
+    ((301, 136), torch.float64, 0, "smem"),
+]
+
+
+@pytest.mark.parametrize("shape, dtype, off, route", DUAL_ROUTE_CASES)
+@pytest.mark.parametrize("lean", [False, True])
+def test_dual_routes_match_plain(card, shape, dtype, off, route, lean):
+    """Both routes against the plain version, both bodies: the
+    derivatives bit for bit, the residual within RESIDUAL_RTOL and the
+    same from run to run, each launch counted on its route."""
+    n = shape[0] * shape[1]
+    z = rand(card, (n + off,), dtype, seed=27)[off:].view(shape)
+    assert hand.dual_route(z) == route
+    before = dict(hand.dual_dim_step.launches_by_route)
+    gx, gy, gr = hand.dual_dim_step(z, 2, 1.5, 0.75, lean=lean)
+    wx, wy, wr = hand.dual_dim_step_ref(z, 2, 1.5, 0.75, lean=lean)
+    torch.cuda.synchronize(card)
+    assert hand.dual_dim_step.launches_by_route == before | {
+        route: before[route] + 1}
+    assert torch.equal(gx, wx) and torch.equal(gy, wy)
+    assert gr.dtype == dtype
+    assert abs(float(gr) - float(wr)) <= hand.RESIDUAL_RTOL[dtype] * abs(
+        float(wr))
+    assert torch.equal(gr, hand.dual_dim_step(z, 2, 1.5, 0.75, lean=lean)[2])
+
+
+def test_dual_launch_refuses_another_route(card, monkeypatch):
+    z = rand(card, (68, 52), torch.bfloat16, seed=28)
+    odd = rand(card, (68, 53), torch.bfloat16, seed=29)
+    monkeypatch.setattr(hand, "dual_route", lambda *a, **k: "smem")
+    with pytest.raises(RuntimeError, match="smem route"):
+        hand.dual_dim_step(z, 2, 1.0, 1.0)
+    monkeypatch.setattr(hand, "dual_route", lambda *a, **k: "regs")
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.dual_dim_step(odd, 2, 1.0, 1.0)
+    for other in (torch.float32, torch.float64):
+        with pytest.raises(RuntimeError, match="regs route"):
+            hand.dual_dim_step(z.to(other), 2, 1.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
 # the ALU probe, the halo staging copies, the dual step's lean body
 # ---------------------------------------------------------------------------
 

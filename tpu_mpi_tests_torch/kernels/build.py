@@ -55,11 +55,13 @@ NVCC_FLAGS = (
 )
 
 #: flags of one library beside NVCC_FLAGS: the k-step kernels' regs
-#: route holds up to eight stages of register windows, and at ptxas's
-#: default register-usage level a few instances trade registers for
-#: spills; level 0 lets each take the registers it needs
+#: route holds up to eight stages of register windows, and the probe's
+#: cluster route a thread's rows, and at ptxas's default register-usage
+#: level a few instances trade registers for spills; level 0 lets each
+#: take the registers it needs
 KSTEP_PTXAS = ("-Xptxas", "--register-usage-level=0")
-LIBRARY_FLAGS = {"stencil_iterate": KSTEP_PTXAS, "fused_rdma": KSTEP_PTXAS}
+LIBRARY_FLAGS = {"stencil_iterate": KSTEP_PTXAS, "fused_rdma": KSTEP_PTXAS,
+                 "alu_probe": KSTEP_PTXAS}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 #: ptxas reports (registers, shared memory, spills) of this process's builds

@@ -247,28 +247,6 @@ struct KWord<double> {
   }
 };
 
-__device__ __forceinline__ unsigned bf2_bits(__nv_bfloat162 x) {
-  unsigned u;
-  memcpy(&u, &x, 4);
-  return u;
-}
-__device__ __forceinline__ __nv_bfloat162 bf2_of(unsigned u) {
-  __nv_bfloat162 x;
-  memcpy(&x, &u, 4);
-  return x;
-}
-#define TPUMT_BF16X2_OP(name, op)                                       \
-  __device__ __forceinline__ __nv_bfloat162 name(__nv_bfloat162 a,      \
-                                                 __nv_bfloat162 b) {    \
-    unsigned d;                                                         \
-    asm(op " %0, %1, %2;" : "=r"(d) : "r"(bf2_bits(a)), "r"(bf2_bits(b))); \
-    return bf2_of(d);                                                   \
-  }
-TPUMT_BF16X2_OP(bf2_add, "add.rn.bf16x2")
-TPUMT_BF16X2_OP(bf2_sub, "sub.rn.bf16x2")
-TPUMT_BF16X2_OP(bf2_mul, "mul.rn.bf16x2")
-#undef TPUMT_BF16X2_OP
-
 template <>
 struct KWord<__nv_bfloat16> {
   using W = __nv_bfloat162;

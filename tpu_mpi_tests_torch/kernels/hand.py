@@ -73,7 +73,10 @@ streaming kernels (keys :data:`COLL_ROUTES`: ``vec16`` or ``scalar``;
 two halo staging copies (keys
 :data:`PACK_ROUTES`: ``vec16``, ``vec8`` or ``scalar``;
 :func:`pack_route`) and the two k-step kernels (keys
-:data:`KSTEP_ROUTES`: ``regs`` or ``smem``; :func:`kstep_route`).
+:data:`KSTEP_ROUTES`: ``regs`` or ``smem``; :func:`kstep_route`), the
+dual step (keys :data:`DUAL_ROUTES`: ``regs`` or ``smem``;
+:func:`dual_route`) and the probe (keys :data:`PROBE_ROUTES`:
+``cluster`` or ``l2``; :func:`probe_route`).
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -141,19 +144,29 @@ _SIGNATURES = {
         _c_double, _c_double, _c_void_p,
     ], _c_int),
     "tpumt_heat2d_max_steps": ([_c_int], _c_int),
+    # z, dx, dy, partials, residual; dtype, n0, n1; c0..c4, sx, sy; lean,
+    # route (DUAL_ROUTES index), stream
     "tpumt_dual_dim_step": ([
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
         _c_ll, _c_ll, _c_double, _c_double, _c_double, _c_double,
-        _c_double, _c_double, _c_double, _c_int, _c_void_p,
+        _c_double, _c_double, _c_double, _c_int, _c_int, _c_void_p,
     ], _c_int),
-    "tpumt_dual_dim_step_tiles": ([_c_ll, _c_ll], _c_ll),
+    # dtype, n0, n1, route, lean
+    "tpumt_dual_dim_step_parts": ([_c_int, _c_ll, _c_ll, _c_int, _c_int],
+                                  _c_ll),
+    "tpumt_dual_dim_step_route": ([_c_int, _c_void_p, _c_ll], _c_int),
     # z, buffer a, buffer b, partials; dtype, mix, blocks, H, W, reps;
-    # eight constants, float32(se); CTAs launched (out), stream
+    # eight constants, float32(se); route (PROBE_ROUTES index); CTAs
+    # launched (out), stream
     "tpumt_alu_probe": (
         [_c_void_p] * 4 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll, _c_int]
-        + [_c_double] * 9 + [ctypes.POINTER(_c_int), _c_void_p], _c_int),
+        + [_c_double] * 9 + [_c_int, ctypes.POINTER(_c_int), _c_void_p],
+        _c_int),
     "tpumt_alu_probe_tiles": ([_c_ll, _c_ll], _c_ll),
     "tpumt_alu_probe_l2_bytes": ([], _c_ll),
+    "tpumt_alu_probe_route": ([_c_int, _c_ll, _c_ll], _c_int),
+    "tpumt_alu_issue_rate": ([], _c_double),
+    "tpumt_alu_probe_clusters": ([_c_int, _c_ll, _c_ll], _c_int),
     # z, lo, hi; itemsize, axis, n0, n1, n_bnd, route (PACK_ROUTES
     # index), stream
     "tpumt_pack_edges": (
@@ -643,6 +656,32 @@ def dual_dim_step_ref(z: torch.Tensor, n_bnd: int, scale_x: float,
     return _dual_dim_step_torch(z, n_bnd, scale_x, scale_y)
 
 
+#: the routes of the dual step (csrc/dual_dim_step.cu; a route's code is
+#: its index): "regs" — a thread walks 8 output columns down a run of
+#: rows, the 5-row window in registers, bfloat16 where every row of z
+#: starts on 4 elements; "smem" — a 32×128 output tile a CTA from a
+#: shared-memory window, any dtype and alignment (float32's route: the
+#: register walk ran 1-2 % behind it on the H100)
+DUAL_ROUTES = ("smem", "regs")
+#: elements every row of z starts on for the regs route
+DUAL_ROW_ELEMS = 4
+
+
+def dual_route(z: torch.Tensor) -> str:
+    """The route (one of :data:`DUAL_ROUTES`) of a :func:`dual_dim_step`
+    launch on the contiguous 2-D ``z``, by the rule the C launcher checks:
+    "regs" for bfloat16 where every row of ``z`` starts on
+    :data:`DUAL_ROW_ELEMS` elements (``z`` starts on that many elements'
+    bytes and the row length is a multiple of it), else "smem"."""
+    if z.dim() != 2:
+        raise ValueError(f"dual_route: 2-D input required, got shape "
+                         f"{tuple(z.shape)}")
+    vb = DUAL_ROW_ELEMS * z.element_size()
+    regs = (z.dtype == torch.bfloat16
+            and z.shape[1] % DUAL_ROW_ELEMS == 0 and z.data_ptr() % vb == 0)
+    return "regs" if regs else "smem"
+
+
 #: |kernel − plain| / |plain| the dual step's residual may show on the
 #: card. Both sum the same rounded squares, but in another order (the
 #: kernel: per-thread, a fixed tree per CTA, a second pass over the CTA
@@ -662,8 +701,10 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
     ``Σdz_dx² + Σdz_dy²`` as a 0-dim tensor of the array dtype. The
     derivatives match the plain version bit for bit; the residual is a
     deterministic sum in another order (:data:`RESIDUAL_RTOL`). One
-    wrapper call is one count: the kernel runs as a tile pass and a
-    one-CTA pass over the tiles' partials.
+    wrapper call is one count: the kernel runs as a pass over ``z`` on the
+    route :func:`dual_route` names (counted in
+    ``dual_dim_step.launches_by_route``) and a one-CTA pass over its
+    partials.
 
     ``lean`` selects the difference-form body (taps
     ``c1·(z₊₁−z₋₁) + c2·(z₊₂−z₋₂)`` with the scale folded into the
@@ -681,9 +722,15 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
     dx = torch.empty((n0 - 4, n1 - 4), dtype=z.dtype, device=z.device)
     dy = torch.empty_like(dx)
     res = torch.empty((), dtype=z.dtype, device=z.device)
-    tiles = _entry("dual_dim_step", "tpumt_dual_dim_step_tiles")(n0, n1)
+    route = dual_route(z)
+    with torch.cuda.device(z.device):
+        parts = _entry("dual_dim_step", "tpumt_dual_dim_step_parts")(
+            DTYPE_CODES[z.dtype], n0, n1, DUAL_ROUTES.index(route),
+            int(lean))
+    if parts <= 0:
+        _raise_launch(f"dual_dim_step ({route} route)", 1)
     acc = torch.float64 if z.dtype == torch.float64 else torch.float32
-    part = torch.empty(2 * tiles, dtype=acc, device=z.device)
+    part = torch.empty(2 * parts, dtype=acc, device=z.device)
     if lean:
         (c1x, c2x), (c1y, c2y) = (_lean_coefs(s, z.dtype)
                                   for s in (scale_x, scale_y))
@@ -696,15 +743,18 @@ def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
             z.data_ptr(), dx.data_ptr(), dy.data_ptr(), part.data_ptr(),
             res.data_ptr(), DTYPE_CODES[z.dtype], n0, n1, *c,
             _rounded(scale_x, z.dtype), _rounded(scale_y, z.dtype),
-            int(lean), torch.cuda.current_stream(z.device).cuda_stream,
+            int(lean), DUAL_ROUTES.index(route),
+            torch.cuda.current_stream(z.device).cuda_stream,
         )
     if rc != 0:
-        _raise_launch("dual_dim_step", rc)
+        _raise_launch(f"dual_dim_step ({route} route)", rc)
     dual_dim_step.launches += 1
+    dual_dim_step.launches_by_route[route] += 1
     return dx, dy, res
 
 
 dual_dim_step.launches = 0
+dual_dim_step.launches_by_route = dict.fromkeys(DUAL_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -720,7 +770,7 @@ _PROBE_SCALE = 0.0078125  # 2⁻⁷: exact in bfloat16 and float32
 #: sub or mul each 1; built without FMA contraction), beside the JAX
 #: metric's nominal counts 2, 7, 7, 11, 22, 14
 ALU_PROBE_REAL_OPS = {"fma": 2, "step5_d0": 7, "step5_d1": 7,
-                      "step5fma_d0": 8, "step5fma_d1": 8, "heat5": 10,
+                      "step5fma_d0": 8, "step5fma_d1": 8, "heat5": 9,
                       "dualdim": 25, "dualdim_lean": 19}
 
 
@@ -870,6 +920,95 @@ def alu_probe_tolerance(dtype: torch.dtype, reps: int, max_abs: float,
     return 2.0 * reps * (eps * max_abs + RESIDUAL_RTOL[dtype] * max_shift)
 
 
+#: the routes of the probe (csrc/alu_probe.cu; a route's code is its
+#: index): "cluster" — one thread-block cluster a block, held in its CTAs'
+#: registers and shared memory for all reps (fma and the dim-1 mixes in
+#: registers with no barrier, the dim-0 mixes in registers with their
+#: runs' edge rows exchanged and a cluster barrier a rep, heat5 and the
+#: dual mixes in a shared-memory ping-pong with a cluster barrier a rep);
+#: "l2" — the blocks in two L2-resident ping-pong buffers, one cooperative
+#: launch, a grid barrier a rep, for blocks no cluster holds
+PROBE_ROUTES = ("l2", "cluster")
+#: the cluster route's bounds (csrc/alu_probe.cu): dynamic shared memory a
+#: CTA's ping-pong may take (kClusterSmem), CTAs a cluster at most
+#: (kMaxCluster), the bytes of a slab row's vectors
+PROBE_CLUSTER_SMEM = 232448 - 1024
+PROBE_MAX_CLUSTER = 16
+PROBE_VEC_BYTES = 16
+
+
+def probe_cluster(H: int, W: int, dtype: torch.dtype):
+    """The cluster of an (H, W) block of ``dtype`` on the cluster route,
+    as ``cluster_config`` in ``csrc/alu_probe.cu`` picks it:
+    ``(ctas, rows a CTA, slab pitch in elements, bytes of the two
+    slabs)`` for the fewest CTAs (1, 2, 4, … :data:`PROBE_MAX_CLUSTER`)
+    whose two slabs fit :data:`PROBE_CLUSTER_SMEM` with at least N_BND
+    rows a slab (unless one CTA holds the block); None when none does."""
+    item = torch.empty((), dtype=dtype).element_size()
+    ve = PROBE_VEC_BYTES // item
+    pitch = -(-W // ve) * ve
+    cs = 1
+    while cs <= PROBE_MAX_CLUSTER:
+        rs = -(-H // cs)
+        if cs > 1 and rs < N_BND:
+            break
+        if 2 * rs * pitch * item <= PROBE_CLUSTER_SMEM:
+            return cs, rs, pitch, 2 * rs * pitch * item
+        cs *= 2
+    return None
+
+
+def probe_route(z: torch.Tensor, mix: str = "fma") -> str:
+    """The route (one of :data:`PROBE_ROUTES`) of an :func:`alu_probe`
+    launch on ``z`` (an (H, W) block or a (B, H, W) stack), by the rule
+    the C entry point checks: "cluster" where :func:`probe_cluster` finds
+    a cluster for one block, else "l2". Every mix takes the same route."""
+    _check_probe(z, 1, mix)
+    H, W = z.shape[-2:]
+    return "cluster" if probe_cluster(H, W, z.dtype) else "l2"
+
+
+def alu_probe_clusters(H: int, W: int, dtype: torch.dtype) -> int:
+    """Clusters of (H, W) blocks of ``dtype`` that the current CUDA
+    device holds at once on the cluster route
+    (``cudaOccupancyMaxActiveClusters``); 0 where the block takes the l2
+    route."""
+    if probe_cluster(H, W, dtype) is None:
+        return 0
+    n = int(_entry("alu_probe", "tpumt_alu_probe_clusters")(
+        DTYPE_CODES[dtype], H, W))
+    if n < 0:
+        _raise_launch("alu_probe_clusters", -n)
+    return n
+
+
+#: lone mul/add/sub instructions an SM issues a clock (four schedulers,
+#: 32 lanes each); a bf16x2 instruction does two elements
+ALU_LANES_PER_SM = 128
+
+
+def alu_issue_rate() -> float:
+    """Lone float32 mul/add/sub the current CUDA device issues a second
+    at most: SMs × :data:`ALU_LANES_PER_SM` × the peak SM clock
+    (``cudaDevAttrMultiProcessorCount``, ``cudaDevAttrClockRate``).
+    Unlike the published 67 TFLOP/s, which counts an FMA as two flops,
+    this counts instructions, as the probe issues them."""
+    rate = float(_entry("alu_probe", "tpumt_alu_issue_rate")())
+    if not rate > 0:
+        _raise_launch("alu_issue_rate", 1)
+    return rate
+
+
+def probe_bound_s(mix: str, dtype: torch.dtype, elements: int,
+                  reps: int, issue_rate: float) -> float:
+    """The least time the card takes for ``reps`` reps of ``mix`` on
+    ``elements`` elements: the instructions issued
+    (:data:`ALU_PROBE_REAL_OPS` an element, bfloat16 two elements an
+    instruction) over ``issue_rate`` (:func:`alu_issue_rate`)."""
+    per = 2 if dtype == torch.bfloat16 else 1
+    return ALU_PROBE_REAL_OPS[mix] * elements * reps / per / issue_rate
+
+
 def alu_probe_l2_bytes() -> int:
     """The L2 cache of the current CUDA device in bytes: the capacity two
     ping-pong buffers of :func:`alu_probe` must fit in."""
@@ -901,12 +1040,18 @@ def alu_probe(z: torch.Tensor, reps: int, mix: str = "fma",
     into every element at ``se``); any other name raises. ``se`` is the
     update scale: the 1e-9 default keeps long chains numerically inert.
 
-    On the card the blocks live in two ping-pong buffers that must fit
-    in the L2 cache together (:func:`check_probe_capacity` raises
-    otherwise), and one cooperative launch of at most the co-resident
-    number of CTAs advances them, a grid barrier between reps
-    (``csrc/alu_probe.cu``). ``alu_probe.last_ctas`` holds the CTAs of
-    the last launch. float32 and bfloat16."""
+    On the card the launch takes the route :func:`probe_route` names,
+    counted in ``alu_probe.launches_by_route`` (``csrc/alu_probe.cu``):
+    "cluster", one thread-block cluster a block holding it in its CTAs'
+    registers and shared memory, a cluster barrier between the reps of
+    the mixes that read other CTAs' rows (none for ``fma`` and the dim-1
+    mixes, whose rows stay in a warp); or "l2" for blocks no cluster
+    holds, two ping-pong buffers
+    that must fit in the L2 cache together (:func:`check_probe_capacity`
+    raises otherwise), advanced by one cooperative launch of at most the
+    co-resident number of CTAs, a grid barrier between reps.
+    ``alu_probe.last_ctas`` holds the CTAs of the last launch. float32
+    and bfloat16."""
     _check_probe(z, reps, mix)
     if z.device.type == "cpu":
         return alu_probe_ref(z, reps, mix, se)
@@ -915,31 +1060,41 @@ def alu_probe(z: torch.Tensor, reps: int, mix: str = "fma",
     _check_cuda_operand(z, "alu_probe")
     H, W = z.shape[-2:]
     n_blocks = z.shape[0] if z.dim() == 3 else 1
-    with torch.cuda.device(z.device):
-        check_probe_capacity(z.numel() * z.element_size(),
-                             alu_probe_l2_bytes())
-    buf = torch.empty((2,) + tuple(z.shape), dtype=z.dtype, device=z.device)
-    tiles = _entry("alu_probe", "tpumt_alu_probe_tiles")(H, W)
-    part = torch.empty(2 * n_blocks * tiles * 2, dtype=torch.float32,
-                       device=z.device)
+    route = probe_route(z, mix)
+    if route == "cluster":
+        out = torch.empty_like(z)
+        bufs, part = (out, out), None
+    else:
+        with torch.cuda.device(z.device):
+            check_probe_capacity(z.numel() * z.element_size(),
+                                 alu_probe_l2_bytes())
+        buf = torch.empty((2,) + tuple(z.shape), dtype=z.dtype,
+                          device=z.device)
+        bufs, out = (buf[0], buf[1]), buf[(reps - 1) & 1]
+        tiles = _entry("alu_probe", "tpumt_alu_probe_tiles")(H, W)
+        part = torch.empty(2 * n_blocks * tiles * 2, dtype=torch.float32,
+                           device=z.device)
     k = _probe_consts(mix, se, z.dtype)
     k += [0.0] * (8 - len(k))
     ctas = _c_int(0)
     fn = _entry("alu_probe", "tpumt_alu_probe")
     with torch.cuda.device(z.device):
-        rc = fn(z.data_ptr(), buf[0].data_ptr(), buf[1].data_ptr(),
-                part.data_ptr(), DTYPE_CODES[z.dtype],
-                ALU_PROBE_MIXES.index(mix), n_blocks, H, W, int(reps), *k,
-                float(np.float32(se)), ctypes.byref(ctas),
+        rc = fn(z.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+                None if part is None else part.data_ptr(),
+                DTYPE_CODES[z.dtype], ALU_PROBE_MIXES.index(mix), n_blocks,
+                H, W, int(reps), *k, float(np.float32(se)),
+                PROBE_ROUTES.index(route), ctypes.byref(ctas),
                 torch.cuda.current_stream(z.device).cuda_stream)
     if rc != 0:
-        _raise_launch("alu_probe", rc)
+        _raise_launch(f"alu_probe ({route} route)", rc)
     alu_probe.launches += 1
+    alu_probe.launches_by_route[route] += 1
     alu_probe.last_ctas = ctas.value
-    return buf[(reps - 1) & 1]
+    return out
 
 
 alu_probe.launches = 0
+alu_probe.launches_by_route = dict.fromkeys(PROBE_ROUTES, 0)
 alu_probe.last_ctas = 0
 
 
@@ -2105,14 +2260,16 @@ def route_counts() -> dict:
     :data:`FLASH_ROUTES`), the two ring collectives, the one-shot kernel,
     the ring halo and the three streaming kernels (keys
     :data:`COLL_ROUTES`), the two halo staging copies (keys
-    :data:`PACK_ROUTES`) and the two k-step kernels (keys
-    :data:`KSTEP_ROUTES`) since the last :func:`reset_launch_counts`."""
+    :data:`PACK_ROUTES`), the two k-step kernels (keys
+    :data:`KSTEP_ROUTES`), the dual step (keys :data:`DUAL_ROUTES`) and the
+    probe (keys :data:`PROBE_ROUTES`) since the last
+    :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
             for fn in (flash_attention_block, fused_ring_attention,
                        ring_allgather, ring_reduce_scatter, oneshot,
                        ring_halo, pack_edges, unpack_ghosts, daxpy,
                        stream_scale, stream_sum3, stencil2d_iterate,
-                       stencil2d_fused_rdma)}
+                       stencil2d_fused_rdma, dual_dim_step, alu_probe)}
 
 
 @contextlib.contextmanager
