@@ -10,9 +10,11 @@ failure exits non-zero and prints no result line):
    process per source, in parallel), and print the registers, stack and
    spills of every flash and fused ring attention instance, of every
    ring collective instance, of every ring halo and one-shot instance,
-   of every pack/unpack instance, of every streaming-kernel instance and
-   of every iterate and fused RDMA instance (the six ``PTXAS`` lines; no
-   instance of the k-step kernels' regs route may spill);
+   of every pack/unpack instance, of every streaming-kernel instance, of
+   every iterate and fused RDMA instance and of every heat and derivative
+   instance (the seven ``PTXAS`` lines; no instance of the k-step
+   kernels' regs route may spill, nor a regs instance of the heat update
+   or the derivative that the main path launches);
 3. hold each kernel against its plain PyTorch version on the card: the
    k-step iterate on both routes (``check_iterate_routes``: ``regs`` on
    rows that start on 8 bytes up to 8 steps, in 16-byte vectors where
@@ -22,12 +24,23 @@ failure exits non-zero and prints no result line):
    strip and segment, on rows of 16 and of 8 bytes, and views one element
    and 8 bytes off 16 bytes, each launch counted on its route; and every
    operand the main path gives it (the bench's f32 blocks and bf16
-   buffer, the driver's periodic iterate blocks), each on regs; the derivative over
-   dim 0/1 × float32/bfloat16 and its main-path shapes; the heat update
-   over float32/bfloat16/float64 × steps 1..4 × ragged shapes (68×52,
-   1000×777), the heat runner (exchange + kernel) against its torch tier
-   at ghost width 1 and 4, and the heat path's operands (8200² at k=4 in
-   float32 and bfloat16, 8194² at k=1); the dual step over the three
+   buffer, the driver's periodic iterate blocks), each on regs; the
+   derivative on both routes (``check_deriv_routes``: ``regs`` where every
+   row of z and out starts on 16 or 8 bytes, ``scalar`` on views 4 bytes
+   off and odd widths) over float32/bfloat16/float64 × dim 0/1 × 9 and
+   1000 output rows, and its main-path shapes, on regs; the heat update
+   on both routes (``check_heat_routes``: ``regs`` up to 8 steps on rows
+   on 16, 8 and 4 bytes, ``smem`` at 9 steps and on bfloat16 rows off 4)
+   over float32/bfloat16/float64 × steps 1..9 × widths ragged against the
+   warp segment at 150 rows, 68×52, 1000×777, 5×20, 3×3 and views 4 bytes
+   off, each launch of both kernels counted on its route, the heat runner
+   (exchange + kernel) against its torch tier at ghost width 1 and 4, and
+   every heat operand of the main path, on regs: the driver's (8200² at
+   k=4 in float32 and bfloat16, 8194² at k=1) and every instance
+   microbench ``heat``, ``roofline2`` and ``roofline2`` large launch, at
+   its own shape (``heat_main_operands``: k = 1..8 at 2050²-2064² and
+   8196²-8208², rows on 16, 8 and 4 bytes, the inner warp walk); the
+   dual step over the three
    dtypes × ragged shapes and its operand (8196² float32). Tolerance: 0 —
    bit-exact in every dtype. The kernels round after every op exactly
    where the eager PyTorch ops round (float32/float64: one IEEE op each,
@@ -138,8 +151,9 @@ failure exits non-zero and prints no result line):
    per chained iteration of a hand-tier row, every row measured); every
    ring collective and one-shot launch of these paths on the ``vec16``
    route, and every ring halo launch of the RDMA slice on its operand's
-   route, counted exactly per path, and every k-step launch of every
-   path (``stencil2d_iterate``, ``stencil2d_fused_rdma``) on the regs
+   route, counted exactly per path, and every k-step, heat and
+   derivative launch of every path (``stencil2d_iterate``,
+   ``stencil2d_fused_rdma``, ``heat2d``, ``stencil2d_deriv``) on the regs
    route, counted exactly per path; then
    the world=2 legs: two ranks on one card are left out (the symmetric-memory
    allocator refuses them, a line says so) and the NCCL leg runs only
@@ -188,12 +202,19 @@ failure exits non-zero and prints no result line):
    driver at 32 Mi points (gate passing, no hand kernel launched);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
-   exists (``F.conv2d``, TF32 off: for the derivative, and for the dual
-   step a (2,1,5,5) cross-shaped weight giving both derivatives but not
-   the residual; none for the k-step updates) and its bound: the larger
-   of bytes moved (each input read once, each output written once) over
-   3.35 TB/s and flops over 67 TFLOP/s (H100 SXM float32 outside the
-   tensor cores; bf16 arithmetic runs in float32 units). The iterate at
+   exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
+   a 3×3 five-point weight, and for the dual step a (2,1,5,5)
+   cross-shaped weight giving both derivatives but not the residual; none
+   for the k-step updates) and its bound: the larger of bytes moved (each
+   input read once, each output written once) over 3.35 TB/s and flops
+   over 67 TFLOP/s (H100 SXM float32 outside the tensor cores; bf16
+   arithmetic runs in float32 units) — for the heat update and the
+   derivative their lone mul/add/sub over the card's issue rate, bfloat16
+   two elements an instruction. The heat update at the driver's three
+   operands and at 2064² k=8 in float32 and bfloat16, the derivative at
+   the stencil2d driver's operands (and in bfloat16 along dim 0) and at
+   microbench ``stencil``'s 1028×8192, back to back and queued, each with
+   its route and vector. The iterate at
    the bench's f32 block and bf16 buffer, the driver's block,
    ``rdma-chained``'s f32 dim-1 buffer and microbench ``iterate``'s bf16
    k = 1 field (8-byte rows), back to back and queued, each with its
@@ -275,6 +296,7 @@ DRIVER_SE = 0.01                 # the driver's iterate-leg scale_eps
 GRID_N = 8192                    # the 2-D grid paths' local extent
 HEAT_N_STEPS = 200               # the heat driver's default step count
 HEAT_RUNS = (("float32", 4), ("float32", 1), ("bfloat16", 4))
+STENCIL_MB_SHAPE = (1028, 8192)  # microbench stencil's field
 GRID_N_ITER, GRID_N_WARMUP = 20, 2
 GRID_SCALE = GRID_N / 8.0        # dz scale of the grid driver (Domain1D)
 STREAMS_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/streams.cu"
@@ -604,6 +626,40 @@ def heat_cases():
              dtypes[dt], k, cx, cy) for dt, k in HEAT_RUNS]
 
 
+def heat_main_operands():
+    """(path, n, dtype name, steps) of every heat instance the main path
+    launches, each (n, dtype, steps) once, on the (n + 2·steps)² shard:
+    the heat driver's three runs, microbench ``heat`` (k = 1, 4, 8 at
+    2048²) and ``roofline2`` (k = 2, 4, 6, 8 at 2048² and
+    ROOFLINE_LARGE's n)."""
+    ops = [("heat2d", GRID_N, dt, k) for dt, k in HEAT_RUNS]
+    ops += [("microbench heat", 2048, dt, k)
+            for dt in ("float32", "bfloat16") for k in (1, 4, 8)]
+    ops += [("microbench roofline2", n, dt, k)
+            for n in (2048, ROOFLINE_LARGE["n"])
+            for dt in ("float32", "bfloat16") for k in (2, 4, 6, 8)]
+    seen, out = set(), []
+    for path, n, dt, k in ops:
+        if (n, dt, k) not in seen:
+            seen.add((n, dt, k))
+            out.append((path, n, dt, k))
+    return out
+
+
+def heat_microbench_cases():
+    """The heat update's microbench operands (``heat_main_operands`` past
+    the driver's runs) as (path, shape, dtype, steps, cx, cy): every
+    regs instance the microbench launches, at its own shape, with its
+    coefficients (0.05 on both axes)."""
+    import torch
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    return [(f"{path} {dt} k={k}", (n + 2 * k, n + 2 * k), dtypes[dt], k,
+             0.05, 0.05)
+            for path, n, dt, k in heat_main_operands()
+            if path != "heat2d"]
+
+
 def compare(name, got, want, failures):
     import torch
 
@@ -635,14 +691,7 @@ def check_kernels(device):
 
     failures = []
     n_cases = check_iterate_routes(device, rand, failures)
-    for dtype in (torch.float32, torch.bfloat16):
-        for dim in (0, 1):
-            shape = (133, 301) if dim == 0 else (301, 133)
-            z = rand(shape, dtype)
-            compare(f"deriv {dtype} dim={dim}",
-                    hand.stencil2d_deriv(z, 3.0, dim=dim),
-                    hand.stencil2d_deriv_ref(z, 3.0, dim=dim), failures)
-            n_cases += 1
+    n_cases += check_deriv_routes(device, rand, failures)
 
     n_cases += check_grid_kernels(device, rand, failures)
     n_stream, stream_errs = check_stream_kernels(device, gen, failures)
@@ -685,19 +734,30 @@ def check_kernels(device):
     for shape, dim in (((REF_N_LOCAL + 4, REF_N_OTHER), 0),
                        ((REF_N_LOCAL, REF_N_OTHER + 4), 1)):
         z = rand(shape, torch.float32)
+        before = hand.stencil2d_deriv.launches_by_route["regs"]
         err = compare(f"deriv main-path {shape} dim={dim}",
                       hand.stencil2d_deriv(z, 128.0, dim=dim),
                       hand.stencil2d_deriv_ref(z, 128.0, dim=dim),
                       failures)
         errs["stencil2d_deriv"] = max(errs["stencil2d_deriv"], err)
+        if hand.stencil2d_deriv.launches_by_route["regs"] != before + 1:
+            failures.append(f"deriv main-path {shape} dim={dim}: not "
+                            f"launched on the regs route")
         n_cases += 1
         del z
-    for path, shape, dtype, k, cx, cy in heat_cases():
+    # the heat driver's three runs, then every instance microbench heat,
+    # roofline2 and roofline2 large launch, at its own shape
+    for path, shape, dtype, k, cx, cy in (heat_cases()
+                                          + heat_microbench_cases()):
         z = rand(shape, dtype)
+        before = hand.heat2d.launches_by_route["regs"]
         err = compare(f"heat2d main-path {path} {shape}",
                       hand.heat2d(z, cx, cy, steps=k),
                       hand.heat2d_ref(z, cx, cy, steps=k), failures)
         errs["heat2d"] = max(errs["heat2d"], err)
+        if hand.heat2d.launches_by_route["regs"] != before + 1:
+            failures.append(f"heat2d main-path {path}: not launched on the "
+                            f"regs route")
         n_cases += 1
         del z
         torch.cuda.empty_cache()
@@ -820,12 +880,7 @@ def check_iterate_routes(device, rand, failures) -> int:
                                                    phys_static=(1, 0)),
                         failures)
                 n_cases += 1
-    took = {r: hand.stencil2d_iterate.launches_by_route[r] - took0[r]
-            for r in took0}
-    log(f"CHECK stencil2d_iterate launches by route: {json.dumps(took)}")
-    if min(took.values()) <= 0:
-        failures.append(f"stencil2d_iterate: the checks did not launch "
-                        f"both routes ({took})")
+    route_took("stencil2d_iterate", took0, failures)
     return n_cases
 
 
@@ -852,38 +907,159 @@ def compare_dual(name, z, sx, sy, failures, lean=False):
     return err, rel
 
 
+def offset_view(rand, shape, dtype, off_bytes):
+    """A contiguous ``shape`` view of ``rand`` values ``off_bytes`` past a
+    16-byte boundary."""
+    import torch
+
+    item = torch.empty((), dtype=dtype).element_size()
+    n = shape[0] * shape[1]
+    buf = rand((n + 64,), dtype)
+    skip = (-buf.data_ptr() % 16) // item + off_bytes // item
+    return buf[skip:skip + n].view(shape)
+
+
+def route_took(name, took0, failures):
+    """Launches of kernel ``name`` per route since ``took0`` (logged);
+    a failure unless every route launched."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    now = hand.WRAPPERS[name].launches_by_route
+    took = {r: now[r] - took0[r] for r in took0}
+    log(f"CHECK {name} launches by route: {json.dumps(took)}")
+    if min(took.values()) <= 0:
+        failures.append(f"{name}: the checks did not launch every route "
+                        f"({took})")
+
+
+def checked_launch(name, route, run, failures):
+    """``run()``, failing unless it launched ``name`` once, on ``route``."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    by_route = hand.WRAPPERS[name].launches_by_route
+    before = dict(by_route)
+    got = run()
+    if {r: by_route[r] - before[r] for r in by_route} != {
+            r: int(r == route) for r in by_route}:
+        failures.append(f"{name}: a launch not counted on its route "
+                        f"{route}")
+    return got
+
+
+#: geometry -> a row width ragged against the regs routes' segments, for
+#: an element of ``item`` bytes: rows on 16, 8, 4 and 2 bytes
+GEOMETRY_WIDTH = {"rows16": lambda item: 16 // item * 37,
+                  "rows8": lambda item: 16 // item * 37 + 8 // item,
+                  "rows4": lambda item: 16 // item * 37 + 4 // item,
+                  "rows2": lambda item: 16 // item * 37 + 1}
+
+
+def check_heat_routes(device, rand, failures) -> int:
+    """The heat update against its plain version on both routes, bit for
+    bit: float32/bfloat16/float64 × steps 1-9 × rows on 16, 8 and 4 bytes
+    (regs up to 8 steps) and bfloat16 rows off 4 (smem) at 150 rows
+    (ragged against the runs) and a width ragged against the warp
+    segment, the tile-ragged (68, 52) and (1000, 777), a shard narrower
+    than one segment (5, 20), 3×3, and views 4 bytes off 16; each launch
+    counted on the route :func:`hand.heat_route` names. Fails unless both
+    routes launched."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    took0 = dict(hand.heat2d.launches_by_route)
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        item = torch.empty((), dtype=dtype).element_size()
+        widths = [GEOMETRY_WIDTH[g](item) for g in GEOMETRY_WIDTH
+                  if g != "rows2" or item == 2]
+        shards = ([rand((150, w), dtype) for w in widths]
+                  + [rand(s, dtype) for s in ((68, 52), (1000, 777), (5, 20),
+                                               (3, 3))])
+        if item < 8:
+            shards.append(offset_view(rand, (40, 36), dtype, 4))
+        for z in shards:
+            for steps in range(1, 10):
+                route = hand.heat_route(z, steps)
+                got = checked_launch(
+                    "heat2d", route,
+                    lambda: hand.heat2d(z, 0.13, 0.21, steps=steps),
+                    failures)
+                compare(f"heat2d {dtype} {tuple(z.shape)} steps={steps} "
+                        f"vec={hand.heat_vec_bytes(z)} route={route}", got,
+                        hand.heat2d_ref(z, 0.13, 0.21, steps=steps),
+                        failures)
+                n_cases += 1
+    route_took("heat2d", took0, failures)
+    return n_cases
+
+
+def check_deriv_routes(device, rand, failures) -> int:
+    """The derivative against its plain version on both routes, bit for
+    bit: float32/bfloat16/float64 × dim 0/1 × rows of z and out on 16 and
+    8 bytes (regs) and views 4 bytes off 16 and odd widths (scalar), at 9
+    and 1000 output rows (ragged against the runs) and widths ragged
+    against the dim-1 segment; each launch counted on the route
+    :func:`hand.deriv_route` names. Fails unless both routes launched."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    took0 = dict(hand.stencil2d_deriv.launches_by_route)
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        item = torch.empty((), dtype=dtype).element_size()
+        for dim in (0, 1):
+            for rows in (9, 1000):
+                for geometry in ("rows16", "rows8", "view4", "odd"):
+                    width = (GEOMETRY_WIDTH["rows8"](item)
+                             if geometry == "rows8"
+                             else GEOMETRY_WIDTH["rows16"](item) + (
+                                 1 if geometry == "odd" else 0))
+                    shape = ((rows + 4, width) if dim == 0
+                             else (rows, width + 4))
+                    if geometry == "view4":
+                        if item == 8:
+                            continue
+                        z = offset_view(rand, shape, dtype, 4)
+                    else:
+                        z = rand(shape, dtype)
+                    route = hand.deriv_route(z, dim)
+                    got = checked_launch(
+                        "stencil2d_deriv", route,
+                        lambda: hand.stencil2d_deriv(z, 3.0, dim=dim),
+                        failures)
+                    compare(f"deriv {dtype} dim={dim} {shape} {geometry} "
+                            f"vec={hand.deriv_vec_bytes(z, dim)} "
+                            f"route={route}", got,
+                            hand.stencil2d_deriv_ref(z, 3.0, dim=dim),
+                            failures)
+                    n_cases += 1
+    route_took("stencil2d_deriv", took0, failures)
+    return n_cases
+
+
 def check_grid_kernels(device, rand, failures) -> int:
-    """The heat update and the dual step at small ragged shapes in every
-    dtype, and the heat runner at ghost widths 1 and 4. Returns the
-    number of cases."""
+    """The heat update on both routes (:func:`check_heat_routes`), the
+    dual step at small ragged shapes in every dtype, and the heat runner
+    at ghost widths 1 and 4. Returns the number of cases."""
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
     from tpu_mpi_tests_torch.kernels import hand
 
-    n_cases = 0
+    n_cases = check_heat_routes(device, rand, failures)
     took0 = dict(hand.dual_dim_step.launches_by_route)
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
         # ragged against the 32x128 output tile on both axes; rows on 4
         # elements (the regs route for bfloat16) and off them (smem)
         for shape in ((68, 52), (1000, 777)):
             z = rand(shape, dtype)
-            for steps in (1, 2, 3, 4):
-                compare(f"heat2d {dtype} {shape} steps={steps}",
-                        hand.heat2d(z, 0.13, 0.21, steps=steps),
-                        hand.heat2d_ref(z, 0.13, 0.21, steps=steps),
-                        failures)
-                n_cases += 1
             compare_dual("dual_dim_step", z, 3.0, 0.5, failures)
             compare_dual("dual_dim_step lean", z, 3.0, 0.5, failures,
                          lean=True)
             n_cases += 2
-    took = {r: hand.dual_dim_step.launches_by_route[r] - took0[r]
-            for r in took0}
-    log(f"CHECK dual_dim_step launches by route: {json.dumps(took)}")
-    if min(took.values()) <= 0:
-        failures.append(f"dual_dim_step: the checks did not launch both "
-                        f"routes ({took})")
+    route_took("dual_dim_step", took0, failures)
     # the runner: periodic exchange on both axes + the kernel on two
     # ping-ponged buffers, against the torch tier, 3 bodies
     for n_bnd, steps in ((1, 1), (4, 1), (4, 2), (4, 3), (4, 4)):
@@ -1543,6 +1719,22 @@ def check_kstep_routes(path, launches):
         check_routes(path, name, {"regs": n} if n else {})
 
 
+#: the heat update and the derivative, whose launches count per route
+#: (hand.HEAT_ROUTES, hand.DERIV_ROUTES)
+HEAT_DERIV_KERNELS = ("heat2d", "stencil2d_deriv")
+
+
+def check_heat_deriv_routes(path, launches):
+    """Every heat and derivative launch of ``path`` (``launches``: kernel
+    -> count) on the regs route: every main-path heat shard's rows start
+    on a word (16 bytes at 8200² and 2056², 8 at 8194² float32 and at
+    2052² and 2060² bfloat16, 4 at 2050² bfloat16), every derivative's on
+    16 bytes (no operand of the main path is named as an exception)."""
+    for name in HEAT_DERIV_KERNELS:
+        n = launches.get(name, 0)
+        check_routes(path, name, {"regs": n} if n else {})
+
+
 def check_probe_dual_routes(path, launches, dual_bf16):
     """Every probe launch of ``path`` (``launches``: kernel -> count) on
     the cluster route, ``dual_bf16`` of its dual-step launches on the regs
@@ -1730,10 +1922,15 @@ def run_main_path(device):
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
     recs["attention"] = run_attention_slice(device, counts, peaks)
     recs["one_card"] = run_one_card_slice(device, counts, peaks)
-    # every k-step launch of every path on the regs route
+    # every k-step, heat and derivative launch of every path on the regs
+    # route
     for path, c in counts.items():
         check_kstep_routes(path, c)
+        check_heat_deriv_routes(path, c)
     log(f"KSTEP_ROUTES {json.dumps({p: {n: r[n] for n in KSTEP_KERNELS if sum(r[n].values())} for p, r in ROUTE_COUNTS.items()})}")
+    log("HEAT_DERIV_ROUTES " + json.dumps(
+        {p: {n: r[n] for n in HEAT_DERIV_KERNELS if sum(r[n].values())}
+         for p, r in ROUTE_COUNTS.items()}))
     # the staged legs of the stencil2d driver were handed the pack/unpack
     # kernels; its non-periodic world=1 exchange moves nothing
     for name in ("pack_edges", "unpack_ghosts"):
@@ -3496,6 +3693,8 @@ def iterate_work(shape, dtype, dim, steps, flags):
 
 
 def deriv_work(shape, dtype, dim):
+    """(bytes, lone ops) of a derivative launch: z read once, the output
+    written once; 8 lone ops an output point (4 mul, 3 add, the scale)."""
     import torch
 
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -3506,9 +3705,9 @@ def deriv_work(shape, dtype, dim):
 
 
 def heat_work(shape, dtype, steps):
-    """(bytes, flops) of a k-step heat launch: the shard read once and
-    written once; 9 flops per updated cell ([1, n0−1) × [1, n1−1)) per
-    step."""
+    """(bytes, lone ops) of a k-step heat launch: the shard read once and
+    written once; 9 lone ops per updated cell ([1, n0−1) × [1, n1−1)) per
+    step (nothing contracts under -fmad=false)."""
     import torch
 
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -3529,9 +3728,21 @@ def dual_work(shape, dtype, lean=False):
             (14 if lean else 20) * n_out)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, dtype=None, issue_rate=None):
+    """The larger of the bytes over the card's memory rate and the
+    operations over its peak: ``flops`` over 67 TFLOP/s, or, given the
+    card's ``issue_rate`` (lone mul/add/sub a second,
+    ``hand.alu_issue_rate``), ``flops`` as lone ops, bfloat16 two elements
+    an instruction — the heat update's and the derivative's, whose ops
+    nothing contracts under -fmad=false."""
+    import torch
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    if issue_rate is None:
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+    else:
+        per = 2 if dtype == torch.bfloat16 else 1
+        t_ops = flops / per / issue_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3567,14 +3778,20 @@ def time_kernels(device):
                 "plain_ms": plain, "bound_ms": b, "bound_by": why,
                 "library_ms": None}
 
-    def deriv_row(shape, dtype, dim):
+    rate = issue_rate()
+
+    def deriv_row(path, shape, dtype, dim):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
         scale = 128.0
         out_shape = list(shape)
         out_shape[dim] -= 4
         out = torch.empty(out_shape, device=device, dtype=dtype)
-        ms = time_cuda(lambda: hand.stencil2d_deriv(z, scale, dim=dim,
-                                                    out=out), 20)
+
+        def launch():
+            return hand.stencil2d_deriv(z, scale, dim=dim, out=out)
+
+        ms = time_cuda(launch, 20)
+        queued = time_cuda_queued(launch, 20)
         plain = time_cuda(lambda: hand.stencil2d_deriv_ref(z, scale,
                                                            dim=dim), 5)
         w = torch.tensor(STENCIL5 * scale, dtype=dtype, device=device)
@@ -3582,23 +3799,49 @@ def time_kernels(device):
         lib_out = F.conv2d(z[None, None], w)[0, 0]
         if lib_out.shape != out.shape:
             raise SmokeFailure("conv2d yardstick shape mismatch")
+        del lib_out
         lib = time_cuda(lambda: F.conv2d(z[None, None], w), 10)
-        b, why = bound_ms(*deriv_work(shape, dtype, dim))
-        return {"path": "stencil2d", "shape": list(shape),
-                "dtype": str(dtype).split(".")[1], "dim": dim, "ms": ms,
-                "plain_ms": plain, "bound_ms": b, "bound_by": why,
-                "library_ms": lib}
+        b, why = bound_ms(*deriv_work(shape, dtype, dim), dtype, rate)
+        return {"path": path, "shape": list(shape),
+                "dtype": str(dtype).split(".")[1], "dim": dim,
+                "route": hand.deriv_route(z, dim, out),
+                "vec_bytes": hand.deriv_vec_bytes(z, dim, out), "ms": ms,
+                "queued_ms": queued, "plain_ms": plain, "bound_ms": b,
+                "bound_by": why, "library_ms": lib}
 
     def heat_row(path, shape, dtype, k, cx, cy):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
         out = torch.empty_like(z)
-        ms = time_cuda(lambda: hand.heat2d(z, cx, cy, steps=k, out=out), 50)
+
+        def launch():
+            return hand.heat2d(z, cx, cy, steps=k, out=out)
+
+        ms = time_cuda(launch, 50)
+        queued = time_cuda_queued(launch, 20)
         plain = time_cuda(lambda: hand.heat2d_ref(z, cx, cy, steps=k), 5)
-        b, why = bound_ms(*heat_work(shape, dtype, k))
+        lib = None
+        if k == 1:
+            # the one-call twin of one step: the five-point weight, valid
+            # padding (the outer ring is not computed)
+            w = torch.tensor([[0.0, cx, 0.0],
+                              [cy, 1.0 - 2.0 * cx - 2.0 * cy, cy],
+                              [0.0, cx, 0.0]], dtype=torch.float64)
+            w = w.to(device=device, dtype=dtype)[None, None]
+            lib_out = F.conv2d(z[None, None], w)[0, 0]
+            if tuple(lib_out.shape) != (shape[0] - 2, shape[1] - 2):
+                raise SmokeFailure("heat conv2d yardstick shape mismatch")
+            del lib_out
+            lib = time_cuda(lambda: F.conv2d(z[None, None], w), 10)
+        b, why = bound_ms(*heat_work(shape, dtype, k), dtype, rate)
         return {"path": path, "shape": list(shape),
-                "dtype": str(dtype).split(".")[1], "steps": k, "ms": ms,
-                "plain_ms": plain, "bound_ms": b, "bound_by": why,
-                "library_ms": None}
+                "dtype": str(dtype).split(".")[1], "steps": k,
+                "route": hand.heat_route(z, k, out),
+                "vec_bytes": hand.heat_vec_bytes(z, out), "ms": ms,
+                "queued_ms": queued, "plain_ms": plain, "bound_ms": b,
+                "bound_by": why, "library_ms": lib,
+                **({"library_call": "F.conv2d 3x3 five-point weight, valid "
+                                    "padding, TF32 off; one step"}
+                   if k == 1 else {})}
 
     def dual_row(shape, dtype, lean=False):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -3639,14 +3882,26 @@ def time_kernels(device):
              torch.bfloat16, 1, (0, 0), 1e-6, 1)]:
         rows["stencil2d_iterate"].append(iterate_row(*case))
         torch.cuda.empty_cache()
-    rows["stencil2d_deriv"] = [
-        deriv_row((REF_N_LOCAL + 4, REF_N_OTHER), torch.float32, 0),
-        deriv_row((REF_N_LOCAL, REF_N_OTHER + 4), torch.float32, 1),
-        deriv_row((REF_N_LOCAL + 4, REF_N_OTHER), torch.bfloat16, 0),
-    ]
-    torch.cuda.empty_cache()
+    # the stencil2d driver's operands (and the bfloat16 dim-0 field), then
+    # microbench stencil's
+    rows["stencil2d_deriv"] = []
+    for case in (("stencil2d", (REF_N_LOCAL + 4, REF_N_OTHER),
+                  torch.float32, 0),
+                 ("stencil2d", (REF_N_LOCAL, REF_N_OTHER + 4),
+                  torch.float32, 1),
+                 ("stencil2d", (REF_N_LOCAL + 4, REF_N_OTHER),
+                  torch.bfloat16, 0),
+                 ("microbench stencil", STENCIL_MB_SHAPE, torch.float32, 0),
+                 ("microbench stencil", STENCIL_MB_SHAPE, torch.float32, 1)):
+        rows["stencil2d_deriv"].append(deriv_row(*case))
+        torch.cuda.empty_cache()
+    # the heat driver's three runs, then microbench heat's and roofline2's
+    # deepest (k = 8 at 2064²)
     rows["heat2d"] = []
-    for case in heat_cases():
+    for case in heat_cases() + [
+            (f"microbench heat {dt} k=8", (2064, 2064), dtype, 8, 0.05, 0.05)
+            for dt, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16))]:
         rows["heat2d"].append(heat_row(*case))
         torch.cuda.empty_cache()
     rows["dual_dim_step"] = [
@@ -4029,6 +4284,23 @@ def check_no_spills(ptxas, is_main) -> None:
                 raise SmokeFailure(f"PTXAS {lib}: {k} spills {v}")
 
 
+def main_heat_deriv_instances() -> set:
+    """The regs instances of the heat update and the derivative that the
+    main path launches (``heat_ab.kernel_name``'s names): the heat
+    driver's three runs, microbench ``heat`` (k = 1, 4, 8 at 2048²) and
+    ``roofline2`` (k = 2, 4, 6, 8 at 2048² and ROOFLINE_LARGE's n), in
+    the vector their rows start on; the float32 derivative in 16-byte
+    vectors along both dims (the stencil2d drivers, microbench
+    ``stencil``)."""
+    names = {"deriv_regs_dim0<float, 16>", "deriv_regs_dim1<float, 16>"}
+    for _, n, dt, k in heat_main_operands():
+        pitch = (n + 2 * k) * (2 if dt == "bfloat16" else 4)
+        vb = next(b for b in (16, 8, 4) if pitch % b == 0)
+        names.add(f"heat2d_regs<{'bf16' if dt == 'bfloat16' else 'float'}, "
+                  f"{k}, {vb}>")
+    return names
+
+
 def is_kstep_regs(name: str) -> bool:
     """The k-step kernels' regs instances: the iterate's
     ``iterate_regs_dim*``, the fused kernel's instances of k >= 1 steps."""
@@ -4056,7 +4328,7 @@ def main() -> int:
         return 2
     try:
         from tpu_mpi_tests_torch.kernels import (build, dual_ab, hand,
-                                                 kstep_ab, probe_ab,
+                                                 heat_ab, kstep_ab, probe_ab,
                                                  stream_ab)
     except ImportError as e:
         print(f"chip_smoke: the port package is not importable ({e}); run "
@@ -4100,6 +4372,11 @@ def main() -> int:
                        for lib in ("stencil_iterate", "fused_rdma")}
         log(f"PTXAS iterate and fused instances {json.dumps(kstep_ptxas)}")
         check_no_spills(kstep_ptxas, is_kstep_regs)
+        heat_ptxas = {lib: build.ptxas_summary(lib, heat_ab.kernel_name)
+                      for lib in ("heat2d", "stencil_deriv")}
+        log(f"PTXAS heat and derivative instances {json.dumps(heat_ptxas)}")
+        main_heat = main_heat_deriv_instances()
+        check_no_spills(heat_ptxas, lambda k: k in main_heat)
         probe_ptxas = build.ptxas_summary("alu_probe", probe_ab.kernel_name)
         dual_ptxas = build.ptxas_summary("dual_dim_step", dual_ab.kernel_name)
         log(f"PTXAS probe and dual-step instances "
@@ -4201,6 +4478,12 @@ def main() -> int:
             extra["launches_by_route_per_path"] = {
                 p: r[name] for p, r in ROUTE_COUNTS.items()}
             extra["ptxas"] = halo_ptxas[name]
+        if name in HEAT_DERIV_KERNELS:
+            extra["launches_by_route_per_path"] = {
+                p: r[name] for p, r in ROUTE_COUNTS.items()
+                if sum(r[name].values())}
+            extra["ptxas"] = heat_ptxas[
+                "heat2d" if name == "heat2d" else "stencil_deriv"]
         if name in KSTEP_KERNELS:
             extra["launches_by_route_per_path"] = {
                 p: r[name] for p, r in ROUTE_COUNTS.items()

@@ -206,6 +206,8 @@ def test_cpu_wrappers_are_the_plain_version_and_count_no_route():
             ("stream_sum3", hand.COLL_ROUTES),
             ("stencil2d_iterate", hand.KSTEP_ROUTES),
             ("stencil2d_fused_rdma", hand.KSTEP_ROUTES),
+            ("stencil2d_deriv", hand.DERIV_ROUTES),
+            ("heat2d", hand.HEAT_ROUTES),
             ("dual_dim_step", hand.DUAL_ROUTES),
             ("alu_probe", hand.PROBE_ROUTES))}
     rng = np.random.default_rng(9)

@@ -137,6 +137,126 @@ def test_deriv_kernel_matches_plain(card, dtype, dim):
     assert torch.equal(got, want)
 
 
+def offset_view(card, shape, dtype, off_bytes, seed):
+    """A contiguous ``shape`` view of random values ``off_bytes`` past a
+    16-byte boundary (``chip_smoke.offset_view``)."""
+    return CS.offset_view(lambda s, d: rand(card, s, d, seed), shape, dtype,
+                          off_bytes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("geometry", ["rows16", "rows8", "view"])
+@pytest.mark.parametrize("rows", [9, 131, 1000])
+def test_deriv_both_routes_match_plain(card, dtype, dim, geometry, rows):
+    """Both routes bit for bit, each launch counted on the route the rule
+    names: regs in 16-byte vectors where every row of z and out starts on
+    16 bytes, in 8-byte ones where on 8, scalar on a view 4 bytes off
+    (bfloat16 and float32) — ragged against the runs and the dim-1
+    segment."""
+    item = torch.empty((), dtype=dtype).element_size()
+    # rows of z and out on 16 bytes, on 8 (not 16), and off 8 (the 16-byte
+    # width, a view 4 bytes off)
+    width = CS.GEOMETRY_WIDTH["rows16" if geometry == "view"
+                              else geometry](item)
+    shape = (rows + 4, width) if dim == 0 else (rows, width + 4)
+    if geometry == "view" and item == 8:
+        pytest.skip("a float64 view is always on 8 bytes")
+    z = offset_view(card, shape, dtype, 4 if geometry == "view" else 0,
+                    seed=rows + dim)
+    route = hand.deriv_route(z, dim)
+    vec = hand.deriv_vec_bytes(z, dim)
+    assert vec == {"rows16": 16, "rows8": 8, "view": 0}[geometry] or (
+        dim == 1 and geometry == "rows16" and vec == 8)
+    assert route == ("regs" if vec else "scalar")
+    before = dict(hand.stencil2d_deriv.launches_by_route)
+    got = hand.stencil2d_deriv(z, 3.0, dim=dim)
+    want = hand.stencil2d_deriv_ref(z, 3.0, dim=dim)
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, want)
+    after = hand.stencil2d_deriv.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in hand.DERIV_ROUTES}
+
+
+def test_deriv_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    z = rand(card, (64, 128), torch.float32, seed=3)
+    odd = rand(card, (64, 129), torch.float32, seed=4)
+    monkeypatch.setattr(hand, "deriv_route", lambda *a, **k: "scalar")
+    with pytest.raises(RuntimeError, match="scalar route"):
+        hand.stencil2d_deriv(z, 1.0, dim=0)
+    monkeypatch.setattr(hand, "deriv_route", lambda *a, **k: "regs")
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.stencil2d_deriv(odd, 1.0, dim=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("steps", [*range(1, 10)])
+@pytest.mark.parametrize("geometry", ["rows16", "rows8", "rows4", "rows2"])
+@pytest.mark.parametrize("rows", [3, 150])
+def test_heat2d_both_routes_match_plain(card, dtype, steps, geometry, rows):
+    """Both routes bit for bit, each launch counted on the route the rule
+    names: regs up to 8 steps on rows that start on 16, 8 or 4 bytes (the
+    widest vector that holds a word), smem at 9 steps and on bfloat16
+    rows off 4 bytes; 3 rows (no interior row but one) and 150 (ragged
+    against the runs), a width ragged against the warp segment."""
+    item = torch.empty((), dtype=dtype).element_size()
+    # rows on 16, 8 and 4 bytes, and bfloat16 rows off 4 bytes (smem)
+    width = CS.GEOMETRY_WIDTH[geometry](item)
+    if (geometry == "rows4" and item == 8) or (geometry == "rows2"
+                                               and item != 2):
+        pytest.skip("no such row for this dtype")
+    z = rand(card, (rows, width), dtype, seed=steps + rows)
+    vec = hand.heat_vec_bytes(z)
+    assert vec == {"rows16": 16, "rows8": 8, "rows4": 4, "rows2": 0}[
+        geometry]
+    route = hand.heat_route(z, steps)
+    assert route == ("regs" if steps <= 8 and vec else "smem")
+    before = dict(hand.heat2d.launches_by_route)
+    got = hand.heat2d(z, 0.13, 0.21, steps=steps)
+    want = hand.heat2d_ref(z, 0.13, 0.21, steps=steps)
+    torch.cuda.synchronize(card)
+    assert torch.equal(got, want)
+    after = hand.heat2d.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in hand.HEAT_ROUTES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("steps", [1, 4, 8])
+@pytest.mark.parametrize("shape", [(3, 3), (5, 7), (40, 20), (70, 1000)])
+def test_heat2d_regs_edges_match_plain(card, dtype, steps, shape):
+    """The regs route on shards narrower than one warp segment, 3×3, and
+    on a view 4 bytes off 16 (4-byte vectors), bit for bit."""
+    for z in (rand(card, shape, dtype, seed=steps),
+              offset_view(card, shape, dtype, 4, seed=steps)):
+        got = hand.heat2d(z, 0.1, 0.2, steps=steps)
+        want = hand.heat2d_ref(z, 0.1, 0.2, steps=steps)
+        torch.cuda.synchronize(card)
+        assert hand.heat_route(z, steps) == ("regs" if hand.heat_vec_bytes(z)
+                                             else "smem")
+        assert torch.equal(got, want)
+
+
+def test_heat2d_launch_refuses_another_route(card, monkeypatch):
+    """The launcher checks the route it is given: a wrapper that named
+    another route than the rule's gets an error, never a fallback."""
+    z = rand(card, (64, 128), torch.float32, seed=3)
+    odd = rand(card, (64, 129), torch.bfloat16, seed=4)
+    monkeypatch.setattr(hand, "heat_route", lambda *a, **k: "smem")
+    with pytest.raises(RuntimeError, match="smem route"):
+        hand.heat2d(z, 0.1, 0.1, steps=2)
+    monkeypatch.setattr(hand, "heat_route", lambda *a, **k: "regs")
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.heat2d(odd, 0.1, 0.1, steps=2)
+    with pytest.raises(RuntimeError, match="regs route"):
+        hand.heat2d(z, 0.1, 0.1, steps=9)
+
+
 @pytest.mark.parametrize("periodic", [False, True])
 def test_blocks_runner_on_card_matches_cpu(card, periodic):
     """The S=2 runner on the card equals the runner on the CPU (the plain
@@ -165,12 +285,20 @@ def test_heat2d_kernel_matches_plain(card, dtype, steps, shape):
 
 
 def test_heat2d_rejects_aliasing_and_too_deep_steps(card):
+    """Aliasing is refused; so is a depth beyond shared memory, which only
+    the smem route has (a depth the regs route takes is never refused
+    for it)."""
     z = rand(card, (40, 40), torch.float32, seed=1)
     with pytest.raises(ValueError, match="share storage"):
         hand.heat2d(z, 0.1, 0.1, out=z)
     deepest = hand.heat2d_max_steps(torch.float32)
+    assert deepest > hand.HEAT_REGS_MAX_STEPS
     with pytest.raises(ValueError, match="shared memory"):
         hand.heat2d(z, 0.1, 0.1, steps=deepest + 1)
+    odd = rand(card, (40, 41), torch.bfloat16, seed=2)
+    deepest = hand.heat2d_max_steps(torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        hand.heat2d(odd, 0.1, 0.1, steps=deepest + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

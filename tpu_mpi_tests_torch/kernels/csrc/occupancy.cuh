@@ -1,6 +1,7 @@
 // The grid of a launch sized by the card: the occupancy API's resident
 // count for a kernel, clipped to the work. Shared by the peer-store
-// kernels (ring_common.cuh) and the halo staging copies (pack.cu).
+// kernels (ring_common.cuh), the halo staging copies (pack.cu) and the
+// register walks of heat2d.cu and stencil_deriv.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +38,20 @@ inline int coll_grid(int resident, long long items, long long per_cta,
   if (max_ctas > 0 && ctas > max_ctas) ctas = max_ctas;
   if (ctas < 1) ctas = 1;
   return static_cast<int>(ctas);
+}
+
+// The runs a walk of `rows` rows splits into so that `cols` CTAs a run
+// fill at most one wave of `resident` CTAs, none shorter than
+// `floor_rows`, balanced (every run ceil(rows / runs) rows but the last):
+// the heat update's and the derivative's regs routes.
+inline long long wave_runs(int resident, long long cols, long long rows,
+                           int floor_rows) {
+  long long runs = cols > 0 ? resident / cols : 1;
+  const long long most = (rows + floor_rows - 1) / floor_rows;
+  if (runs > most) runs = most;
+  if (runs < 1) runs = 1;
+  const long long ta = (rows + runs - 1) / runs;
+  return (rows + ta - 1) / ta;
 }
 
 }  // namespace tpumt

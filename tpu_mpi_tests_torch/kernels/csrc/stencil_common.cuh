@@ -93,7 +93,8 @@ TPUMT_BF16X2_OP(bf2_mul, "mul.rn.bf16x2")
 #undef TPUMT_BF16X2_OP
 
 // One register word of packed arithmetic, rounding as Elt<T> does:
-// float one element a word (the _rn intrinsics), bfloat16 two (bf16x2).
+// float and double one element a word (the _rn intrinsics), bfloat16 two
+// (bf16x2).
 template <typename T>
 struct Pk;
 template <>
@@ -109,6 +110,16 @@ struct Pk<float> {
   // element 0 (and 1) of the word as float
   __device__ static float2 f2(W w) { return make_float2(w, 0.f); }
   // n where `lo` (element 0) / `hi` (element 1) hold, else o
+  __device__ static W sel(W n, W o, bool lo, bool) { return lo ? n : o; }
+};
+template <>
+struct Pk<double> {
+  using W = double;
+  static constexpr int kElems = 1;
+  __device__ static W add(W a, W b) { return __dadd_rn(a, b); }
+  __device__ static W sub(W a, W b) { return __dsub_rn(a, b); }
+  __device__ static W mul(W a, W b) { return __dmul_rn(a, b); }
+  __device__ static W splat(double c) { return c; }
   __device__ static W sel(W n, W o, bool lo, bool) { return lo ? n : o; }
 };
 template <>
@@ -128,9 +139,9 @@ struct Pk<__nv_bfloat16> {
   }
 };
 
-// The word at element offset D (-2..2) from word j of a row segment `e`:
-// float words are elements; a bfloat16 word is an element pair, so odd
-// offsets straddle two words (one byte permute).
+// The word at element offset D from word j of a row segment `e`: float
+// and double words are elements; a bfloat16 word is an element pair, so
+// odd offsets straddle two words (one byte permute).
 template <typename T, int D>
 __device__ __forceinline__ typename Pk<T>::W pk_at(const typename Pk<T>::W* e,
                                                    int j) {
@@ -140,10 +151,37 @@ __device__ __forceinline__ typename Pk<T>::W pk_at(const typename Pk<T>::W* e,
   } else if constexpr (D % 2 == 0) {
     return e[j + D / 2];
   } else {
-    constexpr int lo = D < 0 ? -1 : 0;  // the word of the pair's first element
+    constexpr int lo = (D - 1) / 2;  // the word of the pair's first element
     return P::of(__byte_perm(P::bits(e[j + lo]), P::bits(e[j + lo + 1]),
                              0x5432));
   }
+}
+
+// The unsigned type of kVB bytes (16, 8, 4) that one load or store moves.
+template <int kVB>
+struct VecOf;
+template <>
+struct VecOf<16> {
+  using V = uint4;
+};
+template <>
+struct VecOf<8> {
+  using V = uint2;
+};
+template <>
+struct VecOf<4> {
+  using V = unsigned;
+};
+
+// Every row of two row-major arrays at z and out, `zpitch` and `opitch`
+// bytes a row, starts on `b` bytes: both start there and both pitches are
+// whole multiples of b (the vectors of heat2d.cu's and stencil_deriv.cu's
+// regs routes).
+inline bool rows_start_on(int b, const void* z, const void* out,
+                          long long zpitch, long long opitch) {
+  return reinterpret_cast<std::uintptr_t>(z) % b == 0 &&
+         reinterpret_cast<std::uintptr_t>(out) % b == 0 && zpitch % b == 0 &&
+         opitch % b == 0;
 }
 
 // a + b, element by element in the dtype (bfloat16 rounded per op), for

@@ -74,9 +74,12 @@ two halo staging copies (keys
 :data:`PACK_ROUTES`: ``vec16``, ``vec8`` or ``scalar``;
 :func:`pack_route`) and the two k-step kernels (keys
 :data:`KSTEP_ROUTES`: ``regs`` or ``smem``; :func:`kstep_route`), the
-dual step (keys :data:`DUAL_ROUTES`: ``regs`` or ``smem``;
-:func:`dual_route`) and the probe (keys :data:`PROBE_ROUTES`:
-``cluster`` or ``l2``; :func:`probe_route`).
+derivative (keys :data:`DERIV_ROUTES`: ``regs`` or ``scalar``;
+:func:`deriv_route`), the heat update (keys :data:`HEAT_ROUTES`:
+``regs`` or ``smem``; :func:`heat_route`), the dual step (keys
+:data:`DUAL_ROUTES`: ``regs`` or ``smem``; :func:`dual_route`) and the
+probe (keys :data:`PROBE_ROUTES`: ``cluster`` or ``l2``;
+:func:`probe_route`).
 
 The plain versions repeat the kernels' arithmetic op for op (coefficients
 rounded to the array dtype first), so on the card a kernel and its plain
@@ -134,14 +137,18 @@ _SIGNATURES = {
         _c_double, _c_double, _c_double, _c_int, _c_int, _c_void_p, _c_int,
         _c_void_p,
     ], _c_int),
+    # z, out; dtype, dim, n0, n1; c0..c4, scale; route (DERIV_ROUTES
+    # index), stream
     "tpumt_stencil2d_deriv": ([
         _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_ll,
         _c_double, _c_double, _c_double, _c_double, _c_double, _c_double,
-        _c_void_p,
+        _c_int, _c_void_p,
     ], _c_int),
+    # z, out; dtype, n0, n1, steps; cx, cy, two; route (HEAT_ROUTES
+    # index), stream
     "tpumt_heat2d": ([
         _c_void_p, _c_void_p, _c_int, _c_ll, _c_ll, _c_int, _c_double,
-        _c_double, _c_double, _c_void_p,
+        _c_double, _c_double, _c_int, _c_void_p,
     ], _c_int),
     "tpumt_heat2d_max_steps": ([_c_int], _c_int),
     # z, dx, dy, partials, residual; dtype, n0, n1; c0..c4, sx, sy; lean,
@@ -309,6 +316,18 @@ KSTEP_ROW_BYTES = 8
 FUSED_ROW_BYTES = 16
 
 
+def _rows_vec_bytes(widths, z: torch.Tensor, out, pitches) -> int:
+    """The first of ``widths`` (bytes) that every row of ``z`` and ``out``
+    (None: a fresh allocation, which starts on 16 bytes) starts on: both
+    start there and each of ``pitches`` (bytes) is a whole multiple of it;
+    else 0."""
+    ptrs = (z.data_ptr(),) + (() if out is None else (out.data_ptr(),))
+    for b in widths:
+        if all(p % b == 0 for p in ptrs + tuple(pitches)):
+            return b
+    return 0
+
+
 def kstep_vec_bytes(z: torch.Tensor,
                     out: "torch.Tensor | None" = None) -> int:
     """The regs route's vector for the contiguous 2-D ``z`` and ``out``
@@ -316,12 +335,8 @@ def kstep_vec_bytes(z: torch.Tensor,
     launchers take it (``kstep_vec_bytes``): 16 bytes where every row of
     both starts on 16 bytes (both start there and the row pitch is whole
     16-byte vectors), else 8 where every row starts on 8, else 0."""
-    ptrs = (z.data_ptr(),) + (() if out is None else (out.data_ptr(),))
-    pitch = z.shape[-1] * z.element_size()
-    for b in (16, 8):
-        if pitch % b == 0 and all(p % b == 0 for p in ptrs):
-            return b
-    return 0
+    return _rows_vec_bytes((16, 8), z, out,
+                           (z.shape[-1] * z.element_size(),))
 
 
 def kstep_route(z: torch.Tensor, dim: int, steps: int,
@@ -477,6 +492,39 @@ def _deriv_shape(z: torch.Tensor, dim: int):
     return tuple(shape)
 
 
+#: the routes of the derivative (csrc/stencil_deriv.cu; a route's code is
+#: its index): "regs" — every input row read once in 16- or 8-byte
+#: vectors, a thread a column vector down a run of rows through a 5-row
+#: register window (dim 0), a warp a row segment down a run of rows, its
+#: lanes' right-hand taps by shuffles (dim 1); "scalar" — one element a
+#: thread, any alignment
+DERIV_ROUTES = ("scalar", "regs")
+
+def deriv_vec_bytes(z: torch.Tensor, dim: int,
+                    out: "torch.Tensor | None" = None) -> int:
+    """The regs route's vector for the contiguous 2-D ``z`` and its
+    derivative ``out`` along ``dim`` (None: a fresh allocation, which
+    starts on 16 bytes), as the C launcher takes it
+    (``deriv_vec_bytes``): 16 bytes where every row of both starts on 16
+    (both start there and both row pitches — along dim 1 out's is 4
+    elements shorter — are whole 16-byte vectors), else 8 where every row
+    starts on 8, else 0."""
+    item = z.element_size()
+    m1 = z.shape[1] - 2 * N_BND if dim == 1 else z.shape[1]
+    return _rows_vec_bytes((16, 8), z, out, (z.shape[1] * item, m1 * item))
+
+
+def deriv_route(z: torch.Tensor, dim: int,
+                out: "torch.Tensor | None" = None) -> str:
+    """The route (one of :data:`DERIV_ROUTES`) of a
+    :func:`stencil2d_deriv` launch on the contiguous 2-D ``z`` along
+    ``dim`` into ``out``, by the rule the C launcher checks: "regs" where
+    :func:`deriv_vec_bytes` finds a vector, else "scalar"."""
+    if dim not in (0, 1):
+        raise ValueError(f"dim must be 0 or 1, got {dim}")
+    return "regs" if deriv_vec_bytes(z, dim, out) else "scalar"
+
+
 def stencil2d_deriv_ref(z: torch.Tensor, scale, dim: int = 0
                         ) -> torch.Tensor:
     """Plain-torch version of :func:`stencil2d_deriv`: the torch-op
@@ -489,7 +537,9 @@ def stencil2d_deriv(z: torch.Tensor, scale, dim: int = 0,
                     out: "torch.Tensor | None" = None) -> torch.Tensor:
     """5-point first derivative × ``scale`` along ``dim`` of a 2-D array
     ghosted along ``dim`` (out has 2·N_BND fewer points there; ≅
-    ``stencil2d_pallas`` and the SYCL ``stencil2d_1d_5``)."""
+    ``stencil2d_pallas`` and the SYCL ``stencil2d_1d_5``). The launch
+    takes the route :func:`deriv_route` names for ``z`` and ``out``,
+    counted in ``stencil2d_deriv.launches_by_route``."""
     shape = _deriv_shape(z, dim)
     if out is not None:
         _check_out(out, z, shape, "stencil2d_deriv")
@@ -502,20 +552,24 @@ def stencil2d_deriv(z: torch.Tensor, scale, dim: int = 0,
     if out is None:
         out = torch.empty(shape, dtype=z.dtype, device=z.device)
     c = [_rounded(v, z.dtype) for v in STENCIL5.tolist()]
+    route = deriv_route(z, dim, out)
     fn = _entry("stencil_deriv", "tpumt_stencil2d_deriv")
     with torch.cuda.device(z.device):
         rc = fn(
             z.data_ptr(), out.data_ptr(), DTYPE_CODES[z.dtype], dim,
             z.shape[0], z.shape[1], *c, _rounded(scale, z.dtype),
+            DERIV_ROUTES.index(route),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     if rc != 0:
-        _raise_launch("stencil2d_deriv", rc)
+        _raise_launch(f"stencil2d_deriv ({route} route)", rc)
     stencil2d_deriv.launches += 1
+    stencil2d_deriv.launches_by_route[route] += 1
     return out
 
 
 stencil2d_deriv.launches = 0
+stencil2d_deriv.launches_by_route = dict.fromkeys(DERIV_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -541,11 +595,45 @@ def heat2d_ref(z: torch.Tensor, cx: float, cy: float, steps: int = 1
     return heat2d_steps_(z.clone(), cx, cy, steps)
 
 
+#: the routes of the heat update (csrc/heat2d.cu; a route's code is its
+#: index): "regs" — every step in registers, a warp a column segment
+#: walking a run of rows through a k-stage pipeline of 3-row windows,
+#: column neighbours by shuffles; "smem" — the tile stepped in shared
+#: memory, any steps that fit, any alignment
+HEAT_ROUTES = ("smem", "regs")
+#: the most steps the regs route's registers hold (kHeatRegsMaxSteps)
+HEAT_REGS_MAX_STEPS = 8
+
+
+def heat_vec_bytes(z: torch.Tensor,
+                   out: "torch.Tensor | None" = None) -> int:
+    """The regs route's vector for the contiguous 2-D ``z`` and ``out``
+    (None: a fresh allocation, which starts on 16 bytes), as the C
+    launcher takes it (``heat_vec_bytes``): the widest of 16, 8 and 4
+    bytes that every row of both starts on (both start there and the row
+    pitch is whole vectors) and that holds a whole word (two bfloat16
+    elements, one float32 or float64 element), else 0."""
+    item = z.element_size()
+    widths = (16, 8) if item == 8 else (16, 8, 4)  # a vector holds a word
+    return _rows_vec_bytes(widths, z, out, (z.shape[-1] * item,))
+
+
+def heat_route(z: torch.Tensor, steps: int,
+               out: "torch.Tensor | None" = None) -> str:
+    """The route (one of :data:`HEAT_ROUTES`) of a :func:`heat2d` launch
+    on the contiguous 2-D ``z`` into ``out``, by the rule the C launcher
+    checks: "regs" when 1 ≤ ``steps`` ≤ :data:`HEAT_REGS_MAX_STEPS` and
+    :func:`heat_vec_bytes` finds a vector (float32 and float64 always;
+    bfloat16 where every row starts on 4 bytes), else "smem"."""
+    regs = 1 <= steps <= HEAT_REGS_MAX_STEPS and heat_vec_bytes(z, out) > 0
+    return "regs" if regs else "smem"
+
+
 @functools.lru_cache(maxsize=None)
 def heat2d_max_steps(dtype: torch.dtype) -> int:
-    """The deepest ``steps`` one :func:`heat2d` launch takes in
-    ``dtype`` (the tile and its apron must fit in shared memory; asked of
-    the library once per dtype)."""
+    """The deepest ``steps`` one :func:`heat2d` launch on the smem route
+    takes in ``dtype`` (the tile and its apron must fit in shared memory;
+    asked of the library once per dtype)."""
     fn = _entry("heat2d", "tpumt_heat2d_max_steps")
     return fn(DTYPE_CODES[dtype])
 
@@ -556,7 +644,10 @@ def heat2d(z: torch.Tensor, cx: float, cy: float, steps: int = 1,
     both-axes-ghosted shard over the maximal span ``[1, n0−1) × [1,
     n1−1)``, the outer ring kept (≅ ``heat2d_pallas``), written to
     ``out`` (a new tensor when None) — never in place: ``out`` must not
-    share storage with ``z``. Ghost-band cells are results too."""
+    share storage with ``z``. Ghost-band cells are results too. The
+    launch takes the route :func:`heat_route` names for ``z``, ``out``
+    and ``steps``, counted in ``heat2d.launches_by_route``; only the smem
+    route is bounded by shared memory (:func:`heat2d_max_steps`)."""
     _check_heat(z, steps)
     if out is not None:
         _check_out(out, z, z.shape, "heat2d")
@@ -566,27 +657,32 @@ def heat2d(z: torch.Tensor, cx: float, cy: float, steps: int = 1,
     if z.device.type != "cuda":
         raise ValueError(f"heat2d: unsupported device {z.device}")
     _check_cuda_operand(z, "heat2d")
-    deepest = heat2d_max_steps(z.dtype)
-    if steps > deepest:
-        raise ValueError(f"heat2d: steps={steps} > {deepest}, the deepest "
-                         f"apron that fits in shared memory for {z.dtype}")
     if out is None:
         out = torch.empty_like(z)
+    route = heat_route(z, steps, out)
+    if route == "smem":
+        deepest = heat2d_max_steps(z.dtype)
+        if steps > deepest:
+            raise ValueError(
+                f"heat2d: steps={steps} > {deepest}, the deepest apron that "
+                f"fits in shared memory for {z.dtype} (the smem route)")
     fn = _entry("heat2d", "tpumt_heat2d")
     with torch.cuda.device(z.device):
         rc = fn(
             z.data_ptr(), out.data_ptr(), DTYPE_CODES[z.dtype],
             z.shape[0], z.shape[1], steps, _rounded(cx, z.dtype),
-            _rounded(cy, z.dtype), 2.0,
+            _rounded(cy, z.dtype), 2.0, HEAT_ROUTES.index(route),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     if rc != 0:
-        _raise_launch("heat2d", rc)
+        _raise_launch(f"heat2d ({route} route)", rc)
     heat2d.launches += 1
+    heat2d.launches_by_route[route] += 1
     return out
 
 
 heat2d.launches = 0
+heat2d.launches_by_route = dict.fromkeys(HEAT_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -2261,15 +2357,17 @@ def route_counts() -> dict:
     the ring halo and the three streaming kernels (keys
     :data:`COLL_ROUTES`), the two halo staging copies (keys
     :data:`PACK_ROUTES`), the two k-step kernels (keys
-    :data:`KSTEP_ROUTES`), the dual step (keys :data:`DUAL_ROUTES`) and the
-    probe (keys :data:`PROBE_ROUTES`) since the last
-    :func:`reset_launch_counts`."""
+    :data:`KSTEP_ROUTES`), the derivative (keys :data:`DERIV_ROUTES`), the
+    heat update (keys :data:`HEAT_ROUTES`), the dual step (keys
+    :data:`DUAL_ROUTES`) and the probe (keys :data:`PROBE_ROUTES`) since
+    the last :func:`reset_launch_counts`."""
     return {fn.__name__: dict(fn.launches_by_route)
             for fn in (flash_attention_block, fused_ring_attention,
                        ring_allgather, ring_reduce_scatter, oneshot,
                        ring_halo, pack_edges, unpack_ghosts, daxpy,
                        stream_scale, stream_sum3, stencil2d_iterate,
-                       stencil2d_fused_rdma, dual_dim_step, alu_probe)}
+                       stencil2d_fused_rdma, stencil2d_deriv, heat2d,
+                       dual_dim_step, alu_probe)}
 
 
 @contextlib.contextmanager
