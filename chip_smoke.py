@@ -41,7 +41,16 @@ failure exits non-zero and prints no result line):
    its own shape (``heat_main_operands``: k = 1..8 at 2050²-2064² and
    8196²-8208², rows on 16, 8 and 4 bytes, the inner warp walk); the
    dual step over the three
-   dtypes × ragged shapes and its operand (8196² float32). Tolerance: 0 —
+   dtypes × ragged shapes and its operand (8196² float32); the 2-D grids'
+   operands over ranks (``check_grid_blocks``): pack and unpack along
+   axis 1 at the grid's band widths (n_bnd 1, 2, 4, 8 on the (8192 +
+   2k)² heat blocks and 2 on 8196², float32 and bfloat16; f32 k=1 on
+   scalar, f32 k=4 on vec16, bf16 k=4 on vec8), and each rank's block
+   of the strong-scaled 2x2 grid (4096 + 2k)² and 4100² cut from the
+   1x1 field with the ghosts the exchange delivers, ``heat2d`` at the
+   three heat runs and ``dual_dim_step`` in float32 and bfloat16, each
+   launch on its route, against the plain version and, in the interior,
+   the 1x1 result's window, bit for bit. Tolerance: 0 —
    bit-exact in every dtype. The kernels round after every op exactly
    where the eager PyTorch ops round (float32/float64: one IEEE op each,
    no FMA contraction; bfloat16: each op in float32, rounded to bf16),
@@ -157,7 +166,11 @@ failure exits non-zero and prints no result line):
    route, counted exactly per path; then
    the world=2 legs: two ranks on one card are left out (the symmetric-memory
    allocator refuses them, a line says so) and the NCCL leg runs only
-   where ``torch.cuda.device_count() > 1`` (a line says when it did not).
+   where ``torch.cuda.device_count() > 1`` (a line says when it did not);
+   its ``grid`` part runs the 1x2 and 2x1 grids at world 2 and, where
+   there are four cards, the 2x2 grid at world 4 (``_nccl_grid``: the
+   heat runner and the grid step with ``kernel="hand"``, 8192² a rank,
+   equal to rank 0's 1x1 run bit for bit, launches exact per rank).
    Then the DAXPY slice, each path alone in the same
    way: the microbench groups ``daxpy``, ``ceiling`` and ``streams``
    (each must launch exactly the streaming kernels its schedule makes,
@@ -214,7 +227,8 @@ failure exits non-zero and prints no result line):
    operands and at 2064² k=8 in float32 and bfloat16, the derivative at
    the stencil2d driver's operands (and in bfloat16 along dim 0) and at
    microbench ``stencil``'s 1028×8192, back to back and queued, each with
-   its route and vector. The iterate at
+   its route and vector, and at a rank's block of the strong-scaled 2x2
+   grid (the dual step too). The iterate at
    the bench's f32 block and bf16 buffer, the driver's block,
    ``rdma-chained``'s f32 dim-1 buffer and microbench ``iterate``'s bf16
    k = 1 field (8-byte rows), back to back and queued, each with its
@@ -237,7 +251,8 @@ failure exits non-zero and prints no result line):
    ``narrow``s and two ``copy_`` (bound: bytes, the strided side counted
    as the union of the 32-byte sectors it touches; timed with their
    launches queued behind a stall, since they
-   are shorter than their wrappers' host cost); the lean dual step
+   are shorter than their wrappers' host cost), and along axis 1 at the
+   grid's band widths (the heat runs' blocks); the lean dual step
    beside the raw one's yardstick; ``ring_halo`` at the ``--rdma``
    driver's dim-0 operand, the bench's chained dim-1 buffer and the
    driver's dim-1 operand (the scalar route) on the periodic self-ring
@@ -296,6 +311,23 @@ DRIVER_SE = 0.01                 # the driver's iterate-leg scale_eps
 GRID_N = 8192                    # the 2-D grid paths' local extent
 HEAT_N_STEPS = 200               # the heat driver's default step count
 HEAT_RUNS = (("float32", 4), ("float32", 1), ("bfloat16", 4))
+# the 2-D grids over ranks: weak-scaled, each rank holds the one-card
+# block; strong-scaled, GRID_N² split over the 2x2 grid, GRID_HALF² a rank
+GRID_HALF = GRID_N // 2
+# pack and unpack along axis 1 at the grid's band widths: (shape, n_bnd,
+# dtype, path) — the heat blocks ghosted n_bnd = k deep and the
+# stencil2d_grid block (n_bnd 2), float32 and bfloat16
+GRID_BANDS = tuple(
+    [((GRID_N + 2 * k,) * 2, k, dt, f"heat2d k={k}")
+     for dt in ("float32", "bfloat16") for k in (1, 2, 4, 8)]
+    + [((GRID_N + 4,) * 2, 2, dt, "stencil2d_grid")
+       for dt in ("float32", "bfloat16")])
+# the routes of the heat runs' bands (hand.pack_route): a 4-byte band a
+# row is scalar, 16 bytes vec16, 8 bytes vec8
+GRID_BAND_ROUTES = {("float32", 1): "scalar", ("float32", 4): "vec16",
+                    ("bfloat16", 4): "vec8"}
+# the grid leg's outer bodies a heat run and steps a grid-step run
+GRID_LEG_BODIES = 3
 STENCIL_MB_SHAPE = (1028, 8192)  # microbench stencil's field
 GRID_N_ITER, GRID_N_WARMUP = 20, 2
 GRID_SCALE = GRID_N / 8.0        # dz scale of the grid driver (Domain1D)
@@ -1041,14 +1073,16 @@ def check_deriv_routes(device, rand, failures) -> int:
 
 def check_grid_kernels(device, rand, failures) -> int:
     """The heat update on both routes (:func:`check_heat_routes`), the
-    dual step at small ragged shapes in every dtype, and the heat runner
-    at ghost widths 1 and 4. Returns the number of cases."""
+    grid's operands (:func:`check_grid_blocks`), the dual step at small
+    ragged shapes in every dtype, and the heat runner at ghost widths 1
+    and 4. Returns the number of cases."""
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
     from tpu_mpi_tests_torch.kernels import hand
 
     n_cases = check_heat_routes(device, rand, failures)
+    n_cases += check_grid_blocks(device, rand, failures)
     took0 = dict(hand.dual_dim_step.launches_by_route)
     for dtype in (torch.float32, torch.bfloat16, torch.float64):
         # ragged against the 32x128 output tile on both axes; rows on 4
@@ -1071,6 +1105,128 @@ def check_grid_kernels(device, rand, failures) -> int:
         compare(f"heat runner n_bnd={n_bnd} steps={steps}", got, want,
                 failures)
         n_cases += 1
+    return n_cases
+
+
+def check_grid_blocks(device, rand, failures) -> int:
+    """This slice's operands on one card. Pack and unpack along axis 1 at
+    the grid's band widths (:data:`GRID_BANDS`), each launch counted on
+    the route ``hand.pack_route`` names (the heat runs' on
+    :data:`GRID_BAND_ROUTES`), against their plain versions. Then each
+    rank's block of the strong-scaled 2x2 grid, cut from the 1x1 field
+    with its ghosts filled from the field's neighbouring windows (what
+    the exchange delivers: the periodic wrap for the heat update, the
+    neighbours' interiors and the physical ghosts for the dual step):
+    ``hand.heat2d`` at :data:`HEAT_RUNS`' dtypes and depths and
+    ``hand.dual_dim_step`` in float32 and bfloat16, each launch on its
+    route, against its plain version and, in the interior, against the
+    matching window of the 1x1 result, bit for bit (the dual step's
+    residual: the four blocks' partials summed, within
+    ``hand.RESIDUAL_RTOL`` of the 1x1 residual). Returns the cases."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import heat2d
+    from tpu_mpi_tests_torch.kernels import hand
+
+    n_cases = 0
+    for shape, n_bnd, dt, path in GRID_BANDS:
+        dtype = getattr(torch, dt)
+        z = rand(shape, dtype)
+        route = hand.pack_route(z, 1, n_bnd)
+        want = GRID_BAND_ROUTES.get((dt, n_bnd), route) \
+            if path.startswith("heat2d") else route
+        name = f"grid band {path} {dt} {shape[0]}x{shape[1]} axis=1 " \
+               f"b={n_bnd} {route}"
+        if route != want:
+            failures.append(f"{name}: pack_route says {route}, the band "
+                            f"width makes {want}")
+        lo, hi = checked_launch("pack_edges", route,
+                                lambda: hand.pack_edges(z, 1, n_bnd),
+                                failures)
+        wlo, whi = hand.pack_edges_ref(z, 1, n_bnd)
+        compare(f"pack_edges lo {name}", lo, wlo, failures)
+        compare(f"pack_edges hi {name}", hi, whi, failures)
+        # the row ring's arrivals: the neighbours' bands
+        flo, fhi = rand(tuple(lo.shape), dtype), rand(tuple(hi.shape), dtype)
+        zc = z.clone()
+        got = checked_launch(
+            "unpack_ghosts", hand.pack_route(zc, 1, n_bnd, flo.data_ptr(),
+                                             fhi.data_ptr()),
+            lambda: hand.unpack_ghosts(zc, flo, fhi, 1, n_bnd), failures)
+        compare(f"unpack_ghosts {name}", got,
+                hand.unpack_ghosts_ref(z.clone(), flo, fhi, 1, n_bnd),
+                failures)
+        n_cases += 1
+        del z, zc, got, lo, hi, wlo, whi, flo, fhi
+        torch.cuda.empty_cache()
+
+    _, cx, cy = heat2d.coefficients(GRID_N, GRID_N, 0.1)
+    h = GRID_HALF
+    for dt, k in HEAT_RUNS:
+        field = rand((GRID_N + 2 * k,) * 2, getattr(torch, dt))
+        H.exchange2d(field, k, True)  # the 1x1 grid's periodic ghosts
+        whole = checked_launch("heat2d", hand.heat_route(field, k),
+                               lambda: hand.heat2d(field, cx, cy, steps=k),
+                               failures)
+        inner = field[k:k + GRID_N, k:k + GRID_N]
+        for rx, ry in itertools.product((0, 1), (0, 1)):
+            rows = torch.arange(rx * h - k, (rx + 1) * h + k,
+                                device=device) % GRID_N
+            cols = torch.arange(ry * h - k, (ry + 1) * h + k,
+                                device=device) % GRID_N
+            blk = inner[rows][:, cols].contiguous()
+            route = hand.heat_route(blk, k)
+            name = (f"heat2d 2x2 block ({rx},{ry}) {dt} k={k} "
+                    f"{blk.shape[0]}x{blk.shape[1]} route={route}")
+            got = checked_launch("heat2d", route,
+                                 lambda: hand.heat2d(blk, cx, cy, steps=k),
+                                 failures)
+            compare(name, got, hand.heat2d_ref(blk, cx, cy, steps=k),
+                    failures)
+            compare(f"{name} against the 1x1 result's window",
+                    got[k:k + h, k:k + h],
+                    whole[k + rx * h:k + (rx + 1) * h,
+                          k + ry * h:k + (ry + 1) * h], failures)
+            n_cases += 1
+        del field, whole, inner, blk, got
+        torch.cuda.empty_cache()
+    s = GRID_SCALE
+    for dtype in (torch.float32, torch.bfloat16):
+        field = rand((GRID_N + 4,) * 2, dtype)
+        wx, wy, wr = checked_launch(
+            "dual_dim_step", hand.dual_route(field),
+            lambda: hand.dual_dim_step(field, 2, s, s), failures)
+        parts = 0.0
+        for rx, ry in itertools.product((0, 1), (0, 1)):
+            blk = field[rx * h:rx * h + h + 4, ry * h:ry * h + h + 4] \
+                .contiguous()
+            route = hand.dual_route(blk)
+            name = (f"dual_dim_step 2x2 block ({rx},{ry}) {dtype} "
+                    f"{blk.shape[0]}x{blk.shape[1]} route={route}")
+            gx, gy, gr = checked_launch(
+                "dual_dim_step", route,
+                lambda: hand.dual_dim_step(blk, 2, s, s), failures)
+            px_, py_, _ = hand.dual_dim_step_ref(blk, 2, s, s)
+            compare(f"{name} dz_dx", gx, px_, failures)
+            compare(f"{name} dz_dy", gy, py_, failures)
+            window = (slice(rx * h, (rx + 1) * h), slice(ry * h, (ry + 1) * h))
+            compare(f"{name} dz_dx against the 1x1 window", gx, wx[window],
+                    failures)
+            compare(f"{name} dz_dy against the 1x1 window", gy, wy[window],
+                    failures)
+            parts += float(gr)
+            n_cases += 1
+        rel = abs(parts - float(wr)) / max(abs(float(wr)), 1e-300)
+        if not rel <= hand.RESIDUAL_RTOL[dtype]:
+            failures.append(f"dual_dim_step 2x2 {dtype}: the blocks' "
+                            f"residuals sum to {parts!r}, the 1x1 residual "
+                            f"is {float(wr)!r} (relative {rel:g})")
+        log(f"CHECK grid 2x2 blocks {dtype}: dual_dim_step residual, four "
+            f"blocks against the 1x1 field, relative {rel:.3g} (tolerance "
+            f"{hand.RESIDUAL_RTOL[dtype]:g})")
+        del field, wx, wy, wr, blk, gx, gy, px_, py_
+        torch.cuda.empty_cache()
     return n_cases
 
 
@@ -2986,7 +3142,9 @@ def time_coll_kernels(device, gen):
 
 
 #: the NCCL leg's parts, in the order a rank runs them
-WORLD2_LEGS = ("rdma", "staged", "collectives", "attention")
+WORLD2_LEGS = ("rdma", "staged", "collectives", "attention", "grid")
+#: the process grids the grid leg runs at each world
+GRID_LEG_GRIDS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
 
 
 def rdma_world2_legs(legs=WORLD2_LEGS):
@@ -3009,6 +3167,10 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
     if n < 2:
         log(f"RDMA world=2 NCCL leg: not run — torch.cuda.device_count() "
             f"is {n}, the leg needs two cards")
+        if "grid" in legs:
+            log(f"GRID leg: not run — torch.cuda.device_count() is {n}; "
+                f"the 1x2 and 2x1 grids need two cards, the 2x2 grid four "
+                f"(check_grid_blocks holds each rank's block on this one)")
         return
     import torch.multiprocessing as mp
 
@@ -3017,6 +3179,14 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_nccl_rank, args=(2, f"file://{tmp}/rendezvous",
                                    tuple(legs)), nprocs=2, join=True)
+    if "grid" in legs:
+        if n >= 4:
+            with tempfile.TemporaryDirectory() as tmp:
+                mp.spawn(_nccl_rank, args=(4, f"file://{tmp}/rendezvous",
+                                           ("grid",)), nprocs=4, join=True)
+        else:
+            log(f"GRID leg world=4: not run — torch.cuda.device_count() is "
+                f"{n}, the 2x2 grid needs four cards")
     done = {"rdma": f"fused == chained bit for bit over {RING_CHAIN} "
                     f"calls, the RDMA exchange equal to DIRECT on both "
                     f"ranks and both routes, {PAIR_RUNS} runs on fresh "
@@ -3030,7 +3200,9 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
                            "calls on both routes, timed beside them",
             "attention": "ring attention's tiers (depth 1 and 2, fused) "
                          "and Ulysses over the two ranks bit for bit "
-                         "their one-process counterparts"}
+                         "their one-process counterparts",
+            "grid": "the 1x2 and 2x1 grids (and 2x2 on four cards) equal "
+                    "to rank 0's 1x1 run bit for bit"}
     log("RDMA world=2 NCCL leg: " + "; ".join(done[leg] for leg in legs))
 
 
@@ -3063,8 +3235,158 @@ def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
             _nccl_collectives(rank, world, gen)
         if "attention" in legs:
             _nccl_attention(rank, world)
+        if "grid" in legs:
+            _nccl_grid(rank, world, gen)
     finally:
         dist.shutdown()
+
+
+def _grid_leg_launches(name, run, want):
+    """``run()``, failing unless its launches of the grid's kernels are
+    ``want`` (kernel -> {route: count}); returns (result, launches)."""
+    from tpu_mpi_tests_torch.kernels import hand
+
+    before = hand.route_counts()
+    got = run()
+    after = hand.route_counts()
+    took = {k: {r: after[k][r] - before[k][r] for r in after[k]
+                if after[k][r] - before[k][r]}
+            for k in ("heat2d", "dual_dim_step", "pack_edges",
+                      "unpack_ghosts")}
+    if took != {k: want.get(k, {}) for k in took}:
+        raise SmokeFailure(f"{name}: launches by route {took}, the grid's "
+                           f"schedule makes {want}")
+    return got, took
+
+
+def _nccl_grid(rank, world, gen):
+    """The 2-D process grids over the ranks (:data:`GRID_LEG_GRIDS`):
+    per grid, weak-scaled (each rank the one-card block), the heat runner
+    with ``kernel="hand"`` at :data:`HEAT_RUNS` for
+    :data:`GRID_LEG_BODIES` bodies and ``step2d_fn(kernel="hand")`` in
+    float32 for as many steps, on blocks cut from one global field that
+    every rank makes from the same seed; rank 0 runs the same global
+    field as one 1x1 block on its own card (``mesh.local_grid``) and the
+    ranks' interiors, gathered to it, must equal that run bit for bit;
+    the residual, a world sum in another order, within
+    ``hand.RESIDUAL_RTOL``. Each rank's launches are exact: one heat or
+    dual-step launch a body, one pack and one unpack a body where the
+    row ring has two ranks (its strided axis-1 bands leave the rank),
+    each on its operand's route; they are logged as ``LAUNCHES grid``."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm.mesh import local_grid, make_grid
+    from tpu_mpi_tests_torch.convert import grid_join
+    from tpu_mpi_tests_torch.drivers import heat2d
+    from tpu_mpi_tests_torch.kernels import hand
+
+    tdist.barrier()
+    launches = {}
+    for px, py in GRID_LEG_GRIDS[world]:
+        grid = make_grid(px, py)
+        tag = f"{px}x{py}"
+        nx, ny = px * GRID_N, py * GRID_N
+        _, cx, cy = heat2d.coefficients(nx, ny, 0.1)
+        for dt, k in HEAT_RUNS:
+            dtype = getattr(torch, dt)
+            g = torch.Generator(device="cuda").manual_seed(1000 + k)
+            inner = torch.randn((nx, ny), generator=g, device="cuda").to(
+                dtype)
+            blk = torch.zeros((GRID_N + 2 * k,) * 2, dtype=dtype,
+                              device="cuda")
+            blk[k:-k, k:-k] = inner[grid.rx * GRID_N:(grid.rx + 1) * GRID_N,
+                                    grid.ry * GRID_N:(grid.ry + 1) * GRID_N]
+            run = H.heat_step2d_fn(k, cx, cy, steps=k, kernel="hand",
+                                   grid=grid)
+            band = hand.pack_route(blk, 1, k)
+            want = {"heat2d": {hand.heat_route(blk, k): GRID_LEG_BODIES}}
+            if py > 1:
+                want |= {"pack_edges": {band: GRID_LEG_BODIES},
+                         "unpack_ghosts": {band: GRID_LEG_BODIES}}
+            out, took = _grid_leg_launches(
+                f"grid {tag} heat {dt} k={k} rank {rank}",
+                lambda: run(blk, GRID_LEG_BODIES), want)
+            launches[f"{tag} heat2d {dt} k={k}"] = took
+            torch.cuda.synchronize()
+            got = C.gather_blocks(out[k:-k, k:-k])
+            del out, blk
+            if rank == 0:
+                whole = torch.zeros((nx + 2 * k, ny + 2 * k), dtype=dtype,
+                                    device="cuda")
+                whole[k:-k, k:-k] = inner
+                ref = H.heat_step2d_fn(k, cx, cy, steps=k, kernel="hand",
+                                       grid=local_grid())(whole,
+                                                          GRID_LEG_BODIES)
+                ref = C.host_value(ref[k:-k, k:-k])
+                joined = grid_join(got, px, py)
+                if not np.array_equal(joined, ref):
+                    bad = int(np.sum(joined != ref))
+                    raise SmokeFailure(
+                        f"grid {tag} heat {dt} k={k}: the ranks' field "
+                        f"differs from the 1x1 run at {bad} points")
+                log(f"GRID leg world={world} {tag} heat2d {dt} k={k} "
+                    f"{GRID_LEG_BODIES} bodies, {GRID_N}x{GRID_N} a rank: "
+                    f"equal to the 1x1 run of {nx}x{ny} bit for bit")
+                del whole, ref, joined
+            del inner, got
+            torch.cuda.empty_cache()
+        # the grid step: the 1x1 field's physical ghosts on the grid's
+        # edges, its neighbours' interiors for the exchange to deliver
+        s = GRID_SCALE
+        g = torch.Generator(device="cuda").manual_seed(2000)
+        field = torch.randn((nx + 4, ny + 4), generator=g, device="cuda")
+        blk = field[grid.rx * GRID_N:grid.rx * GRID_N + GRID_N + 4,
+                    grid.ry * GRID_N:grid.ry * GRID_N + GRID_N + 4].clone()
+        if grid.rx > 0:
+            blk[:2] = 0
+        if grid.rx < px - 1:
+            blk[-2:] = 0
+        if grid.ry > 0:
+            blk[:, :2] = 0
+        if grid.ry < py - 1:
+            blk[:, -2:] = 0
+        step = H.step2d_fn(2, s, s, kernel="hand", grid=grid)
+        band = hand.pack_route(blk, 1, 2)
+        want = {"dual_dim_step": {hand.dual_route(blk): GRID_LEG_BODIES}}
+        if py > 1:
+            want |= {"pack_edges": {band: GRID_LEG_BODIES},
+                     "unpack_ghosts": {band: GRID_LEG_BODIES}}
+
+        def steps():
+            for _ in range(GRID_LEG_BODIES):
+                out = step(blk)
+            return out
+
+        (dx, dy, res), took = _grid_leg_launches(
+            f"grid {tag} step rank {rank}", steps, want)
+        launches[f"{tag} step2d float32"] = took
+        got_x, got_y = C.gather_blocks(dx), C.gather_blocks(dy)
+        if rank == 0:
+            wx, wy, wr = H.step2d_fn(2, s, s, kernel="hand",
+                                     grid=local_grid())(field)
+            for name, got, want_t in (("dz_dx", got_x, wx),
+                                      ("dz_dy", got_y, wy)):
+                if not np.array_equal(grid_join(got, px, py),
+                                      C.host_value(want_t)):
+                    raise SmokeFailure(f"grid {tag} step {name}: the "
+                                       f"ranks' field differs from the "
+                                       f"1x1 run")
+            rel = abs(float(res) - float(wr)) / abs(float(wr))
+            if not rel <= hand.RESIDUAL_RTOL[torch.float32]:
+                raise SmokeFailure(f"grid {tag} step residual {float(res)!r}"
+                                   f" vs the 1x1 run's {float(wr)!r}")
+            log(f"GRID leg world={world} {tag} step2d float32, "
+                f"{GRID_N}x{GRID_N} a rank: dz_dx, dz_dy equal to the 1x1 "
+                f"run bit for bit, residual relative {rel:.3g} (tolerance "
+                f"{hand.RESIDUAL_RTOL[torch.float32]:g})")
+            del wx, wy, wr
+        del field, blk, dx, dy, got_x, got_y
+        torch.cuda.empty_cache()
+    log(f"LAUNCHES grid world={world} rank {rank} {json.dumps(launches)}")
 
 
 def _nccl_rdma(rank, gen):
@@ -3843,7 +4165,7 @@ def time_kernels(device):
                                     "padding, TF32 off; one step"}
                    if k == 1 else {})}
 
-    def dual_row(shape, dtype, lean=False):
+    def dual_row(shape, dtype, lean=False, path=None):
         z = torch.randn(shape, generator=gen, device=device).to(dtype)
         s = GRID_SCALE
         ms = time_cuda(lambda: hand.dual_dim_step(z, 2, s, s, lean=lean), 20)
@@ -3861,8 +4183,8 @@ def time_kernels(device):
         del lib_out
         lib = time_cuda(lambda: F.conv2d(z[None, None], w), 10)
         b, why = bound_ms(*dual_work(shape, dtype, lean))
-        return {"path": ("microbench roofline2" if lean
-                         else "stencil2d_grid"),
+        return {"path": path or ("microbench roofline2" if lean
+                                 else "stencil2d_grid"),
                 "body": "lean" if lean else "raw", "shape": list(shape),
                 "route": hand.dual_route(z),
                 "dtype": str(dtype).split(".")[1], "ms": ms,
@@ -3898,16 +4220,23 @@ def time_kernels(device):
     # the heat driver's three runs, then microbench heat's and roofline2's
     # deepest (k = 8 at 2064²)
     rows["heat2d"] = []
+    # and a rank's block of the strong-scaled 2x2 grid at each heat run
     for case in heat_cases() + [
             (f"microbench heat {dt} k=8", (2064, 2064), dtype, 8, 0.05, 0.05)
             for dt, dtype in (("float32", torch.float32),
-                              ("bfloat16", torch.bfloat16))]:
+                              ("bfloat16", torch.bfloat16))] + [
+            (f"{path} 2x2 strong-scaled block", (GRID_HALF + 2 * k,) * 2,
+             dtype, k, cx, cy) for path, _, dtype, k, cx, cy
+            in heat_cases()]:
         rows["heat2d"].append(heat_row(*case))
         torch.cuda.empty_cache()
     rows["dual_dim_step"] = [
         dual_row((GRID_N + 4, GRID_N + 4), dtype, lean=lean)
         for dtype in (torch.float32, torch.bfloat16)
-        for lean in (False, True)]
+        for lean in (False, True)] + [
+        dual_row((GRID_HALF + 4,) * 2, dtype,
+                 path="stencil2d_grid 2x2 strong-scaled block")
+        for dtype in (torch.float32, torch.bfloat16)]
     torch.cuda.empty_cache()
     rows.update(time_probe_and_pack(device, gen))
     rows.update(time_ring_kernels(device, gen))
@@ -4042,6 +4371,47 @@ def time_probe_and_pack(device, gen):
             "library_ms": time_cuda_queued(lambda: (
                 z.narrow(axis, 0, 2).copy_(lo),
                 z.narrow(axis, n - 2, 2).copy_(hi)), 20),
+            "library_call": "two copy_ into the narrows"})
+        del z, lo, hi
+        torch.cuda.empty_cache()
+    # the grid's axis-1 exchange at the heat runs' band widths (f32 k=1
+    # scalar, f32 k=4 vec16, bf16 k=4 vec8), a rank's weak-scaled block
+    for dt, k in HEAT_RUNS:
+        dtype = getattr(torch, dt)
+        shape = (GRID_N + 2 * k,) * 2
+        z = torch.randn(shape, generator=gen, device=device).to(dtype)
+        n, item = shape[1], z.element_size()
+        lo, hi = hand.pack_edges(z, 1, k)
+        contiguous = 2 * lo.numel() * item
+        common = {"path": f"grid axis-1 exchange, heat2d {dt} k={k}",
+                  "shape": list(shape), "dtype": dt, "axis": 1,
+                  "n_bnd": k,
+                  "route": hand.pack_route(z, 1, k, lo.data_ptr(),
+                                           hi.data_ptr()),
+                  "bound_by": "bytes", "bound_counts":
+                  "the union of the 32-byte sectors touched on the "
+                  "strided side"}
+        rows["pack_edges"].append({
+            **common,
+            "ms": time_cuda_queued(lambda: hand.pack_edges(z, 1, k), 20),
+            "plain_ms": time_cuda_queued(
+                lambda: hand.pack_edges_ref(z, 1, k), 20),
+            "bound_ms": (band_sectors(shape, 1, k, item, (k, n - 2 * k))
+                         + contiguous) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": time_cuda_queued(lambda: torch.stack(
+                (z.narrow(1, k, k), z.narrow(1, n - 2 * k, k))), 20),
+            "library_call": "torch.stack of the two narrows"})
+        rows["unpack_ghosts"].append({
+            **common,
+            "ms": time_cuda_queued(
+                lambda: hand.unpack_ghosts(z, lo, hi, 1, k), 20),
+            "plain_ms": time_cuda_queued(lambda: hand.unpack_ghosts_ref(
+                z, lo, hi, 1, k), 20),
+            "bound_ms": (band_sectors(shape, 1, k, item, (0, n - k))
+                         + contiguous) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": time_cuda_queued(lambda: (
+                z.narrow(1, 0, k).copy_(lo),
+                z.narrow(1, n - k, k).copy_(hi)), 20),
             "library_call": "two copy_ into the narrows"})
         del z, lo, hi
         torch.cuda.empty_cache()

@@ -33,7 +33,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from tpu_mpi_tests.comm import halo as JH
 from tpu_mpi_tests.kernels.pallas_kernels import dual_dim_step_pallas
 from tpu_mpi_tests_torch.comm import halo as TH
-from tpu_mpi_tests_torch.comm.mesh import MeshError, check_grid
+from tpu_mpi_tests_torch.comm.mesh import MeshError, make_grid
 from tpu_mpi_tests_torch.convert import array_from_jax, state_from_jax
 from tpu_mpi_tests_torch.drivers import _common, stencil2d_grid
 from tpu_mpi_tests_torch.kernels import hand
@@ -139,11 +139,16 @@ def test_parse_grid_mesh_is_the_jax_packages(capsys):
 
 
 def test_check_grid_refuses_multi_rank():
-    for spec in (None, "1,1", "bogus", "0,1"):
-        check_grid(spec)  # left to parse_grid_mesh
-    for spec in ("2,4", "1,2", "3,1"):
-        with pytest.raises(MeshError, match="ROADMAP queue 1 item 2"):
-            check_grid(spec)
+    """A grid of more ranks than the world raises in ``make_grid`` (the
+    drivers resolve ``--mesh`` first, through ``parse_grid_mesh``); the
+    1×1 grid is two self-rings."""
+    grid = make_grid(1, 1)
+    assert (grid.px, grid.py, grid.rx, grid.ry, grid.size) == (1, 1, 0, 0, 1)
+    assert (grid.x.size, grid.y.size, grid.x.members, grid.y.members) \
+        == (1, 1, (0,), (0,))
+    for px, py in ((2, 4), (1, 2), (3, 1), (0, 1)):
+        with pytest.raises(MeshError, match="the world has 1"):
+            make_grid(px, py)
 
 
 def run_ok(capsys, *argv):
@@ -179,8 +184,10 @@ def test_driver_tight_tol_fails_and_bad_meshes(capsys):
                               "--tol", "1e-20"])
     assert rc == 1
     assert "ERR_NORM FAIL grid" in capsys.readouterr().out
-    with pytest.raises(MeshError, match="ROADMAP queue 1 item 2"):
-        stencil2d_grid.main(["--device", "cpu", "--mesh", "2,4"])
+    # a grid the world does not multiply to: the JAX driver's ERROR line
+    assert stencil2d_grid.main(["--device", "cpu", "--mesh", "2,4"]) == 2
+    assert capsys.readouterr().out.splitlines()[-1] \
+        == "ERROR --mesh 2,4 needs 8 devices, have 1"
     assert stencil2d_grid.main(["--device", "cpu", "--mesh", "3"]) == 2
     for argv in (["--nx-local", "4"], ["--kernel", "pallas"]):
         with pytest.raises(SystemExit):

@@ -20,12 +20,8 @@ import torch
 from tpu_mpi_tests_torch import bench, microbench
 from tpu_mpi_tests_torch.comm import alltoall, ring
 from tpu_mpi_tests_torch.comm import dist
-from tpu_mpi_tests_torch.comm.mesh import (
-    MeshError,
-    bootstrap,
-    check_single_rank,
-    topology,
-)
+from tpu_mpi_tests_torch.comm import collectives
+from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
 from tpu_mpi_tests_torch.device import resolve_device
 from tpu_mpi_tests_torch.drivers import (
     attnbench,
@@ -160,18 +156,33 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     assert hand.launch_counts() == before
 
 
-def test_world1_topology_and_multi_rank_refusal(monkeypatch):
+def test_world1_topology_and_multi_rank_refusal(monkeypatch, capsys):
     topo = topology(bootstrap("cpu"))
     assert (topo.platform, topo.device_kinds, topo.global_device_count) \
         == ("cpu", ("cpu",), 1)
-    # the launchers' variables start a world of several ranks now
-    # (tests/test_torch_dist.py); the paths that still run one rank only
-    # refuse one, naming the ROADMAP item
+    # the launchers' variables start a world of several ranks
+    # (tests/test_torch_dist.py); the DAXPY drivers no longer refuse one:
+    # as rank 0 of a patched world of 2, whose other rank holds the same
+    # block (the drivers tile one per-rank pattern), they print the
+    # world's sums (tests/test_torch_grid_dist.py runs them on gloo)
     for var in ("WORLD_SIZE", "JAX_NUM_PROCESSES"):
         assert dist.launch_env({var: "2"})["size"] == 2
     monkeypatch.setattr(dist, "world", lambda: dist.World(
         rank=0, size=2, local_rank=0, device=torch.device("cpu"),
-        backend="gloo"))
-    for what in ("mpi_daxpy", "gather_inplace", "heat2d"):
-        with pytest.raises(MeshError, match="ROADMAP queue 1 item 2"):
-            check_single_rank(what)
+        backend="gloo", ranks_per_host=2))
+    monkeypatch.setattr(collectives, "_gather_into",
+                        lambda out, x: out.copy_(torch.cat([x, x])))
+    from tpu_mpi_tests_torch.drivers import daxpy, mpi_daxpy, mpi_daxpy_nvtx
+
+    assert mpi_daxpy.main(["--device", "cpu", "--n-total", "4096",
+                           "--dtype", "float64"]) == 0
+    out = capsys.readouterr().out
+    assert "0/2 SUM = 2098176.000000" in out
+    assert "1/2 SUM = 2098176.000000" in out
+    assert mpi_daxpy_nvtx.main(["--device", "cpu", "--n-per-node", "4096",
+                                "--dtype", "float64"]) == 0
+    out = capsys.readouterr().out
+    assert "1 nodes, 2 ranks, 2048 elements each, total 4096" in out
+    assert "0/2 ALLSUM = 2049.000000" in out
+    assert daxpy.main(["--device", "cpu", "--n", "100"]) == 0
+    assert "0/1 SUM = 5050.000000" in capsys.readouterr().out

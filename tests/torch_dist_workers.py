@@ -17,6 +17,7 @@ and in the tests alike (:func:`global_field`).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -639,7 +640,159 @@ def suite_symm_one_card(rank, world, out_dir):
         f.write(got)
 
 
+#: the process grids of each world: (px, py)
+GRIDS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+#: the grid cases' block interiors and coefficients
+GRID_NXL, GRID_NYL = 12, 10
+HEAT_CX, HEAT_CY = 0.1, 0.2
+GRID_SX, GRID_SY = 1.5, 0.75
+#: heat_step2d_fn's ghost widths (steps = n_bnd) and outer bodies
+HEAT_STEPS, HEAT_BODIES = (1, 2, 4), 3
+#: the grid drivers' runs: (case, module, argv); every run adds
+#: ``--mesh PX,PY`` (its grid) and ``--dtype float64``
+GRID_DRIVER_RUNS = (
+    ("heat2d_hand_k2", "heat2d",
+     ["--kernel", "hand", "--nx-local", "16", "--ny-local", "12",
+      "--n-steps", "24", "--halo-steps", "2"]),
+    ("heat2d_torch_k1", "heat2d",
+     ["--kernel", "torch", "--nx-local", "8", "--ny-local", "16",
+      "--n-steps", "30", "--ky", "2"]),
+    ("grid_hand", "stencil2d_grid",
+     ["--kernel", "hand", "--nx-local", "16", "--ny-local", "24",
+      "--n-iter", "3", "--n-warmup", "1"]),
+    ("grid_torch", "stencil2d_grid",
+     ["--kernel", "torch", "--nx-local", "16", "--ny-local", "24",
+      "--n-iter", "3", "--n-warmup", "1"]),
+)
+#: the DAXPY drivers' runs at every world: (case, module, argv with
+#: ``{w}`` for the world size)
+DAXPY_RUNS = (
+    ("mpi_daxpy", "mpi_daxpy", ["--n-total", "8192", "--dtype", "float64"]),
+    ("mpi_daxpy_over", "mpi_daxpy",
+     ["--n-total", "8192", "--ranks", "{2w}", "--dtype", "float64"]),
+    ("nvtx_host", "mpi_daxpy_nvtx",
+     ["--n-per-node", "65536", "--dtype", "float64"]),
+    ("nvtx_device", "mpi_daxpy_nvtx",
+     ["--n-per-node", "65536", "--dtype", "float64", "--init", "device",
+      "--barrier"]),
+    ("nvtx_managed", "mpi_daxpy_nvtx",
+     ["--n-per-node", "65536", "--dtype", "float32", "--space",
+      "managed"]),
+    ("daxpy", "daxpy", ["--n", "1000", "--dtype", "float64", "--iters",
+                        "2"]),
+)
+
+
+def grid_name(px, py):
+    return f"g{px}x{py}"
+
+
+def heat_global(px, py, k):
+    """A heat case's global ghosted layout (the JAX drivers' (px·gxs,
+    py·gys), every block ghosted k deep)."""
+    return global_field(900 + 10 * k + px,
+                        (px * (GRID_NXL + 2 * k), py * (GRID_NYL + 2 * k)))
+
+
+def step_global(px, py):
+    """A grid step case's global layout, every block ghosted 2 deep."""
+    return global_field(950 + px, (px * (GRID_NXL + 4), py * (GRID_NYL + 4)))
+
+
+def daxpy_argv(argv, world):
+    return [a.replace("{2w}", str(2 * world)) for a in argv]
+
+
+def suite_grid(rank, world, out_dir):
+    """The 2-D process grids of this world (``GRIDS``): heat_step2d_fn and
+    step2d_fn in both tiers, the heat2d and stencil2d_grid drivers, a
+    ``--mesh`` the world does not multiply to; the DAXPY drivers and
+    spec; the two-level mesh's sums."""
+    import importlib
+    import socket
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm import mesh as M
+    from tpu_mpi_tests_torch.convert import grid_block
+
+    for px, py in GRIDS[world]:
+        grid = M.make_grid(px, py)
+        gn = grid_name(px, py)
+        _save(out_dir, f"coords_{gn}", rank,
+              np.array([grid.rx, grid.ry, *grid.x.members, *grid.y.members]))
+        for k in HEAT_STEPS:
+            g = heat_global(px, py, k)
+            for kernel in ("torch", "hand"):
+                z = _tensor(grid_block(g, px, py, grid.rx, grid.ry)).clone()
+                run = H.heat_step2d_fn(k, HEAT_CX, HEAT_CY, steps=k,
+                                       kernel=kernel, grid=grid)
+                _save(out_dir, f"heat_{gn}_k{k}_{kernel}", rank,
+                      run(z, HEAT_BODIES))
+        g = step_global(px, py)
+        for kernel in ("torch", "hand"):
+            z = _tensor(grid_block(g, px, py, grid.rx, grid.ry)).clone()
+            dz_dx, dz_dy, res = H.step2d_fn(2, GRID_SX, GRID_SY,
+                                            kernel=kernel, grid=grid)(z)
+            _save(out_dir, f"step_{gn}_{kernel}_dx", rank, dz_dx)
+            _save(out_dir, f"step_{gn}_{kernel}_dy", rank, dz_dy)
+            _save(out_dir, f"step_{gn}_{kernel}_res", rank, res.reshape(1))
+        for case, name, argv in GRID_DRIVER_RUNS:
+            module = importlib.import_module(
+                f"tpu_mpi_tests_torch.drivers.{name}")
+            _run_main(out_dir, f"driver_{case}_{gn}", rank, module.main,
+                      ["--device", "cpu", "--mesh", f"{px},{py}", "--dtype",
+                       "float64"] + argv)
+    # a grid that does not multiply to the world: the JAX ERROR line
+    from tpu_mpi_tests_torch.drivers import heat2d, stencil2d_grid
+
+    bad = f"{world},{world}"
+    _run_main(out_dir, "bad_mesh_heat2d", rank, heat2d.main,
+              ["--device", "cpu", "--mesh", bad])
+    _run_main(out_dir, "bad_mesh_stencil2d_grid", rank, stencil2d_grid.main,
+              ["--device", "cpu", "--mesh", bad])
+    try:
+        M.make_grid(world, world)
+        got = "no error"
+    except M.MeshError as e:
+        got = f"MeshError: {e}"
+    with open(os.path.join(out_dir, f"make_grid_bad.r{rank}.txt"), "w") as f:
+        f.write(got)
+
+    for case, name, argv in DAXPY_RUNS:
+        module = importlib.import_module(f"tpu_mpi_tests_torch.drivers.{name}")
+        _run_main(out_dir, f"daxpy_{case}", rank, module.main,
+                  ["--device", "cpu"] + daxpy_argv(argv, world))
+
+    # the two-level mesh: the world's own layout (one host), then each
+    # rank a host of its own, the layout of the JAX package's
+    # two-process test (tests/test_multiproc.py)
+    def two_level_sums(tag):
+        m = M.make_mesh_2level()
+        x = torch.tensor([float(rank)], dtype=torch.float32)
+        both = m.psum(x.clone(), ("dcn", "ici"))
+        dcn = m.psum(x.clone(), "dcn")
+        ici = m.psum(x.clone(), "ici")
+        _save(out_dir, f"2level_{tag}", rank,
+              np.array([m.dcn.size, m.ici.size, m.dcn.rank, m.ici.rank,
+                        float(both[0]), float(dcn[0]), float(ici[0]),
+                        float((both + dcn)[0])]))
+
+    two_level_sums("one_host")
+    real_name, real_world = socket.gethostname, dist._WORLD
+    socket.gethostname = lambda: f"host{rank}"
+    try:
+        hosts, per, local = dist._host_layout(rank, world)
+        dist._WORLD = dataclasses.replace(real_world, hosts=hosts,
+                                          ranks_per_host=per,
+                                          local_rank=local)
+        two_level_sums("host_a_rank")
+    finally:
+        socket.gethostname, dist._WORLD = real_name, real_world
+
+
 SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
-          "ring": suite_ring, "symm_one_card": suite_symm_one_card}
+          "ring": suite_ring, "symm_one_card": suite_symm_one_card,
+          "grid": suite_grid}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

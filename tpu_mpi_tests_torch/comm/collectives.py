@@ -103,6 +103,20 @@ def per_rank_sums(x: torch.Tensor, groups_per_shard: int = 1
     return host_value(all_gather(sums))
 
 
+def gather_blocks(x: torch.Tensor) -> "list[np.ndarray] | None":
+    """Every rank's ``x`` (one shape on every rank) on rank 0's host, in
+    rank order, as numpy (:func:`host_value`); None on the other ranks.
+    One ``gather`` to rank 0 over the group of ``x``'s device."""
+    w = dist.world()
+    if w.size == 1:
+        return [host_value(x)]
+    x = x.contiguous()
+    got = [torch.empty_like(x) for _ in range(w.size)] if w.rank == 0 \
+        else None
+    tdist.gather(x, got, dst=0, group=_group_for(x))
+    return None if got is None else [host_value(t) for t in got]
+
+
 def barrier(device: torch.device) -> None:
     """≅ ``MPI_Barrier`` (:774): wait until this device has finished all
     queued work and, at world > 1, every rank has got there."""

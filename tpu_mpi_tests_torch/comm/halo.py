@@ -32,12 +32,14 @@ a Python loop of launches:
 * :func:`iterate_hand_blocks_fn` — the hand kernel over S resident row
   blocks per rank (≅ ``iterate_pallas_blocks_fn``, ``halo.py:955``).
 
-The 2-D process grid on the 1×1 grid: :func:`heat_step2d_fn` (the heat
-mini-app's chained Euler steps, ≅ ``halo.py:1371``) and
-:func:`step2d_fn` (exchange both axes, both-axis derivatives, residual
-allreduce, ≅ ``halo.py:1185``), each with ``kernel="torch"`` (the XLA
-body as torch ops) or ``"hand"`` (the CUDA kernel); the grid over ranks
-is the next slice (``comm.mesh.check_grid``).
+The 2-D process grid (``comm.mesh.make_grid``): :func:`exchange2d`
+exchanges axis 0 over the grid's column ring, then axis 1 over its row
+ring; :func:`heat_step2d_fn` (the heat mini-app's chained Euler steps, ≅
+``halo.py:1371``) and :func:`step2d_fn` (exchange both axes, both-axis
+derivatives, the residual summed over the whole grid, ≅
+``halo.py:1185``) run on it, each with ``kernel="torch"`` (the XLA body
+as torch ops) or ``"hand"`` (the CUDA kernel; at world > 1 the strided
+axis-1 bands then go through the pack and unpack kernels).
 
 The hand runners keep two buffers per block and swap them after each
 launch: the CUDA kernels are out-of-place (see ``csrc/stencil_iterate.cu``
@@ -51,7 +53,7 @@ import enum
 import torch
 
 from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
-from tpu_mpi_tests_torch.comm.mesh import make_mesh
+from tpu_mpi_tests_torch.comm.mesh import Grid, Ring, make_grid, make_mesh
 from tpu_mpi_tests_torch.comm.peer import peer_ring
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels import pack as _pack
@@ -138,15 +140,18 @@ def _write_ghosts(z: torch.Tensor, axis: int, n_bnd: int, from_left,
 
 def exchange_shard(z: torch.Tensor, *, axis: int = 0, n_bnd: int = 2,
                    periodic: bool = False, staged: bool = False,
-                   kernel: str = "torch") -> torch.Tensor:
+                   kernel: str = "torch",
+                   ring: "Ring | None" = None) -> torch.Tensor:
     """Halo exchange of this rank's ghosted block, in place (≅ the JAX
     ``exchange_shard``): the interior edge bands go to the ±1 ring
     neighbours and the received bands land in the ghost bands; the ends of
     a non-periodic ring keep their physical ghosts.
 
-    World=1: non-periodic, nothing moves (and nothing launches); periodic,
-    lo ghost ← hi interior edge, hi ghost ← lo interior edge. World > 1:
-    one ``Ring.sendrecv`` over the process group.
+    ``ring`` is the axis's ring (default: the world's, ``make_mesh()``).
+    A ring of one rank: non-periodic, nothing moves (and nothing
+    launches); periodic, lo ghost ← hi interior edge, hi ghost ← lo
+    interior edge. More ranks: one ``Ring.sendrecv`` to the ring's
+    neighbours.
 
     ``staged`` packs both edges into contiguous buffers first (≅
     DEVICE_STAGED, the reference's ``buf_from_view``/``buf_to_view``):
@@ -156,7 +161,7 @@ def exchange_shard(z: torch.Tensor, *, axis: int = 0, n_bnd: int = 2,
     before any send whatever ``staged`` says; ``kernel`` changes nothing
     when neither applies."""
     _check_kernel("exchange_shard", kernel)
-    ring = make_mesh()
+    ring = make_mesh() if ring is None else ring
     if ring.size > 1:
         return _exchange_ring(z, ring, axis, n_bnd, periodic, staged, kernel)
     if not periodic:
@@ -273,36 +278,47 @@ def _check_kernel(name: str, kernel: str) -> None:
                          f"hand")
 
 
-def exchange2d(z: torch.Tensor, n_bnd: int, periodic: bool) -> torch.Tensor:
-    """Both-axis exchange of a both-axes-ghosted shard at world=1, in
-    place: axis 0 first, then axis 1 over every row (the corner ghosts
-    come right because the axis-1 bands include the fresh axis-0 ghost
-    rows) — the order of the JAX bodies."""
-    exchange_shard(z, axis=0, n_bnd=n_bnd, periodic=periodic)
-    return exchange_shard(z, axis=1, n_bnd=n_bnd, periodic=periodic)
+def exchange2d(z: torch.Tensor, n_bnd: int, periodic: bool,
+               grid: "Grid | None" = None,
+               kernel: str = "torch") -> torch.Tensor:
+    """Both-axis exchange of this rank's both-axes-ghosted block, in
+    place, on ``grid`` (default: the 1×1 grid): axis 0 over the column
+    ring first, then axis 1 over the row ring with bands the full height
+    of the block, ghost rows included — the order of the JAX bodies
+    (``halo.py:1228-1229``), which brings the corner ghosts from the
+    diagonal neighbour in two hops. ``kernel`` passes through to
+    :func:`exchange_shard`: with ``"hand"`` a strided axis-1 band that
+    leaves the rank goes through the pack and unpack kernels."""
+    grid = make_grid(1, 1) if grid is None else grid
+    exchange_shard(z, axis=0, n_bnd=n_bnd, periodic=periodic, kernel=kernel,
+                   ring=grid.x)
+    return exchange_shard(z, axis=1, n_bnd=n_bnd, periodic=periodic,
+                          kernel=kernel, ring=grid.y)
 
 
 def heat_step2d_fn(n_bnd: int, cx: float, cy: float, steps: int = 1,
-                   kernel: str = "torch"):
+                   kernel: str = "torch", grid: "Grid | None" = None):
     """``run(z, n_outer)``: ``n_outer`` bodies of the heat mini-app on
-    the periodic 1×1 grid (≅ ``heat_step2d_fn``, ``halo.py:1371``) — per
-    body a periodic self-ring exchange on axis 0, then on axis 1, then
-    ``steps`` explicit-Euler updates over the maximal span. ``steps=k``
-    is temporal blocking: ghost width ``n_bnd >= k``, one exchange per k
-    steps. ``kernel="torch"`` updates in place with torch ops (the XLA
-    body); ``"hand"`` launches the CUDA kernel once per body on two
-    ping-ponged buffers and returns whichever holds the result."""
+    the periodic process grid ``grid`` (default: 1×1; ≅
+    ``heat_step2d_fn``, ``halo.py:1371``) — per body a periodic exchange
+    on axis 0, then on axis 1 (:func:`exchange2d`), then ``steps``
+    explicit-Euler updates over the maximal span of this rank's block.
+    ``steps=k`` is temporal blocking: ghost width ``n_bnd >= k``, one
+    exchange per k steps. ``kernel="torch"`` updates in place with torch
+    ops (the XLA body); ``"hand"`` launches the CUDA kernel once per body
+    on two ping-ponged buffers and returns whichever holds the result."""
     if n_bnd < steps:
         raise TpuMtError(
             f"heat_step2d_fn: ghost width n_bnd={n_bnd} must be >= "
             f"steps={steps} (one Laplacian radius per fused timestep)"
         )
     _check_kernel("heat_step2d_fn", kernel)
+    grid = make_grid(1, 1) if grid is None else grid
 
     def run(z: torch.Tensor, n_outer: int) -> torch.Tensor:
         spare = torch.empty_like(z) if kernel == "hand" else None
         for _ in range(n_outer):
-            exchange2d(z, n_bnd, periodic=True)
+            exchange2d(z, n_bnd, True, grid, kernel)
             if kernel == "hand":
                 out = hand.heat2d(z, cx, cy, steps=steps, out=spare)
                 z, spare = out, z
@@ -314,20 +330,25 @@ def heat_step2d_fn(n_bnd: int, cx: float, cy: float, steps: int = 1,
 
 
 def step2d_fn(n_bnd: int, scale_x: float, scale_y: float,
-              kernel: str = "torch"):
+              kernel: str = "torch", grid: "Grid | None" = None):
     """``step(z) -> (dz_dx, dz_dy, residual)``: the 2-D process grid's
-    full step on the 1×1 grid (≅ ``step2d_fn``, ``halo.py:1185``) —
-    non-periodic exchanges on both axes (nothing moves at world=1: the
-    physical ghosts come from init), both-axis derivatives and the
-    residual (``kernel="torch"``: torch ops; ``"hand"``: the CUDA kernel,
-    one read for all three), then the residual's allreduce."""
+    full step on ``grid`` (default: 1×1; ≅ ``step2d_fn``,
+    ``halo.py:1185``) — non-periodic exchanges on both axes (the grid's
+    edge blocks keep the physical ghosts from init; on the 1×1 grid
+    nothing moves), both-axis derivatives and the residual of this
+    rank's block (``kernel="torch"``: torch ops; ``"hand"``: the CUDA
+    kernel, one read for all three), then the residual summed over the
+    whole grid (≅ ``lax.psum(residual, (axis_x, axis_y))``)."""
     _check_kernel("step2d_fn", kernel)
     dual = hand.dual_dim_step if kernel == "hand" else dual_dim_step
+    grid = make_grid(1, 1) if grid is None else grid
 
     def step(z: torch.Tensor):
-        exchange2d(z, n_bnd, periodic=False)
+        exchange2d(z, n_bnd, False, grid, kernel)
         dz_dx, dz_dy, residual = dual(z, n_bnd, scale_x, scale_y)
-        return dz_dx, dz_dy, allreduce_sum(residual.reshape(1))[0]
+        if grid.size > 1:  # a grid of several ranks is the world
+            residual = allreduce_sum(residual.reshape(1))[0]
+        return dz_dx, dz_dy, residual
 
     return step
 

@@ -9,10 +9,15 @@ and right neighbours, with a blocking and a non-blocking hop
 holds a sequence-parallel attention path's ``world`` to the process
 group's size.
 
-Still one rank only, each raising with the next slice of ROADMAP queue 1
-item 2: the 2-D process grids of ``heat2d`` and ``stencil2d_grid``
-(:func:`check_grid`) and the drivers that :func:`check_single_rank`
-guards (the DAXPY drivers).
+:func:`make_grid` is ``make_mesh({"x": px, "y": py})``: a :class:`Grid`
+of one ring per axis over the world's ranks in row-major order (rank r
+at ``divmod(r, py)``, as JAX reshapes its device list). An axis ring
+knows its members (ring position → global rank), so its hops go to
+global ranks over the world group and need no subgroup; a ring of one
+member takes the world=1 branches (a periodic self-copy, or nothing).
+:func:`make_mesh_2level` is the host layout's ``dcn`` × ``ici`` mesh;
+its sums over one axis need subgroups, which every rank creates in the
+same order (:func:`axis_groups`).
 """
 
 from __future__ import annotations
@@ -24,11 +29,6 @@ import torch.distributed as tdist
 
 from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
-
-#: where the paths that still run one rank only are queued
-NEXT_SLICE = ("the next slice of ROADMAP queue 1 item 2 (the 2-D grid "
-              "and DAXPY paths over ranks)")
-
 
 class MeshError(TpuMtError):
     """Invalid topology request."""
@@ -57,14 +57,25 @@ class Topology:
 
 @dataclasses.dataclass(frozen=True)
 class Ring:
-    """The 1-D ``shard`` ring (≅ ``make_mesh()``'s one axis): the group,
-    this rank, the world size and the neighbours on the periodic ring.
-    Whether a send crosses the wrap-around is the caller's ``periodic``
-    (:meth:`sends`), as in the JAX kernels' send predicates."""
+    """One mesh axis as a ring (≅ ``make_mesh()``'s one axis): this
+    rank's position, the ring's size, its group and the neighbours on the
+    periodic ring. ``left`` and ``right`` are ring positions;
+    ``members`` maps a position to its global rank (None: the world
+    ring, where the two agree). Whether a send crosses the wrap-around is
+    the caller's ``periodic`` (:meth:`sends`), as in the JAX kernels'
+    send predicates. ``group`` / ``cpu_group`` are the ring's subgroups
+    where a collective over the axis needs them (:func:`axis_groups`),
+    else the world's."""
 
     rank: int
     size: int
     group: object = None
+    members: "tuple[int, ...] | None" = None
+    cpu_group: object = None
+
+    def peer(self, pos: int) -> int:
+        """The global rank at ring position ``pos``."""
+        return pos if self.members is None else self.members[pos]
 
     @property
     def left(self) -> int:
@@ -103,20 +114,19 @@ class Ring:
             raise MeshError("Ring.sendrecv: world=1 has no peer to send to")
         send_lo, send_hi = self.sends(periodic)
         group = tdist.group.WORLD if lo_edge.is_cuda else dist.cpu_group()
+        left, right = self.peer(self.left), self.peer(self.right)
         from_left = torch.empty_like(hi_edge) if send_lo else None
         from_right = torch.empty_like(lo_edge) if send_hi else None
         ops = []
         if send_hi:
-            ops.append(tdist.P2POp(tdist.isend, hi_edge, self.right, group,
-                                   tag=0))
+            ops.append(tdist.P2POp(tdist.isend, hi_edge, right, group, tag=0))
         if send_lo:
-            ops.append(tdist.P2POp(tdist.irecv, from_left, self.left, group,
+            ops.append(tdist.P2POp(tdist.irecv, from_left, left, group,
                                    tag=0))
-            ops.append(tdist.P2POp(tdist.isend, lo_edge, self.left, group,
-                                   tag=1))
+            ops.append(tdist.P2POp(tdist.isend, lo_edge, left, group, tag=1))
         if send_hi:
-            ops.append(tdist.P2POp(tdist.irecv, from_right, self.right,
-                                   group, tag=1))
+            ops.append(tdist.P2POp(tdist.irecv, from_right, right, group,
+                                   tag=1))
         if ops:
             for req in tdist.batch_isend_irecv(ops):
                 req.wait()
@@ -134,12 +144,11 @@ class Ring:
         xs = x if isinstance(x, tuple) else (x,)
         got = tuple(torch.empty_like(t) for t in xs)
         group = tdist.group.WORLD if xs[0].is_cuda else dist.cpu_group()
+        left, right = self.peer(self.left), self.peer(self.right)
         ops = []
         for i, (t, g) in enumerate(zip(xs, got)):
-            ops.append(tdist.P2POp(tdist.isend, t, self.right, group,
-                                   tag=2 + i))
-            ops.append(tdist.P2POp(tdist.irecv, g, self.left, group,
-                                   tag=2 + i))
+            ops.append(tdist.P2POp(tdist.isend, t, right, group, tag=2 + i))
+            ops.append(tdist.P2POp(tdist.irecv, g, left, group, tag=2 + i))
         return Hop(tdist.batch_isend_irecv(ops),
                    got if isinstance(x, tuple) else got[0])
 
@@ -191,28 +200,123 @@ def check_world(world: int) -> int:
     return world
 
 
-def check_grid(spec: "str | None") -> None:
-    """Refuse a ``'PX,PY'`` process grid of more than one rank: the 2-D
-    grid drivers run on the 1×1 grid only. A missing or malformed spec
-    passes (``drivers._common.parse_grid_mesh`` resolves or reports it)."""
-    try:
-        px, py = (int(v) for v in spec.split(","))
-    except (AttributeError, ValueError):
-        return
-    if px * py > 1:
-        raise MeshError(
-            f"--mesh {px},{py} asks for a {px}x{py} process grid of "
-            f"{px * py} ranks, but the process grid over ranks (row and "
-            f"column subgroups) is {NEXT_SLICE}"
-        )
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A ``px × py`` process grid (≅ ``make_mesh({"x": px, "y": py})``):
+    this rank's coordinates and one ring per axis — ``x`` the column
+    ring along axis 0 (the ranks that share ``ry``), ``y`` the row ring
+    along axis 1 (those that share ``rx``)."""
+
+    px: int
+    py: int
+    rx: int
+    ry: int
+    x: Ring
+    y: Ring
+
+    @property
+    def size(self) -> int:
+        return self.px * self.py
 
 
-def check_single_rank(what: str) -> None:
-    """Refuse to run ``what`` in a world of more than one rank."""
-    size = dist.world().size
-    if size > 1:
-        raise MeshError(f"{what} runs one rank only (world size {size}); "
-                        f"multi-rank {what} is {NEXT_SLICE}")
+def make_grid(px: int, py: int) -> Grid:
+    """The world as a ``px × py`` grid (world=1: the 1×1 grid of two
+    self-rings). Raises unless ``px · py`` is the world size. Collective
+    over nothing: the axis rings' hops go to global ranks over the world
+    group."""
+    w = dist.world()
+    if px < 1 or py < 1 or px * py != w.size:
+        raise MeshError(f"a {px}x{py} process grid needs {px * py} ranks, "
+                        f"the world has {w.size}")
+    rx, ry = divmod(w.rank, py)
+    group = w.group if w.size > 1 else None
+    x = Ring(rank=rx, size=px, group=group,
+             members=tuple(r * py + ry for r in range(px)))
+    y = Ring(rank=ry, size=py, group=group,
+             members=tuple(rx * py + c for c in range(py)))
+    return Grid(px=px, py=py, rx=rx, ry=ry, x=x, y=y)
+
+
+def local_grid() -> Grid:
+    """The 1×1 grid of this rank alone, at any world: both rings hold
+    only this rank (a block that is its own periodic neighbour, as the
+    one-card run of a grid's global field)."""
+    r = dist.world().rank
+    return Grid(px=1, py=1, rx=0, ry=0, x=Ring(rank=0, size=1, members=(r,)),
+                y=Ring(rank=0, size=1, members=(r,)))
+
+
+def axis_groups(member_lists) -> list:
+    """A subgroup per member list, created by every rank in the same
+    order (``new_group`` is collective over the world): ``(group,
+    cpu_group)`` for the lists this rank is in, None for the others. On
+    a gloo world the two are one group; on NCCL the second is gloo, for
+    host tensors (as ``comm.dist.cpu_group``)."""
+    w = dist.world()
+    out = []
+    for ranks in member_lists:
+        ranks = list(ranks)
+        g = tdist.new_group(ranks)
+        cg = g if w.backend == "gloo" else tdist.new_group(ranks,
+                                                           backend="gloo")
+        out.append((g, cg) if w.rank in ranks else None)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2Level:
+    """The two-level mesh (≅ ``make_mesh_2level``): ``dcn`` spans the
+    hosts, ``ici`` the ranks of one host. :meth:`psum` sums over one
+    axis or both."""
+
+    dcn: Ring
+    ici: Ring
+
+    def psum(self, t: torch.Tensor, axes=("dcn", "ici")) -> torch.Tensor:
+        """``t`` summed over the ranks of ``axes`` (≅ ``lax.psum``), in
+        place; returns it. A ring of one rank adds nothing."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        bad = set(axes) - {"dcn", "ici"}
+        if bad:
+            raise MeshError(f"unknown mesh axes {sorted(bad)}; the axes are "
+                            f"dcn, ici")
+        if set(axes) == {"dcn", "ici"}:
+            groups = [(tdist.group.WORLD, dist.cpu_group())] \
+                if dist.world().size > 1 else []
+        else:
+            ring = getattr(self, axes[0])
+            groups = [(ring.group, ring.cpu_group)] if ring.size > 1 else []
+        for group, cpu in groups:
+            tdist.all_reduce(t, op=tdist.ReduceOp.SUM,
+                             group=group if t.is_cuda else cpu)
+        return t
+
+
+def make_mesh_2level() -> Mesh2Level:
+    """The host layout as a mesh (≅ ``make_mesh_2level``, the reference's
+    ``MPI_Comm_split_type`` node axis, ``mpi_daxpy_nvtx.cc:72-82``): the
+    outer ``dcn`` ring spans ``World.hosts``, the inner ``ici`` ring the
+    ``ranks_per_host`` ranks of a host. Ranks are numbered host-major, as
+    the launchers start them (``torchrun``, ``tpumt_run``); collective at
+    world > 1 (it creates the axes' subgroups)."""
+    w = dist.world()
+    hosts, per = w.hosts, w.ranks_per_host
+    if hosts * per != w.size:
+        raise MeshError(f"{hosts} hosts x {per} ranks a host != world "
+                        f"{w.size}: the hosts carry unequal rank counts")
+    h, i = divmod(w.rank, per)
+    dcn_members = [[hh * per + ii for hh in range(hosts)] for ii in range(per)]
+    ici_members = [[hh * per + ii for ii in range(per)] for hh in range(hosts)]
+    if w.size > 1:
+        dcn_g = axis_groups(dcn_members)[i]
+        ici_g = axis_groups(ici_members)[h]
+    else:
+        dcn_g = ici_g = (None, None)
+    dcn = Ring(rank=h, size=hosts, group=dcn_g[0],
+               members=tuple(dcn_members[i]), cpu_group=dcn_g[1])
+    ici = Ring(rank=i, size=per, group=ici_g[0],
+               members=tuple(ici_members[h]), cpu_group=ici_g[1])
+    return Mesh2Level(dcn=dcn, ici=ici)
 
 
 def topology(device: torch.device) -> Topology:

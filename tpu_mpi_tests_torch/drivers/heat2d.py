@@ -1,10 +1,13 @@
-"""Heat-equation mini-app on the 1×1 process grid (≅
+"""Heat-equation mini-app on a px×py process grid (≅
 ``tpu_mpi_tests/drivers/heat2d.py``).
 
 ∂z/∂t = ν∇²z on a periodic [0,2π)² domain, explicit Euler, 5-point
 Laplacian, chained on the device (``comm/halo.heat_step2d_fn``): per
-outer body a periodic self-ring exchange on both axes, then
-``--halo-steps`` updates over equally deep ghosts. Verification is
+outer body a periodic exchange on both axes of the grid
+(``--mesh PX,PY``, one rank a block, row-major; the column ring along
+axis 0, then the row ring along axis 1), then ``--halo-steps`` updates
+over equally deep ghosts. Each rank builds its own block; the gate
+gathers the interiors to rank 0 and checks the assembled field. Verification is
 roundoff-exact: sin(kx·x)·sin(ky·y) is an eigenvector of the discrete
 periodic update, so after T steps the field must equal g^T·z0 with
 g = 1 − cx(2−2cos kxΔx) − cy(2−2cos kyΔy). Reported::
@@ -17,11 +20,14 @@ ghost bands are narrow strided column bands).
 
 ``--kernel hand`` runs the update through the hand CUDA kernel (≅
 ``--kernel pallas``; it takes any width, so there is no fallback to the
-torch tier); ``--kernel torch`` runs the XLA body as torch ops. The card
-is the default device; ``--device cpu`` runs the kernel's plain torch
-version. Only the 1×1 grid runs (multi-rank is ROADMAP queue 1 item 2).
-Not ported yet: ``--overlap`` (queue 1 item 13), ``--kernel auto`` and
-the tune flags (queue 1 item 17).
+torch tier; over ranks its strided axis-1 bands go through the pack and
+unpack kernels); ``--kernel torch`` runs the XLA body as torch ops. The
+card is the default device (NCCL between ranks); ``--device cpu`` runs
+the kernels' plain torch versions (gloo). Start one process per rank
+(torchrun, tpumt_run). ``--profile-dir DIR`` writes a ``torch.profiler``
+trace of the timed bodies a rank (``gpu/trace_summary.py`` sums its
+device time). Not ported yet: ``--overlap`` (queue 1 item 13),
+``--kernel auto`` and the tune flags (queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -35,31 +41,33 @@ import torch
 
 from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm import halo as H
-from tpu_mpi_tests_torch.comm.mesh import (
-    bootstrap,
-    check_grid,
-    check_single_rank,
-    topology,
-)
-
-PROG = "heat2d"
+from tpu_mpi_tests_torch.comm.mesh import bootstrap, make_grid, topology
+from tpu_mpi_tests_torch.convert import grid_join
 from tpu_mpi_tests_torch.drivers import _common
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
+from tpu_mpi_tests_torch.instrument.trace import ProfilerGate
 
 EXCHANGE_TIMING_ITERS = 10  # untimed first + timed both-axis exchanges
 
 
-def _init_field(args, nx, ny, dx, dy):
-    """The ghosted field of the 1×1 grid on the host in float64
-    (interior = sin(kx x)·sin(ky y), ghosts zero: the first exchange
-    fills them) and the interior z0, as the JAX driver lays them out."""
-    nb = args.halo_steps
-    zg = np.zeros((nx + 2 * nb, ny + 2 * nb), dtype=np.float64)
-    xs = np.arange(nx, dtype=np.float64) * dx
-    ys = np.arange(ny, dtype=np.float64) * dy
-    z0 = np.sin(args.kx * xs)[:, None] * np.sin(args.ky * ys)[None, :]
-    zg[nb:nb + nx, nb:nb + ny] = z0
-    return zg, z0
+def _eigen_field(args, xs, ys):
+    """sin(kx·x)·sin(ky·y) on the host in float64 at the points ``xs`` ×
+    ``ys``, as the JAX driver builds z0."""
+    return np.sin(args.kx * xs)[:, None] * np.sin(args.ky * ys)[None, :]
+
+
+def _init_block(args, grid, dx, dy):
+    """This rank's ghosted block on the host in float64 (interior = its
+    window of sin(kx x)·sin(ky y), ghosts zero: the first exchange fills
+    them), as the JAX driver lays each block out."""
+    nb, nxl, nyl = args.halo_steps, args.nx_local, args.ny_local
+    zg = np.zeros((nxl + 2 * nb, nyl + 2 * nb), dtype=np.float64)
+    xs = np.arange(grid.rx * nxl, (grid.rx + 1) * nxl,
+                   dtype=np.float64) * dx
+    ys = np.arange(grid.ry * nyl, (grid.ry + 1) * nyl,
+                   dtype=np.float64) * dy
+    zg[nb:nb + nxl, nb:nb + nyl] = _eigen_field(args, xs, ys)
+    return zg
 
 
 def coefficients(nx: int, ny: int, nu: float, dt=None):
@@ -72,13 +80,13 @@ def coefficients(nx: int, ny: int, nu: float, dt=None):
     return dt, nu * dt / dx**2, nu * dt / dy**2
 
 
-def _time_exchange(zs, nb, rep) -> None:
+def _time_exchange(zs, nb, grid, kernel, rep) -> None:
     """Time the both-axis periodic exchange alone. It is idempotent (its
     sources are interior bands it never writes), so the field is left as
     the run left it."""
     timer = PhaseTimer(skip_first=1)
     for _ in range(EXCHANGE_TIMING_ITERS):
-        timer.timed("exchange", H.exchange2d, zs, nb, True)
+        timer.timed("exchange", H.exchange2d, zs, nb, True, grid, kernel)
     rep.iter_line(0, "device", 0, "exchange", timer.mean("exchange"),
                   timer.mins.get("exchange", 0.0),
                   timer.maxs.get("exchange", 0.0))
@@ -88,37 +96,37 @@ def run(args) -> int:
     device = bootstrap(args.device)
     topo = topology(device)
     n_dev = topo.global_device_count
-    check_grid(args.mesh)
-    check_single_rank(PROG)
-    grid = _common.parse_grid_mesh(args.mesh, n_dev)
-    if grid is None:
+    grid_spec = _common.parse_grid_mesh(args.mesh, n_dev)
+    if grid_spec is None:
         return 2
-    px, py = grid
+    px, py = grid_spec
+    grid = make_grid(px, py)
 
     nx, ny = px * args.nx_local, py * args.ny_local
     dx, dy = 2.0 * math.pi / nx, 2.0 * math.pi / ny
     dt, cx, cy = coefficients(nx, ny, args.nu, args.dt)
 
-    with _common.make_reporter(args, rank=0, size=n_dev) as rep:
+    with _common.make_reporter(args, rank=topo.process_index,
+                               size=n_dev) as rep:
         rep.banner(
             f"heat2d: mesh={px}x{py} n={nx}x{ny} nu={args.nu} dt={dt:.3e} "
             f"steps={args.n_steps} dtype={args.dtype}"
         )
         nb = args.halo_steps
-        zg_host, z0 = _init_field(args, nx, ny, dx, dy)
-        zs = torch.from_numpy(zg_host).to(device=device,
-                                          dtype=_common.torch_dtype(args))
-        del zg_host
+        zs = torch.from_numpy(_init_block(args, grid, dx, dy)).to(
+            device=device, dtype=_common.torch_dtype(args))
         step = H.heat_step2d_fn(nb, float(cx), float(cy),
-                                steps=args.halo_steps, kernel=args.kernel)
+                                steps=args.halo_steps, kernel=args.kernel,
+                                grid=grid)
 
         outer_total = args.n_steps // args.halo_steps
         # warm (builds the kernel): 1 outer body = halo_steps timesteps,
         # counted in the gate
         zs = block(step(zs, 1))
-        t0 = time.perf_counter()
-        zs = block(step(zs, outer_total - 1))
-        seconds = time.perf_counter() - t0
+        with ProfilerGate(args.profile_dir):  # the timed bodies' trace
+            t0 = time.perf_counter()
+            zs = block(step(zs, outer_total - 1))
+            seconds = time.perf_counter() - t0
         timed_steps = (outer_total - 1) * args.halo_steps
         steps_per_s = timed_steps / seconds if seconds > 0 else float("inf")
         rep.line(
@@ -129,22 +137,31 @@ def run(args) -> int:
              "nu": args.nu, "dt": dt, "kernel": args.kernel,
              "overlap": 1},
         )
-        _time_exchange(zs, nb, rep)
+        _time_exchange(zs, nb, grid, args.kernel, rep)
 
-        # eigenvalue gate: field == g^T · z0 to roundoff
+        # eigenvalue gate on the assembled field: field == g^T · z0 to
+        # roundoff (rank 0 gathers the interiors, the others get rel)
         g = (
             1.0
             - cx * (2.0 - 2.0 * math.cos(args.kx * dx))
             - cy * (2.0 - 2.0 * math.cos(args.ky * dy))
         )
-        want = (g**args.n_steps) * z0
-        del z0
-        got = C.host_value(zs[nb:nb + nx, nb:nb + ny]).astype(np.float64)
-        denom = float(np.sqrt(np.mean(want**2)))
-        with np.errstate(over="ignore"):  # unstable dt overflows by design;
-            # the gate reports it as inf > tol, not as a warning
-            rel = (float(np.sqrt(np.mean((got - want) ** 2)))
-                   / max(denom, 1e-300))
+        blocks = C.gather_blocks(zs[nb:nb + args.nx_local,
+                                    nb:nb + args.ny_local])
+        rel = 0.0
+        if blocks is not None:
+            got = grid_join(blocks, px, py).astype(np.float64)
+            del blocks
+            want = (g**args.n_steps) * _eigen_field(
+                args, np.arange(nx, dtype=np.float64) * dx,
+                np.arange(ny, dtype=np.float64) * dy)
+            denom = float(np.sqrt(np.mean(want**2)))
+            with np.errstate(over="ignore"):  # unstable dt overflows by
+                # design; the gate reports it as inf > tol, not a warning
+                rel = (float(np.sqrt(np.mean((got - want) ** 2)))
+                       / max(denom, 1e-300))
+            del got, want
+        rel = float(C.replicate(np.array([rel]), "cpu")[0])
         tol = args.tol if args.tol is not None else _default_tol(args)
         rep.line(
             f"HEAT ERR rel={rel:e} (gate {tol:e})",
@@ -168,8 +185,8 @@ def _default_tol(args) -> float:
 def main(argv=None) -> int:
     p = _common.base_parser(__doc__)
     p.add_argument("--mesh", default=None,
-                   help="process grid as 'PX,PY' (default: auto-factor; "
-                   "only 1,1 runs)")
+                   help="process grid as 'PX,PY', one rank a block "
+                   "(default: auto-factor the world size)")
     p.add_argument("--nx-local", type=int, default=64)
     p.add_argument("--ny-local", type=int, default=64)
     p.add_argument("--n-steps", type=int, default=200)

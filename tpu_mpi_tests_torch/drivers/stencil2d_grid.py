@@ -1,25 +1,31 @@
-"""2-D process-grid stencil driver on the 1×1 grid (≅
+"""2-D process-grid stencil driver on a px×py grid (≅
 ``tpu_mpi_tests/drivers/stencil2d_grid.py``).
 
-The domain is ghosted along BOTH axes; per iteration: a halo exchange on
-each axis, both-axis 5-point derivatives and the global residual
+The domain is decomposed over ``--mesh PX,PY`` (one rank a block,
+row-major) and ghosted along BOTH axes; per iteration: a halo exchange
+on each axis (the column ring, then the row ring), both-axis 5-point
+derivatives and the residual summed over the whole grid
 (``comm/halo.step2d_fn``). Reported lines::
 
     GRID TEST px:<px> py:<py>; <seconds>, err_dx=<e>, err_dy=<e>
     ITER  ... (per-iteration mean/min/max past warmup)
 
 Verification is the reference's: z = x³ + y² with analytic dz/dx = 3x²,
-dz/dy = 2y; physical ghosts are filled analytically on grid-edge shards
-(at world=1 every band is physical, so the exchanges move nothing), and
-the residual must be finite.
+dz/dy = 2y; physical ghosts are filled analytically on grid-edge blocks,
+interior ghosts start zero (at world=1 every band is physical, so the
+exchanges move nothing), the error norms are taken on the fields rank 0
+assembles, and the residual must be finite.
 
 ``--kernel hand`` runs the per-shard pipeline through the hand CUDA
 kernel (≅ ``--kernel pallas``: both derivatives and the residual from
 one read; it takes any width, so there is no fallback to the torch
-tier); ``--kernel torch`` runs torch ops. The card is the default
-device; ``--device cpu`` runs the kernel's plain torch version. Only the
-1×1 grid runs (multi-rank is ROADMAP queue 1 item 2); ``--overlap`` is
-not ported yet (queue 1 item 13).
+tier; over ranks its strided axis-1 bands go through the pack and
+unpack kernels); ``--kernel torch`` runs torch ops. The card is the
+default device (NCCL between ranks); ``--device cpu`` runs the kernels'
+plain torch versions (gloo). Start one process per rank (torchrun,
+tpumt_run). ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
+the timed steps a rank (``gpu/trace_summary.py`` sums its device time).
+``--overlap`` is not ported yet (queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -32,16 +38,11 @@ import torch
 from tpu_mpi_tests_torch.arrays.domain import Domain1D
 from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm import halo as H
-from tpu_mpi_tests_torch.comm.mesh import (
-    bootstrap,
-    check_grid,
-    check_single_rank,
-    topology,
-)
-
-PROG = "stencil2d_grid"
+from tpu_mpi_tests_torch.comm.mesh import bootstrap, make_grid, topology
+from tpu_mpi_tests_torch.convert import grid_join
 from tpu_mpi_tests_torch.drivers import _common
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer
+from tpu_mpi_tests_torch.instrument.trace import ProfilerGate
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
 
 
@@ -68,18 +69,28 @@ def _init_block(dx, dy, rx: int, ry: int, px: int, py: int, fn, dtype):
     return out
 
 
+def _rms_error(blocks, px, py, want_fn) -> float:
+    """The rms error of the assembled field (rank 0: ``blocks``) against
+    ``want_fn()``, as the JAX driver takes it; 0.0 on the other ranks."""
+    if blocks is None:
+        return 0.0
+    got = grid_join(blocks, px, py).astype(np.float64)
+    del blocks
+    return float(np.sqrt(np.mean((got - want_fn()) ** 2)))
+
+
 def run(args) -> int:
     device = bootstrap(args.device)
     topo = topology(device)
     n_dev = topo.global_device_count
-    check_grid(args.mesh)
-    check_single_rank(PROG)
-    grid = _common.parse_grid_mesh(args.mesh, n_dev)
-    if grid is None:
+    grid_spec = _common.parse_grid_mesh(args.mesh, n_dev)
+    if grid_spec is None:
         return 2
-    px, py = grid
+    px, py = grid_spec
+    grid = make_grid(px, py)
 
-    with _common.make_reporter(args, rank=0, size=n_dev) as rep:
+    with _common.make_reporter(args, rank=topo.process_index,
+                               size=n_dev) as rep:
         rep.banner(
             f"stencil2d_grid: mesh={px}x{py} nx_local={args.nx_local} "
             f"ny_local={args.ny_local} n_iter={args.n_iter} dtype={args.dtype}"
@@ -87,32 +98,35 @@ def run(args) -> int:
         dx = Domain1D(n_global=px * args.nx_local, n_shards=px)
         dy = Domain1D(n_global=py * args.ny_local, n_shards=py)
         zf, _ = analytic_pairs()["2d_dim0"]
-        # the f64 host block, cast on the device (correctly rounded, as
-        # numpy's astype rounds)
+        # this rank's f64 host block, cast on the device (correctly
+        # rounded, as numpy's astype rounds)
         zs = torch.from_numpy(
-            _init_block(dx, dy, 0, 0, px, py, zf, np.float64)
+            _init_block(dx, dy, grid.rx, grid.ry, px, py, zf, np.float64)
         ).to(device=device, dtype=_common.torch_dtype(args))
         step = H.step2d_fn(N_BND, float(dx.scale), float(dy.scale),
-                           kernel=args.kernel)
+                           kernel=args.kernel, grid=grid)
+        gate = ProfilerGate(args.profile_dir)
 
         timer = PhaseTimer(skip_first=args.n_warmup)
         out = None
-        for _ in range(args.n_warmup + args.n_iter):
+        for i in range(args.n_warmup + args.n_iter):
+            if i == args.n_warmup:  # the timed steps' trace
+                gate.start()
             out = timer.timed("step", step, zs)
+        gate.stop()
         dz_dx, dz_dy, residual = out
         seconds = timer.seconds["step"]
 
-        # err gates vs analytic derivatives over the global interior
+        # err gates vs analytic derivatives over the global interior, on
+        # the fields rank 0 assembles
         xs = np.arange(dx.n_global) * dx.delta
         ys = np.arange(dy.n_global) * dy.delta
-        got_dx = C.host_value(dz_dx).astype(np.float64)
-        want = (3.0 * xs[:, None] ** 2) + 0.0 * ys[None, :]
-        err_dx = float(np.sqrt(np.mean((got_dx - want) ** 2)))
-        del got_dx, want
-        got_dy = C.host_value(dz_dy).astype(np.float64)
-        want = 0.0 * xs[:, None] + 2.0 * ys[None, :]
-        err_dy = float(np.sqrt(np.mean((got_dy - want) ** 2)))
-        del got_dy, want
+        err_dx = _rms_error(C.gather_blocks(dz_dx), px, py,
+                            lambda: 3.0 * xs[:, None] ** 2 + 0.0 * ys[None, :])
+        err_dy = _rms_error(C.gather_blocks(dz_dy), px, py,
+                            lambda: 0.0 * xs[:, None] + 2.0 * ys[None, :])
+        err_dx, err_dy = (float(e) for e in C.replicate(
+            np.array([err_dx, err_dy]), "cpu"))
         res = float(residual)
         rep.line(
             f"GRID TEST px:{px} py:{py}; {seconds:f}, "
@@ -149,8 +163,8 @@ def _default_tol(args, dx, dy) -> float:
 def main(argv=None) -> int:
     p = _common.base_parser(__doc__)
     p.add_argument("--mesh", default=None,
-                   help="process grid as 'PX,PY' (default: auto-factor; "
-                   "only 1,1 runs)")
+                   help="process grid as 'PX,PY', one rank a block "
+                   "(default: auto-factor the world size)")
     p.add_argument("--nx-local", type=int, default=64,
                    help="per-shard interior rows")
     p.add_argument("--ny-local", type=int, default=64,

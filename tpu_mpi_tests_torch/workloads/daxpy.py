@@ -11,7 +11,8 @@ The kernel is the torch tier (``kernels.daxpy.daxpy``, one launch), as the
 JAX spec runs XLA's fused op. The JAX spec's ``daxpy/chunk`` knob stays at
 its prior, 1 (one launch per iteration), until ``tune/`` is ported
 (ROADMAP queue 1 item 17); its serve handler waits for ``serve/`` (item
-19).
+19). In a world of several ranks every rank runs the spec on its own
+card and reports as the JAX spec does on one of several devices.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from tpu_mpi_tests_torch.workloads.spec import RunContext, WorkloadSpec
 class DaxpySpec(WorkloadSpec):
     name = "daxpy"
     title = __doc__
+    needs_mesh = False
 
     def add_args(self, p) -> None:
         p.add_argument("--n", type=int, default=1024, help="vector length")
@@ -62,9 +64,6 @@ class DaxpySpec(WorkloadSpec):
         from tpu_mpi_tests_torch.drivers import _common
         from tpu_mpi_tests_torch.instrument.timers import block
 
-        from tpu_mpi_tests_torch.comm.mesh import check_single_rank
-
-        check_single_rank("daxpy")
         dtype = ctx.dtype()
         # initializeArrays on host, then copyInput H2D (daxpy_nvtx.cu:72-79)
         h_x, h_y = (_common.host_tensor(a, dtype) for a in

@@ -29,7 +29,11 @@ def run_body(spec: WorkloadSpec, args) -> int:
 
     device = bootstrap(args.device)
     topo = topology(device)
-    with _common.make_reporter(args) as rep:
+    # a spec that needs no mesh runs on this rank's device alone and
+    # reports as a world of one, as the JAX runner does
+    rank, size = ((topo.process_index, topo.global_device_count)
+                  if spec.needs_mesh else (0, 1))
+    with _common.make_reporter(args, rank=rank, size=size) as rep:
         ctx = RunContext(spec=spec, args=args, rep=rep, topo=topo,
                          device=device, timer=PhaseTimer())
         with ProfilerGate(args.profile_dir):

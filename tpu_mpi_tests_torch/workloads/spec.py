@@ -49,10 +49,13 @@ class WorkloadSpec:
     """Base class: override the hooks; attributes steer the runner.
 
     ``name`` is the spec/driver identity (``python -m
-    tpu_mpi_tests_torch.workloads <name>``)."""
+    tpu_mpi_tests_torch.workloads <name>``); ``needs_mesh=False``: the
+    spec runs on this rank's device alone, at any world, and reports as
+    rank 0 of 1 (as the JAX spec on one of several devices)."""
 
     name: str = "?"
     title: str = ""
+    needs_mesh: bool = True
 
     def add_args(self, p) -> None:
         """Spec-specific flags on top of the shared ``base_parser``."""
