@@ -170,7 +170,9 @@ failure exits non-zero and prints no result line):
    its ``grid`` part runs the 1x2 and 2x1 grids at world 2 and, where
    there are four cards, the 2x2 grid at world 4 (``_nccl_grid``: the
    heat runner and the grid step with ``kernel="hand"``, 8192² a rank,
-   equal to rank 0's 1x1 run bit for bit, launches exact per rank).
+   equal to rank 0's 1x1 run bit for bit, launches exact per rank; then
+   the heat and grid pipelines at depth 1 and 2, equal bit for bit on
+   every rank and within JAX's tolerances of rank 0's 1x1 run).
    Then the DAXPY slice, each path alone in the same
    way: the microbench groups ``daxpy``, ``ceiling`` and ``streams``
    (each must launch exactly the streaming kernels its schedule makes,
@@ -212,7 +214,26 @@ failure exits non-zero and prints no result line):
    (one pack and one unpack launch per exchange, each on its operand's
    route — ``vec16`` along axis 0, ``vec8`` along axis 1 — counted
    exactly, the result equal to DIRECT bit for bit); the ``stencil1d``
-   driver at 32 Mi points (gate passing, no hand kernel launched);
+   driver at 32 Mi points (gate passing, no hand kernel launched). Then
+   the overlap slice (``run_overlap_slice``): the three split pipelines
+   of ``comm/halo.py`` at depth 1 and depth 2 — the heat pipeline on the
+   periodic 8192² block in float32 and bfloat16, the grid step on 8192²,
+   the 1-D Jacobi on 32 Mi points — equal bit for bit, each depth-2
+   runner's exchanges on its comm stream, and each within JAX's
+   tolerances of its fused serial body (``OVERLAP_TOL``; the largest
+   error printed); ``iterate_overlap_fn`` equal to ``iterate_hand_fn``
+   (tolerance 0) at the bench's 8192 × 8196 f32 and bf16 buffers, every
+   iterate launch on ``regs``; the engine refusing the RDMA ring's
+   staging; ``heat2d --overlap 2 --kernel torch``, ``stencil2d_grid
+   --overlap 2 --kernel torch`` and ``stencil1d --overlap 2``, each a
+   path with its gate passing and no hand kernel launched, and the bench
+   under ``TPU_MPI_BENCH_OVERLAP=2 TPU_MPI_BENCH_STEPS=1`` (schedule
+   ``_ov2``, one iterate launch a chained call, every one on ``regs``,
+   exact); then ``torch.profiler`` traces of four heat bodies at 8192²
+   at depth 2 and 1, in the steady state and each body posted behind a
+   ~2 ms spin kernel on the compute stream: the device time in which
+   kernels of two streams ran at once must be exactly 0 at depth 1 and
+   above 0 at depth 2 behind the spin (the steady state's is printed);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -2078,6 +2099,7 @@ def run_main_path(device):
     recs["microbench"] = run_daxpy_slice(device, counts, peaks)
     recs["attention"] = run_attention_slice(device, counts, peaks)
     recs["one_card"] = run_one_card_slice(device, counts, peaks)
+    recs["overlap"] = run_overlap_slice(device, counts, per_step, peaks)
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -2099,6 +2121,289 @@ def run_main_path(device):
     log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
     log(f"PEAK_BYTES {json.dumps(peaks)}")
     return counts, per_step, recs
+
+
+#: the overlap slice: pipeline rounds at full size, traced heat bodies,
+#: and the spin before each traced body of the busy-stream trace (~2 ms)
+OVERLAP_ROUNDS = 3
+OVERLAP_TRACE_BODIES = 4
+OVERLAP_SPIN_CYCLES = 4_000_000
+#: JAX's tolerances for a pipeline against its fused serial body
+#: (tests/test_overlap.py:91, :158, :192-199): (rtol, atol), and the grid
+#: residual's rtol
+OVERLAP_TOL = {"jacobi": (1e-6, 1e-12), "heat": (1e-6, 1e-7),
+               "grid": (1e-4, 1e-3)}
+OVERLAP_RESIDUAL_RTOL = 1e-5
+
+
+def overlap_launches():
+    """Iterate launches of the bench's overlap schedule (``_ov2``, k=1):
+    one a chained call (``chain_rate``: 3 warm, then the two runs per
+    sample), every one on ``regs``."""
+    return {"bench float32 _ov2": {
+        "stencil2d_iterate": BENCH_SAMPLES * _chain(BENCH_ITERS_SHORT,
+                                                    BENCH_ITERS_LONG)}}
+
+
+def _overlap_run(fns, z, depth, rounds, grid_step=False):
+    """A split pipeline under a fresh runner at ``depth``: ``rounds``
+    ping-ponged steps, or one grid step; returns (result, runner)."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+
+    runner = H.OverlapRunner("halo_exchange", depth=depth)
+    if grid_step:
+        ex, cores = runner.step(fns[0], fns[1], z)
+        out = fns[2](ex, *cores)
+    else:
+        out = H.overlap_steps(runner, fns, z, rounds)
+    torch.cuda.synchronize()
+    if depth >= 2 and z.is_cuda and (runner.comm_stream is None
+                                     or runner.streamed_steps
+                                     != runner.steps):
+        raise SmokeFailure(f"a depth-{depth} runner on a card tensor ran "
+                           f"{runner.streamed_steps} of {runner.steps} "
+                           f"exchanges on its comm stream")
+    return out, runner
+
+
+def _overlap_check(name, d1, d2, serial, tol, res_rtol=None):
+    """Depth 1 equal to depth 2 bit for bit, and both within ``tol``
+    (rtol, atol) of the serial body; returns the largest error against
+    it (0.0: bit for bit)."""
+    import torch
+
+    d1, d2, serial = (t if isinstance(t, tuple) else (t,)
+                      for t in (d1, d2, serial))
+    worst = 0.0
+    for i, (a, b, c) in enumerate(zip(d1, d2, serial)):
+        if not torch.equal(a, b):
+            raise SmokeFailure(f"{name}: depth 2 differs from depth 1")
+        if res_rtol is not None and a.dim() == 0:
+            rel = abs(float(a) - float(c)) / abs(float(c))
+            if not rel <= res_rtol:
+                raise SmokeFailure(f"{name}: residual {float(a)!r} vs the "
+                                   f"serial body's {float(c)!r}")
+            continue
+        a, c = a.double(), c.double()
+        worst = max(worst, float((a - c).abs().max()))
+        if not torch.allclose(a, c, rtol=tol[0], atol=tol[1]):
+            raise SmokeFailure(f"{name}: output {i} differs from the serial "
+                               f"body beyond rtol {tol[0]:g}, atol "
+                               f"{tol[1]:g}")
+    return worst
+
+
+def overlap_trace(device, spin: bool) -> dict:
+    """``torch.profiler`` traces of :data:`OVERLAP_TRACE_BODIES` heat
+    bodies at 8192² f32 at depth 2 and depth 1, summed by
+    ``gpu/trace_summary.py``: the device time in which kernels of two
+    streams ran at once (``overlap_ms``). ``spin`` puts a ~2 ms spin
+    kernel on the compute stream before each body, so that the body's
+    exchange and core are both posted while the card is busy and start
+    together; without it (the steady state) the exchange's copies run as
+    they are posted. Returns {depth: summary}."""
+    import importlib.util
+
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import heat2d
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_summary", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "gpu", "trace_summary.py"))
+    summary = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(summary)
+    _, cx, cy = heat2d.coefficients(GRID_N, GRID_N, 0.1)
+    ex_fn, core, seam = H.heat_overlap_fns(cx, cy)
+    g = torch.Generator(device=device).manual_seed(6100)
+    z0 = torch.randn((GRID_N + 2,) * 2, generator=g, device=device)
+
+    def bodies(depth, n):
+        runner = H.OverlapRunner("halo_exchange2d", depth=depth)
+        z, spare = z0.clone(), torch.empty_like(z0)
+        for _ in range(n):
+            if spin:
+                torch.cuda._sleep(OVERLAP_SPIN_CYCLES)
+            ex, zc = runner.step(ex_fn, lambda t: core(t, out=spare), z)
+            z, spare = seam(ex, zc), z
+        torch.cuda.synchronize()
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for depth in (2, 1):
+            bodies(depth, 1)  # warm
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                bodies(depth, OVERLAP_TRACE_BODIES)
+            path = os.path.join(tmp, f"trace_{depth}.json")
+            prof.export_chrome_trace(path)
+            out[depth] = summary.summarize(path)
+            out[depth].pop("trace")
+    return out
+
+
+def run_overlap_slice(device, counts, per_step, peaks):
+    """The overlap engine on one card, world 1, at the drivers' sizes:
+    the three split pipelines and the bench's overlap schedule at depth 1
+    and 2, bit for bit, against their serial bodies; the drivers and the
+    bench under ``--overlap 2`` / ``TPU_MPI_BENCH_OVERLAP=2``, each a
+    path with its counts zeroed; the engine's refusal of the RDMA ring;
+    and the device trace of depth-2 and depth-1 heat bodies. Returns the
+    slice's record."""
+    import torch
+
+    from tpu_mpi_tests_torch import bench
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import heat2d, stencil1d, stencil2d_grid
+    from tpu_mpi_tests_torch.kernels import hand
+    from tpu_mpi_tests_torch.utils import TpuMtError
+
+    rec = {"max_abs_err_vs_serial": {}}
+    g = torch.Generator(device=device).manual_seed(6000)
+    _, cx, cy = heat2d.coefficients(GRID_N, GRID_N, 0.1)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"heat {str(dtype)[6:]} {GRID_N}x{GRID_N} 1x1 periodic"
+        z = torch.randn((GRID_N + 2,) * 2, generator=g, device=device).to(
+            dtype)
+        fns = H.heat_overlap_fns(cx, cy)
+        d1, _ = _overlap_run(fns, z.clone(), 1, OVERLAP_ROUNDS)
+        d2, _ = _overlap_run(fns, z.clone(), 2, OVERLAP_ROUNDS)
+        serial = H.heat_step2d_fn(1, cx, cy)(z.clone(), OVERLAP_ROUNDS)
+        rec["max_abs_err_vs_serial"][name] = _overlap_check(
+            name, d1, d2, serial, OVERLAP_TOL["heat"])
+        del z, d1, d2, serial
+    name = f"grid float32 {GRID_N}x{GRID_N}"
+    z = torch.randn((GRID_N + 4,) * 2, generator=g, device=device)
+    fns = H.grid_overlap_fns(2, GRID_SCALE, GRID_SCALE)
+    d1, _ = _overlap_run(fns, z.clone(), 1, 1, grid_step=True)
+    d2, _ = _overlap_run(fns, z.clone(), 2, 1, grid_step=True)
+    serial = H.step2d_fn(2, GRID_SCALE, GRID_SCALE)(z.clone())
+    rec["max_abs_err_vs_serial"][name] = _overlap_check(
+        name, d1, d2, serial, OVERLAP_TOL["grid"], OVERLAP_RESIDUAL_RTOL)
+    del z, d1, d2, serial
+    name = f"jacobi float32 {STENCIL1D_N} periodic"
+    scale = STENCIL1D_N / 8.0
+    z = torch.randn((STENCIL1D_N + 4,), generator=g, device=device)
+    fns = H.overlap_jacobi_fns(0, 2, scale, 1e-6, periodic=True)
+    d1, _ = _overlap_run(fns, z.clone(), 1, OVERLAP_ROUNDS)
+    d2, _ = _overlap_run(fns, z.clone(), 2, OVERLAP_ROUNDS)
+    serial = H.iterate_fused_fn(0, 2, scale, 1e-6, periodic=True)(
+        z.clone(), OVERLAP_ROUNDS)
+    rec["max_abs_err_vs_serial"][name] = _overlap_check(
+        name, d1, d2, serial, OVERLAP_TOL["jacobi"])
+    del z, d1, d2, serial
+    # the bench's overlap schedule against the serialized one, tolerance
+    # 0 (the strips take the iterate kernel's arithmetic), every iterate
+    # launch counted on regs
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"iterate_overlap {str(dtype)[6:]} {BENCH_N}x{BENCH_N + 4}"
+        z = torch.randn((BENCH_N, BENCH_N + 4), generator=g,
+                        device=device).to(dtype)
+        before = hand.route_counts()["stencil2d_iterate"]
+        got = H.iterate_overlap_fn(2, BENCH_SE, axis=1)(z.clone(), 5)
+        torch.cuda.synchronize()
+        took = {r: hand.route_counts()["stencil2d_iterate"][r] - before[r]
+                for r in before}
+        if took != {"regs": 5, "smem": 0}:
+            raise SmokeFailure(f"{name}: iterate launches {took}, the "
+                               f"schedule makes 5 on regs")
+        want = H.iterate_hand_fn(2, BENCH_SE, axis=1)(z.clone(), 5)
+        rec["max_abs_err_vs_serial"][name] = _overlap_check(
+            name, got, got, want, (0.0, 0.0))
+        del z, got, want
+    torch.cuda.empty_cache()
+    log(f"OVERLAP pipelines: depth 2 equal to depth 1 bit for bit, each "
+        f"runner's exchanges on its comm stream; largest error against "
+        f"the serial body {json.dumps(rec['max_abs_err_vs_serial'])} "
+        f"(JAX's tolerances {json.dumps(OVERLAP_TOL)}, the iterate 0)")
+    try:
+        H.overlap_jacobi_fns(0, 2, 1.0, 1e-6, staging="pallas")
+        raise SmokeFailure("the overlap engine took the RDMA ring's "
+                           "staging")
+    except TpuMtError as e:
+        log(f"OVERLAP refusal: {e}")
+
+    # the entry points under --overlap 2, each a path of its own
+    for path, module, argv, needed in (
+            ("heat2d --overlap 2", heat2d,
+             ["--kernel", "torch", "--halo-steps", "1", "--mesh", "1,1",
+              "--nx-local", str(GRID_N), "--ny-local", str(GRID_N),
+              "--n-steps", str(HEAT_N_STEPS), "--overlap", "2"],
+             ("OVERLAP heat2d depth=2 overlap_frac=", "HEAT ERR rel=")),
+            ("stencil2d_grid --overlap 2", stencil2d_grid,
+             ["--kernel", "torch", "--mesh", "1,1", "--nx-local",
+              str(GRID_N), "--ny-local", str(GRID_N), "--n-iter",
+              str(GRID_N_ITER), "--n-warmup", str(GRID_N_WARMUP),
+              "--overlap", "2"],
+             ("OVERLAP stencil2d_grid depth=2 ", "GRID TEST px:1 py:1")),
+            ("stencil1d --overlap 2", stencil1d,
+             ["--n-global", str(STENCIL1D_N), "--overlap", "2"],
+             ("OVERLAP halo depth=2 iters=32 ", "err_norm = "))):
+        counts[path] = drive_driver(path, module,
+                                    ["--device", device.type] + argv, [],
+                                    needed, peaks)
+        if any(counts[path].values()):
+            raise SmokeFailure(f"{path}: the torch pipeline launched hand "
+                               f"kernels {counts[path]}")
+
+    for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
+        del os.environ[var]
+    os.environ.update({
+        "TPU_MPI_BENCH_N": str(BENCH_N), "TPU_MPI_BENCH_OVERLAP": "2",
+        "TPU_MPI_BENCH_STEPS": "1", "TPU_MPI_BENCH_SECOND_DTYPE": "none",
+        "TPU_MPI_BENCH_ITERS_SHORT": str(BENCH_ITERS_SHORT),
+        "TPU_MPI_BENCH_ITERS_LONG": str(BENCH_ITERS_LONG),
+        "TPU_MPI_BENCH_SAMPLES": str(BENCH_SAMPLES)})
+    ((path, want),) = overlap_launches().items()
+
+    def run_bench():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            r = bench.main(["--device", device.type])
+        log(f"BENCH {out.getvalue().strip().splitlines()[-1]}")
+        return r
+
+    rec["bench"], counts[path] = drive_path(path, run_bench,
+                                            ["stencil2d_iterate"], peaks)
+    for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
+        del os.environ[var]
+    if "_ov2_" not in rec["bench"]["schedule"] or not \
+            rec["bench"]["value"] > 0:
+        raise SmokeFailure(f"{path}: not a measured _ov2 run: {rec['bench']}")
+    if counts[path] != dict.fromkeys(counts[path], 0) | want:
+        raise SmokeFailure(f"{path}: launches {counts[path]}, its schedule "
+                           f"makes {want}")
+    check_routes(path, "stencil2d_iterate",
+                 {"regs": want["stencil2d_iterate"]})
+    per_step[path] = {"stencil2d_iterate": check_per_timestep(
+        path, "stencil2d_iterate", want["stencil2d_iterate"],
+        want["stencil2d_iterate"], 1.0)}
+
+    # the streams on the device timeline
+    rec["trace"] = {}
+    for spin in (False, True):
+        tr = overlap_trace(device, spin)
+        label = "busy stream" if spin else "steady state"
+        rec["trace"][label] = tr
+        log(f"OVERLAP trace, {label}, {OVERLAP_TRACE_BODIES} heat bodies "
+            f"8192^2 f32: depth 2 overlap_ms {tr[2]['overlap_ms']:.6f} on "
+            f"{tr[2]['streams']} streams (idle share "
+            f"{tr[2]['idle_share']:.4f}), depth 1 overlap_ms "
+            f"{tr[1]['overlap_ms']:.6f} on {tr[1]['streams']} streams "
+            f"(idle share {tr[1]['idle_share']:.4f})")
+        if tr[1]["overlap_ms"] != 0.0:
+            raise SmokeFailure(f"{label}: depth 1 ran kernels of two "
+                               f"streams at once")
+        if tr[2]["streams"] < 2:
+            raise SmokeFailure(f"{label}: depth 2's trace shows one stream")
+    if not rec["trace"]["busy stream"][2]["overlap_ms"] > 0.0:
+        raise SmokeFailure("busy stream: depth 2's comm and compute "
+                           "streams never ran at once")
+    return rec
 
 
 def run_daxpy_slice(device, counts, peaks):
@@ -3202,7 +3507,9 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
                          "and Ulysses over the two ranks bit for bit "
                          "their one-process counterparts",
             "grid": "the 1x2 and 2x1 grids (and 2x2 on four cards) equal "
-                    "to rank 0's 1x1 run bit for bit"}
+                    "to rank 0's 1x1 run bit for bit, and their overlap "
+                    "pipelines at depth 2 equal to depth 1 bit for bit "
+                    "and to the 1x1 run within JAX's tolerances"}
     log("RDMA world=2 NCCL leg: " + "; ".join(done[leg] for leg in legs))
 
 
@@ -3387,6 +3694,111 @@ def _nccl_grid(rank, world, gen):
         del field, blk, dx, dy, got_x, got_y
         torch.cuda.empty_cache()
     log(f"LAUNCHES grid world={world} rank {rank} {json.dumps(launches)}")
+    _nccl_grid_overlap(rank, world)
+
+
+def _nccl_grid_overlap(rank, world):
+    """The overlap engine over the ranks (:data:`GRID_LEG_GRIDS`): per
+    grid, weak-scaled (8192² a rank), the heat pipeline (float32,
+    periodic, ghost width 1) for :data:`GRID_LEG_BODIES` rounds and the
+    grid step (float32) under ``OverlapRunner`` at depth 1 and 2: depth 2
+    equal to depth 1 bit for bit on every rank, its exchanges on the
+    runner's comm stream; and rank 0's 1x1 run of the global field (the
+    torch serial bodies on ``mesh.local_grid``) matched within JAX's
+    fused-body tolerances (:data:`OVERLAP_TOL`), the largest error
+    logged."""
+    import numpy as np
+    import torch
+
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm.mesh import local_grid, make_grid
+    from tpu_mpi_tests_torch.convert import grid_join
+    from tpu_mpi_tests_torch.drivers import heat2d
+
+    def against_1x1(name, got, ref, tol):
+        joined = grid_join(got, px, py).astype(np.float64)
+        ref = ref.astype(np.float64)
+        if not np.allclose(joined, ref, rtol=tol[0], atol=tol[1]):
+            raise SmokeFailure(f"{name}: the ranks' field differs from the "
+                               f"1x1 run beyond rtol {tol[0]:g}, atol "
+                               f"{tol[1]:g}")
+        return float(np.abs(joined - ref).max())
+
+    for px, py in GRID_LEG_GRIDS[world]:
+        grid = make_grid(px, py)
+        tag = f"{px}x{py}"
+        nx, ny = px * GRID_N, py * GRID_N
+        _, cx, cy = heat2d.coefficients(nx, ny, 0.1)
+        g = torch.Generator(device="cuda").manual_seed(3000)
+        inner = torch.randn((nx, ny), generator=g, device="cuda")
+        blk = torch.zeros((GRID_N + 2,) * 2, device="cuda")
+        blk[1:-1, 1:-1] = inner[grid.rx * GRID_N:(grid.rx + 1) * GRID_N,
+                                grid.ry * GRID_N:(grid.ry + 1) * GRID_N]
+        fns = H.heat_overlap_fns(cx, cy, grid)
+        d1, _ = _overlap_run(fns, blk.clone(), 1, GRID_LEG_BODIES)
+        d2, _ = _overlap_run(fns, blk.clone(), 2, GRID_LEG_BODIES)
+        if not torch.equal(d1, d2):
+            raise SmokeFailure(f"grid {tag} heat pipeline rank {rank}: "
+                               f"depth 2 differs from depth 1")
+        got = C.gather_blocks(d1[1:-1, 1:-1])
+        del d1, d2, blk
+        if rank == 0:
+            whole = torch.zeros((nx + 2, ny + 2), device="cuda")
+            whole[1:-1, 1:-1] = inner
+            ref = H.heat_step2d_fn(1, cx, cy, grid=local_grid())(
+                whole, GRID_LEG_BODIES)
+            err = against_1x1(f"grid {tag} heat pipeline", got,
+                              C.host_value(ref[1:-1, 1:-1]),
+                              OVERLAP_TOL["heat"])
+            log(f"GRID leg world={world} {tag} heat pipeline float32 "
+                f"{GRID_LEG_BODIES} rounds, {GRID_N}x{GRID_N} a rank: depth "
+                f"2 equal to depth 1 bit for bit on every rank; against "
+                f"the 1x1 run max abs err {err!r}")
+            del whole, ref
+        del inner, got
+        torch.cuda.empty_cache()
+        s = GRID_SCALE
+        g = torch.Generator(device="cuda").manual_seed(4000)
+        field = torch.randn((nx + 4, ny + 4), generator=g, device="cuda")
+        blk = field[grid.rx * GRID_N:grid.rx * GRID_N + GRID_N + 4,
+                    grid.ry * GRID_N:grid.ry * GRID_N + GRID_N + 4].clone()
+        if grid.rx > 0:
+            blk[:2] = 0
+        if grid.rx < px - 1:
+            blk[-2:] = 0
+        if grid.ry > 0:
+            blk[:, :2] = 0
+        if grid.ry < py - 1:
+            blk[:, -2:] = 0
+        fns = H.grid_overlap_fns(2, s, s, grid)
+        o1, _ = _overlap_run(fns, blk.clone(), 1, 1, grid_step=True)
+        o2, _ = _overlap_run(fns, blk.clone(), 2, 1, grid_step=True)
+        if not all(torch.equal(a, b) for a, b in zip(o1, o2)):
+            raise SmokeFailure(f"grid {tag} step pipeline rank {rank}: "
+                               f"depth 2 differs from depth 1")
+        got_x, got_y = C.gather_blocks(o1[0]), C.gather_blocks(o1[1])
+        res = float(o1[2])
+        del o1, o2, blk
+        if rank == 0:
+            wx, wy, wr = H.step2d_fn(2, s, s, grid=local_grid())(field)
+            errs = [against_1x1(f"grid {tag} step pipeline {n}", got,
+                                C.host_value(want), OVERLAP_TOL["grid"])
+                    for n, got, want in (("dz_dx", got_x, wx),
+                                         ("dz_dy", got_y, wy))]
+            rel = abs(res - float(wr)) / abs(float(wr))
+            if not rel <= OVERLAP_RESIDUAL_RTOL:
+                raise SmokeFailure(f"grid {tag} step pipeline residual "
+                                   f"{res!r} vs the 1x1 run's "
+                                   f"{float(wr)!r}")
+            log(f"GRID leg world={world} {tag} step pipeline float32, "
+                f"{GRID_N}x{GRID_N} a rank: depth 2 equal to depth 1 bit "
+                f"for bit on every rank; against the 1x1 run max abs err "
+                f"dz_dx {errs[0]!r}, dz_dy {errs[1]!r}, residual relative "
+                f"{rel:.3g}")
+            del wx, wy, wr
+        del field, got_x, got_y
+        torch.cuda.empty_cache()
 
 
 def _nccl_rdma(rank, gen):

@@ -8,8 +8,11 @@ last one's end, the device's busy time in it (the union of the kernel,
 copy and set intervals over every stream, so overlapping streams count
 once) and its idle share, and each group's summed kernel time — NCCL
 (``nccl`` in the name), the heat update, the dual step, pack/unpack and
-the rest. Only the card's own events count: a trace taken on the CPU has
-none and reports a zero window.
+the rest; and the device time in which kernels (copies, sets) of two or
+more streams ran at once (``overlap_ms``, the overlap engine's proof that
+its comm stream ran beside the compute stream), with the streams seen.
+Only the card's own events count: a trace taken on the CPU has none and
+reports a zero window.
 """
 
 from __future__ import annotations
@@ -32,15 +35,37 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def stream_of(event: dict):
+    """The stream a device event ran on (``args.stream``; the thread id
+    of the trace's device lane where that is missing)."""
+    return event.get("args", {}).get("stream", event.get("tid"))
+
+
+def overlap_us(spans) -> float:
+    """Time in which intervals of two or more streams were open at once:
+    ``spans`` is ``[(start, end, stream), ...]``."""
+    edges = sorted([(lo, 1, s) for lo, _, s in spans]
+                   + [(hi, -1, s) for _, hi, s in spans],
+                   key=lambda e: (e[0], e[1]))  # ends before starts
+    active, total, last = {}, 0.0, None
+    for t, step, s in edges:
+        if last is not None and sum(1 for n in active.values() if n) >= 2:
+            total += t - last
+        active[s] = active.get(s, 0) + step
+        last = t
+    return total
+
+
 def summarize(path: str) -> dict:
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
-    spans, by_group = [], {}
+    spans, by_group, streamed = [], {}, []
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
         start, dur = float(e["ts"]), float(e.get("dur", 0.0))
         spans.append((start, start + dur))
+        streamed.append((start, start + dur, stream_of(e)))
         g = group_of(e.get("name", ""))
         by_group[g] = by_group.get(g, 0.0) + dur
     busy, end = 0.0, None
@@ -58,6 +83,8 @@ def summarize(path: str) -> dict:
             "idle_share": 1.0 - busy / window if window else None,
             "kernel_ms_by_group": {g: t / 1e3 for g, t in
                                    sorted(by_group.items())},
+            "overlap_ms": overlap_us(streamed) / 1e3,
+            "streams": len({s for _, _, s in streamed}),
             "device_events": len(spans)}
 
 

@@ -1933,3 +1933,109 @@ def test_attnbench_fused_tier_on_card(card, capsys):
     assert after["fused_ring_attention"] - \
         before["fused_ring_attention"] == 14
     assert after["flash_attention_block"] == before["flash_attention_block"]
+
+
+# ---------------------------------------------------------------------------
+# the overlap engine: depth 2's exchange on the runner's comm stream
+# ---------------------------------------------------------------------------
+
+PIPE_SHAPES = {"jacobi": (4100,), "heat": (130, 98), "grid": (132, 100)}
+
+
+def overlap_pipeline(name, z, depth, core_wrap=None, exchange_wrap=None):
+    """A split pipeline at ``depth`` (4 rounds, or one grid step), with
+    its core or exchange optionally wrapped; returns (result, runner)."""
+    if name == "jacobi":
+        fns = TH.overlap_jacobi_fns(0, 2, 3.0, 1e-2, periodic=True)
+    elif name == "heat":
+        fns = TH.heat_overlap_fns(0.1, 0.2)
+    else:
+        fns = TH.grid_overlap_fns(2, 1.5, 0.75)
+    ex_fn, core, seam = fns
+    ex_fn = exchange_wrap(ex_fn) if exchange_wrap else ex_fn
+    core = core_wrap(core) if core_wrap else core
+    runner = TH.OverlapRunner("halo_exchange", depth=depth)
+    if name == "grid":
+        ex, cores = runner.step(ex_fn, core, z)
+        out = seam(ex, *cores)
+    else:
+        out = TH.overlap_steps(runner, (ex_fn, core, seam), z, 4)
+    torch.cuda.synchronize()
+    return out, runner
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PIPE_SHAPES))
+def test_overlap_pipelines_depth2_equals_depth1_on_card(card, name, dtype):
+    z = rand(card, PIPE_SHAPES[name], dtype, seed=11)
+    d1, r1 = overlap_pipeline(name, z.clone(), 1)
+    d2, r2 = overlap_pipeline(name, z.clone(), 2)
+    plain, _ = overlap_pipeline(name, z.cpu(), 1)
+    for a, b, c in zip(as_tuple(d1), as_tuple(d2), as_tuple(plain)):
+        assert a.device == card and torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+    assert r1.comm_stream is None and r1.streamed_steps == 0
+    assert r2.comm_stream is not None
+    assert r2.streamed_steps == r2.steps == (1 if name == "grid" else 4)
+
+
+def sleeping(fn, cycles=2_000_000):
+    """``fn`` after a spin kernel on the current stream (~1 ms)."""
+    def run(*args, **kwargs):
+        torch.cuda._sleep(cycles)
+        return fn(*args, **kwargs)
+    return run
+
+
+@pytest.mark.parametrize("where", ["core", "exchange"])
+@pytest.mark.parametrize("name", list(PIPE_SHAPES))
+def test_exchange_in_flight_beside_a_long_kernel(card, name, where):
+    """The exchange posted while a long kernel occupies the compute
+    stream (the core starts with a spin kernel), and the core finishing
+    while the exchange is still held on its stream (the exchange starts
+    with one): the seam must see the arrived ghosts either way."""
+    z = rand(card, PIPE_SHAPES[name], torch.float32, seed=12)
+    wrap = {f"{where}_wrap": sleeping}
+    got, runner = overlap_pipeline(name, z.clone(), 2, **wrap)
+    want, _ = overlap_pipeline(name, z.clone(), 1)
+    for a, b in zip(as_tuple(got), as_tuple(want)):
+        assert torch.equal(a, b)
+    if where == "exchange":  # the drain waited for the held exchange
+        assert runner.drain_s > 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_iterate_overlap_equals_iterate_hand_on_card(card, dtype, periodic):
+    z = rand(card, (96, 260), dtype, seed=13)
+    before = hand.route_counts()["stencil2d_iterate"]["regs"]
+    got = TH.iterate_overlap_fn(2, 0.05, axis=1, periodic=periodic)(
+        z.clone(), 7)
+    torch.cuda.synchronize()
+    assert hand.route_counts()["stencil2d_iterate"]["regs"] == before + 7
+    want = TH.iterate_hand_fn(2, 0.05, axis=1, periodic=periodic)(
+        z.clone(), 7)
+    assert torch.equal(got, want)
+
+
+def test_bench_overlap_schedule_on_card(card, monkeypatch, capsys):
+    for var in [v for v in __import__("os").environ
+                if v.startswith("TPU_MPI_BENCH_")]:
+        monkeypatch.delenv(var)
+    for var, val in (("N", "256"), ("OVERLAP", "2"), ("STEPS", "1"),
+                     ("SECOND_DTYPE", "none"), ("ITERS_SHORT", "4"),
+                     ("ITERS_LONG", "24"), ("SAMPLES", "1")):
+        monkeypatch.setenv(f"TPU_MPI_BENCH_{var}", val)
+    from tpu_mpi_tests_torch import bench
+
+    rec = bench.main(["--device", "cuda"])
+    assert rec["schedule"] == "dim1_world1_float32_ov2_blocks_h1x1"
+    assert "NOTE" not in capsys.readouterr().err
+    monkeypatch.setenv("TPU_MPI_BENCH_STEPS", "4")
+    rec = bench.main(["--device", "cuda"])
+    assert "_ov1_" in rec["schedule"]
+    assert "NOTE overlap depth 2 not applicable" in capsys.readouterr().err

@@ -126,7 +126,6 @@ def test_mi_units_and_jsonl(capsys, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--staging", "auto"], "queue 1 item 17"),
     (["--tune"], "queue 1 item 17"),
-    (["--overlap", "2"], "queue 1 item 13"),
 ])
 def test_unported_options_raise_naming_the_roadmap(argv, item):
     with pytest.raises(TpuMtError, match=item):

@@ -48,6 +48,37 @@ def test_union_idle_share_and_groups(summary, tmp_path):
     assert summary.main([str(tmp_path / "none")]) == 1
 
 
+def test_overlap_of_two_streams(summary, tmp_path):
+    """The device time in which kernels of two or more streams ran at
+    once: a comm stream's copies beside a compute stream's kernels, a
+    third stream's, and back-to-back kernels (touching, not
+    overlapping)."""
+    def kernel(stream, ts, dur, name="k"):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts,
+                "dur": dur, "tid": stream, "args": {"stream": stream}}
+
+    events = [
+        kernel(7, 0, 100), kernel(7, 100, 50),   # compute, back to back
+        kernel(29, 90, 20), kernel(29, 140, 30),  # comm: 90-110, 140-170
+        kernel(31, 95, 5),                        # a third stream
+        kernel(7, 300, 10), kernel(29, 310, 10),  # touching only
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 400,
+         "dur": 10, "tid": 40},                   # no args: its lane
+        kernel(7, 405, 10),
+    ]
+    path = tmp_path / "trace_9.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = summary.summarize(str(path))
+    # 90-110 and 140-150 (comm beside compute), 405-410 (copy beside a
+    # kernel); the third stream adds no time inside 90-110
+    assert got["overlap_ms"] == pytest.approx(0.035)
+    assert got["streams"] == 4
+    one = [kernel(7, 0, 100), kernel(7, 50, 100)]  # one stream: never
+    path.write_text(json.dumps({"traceEvents": one}))
+    assert summary.summarize(str(path))["overlap_ms"] == 0.0
+    assert summary.overlap_us([]) == 0.0
+
+
 @pytest.mark.parametrize("module,argv", [
     (heat2d, ["--nx-local", "16", "--ny-local", "12", "--n-steps", "12",
               "--halo-steps", "3"]),

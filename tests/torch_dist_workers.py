@@ -791,8 +791,129 @@ def suite_grid(rank, world, out_dir):
         socket.gethostname, dist._WORLD = real_name, real_world
 
 
+#: the overlap suite's cases: the pipelines' rounds, the 1-D Jacobi and
+#: iterate fields' interiors a rank, the update scale, and the drivers'
+#: runs (case, module, argv; the grid drivers add ``--mesh PX,PY``)
+OV_ROUNDS, OV_N, OV_EPS, OV_SCALE = 4, 12, 1e-2, 3.0
+OV_DRIVER_RUNS = (
+    ("heat2d", "heat2d",
+     ["--kernel", "torch", "--nx-local", "8", "--ny-local", "12",
+      "--n-steps", "12", "--dtype", "float64", "--overlap", "2"]),
+    ("grid", "stencil2d_grid",
+     ["--kernel", "torch", "--nx-local", "16", "--ny-local", "12",
+      "--n-iter", "3", "--n-warmup", "1", "--dtype", "float64",
+      "--overlap", "2"]),
+)
+OV_STENCIL1D_ARGV = ["--n-global", "4096", "--dtype", "float64",
+                     "--overlap", "2", "--overlap-iters", "5"]
+
+
+def ov_jacobi_global(world, periodic):
+    """A 1-D Jacobi case's global ghosted layout (the ranks' blocks of
+    ``OV_N + 4`` side by side)."""
+    return global_field(1300 + world + periodic, (world * (OV_N + 4),))
+
+
+def ov_iterate_global(world, axis, periodic):
+    """An iterate case's global layout, each rank's block ``OV_N + 4``
+    along ``axis`` and 10 across."""
+    shape = (world * (OV_N + 4), 10) if axis == 0 else (10,
+                                                        world * (OV_N + 4))
+    return global_field(1400 + 10 * axis + world + periodic, shape)
+
+
+def suite_overlap(rank, world, out_dir):
+    """The overlap engine over the ranks: the three split pipelines at
+    depth 1 and 2 beside their serial bodies (the 1-D Jacobi on the
+    world ring, periodic and not; heat and the grid step on each grid of
+    ``GRIDS``), ``iterate_overlap_fn`` beside ``iterate_hand_fn`` on both
+    axes, periodic and not, the runners' accounting, a DispatchWindow
+    chain of exchanges, and the drivers' ``--overlap 2`` runs."""
+    import importlib
+
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm import mesh as M
+    from tpu_mpi_tests_torch.convert import grid_block
+
+    def pipeline(fns, z, depth, grid_step=False):
+        runner = H.OverlapRunner("halo_exchange", depth=depth)
+        if grid_step:
+            ex, cores = runner.step(fns[0], fns[1], z)
+            return fns[2](ex, *cores), runner
+        return H.overlap_steps(runner, fns, z, OV_ROUNDS), runner
+
+    accounting = []
+    for per in (False, True):
+        z = _tensor(block_of(ov_jacobi_global(world, per), world, rank))
+        fns = H.overlap_jacobi_fns(0, 2, OV_SCALE, OV_EPS, periodic=per)
+        for depth in (1, 2):
+            got, r = pipeline(fns, z.clone(), depth)
+            _save(out_dir, f"ov_jacobi_p{int(per)}_d{depth}", rank, got)
+            accounting.append([r.overlap_frac, r.comm_s, r.steps])
+        _save(out_dir, f"ov_jacobi_p{int(per)}_serial", rank,
+              H.iterate_fused_fn(0, 2, OV_SCALE, OV_EPS, periodic=per)(
+                  z.clone(), OV_ROUNDS))
+        for axis in (0, 1):
+            zi = _tensor(block_of(ov_iterate_global(world, axis, per),
+                                  world, rank, axis))
+            for name, fn in (("overlap", H.iterate_overlap_fn),
+                             ("hand", H.iterate_hand_fn)):
+                _save(out_dir, f"ov_iterate_ax{axis}_p{int(per)}_{name}",
+                      rank, fn(2, OV_EPS, axis=axis, periodic=per)(
+                          zi.clone(), 5))
+    _save(out_dir, "ov_accounting", rank, np.array(accounting))
+
+    for px, py in GRIDS[world]:
+        grid = M.make_grid(px, py)
+        gn = grid_name(px, py)
+        g = heat_global(px, py, 1)
+        z = _tensor(grid_block(g, px, py, grid.rx, grid.ry))
+        fns = H.heat_overlap_fns(HEAT_CX, HEAT_CY, grid)
+        for depth in (1, 2):
+            _save(out_dir, f"ov_heat_{gn}_d{depth}", rank,
+                  pipeline(fns, z.clone(), depth)[0])
+        _save(out_dir, f"ov_heat_{gn}_serial", rank,
+              H.heat_step2d_fn(1, HEAT_CX, HEAT_CY, grid=grid)(
+                  z.clone(), OV_ROUNDS))
+        z = _tensor(grid_block(step_global(px, py), px, py, grid.rx,
+                               grid.ry))
+        fns = H.grid_overlap_fns(2, GRID_SX, GRID_SY, grid)
+        outs = {depth: pipeline(fns, z.clone(), depth, grid_step=True)[0]
+                for depth in (1, 2)}
+        outs["serial"] = H.step2d_fn(2, GRID_SX, GRID_SY, grid=grid)(
+            z.clone())
+        for tag, (dx, dy, res) in outs.items():
+            tag = tag if tag == "serial" else f"d{tag}"
+            _save(out_dir, f"ov_grid_{gn}_{tag}_dx", rank, dx)
+            _save(out_dir, f"ov_grid_{gn}_{tag}_dy", rank, dy)
+            _save(out_dir, f"ov_grid_{gn}_{tag}_res", rank, res.reshape(1))
+        for case, name, argv in OV_DRIVER_RUNS:
+            module = importlib.import_module(
+                f"tpu_mpi_tests_torch.drivers.{name}")
+            _run_main(out_dir, f"ov_driver_{case}_{gn}", rank, module.main,
+                      ["--device", "cpu", "--mesh", f"{px},{py}"] + argv)
+
+    # a chain of periodic exchanges through a dispatch window of depth 2
+    z = _tensor(block_of(ov_jacobi_global(world, True), world, rank))
+    direct = z.clone()
+    for _ in range(3):
+        direct = H.halo_exchange(direct, 0, 2, True)
+    with C.DispatchWindow(2) as win:
+        windowed = z.clone()
+        for _ in range(3):
+            windowed = H.halo_exchange(windowed, 0, 2, True, window=win)
+    _save(out_dir, "ov_window", rank,
+          np.array([float(torch.equal(direct, windowed)),
+                    float(torch.equal(direct, z))]))
+
+    from tpu_mpi_tests_torch.drivers import stencil1d
+    _run_main(out_dir, "ov_driver_stencil1d", rank, stencil1d.main,
+              ["--device", "cpu"] + OV_STENCIL1D_ARGV)
+
+
 SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
           "ring": suite_ring, "symm_one_card": suite_symm_one_card,
-          "grid": suite_grid}
+          "grid": suite_grid, "overlap": suite_overlap}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

@@ -24,7 +24,13 @@ the k-step kernel on the dim-1 decomposition — or ``rdma-fused`` — the
 one-launch fused kernel on dim 0, a geometry it cannot block declining to
 ``blocks`` with a NOTE; both on the JAX bench's non-periodic ring),
 ``_ITERS_SHORT``,
-``_ITERS_LONG``, ``_SAMPLES``. Chaining is a Python loop of launches;
+``_ITERS_LONG``, ``_SAMPLES``, ``_OVERLAP`` (the halo pipeline depth,
+clamped to [1, 2]: depth 2 runs ``halo.iterate_overlap_fn``, the
+exchange in flight on a comm stream under the iterate kernel, where the
+JAX bench applies it — on the card, the ``blocks`` tier's dim-1 single
+buffer at ``_STEPS=1``; anywhere else a NOTE, and the serialized
+schedule runs). The schedule string names the depth that ran
+(``_ov1``/``_ov2``). Chaining is a Python loop of launches;
 two run lengths are differenced with CUDA events on the card.
 ``vs_baseline`` compares against the V100 equal-width roofline the root
 bench defines (``bench.py:445-448``): (2 reads + 1 write) × itemsize ×
@@ -59,14 +65,15 @@ BENCH_DTYPES = ("float32", "bfloat16")
 
 
 def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
-                   tier: str, device):
+                   tier: str, device, overlap: bool = False):
     """``(run, state, use_blocks, bench_dim)`` for one dtype on this
     rank (≅ the root bench's ``_build_schedule``): the resident-block hand
     schedule where it applies (``blocks`` tier, k>1, S>=2 dividing the
-    rank's rows), else the dim-1 single-buffer hand kernel; the RDMA tiers
-    (chained on dim 1, fused on dim 0); or the torch-op ``xla`` tier (k=1,
-    shallow ghosts). Initial fields are computed on the device (f64, cast
-    once)."""
+    rank's rows), else the dim-1 single-buffer hand kernel — with
+    ``overlap``, its overlap schedule (``halo.iterate_overlap_fn``, k=1);
+    the RDMA tiers (chained on dim 1, fused on dim 0); or the torch-op
+    ``xla`` tier (k=1, shallow ghosts). Initial fields are computed on the
+    device (f64, cast once)."""
     w = dist.world()
     dtype = TORCH_DTYPES[dtype_name]
     eps = 1e-6
@@ -86,6 +93,8 @@ def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
         run = H.iterate_fused_rdma_fn(d.n_bnd, se, steps=steps)
     elif tier == "rdma-chained":
         run = H.iterate_hand_fn(d.n_bnd, se, axis=1, steps=steps, rdma=True)
+    elif overlap:
+        run = H.iterate_overlap_fn(d.n_bnd, se, axis=1)
     elif tier == "blocks":
         run = H.iterate_hand_fn(d.n_bnd, se, axis=1, steps=steps)
     else:
@@ -93,8 +102,18 @@ def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
     return run, zg, False, bench_dim
 
 
+def resolve_overlap(env_val: "str | None") -> int:
+    """The bench's halo pipeline depth (≅ the root bench's
+    ``_resolve_overlap``): ``TPU_MPI_BENCH_OVERLAP`` clamped to [1, 2],
+    else the prior (1; the schedule cache is not ported)."""
+    if env_val is not None:
+        return max(1, min(int(env_val), 2))
+    return H.HALO_OVERLAP_DEPTH
+
+
 def measure(dtype_name: str, *, n: int, steps: int, device,
-            blocks_env: "str | None", tier_env: "str | None") -> dict:
+            blocks_env: "str | None", tier_env: "str | None",
+            ov_depth: int = 1) -> dict:
     """One dtype's measurement: build the schedule, chain-time it,
     median of samples. Returns the JSON-ready dict."""
     tier = H.check_tier(tier_env or H.PRIOR_TIER)
@@ -116,11 +135,19 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
                          f"world={world} steps={steps} ({e}); running the "
                          f"blocks tier")
             tier = "blocks"
+    ov_eff = 1
+    if ov_depth >= 2 and on_card and steps == 1 and tier == "blocks":
+        ov_eff = 2  # the dim-1 single buffer: no resident blocks at k=1
+    elif ov_depth >= 2:
+        decline_note(f"overlap depth {ov_depth} not applicable "
+                     f"(platform={'gpu' if on_card else device.type} "
+                     f"steps={steps} blocks={n_blocks} tier={tier}); "
+                     f"running the serialized schedule (_ov1)")
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     run, state, use_blocks, bench_dim = build_schedule(
         dtype_name, n=n, steps=steps, n_blocks=n_blocks, tier=tier,
-        device=device,
+        device=device, overlap=ov_eff >= 2,
     )
     if blocks_env is not None and n_blocks >= 2 and not use_blocks:
         decline_note(f"TPU_MPI_BENCH_BLOCKS={n_blocks} not applicable "
@@ -150,10 +177,12 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
     w = dist.world()
     world = w.size
     suffix = f"_h{w.hosts}x{w.ranks_per_host}"
+    # the _ov<d> suffix names the pipeline depth that ran
     schedule = (
-        f"blocks{n_blocks}_dim0_world{world}_{dtype_name}_ov1_{tier}{suffix}"
-        if use_blocks
-        else f"dim{bench_dim}_world{world}_{dtype_name}_ov1_{tier}{suffix}"
+        f"blocks{n_blocks}_dim0_world{world}_{dtype_name}_ov{ov_eff}_{tier}"
+        f"{suffix}" if use_blocks
+        else f"dim{bench_dim}_world{world}_{dtype_name}_ov{ov_eff}_{tier}"
+        f"{suffix}"
     )
     return {
         **hbm,
@@ -195,9 +224,7 @@ def main(argv=None) -> dict:
             "", "0", "false"):
         decline_note("TPU_MPI_BENCH_TUNE: the tune cache is not ported; "
                      "running the prior schedule")
-    if int(os.environ.get("TPU_MPI_BENCH_OVERLAP", "1")) > 1:
-        decline_note("TPU_MPI_BENCH_OVERLAP>1: the overlap engine is not "
-                     "ported; running the serialized schedule (_ov1)")
+    ov_depth = resolve_overlap(os.environ.get("TPU_MPI_BENCH_OVERLAP"))
     steps_env = os.environ.get("TPU_MPI_BENCH_STEPS")
     steps = int(steps_env) if steps_env is not None else H.PRIOR_STEPS
     tier_env = os.environ.get("TPU_MPI_BENCH_TIER")
@@ -206,7 +233,7 @@ def main(argv=None) -> dict:
     rec.update(measure(
         dtype_name, n=n, steps=steps, device=device,
         blocks_env=os.environ.get("TPU_MPI_BENCH_BLOCKS"),
-        tier_env=tier_env,
+        tier_env=tier_env, ov_depth=ov_depth,
     ))
     second = os.environ.get("TPU_MPI_BENCH_SECOND_DTYPE", "")
     if second in ("none", "0"):
@@ -224,7 +251,7 @@ def main(argv=None) -> dict:
         # block count applies to the primary only, as in the root bench)
         rec[second_dtype] = measure(
             second_dtype, n=n, steps=steps, device=device,
-            blocks_env=None, tier_env=tier_env,
+            blocks_env=None, tier_env=tier_env, ov_depth=ov_depth,
         )
     if dist.world().rank == 0:
         print(json.dumps(rec), flush=True)

@@ -14,16 +14,91 @@ reduce-scatter, :func:`all_gather_oneshot` and :func:`allreduce_oneshot`
 through the one-shot kernel; :func:`reduce_scatter_sum` is the library
 tier of the reduce-scatter. On the CPU the kernels' plain versions run
 over the gloo group.
+
+:class:`DispatchWindow` bounds how many chained ops run without a wait
+(≅ JAX ``:87``).
 """
 
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
 from tpu_mpi_tests_torch.comm import dist
+from tpu_mpi_tests_torch.instrument.telemetry import async_span, span_call
+from tpu_mpi_tests_torch.instrument.timers import stream_event
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
+
+#: the chained-dispatch depth's prior (the JAX package's shipped
+#: ``COLL_DISPATCH_DEPTH``): 1, a wait after every call
+COLL_DISPATCH_DEPTH = 1
+
+
+def resolve_dispatch_depth(explicit=None) -> int:
+    """The dispatch-window depth: ``explicit``, else the prior (1); at
+    least 1, and a value that is not an integer gives the prior (≅ JAX
+    ``:60`` with an empty schedule cache; the cache is ROADMAP queue 1
+    item 17)."""
+    val = COLL_DISPATCH_DEPTH if explicit is None else explicit
+    try:
+        depth = int(val)
+    except (TypeError, ValueError):
+        depth = COLL_DISPATCH_DEPTH
+    return max(1, depth)
+
+
+class DispatchWindow:
+    """Bound the in-flight window of chained ops posted on one stream (≅
+    JAX ``DispatchWindow``): up to ``depth`` calls run without a wait,
+    then the window waits once. ``depth=1`` is :func:`span_call` per call,
+    the per-call path unchanged; ``depth=None`` takes
+    :func:`resolve_dispatch_depth`'s prior.
+
+    Each call at depth ≥ 2 opens an async span and keeps the event
+    recorded after the op on the current stream. The port's chains are
+    in place (each call returns the tensor it was given), so the newest
+    event vouches for every op before it on that stream: once ``depth``
+    ops are in flight the window synchronizes it and closes every span,
+    one wait per ``depth`` calls. On the CPU an op has finished when it
+    returns and nothing is waited for. A context manager; exit drains.
+
+    Its consumers, ``collbench --tune`` (queue 1 item 17) and the serve
+    halo handler (item 19), are not ported: the tests hold it."""
+
+    def __init__(self, depth: "int | None" = None):
+        self.depth = resolve_dispatch_depth(depth)
+        self._inflight: deque = deque()
+
+    def call(self, op: str, fn, *args, nbytes: int = 0,
+             axis_name: "str | None" = None, world: int = 1, **meta):
+        """``fn(*args)`` under this window; returns its result."""
+        if self.depth <= 1:
+            return span_call(op, fn, *args, nbytes=nbytes,
+                             axis_name=axis_name, world=world, **meta)
+        handle = async_span(op, nbytes=nbytes, axis_name=axis_name,
+                            world=world, dispatch_depth=self.depth, **meta)
+        out = fn(*args)
+        self._inflight.append((handle, stream_event(out)))
+        if len(self._inflight) >= self.depth:
+            self.drain()
+        return out
+
+    def drain(self) -> None:
+        """Wait for every op in flight and close its span; idempotent."""
+        if not self._inflight:
+            return
+        newest = self._inflight[-1][1]
+        while self._inflight:
+            self._inflight.popleft()[0].done(newest)
+
+    def __enter__(self) -> "DispatchWindow":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.drain()
 
 
 def _group_for(t: torch.Tensor):

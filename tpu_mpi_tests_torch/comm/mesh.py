@@ -101,15 +101,28 @@ class Ring:
     def sendrecv(self, lo_edge: torch.Tensor, hi_edge: torch.Tensor,
                  periodic: bool):
         """One ring step over the process group (≅ ``_ring_rotate``,
-        ``halo.py:223``): my lo edge to the left, my hi edge to the right.
-        Returns ``(from_left, from_right)`` — what belongs in my lo and hi
-        ghost bands — with None on a side that receives nothing. Card
-        tensors go over the world group, host tensors over the gloo group;
-        both edges must be contiguous (gloo refuses strided tensors).
-        Rightward traffic is posted before leftward on every rank, so at
-        world=2, where both neighbours are one rank, each send meets its
-        receive in order (NCCL matches point-to-point calls by order, not
-        by tag)."""
+        ``halo.py:223``), waited for: :meth:`sendrecv_start` then
+        :meth:`Hop.wait`. Returns ``(from_left, from_right)`` — what
+        belongs in my lo and hi ghost bands — with None on a side that
+        receives nothing."""
+        return self.sendrecv_start(lo_edge, hi_edge, periodic).wait()
+
+    def sendrecv_start(self, lo_edge: torch.Tensor, hi_edge: torch.Tensor,
+                       periodic: bool) -> "Hop":
+        """Post one ring step and return at once: my lo edge goes to the
+        left, my hi edge to the right, and :meth:`Hop.wait` returns
+        ``(from_left, from_right)`` (None on a side that receives
+        nothing). Card tensors go over the world group, host tensors over
+        the gloo group; both edges must be contiguous (gloo refuses
+        strided tensors). Rightward traffic is posted before leftward on
+        every rank, so at world=2, where both neighbours are one rank,
+        each send meets its receive in order (NCCL matches point-to-point
+        calls by order, not by tag).
+
+        On the card NCCL's stream waits for the stream current at the
+        post and ``wait`` orders the stream current then after the
+        transfer: post and wait with one stream current. The receive
+        buffers are allocated on it."""
         if self.size == 1:
             raise MeshError("Ring.sendrecv: world=1 has no peer to send to")
         send_lo, send_hi = self.sends(periodic)
@@ -127,10 +140,7 @@ class Ring:
         if send_hi:
             ops.append(tdist.P2POp(tdist.irecv, from_right, right, group,
                                    tag=1))
-        if ops:
-            for req in tdist.batch_isend_irecv(ops):
-                req.wait()
-        return from_left, from_right
+        return Hop(tdist.batch_isend_irecv(ops), (from_left, from_right))
 
     def shift_start(self, x) -> "Hop":
         """Start one hop to the right on the periodic ring (≅
@@ -159,15 +169,18 @@ class Ring:
 
 
 class Hop:
-    """A hop in flight (:meth:`Ring.shift_start`). On the card ``wait``
-    orders the current stream after the transfer; on the CPU it blocks
-    until the block has arrived."""
+    """A hop in flight (:meth:`Ring.shift_start`,
+    :meth:`Ring.sendrecv_start`). On the card ``wait`` orders the current
+    stream after the transfer; on the CPU it blocks until the blocks have
+    arrived."""
 
     def __init__(self, reqs, got):
         self._reqs, self._got = reqs, got
 
     def wait(self):
-        """What the left neighbour sent (a tensor, or a tuple of them)."""
+        """What arrived: the left neighbour's block (a tensor, or a tuple
+        of them) for a shift, ``(from_left, from_right)`` for a
+        sendrecv."""
         for req in self._reqs:
             req.wait()
         self._reqs = ()

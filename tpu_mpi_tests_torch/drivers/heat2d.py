@@ -26,7 +26,11 @@ card is the default device (NCCL between ranks); ``--device cpu`` runs
 the kernels' plain torch versions (gloo). Start one process per rank
 (torchrun, tpumt_run). ``--profile-dir DIR`` writes a ``torch.profiler``
 trace of the timed bodies a rank (``gpu/trace_summary.py`` sums its
-device time). Not ported yet: ``--overlap`` (queue 1 item 13),
+device time). ``--overlap 2`` (with ``--kernel torch --halo-steps 1``)
+runs the host-scheduled pipeline (``comm/halo.py``'s overlap engine:
+per Euler step the both-axis exchange in flight on a comm stream while
+the core computes, the seam patched after) and prints an ``OVERLAP
+heat2d`` line; ``--overlap 1`` keeps the chained loop. Not ported yet:
 ``--kernel auto`` and the tune flags (queue 1 item 17).
 """
 
@@ -119,23 +123,69 @@ def run(args) -> int:
                                 steps=args.halo_steps, kernel=args.kernel,
                                 grid=grid)
 
+        depth = 1
+        if args.overlap != "0":
+            explicit = None if args.overlap == "auto" else int(args.overlap)
+            depth = H.resolve_overlap_depth(explicit)
+            rep.banner(f"OVERLAP heat2d depth resolved -> {depth}")
+
         outer_total = args.n_steps // args.halo_steps
-        # warm (builds the kernel): 1 outer body = halo_steps timesteps,
-        # counted in the gate
-        zs = block(step(zs, 1))
-        with ProfilerGate(args.profile_dir):  # the timed bodies' trace
-            t0 = time.perf_counter()
-            zs = block(step(zs, outer_total - 1))
-            seconds = time.perf_counter() - t0
+        runner = None
+        if depth >= 2:
+            # the host-scheduled pipeline: per Euler step the both-axis
+            # exchange in flight while the core (cells touching no fresh
+            # ghost) computes; the seam patches the 1-wide frame from the
+            # arrivals. The eigen gate below verifies it end to end.
+            fns = H.heat_overlap_fns(float(cx), float(cy), grid)
+            nbytes = (H.halo_payload_bytes(zs, 0, px, nb, True)
+                      + H.halo_payload_bytes(zs, 1, py, nb, True))
+            timer = PhaseTimer()
+            # warm through a throwaway runner, so the record's seconds
+            # cover only the timed steps
+            zs = block(H.overlap_steps(
+                H.OverlapRunner("halo_exchange2d", depth=depth,
+                                nbytes=nbytes, world=n_dev), fns, zs, 1))
+            runner = H.OverlapRunner(
+                "halo_exchange2d", depth=depth, nbytes=nbytes, world=n_dev,
+                timer=timer, phase="overlap_interior")
+            with ProfilerGate(args.profile_dir):
+                t0 = time.perf_counter()
+                zs = block(H.overlap_steps(runner, fns, zs, outer_total - 1))
+                seconds = time.perf_counter() - t0
+            runner.annotate(timer)
+            rep.time_lines(timer, stats=True)
+        else:
+            # warm (builds the kernel): 1 outer body = halo_steps
+            # timesteps, counted in the gate
+            zs = block(step(zs, 1))
+            with ProfilerGate(args.profile_dir):  # the timed bodies' trace
+                t0 = time.perf_counter()
+                zs = block(step(zs, outer_total - 1))
+                seconds = time.perf_counter() - t0
         timed_steps = (outer_total - 1) * args.halo_steps
         steps_per_s = timed_steps / seconds if seconds > 0 else float("inf")
+        if args.overlap != "0":
+            ov_rec = (
+                runner.record("heat2d", dtype=args.dtype,
+                              steps_per_s=steps_per_s)
+                if runner is not None else
+                {"kind": "overlap", "op": "heat2d", "depth": depth,
+                 "steps": outer_total - 1, "overlap_frac": 0.0,
+                 "comm_s": 0.0, "compute_s": seconds, "world": n_dev,
+                 "dtype": args.dtype, "steps_per_s": steps_per_s}
+            )
+            rep.line(
+                f"OVERLAP heat2d depth={depth} "
+                f"overlap_frac={ov_rec['overlap_frac']:0.3f}",
+                ov_rec,
+            )
         rep.line(
             f"HEAT mesh:{px}x{py} n:{nx}x{ny}; steps={args.n_steps} "
             f"{steps_per_s:0.1f} steps/s",
             {"kind": "heat", "px": px, "py": py, "nx": nx, "ny": ny,
              "steps": args.n_steps, "steps_per_s": steps_per_s,
              "nu": args.nu, "dt": dt, "kernel": args.kernel,
-             "overlap": 1},
+             "overlap": depth},
         )
         _time_exchange(zs, nb, grid, args.kernel, rep)
 
@@ -209,7 +259,23 @@ def main(argv=None) -> int:
         "or the hand CUDA kernel (≅ --kernel pallas; same recurrence "
         "update for update, one launch per k steps)",
     )
+    p.add_argument(
+        "--overlap",
+        default="0",
+        choices=["0", "1", "2", "auto"],
+        help="halo pipeline depth: 0 = off (default, the chained loop), "
+        "1 = resolve the knob but keep the chained loop (the serialized "
+        "schedule), 2 = host-scheduled pipeline with the both-axis "
+        "exchange in flight on a comm stream under the core compute, "
+        "auto = the prior depth (the schedule cache is not ported); "
+        "requires --kernel torch and --halo-steps 1",
+    )
     args = p.parse_args(argv)
+    if args.overlap != "0" and (
+        args.kernel != "torch" or args.halo_steps != 1
+    ):
+        p.error("--overlap requires --kernel torch and --halo-steps 1 "
+                "(the interior/boundary split is the per-step torch body)")
     for name in ("nx_local", "ny_local", "n_steps", "kx", "ky",
                  "halo_steps"):
         if getattr(args, name) < 1:

@@ -25,7 +25,12 @@ default device (NCCL between ranks); ``--device cpu`` runs the kernels'
 plain torch versions (gloo). Start one process per rank (torchrun,
 tpumt_run). ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
 the timed steps a rank (``gpu/trace_summary.py`` sums its device time).
-``--overlap`` is not ported yet (queue 1 item 13).
+``--overlap 2`` with ``--kernel torch`` runs the host-scheduled pipeline
+(``comm/halo.py``'s overlap engine: per iteration the both-axis exchange
+in flight on a comm stream while the core derivatives compute, the seam
+completing the frame and the residual) and prints an ``OVERLAP
+stencil2d_grid`` line; with ``--kernel hand`` a NOTE says the fused
+serial step runs.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap, make_grid, topology
 from tpu_mpi_tests_torch.convert import grid_join
 from tpu_mpi_tests_torch.drivers import _common
-from tpu_mpi_tests_torch.instrument.timers import PhaseTimer
+from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
 from tpu_mpi_tests_torch.instrument.trace import ProfilerGate
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
 
@@ -107,15 +112,72 @@ def run(args) -> int:
                            kernel=args.kernel, grid=grid)
         gate = ProfilerGate(args.profile_dir)
 
+        depth = 1
+        if args.overlap != "0":
+            explicit = None if args.overlap == "auto" else int(args.overlap)
+            depth = H.resolve_overlap_depth(explicit)
+            rep.banner(f"OVERLAP stencil2d_grid depth resolved -> {depth}")
+
         timer = PhaseTimer(skip_first=args.n_warmup)
         out = None
-        for i in range(args.n_warmup + args.n_iter):
-            if i == args.n_warmup:  # the timed steps' trace
-                gate.start()
-            out = timer.timed("step", step, zs)
+        runner = None
+        if depth >= 2 and args.kernel == "torch":
+            # the host-scheduled pipeline: per iteration the both-axis
+            # exchange in flight while the core derivatives (cells
+            # touching no ghost) compute; the seam completes the frame
+            # rows and columns and the residual. The err gates below
+            # verify the assembled fields.
+            ex_fn, core_fn, seam_fn = H.grid_overlap_fns(
+                N_BND, float(dx.scale), float(dy.scale), grid)
+            nbytes = (H.halo_payload_bytes(zs, 0, px, N_BND, False)
+                      + H.halo_payload_bytes(zs, 1, py, N_BND, False))
+            runner = H.OverlapRunner(
+                "halo_exchange2d", depth=depth, nbytes=nbytes, world=n_dev,
+                timer=timer, phase="overlap_interior")
+            # the warmups run through a throwaway runner (the step phase
+            # still brackets them; skip_first keeps its accounting), so
+            # the overlap record covers only the measured iterations
+            warm = H.OverlapRunner("halo_exchange2d", depth=depth,
+                                   nbytes=nbytes, world=n_dev)
+            for i in range(args.n_warmup + args.n_iter):
+                if i == args.n_warmup:
+                    gate.start()
+                r = warm if i < args.n_warmup else runner
+                with timer.phase("step"):
+                    ex, cores = r.step(ex_fn, core_fn, zs)
+                    out = block(seam_fn(ex, *cores))
+            runner.annotate(timer)
+        else:
+            if depth >= 2:
+                rep.line("NOTE --overlap needs --kernel torch; running "
+                         "the fused serial step")
+                depth = 1
+            for i in range(args.n_warmup + args.n_iter):
+                if i == args.n_warmup:  # the timed steps' trace
+                    gate.start()
+                out = timer.timed("step", step, zs)
         gate.stop()
         dz_dx, dz_dy, residual = out
         seconds = timer.seconds["step"]
+        if args.overlap != "0":
+            it_per_s = (args.n_iter / seconds if seconds > 0
+                        else float("inf"))
+            ov_rec = (
+                runner.record("stencil2d_grid", dtype=args.dtype,
+                              it_per_s=it_per_s)
+                if runner is not None else
+                {"kind": "overlap", "op": "stencil2d_grid",
+                 "depth": depth, "steps": args.n_iter,
+                 "overlap_frac": 0.0, "comm_s": 0.0,
+                 "compute_s": seconds, "world": n_dev,
+                 "dtype": args.dtype, "it_per_s": it_per_s}
+            )
+            rep.line(
+                f"OVERLAP stencil2d_grid depth={depth} "
+                f"{it_per_s:0.1f} it/s "
+                f"overlap_frac={ov_rec['overlap_frac']:0.3f}",
+                ov_rec,
+            )
 
         # err gates vs analytic derivatives over the global interior, on
         # the fields rank 0 assembles
@@ -177,6 +239,16 @@ def main(argv=None) -> int:
         help="per-shard pipeline tier: torch ops (≅ the XLA tier) or the "
         "hand CUDA kernel (≅ --kernel pallas; one window read for both "
         "derivatives + residual)",
+    )
+    p.add_argument(
+        "--overlap",
+        default="0",
+        choices=["0", "1", "2", "auto"],
+        help="halo pipeline depth: 0 = off (default), 1 = the serialized "
+        "schedule, 2 = host-scheduled pipeline with the both-axis exchange "
+        "in flight on a comm stream under the core derivatives (--kernel "
+        "torch; with hand a NOTE, and the fused serial step runs), auto = "
+        "the prior depth (the schedule cache is not ported)",
     )
     args = p.parse_args(argv)
     for name in ("nx_local", "ny_local", "n_iter"):

@@ -97,7 +97,9 @@ class Reporter:
                  "t_start": t_start, "t_end": t_end,
                  "mono_start": timer.mono_starts.get(name),
                  "mono_end": timer.mono_ends.get(name),
-                 "rank": self.rank}
+                 "rank": self.rank,
+                 # annotated extras (PhaseTimer.annotate): overlap_frac
+                 **timer.extras.get(name, {})}
             )
 
     def test_line(self, dim: int, space: str, buf, seconds: float,

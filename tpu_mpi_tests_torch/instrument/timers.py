@@ -3,6 +3,9 @@
 CUDA launches return before the device finishes, so every host-clock
 reading here waits for the device first (:func:`block`), and
 :func:`chain_rate` times chained runs with CUDA events on the card.
+:func:`block` waits for every stream of the device; :func:`block_stream`
+waits for one stream only, so a wait on a core computing beside an
+exchange in flight on another stream does not swallow the exchange.
 """
 
 from __future__ import annotations
@@ -36,6 +39,31 @@ def block(*trees):
         dev = _cuda_device(tree)
         if dev is not None:
             torch.cuda.synchronize(dev)
+    return trees[0] if len(trees) == 1 else trees
+
+
+def stream_event(*trees):
+    """A CUDA event recorded on the current stream of the trees' device
+    after the work queued there so far, or None when no tree holds a
+    card tensor."""
+    dev = None
+    for tree in trees:
+        dev = dev or _cuda_device(tree)
+    if dev is None:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+def block_stream(*trees):
+    """Wait until the current stream has finished the work queued on it
+    so far, and return ``trees`` unchanged: an event recorded there, then
+    ``event.synchronize()``. Unlike :func:`block` it leaves work on the
+    device's other streams (an exchange in flight, NCCL's) running."""
+    ev = stream_event(*trees)
+    if ev is not None:
+        ev.synchronize()
     return trees[0] if len(trees) == 1 else trees
 
 
@@ -126,6 +154,9 @@ class PhaseTimer:
         self.mono_ends: dict[str, float] = {}
         self._entries: dict[str, int] = defaultdict(int)
         self.skip_first = skip_first
+        #: extra fields per phase for its JSONL ``time`` record
+        #: (:meth:`annotate`)
+        self.extras: dict[str, dict] = {}
 
     @contextmanager
     def phase(self, name: str):
@@ -155,6 +186,13 @@ class PhaseTimer:
     def mean(self, name: str) -> float:
         c = self.counts[name]
         return self.seconds[name] / c if c else 0.0
+
+    def annotate(self, name: str, **fields) -> None:
+        """Attach extra fields to a phase's JSONL ``time`` record (the
+        overlap engine's ``overlap_frac``, ≅ the JAX ``annotate``).
+        ``Reporter.time_lines`` merges them; the stdout ``TIME`` line
+        keeps the reference's shape."""
+        self.extras.setdefault(name, {}).update(fields)
 
     def wall_span(self, name: str) -> tuple[float | None, float | None]:
         """Wall-clock ``(t_start, t_end)`` of the phase's lifetime, or

@@ -18,9 +18,14 @@ hand RDMA ring, ``hand.ring_halo``, the shard running as an (n, 1)
 column; at world=1 it launches and moves nothing). The derivative is the
 torch-op stencil (the XLA tier's counterpart), as in the JAX package.
 
+``--overlap {1,2,auto}`` then runs the double-buffered halo pipeline
+for ``--overlap-iters`` steps on a copy of the verified field
+(``comm/halo.py``'s overlap engine; ``auto`` resolves to the prior depth
+1); depth 2 is held bit for bit against a depth-1 rerun and prints
+``OVERLAP FAIL`` and exits 1 on a difference.
+
 Not ported yet, each raising with the ROADMAP item that brings it:
-``--staging auto`` and ``--tune`` (the tune cache, queue 1 item 17),
-``--overlap`` other than 0 (the overlap engine, queue 1 item 13). The
+``--staging auto`` and ``--tune`` (the tune cache, queue 1 item 17). The
 serve-mode ``halo`` handler waits for ``serve/`` (queue 1 item 19).
 """
 
@@ -73,8 +78,11 @@ class Stencil1dSpec(WorkloadSpec):
             "--overlap",
             default="0",
             choices=["0", "1", "2", "auto"],
-            help="the double-buffered halo pipeline after the gate: only "
-            "0 (off) is ported; any other value raises",
+            help="run the double-buffered halo pipeline after the gate: "
+            "0 = off (default), 1 = the serialized schedule, 2 = exchange "
+            "in flight under the interior compute, auto = the prior depth "
+            "(the schedule cache is not ported); depth>=2 is verified bit "
+            "for bit against depth 1",
         )
         p.add_argument(
             "--overlap-iters",
@@ -100,11 +108,6 @@ class Stencil1dSpec(WorkloadSpec):
                 "--tune / --staging auto (the halo staging sweep and the "
                 "schedule cache) are not ported yet: ROADMAP queue 1 item "
                 "17"
-            )
-        if args.overlap != "0":
-            raise TpuMtError(
-                f"--overlap {args.overlap} (the double-buffered halo "
-                f"pipeline) is not ported yet: ROADMAP queue 1 item 13"
             )
 
     def build(self, ctx: RunContext):
@@ -195,7 +198,71 @@ class Stencil1dSpec(WorkloadSpec):
                 f"{tol:.8g}"
             )
             return 1
+        if args.overlap != "0":
+            return _run_overlap(args, ctx.rep, world, state["zg"], d)
         return 0
+
+
+def _run_overlap(args, rep, world, zg, d) -> int:
+    """The ``--overlap`` mode (≅ the JAX ``_run_overlap``): the 1-D
+    Jacobi pipeline (``halo.overlap_jacobi_fns``) for ``--overlap-iters``
+    steps on a copy of the verified field. Depth ≥ 2 is held bit for bit
+    against a depth-1 rerun — the seam's gate — and the measured
+    ``overlap_frac`` goes on the phase's ``time`` record and the
+    ``kind: "overlap"`` record."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
+
+    eps = 1e-6
+    n_iters = args.overlap_iters
+    explicit = None if args.overlap == "auto" else int(args.overlap)
+    fns = H.overlap_jacobi_fns(0, 2, float(d.scale), eps)
+    nbytes = H.halo_payload_bytes(zg, 0, world, 2, False)
+
+    def pipeline(depth: int, n: int, timer=None):
+        runner = H.OverlapRunner(
+            "halo_exchange", depth=depth, nbytes=nbytes, axis_name="shard",
+            world=world, timer=timer, phase="overlap_interior")
+        z = H.overlap_steps(runner, fns, zg.clone(), n)
+        return block(z), runner
+
+    depth = H.resolve_overlap_depth(explicit)
+    rep.banner(f"OVERLAP halo depth resolved -> {depth}")
+
+    pipeline(depth, 1)  # warm
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    z, runner = pipeline(depth, n_iters, timer=timer)
+    seconds = time.perf_counter() - t0
+    it_per_s = n_iters / seconds if seconds > 0 else float("inf")
+
+    rc = 0
+    if depth > 1:
+        # the seam's gate: the pipelined schedule equals the serialized
+        # one bit for bit (the same functions, reordered)
+        z_ref, _ = pipeline(1, n_iters)
+        if not torch.equal(z, z_ref):
+            rep.line(
+                f"OVERLAP FAIL depth={depth}: pipelined result diverges "
+                f"from the depth-1 schedule (seam defect)"
+            )
+            rc = 1
+        del z_ref
+    del z
+
+    runner.annotate(timer)
+    rep.time_lines(timer, stats=True)
+    rep.line(
+        f"OVERLAP halo depth={depth} iters={n_iters} "
+        f"{it_per_s:0.1f} it/s overlap_frac={runner.overlap_frac:0.3f}",
+        runner.record(
+            "halo", iters=n_iters, it_per_s=it_per_s, dtype=args.dtype,
+            n=args.n_global,
+        ),
+    )
+    return rc
 
 
 SPEC = register_spec(Stencil1dSpec())
