@@ -132,8 +132,9 @@ failure exits non-zero and prints no result line):
 4. the main path, seven paths in turn, each with every launch count set
    to 0 just before it and read just after (and its peak device memory
    read): the headline bench (``tpu_mpi_tests_torch.bench``) at n=8192
-   in float32 (S=2 resident blocks, k=4), the same in bfloat16 (dim-1
-   single buffer, k=4), the ``stencil2d`` driver with ``--kernel hand``
+   at the card's priors with no schedule cache (``tune/priors.py``: the
+   dim-1 single buffer at k=8 in float32, then in bfloat16; the schedule
+   checked against the table), the ``stencil2d`` driver with ``--kernel hand``
    at the reference sizes (n_local 1024, n_other 524288) plus its
    iterate leg (``--iterate-tier blocks --iterate-steps 4``), the
    ``heat2d`` driver with ``--kernel hand --mesh 1,1`` at 8192² for 200
@@ -150,8 +151,8 @@ failure exits non-zero and prints no result line):
    ``rdma-fused`` (k=4; the ``ITER BITWISE fused==chained`` and
    ``OVERLAP`` lines required), ``stencil1d --staging pallas`` at 32 Mi
    points, and the bench with ``TPU_MPI_BENCH_TIER`` ``rdma-chained``
-   and ``rdma-fused`` at 8192² in float32 and bfloat16 (one ring and one
-   iterate launch, or one fused launch, per k timesteps) — the
+   and ``rdma-fused`` at 8192² in float32 and bfloat16 at k=4 (one ring
+   and one iterate launch, or one fused launch, per k timesteps) — the
    ``stencil2d --rdma`` path runs the driver's 1000 iterations, so its
    allreduce leg makes 2002 ring reduce-scatter launches; then the
    collective slice (``run_coll_slice``): ``gather_inplace --rdma`` at
@@ -233,7 +234,23 @@ failure exits non-zero and prints no result line):
    at depth 2 and 1, in the steady state and each body posted behind a
    ~2 ms spin kernel on the compute stream: the device time in which
    kernels of two streams ran at once must be exactly 0 at depth 1 and
-   above 0 at depth 2 behind the spin (the steady state's is printed);
+   above 0 at depth 2 behind the spin (the steady state's is printed).
+   Then the tune slice (``run_tune_slice``, the schedule plane): the
+   ``stencil2d`` driver at the reference sizes with ``--kernel auto
+   --iterate-tier auto --tune`` (every tier candidate measured on the
+   card or declined with its reason, the winner stored), again on that
+   cache without ``--tune`` (a cache hit, no sweep, launches exact), the
+   explicit winner and a ``--tune-pack`` run of the packed cache (the
+   iterate field equal bit for bit in all four, ``iterate_gate``); the
+   bench at 8192² in float32 and bfloat16 under ``TPU_MPI_BENCH_TUNE=1``
+   on a fresh cache (its state equal bit for bit to the explicit
+   schedule's, the cache then serving the winner); ``stencil1d
+   --staging auto --tune`` at 32 Mi; ``heat2d --kernel auto --overlap
+   auto`` at 8192² (launches exact); ``stencil2d --fused --debug-dump``
+   and ``--managed --kernel hand`` at the reference sizes (launches
+   exact). The world=2 legs' ``tune`` part (and world 4 on four cards)
+   runs ``stencil2d --iterate-tier auto --tune`` over the ranks
+   (``_nccl_tune``);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -644,25 +661,45 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
+def bench_blocks_used(dtype: str) -> int:
+    """The resident blocks the bench's prior schedule runs in ``dtype``
+    (``tune/priors.py``): S when S >= 2 divides the domain at k > 1,
+    else 0 (the dim-1 single buffer)."""
+    from tpu_mpi_tests_torch.tune import priors
+
+    S, k = priors.bench_blocks(dtype), priors.BENCH_STEPS
+    return S if S >= 2 and k > 1 and BENCH_N % S == 0 else 0
+
+
 def iterate_cases():
     """The iterate kernel's operands on the main path, from the schedules
-    the bench and the driver build: (path, shape, dtype, dim, flags,
-    scale_eps). The bench's f32 blocks are physical at the domain's
-    outer edges; the driver's iterate leg runs a periodic self-ring."""
+    the bench's priors and the driver build: (path, shape, dtype, dim,
+    flags, scale_eps, steps). Resident blocks are physical at the
+    domain's outer edges (one case a flag pair); the dim-1 single buffer
+    at both; the driver's iterate leg (k = 4, the prior block count)
+    runs a periodic self-ring."""
     import torch
 
-    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.tune import priors
 
-    S = H.PRIOR_BLOCKS["float32"]
-    bench_block = (BENCH_N // S + 2 * K4, BENCH_N)
-    driver_block = (REF_N_LOCAL // S + 2 * K4, REF_N_OTHER)
-    return [
-        ("bench float32", bench_block, torch.float32, 0, (1, 0), BENCH_SE),
-        ("bench float32", bench_block, torch.float32, 0, (0, 1), BENCH_SE),
-        ("bench bfloat16", (BENCH_N, BENCH_N + 2 * K4), torch.bfloat16, 1,
-         (1, 1), BENCH_SE),
-        ("stencil2d", driver_block, torch.float32, 0, (0, 0), DRIVER_SE),
-    ]
+    k = priors.BENCH_STEPS
+    cases = []
+    for dtype, tdtype in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+        S = bench_blocks_used(dtype)
+        if S:
+            shape = (BENCH_N // S + 4 * k, BENCH_N)
+            cases += [(f"bench {dtype}", shape, tdtype, 0, flags, BENCH_SE,
+                       k) for flags in ((1, 0), (0, 1))]
+        else:
+            cases.append((f"bench {dtype}", (BENCH_N, BENCH_N + 4 * k),
+                          tdtype, 1, (1, 1), BENCH_SE, k))
+    S = priors.bench_blocks("float32")
+    rows = REF_N_LOCAL // S if S >= 2 and REF_N_LOCAL % S == 0 \
+        else REF_N_LOCAL
+    cases.append(("stencil2d", (rows + 2 * K4, REF_N_OTHER), torch.float32,
+                  0, (0, 0), DRIVER_SE, 4))
+    return cases
 
 
 def heat_cases():
@@ -769,14 +806,14 @@ def check_kernels(device):
             "heat2d": 0.0, "dual_dim_step": 0.0,
             "dual_dim_step residual (relative)": 0.0, **stream_errs,
             **probe_errs, **pack_errs, **ring_errs, **coll_errs}
-    for _, shape, dtype, dim, flags, se in iterate_cases():
+    for _, shape, dtype, dim, flags, se, k in iterate_cases():
         z = rand(shape, dtype)
         before = hand.stencil2d_iterate.launches_by_route["regs"]
         err = compare(
-            f"iterate main-path {shape} {dtype} flags={flags}",
-            hand.stencil2d_iterate(z, se, dim=dim, steps=4,
+            f"iterate main-path {shape} {dtype} flags={flags} k={k}",
+            hand.stencil2d_iterate(z, se, dim=dim, steps=k,
                                    phys_static=flags),
-            hand.stencil2d_iterate_ref(z, se, dim=dim, steps=4,
+            hand.stencil2d_iterate_ref(z, se, dim=dim, steps=k,
                                        phys_static=flags), failures)
         errs["stencil2d_iterate"] = max(errs["stencil2d_iterate"], err)
         if hand.stencil2d_iterate.launches_by_route["regs"] != before + 1:
@@ -1949,6 +1986,10 @@ def drive_path(path, fn, kernels, peaks):
     return result, counts
 
 
+#: each driver path's captured standard output (:func:`drive_driver`)
+DRIVER_TEXT: dict = {}
+
+
 def drive_driver(path, module, argv, kernels, needed, peaks):
     """Run a driver's ``main(argv)`` as one main path (:func:`drive_path`)
     with its output captured and logged; fail unless it exits 0 with no
@@ -1962,6 +2003,7 @@ def drive_driver(path, module, argv, kernels, needed, peaks):
         return rc, out.getvalue()
 
     (rc, text), counts = drive_path(path, run, kernels, peaks)
+    DRIVER_TEXT[path] = text
     for line in text.splitlines():
         log(f"  {line}")
     if rc != 0 or "FAIL" in text:
@@ -1989,14 +2031,17 @@ def run_main_path(device):
     the counts zeroed just before it and read just after. Returns
     (counts per path, launches per timestep per path, bench records)."""
     from tpu_mpi_tests_torch import bench
-    from tpu_mpi_tests_torch.comm import halo as H
     from tpu_mpi_tests_torch.drivers import heat2d, stencil2d, stencil2d_grid
+    from tpu_mpi_tests_torch.tune import priors
 
     # the bench's default schedules at the headline size, one dtype per
     # run so each has counts of its own, whatever the caller's
-    # environment selects
+    # environment selects; no schedule cache, so every knob takes the
+    # card's prior (tune/priors.py)
     for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
         del os.environ[var]
+    os.environ["TPU_MPI_TUNE_CACHE"] = os.path.join(
+        tempfile.mkdtemp(prefix="smoke_no_cache_"), "tune.json")
     os.environ.update({
         "TPU_MPI_BENCH_N": str(BENCH_N),
         "TPU_MPI_BENCH_SECOND_DTYPE": "none",
@@ -2021,14 +2066,20 @@ def run_main_path(device):
         if rec.get("tier") != "blocks" or not rec.get("value", 0) > 0:
             raise SmokeFailure(f"{path}: not a measured blocks-tier run: "
                                f"{rec}")
+        S = bench_blocks_used(dtype)
+        want = (f"blocks{S}_dim0" if S else "dim1") + \
+            f"_world1_{dtype}_ov1_{priors.stencil_tier(dtype)}_h1x1"
+        if rec["schedule"] != want or rec["steps"] != priors.BENCH_STEPS:
+            raise SmokeFailure(f"{path}: ran {rec['schedule']} at k="
+                               f"{rec['steps']}, not the card's priors "
+                               f"({want} at k={priors.BENCH_STEPS})")
         # chain_rate runs 3 warm calls, then n_short and n_long calls per
         # sample; each call advances k timesteps (bench.measure)
         k = rec["steps"]
         n_short = max(1, BENCH_ITERS_SHORT // k)
         n_long = max(n_short + 1, BENCH_ITERS_LONG // k)
         timesteps = BENCH_SAMPLES * (3 + n_short + n_long) * k
-        n_blocks = (H.PRIOR_BLOCKS[dtype]
-                    if rec["schedule"].startswith("blocks") else 1)
+        n_blocks = max(1, S)
         per_step[path] = {"stencil2d_iterate": check_per_timestep(
             path, "stencil2d_iterate", counts[path]["stencil2d_iterate"],
             timesteps, n_blocks / k)}
@@ -2049,7 +2100,8 @@ def run_main_path(device):
     # adds one iterate launch per call); the derivative: dim × buf = 4
     # tests of n_warmup + n_iter iterations, one launch each
     k = 4
-    n_blocks = H.PRIOR_BLOCKS["float32"]
+    S = priors.bench_blocks("float32")
+    n_blocks = S if S >= 2 and REF_N_LOCAL % S == 0 else 1
     # the fused == chained gate's chained tier exchanges the iterate leg's
     # operand through ring_halo
     check_routes(path, "ring_halo", ring_routes(
@@ -2100,6 +2152,7 @@ def run_main_path(device):
     recs["attention"] = run_attention_slice(device, counts, peaks)
     recs["one_card"] = run_one_card_slice(device, counts, peaks)
     recs["overlap"] = run_overlap_slice(device, counts, per_step, peaks)
+    recs["tune"] = run_tune_slice(device, counts, peaks)
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -2121,6 +2174,280 @@ def run_main_path(device):
     log(f"LAUNCHES_PER_TIMESTEP {json.dumps(per_step)}")
     log(f"PEAK_BYTES {json.dumps(peaks)}")
     return counts, per_step, recs
+
+
+#: the tune slice: the sweep budget of each --tune run (seconds)
+TUNE_BUDGET_S = 60
+
+
+def iterate_leg_want(tier: str, it: int, n_blocks: int) -> dict:
+    """Exact launches of the stencil2d driver's iterate leg under ``tier``
+    (with no sweep): the timed leg (1 warm + ``it`` calls of the tier:
+    ``n_blocks`` iterate launches a call on resident blocks, one on the
+    single buffer), the fused == chained gate (``it`` fused, ``it``
+    chained: ring_halo + iterate) and the OVERLAP probe (1 + ``it`` fused
+    and compute-only fused calls)."""
+    timed = {"blocks": {"stencil2d_iterate": max(1, n_blocks)},
+             "rdma-chained": {"ring_halo": 1, "stencil2d_iterate": 1},
+             "rdma-fused": {"stencil2d_fused_rdma": 1}, "xla": {}}[tier]
+    want = {"ring_halo": it, "stencil2d_iterate": it,
+            "stencil2d_fused_rdma": it + 2 * (1 + it)}
+    for name, per_call in timed.items():
+        want[name] += per_call * (1 + it)
+    return want
+
+
+def _jsonl_records(path: str, kind: str) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("kind") == kind]
+
+
+def _iterate_bits(path: str) -> int:
+    (rec,) = _jsonl_records(path, "iterate_gate")
+    return rec["bits"]
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(map(torch.equal, a, b))
+
+
+def run_tune_slice(device, counts, peaks):
+    """The schedule plane on the card, each path alone (``tune/``):
+
+    * ``stencil2d --kernel auto --iterate-tier auto --tune`` at the
+      reference sizes: every tier candidate measured on the card (or
+      declined with its reason, never skipped by the budget), the winner
+      stored; then the same run on the cache without ``--tune``: a
+      ``tune_hit``, no sweep, the winner's launches exact, its iterate
+      field equal bit for bit to the sweep run's and to the explicit
+      winner's (``iterate_gate`` records);
+    * the bench at 8192² in float32 and bfloat16 under
+      ``TPU_MPI_BENCH_TUNE=1`` on a fresh cache: the resolved schedule
+      printed, its final state equal bit for bit to the explicit
+      schedule's, and a resolution without the variable served by the
+      cache;
+    * ``stencil1d --staging auto --tune`` at 32 Mi points, ``heat2d
+      --kernel auto --overlap auto`` at 8192², and stencil2d's
+      ``--fused --debug-dump`` and ``--managed`` legs at the reference
+      sizes, each with exact launches;
+    * a pack of the stencil2d cache (``python -m
+      tpu_mpi_tests_torch.tune.pack``), imported into a fresh cache
+      entry for entry, and preloaded by ``--tune-pack`` into a run with
+      no cache file: a cache hit on the same field.
+
+    Returns the bench records."""
+    import torch
+
+    from tpu_mpi_tests_torch import bench
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import heat2d, stencil1d, stencil2d
+    from tpu_mpi_tests_torch.tune import cache as tcache
+    from tpu_mpi_tests_torch.tune import priors
+    from tpu_mpi_tests_torch.tune.fingerprint import fingerprint
+
+    tmp = tempfile.mkdtemp(prefix="smoke_tune_")
+    cache = os.path.join(tmp, "tune.json")
+    it = DRIVER_ITERATE_ITERS
+    base = ["--device", device.type, "--n-local", str(REF_N_LOCAL),
+            "--n-other", str(REF_N_OTHER)]
+    leg = base + ["--iterate-tier", "auto", "--iterate-steps", "4",
+                  "--iterate-iters", str(it)]
+    matrix = ["--n-iter", str(DRIVER_N_ITER), "--n-warmup",
+              str(DRIVER_N_WARMUP)]
+    derivs = 4 * (DRIVER_N_WARMUP + DRIVER_N_ITER)
+
+    path = "stencil2d --tune"
+    jl = {name: os.path.join(tmp, f"{name}.jsonl")
+          for name in ("sweep", "hit", "explicit", "pack")}
+    counts[path] = drive_driver(
+        path, stencil2d, leg + matrix + [
+            "--kernel", "auto", "--tune", "--tune-budget",
+            str(TUNE_BUDGET_S), "--tune-cache", cache, "--jsonl",
+            jl["sweep"]],
+        ["stencil2d_iterate", "stencil2d_fused_rdma", "ring_halo"],
+        ("TUNE stencil/tier winner=", "TEST dim:0", "TEST dim:1",
+         "ITER ERR rel="), peaks)
+    cands = [r for r in _jsonl_records(jl["sweep"], "tune")
+             if r["knob"] == "stencil/tier"]
+    for r in cands:
+        log(f"  SWEEP stencil/tier {r['candidate']}: "
+            f"{r.get('seconds')} s/timestep {r.get('error', '')}")
+        if r.get("skipped") or (r.get("seconds") is None
+                                and not r.get("error")):
+            raise SmokeFailure(f"{path}: candidate {r['candidate']} was "
+                               f"neither measured nor declined: {r}")
+    if [r["candidate"] for r in cands] != list(
+            H.stencil_tier_candidates("float32")):
+        raise SmokeFailure(f"{path}: swept {[r['candidate'] for r in cands]}")
+    (result,) = [r for r in _jsonl_records(jl["sweep"], "tune_result")
+                 if r["knob"] == "stencil/tier"]
+    winner = result["value"]
+    stored = tcache.ScheduleCache.load(cache).lookup(
+        "stencil/tier", fingerprint(dtype="float32", n=REF_N_LOCAL,
+                                    world=1))
+    if stored != winner:
+        raise SmokeFailure(f"{path}: the cache holds {stored!r}, the sweep "
+                           f"chose {winner!r}")
+    log(f"TUNE stencil/tier at {REF_N_LOCAL}x{REF_N_OTHER} float32: winner "
+        f"{winner} ({result['seconds']} s a timestep)")
+
+    n_blocks = priors.bench_blocks("float32")
+    want = iterate_leg_want(winner, it, n_blocks if REF_N_LOCAL % max(
+        1, n_blocks) == 0 else 0)
+    if winner != "xla":  # --kernel auto: every hand tier maps to hand
+        want["stencil2d_deriv"] = derivs
+    path = "stencil2d tuned (cache hit)"
+    counts[path] = drive_driver(
+        path, stencil2d, leg + matrix + [
+            "--kernel", "auto", "--tune-cache", cache, "--jsonl",
+            jl["hit"]], [n for n, c in want.items() if c],
+        ("TUNE stencil/tier cache-hit", f"ITER tier={winner} ",
+         "NOTE --kernel auto -> "), peaks)
+    if "winner=" in DRIVER_TEXT[path]:
+        raise SmokeFailure(f"{path}: swept on a cache hit")
+    _exact(path, counts[path], want)
+
+    path = f"stencil2d --iterate-tier {winner} (explicit)"
+    counts[path] = drive_driver(
+        path, stencil2d, base + [
+            "--iterate-tier", winner, "--iterate-steps", "4",
+            "--iterate-iters", str(it), "--iterate-only", "--jsonl",
+            jl["explicit"]], [], (f"ITER tier={winner} ",), peaks)
+    _exact(path, counts[path], iterate_leg_want(winner, it, n_blocks))
+    bits = {name: _iterate_bits(jl[name])
+            for name in ("sweep", "hit", "explicit")}
+    if len(set(bits.values())) != 1:
+        raise SmokeFailure(f"the tuned iterate fields differ from the "
+                           f"explicit winner's: {bits}")
+    log(f"TUNE the tuned runs' iterate field equals the explicit "
+        f"{winner} run's bit for bit (bits {bits['explicit']})")
+
+    # the pack round trip, then a run that has only the pack
+    pack = os.path.join(tmp, "pack.json")
+    fresh = os.path.join(tmp, "imported.json")
+    for argv in (["pack", "--cache", cache, "-o", pack],
+                 ["import", pack, "--cache", fresh]):
+        out = subprocess.run(
+            [sys.executable, "-m", "tpu_mpi_tests_torch.tune.pack", *argv],
+            capture_output=True, text=True, timeout=120)
+        log(f"PACK {' '.join(argv[:1])}: {out.stdout.strip()}")
+        if out.returncode:
+            raise SmokeFailure(f"tune.pack {argv[0]} failed: {out.stderr}")
+    if tcache.ScheduleCache.load(fresh).entries != \
+            tcache.ScheduleCache.load(cache).entries:
+        raise SmokeFailure("the imported pack differs from its cache")
+    path = "stencil2d --tune-pack"
+    counts[path] = drive_driver(
+        path, stencil2d, leg + [
+            "--iterate-only", "--tune-pack", pack, "--tune-cache",
+            os.path.join(tmp, "none.json"), "--jsonl", jl["pack"]],
+        [], ("TUNE PACK ", "TUNE stencil/tier cache-hit",
+             f"ITER tier={winner} "), peaks)
+    _exact(path, counts[path], iterate_leg_want(winner, it, n_blocks))
+    if _iterate_bits(jl["pack"]) != bits["explicit"]:
+        raise SmokeFailure(f"{path}: the iterate field differs")
+
+    # the bench: sweeps on a fresh cache, then the explicit schedule
+    os.environ.update({
+        "TPU_MPI_BENCH_N": str(BENCH_N),
+        "TPU_MPI_BENCH_ITERS_SHORT": str(BENCH_ITERS_SHORT),
+        "TPU_MPI_BENCH_ITERS_LONG": str(BENCH_ITERS_LONG),
+        "TPU_MPI_BENCH_SAMPLES": str(BENCH_SAMPLES),
+        "TPU_MPI_BENCH_TUNE": "1",
+        "TPU_MPI_TUNE_CACHE": os.path.join(tmp, "bench.json")})
+    recs = {}
+    for dtype in ("float32", "bfloat16"):
+        path = f"bench {dtype} TPU_MPI_BENCH_TUNE=1"
+
+        def run_tuned():
+            err = io.StringIO()
+            bench.configure_tuning()
+            with contextlib.redirect_stderr(err):
+                rec, state = bench.run_dtype(dtype, n=BENCH_N,
+                                             device=device)
+            return rec, state, err.getvalue()
+
+        (rec, state, err), counts[path] = drive_path(
+            path, run_tuned, ["stencil2d_iterate"], peaks)
+        sched = [ln for ln in err.splitlines()
+                 if ln.startswith("SCHEDULE bench")]
+        for line in err.splitlines():
+            if line.startswith("{"):
+                r = json.loads(line)
+                log(f"  SWEEP {r['knob']} {r.get('candidate', '')} "
+                    f"{r['kind']} {r.get('value', '')} "
+                    f"{r.get('seconds')} {r.get('error', '')}")
+        log(f"BENCH TUNE {dtype}: {sched} {json.dumps(rec)}")
+        if len(sched) != 1 or "(sweep)" not in sched[0]:
+            raise SmokeFailure(f"{path}: no swept schedule: {sched}")
+        m = rec["schedule"].split("_")[0]
+        S = int(m[len("blocks"):]) if m.startswith("blocks") else 0
+        rec2, state2 = bench.measure_schedule(
+            dtype, n=BENCH_N, steps=rec["steps"], device=device,
+            n_blocks=S, tier=rec["tier"])
+        if rec2["schedule"] != rec["schedule"] or \
+                not _states_equal(state, state2):
+            raise SmokeFailure(f"{path}: the tuned bench's state differs "
+                               f"from the explicit schedule's "
+                               f"({rec2['schedule']})")
+        del state, state2
+        os.environ["TPU_MPI_BENCH_TUNE"] = "0"
+        bench.configure_tuning()
+        again = bench.resolve_schedule(dtype, n=BENCH_N, device=device)
+        os.environ["TPU_MPI_BENCH_TUNE"] = "1"
+        if again["tier"] != rec["tier"] or again["source"]["tier"] != \
+                "cache":
+            raise SmokeFailure(f"{path}: the cache does not serve the "
+                               f"winner: {again}")
+        log(f"BENCH TUNE {dtype}: state equals the explicit "
+            f"{rec['schedule']} run bit for bit; cached {again}")
+        recs[dtype] = rec
+        torch.cuda.empty_cache()
+    for var in [v for v in os.environ if v.startswith("TPU_MPI_BENCH_")]:
+        del os.environ[var]
+
+    path = "stencil1d --staging auto --tune"
+    counts[path] = drive_driver(
+        path, stencil1d, ["--device", device.type, "--n-global",
+                          str(STENCIL1D_N), "--dtype", "float32",
+                          "--staging", "auto", "--tune", "--tune-cache",
+                          cache], ["ring_halo"],
+        ("TUNE halo/staging winner=", "TUNE halo/staging resolved -> ",
+         "err_norm = "), peaks)
+
+    path = "heat2d --kernel auto --overlap auto"
+    counts[path] = drive_driver(
+        path, heat2d, ["--device", device.type, "--kernel", "auto",
+                       "--overlap", "auto", "--mesh", "1,1", "--nx-local",
+                       str(GRID_N), "--ny-local", str(GRID_N), "--n-steps",
+                       str(HEAT_N_STEPS), "--halo-steps", "1",
+                       "--tune-cache", cache], ["heat2d"],
+        ("NOTE --kernel auto -> hand (stencil/tier "
+         f"{priors.stencil_tier('float32')})",
+         "OVERLAP heat2d depth resolved -> 1", "HEAT ERR rel="), peaks)
+    _exact(path, counts[path], {"heat2d": HEAT_N_STEPS})
+
+    path = "stencil2d --fused --debug-dump"
+    counts[path] = drive_driver(
+        path, stencil2d, base + matrix + ["--fused", "--debug-dump"], [],
+        ("SKIP dim:0, device, buf:1: --fused supports only",
+         "TEST dim:1, device , buf:0; fused=", "DEBUG rank 0 lo ghost+edge:",
+         "DEBUG rank 0 hi ghost+edge:"), peaks)
+    _exact(path, counts[path], {})
+    path = "stencil2d --managed"
+    counts[path] = drive_driver(
+        path, stencil2d, base + matrix + ["--managed", "--kernel", "hand"],
+        ["stencil2d_deriv"], ("TEST dim:0, managed, buf:1;",
+                              "TEST dim:1, managed, buf:0; allreduce=",
+                              "MEMINFO dim:0, managed, buf:1: allocated "),
+        peaks)
+    _exact(path, counts[path], {"stencil2d_deriv": 2 * derivs})
+    return recs
+
 
 
 #: the overlap slice: pipeline rounds at full size, traced heat bodies,
@@ -3447,7 +3774,10 @@ def time_coll_kernels(device, gen):
 
 
 #: the NCCL leg's parts, in the order a rank runs them
-WORLD2_LEGS = ("rdma", "staged", "collectives", "attention", "grid")
+WORLD2_LEGS = ("rdma", "staged", "collectives", "attention", "grid",
+               "tune")
+#: the legs that run at world 4 too, where there are four cards
+WORLD4_LEGS = ("grid", "tune")
 #: the process grids the grid leg runs at each world
 GRID_LEG_GRIDS = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
 
@@ -3484,14 +3814,15 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
     with tempfile.TemporaryDirectory() as tmp:
         mp.spawn(_nccl_rank, args=(2, f"file://{tmp}/rendezvous",
                                    tuple(legs)), nprocs=2, join=True)
-    if "grid" in legs:
+    at4 = tuple(leg for leg in legs if leg in WORLD4_LEGS)
+    if at4:
         if n >= 4:
             with tempfile.TemporaryDirectory() as tmp:
                 mp.spawn(_nccl_rank, args=(4, f"file://{tmp}/rendezvous",
-                                           ("grid",)), nprocs=4, join=True)
+                                           at4), nprocs=4, join=True)
         else:
-            log(f"GRID leg world=4: not run — torch.cuda.device_count() is "
-                f"{n}, the 2x2 grid needs four cards")
+            log(f"{'/'.join(at4)} legs world=4: not run — "
+                f"torch.cuda.device_count() is {n}, they need four cards")
     done = {"rdma": f"fused == chained bit for bit over {RING_CHAIN} "
                     f"calls, the RDMA exchange equal to DIRECT on both "
                     f"ranks and both routes, {PAIR_RUNS} runs on fresh "
@@ -3509,7 +3840,12 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
             "grid": "the 1x2 and 2x1 grids (and 2x2 on four cards) equal "
                     "to rank 0's 1x1 run bit for bit, and their overlap "
                     "pipelines at depth 2 equal to depth 1 bit for bit "
-                    "and to the 1x1 run within JAX's tolerances"}
+                    "and to the 1x1 run within JAX's tolerances",
+            "tune": "stencil2d --iterate-tier auto --tune at world 2 (and "
+                    "4 on four cards): rank 0 swept stencil/tier, every "
+                    "rank ran its winner, only rank 0's cache was written, "
+                    "and the tuned, cache-hit and explicit runs' fields "
+                    "are equal bit for bit on every rank"}
     log("RDMA world=2 NCCL leg: " + "; ".join(done[leg] for leg in legs))
 
 
@@ -3544,8 +3880,86 @@ def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
             _nccl_attention(rank, world)
         if "grid" in legs:
             _nccl_grid(rank, world, gen)
+        if "tune" in legs:
+            _nccl_tune(rank, world,
+                       os.path.dirname(init_method[len("file://"):]))
     finally:
         dist.shutdown()
+
+
+def _nccl_tune(rank, world, tmp):
+    """The schedule plane over ``world`` ranks, one card each: ``stencil2d
+    --iterate-tier auto --tune`` at the reference sizes with a cache file
+    a rank (rank 0 sweeps the tiers and decides, every rank applies its
+    winner; only rank 0's file may be written), then the same run on the
+    caches without ``--tune`` (rank 0's hit decides), then the explicit
+    winner; each rank's iterate field must be the same bit for bit in the
+    three runs, and every rank must run one tier."""
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.drivers import stencil2d
+    from tpu_mpi_tests_torch.instrument.report import rank_suffixed_path
+    from tpu_mpi_tests_torch.tune import fleet
+
+    own = os.path.join(tmp, f"tune.r{rank}.json")
+    base = ["--device", dist.world().device.type, "--n-local", str(REF_N_LOCAL), "--n-other",
+            str(REF_N_OTHER), "--iterate-steps", "4", "--iterate-iters",
+            str(DRIVER_ITERATE_ITERS), "--iterate-only"]
+    texts, bits = {}, {}
+    for name, extra in (("sweep", ["--iterate-tier", "auto", "--tune",
+                                   "--tune-budget", str(TUNE_BUDGET_S),
+                                   "--tune-cache", own]),
+                        ("hit", ["--iterate-tier", "auto", "--tune-cache",
+                                 own]),
+                        ("explicit", None)):
+        if extra is None:
+            winner = fleet.bcast(
+                texts["sweep"].split("ITER tier=")[1].split()[0]
+                if rank == 0 else None, "smoke:winner")
+            extra = ["--iterate-tier", winner]
+        jl = os.path.join(tmp, f"{name}.jsonl")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = stencil2d.main(base + extra + ["--jsonl", jl])
+        texts[name] = out.getvalue()
+        if rc != 0 or "FAIL" in texts[name]:
+            raise SmokeFailure(f"tune leg world={world} rank {rank} {name}: "
+                               f"rc={rc}\n{texts[name]}")
+        bits[name] = _iterate_bits(rank_suffixed_path(jl, rank))
+    tiers = [None] * world
+    tdist.all_gather_object(tiers, {n: t.split("ITER tier=")[1].split()[0]
+                                    for n, t in texts.items()})
+    if len({json.dumps(t, sort_keys=True) for t in tiers}) != 1 or \
+            len(set(tiers[0].values())) != 1:
+        raise SmokeFailure(f"tune leg world={world}: the ranks ran "
+                           f"different tiers {tiers}")
+    if len(set(bits.values())) != 1:
+        raise SmokeFailure(f"tune leg world={world} rank {rank}: the tuned "
+                           f"fields differ from the explicit winner's {bits}")
+    if "TUNE stencil/tier cache-hit" not in texts["hit"] or \
+            "winner=" in texts["hit"]:
+        raise SmokeFailure(f"tune leg world={world} rank {rank}: the rerun "
+                           f"swept\n{texts['hit']}")
+    tdist.barrier()
+    written = [os.path.exists(os.path.join(tmp, f"tune.r{r}.json"))
+               for r in range(world)]
+    if written != [True] + [False] * (world - 1):
+        raise SmokeFailure(f"tune leg world={world}: cache files written "
+                           f"by ranks {written}")
+    if rank == 0:
+        for line in texts["sweep"].splitlines():
+            if line.startswith(("TUNE", "ITER")):
+                log(f"  TUNE leg world={world}: {line}")
+        for r in _jsonl_records(rank_suffixed_path(
+                os.path.join(tmp, "sweep.jsonl"), 0), "tune"):
+            log(f"  TUNE leg world={world}: SWEEP {r['knob']} "
+                f"{r['candidate']}: {r.get('seconds')} s/timestep "
+                f"{r.get('error', '')}")
+        log(f"TUNE leg world={world}: every rank ran {tiers[0]['sweep']}; "
+            f"only rank 0's cache written; fields equal bit for bit "
+            f"(rank 0 bits {bits['explicit']})")
+
 
 
 def _grid_leg_launches(name, run, want):
@@ -4223,6 +4637,9 @@ def run_rdma_slice(device, counts, per_step, peaks):
         ("stencil1d --staging pallas", 2)))
 
     recs = {}
+    # k = 4: the schedule the RDMA operand tables above describe
+    # (RING_MAIN_PATH, FUSED_MAIN_PATH)
+    os.environ["TPU_MPI_BENCH_STEPS"] = "4"
     for tier in ("rdma-chained", "rdma-fused"):
         os.environ["TPU_MPI_BENCH_TIER"] = tier
         for dtype in ("float32", "bfloat16"):
@@ -4255,6 +4672,7 @@ def run_rdma_slice(device, counts, per_step, peaks):
                 for name in kernels}
             recs[f"{tier} {dtype}"] = rec
     del os.environ["TPU_MPI_BENCH_TIER"]
+    del os.environ["TPU_MPI_BENCH_STEPS"]
     return recs
 
 
@@ -4605,11 +5023,13 @@ def time_kernels(device):
                 "library_call": "F.conv2d (2,1,5,5) cross weight, TF32 off; "
                                 "both derivatives, no residual"}
 
-    # one row per distinct schedule: bench f32 block 0, bench bf16, the
-    # driver's periodic block, rdma-chained's f32 dim-1 buffer, microbench
+    # one row per distinct schedule: the bench's f32 and bf16 operands
+    # (the first block's where it runs resident blocks), the driver's
+    # periodic block, rdma-chained's f32 dim-1 buffer (k = 4), microbench
     # iterate's bf16 k = 1 field (rows of 16392 bytes: 8-byte vectors)
     rows["stencil2d_iterate"] = []
-    for case in [iterate_cases()[i] for i in (0, 2, 3)] + [
+    firsts = list({c[0]: c for c in reversed(iterate_cases())}.values())
+    for case in firsts[::-1] + [
             ("bench rdma-chained float32", (BENCH_N, BENCH_N + 2 * K4),
              torch.float32, 1, (1, 1), BENCH_SE),
             ("microbench iterate bfloat16 k=1", (BENCH_N, BENCH_N + 4),

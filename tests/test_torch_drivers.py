@@ -39,6 +39,7 @@ from tpu_mpi_tests_torch.convert import array_from_jax, state_from_jax
 from tpu_mpi_tests_torch.drivers import stencil2d
 from tpu_mpi_tests_torch.instrument.report import Reporter
 from tpu_mpi_tests_torch.utils import TpuMtError
+from tpu_mpi_tests_torch.tune import priors as tpriors
 
 SMALL = ["--device", "cpu", "--n-local", "32", "--n-other", "64",
          "--n-iter", "3", "--n-warmup", "2"]
@@ -132,7 +133,8 @@ def test_stencil2d_iterate_leg_eigen_gate(capsys, tier, steps):
 def test_stencil2d_rejects_unported_and_bad_arguments():
     for argv in (["--iterate-tier", "fused"], ["--iterate-only"],
                  ["--n-local", "3"], ["--n-iter", "0"],
-                 ["--kernel", "pallas"]):
+                 ["--kernel", "pallas"], ["--fused", "--kernel", "hand"],
+                 ["--fused", "--kernel", "auto"], ["--fused", "--rdma"]):
         with pytest.raises(SystemExit):
             stencil2d.main(["--device", "cpu"] + argv)
 
@@ -154,11 +156,12 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert rec["metric"] == "stencil2d_fullstep_8192_iters_per_s"
     assert set(rec) == {"metric"} | PER_DTYPE | {"bfloat16"}
     assert set(rec["bfloat16"]) == PER_DTYPE
-    assert rec["schedule"] == "blocks2_dim0_world1_float32_ov1_blocks_h1x1"
+    # the card's priors: the dim-1 single buffer at k=8 in both dtypes
+    assert rec["schedule"] == "dim1_world1_float32_ov1_blocks_h1x1"
     assert rec["bfloat16"]["schedule"] == \
         "dim1_world1_bfloat16_ov1_blocks_h1x1"
     for r in (rec, rec["bfloat16"]):
-        assert r["tier"] == "blocks" and r["steps"] == 4
+        assert r["tier"] == "blocks" and r["steps"] == 8
         assert r["topology"] == "h1x1" and r["unit"] == "iter/s"
         assert r["value"] > 0 and len(r["samples"]) == 2
 
@@ -185,9 +188,22 @@ def test_bench_xla_tier_and_rdma_refusal(monkeypatch, capsys):
 
 
 def test_bench_priors_are_the_jax_packages():
-    assert TH.PRIOR_BLOCKS == priors.BENCH_BLOCKS
-    assert TH.PRIOR_STEPS == priors.BENCH_STEPS
-    assert TH.PRIOR_TIER == priors.STENCIL_TIER
+    """The port's priors are the JAX package's knobs with the card's
+    values (``tune/priors.py``): the same dtypes and knobs, each value one
+    the JAX space admits, and the port's spaces lead with them."""
+    assert set(tpriors.BENCH_BLOCKS) == set(priors.BENCH_BLOCKS)
+    assert set(tpriors.STENCIL_TIER) == set(priors.BENCH_BLOCKS)
+    assert all(v in JH.STENCIL_TIER_SPACE.candidates
+               for v in tpriors.STENCIL_TIER.values())
+    assert all(v in JH.STENCIL_BLOCKS_SPACE.candidates
+               for v in tpriors.BENCH_BLOCKS.values())
+    assert tpriors.BENCH_STEPS in JH.STENCIL_STEPS_SPACE.candidates
+    assert tpriors.HALO_STAGING == priors.HALO_STAGING
+    assert tpriors.HALO_OVERLAP_DEPTH == priors.HALO_OVERLAP_DEPTH
+    assert TH.STENCIL_TIER_SPACE.prior == tpriors.STENCIL_TIER["float32"]
+    assert TH.STENCIL_BLOCKS_SPACE.prior == tpriors.BENCH_BLOCKS["float32"]
+    assert TH.STENCIL_STEPS_SPACE.prior == tpriors.BENCH_STEPS
+    assert not hasattr(TH, "PRIOR_BLOCKS")  # no TPU prior in comm/halo.py
 
 
 def test_bench_f32_blocks_schedule_matches_jax():

@@ -2039,3 +2039,60 @@ def test_bench_overlap_schedule_on_card(card, monkeypatch, capsys):
     rec = bench.main(["--device", "cuda"])
     assert "_ov1_" in rec["schedule"]
     assert "NOTE overlap depth 2 not applicable" in capsys.readouterr().err
+
+
+def test_tune_fingerprint_on_card(card):
+    from tpu_mpi_tests_torch.tune import fingerprint as tfp
+
+    fields = dict(tfp.device_fields())
+    assert fields["platform"] == "gpu" and fields["stack"] == "torch"
+    assert fields["device"] == torch.cuda.get_device_name(0).replace(
+        ";", ",")
+    assert fields["ndev"] == fields["procs"] == "1"
+
+
+def test_stencil2d_tier_tune_then_hit_on_card(card, capsys, tmp_path,
+                                              monkeypatch):
+    """``--iterate-tier auto --tune`` measures every tier on the card (each
+    a chain timed by CUDA events), stores the winner, and a rerun on the
+    cache sweeps nothing and runs it to the same field."""
+    monkeypatch.delenv("TPU_MPI_TUNE_CACHE", raising=False)
+    from tpu_mpi_tests_torch.drivers import stencil2d
+
+    cache = tmp_path / "tune.json"
+    argv = ["--n-local", "256", "--n-other", "1024", "--iterate-steps", "4",
+            "--iterate-iters", "3", "--iterate-only", "--iterate-tier",
+            "auto", "--tune-cache", str(cache)]
+    assert stencil2d.main(argv + ["--tune"]) == 0
+    swept = capsys.readouterr().out
+    assert "measured=4 skipped=0" in swept and "FAIL" not in swept
+    assert cache.exists()
+    hand.reset_launch_counts()
+    assert stencil2d.main(argv) == 0
+    hit = capsys.readouterr().out
+    assert "TUNE stencil/tier cache-hit" in hit and "winner=" not in hit
+    tier = W.tune_winner(swept)
+    assert W.tune_winner(hit) == tier
+    rel = [ln for ln in swept.splitlines() if ln.startswith("ITER ERR")]
+    assert rel == [ln for ln in hit.splitlines()
+                   if ln.startswith("ITER ERR")]
+
+
+def test_bench_tune_on_card(card, monkeypatch, capsys, tmp_path):
+    for var in [v for v in __import__("os").environ
+                if v.startswith("TPU_MPI_BENCH_")]:
+        monkeypatch.delenv(var)
+    for var, val in (("N", "512"), ("SECOND_DTYPE", "none"),
+                     ("ITERS_SHORT", "8"), ("ITERS_LONG", "64"),
+                     ("SAMPLES", "1"), ("TUNE", "1")):
+        monkeypatch.setenv(f"TPU_MPI_BENCH_{var}", val)
+    monkeypatch.setenv("TPU_MPI_TUNE_CACHE", str(tmp_path / "tune.json"))
+    from tpu_mpi_tests_torch import bench
+
+    rec = bench.main(["--device", "cuda"])
+    err = capsys.readouterr().err
+    assert "(sweep)" in err and rec["value"] > 0
+    monkeypatch.delenv("TPU_MPI_BENCH_TUNE")
+    rec2 = bench.main(["--device", "cuda"])
+    err = capsys.readouterr().err
+    assert "(cache)" in err and rec2["schedule"] == rec["schedule"]

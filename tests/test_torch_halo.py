@@ -51,12 +51,19 @@ def test_halo_exchange_matches(mesh1, axis, periodic, staging):
 
 
 def test_staging_rejects_unported_modes():
+    """Every JAX staging mode parses, ``auto`` included (it resolves
+    through the schedule cache: DIRECT with none, as in the JAX package);
+    an unknown mode raises."""
     assert TH.Staging.parse("pallas") is TH.Staging.PALLAS_RDMA
     assert TH.Staging.parse("PALLAS") is TH.Staging.PALLAS_RDMA
     with pytest.raises(TpuMtError):
         TH.Staging.parse("bogus")
-    with pytest.raises(TpuMtError):
-        TH.Staging.parse("auto")
+    assert TH.Staging.parse("auto") is TH.Staging.AUTO
+    assert [m.value for m in TH.Staging] == [m.value for m in JH.Staging]
+    z = torch.zeros((14, 11))
+    assert TH.resolve_staging("auto", z, 0, 1) is TH.Staging.DIRECT
+    assert TH.resolve_staging("device", z, 0, 1) is \
+        TH.Staging.DEVICE_STAGED
 
 
 @pytest.mark.parametrize("axis", [0, 1])

@@ -124,12 +124,21 @@ def test_mi_units_and_jsonl(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--staging", "auto"], "queue 1 item 17"),
-    (["--tune"], "queue 1 item 17"),
-])
-def test_unported_options_raise_naming_the_roadmap(argv, item):
-    with pytest.raises(TpuMtError, match=item):
-        stencil1d.main(["--device", "cpu", "--n-global", "4096", *argv])
+    (["--staging", "auto"], "TUNE halo/staging resolved -> direct"),
+    (["--tune", "--staging", "auto"],
+     "TUNE halo/staging resolved -> "),
+], ids=["staging-auto", "tune"])
+def test_unported_options_raise_naming_the_roadmap(argv, item, capsys,
+                                                   tmp_path):
+    """The options that once raised (the schedule plane is ported):
+    ``--staging auto`` resolves the cache's winner, else DIRECT; under
+    ``--tune`` a miss sweeps the staging candidates and stores one."""
+    cache = tmp_path / "tune.json"
+    rc = stencil1d.main(["--device", "cpu", "--n-global", "4096",
+                         "--tune-cache", str(cache), *argv])
+    out = capsys.readouterr().out
+    assert rc == 0 and item in out and "FAIL" not in out
+    assert cache.exists() == ("--tune" in argv)
 
 
 def test_pallas_staging_runs_the_rdma_ring(capsys):

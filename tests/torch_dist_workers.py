@@ -912,8 +912,96 @@ def suite_overlap(rank, world, out_dir):
               ["--device", "cpu"] + OV_STENCIL1D_ARGV)
 
 
+#: the stencil2d driver's iterate leg, small, in float64 (the tune suite)
+TUNE_DRIVER_ARGV = ["--n-local", "24", "--n-other", "16", "--iterate-steps",
+                    "2", "--iterate-iters", "3", "--iterate-only",
+                    "--dtype", "float64"]
+#: the fleet sweep's stubbed per-candidate seconds on rank 0; every other
+#: rank measures 10 − these, so its own argmin would be another candidate
+TUNE_TIMINGS = {"blocks": 3.0, "rdma-chained": 1.0, "rdma-fused": 2.0,
+                "xla": 4.0}
+
+
+def tune_winner(text: str) -> str:
+    """The tier a stencil2d run's iterate leg ran (its ``ITER tier=``)."""
+    import re
+
+    return re.search(r"^ITER tier=(\S+)", text, re.M).group(1)
+
+
+def suite_tune(rank, world, out_dir):
+    """The schedule plane over the ranks: ``fleet.bcast``, a fleet sweep
+    whose stubbed measures differ by rank, the budget cut and the hit
+    decision broadcast from rank 0, the one cache writer, ``stencil2d
+    --iterate-tier auto --tune`` (then a cache-hit rerun and the explicit
+    winner), and a broadcast rank 0 never answers."""
+    import importlib
+
+    from tpu_mpi_tests_torch.drivers import stencil2d
+    from tpu_mpi_tests_torch.tune import fleet, registry
+
+    sweep = importlib.import_module("tpu_mpi_tests_torch.tune.sweep")
+    res = {"count": [fleet.process_count(), fleet.process_index()],
+           "bcast": fleet.bcast({"from": rank, "v": [1, 2]}
+                                if rank == 0 else None, "t:bcast")}
+
+    own = os.path.join(out_dir, f"tc.r{rank}.json")
+    registry.configure(cache_path=own, enabled=True)
+    res["read_only"] = registry.configured_cache().read_only
+    recs = []
+    res["winner"] = sweep.sweep(
+        "demo/fleet", lambda c: (TUNE_TIMINGS[c] if rank == 0
+                                 else 10.0 - TUNE_TIMINGS[c]),
+        candidates=tuple(TUNE_TIMINGS), emit=recs.append, dtype="float64")
+    res["records"] = recs
+
+    measured, recs = [], []
+
+    def measure(c):
+        measured.append(c)
+        return 1.0
+
+    res["budget_winner"] = sweep.sweep(
+        "demo/budget", measure, candidates=("p", "x", "y"), budget_s=0.0,
+        emit=recs.append)
+    res["budget_measured"], res["budget_records"] = measured, recs
+    # rank 0's cache holds demo/fleet; every other rank's is empty
+    measured, recs = [], []
+    res["hit"] = sweep.ensure_tuned(
+        "demo/fleet", measure, candidates=tuple(TUNE_TIMINGS),
+        emit=recs.append, dtype="float64")
+    res["hit_measured"], res["hit_records"] = measured, recs
+    registry.deconfigure()
+
+    tc = os.path.join(out_dir, f"drv.r{rank}.json")
+    argv = ["--device", "cpu", *TUNE_DRIVER_ARGV, "--tune-cache", tc]
+    _run_main(out_dir, "tune_sweep", rank, stencil2d.main,
+              argv + ["--iterate-tier", "auto", "--tune"])
+    _run_main(out_dir, "tune_hit", rank, stencil2d.main,
+              argv + ["--iterate-tier", "auto"])
+    winner = fleet.bcast(tune_winner(read_text(out_dir, "tune_sweep", 0))
+                         if rank == 0 else None, "t:winner")
+    _run_main(out_dir, "tune_explicit", rank, stencil2d.main,
+              argv + ["--iterate-tier", winner])
+
+    # a broadcast rank 0 never answers (it posts under another tag) raises
+    # on the others, naming their tag
+    os.environ["TPU_MPI_FLEET_TIMEOUT_S"] = "1"
+    tag = "answered" if rank == 0 else "lonely"
+    try:
+        res["timeout"] = fleet.bcast(rank, tag)
+    except TimeoutError as e:
+        res["timeout"] = str(e)
+    finally:
+        del os.environ["TPU_MPI_FLEET_TIMEOUT_S"]
+    tdist.barrier()
+    with open(os.path.join(out_dir, f"tune_results.r{rank}.txt"), "w") as f:
+        json.dump(res, f)
+
+
 SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
           "ring": suite_ring, "symm_one_card": suite_symm_one_card,
-          "grid": suite_grid, "overlap": suite_overlap}
+          "grid": suite_grid, "overlap": suite_overlap,
+          "tune": suite_tune}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

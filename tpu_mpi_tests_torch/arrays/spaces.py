@@ -1,5 +1,6 @@
 """Memory spaces: device / managed / pinned-host memory (≅
-``tpu_mpi_tests/arrays/spaces.py``).
+``tpu_mpi_tests/arrays/spaces.py``), with its allocation report,
+:func:`nbytes_report`.
 
 The reference's memory-space axis is ``cudaMalloc`` vs
 ``cudaMallocManaged`` vs ``cudaMallocHost`` (``mpi_daxpy_nvtx.cc:178-198``,
@@ -95,3 +96,15 @@ def meminfo(x) -> str:
         f"dtype={str(x.dtype).removeprefix('torch.')} "
         f"shape={tuple(x.shape)}"
     )
+
+
+def nbytes_report(*arrays) -> str:
+    """Rank-0 style allocation report (≅ the JAX ``nbytes_report``, the
+    reference's cudaMemGetInfo print, ``mpi_daxpy_nvtx.cc:201-205``, and
+    its device-bytes estimate, ``mpi_stencil2d_sycl.cc:454-465``)."""
+    total = sum(
+        a.numel() * a.element_size() if isinstance(a, torch.Tensor)
+        else np.asarray(a).nbytes
+        for a in arrays
+    )
+    return f"allocated {len(arrays)} arrays, {total / 2**20:.1f} MiB total"

@@ -8,14 +8,18 @@ stencil update, the ``mpi_stencil2d_gt.cc:511-535`` hot loop — on an
 
 Each rank holds its block of rows (dim 0) or columns (dim 1) of the
 domain; the world comes from the process group (``comm.dist``: torchrun
-or ``native/tpumt_run``), one rank per card. Default schedules (the JAX
-package's shipped priors, read from ``comm/halo.py``; the tune cache is
-not ported):
-
-* float32: the ``blocks`` tier on S=2 resident row blocks at k=4 — two
-  launches of the hand k-step kernel per 4 timesteps, dim 0;
-* bfloat16 (measured second, nested under its name): the dim-1 single
-  buffer at k=4 — one launch per 4 timesteps.
+or ``native/tpumt_run``), one rank per card. The schedule — kernel tier,
+resident-block count S, temporal-blocking depth k, halo pipeline depth —
+resolves per dtype (float32 first, bfloat16 second, nested under its
+name) explicit environment variable > the schedule cache's winner (the
+cache loads when ``TPU_MPI_BENCH_TUNE`` is set or the cache file,
+``TPU_MPI_TUNE_CACHE`` else ``~/.cache/tpumt/tune.json``, exists) > the
+card's measured priors (``tune/priors.py``). ``TPU_MPI_BENCH_TUNE=1``
+sweeps the tier, then (for the ``blocks`` tier) the block count, on a
+cache miss and stores the winners (≅ the root ``bench.py:301-400``); the
+sweep records go to stderr as JSON lines, and a ``SCHEDULE bench`` line
+on stderr names each dtype's resolved schedule and where each knob came
+from (explicit, cache, sweep or prior).
 
 The same ``TPU_MPI_BENCH_*`` variables as the root bench select the run:
 ``_N``, ``_DTYPE``, ``_SECOND_DTYPE``, ``_STEPS``, ``_BLOCKS``, ``_TIER``
@@ -43,6 +47,7 @@ import argparse
 import json
 import os
 import statistics
+import sys
 
 import numpy as np
 import torch
@@ -56,6 +61,10 @@ from tpu_mpi_tests_torch.drivers._common import TORCH_DTYPES, decline_note
 from tpu_mpi_tests_torch.instrument.timers import chain_rate
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
+from tpu_mpi_tests_torch.tune import cache as _tc
+from tpu_mpi_tests_torch.tune import fleet
+from tpu_mpi_tests_torch.tune import registry as _tr
+from tpu_mpi_tests_torch.tune.sweep import sweep as _sweep
 from tpu_mpi_tests_torch.utils import check_divisible
 
 METRIC = "stencil2d_fullstep_8192_iters_per_s"
@@ -102,27 +111,156 @@ def build_schedule(dtype_name: str, *, n: int, steps: int, n_blocks: int,
     return run, zg, False, bench_dim
 
 
-def resolve_overlap(env_val: "str | None") -> int:
+def resolve_overlap(env_val: "str | None", **ctx) -> int:
     """The bench's halo pipeline depth (≅ the root bench's
     ``_resolve_overlap``): ``TPU_MPI_BENCH_OVERLAP`` clamped to [1, 2],
-    else the prior (1; the schedule cache is not ported)."""
+    else the cached winner, else the prior (1)."""
     if env_val is not None:
         return max(1, min(int(env_val), 2))
-    return H.HALO_OVERLAP_DEPTH
+    return H.resolve_overlap_depth(None, **ctx)
+
+
+def _tune_emit(rec) -> None:
+    # stdout stays the one JSON result line; sweep records go to stderr
+    print(json.dumps(rec), file=sys.stderr, flush=True)
+
+
+def _tier_refusal(tier: str, *, n: int, steps: int) -> "str | None":
+    """Why ``tier`` cannot run at this geometry and world, or None."""
+    if tier.startswith("rdma"):
+        why = H.rdma_refusal()
+        if why is not None:
+            return why
+    if tier == "rdma-fused":
+        try:
+            hand.fused_block_rows(n // dist.world().size + 2 * N_BND * steps,
+                                  steps)
+        except ValueError as e:
+            return str(e)
+    return None
+
+
+def _chain_seconds(dtype_name, *, n, steps, n_blocks, tier, device):
+    """Per-timestep seconds of one candidate schedule (a short chain)."""
+    run, state, _, _ = build_schedule(dtype_name, n=n, steps=steps,
+                                      n_blocks=n_blocks, tier=tier,
+                                      device=device)
+    sec, state = chain_rate(run, state, n_short=5, n_long=55)
+    del state
+    return sec / steps
+
+
+def _sweep_on_miss(knob: str, **ctx) -> bool:
+    """Whether to sweep ``knob``: ``TPU_MPI_BENCH_TUNE`` armed the
+    registry and rank 0's cache has no entry. Over several ranks rank 0
+    decides and broadcasts, so that every rank enters the sweep's
+    exchanges together."""
+    if not _tr.tuning_enabled():
+        return False
+    miss = _tr.lookup(knob, device_fallback=False, **ctx) is None
+    return bool(fleet.bcast(miss if fleet.process_index() == 0 else None,
+                            f"bench:{knob}:miss"))
+
+
+def resolve_schedule(dtype_name: str, *, n: int, device,
+                     steps_env: "str | None" = None,
+                     blocks_env: "str | None" = None,
+                     tier_env: "str | None" = None,
+                     overlap_env: "str | None" = None) -> dict:
+    """One dtype's schedule, each knob explicit env > cached winner >
+    prior, with the on-miss sweeps of ``TPU_MPI_BENCH_TUNE`` (≅ the root
+    bench's ``_measure``). Returns ``{tier, steps, n_blocks, ov_depth,
+    source}``; ``source`` says where each knob came from. Over several
+    ranks every rank runs rank 0's resolution (per-rank caches can
+    differ, and ranks running different schedules would hang in the
+    exchanges)."""
+    world = dist.world().size
+    ctx = {"dtype": dtype_name, "n": n, "world": world}
+    src = {}
+    if steps_env is not None:
+        steps, src["steps"] = int(steps_env), "explicit"
+    else:
+        hit = _tr.lookup("stencil/steps", device_fallback=False, n=n,
+                         world=world)
+        steps = H.resolve_stencil_steps(n=n, world=world)
+        src["steps"] = "cache" if hit is not None else "prior"
+
+    if tier_env is not None:
+        tier, src["tier"] = H.check_tier(tier_env), "explicit"
+    elif _sweep_on_miss("stencil/tier", **ctx):
+        def measure_tier(cand):
+            steps_c = 1 if cand == "xla" else steps
+            why = _tier_refusal(cand, n=n, steps=steps_c)
+            if why is not None:
+                raise ValueError(f"tier={cand} not applicable ({why})")
+            return _chain_seconds(
+                dtype_name, n=n, steps=steps_c, tier=cand, device=device,
+                n_blocks=H.resolve_stencil_blocks(blocks_env, **ctx))
+
+        tier = str(_sweep("stencil/tier", measure_tier,
+                          candidates=H.stencil_tier_candidates(dtype_name),
+                          emit=_tune_emit, **ctx))
+        src["tier"] = "sweep"
+    else:
+        hit = _tr.lookup("stencil/tier", device_fallback=False, **ctx)
+        tier = H.resolve_stencil_tier(None, **ctx)
+        src["tier"] = "cache" if hit is not None else "prior"
+    if tier == "xla":
+        steps = 1  # the torch-op iterate runs shallow halos
+
+    if blocks_env is not None:
+        n_blocks, src["blocks"] = int(blocks_env), "explicit"
+    elif tier == "blocks" and _sweep_on_miss("stencil/blocks", **ctx):
+        local = n // world
+
+        def measure_blocks(cand):
+            if int(cand) >= 2 and not (steps > 1 and local % int(cand) == 0):
+                raise ValueError(f"blocks={cand} not applicable "
+                                 f"(steps={steps} n={n} world={world})")
+            return _chain_seconds(dtype_name, n=n, steps=steps,
+                                  n_blocks=int(cand), tier="blocks",
+                                  device=device)
+
+        n_blocks = int(_sweep(
+            "stencil/blocks", measure_blocks,
+            candidates=H.stencil_blocks_candidates(dtype_name),
+            emit=_tune_emit, **ctx))
+        src["blocks"] = "sweep"
+    else:
+        hit = _tr.lookup("stencil/blocks", device_fallback=False, **ctx)
+        n_blocks = H.resolve_stencil_blocks(None, **ctx)
+        src["blocks"] = "cache" if hit is not None else "prior"
+
+    sched = {"tier": tier, "steps": steps, "n_blocks": n_blocks,
+             "ov_depth": resolve_overlap(overlap_env, **ctx), "source": src}
+    return fleet.bcast(sched if fleet.process_index() == 0 else None,
+                       "bench:schedule")
 
 
 def measure(dtype_name: str, *, n: int, steps: int, device,
             blocks_env: "str | None", tier_env: "str | None",
             ov_depth: int = 1) -> dict:
-    """One dtype's measurement: build the schedule, chain-time it,
-    median of samples. Returns the JSON-ready dict."""
-    tier = H.check_tier(tier_env or H.PRIOR_TIER)
+    """One dtype's measurement at an explicit schedule: build it,
+    chain-time it, median of samples. Returns the JSON-ready dict."""
+    rec, state = measure_schedule(
+        dtype_name, n=n, steps=steps, device=device,
+        n_blocks=(int(blocks_env) if blocks_env is not None
+                  else H.resolve_stencil_blocks(dtype=dtype_name)),
+        tier=H.check_tier(tier_env or H.resolve_stencil_tier(
+            None, dtype=dtype_name)),
+        ov_depth=ov_depth, blocks_explicit=blocks_env is not None)
+    del state
+    return rec
+
+
+def measure_schedule(dtype_name: str, *, n: int, steps: int, device,
+                     n_blocks: int, tier: str, ov_depth: int = 1,
+                     blocks_explicit: bool = False):
+    """Build and chain-time one resolved schedule (median of samples).
+    Returns ``(record, final state)``: the state after the whole chain,
+    the same for two runs of one schedule with the same environment."""
     if tier == "xla":
         steps = 1  # the torch-op iterate runs shallow halos
-    if blocks_env is not None:
-        n_blocks = int(blocks_env)
-    else:
-        n_blocks = H.PRIOR_BLOCKS.get(dtype_name, H.PRIOR_BLOCKS["float32"])
     on_card = device.type == "cuda"
     if tier == "rdma-fused":
         world = dist.world().size
@@ -149,7 +287,7 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
         dtype_name, n=n, steps=steps, n_blocks=n_blocks, tier=tier,
         device=device, overlap=ov_eff >= 2,
     )
-    if blocks_env is not None and n_blocks >= 2 and not use_blocks:
+    if blocks_explicit and n_blocks >= 2 and not use_blocks:
         decline_note(f"TPU_MPI_BENCH_BLOCKS={n_blocks} not applicable "
                      f"(tier={tier} steps={steps} n={n}); running the "
                      f"dim-{bench_dim} single-buffer schedule")
@@ -198,7 +336,7 @@ def measure(dtype_name: str, *, n: int, steps: int, device,
         "steps": steps,
         "tier": tier,
         "topology": suffix.lstrip("_"),
-    }
+    }, state
 
 
 def _dtype_env(var: str, value: str, allowed) -> str:
@@ -206,6 +344,40 @@ def _dtype_env(var: str, value: str, allowed) -> str:
         raise SystemExit(f"{var}={value!r} unsupported "
                          f"({' | '.join(allowed)})")
     return value
+
+
+def configure_tuning() -> None:
+    """Load the schedule cache (``TPU_MPI_TUNE_CACHE``, else the default
+    path) when ``TPU_MPI_BENCH_TUNE`` asks for sweeps or the file exists;
+    else leave the registry unconfigured, so every knob takes its prior
+    (≅ the root bench's ``bench.py:533-545``; ``TPU_MPI_TUNE_BUDGET``
+    caps a sweep, in seconds)."""
+    _tr.deconfigure()
+    tune = os.environ.get("TPU_MPI_BENCH_TUNE", "").lower() not in (
+        "", "0", "false")
+    path = _tc.default_cache_path()
+    if tune or os.path.exists(path):
+        budget = os.environ.get("TPU_MPI_TUNE_BUDGET")
+        _tr.configure(cache_path=path, enabled=tune,
+                      budget_s=float(budget) if budget else None)
+
+
+def run_dtype(dtype_name: str, *, n: int, device,
+              blocks_env: "str | None" = None, **env):
+    """Resolve one dtype's schedule (:func:`resolve_schedule`), print it
+    on stderr with where each knob came from, and measure it. Returns
+    ``(record, final state)``."""
+    sched = resolve_schedule(dtype_name, n=n, device=device,
+                             blocks_env=blocks_env, **env)
+    src = sched["source"]
+    print(f"SCHEDULE bench {dtype_name}: tier={sched['tier']} "
+          f"({src['tier']}) steps={sched['steps']} ({src['steps']}) "
+          f"blocks={sched['n_blocks']} ({src['blocks']}) "
+          f"overlap={sched['ov_depth']}", file=sys.stderr, flush=True)
+    return measure_schedule(
+        dtype_name, n=n, steps=sched["steps"], device=device,
+        n_blocks=sched["n_blocks"], tier=sched["tier"],
+        ov_depth=sched["ov_depth"], blocks_explicit=blocks_env is not None)
 
 
 def main(argv=None) -> dict:
@@ -220,21 +392,16 @@ def main(argv=None) -> dict:
     dtype_name = _dtype_env("TPU_MPI_BENCH_DTYPE",
                             os.environ.get("TPU_MPI_BENCH_DTYPE", "float32"),
                             BENCH_DTYPES)
-    if os.environ.get("TPU_MPI_BENCH_TUNE", "").lower() not in (
-            "", "0", "false"):
-        decline_note("TPU_MPI_BENCH_TUNE: the tune cache is not ported; "
-                     "running the prior schedule")
-    ov_depth = resolve_overlap(os.environ.get("TPU_MPI_BENCH_OVERLAP"))
-    steps_env = os.environ.get("TPU_MPI_BENCH_STEPS")
-    steps = int(steps_env) if steps_env is not None else H.PRIOR_STEPS
-    tier_env = os.environ.get("TPU_MPI_BENCH_TIER")
+    configure_tuning()
+    env = {"steps_env": os.environ.get("TPU_MPI_BENCH_STEPS"),
+           "tier_env": os.environ.get("TPU_MPI_BENCH_TIER"),
+           "overlap_env": os.environ.get("TPU_MPI_BENCH_OVERLAP")}
 
     rec = {"metric": METRIC}
-    rec.update(measure(
-        dtype_name, n=n, steps=steps, device=device,
-        blocks_env=os.environ.get("TPU_MPI_BENCH_BLOCKS"),
-        tier_env=tier_env, ov_depth=ov_depth,
-    ))
+    rec.update(run_dtype(
+        dtype_name, n=n, device=device,
+        blocks_env=os.environ.get("TPU_MPI_BENCH_BLOCKS"), **env,
+    )[0])
     second = os.environ.get("TPU_MPI_BENCH_SECOND_DTYPE", "")
     if second in ("none", "0"):
         second_dtype = None
@@ -247,12 +414,11 @@ def main(argv=None) -> dict:
         decline_note(f"TPU_MPI_BENCH_SECOND_DTYPE={second!r} equals the "
                      f"primary dtype; no second measurement")
     elif second_dtype:
-        # the secondary always runs its default schedule (the explicit
-        # block count applies to the primary only, as in the root bench)
-        rec[second_dtype] = measure(
-            second_dtype, n=n, steps=steps, device=device,
-            blocks_env=None, tier_env=tier_env, ov_depth=ov_depth,
-        )
+        # the secondary resolves its own schedule (the explicit block
+        # count applies to the primary only, as in the root bench)
+        rec[second_dtype] = run_dtype(
+            second_dtype, n=n, device=device, blocks_env=None, **env,
+        )[0]
     if dist.world().rank == 0:
         print(json.dumps(rec), flush=True)
     return rec

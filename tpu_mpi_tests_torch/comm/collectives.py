@@ -40,8 +40,8 @@ COLL_DISPATCH_DEPTH = 1
 def resolve_dispatch_depth(explicit=None) -> int:
     """The dispatch-window depth: ``explicit``, else the prior (1); at
     least 1, and a value that is not an integer gives the prior (≅ JAX
-    ``:60`` with an empty schedule cache; the cache is ROADMAP queue 1
-    item 17)."""
+    ``:60`` with an empty schedule cache; its space, the rest of ROADMAP
+    queue 1 item 17, comes with its consumers)."""
     val = COLL_DISPATCH_DEPTH if explicit is None else explicit
     try:
         depth = int(val)
@@ -65,8 +65,8 @@ class DispatchWindow:
     one wait per ``depth`` calls. On the CPU an op has finished when it
     returns and nothing is waited for. A context manager; exit drains.
 
-    Its consumers, ``collbench --tune`` (queue 1 item 17) and the serve
-    halo handler (item 19), are not ported: the tests hold it."""
+    Its consumers, ``collbench --tune`` (the rest of queue 1 item 17) and
+    the serve halo handler (item 19), are not ported: the tests hold it."""
 
     def __init__(self, depth: "int | None" = None):
         self.depth = resolve_dispatch_depth(depth)

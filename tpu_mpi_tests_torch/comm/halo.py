@@ -65,6 +65,7 @@ import time
 
 import torch
 
+from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
 from tpu_mpi_tests_torch.comm.mesh import Grid, Hop, Ring, make_grid, \
     make_mesh
@@ -83,6 +84,9 @@ from tpu_mpi_tests_torch.kernels.stencil import (
     heat2d_steps_,
     stencil1d_5,
 )
+from tpu_mpi_tests_torch.tune import priors as _priors
+from tpu_mpi_tests_torch.tune import registry as _tune
+from tpu_mpi_tests_torch.tune.registry import declare_space
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
 #: every kernel tier the JAX package's iterate knows: "blocks" (the hand
@@ -90,37 +94,147 @@ from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 #: with it, and "xla" (the torch-op formulation)
 STENCIL_TIERS = ("blocks", "rdma-chained", "rdma-fused", "xla")
 
-# The JAX package's shipped schedule priors (tpu_mpi_tests/tune/priors.py
-# :55-56,67), taken as they are: S=2 resident blocks for float32, the
-# dim-1 single buffer (S=0) for bfloat16, k=4 timesteps per pass, the
-# "blocks" tier. They were measured on a TPU; the card's own priors are
-# a ROADMAP open item.
-PRIOR_BLOCKS = {"float32": 2, "bfloat16": 0}
-PRIOR_STEPS = 4
-PRIOR_TIER = "blocks"
+
+def _prior_first(prior, values) -> tuple:
+    return (prior,) + tuple(v for v in values if v != prior)
 
 
-#: the halo pipeline depth's prior (the JAX package's shipped
-#: ``HALO_OVERLAP_DEPTH``): 1, the serialized exchange-then-update
-#: schedule; 2 puts the exchange in flight under the core
-HALO_OVERLAP_DEPTH = 1
+#: the halo exchange schedule space (≅ JAX ``halo.py:81``): staging and
+#: exchange flavour in one knob — direct and device ride the process
+#: group, pallas is the hand RDMA ring (HOST_STAGED is a measurement
+#: mode, never a candidate)
+HALO_STAGING_SPACE = declare_space(
+    "halo/staging",
+    _prior_first(_priors.HALO_STAGING, ("direct", "device", "pallas")),
+    describe="halo staging strategy + process-group-vs-RDMA exchange "
+             "flavour",
+)
+
+#: the k-step hot loop's resident-block count (0 = the dim-1 single
+#: buffer) and temporal-blocking depth; the f32 prior leads, the bf16
+#: prior comes from the same table where a site knows its dtype
+STENCIL_BLOCKS_SPACE = declare_space(
+    "stencil/blocks",
+    _prior_first(_priors.BENCH_BLOCKS["float32"], (2, 0, 4)),
+    describe="resident row-block count per shard (0 = single buffer)",
+)
+STENCIL_STEPS_SPACE = declare_space(
+    "stencil/steps",
+    _prior_first(_priors.BENCH_STEPS, (4, 2, 8, 1)),
+    describe="temporal-blocking depth (timesteps fused per HBM pass)",
+)
+
+#: the kernel tier of the stencil iterate hot loop (≅ JAX ``halo.py:111``)
+STENCIL_TIER_SPACE = declare_space(
+    "stencil/tier",
+    _prior_first(_priors.STENCIL_TIER["float32"], STENCIL_TIERS),
+    describe="kernel tier of the stencil iterate hot loop: blocks / "
+             "chained RDMA / one-launch fused RDMA / torch ops",
+)
 
 
-def resolve_overlap_depth(explicit=None) -> int:
-    """The halo pipeline depth to run: ``explicit``, else the prior (1),
-    clamped to [1, 2]; a value that is not an integer gives the prior (≅
-    ``resolve_overlap_depth``, ``halo.py:153``, with an empty schedule
-    cache). Without ``explicit`` (``--overlap auto``) a NOTE on stderr
-    says the prior runs: the schedule cache is ROADMAP queue 1 item 17."""
-    if explicit is None:
-        print(f"NOTE overlap depth auto: the schedule cache is not ported "
-              f"(ROADMAP queue 1 item 17); running the prior depth "
-              f"{HALO_OVERLAP_DEPTH}", file=sys.stderr, flush=True)
-        explicit = HALO_OVERLAP_DEPTH
+def stencil_tier_candidates(dtype: "str | None") -> tuple:
+    """The tier candidates for ``dtype``, its prior first."""
+    return _prior_first(_priors.stencil_tier(dtype), STENCIL_TIERS)
+
+
+def stencil_blocks_candidates(dtype: "str | None") -> tuple:
+    """The block-count candidates for ``dtype``, its prior first."""
+    return _prior_first(_priors.bench_blocks(dtype),
+                        STENCIL_BLOCKS_SPACE.candidates)
+
+
+def rdma_refusal() -> "str | None":
+    """Why this world cannot run the hand RDMA tiers, or None. On the
+    card they need one host and a card per rank: symmetric memory maps
+    peers within one host and refuses two ranks on one card. The CPU's
+    plain versions run at any world."""
+    w = dist.world()
+    if w.device.type != "cuda" or w.size == 1:
+        return None
+    if w.hosts > 1:
+        return f"{w.hosts} hosts (the RDMA ring maps peers within one)"
+    n_cards = torch.cuda.device_count()
+    if w.ranks_per_host > n_cards:
+        return (f"{w.ranks_per_host} ranks on {n_cards} card(s) (the RDMA "
+                f"ring needs a card per rank)")
+    return None
+
+
+def resolve_stencil_tier(explicit=None, **ctx) -> str:
+    """The kernel tier of the stencil iterate: ``explicit`` > the cached
+    winner > the dtype's prior (``tune.priors.STENCIL_TIER``; ≅ JAX
+    ``halo.py:125``). Context-sensitive (no device-only fallback); a
+    malformed cached value gives the prior. A resolved RDMA tier that
+    this world cannot run (:func:`rdma_refusal`) resolves to
+    ``tune.priors.STENCIL_TIER_NO_RDMA``, and the resolution is printed
+    (≅ the JAX degrade rule, ``comm/ring.py:239-250``); an explicit tier
+    is never changed."""
+    prior = _priors.stencil_tier(ctx.get("dtype"))
+    if explicit is not None:
+        return check_tier(explicit)
+    val = _tune.resolve("stencil/tier", prior=prior,
+                        device_fallback=False, **ctx)
+    if val not in STENCIL_TIERS:
+        val = prior
+    why = rdma_refusal() if val.startswith("rdma") else None
+    if why is not None:
+        print(f"NOTE stencil/tier {val} cannot run here ({why}); resolved "
+              f"-> {_priors.STENCIL_TIER_NO_RDMA}", file=sys.stderr,
+              flush=True)
+        val = _priors.STENCIL_TIER_NO_RDMA
+    return val
+
+
+def resolve_stencil_blocks(explicit=None, **ctx) -> int:
+    """The resident-block count: ``explicit`` > cached > the dtype's
+    prior (``tune.priors.BENCH_BLOCKS``); context-sensitive, a malformed
+    cached value gives the prior."""
+    prior = _priors.bench_blocks(ctx.get("dtype"))
+    val = _tune.resolve("stencil/blocks", explicit=explicit, prior=prior,
+                        device_fallback=False, **ctx)
     try:
-        depth = int(explicit)
+        return max(0, int(val))
     except (TypeError, ValueError):
-        depth = HALO_OVERLAP_DEPTH
+        return prior
+
+
+def resolve_stencil_steps(explicit=None, **ctx) -> int:
+    """The temporal-blocking depth: ``explicit`` > cached > prior
+    (``tune.priors.BENCH_STEPS``); context-sensitive, a malformed cached
+    value gives the prior."""
+    val = _tune.resolve("stencil/steps", explicit=explicit,
+                        prior=_priors.BENCH_STEPS, device_fallback=False,
+                        **ctx)
+    try:
+        return max(1, int(val))
+    except (TypeError, ValueError):
+        return _priors.BENCH_STEPS
+
+
+#: the halo pipeline depth (≅ JAX ``halo.py:143``): 1 = the serialized
+#: exchange-then-update schedule, 2 = the exchange in flight under the
+#: core
+HALO_OVERLAP_SPACE = declare_space(
+    "halo/overlap",
+    (_priors.HALO_OVERLAP_DEPTH, 2),
+    describe="halo pipeline depth: 1 = serialized, 2 = exchange in "
+             "flight under the interior compute",
+)
+
+
+def resolve_overlap_depth(explicit=None, **ctx) -> int:
+    """The halo pipeline depth to run: ``explicit`` > cached winner >
+    prior (``tune.priors.HALO_OVERLAP_DEPTH``, 1), clamped to [1, 2] (≅
+    JAX ``halo.py:153``). Context-sensitive; a value that is not an
+    integer gives the prior."""
+    val = _tune.resolve("halo/overlap", explicit=explicit,
+                        prior=_priors.HALO_OVERLAP_DEPTH,
+                        device_fallback=False, **ctx)
+    try:
+        depth = int(val)
+    except (TypeError, ValueError):
+        depth = _priors.HALO_OVERLAP_DEPTH
     return max(1, min(depth, 2))
 
 
@@ -135,13 +249,15 @@ def check_tier(tier: str) -> str:
 
 class Staging(enum.Enum):
     """Halo staging modes (≅ the JAX enum; the reference's ``buf`` flag):
-    ``PALLAS_RDMA`` ("pallas") is the hand RDMA ring, ``hand.ring_halo``.
-    The tuned ``auto`` mode is ROADMAP queue 1 item 17."""
+    ``PALLAS_RDMA`` ("pallas") is the hand RDMA ring, ``hand.ring_halo``;
+    ``AUTO`` resolves through the schedule cache (:func:`resolve_staging`:
+    the tuned winner for this configuration, else the DIRECT prior)."""
 
     DIRECT = "direct"
     DEVICE_STAGED = "device"
     HOST_STAGED = "host"
     PALLAS_RDMA = "pallas"
+    AUTO = "auto"
 
     @classmethod
     def parse(cls, s: "str | Staging") -> "Staging":
@@ -154,6 +270,41 @@ class Staging(enum.Enum):
                 f"unknown staging mode {s!r}; valid: "
                 f"{[m.value for m in cls]}"
             ) from None
+
+
+def _staging_context(zg: torch.Tensor, axis: int, world: int) -> dict:
+    """Cache context of the ``halo/staging`` knob (≅ JAX ``halo.py:170``):
+    dtype, the decomposed extent (bucketed) and the ring size, shared by
+    ``halo_exchange``'s AUTO resolution and the drivers' sweeps so the
+    stored winner and the lookup compose one key. ``zg`` is this rank's
+    ghosted block; the extent is the world's (``world`` blocks along
+    ``axis``), the extent of the JAX package's global array."""
+    return {
+        "dtype": str(zg.dtype).removeprefix("torch."),
+        "extent": int(zg.shape[axis]) * int(world),
+        "world": int(world),
+    }
+
+
+def resolve_staging(staging: "Staging | str", zg: torch.Tensor, axis: int,
+                    world: int) -> Staging:
+    """``Staging.AUTO`` → the tuned winner for this configuration, else
+    the DIRECT prior (≅ JAX ``halo.py:182``); a concrete mode passes
+    through. A malformed cached value, AUTO itself or HOST_STAGED (a
+    measurement mode a cache must never select) gives DIRECT."""
+    staging = Staging.parse(staging)
+    if staging is not Staging.AUTO:
+        return staging
+    val = _tune.resolve("halo/staging", prior=_priors.HALO_STAGING,
+                        device_fallback=False,
+                        **_staging_context(zg, axis, world))
+    try:
+        resolved = Staging.parse(val)
+    except (TpuMtError, AttributeError):
+        resolved = Staging.DIRECT
+    if resolved in (Staging.AUTO, Staging.HOST_STAGED):
+        resolved = Staging.DIRECT
+    return resolved
 
 
 def halo_payload_bytes(zg: torch.Tensor, axis: int, world: int, n_bnd: int,
@@ -280,9 +431,10 @@ def halo_exchange(zg: torch.Tensor, axis: int = 0, n_bnd: int = 2,
     ``window`` (a ``collectives.DispatchWindow``) posts the DIRECT and
     DEVICE_STAGED exchange through its bounded in-flight window (≅ JAX
     ``:470``); None is the per-call path. HOST_STAGED (synchronous by
-    construction) and PALLAS_RDMA ignore it."""
-    staging = Staging.parse(staging)
+    construction) and PALLAS_RDMA ignore it. ``AUTO`` resolves first
+    (:func:`resolve_staging`)."""
     _check_kernel("halo_exchange", kernel)
+    staging = resolve_staging(staging, zg, axis, make_mesh().size)
     if staging is Staging.HOST_STAGED:
         return _host_staged_exchange(zg, axis, n_bnd, periodic)
     if staging is Staging.PALLAS_RDMA:
@@ -325,6 +477,24 @@ def stencil_fn(axis: int, scale: float, kernel: str = "torch"):
         return lambda z: stencil1d_5(z, scale=scale, axis=axis)
     raise TpuMtError(f"unknown stencil kernel {kernel!r}; valid: torch, "
                      f"hand")
+
+
+def exchange_stencil_fused_fn(axis: int, n_bnd: int, scale: float,
+                              staged: bool = False):
+    """Halo exchange + stencil as one callable (≅ JAX ``halo.py:1468``,
+    the fused side of the split-vs-fused measurement): ``step(z)``
+    exchanges ``z``'s ghost bands in place (DIRECT, or DEVICE_STAGED with
+    ``staged``, the only stagings the JAX function takes) and returns the
+    torch-op derivative, with no host sync between the two: the
+    exchange's copies and sends and the stencil's launches queue back to
+    back on the current stream (the JAX package compiles them into one
+    program), and the caller waits once, after the stencil."""
+
+    def step(z: torch.Tensor) -> torch.Tensor:
+        exchange_shard(z, axis=axis, n_bnd=n_bnd, staged=staged)
+        return stencil1d_5(z, scale=scale, axis=axis)
+
+    return step
 
 
 def _check_kernel(name: str, kernel: str) -> None:
@@ -836,8 +1006,12 @@ def _pipeline_staging(name: str, staging: "Staging | str") -> bool:
     raise for the stagings the engine cannot put in flight: PALLAS_RDMA
     (``ring_halo``'s CTAs wait on each other, and beside the core on
     another stream they can hang) and HOST_STAGED (synchronous by
-    construction)."""
+    construction), and AUTO, which the caller resolves first
+    (:func:`resolve_staging`)."""
     staging = Staging.parse(staging)
+    if staging is Staging.AUTO:
+        raise TpuMtError(f"{name}: resolve staging 'auto' first "
+                         f"(resolve_staging)")
     if staging in (Staging.PALLAS_RDMA, Staging.HOST_STAGED):
         raise TpuMtError(
             f"{name}: the overlap engine exchanges through the process "

@@ -20,9 +20,9 @@ has one member: a rotation returns the block itself.
 
 The TPU tile knobs (``k_tile``, ``skip_tile``) are accepted and reach the
 flash kernel's plain version; the card runs the kernel's own tile. The
-tuned-schedule cache of the JAX module (``tune/``) is ROADMAP queue 1
-item 17: ``None`` knobs resolve to the priors (depth 1, tier
-"pipelined").
+ring's tuned spaces (depth, tier) are the rest of ROADMAP queue 1 item 17
+(``tune/`` itself is ported): ``None`` knobs resolve to the priors (depth
+1, tier "pipelined").
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ def ring_scan(f, init, block, world: int = 1, depth: int = 1):
 
 def _resolve_tier(tier) -> str:
     """The K/V rotation tier: an explicit one, or the prior "pipelined"
-    (the port has no tuned-schedule cache, ROADMAP queue 1 item 17)."""
+    (the ring's tier space is the rest of ROADMAP queue 1 item 17)."""
     if tier is None:
         return "pipelined"
     if tier not in RING_TIERS:

@@ -1,10 +1,15 @@
-"""Shared driver plumbing (≅ the minimal part of
-``tpu_mpi_tests/drivers/_common.py``): the argument parser every driver
-starts from, the reporter, the dtype map and the process-grid spec."""
+"""Shared driver plumbing (≅ part of ``tpu_mpi_tests/drivers/_common.py``):
+the argument parser every driver starts from (with the schedule plane's
+``--tune``, ``--tune-cache``, ``--tune-pack`` and ``--tune-budget``), the
+reporter (which configures the schedule cache and points its records at
+the run's JSONL), ``--kernel auto``'s resolution, the dtype map and the
+process-grid spec."""
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 import numpy as np
@@ -50,6 +55,40 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument(
         "--verbose", action="store_true", help="extra per-device reporting"
     )
+    p.add_argument(
+        "--tune",
+        action="store_true",
+        help="arm the measured autotuner: a knob with no cache entry for "
+        "this configuration runs a candidate sweep on the device and "
+        "stores the winner; without it cached winners still apply and a "
+        "miss takes the shipped prior (tune/priors.py)",
+    )
+    p.add_argument(
+        "--tune-cache",
+        default=None,
+        metavar="PATH",
+        help="schedule cache file (default: $TPU_MPI_TUNE_CACHE, else "
+        "~/.cache/tpumt/tune.json); a corrupt or stale file gives the "
+        "priors",
+    )
+    p.add_argument(
+        "--tune-pack",
+        default=None,
+        metavar="PACK",
+        help="preload a schedule pack (python -m "
+        "tpu_mpi_tests_torch.tune.pack) into the in-memory cache before "
+        "any knob resolves; fingerprints still decide which entries "
+        "apply, and a corrupt pack degrades to empty",
+    )
+    p.add_argument(
+        "--tune-budget",
+        type=float,
+        default=60.0,
+        metavar="S",
+        help="wall-clock budget of a sweep in seconds: the prior is always "
+        "measured, later candidates are dropped (and reported as skipped) "
+        "once it is spent (default 60)",
+    )
     return p
 
 
@@ -84,9 +123,110 @@ def make_reporter(args, rank: "int | None" = None,
     from tpu_mpi_tests_torch.comm import dist
 
     w = dist.world()
-    return Reporter(rank=w.rank if rank is None else rank,
-                    size=w.size if size is None else size,
-                    jsonl_path=args.jsonl)
+    rep = Reporter(rank=w.rank if rank is None else rank,
+                   size=w.size if size is None else size,
+                   jsonl_path=args.jsonl)
+    setup_tuning(args)
+    _attach_tune_sink(rep)
+    return rep
+
+
+def setup_tuning(args) -> None:
+    """Configure the schedule cache for this run (≅ JAX
+    ``_common.py:541-610``). It loads when the run asked for tuning
+    (``--tune`` / ``--tune-cache`` / ``--tune-pack``) or the cache file
+    exists; otherwise the registry is left unconfigured and every knob
+    resolves to its prior. A ``--tune-pack`` is absorbed into the
+    in-memory cache (newer measurement wins). Called after the world is
+    joined, so every rank but 0 gets a read-only cache."""
+    from tpu_mpi_tests_torch.tune import cache as tc
+    from tpu_mpi_tests_torch.tune import registry as tr
+
+    tr.deconfigure()
+    path = getattr(args, "tune_cache", None) or tc.default_cache_path()
+    pack_path = getattr(args, "tune_pack", None)
+    wants = (getattr(args, "tune", False)
+             or getattr(args, "tune_cache", None) or pack_path)
+    if not wants and not os.path.exists(path):
+        return
+    cache = tr.configure(
+        cache_path=path,
+        enabled=getattr(args, "tune", False),
+        budget_s=getattr(args, "tune_budget", None),
+    )
+    if pack_path:
+        from tpu_mpi_tests_torch.tune import pack as tp
+
+        doc = tp.load_pack(pack_path)
+        if not doc["entries"]:
+            print(f"NOTE --tune-pack {pack_path}: empty or unreadable "
+                  f"pack; resolving from the local cache/priors")
+        else:
+            n = tp.absorb(cache, doc)
+            print(f"TUNE PACK {pack_path}: {n} of "
+                  f"{len(doc['entries'])} schedule entries preloaded")
+        _check_pack_topology(pack_path, doc)
+
+
+def _check_pack_topology(pack_path: str, doc: dict) -> None:
+    """NOTE a ``--tune-pack`` measured on another topology (≅ JAX
+    ``_check_pack_topology``): its entries can never resolve here."""
+    from tpu_mpi_tests_torch.tune import pack as tp
+    from tpu_mpi_tests_torch.tune.fingerprint import topology_label
+
+    packed = tp.provenance(doc.get("entries") or {}).get("topologies") or []
+    live = topology_label()
+    if packed and live not in packed:
+        decline_note(
+            f"--tune-pack {pack_path}: pack topology {','.join(packed)} "
+            f"does not match this run's {live}; its schedule entries will "
+            f"not resolve here"
+        )
+
+
+def _attach_tune_sink(rep: Reporter) -> None:
+    """Point the sweep records at this run's reporter (≅ JAX
+    ``_attach_tune_sink``): every ``tune`` / ``tune_result`` /
+    ``tune_hit`` record goes to the JSONL stream, stamped with the
+    process's rank, and winners and hits get a ``TUNE`` line."""
+    from tpu_mpi_tests_torch.tune import fleet
+    from tpu_mpi_tests_torch.tune import registry as tr
+
+    tr.mark_fleet_rank()
+    if tr.configured_cache() is None:
+        return
+
+    def emit(rec):
+        rep.jsonl({**rec, "rank": fleet.process_index()})
+        kind = rec.get("kind")
+        if kind == "tune_result":
+            sec = rec.get("seconds")
+            rep.line(
+                f"TUNE {rec['knob']} winner={json.dumps(rec['value'])} "
+                f"seconds={'-' if sec is None else f'{sec:.6g}'} "
+                f"measured={rec.get('measured', 0)} "
+                f"skipped={rec.get('skipped', 0)}"
+            )
+        elif kind == "tune_hit":
+            rep.line(
+                f"TUNE {rec['knob']} cache-hit "
+                f"value={json.dumps(rec['value'])}"
+            )
+
+    tr.set_emit(emit)
+
+
+def resolve_kernel_auto(dtype: str, n: int, world: int, rep) -> str:
+    """``--kernel auto`` (≅ JAX ``resolve_kernel_auto``): the
+    ``stencil/tier`` resolution mapped onto a driver's update body — the
+    ``xla`` tier keeps the torch-op body (``torch``), every hand tier
+    maps to the hand kernel (``hand``). The resolution is NOTE'd."""
+    from tpu_mpi_tests_torch.comm.halo import resolve_stencil_tier
+
+    tier = resolve_stencil_tier(None, dtype=dtype, n=n, world=world)
+    kernel = "torch" if tier == "xla" else "hand"
+    rep.line(f"NOTE --kernel auto -> {kernel} (stencil/tier {tier})")
+    return kernel
 
 
 def decline_note(msg: str) -> None:

@@ -24,8 +24,9 @@ Ulysses. HIGHEST (the default) turns TF32 off; ``--fast`` runs DEFAULT
 tile of the route that ran (``hand.FLASH_K_TILES``), which each row
 records.
 
-Not ported (ROADMAP queue 1): ``--tune`` (item 17, raises), the compile
-probe (item 18) and the ``attn`` serve workload (item 19).
+Not ported (ROADMAP queue 1): ``--tune`` (the rest of item 17: the
+ring's tile, depth and tier spaces; raises), the compile probe (item 18)
+and the ``attn`` serve workload (item 19).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def run(args) -> int:
 
     if args.tune:
         raise TpuMtError("--tune (the flash tile / ring depth / ring tier "
-                         "sweeps) is not ported: ROADMAP queue 1 item 17")
+                         "sweeps) is not ported: the rest of ROADMAP queue "
+                         "1 item 17")
     dtype = _common.torch_dtype(args)
     if dtype == torch.float64:
         raise TpuMtError("attnbench runs float32 or bfloat16 (the flash "
@@ -250,9 +252,6 @@ def main(argv=None) -> int:
         help="DEFAULT precision (TF32 / bf16 tensor cores) instead of "
         "HIGHEST (f32 arithmetic)",
     )
-    p.add_argument("--tune", action="store_true",
-                   help="tile sweeps: not ported (ROADMAP queue 1 item 17; "
-                   "raises)")
     p.add_argument("--n-iter", type=int, default=1100,
                    help="chained iterations (delta = n_iter - n_iter/10)")
     args = p.parse_args(argv)

@@ -26,8 +26,9 @@ refuses a size (``allreduce_rdma``: elements % world), the row is
 ``COLL-SKIP``.
 
 Not ported yet, each raising: ``--collectives auto`` and ``--tune`` (the
-variant and dispatch-depth knobs, ROADMAP queue 1 item 17, ``tune/``),
-the telemetry compile probe (item 18) and the serve-mode ``allreduce``
+variant and dispatch-depth knobs: the rest of ROADMAP queue 1 item 17,
+its collective knob consumers; ``tune/`` itself is ported), the
+telemetry compile probe (item 18) and the serve-mode ``allreduce``
 workload (item 19).
 """
 
@@ -56,10 +57,12 @@ COLL_LINE_RE = (
 
 #: where each left-out feature is queued
 NOT_PORTED = {
-    "auto": "--collectives auto (the per-size variant knob) is ROADMAP "
-            "queue 1 item 17 (tune/), not ported",
-    "tune": "--tune (the variant and dispatch-depth sweeps) is ROADMAP "
-            "queue 1 item 17 (tune/), not ported",
+    "auto": "--collectives auto (the per-size variant knob) is the rest "
+            "of ROADMAP queue 1 item 17 (its collective knob consumers), "
+            "not ported",
+    "tune": "--tune (the variant and dispatch-depth sweeps) is the rest "
+            "of ROADMAP queue 1 item 17 (its collective knob consumers), "
+            "not ported",
     "telemetry": "--telemetry (span telemetry and the per-row compile "
                  "probe) is ROADMAP queue 1 item 18, not ported",
     "serve": "the serve-mode allreduce workload is ROADMAP queue 1 item "
@@ -261,11 +264,6 @@ def main(argv=None) -> int:
         help="chained iterations per measurement at 1 MiB payloads; "
         "smaller payloads scale the count up inversely (capped at 100k); "
         "the actual count is reported per row as n=",
-    )
-    p.add_argument(
-        "--tune", action="store_true",
-        help="sweep the collective variants (not ported: ROADMAP queue 1 "
-        "item 17; raises)",
     )
     p.add_argument(
         "--telemetry", action="store_true",

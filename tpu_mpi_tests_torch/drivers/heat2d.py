@@ -30,8 +30,12 @@ device time). ``--overlap 2`` (with ``--kernel torch --halo-steps 1``)
 runs the host-scheduled pipeline (``comm/halo.py``'s overlap engine:
 per Euler step the both-axis exchange in flight on a comm stream while
 the core computes, the seam patched after) and prints an ``OVERLAP
-heat2d`` line; ``--overlap 1`` keeps the chained loop. Not ported yet:
-``--kernel auto`` and the tune flags (queue 1 item 17).
+heat2d`` line; ``--overlap 1`` keeps the chained loop; ``--overlap
+auto`` resolves the ``halo/overlap`` knob (explicit > cached > prior,
+``tune/``). ``--kernel auto`` maps the ``stencil/tier`` resolution onto
+the two bodies (``_common.resolve_kernel_auto``); with ``--overlap`` it
+must resolve to ``torch`` for a depth-2 pipeline, and where it resolves
+to ``hand`` the chained loop runs with a NOTE.
 """
 
 from __future__ import annotations
@@ -119,14 +123,25 @@ def run(args) -> int:
         nb = args.halo_steps
         zs = torch.from_numpy(_init_block(args, grid, dx, dy)).to(
             device=device, dtype=_common.torch_dtype(args))
+        kernel = args.kernel
+        if kernel == "auto":
+            # heat has no RDMA exchange: only the hand tiers' update body
+            # transfers (≅ JAX heat2d.py:98-104)
+            kernel = _common.resolve_kernel_auto(args.dtype, nx, n_dev, rep)
         step = H.heat_step2d_fn(nb, float(cx), float(cy),
-                                steps=args.halo_steps, kernel=args.kernel,
+                                steps=args.halo_steps, kernel=kernel,
                                 grid=grid)
 
         depth = 1
         if args.overlap != "0":
             explicit = None if args.overlap == "auto" else int(args.overlap)
-            depth = H.resolve_overlap_depth(explicit)
+            depth = H.resolve_overlap_depth(explicit, dtype=args.dtype,
+                                            n=nx, world=n_dev)
+            if depth >= 2 and kernel != "torch":
+                _common.decline_note(
+                    f"overlap depth {depth} needs the torch body; --kernel "
+                    f"auto resolved {kernel}: running the chained loop")
+                depth = 1
             rep.banner(f"OVERLAP heat2d depth resolved -> {depth}")
 
         outer_total = args.n_steps // args.halo_steps
@@ -184,10 +199,10 @@ def run(args) -> int:
             f"{steps_per_s:0.1f} steps/s",
             {"kind": "heat", "px": px, "py": py, "nx": nx, "ny": ny,
              "steps": args.n_steps, "steps_per_s": steps_per_s,
-             "nu": args.nu, "dt": dt, "kernel": args.kernel,
+             "nu": args.nu, "dt": dt, "kernel": kernel,
              "overlap": depth},
         )
-        _time_exchange(zs, nb, grid, args.kernel, rep)
+        _time_exchange(zs, nb, grid, kernel, rep)
 
         # eigenvalue gate on the assembled field: field == g^T · z0 to
         # roundoff (rank 0 gathers the interiors, the others get rel)
@@ -254,10 +269,12 @@ def main(argv=None) -> int:
         "interior-identical, gated by the same eigen check)",
     )
     p.add_argument(
-        "--kernel", choices=("torch", "hand"), default="torch",
+        "--kernel", choices=("torch", "hand", "auto"), default="torch",
         help="update-body tier: the XLA slice formulation as torch ops, "
-        "or the hand CUDA kernel (≅ --kernel pallas; same recurrence "
-        "update for update, one launch per k steps)",
+        "the hand CUDA kernel (≅ --kernel pallas; same recurrence "
+        "update for update, one launch per k steps), or auto: the "
+        "stencil/tier resolution mapped onto the two (xla -> torch, every "
+        "hand tier -> hand)",
     )
     p.add_argument(
         "--overlap",
@@ -267,12 +284,12 @@ def main(argv=None) -> int:
         "1 = resolve the knob but keep the chained loop (the serialized "
         "schedule), 2 = host-scheduled pipeline with the both-axis "
         "exchange in flight on a comm stream under the core compute, "
-        "auto = the prior depth (the schedule cache is not ported); "
-        "requires --kernel torch and --halo-steps 1",
+        "auto = the halo/overlap cache winner, else the prior (1); "
+        "requires --kernel torch (or auto) and --halo-steps 1",
     )
     args = p.parse_args(argv)
     if args.overlap != "0" and (
-        args.kernel != "torch" or args.halo_steps != 1
+        args.kernel == "hand" or args.halo_steps != 1
     ):
         p.error("--overlap requires --kernel torch and --halo-steps 1 "
                 "(the interior/boundary split is the per-step torch body)")

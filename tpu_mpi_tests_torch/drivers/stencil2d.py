@@ -24,13 +24,27 @@ single-device runs (the RDMA ring still launches).
 
 ``--kernel hand`` runs the derivative through the hand CUDA kernel (≅
 ``--kernel pallas``) and hands the device-staged legs the hand
-pack/unpack kernels. ``--iterate-tier {blocks,rdma-chained,rdma-fused,
-xla,auto}`` adds the iterate leg (exchange + k-step update hot loop) with
-its analytic eigen gate, the fused == chained bitwise gate (``ITER
-BITWISE``) and the fused tier's OVERLAP record. The card is the default
-device; ``--device cpu`` runs the kernels' plain torch versions (over gloo
-at world > 1). Not ported yet: ``--managed``, ``--tune``, ``--kernel
-auto``, ``--fused``, ``--debug-dump``.
+pack/unpack kernels; ``--kernel auto`` maps the ``stencil/tier``
+resolution onto the two bodies (resolved after the iterate leg, so a
+same-run sweep's winner applies). ``--iterate-tier {blocks,rdma-chained,
+rdma-fused,xla,auto}`` adds the iterate leg (exchange + k-step update hot
+loop) with its analytic eigen gate, the fused == chained bitwise gate
+(``ITER BITWISE``) and the fused tier's OVERLAP record; ``auto`` resolves
+``stencil/tier`` explicit > cached > prior, and under ``--tune`` a cache
+miss sweeps the tiers first (rank 0 decides, every rank applies). The
+blocks tier's block count is resolved once and broadcast from rank 0.
+
+``--managed`` adds the managed-space twins of the matrix and of the
+allreduce test (the field starts in pinned host memory and moves to the
+device on its first use, ``arrays/spaces.py``), each with its
+``nbytes_report`` line. ``--fused`` times exchange + torch-op stencil as
+one callable (``halo.exchange_stencil_fused_fn``; the ITER phase is
+``fused``, and the host-staged leg prints the JAX ``SKIP`` line).
+``--debug-dump`` prints each rank's ghost and edge rows after the
+exchange (the ``DEBUG rank r lo/hi ghost+edge`` lines).
+
+The card is the default device; ``--device cpu`` runs the kernels' plain
+torch versions (over gloo at world > 1).
 """
 
 from __future__ import annotations
@@ -41,12 +55,14 @@ import time
 import numpy as np
 import torch
 
+from tpu_mpi_tests_torch.arrays import spaces as SP
 from tpu_mpi_tests_torch.arrays.domain import Domain2D
 from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
 from tpu_mpi_tests_torch.drivers import _common
-from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
+from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block, \
+    chain_rate
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels.reductions import sum_axis
 from tpu_mpi_tests_torch.kernels.stencil import (
@@ -54,9 +70,14 @@ from tpu_mpi_tests_torch.kernels.stencil import (
     STENCIL5,
     analytic_pairs,
 )
+from tpu_mpi_tests_torch.tune import fleet
+from tpu_mpi_tests_torch.tune import priors as _priors
+from tpu_mpi_tests_torch.tune import registry as _tune
+from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
 
 
-def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
+def _deriv_test(args, topo, rep, dim: int, buf: bool,
+                space: str = "device") -> int:
     device = topo.device
     dtype = _common.torch_dtype(args)
     world = topo.global_device_count
@@ -71,25 +92,59 @@ def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
     else:
         staging = H.Staging.DEVICE_STAGED if buf else H.Staging.DIRECT
 
+    fused = None
+    if args.fused:
+        if staging not in (H.Staging.DIRECT, H.Staging.DEVICE_STAGED):
+            rep.line(
+                f"SKIP dim:{dim}, {space}, buf:{int(buf)}: --fused supports "
+                "only DIRECT/DEVICE_STAGED exchanges"
+            )
+            return 0
+        fused = H.exchange_stencil_fused_fn(
+            dim, d.n_bnd, d.scale,
+            staged=staging is H.Staging.DEVICE_STAGED)
+
     if args.init == "device":
         zg = C.device_init(lambda r: d.init_shard_torch(f, r, dtype, device))
     else:
         zg = C.shard_blocks(d.global_ghosted_shape, dtype,
                             lambda r: d.init_shard(f, r, np.float64),
                             device, axis=dim)
+    if space == "managed":
+        # the managed twin starts host-resident and moves to the device
+        # on its first use (the first, untimed, exchange)
+        zg = SP.place(zg, space, device)
+        rep.line(f"MEMINFO dim:{dim}, {space}, buf:{int(buf)}: "
+                 f"{SP.nbytes_report(zg)}")
 
     # hot loop ≅ mpi_stencil2d_gt.cc:511-535: clock around the exchange,
     # the stencil every iteration (untimed but executing), a device sync
-    # closing each iteration; warmup entries are not accumulated
+    # closing each iteration; warmup entries are not accumulated.
+    # --fused times exchange + stencil as one callable instead
     stencil = H.stencil_fn(dim, d.scale, kernel=args.kernel)
     timer = PhaseTimer(skip_first=args.n_warmup)
+    phase_name = "fused" if fused is not None else "exchange"
+
+    def exchange(z):
+        return H.halo_exchange(SP.ensure_device(z, device), dim, d.n_bnd,
+                               False, staging, kernel=args.kernel)
+
     zg = block(H.staging_buffer(zg, staging))
     dz = None
     for _ in range(args.n_warmup + args.n_iter):
-        zg = timer.timed("exchange", H.halo_exchange, zg, dim, d.n_bnd,
-                         False, staging, kernel=args.kernel)
-        dz = block(stencil(zg))
-    seconds = timer.seconds["exchange"]
+        if fused is not None:
+            zg = SP.ensure_device(zg, device)
+            dz = timer.timed(phase_name, fused, zg)
+        else:
+            zg = timer.timed(phase_name, exchange, zg)
+            dz = block(stencil(zg))
+    seconds = timer.seconds[phase_name]
+    if args.debug_dump:
+        if fused is not None:
+            # the fused callable's exchange is its own; run one standalone
+            # exchange before the dump, as the JAX driver does
+            zg = block(exchange(zg))
+        _debug_dump(rep, zg, dim, d.n_bnd, topo.process_index)
 
     if args.init == "device":
         actual = C.device_init(
@@ -101,17 +156,35 @@ def _deriv_test(args, topo, rep, dim: int, buf: bool) -> int:
     per_rank = C.per_rank_err_norms(dz, actual)
     del zg, dz, actual
     err_sum = float(per_rank.sum())
-    rep.test_line(dim, "device", buf, seconds * world, err_sum)
-    rep.iter_line(dim, "device", buf, "exchange", timer.mean("exchange"),
-                  timer.mins.get("exchange", 0.0),
-                  timer.maxs.get("exchange", 0.0))
+    rep.test_line(dim, space, buf, seconds * world, err_sum,
+                  extra_label="fused" if fused is not None else None)
+    rep.iter_line(dim, space, buf, phase_name, timer.mean(phase_name),
+                  timer.mins.get(phase_name, 0.0),
+                  timer.maxs.get(phase_name, 0.0))
 
     tol = args.tol if args.tol is not None else _default_tol(args, d)
     if per_rank.max() > tol:
-        rep.line(f"ERR_NORM FAIL dim:{dim} device buf:{int(buf)}: "
+        rep.line(f"ERR_NORM FAIL dim:{dim} {space} buf:{int(buf)}: "
                  f"max {per_rank.max():.8g} > tol {tol:.8g}")
         return 1
     return 0
+
+
+def _debug_dump(rep, zg, dim: int, n_bnd: int, rank: int) -> None:
+    """This rank's ghost rows and the interior edge rows beside them, lo
+    then hi (≅ the JAX driver's dump, itself ≅ the DEBUG halo dumps of
+    ``mpi_stencil2d_sycl_oo.cc:636-659``), in the JAX driver's text: a
+    dim-0 block shows its first 4 columns, a dim-1 block its first 4 rows
+    transposed."""
+    sl = [slice(0, 4), slice(0, 4)]  # only the 4 printed lines move
+    for label, lohi in (("lo", slice(0, 2 * n_bnd)),
+                        ("hi", slice(zg.shape[dim] - 2 * n_bnd, None))):
+        sl[dim] = lohi
+        edge = C.host_value(zg[tuple(sl)])
+        flat = np.array2string(
+            edge if dim == 0 else edge.T, precision=4, max_line_width=120,
+        )
+        rep.line(f"DEBUG rank {rank} {label} ghost+edge:\n{flat}")
 
 
 def _default_tol(args, d) -> float:
@@ -127,7 +200,7 @@ def _default_tol(args, d) -> float:
     return 8 * eps * zmax * d.scale * np.sqrt(n_pts / d.n_shards)
 
 
-def _sum_test(args, topo, rep, dim: int) -> int:
+def _sum_test(args, topo, rep, dim: int, space: str = "device") -> int:
     """Axis reduction + timed allreduce (≅ test_sum, :574-649): local sum
     along the decomposed dim, then the allreduce (under ``--rdma`` the
     hand ring, ``C.allreduce_rdma``); its cost is the difference of loops
@@ -138,6 +211,11 @@ def _sum_test(args, topo, rep, dim: int) -> int:
                  n_shards=world, dim=dim)
     z = torch.full(d.local_shape, np.pi / world, dtype=dtype,
                    device=topo.device)
+    if space == "managed":
+        # host-resident until its first device use, right below
+        z = SP.place(z, space, topo.device)
+        rep.line(f"MEMINFO dim:{dim}, {space}: {SP.nbytes_report(z)}")
+        z = SP.ensure_device(z, topo.device)
 
     def local_sum(zz):
         return sum_axis(zz, axis=dim).reshape(1, -1)
@@ -153,7 +231,7 @@ def _sum_test(args, topo, rep, dim: int) -> int:
         if why is None:
             allreduce = C.allreduce_rdma
         else:
-            rep.line(f"NOTE dim:{dim} device: rdma allreduce below "
+            rep.line(f"NOTE dim:{dim} {space}: rdma allreduce below "
                      f"alignment floor, using allreduce_sum ({why})")
 
     expected = np.full(d.n_global_other, np.pi * args.n_local)
@@ -161,7 +239,7 @@ def _sum_test(args, topo, rep, dim: int) -> int:
     got = C.host_value(s).reshape(-1)
     if not np.allclose(got, expected,
                        rtol=1e-3 if args.dtype == "bfloat16" else 1e-5):
-        rep.line(f"ALLREDUCE FAIL dim:{dim} device: {got[:3]} != "
+        rep.line(f"ALLREDUCE FAIL dim:{dim} {space}: {got[:3]} != "
                  f"{expected[:3]}")
         return 1
 
@@ -179,13 +257,13 @@ def _sum_test(args, topo, rep, dim: int) -> int:
     seconds = max(t_with - t_without, 0.0)
     if t_with < t_without:
         rep.line(
-            f"NOTE dim:{dim} device: allreduce difference clamped to 0 "
+            f"NOTE dim:{dim} {space}: allreduce difference clamped to 0 "
             f"(t_with={t_with:.6f} < t_without={t_without:.6f}; "
             "loop noise exceeds the allreduce cost at this size)"
         )
-    rep.test_line(dim, "device", 0, seconds * world, 0.0,
+    rep.test_line(dim, space, 0, seconds * world, 0.0,
                   extra_label="allreduce", show_err=False)
-    rep.jsonl({"kind": "allreduce_raw", "dim": dim, "space": "device",
+    rep.jsonl({"kind": "allreduce_raw", "dim": dim, "space": space,
                "n_iter": args.n_iter, "t_with_s": t_with,
                "t_without_s": t_without, "world": world})
     return 0
@@ -220,9 +298,26 @@ def _iterate_tiers(args, topo):
         z[gw:gw + nloc] = torch.sin(phase * rows).to(dtype)[:, None]
         return z
 
-    n_blocks = H.PRIOR_BLOCKS.get(args.dtype, H.PRIOR_BLOCKS["float32"])
+    # the blocks tier's block count, resolved ONCE and broadcast from
+    # rank 0: per-rank caches can differ (rank 0 is the one writer), and
+    # ranks building different block counts inside a swept candidate
+    # would run different exchanges (≅ JAX stencil2d.py:408-431)
+    n_blocks = H.resolve_stencil_blocks(dtype=args.dtype, n=n_glob,
+                                        world=world)
+    if fleet.process_count() > 1:
+        try:
+            n_blocks = int(fleet.bcast(
+                n_blocks if fleet.process_index() == 0 else None,
+                "stencil2d/iterate_blocks",
+            ))
+        except fleet.FleetUnavailable:
+            pass  # no transport: the local resolution
 
     def build(tier):
+        if tier.startswith("rdma"):
+            why = H.rdma_refusal()
+            if why is not None:
+                raise ValueError(f"tier {tier} cannot run here ({why})")
         if tier == "xla":
             return H.iterate_fused_fn(0, N_BND, 1.0, se, periodic=True)
         if tier == "rdma-chained":
@@ -244,8 +339,61 @@ def _iterate_tiers(args, topo):
         return H.iterate_hand_fn(K, se, axis=0, steps=steps, periodic=True)
 
     geom = {"steps": steps, "K": K, "n_glob": n_glob, "cols": cols,
-            "se": se, "phase": phase, "ghost_width": ghost_width}
+            "se": se, "phase": phase, "ghost_width": ghost_width,
+            "n_blocks": n_blocks}
     return build, make_state, (lambda t: 1 if t == "xla" else steps), geom
+
+
+def resolve_iterate_tier(args, build, make_state, steps_per_call, g,
+                         world: int, rep) -> str:
+    """The iterate leg's tier (≅ JAX ``stencil2d.py:498-516``): the
+    explicit ``--iterate-tier``, else ``ensure_tuned("stencil/tier")`` on
+    the leg's context — a cache hit, a sweep on a miss under ``--tune``
+    (per-timestep seconds of each candidate, by ``chain_rate``), or the
+    dtype's prior — with an RDMA winner this world cannot run resolved to
+    the no-RDMA prior. Prints what it resolved and from where."""
+    ctx = {"dtype": args.dtype, "n": g["n_glob"], "world": world}
+    if args.iterate_tier != "auto":
+        tier, source = H.check_tier(args.iterate_tier), "explicit"
+    else:
+        def measure(cand):
+            run_c = build(str(cand))
+            sec, st = chain_rate(
+                run_c, make_state(g["ghost_width"](str(cand))),
+                n_short=2, n_long=6,
+            )
+            del st
+            return sec / steps_per_call(str(cand))  # per timestep
+
+        cached = _tune.lookup("stencil/tier", device_fallback=False, **ctx)
+        source = ("cache" if cached is not None else
+                  "sweep" if _tune.tuning_enabled() else "prior")
+        tier = str(ensure_tuned(
+            "stencil/tier", measure,
+            candidates=H.stencil_tier_candidates(args.dtype),
+            prior=H.resolve_stencil_tier(None, **ctx),
+            device_fallback=False, **ctx,
+        ))
+        if tier not in H.STENCIL_TIERS:
+            tier, source = H.resolve_stencil_tier(None, **ctx), "prior"
+        elif tier.startswith("rdma") and H.rdma_refusal() is not None:
+            rep.line(f"NOTE stencil/tier {tier} cannot run here "
+                     f"({H.rdma_refusal()}); resolved -> "
+                     f"{_priors.STENCIL_TIER_NO_RDMA}")
+            tier = _priors.STENCIL_TIER_NO_RDMA
+    rep.banner(f"TUNE stencil/tier resolved -> {tier} ({source}; "
+               f"blocks={g['n_blocks']})")
+    return tier
+
+
+def field_bits(z: torch.Tensor) -> int:
+    """A checksum of ``z``'s bit patterns (their sum as integers, on the
+    device): two runs whose fields differ in any bit all but surely
+    differ here. The iterate leg's ``iterate_gate`` record carries it, so
+    that runs of one schedule can be held equal bit for bit."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        z.element_size()]
+    return int(torch.sum(z.contiguous().view(ints), dtype=torch.int64))
 
 
 def _all_ranks_agree(ok: bool) -> bool:
@@ -254,9 +402,12 @@ def _all_ranks_agree(ok: bool) -> bool:
 
 
 def _iterate_tier_test(args, topo, rep) -> int:
-    """The kernel-tier iterate leg: time the exchange + update hot loop
-    under the chosen tier (``auto`` = the prior, ``blocks``), then run the
-    honesty checks of the JAX driver (``drivers/stencil2d.py:471``):
+    """The kernel-tier iterate leg: resolve ``stencil/tier`` (``auto``:
+    explicit > cached > prior; under ``--tune`` a cache miss sweeps the
+    tiers first, each candidate timed by chained CUDA events on the card,
+    a tier the world cannot run declined with its reason), time the
+    exchange + update hot loop under it, then run the honesty checks of
+    the JAX driver (``drivers/stencil2d.py:471``):
 
     * fused == chained, bitwise (``ITER BITWISE``): the two RDMA tiers
       share the tile update and the ghost bytes, so a seam or exchange bug
@@ -270,8 +421,8 @@ def _iterate_tier_test(args, topo, rep) -> int:
     world = topo.global_device_count
     build, make_state, steps_per_call, g = _iterate_tiers(args, topo)
     steps, K, n_glob = g["steps"], g["K"], g["n_glob"]
-    tier = H.PRIOR_TIER if args.iterate_tier == "auto" else args.iterate_tier
-    H.check_tier(tier)
+    tier = resolve_iterate_tier(args, build, make_state, steps_per_call, g,
+                                world, rep)
 
     gw = g["ghost_width"](tier)
     run = build(tier)
@@ -322,7 +473,9 @@ def _iterate_tier_test(args, topo, rep) -> int:
     eps = {"float64": 2.3e-16, "float32": 1.2e-7,
            "bfloat16": 7.8e-3}.get(args.dtype, 1.2e-7)
     tol = min(0.5, 50.0 * eps * max(timesteps, 1) ** 0.5 + 10.0 * eps)
-    rep.line(f"ITER ERR rel={rel:e} (gate {tol:e})")
+    rep.line(f"ITER ERR rel={rel:e} (gate {tol:e})",
+             {"kind": "iterate_gate", "tier": tier, "rel": rel, "tol": tol,
+              "bits": field_bits(z[gw:gw + args.n_local])})
     if not np.isfinite(rel) or rel > tol:
         rep.line(f"ITER FAIL rel={rel:.8g} > tol {tol:.8g}")
         rc = 1
@@ -367,14 +520,21 @@ def run(args) -> int:
         rep.banner(
             f"stencil2d: n_local={args.n_local} n_other={args.n_other} "
             f"world={world} n_iter={args.n_iter} n_warmup={args.n_warmup} "
-            f"dtype={args.dtype} managed=False device={topo.device_kinds[0]}"
-            f" kernel={args.kernel} rdma={args.rdma}"
+            f"dtype={args.dtype} managed={args.managed} "
+            f"device={topo.device_kinds[0]} kernel={args.kernel} "
+            f"rdma={args.rdma}"
         )
         rc = 0
         if args.iterate_tier != "off":
             rc |= _iterate_tier_test(args, topo, rep)
             if args.iterate_only:
                 return rc
+        if args.kernel == "auto":
+            # resolved AFTER the iterate leg, so a same-run sweep's
+            # winner is what the matrix legs apply (≅ JAX :667)
+            args.kernel = _common.resolve_kernel_auto(
+                args.dtype, args.n_local * world, world, rep)
+        spaces = ["device"] + (["managed"] if args.managed else [])
         only = None
         if args.only:
             only = {
@@ -385,11 +545,13 @@ def run(args) -> int:
             for buf in (True, False):
                 if only is not None and (dim, int(buf)) not in only:
                     continue
-                rc |= _deriv_test(args, topo, rep, dim, buf)
+                for space in spaces:
+                    rc |= _deriv_test(args, topo, rep, dim, buf, space)
         for dim in (0, 1):
             if only is not None and not any(d == dim for d, _ in only):
                 continue
-            rc |= _sum_test(args, topo, rep, dim)
+            for space in spaces:
+                rc |= _sum_test(args, topo, rep, dim, space)
         return rc
 
 
@@ -405,10 +567,27 @@ def main(argv=None) -> int:
                    help="timed iterations (≅ :657)")
     p.add_argument("--n-warmup", type=int, default=5,
                    help="untimed warmup (≅ :658)")
-    p.add_argument("--kernel", default="torch", choices=["torch", "hand"],
+    p.add_argument("--kernel", default="torch",
+                   choices=["torch", "hand", "auto"],
                    help="derivative implementation: torch ops (≅ gtensor / "
-                   "the XLA tier) or the hand CUDA kernel (≅ the SYCL "
-                   "kernel / --kernel pallas)")
+                   "the XLA tier), the hand CUDA kernel (≅ the SYCL "
+                   "kernel / --kernel pallas), or auto: the stencil/tier "
+                   "resolution mapped onto the two (xla -> torch, every "
+                   "hand tier -> hand)")
+    p.add_argument("--managed", action="store_true",
+                   help="add managed-space twins to the matrix (≅ "
+                   "-DTEST_MANAGED): the field starts in pinned host memory "
+                   "and moves to the device on its first use")
+    p.add_argument("--fused", action="store_true",
+                   help="time exchange + torch-op stencil as one callable "
+                   "per iteration (the fused side of the split-vs-fused "
+                   "A/B); default times the exchange alone with the "
+                   "stencil executing untimed between iterations (≅ "
+                   "mpi_stencil2d_gt.cc:511-535)")
+    p.add_argument("--debug-dump", action="store_true",
+                   help="print each rank's ghost+edge rows after the "
+                   "exchange (≅ the DEBUG halo dumps, "
+                   "mpi_stencil2d_sycl_oo.cc:636-659)")
     p.add_argument("--rdma", action="store_true",
                    help="use the hand RDMA ring (hand.ring_halo) for every "
                    "exchange (≅ the SYCL hand-kernel variant of the "
@@ -416,9 +595,10 @@ def main(argv=None) -> int:
     p.add_argument("--iterate-tier", default="off",
                    choices=["off", "auto", *H.STENCIL_TIERS],
                    help="run the iterate leg under the named tier (auto = "
-                   "the prior, blocks), with the fused-vs-chained bitwise "
-                   "gate, the analytic eigen gate and the fused tier's "
-                   "OVERLAP record")
+                   "the stencil/tier cache winner, else the dtype's prior; "
+                   "--tune sweeps the space on a miss), with the "
+                   "fused-vs-chained bitwise gate, the analytic eigen gate "
+                   "and the fused tier's OVERLAP record")
     p.add_argument("--iterate-steps", type=int, default=1,
                    help="temporal-blocking depth of the iterate leg")
     p.add_argument("--iterate-iters", type=int, default=4,
@@ -443,6 +623,12 @@ def main(argv=None) -> int:
         p.error("--n-local must be >= 5 (stencil width)")
     if args.iterate_only and args.iterate_tier == "off":
         p.error("--iterate-only needs an --iterate-tier selection")
+    if args.fused and args.kernel != "torch":
+        p.error("--fused runs the torch-op stencil inside the exchange "
+                "callable; it does not support --kernel hand")
+    if args.fused and args.rdma:
+        p.error("--fused supports only DIRECT/DEVICE_STAGED exchanges; "
+                "combining it with --rdma would skip the whole matrix")
     return run(args)
 
 

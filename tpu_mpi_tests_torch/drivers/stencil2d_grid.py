@@ -30,7 +30,8 @@ the timed steps a rank (``gpu/trace_summary.py`` sums its device time).
 in flight on a comm stream while the core derivatives compute, the seam
 completing the frame and the residual) and prints an ``OVERLAP
 stencil2d_grid`` line; with ``--kernel hand`` a NOTE says the fused
-serial step runs.
+serial step runs. ``--overlap auto`` resolves the ``halo/overlap`` knob
+(explicit > cached > prior, ``tune/``).
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ def run(args) -> int:
         depth = 1
         if args.overlap != "0":
             explicit = None if args.overlap == "auto" else int(args.overlap)
-            depth = H.resolve_overlap_depth(explicit)
+            depth = H.resolve_overlap_depth(
+                explicit, dtype=args.dtype, n=px * args.nx_local,
+                world=n_dev)
             rep.banner(f"OVERLAP stencil2d_grid depth resolved -> {depth}")
 
         timer = PhaseTimer(skip_first=args.n_warmup)
@@ -248,7 +251,7 @@ def main(argv=None) -> int:
         "schedule, 2 = host-scheduled pipeline with the both-axis exchange "
         "in flight on a comm stream under the core derivatives (--kernel "
         "torch; with hand a NOTE, and the fused serial step runs), auto = "
-        "the prior depth (the schedule cache is not ported)",
+        "the halo/overlap cache winner, else the prior (1)",
     )
     args = p.parse_args(argv)
     for name in ("nx_local", "ny_local", "n_iter"):

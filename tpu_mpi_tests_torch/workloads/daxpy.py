@@ -9,9 +9,9 @@ trace ranges + phase timers, printed as ``TIME <phase> : <s>``.
 
 The kernel is the torch tier (``kernels.daxpy.daxpy``, one launch), as the
 JAX spec runs XLA's fused op. The JAX spec's ``daxpy/chunk`` knob stays at
-its prior, 1 (one launch per iteration), until ``tune/`` is ported
-(ROADMAP queue 1 item 17); its serve handler waits for ``serve/`` (item
-19). In a world of several ranks every rank runs the spec on its own
+its prior, 1 (one launch per iteration), until its space is declared
+(the rest of ROADMAP queue 1 item 17); its serve handler waits for
+``serve/`` (item 19). In a world of several ranks every rank runs the spec on its own
 card and reports as the JAX spec does on one of several devices.
 """
 

@@ -3,10 +3,11 @@
 
 Arg parsing through the shared ``base_parser``, the device (the card
 unless ``--device cpu``), the reporter, and the ``build → step →
-verify`` hook sequence under a ProfilerGate with a shared PhaseTimer.
-Telemetry, memwatch, tune and ``--trace-out`` are ROADMAP queue 1 items
-17–18; the ``WORKLOAD`` bench row comes with the first spec that has
-one.
+verify`` hook sequence under a ProfilerGate with a shared PhaseTimer;
+the reporter configures the schedule cache (``--tune``, ``--tune-cache``,
+``--tune-pack``, ``--tune-budget``). Telemetry, memwatch and
+``--trace-out`` are ROADMAP queue 1 item 18; the ``WORKLOAD`` bench row
+comes with the first spec that has one.
 
 ``main(argv)`` is the umbrella CLI (``python -m
 tpu_mpi_tests_torch.workloads <name> ...``); each spec module also

@@ -18,15 +18,21 @@ hand RDMA ring, ``hand.ring_halo``, the shard running as an (n, 1)
 column; at world=1 it launches and moves nothing). The derivative is the
 torch-op stencil (the XLA tier's counterpart), as in the JAX package.
 
+``--staging auto`` resolves the ``halo/staging`` knob through the
+schedule cache (the tuned winner for this dtype, extent and ring size,
+else DIRECT); with ``--tune`` a cache miss first sweeps the staging
+candidates on this buffer, each priced by a chained feedback loop of
+exchanges (``tune.sweep.feedback_rate``), and the run prints ``TUNE
+halo/staging resolved -> <mode>``.
+
 ``--overlap {1,2,auto}`` then runs the double-buffered halo pipeline
 for ``--overlap-iters`` steps on a copy of the verified field
-(``comm/halo.py``'s overlap engine; ``auto`` resolves to the prior depth
-1); depth 2 is held bit for bit against a depth-1 rerun and prints
-``OVERLAP FAIL`` and exits 1 on a difference.
-
-Not ported yet, each raising with the ROADMAP item that brings it:
-``--staging auto`` and ``--tune`` (the tune cache, queue 1 item 17). The
-serve-mode ``halo`` handler waits for ``serve/`` (queue 1 item 19).
+(``comm/halo.py``'s overlap engine; ``auto`` resolves the
+``halo/overlap`` knob, and with ``--tune`` a miss sweeps the depths
+first, each priced on a short pipeline run); depth 2 is held bit for bit
+against a depth-1 rerun and prints ``OVERLAP FAIL`` and exits 1 on a
+difference. The serve-mode ``halo`` handler waits for ``serve/``
+(queue 1 item 19).
 """
 
 from __future__ import annotations
@@ -36,7 +42,6 @@ import time
 
 import numpy as np
 
-from tpu_mpi_tests_torch.utils import TpuMtError
 from tpu_mpi_tests_torch.workloads import register_spec
 from tpu_mpi_tests_torch.workloads.spec import RunContext, WorkloadSpec
 
@@ -65,8 +70,9 @@ class Stencil1dSpec(WorkloadSpec):
             default="direct",
             choices=["direct", "device", "host", "pallas", "auto"],
             help="halo staging mode (≅ reference stage_host/device "
-            "variants; 'pallas' is the hand RDMA ring); 'auto' (the tuned "
-            "winner) is not ported and raises",
+            "variants; 'pallas' is the hand RDMA ring; 'auto' = the "
+            "schedule cache's winner for this configuration, else direct "
+            "— with --tune a cache miss runs the measured sweep first)",
         )
         p.add_argument(
             "--tol",
@@ -80,20 +86,16 @@ class Stencil1dSpec(WorkloadSpec):
             choices=["0", "1", "2", "auto"],
             help="run the double-buffered halo pipeline after the gate: "
             "0 = off (default), 1 = the serialized schedule, 2 = exchange "
-            "in flight under the interior compute, auto = the prior depth "
-            "(the schedule cache is not ported); depth>=2 is verified bit "
-            "for bit against depth 1",
+            "in flight under the interior compute, auto = the schedule "
+            "cache's depth, else the prior (1; with --tune a cache miss "
+            "sweeps the depths first); depth>=2 is verified bit for bit "
+            "against depth 1",
         )
         p.add_argument(
             "--overlap-iters",
             type=int,
             default=32,
             help="pipeline steps for --overlap (default 32)",
-        )
-        p.add_argument(
-            "--tune",
-            action="store_true",
-            help="the measured autotuner: not ported; raises",
         )
 
     def check_args(self, p, args) -> None:
@@ -103,12 +105,6 @@ class Stencil1dSpec(WorkloadSpec):
             args.n_global = args.n_global_mi * 1024 * 1024
         if args.n_global < 1:
             p.error(f"global size must be positive, got {args.n_global}")
-        if args.tune or args.staging == "auto":
-            raise TpuMtError(
-                "--tune / --staging auto (the halo staging sweep and the "
-                "schedule cache) are not ported yet: ROADMAP queue 1 item "
-                "17"
-            )
 
     def build(self, ctx: RunContext):
         from tpu_mpi_tests_torch.arrays.domain import Domain1D
@@ -131,8 +127,14 @@ class Stencil1dSpec(WorkloadSpec):
         )
         # the shard is computed on its device (a multi-GB host→device
         # init transfer is the wrong tool at 32Mi+ scale)
-        zg = block(H.staging_buffer(C.device_init(
-            lambda r: d.init_shard_torch(f, r, dtype, ctx.device)), staging))
+        zg = block(C.device_init(
+            lambda r: d.init_shard_torch(f, r, dtype, ctx.device)))
+        if staging is H.Staging.AUTO:
+            if args.tune:
+                _tune_staging(zg, world)
+            staging = H.resolve_staging("auto", zg, 0, world)
+            ctx.rep.banner(f"TUNE halo/staging resolved -> {staging.value}")
+        zg = block(H.staging_buffer(zg, staging))
         return {"zg": zg, "staging": staging, "d": d, "df": df,
                 "dtype": dtype}
 
@@ -203,6 +205,31 @@ class Stencil1dSpec(WorkloadSpec):
         return 0
 
 
+def _tune_staging(zg, world: int) -> None:
+    """The ``halo/staging`` sweep on this buffer (≅ JAX
+    ``stencil1d.py:112-135``): each candidate prices a chained feedback
+    loop of exchanges on a copy (``feedback_rate``; CUDA events on the
+    card), the pallas candidate on a copy in the ring's peer memory; a
+    candidate that cannot run is declined with its reason. The winner is
+    stored (rank 0 decides and writes) and resolved by the caller."""
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.tune.sweep import ensure_tuned, feedback_rate
+
+    def measure(cand):
+        staging = H.Staging.parse(cand)
+        if staging is H.Staging.PALLAS_RDMA and H.rdma_refusal():
+            raise ValueError(f"pallas cannot run here "
+                             f"({H.rdma_refusal()})")
+        z = H.staging_buffer(zg.clone(), staging)
+        sec, z = feedback_rate(
+            lambda t: H.halo_exchange(t, 0, 2, False, staging), z)
+        del z
+        return sec
+
+    ensure_tuned("halo/staging", measure, device_fallback=False,
+                 **H._staging_context(zg, 0, world))
+
+
 def _run_overlap(args, rep, world, zg, d) -> int:
     """The ``--overlap`` mode (≅ the JAX ``_run_overlap``): the 1-D
     Jacobi pipeline (``halo.overlap_jacobi_fns``) for ``--overlap-iters``
@@ -228,7 +255,19 @@ def _run_overlap(args, rep, world, zg, d) -> int:
         z = H.overlap_steps(runner, fns, zg.clone(), n)
         return block(z), runner
 
-    depth = H.resolve_overlap_depth(explicit)
+    ctx = {"dtype": args.dtype, "n": args.n_global, "world": world}
+    if explicit is None and args.tune:
+        from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
+
+        def measure(cand):
+            # warm outside the window, then a short pipeline run
+            pipeline(int(cand), 1)
+            t0 = time.perf_counter()
+            pipeline(int(cand), max(4, n_iters // 4))
+            return time.perf_counter() - t0
+
+        ensure_tuned("halo/overlap", measure, device_fallback=False, **ctx)
+    depth = H.resolve_overlap_depth(explicit, **ctx)
     rep.banner(f"OVERLAP halo depth resolved -> {depth}")
 
     pipeline(depth, 1)  # warm
