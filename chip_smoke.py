@@ -250,7 +250,24 @@ failure exits non-zero and prints no result line):
    and ``--managed --kernel hand`` at the reference sizes (launches
    exact). The world=2 legs' ``tune`` part (and world 4 on four cards)
    runs ``stencil2d --iterate-tier auto --tune`` over the ranks
-   (``_nccl_tune``);
+   (``_nccl_tune``). Then the instrument slice
+   (``run_instrument_slice``): ``collbench --collectives auto --tune``
+   at the ladder (every variant measured or declined, then all cache
+   hits, the explicit winners' rows the auto rows), ``attnbench --tune``
+   at 8192×128 in bf16 ``--fast`` and f32 (the tuned ring bit for bit the
+   explicit winner's), ``daxpy --iters 64 --tune`` at 2^26 (the same
+   ``SUM``), ``stencil2d --rdma`` at the reference sizes with
+   ``--telemetry --memwatch --jsonl --trace-out --deadline``, with
+   ``--telemetry --jsonl`` alone and with ``--debug-nans`` (each
+   launching exactly what the flagless run does; the records, the
+   trace, and the ITER exchange means of the three on a ``SPAN_PRICE``
+   line), a NaN stopping ``stencil2d_iterate`` and ``halo_exchange``,
+   and a watchdog child hung on spin kernels (exit 9, the dump without
+   a synchronize); the world=2 ``coll_tune`` leg runs ``collbench
+   --collectives auto --tune`` over two cards (``_nccl_coll_tune``) and
+   ``attnbench --tiers ring --tune``, where a ring depth above 1 runs
+   (``_nccl_ring_tune``: the ring through the cache bit for bit the
+   explicit winner's and depth 1's and 2's);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -2153,6 +2170,7 @@ def run_main_path(device):
     recs["one_card"] = run_one_card_slice(device, counts, peaks)
     recs["overlap"] = run_overlap_slice(device, counts, per_step, peaks)
     recs["tune"] = run_tune_slice(device, counts, peaks)
+    recs["instrument"] = run_instrument_slice(device, counts, peaks)
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -2461,6 +2479,345 @@ OVERLAP_SPIN_CYCLES = 4_000_000
 OVERLAP_TOL = {"jacobi": (1e-6, 1e-12), "heat": (1e-6, 1e-7),
                "grid": (1e-4, 1e-3)}
 OVERLAP_RESIDUAL_RTOL = 1e-5
+
+
+#: the instrument slice: collbench's chain length at 1 MiB (the rows
+#: scale it up inversely, to 25600 at 4 KiB), attnbench's chain, the
+#: daxpy length and the watchdog child's spin (~0.5 s a launch at the
+#: card's ~2 GHz, eight launches queued behind one deadline of 2 s)
+INSTR_COLL_N_ITER = 100
+INSTR_ATTN_N_ITER = 110
+INSTR_DAXPY_N = 1 << 26
+WATCHDOG_SPIN_CYCLES = 1_000_000_000
+WATCHDOG_DEADLINE_S = 2.0
+
+#: the watchdog child: a deadline that runs out while the main thread
+#: waits for queued spin kernels; torch.cuda.synchronize is wrapped so a
+#: call from any thread but the main one (the fire's dump) prints a line
+WATCHDOG_CHILD = r"""
+import sys, threading, torch
+from tpu_mpi_tests_torch.instrument import telemetry as T
+from tpu_mpi_tests_torch.instrument import watchdog as WD
+from tpu_mpi_tests_torch.instrument.report import Reporter
+jsonl, cycles, deadline = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+rep = Reporter(jsonl_path=jsonl)
+T.enable(sink=rep.jsonl)
+real = torch.cuda.synchronize
+def synchronize(*a, **k):
+    if threading.current_thread() is not threading.main_thread():
+        print("SYNC FROM " + threading.current_thread().name,
+              file=sys.stderr, flush=True)
+    return real(*a, **k)
+torch.cuda.synchronize = synchronize
+held = torch.ones(1 << 24, device="cuda")
+torch.cuda.synchronize()
+for i in range(8):
+    WD.note_comm_op(f"spin(launch={i}, cycles={cycles})")
+    torch.cuda._sleep(cycles)
+with WD.deadline(deadline, "spin"):
+    torch.cuda.synchronize()
+print("UNREACHED")
+"""
+
+
+def _coll_rows(text):
+    import re
+
+    from tpu_mpi_tests_torch.drivers import collbench
+
+    return [(r[0], int(r[1]), int(r[4]))
+            for r in re.findall(collbench.COLL_LINE_RE, text)]
+
+
+def _iter_means(text):
+    """``{(dim, buf): exchange mean}`` of a stencil2d run's ITER lines."""
+    import re
+
+    return {f"dim{d} buf{b}": float(m) for d, b, m in re.findall(
+        r"^ITER dim:(\d), device , buf:(\d); exchange mean=(\S+),",
+        text, re.M)}
+
+
+def run_instrument_slice(device, counts, peaks):
+    """The instrument spine and the last knob owners on the card, each
+    path alone:
+
+    * ``collbench --collectives auto --tune`` at the driver's ladder
+      (4 KiB-16 MiB f32) on a fresh cache: a ``tune_result`` per base
+      and size, every candidate measured or declined with its reason; the same run again is all
+      ``tune_hit``; each winner run explicitly gives the auto run's
+      ``COLL`` rows (name, bytes, chain length); the candidates' ring
+      and one-shot launches on their routes;
+    * ``attnbench --tiers flash,ring --tune`` at L=8192, d=128 in bf16
+      ``--fast`` and f32: the ``ring/tier`` records, and no
+      ``ring/pipeline_depth`` sweep (the ring clamps the depth to the
+      world, 1 here: the world-2 ``coll_tune`` leg sweeps it); the ring
+      resolved through that cache equal bit for bit to the explicit
+      winner and to depth 1;
+    * ``daxpy --iters 64 --tune`` at 2^26: the chunk winner, its ``SUM``
+      the untuned run's;
+    * ``stencil2d --rdma`` at the reference sizes with ``--telemetry
+      --memwatch --jsonl --trace-out --deadline 600``: ``manifest``,
+      ``topo``, ``clock_sync`` first, ``span`` records of the exchange
+      and the allreduce with seconds > 0, ``mem`` records with the card's
+      ``bytes_in_use``, ``telemetry_summary``, a trace the port's
+      timeline wrote; its launches and routes exactly those of the
+      flagless ``stencil2d --rdma`` path, as are a ``--telemetry
+      --jsonl`` run's; the three runs' ``ITER`` exchange means on a line
+      of their own (a span's price; nothing gates on it);
+    * the same run under ``--debug-nans``: launches and routes exact;
+      a NaN in a field stops ``stencil2d_iterate`` and ``halo_exchange``
+      with ``FloatingPointError`` naming the op;
+    * a child process whose ``--deadline`` runs out while it waits for
+      queued spin kernels: it exits 9 after printing the flight recorder
+      and the memory state and writing the ``watchdog`` record, and its
+      dump never calls ``torch.cuda.synchronize``.
+
+    Returns the collbench winners."""
+    import shutil
+
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm import ring as TR
+    from tpu_mpi_tests_torch.drivers import attnbench, collbench, daxpy, \
+        stencil2d
+    from tpu_mpi_tests_torch.instrument import nans
+    from tpu_mpi_tests_torch.kernels import hand
+    from tpu_mpi_tests_torch.tune import registry as treg
+
+    tmp = tempfile.mkdtemp(prefix="smoke_instr_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    keep = os.path.join(here, "chiprun_out", "instrument")
+    os.makedirs(keep, exist_ok=True)
+    ladder = ",".join(str(k) for k in COLLBENCH_SIZES_KIB)
+
+    # collbench --collectives auto --tune, then all cache hits
+    cache = os.path.join(tmp, "coll.json")
+    jl = os.path.join(tmp, "coll.jsonl")
+    base = ["--device", device.type, "--collectives", "auto",
+            "--sizes-kib", ladder, "--n-iter", str(INSTR_COLL_N_ITER),
+            "--tune", "--tune-budget", str(TUNE_BUDGET_S), "--tune-cache",
+            cache]
+    path = "collbench --collectives auto --tune"
+    counts[path] = drive_driver(
+        path, collbench, base + ["--jsonl", jl],
+        ["ring_allgather", "ring_reduce_scatter", "oneshot"],
+        ("TUNE coll_variant/allreduce winner=",), peaks)
+    for name in ("ring_allgather", "ring_reduce_scatter"):
+        check_routes(path, name, {"vec16": counts[path][name]})
+    check_routes(path, "oneshot", {"vec16": counts[path]["oneshot"]})
+    for r in _jsonl_records(jl, "tune"):
+        log(f"  SWEEP {r['knob']} {r['candidate']}: {r.get('seconds')} "
+            f"{r.get('error', '')}")
+        if r.get("skipped") or (r.get("seconds") is None
+                                and not r.get("error")):
+            raise SmokeFailure(f"{path}: candidate {r} was neither "
+                               f"measured nor declined")
+    results = _jsonl_records(jl, "tune_result")
+    winners = {}
+    for r in results:
+        if r["knob"].startswith("coll_variant/"):
+            winners[(r["knob"].split("/")[1], r["fingerprint"])] = r["value"]
+    if len(winners) != 2 * len(COLLBENCH_SIZES_KIB) or len(results) != \
+            len(winners):
+        raise SmokeFailure(f"{path}: tune_result records {results}")
+    auto_rows = _coll_rows(DRIVER_TEXT[path])
+    path_hit = "collbench --collectives auto --tune (cache hits)"
+    counts[path_hit] = drive_driver(path_hit, collbench, base, [],
+                                    ("TUNE coll_variant/allreduce "
+                                     "cache-hit",),
+                                    peaks)
+    hit_text = DRIVER_TEXT[path_hit]
+    if "winner=" in hit_text or hit_text.count("cache-hit") != \
+            len(results):
+        raise SmokeFailure(f"{path_hit}: the rerun swept")
+    if _coll_rows(hit_text) != auto_rows:
+        raise SmokeFailure(f"{path_hit}: rows {_coll_rows(hit_text)} != "
+                           f"{auto_rows}")
+    explicit_rows = []
+    by_name = {}
+    for name, nbytes, _ in auto_rows:
+        by_name.setdefault(name, []).append(str(nbytes // 1024))
+    for name, sizes in by_name.items():
+        p = f"collbench {name} (the auto winner)"
+        counts[p] = drive_driver(
+            p, collbench, ["--device", device.type, "--collectives", name,
+                           "--sizes-kib", ",".join(sizes), "--n-iter",
+                           str(INSTR_COLL_N_ITER)], [], ("COLL ",), peaks)
+        explicit_rows += _coll_rows(DRIVER_TEXT[p])
+    if sorted(explicit_rows) != sorted(auto_rows):
+        raise SmokeFailure(f"collbench: the explicit winners' rows "
+                           f"{explicit_rows} != the auto rows {auto_rows}")
+    log(f"COLL TUNE winners {json.dumps({f'{b} {fp}': v for (b, fp), v in winners.items()})}")
+
+    # attnbench --tune, bf16 --fast and f32
+    for dtype, fast in (("bfloat16", True), ("float32", False)):
+        cache = os.path.join(tmp, f"attn_{dtype}.json")
+        jl = os.path.join(tmp, f"attn_{dtype}.jsonl")
+        path = f"attnbench --tune {dtype}{' --fast' if fast else ''}"
+        counts[path] = drive_driver(
+            path, attnbench, ["--device", device.type, "--tiers",
+                              "flash,ring", "--seq-len", "8192",
+                              "--head-dim", "128", "--dtype", dtype,
+                              "--n-iter", str(INSTR_ATTN_N_ITER), "--tune",
+                              "--tune-budget", str(TUNE_BUDGET_S),
+                              "--tune-cache", cache, "--jsonl", jl]
+            + (["--fast"] if fast else []),
+            ["flash_attention_block", "fused_ring_attention"],
+            ("ATTN flash", "ATTN ring"), peaks)
+        got = {r["knob"]: r["value"]
+               for r in _jsonl_records(jl, "tune_result")}
+        for r in _jsonl_records(jl, "tune"):
+            log(f"  SWEEP {dtype} {r['knob']} {json.dumps(r['candidate'])}: "
+                f"{r.get('seconds')} {r.get('error', '')}")
+        precision = "default" if fast else "highest"
+        tdt = getattr(torch, dtype)
+        if set(got) != {"ring/tier"}:
+            raise SmokeFailure(f"{path}: tune results {got}")
+        log(f"ATTN TUNE {dtype} winners {json.dumps(got)}")
+        # the ring through that cache == the explicit winner == depth 1
+        treg.configure(cache_path=cache)
+        try:
+            gen = torch.Generator(device=device).manual_seed(20)
+            q, k, v = (torch.randn((8192, 128), generator=gen,
+                                   device=device).to(tdt) for _ in range(3))
+            with hand.matmul_precision(precision):
+                outs = [TR.ring_attention_fn(
+                    1, flash=True, precision=precision, depth=dp,
+                    tier=tier)(q, k, v) for dp, tier in (
+                        (None, None), (1, got["ring/tier"]))]
+        finally:
+            treg.deconfigure()
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise SmokeFailure(f"{path}: the tuned ring differs from the "
+                               f"explicit winner")
+
+    # daxpy --iters 64 --tune at 2^26: the chunk winner, the same SUM
+    sums = {}
+    djl = os.path.join(tmp, "daxpy.jsonl")
+    for name, extra in (("daxpy --iters 64", []),
+                        ("daxpy --iters 64 --tune", [
+                            "--tune", "--tune-cache",
+                            os.path.join(tmp, "daxpy.json"), "--jsonl",
+                            djl])):
+        counts[name] = drive_driver(
+            name, daxpy, ["--device", device.type, "--n",
+                          str(INSTR_DAXPY_N), "--iters", "64"] + extra, [],
+            ("SUM = ",), peaks)
+        sums[name] = [ln for ln in DRIVER_TEXT[name].splitlines()
+                      if " SUM = " in ln]
+    if len(set(map(tuple, sums.values()))) != 1 or \
+            "TUNE daxpy/chunk winner=" not in DRIVER_TEXT[name]:
+        raise SmokeFailure(f"daxpy --tune: sums {sums}")
+    for r in _jsonl_records(djl, "tune"):
+        log(f"  SWEEP daxpy/chunk {r['candidate']}: {r.get('seconds')} "
+            f"s an application")
+
+    # stencil2d --rdma with the spine's flags, against the flagless path
+    argv = stencil2d_rdma_argv(device)
+    jl = os.path.join(tmp, "stencil2d.jsonl")
+    trace = os.path.join(tmp, "stencil2d.trace.json")
+    path = "stencil2d --rdma --telemetry"
+    counts[path] = drive_driver(
+        path, stencil2d, argv + ["--telemetry", "--memwatch", "--jsonl", jl,
+                                 "--trace-out", trace, "--deadline", "600"],
+        ["ring_halo", "stencil2d_deriv", "ring_reduce_scatter"],
+        ("MANIFEST gpu", "TELEMETRY halo_exchange_rdma :",
+         "TELEMETRY allreduce_rdma :", f"TRACE {trace}: "), peaks)
+    flagless = "stencil2d --rdma"
+    spans_only = "stencil2d --rdma --telemetry (spans only)"
+    for p, extra in ((spans_only, ["--telemetry", "--jsonl",
+                                   os.path.join(tmp, "spans.jsonl")]),
+                     ("stencil2d --rdma --debug-nans", ["--debug-nans"])):
+        counts[p] = drive_driver(p, stencil2d, argv + extra, ["ring_halo"],
+                                 ("allreduce=",), peaks)
+    for p in (path, spans_only, "stencil2d --rdma --debug-nans"):
+        if counts[p] != counts[flagless] or \
+                ROUTE_COUNTS[p] != ROUTE_COUNTS[flagless]:
+            raise SmokeFailure(f"{p}: launches {counts[p]} / routes differ "
+                               f"from the flagless run's {counts[flagless]}")
+    with open(jl) as f:
+        recs = [json.loads(line) for line in f]
+    if [r["kind"] for r in recs[:3]] != ["manifest", "topo", "clock_sync"]:
+        raise SmokeFailure(f"{path}: the JSONL starts "
+                           f"{[r['kind'] for r in recs[:3]]}")
+    spans = [r for r in recs if r["kind"] == "span"]
+    for op in ("halo_exchange_rdma", "allreduce_rdma"):
+        mine = [r for r in spans if r["op"] == op]
+        if not mine or not all(r["seconds"] > 0 for r in mine):
+            raise SmokeFailure(f"{path}: {op} spans {mine[:2]}")
+    mem = [r for r in recs if r["kind"] == "mem"]
+    if not mem or not all(r.get("bytes_in_use", 0) > 0 for r in mem):
+        raise SmokeFailure(f"{path}: mem records {mem[:2]}")
+    if not [r for r in recs if r["kind"] == "telemetry_summary"]:
+        raise SmokeFailure(f"{path}: no telemetry_summary")
+    with open(trace) as f:
+        doc = json.load(f)
+    if not any(e["ph"] == "X" for e in doc["traceEvents"]):
+        raise SmokeFailure(f"{path}: the trace has no span")
+    shutil.copy(jl, keep)
+    shutil.copy(trace, keep)
+    log(f"SPAN_PRICE ITER exchange mean (s) stencil2d --rdma "
+        f"{json.dumps(_iter_means(DRIVER_TEXT[flagless]))}; --telemetry "
+        f"--jsonl {json.dumps(_iter_means(DRIVER_TEXT[spans_only]))}; "
+        f"with --memwatch --trace-out --deadline too "
+        f"{json.dumps(_iter_means(DRIVER_TEXT[path]))}; spans "
+        f"{json.dumps({op: [len(v), sum(v) / len(v)] for op, v in _span_seconds(spans).items()})}")
+
+    # --debug-nans: a NaN stops the op that made it
+    z = torch.zeros((REF_N_LOCAL + 4, 8192), device=device)
+    z[100, 100] = float("nan")
+    nans.arm(True)
+    try:
+        for op, run in (
+                ("stencil2d_iterate",
+                 lambda: hand.stencil2d_iterate(z, 0.1, dim=0, steps=1)),
+                ("halo_exchange",
+                 lambda: H.halo_exchange(z, axis=0, periodic=True))):
+            try:
+                run()
+            except FloatingPointError as e:
+                if op not in str(e):
+                    raise SmokeFailure(f"--debug-nans named {e}") from e
+                log(f"DEBUG_NANS {op}: {e}")
+            else:
+                raise SmokeFailure(f"--debug-nans: {op} did not stop")
+    finally:
+        nans.arm(False)
+
+    # the watchdog: a child hung in a wait on spin kernels
+    wjl = os.path.join(tmp, "watchdog.jsonl")
+    child = subprocess.run(
+        [sys.executable, "-c", WATCHDOG_CHILD, wjl,
+         str(WATCHDOG_SPIN_CYCLES), str(WATCHDOG_DEADLINE_S)], cwd=here,
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": here + os.pathsep
+             + os.environ.get("PYTHONPATH", "")})
+    for line in child.stderr.splitlines():
+        log(f"  WATCHDOG child: {line}")
+    wrecs = _jsonl_records(wjl, "watchdog")
+    wmem = [r for r in _jsonl_records(wjl, "mem")
+            if r.get("event") == "watchdog"]
+    if (child.returncode != 9 or "UNREACHED" in child.stdout
+            or "WATCHDOG: phase 'spin' exceeded" not in child.stderr
+            or "spin(launch=7" not in child.stderr
+            or "HBM dev" not in child.stderr
+            or "SYNC FROM" in child.stderr or len(wrecs) != 1
+            or not wmem or not wmem[0].get("bytes_in_use")):
+        raise SmokeFailure(f"watchdog child: rc={child.returncode} "
+                           f"records {wrecs} {wmem}\n{child.stderr}")
+    log(f"WATCHDOG child exited {child.returncode} after "
+        f"{WATCHDOG_DEADLINE_S} s with the flight recorder and the "
+        f"memory state, no synchronize in its dump")
+    return {f"{b} {fp}": v for (b, fp), v in winners.items()}
+
+
+def _span_seconds(spans):
+    out = {}
+    for r in spans:
+        out.setdefault(r["op"], []).append(r["seconds"])
+    return out
 
 
 def overlap_launches():
@@ -3775,7 +4132,7 @@ def time_coll_kernels(device, gen):
 
 #: the NCCL leg's parts, in the order a rank runs them
 WORLD2_LEGS = ("rdma", "staged", "collectives", "attention", "grid",
-               "tune")
+               "tune", "coll_tune")
 #: the legs that run at world 4 too, where there are four cards
 WORLD4_LEGS = ("grid", "tune")
 #: the process grids the grid leg runs at each world
@@ -3845,7 +4202,17 @@ def rdma_world2_legs(legs=WORLD2_LEGS):
                     "4 on four cards): rank 0 swept stencil/tier, every "
                     "rank ran its winner, only rank 0's cache was written, "
                     "and the tuned, cache-hit and explicit runs' fields "
-                    "are equal bit for bit on every rank"}
+                    "are equal bit for bit on every rank",
+            "coll_tune": "collbench --collectives auto --tune over the two "
+                         "ranks: rank 0 swept coll_variant/*, every rank "
+                         "ran the same winners, only rank 0's cache was "
+                         "written, each rank's JSONL its own .p<r> file "
+                         "with its clock_sync offset; attnbench --tune: "
+                         "rank 0 swept ring/pipeline_depth (depth 4 "
+                         "declined) and ring/tier, every rank ran the "
+                         "winners, the ring through the cache equal to "
+                         "the explicit winner and depths 1 and 2 bit for "
+                         "bit"}
     log("RDMA world=2 NCCL leg: " + "; ".join(done[leg] for leg in legs))
 
 
@@ -3883,6 +4250,11 @@ def _nccl_rank(rank, world, init_method, legs=WORLD2_LEGS):
         if "tune" in legs:
             _nccl_tune(rank, world,
                        os.path.dirname(init_method[len("file://"):]))
+        if "coll_tune" in legs:
+            _nccl_coll_tune(rank, world,
+                            os.path.dirname(init_method[len("file://"):]))
+            _nccl_ring_tune(rank, world,
+                            os.path.dirname(init_method[len("file://"):]))
     finally:
         dist.shutdown()
 
@@ -3960,6 +4332,162 @@ def _nccl_tune(rank, world, tmp):
             f"only rank 0's cache written; fields equal bit for bit "
             f"(rank 0 bits {bits['explicit']})")
 
+
+
+def _nccl_coll_tune(rank, world, tmp):
+    """``collbench --collectives auto --tune`` at the driver's ladder over
+    ``world`` ranks, one card each, with a JSONL (no ``--telemetry``: a
+    span's device-wide wait would be priced with each candidate): rank
+    0 sweeps the variants (its ``tune`` records alone), every rank runs
+    the broadcast winners (the same ``COLL`` rows), only rank 0's cache
+    file is written, and each rank's records go to its own ``.p<r>``
+    file, opened by the barrier-echo ``clock_sync``. Then the ring's
+    schedule (:func:`_nccl_ring_tune`)."""
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.drivers import collbench
+    from tpu_mpi_tests_torch.instrument.report import rank_suffixed_path
+
+    own = os.path.join(tmp, f"coll_tune.r{rank}.json")
+    jl = os.path.join(tmp, "coll_tune.jsonl")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = collbench.main([
+            "--device", dist.world().device.type, "--collectives", "auto",
+            "--sizes-kib", ",".join(str(k) for k in COLLBENCH_SIZES_KIB),
+            "--n-iter", str(INSTR_COLL_N_ITER), "--tune", "--tune-budget",
+            str(TUNE_BUDGET_S), "--tune-cache", own, "--jsonl", jl])
+    text = out.getvalue()
+    if rc != 0 or "FAIL" in text:
+        raise SmokeFailure(f"coll_tune leg rank {rank}: rc={rc}\n{text}")
+    mine = rank_suffixed_path(jl, rank)
+    measured = _jsonl_records(mine, "tune")
+    results = {r["knob"] + " " + r["fingerprint"]: r["value"]
+               for r in _jsonl_records(mine, "tune_result")}
+    (sync,) = _jsonl_records(mine, "clock_sync")
+    every = [None] * world
+    tdist.all_gather_object(every, {"rows": _coll_rows(text),
+                                    "results": results,
+                                    "measured": len(measured),
+                                    "sync": sync})
+    tdist.barrier()
+    written = [os.path.exists(os.path.join(tmp, f"coll_tune.r{r}.json"))
+               for r in range(world)]
+    if rank != 0:
+        return
+    if any(e["rows"] != every[0]["rows"] or e["results"] !=
+           every[0]["results"] for e in every):
+        raise SmokeFailure(f"coll_tune leg: the ranks ran different "
+                           f"winners {every}")
+    if [bool(e["measured"]) for e in every] != [True] + [False] * (
+            world - 1) or written != [True] + [False] * (world - 1):
+        raise SmokeFailure(f"coll_tune leg: measured {[e['measured'] for e in every]}, "
+                           f"caches written {written}")
+    if any(e["sync"]["method"] != "barrier_echo" for e in every):
+        raise SmokeFailure(f"coll_tune leg: clock_sync {every}")
+    for line in text.splitlines():
+        if line.startswith(("TUNE", "COLL")):
+            log(f"  COLL_TUNE leg world={world}: {line}")
+    for r in measured:
+        log(f"  COLL_TUNE leg world={world}: SWEEP {r['knob']} "
+            f"{r['candidate']}: {r.get('seconds')} {r.get('error', '')}")
+    log(f"COLL_TUNE leg world={world}: every rank ran "
+        f"{[row[0] for row in every[0]['rows']]}; only rank 0 measured and "
+        f"wrote its cache; clock_sync offsets "
+        f"{[e['sync']['offset_s'] for e in every]} s, spreads "
+        f"{[e['sync']['spread_s'] for e in every]} s")
+
+
+def _nccl_ring_tune(rank, world, tmp):
+    """``attnbench --tiers ring --tune`` at L=8192, d=128, bf16 ``--fast``
+    over ``world`` ranks, where a ring depth above 1 runs: rank 0 sweeps
+    ``ring/pipeline_depth`` (the depths above the world declined with
+    the ring's clamp as the reason, the others measured) and
+    ``ring/tier``, every rank applies the broadcast winners; then every
+    rank resolves the ring through rank 0's cache, and that output, the
+    explicit winner's and depth 1's and 2's of the winning tier are
+    equal bit for bit on every rank."""
+    import torch
+    import torch.distributed as tdist
+
+    from tpu_mpi_tests_torch.comm import ring as R
+    from tpu_mpi_tests_torch.comm.collectives import shard_1d
+    from tpu_mpi_tests_torch.drivers import attnbench
+    from tpu_mpi_tests_torch.instrument.report import rank_suffixed_path
+    from tpu_mpi_tests_torch.kernels import hand
+    from tpu_mpi_tests_torch.tune import registry as treg
+
+    jl = os.path.join(tmp, "ring_tune.jsonl")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = attnbench.main([
+            "--device", "cuda", "--tiers", "ring", "--seq-len", str(ATTN_L),
+            "--head-dim", str(ATTN_D), "--dtype", "bfloat16", "--fast",
+            "--n-iter", str(INSTR_ATTN_N_ITER), "--tune", "--tune-budget",
+            str(TUNE_BUDGET_S), "--tune-cache",
+            os.path.join(tmp, f"ring_tune.r{rank}.json"), "--jsonl", jl])
+    text = out.getvalue()
+    if rc != 0 or "FAIL" in text:
+        raise SmokeFailure(f"ring tune leg rank {rank}: rc={rc}\n{text}")
+    mine = rank_suffixed_path(jl, rank)
+    got = {r["knob"]: r["value"] for r in _jsonl_records(mine, "tune_result")}
+    depths = {r["candidate"]: r for r in _jsonl_records(mine, "tune")
+              if r["knob"] == "ring/pipeline_depth"}
+    every = [None] * world
+    tdist.all_gather_object(every, got)
+    if any(e != got for e in every) or set(got) != {"ring/pipeline_depth",
+                                                     "ring/tier"}:
+        raise SmokeFailure(f"ring tune leg: winners by rank {every}")
+    # the ring through rank 0's cache == the explicit winner == depth 1
+    # and 2 of the winning tier, bit for bit
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    g = [torch.randn((ATTN_L, ATTN_D), generator=gen, device="cuda")
+         .to(torch.bfloat16) for _ in range(3)]
+    qkv = [shard_1d(t, "cuda") for t in g]
+    treg.configure(cache_path=os.path.join(tmp, "ring_tune.r0.json"))
+    try:
+        with hand.matmul_precision("default"):
+            outs = [R.ring_attention_fn(world, flash=True,
+                                        precision="default", depth=dp,
+                                        tier=tier)(*qkv)
+                    for dp, tier in ((None, None),
+                                     (got["ring/pipeline_depth"],
+                                      got["ring/tier"]),
+                                     (1, got["ring/tier"]),
+                                     (2, got["ring/tier"]))]
+        torch.cuda.synchronize()
+    finally:
+        treg.deconfigure()
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    every = [None] * world
+    tdist.all_gather_object(every, same)
+    if not all(every):
+        raise SmokeFailure(f"ring tune leg: the ring through the cache, "
+                           f"the explicit winner and depths 1 and 2 differ "
+                           f"(bit-equal by rank: {every})")
+    if rank != 0:
+        return
+    # rank 0's sweep records, read after the last collective
+    for cand, r in sorted(depths.items()):
+        log(f"  RING_TUNE leg world={world}: SWEEP ring/pipeline_depth "
+            f"{cand}: {r.get('seconds')} {r.get('error', '')}")
+        declined = cand > world
+        if (r.get("seconds") is None) != declined or (
+                declined and "clamps the depth to the world"
+                not in r.get("error", "")):
+            raise SmokeFailure(f"ring tune leg: depth candidate {r}")
+    if sorted(depths) != [1, 2, 4] or got["ring/pipeline_depth"] > world:
+        raise SmokeFailure(f"ring tune leg: depth records {depths}, "
+                           f"winner {got}")
+    for r in _jsonl_records(mine, "tune"):
+        if r["knob"] == "ring/tier":
+            log(f"  RING_TUNE leg world={world}: SWEEP ring/tier "
+                f"{r['candidate']}: {r.get('seconds')} "
+                f"{r.get('error', '')}")
+    log(f"RING_TUNE leg world={world}: winners {json.dumps(got)} on "
+        f"every rank; the ring through rank 0's cache == the explicit "
+        f"winner == depth 1 == depth 2, bit for bit")
 
 
 def _grid_leg_launches(name, run, want):
@@ -4567,22 +5095,23 @@ def _nccl_time_collectives(rank, world, gen):
         f"(ms per call): {json.dumps(times)}")
 
 
-def run_rdma_slice(device, counts, per_step, peaks):
-    """The RDMA slice's paths, each alone with exact launch counts: the
-    stencil2d driver with ``--rdma`` at the reference sizes, its iterate
-    leg under ``rdma-chained`` and ``rdma-fused`` (the fused == chained
-    bitwise gate and the OVERLAP line), ``stencil1d --staging pallas`` at
-    32 Mi points, and the bench's two RDMA tiers at 8192² in float32 and
-    bfloat16. Returns the bench records."""
-    from tpu_mpi_tests_torch import bench
-    from tpu_mpi_tests_torch.drivers import stencil1d, stencil2d
-
-    path = "stencil2d --rdma"
-    argv = ["--device", device.type, "--n-local", str(REF_N_LOCAL),
+def stencil2d_rdma_argv(device) -> list:
+    """The ``stencil2d --rdma`` path's argv: the reference sizes, the
+    hand kernels, the RDMA exchange and allreduce."""
+    return ["--device", device.type, "--n-local", str(REF_N_LOCAL),
             "--n-other", str(REF_N_OTHER), "--n-iter",
             str(RDMA_DRIVER_N_ITER), "--n-warmup", str(DRIVER_N_WARMUP),
             "--kernel", "hand", "--rdma"]
-    counts[path] = drive_driver(path, stencil2d, argv,
+
+
+def stencil2d_rdma_path(device, counts, per_step, peaks):
+    """The ``stencil2d --rdma`` path with its exact launches and routes
+    (the RDMA slice's first, and the flagless run the instrument slice
+    holds its runs against)."""
+    from tpu_mpi_tests_torch.drivers import stencil2d
+
+    path = "stencil2d --rdma"
+    counts[path] = drive_driver(path, stencil2d, stencil2d_rdma_argv(device),
                                 ["ring_halo", "stencil2d_deriv",
                                  "ring_reduce_scatter"],
                                 ("TEST dim:0", "TEST dim:1",
@@ -4601,6 +5130,29 @@ def run_rdma_slice(device, counts, per_step, peaks):
     check_routes(path, "ring_halo", ring_routes(
         ("stencil2d --rdma dim 0", legs), ("stencil2d --rdma dim 1", legs)))
     per_step[path] = {"ring_halo": 1.0, "stencil2d_deriv": 1.0}
+
+
+def run_instrument_alone(device):
+    """The instrument slice with the flagless ``stencil2d --rdma`` path it
+    compares against (a short call after editing the spine)."""
+    counts, per_step, peaks = {}, {}, {}
+    stencil2d_rdma_path(device, counts, per_step, peaks)
+    out = run_instrument_slice(device, counts, peaks)
+    log(f"LAUNCHES {json.dumps(counts)}")
+    return out
+
+
+def run_rdma_slice(device, counts, per_step, peaks):
+    """The RDMA slice's paths, each alone with exact launch counts: the
+    stencil2d driver with ``--rdma`` at the reference sizes, its iterate
+    leg under ``rdma-chained`` and ``rdma-fused`` (the fused == chained
+    bitwise gate and the OVERLAP line), ``stencil1d --staging pallas`` at
+    32 Mi points, and the bench's two RDMA tiers at 8192² in float32 and
+    bfloat16. Returns the bench records."""
+    from tpu_mpi_tests_torch import bench
+    from tpu_mpi_tests_torch.drivers import stencil1d, stencil2d
+
+    stencil2d_rdma_path(device, counts, per_step, peaks)
 
     it = DRIVER_ITERATE_ITERS
     for tier, want in (

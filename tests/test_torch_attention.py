@@ -42,7 +42,7 @@ from tpu_mpi_tests_torch.comm.mesh import MeshError
 from tpu_mpi_tests_torch.convert import array_from_jax, state_from_jax
 from tpu_mpi_tests_torch.drivers import attnbench
 from tpu_mpi_tests_torch.kernels import hand
-from tpu_mpi_tests_torch.utils import TpuMtError
+from tpu_mpi_tests_torch.tune import registry as treg
 
 CPU = torch.device("cpu")
 
@@ -338,7 +338,11 @@ def test_attnbench_tiers_run_and_report(capsys, tmp_path):
     for tier in ("xla", "flash", "ring", "ulysses"):
         assert f"ATTN {tier} L=128 d=16 float32 " in out
     assert "FAIL" not in out
-    rows = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    recs = [json.loads(ln) for ln in jsonl.read_text().splitlines()]
+    # the run's manifest, topo and clock_sync records come first
+    assert [r["kind"] for r in recs[:3]] == ["manifest", "topo",
+                                             "clock_sync"]
+    rows = [r for r in recs if r["kind"] == "attn"]
     assert [r["tier"] for r in rows] == ["xla", "flash", "ring", "ulysses"]
     assert set(rows[0]) == ROW_KEYS
     assert set(rows[1]) == ROW_KEYS | {"k_tile_ceiling", "skip_tile_req"}
@@ -361,15 +365,31 @@ def test_attnbench_stripe_requires_causal(capsys):
         attnbench.main(ATTN_ARGS + ["--tiers", "ring", "--stripe"])
 
 
-def test_attnbench_refusals(capsys):
+def test_attnbench_refusals(capsys, tmp_path):
     assert attnbench.main(ATTN_ARGS + ["--tiers", "bogus"]) == 2
     assert "unknown tier" in capsys.readouterr().out
     # --ring-tier fused runs the fused kernel's plain version, tagged
     assert attnbench.main(ATTN_ARGS + ["--tiers", "ring", "--ring-tier",
                                        "fused"]) == 0
     assert "ATTN ring[fused] L=128 d=16 float32 " in capsys.readouterr().out
-    with pytest.raises(TpuMtError, match="ROADMAP queue 1 item 17"):
-        attnbench.main(ATTN_ARGS + ["--tune"])
+    # --tune sweeps the ring's tier on a miss; at world 1 the ring
+    # clamps every depth to 1, so the depth is not swept (a NOTE says
+    # why); a rerun takes the winner from the cache
+    cache = str(tmp_path / "tune.json")
+    try:
+        assert attnbench.main(ATTN_ARGS + ["--tiers", "ring", "--tune",
+                                           "--tune-cache", cache]) == 0
+        cap = capsys.readouterr()
+        assert "TUNE ring/tier winner=" in cap.out, cap.out
+        assert "ring/pipeline_depth" not in cap.out
+        assert "NOTE ring/pipeline_depth sweep: the ring clamps the depth " \
+            "to the world (1)" in cap.err
+        assert attnbench.main(ATTN_ARGS + ["--tiers", "ring", "--tune",
+                                           "--tune-cache", cache]) == 0
+        out = capsys.readouterr().out
+        assert out.count("cache-hit") == 1, out
+    finally:
+        treg.deconfigure()
 
 
 def test_microbench_attention_groups_small(capsys):

@@ -61,6 +61,7 @@ from tpu_mpi_tests_torch.comm.peer import COLL_MAX_WORLD, PeerError
 from tpu_mpi_tests_torch.drivers import collbench, gather_inplace
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.utils import TpuMtError
+from tpu_mpi_tests_torch.tune import registry as treg
 
 WORLDS = (2, 4)
 CASES = [c[0] for c in W.COLL_CASES]
@@ -357,18 +358,37 @@ def test_collbench_world1_rows_and_refusals(capsys, tmp_path):
                                     for _ in range(2)]
     assert all(float(r[3]) == 0.0 for r in rows)  # world=1: nothing moves
     recs = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert [r["kind"] for r in recs[:3]] == ["manifest", "topo",
+                                             "clock_sync"]
+    recs = [r for r in recs if r["kind"] == "coll"]
     assert all(set(r) == {"kind", "collective", "dtype", "shard_bytes",
                           "us_per_iter", "busbw_gbps", "world", "n_iter"}
                | ({"rdma_credits"} if r["collective"] == "allreduce_rdma"
                   else set()) for r in recs)
     assert collbench.main(CPU + ["--collectives", "allgather,bogus"]) == 2
     assert "ERROR unknown collective" in capsys.readouterr().out
-    with pytest.raises(TpuMtError, match="queue 1 item 17"):
-        collbench.main(CPU + ["--collectives", "auto"])
-    with pytest.raises(TpuMtError, match="queue 1 item 17"):
-        collbench.main(CPU + ["--tune"])
-    with pytest.raises(TpuMtError, match="queue 1 item 18"):
-        collbench.main(CPU + ["--telemetry"])
+    # --collectives auto: the collectives with hand twins, each size's
+    # variant resolved (the prior, the library tier, with no cache), the
+    # rows marked auto; --tune sweeps the variants
+    jl2 = tmp_path / "auto.jsonl"
+    cache = str(tmp_path / "tune.json")
+    try:
+        assert collbench.main(CPU + ["--collectives", "auto", "--sizes-kib",
+                                     "4", "--jsonl", str(jl2)]) == 0
+        assert [r[0] for r in coll_rows(capsys.readouterr().out)] == [
+            "allgather", "allreduce"]
+        assert all(r.get("auto") for r in map(json.loads,
+                   jl2.read_text().splitlines()) if r["kind"] == "coll")
+        assert collbench.main(CPU + ["--collectives", "auto", "--tune",
+                                     "--tune-cache", cache, "--sizes-kib",
+                                     "4", "--telemetry"]) == 0
+        out = capsys.readouterr().out
+        for knob in ("coll_variant/allgather", "coll_variant/allreduce"):
+            assert f"TUNE {knob} winner=" in out, out
+        assert "coll/dispatch_depth" not in out  # no reader, no sweep
+        assert "TELEMETRY allreduce :" in out
+    finally:
+        treg.deconfigure()
     with pytest.raises(TpuMtError, match="queue 1 item 19"):
         collbench.serve_step_factory(None, (64,), "float32")
     # the ring's chunking (a COLL-SKIP row, stencil2d's NOTE) refuses
@@ -403,6 +423,9 @@ def test_collbench_rows_at_world(runs, w):
         assert [(row[0], row[5]) for row in c2] == [("allreduce_rdma", "2")]
     recs = [json.loads(line) for line in
             open(f"{runs[w]}/collbench.p0.jsonl").read().splitlines()]
+    assert [rec["kind"] for rec in recs[:3]] == ["manifest", "topo",
+                                                 "clock_sync"]
+    recs = [rec for rec in recs if rec["kind"] == "coll"]
     assert {rec["world"] for rec in recs} == {w}
     assert len(recs) == 2 * len(names)
 

@@ -174,7 +174,9 @@ def test_driver_f32_and_jsonl(capsys, tmp_path):
     jl = tmp_path / "grid.jsonl"
     run_ok(capsys, "--kernel", "hand", "--jsonl", str(jl))
     recs = [json.loads(line) for line in jl.read_text().splitlines()]
-    assert [r["kind"] for r in recs] == ["grid_test", "iter"]
+    assert [r["kind"] for r in recs] == ["manifest", "topo", "clock_sync",
+                                         "grid_test", "iter"]
+    recs = recs[3:]
     assert recs[0]["kernel"] == "hand" and np.isfinite(recs[0]["residual"])
 
 

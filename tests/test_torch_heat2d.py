@@ -153,7 +153,9 @@ def test_driver_f32_higher_mode_and_jsonl(capsys, tmp_path):
     assert rc == 0, out
     recs = [json.loads(line) for line in jl.read_text().splitlines()]
     kinds = [r["kind"] for r in recs]
-    assert kinds == ["heat", "iter", "heat_err"]
+    assert kinds == ["manifest", "topo", "clock_sync", "heat", "iter",
+                     "heat_err"]
+    recs = recs[3:]
     assert recs[0]["kernel"] == "hand" and recs[0]["steps"] == 30
     assert recs[1]["phase"] == "exchange"
     assert recs[2]["rel"] <= recs[2]["tol"]

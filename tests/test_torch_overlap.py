@@ -415,7 +415,7 @@ def test_resolve_overlap_depth_matches_jax(capsys):
 def test_resolve_dispatch_depth_matches_jax():
     for v in (None, 1, 2, 4, 8, 0, -3, "4", "x"):
         assert TC.resolve_dispatch_depth(v) == JC.resolve_dispatch_depth(v)
-    assert TC.COLL_DISPATCH_DEPTH == 1
+    assert tpriors.COLL_DISPATCH_DEPTH == 1
 
 
 def test_dispatch_window_depth1_is_the_per_call_path():

@@ -229,7 +229,10 @@ def jax_attnbench(monkeypatch, capsys, tmp_path, w, extra, feasible=True):
 
 
 def port_rows(path):
-    return [json.loads(ln) for ln in open(path).read().splitlines()]
+    """The ``attn`` rows of a port run's JSONL (its manifest, topo and
+    clock_sync records come first)."""
+    return [r for r in map(json.loads, open(path).read().splitlines())
+            if r["kind"] == "attn"]
 
 
 def line_heads(text):

@@ -295,11 +295,19 @@ def test_rdma_winner_degrades_where_rdma_cannot_run(tmp_path, monkeypatch,
 
 def test_spaces_and_priors():
     sp = treg.spaces()
-    assert set(sp) == {"halo/staging", "stencil/blocks", "stencil/steps",
-                       "stencil/tier", "halo/overlap"}
+    # every space the JAX package declares, but the MoE and embedding
+    # knobs (their modules are not ported), the flash tiles (the CUDA
+    # fold takes no tile argument) and the dispatch depth (its reader,
+    # the serve halo handler, is not ported)
+    assert set(sp) == set(jreg.spaces()) - {
+        "moe/combine", "embedding/lookup", "flash_tiles/contig",
+        "flash_tiles/striped", "coll/dispatch_depth"}
     for knob, space in sp.items():
-        assert set(space.candidates) <= set(jreg.space(knob).candidates) | {
-            "xla", "direct"}, knob
+        # the library tier is "torch" where the JAX package says "xla"
+        jc = ["torch" if c == "xla" and knob.startswith("coll_variant/")
+              else c for c in jreg.space(knob).candidates]
+        assert all(c in jc + ["xla", "direct"] for c in space.candidates), \
+            knob
         assert len(set(space.candidates)) == len(space.candidates)
     assert TH.stencil_tier_candidates("bfloat16")[0] == \
         tpriors.stencil_tier("bfloat16")

@@ -168,3 +168,61 @@ def test_stencil2d_tuned_tier_on_every_rank_against_jax(runs, w):
         "TUNE stencil/tier winner=" in jax_tuned
     for text in (jax_winner, jax_tuned):
         assert "ITER BITWISE fused==chained over 3 calls: OK" in text
+
+
+#: the knobs rank 0 sweeps in the spawned world's knob runs
+FLEET_KNOBS = ("coll_variant/allgather", "coll_variant/allreduce",
+               "ring/pipeline_depth", "ring/tier", "daxpy/chunk")
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_knob_owners_rank0_sweeps_every_rank_applies(runs, w):
+    d, _, res = runs[w]
+    for case in ("knobs_coll", "knobs_attn", "knobs_daxpy"):
+        for r in range(w):
+            text = W.read_text(d, case, r)
+            assert text.startswith("RC 0\n"), text
+    recs = {r: [json.loads(ln) for ln in
+                Path(d, f"knobs.p{r}.jsonl").read_text().splitlines()]
+            for r in range(w)}
+    winners = {r: {rec["knob"]: rec["value"] for rec in recs[r]
+                   if rec["kind"] == "tune_result"} for r in range(w)}
+    for r in range(w):
+        # every rank applied the same broadcast winner of every knob
+        assert set(winners[r]) == set(FLEET_KNOBS)
+        assert winners[r] == winners[0]
+        # only rank 0 measured
+        measured = [rec for rec in recs[r] if rec["kind"] == "tune"]
+        assert bool(measured) == (r == 0)
+        # a ring depth above the world is declined with its reason (the
+        # ring clamps the depth) and never wins
+        depth = {rec["candidate"]: rec for rec in measured
+                 if rec["knob"] == "ring/pipeline_depth"}
+        if r == 0:
+            assert set(depth) == {1, 2, 4}
+            for cand, rec in depth.items():
+                assert (rec["seconds"] is None) == (cand > w), rec
+                if cand > w:
+                    assert f"clamps the depth to the world ({w})" in \
+                        rec["error"]
+        assert winners[r]["ring/pipeline_depth"] <= w
+        # each rank's file, three runs, each opened by its own manifest,
+        # topo and clock_sync (the barrier-echo handshake)
+        kinds = [rec["kind"] for rec in recs[r]]
+        assert kinds.count("manifest") == 3
+        syncs = [rec for rec in recs[r] if rec["kind"] == "clock_sync"]
+        assert len(syncs) == 3
+        assert all(rec["method"] == "barrier_echo" and rec["rank"] == r
+                   and rec["process_count"] == w for rec in syncs)
+        # collbench's auto rows ran the winners, on every rank
+        rows = [rec for rec in recs[r] if rec["kind"] == "coll"]
+        assert [rec["collective"] for rec in rows] == [
+            b if winners[0][f"coll_variant/{b}"] == "torch"
+            else f"{b}_{winners[0][f'coll_variant/{b}']}"
+            for b in ("allgather", "allreduce")]
+        assert all(rec["auto"] for rec in rows)
+        # the daxpy checksum is the one application's, whatever the chunk
+        assert "SUM = 524800.000000" in W.read_text(d, "knobs_daxpy", r)
+    # the one cache writer
+    assert [rr["knobs_cache_written"] for rr in res] == [True] + [False] * (
+        w - 1)

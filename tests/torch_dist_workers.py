@@ -984,6 +984,26 @@ def suite_tune(rank, world, out_dir):
     _run_main(out_dir, "tune_explicit", rank, stencil2d.main,
               argv + ["--iterate-tier", winner])
 
+    # the knob owners outside the stencil path: collbench's variants,
+    # the ring's depth and tier, the daxpy chunk — rank 0
+    # sweeps, every rank runs the broadcast winner, rank 0 alone writes
+    # its cache; each rank's JSONL its own .p<r> file with its clock_sync
+    from tpu_mpi_tests_torch.drivers import attnbench, collbench
+    from tpu_mpi_tests_torch.workloads import daxpy as wdaxpy
+
+    kc = os.path.join(out_dir, f"knobs.r{rank}.json")
+    common = ["--device", "cpu", "--tune", "--tune-cache", kc, "--jsonl",
+              os.path.join(out_dir, "knobs.jsonl")]
+    _run_main(out_dir, "knobs_coll", rank, collbench.main,
+              common + ["--collectives", "auto", "--sizes-kib", "4",
+                        "--n-iter", "10", "--telemetry"])
+    _run_main(out_dir, "knobs_attn", rank, attnbench.main,
+              common + ["--tiers", "ring", "--seq-len", "32",
+                        "--head-dim", "16", "--n-iter", "10"])
+    _run_main(out_dir, "knobs_daxpy", rank, wdaxpy.main,
+              common + ["--n", "1024", "--iters", "8"])
+    res["knobs_cache_written"] = os.path.exists(kc)
+
     # a broadcast rank 0 never answers (it posts under another tag) raises
     # on the others, naming their tag
     os.environ["TPU_MPI_FLEET_TIMEOUT_S"] = "1"

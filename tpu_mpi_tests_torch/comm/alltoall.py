@@ -22,6 +22,7 @@ import torch.distributed as tdist
 from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm.mesh import check_world
 from tpu_mpi_tests_torch.comm.ring import online_softmax_update
+from tpu_mpi_tests_torch.instrument.telemetry import span_call
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.utils import check_divisible
 
@@ -149,7 +150,10 @@ def ulysses_attention_fn(world: int = 1, causal: bool = False,
                          precision: str = "highest"):
     """Ulysses attention over (L_local, H, Dh) blocks of a sequence split
     over the ranks (≅ ``alltoall.py:159``): checks the world when built,
-    then returns ``attn(q, k, v)``."""
+    then returns ``attn(q, k, v)``, whose call is a ``ulysses_attention``
+    telemetry span (the JAX payload: two all-to-alls, q, k, v seq→head
+    and the q-shaped output head→seq, each moving (w−1)/w of the global
+    operand)."""
     check_world(world)
 
     def attn(q, k, v):
@@ -158,4 +162,10 @@ def ulysses_attention_fn(world: int = 1, causal: bool = False,
                                  flash=flash, k_tile=k_tile,
                                  skip_tile=skip_tile, world=world)
 
-    return attn
+    def attn_recorded(q, k, v):
+        moved = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+        return span_call("ulysses_attention", attn, q, k, v,
+                         nbytes=(world - 1) * moved, axis_name="shard",
+                         world=world, flash=flash, causal=causal)
+
+    return attn_recorded

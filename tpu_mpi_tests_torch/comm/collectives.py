@@ -16,7 +16,13 @@ tier of the reduce-scatter. On the CPU the kernels' plain versions run
 over the gloo group.
 
 :class:`DispatchWindow` bounds how many chained ops run without a wait
-(≅ JAX ``:87``).
+(≅ JAX ``:87``); its depth is explicit or the prior
+(:func:`resolve_dispatch_depth`).
+
+Every public wrapper records a telemetry span (``instrument/telemetry``,
+the JAX op names and payload conventions, counted over the global array:
+this rank's block times the world), and the hand tiers note their
+launch in the flight recorder first (``instrument/watchdog``).
 """
 
 from __future__ import annotations
@@ -28,25 +34,31 @@ import torch
 import torch.distributed as tdist
 
 from tpu_mpi_tests_torch.comm import dist
-from tpu_mpi_tests_torch.instrument.telemetry import async_span, span_call
+from tpu_mpi_tests_torch.instrument import nans
+from tpu_mpi_tests_torch.instrument.telemetry import (
+    async_span,
+    comm_span,
+    span_call,
+)
 from tpu_mpi_tests_torch.instrument.timers import stream_event
+from tpu_mpi_tests_torch.instrument.watchdog import note_comm_op
+from tpu_mpi_tests_torch.tune import priors as _priors
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
-
-#: the chained-dispatch depth's prior (the JAX package's shipped
-#: ``COLL_DISPATCH_DEPTH``): 1, a wait after every call
-COLL_DISPATCH_DEPTH = 1
 
 
 def resolve_dispatch_depth(explicit=None) -> int:
     """The dispatch-window depth: ``explicit``, else the prior (1); at
     least 1, and a value that is not an integer gives the prior (≅ JAX
-    ``:60`` with an empty schedule cache; its space, the rest of ROADMAP
-    queue 1 item 17, comes with its consumers)."""
-    val = COLL_DISPATCH_DEPTH if explicit is None else explicit
+    ``:60`` with an empty schedule cache). The JAX package's
+    ``coll/dispatch_depth`` space and its ``collbench --tune`` sweep come
+    with the window's one reader there, the serve halo handler (ROADMAP
+    queue 1 item 19): a cached depth nothing in the port reads would
+    price nothing."""
+    val = _priors.COLL_DISPATCH_DEPTH if explicit is None else explicit
     try:
         depth = int(val)
     except (TypeError, ValueError):
-        depth = COLL_DISPATCH_DEPTH
+        depth = _priors.COLL_DISPATCH_DEPTH
     return max(1, depth)
 
 
@@ -65,8 +77,8 @@ class DispatchWindow:
     one wait per ``depth`` calls. On the CPU an op has finished when it
     returns and nothing is waited for. A context manager; exit drains.
 
-    Its consumers, ``collbench --tune`` (the rest of queue 1 item 17) and
-    the serve halo handler (item 19), are not ported: the tests hold it."""
+    Its consumer, the serve halo handler (ROADMAP queue 1 item 19), is
+    not ported: the tests hold it."""
 
     def __init__(self, depth: "int | None" = None):
         self.depth = resolve_dispatch_depth(depth)
@@ -80,7 +92,7 @@ class DispatchWindow:
                              axis_name=axis_name, world=world, **meta)
         handle = async_span(op, nbytes=nbytes, axis_name=axis_name,
                             world=world, dispatch_depth=self.depth, **meta)
-        out = fn(*args)
+        out = nans.check(op, fn(*args))
         self._inflight.append((handle, stream_event(out)))
         if len(self._inflight) >= self.depth:
             self.drain()
@@ -141,6 +153,23 @@ def all_gather(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """``MPI_Allgather`` of each rank's block into a full copy per rank
     (≅ ``all_gather``, :329), the blocks concatenated along ``axis``: at
     world=1 a new tensor holding the one shard."""
+    w = dist.world().size
+    return span_call("all_gather", _all_gather, x, axis,
+                     nbytes=_gather_payload_bytes(x, w), axis_name="shard",
+                     world=w)
+
+
+def _gather_payload_bytes(x: torch.Tensor, world: int) -> int:
+    """The JAX payload convention of gather-like collectives: the bytes
+    every rank receives, w−1 foreign blocks, summed over the ranks."""
+    return (world - 1) * world * x.numel() * x.element_size()
+
+
+def _row_bytes(per_rank: torch.Tensor) -> int:
+    return per_rank.numel() * per_rank.element_size()
+
+
+def _all_gather(x: torch.Tensor, axis: int) -> torch.Tensor:
     w = dist.world()
     if w.size == 1:
         return x.clone()
@@ -156,12 +185,19 @@ def all_gather_inplace(allx: torch.Tensor, axis: int = 0) -> torch.Tensor:
     rank has filled; afterwards every slice holds its owner's values. The
     gathered buffer is ``allx`` itself (the JAX function donates its input
     for the same reason)."""
+    w = dist.world().size
+    return span_call("all_gather_inplace", _all_gather_inplace, allx, axis,
+                     nbytes=(w - 1) * allx.numel() * allx.element_size(),
+                     axis_name="shard", world=w)
+
+
+def _all_gather_inplace(allx: torch.Tensor, axis: int) -> torch.Tensor:
     w = dist.world()
     if w.size == 1:
         return allx
     n = check_divisible(allx.shape[axis], w.size, "all_gather_inplace")
     mine = allx.narrow(axis, w.rank * n, n).clone()
-    allx.copy_(all_gather(mine, axis))
+    allx.copy_(_all_gather(mine, axis))
     return allx
 
 
@@ -195,10 +231,12 @@ def gather_blocks(x: torch.Tensor) -> "list[np.ndarray] | None":
 def barrier(device: torch.device) -> None:
     """≅ ``MPI_Barrier`` (:774): wait until this device has finished all
     queued work and, at world > 1, every rank has got there."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    if dist.world().size > 1:
-        tdist.barrier(group=dist.cpu_group())
+    w = dist.world().size
+    with comm_span("barrier", axis_name="shard", world=w):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if w > 1:
+            tdist.barrier(group=dist.cpu_group())
 
 
 def shard_blocks(global_shape, dtype: torch.dtype, block_fn, device,
@@ -249,6 +287,17 @@ def allreduce_sum(per_rank: torch.Tensor) -> torch.Tensor:
             f"allreduce_sum: leading axis {per_rank.shape[0]} must be 1 "
             f"(this rank's row of the JAX function's (world, L) array)"
         )
+    w = dist.world().size
+    # the ring allreduce's payload: each rank moves 2(w−1)/w of its row,
+    # 2(w−1) rows over the ranks
+    return span_call("allreduce", allreduce_unrecorded, per_rank,
+                     nbytes=2 * (w - 1) * _row_bytes(per_rank),
+                     axis_name="shard", world=w)
+
+
+def allreduce_unrecorded(per_rank: torch.Tensor) -> torch.Tensor:
+    """:func:`allreduce_sum` without its telemetry span (≅ a bare
+    ``lax.psum`` inside a JAX driver's jitted step)."""
     if dist.world().size > 1:
         tdist.all_reduce(per_rank, op=tdist.ReduceOp.SUM,
                          group=_group_for(per_rank))
@@ -273,9 +322,17 @@ def reduce_scatter_sum(per_rank: torch.Tensor) -> torch.Tensor:
     elementwise sum (``reduce_scatter_tensor`` over the process group; a
     copy at world=1)."""
     w = _check_row(per_rank, "reduce_scatter_sum")
-    n = check_divisible(per_rank.shape[1], w, "reduce_scatter_sum chunking")
+    check_divisible(per_rank.shape[1], w, "reduce_scatter_sum chunking")
+    return span_call("reduce_scatter", _reduce_scatter, per_rank,
+                     nbytes=(w - 1) * _row_bytes(per_rank),
+                     axis_name="shard", world=w)
+
+
+def _reduce_scatter(per_rank: torch.Tensor) -> torch.Tensor:
+    w = dist.world().size
     if w == 1:
         return per_rank.clone()
+    n = per_rank.shape[1] // w
     out = torch.empty(n, dtype=per_rank.dtype, device=per_rank.device)
     tdist.reduce_scatter_tensor(out, per_rank[0].contiguous(),
                                 op=tdist.ReduceOp.SUM,
@@ -290,7 +347,11 @@ def all_gather_rdma(x: torch.Tensor) -> torch.Tensor:
     ≅ hand-writing the ``MPI_Allgather`` of ``mpi_daxpy_nvtx.cc:285-288``)."""
     from tpu_mpi_tests_torch.kernels import hand
 
-    return hand.ring_allgather(x.contiguous())
+    w = dist.world().size
+    note_comm_op("ring_allgather", world=w, shape=x.shape)
+    return span_call("all_gather_rdma", hand.ring_allgather, x.contiguous(),
+                     nbytes=_gather_payload_bytes(x, w), axis_name="shard",
+                     world=w)
 
 
 def all_gather_oneshot(x: torch.Tensor) -> torch.Tensor:
@@ -299,7 +360,11 @@ def all_gather_oneshot(x: torch.Tensor) -> torch.Tensor:
     instead of the ring's w−1 dependent hops (``hand.oneshot_allgather``)."""
     from tpu_mpi_tests_torch.kernels import hand
 
-    return hand.oneshot_allgather(x.contiguous())
+    w = dist.world().size
+    note_comm_op("oneshot_allgather", world=w, shape=x.shape)
+    return span_call("all_gather_oneshot", hand.oneshot_allgather,
+                     x.contiguous(), nbytes=_gather_payload_bytes(x, w),
+                     axis_name="shard", world=w)
 
 
 def allreduce_rdma(per_rank: torch.Tensor, credits: int = 1
@@ -314,8 +379,14 @@ def allreduce_rdma(per_rank: torch.Tensor, credits: int = 1
     reduce-scatter. A new tensor (the JAX function returns one too)."""
     from tpu_mpi_tests_torch.kernels import hand
 
-    _check_row(per_rank, "allreduce_rdma")
-    return hand.ring_allreduce(per_rank[0].contiguous(), credits)[None]
+    w = _check_row(per_rank, "allreduce_rdma")
+    note_comm_op("ring_allreduce", world=w, shape=per_rank.shape,
+                 credits=credits)
+    return span_call(
+        "allreduce_rdma",
+        lambda row: hand.ring_allreduce(row[0].contiguous(), credits)[None],
+        per_rank, nbytes=2 * (w - 1) * _row_bytes(per_rank),
+        axis_name="shard", world=w)
 
 
 def allreduce_rdma_refusal(length: int) -> "str | None":
@@ -339,8 +410,15 @@ def allreduce_oneshot(per_rank: torch.Tensor) -> torch.Tensor:
     ``reduce(add, rows)``; any L."""
     from tpu_mpi_tests_torch.kernels import hand
 
-    _check_row(per_rank, "allreduce_oneshot")
-    return hand.oneshot_allreduce(per_rank[0].contiguous())[None]
+    w = _check_row(per_rank, "allreduce_oneshot")
+    note_comm_op("oneshot_allreduce", world=w,
+                 shape=per_rank.shape)
+    # each rank ships its whole row to w−1 peers
+    return span_call(
+        "allreduce_oneshot",
+        lambda row: hand.oneshot_allreduce(row[0].contiguous())[None],
+        per_rank, nbytes=(w - 1) * _row_bytes(per_rank),
+        axis_name="shard", world=w)
 
 
 def reduce_sum(values) -> float:
@@ -349,10 +427,13 @@ def reduce_sum(values) -> float:
     rank's host partials summed in float64, then over the ranks; every
     rank returns the same total."""
     total = float(np.sum(np.asarray(values, dtype=np.float64)))
-    if dist.world().size > 1:
-        t = torch.tensor([total], dtype=torch.float64)
-        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=dist.cpu_group())
-        total = float(t[0])
+    w = dist.world().size
+    if w > 1:
+        with comm_span("reduce_sum", nbytes=8 * w, world=w):
+            t = torch.tensor([total], dtype=torch.float64)
+            tdist.all_reduce(t, op=tdist.ReduceOp.SUM,
+                             group=dist.cpu_group())
+            total = float(t[0])
     return total
 
 

@@ -70,8 +70,13 @@ from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
 from tpu_mpi_tests_torch.comm.mesh import Grid, Hop, Ring, make_grid, \
     make_mesh
 from tpu_mpi_tests_torch.comm.peer import peer_ring
-from tpu_mpi_tests_torch.instrument.telemetry import async_span, span_call
+from tpu_mpi_tests_torch.instrument.telemetry import (
+    armed as telemetry_armed,
+    async_span,
+    span_call,
+)
 from tpu_mpi_tests_torch.instrument.timers import block_stream, stream_event
+from tpu_mpi_tests_torch.instrument.watchdog import note_comm_op
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.hand import stencil2d_deriv, \
@@ -434,23 +439,48 @@ def halo_exchange(zg: torch.Tensor, axis: int = 0, n_bnd: int = 2,
     construction) and PALLAS_RDMA ignore it. ``AUTO`` resolves first
     (:func:`resolve_staging`)."""
     _check_kernel("halo_exchange", kernel)
-    staging = resolve_staging(staging, zg, axis, make_mesh().size)
+    world = make_mesh().size
+    staging = resolve_staging(staging, zg, axis, world)
+    if window is None and not telemetry_armed():
+        # no span and no NaN check: nothing to describe
+        return _exchange(zg, staging, axis, n_bnd, periodic, kernel, world)
+    # the JAX span's payload (2 directions × one ghost band a neighbour
+    # pair) and its rank-pair metadata: each rank sends one band to each
+    # ring neighbour, ``partner_nbytes`` a directed edge
+    nbytes = halo_payload_bytes(zg, axis, world, n_bnd, periodic)
+    pairs = world if periodic else world - 1
+    partner_meta = ({"partners": [-1, 1], "periodic": periodic,
+                     "partner_nbytes": nbytes // (2 * pairs)}
+                    if pairs > 0 else {})
+    args = (zg, staging, axis, n_bnd, periodic, kernel, world)
+    if staging in _SPAN_OPS:
+        return span_call(_SPAN_OPS[staging], _exchange, *args,
+                         nbytes=nbytes, axis_name="shard", world=world,
+                         **partner_meta)
+    call = window.call if window is not None else span_call
+    return call("halo_exchange", _exchange, *args, nbytes=nbytes,
+                axis_name="shard", world=world, staging=staging.value,
+                **partner_meta)
+
+
+#: the span ops of the stagings that take no dispatch window
+_SPAN_OPS = {Staging.HOST_STAGED: "halo_exchange_host",
+             Staging.PALLAS_RDMA: "halo_exchange_rdma"}
+
+
+def _exchange(zg, staging, axis, n_bnd, periodic, kernel, world):
+    """One exchange under a resolved ``staging`` (:func:`halo_exchange`)."""
     if staging is Staging.HOST_STAGED:
         return _host_staged_exchange(zg, axis, n_bnd, periodic)
     if staging is Staging.PALLAS_RDMA:
+        # a peer-store kernel waiting on a dead neighbour hangs silently:
+        # note the launch so a watchdog fire can name it
+        note_comm_op("ring_halo", axis=axis, n_bnd=n_bnd,
+                     periodic=periodic, world=world, shape=zg.shape)
         return hand.ring_halo(zg, axis=axis, n_bnd=n_bnd, periodic=periodic)
-    fn = functools.partial(exchange_shard, axis=axis, n_bnd=n_bnd,
-                           periodic=periodic,
-                           staged=staging is Staging.DEVICE_STAGED,
-                           kernel=kernel)
-    if window is None:
-        return fn(zg)
-    world = make_mesh().size
-    return window.call("halo_exchange", fn, zg,
-                       nbytes=halo_payload_bytes(zg, axis, world, n_bnd,
-                                                 periodic),
-                       axis_name="shard", world=world,
-                       staging=staging.value)
+    return exchange_shard(zg, axis=axis, n_bnd=n_bnd, periodic=periodic,
+                          staged=staging is Staging.DEVICE_STAGED,
+                          kernel=kernel)
 
 
 def staging_buffer(zg: torch.Tensor,
@@ -651,10 +681,15 @@ def iterate_hand_fn(n_bnd: int, scale_eps: float, axis: int = 1,
         flags = _phys_kwargs(ring, periodic, z.device)
         if rdma:
             z, spare = peer_ring(z.device).pair(z)
+            # a peer-store launch a step, each noted for the hang dump
+            note = (f"ring_halo(axis={axis}, n_bnd={n_bnd}, "
+                    f"periodic={periodic}, world={ring.size}, "
+                    f"shape={tuple(z.shape)})")
         else:
             spare = torch.empty_like(z)
         for _ in range(n_iter):
             if rdma:
+                note_comm_op(note, record=False)
                 hand.ring_halo(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
             else:
                 exchange_shard(z, axis=axis, n_bnd=n_bnd, periodic=periodic)
@@ -698,7 +733,11 @@ def iterate_fused_rdma_fn(n_bnd: int, scale_eps: float, axis: int = 0,
         pure_compute = local_only or (ring.size == 1 and not periodic)
         flags = _phys_kwargs(ring, periodic, z.device)
         z, spare = peer_ring(z.device).pair(z)
+        # a peer-store launch a step, each noted for the hang dump
+        note = (f"stencil2d_fused_rdma(steps={steps}, periodic={periodic}, "
+                f"world={ring.size}, shape={tuple(z.shape)})")
         for _ in range(n_iter):
+            note_comm_op(note, record=False)
             out = hand.stencil2d_fused_rdma(
                 z, scale_eps, steps=steps, periodic=periodic,
                 tile_rows=tile_rows, local_only=pure_compute, out=spare,

@@ -18,11 +18,23 @@ has one member: a rotation returns the block itself.
   ``kernels.hand.fused_ring_attention``, the K/V rotation by peer stores
   inside the kernel.
 
-The TPU tile knobs (``k_tile``, ``skip_tile``) are accepted and reach the
-flash kernel's plain version; the card runs the kernel's own tile. The
-ring's tuned spaces (depth, tier) are the rest of ROADMAP queue 1 item 17
-(``tune/`` itself is ported): ``None`` knobs resolve to the priors (depth
-1, tier "pipelined").
+The ring's schedule knobs are tuned spaces (≅ JAX ``ring.py:193-310``),
+each resolved explicit > cached winner > prior, a malformed cached value
+giving the prior: ``ring/pipeline_depth`` (:data:`RING_DEPTH_SPACE`,
+prior 1; the ring clamps it to the world, so a sweep declines the
+depths above the world) and ``ring/tier`` (:data:`RING_TIER_SPACE`,
+prior "pipelined"; a cached "fused" at a geometry
+``hand.fused_ring_feasible`` declines runs pipelined, with a NOTE).
+``attnbench --tune`` sweeps them.
+
+The JAX package's third ring knob, ``flash_tiles/{contig,striped}``
+(the TPU kernel's key tile and causal sub-span skip), has no space
+here: the CUDA fold (``csrc/flash_fold.cuh``) runs one fixed key tile a
+route (``hand.FLASH_K_TILES``: 64 on ``fma`` and ``mma``, 128 on
+``wgmma``) and masks causal tiles by per-row limits (``live_upto``), so
+there is nothing to price until the kernel takes a tile argument. The
+TPU knobs ``k_tile``/``skip_tile`` given explicitly still reach the
+flash kernel's plain version; the card runs its own tile.
 """
 
 from __future__ import annotations
@@ -30,12 +42,79 @@ from __future__ import annotations
 import torch
 
 from tpu_mpi_tests_torch.comm.mesh import check_world, make_mesh
+from tpu_mpi_tests_torch.instrument.telemetry import span_call
+from tpu_mpi_tests_torch.instrument.watchdog import note_comm_op
 from tpu_mpi_tests_torch.kernels import hand
+from tpu_mpi_tests_torch.tune import priors as _priors
+from tpu_mpi_tests_torch.tune.registry import declare_space
+from tpu_mpi_tests_torch.tune.registry import resolve as _tune_resolve
 from tpu_mpi_tests_torch.utils import check_divisible
 
 #: the ring K/V rotation tiers: the host-scheduled hops ("pipelined",
 #: paced by ``depth``) and the one-launch peer-store kernel ("fused")
 RING_TIERS = ("pipelined", "fused")
+
+#: the ring K/V prefetch depth (≅ JAX ``RING_DEPTH_SPACE``); prior 1
+#: rotates after each fold
+RING_DEPTH_SPACE = declare_space(
+    "ring/pipeline_depth", (_priors.RING_PIPELINE_DEPTH, 2, 4),
+    describe="K/V rotations kept in flight ahead of the fold "
+             "(1 = rotate after the fold)")
+
+#: the K/V rotation tier (≅ JAX ``RING_TIER_SPACE``): the host-pipelined
+#: ring, or every step in one launch of the fused ring-attention kernel
+RING_TIER_SPACE = declare_space(
+    "ring/tier", (_priors.RING_TIER, "fused"),
+    describe="K/V rotation schedule: host-pipelined hops vs the "
+             "one-launch fused peer-store kernel")
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def resolve_pipeline_depth(depth=None, dtype=None, lq=None) -> int:
+    """Ring pipeline depth: explicit > cached winner > prior (1), keyed
+    by dtype and the local block length; a malformed cached value gives
+    the prior."""
+    if depth is not None:
+        return max(1, int(depth))
+    tuned = _tune_resolve("ring/pipeline_depth",
+                          prior=_priors.RING_PIPELINE_DEPTH,
+                          dtype=_dtype_name(dtype) if dtype else None,
+                          lq=lq)
+    try:
+        return max(1, int(tuned))
+    except (TypeError, ValueError):
+        return _priors.RING_PIPELINE_DEPTH
+
+
+def resolve_ring_tier(tier=None, dtype=None, lq=None, d=None,
+                      device=None) -> str:
+    """Ring rotation tier: explicit > cached winner > prior
+    ("pipelined"). Keyed by the geometry with no device-only fallback
+    (feasibility depends on it); a malformed cached value gives the
+    prior. A CACHED "fused" where ``hand.fused_ring_feasible`` declines
+    the geometry (``d`` and ``dtype`` given) resolves to "pipelined" and
+    prints a NOTE (≅ JAX ``:264-280``); an explicit one is returned as
+    asked, and the kernel's gate raises."""
+    if tier is not None:
+        return str(tier)
+    name = _dtype_name(dtype) if dtype is not None else None
+    tuned = _tune_resolve("ring/tier", prior=_priors.RING_TIER,
+                          device_fallback=False, dtype=name, lq=lq)
+    if tuned not in RING_TIERS:
+        return _priors.RING_TIER
+    if (tuned == "fused" and d is not None and dtype is not None
+            and lq is not None
+            and not hand.fused_ring_feasible(lq, lq, d, dtype, device)):
+        import sys
+
+        print(f"NOTE cached ring/tier fused infeasible at lq={lq} d={d} "
+              f"{name} (hand.fused_ring_feasible); running the pipelined "
+              f"tier", file=sys.stderr, flush=True)
+        return "pipelined"
+    return tuned
 
 
 def online_softmax_update(m, l, s, keepdims: bool = False):
@@ -128,15 +207,10 @@ def ring_scan(f, init, block, world: int = 1, depth: int = 1):
     return carry
 
 
-def _resolve_tier(tier) -> str:
-    """The K/V rotation tier: an explicit one, or the prior "pipelined"
-    (the ring's tier space is the rest of ROADMAP queue 1 item 17)."""
-    if tier is None:
-        return "pipelined"
-    if tier not in RING_TIERS:
+def _check_tier(tier) -> None:
+    if tier is not None and tier not in RING_TIERS:
         raise ValueError(f"ring tier must be one of {RING_TIERS}, got "
                          f"{tier!r}")
-    return tier
 
 
 def ring_attention(q, k, v, scale=None, causal: bool = False,
@@ -165,8 +239,11 @@ def ring_attention(q, k, v, scale=None, causal: bool = False,
     :func:`kernels.hand.fused_ring_attention` (whatever ``flash``, as the
     JAX tier does); at a geometry its gate refuses
     (:func:`kernels.hand.fused_ring_feasible`) the explicit request
-    raises ``ValueError`` naming the pipelined tier. ``None`` resolves to
-    "pipelined"; ``depth`` paces the pipelined tier only."""
+    raises ``ValueError`` naming the pipelined tier. ``None`` resolves
+    ``ring/tier`` (:func:`resolve_ring_tier`) and ``depth=None``
+    ``ring/pipeline_depth`` (:func:`resolve_pipeline_depth`), keyed by
+    q's dtype and block length; ``depth`` paces the pipelined tier
+    only."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d**0.5)
@@ -176,11 +253,17 @@ def ring_attention(q, k, v, scale=None, causal: bool = False,
             "(non-causal work is already balanced)"
         )
     n = check_world(world)
-    if _resolve_tier(tier) == "fused":
+    _check_tier(tier)
+    tier = resolve_ring_tier(tier, dtype=q.dtype, lq=q.shape[0], d=d,
+                             device=q.device if q.is_cuda else None)
+    if tier == "fused":
+        # its CTAs wait on peer stores: noted for the hang dump
+        note_comm_op("fused_ring_attention", record=False, world=n,
+                     shape=q.shape, dtype=q.dtype)
         return hand.fused_ring_attention(q, k, v, scale=float(scale),
                                          causal=causal, stripe=stripe,
                                          precision=precision)
-    depth = 1 if depth is None else depth
+    depth = resolve_pipeline_depth(depth, dtype=q.dtype, lq=q.shape[0])
     r = make_mesh().rank if n > 1 else 0
     lq = q.shape[0]
 
@@ -241,9 +324,12 @@ def ring_attention_fn(world: int = 1, causal: bool = False,
     """Ring attention over a sequence split along the ring (≅
     ``ring.py:473``; inputs (L_local, d): this rank's block of the global
     sequence, ``comm.collectives.shard_1d``). Checks the world and the
-    tier when built, then returns ``attn(q, k, v)``."""
+    tier when built, then returns ``attn(q, k, v)``, whose call is a
+    ``ring_attention`` telemetry span (the JAX payload: every rank
+    receives the w−1 foreign K/V blocks, all of them over the one edge
+    to its right neighbour)."""
     check_world(world)
-    _resolve_tier(tier)
+    _check_tier(tier)
 
     def attn(q, k, v):
         return ring_attention(
@@ -251,4 +337,14 @@ def ring_attention_fn(world: int = 1, causal: bool = False,
             skip_tile=skip_tile, precision=precision,
             stripe=stripe, depth=depth, tier=tier, world=world)
 
-    return attn
+    def attn_recorded(q, k, v):
+        # the global K and V: this rank's blocks times the world
+        kv_bytes = world * (k.numel() * k.element_size()
+                            + v.numel() * v.element_size())
+        return span_call(
+            "ring_attention", attn, q, k, v,
+            nbytes=(world - 1) * kv_bytes, axis_name="shard", world=world,
+            flash=flash, causal=causal, stripe=stripe, partners=[1],
+            periodic=True, partner_nbytes=(world - 1) * kv_bytes)
+
+    return attn_recorded

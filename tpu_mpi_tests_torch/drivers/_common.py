@@ -1,9 +1,17 @@
-"""Shared driver plumbing (≅ part of ``tpu_mpi_tests/drivers/_common.py``):
-the argument parser every driver starts from (with the schedule plane's
-``--tune``, ``--tune-cache``, ``--tune-pack`` and ``--tune-budget``), the
-reporter (which configures the schedule cache and points its records at
-the run's JSONL), ``--kernel auto``'s resolution, the dtype map and the
-process-grid spec."""
+"""Shared driver plumbing (≅ ``tpu_mpi_tests/drivers/_common.py``): the
+argument parser every driver starts from (the schedule plane's
+``--tune``, ``--tune-cache``, ``--tune-pack`` and ``--tune-budget``, the
+instrument spine's ``--telemetry``, ``--memwatch``, ``--mem-interval``,
+``--trace-out``, ``--deadline`` and ``--debug-nans``), :func:`run_guarded`
+(the watchdog and the NaN checks around a driver's body), the reporter
+with its observability wiring (:func:`make_reporter`), ``--kernel
+auto``'s resolution, the dtype map and the process-grid spec.
+
+Two JAX flags have no analogue and are not offered: ``--fake-devices``
+(ranks are processes, started by a launcher) and ``--compile-cache``
+(nothing is compiled per shape; the kernels are built once, at first
+use). ``--metrics-port`` and its two companions are accepted and refused
+(:data:`LIVE_PLANE`)."""
 
 from __future__ import annotations
 
@@ -17,6 +25,12 @@ import torch
 
 from tpu_mpi_tests_torch.device import DEVICES
 from tpu_mpi_tests_torch.instrument.report import Reporter
+from tpu_mpi_tests_torch.utils import TpuMtError
+
+#: where the live observability plane (``--metrics-port``) is queued
+LIVE_PLANE = ("--metrics-port (the live observability plane: the metrics "
+              "registry, its OpenMetrics exporter, the health records) is "
+              "ROADMAP queue 1 item #18b, not ported")
 
 TORCH_DTYPES = {
     "float32": torch.float32,
@@ -26,7 +40,12 @@ TORCH_DTYPES = {
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=description)
+    p = argparse.ArgumentParser(
+        description=description,
+        epilog="The JAX drivers' --fake-devices and --compile-cache have "
+        "no analogue here: ranks are processes (started by torchrun or "
+        "the native launcher), and nothing is compiled per shape (the "
+        "kernels are built once, at first use).")
     p.add_argument(
         "--device",
         default="cuda",
@@ -44,7 +63,71 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument(
         "--jsonl",
         default=None,
-        help="append JSONL records here",
+        help="append JSONL records here (runs over several processes "
+        "suffix the path per process: out.jsonl -> out.p<i>.jsonl; merge "
+        "with tpumt-report)",
+    )
+    p.add_argument(
+        "--telemetry",
+        action="store_true",
+        help="record a span (op/bytes/axis/seconds/GB/s) for every comm "
+        "wrapper call into the JSONL sink plus cumulative per-op counters "
+        "(instrument/telemetry.py); spans wait for their op on the card, "
+        "so leave this off for pure-throughput timing runs",
+    )
+    p.add_argument(
+        "--memwatch",
+        action="store_true",
+        help="record the card's allocator watermarks and a census of what "
+        "holds the memory as kind:'mem' JSONL records "
+        "(instrument/memwatch.py): a low-rate sampler thread plus "
+        "per-phase snapshots; needs --jsonl. Census-only on the CPU",
+    )
+    p.add_argument(
+        "--mem-interval",
+        type=float,
+        default=0.5,
+        metavar="S",
+        help="memwatch sampler period in seconds (default 0.5)",
+    )
+    p.add_argument(
+        "--trace-out",
+        default=None,
+        metavar="TRACE.json",
+        help="on driver exit, merge the --jsonl record stream(s) into "
+        "Chrome trace-event JSON here (rank 0 only; one track per rank, "
+        "clock offsets applied); open in Perfetto/chrome://tracing",
+    )
+    p.add_argument(
+        "--deadline",
+        type=float,
+        default=None,
+        metavar="S",
+        help="hang watchdog: dump the recent comm ops and the memory "
+        "state, then hard-exit, if the driver exceeds S seconds "
+        "(instrument/watchdog.py)",
+    )
+    p.add_argument(
+        "--debug-nans",
+        action="store_true",
+        help="stop at the first NaN: every hand-kernel and comm wrapper "
+        "checks its output and raises FloatingPointError naming the op "
+        "(instrument/nans.py); off, nothing is checked",
+    )
+    p.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="the live observability plane: not ported (ROADMAP queue 1 "
+        "#18b); refused",
+    )
+    p.add_argument(
+        "--metrics-interval", type=float, default=1.0, metavar="S",
+        help="the live plane's heartbeat period (not ported; needs "
+        "--metrics-port)",
+    )
+    p.add_argument(
+        "--metrics-all-ranks", action="store_true",
+        help="serve the live plane on every rank (not ported; needs "
+        "--metrics-port)",
     )
     p.add_argument(
         "--profile-dir",
@@ -115,17 +198,92 @@ def host_tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
 
 
+def run_guarded(run, args) -> int:
+    """Run a driver body under the optional hang watchdog
+    (``--deadline``) and the optional NaN checks (``--debug-nans``,
+    disarmed again when the body returns); without a deadline the comm
+    wrappers' flight notes, which only its dump reads, are dropped.
+    ``--metrics-port`` is refused here (:data:`LIVE_PLANE`)."""
+    from tpu_mpi_tests_torch.instrument import nans, telemetry
+    from tpu_mpi_tests_torch.instrument.watchdog import deadline
+
+    if getattr(args, "metrics_port", None) is not None:
+        raise TpuMtError(LIVE_PLANE)
+    nans.arm(getattr(args, "debug_nans", False))
+    # the flight recorder's one reader is the --deadline watchdog's dump
+    telemetry.record_flight(bool(getattr(args, "deadline", None)))
+    try:
+        with deadline(getattr(args, "deadline", None), "driver"):
+            return run(args)
+    finally:
+        nans.arm(False)
+        telemetry.record_flight(True)
+
+
 def make_reporter(args, rank: "int | None" = None,
                   size: "int | None" = None) -> Reporter:
-    """The run's reporter; ``rank`` and ``size`` default to this process's
-    place in the world (``comm.dist``); drivers emulating logical ranks in
-    one process pass their own."""
+    """The run's reporter with the observability wiring (≅ JAX
+    ``make_reporter`` without the live plane and chaos). ``rank`` and
+    ``size`` default to this process's place in the world
+    (``comm.dist``); drivers emulating logical ranks in one process pass
+    their own. Called after the world is joined.
+
+    * the JSONL path is suffixed per process when there are several;
+    * with a sink (``--jsonl``) or ``--telemetry``: the ``manifest``
+      record first, then ``topo``, then (with a sink) ``clock_sync``,
+      whose ``run_sync_us`` names the run for the ``--trace-out`` merge;
+    * ``--telemetry``: the rank-0 ``MANIFEST`` banner, the registry on
+      with this reporter's JSONL as its sink; closing the reporter writes
+      the per-op ``TELEMETRY`` lines and disables it;
+    * ``--memwatch`` (with ``--jsonl``): a running ``MemWatch``, stopped
+      at close;
+    * the schedule cache and its records (``setup_tuning``)."""
     from tpu_mpi_tests_torch.comm import dist
 
     w = dist.world()
+    trace_out = getattr(args, "trace_out", None)
+    if trace_out and not args.jsonl:
+        print("NOTE --trace-out needs --jsonl (the trace is merged from "
+              "the JSONL record stream); no trace will be written")
+        trace_out = None
     rep = Reporter(rank=w.rank if rank is None else rank,
                    size=w.size if size is None else size,
-                   jsonl_path=args.jsonl)
+                   jsonl_path=args.jsonl, proc_index=w.rank,
+                   proc_count=w.size, trace_out=trace_out)
+    telemetry_on = getattr(args, "telemetry", False)
+    if rep.jsonl_path or telemetry_on:
+        from tpu_mpi_tests_torch.instrument.manifest import (
+            clock_sync_record,
+            manifest_banner,
+            run_manifest,
+            topo_record,
+        )
+
+        m = run_manifest(w.device)
+        rep.jsonl(m)
+        rep.jsonl(topo_record())
+        if rep.jsonl_path:
+            cs = clock_sync_record()
+            rep.jsonl(cs)
+            rep.run_sync_us = cs.get("run_sync_us")
+        if telemetry_on:
+            rep.banner(manifest_banner(m))
+    if telemetry_on:
+        from tpu_mpi_tests_torch.instrument import telemetry as T
+
+        T.enable(sink=lambda rec: rep.jsonl({**rec, "rank": rep.rank}))
+        rep.attach_telemetry()
+    if getattr(args, "memwatch", False):
+        if rep.jsonl_path:
+            from tpu_mpi_tests_torch.instrument.memwatch import MemWatch
+
+            rep.attach_memwatch(MemWatch(
+                sink=lambda rec: rep.jsonl({**rec, "rank": rep.rank}),
+                interval_s=getattr(args, "mem_interval", 0.5),
+                device=w.device).start())
+        else:
+            print("NOTE --memwatch needs --jsonl (mem records stream to "
+                  "the JSONL sink); no memory records will be written")
     setup_tuning(args)
     _attach_tune_sink(rep)
     return rep
@@ -189,7 +347,6 @@ def _attach_tune_sink(rep: Reporter) -> None:
     ``_attach_tune_sink``): every ``tune`` / ``tune_result`` /
     ``tune_hit`` record goes to the JSONL stream, stamped with the
     process's rank, and winners and hits get a ``TUNE`` line."""
-    from tpu_mpi_tests_torch.tune import fleet
     from tpu_mpi_tests_torch.tune import registry as tr
 
     tr.mark_fleet_rank()
@@ -197,7 +354,7 @@ def _attach_tune_sink(rep: Reporter) -> None:
         return
 
     def emit(rec):
-        rep.jsonl({**rec, "rank": fleet.process_index()})
+        rep.jsonl({**rec, "rank": rep.proc_index})
         kind = rec.get("kind")
         if kind == "tune_result":
             sec = rec.get("seconds")

@@ -24,9 +24,18 @@ Ulysses. HIGHEST (the default) turns TF32 off; ``--fast`` runs DEFAULT
 tile of the route that ran (``hand.FLASH_K_TILES``), which each row
 records.
 
-Not ported (ROADMAP queue 1): ``--tune`` (the rest of item 17: the
-ring's tile, depth and tier spaces; raises), the compile probe (item 18)
-and the ``attn`` serve workload (item 19).
+``--tune`` prices the ring's schedule knobs on a cache miss, each
+candidate running the tier's real loop at a tenth of the chain (≅ JAX
+``attnbench.py:183-290``): ``ring/pipeline_depth`` (a depth above the
+world is declined with its reason, since the ring clamps it; at world 1
+only the prior is left and nothing is swept) and ``ring/tier`` (the
+sweep declines with a NOTE where ``hand.fused_ring_feasible`` refuses
+the geometry). The JAX package's ``flash_tiles`` knob has no space in
+the port (``comm/ring.py`` says why). Without ``--tune`` cached winners
+still apply; a row names the depth and tier that ran. Under
+``--telemetry`` each tier's first call is probed
+(``instrument/costs.py``, ``attn_<tier>``). The ``attn`` serve workload
+is ROADMAP queue 1 #19.
 """
 
 from __future__ import annotations
@@ -45,14 +54,11 @@ def run(args) -> int:
     from tpu_mpi_tests_torch.comm.collectives import shard_1d
     from tpu_mpi_tests_torch.comm.mesh import bootstrap, check_world, topology
     from tpu_mpi_tests_torch.comm.ring import ring_attention_fn, to_striped
+    from tpu_mpi_tests_torch.instrument import costs
     from tpu_mpi_tests_torch.instrument.timers import chain_rate
     from tpu_mpi_tests_torch.kernels import hand
     from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
-    if args.tune:
-        raise TpuMtError("--tune (the flash tile / ring depth / ring tier "
-                         "sweeps) is not ported: the rest of ROADMAP queue "
-                         "1 item 17")
     dtype = _common.torch_dtype(args)
     if dtype == torch.float64:
         raise TpuMtError("attnbench runs float32 or bfloat16 (the flash "
@@ -106,57 +112,74 @@ def run(args) -> int:
                     q, k, v = (shard_1d(t, device) for t in (q, k, v))
                 return q, k, v
 
-            # the ring's rotation tier that runs: a fused request at a
-            # geometry the kernel's gate refuses runs the pipelined tier
-            # with a NOTE (the JAX driver's decline), never a crash
-            ring_tier_eff = None
+            def make_attn(tier=tier, depth=None, rtier=None):
+                if tier == "ring":
+                    return ring_attention_fn(
+                        world, causal=args.causal, flash=True,
+                        precision=precision, stripe=args.stripe,
+                        k_tile=args.k_tile, skip_tile=args.skip_tile,
+                        depth=args.ring_depth if depth is None else depth,
+                        tier=args.ring_tier if rtier is None else rtier)
+                if tier == "ulysses":
+                    return ulysses_attention_fn(
+                        world, causal=args.causal, flash=True,
+                        precision=precision, k_tile=args.k_tile,
+                        skip_tile=args.skip_tile)
+                if tier == "flash":
+                    def attn(q, k, v):
+                        return hand.flash_attention(
+                            q, k, v, causal=args.causal,
+                            precision=precision, k_tile=args.k_tile,
+                            skip_tile=args.skip_tile)
+                    return attn
+                return xla_attn
+
+            if tier == "xla" and args.causal and tril is None:
+                tril = torch.ones((L, L), dtype=torch.bool,
+                                  device=device).tril()
+
+            def make_loop(attn):
+                def loop(state, n):
+                    qq, kk, vv = state
+                    for _ in range(n):
+                        qq = attn(qq, kk, vv)
+                    return qq, kk, vv
+                return loop
+
+            def timed(attn):
+                # a sweep's measurement: the real loop, a tenth the chain
+                n_long = max(11, args.n_iter // 10)
+                sec, _ = chain_rate(make_loop(attn), make_qkv(),
+                                    n_short=n_long // 10 or 1,
+                                    n_long=n_long)
+                return sec
+
+            lq_local = L // world if tier == "ring" else L
+            depth_eff = ring_tier_eff = None
             if tier == "ring":
-                ring_tier_eff = args.ring_tier or "pipelined"
-                lq_local = L // world
-                if ring_tier_eff == "fused" and not hand.fused_ring_feasible(
-                        lq_local, lq_local, d, dtype,
-                        device if device.type == "cuda" else None):
-                    _common.decline_note(
-                        f"ring tier fused infeasible at lq={lq_local} "
-                        f"d={d} {args.dtype} (fused_ring_feasible: at most "
-                        f"8 ranks, d <= {hand.FLASH_MAX_D}, the comm slots "
-                        f"in free memory); running the pipelined tier")
-                    ring_tier_eff = "pipelined"
+                depth_eff, ring_tier_eff = resolve_ring_schedule(
+                    args, world, dtype, lq_local, device,
+                    lambda depth, rtier: timed(make_attn(depth=depth,
+                                                         rtier=rtier)))
 
-            if tier == "ring":
-                attn = ring_attention_fn(
-                    world, causal=args.causal, flash=True,
-                    precision=precision, stripe=args.stripe,
-                    k_tile=args.k_tile, skip_tile=args.skip_tile,
-                    depth=args.ring_depth, tier=ring_tier_eff)
-            elif tier == "ulysses":
-                attn = ulysses_attention_fn(
-                    world, causal=args.causal, flash=True,
-                    precision=precision, k_tile=args.k_tile,
-                    skip_tile=args.skip_tile)
-            elif tier == "flash":
-                def attn(q, k, v):
-                    return hand.flash_attention(
-                        q, k, v, causal=args.causal, precision=precision,
-                        k_tile=args.k_tile, skip_tile=args.skip_tile)
-            else:
-                if args.causal and tril is None:
-                    tril = torch.ones((L, L), dtype=torch.bool,
-                                      device=device).tril()
-                attn = xla_attn
-
-            def loop(state, n, attn=attn):
-                qq, kk, vv = state
-                for _ in range(n):
-                    qq = attn(qq, kk, vv)
-                return qq, kk, vv
-
+            loop = make_loop(make_attn(depth=depth_eff,
+                                       rtier=ring_tier_eff))
+            label = (f"attn_{tier}{'[striped]' if striped else ''}"
+                     f"{'[fused]' if ring_tier_eff == 'fused' else ''}")
+            heads = world if tier == "ulysses" else 1
+            # the first call (telemetry runs only): q, k, v read and the
+            # output written, each of this rank's (L_local, d) blocks
+            costs.compile_probe(
+                loop, lambda: (make_qkv(), 1), label=label,
+                flops=flops * heads / world,
+                bytes_accessed=4 * (L // world) * d * heads
+                * torch.empty((), dtype=dtype).element_size(),
+                dtype=args.dtype, lq=lq_local, world=world)
             sec, state = chain_rate(loop, make_qkv(),
                                     n_short=args.n_iter // 10 or 1,
                                     n_long=args.n_iter)
             del state
             tflops = flops / sec / 1e12
-            heads = world if tier == "ulysses" else 1
             tag = ("[striped]" if striped else "") + (
                 "[fused]" if ring_tier_eff == "fused" else "")
             row = {"kind": "attn", "tier": tier, "L": L, "d": d,
@@ -165,9 +188,9 @@ def run(args) -> int:
                    "tflops": tflops * heads, "us_per_iter": sec * 1e6,
                    "world": world}
             if tier == "ring":
-                # the depth asked for (the JAX row's resolved value; the
-                # ring clamps it to the world) and the tier that ran
-                row["ring_depth"] = args.ring_depth or 1
+                # the resolved depth (the ring clamps it to the world) and
+                # the tier that ran
+                row["ring_depth"] = depth_eff
                 row["ring_tier"] = ring_tier_eff
             if tier != "xla":  # flash-kernel tiers only
                 # the key tile the fold ran at: the tile of the route that
@@ -192,6 +215,81 @@ def run(args) -> int:
                 rep.line(f"ATTN FAIL {tier}: non-positive rate {tflops}")
                 rc = 1
         return rc
+
+
+def resolve_ring_schedule(args, world, dtype, lq, device, timed):
+    """``(depth, tier)`` of the ring tier: each explicit > cached >
+    prior, and under ``--tune`` a miss sweeps it first, each candidate
+    timed by ``timed(depth, tier)`` (≅ JAX ``attnbench.py:183-290``).
+    Over several processes the cache hit or the sweep's winner is rank
+    0's, broadcast (``tune.sweep.ensure_tuned``), so every rank runs one
+    schedule. The ring clamps the depth to the world: a deeper candidate
+    would run the world's depth again, so it is declined with that
+    reason, and at world 1, where only the prior is left, nothing is
+    swept. The tier sweep declines with a NOTE where
+    ``hand.fused_ring_feasible`` refuses the geometry, and a fused
+    request or cached winner there runs the pipelined tier with a NOTE.
+    Results are depth- and tier-invariant bit for bit; only the schedule
+    changes."""
+    from tpu_mpi_tests_torch.comm.ring import (
+        RING_DEPTH_SPACE,
+        RING_TIERS,
+        resolve_pipeline_depth,
+        resolve_ring_tier,
+    )
+    from tpu_mpi_tests_torch.kernels import hand
+    from tpu_mpi_tests_torch.tune import priors
+    from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
+    from tpu_mpi_tests_torch.utils import TpuMtError
+
+    card = device if device.type == "cuda" else None
+    if args.ring_depth is not None:
+        depth = args.ring_depth
+    elif sum(int(c) <= world for c in RING_DEPTH_SPACE.candidates) < 2:
+        if args.tune:
+            _common.decline_note(
+                f"ring/pipeline_depth sweep: the ring clamps the depth to "
+                f"the world ({world}), so every candidate runs depth "
+                f"{world}; keeping the prior")
+        depth = resolve_pipeline_depth(None, dtype=dtype, lq=lq)
+    else:
+        def measure_depth(cand):
+            if int(cand) > world:
+                raise TpuMtError(f"depth {cand} declined: the ring clamps "
+                                 f"the depth to the world ({world})")
+            return timed(int(cand), "pipelined")
+
+        val = ensure_tuned("ring/pipeline_depth", measure_depth,
+                           dtype=args.dtype, lq=lq)
+        try:
+            depth = max(1, int(val))
+        except (TypeError, ValueError):  # a malformed cached value
+            depth = priors.RING_PIPELINE_DEPTH
+    feasible = hand.fused_ring_feasible(lq, lq, args.head_dim, dtype, card)
+    if args.ring_tier is not None:
+        tier = args.ring_tier
+    elif not feasible:
+        if args.tune:
+            _common.decline_note(
+                f"ring/tier sweep: fused candidate infeasible at lq={lq} "
+                f"d={args.head_dim} {args.dtype} (fused_ring_feasible); "
+                f"keeping the pipelined tier")
+        tier = resolve_ring_tier(None, dtype=dtype, lq=lq, d=args.head_dim,
+                                 device=card)
+    else:
+        tier = ensure_tuned("ring/tier",
+                            lambda cand: timed(depth, str(cand)),
+                            device_fallback=False, dtype=args.dtype, lq=lq)
+        if tier not in RING_TIERS:  # a malformed cached value
+            tier = priors.RING_TIER
+    if tier == "fused" and not feasible:
+        _common.decline_note(
+            f"ring tier fused infeasible at lq={lq} d={args.head_dim} "
+            f"{args.dtype} (fused_ring_feasible: at most 8 ranks, d <= "
+            f"{hand.FLASH_MAX_D}, the comm slots in free memory); running "
+            f"the pipelined tier")
+        tier = "pipelined"
+    return depth, tier
 
 
 def card_k_tile(dtype, precision: str, d: int) -> int:
@@ -273,7 +371,7 @@ def main(argv=None) -> int:
     if args.stripe and not args.causal:
         p.error("--stripe requires --causal (non-causal rings are "
                 "already balanced)")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

@@ -25,11 +25,18 @@ reduce-scatter + all-gather (``--rdma-credits``), ``allgather_oneshot``
 refuses a size (``allreduce_rdma``: elements % world), the row is
 ``COLL-SKIP``.
 
-Not ported yet, each raising: ``--collectives auto`` and ``--tune`` (the
-variant and dispatch-depth knobs: the rest of ROADMAP queue 1 item 17,
-its collective knob consumers; ``tune/`` itself is ported), the
-telemetry compile probe (item 18) and the serve-mode ``allreduce``
-workload (item 19).
+``--collectives auto`` runs the collectives with hand twins (allgather,
+allreduce) with each size's variant resolved through the schedule cache
+(``coll_variant/<base>``: the library tier ``torch``, ``rdma``,
+``oneshot``; prior ``torch``); with ``--tune`` a miss prices the three
+on the device at that size first. A candidate that cannot run here is
+declined with its reason and never wins (:func:`variant_refusal`). Over
+several processes rank 0 sweeps and every rank runs the broadcast
+winner. ``auto`` rows carry ``auto: true``. Under ``--telemetry`` each
+row's first call is probed (``instrument/costs.py``, ``coll_<name>``).
+The serve-mode ``allreduce`` workload is ROADMAP queue 1 #19, and with
+it the JAX driver's ``coll/dispatch_depth`` sweep: the dispatch window's
+one reader is the serve halo handler.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ import sys
 import torch
 
 from tpu_mpi_tests_torch.drivers import _common
+from tpu_mpi_tests_torch.tune import priors as _priors
+from tpu_mpi_tests_torch.tune.registry import declare_space
 
 COLLECTIVES = (
     "allgather", "allreduce", "reducescatter", "ppermute", "alltoall"
@@ -55,19 +64,56 @@ COLL_LINE_RE = (
     r"busbw=([\d.e+-]+|nan) GB/s  n=(\d+)(?: credits=(\d+))?"
 )
 
-#: where each left-out feature is queued
+#: the variants of a collective with hand twins
+COLL_VARIANTS = (_priors.COLL_VARIANT, "rdma", "oneshot")
+
+#: the variant knobs (≅ JAX ``COLL_VARIANT_SPACES``), declared where the
+#: variant choice lives: the library tier, the ring kernels, the
+#: one-shot kernel
+COLL_VARIANT_SPACES = {
+    base: declare_space(
+        f"coll_variant/{base}", COLL_VARIANTS,
+        describe="library collective vs the hand ring kernels vs the "
+                 "one-shot kernel")
+    for base in ("allgather", "allreduce")
+}
+
+#: where the serve-mode workload is queued
 NOT_PORTED = {
-    "auto": "--collectives auto (the per-size variant knob) is the rest "
-            "of ROADMAP queue 1 item 17 (its collective knob consumers), "
-            "not ported",
-    "tune": "--tune (the variant and dispatch-depth sweeps) is the rest "
-            "of ROADMAP queue 1 item 17 (its collective knob consumers), "
-            "not ported",
-    "telemetry": "--telemetry (span telemetry and the per-row compile "
-                 "probe) is ROADMAP queue 1 item 18, not ported",
     "serve": "the serve-mode allreduce workload is ROADMAP queue 1 item "
              "19 (serve/), not ported",
 }
+
+
+def effective_name(base: str, variant: str) -> str:
+    """The collective a variant of ``base`` runs (``allgather`` +
+    ``rdma`` → ``allgather_rdma``; the library tier is ``base``)."""
+    return base if variant == _priors.COLL_VARIANT else f"{base}_{variant}"
+
+
+def variant_refusal(name: str, n: int, world: int) -> "str | None":
+    """Why collective ``name`` cannot run on ``n`` elements a shard in
+    this world, or None: the ring reduce-scatter's chunking (n % world),
+    a world the hand RDMA tiers cannot map (more than one host, or ranks
+    sharing a card: ``halo.rdma_refusal``), more ranks than the signal
+    pad serves (``peer.check_collective_world``)."""
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.comm.halo import rdma_refusal
+    from tpu_mpi_tests_torch.comm.peer import PeerError, \
+        check_collective_world
+
+    if name not in COLLECTIVES_RDMA + COLLECTIVES_ONESHOT:
+        return None
+    why = rdma_refusal()
+    if why is not None:
+        return why
+    try:
+        check_collective_world(world, name)
+    except PeerError as e:
+        return str(e)
+    if name == "allreduce_rdma":
+        return C.allreduce_rdma_refusal(n)
+    return None
 
 
 def _loop_fn(name: str, world: int, rank: int, rdma_credits: int = 1):
@@ -134,6 +180,66 @@ def _loop_fn(name: str, world: int, rank: int, rdma_credits: int = 1):
     return run
 
 
+def _measure_chain(name, args, world, rank, n, dtype, device) -> float:
+    """Seconds an iteration of collective ``name``'s chained loop, at a
+    tenth of the row's chain (a sweep's measurement)."""
+    from tpu_mpi_tests_torch.instrument.timers import chain_rate
+
+    fn = _loop_fn(name, world, rank, rdma_credits=args.rdma_credits)
+    x = torch.ones(n, dtype=dtype, device=device)
+    n_meas = max(10, args.n_iter // 10)
+    sec, _ = chain_rate(fn, x, n_short=n_meas // 10 or 1, n_long=n_meas)
+    return sec
+
+
+def resolve_variant(base, args, world, rank, n, dtype, device,
+                    shard_bytes) -> str:
+    """The collective an ``auto`` entry runs at one size (≅ JAX
+    ``_resolve_variant``): cached > prior, and with ``--tune`` a miss
+    prices every variant on the device at this size. A variant that
+    cannot run here raises in its measurement, is recorded as declined
+    with the reason and never wins."""
+    from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
+    from tpu_mpi_tests_torch.utils import TpuMtError
+
+    def measure(variant):
+        name = effective_name(base, variant)
+        why = variant_refusal(name, n, world)
+        if why is not None:
+            raise TpuMtError(f"{name} declined: {why}")
+        return _measure_chain(name, args, world, rank, n, dtype, device)
+
+    variant = ensure_tuned(
+        f"coll_variant/{base}", measure,
+        # payload-keyed: the 16 MiB winner must not decide the 4 KiB row
+        device_fallback=False,
+        dtype=args.dtype, bytes=shard_bytes, world=world)
+    if variant not in COLL_VARIANTS:
+        variant = _priors.COLL_VARIANT  # a malformed cached value
+    name = effective_name(base, variant)
+    if variant_refusal(name, n, world) is not None:
+        # a cached winner carried to a world or size it cannot run at
+        _common.decline_note(
+            f"coll_variant/{base} {variant} cannot run at bytes="
+            f"{shard_bytes} world={world} "
+            f"({variant_refusal(name, n, world)}); running {base}")
+        name = base
+    return name
+
+
+def _cost(name: str, shard_bytes: int, world: int) -> dict:
+    """Analytic flops and bytes of one iteration of ``name``'s chain on
+    a shard (each buffer read once, each result written once; the local
+    epilogue's read and write of the shard included)."""
+    base = name.removesuffix("_rdma").removesuffix("_oneshot")
+    n_bytes = {"allgather": (2 + world) * shard_bytes,
+               "allreduce": 4 * shard_bytes,
+               "reducescatter": 4 * shard_bytes,
+               "ppermute": 2 * shard_bytes,
+               "alltoall": 4 * shard_bytes}[base]
+    return {"bytes_accessed": n_bytes}
+
+
 def _busbw_bytes(name: str, shard_bytes: int, world: int) -> float:
     # tiers are accounted with the base collective's formula (nccl-tests
     # algorithm-normalized convention)
@@ -155,11 +261,9 @@ def run(args) -> int:
     from tpu_mpi_tests_torch.comm import collectives as C
     from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
     from tpu_mpi_tests_torch.instrument.timers import chain_rate
-    from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
+    from tpu_mpi_tests_torch.instrument import costs
+    from tpu_mpi_tests_torch.utils import check_divisible
 
-    for flag in ("tune", "telemetry"):
-        if getattr(args, flag):
-            raise TpuMtError(NOT_PORTED[flag])
     device = bootstrap(args.device)
     topo = topology(device)
     world = topo.global_device_count
@@ -180,15 +284,24 @@ def run(args) -> int:
         )
         if names is None:
             return 2
-        if "auto" in names:
-            raise TpuMtError(NOT_PORTED["auto"])
+        # "auto" expands to the collectives with hand twins, each size's
+        # variant resolved (explicit names never re-resolve)
+        names = [m for n in names
+                 for m in ([f"{b}:auto" for b in COLL_VARIANT_SPACES]
+                           if n == "auto" else [n])]
 
         dtype = _common.torch_dtype(args)
         itemsize = torch.empty((), dtype=dtype).element_size()
-        for name in names:
+        for spec_name in names:
+            base, _, mode = spec_name.partition(":")
+            auto = mode == "auto"
             for kib in (int(s) for s in args.sizes_kib.split(",")):
                 shard_bytes = kib * 1024
                 n = shard_bytes // itemsize
+                name = base
+                if auto:
+                    name = resolve_variant(base, args, world, rank, n,
+                                           dtype, device, shard_bytes)
                 if name in ("alltoall", "reducescatter"):
                     # both split the shard w ways
                     check_divisible(n, world, f"{name} elements per shard")
@@ -200,6 +313,12 @@ def run(args) -> int:
                 run_fn = _loop_fn(name, world, rank,
                                   rdma_credits=args.rdma_credits)
                 x = torch.ones(n, dtype=dtype, device=device)
+                # the row's first call (telemetry runs only)
+                costs.compile_probe(run_fn, lambda: (x.clone(), 1),
+                                    label=f"coll_{name}",
+                                    **_cost(name, shard_bytes, world),
+                                    dtype=args.dtype, bytes=shard_bytes,
+                                    world=world)
                 # scale the chain length inversely with payload so small
                 # messages accumulate enough time to clear timer noise;
                 # the count is reported per row (the JAX rule, :396-399)
@@ -212,7 +331,9 @@ def run(args) -> int:
                     run_fn, x, n_short=n_eff // 10 or 1, n_long=n_eff
                 )
                 moved = _busbw_bytes(name, shard_bytes, world)
-                busbw = moved / sec / 1e9
+                # nothing moves at world 1: 0 GB/s, even where a host
+                # stall left the chain's two lengths without a time (NaN)
+                busbw = moved / sec / 1e9 if moved else 0.0
                 cred_txt = (f" credits={args.rdma_credits}"
                             if name == "allreduce_rdma" else "")
                 cred_rec = ({"rdma_credits": args.rdma_credits}
@@ -223,6 +344,8 @@ def run(args) -> int:
                     {"kind": "coll", "collective": name, "dtype": args.dtype,
                      "shard_bytes": shard_bytes, "us_per_iter": sec * 1e6,
                      "busbw_gbps": busbw, "world": world, "n_iter": n_eff,
+                     # an auto row records that it was resolved
+                     **({"auto": True} if auto else {}),
                      **cred_rec},
                 )
                 del x
@@ -247,7 +370,9 @@ def main(argv=None) -> int:
         f"library tier, {'/'.join(COLLECTIVES_RDMA)} select the hand ring "
         "kernels (sizes the ring's chunking refuses are reported as "
         f"COLL-SKIP) and {'/'.join(COLLECTIVES_ONESHOT)} the one-shot "
-        "kernel; 'auto' (the tuned variant) is not ported and raises",
+        "kernel; 'auto' runs the collectives with hand twins with each "
+        "size's variant resolved from the schedule cache (with --tune, a "
+        "miss prices every variant on the device first)",
     )
     p.add_argument(
         "--rdma-credits", type=int, default=1, choices=(1, 2),
@@ -265,15 +390,10 @@ def main(argv=None) -> int:
         "smaller payloads scale the count up inversely (capped at 100k); "
         "the actual count is reported per row as n=",
     )
-    p.add_argument(
-        "--telemetry", action="store_true",
-        help="span telemetry and the compile probe (not ported: ROADMAP "
-        "queue 1 item 18; raises)",
-    )
     args = p.parse_args(argv)
     if args.n_iter < 10:
         p.error("--n-iter must be >= 10")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
         help="environment variable to probe (reference: MEMORY_PER_CORE)",
     )
     args = p.parse_args(argv)
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

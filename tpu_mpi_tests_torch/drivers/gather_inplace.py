@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.n_per_rank < 1:
         p.error(f"--n-per-rank must be positive, got {args.n_per_rank}")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

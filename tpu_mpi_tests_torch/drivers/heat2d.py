@@ -52,6 +52,7 @@ from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap, make_grid, topology
 from tpu_mpi_tests_torch.convert import grid_join
 from tpu_mpi_tests_torch.drivers import _common
+from tpu_mpi_tests_torch.instrument import costs
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
 from tpu_mpi_tests_torch.instrument.trace import ProfilerGate
 
@@ -170,6 +171,13 @@ def run(args) -> int:
             runner.annotate(timer)
             rep.time_lines(timer, stats=True)
         else:
+            # the first call's cost (telemetry runs only), on a copy:
+            # the block read and written once a timestep, 6 flops a point
+            costs.compile_probe(
+                step, lambda: (zs.clone(), 1), label="step", kernel=kernel,
+                flops=6 * zs.numel() * args.halo_steps,
+                bytes_accessed=2 * zs.numel() * zs.element_size()
+                * args.halo_steps)
             # warm (builds the kernel): 1 outer body = halo_steps
             # timesteps, counted in the gate
             zs = block(step(zs, 1))
@@ -301,7 +309,7 @@ def main(argv=None) -> int:
         p.error("--n-steps must be a multiple of --halo-steps")
     if min(args.nx_local, args.ny_local) < 2 * args.halo_steps + 1:
         p.error("--nx-local/--ny-local must exceed 2x the fused halo depth")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

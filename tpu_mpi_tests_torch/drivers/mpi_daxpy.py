@@ -131,7 +131,7 @@ def main(argv=None) -> int:
         p.error(f"--n-total must be positive, got {args.n_total}")
     if args.ranks is not None and args.ranks < 1:
         p.error(f"--ranks must be positive, got {args.ranks}")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

@@ -248,7 +248,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.n_per_node < 1:
         p.error(f"--n-per-node must be positive, got {args.n_per_node}")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,7 @@ from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
 from tpu_mpi_tests_torch.drivers import _common
+from tpu_mpi_tests_torch.instrument import costs, telemetry
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block, \
     chain_rate
 from tpu_mpi_tests_torch.kernels import hand
@@ -220,7 +221,10 @@ def _sum_test(args, topo, rep, dim: int, space: str = "device") -> int:
     def local_sum(zz):
         return sum_axis(zz, axis=dim).reshape(1, -1)
 
-    allreduce = C.allreduce_sum
+    # the library tier is the process group's all_reduce itself, as the
+    # JAX driver's is a bare psum: no telemetry span (the hand tier below
+    # goes through its recorded wrapper, as the JAX driver's does)
+    allreduce = C.allreduce_unrecorded
     if args.rdma:
         # hand tier: the ring reduce-scatter + all-gather kernels instead
         # of the library allreduce (≅ hand-writing the in-place
@@ -401,6 +405,14 @@ def _all_ranks_agree(ok: bool) -> bool:
     return C.reduce_sum([0.0 if ok else 1.0]) == 0.0
 
 
+def _state_size(state) -> tuple[int, int]:
+    """(points, bytes a point) of a runner's state: a field, or the
+    blocks of the resident-block tier."""
+    ts = [state] if isinstance(state, torch.Tensor) else [
+        t for t in state if isinstance(t, torch.Tensor)]
+    return sum(t.numel() for t in ts), ts[0].element_size()
+
+
 def _iterate_tier_test(args, topo, rep) -> int:
     """The kernel-tier iterate leg: resolve ``stencil/tier`` (``auto``:
     explicit > cached > prior; under ``--tune`` a cache miss sweeps the
@@ -426,6 +438,18 @@ def _iterate_tier_test(args, topo, rep) -> int:
 
     gw = g["ghost_width"](tier)
     run = build(tier)
+    if telemetry.registry().enabled:
+        # the first call's cost (telemetry runs only: the state is a
+        # second field of the run's size), on a state of its own: the
+        # field read and written once a timestep, 5 multiply-adds a point
+        field = make_state(gw)
+        n_pts, item = _state_size(field)
+        costs.compile_probe(run, lambda: (field, 1),
+                            label="stencil2d_iterate",
+                            flops=10 * n_pts * steps_per_call(tier),
+                            bytes_accessed=2 * n_pts * item
+                            * steps_per_call(tier), kernel=tier)
+        del field
     z = block(run(make_state(gw), 1))  # build kernels + warm
     C.barrier(topo.device)
     t0 = time.perf_counter()
@@ -629,7 +653,7 @@ def main(argv=None) -> int:
     if args.fused and args.rdma:
         p.error("--fused supports only DIRECT/DEVICE_STAGED exchanges; "
                 "combining it with --rdma would skip the whole matrix")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

@@ -47,6 +47,7 @@ from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.comm.mesh import bootstrap, make_grid, topology
 from tpu_mpi_tests_torch.convert import grid_join
 from tpu_mpi_tests_torch.drivers import _common
+from tpu_mpi_tests_torch.instrument import costs
 from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
 from tpu_mpi_tests_torch.instrument.trace import ProfilerGate
 from tpu_mpi_tests_torch.kernels.stencil import N_BND, analytic_pairs
@@ -111,6 +112,12 @@ def run(args) -> int:
         ).to(device=device, dtype=_common.torch_dtype(args))
         step = H.step2d_fn(N_BND, float(dx.scale), float(dy.scale),
                            kernel=args.kernel, grid=grid)
+        # the first call's cost (telemetry runs only): the block read,
+        # both derivatives written, 5 multiply-adds a point an axis
+        costs.compile_probe(step, lambda: (zs.clone(),), label="step",
+                            kernel=args.kernel, flops=20 * zs.numel(),
+                            bytes_accessed=3 * zs.numel()
+                            * zs.element_size())
         gate = ProfilerGate(args.profile_dir)
 
         depth = 1
@@ -259,7 +266,7 @@ def main(argv=None) -> int:
             p.error(f"--{name.replace('_', '-')} must be positive")
     if min(args.nx_local, args.ny_local) < 5:
         p.error("--nx-local/--ny-local must be >= 5 (stencil width)")
-    return run(args)
+    return _common.run_guarded(run, args)
 
 
 if __name__ == "__main__":

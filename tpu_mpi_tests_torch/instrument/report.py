@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import IO, Any
@@ -27,19 +28,42 @@ def rank_suffixed_path(path: str, proc_index: int) -> str:
 class Reporter:
     """Line + JSONL emitter; a context manager that closes the JSONL file.
     Every rank prints its lines; banner lines are rank-0 only, like the
-    reference's (``mpi_stencil2d_gt.cc:682-688``). With more than one rank
-    the JSONL path is suffixed per rank (:func:`rank_suffixed_path`)."""
+    reference's (``mpi_stencil2d_gt.cc:682-688``).
+
+    ``rank``/``size`` are the logical rank and world the lines name;
+    ``proc_index``/``proc_count`` the real process (default: the same).
+    With more than one process the JSONL path is suffixed per process
+    (:func:`rank_suffixed_path`). Closing it stops an attached memory
+    watcher (its final record), flushes the telemetry summary when
+    :meth:`attach_telemetry` opted in, closes the file and, with
+    ``trace_out`` on process 0, merges the run's JSONL into a trace
+    (:meth:`_write_trace`)."""
 
     def __init__(self, rank: int = 0, size: int = 1,
                  jsonl_path: str | None = None,
-                 stream: IO[str] | None = None):
+                 stream: IO[str] | None = None,
+                 proc_index: "int | None" = None,
+                 proc_count: "int | None" = None,
+                 trace_out: str | None = None):
         self.rank = rank
         self.size = size
-        if jsonl_path and size > 1:
-            jsonl_path = rank_suffixed_path(jsonl_path, rank)
+        self.proc_index = rank if proc_index is None else proc_index
+        proc_count = size if proc_count is None else proc_count
+        # the unsuffixed path: the trace merge finds every rank's file
+        # from it
+        self._jsonl_base = jsonl_path
+        if jsonl_path and proc_count > 1:
+            jsonl_path = rank_suffixed_path(jsonl_path, self.proc_index)
         self.jsonl_path = jsonl_path
+        self.trace_out = trace_out
         self.stream = stream or sys.stdout
         self._jsonl_file: IO[str] | None = None
+        self._jsonl_lock = threading.Lock()
+        self._telemetry = False
+        self._memwatch = None
+        self._created_at = time.time()  # the trace merge skips older files
+        #: this run's clock_sync identity (set by make_reporter)
+        self.run_sync_us: int | None = None
 
     def __enter__(self) -> "Reporter":
         return self
@@ -132,15 +156,86 @@ class Reporter:
              "min_s": float(min_s), "max_s": float(max_s)},
         )
 
+    def attach_telemetry(self):
+        """Flush the telemetry registry on close: a ``TELEMETRY`` line and
+        a ``telemetry_summary`` record per op, then disable it."""
+        self._telemetry = True
+
+    def attach_memwatch(self, memwatch):
+        """Own a running ``MemWatch``: closing stops it (its final
+        record lands before the file closes)."""
+        self._memwatch = memwatch
+
     def jsonl(self, record: dict[str, Any]):
+        # one locked write() a record: the memory sampler and the
+        # watchdog write from their own threads
         if not self.jsonl_path:
             return
-        if self._jsonl_file is None:
-            self._jsonl_file = open(self.jsonl_path, "a")
-        self._jsonl_file.write(json.dumps(record) + "\n")
-        self._jsonl_file.flush()
+        line = json.dumps(record) + "\n"
+        with self._jsonl_lock:
+            if self._jsonl_file is None:
+                self._jsonl_file = open(self.jsonl_path, "a")
+            self._jsonl_file.write(line)
+            self._jsonl_file.flush()
 
     def close(self):
-        if self._jsonl_file is not None:
-            self._jsonl_file.close()
-            self._jsonl_file = None
+        if self._memwatch is not None:
+            memwatch, self._memwatch = self._memwatch, None
+            try:
+                memwatch.stop()
+            except Exception:
+                pass
+        if self._telemetry:
+            self._telemetry = False
+            from tpu_mpi_tests_torch.instrument import telemetry as T
+
+            for op, c in sorted(T.counters().items()):
+                self.line(
+                    f"TELEMETRY {op} : ops={c['ops']} bytes={c['bytes']} "
+                    f"seconds={c['seconds']:0.6f}",
+                    {"kind": "telemetry_summary", "op": op,
+                     "rank": self.rank, **c},
+                )
+            T.disable()
+        with self._jsonl_lock:
+            if self._jsonl_file is not None:
+                self._jsonl_file.close()
+                self._jsonl_file = None
+        self._write_trace()
+
+    def _write_trace(self):
+        """``--trace-out``: once this rank's JSONL is closed, process 0
+        merges this run's rank files into a Chrome trace (the port's
+        ``instrument/timeline.py``). A file belongs to the run when one of
+        its runs carries this run's ``clock_sync`` stamp; a file with no
+        stamp falls back to a modification-time window. Ranks that have
+        not flushed yet contribute fewer events."""
+        if not self.trace_out or self.proc_index != 0:
+            return
+        self.trace_out, out = None, self.trace_out  # once per close
+        if not self._jsonl_base:
+            self.line(f"TRACE SKIPPED {out}: --trace-out needs --jsonl "
+                      f"records to merge")
+            return
+        from tpu_mpi_tests_torch.instrument.timeline import (
+            expand_rank_files,
+            file_in_run,
+            write_trace,
+        )
+
+        def current(f: str) -> bool:
+            if self.jsonl_path and Path(f) == Path(self.jsonl_path):
+                return True
+            return file_in_run(f, self.run_sync_us,
+                               mtime_after=self._created_at - 5.0)
+
+        files = [f for f in expand_rank_files([self._jsonl_base])
+                 if Path(f).exists() and current(f)]
+        try:
+            n = write_trace(files, out, run_sync_us=self.run_sync_us)
+        except OSError as e:
+            self.line(f"TRACE ERROR {out}: {e}")
+            return
+        self.line(f"TRACE {out}: {n} events from {len(files)} "
+                  f"file{'s' if len(files) != 1 else ''} "
+                  f"(open in Perfetto / chrome://tracing)")

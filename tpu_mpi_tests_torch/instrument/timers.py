@@ -16,6 +16,33 @@ from contextlib import contextmanager
 
 import torch
 
+#: phase-boundary observers (``hook(name, "begin"|"end")``, ≅ the JAX
+#: ``_PHASE_HOOKS``): the memory watcher (``instrument/memwatch.py``)
+#: snapshots the allocator here. An empty-list check when none is added;
+#: hooks run outside the timed window (before the start read, after the
+#: end read), so an observer's cost is never charged to the phase.
+_PHASE_HOOKS: list = []
+
+
+def add_phase_hook(hook) -> None:
+    if hook not in _PHASE_HOOKS:
+        _PHASE_HOOKS.append(hook)
+
+
+def remove_phase_hook(hook) -> None:
+    try:
+        _PHASE_HOOKS.remove(hook)
+    except ValueError:
+        pass
+
+
+def _fire_phase_hooks(name: str, event: str) -> None:
+    for hook in list(_PHASE_HOOKS):
+        try:
+            hook(name, event)
+        except Exception:
+            pass  # an observer never fails the measured phase
+
 
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
@@ -161,10 +188,14 @@ class PhaseTimer:
     @contextmanager
     def phase(self, name: str):
         """Time a phase (the caller waits for earlier queued work)."""
+        if _PHASE_HOOKS:
+            _fire_phase_hooks(name, "begin")
         t0_wall = time.time()
         t0 = time.perf_counter()
         yield
         t1 = time.perf_counter()
+        if _PHASE_HOOKS:
+            _fire_phase_hooks(name, "end")
         dt = t1 - t0
         self.t_starts.setdefault(name, t0_wall)
         self.t_ends[name] = t0_wall + dt

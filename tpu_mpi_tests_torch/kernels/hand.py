@@ -108,6 +108,7 @@ from tpu_mpi_tests_torch.comm.peer import (
     check_collective_world,
     peer_ring,
 )
+from tpu_mpi_tests_torch.instrument.nans import checked
 from tpu_mpi_tests_torch.kernels import build
 from tpu_mpi_tests_torch.kernels import pack as _pack
 from tpu_mpi_tests_torch.kernels.stencil import (
@@ -411,6 +412,7 @@ def stencil2d_iterate_ref(z: torch.Tensor, scale_eps: float, dim: int = 1,
     return z
 
 
+@checked
 def stencil2d_iterate(z: torch.Tensor, scale_eps: float, dim: int = 1,
                       steps: int = 1, phys_static=None, phys=None,
                       out: "torch.Tensor | None" = None) -> torch.Tensor:
@@ -533,6 +535,7 @@ def stencil2d_deriv_ref(z: torch.Tensor, scale, dim: int = 0
     return stencil1d_5(z, scale=scale, axis=dim)
 
 
+@checked
 def stencil2d_deriv(z: torch.Tensor, scale, dim: int = 0,
                     out: "torch.Tensor | None" = None) -> torch.Tensor:
     """5-point first derivative × ``scale`` along ``dim`` of a 2-D array
@@ -638,6 +641,7 @@ def heat2d_max_steps(dtype: torch.dtype) -> int:
     return fn(DTYPE_CODES[dtype])
 
 
+@checked
 def heat2d(z: torch.Tensor, cx: float, cy: float, steps: int = 1,
            out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``steps`` explicit-Euler steps ``mid += cx·δ²x + cy·δ²y`` of a
@@ -788,6 +792,7 @@ RESIDUAL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12,
                  torch.bfloat16: 2.0**-6}
 
 
+@checked
 def dual_dim_step(z: torch.Tensor, n_bnd: int, scale_x: float,
                   scale_y: float, lean: "bool | None" = None):
     """``(dz_dx, dz_dy, residual)`` of a block ghosted ``n_bnd`` = N_BND
@@ -1123,6 +1128,7 @@ def check_probe_capacity(total_bytes: int, l2_bytes: int) -> None:
         )
 
 
+@checked
 def alu_probe(z: torch.Tensor, reps: int, mix: str = "fma",
               se: float = 1e-9) -> torch.Tensor:
     """``body^reps(z)``: ``reps`` repetitions of op mix ``mix`` on one
@@ -1258,6 +1264,7 @@ def pack_edges_ref(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
     return _pack.pack_edges(z, axis, n_bnd)
 
 
+@checked
 def pack_edges(z: torch.Tensor, axis: int = 0, n_bnd: int = N_BND):
     """``(lo, hi)``: the interior edge bands ``z[b:2b]`` and
     ``z[n−2b:n−b]`` along ``axis`` of a contiguous 2-D array, as two new
@@ -1300,6 +1307,7 @@ def unpack_ghosts_ref(z: torch.Tensor, lo_ghost: torch.Tensor,
     return _pack.unpack_ghosts(z, lo_ghost, hi_ghost, axis, n_bnd)
 
 
+@checked
 def unpack_ghosts(z: torch.Tensor, lo_ghost: torch.Tensor,
                   hi_ghost: torch.Tensor, axis: int = 0,
                   n_bnd: int = N_BND) -> torch.Tensor:
@@ -1433,6 +1441,7 @@ def ring_halo_ref(z: torch.Tensor, axis: int = 0,
     return z
 
 
+@checked
 def ring_halo(z: torch.Tensor, axis: int = 0,
               n_bnd: int = N_BND, periodic: bool = False) -> torch.Tensor:
     """Fill ``z``'s two ghost bands along ``axis`` from the ring
@@ -1598,6 +1607,7 @@ def stencil2d_fused_rdma_ref(z: torch.Tensor, scale_eps: float,
                                  phys_static=phys_static, phys=phys)
 
 
+@checked
 def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float,
                          steps: int = 1, periodic: bool = False,
                          phys_static=None, phys=None,
@@ -1737,6 +1747,7 @@ def ring_allgather_ref(x: torch.Tensor, self_ring: "int | None" = None
     return all_gather(x)
 
 
+@checked
 def ring_allgather(x: torch.Tensor, self_ring: "int | None" = None
                    ) -> torch.Tensor:
     """All-gather along dim 0 over the ring in w−1 hops (≅
@@ -1839,6 +1850,7 @@ def _check_credits(credits: int) -> None:
         raise ValueError(f"credits={credits} must be 1 or 2")
 
 
+@checked
 def ring_reduce_scatter(x: torch.Tensor, credits: int = 1,
                         self_ring: "int | None" = None) -> torch.Tensor:
     """Reduce-scatter along dim 0 over the ring (≅
@@ -1901,6 +1913,7 @@ ring_reduce_scatter.launches = 0
 ring_reduce_scatter.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
+@checked
 def ring_allreduce(x: torch.Tensor, credits: int = 1) -> torch.Tensor:
     """Ring allreduce (≅ ``ring_allreduce_pallas``): every rank returns
     the elementwise sum of the ranks' shards — :func:`ring_reduce_scatter`
@@ -1935,6 +1948,7 @@ def _check_op(op: str) -> None:
         raise ValueError(f"op must be 'gather' or 'sum', got {op!r}")
 
 
+@checked
 def oneshot(x: torch.Tensor, op: str = "gather") -> torch.Tensor:
     """One-shot all-gather (``op="gather"``) or allreduce (``"sum"``) along
     dim 0 (≅ ``_oneshot_call``): one launch in which every rank stores its
@@ -1980,11 +1994,13 @@ oneshot.launches = 0
 oneshot.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 
 
+@checked
 def oneshot_allgather(x: torch.Tensor) -> torch.Tensor:
     """≅ ``oneshot_allgather_pallas``: :func:`oneshot` with ``op="gather"``."""
     return oneshot(x, "gather")
 
 
+@checked
 def oneshot_allreduce(x: torch.Tensor) -> torch.Tensor:
     """≅ ``oneshot_allreduce_pallas``: :func:`oneshot` with ``op="sum"``."""
     return oneshot(x, "sum")
@@ -2210,6 +2226,7 @@ def daxpy_ref(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return coef(a, x) * x + y
 
 
+@checked
 def daxpy(a: float, x: torch.Tensor, y: torch.Tensor,
           out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``out = a·x + y`` elementwise (≅ ``daxpy_pallas``), ``a`` rounded
@@ -2242,6 +2259,7 @@ def stream_scale_ref(a: float, x: torch.Tensor) -> torch.Tensor:
     return coef(a, x) * x
 
 
+@checked
 def stream_scale(a: float, x: torch.Tensor,
                  out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``out = a·x`` (≅ ``stream_scale_pallas``, the 2-stream probe);
@@ -2272,6 +2290,7 @@ def stream_sum3_ref(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor
     return (w + x) + y
 
 
+@checked
 def stream_sum3(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 out: "torch.Tensor | None" = None) -> torch.Tensor:
     """``out = (w + x) + y`` (≅ ``stream_sum3_pallas``, the 4-stream
@@ -2541,6 +2560,7 @@ def _check_flash_out(carry, out):
     return out
 
 
+@checked
 def flash_attention_block(q, k, v, m, l, acc, q_off, k_off, *, scale,
                           causal: bool = False, pos_stride=1,
                           precision: str = "highest", out=None,
@@ -2626,6 +2646,7 @@ def flash_attention_ref(q, k, v, *, scale=None, causal: bool = False,
     return _normalise(q, l, acc)
 
 
+@checked
 def flash_attention(q, k, v, *, scale=None, causal: bool = False,
                     precision: str = "highest",
                     k_tile: "int | None" = None,
@@ -2779,6 +2800,7 @@ def fused_ring_world_ref(blocks, *, scale=None, causal: bool = False,
         precision=precision, kernel=kernel) for r in range(w)]
 
 
+@checked
 def fused_ring_attention(q, k, v, *, scale=None, causal: bool = False,
                          stripe: bool = False, precision: str = "highest",
                          self_ring: "int | None" = None):

@@ -19,7 +19,7 @@ and a persistent schedule cache for the hot path's knobs.
   (``python -m tpu_mpi_tests_torch.tune.pack``).
 
 The JAX package's ``tune/controller.py`` (the serve loop's re-tuner)
-comes with ``serve/`` (ROADMAP queue 1).
+comes with ``serve/`` (ROADMAP queue 1 #19).
 """
 
 from tpu_mpi_tests_torch.tune.registry import (  # noqa: F401

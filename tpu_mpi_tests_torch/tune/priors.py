@@ -8,9 +8,12 @@ resolver returns when the cache has no entry: a run with no cache and no
 ``gpu/prior_sweep.py``: the port's bench (``tpu_mpi_tests_torch.bench``)
 at 8192², one rank, every point on the k-step kernels' ``regs`` route,
 the median of five chained samples (2100 timesteps each), in iter/s
-(``PERF.md``, "Priors"). The JAX package's TPU tile priors
+(``PERF.md``, "Priors"). The knobs owned outside the stencil path have
+structural priors (below). The JAX package's TPU tile priors
 (``MEASURED_BEST_K_TILE``, ``MEASURED_BEST_SKIP_TILE``,
-``STREAM_SKIP_TILE``) have no analogue here and are left out.
+``STREAM_SKIP_TILE``) have no analogue here and are left out: the CUDA
+flash fold runs one fixed key tile a route (``kernels.hand.FLASH_K_TILES``)
+and takes no tile argument, so there is no tile knob to hold a prior.
 """
 
 from __future__ import annotations
@@ -59,3 +62,20 @@ def stencil_tier(dtype: "str | None") -> str:
 def bench_blocks(dtype: "str | None") -> int:
     """The block-count prior of ``dtype`` (float32's for any other)."""
     return BENCH_BLOCKS.get(dtype or "float32", BENCH_BLOCKS["float32"])
+
+# Structural, not measured: the priors of the knobs owned outside the
+# stencil path (≅ the JAX package's COLL_VARIANT, COLL_DISPATCH_DEPTH,
+# RING_PIPELINE_DEPTH, RING_TIER and DAXPY_CHUNK). Each is the value at
+# which an untuned run is the run before the knob existed: the library
+# tier of the collectives ("torch", where the JAX package says "xla",
+# as drivers._common.resolve_kernel_auto maps it), a wait after every
+# chained collective (the dispatch window's depth: no space yet, see
+# comm/collectives.resolve_dispatch_depth), the ring rotating after each
+# fold, the host-pipelined ring, one daxpy launch per iteration. None of
+# them is a speed figure of any device.
+COLL_VARIANT = "torch"
+COLL_DISPATCH_DEPTH = 1
+RING_PIPELINE_DEPTH = 1
+RING_TIER = "pipelined"
+DAXPY_CHUNK = 1
+

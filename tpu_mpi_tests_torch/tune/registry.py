@@ -2,7 +2,10 @@
 ``tpu_mpi_tests/tune/registry.py``).
 
 Spaces are declared where the knob lives (``comm/halo.py`` declares the
-halo staging, resident-block, k-step, tier and overlap-depth spaces) by
+halo staging, resident-block, k-step, tier and overlap-depth spaces,
+``comm/collectives.py`` the dispatch depth, ``comm/ring.py`` the ring's
+depth, tier and flash tiles, ``drivers/collbench.py`` the collective
+variants, ``workloads/daxpy.py`` the chunk) by
 :func:`declare_space` at import time; the candidate values come from
 :mod:`~tpu_mpi_tests_torch.tune.priors`. The first candidate is the
 PRIOR: what a sweep measures first, and what resolution returns when the
@@ -76,9 +79,15 @@ def spaces() -> dict[str, TunableSpace]:
 
 def _import_knob_owners() -> None:
     """Import every module that declares spaces (lazily: the owners
-    import this module). The collective, ring, MoE, embedding and daxpy
-    spaces come with their consumers (ROADMAP queue 1)."""
+    import this module): the halo and stencil knobs, the ring's depth
+    and tier, the collective variants and the daxpy chunk. The MoE and
+    embedding spaces come with their modules, and the collective
+    dispatch depth with its reader, the serve halo handler (ROADMAP
+    queue 1)."""
     import tpu_mpi_tests_torch.comm.halo  # noqa: F401
+    import tpu_mpi_tests_torch.comm.ring  # noqa: F401
+    import tpu_mpi_tests_torch.drivers.collbench  # noqa: F401
+    import tpu_mpi_tests_torch.workloads.daxpy  # noqa: F401
 
 
 class _State:

@@ -68,10 +68,13 @@ def _process_count() -> int:
 
 def _measure_one(knob, measure, cand):
     """``(seconds, error)`` of one candidate: NaN and the error's text
-    when it raises."""
+    when it raises. The window is a trace range and a ``tune:<knob>``
+    telemetry span (≅ JAX ``:149,246``)."""
+    from tpu_mpi_tests_torch.instrument.telemetry import comm_span
     from tpu_mpi_tests_torch.instrument.trace import trace_range
 
-    with trace_range(f"tune:{knob}"):
+    with trace_range(f"tune:{knob}"), comm_span(f"tune:{knob}",
+                                                candidate=cand):
         try:
             return float(measure(cand)), None
         except Exception as e:  # an infeasible candidate, not a dead sweep

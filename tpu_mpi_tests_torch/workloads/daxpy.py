@@ -8,11 +8,16 @@ the copyInput/kernel/copyOutput phases of ``daxpy_nvtx.cu:72-91`` are
 trace ranges + phase timers, printed as ``TIME <phase> : <s>``.
 
 The kernel is the torch tier (``kernels.daxpy.daxpy``, one launch), as the
-JAX spec runs XLA's fused op. The JAX spec's ``daxpy/chunk`` knob stays at
-its prior, 1 (one launch per iteration), until its space is declared
-(the rest of ROADMAP queue 1 item 17); its serve handler waits for
-``serve/`` (item 19). In a world of several ranks every rank runs the spec on its own
-card and reports as the JAX spec does on one of several devices.
+JAX spec runs XLA's fused op. ``--iters K`` applies it K times, grouped
+by the ``daxpy/chunk`` knob (:data:`CHUNK_SPACE`; cached > prior 1, a
+``--tune`` miss sweeps): a chunk of k is k launches queued back to back
+with one wait at the end (not a CUDA graph). Every application computes
+from the same operands, so any chunk gives the result of one
+application bit for bit and the gates do not change. Its serve handler
+waits for ``serve/`` (ROADMAP queue 1 #19). In a world of several ranks
+every rank runs the spec on its own card and reports as the JAX spec
+does on one of several devices; a ``--tune`` sweep there is rank 0's,
+its winner broadcast.
 """
 
 from __future__ import annotations
@@ -21,8 +26,17 @@ import sys
 
 import numpy as np
 
+from tpu_mpi_tests_torch.tune import priors as _priors
+from tpu_mpi_tests_torch.tune.registry import declare_space
 from tpu_mpi_tests_torch.workloads import register_spec
 from tpu_mpi_tests_torch.workloads.spec import RunContext, WorkloadSpec
+
+#: launches queued per wait (≅ JAX ``CHUNK_SPACE``): 1, the prior, is the
+#: reference's wait after every application
+CHUNK_SPACE = declare_space(
+    "daxpy/chunk", (_priors.DAXPY_CHUNK, 8, 32),
+    describe="daxpy launches queued back to back per host wait",
+)
 
 
 class DaxpySpec(WorkloadSpec):
@@ -76,15 +90,54 @@ class DaxpySpec(WorkloadSpec):
         return {"d_x": d_x, "d_y": d_y, "dtype": dtype}
 
     def step(self, ctx: RunContext, state):
+        import time
+
         import tpu_mpi_tests_torch.kernels.daxpy as kd
         from tpu_mpi_tests_torch.comm.collectives import host_value
+        from tpu_mpi_tests_torch.instrument import costs
         from tpu_mpi_tests_torch.instrument.timers import block
+        from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
 
+        a, d_x, d_y0 = ctx.args.a, state["d_x"], state["d_y"]
+        n, dtype = ctx.args.n, state["dtype"]
+        # the first call's cost (telemetry runs only): 2n flops, x and y
+        # read and the result written
+        costs.compile_probe(kd.daxpy, lambda: (a, d_x, d_y0),
+                            label="daxpy", phase="kernel", flops=2 * n,
+                            bytes_accessed=kd.daxpy_bytes(n, dtype),
+                            n=n, dtype=ctx.args.dtype)
+
+        def chain(k):
+            # k applications from the same operands, one wait
+            out = None
+            for _ in range(k):
+                out = kd.daxpy(a, d_x, d_y0)
+            return block(out)
+
+        def measure(cand):
+            c = max(1, int(cand))
+            chain(c)  # warm
+            reps = max(2, 16 // c)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                chain(c)
+            return (time.perf_counter() - t0) / (reps * c)
+
+        chunk = ensure_tuned("daxpy/chunk", measure, n=n,
+                             dtype=ctx.args.dtype)
+        try:
+            chunk = max(1, int(chunk))
+        except (TypeError, ValueError):
+            chunk = _priors.DAXPY_CHUNK  # a malformed cached value
+        state["chunk"] = chunk
         # --iters re-runs the IDENTICAL call (original y each time), so
         # the result and every gate stay those of one application
-        for _ in range(ctx.args.iters):
+        left = ctx.args.iters
+        while left > 0:
+            k = min(chunk, left)
             with ctx.phase("kernel"):
-                d_y = block(kd.daxpy(ctx.args.a, state["d_x"], state["d_y"]))
+                d_y = chain(k)
+            left -= k
 
         with ctx.phase("copyOutput"):
             state["y"] = host_value(d_y)

@@ -4,10 +4,11 @@
 Arg parsing through the shared ``base_parser``, the device (the card
 unless ``--device cpu``), the reporter, and the ``build → step →
 verify`` hook sequence under a ProfilerGate with a shared PhaseTimer;
-the reporter configures the schedule cache (``--tune``, ``--tune-cache``,
-``--tune-pack``, ``--tune-budget``). Telemetry, memwatch and
-``--trace-out`` are ROADMAP queue 1 item 18; the ``WORKLOAD`` bench row
-comes with the first spec that has one.
+the reporter carries the observability wiring (``--telemetry``,
+``--memwatch``, ``--trace-out``) and configures the schedule cache
+(``--tune``, ``--tune-cache``, ``--tune-pack``, ``--tune-budget``), and
+the body runs under ``run_guarded`` (``--deadline``, ``--debug-nans``).
+The ``WORKLOAD`` bench row comes with the first spec that has one.
 
 ``main(argv)`` is the umbrella CLI (``python -m
 tpu_mpi_tests_torch.workloads <name> ...``); each spec module also
@@ -51,7 +52,7 @@ def make_main(spec: WorkloadSpec):
         spec.add_args(p)
         args = p.parse_args(argv)
         spec.check_args(p, args)
-        return run_body(spec, args)
+        return _common.run_guarded(lambda a: run_body(spec, a), args)
 
     main.__doc__ = spec.title
     return main

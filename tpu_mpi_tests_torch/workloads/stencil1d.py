@@ -154,7 +154,17 @@ class Stencil1dSpec(WorkloadSpec):
             f"{rank}/{world} exchange time {seconds:0.8f}",
             {"kind": "exchange1d", "rank": rank, "seconds": seconds},
         )
-        state["deriv"] = block(H.stencil_fn(0, d.scale)(zg))
+        deriv_fn = H.stencil_fn(0, d.scale)
+        # the derivative's first call (telemetry runs only): the field
+        # read, the derivative written, 5 multiply-adds a point
+        from tpu_mpi_tests_torch.instrument import costs
+
+        costs.compile_probe(deriv_fn, lambda: (zg,), label="stencil1d_deriv",
+                            flops=10 * zg.numel(),
+                            bytes_accessed=2 * zg.numel() * zg.element_size(),
+                            dtype=ctx.args.dtype, n=ctx.args.n_global,
+                            world=world)
+        state["deriv"] = block(deriv_fn(zg))
         state["zg"] = zg
         return state
 
