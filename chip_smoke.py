@@ -267,7 +267,21 @@ failure exits non-zero and prints no result line):
    --collectives auto --tune`` over two cards (``_nccl_coll_tune``) and
    ``attnbench --tiers ring --tune``, where a ring depth above 1 runs
    (``_nccl_ring_tune``: the ring through the cache bit for bit the
-   explicit winner's and depth 1's and 2's);
+   explicit winner's and depth 1's and 2's). Then the serving slice
+   (``run_serving_slice``), bf16 at published widths: ``moe --tokens
+   8192 --d-model 4096 --tune`` (Mixtral 8x7B's hidden width) and
+   ``embedding --vocab 128256 --d-model 4096 --tune`` (Llama 3 8B's
+   table), each exact against its dense reference and launching no hand
+   kernel; ``decode --heads 8192 --batches 1,8,32 --tune`` (Llama 3
+   70B's hidden width) on a fresh cache, again as all cache hits, and
+   on a cache holding ring and one-shot winners, the ring all-gather,
+   ring reduce-scatter and one-shot launches of each run exact on vec16,
+   each seeded row's collective and chain held against the host and the
+   library tier (the kernels' decode shards are among the collective
+   checks' main-path operands too, and timed);
+   the last run again with ``--metrics-port 0 --jsonl`` (the heartbeat
+   trail, the progress records, ``/metrics`` scraped while it runs, and
+   launches and routes exactly the disarmed run's);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -2007,14 +2021,16 @@ def drive_path(path, fn, kernels, peaks):
 DRIVER_TEXT: dict = {}
 
 
-def drive_driver(path, module, argv, kernels, needed, peaks):
+def drive_driver(path, module, argv, kernels, needed, peaks, stdout=None):
     """Run a driver's ``main(argv)`` as one main path (:func:`drive_path`)
-    with its output captured and logged; fail unless it exits 0 with no
-    FAIL line and prints each of ``needed``. Returns the path's counts."""
+    with its output captured (into ``stdout`` when given, which another
+    thread may read while it runs) and logged; fail unless it exits 0
+    with no FAIL line and prints each of ``needed``. Returns the path's
+    counts."""
     log(f"DRIVER python -m {module.__name__} " + " ".join(argv))
 
     def run():
-        out = io.StringIO()
+        out = io.StringIO() if stdout is None else stdout
         with contextlib.redirect_stdout(out):
             rc = module.main(argv)
         return rc, out.getvalue()
@@ -2171,6 +2187,7 @@ def run_main_path(device):
     recs["overlap"] = run_overlap_slice(device, counts, per_step, peaks)
     recs["tune"] = run_tune_slice(device, counts, peaks)
     recs["instrument"] = run_instrument_slice(device, counts, peaks)
+    recs["serving"] = run_serving_slice(device, counts, peaks)
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -2817,6 +2834,315 @@ def _span_seconds(spans):
     out = {}
     for r in spans:
         out.setdefault(r["op"], []).append(r["seconds"])
+    return out
+
+
+#: the serving slice's published widths (bf16): Mixtral 8x7B's hidden
+#: width for the MoE tokens, Llama 3 8B's embedding table, Llama 3 70B's
+#: hidden width as the decode all-reduce payload a token
+MOE_ARGV = ["--tokens", "8192", "--d-model", "4096", "--dtype", "bfloat16"]
+EMBED_ARGV = ["--vocab", "128256", "--d-model", "4096", "--dtype",
+              "bfloat16"]
+DECODE_HEADS = 8192
+DECODE_BATCHES = (1, 8, 32)
+DECODE_N_ITER = 2000  # the spec's default chain
+DECODE_ARGV = ["--heads", str(DECODE_HEADS), "--batches",
+               ",".join(map(str, DECODE_BATCHES)), "--dtype", "bfloat16"]
+#: the hand kernel a decode row's variant launches, one a chained call at
+#: world 1 (the ring allreduce is one reduce-scatter launch there)
+DECODE_KERNEL = {("allreduce", "rdma"): "ring_reduce_scatter",
+                 ("allgather", "rdma"): "ring_allgather",
+                 ("allreduce", "oneshot"): "oneshot",
+                 ("allgather", "oneshot"): "oneshot"}
+#: cached hand winners of the third decode run: every hand kernel's
+#: rows on the path (coll, batch) -> variant
+DECODE_SEEDED = {("allreduce", 1): "rdma", ("allreduce", 8): "oneshot",
+                 ("allreduce", 32): "rdma", ("allgather", 1): "oneshot",
+                 ("allgather", 8): "rdma", ("allgather", 32): "rdma"}
+
+
+def decode_row_calls(n_iter: int = DECODE_N_ITER) -> int:
+    """Calls of one decode row's chain: ``chain_rate``'s 3 warm calls,
+    then n_iter // 10 and n_iter."""
+    return 3 + (n_iter // 10 or 1) + n_iter
+
+
+def decode_sweep_calls(n_iter: int = DECODE_N_ITER) -> int:
+    """Calls of one variant's measurement in a decode sweep (collbench's
+    ``_measure_chain`` at world 1: one chain pair of max(10, n_iter //
+    10))."""
+    n_meas = max(10, n_iter // 10)
+    return 3 + (n_meas // 10 or 1) + n_meas
+
+
+def decode_launches(rows, sweeps=()) -> dict:
+    """The hand launches of a decode run: ``rows`` the (collective,
+    variant) of each DECODE row, ``sweeps`` the (collective, candidate)
+    measured by its sweep."""
+    want = {}
+    for coll, variant in rows:
+        k = DECODE_KERNEL.get((coll, variant))
+        if k:
+            want[k] = want.get(k, 0) + decode_row_calls()
+    for coll, cand in sweeps:
+        k = DECODE_KERNEL.get((coll, cand))
+        if k:
+            want[k] = want.get(k, 0) + decode_sweep_calls()
+    return want
+
+
+def _decode_rows(path):
+    import re
+
+    from tpu_mpi_tests_torch.workloads import decode
+
+    rows = re.findall(decode.DECODE_LINE_RE, DRIVER_TEXT[path])
+    if [(r[0], int(r[2]), r[3]) for r in rows] != [
+            (c, b, str(DECODE_HEADS)) for c in ("allreduce", "allgather")
+            for b in DECODE_BATCHES]:
+        raise SmokeFailure(f"{path}: DECODE rows {rows}")
+    return rows
+
+
+def check_decode_seeded(device, chain: int = 10):
+    """Each cached hand winner's row of the seeded decode run, outside
+    the counted runs, on seeded integer-valued bf16 shards of batch ×
+    heads elements: the row's collective once against the host reference
+    (the sum for the allreduce, the concatenation for the allgather: at
+    world=1 the shard itself), then the row's chained body
+    (``collbench._loop_fn``, ``chain`` iterations) bit for bit against
+    the library tier's chain, the one the spec's verify holds against
+    the host. Returns the rows checked."""
+    import numpy as np
+    import torch
+
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.drivers import collbench as CB
+
+    once = {("allreduce", "rdma"): lambda x: C.allreduce_rdma(x[None])[0],
+            ("allreduce", "oneshot"):
+                lambda x: C.allreduce_oneshot(x[None])[0],
+            ("allgather", "rdma"): C.all_gather_rdma,
+            ("allgather", "oneshot"): C.all_gather_oneshot}
+    rng = np.random.default_rng(2103)
+    done = []
+    for (coll, batch), variant in DECODE_SEEDED.items():
+        n = batch * DECODE_HEADS
+        host = rng.integers(-64, 65, n).astype(np.float32)
+        x = torch.from_numpy(host).to(device, torch.bfloat16)
+        got = once[(coll, variant)](x)
+        # world=1: the sum over one rank and the concatenation of one
+        # block are both the shard
+        if not np.array_equal(got.float().cpu().numpy(), host):
+            raise SmokeFailure(f"decode {coll}[{variant}] batch={batch}: "
+                               f"the hand collective differs from the "
+                               f"host reference")
+        hand_chain = CB._loop_fn(CB.effective_name(coll, variant), 1, 0)(
+            x, chain)
+        lib_chain = CB._loop_fn(coll, 1, 0)(x, chain)
+        if not torch.equal(hand_chain, lib_chain):
+            raise SmokeFailure(f"decode {coll}[{variant}] batch={batch}: "
+                               f"the {chain}-step chain differs from the "
+                               f"library tier's")
+        done.append(f"{coll}[{variant}] batch={batch}")
+    log(f"CHECK decode seeded rows: {len(done)} hand-winner rows equal "
+        f"the host reference once and the library chain over {chain} "
+        f"steps, bit for bit: {', '.join(done)}")
+    return done
+
+
+def run_serving_slice(device, counts, peaks):
+    """The serving-era workloads and the live plane on the card, each
+    path alone, bf16 at published widths:
+
+    * ``moe --tokens 8192 --d-model 4096 --tune`` (Mixtral 8x7B's hidden
+      width): both combine hops priced, the winner's 32 routed steps,
+      the exact check against the dense reference (the spec's verify);
+    * ``embedding --vocab 128256 --d-model 4096 --tune`` (Llama 3 8B's
+      table, 1.05 GB on the card): both local gathers priced, lookups
+      and scatter-adds exact against the dense reference;
+    * ``decode --heads 8192 --batches 1,8,32 --tune`` (Llama 3 70B's
+      hidden width) on a fresh cache: every ``coll_variant`` candidate
+      measured or declined, then the same run as all cache hits, then on
+      a cache seeded with hand winners (``DECODE_SEEDED``), whose rows
+      launch the ring and one-shot kernels; each run's ring all-gather,
+      ring reduce-scatter and one-shot launches exact, on vec16; each
+      seeded row's collective and chain then held against the host and
+      the library tier (:func:`check_decode_seeded`);
+    * the seeded run again with ``--metrics-port 0 --jsonl``: its
+      ``health`` heartbeat trail (a final beat), ``time`` progress
+      records, ``/metrics`` scraped while it runs (the decode gauges,
+      ``# EOF``), and launches and routes exactly the disarmed run's.
+
+    Returns the rows and winners."""
+    import re
+    import threading
+    import urllib.request
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.tune import cache as tcache
+    from tpu_mpi_tests_torch.tune.fingerprint import fingerprint
+    from tpu_mpi_tests_torch.workloads import decode, embedding, moe
+
+    tmp = tempfile.mkdtemp(prefix="smoke_serving_")
+    base = ["--device", device.type]
+    out = {}
+
+    path = "moe --tune"
+    jl = os.path.join(tmp, "moe.jsonl")
+    counts[path] = drive_driver(
+        path, moe, base + MOE_ARGV + [
+            "--tune", "--tune-cache", os.path.join(tmp, "moe.json"),
+            "--jsonl", jl], [],
+        ("TUNE moe/combine winner=", "ROUTE moe: world=1",
+         "WORKLOAD moe: us_per_step="), peaks)
+    _exact(path, counts[path], {})
+    out["moe"] = {"route": _jsonl_records(jl, "route")[-1],
+                  "row": _jsonl_records(jl, "workload")[0],
+                  "sweep": {r["candidate"]: r.get("seconds")
+                            for r in _jsonl_records(jl, "tune")}}
+
+    path = "embedding --tune"
+    jl = os.path.join(tmp, "embedding.jsonl")
+    counts[path] = drive_driver(
+        path, embedding, base + EMBED_ARGV + [
+            "--tune", "--tune-cache", os.path.join(tmp, "embed.json"),
+            "--jsonl", jl], [],
+        ("TUNE embedding/lookup winner=", "EMBED lookup: variant=",
+         "EMBED scatter: us_per_op=",
+         "WORKLOAD embedding: lookup_us_per_op="), peaks)
+    _exact(path, counts[path], {})
+    out["embedding"] = {"rows": _jsonl_records(jl, "embed"),
+                        "sweep": {r["candidate"]: r.get("seconds")
+                                  for r in _jsonl_records(jl, "tune")}}
+
+    # decode --tune on a fresh cache, then all cache hits
+    cache = os.path.join(tmp, "decode.json")
+    jl = os.path.join(tmp, "decode_tune.jsonl")
+    path = "decode --tune"
+    counts[path] = drive_driver(
+        path, decode, base + DECODE_ARGV + [
+            "--tune", "--tune-budget", str(TUNE_BUDGET_S), "--tune-cache",
+            cache, "--jsonl", jl],
+        ["ring_allgather", "ring_reduce_scatter", "oneshot"],
+        ("TUNE coll_variant/allreduce winner=",
+         "WORKLOAD decode: allreduce_us_per_op="), peaks)
+    rows = _decode_rows(path)
+    sweeps = []
+    for r in _jsonl_records(jl, "tune"):
+        log(f"  SWEEP {r['knob']} {r['candidate']}: {r.get('seconds')} "
+            f"{r.get('error', '')}")
+        if r.get("skipped") or (r.get("seconds") is None
+                                and not r.get("error")):
+            raise SmokeFailure(f"{path}: candidate {r} was neither "
+                               f"measured nor declined")
+        if r.get("seconds") is not None:
+            sweeps.append((r["knob"].split("/")[1], r["candidate"]))
+    _exact(path, counts[path], decode_launches(
+        [(r[0], r[1]) for r in rows], sweeps))
+    for name in ROUTED_COLLECTIVES:
+        check_routes(path, name, {"vec16": counts[path][name]})
+    out["decode tune"] = [r for r in _jsonl_records(jl, "decode")]
+    path_hit = "decode --tune (cache hits)"
+    counts[path_hit] = drive_driver(
+        path_hit, decode, base + DECODE_ARGV + [
+            "--tune", "--tune-cache", cache], [],
+        ("TUNE coll_variant/allreduce cache-hit",), peaks)
+    hit_rows = _decode_rows(path_hit)
+    if "winner=" in DRIVER_TEXT[path_hit] or \
+            [r[1] for r in hit_rows] != [r[1] for r in rows]:
+        raise SmokeFailure(f"{path_hit}: swept, or ran {hit_rows} where "
+                           f"the sweep ran {rows}")
+    _exact(path_hit, counts[path_hit],
+           decode_launches([(r[0], r[1]) for r in hit_rows]))
+
+    # a cache holding hand winners: the rows launch the ring and one-shot
+    # kernels; then the same run armed with the live plane
+    dist.init(device.type)
+    seeded = os.path.join(tmp, "seeded.json")
+    sc = tcache.ScheduleCache(seeded)
+    for (coll, batch), variant in DECODE_SEEDED.items():
+        sc.store(f"coll_variant/{coll}", fingerprint(
+            dtype="bfloat16", bytes=batch * DECODE_HEADS * 2, world=1),
+            variant)
+    sc.save()
+    path_seed = "decode (cached hand winners)"
+    argv = base + DECODE_ARGV + ["--tune-cache", seeded]
+    counts[path_seed] = drive_driver(
+        path_seed, decode, argv,
+        ["ring_allgather", "ring_reduce_scatter", "oneshot"],
+        ("TUNE coll_variant/allgather cache-hit",), peaks)
+    seed_rows = _decode_rows(path_seed)
+    if [r[1] for r in seed_rows] != [
+            DECODE_SEEDED[(c, b)] for c in ("allreduce", "allgather")
+            for b in DECODE_BATCHES]:
+        raise SmokeFailure(f"{path_seed}: rows {seed_rows}")
+    _exact(path_seed, counts[path_seed],
+           decode_launches([(r[0], r[1]) for r in seed_rows]))
+    for name in ROUTED_COLLECTIVES:
+        check_routes(path_seed, name, {"vec16": counts[path_seed][name]})
+    out["decode seeded check"] = check_decode_seeded(device)
+
+    path_live = "decode (cached hand winners) --metrics-port 0"
+    jl = os.path.join(tmp, "live.jsonl")
+    scraped, stop, live_out = [], threading.Event(), io.StringIO()
+
+    def scrape():
+        # the exporter's port, once the run prints it; then scrape until
+        # the run ends, keeping every body
+        while not stop.is_set():
+            m = re.search(r"METRICS rank 0: OpenMetrics at http://"
+                          r"0\.0\.0\.0:(\d+)/metrics", live_out.getvalue())
+            if m:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{m.group(1)}/metrics",
+                            timeout=5) as r:
+                        scraped.append(r.read().decode())
+                except OSError:
+                    pass
+            stop.wait(0.2)
+
+    scraper = threading.Thread(target=scrape, daemon=True)
+    scraper.start()
+    try:
+        counts[path_live] = drive_driver(
+            path_live, decode, argv + ["--metrics-port", "0",
+                                       "--metrics-interval", "0.2",
+                                       "--jsonl", jl],
+            ["ring_allgather", "ring_reduce_scatter", "oneshot"],
+            ("METRICS rank 0: OpenMetrics at",), peaks, stdout=live_out)
+    finally:
+        stop.set()
+        scraper.join(timeout=10)
+    if counts[path_live] != counts[path_seed] or \
+            ROUTE_COUNTS[path_live] != ROUTE_COUNTS[path_seed]:
+        raise SmokeFailure(f"{path_live}: launches {counts[path_live]} / "
+                           f"routes differ from the disarmed run's "
+                           f"{counts[path_seed]}")
+    beats = [r for r in _jsonl_records(jl, "health")
+             if r.get("event") == "heartbeat"]
+    progress = [r for r in _jsonl_records(jl, "time")
+                if r.get("event") == "progress"]
+    full = [s for s in scraped if "tpumt_decode_us_per_op" in s]
+    if not beats or beats[-1].get("final") is not True or not progress \
+            or not scraped or not all(s.endswith("# EOF\n")
+                                      for s in scraped):
+        raise SmokeFailure(f"{path_live}: heartbeats {beats[-2:]}, "
+                           f"{len(progress)} progress records, "
+                           f"{len(scraped)} scrapes")
+    log(f"LIVE {len(beats)} heartbeats (final seq {beats[-1]['seq']}, "
+        f"{beats[-1].get('records')} records), {len(progress)} progress "
+        f"records, {len(scraped)} /metrics scrapes "
+        f"({len(full)} with the decode gauges); last scrape:")
+    for line in scraped[-1].splitlines():
+        if line.startswith(("tpumt_decode", "tpumt_records",
+                            "tpumt_phase", "tpumt_health")):
+            log(f"  {line}")
+    out["decode seeded"] = _jsonl_records(jl, "decode")
+    out["live"] = {"heartbeats": len(beats), "progress": len(progress),
+                   "scrapes": len(scraped),
+                   "scrapes_with_decode": len(full)}
     return out
 
 
@@ -3837,7 +4163,16 @@ def check_ring_kernels(device, rand, failures):
 def coll_main_operands():
     """(kernel, shape, dtype, what) the main paths give the collective
     kernels at world=1: stencil2d --rdma's 2 MiB row, gather_inplace's
-    128 Mi float64 shard, collbench's largest (16 MiB) shard."""
+    128 Mi float64 shard, collbench's largest (16 MiB) shard, and the
+    decode rows' bf16 shards of batch × heads elements (each kernel at
+    each batch: the sweep prices every variant at every payload)."""
+    decode = tuple(
+        (name, (b * DECODE_HEADS,), "bfloat16",
+         f"decode {what} batch={b}")
+        for b in DECODE_BATCHES
+        for name, what in (("ring_reduce_scatter", "allreduce[rdma]"),
+                           ("ring_allgather", "allgather[rdma]"),
+                           ("oneshot", "*[oneshot]")))
     return (("ring_reduce_scatter", (REF_N_OTHER,), "float32",
              "stencil2d --rdma allreduce row"),
             ("ring_allgather", (GATHER_N,), "float64",
@@ -3847,7 +4182,7 @@ def coll_main_operands():
             ("ring_reduce_scatter", (COLL_TIMED_N,), "float32",
              "collbench allreduce_rdma 16 MiB"),
             ("oneshot", (COLL_TIMED_N,), "float32",
-             "collbench *_oneshot 16 MiB"))
+             "collbench *_oneshot 16 MiB")) + decode
 
 
 def check_coll_kernels(device, rand, failures):
@@ -4103,24 +4438,28 @@ def time_coll_kernels(device, gen):
     kernels = {"ring_allgather": (hand.ring_allgather,
                                   hand.ring_allgather_ref),
                "ring_reduce_scatter": (hand.ring_reduce_scatter,
-                                       hand.ring_reduce_scatter_ref)}
+                                       hand.ring_reduce_scatter_ref),
+               "oneshot": (hand.oneshot, hand.oneshot_ref)}
     for name, shape, dtype, what in coll_main_operands():
-        if name not in kernels:
-            continue
+        if name == "oneshot" and shape == (COLL_TIMED_N,):
+            continue  # timed above: the same shard and dtype
         x = torch.randn(shape, generator=gen, device=device).to(
             getattr(torch, dtype))
         kernel, plain = kernels[name]
         nb = x.numel() * x.element_size()
         n = 5 if nb > 1 << 28 else 20
-        rows[name].append({
-            "path": f"{what} (world=1: a copy)", "shape": list(shape),
-            "dtype": dtype, "route": hand.coll_route(x, x.numel()),
-            **timed(lambda: kernel(x), n),
-            "plain_ms": time_cuda_queued(lambda: plain(x), n),
-            "bound_ms": 2 * nb / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": time_cuda_queued(lambda: x.clone(), n),
-            "library_call": "x.clone()"})
+        for op in ("gather", "sum") if name == "oneshot" else (None,):
+            args = (x,) if op is None else (x, op)
+            rows[name].append({
+                "path": f"{what} (world=1: a copy)", "shape": list(shape),
+                "dtype": dtype, "route": hand.coll_route(x, x.numel()),
+                **({} if op is None else {"op": op}),
+                **timed(lambda: kernel(*args), n),
+                "plain_ms": time_cuda_queued(lambda: plain(*args), n),
+                "bound_ms": 2 * nb / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": time_cuda_queued(lambda: x.clone(), n),
+                "library_call": "x.clone()"})
         del x
         torch.cuda.empty_cache()
     if torch.cuda.device_count() < 2:

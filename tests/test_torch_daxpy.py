@@ -437,12 +437,18 @@ def test_collectives_world1():
 
 
 def test_workload_registry_and_umbrella_cli(capsys):
-    assert workloads.spec_names() == ("daxpy", "stencil1d")
+    # the JAX package's five specs
+    assert workloads.spec_names() == ("daxpy", "decode", "embedding", "moe",
+                                      "stencil1d")
     assert workloads.get_spec("daxpy") is daxpy.SPEC
-    with pytest.raises(KeyError, match="registered: daxpy,stencil1d"):
-        workloads.get_spec("moe")
+    with pytest.raises(KeyError, match="registered: daxpy,decode,"
+                       "embedding,moe,stencil1d"):
+        workloads.get_spec("nope")
     assert runner.main(["--list"]) == 0
-    assert capsys.readouterr().out == "daxpy\nstencil1d\n"
+    assert capsys.readouterr().out == \
+        "daxpy\ndecode\nembedding\nmoe\nstencil1d\n"
     assert runner.main(["daxpy", "--device", "cpu", "--n", "16"]) == 0
-    assert "0/1 SUM = 136.000000" in capsys.readouterr().out
-    assert runner.main(["moe"]) == 2
+    out = capsys.readouterr().out
+    # daxpy has no bench row, as in the JAX package
+    assert "0/1 SUM = 136.000000" in out and "WORKLOAD" not in out
+    assert runner.main(["nope"]) == 2

@@ -40,7 +40,6 @@ from tpu_mpi_tests_torch.instrument import telemetry as T
 from tpu_mpi_tests_torch.instrument import timeline, timers
 from tpu_mpi_tests_torch.instrument import watchdog as WD
 from tpu_mpi_tests_torch.kernels import hand
-from tpu_mpi_tests_torch.utils import TpuMtError
 
 REPO = Path(__file__).resolve().parents[1]
 #: the JAX test's stencil2d run (tests/test_telemetry.py)
@@ -82,6 +81,9 @@ def stencil_runs(tmp_path_factory):
     import contextlib
     import io
 
+    # the port's run starts from empty counters, as the JAX subprocess
+    # does: another test in this process may have recorded spans before
+    T.registry().reset()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = stencil2d.main(["--device", "cpu", *STENCIL_ARGS, *FLAGS,
@@ -139,11 +141,11 @@ def test_records_carry_the_jax_fields(stencil_runs, kind):
             assert "devices" not in r and "bytes_in_use" not in r
         return
     if kind == "topo":
-        # the port's is the declared-flat record (no probed host layout,
-        # no link classes)
-        assert [set(r) for r in port] == [{"kind", "world", "topology",
-                                           "declared"}]
-        assert port[0]["declared"] == "flat" and "link_classes" not in jax[0]
+        # the same record: one host at world 1 is the discovered map
+        # (comm/topology.py), host fields and all
+        assert port == jax
+        assert port[0]["declared"] == "discovered"
+        assert port[0]["host_by_rank"] == [0]
         return
     # per op where records have one; the JAX spans also carry its
     # compile probe's cost model, and the port probes no comm op
@@ -253,15 +255,18 @@ def test_debug_nans_stops_at_the_op(fresh, where):
         nans.arm(False)
 
 
-def test_run_guarded_arms_nans_and_refuses_the_live_plane():
+def test_run_guarded_arms_nans_and_refuses_the_live_plane(capsys):
     parser = _common.base_parser("x")
     armed = _common.run_guarded(lambda a: T.registry().check_nans,
                                 parser.parse_args(["--debug-nans"]))
     assert armed is True and not T.registry().check_nans
     assert _common.run_guarded(lambda a: T.registry().check_nans,
                                parser.parse_args([])) is False
-    with pytest.raises(TpuMtError, match=r"queue 1 item #18b"):
-        daxpy.main(["--device", "cpu", "--metrics-port", "9000"])
+    # the live plane is ported: --metrics-port arms it instead of being
+    # refused (tests/test_torch_live.py holds it against the JAX plane)
+    assert daxpy.main(["--device", "cpu", "--metrics-port", "0"]) == 0
+    assert "METRICS rank 0: OpenMetrics at http://0.0.0.0:" in \
+        capsys.readouterr().out
 
 
 # ------------------------------------------------------------ watchdog
@@ -498,7 +503,9 @@ def test_manifest_topo_clock_sync_at_world1():
     assert manifest.manifest_banner(m).startswith("MANIFEST cpux1 (cpu)")
     assert manifest.topo_record() == {"kind": "topo", "world": 1,
                                       "topology": "flat",
-                                      "declared": "flat"}
+                                      "declared": "discovered",
+                                      "hosts": 1, "ranks_per_host": 1,
+                                      "host_by_rank": [0]}
     cs = manifest.clock_sync_record()
     assert cs["offset_s"] == 0.0 and cs["method"] == "single_process"
     assert isinstance(cs["run_sync_us"], int)

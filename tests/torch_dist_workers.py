@@ -1019,9 +1019,196 @@ def suite_tune(rank, world, out_dir):
         json.dump(res, f)
 
 
+#: the routing cases: (case, seed, tokens, d_model, capacity factor,
+#: skew, combine, dtype); factors under 1 overflow, skew 0 is uniform
+MOE_CASES = [
+    ("a2a_f32", 0, 64, 8, 1.25, 0.5, "alltoall", "float32"),
+    ("ag_f32_overflow", 1, 64, 8, 0.5, 1.0, "allgather", "float32"),
+    ("a2a_f64_overflow", 2, 96, 4, 0.75, 2.0, "alltoall", "float64"),
+    ("ag_bf16", 3, 64, 8, 1.0, 0.0, "allgather", "bfloat16"),
+]
+#: the embedding cases: (case, seed, vocab, d_model, batch, variant, dtype)
+EMBED_CASES = [
+    ("take_f32", 0, 64, 8, 24, "take", "float32"),
+    ("onehot_f32", 1, 64, 8, 24, "onehot", "float32"),
+    ("take_bf16", 2, 128, 4, 16, "take", "bfloat16"),
+    ("onehot_f64", 3, 32, 4, 8, "onehot", "float64"),
+]
+#: scatter-adds a case chains (duplicates and repeats accumulate)
+EMBED_ITERS = 3
+#: the spec runs of the serving suite: (case, spec, argv)
+SERVING_SPECS = [
+    ("moe", "moe", ["--tokens", "128", "--d-model", "8", "--iters", "2",
+                    "--capacity-factor", "1.0"]),
+    ("moe_tune", "moe", ["--tokens", "128", "--d-model", "8", "--iters",
+                         "2", "--dtype", "bfloat16", "--tune"]),
+    ("embedding", "embedding", ["--vocab", "256", "--d-model", "8",
+                                "--batch", "32", "--iters", "2"]),
+    ("embedding_tune", "embedding", ["--vocab", "256", "--d-model", "8",
+                                     "--batch", "32", "--iters", "2",
+                                     "--tune"]),
+    ("decode", "decode", ["--batches", "1,4", "--heads", "8", "--n-iter",
+                          "20"]),
+    ("decode_tune", "decode", ["--batches", "1,4", "--heads", "8",
+                               "--n-iter", "20", "--dtype", "bfloat16",
+                               "--tune"]),
+]
+
+
+def moe_inputs(case, world):
+    """A routing case's host tokens and destinations, and its capacity
+    (the spec's generator and capacity rule)."""
+    from tpu_mpi_tests_torch.workloads import moe as spec
+
+    _, seed, tokens, d_model, factor, skew, _, _ = case
+    x, dest = spec._build_tokens(seed, tokens, d_model, skew, world)
+    return x, dest, spec._capacity(tokens, world, factor)
+
+
+def embed_inputs(case):
+    """An embedding case's host table, ids and updates."""
+    from tpu_mpi_tests_torch.workloads import embedding as spec
+
+    _, seed, vocab, d_model, batch, _, _ = case
+    return spec._build_table(seed, vocab, d_model, batch)
+
+
+def suite_serving(rank, world, out_dir):
+    """The serving-era paths over gloo: ``route_tokens`` on every
+    ``MOE_CASES`` case (this rank's routed tokens and the demand
+    matrix), the embedding lookup and ``EMBED_ITERS`` chained
+    scatter-adds on every ``EMBED_CASES`` case, then the three specs
+    (``SERVING_SPECS``) through the runner, each with its JSONL."""
+    from tpu_mpi_tests_torch.comm import embedding as E
+    from tpu_mpi_tests_torch.comm import moe as M
+    from tpu_mpi_tests_torch.workloads import runner
+
+    for case in MOE_CASES:
+        name, dtype, combine = case[0], getattr(torch, case[7]), case[6]
+        x, dest, cap = moe_inputs(case, world)
+        xs = _tensor(block_of(x, world, rank)).to(dtype)
+        ds = _tensor(block_of(dest, world, rank))
+        y, stats = M.route_tokens(xs, ds, cap, combine=combine)
+        _save(out_dir, f"moe_{name}", rank, y)
+        _save(out_dir, f"moe_{name}_counts", rank, stats.counts)
+    for case in EMBED_CASES:
+        name, variant, dtype = case[0], case[5], getattr(torch, case[6])
+        table, ids, upd = embed_inputs(case)
+        tab = _tensor(block_of(table, world, rank)).to(dtype)
+        rows = E.embedding_lookup(tab, _tensor(ids), variant=variant)
+        _save(out_dir, f"embed_{name}_lookup", rank, rows)
+        for _ in range(EMBED_ITERS):
+            tab = E.embedding_scatter_add(
+                tab, _tensor(block_of(ids, world, rank)),
+                _tensor(block_of(upd, world, rank)).to(dtype))
+        _save(out_dir, f"embed_{name}_table", rank, tab)
+    for case, name, argv in SERVING_SPECS:
+        extra = ["--tune-cache", os.path.join(out_dir, f"{case}.json")] \
+            if "--tune" in argv else []
+        _run_main_both(out_dir, case, rank,
+                       lambda a, name=name: runner.main([name] + a),
+                       ["--device", "cpu", *argv, *extra, "--jsonl",
+                        os.path.join(out_dir, f"{case}.jsonl")])
+
+
+#: the topology suite's collective and exchange calls, each run under
+#: telemetry on the world's own (one-host) layout and as two hosts
+TOPO_HOSTS = 2
+
+
+def _topo_spans(rank, world):
+    """Run every stamped wrapper once with telemetry on; returns the span
+    and route records (link fields and all)."""
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.comm import embedding as E
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm import moe as M
+    from tpu_mpi_tests_torch.comm import ring as R
+    from tpu_mpi_tests_torch.comm.alltoall import ulysses_attention_fn
+    from tpu_mpi_tests_torch.instrument import telemetry as T
+
+    recs = []
+    T.enable(sink=recs.append)
+    try:
+        z = torch.arange(12 * 4, dtype=torch.float64).reshape(12, 4)
+        for per in (False, True):
+            H.halo_exchange(z.clone(), axis=0, n_bnd=2, periodic=per)
+        row = torch.ones((1, 8 * world), dtype=torch.float32)
+        C.allreduce_sum(row.clone())
+        C.reduce_scatter_sum(row.clone())
+        C.all_gather(torch.ones(4))
+        C.all_gather_inplace(torch.ones(4 * world))
+        C.all_gather_rdma(torch.ones(4))
+        C.all_gather_oneshot(torch.ones(4))
+        C.allreduce_rdma(row.clone())
+        C.allreduce_oneshot(row.clone())
+        q = torch.ones((8, 4), dtype=torch.float64)
+        R.ring_attention_fn(world)(q, q, q)
+        qh = torch.ones((8, world, 4), dtype=torch.float64)
+        ulysses_attention_fn(world)(qh, qh, qh)
+        x, dest, cap = moe_inputs(MOE_CASES[0], world)
+        M.route_tokens(_tensor(block_of(x, world, rank)).float(),
+                       _tensor(block_of(dest, world, rank)), cap)
+        table, ids, upd = embed_inputs(EMBED_CASES[0])
+        tab = _tensor(block_of(table, world, rank)).float()
+        E.embedding_lookup(tab, _tensor(ids))
+        E.embedding_scatter_add(tab, _tensor(block_of(ids, world, rank)),
+                                _tensor(block_of(upd, world, rank)).float())
+    finally:
+        T.disable()
+    return [r for r in recs if r.get("kind") in ("span", "route")]
+
+
+def suite_topo(rank, world, out_dir):
+    """Link classes over gloo: every stamped wrapper's span records, the
+    ``topo`` record and the meshes' stamps on the world's own layout
+    (one host), then with this world as ``TOPO_HOSTS`` hosts (each rank's
+    host name patched, the world's layout taken again from the host-name
+    gather, as ``comm.dist.init`` takes it)."""
+    import socket
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.comm import mesh as MS
+    from tpu_mpi_tests_torch.comm import topology as TP
+    from tpu_mpi_tests_torch.instrument import manifest
+
+    def stamps():
+        grid = MS.make_grid(2, world // 2)
+        two = MS.make_mesh_2level()
+        return {
+            "topo": manifest.topo_record(),
+            "manifest": {k: v for k, v in manifest.run_manifest(
+                "cpu", argv=["x"]).items()
+                if k in ("hosts", "ranks_per_host", "topology")},
+            "world": TP.mesh_link_meta(),
+            "grid_x": TP.mesh_link_meta(grid, "x"),
+            "grid_y": TP.mesh_link_meta(grid, "y"),
+            "grid_x_partners": TP.mesh_partner_links(grid, "x", (-1, 1),
+                                                     False),
+            "dcn": TP.mesh_link_meta(two, "dcn"),
+            "ici": TP.mesh_link_meta(two, "ici"),
+            "records": _topo_spans(rank, world),
+        }
+
+    out = {"one_host": stamps()}
+    real_name, real_world = socket.gethostname, dist._WORLD
+    socket.gethostname = lambda: f"host{rank * TOPO_HOSTS // world}"
+    try:
+        hosts, per, local = dist._host_layout(rank, world)
+        dist._WORLD = dataclasses.replace(real_world, hosts=hosts,
+                                          ranks_per_host=per,
+                                          local_rank=local)
+        out["two_hosts"] = stamps()
+    finally:
+        socket.gethostname, dist._WORLD = real_name, real_world
+    with open(os.path.join(out_dir, f"topo.r{rank}.txt"), "w") as f:
+        json.dump(out, f)
+
+
 SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
           "ring": suite_ring, "symm_one_card": suite_symm_one_card,
           "grid": suite_grid, "overlap": suite_overlap,
-          "tune": suite_tune}
+          "tune": suite_tune, "serving": suite_serving,
+          "topo": suite_topo}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

@@ -22,6 +22,7 @@ import torch.distributed as tdist
 from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm.mesh import check_world
 from tpu_mpi_tests_torch.comm.ring import online_softmax_update
+from tpu_mpi_tests_torch.comm.topology import mesh_link_meta
 from tpu_mpi_tests_torch.instrument.telemetry import span_call
 from tpu_mpi_tests_torch.kernels import hand
 from tpu_mpi_tests_torch.utils import check_divisible
@@ -155,6 +156,7 @@ def ulysses_attention_fn(world: int = 1, causal: bool = False,
     and the q-shaped output head→seq, each moving (w−1)/w of the global
     operand)."""
     check_world(world)
+    link = mesh_link_meta()  # the group's stamp, resolved once
 
     def attn(q, k, v):
         return ulysses_attention(q, k, v, causal=causal,
@@ -166,6 +168,6 @@ def ulysses_attention_fn(world: int = 1, causal: bool = False,
         moved = sum(t.numel() * t.element_size() for t in (q, k, v, q))
         return span_call("ulysses_attention", attn, q, k, v,
                          nbytes=(world - 1) * moved, axis_name="shard",
-                         world=world, flash=flash, causal=causal)
+                         world=world, flash=flash, causal=causal, **link)
 
     return attn_recorded

@@ -34,8 +34,10 @@ import torch
 import torch.distributed as tdist
 
 from tpu_mpi_tests_torch.comm import dist
+from tpu_mpi_tests_torch.comm.topology import mesh_link_meta
 from tpu_mpi_tests_torch.instrument import nans
 from tpu_mpi_tests_torch.instrument.telemetry import (
+    armed,
     async_span,
     comm_span,
     span_call,
@@ -156,7 +158,7 @@ def all_gather(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     w = dist.world().size
     return span_call("all_gather", _all_gather, x, axis,
                      nbytes=_gather_payload_bytes(x, w), axis_name="shard",
-                     world=w)
+                     world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def _gather_payload_bytes(x: torch.Tensor, world: int) -> int:
@@ -188,7 +190,7 @@ def all_gather_inplace(allx: torch.Tensor, axis: int = 0) -> torch.Tensor:
     w = dist.world().size
     return span_call("all_gather_inplace", _all_gather_inplace, allx, axis,
                      nbytes=(w - 1) * allx.numel() * allx.element_size(),
-                     axis_name="shard", world=w)
+                     axis_name="shard", world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def _all_gather_inplace(allx: torch.Tensor, axis: int) -> torch.Tensor:
@@ -292,7 +294,7 @@ def allreduce_sum(per_rank: torch.Tensor) -> torch.Tensor:
     # 2(w−1) rows over the ranks
     return span_call("allreduce", allreduce_unrecorded, per_rank,
                      nbytes=2 * (w - 1) * _row_bytes(per_rank),
-                     axis_name="shard", world=w)
+                     axis_name="shard", world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def allreduce_unrecorded(per_rank: torch.Tensor) -> torch.Tensor:
@@ -325,7 +327,7 @@ def reduce_scatter_sum(per_rank: torch.Tensor) -> torch.Tensor:
     check_divisible(per_rank.shape[1], w, "reduce_scatter_sum chunking")
     return span_call("reduce_scatter", _reduce_scatter, per_rank,
                      nbytes=(w - 1) * _row_bytes(per_rank),
-                     axis_name="shard", world=w)
+                     axis_name="shard", world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def _reduce_scatter(per_rank: torch.Tensor) -> torch.Tensor:
@@ -351,7 +353,7 @@ def all_gather_rdma(x: torch.Tensor) -> torch.Tensor:
     note_comm_op("ring_allgather", world=w, shape=x.shape)
     return span_call("all_gather_rdma", hand.ring_allgather, x.contiguous(),
                      nbytes=_gather_payload_bytes(x, w), axis_name="shard",
-                     world=w)
+                     world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def all_gather_oneshot(x: torch.Tensor) -> torch.Tensor:
@@ -364,7 +366,7 @@ def all_gather_oneshot(x: torch.Tensor) -> torch.Tensor:
     note_comm_op("oneshot_allgather", world=w, shape=x.shape)
     return span_call("all_gather_oneshot", hand.oneshot_allgather,
                      x.contiguous(), nbytes=_gather_payload_bytes(x, w),
-                     axis_name="shard", world=w)
+                     axis_name="shard", world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def allreduce_rdma(per_rank: torch.Tensor, credits: int = 1
@@ -386,7 +388,7 @@ def allreduce_rdma(per_rank: torch.Tensor, credits: int = 1
         "allreduce_rdma",
         lambda row: hand.ring_allreduce(row[0].contiguous(), credits)[None],
         per_rank, nbytes=2 * (w - 1) * _row_bytes(per_rank),
-        axis_name="shard", world=w)
+        axis_name="shard", world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def allreduce_rdma_refusal(length: int) -> "str | None":
@@ -418,7 +420,7 @@ def allreduce_oneshot(per_rank: torch.Tensor) -> torch.Tensor:
         "allreduce_oneshot",
         lambda row: hand.oneshot_allreduce(row[0].contiguous())[None],
         per_rank, nbytes=(w - 1) * _row_bytes(per_rank),
-        axis_name="shard", world=w)
+        axis_name="shard", world=w, **(mesh_link_meta() if armed() else {}))
 
 
 def reduce_sum(values) -> float:

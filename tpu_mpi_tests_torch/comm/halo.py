@@ -70,6 +70,7 @@ from tpu_mpi_tests_torch.comm.collectives import allreduce_sum
 from tpu_mpi_tests_torch.comm.mesh import Grid, Hop, Ring, make_grid, \
     make_mesh
 from tpu_mpi_tests_torch.comm.peer import peer_ring
+from tpu_mpi_tests_torch.comm.topology import mesh_partner_links
 from tpu_mpi_tests_torch.instrument.telemetry import (
     armed as telemetry_armed,
     async_span,
@@ -446,11 +447,13 @@ def halo_exchange(zg: torch.Tensor, axis: int = 0, n_bnd: int = 2,
         return _exchange(zg, staging, axis, n_bnd, periodic, kernel, world)
     # the JAX span's payload (2 directions × one ghost band a neighbour
     # pair) and its rank-pair metadata: each rank sends one band to each
-    # ring neighbour, ``partner_nbytes`` a directed edge
+    # ring neighbour, ``partner_nbytes`` a directed edge; the link classes
+    # of its two offsets (comm/topology.py) are {} on one host
     nbytes = halo_payload_bytes(zg, axis, world, n_bnd, periodic)
     pairs = world if periodic else world - 1
     partner_meta = ({"partners": [-1, 1], "periodic": periodic,
-                     "partner_nbytes": nbytes // (2 * pairs)}
+                     "partner_nbytes": nbytes // (2 * pairs),
+                     **mesh_partner_links(None, "shard", (-1, 1), periodic)}
                     if pairs > 0 else {})
     args = (zg, staging, axis, n_bnd, periodic, kernel, world)
     if staging in _SPAN_OPS:

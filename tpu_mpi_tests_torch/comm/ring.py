@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from tpu_mpi_tests_torch.comm.mesh import check_world, make_mesh
+from tpu_mpi_tests_torch.comm.topology import mesh_partner_links
 from tpu_mpi_tests_torch.instrument.telemetry import span_call
 from tpu_mpi_tests_torch.instrument.watchdog import note_comm_op
 from tpu_mpi_tests_torch.kernels import hand
@@ -330,6 +331,7 @@ def ring_attention_fn(world: int = 1, causal: bool = False,
     to its right neighbour)."""
     check_world(world)
     _check_tier(tier)
+    links = mesh_partner_links(None, "shard", (1,), True)  # resolved once
 
     def attn(q, k, v):
         return ring_attention(
@@ -345,6 +347,7 @@ def ring_attention_fn(world: int = 1, causal: bool = False,
             "ring_attention", attn, q, k, v,
             nbytes=(world - 1) * kv_bytes, axis_name="shard", world=world,
             flash=flash, causal=causal, stripe=stripe, partners=[1],
-            periodic=True, partner_nbytes=(world - 1) * kv_bytes)
+            periodic=True, partner_nbytes=(world - 1) * kv_bytes,
+            **links)
 
     return attn_recorded

@@ -4,14 +4,15 @@ argument parser every driver starts from (the schedule plane's
 instrument spine's ``--telemetry``, ``--memwatch``, ``--mem-interval``,
 ``--trace-out``, ``--deadline`` and ``--debug-nans``), :func:`run_guarded`
 (the watchdog and the NaN checks around a driver's body), the reporter
-with its observability wiring (:func:`make_reporter`), ``--kernel
-auto``'s resolution, the dtype map and the process-grid spec.
+with its observability wiring (:func:`make_reporter`, the live plane's
+``--metrics-port``, ``--metrics-interval`` and ``--metrics-all-ranks``
+included), ``--kernel auto``'s resolution, the dtype map and the
+process-grid spec.
 
 Two JAX flags have no analogue and are not offered: ``--fake-devices``
 (ranks are processes, started by a launcher) and ``--compile-cache``
 (nothing is compiled per shape; the kernels are built once, at first
-use). ``--metrics-port`` and its two companions are accepted and refused
-(:data:`LIVE_PLANE`)."""
+use)."""
 
 from __future__ import annotations
 
@@ -25,12 +26,6 @@ import torch
 
 from tpu_mpi_tests_torch.device import DEVICES
 from tpu_mpi_tests_torch.instrument.report import Reporter
-from tpu_mpi_tests_torch.utils import TpuMtError
-
-#: where the live observability plane (``--metrics-port``) is queued
-LIVE_PLANE = ("--metrics-port (the live observability plane: the metrics "
-              "registry, its OpenMetrics exporter, the health records) is "
-              "ROADMAP queue 1 item #18b, not ported")
 
 TORCH_DTYPES = {
     "float32": torch.float32,
@@ -116,18 +111,21 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--metrics-port", type=int, default=None, metavar="PORT",
-        help="the live observability plane: not ported (ROADMAP queue 1 "
-        "#18b); refused",
+        help="arm the live observability plane: tee every JSONL record "
+        "into a metrics registry, write kind:'health' heartbeats and "
+        "per-phase progress records, and serve the registry as "
+        "OpenMetrics at http://0.0.0.0:PORT/metrics (rank 0; 0 binds a "
+        "free port). Off by default: nothing is imported or installed",
     )
     p.add_argument(
         "--metrics-interval", type=float, default=1.0, metavar="S",
-        help="the live plane's heartbeat period (not ported; needs "
-        "--metrics-port)",
+        help="heartbeat and progress-snapshot period in seconds (default "
+        "1.0; needs --metrics-port)",
     )
     p.add_argument(
         "--metrics-all-ranks", action="store_true",
-        help="serve the live plane on every rank (not ported; needs "
-        "--metrics-port)",
+        help="serve /metrics on every rank, rank r at PORT + r (default: "
+        "rank 0 only; needs --metrics-port)",
     )
     p.add_argument(
         "--profile-dir",
@@ -202,13 +200,10 @@ def run_guarded(run, args) -> int:
     """Run a driver body under the optional hang watchdog
     (``--deadline``) and the optional NaN checks (``--debug-nans``,
     disarmed again when the body returns); without a deadline the comm
-    wrappers' flight notes, which only its dump reads, are dropped.
-    ``--metrics-port`` is refused here (:data:`LIVE_PLANE`)."""
+    wrappers' flight notes, which only its dump reads, are dropped."""
     from tpu_mpi_tests_torch.instrument import nans, telemetry
     from tpu_mpi_tests_torch.instrument.watchdog import deadline
 
-    if getattr(args, "metrics_port", None) is not None:
-        raise TpuMtError(LIVE_PLANE)
     nans.arm(getattr(args, "debug_nans", False))
     # the flight recorder's one reader is the --deadline watchdog's dump
     telemetry.record_flight(bool(getattr(args, "deadline", None)))
@@ -223,12 +218,14 @@ def run_guarded(run, args) -> int:
 def make_reporter(args, rank: "int | None" = None,
                   size: "int | None" = None) -> Reporter:
     """The run's reporter with the observability wiring (≅ JAX
-    ``make_reporter`` without the live plane and chaos). ``rank`` and
+    ``make_reporter`` without chaos). ``rank`` and
     ``size`` default to this process's place in the world
     (``comm.dist``); drivers emulating logical ranks in one process pass
     their own. Called after the world is joined.
 
     * the JSONL path is suffixed per process when there are several;
+    * ``--metrics-port``: the live plane (:func:`_arm_metrics`), armed
+      first so the records below already feed it;
     * with a sink (``--jsonl``) or ``--telemetry``: the ``manifest``
       record first, then ``topo``, then (with a sink) ``clock_sync``,
       whose ``run_sync_us`` names the run for the ``--trace-out`` merge;
@@ -250,6 +247,7 @@ def make_reporter(args, rank: "int | None" = None,
                    size=w.size if size is None else size,
                    jsonl_path=args.jsonl, proc_index=w.rank,
                    proc_count=w.size, trace_out=trace_out)
+    _arm_metrics(args, rep)
     telemetry_on = getattr(args, "telemetry", False)
     if rep.jsonl_path or telemetry_on:
         from tpu_mpi_tests_torch.instrument.manifest import (
@@ -287,6 +285,54 @@ def make_reporter(args, rank: "int | None" = None,
     setup_tuning(args)
     _attach_tune_sink(rep)
     return rep
+
+
+def _arm_metrics(args, rep: Reporter) -> None:
+    """The live plane's one arm point (≅ JAX ``_arm_metrics``): with
+    ``--metrics-port`` set, tee the reporter's records into a
+    :class:`~tpu_mpi_tests_torch.instrument.metrics.MetricsRegistry`,
+    start the heartbeat thread and the per-phase progress hook, and (rank
+    0, or every rank with ``--metrics-all-ranks``, each at ``port +
+    rank``) serve the registry as OpenMetrics. Without the flag nothing
+    is imported and nothing is installed, so a disarmed run writes what
+    it wrote before the plane existed. The heartbeat and the exporter
+    read only the registry: neither touches the card."""
+    port = getattr(args, "metrics_port", None)
+    if port is None:
+        return
+    from tpu_mpi_tests_torch.instrument.export import (
+        Heartbeat,
+        MetricsExporter,
+    )
+    from tpu_mpi_tests_torch.instrument.metrics import (
+        MetricsRegistry,
+        PhaseProgress,
+    )
+
+    def sink(rec):
+        # the process's own rank, not rep.rank: a spec that needs no mesh
+        # reports as rank 0 in every process, and the heartbeat trail
+        # tells the ranks' liveness apart
+        rep.jsonl({**rec, "rank": rep.proc_index})
+
+    interval = getattr(args, "metrics_interval", 1.0)
+    reg = MetricsRegistry(health_sink=sink)
+    rep.attach_metrics(reg)
+    rep.attach_live(
+        PhaseProgress(sink, interval_s=interval).start(),
+        Heartbeat(reg, sink, interval_s=interval).start(),
+    )
+    all_ranks = getattr(args, "metrics_all_ranks", False)
+    if rep.proc_index == 0 or all_ranks:
+        bind = int(port) + (rep.proc_index if all_ranks and port else 0)
+        try:
+            exporter = MetricsExporter(reg, bind).start()
+        except OSError as e:
+            rep.line(f"METRICS ERROR: cannot bind port {bind}: {e}")
+        else:
+            rep.attach_live(exporter)
+            rep.line(f"METRICS rank {rep.proc_index}: OpenMetrics at "
+                     f"http://0.0.0.0:{exporter.port}/metrics")
 
 
 def setup_tuning(args) -> None:

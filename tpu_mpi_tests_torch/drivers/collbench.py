@@ -180,25 +180,53 @@ def _loop_fn(name: str, world: int, rank: int, rdma_credits: int = 1):
     return run
 
 
+#: chain pairs a sweep's measurement prices in a world of several ranks
+SWEEP_REPEATS_OVER_RANKS = 3
+
+
 def _measure_chain(name, args, world, rank, n, dtype, device) -> float:
     """Seconds an iteration of collective ``name``'s chained loop, at a
-    tenth of the row's chain (a sweep's measurement)."""
+    tenth of the row's chain (a sweep's measurement; ``decode``'s
+    variant sweep measures with it too). Over ranks the pair of chains
+    is priced :data:`SWEEP_REPEATS_OVER_RANKS` times and the fastest
+    valid pair kept: a peer's lag lands in whichever chain it hits and
+    can outlast the short chain's whole difference, which alone would
+    leave the candidate unmeasured (NaN)."""
     from tpu_mpi_tests_torch.instrument.timers import chain_rate
 
-    fn = _loop_fn(name, world, rank, rdma_credits=args.rdma_credits)
+    fn = _loop_fn(name, world, rank,
+                  rdma_credits=getattr(args, "rdma_credits", 1))
     x = torch.ones(n, dtype=dtype, device=device)
     n_meas = max(10, args.n_iter // 10)
-    sec, _ = chain_rate(fn, x, n_short=n_meas // 10 or 1, n_long=n_meas)
+    sec, _ = chain_rate(fn, x, n_short=n_meas // 10 or 1, n_long=n_meas,
+                        repeats=1 if world == 1 else SWEEP_REPEATS_OVER_RANKS)
     return sec
 
 
 def resolve_variant(base, args, world, rank, n, dtype, device,
                     shard_bytes) -> str:
     """The collective an ``auto`` entry runs at one size (≅ JAX
-    ``_resolve_variant``): cached > prior, and with ``--tune`` a miss
-    prices every variant on the device at this size. A variant that
-    cannot run here raises in its measurement, is recorded as declined
-    with the reason and never wins."""
+    ``_resolve_variant``): :func:`tuned_variant`, and the library tier
+    with a NOTE where the resolved variant cannot run here."""
+    variant, why = tuned_variant(base, args, world, rank, n, dtype, device,
+                                 shard_bytes)
+    if why is not None:
+        # a cached winner carried to a world or size it cannot run at
+        _common.decline_note(
+            f"coll_variant/{base} {variant} cannot run at bytes="
+            f"{shard_bytes} world={world} ({why}); running {base}")
+        return base
+    return effective_name(base, variant)
+
+
+def tuned_variant(base, args, world, rank, n, dtype, device,
+                  shard_bytes) -> "tuple[str, str | None]":
+    """``(variant, why it cannot run here or None)`` of
+    ``coll_variant/<base>`` at one size: cached > prior, and with
+    ``--tune`` a miss prices every variant on the device at this size
+    (collbench's and ``decode``'s sweep). A variant that cannot run
+    raises in its measurement, is recorded as declined with the reason
+    and never wins; a malformed cached value gives the prior."""
     from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
     from tpu_mpi_tests_torch.utils import TpuMtError
 
@@ -216,15 +244,8 @@ def resolve_variant(base, args, world, rank, n, dtype, device,
         dtype=args.dtype, bytes=shard_bytes, world=world)
     if variant not in COLL_VARIANTS:
         variant = _priors.COLL_VARIANT  # a malformed cached value
-    name = effective_name(base, variant)
-    if variant_refusal(name, n, world) is not None:
-        # a cached winner carried to a world or size it cannot run at
-        _common.decline_note(
-            f"coll_variant/{base} {variant} cannot run at bytes="
-            f"{shard_bytes} world={world} "
-            f"({variant_refusal(name, n, world)}); running {base}")
-        name = base
-    return name
+    return variant, variant_refusal(effective_name(base, variant), n,
+                                    world)
 
 
 def _cost(name: str, shard_bytes: int, world: int) -> dict:

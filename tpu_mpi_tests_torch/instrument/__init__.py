@@ -5,6 +5,8 @@ JSONL sink (``report.py``), trace ranges with profiler capture
 flight recorder (``telemetry.py``), the run manifest and clock sync
 (``manifest.py``), memory watermarks and census (``memwatch.py``), the
 hang watchdog (``watchdog.py``), first-call costs with the analytic cost
-model (``costs.py``), the NaN checks (``nans.py``) and the cross-rank
-trace merge (``timeline.py``). The live plane (metrics, exporter,
-health records) is ROADMAP queue 1 #18b."""
+model (``costs.py``), the NaN checks (``nans.py``), the cross-rank
+trace merge (``timeline.py``) and the live plane armed by
+``--metrics-port``: the metrics registry fed from the reporter's records
+(``metrics.py``) and its OpenMetrics exporter and heartbeat
+(``export.py``)."""

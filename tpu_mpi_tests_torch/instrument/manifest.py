@@ -48,8 +48,8 @@ def run_manifest(device=None, argv: list[str] | None = None,
     """The manifest record of this process, after the world is joined
     (``comm.mesh.bootstrap``). ``device`` defaults to the world's;
     ``extra`` is merged in. Topology fields (``hosts``,
-    ``ranks_per_host``, ``topology``) are stamped only when the run
-    spans more than one host, as in the JAX record."""
+    ``ranks_per_host``, ``topology``) are stamped only when the run's
+    map is not flat (``comm/topology.py``), as in the JAX record."""
     import platform as _platform
     import socket
 
@@ -87,31 +87,28 @@ def run_manifest(device=None, argv: list[str] | None = None,
     limits = [s["bytes_limit"] for s in stats.values() if "bytes_limit" in s]
     if limits:
         record["hbm_bytes_limit"] = max(limits)
-    if w.hosts > 1:
-        record["hosts"] = w.hosts
-        record["ranks_per_host"] = w.ranks_per_host
-        record["topology"] = f"h{w.hosts}x{w.ranks_per_host}"
+    # the host shape (comm/topology.py), stamped only when not flat
+    from tpu_mpi_tests_torch.comm.topology import current as _topology
+
+    topo = _topology()
+    if not topo.is_flat:
+        record["hosts"] = topo.num_hosts
+        if topo.ranks_per_host:
+            record["ranks_per_host"] = topo.ranks_per_host
+        record["topology"] = topo.label()
     record.update(extra)
     return record
 
 
 def topo_record() -> dict:
-    """The ``kind: "topo"`` record after the manifest (≅ JAX
-    ``comm/topology.topo_record``). One host is the declared-flat
-    record; more hosts add the host layout the launcher gave (rank r on
-    host ``r // ranks_per_host``). No record carries ``link_classes``:
-    the port probes no links (ROADMAP queue 1)."""
-    from tpu_mpi_tests_torch.comm import dist
+    """The ``kind: "topo"`` record after the manifest:
+    ``comm.topology.topo_record`` of the joined world (the JAX record's
+    fields: a one-host world is a discovered map with its ``hosts``,
+    ``ranks_per_host``, ``host_by_rank`` and, at world >= 2,
+    ``link_classes``)."""
+    from tpu_mpi_tests_torch.comm import topology
 
-    w = dist.world()
-    if w.hosts <= 1:
-        return {"kind": "topo", "world": w.size, "topology": "flat",
-                "declared": "flat"}
-    per = w.ranks_per_host
-    return {"kind": "topo", "world": w.size,
-            "topology": f"h{w.hosts}x{per}", "declared": "discovered",
-            "hosts": w.hosts, "ranks_per_host": per,
-            "host_by_rank": [r // per for r in range(w.size)]}
+    return topology.topo_record()
 
 
 def clock_sync_record(rounds: int = 5) -> dict:

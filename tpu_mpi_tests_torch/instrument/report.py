@@ -33,9 +33,10 @@ class Reporter:
     ``rank``/``size`` are the logical rank and world the lines name;
     ``proc_index``/``proc_count`` the real process (default: the same).
     With more than one process the JSONL path is suffixed per process
-    (:func:`rank_suffixed_path`). Closing it stops an attached memory
-    watcher (its final record), flushes the telemetry summary when
-    :meth:`attach_telemetry` opted in, closes the file and, with
+    (:func:`rank_suffixed_path`). Closing it stops the attached live
+    plane (:meth:`attach_live`: the heartbeat's and the progress hook's
+    final records) and memory watcher (its final record), flushes the
+    telemetry summary when :meth:`attach_telemetry` opted in, closes the file and, with
     ``trace_out`` on process 0, merges the run's JSONL into a trace
     (:meth:`_write_trace`)."""
 
@@ -61,6 +62,10 @@ class Reporter:
         self._jsonl_lock = threading.Lock()
         self._telemetry = False
         self._memwatch = None
+        #: the live plane (``--metrics-port``): the registry the records
+        #: are teed into, and the parts closing stops
+        self._metrics = None
+        self._live: list = []
         self._created_at = time.time()  # the trace merge skips older files
         #: this run's clock_sync identity (set by make_reporter)
         self.run_sync_us: int | None = None
@@ -166,9 +171,38 @@ class Reporter:
         record lands before the file closes)."""
         self._memwatch = memwatch
 
+    def attach_metrics(self, registry):
+        """Tee every record this reporter writes into a live
+        :class:`~tpu_mpi_tests_torch.instrument.metrics.MetricsRegistry`
+        (≅ the JAX method): whatever flows to the JSONL also updates the
+        named series. Attached during setup, before any live thread
+        starts; a reporter without a registry pays one ``None`` check."""
+        self._metrics = registry
+
+    @property
+    def metrics(self):
+        """The attached live registry, or None."""
+        return self._metrics
+
+    def attach_live(self, *stoppables):
+        """Own live-plane parts (the heartbeat thread, the exporter, the
+        phase-progress hook): closing calls ``stop()`` on each, in attach
+        order, before the JSONL file closes, so their final records
+        still land."""
+        self._live.extend(stoppables)
+
     def jsonl(self, record: dict[str, Any]):
-        # one locked write() a record: the memory sampler and the
-        # watchdog write from their own threads
+        # the live tee runs outside the lock (observe locks itself, and a
+        # tune_stale health record emitted from inside observe re-enters
+        # here) and before the path check, so the series update even
+        # with no JSONL file
+        if self._metrics is not None:
+            try:
+                self._metrics.observe(record)
+            except Exception:
+                pass
+        # one locked write() a record: the memory sampler, the heartbeat
+        # and the watchdog write from their own threads
         if not self.jsonl_path:
             return
         line = json.dumps(record) + "\n"
@@ -179,6 +213,12 @@ class Reporter:
             self._jsonl_file.flush()
 
     def close(self):
+        live, self._live = self._live, []
+        for obj in live:
+            try:
+                obj.stop()  # final heartbeat / progress snapshot first
+            except Exception:
+                pass
         if self._memwatch is not None:
             memwatch, self._memwatch = self._memwatch, None
             try:

@@ -65,17 +65,22 @@ def bench_blocks(dtype: "str | None") -> int:
 
 # Structural, not measured: the priors of the knobs owned outside the
 # stencil path (≅ the JAX package's COLL_VARIANT, COLL_DISPATCH_DEPTH,
-# RING_PIPELINE_DEPTH, RING_TIER and DAXPY_CHUNK). Each is the value at
+# RING_PIPELINE_DEPTH, RING_TIER, DAXPY_CHUNK, MOE_COMBINE and
+# EMBED_LOOKUP). Each is the value at
 # which an untuned run is the run before the knob existed: the library
 # tier of the collectives ("torch", where the JAX package says "xla",
 # as drivers._common.resolve_kernel_auto maps it), a wait after every
 # chained collective (the dispatch window's depth: no space yet, see
 # comm/collectives.resolve_dispatch_depth), the ring rotating after each
-# fold, the host-pipelined ring, one daxpy launch per iteration. None of
-# them is a speed figure of any device.
+# fold, the host-pipelined ring, one daxpy launch per iteration, the
+# MoE combine hop as the inverse all-to-all of the dispatch, the
+# embedding lookup as a row gather (the JAX priors' values, kept as
+# structural defaults until a --tune on the card picks a winner). None
+# of them is a speed figure of any device.
 COLL_VARIANT = "torch"
 COLL_DISPATCH_DEPTH = 1
 RING_PIPELINE_DEPTH = 1
 RING_TIER = "pipelined"
 DAXPY_CHUNK = 1
-
+MOE_COMBINE = "alltoall"
+EMBED_LOOKUP = "take"

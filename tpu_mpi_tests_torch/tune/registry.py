@@ -80,11 +80,12 @@ def spaces() -> dict[str, TunableSpace]:
 def _import_knob_owners() -> None:
     """Import every module that declares spaces (lazily: the owners
     import this module): the halo and stencil knobs, the ring's depth
-    and tier, the collective variants and the daxpy chunk. The MoE and
-    embedding spaces come with their modules, and the collective
-    dispatch depth with its reader, the serve halo handler (ROADMAP
-    queue 1)."""
+    and tier, the collective variants, the daxpy chunk, the MoE combine
+    hop and the embedding lookup. The collective dispatch depth comes
+    with its reader, the serve halo handler (ROADMAP queue 1 #19)."""
+    import tpu_mpi_tests_torch.comm.embedding  # noqa: F401
     import tpu_mpi_tests_torch.comm.halo  # noqa: F401
+    import tpu_mpi_tests_torch.comm.moe  # noqa: F401
     import tpu_mpi_tests_torch.comm.ring  # noqa: F401
     import tpu_mpi_tests_torch.drivers.collbench  # noqa: F401
     import tpu_mpi_tests_torch.workloads.daxpy  # noqa: F401

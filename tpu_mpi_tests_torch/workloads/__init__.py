@@ -3,9 +3,10 @@
 A spec holds what is particular to a pillar — its flags, the
 ``build → step → verify`` hooks, an optional bench row — and the generic
 runner (:mod:`~tpu_mpi_tests_torch.workloads.runner`) supplies the
-parser, device, reporter and phase timer. The port has two specs so far,
-``daxpy`` and ``stencil1d``; serve-mode registration waits for ``serve/`` (ROADMAP queue 1
-item 19).
+parser, device, reporter, phase timer and the ``WORKLOAD`` bench row.
+The port has the JAX package's five specs: ``daxpy``, ``stencil1d``,
+``moe``, ``embedding`` and ``decode``. Serve-mode registration waits for
+``serve/`` (ROADMAP queue 1 #19).
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ def register_spec(spec: "WorkloadSpec") -> "WorkloadSpec":
 def load_specs() -> None:
     """Import every spec module (their ``register_spec`` calls run now)."""
     import tpu_mpi_tests_torch.workloads.daxpy  # noqa: F401
+    import tpu_mpi_tests_torch.workloads.decode  # noqa: F401
+    import tpu_mpi_tests_torch.workloads.embedding  # noqa: F401
+    import tpu_mpi_tests_torch.workloads.moe  # noqa: F401
     import tpu_mpi_tests_torch.workloads.stencil1d  # noqa: F401
 
 

@@ -8,7 +8,10 @@ the reporter carries the observability wiring (``--telemetry``,
 ``--memwatch``, ``--trace-out``) and configures the schedule cache
 (``--tune``, ``--tune-cache``, ``--tune-pack``, ``--tune-budget``), and
 the body runs under ``run_guarded`` (``--deadline``, ``--debug-nans``).
-The ``WORKLOAD`` bench row comes with the first spec that has one.
+A spec whose ``bench`` returns a row gets a ``WORKLOAD <name>:
+<metric>=<value> <unit>`` line and a ``kind: "workload"`` record, written
+only after its verify passed; a hook's :class:`SpecError` is a clean exit
+with its code.
 
 ``main(argv)`` is the umbrella CLI (``python -m
 tpu_mpi_tests_torch.workloads <name> ...``); each spec module also
@@ -20,11 +23,15 @@ from __future__ import annotations
 import sys
 
 from tpu_mpi_tests_torch.drivers import _common
-from tpu_mpi_tests_torch.workloads.spec import RunContext, WorkloadSpec
+from tpu_mpi_tests_torch.workloads.spec import (
+    RunContext,
+    SpecError,
+    WorkloadSpec,
+)
 
 
 def run_body(spec: WorkloadSpec, args) -> int:
-    """The driver body: reporter + hook sequence."""
+    """The driver body: reporter + hook sequence + bench row."""
     from tpu_mpi_tests_torch.comm.mesh import bootstrap, topology
     from tpu_mpi_tests_torch.instrument.timers import PhaseTimer
     from tpu_mpi_tests_torch.instrument.trace import ProfilerGate
@@ -38,10 +45,47 @@ def run_body(spec: WorkloadSpec, args) -> int:
     with _common.make_reporter(args, rank=rank, size=size) as rep:
         ctx = RunContext(spec=spec, args=args, rep=rep, topo=topo,
                          device=device, timer=PhaseTimer())
-        with ProfilerGate(args.profile_dir):
-            state = spec.build(ctx)
-            state = spec.step(ctx, state)
-        return int(spec.verify(ctx, state) or 0)
+        try:
+            with ProfilerGate(args.profile_dir):
+                state = spec.build(ctx)
+                state = spec.step(ctx, state)
+            rc = int(spec.verify(ctx, state) or 0)
+        except SpecError as e:
+            return e.rc  # the hook printed its ERROR line already
+        # no bench row after a failed verify: a wrong result must not
+        # give a valid-looking headline number
+        if rc == 0:
+            row = spec.bench(ctx, state)
+            if row:
+                _emit_bench_row(ctx, row)
+        return rc
+
+
+def _emit_bench_row(ctx: RunContext, row: dict) -> None:
+    """One ``WORKLOAD`` line and its ``kind: "workload"`` record (≅ JAX
+    ``_emit_bench_row``); the record carries ``higher_better`` so a
+    comparison knows the direction of a regression."""
+    metric = row["metric"]
+    value = float(row["value"])
+    unit = row.get("unit", "")
+    rec = {
+        "kind": "workload",
+        "workload": ctx.spec.name,
+        "metric": metric,
+        "value": value,
+        "unit": unit,
+        "higher_better": bool(row.get("higher_better", True)),
+        "dtype": ctx.args.dtype,
+        "world": ctx.world,
+    }
+    for k, v in row.items():
+        if k not in ("metric", "value", "unit", "higher_better"):
+            rec[k] = v
+    ctx.rep.line(
+        f"WORKLOAD {ctx.spec.name}: {metric}={value:.6g}"
+        f"{' ' + unit if unit else ''}",
+        rec,
+    )
 
 
 def make_main(spec: WorkloadSpec):

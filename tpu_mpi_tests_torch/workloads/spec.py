@@ -2,9 +2,10 @@
 ``tpu_mpi_tests/workloads/spec.py``).
 
 ``build`` sets up state, ``step`` is the measured body (it owns its phase
-timing via ``ctx.phase``) and ``verify`` is the analytic gate — the JAX
-contract, on one device. The JAX spec's ``bench`` row, ``SpecError`` and
-``serve_factory`` come with the first ported spec that uses them.
+timing via ``ctx.phase``), ``verify`` is the analytic gate and ``bench``
+the stable row — the JAX contract, one process per rank. A hook raises
+:class:`SpecError` for a configuration error it has already printed. The
+JAX spec's ``serve_factory`` waits for ``serve/`` (ROADMAP queue 1 #19).
 """
 
 from __future__ import annotations
@@ -14,6 +15,17 @@ from contextlib import contextmanager
 from typing import Any
 
 import torch
+
+
+class SpecError(Exception):
+    """Raised by a spec hook for a user-input or configuration error that
+    the runner turns into a clean nonzero exit; the hook prints its own
+    ERROR line first (the driver convention: no traceback for a bad
+    flag)."""
+
+    def __init__(self, rc: int = 2):
+        super().__init__(rc)
+        self.rc = rc
 
 
 @dataclasses.dataclass
@@ -28,6 +40,11 @@ class RunContext:
     topo: Any
     device: torch.device
     timer: Any
+
+    @property
+    def world(self) -> int:
+        """The number of ranks (processes, one card each)."""
+        return self.topo.global_device_count if self.topo else 1
 
     def dtype(self) -> torch.dtype:
         """The run's torch dtype."""
@@ -76,3 +93,19 @@ class WorkloadSpec:
         """Analytic gate: print FAIL lines and return nonzero on a
         mismatch, 0 on pass."""
         raise NotImplementedError
+
+    def bytes_model(self, ctx: RunContext, state) -> "int | None":
+        """Nominal comm payload bytes of one step (an annotation, not a
+        bandwidth claim; the serving specs' ``bench`` rows carry it as
+        ``nbytes``); None when the comm wrappers annotate their own
+        spans."""
+        return None
+
+    def bench(self, ctx: RunContext, state) -> "dict | None":
+        """The stable bench row: ``{"metric", "value", "unit",
+        "higher_better", ...extras}`` or None for no row (``daxpy`` and
+        ``stencil1d`` keep their own lines, as in the JAX package). The
+        runner prints it as ``WORKLOAD <name>: <metric>=<value> <unit>``
+        with a ``kind: "workload"`` record, after a verify that
+        passed."""
+        return None

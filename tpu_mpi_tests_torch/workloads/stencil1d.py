@@ -250,6 +250,7 @@ def _run_overlap(args, rep, world, zg, d) -> int:
     import torch
 
     from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.comm.topology import mesh_link_meta
     from tpu_mpi_tests_torch.instrument.timers import PhaseTimer, block
 
     eps = 1e-6
@@ -261,7 +262,8 @@ def _run_overlap(args, rep, world, zg, d) -> int:
     def pipeline(depth: int, n: int, timer=None):
         runner = H.OverlapRunner(
             "halo_exchange", depth=depth, nbytes=nbytes, axis_name="shard",
-            world=world, timer=timer, phase="overlap_interior")
+            world=world, timer=timer, phase="overlap_interior",
+            **mesh_link_meta())
         z = H.overlap_steps(runner, fns, zg.clone(), n)
         return block(z), runner
 
