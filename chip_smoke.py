@@ -281,7 +281,17 @@ failure exits non-zero and prints no result line):
    checks' main-path operands too, and timed);
    the last run again with ``--metrics-port 0 --jsonl`` (the heartbeat
    trail, the progress records, ``/metrics`` scraped while it runs, and
-   launches and routes exactly the disarmed run's);
+   launches and routes exactly the disarmed run's). Then serving mode
+   (``run_serve_slice``): ``drivers/serve.py`` over the seven classes at
+   those widths (``SERVE_TABLE``), open-loop Poisson at 200 req/s on a
+   cache that sends the halo class through ``ring_halo`` and the decode
+   class through ``oneshot`` (every class err=0, the launches exactly one
+   a request plus the warm call, on their routes; the halo field and the
+   decode buffer bit for bit their plain versions'), again with no cache
+   (no hand launch), a recorded run replayed under the same fingerprint
+   and per-class arrivals, 20 re-tune swaps of the decode handler (each
+   re-sweep's and next batch's launches exact, allocated memory within
+   one workspace) and a closed loop at concurrency 8 (``SERVE_ROWS``);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -2188,6 +2198,7 @@ def run_main_path(device):
     recs["tune"] = run_tune_slice(device, counts, peaks)
     recs["instrument"] = run_instrument_slice(device, counts, peaks)
     recs["serving"] = run_serving_slice(device, counts, peaks)
+    recs["serve"] = run_serve_slice(device, counts, peaks)
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -2561,9 +2572,11 @@ def run_instrument_slice(device, counts, peaks):
 
     * ``collbench --collectives auto --tune`` at the driver's ladder
       (4 KiB-16 MiB f32) on a fresh cache: a ``tune_result`` per base
-      and size, every candidate measured or declined with its reason; the same run again is all
-      ``tune_hit``; each winner run explicitly gives the auto run's
-      ``COLL`` rows (name, bytes, chain length); the candidates' ring
+      and size and one for ``coll/dispatch_depth`` (priced at the
+      smallest size), every candidate measured or declined with its
+      reason; the same run again is all ``tune_hit``; each winner run
+      explicitly gives the auto run's ``COLL`` rows (name, bytes, chain
+      length); the candidates' ring
       and one-shot launches on their routes;
     * ``attnbench --tiers flash,ring --tune`` at L=8192, d=128 in bf16
       ``--fast`` and f32: the ``ring/tier`` records, and no
@@ -2636,9 +2649,12 @@ def run_instrument_slice(device, counts, peaks):
     for r in results:
         if r["knob"].startswith("coll_variant/"):
             winners[(r["knob"].split("/")[1], r["fingerprint"])] = r["value"]
-    if len(winners) != 2 * len(COLLBENCH_SIZES_KIB) or len(results) != \
-            len(winners):
+    depth = [r for r in results if r["knob"] == "coll/dispatch_depth"]
+    if len(winners) != 2 * len(COLLBENCH_SIZES_KIB) or len(depth) != 1 \
+            or len(results) != len(winners) + 1:
         raise SmokeFailure(f"{path}: tune_result records {results}")
+    log(f"COLL TUNE coll/dispatch_depth winner {depth[0]['value']} "
+        f"({depth[0]['seconds']} s a chain)")
     auto_rows = _coll_rows(DRIVER_TEXT[path])
     path_hit = "collbench --collectives auto --tune (cache hits)"
     counts[path_hit] = drive_driver(path_hit, collbench, base, [],
@@ -3143,6 +3159,342 @@ def run_serving_slice(device, counts, peaks):
     out["live"] = {"heartbeats": len(beats), "progress": len(progress),
                    "scrapes": len(scraped),
                    "scrapes_with_decode": len(full)}
+    return out
+
+
+#: the serve slice's mix at the earlier slices' widths: decode at Llama 3
+#: 70B's hidden width (batch 32), moe at Mixtral 8x7B's, embedding at
+#: Llama 3 8B's table (batch 256), attn at attnbench's L and d, halo at
+#: stencil1d's 32 Mi, daxpy at 2^26, a 4 Mi bf16 allreduce
+SERVE_TABLE = ("decode:32x8192:bfloat16:4,moe:8192x4096:bfloat16:1,"
+               "embedding:128256x256x4096:bfloat16:1,"
+               "attn:8192x128:bfloat16:1,halo:33554432:float32:2,"
+               "daxpy:67108864:float32:2,allreduce:4194304:bfloat16:1")
+SERVE_DECODE, SERVE_DECODE_SHAPE = "decode:32x8192:bfloat16", (32, 8192)
+SERVE_HALO, SERVE_HALO_N = "halo:33554432:float32", STENCIL1D_N
+#: seconds of traffic a run: the seeded open-loop run, the others
+SERVE_OPEN_S, SERVE_RUN_S = 8.0, 5.0
+SERVE_RATE = 200.0
+SERVE_CONCURRENCY = 8
+SERVE_SWAPS = 20
+#: the hand kernel a decode handler's variant launches, once a request
+#: (world 1: the ring allreduce is one reduce-scatter launch)
+SERVE_DECODE_KERNEL = {"torch": None, "rdma": "ring_reduce_scatter",
+                       "oneshot": "oneshot"}
+
+
+@contextlib.contextmanager
+def captured_handlers():
+    """Keep every handler the serve driver builds (by workload name), so
+    its state can be held against the plain version after the run."""
+    from tpu_mpi_tests_torch.drivers import _common
+
+    real, built = _common.workload_factory, {}
+
+    def factory(name):
+        make = real(name)
+
+        def build(device, shape, dtype):
+            step = make(device, shape, dtype)
+            built[name] = step
+            return step
+        return build
+
+    _common.workload_factory = factory
+    try:
+        yield built
+    finally:
+        _common.workload_factory = real
+
+
+def serve_summaries(jl):
+    """The run's per-class summary records, by class key."""
+    return {r["class"]: r for r in _jsonl_records(jl, "serve")
+            if r.get("event") == "summary"}
+
+
+def serve_rows(path):
+    """The SERVE lines of a driver path, parsed with the driver's
+    pattern; fails unless every class served with no error and no
+    shed."""
+    import re
+
+    from tpu_mpi_tests_torch.drivers import serve
+
+    rows = {}
+    for m in re.finditer(serve.SERVE_LINE_RE, DRIVER_TEXT[path]):
+        g = m.groups()
+        rows[g[0]] = {"offered_hz": float(g[1]), "achieved_hz": float(g[2]),
+                      "n": int(g[3]), "err": int(g[4]), "shed": int(g[5]),
+                      **{k: None if v == "-" else float(v) for k, v in
+                         zip(("p50_ms", "p95_ms", "p99_ms"), g[6:9])},
+                      "qmax": int(g[9])}
+    lines = [ln for ln in DRIVER_TEXT[path].splitlines()
+             if ln.startswith("SERVE ") and not ln.startswith(
+                 "SERVE TRAFFIC")]
+    keys = [c.split(":")[0] + ":" + ":".join(c.split(":")[1:3])
+            for c in SERVE_TABLE.split(",")]
+    if len(lines) != len(keys) or set(rows) != set(keys):
+        raise SmokeFailure(f"{path}: SERVE lines {lines} do not parse "
+                           f"as one a class of {keys}")
+    for key, r in rows.items():
+        if r["err"] or r["shed"] or not r["n"]:
+            raise SmokeFailure(f"{path}: {key} served {r}")
+    return rows
+
+
+def serve_launches(path, counts, summaries, seeded: bool):
+    """Exact hand launches of a serve run: seeded, one ``ring_halo``
+    (scalar route: the 1-D field) a halo request and one ``oneshot``
+    (vec16) a decode request, each plus the handler's warm call, and
+    nothing else; with the cache removed, none at all."""
+    if not seeded:
+        _exact(path, counts, {})
+        return {}
+    want = {"ring_halo": 1 + summaries[SERVE_HALO]["requests"],
+            "oneshot": 1 + summaries[SERVE_DECODE]["requests"]}
+    _exact(path, counts, want)
+    check_routes(path, "ring_halo", {"scalar": want["ring_halo"]})
+    check_routes(path, "oneshot", {"vec16": want["oneshot"]})
+    return want
+
+
+def check_serve_state(path, built, summaries):
+    """The halo handler's field against the plain version of the ring
+    halo kernel applied once to the handler's initial field (the
+    exchange is idempotent), and the decode buffer against the library
+    tier's allreduce chain on ones at the handler's call count (its warm
+    call and every request served; the identity at world 1), both bit
+    for bit."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import collbench as CB
+
+    halo = built["halo"]
+    if halo.staging is not H.Staging.PALLAS_RDMA:
+        raise SmokeFailure(f"{path}: the halo class ran {halo.staging}")
+    plain = H.halo_exchange(halo.field().cpu(), 0, 2, False,
+                            H.Staging.PALLAS_RDMA)
+    if not torch.equal(halo.state["z"].cpu(), plain):
+        raise SmokeFailure(f"{path}: the halo field differs from the "
+                           f"plain exchange")
+    decode = built["decode"]
+    if decode.tune_info["variant"] != "oneshot":
+        raise SmokeFailure(f"{path}: decode ran {decode.tune_info}")
+    x = decode.state["x"]
+    calls = 1 + summaries[SERVE_DECODE]["requests"]
+    want = CB._loop_fn("allreduce", 1, 0)(torch.ones_like(x), calls)
+    if not torch.equal(x, want):
+        raise SmokeFailure(f"{path}: the decode buffer differs from the "
+                           f"plain allreduce chain")
+
+
+def serve_retune(device, tmp):
+    """(e) the re-tune path on the card: the decode handler built at
+    ``torch``; SERVE_SWAPS times, one ``tune_stale`` record for its op
+    and a window boundary: the controller re-sweeps the three variants
+    (each candidate a rebuilt, warmed handler timed over a probe batch),
+    writes one ``tune_swap`` and hot-swaps; the launches of the re-sweep
+    and of the swapped handler's next batch are exact on their routes,
+    and the allocated memory after the last swap is within one
+    workspace (the one-shot kernel's comm slot, a shard's bytes) of its
+    value after the first."""
+    import torch
+
+    from tpu_mpi_tests_torch.drivers import _common
+    from tpu_mpi_tests_torch.instrument.metrics import MetricsRegistry
+    from tpu_mpi_tests_torch.kernels import hand
+    from tpu_mpi_tests_torch.tune import controller as Ctl
+    from tpu_mpi_tests_torch.tune import registry as treg
+
+    treg.configure(cache_path=os.path.join(tmp, "retune.json"),
+                   enabled=True, budget_s=TUNE_BUDGET_S)
+    try:
+        records = []
+        reg = MetricsRegistry()
+        reg.set_health_sink(lambda r: (records.append(r), reg.observe(r)))
+        step = _common.workload_factory("decode")(
+            device, SERVE_DECODE_SHAPE, "bfloat16")
+        if step.tune_info["variant"] != "torch":
+            raise SmokeFailure(f"serve retune: built {step.tune_info}")
+        handlers = {SERVE_DECODE: step}
+        ctl = Ctl.TuneController(reg, handlers, sink=records.append,
+                                 line=log, budget_s=TUNE_BUDGET_S)
+        shard_bytes = SERVE_DECODE_SHAPE[0] * SERVE_DECODE_SHAPE[1] * 2
+        probe = 1 + Ctl.PROBE_REQUESTS  # a candidate's warm call + probe
+        mem, winners = [], []
+        for i in range(SERVE_SWAPS):
+            reg.emit_health({
+                "kind": "health", "event": "tune_stale",
+                "op": f"serve:{SERVE_DECODE}", "signal": "gbps",
+                "baseline": 1.0, "rolling": 0.5, "sag_pct": 50.0,
+                "threshold_pct": 15.0, "n": 8,
+                "knobs": ["coll_variant/allreduce"], "t": time.time()})
+            hand.reset_launch_counts()
+            if ctl.window_boundary(time.time()) != 1:
+                raise SmokeFailure(f"serve retune: swap {i} did not happen")
+            sweep_counts = hand.launch_counts()
+            new = handlers[SERVE_DECODE]
+            winner = new.tune_info["variant"]
+            kernel = SERVE_DECODE_KERNEL[winner]
+            want = {"ring_reduce_scatter": probe, "oneshot": probe}
+            if kernel:
+                want[kernel] += 1  # the swapped handler's warm call
+            _exact(f"serve retune swap {i} re-sweep", sweep_counts, want)
+            hand.reset_launch_counts()
+            new(1)
+            _exact(f"serve retune swap {i} next batch", hand.launch_counts(),
+                   {kernel: 1} if kernel else {})
+            routes = hand.route_counts()
+            for name in ("ring_reduce_scatter", "oneshot"):
+                n = 1 if name == kernel else 0
+                got = routes[name]
+                if got != dict.fromkeys(got, 0) | ({"vec16": n} if n
+                                                   else {}):
+                    raise SmokeFailure(f"serve retune swap {i}: {name} "
+                                       f"routes {got}")
+            winners.append(winner)
+            mem.append(torch.cuda.memory_allocated(device))
+        swaps = [r for r in records if r.get("kind") == "control"]
+        if len(swaps) != SERVE_SWAPS:
+            raise SmokeFailure(f"serve retune: {len(swaps)} tune_swap "
+                               f"records for {SERVE_SWAPS} swaps")
+        if abs(mem[-1] - mem[0]) > shard_bytes:
+            raise SmokeFailure(f"serve retune: allocated {mem[0]} bytes "
+                               f"after the first swap, {mem[-1]} after "
+                               f"the last (one workspace: {shard_bytes})")
+        resweep = [r["resweep_s"] for r in swaps]
+        log("SERVE_RETUNE " + json.dumps({
+            "winners": winners, "resweep_s": resweep,
+            "allocated_first": mem[0], "allocated_last": mem[-1],
+            "workspace_bytes": shard_bytes,
+            "candidate_seconds": [[r["candidate"], r.get("seconds")]
+                                  for r in records
+                                  if r.get("kind") == "tune"]}))
+        return {"winners": winners, "resweep_s": resweep,
+                "allocated": [mem[0], mem[-1]]}
+    finally:
+        treg.deconfigure()
+
+
+def run_serve_slice(device, counts, peaks):
+    """Serving mode on the card (``drivers/serve.main``), the
+    :data:`SERVE_TABLE` mix, each run a main path with its counts zeroed
+    just before and read just after:
+
+    (a) open-loop Poisson at SERVE_RATE req/s, ``--seed 0``, on a cache
+    seeded with ``halo/staging = pallas`` and ``coll_variant/allreduce =
+    oneshot`` for the halo and decode classes' contexts: every class
+    serves with err=0, every SERVE line parses with the driver's pattern;
+    (b) its launches exact — ``ring_halo`` 1 + the halo class's requests
+    (scalar route), ``oneshot`` 1 + the decode class's (vec16), nothing
+    else — then the same mix with the cache removed, launching no hand
+    kernel (priors ``direct`` and ``torch``); both printed as
+    ``SERVE_LAUNCHES``; (c) after (a), the halo field and the decode
+    buffer against their plain versions, bit for bit; (d) a recorded run
+    replayed: the same per-class arrivals and fingerprint, the manifest
+    carrying it; (e) the re-tune path (:func:`serve_retune`); (f) a
+    closed loop at concurrency SERVE_CONCURRENCY. Each class's achieved
+    rate and p50/p95/p99 go out as ``SERVE_ROWS``. No run has
+    ``--telemetry`` on (a span waits for the whole device)."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import serve
+    from tpu_mpi_tests_torch.serve import replay as R
+    from tpu_mpi_tests_torch.tune import cache as tcache
+    from tpu_mpi_tests_torch.tune.fingerprint import fingerprint
+
+    # the fingerprints name the world's device: join it before seeding
+    dist.init(device.type)
+    tmp = tempfile.mkdtemp(prefix="smoke_serve_")
+    seeded = os.path.join(tmp, "seeded.json")
+    sc = tcache.ScheduleCache(seeded)
+    sc.store("halo/staging", fingerprint(**H._staging_context(
+        torch.empty(SERVE_HALO_N + 4, dtype=torch.float32, device="meta"),
+        0, 1)), "pallas")
+    sc.store("coll_variant/allreduce", fingerprint(
+        dtype="bfloat16", bytes=SERVE_DECODE_SHAPE[0] * SERVE_DECODE_SHAPE[1]
+        * 2, world=1), "oneshot")
+    sc.save()
+    base = ["--device", device.type, "--workloads", SERVE_TABLE,
+            "--seed", "0", "--report-interval", "1"]
+    out = {"rows": {}, "launches": {}}
+
+    def run(path, argv, cache, seeded_run):
+        jl = os.path.join(tmp, "".join(c if c.isalnum() else "_"
+                                       for c in path) + ".jsonl")
+        with captured_handlers() as built:
+            counts[path] = drive_driver(
+                path, serve, base + argv + ["--tune-cache", cache,
+                                            "--jsonl", jl],
+                ["ring_halo", "oneshot"] if seeded_run else [],
+                ("serve: 7 handlers warmed",), peaks)
+        rows = serve_rows(path)
+        summaries = serve_summaries(jl)
+        for key, row in rows.items():
+            # the latency's split: queue delay (arrival to dispatch) and
+            # service (dispatch to the card's completion)
+            row.update({k: summaries[key].get(k) for k in (
+                "qd_p50_ms", "qd_p99_ms", "svc_p50_ms", "svc_p99_ms")})
+        out["launches"][path] = serve_launches(path, counts[path],
+                                               summaries, seeded_run)
+        out["rows"][path] = rows
+        return jl, summaries, built
+
+    path = f"serve poisson {SERVE_RATE:g}/s (seeded cache)"
+    _, summaries, built = run(path, ["--duration", str(SERVE_OPEN_S),
+                                     "--arrival", "poisson", "--rate",
+                                     str(SERVE_RATE)], seeded, True)
+    check_serve_state(path, built, summaries)
+    log(f"CHECK {path}: the halo field and the decode buffer equal their "
+        f"plain versions bit for bit")
+    del built
+    path = f"serve poisson {SERVE_RATE:g}/s (no cache)"
+    run(path, ["--duration", str(SERVE_RUN_S), "--arrival", "poisson",
+               "--rate", str(SERVE_RATE)],
+        os.path.join(tmp, "absent.json"), False)
+    log(f"SERVE_LAUNCHES {json.dumps(out['launches'])}")
+
+    art = os.path.join(tmp, "traffic.json")
+    path = "serve --record"
+    _, rec_sum, _ = run(path, ["--duration", str(SERVE_RUN_S), "--rate",
+                               str(SERVE_RATE), "--record", art],
+                        seeded, True)
+    artifact = R.load_traffic(art)
+    path = "serve --replay"
+    jl, rep_sum, _ = run(path, ["--replay", art], seeded, True)
+    offered = {k: r["arrivals"] for k, r in rep_sum.items()}
+    manifest = _jsonl_records(jl, "manifest")[0]
+    if (offered != artifact["classes"]
+            or offered != {k: r["arrivals"] for k, r in rec_sum.items()}
+            or manifest.get("traffic_fingerprint")
+            != artifact["fingerprint"]
+            or f"fingerprint={artifact['fingerprint']}"
+            not in DRIVER_TEXT[path]):
+        raise SmokeFailure(f"serve replay: offered {offered}, recorded "
+                           f"{artifact['classes']}, manifest "
+                           f"{manifest.get('traffic_fingerprint')} for "
+                           f"{artifact['fingerprint']}")
+    log(f"SERVE_REPLAY fingerprint {artifact['fingerprint']} count "
+        f"{artifact['count']} classes {json.dumps(offered)}")
+    out["replay"] = {"fingerprint": artifact["fingerprint"],
+                     "count": artifact["count"]}
+
+    out["retune"] = serve_retune(device, tmp)
+
+    path = f"serve closed concurrency={SERVE_CONCURRENCY}"
+    jl, closed, _ = run(path, ["--duration", str(SERVE_RUN_S), "--arrival",
+                               "closed", "--concurrency",
+                               str(SERVE_CONCURRENCY)], seeded, True)
+    total = sum(r["requests"] for r in closed.values())
+    span = max(r["duration_s"] for r in closed.values())
+    out["closed_total_hz"] = total / span
+    log(f"SERVE_CLOSED {total} requests in {span:.6g} s: "
+        f"{total / span:.6g} req/s at concurrency {SERVE_CONCURRENCY}")
+    log(f"SERVE_ROWS {json.dumps(out['rows'])}")
     return out
 
 

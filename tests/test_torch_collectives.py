@@ -60,7 +60,6 @@ from tpu_mpi_tests_torch.comm import collectives as C
 from tpu_mpi_tests_torch.comm.peer import COLL_MAX_WORLD, PeerError
 from tpu_mpi_tests_torch.drivers import collbench, gather_inplace
 from tpu_mpi_tests_torch.kernels import hand
-from tpu_mpi_tests_torch.utils import TpuMtError
 from tpu_mpi_tests_torch.tune import registry as treg
 
 WORLDS = (2, 4)
@@ -383,14 +382,23 @@ def test_collbench_world1_rows_and_refusals(capsys, tmp_path):
                                      "--tune-cache", cache, "--sizes-kib",
                                      "4", "--telemetry"]) == 0
         out = capsys.readouterr().out
-        for knob in ("coll_variant/allgather", "coll_variant/allreduce"):
+        # --tune also prices the dispatch window's depth (its reader is
+        # the serve halo handler)
+        for knob in ("coll_variant/allgather", "coll_variant/allreduce",
+                     "coll/dispatch_depth"):
             assert f"TUNE {knob} winner=" in out, out
-        assert "coll/dispatch_depth" not in out  # no reader, no sweep
         assert "TELEMETRY allreduce :" in out
     finally:
         treg.deconfigure()
-    with pytest.raises(TpuMtError, match="queue 1 item 19"):
-        collbench.serve_step_factory(None, (64,), "float32")
+    # the serve-mode allreduce workload: the library tier's chain, ones
+    # stay ones at world 1
+    step = collbench.serve_step_factory(torch.device("cpu"), (64,),
+                                        "float32")
+    step(3)
+    assert torch.equal(step.state["x"], torch.ones(64))
+    with pytest.raises(ValueError, match="allreduce wants a 1-d shape"):
+        collbench.serve_step_factory(torch.device("cpu"), (8, 8),
+                                     "float32")
     # the ring's chunking (a COLL-SKIP row, stencil2d's NOTE) refuses
     # nothing at world=1; at world w a row of L % w != 0 elements
     assert C.allreduce_rdma_refusal(1001) is None

@@ -366,6 +366,26 @@ def test_decode_declines_a_cached_variant_it_cannot_run(monkeypatch, capsys,
     assert "DECODE allreduce[torch] batch=1" in out
 
 
+#: the JAX serve driver's refusal of a world of several processes
+SERVE_REFUSAL = (
+    "ERROR serve mode is single-process only: batch composition depends "
+    "on arrival/service timing and would diverge across ranks "
+    "mid-collective (run one process, fake or real devices)")
+
+
+@pytest.mark.parametrize("w", WORLDS)
+def test_serve_driver_refuses_a_world_of_several_processes(worlds, w):
+    """The serve driver serves at world 1; on every rank of a gloo world
+    of 2 or 4 it prints the JAX driver's ERROR line and exits 2."""
+    for rank in range(w):
+        text = W.read_text(worlds[w], "serve", rank)
+        if w == 1:
+            assert text.startswith("RC 0\n"), text
+            assert "SERVE daxpy:64:float32: offered=" in text
+        else:
+            assert text == f"RC 2\n{SERVE_REFUSAL}\n", text
+
+
 def test_every_spec_registered_with_its_spaces():
     sp = treg.spaces()
     assert sp["moe/combine"].candidates == ("alltoall", "allgather")

@@ -296,10 +296,9 @@ def test_rdma_winner_degrades_where_rdma_cannot_run(tmp_path, monkeypatch,
 def test_spaces_and_priors():
     sp = treg.spaces()
     # every space the JAX package declares, but the flash tiles (the
-    # CUDA fold takes no tile argument) and the dispatch depth (its
-    # reader, the serve halo handler, is not ported)
+    # CUDA fold takes no tile argument)
     assert set(sp) == set(jreg.spaces()) - {
-        "flash_tiles/contig", "flash_tiles/striped", "coll/dispatch_depth"}
+        "flash_tiles/contig", "flash_tiles/striped"}
     for knob, space in sp.items():
         # the library tier is "torch" where the JAX package says "xla"
         jc = ["torch" if c == "xla" and knob.startswith("coll_variant/")

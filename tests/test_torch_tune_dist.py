@@ -170,9 +170,11 @@ def test_stencil2d_tuned_tier_on_every_rank_against_jax(runs, w):
         assert "ITER BITWISE fused==chained over 3 calls: OK" in text
 
 
-#: the knobs rank 0 sweeps in the spawned world's knob runs
-FLEET_KNOBS = ("coll_variant/allgather", "coll_variant/allreduce",
-               "ring/pipeline_depth", "ring/tier", "daxpy/chunk")
+#: the knobs rank 0 sweeps in the spawned world's knob runs (collbench
+#: --tune prices the dispatch window's depth too)
+FLEET_KNOBS = ("coll/dispatch_depth", "coll_variant/allgather",
+               "coll_variant/allreduce", "ring/pipeline_depth", "ring/tier",
+               "daxpy/chunk")
 
 
 @pytest.mark.parametrize("w", WORLDS)

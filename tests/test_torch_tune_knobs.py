@@ -1,6 +1,6 @@
 """The knob owners outside the stencil path (``coll_variant/*``,
 ``ring/pipeline_depth``, ``ring/tier``, ``daxpy/chunk``), on the CPU,
-and the dispatch window's depth (explicit or the prior): every resolver's
+and the dispatch window's depth (``coll/dispatch_depth``): every resolver's
 precedence (explicit > cached > prior) and its degrade (a malformed
 cached value gives the prior; a cached ``fused`` the gate declines runs
 pipelined, with a NOTE), held against the JAX resolvers where both have
@@ -76,13 +76,20 @@ def test_resolver_precedence_and_degrade(cache, knob):
 
 @pytest.mark.parametrize("v", [None, 2, 4, "8", "x", 0])
 def test_dispatch_depth_has_no_space_and_matches_jax(cache, v):
-    """No ``coll/dispatch_depth`` space: a cached depth does not move the
-    window (its reader, the serve halo handler, is not ported), and the
-    explicit depth resolves as the JAX package's with an empty cache."""
-    assert "coll/dispatch_depth" not in treg.spaces()
-    _store(cache, "coll/dispatch_depth", 8)
+    """The ``coll/dispatch_depth`` space is the JAX package's (its reader
+    is the serve halo handler): an empty cache resolves every explicit
+    value as the JAX resolver does, and a cached depth moves the window
+    (explicit > cached > prior, the device-only fallback on)."""
+    assert treg.space("coll/dispatch_depth").candidates == \
+        jreg.space("coll/dispatch_depth").candidates == (1, 2, 4, 8)
     assert C.resolve_dispatch_depth(v) == JC.resolve_dispatch_depth(v)
     assert C.DispatchWindow().depth == priors.COLL_DISPATCH_DEPTH == 1
+    _store(cache, "coll/dispatch_depth", 8)  # the device-only entry
+    want = 8 if v is None else JC.resolve_dispatch_depth(v)
+    assert C.resolve_dispatch_depth(v, dtype="float32", n=64, world=1) \
+        == want
+    assert C.DispatchWindow(v, dtype="float32", n=64, world=1).depth \
+        == want
 
 
 def test_cached_fused_degrades_where_the_gate_declines(cache, monkeypatch,

@@ -1078,9 +1078,13 @@ def suite_serving(rank, world, out_dir):
     ``MOE_CASES`` case (this rank's routed tokens and the demand
     matrix), the embedding lookup and ``EMBED_ITERS`` chained
     scatter-adds on every ``EMBED_CASES`` case, then the three specs
-    (``SERVING_SPECS``) through the runner, each with its JSONL."""
+    (``SERVING_SPECS``) through the runner, each with its JSONL; last
+    the serve driver (``SERVE_ARGV``), which serves at world 1 and on
+    every rank of a larger world prints the JAX driver's single-process
+    ERROR line and exits 2."""
     from tpu_mpi_tests_torch.comm import embedding as E
     from tpu_mpi_tests_torch.comm import moe as M
+    from tpu_mpi_tests_torch.drivers import serve
     from tpu_mpi_tests_torch.workloads import runner
 
     for case in MOE_CASES:
@@ -1109,6 +1113,12 @@ def suite_serving(rank, world, out_dir):
                        lambda a, name=name: runner.main([name] + a),
                        ["--device", "cpu", *argv, *extra, "--jsonl",
                         os.path.join(out_dir, f"{case}.jsonl")])
+    _run_main(out_dir, "serve", rank, serve.main, SERVE_ARGV)
+
+
+#: the serve driver's run in the serving suite: 0.2 s of one small class
+SERVE_ARGV = ["--device", "cpu", "--duration", "0.2", "--rate", "40",
+              "--workloads", "daxpy:64:float32"]
 
 
 #: the topology suite's collective and exchange calls, each run under

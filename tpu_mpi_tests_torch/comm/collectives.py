@@ -16,8 +16,10 @@ tier of the reduce-scatter. On the CPU the kernels' plain versions run
 over the gloo group.
 
 :class:`DispatchWindow` bounds how many chained ops run without a wait
-(≅ JAX ``:87``); its depth is explicit or the prior
-(:func:`resolve_dispatch_depth`).
+(≅ JAX ``:87``); its depth is the ``coll/dispatch_depth`` knob
+(:data:`COLL_DISPATCH_SPACE`, :func:`resolve_dispatch_depth`: explicit >
+cached > prior), which ``collbench --tune`` sweeps and the serve ``halo``
+handler reads.
 
 Every public wrapper records a telemetry span (``instrument/telemetry``,
 the JAX op names and payload conventions, counted over the global array:
@@ -45,18 +47,35 @@ from tpu_mpi_tests_torch.instrument.telemetry import (
 from tpu_mpi_tests_torch.instrument.timers import stream_event
 from tpu_mpi_tests_torch.instrument.watchdog import note_comm_op
 from tpu_mpi_tests_torch.tune import priors as _priors
+from tpu_mpi_tests_torch.tune.registry import (
+    declare_space,
+    resolve as _tune_resolve,
+)
 from tpu_mpi_tests_torch.utils import TpuMtError, check_divisible
 
 
-def resolve_dispatch_depth(explicit=None) -> int:
-    """The dispatch-window depth: ``explicit``, else the prior (1); at
-    least 1, and a value that is not an integer gives the prior (≅ JAX
-    ``:60`` with an empty schedule cache). The JAX package's
-    ``coll/dispatch_depth`` space and its ``collbench --tune`` sweep come
-    with the window's one reader there, the serve halo handler (ROADMAP
-    queue 1 item 19): a cached depth nothing in the port reads would
-    price nothing."""
-    val = _priors.COLL_DISPATCH_DEPTH if explicit is None else explicit
+#: the collective dispatch-depth knob (≅ JAX ``COLL_DISPATCH_SPACE``),
+#: declared here because the chained-collective pattern lives here; the
+#: prior 1 is the per-call wait
+COLL_DISPATCH_SPACE = declare_space(
+    "coll/dispatch_depth",
+    (_priors.COLL_DISPATCH_DEPTH, 2, 4, 8),
+    describe="chained collective dispatches allowed in flight before "
+             "the window waits",
+)
+
+
+def resolve_dispatch_depth(explicit=None, **ctx) -> int:
+    """Dispatch-window depth (≅ JAX ``:60``): explicit > cached winner >
+    prior (1), at least 1. The device-only fallback stays on (unlike the
+    shape-keyed knobs): the depth prices the host's launch and wait
+    path, a property of the machine more than of a payload, so one
+    collbench sweep's winner serves every chained site. A value that is
+    not an integer gives the prior."""
+    val = _tune_resolve(
+        "coll/dispatch_depth", explicit=explicit,
+        prior=_priors.COLL_DISPATCH_DEPTH, **ctx,
+    )
     try:
         depth = int(val)
     except (TypeError, ValueError):
@@ -68,8 +87,8 @@ class DispatchWindow:
     """Bound the in-flight window of chained ops posted on one stream (≅
     JAX ``DispatchWindow``): up to ``depth`` calls run without a wait,
     then the window waits once. ``depth=1`` is :func:`span_call` per call,
-    the per-call path unchanged; ``depth=None`` takes
-    :func:`resolve_dispatch_depth`'s prior.
+    the per-call path unchanged; ``depth=None`` resolves through the
+    schedule cache (:func:`resolve_dispatch_depth` with ``ctx``, prior 1).
 
     Each call at depth ≥ 2 opens an async span and keeps the event
     recorded after the op on the current stream. The port's chains are
@@ -78,12 +97,11 @@ class DispatchWindow:
     ops are in flight the window synchronizes it and closes every span,
     one wait per ``depth`` calls. On the CPU an op has finished when it
     returns and nothing is waited for. A context manager; exit drains.
+    Its readers are the serve ``halo`` handler and collbench's
+    ``coll/dispatch_depth`` sweep."""
 
-    Its consumer, the serve halo handler (ROADMAP queue 1 item 19), is
-    not ported: the tests hold it."""
-
-    def __init__(self, depth: "int | None" = None):
-        self.depth = resolve_dispatch_depth(depth)
+    def __init__(self, depth: "int | None" = None, **ctx):
+        self.depth = resolve_dispatch_depth(depth, **ctx)
         self._inflight: deque = deque()
 
     def call(self, op: str, fn, *args, nbytes: int = 0,

@@ -9,6 +9,9 @@ with its observability wiring (:func:`make_reporter`, the live plane's
 included), ``--kernel auto``'s resolution, the dtype map and the
 process-grid spec.
 
+The serve-mode workload-handler registry (:func:`register_workload`,
+:func:`workload_factory`) lives here too, as in the JAX module.
+
 Two JAX flags have no analogue and are not offered: ``--fake-devices``
 (ranks are processes, started by a launcher) and ``--compile-cache``
 (nothing is compiled per shape; the kernels are built once, at first
@@ -26,6 +29,59 @@ import torch
 
 from tpu_mpi_tests_torch.device import DEVICES
 from tpu_mpi_tests_torch.instrument.report import Reporter
+
+# ---------------------------------------------------------------------------
+# Workload-handler registry (serve mode)
+# ---------------------------------------------------------------------------
+
+#: name -> factory ``(device, shape, dtype) -> step_fn`` (the JAX
+#: factory takes the mesh where this one takes the device: a rank's world
+#: is the process group); ``step_fn(n)`` executes ``n`` coalesced requests
+#: against persistent state and returns only after the device has
+#: finished (``timers.block``), so serve-mode latency reads are
+#: sync-honest by contract, not by caller discipline
+_WORKLOAD_FACTORIES: dict = {}
+
+
+def register_workload(name: str, factory):
+    """Register a serve-mode workload handler under ``name`` (≅ JAX
+    ``register_workload``). Drivers and specs register the step their
+    benchmark already exercises at import time; idempotent per name (a
+    test runner may import a module twice); returns the factory so it can
+    be used as a decorator."""
+    _WORKLOAD_FACTORIES.setdefault(name, factory)
+    return factory
+
+
+def workload_names() -> tuple:
+    _import_workload_owners()
+    return tuple(sorted(_WORKLOAD_FACTORIES))
+
+
+def workload_factory(name: str):
+    """The registered factory for ``name``. Imports the owning modules on
+    demand, so a lookup never depends on who imported what first."""
+    _import_workload_owners()
+    try:
+        return _WORKLOAD_FACTORIES[name]
+    except KeyError:
+        raise KeyError(
+            f"no workload handler {name!r}; registered: "
+            f"{','.join(sorted(_WORKLOAD_FACTORIES))}"
+        ) from None
+
+
+def _import_workload_owners() -> None:
+    """Import every module that registers a handler: the workload specs
+    register theirs (``daxpy``, ``halo``, ``moe``, ``decode``,
+    ``embedding``) through ``register_spec``; attnbench (``attn``) and
+    collbench (``allreduce``) register directly."""
+    import tpu_mpi_tests_torch.drivers.attnbench  # noqa: F401
+    import tpu_mpi_tests_torch.drivers.collbench  # noqa: F401
+    from tpu_mpi_tests_torch import workloads
+
+    workloads.load_specs()
+
 
 TORCH_DTYPES = {
     "float32": torch.float32,
@@ -216,12 +272,15 @@ def run_guarded(run, args) -> int:
 
 
 def make_reporter(args, rank: "int | None" = None,
-                  size: "int | None" = None) -> Reporter:
+                  size: "int | None" = None,
+                  manifest_extra: "dict | None" = None) -> Reporter:
     """The run's reporter with the observability wiring (≅ JAX
     ``make_reporter`` without chaos). ``rank`` and
     ``size`` default to this process's place in the world
     (``comm.dist``); drivers emulating logical ranks in one process pass
-    their own. Called after the world is joined.
+    their own. ``manifest_extra`` is driver-known run identity merged into
+    the manifest record (the serve driver's replayed traffic
+    fingerprint, count and path). Called after the world is joined.
 
     * the JSONL path is suffixed per process when there are several;
     * ``--metrics-port``: the live plane (:func:`_arm_metrics`), armed
@@ -257,7 +316,7 @@ def make_reporter(args, rank: "int | None" = None,
             topo_record,
         )
 
-        m = run_manifest(w.device)
+        m = run_manifest(w.device, **(manifest_extra or {}))
         rep.jsonl(m)
         rep.jsonl(topo_record())
         if rep.jsonl_path:

@@ -35,7 +35,8 @@ the port (``comm/ring.py`` says why). Without ``--tune`` cached winners
 still apply; a row names the depth and tier that ran. Under
 ``--telemetry`` each tier's first call is probed
 (``instrument/costs.py``, ``attn_<tier>``). The ``attn`` serve workload
-is ROADMAP queue 1 #19.
+(:func:`serve_step_factory`) chains the ring tier's blocks with the
+output fed back as the next query.
 """
 
 from __future__ import annotations
@@ -304,6 +305,52 @@ def card_k_tile(dtype, precision: str, d: int) -> int:
     chunk = 16 // torch.empty((), dtype=dtype).element_size()
     return hand.FLASH_K_TILES[hand.flash_route(dtype, precision, d,
                                                d % chunk == 0)]
+
+
+def serve_step_factory(device, shape, dtype):
+    """Serve-mode handler (≅ JAX ``attnbench.py:380-430``): ``step_fn(n)``
+    runs ``n`` ring-attention blocks (the sequence split over the ranks —
+    the driver's ``ring`` tier with torch-op local blocks, ``flash=False``)
+    with the output fed back as the next query, ``n`` calls with one wait
+    at the end. Shape is ``(L, head_dim)`` with L divisible by the world;
+    q, k and v are the global problem from one seed, each rank its block.
+    The ring's depth and tier resolve inside ``ring_attention`` like any
+    other knob (``ring/pipeline_depth``, ``ring/tier``: cached > prior)."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.comm.collectives import shard_1d
+    from tpu_mpi_tests_torch.comm.ring import ring_attention_fn
+    from tpu_mpi_tests_torch.instrument.timers import block
+    from tpu_mpi_tests_torch.utils import check_divisible
+
+    if len(shape) != 2:
+        raise ValueError(f"attn wants an (L, head_dim) shape, got {shape}")
+    L, d = shape
+    world = dist.world().size
+    check_divisible(L, world, "sequence over mesh axis")
+    dt = _common.TORCH_DTYPES[dtype]
+    device = torch.device(device)
+    attn = ring_attention_fn(world, causal=False, flash=False)
+    gen = torch.Generator(device=device).manual_seed(0)
+    qkv = (torch.randn((L, d), generator=gen, device=device,
+                       dtype=torch.float32).to(dt) for _ in range(3))
+    state = {"s": tuple(shard_1d(t, device) for t in qkv)}
+    initial = state["s"]
+
+    def step(n: int):
+        qq, kk, vv = state["s"]
+        for _ in range(n):
+            qq = attn(qq, kk, vv)
+        state["s"] = (block(qq), kk, vv)
+
+    step(1)  # warm before traffic opens
+    step.state = state
+    step.initial = initial  # the blocks before the warm call
+    return step
+
+
+_common.register_workload("attn", serve_step_factory)
 
 
 def main(argv=None) -> int:

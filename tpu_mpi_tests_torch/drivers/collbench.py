@@ -34,9 +34,10 @@ declined with its reason and never wins (:func:`variant_refusal`). Over
 several processes rank 0 sweeps and every rank runs the broadcast
 winner. ``auto`` rows carry ``auto: true``. Under ``--telemetry`` each
 row's first call is probed (``instrument/costs.py``, ``coll_<name>``).
-The serve-mode ``allreduce`` workload is ROADMAP queue 1 #19, and with
-it the JAX driver's ``coll/dispatch_depth`` sweep: the dispatch window's
-one reader is the serve halo handler.
+``--tune`` also prices the ``coll/dispatch_depth`` knob on a miss
+(:func:`_tune_dispatch_depth`), whose reader is the serve ``halo``
+handler. The chained small allreduce is the serve-mode ``allreduce``
+workload (:func:`serve_step_factory`).
 """
 
 from __future__ import annotations
@@ -77,13 +78,6 @@ COLL_VARIANT_SPACES = {
                  "one-shot kernel")
     for base in ("allgather", "allreduce")
 }
-
-#: where the serve-mode workload is queued
-NOT_PORTED = {
-    "serve": "the serve-mode allreduce workload is ROADMAP queue 1 item "
-             "19 (serve/), not ported",
-}
-
 
 def effective_name(base: str, variant: str) -> str:
     """The collective a variant of ``base`` runs (``allgather`` +
@@ -248,6 +242,45 @@ def tuned_variant(base, args, world, rank, n, dtype, device,
                                     world)
 
 
+def _tune_dispatch_depth(args, world: int, rank: int, device) -> None:
+    """Sweep the ``coll/dispatch_depth`` knob on a cache miss (≅ JAX
+    ``_tune_dispatch_depth``): a host-chained run of small allreduces
+    posted through a :class:`~tpu_mpi_tests_torch.comm.collectives.
+    DispatchWindow` at each candidate depth — the latency-bound chaining
+    pattern the window exists for — timed on the host clock from the
+    first post to the wait after the last. The winner persists under the
+    full and the device-only fingerprints, so every chained site on this
+    machine (the serve ``halo`` handler) resolves it."""
+    import time
+
+    from tpu_mpi_tests_torch.comm import collectives as C
+    from tpu_mpi_tests_torch.instrument.timers import block
+    from tpu_mpi_tests_torch.tune.sweep import ensure_tuned
+
+    dtype = _common.torch_dtype(args)
+    # the smallest ladder size: the fixed cost of a dispatch dominates
+    shard_bytes = min(int(s) for s in args.sizes_kib.split(",")) * 1024
+    n = shard_bytes // torch.empty((), dtype=dtype).element_size()
+    run_fn = _loop_fn("allreduce", world, rank)
+    chain = max(16, args.n_iter // 10)
+    nbytes = int(2 * (world - 1) / world * shard_bytes)
+
+    def measure(cand):
+        x = torch.ones(n, dtype=dtype, device=device)
+        block(run_fn(x, 1))  # warm
+        win = C.DispatchWindow(int(cand))
+        t0 = time.perf_counter()
+        for _ in range(chain):
+            x = win.call("allreduce", run_fn, x, 1, nbytes=nbytes,
+                         axis_name="shard", world=world)
+        win.drain()
+        block(x)
+        return time.perf_counter() - t0
+
+    ensure_tuned("coll/dispatch_depth", measure,
+                 dtype=args.dtype, bytes=shard_bytes, world=world)
+
+
 def _cost(name: str, shard_bytes: int, world: int) -> dict:
     """Analytic flops and bytes of one iteration of ``name``'s chain on
     a shard (each buffer read once, each result written once; the local
@@ -310,6 +343,10 @@ def run(args) -> int:
         names = [m for n in names
                  for m in ([f"{b}:auto" for b in COLL_VARIANT_SPACES]
                            if n == "auto" else [n])]
+        if args.tune:
+            # the window knob is priced here, where the chained-collective
+            # pattern lives, and read wherever chains are posted
+            _tune_dispatch_depth(args, world, rank, device)
 
         dtype = _common.torch_dtype(args)
         itemsize = torch.empty((), dtype=dtype).element_size()
@@ -373,13 +410,43 @@ def run(args) -> int:
         return 0
 
 
-def serve_step_factory(*_args, **_kwargs):
-    """The JAX driver registers its chained small allreduce as the
-    serve-mode ``allreduce`` workload (:486-526); the port has no serve
-    mode yet."""
-    from tpu_mpi_tests_torch.utils import TpuMtError
+def serve_step_factory(device, shape, dtype):
+    """Serve-mode handler (≅ JAX ``collbench.py:441-471``): ``step_fn(n)``
+    runs ``n`` chained small-payload allreduces (the decode-step
+    collective class: the fixed cost of an op dominates, which is what
+    tail latency under mixed traffic stresses) through the library tier's
+    chain, :func:`_loop_fn`'s ``allreduce`` — the program the ``COLL
+    allreduce`` rows time. ``shape`` is elements a rank. A failed batch
+    rebuilds the buffer before the error propagates (the JAX handler's
+    rule: its chain donates)."""
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.instrument.timers import block
 
-    raise TpuMtError(NOT_PORTED["serve"])
+    if len(shape) != 1:
+        raise ValueError(f"allreduce wants a 1-d shape, got {shape}")
+    (n,) = shape
+    w = dist.world()
+    dt = _common.TORCH_DTYPES[dtype]
+    run_fn = _loop_fn("allreduce", w.size, w.rank)
+
+    def init():
+        return torch.ones(n, dtype=dt, device=device)
+
+    state = {"x": init()}
+
+    def step(k: int):
+        try:
+            state["x"] = block(run_fn(state["x"], k))
+        except Exception:
+            state["x"] = init()
+            raise
+
+    step(1)  # warm before traffic opens
+    step.state = state
+    return step
+
+
+_common.register_workload("allreduce", serve_step_factory)
 
 
 def main(argv=None) -> int:

@@ -142,7 +142,7 @@ class _TuneStaleWatch:
 
     def reset(self, op: str) -> None:
         """Forget an op's baseline AND its latch: the serve loop's
-        re-tune controller (ROADMAP queue 1 #19) calls this after a
+        re-tune controller (``tune/controller.py``) calls this after a
         ``tune_swap`` so the op re-baselines on the
         NEW schedule's first readings — recovery becomes measurable and
         a future sag of the new winner can fire again."""
@@ -217,8 +217,8 @@ class MetricsRegistry:
         #: dashboard's HEALTH section — bounded by construction
         self.health_events: deque = deque(maxlen=16)
         #: synchronous subscribers to non-heartbeat health events (the
-        #: serve loop's re-tune controller, ROADMAP queue 1 #19, latches
-        #: tune_stale through this); registered during single-threaded
+        #: serve loop's re-tune controller, ``tune/controller.py``,
+        #: latches tune_stale through this); registered during single-threaded
         #: setup, called on the observing thread, exceptions swallowed
         #: like every tee path
         self._health_listeners: list = []

@@ -16,10 +16,10 @@ and a persistent schedule cache for the hot path's knobs.
 * :mod:`~tpu_mpi_tests_torch.tune.fleet` — rank 0's decisions broadcast
   to every process;
 * :mod:`~tpu_mpi_tests_torch.tune.pack` — portable schedule packs
-  (``python -m tpu_mpi_tests_torch.tune.pack``).
-
-The JAX package's ``tune/controller.py`` (the serve loop's re-tuner)
-comes with ``serve/`` (ROADMAP queue 1 #19).
+  (``python -m tpu_mpi_tests_torch.tune.pack``);
+* :mod:`~tpu_mpi_tests_torch.tune.controller` — the serve loop's online
+  re-tuner (``--retune``): a ``tune_stale`` latch answered by a bounded
+  re-sweep and a hot swap between SLO windows.
 """
 
 from tpu_mpi_tests_torch.tune.registry import (  # noqa: F401

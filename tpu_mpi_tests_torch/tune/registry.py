@@ -79,10 +79,10 @@ def spaces() -> dict[str, TunableSpace]:
 
 def _import_knob_owners() -> None:
     """Import every module that declares spaces (lazily: the owners
-    import this module): the halo and stencil knobs, the ring's depth
-    and tier, the collective variants, the daxpy chunk, the MoE combine
-    hop and the embedding lookup. The collective dispatch depth comes
-    with its reader, the serve halo handler (ROADMAP queue 1 #19)."""
+    import this module): the collective dispatch depth, the halo and
+    stencil knobs, the ring's depth and tier, the collective variants,
+    the daxpy chunk, the MoE combine hop and the embedding lookup."""
+    import tpu_mpi_tests_torch.comm.collectives  # noqa: F401
     import tpu_mpi_tests_torch.comm.embedding  # noqa: F401
     import tpu_mpi_tests_torch.comm.halo  # noqa: F401
     import tpu_mpi_tests_torch.comm.moe  # noqa: F401

@@ -5,8 +5,10 @@ A spec holds what is particular to a pillar — its flags, the
 runner (:mod:`~tpu_mpi_tests_torch.workloads.runner`) supplies the
 parser, device, reporter, phase timer and the ``WORKLOAD`` bench row.
 The port has the JAX package's five specs: ``daxpy``, ``stencil1d``,
-``moe``, ``embedding`` and ``decode``. Serve-mode registration waits for
-``serve/`` (ROADMAP queue 1 #19).
+``moe``, ``embedding`` and ``decode``. Registering a spec also registers
+its serve-mode handler (``drivers/_common.py`` workload registry, under
+``spec.serve_name``: ``stencil1d``'s is the ``halo`` class), so a pillar
+is a serving workload class the moment it exists.
 """
 
 from __future__ import annotations
@@ -21,8 +23,19 @@ _SPECS: dict[str, "WorkloadSpec"] = {}
 
 def register_spec(spec: "WorkloadSpec") -> "WorkloadSpec":
     """Register a workload spec (idempotent per name: spec modules may be
-    imported more than once under a test runner)."""
-    return _SPECS.setdefault(spec.name, spec)
+    imported more than once under a test runner). A spec with a
+    ``serve_factory`` lands in the driver workload registry under
+    ``spec.serve_name`` (≅ JAX ``register_spec``)."""
+    existing = _SPECS.get(spec.name)
+    if existing is not None:
+        return existing
+    _SPECS[spec.name] = spec
+    factory = spec.serve_factory
+    if factory is not None:
+        from tpu_mpi_tests_torch.drivers import _common
+
+        _common.register_workload(spec.serve_name, factory)
+    return spec
 
 
 def load_specs() -> None:

@@ -14,10 +14,11 @@ by the ``daxpy/chunk`` knob (:data:`CHUNK_SPACE`; cached > prior 1, a
 with one wait at the end (not a CUDA graph). Every application computes
 from the same operands, so any chunk gives the result of one
 application bit for bit and the gates do not change. Its serve handler
-waits for ``serve/`` (ROADMAP queue 1 #19). In a world of several ranks
-every rank runs the spec on its own card and reports as the JAX spec
-does on one of several devices; a ``--tune`` sweep there is rank 0's,
-its winner broadcast.
+(:meth:`DaxpySpec.serve_factory`, the ``daxpy`` workload class) chains
+the bounded recurrence ``y ← a·x + y/2`` in torch ops. In a world of
+several ranks every rank runs the spec on its own card and reports as
+the JAX spec does on one of several devices; a ``--tune`` sweep there is
+rank 0's, its winner broadcast.
 """
 
 from __future__ import annotations
@@ -181,6 +182,44 @@ class DaxpySpec(WorkloadSpec):
             rep.line(f"CHECKSUM FAIL: got {total}, expected {expected}")
             return 1
         return 0
+
+    def serve_factory(self, device, shape, dtype):
+        """Serve-mode handler (``drivers/_common.py`` workload registry,
+        ≅ JAX ``daxpy.py:225``): ``step_fn(n)`` runs ``n`` chained DAXPY
+        steps on persistent buffers. The recurrence ``y ← a·x + y/2``
+        (a = 2, x = i + 1) keeps the iterate bounded (fixed point 2·a·x),
+        so an hours-long run never overflows the state the way the raw
+        accumulating update would; each step is one torch launch
+        (``torch.add(a·x, y, alpha=0.5)``: both products are exact, so
+        the step rounds once, as the JAX handler's fused loop body does).
+        The JAX handler's loop is one compiled program of ``n`` steps;
+        here ``n`` launches are queued with one wait at the end. DAXPY is
+        the single-device class: nothing communicates."""
+        import torch
+
+        from tpu_mpi_tests_torch.drivers import _common
+        from tpu_mpi_tests_torch.instrument.timers import block
+
+        if len(shape) != 1:
+            raise ValueError(f"daxpy wants a 1-d shape, got {shape}")
+        (n,) = shape
+        dt = _common.TORCH_DTYPES[dtype]
+        # x = i + 1 as ``jnp.arange(1, n + 1, dtype)`` makes it: the index
+        # in the dtype, then + 1 in the dtype (two roundings in bfloat16)
+        wide = torch.float64 if dt == torch.float64 else torch.float32
+        x = torch.arange(n, dtype=wide, device=device).to(dt) + 1
+        ax = x * 2.0  # exact: a power of two
+        state = {"y": torch.zeros(n, dtype=dt, device=device)}
+
+        def step(k: int):
+            y = state["y"]
+            for _ in range(k):
+                torch.add(ax, y, alpha=0.5, out=y)
+            block(y)
+
+        step(1)  # warm before traffic opens
+        step.state = state
+        return step
 
 
 SPEC = register_spec(DaxpySpec())

@@ -32,8 +32,10 @@ resolved tier: ``torch``, ``rdma`` or ``oneshot``)::
 
 Verification: the library collectives checked exactly against host
 references (the sum for allreduce, the concatenation for allgather) on
-integer-valued rows, as in the JAX spec. The serve-mode handler waits
-for ``serve/`` (ROADMAP queue 1 #19).
+integer-valued rows, as in the JAX spec. The serve-mode handler
+(:meth:`DecodeSpec.serve_factory`) chains the allreduce of the variant
+``coll_variant/allreduce`` resolves, and carries the ``tune_info`` recipe
+the re-tune controller (``tune/controller.py``) rebuilds it with.
 """
 
 from __future__ import annotations
@@ -56,23 +58,32 @@ DECODE_LINE_RE = (
 )
 
 
-def _effective_coll(ctx: RunContext, coll: str, n: int, shard_bytes: int):
+def _effective_coll(coll: str, variant, n: int, shard_bytes: int,
+                    world: int, line, explicit: bool = False):
     """``(collective to run, variant)`` at one payload (≅ JAX
-    ``_effective_coll``): ``coll_variant/<coll>`` resolved through the
-    schedule cache (``tune_hit`` on a hit; with ``--tune`` a miss sweeps
-    the variants on the device, each measured as collbench measures
-    them, a refused one declined with its reason). A variant that cannot
-    run at this payload or world runs the library tier, with a NOTE."""
+    ``_effective_coll``) for a resolved ``coll_variant/<coll>`` value:
+    the spec's rows pass :func:`collbench.tuned_variant`'s (cached >
+    prior, and with ``--tune`` a miss swept on the device), the serve
+    handler the registry's resolution (explicit > cached > prior). A
+    malformed value gives the prior. A variant that cannot run at this
+    payload or world (``collbench.variant_refusal``) runs the library
+    tier, with a NOTE through ``line``; asked for explicitly (a
+    re-sweep's candidate), it raises instead, so that the sweep records
+    it as declined and never times the other tier in its name."""
     from tpu_mpi_tests_torch.drivers import collbench as CB
     from tpu_mpi_tests_torch.tune import priors as _priors
+    from tpu_mpi_tests_torch.utils import TpuMtError
 
-    variant, why = CB.tuned_variant(
-        coll, ctx.args, ctx.world, ctx.topo.process_index, n, ctx.dtype(),
-        ctx.device, shard_bytes)
+    if variant not in CB.COLL_VARIANTS:
+        variant = _priors.COLL_VARIANT  # a malformed cached value
+    why = CB.variant_refusal(CB.effective_name(coll, variant), n, world)
     if why is not None:
-        ctx.rep.line(f"NOTE decode {coll}: cached {variant} variant "
-                     f"infeasible at {shard_bytes} B ({why}); using "
-                     f"{_priors.COLL_VARIANT}")
+        if explicit:
+            raise TpuMtError(f"decode {coll}: {variant} variant cannot "
+                             f"run at {shard_bytes} B ({why})")
+        line(f"NOTE decode {coll}: cached {variant} variant "
+             f"infeasible at {shard_bytes} B ({why}); using "
+             f"{_priors.COLL_VARIANT}")
         return coll, _priors.COLL_VARIANT
     return CB.effective_name(coll, variant), variant
 
@@ -150,8 +161,11 @@ class DecodeSpec(WorkloadSpec):
                 for batch in state["batches"]:
                     n = batch * args.heads  # elements a shard
                     shard_bytes = n * itemsize
-                    eff, variant = _effective_coll(ctx, coll, n,
-                                                   shard_bytes)
+                    variant, _why = CB.tuned_variant(
+                        coll, args, world, rank, n, dtype, ctx.device,
+                        shard_bytes)
+                    eff, variant = _effective_coll(
+                        coll, variant, n, shard_bytes, world, ctx.rep.line)
                     run_fn = CB._loop_fn(eff, world, rank)
                     x = torch.ones(n, dtype=dtype, device=ctx.device)
                     costs.compile_probe(
@@ -237,6 +251,76 @@ class DecodeSpec(WorkloadSpec):
             "heads": head["heads"],
             "nbytes": self.bytes_model(ctx, state),
         }
+
+    def serve_factory(self, device, shape, dtype):
+        """Serve-mode handler (≅ JAX ``decode.py:272-337``):
+        ``step_fn(n)`` runs ``n`` chained decode-step allreduces at the
+        class's (batch, heads) shape — ``collbench._loop_fn`` of the
+        variant ``coll_variant/allreduce`` resolves for this payload
+        (explicit > cached > prior ``torch``; ``rdma`` is the ring
+        reduce-scatter + all-gather kernels, ``oneshot`` the one-shot
+        kernel, one launch a request at world 1). A failed batch rebuilds
+        the buffer before the error propagates.
+
+        The handler carries ``step.tune_info`` — the knob, its context,
+        the candidates, the variant it serves and ``rebuild(value)`` — so
+        the re-tune controller (``--retune``, ``tune/controller.py``) can
+        re-sweep and hot-swap it; ``rebuild(None)`` re-resolves the knob.
+        Over ranks a rebuilt handler's hand kernels reuse the ring's
+        peer-memory workspaces (``PeerRing.workspace``, kept for the
+        ring's life), so a swap allocates no peer memory."""
+        import torch
+
+        from tpu_mpi_tests_torch.comm import dist
+        from tpu_mpi_tests_torch.drivers import _common
+        from tpu_mpi_tests_torch.drivers import collbench as CB
+        from tpu_mpi_tests_torch.instrument.timers import block
+        from tpu_mpi_tests_torch.tune import priors as _priors
+        from tpu_mpi_tests_torch.tune import registry as tr
+
+        if len(shape) != 2:
+            raise ValueError(f"decode wants (batch, heads), got {shape}")
+        batch, heads = shape
+        n = batch * heads
+        w = dist.world()
+        dt = _common.TORCH_DTYPES[dtype]
+        shard_bytes = n * torch.empty((), dtype=dt).element_size()
+        ctx = {"dtype": str(dtype), "bytes": shard_bytes, "world": w.size}
+
+        def init():
+            return torch.ones(n, dtype=dt, device=device)
+
+        def build(variant=None):
+            resolved = tr.resolve(
+                "coll_variant/allreduce", explicit=variant,
+                prior=_priors.COLL_VARIANT, device_fallback=False, **ctx)
+            eff, v = _effective_coll("allreduce", resolved, n, shard_bytes,
+                                     w.size, print,
+                                     explicit=variant is not None)
+            run_fn = CB._loop_fn(eff, w.size, w.rank)
+            state = {"x": init()}
+
+            def step(k: int):
+                try:
+                    state["x"] = block(run_fn(state["x"], k))
+                except Exception:
+                    state["x"] = init()
+                    raise
+
+            step(1)  # warm before traffic opens
+            step.state = state
+            step.tune_info = {
+                "knob": "coll_variant/allreduce",
+                "ctx": dict(ctx),
+                "candidates": CB.COLL_VARIANTS,
+                # the tier this handler serves (the DECODE [variant]
+                # stamp's serve twin)
+                "variant": v,
+                "rebuild": build,
+            }
+            return step
+
+        return build()
 
 
 SPEC = register_spec(DecodeSpec())

@@ -19,7 +19,8 @@ Output lines (the JAX spec's)::
 The µs/op rows are host wall time over a chain of calls with one wait at
 its end (the JAX spec's bracket), so at small batches they are mostly
 each call's host path (its launches and, over ranks, one NCCL call).
-The serve-mode handler waits for ``serve/`` (ROADMAP queue 1 #19).
+The serve-mode handler (:meth:`EmbeddingSpec.serve_factory`) resolves
+one lookup batch a request against a persistent table.
 """
 
 from __future__ import annotations
@@ -258,6 +259,48 @@ class EmbeddingSpec(WorkloadSpec):
             "batch": ctx.args.batch,
             "nbytes": self.bytes_model(ctx, state),
         }
+
+    def serve_factory(self, device, shape, dtype):
+        """Serve-mode handler (≅ JAX ``embedding.py:274``): ``step_fn(n)``
+        resolves ``n`` lookup batches (``comm/embedding.embedding_lookup``)
+        against a persistent row-sharded table (shape = ``(vocab, batch,
+        d_model)``; seed 0). Lookups keep their inputs, so a failed batch
+        needs no rebuild; the local gather's variant resolves through the
+        schedule cache like any knob. The last output is kept
+        (``step.state["out"]``)."""
+        import torch
+
+        from tpu_mpi_tests_torch.comm import dist
+        from tpu_mpi_tests_torch.comm import embedding as E
+        from tpu_mpi_tests_torch.comm.collectives import shard_1d
+        from tpu_mpi_tests_torch.drivers import _common
+        from tpu_mpi_tests_torch.instrument.timers import block
+        from tpu_mpi_tests_torch.utils import check_divisible
+
+        if len(shape) != 3:
+            raise ValueError(
+                f"embedding wants (vocab, batch, d_model), got {shape}"
+            )
+        vocab, batch, d_model = shape
+        world = dist.world().size
+        check_divisible(vocab, world, "embedding rows over mesh axis")
+        t_host, ids_host, _ = _build_table(0, vocab, d_model, batch)
+        table = shard_1d(_common.host_tensor(t_host,
+                                             _common.TORCH_DTYPES[dtype]),
+                         device)
+        del t_host
+        ids = torch.from_numpy(ids_host).to(device)
+        state = {"out": None}
+
+        def step(k: int):
+            out = None
+            for _ in range(k):
+                out = E.embedding_lookup(table, ids)
+            state["out"] = block(out)
+
+        step(1)  # warm before traffic opens
+        step.state = state
+        return step
 
 
 SPEC = register_spec(EmbeddingSpec())

@@ -21,8 +21,8 @@ dropped=<d> overflow=<f>% occupancy=<o>% imbalance=<i>
 each step (the JAX spec's bracket); it includes the step's host path
 (the capacity bucketing's launches, two NCCL calls, the demand matrix's
 read back). At world 1 there is one expert and both hops are the
-identity. The serve-mode handler waits for ``serve/`` (ROADMAP queue 1
-#19).
+identity. The serve-mode handler (:meth:`MoESpec.serve_factory`) routes
+a persistent token set once a request.
 """
 
 from __future__ import annotations
@@ -254,6 +254,45 @@ class MoESpec(WorkloadSpec):
             "imbalance": stats.imbalance,
             "nbytes": self.bytes_model(ctx, state),
         }
+
+    def serve_factory(self, device, shape, dtype):
+        """Serve-mode handler (≅ JAX ``moe.py:265``): ``step_fn(n)`` runs
+        ``n`` routed steps (``comm/moe.route_tokens``) on a persistent
+        token set (shape = ``(tokens, d_model)``; experts = ranks;
+        capacity factor 1.25, seed 0 — deterministic drop accounting per
+        class). Routing keeps its inputs, so a failed batch needs no
+        rebuild; with ``--telemetry`` every request lands its route
+        record on the JSONL stream. The last output is kept
+        (``step.state["y"]``)."""
+        from tpu_mpi_tests_torch.comm import dist
+        from tpu_mpi_tests_torch.comm import moe as M
+        from tpu_mpi_tests_torch.comm.collectives import shard_1d
+        from tpu_mpi_tests_torch.drivers import _common
+        from tpu_mpi_tests_torch.instrument.timers import block
+        from tpu_mpi_tests_torch.utils import check_divisible
+
+        if len(shape) != 2:
+            raise ValueError(f"moe wants (tokens, d_model), got {shape}")
+        tokens, d_model = shape
+        world = dist.world().size
+        check_divisible(tokens, world, "moe tokens over mesh axis")
+        capacity = _capacity(tokens, world, 1.25)
+        x_host, dest_host = _build_tokens(0, tokens, d_model, 0.5, world)
+        xs = shard_1d(_common.host_tensor(x_host,
+                                          _common.TORCH_DTYPES[dtype]),
+                      device)
+        ds = shard_1d(dest_host, device)
+        state = {"y": None}
+
+        def step(k: int):
+            y = None
+            for _ in range(k):
+                y, _ = M.route_tokens(xs, ds, capacity)
+            state["y"] = block(y)
+
+        step(1)  # warm before traffic opens
+        step.state = state
+        return step
 
 
 SPEC = register_spec(MoESpec())

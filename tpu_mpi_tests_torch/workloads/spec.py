@@ -4,8 +4,10 @@
 ``build`` sets up state, ``step`` is the measured body (it owns its phase
 timing via ``ctx.phase``), ``verify`` is the analytic gate and ``bench``
 the stable row — the JAX contract, one process per rank. A hook raises
-:class:`SpecError` for a configuration error it has already printed. The
-JAX spec's ``serve_factory`` waits for ``serve/`` (ROADMAP queue 1 #19).
+:class:`SpecError` for a configuration error it has already printed. A
+spec's ``serve_factory`` is its serve-mode handler, registered under
+``serve_name`` in the ``drivers/_common.py`` workload registry when the
+spec is (``workloads.register_spec``).
 """
 
 from __future__ import annotations
@@ -109,3 +111,12 @@ class WorkloadSpec:
         with a ``kind: "workload"`` record, after a verify that
         passed."""
         return None
+
+    # -- serve mode ------------------------------------------------------
+    @property
+    def serve_name(self) -> str:
+        return self.name
+
+    #: ``(device, shape, dtype) -> step_fn(n)`` or None; registered into
+    #: the ``drivers/_common.py`` workload registry by ``register_spec``
+    serve_factory = None

@@ -31,8 +31,9 @@ for ``--overlap-iters`` steps on a copy of the verified field
 ``halo/overlap`` knob, and with ``--tune`` a miss sweeps the depths
 first, each priced on a short pipeline run); depth 2 is held bit for bit
 against a depth-1 rerun and prints ``OVERLAP FAIL`` and exits 1 on a
-difference. The serve-mode ``halo`` handler waits for ``serve/``
-(queue 1 item 19).
+difference. The serve-mode ``halo`` handler
+(:meth:`Stencil1dSpec.serve_factory`) runs chained exchanges through a
+``DispatchWindow`` whose depth is the ``coll/dispatch_depth`` knob.
 """
 
 from __future__ import annotations
@@ -49,6 +50,10 @@ from tpu_mpi_tests_torch.workloads.spec import RunContext, WorkloadSpec
 class Stencil1dSpec(WorkloadSpec):
     name = "stencil1d"
     title = __doc__
+
+    @property
+    def serve_name(self) -> str:
+        return "halo"
 
     def add_args(self, p) -> None:
         p.add_argument(
@@ -213,6 +218,83 @@ class Stencil1dSpec(WorkloadSpec):
         if args.overlap != "0":
             return _run_overlap(args, ctx.rep, world, state["zg"], d)
         return 0
+
+    def serve_factory(self, device, shape, dtype):
+        """Serve-mode handler (≅ JAX ``stencil1d.py:250``): ``step_fn(n)``
+        performs ``n`` halo exchanges on a persistent ghosted shard (the
+        exchange is idempotent — ghosts are rewritten with identical
+        values — so chained requests are the driver's timed step). Each
+        exchange goes through :func:`~tpu_mpi_tests_torch.comm.halo.
+        halo_exchange`, so with telemetry on every request also lands its
+        own span.
+
+        The staging is ``AUTO``, resolved once when the handler is built
+        (the cache's ``halo/staging`` winner for this dtype, extent and
+        world, else the DIRECT prior): the buffer depends on it. Where it
+        is ``pallas`` (one ``hand.ring_halo`` launch an exchange) the
+        field lives in the ring's peer memory (``halo.staging_buffer``)
+        and, as in the JAX package, ignores the window; DIRECT and
+        DEVICE_STAGED exchange with torch ops (``kernel="torch"``, the
+        JAX XLA pack's counterpart). The exchanges are posted through a
+        :class:`~tpu_mpi_tests_torch.comm.collectives.DispatchWindow`
+        whose depth resolves from the schedule cache
+        (``coll/dispatch_depth``, prior 1): at depth 1 every exchange
+        waits, at depth ≥ 2 up to that many run before the window waits
+        once. A failed batch rebuilds the field before the error
+        propagates (the JAX handler's rule: its exchange donates)."""
+        import torch
+
+        from tpu_mpi_tests_torch.arrays.domain import Domain1D
+        from tpu_mpi_tests_torch.comm import collectives as C
+        from tpu_mpi_tests_torch.comm import dist
+        from tpu_mpi_tests_torch.comm import halo as H
+        from tpu_mpi_tests_torch.drivers import _common
+        from tpu_mpi_tests_torch.instrument.timers import block
+        from tpu_mpi_tests_torch.kernels.stencil import analytic_pairs
+
+        if len(shape) != 1:
+            raise ValueError(f"halo wants a 1-d shape, got {shape}")
+        (n,) = shape
+        world = dist.world().size
+        d = Domain1D(n_global=n, n_shards=world, n_bnd=2)
+        f, _ = analytic_pairs()["1d"]
+        dt = _common.TORCH_DTYPES[dtype]
+        device = torch.device(device)
+        depth = C.resolve_dispatch_depth(dtype=dtype, n=n, world=world)
+
+        def field():
+            return C.device_init(
+                lambda r: d.init_shard_torch(f, r, dt, device))
+
+        # the knob's context needs the block's dtype and extent only
+        staging = H.resolve_staging(
+            H.Staging.AUTO,
+            torch.empty(d.n_ghosted, dtype=dt, device="meta"), 0, world)
+
+        def init():
+            return block(H.staging_buffer(field(), staging))
+
+        state = {"z": init()}
+
+        def step(k: int):
+            try:
+                z = state["z"]
+                with C.DispatchWindow(depth) as win:
+                    for _ in range(k):
+                        z = H.halo_exchange(
+                            z, 0, d.n_bnd, False, staging,
+                            window=win if depth > 1 else None)
+                state["z"] = block(z)
+            except Exception:
+                state["z"] = init()
+                raise
+
+        step(1)  # warm before traffic opens
+        step.state = state
+        step.staging = staging
+        step.depth = depth
+        step.field = field
+        return step
 
 
 def _tune_staging(zg, world: int) -> None:
