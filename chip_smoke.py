@@ -202,8 +202,9 @@ failure exits non-zero and prints no result line):
    ``python -m tpu_mpi_tests_torch.microbench`` makes, the same reps
    triples; ``roofline2`` a second time at 8192² and 4104..8200, where
    one body's device work outlasts the host's enqueue time), then
-   ``stencil``, ``iterate``, ``splitfused``, ``blocks`` and ``heat`` at
-   the JAX sizes — every group launches exactly what its
+   ``stencil``, ``iterate``, ``splitfused``, ``blocks`` (its
+   ``blocks_S2_sharded_w1`` row through a process group of one rank) and
+   ``heat`` at the JAX sizes — every group launches exactly what its
    schedule makes, every rate row is finite (or NaN by its own fit gate)
    and none exceeds 1.05 × the peak of the instructions it issues (the
    probe rows: issued lone mul/add/sub per element against the card's
@@ -291,7 +292,23 @@ failure exits non-zero and prints no result line):
    (no hand launch), a recorded run replayed under the same fingerprint
    and per-class arrivals, 20 re-tune swaps of the decode handler (each
    re-sweep's and next batch's launches exact, allocated memory within
-   one workspace) and a closed loop at concurrency 8 (``SERVE_ROWS``);
+   one workspace) and a closed loop at concurrency 8 (``SERVE_ROWS``).
+   Then the chaos slice (``run_chaos_slice``): faults armed by
+   ``--chaos`` in subprocess legs, each leg's exit code, ``kind:
+   "chaos"`` audit records and organic records checked and its JSONL and
+   output kept under ``chiprun_out/chaos/`` for the JAX ``tpumt-doctor``:
+   a wedged ``ring_halo`` exchange in stencil1d 32 Mi ended by the
+   watchdog (exit 9, its dump the JSONL's tail), OOM ramps of the daxpy
+   spec to an explicit 48 MB (at 2^20) and to 0.8 of the card's own
+   limit (at 2^26)
+   (exit 134, the allocator's ``bytes_in_use`` climbing), a shed storm
+   and a queue ramp through ``drivers/serve.py`` (the ramp recorded and
+   replayed disarmed), and kill and straggler at world 2 as two processes
+   on this card (``CHAOS_LEGS``); the flash fold at ``stripebalance``'s
+   cells against its plain version, the resident blocks through a
+   process group of one rank bit for bit the group-less run, and
+   microbench ``stripebalance`` in float32 (``fma``) and bfloat16
+   (``wgmma``) as main paths (flash launches exact, on their routes);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -362,6 +379,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -657,7 +675,8 @@ def one_card_launches():
         "iterate": {"stencil2d_iterate": 3 * _chain(100, 2100)
                     + 3 * _chain(25, 525)},
         "splitfused": {},
-        "blocks": {"stencil2d_iterate": 3 * _chain(25, 525, repeats=2)},
+        # S=2 blocks, the same through a group of one rank, dim 1
+        "blocks": {"stencil2d_iterate": 5 * _chain(25, 525, repeats=2)},
         "heat": {"heat2d": 2 * heat},
     }
 
@@ -2199,6 +2218,7 @@ def run_main_path(device):
     recs["instrument"] = run_instrument_slice(device, counts, peaks)
     recs["serving"] = run_serving_slice(device, counts, peaks)
     recs["serve"] = run_serve_slice(device, counts, peaks)
+    recs["chaos"] = run_chaos_slice(device, counts, peaks)
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -3496,6 +3516,544 @@ def run_serve_slice(device, counts, peaks):
         f"{total / span:.6g} req/s at concurrency {SERVE_CONCURRENCY}")
     log(f"SERVE_ROWS {json.dumps(out['rows'])}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the chaos slice: faults injected on the card, the organic records saved
+# ---------------------------------------------------------------------------
+
+#: the chaos legs' JSONL, standard output and errors, kept for the JAX
+#: tpumt-doctor (which runs where the JAX package is installed)
+CHAOS_DIR = os.path.join("chiprun_out", "chaos")
+#: the legs' daxpy size and the wedge leg's watchdog deadline (seconds)
+CHAOS_DAXPY_N = N26
+CHAOS_DEADLINE_S = 6
+#: the kill leg's daxpy steps: ~0.37 ms each on the card, so the
+#: survivor records ~1.8 s past the death (the doctor's gap is 1 s)
+CHAOS_KILL_ITERS = 5000
+#: the queue ramp's burst: several 0.5 s SLO windows of backlog at the
+#: daxpy class's ~0.3-0.4 ms a request (the serve slice's service split)
+CHAOS_RAMP_BURST = 8000
+#: stripebalance's two chained runs a cell (``chain_rate`` adds 3 warm
+#: calls) and its queued calls (after one warm call)
+STRIPE_CHAIN = (30, 330)
+STRIPE_QUEUED = 20
+#: the group's ring and blocks (its defaults: the JAX group's)
+STRIPE_SHAPE = {"w": 8, "lq": 4096, "d": 128}
+#: the blocks schedule's field side in the world-of-one check
+CHAOS_BLOCKS_N = 8192
+
+
+def _chaos_env(chaos=None):
+    env = dict(os.environ)
+    env.pop("TPU_MPI_CHAOS", None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    if chaos is not None:
+        env["TPU_MPI_CHAOS"] = chaos
+    return env
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _leg_records(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def chaos_leg(name, argv, chaos, want, timeout=180, world=1):
+    """Run one chaos leg: ``python argv`` with ``TPU_MPI_CHAOS=chaos``, as
+    ``world`` processes on this card (rank r's RANK/WORLD_SIZE/LOCAL_RANK
+    set, the rendezvous on a free local port); each process's output to
+    CHAOS_DIR/<name>[.r<r>].{out,err}. Fails unless process r exits
+    ``want[r]`` (``want`` an int for every rank). Returns each process's
+    (stdout, stderr)."""
+    wants = [want] * world if isinstance(want, int) else list(want)
+    port = _free_port()
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = _chaos_env(chaos)
+        if world > 1:
+            env.update({"RANK": str(r), "WORLD_SIZE": str(world),
+                        "LOCAL_RANK": str(r), "MASTER_ADDR": "127.0.0.1",
+                        "MASTER_PORT": str(port)})
+        tag = name if world == 1 else f"{name}.r{r}"
+        out = open(os.path.join(CHAOS_DIR, f"{tag}.out"), "w")
+        err = open(os.path.join(CHAOS_DIR, f"{tag}.err"), "w")
+        files.append((out, err))
+        procs.append(subprocess.Popen([sys.executable, *argv], env=env,
+                                      stdout=out, stderr=err,
+                                      cwd=os.path.dirname(
+                                          os.path.abspath(__file__))))
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(timeout=max(1.0, timeout - (
+                time.perf_counter() - t0))))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"chaos {name}: no exit in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in files:
+            out.close()
+            err.close()
+    seconds = time.perf_counter() - t0
+    texts = []
+    for r in range(world):
+        tag = name if world == 1 else f"{name}.r{r}"
+        with open(os.path.join(CHAOS_DIR, f"{tag}.out")) as f:
+            o = f.read()
+        with open(os.path.join(CHAOS_DIR, f"{tag}.err")) as f:
+            e = f.read()
+        texts.append((o, e))
+    if rcs != wants:
+        tails = " | ".join(e[-600:] for _, e in texts)
+        raise SmokeFailure(f"chaos {name}: exit codes {rcs}, want {wants}: "
+                           f"{tails}")
+    log(f"CHAOS leg {name}: exit {rcs} in {seconds:.1f} s")
+    return texts
+
+
+def _audit(name, recs, fault):
+    """The leg's ``kind: "chaos"`` audit records: one ``armed`` of
+    ``fault`` and one ``fire``; returns the fire record, with the seconds
+    from arming to firing added as ``armed_to_fire_s``."""
+    chaos = [r for r in recs if r.get("kind") == "chaos"]
+    events = [(r["event"], r["fault"]) for r in chaos]
+    want = [("armed", fault), ("fire", fault)]
+    if events != want:
+        raise SmokeFailure(f"chaos {name}: audit records {events}, want "
+                           f"{want}")
+    return {**chaos[1], "armed_to_fire_s": chaos[1]["t"] - chaos[0]["t"]}
+
+
+DUMP_RE = re.compile(r"comm ops \(newest last\):\n((?:\s+.*\n)+?)"
+                     r"\s+(?:memory at fire:|aborting)")
+
+
+def chaos_wedge(device):
+    """stencil1d at 32 Mi float32 through ``ring_halo`` (``--staging
+    pallas``), the overlap engine at depth 1, a wedge at the third
+    ``halo_exchange*`` span: the watchdog ends it (exit 9), after the
+    dispatch note and with no span closing after it; its dump's comm ops
+    are the JSONL's tail."""
+    jl = os.path.join(CHAOS_DIR, "wedge.jsonl")
+    texts = chaos_leg(
+        "wedge", ["-m", "tpu_mpi_tests_torch.drivers.stencil1d",
+                  "--device", device.type, "--n-global", str(STENCIL1D_N), "--staging", "pallas",
+                  "--overlap", "1", "--overlap-iters", "12", "--telemetry",
+                  "--deadline", str(CHAOS_DEADLINE_S), "--jsonl", jl],
+        "wedge:op=halo_exchange:after=3", 9, timeout=200)
+    err = texts[0][1]
+    recs = _leg_records(jl)
+    fire = _audit("wedge", recs, "wedge")
+    disp = [r for r in recs if r.get("kind") == "dispatch"
+            and str(r.get("note", "")).startswith("chaos:wedge")]
+    wd = [r for r in recs if r.get("kind") == "watchdog"]
+    if "WATCHDOG" not in err or len(disp) != 1 or len(wd) != 1:
+        raise SmokeFailure(f"wedge: WATCHDOG in stderr "
+                           f"{'WATCHDOG' in err}, {len(disp)} wedge "
+                           f"dispatch notes, {len(wd)} watchdog records")
+    t_d, t_w = disp[0]["t"], wd[0]["t"]
+    late = [r for r in recs if r.get("kind") == "span"
+            and r.get("t_end", 0) > t_d]
+    rdma = [r for r in recs if r.get("kind") == "span"
+            and r.get("op") == "halo_exchange_rdma"]
+    if late or t_w < t_d or not rdma:
+        raise SmokeFailure(f"wedge: {len(late)} spans closed after the "
+                           f"wedge, watchdog {t_w - t_d:+.3f} s after it, "
+                           f"{len(rdma)} ring_halo exchange spans")
+    m = DUMP_RE.search(err)
+    if m is None:
+        raise SmokeFailure("wedge: no comm ops in the watchdog's dump")
+    dumped = [ln.strip().split()[0] for ln in m.group(1).strip().splitlines()]
+    stream = [r.get("op") if r["kind"] == "span" else r.get("note")
+              for r in recs if r.get("kind") in ("span", "dispatch")]
+    if dumped != [s.split()[0] for s in stream[-len(dumped):]]:
+        raise SmokeFailure(f"wedge: the watchdog's dump {dumped} is not the "
+                           f"JSONL's tail")
+    return {"exit": 9, "dispatch_to_watchdog_s": t_w - t_d,
+            "armed_to_fire_s": fire["armed_to_fire_s"],
+            "ring_halo_spans": len(rdma), "dump_events": len(dumped)}
+
+
+def _mem_ramp(name, recs):
+    """The card's ``mem`` records of an oom leg: the phase records'
+    ``bytes_in_use``, which must climb, and the card's ``bytes_limit``."""
+    mem = [r for r in recs if r.get("kind") == "mem"]
+    phase = [r["bytes_in_use"] for r in mem if r.get("event") == "phase"]
+    limits = {d.get("bytes_limit") for r in mem
+              for d in r.get("devices", {}).values()} - {None}
+    if len(phase) < 2 or phase != sorted(phase) or len(limits) != 1 \
+            or any(r.get("event") == "final" for r in mem):
+        raise SmokeFailure(f"{name}: phase bytes_in_use {phase}, limits "
+                           f"{limits}, a final record "
+                           f"{any(r.get('event') == 'final' for r in mem)}")
+    return phase, limits.pop(), max(r.get("bytes_in_use", 0) for r in mem)
+
+
+def chaos_oom(device, name, chaos, iters, n):
+    """The daxpy spec at ``n`` float32 under ``--memwatch`` with an oom
+    ramp: exit 134, the ballast's bytes in the allocator's counters."""
+    jl = os.path.join(CHAOS_DIR, f"{name}.jsonl")
+    chaos_leg(name, ["-m", "tpu_mpi_tests_torch.drivers.daxpy", "--device",
+                     device.type, "--n", str(n), "--iters", str(iters),
+                     "--telemetry", "--memwatch", "--mem-interval", "0.05",
+                     "--jsonl", jl], chaos, 134)
+    recs = _leg_records(jl)
+    fire = _audit(name, recs, "oom")
+    phase, limit, peak = _mem_ramp(name, recs)
+    return {"exit": 134, "armed_to_fire_s": fire["armed_to_fire_s"],
+            "phase_bytes_in_use": phase, "peak_bytes_in_use": peak,
+            "bytes_limit": limit}
+
+
+def _serve_leg_argv(device):
+    return ["-m", "tpu_mpi_tests_torch.drivers.serve", "--device",
+            device.type, "--arrival", "poisson", "--rate", "20", "--seed",
+            "7", "--workloads", f"daxpy:{CHAOS_DAXPY_N}:float32"]
+
+
+def _serve_summary(jl):
+    recs = _leg_records(jl)
+    (summary,) = [r for r in recs if r.get("kind") == "serve"
+                  and r.get("event") == "summary"]
+    return recs, summary
+
+
+def chaos_flood(device):
+    """``drivers/serve.py`` on the daxpy 2^26 class: a 300-request flood
+    into a 32-deep queue sheds (exit 1)."""
+    jl = os.path.join(CHAOS_DIR, "flood.jsonl")
+    chaos_leg("flood", _serve_leg_argv(device) + [
+        "--duration", "4", "--report-interval", "1", "--max-queue", "32",
+        "--telemetry", "--jsonl", jl], "flood:burst=300:after=1", 1)
+    recs, summary = _serve_summary(jl)
+    _audit("flood", recs, "flood")
+    if not summary["shed"] > 0:
+        raise SmokeFailure(f"flood: no shed in {summary}")
+    return {"flood": {"exit": 1, "shed": summary["shed"],
+                      "arrivals": summary["arrivals"]}}
+
+
+def chaos_ramp(device):
+    """An 8000-request flood into an unbounded queue builds a backlog
+    over several SLO windows with no shed, recorded; the recording
+    replayed with chaos disarmed offers the same arrivals."""
+    ramp = ["--duration", "3", "--report-interval", "0.5", "--max-queue",
+            "100000", "--max-batch", "2"]
+    art = os.path.join(CHAOS_DIR, "ramp.traffic.json")
+    out = {}
+    for leg, extra, chaos in (
+            ("ramp", ["--record", art],
+             f"flood:burst={CHAOS_RAMP_BURST}:after=1"),
+            ("ramp_replay", ["--replay", art], None)):
+        jl = os.path.join(CHAOS_DIR, f"{leg}.jsonl")
+        chaos_leg(leg, _serve_leg_argv(device) + ramp + extra
+                  + ["--jsonl", jl], chaos, 0, timeout=240)
+        recs, summary = _serve_summary(jl)
+        if chaos:
+            _audit(leg, recs, "flood")
+        elif any(r.get("kind") == "chaos" for r in recs):
+            raise SmokeFailure(f"{leg}: chaos records in a disarmed run")
+        windows = [r for r in recs if r.get("kind") == "serve"
+                   and r.get("event") == "window"]
+        depth = max(w.get("queue_depth", 0) for w in windows)
+        if summary["shed"] or depth < 8:
+            raise SmokeFailure(f"{leg}: shed {summary['shed']}, deepest "
+                               f"window queue {depth}")
+        out[leg] = {"exit": 0, "arrivals": summary["arrivals"],
+                    "window_depth_max": depth,
+                    "p99_ms": summary.get("p99_ms")}
+    if out["ramp"]["arrivals"] != out["ramp_replay"]["arrivals"]:
+        raise SmokeFailure(f"ramp replay offered {out['ramp_replay']}, the "
+                           f"recording {out['ramp']}")
+    return out
+
+
+def _side_by_side(*legs):
+    """Run the legs ``(fn, args...)`` at once, each on a thread of its own
+    that waits on its subprocesses; returns their results in order (the
+    first failure raised)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(legs)) as ex:
+        futures = [ex.submit(fn, *args) for fn, *args in legs]
+        return [f.result() for f in futures]
+
+
+#: the kill leg's survivor leaves through os._exit: the process group's
+#: shutdown would wait for the rank chaos killed
+FAST_EXIT_DAXPY = (
+    "import os, sys\n"
+    "from tpu_mpi_tests_torch.workloads.daxpy import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "sys.stdout.flush(); sys.stderr.flush()\n"
+    "os._exit(rc)\n")
+
+
+def _world2_args(device):
+    return ["--device", device.type, "--n", str(CHAOS_DAXPY_N),
+            "--telemetry", "--memwatch", "--mem-interval", "0.05"]
+
+
+def chaos_kill(device):
+    """Kill at world 2, the daxpy spec at 2^26, both ranks on this one
+    card (the path makes no NCCL call: the host-name gather and the clock
+    sync go over the gloo group): rank 1 dies at its tenth kernel phase
+    (137), rank 0 records on for over a second."""
+    jl = os.path.join(CHAOS_DIR, "kill.jsonl")
+    chaos_leg("kill", ["-c", FAST_EXIT_DAXPY, *_world2_args(device),
+                       "--iters", str(CHAOS_KILL_ITERS), "--jsonl", jl],
+              "kill:rank=1:phase=kernel:after=10", [0, 137], world=2)
+    dead = _leg_records(os.path.join(CHAOS_DIR, "kill.p1.jsonl"))
+    live = _leg_records(os.path.join(CHAOS_DIR, "kill.p0.jsonl"))
+    fire = _audit("kill rank 1", dead, "kill")
+    if any(r.get("kind") == "chaos" for r in live):
+        raise SmokeFailure("kill: rank 0 armed a fault aimed at rank 1")
+    finals = [any(r.get("kind") == "mem" and r.get("event") == "final"
+                  for r in recs) for recs in (live, dead)]
+    after = live[-1]["t"] - dead[-1]["t"]
+    if finals != [True, False] or fire.get("rank") != 1 or after <= 1.0:
+        raise SmokeFailure(f"kill: final mem records {finals} (rank 0, 1), "
+                           f"fire {fire}, the survivor recorded {after:.3f} "
+                           f"s past the death (the doctor's gap is 1 s)")
+    return {"kill": {"exit": [0, 137], "fire_rank": fire["rank"],
+                     "survivor_after_s": after}}
+
+
+def chaos_straggler(device):
+    """Straggler at world 2, as :func:`chaos_kill`: every wait of rank 1
+    slowed 25 ms, its kernel phase over twice rank 0's."""
+    jl = os.path.join(CHAOS_DIR, "straggler.jsonl")
+    chaos_leg("straggler", ["-m", "tpu_mpi_tests_torch.drivers.daxpy",
+                            *_world2_args(device), "--iters", "40",
+                            "--jsonl", jl],
+              "straggler:rank=1:delay_ms=25", 0, world=2)
+    kernel = []
+    for r in (0, 1):
+        recs = _leg_records(os.path.join(CHAOS_DIR, f"straggler.p{r}.jsonl"))
+        if r == 1:
+            _audit("straggler rank 1", recs, "straggler")
+        kernel.append(next(x["seconds"] for x in recs
+                           if x.get("kind") == "time"
+                           and x.get("phase") == "kernel"))
+    if not kernel[1] > 2 * kernel[0]:
+        raise SmokeFailure(f"straggler: kernel phase {kernel} s (rank 0, 1)")
+    return {"straggler": {"exit": [0, 0], "kernel_s": kernel}}
+
+
+def stripe_launches(w: int = STRIPE_SHAPE["w"]) -> int:
+    """Flash launches of one stripebalance grid pair: the contiguous
+    layout's live cells (w(w+1)/2) and every striped cell, each one
+    chained ``chain_rate`` and one queued timing."""
+    cells = w * (w + 1) // 2 + w * w
+    return cells * (_chain(*STRIPE_CHAIN) + 1 + STRIPE_QUEUED)
+
+
+def check_stripe_cells(device, failures) -> dict:
+    """The fold at stripebalance's operands (4096 × 128, causal, a w=8
+    ring's contiguous and striped cells) against its plain version:
+    HIGHEST float32 carries within FLASH_RTOL/FLASH_ATOL, DEFAULT bf16's
+    normalised output within FLASH_DEFAULT_ATOL of the plain HIGHEST
+    one. Returns the largest error of each class."""
+    import torch
+
+    from tpu_mpi_tests_torch.kernels import hand
+
+    lq, d, w = STRIPE_SHAPE["lq"], STRIPE_SHAPE["d"], STRIPE_SHAPE["w"]
+    gen = torch.Generator(device=device).manual_seed(2323)
+    errs = {}
+    cells = ((3, 3, 1), (5, 2, 1), (2, 5, w), (5, 2, w), (7, 0, w))
+    for dtype, prec in ((torch.float32, "highest"),
+                        (torch.bfloat16, "default")):
+        q, k, v = (torch.randn((lq, d), generator=gen, device=device)
+                   .to(dtype) for _ in range(3))
+        carry = (torch.randn((lq, 1), generator=gen, device=device),
+                 torch.randn((lq, 1), generator=gen, device=device).abs()
+                 + 0.5,
+                 torch.randn((lq, d), generator=gen, device=device))
+        for r, src, st in cells:
+            qo, ko = (r, src) if st > 1 else (r * lq, src * lq)
+            kw = dict(scale=d**-0.5, causal=True, pos_stride=st)
+            got = hand.flash_attention_block(
+                q, k, v, *(t.clone() for t in carry), qo, ko,
+                precision=prec, **kw)
+            want = hand.flash_attention_block_ref(
+                q, k, v, *carry, qo, ko, precision="highest", **kw)
+            name = f"stripe cell r={r} src={src} stride={st} {prec}"
+            if prec == "highest":
+                err = 0.0
+                for g, x, what in zip(got, want, ("m", "l", "acc")):
+                    atol = FLASH_ATOL * (want[1].clamp(min=1.0)
+                                         if what == "acc" else 1.0)
+                    err = max(err, float((g - x).abs().max()))
+                    if not bool(((g - x).abs()
+                                 <= atol + FLASH_RTOL * x.abs()).all()):
+                        failures.append(f"{name} {what}: beyond rtol/atol")
+            else:
+                err = float((got[2] / got[1] - want[2] / want[1]).abs().max())
+                if not err <= FLASH_DEFAULT_ATOL["bfloat16"]:
+                    failures.append(f"{name}: normalised error {err:g}")
+            errs[prec] = max(errs.get(prec, 0.0), err)
+    return errs
+
+
+def check_world_of_one_blocks(device) -> None:
+    """microbench blocks' world-of-one row runs the same launches: the
+    resident blocks through a process group of one rank equal the
+    group-less run bit for bit after a few iterations (8192², k=4, S=2),
+    and the world-of-one run equals the plain version at 512²."""
+    import torch
+
+    from tpu_mpi_tests_torch.comm import dist
+    from tpu_mpi_tests_torch.comm import halo as H
+
+    for n, plain in ((CHAOS_BLOCKS_N, False), (512, True)):
+        K = 2 * 4
+        gen = torch.Generator(device=device).manual_seed(77)
+        z = torch.randn((n + 2 * K, n), generator=gen, device=device) / 10
+        run = H.iterate_hand_blocks_fn(2, K, 1e-4, steps=4)
+        with dist.world_of_one(device) as w:
+            got = run(H.split_blocks(z, 2, K), 3)
+        if plain:
+            want = run(H.split_blocks(z.cpu(), 2, K), 3)
+            got = tuple(b.cpu() for b in got)
+        else:
+            want = run(H.split_blocks(z, 2, K), 3)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise SmokeFailure(f"blocks {n}x{n} through the {w.backend} "
+                               f"group of one rank differ from the "
+                               f"{'plain version' if plain else 'plain world'}")
+    log("CHECK blocks through a process group of one rank: bit for bit the "
+        "group-less run (8192^2) and the plain version (512^2)")
+
+
+def run_chaos_slice(device, counts, peaks):
+    """The chaos slice (``chaos/`` and ``--chaos``, the memwatch's card
+    path, microbench ``stripebalance``): each leg a subprocess whose exit
+    code, ``kind: "chaos"`` audit records and organic records are checked
+    and whose JSONL and output are kept under CHAOS_DIR for the JAX
+    ``tpumt-doctor``:
+
+    (a) wedge: stencil1d 32 Mi float32 ``--staging pallas --overlap 1
+    --telemetry --deadline 6``, ``wedge:op=halo_exchange:after=3``: exit
+    9 by the watchdog, its fire record after the wedge's dispatch note
+    and no span after it, the dump the JSONL's tail; (b) oom, explicit
+    limit: the daxpy spec at 2^20 (the JAX leg's size: at 2^26 x and y
+    alone are past the limit) under ``--memwatch``,
+    ``oom:step_mb=8:limit_mb=48:frac=0.8``: exit 134; (c) oom at the
+    card's own limit, the spec at 2^26: ``oom:step_mb=4096``: exit 134
+    once the ballast
+    crosses 0.8 × the card's ``bytes_limit``, the phase records'
+    ``bytes_in_use`` climbing to it; (d) the floods through
+    ``drivers/serve.py`` on the daxpy 2^26 class: a shed storm (exit 1)
+    and a queue ramp (no shed), recorded and replayed disarmed; (e) kill
+    and straggler at world 2 (two processes on this card, no NCCL call on
+    the path); (f) ``stripebalance`` in float32 (HIGHEST, ``fma``) and
+    bfloat16 (DEFAULT, ``wgmma``) as main paths, their flash launches
+    exact and on their routes, after the fold is held against its plain
+    version at the groups' cells; (g) the blocks schedule through a
+    process group of one rank against the group-less run and the plain
+    version (microbench ``blocks``' new row runs in the one-card slice).
+    Returns the legs' numbers and the stripe records."""
+    import torch
+
+    from tpu_mpi_tests_torch import microbench
+
+    import shutil
+
+    # the drivers append to a JSONL: start every leg's file afresh
+    shutil.rmtree(CHAOS_DIR, ignore_errors=True)
+    os.makedirs(CHAOS_DIR)
+    t0 = time.perf_counter()
+    # three waves: the small legs side by side (the wedge's watchdog has
+    # ~4 s of slack past its third exchange), the card-limit ramp alone
+    # (it fills 0.8 of the card), then kill beside straggler. The
+    # explicit 48 MB leg runs at the JAX leg's 2^20: at 2^26 the working
+    # set (x and y, 512 MiB) is past 0.8 x 48 MB at the first boundary,
+    # so the fault fires with no ramp for the doctor to see
+    wedge, oom_explicit, flood, ramp = _side_by_side(
+        (chaos_wedge, device),
+        (chaos_oom, device, "oom_explicit",
+         "oom:step_mb=8:limit_mb=48:frac=0.8", 20, 1 << 20),
+        (chaos_flood, device), (chaos_ramp, device))
+    legs = {"wedge": wedge, "oom_explicit": oom_explicit, **flood, **ramp}
+    legs["oom_card"] = chaos_oom(device, "oom_card", "oom:step_mb=4096", 40,
+                                 CHAOS_DAXPY_N)
+    for out in _side_by_side((chaos_kill, device),
+                             (chaos_straggler, device)):
+        legs.update(out)
+    card = legs["oom_card"]
+    if not card["peak_bytes_in_use"] >= 0.5 * card["bytes_limit"]:
+        raise SmokeFailure(f"oom_card: peak {card['peak_bytes_in_use']} "
+                           f"under half the card's limit "
+                           f"{card['bytes_limit']}")
+    log(f"CHAOS_LEGS {json.dumps(legs)}")
+    log(f"  chaos legs: {time.perf_counter() - t0:.1f} s")
+
+    failures = []
+    errs = check_stripe_cells(device, failures)
+    if failures:
+        raise SmokeFailure("; ".join(failures[:10]))
+    log(f"CHECK stripebalance cells against the plain fold: max error "
+        f"{json.dumps(errs)}")
+    check_world_of_one_blocks(device)
+    torch.cuda.empty_cache()
+
+    records = []
+    want = stripe_launches()
+    chained = _chain(*STRIPE_CHAIN)
+    for dtype, route in (("float32", "fma"), ("bfloat16", "wgmma")):
+        path = f"microbench stripebalance {dtype}"
+        os.environ["TPU_MPI_STRIPE_DTYPE"] = dtype
+
+        def run():
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                recs = microbench.run_groups(
+                    ["stripebalance"], device, stripebalance={
+                        **STRIPE_SHAPE, "chain": STRIPE_CHAIN,
+                        "queued_iters": STRIPE_QUEUED})
+            for line in out.getvalue().splitlines():
+                log(f"  {line}")
+            return recs
+
+        t1 = time.perf_counter()
+        try:
+            recs, counts[path] = drive_path(path, run,
+                                            ["flash_attention_block"], peaks)
+        finally:
+            os.environ.pop("TPU_MPI_STRIPE_DTYPE", None)
+        got = counts[path]["flash_attention_block"]
+        # a non-finite chained reading is retried once: one more chain
+        if got < want or (got - want) % chained:
+            raise SmokeFailure(f"{path}: {got} flash launches, the grids "
+                               f"make {want} (+{chained} a retried cell)")
+        others = {k: v for k, v in counts[path].items()
+                  if v and k != "flash_attention_block"}
+        if others:
+            raise SmokeFailure(f"{path}: launched {others}")
+        check_routes(path, "flash_attention_block", {route: got})
+        for r in recs:
+            v = r["value"]
+            if not (math.isfinite(v) and v > 0):
+                raise SmokeFailure(f"{path}: {r['metric']} = {v}")
+        log(f"  {path}: {time.perf_counter() - t1:.1f} s")
+        records += recs
+    log(f"  chaos slice: {time.perf_counter() - t0:.1f} s")
+    return {"legs": legs, "stripe": records, "stripe_errors": errs}
 
 
 def overlap_launches():

@@ -22,8 +22,10 @@
 # to standard output, after the card's name and power limit. Needs four
 # cards; exits non-zero if any run failed.
 #
-#   gpu/world_timings.sh [OUT] [all|overlap]
-#       (default OUT: build/world_timings; "overlap": that part alone)
+#   [WORLDS="1 2 4"] [TIERS="blocks rdma-chained rdma-fused"] \
+#       gpu/world_timings.sh [OUT] [all|overlap|bench]
+#       (default OUT: build/world_timings; "overlap": that part alone;
+#       "bench": the bench runs alone, at WORLDS and TIERS)
 set -u
 out=${1:-build/world_timings}
 mode=${2:-all}
@@ -86,12 +88,15 @@ if [ "$mode" = overlap ]; then
   exit $rc
 fi
 
-for w in 1 2 4; do
-  for tier in blocks rdma-chained rdma-fused; do
+for w in ${WORLDS:-1 2 4}; do
+  for tier in ${TIERS:-blocks rdma-chained rdma-fused}; do
     run "bench_${tier}_w$w" '^\{' env TPU_MPI_BENCH_TIER=$tier \
       torchrun --standalone --nproc-per-node "$w" -m tpu_mpi_tests_torch.bench
   done
 done
+if [ "$mode" = bench ]; then
+  exit $rc
+fi
 
 for run_ in "float32 4" "float32 1" "bfloat16 4"; do
   set -- $run_

@@ -1,7 +1,7 @@
 """The port's microbench groups on the CPU at small sizes: ``daxpy``,
 ``ceiling``, ``streams``, and the one-card groups ``stencil``,
-``iterate``, ``splitfused``, ``blocks``, ``heat``, ``vpu`` and
-``roofline2``.
+``iterate``, ``splitfused``, ``blocks`` (its world-of-one row included),
+``heat``, ``vpu``, ``roofline2`` and ``stripebalance``.
 
 On the CPU the hand tier is the kernels' plain versions, so the rates
 are CPU rates and prove nothing about the card; what is checked is the
@@ -75,7 +75,7 @@ def test_default_sizes_are_the_jax_groups():
 
 
 def test_unported_group_raises():
-    with pytest.raises(TpuMtError, match="ROADMAP queue 1 item 21"):
+    with pytest.raises(TpuMtError, match="stripeskip sweeps the TPU"):
         microbench.run_groups(["daxpy", "stripeskip"], CPU)
 
 
@@ -104,6 +104,7 @@ ONE_CARD = {
     "roofline2": {"H_": 16, "W": 128, "iters": 4, "n": 32, "long_steps": 100,
                   "sizes": (24, 34, 48), "dual_iters": 20, "hbm_gbps": 100.0,
                   "reps_div": 32},
+    "stripebalance": {"w": 4, "lq": 64, "d": 16, "chain": (2, 6)},
 }
 
 
@@ -131,10 +132,10 @@ def matches(template: str, metric: str) -> bool:
     return re.fullmatch(pattern, metric) is not None
 
 
-#: JAX rows the port leaves out on purpose (module docstring of
-#: ``microbench.py``): the shard_map wrapper's price and the VMEM
-#: ``tile_rows=`` A/Bs
-LEFT_OUT = ("blocks_S{S}_sharded_w1_k{steps}_{n}_iters_per_s",
+#: JAX rows the port leaves out on purpose (``microbench.py``'s
+#: docstrings): the VMEM ``tile_rows=`` A/Bs and the flash skip tile's
+#: decoupling gain
+LEFT_OUT = ("stripe_skip_decouple_gain_kt{kt}{dtag}",
             "heat_bf16_tall_B{B}_steps_per_s",
             "heat_bf16_tall_B128_over_B256",
             "dualdim_bf16_tall_B{B}_ms_per_call",
@@ -224,7 +225,58 @@ def test_roofline2_runs_the_ceiling_fit_when_no_rate_is_given(capsys):
 def test_no_argument_runs_every_ported_group_and_tile_sweeps_raise():
     assert list(microbench.GROUPS) == [
         "daxpy", "stencil", "iterate", "splitfused", "ceiling", "attention",
-        "heat", "blocks", "causal", "streams", "vpu", "roofline2"]
-    for name in ("stripeskip", "stripebalance"):
-        with pytest.raises(TpuMtError, match="ROADMAP queue 1 item 21"):
-            microbench.run_groups([name], CPU)
+        "heat", "blocks", "causal", "streams", "vpu", "roofline2",
+        "stripebalance"]
+    with pytest.raises(TpuMtError, match="stripeskip sweeps the TPU"):
+        microbench.run_groups(["stripeskip"], CPU)
+
+
+def test_stripebalance_rows_and_the_bf16_tag(capsys, monkeypatch):
+    """f32 folds at HIGHEST on the fma route's key tile; bf16 at DEFAULT
+    on wgmma's, every row tagged; the paced proxy is Σ_s max_r and the
+    contig grid's dead cells are counted in its detail."""
+    small = ONE_CARD["stripebalance"]
+    recs = microbench.run_groups(["stripebalance"], CPU,
+                                 stripebalance=small)
+    kt = hand.FLASH_K_TILES["fma"]
+    assert [r["metric"] for r in recs] == [
+        f"stripe_contig_kt{kt}_paced_ms", f"stripe_striped_kt{kt}_paced_ms",
+        f"stripe_paced_speedup_kt{kt}", "stripe_to_striped_ms",
+        "stripe_from_striped_ms"]
+    assert "6 geometrically-dead cells" in recs[0]["detail"]
+    monkeypatch.setenv("TPU_MPI_STRIPE_DTYPE", "bfloat16")
+    recs = microbench.run_groups(["stripebalance"], CPU,
+                                 stripebalance=small)
+    capsys.readouterr()
+    kt = hand.FLASH_K_TILES["wgmma"]
+    assert [r["metric"] for r in recs][:3] == [
+        f"stripe_contig_kt{kt}_bfloat16_paced_ms",
+        f"stripe_striped_kt{kt}_bfloat16_paced_ms",
+        f"stripe_paced_speedup_kt{kt}_bfloat16"]
+    assert all(math.isfinite(r["value"]) and r["value"] > 0
+               for r in recs if r["unit"] == "ms")
+
+
+def test_paced_proxy_and_the_suspect_rule():
+    import numpy as np
+
+    t = np.array([[1.0, 0.0], [2.0, 3.0]])
+    assert microbench._paced_with_suspect(t) == (5.0, "", False)
+    spike = np.full((4, 4), 1.0)
+    spike[2, 1] = 9.0
+    paced, note, suspect = microbench._paced_with_suspect(spike)
+    assert suspect and "OUTLIER-SUSPECT" in note and paced == 12.0
+    t[0, 1] = float("nan")
+    assert microbench._paced_with_suspect(t)[2]
+
+
+def test_world_of_one_joins_and_leaves_a_group():
+    from tpu_mpi_tests_torch.comm import dist
+
+    assert not torch.distributed.is_initialized()
+    with dist.world_of_one("cpu") as w:
+        assert (w.rank, w.size, w.backend) == (0, 1, "gloo")
+        assert torch.distributed.get_world_size() == 1
+        assert dist.world() is w
+    assert not torch.distributed.is_initialized()
+    assert dist.world().backend is None

@@ -20,9 +20,11 @@ Each rank binds to device ``local_rank mod device_count``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import socket
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -160,3 +162,31 @@ def shutdown() -> None:
         dist.destroy_process_group()
     _WORLD = None
     _CPU_GROUP = None
+
+
+@contextlib.contextmanager
+def world_of_one(device="cuda"):
+    """Join a process group of one rank for the life of the block (the
+    path a world of N enters: ``init`` adopting a group, NCCL on the
+    card, gloo on the CPU, the gloo host group beside it), then leave it
+    and restore the world there was. Yields the :class:`World`. Refuses
+    to run inside a group of another size."""
+    global _WORLD, _CPU_GROUP
+    if dist.is_initialized():
+        if dist.get_world_size() != 1:
+            raise TpuMtError(f"world_of_one inside a group of "
+                             f"{dist.get_world_size()} ranks")
+        yield init(device)
+        return
+    saved = (_WORLD, _CPU_GROUP)
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        _WORLD = None
+        try:
+            yield init(dev)
+        finally:
+            shutdown()
+            _WORLD, _CPU_GROUP = saved

@@ -6,8 +6,8 @@ instrument spine's ``--telemetry``, ``--memwatch``, ``--mem-interval``,
 (the watchdog and the NaN checks around a driver's body), the reporter
 with its observability wiring (:func:`make_reporter`, the live plane's
 ``--metrics-port``, ``--metrics-interval`` and ``--metrics-all-ranks``
-included), ``--kernel auto``'s resolution, the dtype map and the
-process-grid spec.
+included, and the chaos layer's one arm point, ``--chaos``),
+``--kernel auto``'s resolution, the dtype map and the process-grid spec.
 
 The serve-mode workload-handler registry (:func:`register_workload`,
 :func:`workload_factory`) lives here too, as in the JAX module.
@@ -132,7 +132,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         help="record the card's allocator watermarks and a census of what "
         "holds the memory as kind:'mem' JSONL records "
         "(instrument/memwatch.py): a low-rate sampler thread plus "
-        "per-phase snapshots; needs --jsonl. Census-only on the CPU",
+        "per-phase snapshots; needs --jsonl. On the CPU: the live host "
+        "tensors, no sampler",
     )
     p.add_argument(
         "--mem-interval",
@@ -188,6 +189,16 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         default=None,
         help="capture a torch.profiler trace (Chrome format) into this "
         "dir (≅ nsys -c cudaProfilerApi)",
+    )
+    p.add_argument(
+        "--chaos",
+        default=None,
+        metavar="SPEC",
+        help="arm deterministic fault injection ($TPU_MPI_CHAOS when "
+        "absent): comma list of class[:key=value]* faults — kill / "
+        "straggler / wedge / oom / flood, e.g. "
+        "'kill:rank=1:op=halo_exchange:after=3' (grammar in README "
+        "'Chaos & diagnosis'); a disarmed run installs no chaos state",
     )
     p.add_argument(
         "--verbose", action="store_true", help="extra per-device reporting"
@@ -275,7 +286,7 @@ def make_reporter(args, rank: "int | None" = None,
                   size: "int | None" = None,
                   manifest_extra: "dict | None" = None) -> Reporter:
     """The run's reporter with the observability wiring (≅ JAX
-    ``make_reporter`` without chaos). ``rank`` and
+    ``make_reporter``). ``rank`` and
     ``size`` default to this process's place in the world
     (``comm.dist``); drivers emulating logical ranks in one process pass
     their own. ``manifest_extra`` is driver-known run identity merged into
@@ -293,7 +304,9 @@ def make_reporter(args, rank: "int | None" = None,
       the per-op ``TELEMETRY`` lines and disables it;
     * ``--memwatch`` (with ``--jsonl``): a running ``MemWatch``, stopped
       at close;
-    * the schedule cache and its records (``setup_tuning``)."""
+    * the schedule cache and its records (``setup_tuning``);
+    * ``--chaos`` / ``$TPU_MPI_CHAOS``: the faults aimed at this process
+      (:func:`_arm_chaos`), armed last."""
     from tpu_mpi_tests_torch.comm import dist
 
     w = dist.world()
@@ -343,7 +356,38 @@ def make_reporter(args, rank: "int | None" = None,
                   "the JSONL sink); no memory records will be written")
     setup_tuning(args)
     _attach_tune_sink(rep)
+    _arm_chaos(args, rep, w)
     return rep
+
+
+def _arm_chaos(args, rep: Reporter, w) -> None:
+    """The chaos layer's one arm point (≅ JAX ``_arm_chaos``; nothing
+    else in the package imports it): with ``--chaos`` or
+    ``$TPU_MPI_CHAOS`` set, install the faults aimed at this process and
+    audit them to the JSONL sink. Without a spec nothing is imported and
+    nothing is installed. Faults are aimed, and their records stamped, by
+    the process's own rank (``w.rank``), not ``rep.rank``: a spec that
+    needs no mesh reports as rank 0 in every process."""
+    spec_text = getattr(args, "chaos", None) or os.environ.get(
+        "TPU_MPI_CHAOS")
+    if not spec_text:
+        return
+    from tpu_mpi_tests_torch import chaos
+
+    proc = w.rank
+    try:
+        mine = chaos.arm_from_spec(
+            spec_text, rank=proc,
+            emit=lambda rec: rep.jsonl({**rec, "rank": proc}),
+            device=w.device)
+    except ValueError as e:
+        print(f"ERROR bad --chaos spec: {e}")
+        raise SystemExit(2) from None
+    for s in mine:
+        rep.line(f"CHAOS armed: {s.describe()}")
+        if s.op and not getattr(args, "telemetry", False):
+            rep.line(f"NOTE chaos fault {s.raw!r} triggers on telemetry "
+                     f"spans but --telemetry is off; it will never fire")
 
 
 def _arm_metrics(args, rep: Reporter) -> None:

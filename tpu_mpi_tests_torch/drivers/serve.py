@@ -31,6 +31,11 @@ the hand ring-halo kernel, a ``coll_variant/allreduce`` winner of
 one-shot collective kernels; the priors (``direct``, ``torch``) launch
 no hand kernel.
 
+Every flag of the JAX driver is here, ``--chaos`` included: a ``flood``
+fault (``--chaos flood:burst=300:after=1``) arms through the serve loop's
+``_CHAOS_FLOOD`` slot and bursts synthetic arrivals into the queue at an
+SLO window boundary; ``--record`` keeps them in the artifact.
+
 One process, one card: batch composition depends on real-time
 arrival/service interleaving, which would diverge across ranks and
 deadlock collectives, so a world of several processes prints the JAX

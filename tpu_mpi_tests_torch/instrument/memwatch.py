@@ -7,8 +7,8 @@
   ``bytes_in_use`` and
   ``peak_bytes_in_use``, and the card's capacity
   (``torch.cuda.mem_get_info``, read once per card) as ``bytes_limit``.
-  ``{}`` on the CPU, and every consumer degrades (census-only records,
-  absent fields, never zeros).
+  ``{}`` on the CPU, and every consumer degrades (no watermark fields,
+  never zeros; the live totals come from a walk of the host tensors).
 * :func:`census` — what holds the memory, bucketed, top-K by bytes. On
   the card it counts the allocator's live blocks
   (``torch.cuda.memory_snapshot()``: every ``active_allocated`` block,
@@ -117,8 +117,9 @@ def _card_census(idx: int):
     return buckets
 
 
-def _host_census():
-    buckets: dict[str, list[int]] = {}
+def _host_tensors():
+    """(tensor, storage bytes) of every CPU tensor the process holds, one
+    a storage, found by one walk of the garbage collector's objects."""
     seen: set = set()
     with warnings.catch_warnings():
         # isinstance on some deprecated torch objects warns
@@ -135,10 +136,16 @@ def _host_census():
                 continue
             seen.add(key_ptr)
             nbytes = int(storage.nbytes())
-            key = "x".join(str(s) for s in obj.shape) or "scalar"
-            key = f"{key}·{str(obj.dtype).removeprefix('torch.')}"
         except Exception:
             continue
+        yield obj, nbytes
+
+
+def _host_census():
+    buckets: dict[str, list[int]] = {}
+    for obj, nbytes in _host_tensors():
+        key = "x".join(str(s) for s in obj.shape) or "scalar"
+        key = f"{key}·{str(obj.dtype).removeprefix('torch.')}"
         e = buckets.setdefault(key, [0, 0])
         e[0] += 1
         e[1] += nbytes
@@ -164,11 +171,18 @@ def census(top_k: int = CENSUS_TOP_K, device=None) -> dict[str, Any] | None:
 
 def _live_totals(device=None) -> "tuple[int, int] | None":
     """(blocks, bytes) live in the card's allocator, from its counters
-    (no walk); None on the CPU."""
+    (no walk); on the CPU (tensors, bytes) of the live host tensors, the
+    census walk without its buckets (≅ the JAX ``_live_totals``: the
+    growth signal of a backend with no allocator counters). None when
+    neither can be read."""
     try:
         idx = _card_index(device)
         if idx is None:
-            return None
+            count = total = 0
+            for _obj, nbytes in _host_tensors():
+                count += 1
+                total += nbytes
+            return count, total
         a = _allocator(idx)
     except Exception:
         return None
@@ -189,8 +203,9 @@ def mem_record(event: str = "sample", phase: str | None = None,
                query_limit: bool = True) -> dict[str, Any]:
     """One ``kind: "mem"`` record: the wall time ``t``, the card's
     watermarks where it has them, the live totals, and (``top_k`` > 0)
-    the census. On the CPU: census-only, and only where a census is
-    asked for; no ``devices`` or ``bytes_in_use`` keys."""
+    the census. On the CPU: no ``devices`` or ``bytes_in_use`` keys, the
+    live totals those of the host walk (the census's, when one is
+    taken)."""
     rec: dict[str, Any] = {"kind": "mem", "event": event, "t": time.time()}
     if phase is not None:
         rec["phase"] = phase
@@ -201,12 +216,12 @@ def mem_record(event: str = "sample", phase: str | None = None,
     devices = device_memory_stats(device, query_limit=query_limit)
     if devices:
         _device_fields(rec, devices)
-    totals = _live_totals(device)
-    if top_k > 0:
-        c = census(top_k, device)
-        if c is not None:
-            rec["census"] = c
-            totals = totals or (c["count"], c["bytes"])
+    c = census(top_k, device) if top_k > 0 else None
+    if c is not None:
+        rec["census"] = c
+    # the CPU's totals are a walk: take the census's when it walked
+    totals = (c["count"], c["bytes"]) if c is not None and not devices \
+        else _live_totals(device)
     if totals is not None:
         rec["live_count"], rec["live_bytes"] = totals
     return rec
@@ -240,8 +255,10 @@ class MemWatch:
     ``event: "sample"`` every ``interval_s`` on the card (allocator
     counters, no census; the CPU has none to sample); ``event: "phase"``
     at a phase's first exit (with census) and again whenever that phase
-    raised the peak watermark by more than 1%, with the in-use delta and
-    the peak's rise across the body; ``event: "final"`` (census) at
+    raised the peak watermark by more than 1% (on the CPU, which has no
+    watermark: the live host bytes, as the JAX hook's live-array walk),
+    with the in-use delta and the peak's rise across the body, and the
+    live totals on every one; ``event: "final"`` (census) at
     :meth:`stop`. ``sink`` serialises its own writes (the reporter's
     ``jsonl`` does): the sampler and the phase hooks emit concurrently."""
 
@@ -312,12 +329,18 @@ class MemWatch:
         now = time.time()
         devices = (device_memory_stats(self._device)
                    if self._has_device_stats else {})
-        peak = max((d.get("peak_bytes_in_use", 0)
-                    for d in devices.values()), default=0)
+        if devices:
+            peak = max(d.get("peak_bytes_in_use", 0)
+                       for d in devices.values())
+            totals = None
+        else:
+            # no watermark: the live host bytes are the growth signal
+            totals = _live_totals(self._device)
+            peak = totals[1] if totals is not None else 0
         with self._lock:
             st = self._phase_state.setdefault(name, {})
             first = not st.get("emitted")
-            grew = bool(devices) and peak > st.get("last_peak", 0) * 1.01
+            grew = peak > st.get("last_peak", 0) * 1.01
             if not (first or grew):
                 return
             st["emitted"] = True
@@ -334,12 +357,11 @@ class MemWatch:
                     d.get("bytes_in_use", 0) for d in begin.values())
                 rec["peak_delta"] = peak - max(
                     d.get("peak_bytes_in_use", 0) for d in begin.values())
-        totals = _live_totals(self._device)
+            totals = _live_totals(self._device)
         if first:
             c = census(self._top_k, self._device)
             if c is not None:
                 rec["census"] = c
-                totals = totals or (c["count"], c["bytes"])
         if totals is not None:
             rec["live_count"], rec["live_bytes"] = totals
         self._emit(rec)

@@ -256,6 +256,13 @@ class Telemetry:
 
 _TELEMETRY = Telemetry()
 
+#: chaos arm point (``chaos/inject.py`` rebinds it when it arms; nothing
+#: else sets it): called as ``hook(op, when)`` with ``when`` "enter"
+#: before the span's clock starts and "exit" after its event recorded.
+#: Read only on the enabled span path, so the disabled path stays one
+#: attribute check and a disarmed run runs the code it ran before.
+_CHAOS_SPAN_HOOK: Callable[[str, str], None] | None = None
+
 #: optional cost provider (instrument/costs.py registers itself at its
 #: first probe): ``provider(op, seconds)`` returns extra span fields
 _COST_PROVIDER: Callable[[str, float], dict] | None = None
@@ -378,6 +385,11 @@ def comm_span(op: str, nbytes: int = 0, axis_name: str | None = None,
         return
     from tpu_mpi_tests_torch.instrument.timers import block
 
+    chaos_hook = _CHAOS_SPAN_HOOK
+    if chaos_hook is not None:
+        # entry faults (kill, wedge) land before the clock starts, so a
+        # killed span never records: dead mid-collective
+        chaos_hook(op, "enter")
     span = _Span()
     seq = reg.next_seq(op, axis_name)
     t0_wall = time.time()
@@ -400,6 +412,10 @@ def comm_span(op: str, nbytes: int = 0, axis_name: str | None = None,
             seconds=dt, gbps=gbps, wall_time=t0_wall + dt,
             t_start=t0_wall, t_end=t0_wall + dt, mono_start=t0,
             mono_end=t1, seq=seq, meta=meta))
+        if chaos_hook is not None:
+            # exit faults (the op-scoped straggler) sleep after the event
+            # recorded, outside the measured window
+            chaos_hook(op, "exit")
 
 
 class AsyncSpan:

@@ -3,9 +3,9 @@ that needs one device and no peers.
 
     python -m tpu_mpi_tests_torch.microbench [daxpy] [stencil] [iterate]
         [splitfused] [ceiling] [attention] [heat] [blocks] [causal]
-        [streams] [vpu] [roofline2] [--device cuda|cpu]
+        [streams] [vpu] [roofline2] [stripebalance] [--device cuda|cpu]
 
-Runs the selected groups (default: all twelve) and prints one JSON line
+Runs the selected groups (default: all thirteen) and prints one JSON line
 ``{"metric", "value", "unit", "detail"}`` per measurement, then a summary
 table. The JAX groups' sizes and iteration counts are kept and so are
 their metric names, with the ``xla``/``pallas`` tiers named ``torch``
@@ -30,13 +30,17 @@ blocks lived and how many CTAs worked.
 ``roofline2`` bytes axis is the card's own ``hbm_ceiling_fit_gbps`` (the
 ``ceiling`` fit run inside the group, or the ``hbm_gbps`` keyword).
 
+``stripebalance`` times the flash fold at every (rank, step) cell of a
+causal ring, contiguous against striped (its docstring says what it
+leaves out). ``blocks``' ``blocks_S2_sharded_w1`` row runs the resident
+blocks through a process group of one rank (``dist.world_of_one``), the
+path a world of N enters.
+
 Left out on purpose, each a sweep of a TPU VMEM tile the CUDA kernels do
-not have (ROADMAP queue 1 item 21): the ``streams`` group's
-``daxpy_block{br}_gbps``, the flash ``stripeskip``/``stripebalance``
-groups, and ``roofline2``'s ``tile_rows=`` A/Bs
-(``heat_bf16_tall_B{128,256}``, ``dualdim_bf16_tall_B{128,256}``). The
-``blocks_S2_sharded_w1`` row prices JAX's ``shard_map`` wrapper, which has
-no world=1 counterpart until ``comm/dist.py``.
+not have: the ``streams`` group's ``daxpy_block{br}_gbps``, the flash
+``stripeskip`` group (the TPU kernel's ``skip_tile``; the CUDA fold masks
+by per-row limits), and ``roofline2``'s ``tile_rows=`` A/Bs
+(``heat_bf16_tall_B{128,256}``, ``dualdim_bf16_tall_B{128,256}``).
 
 Each group function takes its sizes as keyword arguments (defaults: the
 JAX sizes), so the CPU tests run them small.
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from tpu_mpi_tests_torch.arrays.domain import Domain2D
+from tpu_mpi_tests_torch.comm import dist
 from tpu_mpi_tests_torch.comm import halo as H
 from tpu_mpi_tests_torch.device import DEVICES, resolve_device
 from tpu_mpi_tests_torch.instrument.timers import chain_rate, dispatch_rate
@@ -309,6 +314,158 @@ def bench_causal(results, device, sizes=((8192, "resident"),
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _paced_with_suspect(t):
+    """The paced proxy Σ_s max_r of a (rank, step) grid of cell seconds
+    and the JAX grid checks: a non-finite cell, or a live cell over 5×
+    the grid's median (a contention spike the retry cannot see), makes
+    the grid suspect, with a note. Returns ``(paced, note, suspect)``."""
+    if not np.all(np.isfinite(t)):
+        return t.max(axis=0).sum(), "; NaN cell(s) after retry: grid " \
+            "invalid", True
+    live = t[t > 0]
+    med = np.median(live) if live.size else 0.0
+    if live.size and live.max() > 5 * med:
+        return t.max(axis=0).sum(), (
+            f"; OUTLIER-SUSPECT: max cell {live.max() * 1e3:.2f} ms vs "
+            f"median {med * 1e3:.3f}"), True
+    return t.max(axis=0).sum(), "", False
+
+
+def _stripe_cells(w, lq, d, dtype, device, chain, queued_iters):
+    """The (rank, step) cell timer of :func:`bench_stripebalance`: one
+    fold of a K/V block into a (lq, d) query block's carry at the cell's
+    global offsets and stride, chained (``chain_rate``, the carry folded
+    in place) with one retry of a non-finite reading, and on the card
+    also queued behind a stall (``flash_ab.time_queued``: the host taken
+    out). Returns ``(measured, k_tile)``; ``measured(q_off, k_off,
+    stride)`` gives ``(chained s, queued s)`` (queued NaN off the card)."""
+    from tpu_mpi_tests_torch.kernels.flash_ab import time_queued
+
+    q, kb, vb = _attention_operands(lq, d, dtype, device)
+    precision = "highest" if dtype == torch.float32 else "default"
+    kt = hand.FLASH_K_TILES[hand.flash_route(
+        dtype, precision, d, hand.flash_aligned(d, q, kb, vb))]
+    scale = 1.0 / d**0.5
+
+    def fresh():
+        return (torch.full((lq, 1), float("-inf"), device=device),
+                torch.zeros((lq, 1), device=device),
+                torch.zeros((lq, d), device=device))
+
+    def measured(qo, ko, st):
+        def fold(carry):
+            return hand.flash_attention_block(
+                q, kb, vb, *carry, qo, ko, scale=scale, causal=True,
+                pos_stride=st, precision=precision, k_tile=kt)
+
+        def run(carry, n_iter):
+            for _ in range(n_iter):
+                carry = fold(carry)
+            return carry
+
+        sec, _ = chain_rate(run, fresh(), *chain)
+        if not np.isfinite(sec):
+            sec, _ = chain_rate(run, fresh(), *chain)  # one retry
+        queued = float("nan")
+        if device.type == "cuda":
+            carry = fresh()
+            queued = time_queued(lambda: fold(carry), queued_iters) / 1e3
+        return sec, queued
+
+    return measured, kt
+
+
+def bench_stripebalance(results, device, w=8, lq=4096, d=128,
+                        chain=(30, 330), queued_iters=20):
+    """Striped causal ring balance measured on one card (≅ the JAX
+    ``stripebalance`` group). A ring's wall clock is paced a step by its
+    slowest rank, so the one-card proxy times the flash fold
+    (``hand.flash_attention_block``, row 15) at every (rank, step) cell
+    of a w-rank ring, contiguous against striped, the two layouts' cells
+    interleaved, and compares Σ_s max_r t(r, s) (the paced proxy) and
+    Σ t (the total work). Contiguous cells whose K block lies wholly in
+    the future are dead (every tile skipped) and set to 0 unmeasured.
+    ``TPU_MPI_STRIPE_DTYPE=bfloat16`` runs the grids at bf16 DEFAULT (the
+    ``wgmma`` route) and tags the rows ``_bfloat16``; float32 runs at
+    HIGHEST (the ``fma`` route). Then the ``to_striped``/``from_striped``
+    permutes at the ring's global (L, d).
+
+    The key tile is the route's own (``hand.FLASH_K_TILES``: 64 on
+    ``fma``, 128 on ``wgmma``) where the JAX group sweeps its kernel's
+    ``k_tile``; the card's fold takes no tile argument. Left out: the JAX
+    rows ``stripe_striped_coupled_*`` and ``stripe_skip_decouple_gain_*``,
+    which price the TPU kernel's ``skip_tile``: the CUDA fold masks by
+    per-row limits and has no skip tile to couple or decouple.
+
+    The chains are 10× shorter than the JAX group's 3300 calls, so the
+    group stays near a minute on the card; a chained cell prices the host
+    gaps between launches where the fold is shorter than its wrapper, so
+    each paced row's detail also gives the grids' queued times (the
+    launches queued behind a stall: device time alone)."""
+    sdtype = os.environ.get("TPU_MPI_STRIPE_DTYPE", "float32")
+    dtag = "" if sdtype == "float32" else f"_{sdtype}"
+    dtype = _DTYPES[sdtype]
+    measured, kt = _stripe_cells(w, lq, d, dtype, device, chain,
+                                 queued_iters)
+    grids = {"contig": np.zeros((w, w)), "striped": np.zeros((w, w))}
+    queued = {"contig": np.zeros((w, w)), "striped": np.zeros((w, w))}
+    skipped = 0
+    for r in range(w):
+        for s in range(w):
+            src = (r - s) % w
+            if src > r:
+                skipped += 1  # the whole K block is in the future
+            else:
+                grids["contig"][r, s], queued["contig"][r, s] = measured(
+                    r * lq, src * lq, 1)
+            grids["striped"][r, s], queued["striped"][r, s] = measured(
+                r, src, w)
+    suspect = False
+    for name, t in grids.items():
+        paced, note, susp = _paced_with_suspect(t)
+        suspect = suspect or susp
+        if name == "contig":
+            note = (f"; {skipped} geometrically-dead cells set to 0 "
+                    f"unmeasured") + note
+        tq = queued[name]
+        qnote = (f"; queued: paced {tq.max(axis=0).sum() * 1e3:.3f} ms, "
+                 f"total work {tq.sum() * 1e3:.3f} ms"
+                 if device.type == "cuda" else "")
+        _emit(results, f"stripe_{name}_kt{kt}{dtag}_paced_ms", paced * 1e3,
+              "ms", f"sum over steps of max-rank per-step flash time, "
+              f"w={w} lq={lq} d={d}; total work {t.sum() * 1e3:.2f} ms; "
+              f"last-rank sum {t[w - 1].sum() * 1e3:.2f} ms{qnote}{note}")
+    speedup = (grids["contig"].max(axis=0).sum()
+               / grids["striped"].max(axis=0).sum())
+    work = grids["striped"].sum() / grids["contig"].sum()
+    qspeed = (f"; queued speedup "
+              f"{queued['contig'].max(axis=0).sum() / queued['striped'].max(axis=0).sum():.3f}"
+              if device.type == "cuda" else "")
+    _emit(results, f"stripe_paced_speedup_kt{kt}{dtag}",
+          float("nan") if suspect else speedup, "x",
+          f"contig/striped paced proxy, cells interleaved same-window; "
+          f"total-work ratio {work:.3f} (~1 = balance moved work, not "
+          f"added it){qspeed}"
+          + ("; NaN: a suspect grid (outlier or NaN cell — see grid rows) "
+             "invalidates the derived speedup" if suspect else ""))
+
+    from tpu_mpi_tests_torch.comm.ring import from_striped, to_striped
+
+    L = w * lq
+    x = _normal((L, d), 0, device, dtype)
+    for nm, fn in (("to_striped", to_striped),
+                   ("from_striped", from_striped)):
+        def run(x, n_iter, fn=fn):
+            for _ in range(n_iter):
+                x = fn(x, w)
+            return x
+
+        sec, x = chain_rate(run, x, n_short=50, n_long=550)
+        _emit(results, f"stripe_{nm}{dtag}_ms", sec * 1e3, "ms",
+              f"({L}, {d}) {sdtype} permute, one-off per ring pass")
+    del x
+
+
 def _normal(shape, seed: int, device, dtype=torch.float32, div: float = 1.0
             ) -> torch.Tensor:
     """Standard normal / ``div`` in ``dtype``, made on ``device`` from
@@ -419,20 +576,31 @@ def bench_splitfused(results, device, n=8192, chain=(100, 2100)):
 def bench_blocks(results, device, n=8192, steps=4, n_blocks=2,
                  chain=(25, 525)):
     """The bench's headline schedule alone (≅ the JAX ``blocks`` group):
-    S resident row blocks along dim 0 at k steps against the dim-1 single
-    buffer, float32, same process. The JAX group's
-    ``blocks_S2_sharded_w1`` row prices its ``shard_map`` wrapper, which
-    has no counterpart at world=1 here (until ``comm/dist.py``). Each row
-    is the lesser of two chained readings: one host stall inside the
-    short run (a ~0.1 s run) can leave its pair no positive difference."""
+    S resident row blocks along dim 0 at k steps, float32, same process;
+    the same schedule through a process group of one rank
+    (``dist.world_of_one``: the path the bench takes at world N, the
+    counterpart of the JAX row's world-1 ``shard_map`` mesh), in the same
+    window, so the two rows price the multi-rank wrapper; then the dim-1
+    single buffer. Each row is the lesser of two chained readings: one
+    host stall inside the short run (a ~0.1 s run) can leave its pair no
+    positive difference."""
     K = N_BND * steps
+    z0 = _normal((n + 2 * K, n), 0, device, div=10.0)
     run = H.iterate_hand_blocks_fn(n_blocks, K, 1e-4, steps=steps)
-    st = H.split_blocks(_normal((n + 2 * K, n), 0, device, div=10.0),
-                        n_blocks, K)
-    sec, st = chain_rate(run, st, *chain, repeats=2)
+    sec, st = chain_rate(run, H.split_blocks(z0, n_blocks, K), *chain,
+                         repeats=2)
     _emit(results, f"blocks_S{n_blocks}_dim0_k{steps}_{n}_iters_per_s",
           steps / sec, "iter/s", f"{n}x{n} f32, resident blocks")
     del st
+    with dist.world_of_one(device) as w:
+        sec, st = chain_rate(run, H.split_blocks(z0, n_blocks, K), *chain,
+                             repeats=2)
+        _emit(results,
+              f"blocks_S{n_blocks}_sharded_w1_k{steps}_{n}_iters_per_s",
+              steps / sec, "iter/s",
+              f"{n}x{n} f32, resident blocks through a {w.backend} "
+              f"process group of one rank")
+    del st, z0
     z = _normal((n, n + 2 * K), 1, device, div=10.0)
     sec, z = chain_rate(H.iterate_hand_fn(K, 1e-4, axis=1, steps=steps), z,
                         *chain, repeats=2)
@@ -781,6 +949,7 @@ GROUPS = {
     "streams": bench_streams,
     "vpu": bench_vpu,
     "roofline2": bench_roofline2,
+    "stripebalance": bench_stripebalance,
 }
 
 
@@ -791,8 +960,8 @@ def run_groups(groups, device, **sizes) -> list[dict]:
     if unknown:
         raise TpuMtError(
             f"unknown or unported microbench groups {unknown}; ported: "
-            f"{list(GROUPS)} (the TPU tile sweeps stripeskip and "
-            f"stripebalance are left out: ROADMAP queue 1 item 21)"
+            f"{list(GROUPS)} (stripeskip sweeps the TPU kernel's "
+            f"skip_tile, which the CUDA fold does not have)"
         )
     results = []
     for g in groups:

@@ -50,8 +50,8 @@ MAX_IDLE_SLEEP_S = 0.25
 #: nearly free
 FAIL_BACKOFF_S = 0.05
 
-#: chaos arm-point, the JAX loop's slot (the chaos layer, ROADMAP queue
-#: 1 #20, rebinds it at arm time; nothing sets it today):
+#: chaos arm point, the JAX loop's slot (``chaos/inject.py`` rebinds it
+#: when a ``flood`` fault is armed; nothing else sets it):
 #: ``hook(window_index) -> int`` synthetic arrivals to flood into the
 #: queue at an SLO window boundary. Consulted once per window — a rare
 #: branch on an idle-path boundary, and a disarmed run (slot None) takes
