@@ -308,7 +308,13 @@ failure exits non-zero and prints no result line):
    cells against its plain version, the resident blocks through a
    process group of one rank bit for bit the group-less run, and
    microbench ``stripebalance`` in float32 (``fma``) and bfloat16
-   (``wgmma``) as main paths (flash launches exact, on their routes);
+   (``wgmma``) as main paths (flash launches exact, on their routes).
+   Last the lint slice (``run_lint_slice``): the port's stdlib-only
+   linter over its own scope in a child where ``torch`` and ``jax``
+   cannot be imported, zero findings (``LINT``), and ``--conform`` over
+   the span streams the instrument slice kept, each conforming with zero
+   findings and a copy cut before its last collective span convicting
+   TPM1705 (``CONFORM``);
 5. time each kernel at its main-path shapes with CUDA events (warmed),
    beside its plain version, its one-call PyTorch yardstick where one
    exists (``F.conv2d``, TF32 off: for the derivative, for one heat step
@@ -406,7 +412,8 @@ K4 = 2 * 4     # ghost width of the k=4 schedules
 BENCH_SE = 1e-6 * BENCH_N / 8.0  # the bench's eps × scale
 DRIVER_SE = 0.01                 # the driver's iterate-leg scale_eps
 GRID_N = 8192                    # the 2-D grid paths' local extent
-HEAT_N_STEPS = 200               # the heat driver's default step count
+# the heat driver's default step count: a smoke size, no schedule knob
+HEAT_N_STEPS = 200  # tpumt: ignore[TPM701]
 HEAT_RUNS = (("float32", 4), ("float32", 1), ("bfloat16", 4))
 # the 2-D grids over ranks: weak-scaled, each rank holds the one-card
 # block; strong-scaled, GRID_N² split over the 2x2 grid, GRID_HALF² a rank
@@ -2219,6 +2226,7 @@ def run_main_path(device):
     recs["serving"] = run_serving_slice(device, counts, peaks)
     recs["serve"] = run_serve_slice(device, counts, peaks)
     recs["chaos"] = run_chaos_slice(device, counts, peaks)
+    recs["lint"] = run_lint_slice()
     # every k-step, heat and derivative launch of every path on the regs
     # route
     for path, c in counts.items():
@@ -2518,15 +2526,17 @@ def run_tune_slice(device, counts, peaks):
 
 #: the overlap slice: pipeline rounds at full size, traced heat bodies,
 #: and the spin before each traced body of the busy-stream trace (~2 ms)
-OVERLAP_ROUNDS = 3
-OVERLAP_TRACE_BODIES = 4
-OVERLAP_SPIN_CYCLES = 4_000_000
+#: (TPM701 suppressions: the slice's sizes and tolerances, no schedule
+#: knob a run resolves)
+OVERLAP_ROUNDS = 3  # tpumt: ignore[TPM701]
+OVERLAP_TRACE_BODIES = 4  # tpumt: ignore[TPM701]
+OVERLAP_SPIN_CYCLES = 4_000_000  # tpumt: ignore[TPM701]
 #: JAX's tolerances for a pipeline against its fused serial body
 #: (tests/test_overlap.py:91, :158, :192-199): (rtol, atol), and the grid
 #: residual's rtol
-OVERLAP_TOL = {"jacobi": (1e-6, 1e-12), "heat": (1e-6, 1e-7),
-               "grid": (1e-4, 1e-3)}
-OVERLAP_RESIDUAL_RTOL = 1e-5
+OVERLAP_TOL = {  # tpumt: ignore[TPM701]
+    "jacobi": (1e-6, 1e-12), "heat": (1e-6, 1e-7), "grid": (1e-4, 1e-3)}
+OVERLAP_RESIDUAL_RTOL = 1e-5  # tpumt: ignore[TPM701]
 
 
 #: the instrument slice: collbench's chain length at 1 MiB (the rows
@@ -2811,6 +2821,7 @@ def run_instrument_slice(device, counts, peaks):
         raise SmokeFailure(f"{path}: the trace has no span")
     shutil.copy(jl, keep)
     shutil.copy(trace, keep)
+    shutil.copy(os.path.join(tmp, "spans.jsonl"), keep)  # the lint slice's
     log(f"SPAN_PRICE ITER exchange mean (s) stencil2d --rdma "
         f"{json.dumps(_iter_means(DRIVER_TEXT[flagless]))}; --telemetry "
         f"--jsonl {json.dumps(_iter_means(DRIVER_TEXT[spans_only]))}; "
@@ -3540,8 +3551,9 @@ STRIPE_CHAIN = (30, 330)
 STRIPE_QUEUED = 20
 #: the group's ring and blocks (its defaults: the JAX group's)
 STRIPE_SHAPE = {"w": 8, "lq": 4096, "d": 128}
-#: the blocks schedule's field side in the world-of-one check
-CHAOS_BLOCKS_N = 8192
+#: the blocks schedule's field side in the world-of-one check (a smoke
+#: size, no schedule knob)
+CHAOS_BLOCKS_N = 8192  # tpumt: ignore[TPM701]
 
 
 def _chaos_env(chaos=None):
@@ -3938,6 +3950,113 @@ def check_world_of_one_blocks(device) -> None:
                                f"{'plain version' if plain else 'plain world'}")
     log("CHECK blocks through a process group of one rank: bit for bit the "
         "group-less run (8192^2) and the plain version (512^2)")
+
+
+#: the child that runs the port's linter with torch, triton, jax and the
+#: JAX package made unimportable (the analysis is stdlib only)
+LINT_CHILD = r"""
+import sys
+
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "triton", "jax", "tpu_mpi_tests"):
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, _Blocker())
+from tpu_mpi_tests_torch.analysis import cli
+
+sys.exit(cli.main(sys.argv[1:]))
+"""
+#: the span streams the instrument slice keeps, conformed by the lint
+#: slice (the serve slice runs with --telemetry off: no spans)
+CONFORM_STREAMS = ("stencil2d.jsonl", "spans.jsonl")
+
+
+def lint_scope(here) -> list:
+    """The port's lint scope: the package, this script, gpu/, the port's
+    tests and their gloo workers."""
+    tests = sorted(f for f in os.listdir(os.path.join(here, "tests"))
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    return ["tpu_mpi_tests_torch", "chip_smoke.py", "gpu",
+            *(os.path.join("tests", f) for f in tests),
+            os.path.join("tests", "torch_dist_workers.py")]
+
+
+def run_lint_slice():
+    """(a) The port's linter over :func:`lint_scope` in a child that
+    cannot import torch or jax: zero findings, printed as ``LINT
+    files=<n> findings=0 seconds=<s>`` (host seconds of the child, four
+    jobs). (b) ``--conform`` of the instrument slice's span streams
+    (:data:`CONFORM_STREAMS`) against the automaton compiled from the
+    package: zero findings each; then each stream as rank 0 beside a
+    copy cut before its last collective span as rank 1, which must
+    convict TPM1705 and nothing else. Printed as ``CONFORM streams=<n>
+    spans=<n> findings=0``."""
+    from tpu_mpi_tests_torch.analysis.core import collect_project
+    from tpu_mpi_tests_torch.analysis.protocol import (
+        ScheduleAutomaton,
+        conform_paths,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_slice = t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", LINT_CHILD, "--no-cache", "--stats",
+         "--jobs", "4", "--format", "json", *lint_scope(here)],
+        cwd=here, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": here + os.pathsep
+             + os.environ.get("PYTHONPATH", "")})
+    seconds = time.perf_counter() - t0
+    m = re.search(r"stats: files=(\d+)", r.stderr)
+    try:
+        doc = json.loads(r.stdout)
+    except ValueError:
+        doc = None
+    if r.returncode != 0 or doc is None or doc["count"] or not m:
+        raise SmokeFailure(f"lint: rc={r.returncode}\n{r.stdout[-3000:]}"
+                           f"\n{r.stderr[-3000:]}")
+    log(f"LINT files={m.group(1)} findings=0 seconds={seconds:.1f}")
+
+    proj = collect_project([os.path.join(here, "tpu_mpi_tests_torch")])
+    modeled = ScheduleAutomaton(proj).modeled_ops
+    keep = os.path.join(here, "chiprun_out", "instrument")
+    tmp = tempfile.mkdtemp(prefix="smoke_lint_")
+    n_spans = 0
+    for name in CONFORM_STREAMS:
+        path = os.path.join(keep, name)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+        spans = [i for i, rec in enumerate(recs) if rec["kind"] == "span"]
+        n_spans += len(spans)
+        findings, notes = conform_paths([path], proj)
+        for note in notes:
+            log(f"  CONFORM NOTE {note}")
+        if findings or not spans or not all("seq" in recs[i]
+                                            for i in spans):
+            raise SmokeFailure(f"conform {name}: {len(spans)} spans, "
+                               f"{[x.format() for x in findings]}")
+        stem = os.path.join(tmp, name.replace(".jsonl", ""))
+        with open(f"{stem}.p0.jsonl", "w") as f:
+            f.writelines(json.dumps(rec) + "\n" for rec in recs)
+        last = max(i for i in spans if recs[i]["op"] in modeled)
+        cut = [dict(rec) for rec in recs[:last]]
+        cut[0]["process_index"] = 1
+        with open(f"{stem}.p1.jsonl", "w") as f:
+            f.writelines(json.dumps(rec) + "\n" for rec in cut)
+        findings, _ = conform_paths([f"{stem}.jsonl"], proj)
+        if [x.code for x in findings] != ["TPM1705"]:
+            raise SmokeFailure(f"conform {name} cut before span {last} "
+                               f"({recs[last]['op']}): "
+                               f"{[x.format() for x in findings]}")
+        log(f"  CONFORM {name}: {len(spans)} spans conform; cut before "
+            f"its last collective span ({recs[last]['op']}): "
+            f"{findings[0].code}")
+    log(f"CONFORM streams={len(CONFORM_STREAMS)} spans={n_spans} "
+        f"findings=0")
+    log(f"  lint slice: {time.perf_counter() - t_slice:.1f} s")
+    return {"lint_seconds": seconds, "spans": n_spans}
 
 
 def run_chaos_slice(device, counts, peaks):

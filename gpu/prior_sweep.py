@@ -30,11 +30,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import torch  # noqa: E402
 
 from tpu_mpi_tests_torch import bench  # noqa: E402
+from tpu_mpi_tests_torch.comm.halo import STENCIL_STEPS_SPACE  # noqa: E402
 from tpu_mpi_tests_torch.comm.mesh import bootstrap  # noqa: E402
 from tpu_mpi_tests_torch.kernels import hand  # noqa: E402
 
 N = 8192
-STEPS = (1, 2, 4, 8)
+#: the temporal-blocking depths of the registry's ``stencil/steps`` space
+STEPS = tuple(sorted(STENCIL_STEPS_SPACE.candidates))
 
 
 def grid():

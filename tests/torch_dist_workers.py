@@ -1215,10 +1215,25 @@ def suite_topo(rank, world, out_dir):
         json.dump(out, f)
 
 
+def suite_conform(rank, world, out_dir):
+    """The drivers' span streams the ``--conform`` replay reads: stencil2d
+    and collbench with ``--telemetry --jsonl`` (each rank writes its
+    ``.p<rank>`` file next to the base path)."""
+    from tpu_mpi_tests_torch.drivers import collbench, stencil2d
+
+    _run_main(out_dir, "stencil2d", rank, stencil2d.main, [
+        "--device", "cpu", "--n-local", "16", "--n-other", "32",
+        "--n-iter", "3", "--telemetry",
+        "--jsonl", os.path.join(out_dir, "stencil2d.jsonl")])
+    _run_main(out_dir, "collbench", rank, collbench.main, [
+        "--device", "cpu", "--sizes-kib", "1024", "--n-iter", "10",
+        "--telemetry", "--jsonl", os.path.join(out_dir, "collbench.jsonl")])
+
+
 SUITES = {"dist": suite_dist, "rdma": suite_rdma, "coll": suite_coll,
           "ring": suite_ring, "symm_one_card": suite_symm_one_card,
           "grid": suite_grid, "overlap": suite_overlap,
           "tune": suite_tune, "serving": suite_serving,
-          "topo": suite_topo}
+          "topo": suite_topo, "conform": suite_conform}
 #: the device a suite's ranks join the world on (gloo either way)
 SUITE_DEVICES = {"symm_one_card": "cuda"}

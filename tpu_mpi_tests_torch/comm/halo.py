@@ -984,8 +984,11 @@ class OverlapRunner:
             ex = exchange_fn(z)
         t0 = time.perf_counter()
         with self._phase_ctx():
-            # the core's own stream only: the exchange stays in flight
-            out = block_stream(core_fn(z))
+            # the deliberate sync of the region: the interior compute
+            # must finish under its phase bracket, which IS the window
+            # the exchange hides under; block_stream waits for the
+            # core's own stream only, so the exchange stays in flight
+            out = block_stream(core_fn(z))  # tpumt: ignore[TPM801]
         t1 = time.perf_counter()
         h.done(ev)
         if ev is not None:

@@ -121,8 +121,9 @@ class MetricsExporter:
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 # wfile is this connection's own socket: one handler
-                # instance per request
-                self.wfile.write(body)
+                # instance per request, so the per-connection threads
+                # the race detector pairs here never share it
+                self.wfile.write(body)  # tpumt: ignore[TPM1601]
 
             def log_message(self, *args):  # scrapes must not spam stdout
                 pass
@@ -163,9 +164,10 @@ class Heartbeat:
 
     def _record(self, final: bool = False) -> dict:
         reg = self._registry
-        # the only other caller is stop(), which joins the heartbeat
-        # thread before its final emit
-        self._seq += 1
+        # a monotonic counter bump whose only off-thread caller is
+        # stop(), which joins the heartbeat thread before its final
+        # emit: ordered by happens-before, not by a lock
+        self._seq += 1  # tpumt: ignore[TPM1601]
         rec = {
             "kind": "health", "event": "heartbeat", "seq": self._seq,
             "t": reg.wall(),

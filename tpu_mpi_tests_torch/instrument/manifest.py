@@ -145,7 +145,10 @@ def clock_sync_record(rounds: int = 5) -> dict:
     }
     if w.size <= 1:
         return rec
-    try:
+    # The only raisers below are environmental (the host group, the
+    # backend), the same on every rank, so the handler's skip is
+    # symmetric, not a partner mismatch.
+    try:  # tpumt: ignore[TPM1703]
         group = dist.cpu_group()
         samples = []
         run_sync_us = None

@@ -177,7 +177,10 @@ class Reporter:
         (≅ the JAX method): whatever flows to the JSONL also updates the
         named series. Attached during setup, before any live thread
         starts; a reporter without a registry pays one ``None`` check."""
-        self._metrics = registry
+        # jsonl's unlocked read on a live thread sees either None or the
+        # final binding, never a torn value (attribute stores are atomic
+        # under the GIL)
+        self._metrics = registry  # tpumt: ignore[TPM1601]
 
     @property
     def metrics(self):

@@ -195,9 +195,10 @@ class Telemetry:
     def enable(self, sink: Callable[[dict], None] | None = None) -> None:
         # attribute stores are atomic under the GIL; no lock here, so a
         # watchdog thread inside emit() is never kept waiting by a main
-        # thread that may be wedged
-        self._sink = sink
-        self.enabled = True
+        # thread that may be wedged (emit re-checks its snapshot, and a
+        # sink that disappears mid-emit is swallowed by emit's except)
+        self._sink = sink  # tpumt: ignore[TPM1601]
+        self.enabled = True  # tpumt: ignore[TPM1601]
         self.armed = True
 
     def disable(self) -> None:

@@ -129,7 +129,10 @@ class IdleAwareWatchdog(Watchdog):
     def arm(self, phase: str | None = None) -> "IdleAwareWatchdog":
         """(Re)start the deadline for one active window."""
         if phase is not None:
-            self.phase = phase
+            # a firing timer reading phase mid-update can only mislabel
+            # its dump (a str rebind is atomic under the GIL), and arm()
+            # cancels the old timer before starting the next
+            self.phase = phase  # tpumt: ignore[TPM1601]
         self.cancel()
         return self.start()
 

@@ -216,7 +216,8 @@ ITERATE_OPERANDS = (
 )
 #: the fused kernel's operand and the row blocks timed beside its default
 FUSED_SHAPE = (8208, 8192)
-FUSED_TILE_ROWS = (57, 171, 228, 456)
+# the A/B harness's measurement grid, not a schedule any run resolves
+FUSED_TILE_ROWS = (57, 171, 228, 456)  # tpumt: ignore[TPM701]
 
 
 def kernel_name(mangled: str) -> str:

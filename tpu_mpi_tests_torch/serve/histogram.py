@@ -59,11 +59,18 @@ class LatencyHistogram:
     def record(self, seconds: float) -> None:
         if not (seconds >= 0.0):  # NaN / negative: an invalid latency
             return
-        self.counts[self._index(seconds)] += 1
-        self.count += 1
+        # TPM1601 suppressions: the lockset engine merges every
+        # LatencyHistogram instance into one abstract location, and the
+        # heartbeat/exporter threads do read histograms, but only the
+        # MetricsRegistry-owned instances, whose every touch happens
+        # under the registry's _lock; the serve loop's own instances
+        # never leave its single thread. Per-instance ownership is the
+        # blind spot of the per-class location abstraction.
+        self.counts[self._index(seconds)] += 1  # tpumt: ignore[TPM1601]
+        self.count += 1  # tpumt: ignore[TPM1601]
         self.total_s += seconds
-        self.min_s = min(self.min_s, seconds)
-        self.max_s = max(self.max_s, seconds)
+        self.min_s = min(self.min_s, seconds)  # tpumt: ignore[TPM1601]
+        self.max_s = max(self.max_s, seconds)  # tpumt: ignore[TPM1601]
 
     def mean(self) -> float | None:
         return self.total_s / self.count if self.count else None

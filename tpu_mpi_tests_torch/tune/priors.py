@@ -53,6 +53,13 @@ BENCH_STEPS = 8
 HALO_STAGING = "direct"
 HALO_OVERLAP_DEPTH = 1
 
+# Structural, not measured: the row block of the fused ring kernel's smem
+# route when the caller names none (kernels/hand.py takes the largest
+# divisor of the height up to this that holds the seam). The main path
+# runs the regs route, which takes no row block, so no space is declared
+# for it yet.
+FUSED_BLOCK_ROWS = 64
+
 
 def stencil_tier(dtype: "str | None") -> str:
     """The tier prior of ``dtype`` (float32's for any other dtype)."""
