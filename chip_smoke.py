@@ -69,8 +69,11 @@ failure exits non-zero and prints no result line):
    folds, the (L, H, d) layout in one launch, the wgmma route (bf16
    DEFAULT, d <= 128) at L 1, 7, 65, 8191 × d 64 and 128 × dense,
    self-causal, offset, striped and fully masked, and (L, 4, d) with the
-   heads inside and outside the rows, each of its launches counted on
-   that route, and the main path's operands: HIGHEST holds the carry to
+   heads inside and outside the rows, the tf32x3 route (f32 HIGHEST, d <=
+   128: every aligned f32 HIGHEST case above, the chain, (L, 4, d) both
+   ways) beside the fma body (d = 17 and 256, an f32 view off the 16-byte
+   grid, bf16 HIGHEST), every launch counted on its rule's route, and the
+   main path's operands: HIGHEST holds the carry to
    FLASH_RTOL/FLASH_ATOL, DEFAULT the normalised output to
    FLASH_DEFAULT_ATOL of the plain version at HIGHEST (sums in another
    order, tensor-core operands rounded) and a bf16 (L, H, d) output to
@@ -191,11 +194,11 @@ failure exits non-zero and prints no result line):
    ``--fast`` and the striped causal layout — exactly one flash launch
    per call of each pipelined tier, one fused launch per fused ring call,
    the ``[fused]`` tag exactly on the fused rows, and every launch on
-   its operands' route (bf16 ``--fast`` on wgmma, f32 HIGHEST on fma;
+   its operands' route (bf16 ``--fast`` on wgmma, f32 HIGHEST on tf32x3;
    microbench ``attention``'s f32 arm on mma, its bf16 arm and
    ``causal`` on wgmma) — no FAIL, every
    TFLOP/s row finite and at most 1.05 × the peak of its arithmetic (67
-   f32, 495 TF32, 989 bf16). Then the one-card slice
+   f32, 495 TF32, 165 3xTF32, 989 bf16). Then the one-card slice
    (``run_one_card_slice``), each path alone: the microbench groups
    ``vpu`` and ``roofline2`` at the full (512, 512) probe block and the
    JAX kernel sizes (fewer chained probe calls than
@@ -307,7 +310,7 @@ failure exits non-zero and prints no result line):
    on this card (``CHAOS_LEGS``); the flash fold at ``stripebalance``'s
    cells against its plain version, the resident blocks through a
    process group of one rank bit for bit the group-less run, and
-   microbench ``stripebalance`` in float32 (``fma``) and bfloat16
+   microbench ``stripebalance`` in float32 (``tf32x3``) and bfloat16
    (``wgmma``) as main paths (flash launches exact, on their routes).
    Last the lint slice (``run_lint_slice``): the port's stdlib-only
    linter over its own scope in a child where ``torch`` and ``jax``
@@ -453,7 +456,10 @@ FLASH_ALSO_REPLACES = "tpu_mpi_tests/kernels/pallas_kernels.py:3416"
 # attention paths run: f32 on the CUDA cores (HIGHEST), TF32 and bf16 on
 # the tensor cores (DEFAULT); a TFLOP/s row above 1.05x its peak is a
 # timing bug
-PEAK_FLOPS = {"f32": F32_FLOPS_PER_S, "tf32": 495e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": F32_FLOPS_PER_S, "tf32": 495e12, "bf16": 989e12,
+              "tf32x3": 495e12 / 3}
+# (tf32x3: f32 HIGHEST on the tensor cores, three TF32 passes a product,
+# so a third of TF32's peak in useful flops.)
 # kernel vs plain: f32 arithmetic (HIGHEST, either operand dtype) holds
 # the carry to rtol/atol 1e-5 (dot products and sums in another order) —
 # acc's atol times its row's weight l where l > 1: acc = Σ p·v sums up to
@@ -1785,8 +1791,12 @@ def check_flash_kernel(device, gen, failures):
     concatenated block; the (L, H, d) layout with H=4 in one launch; the
     wgmma route (bf16 DEFAULT) at L 1, 7, 65, 8191 × (Lk, d) (L, 128) and
     (129, 64) × dense, self-causal, offset, striped and fully masked, and
-    (L, 4, d) with the heads inside and outside the rows, each launch
-    counted on that route; the main path's operands (8192×128 f32 and
+    (L, 4, d) with the heads inside and outside the rows; the tf32x3 route
+    (f32 HIGHEST at d <= 128 in 16-byte chunks: d 4, 64, 128 above, the
+    chain, (L, 4, d) both ways) held to FLASH_RTOL/ATOL like the fma body
+    it replaced, which keeps its cases (d 17 and 256, bf16 HIGHEST, an f32
+    view one element off the 16-byte grid); every launch counted on the
+    route its rule names; the main path's operands (8192×128 f32 and
     bf16, 32768×128 bf16 causal). Returns (number of cases, largest error
     per class, the main-path errors)."""
     import torch
@@ -1795,6 +1805,13 @@ def check_flash_kernel(device, gen, failures):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs: dict[str, float] = {}
+    routes0 = dict(hand.flash_attention_block.launches_by_route)
+    routes_want = dict.fromkeys(hand.FLASH_ROUTES, 0)
+
+    def expect(q, k, v, precision):
+        d = q.shape[-1]
+        routes_want[hand.flash_route(q.dtype, precision, d,
+                                     hand.flash_aligned(d, q, k, v))] += 1
 
     def rand(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=device).to(dtype)
@@ -1840,6 +1857,8 @@ def check_flash_kernel(device, gen, failures):
     def fold(q, k, v, c, offs, causal, precision, plain=False, **kw):
         fn = hand.flash_attention_block_ref if plain \
             else hand.flash_attention_block
+        if not plain:
+            expect(q, k, v, precision)
         args = [t.clone() for t in c] if not plain else list(c)
         return fn(q, k, v, *args, offs[0], offs[1], scale=q.shape[1]**-0.5,
                   causal=causal, pos_stride=offs[2], precision=precision,
@@ -1889,6 +1908,7 @@ def check_flash_kernel(device, gen, failures):
                              (torch.bfloat16, "default")):
         q, k, v = (rand((333, 4, 64), dtype) for _ in range(3))
         before = hand.flash_attention_block.launches
+        expect(q, k, v, precision)
         err, tol = heads_error(q, k, v, precision)
         if hand.flash_attention_block.launches != before + 1:
             failures.append("flash (L, H, d): not one launch")
@@ -1925,6 +1945,7 @@ def check_flash_kernel(device, gen, failures):
     for heads_outer in (False, True):
         for d in (64, 128):
             q, k, v = wgmma_heads_operands(rand, heads_outer, d)
+            expect(q, k, v, "default")
             err, tol = heads_error(q, k, v, "default")
             if not err <= tol:
                 failures.append(f"flash wgmma (L, 4, {d}) heads_outer="
@@ -1936,6 +1957,31 @@ def check_flash_kernel(device, gen, failures):
     if got_wg != n_wg:
         failures.append(f"flash wgmma cases: {got_wg} launches on the wgmma "
                         f"route, {n_wg} cases")
+    # the tf32x3 route's (L, 4, d) with the heads outside the rows as well,
+    # and the fma body where the route does not take the geometry: an f32
+    # view one element off the 16-byte grid
+    for heads_outer in (False, True):
+        q, k, v = (t.float() for t in
+                   wgmma_heads_operands(rand, heads_outer, 128))
+        expect(q, k, v, "highest")
+        err, tol = heads_error(q, k, v, "highest")
+        if not err <= tol:
+            failures.append(f"flash tf32x3 (L, 4, 128) heads_outer="
+                            f"{heads_outer}: {err:g} beyond {tol:g}")
+        note("float32 tf32x3 (L, H, d)", err)
+        n_cases += 1
+    for L, Lk in ((257, 300), (1024, 64)):
+        base = rand((L * 128 + Lk * 256 + 3,))
+        q = base[1:1 + L * 128].view(L, 128)
+        k = base[1 + L * 128:1 + (L + Lk) * 128].view(Lk, 128)
+        v = base[1 + (L + Lk) * 128:1 + (L + 2 * Lk) * 128].view(Lk, 128)
+        c = carry(L, 128)
+        for causal, offs, what in offsets[:2]:
+            name = f"float32 offset view L={L} Lk={Lk} {what} highest"
+            close(name, "float32 offset view highest (fma)",
+                  fold(q, k, v, c, offs, causal, "highest"),
+                  fold(q, k, v, c, offs, causal, "highest", plain=True))
+            n_cases += 1
     # the main path's operands, from the fresh carry as flash_attention
     # starts it
     main = {}
@@ -1959,6 +2005,12 @@ def check_flash_kernel(device, gen, failures):
         del q, k, v, c, got, want
         torch.cuda.empty_cache()
     torch.cuda.synchronize(device)
+    got_routes = {r: n - routes0[r] for r, n in
+                  hand.flash_attention_block.launches_by_route.items()}
+    if got_routes != routes_want:
+        failures.append(f"flash launches by route {got_routes}, the "
+                        f"operands' routes make {routes_want}")
+    log(f"FLASH_ROUTES {json.dumps(got_routes)}")
     log(f"FLASH_ERRORS largest per class {json.dumps(errs)}")
     log(f"FLASH_ERRORS main path (normalised output) {json.dumps(main)}")
     return n_cases, errs, main
@@ -4080,7 +4132,7 @@ def run_chaos_slice(device, counts, peaks):
     ``drivers/serve.py`` on the daxpy 2^26 class: a shed storm (exit 1)
     and a queue ramp (no shed), recorded and replayed disarmed; (e) kill
     and straggler at world 2 (two processes on this card, no NCCL call on
-    the path); (f) ``stripebalance`` in float32 (HIGHEST, ``fma``) and
+    the path); (f) ``stripebalance`` in float32 (HIGHEST, ``tf32x3``) and
     bfloat16 (DEFAULT, ``wgmma``) as main paths, their flash launches
     exact and on their routes, after the fold is held against its plain
     version at the groups' cells; (g) the blocks schedule through a
@@ -4134,7 +4186,7 @@ def run_chaos_slice(device, counts, peaks):
     records = []
     want = stripe_launches()
     chained = _chain(*STRIPE_CHAIN)
-    for dtype, route in (("float32", "fma"), ("bfloat16", "wgmma")):
+    for dtype, route in (("float32", "tf32x3"), ("bfloat16", "wgmma")):
         path = f"microbench stripebalance {dtype}"
         os.environ["TPU_MPI_STRIPE_DTYPE"] = dtype
 
@@ -4641,13 +4693,25 @@ def run_one_card_slice(device, counts, peaks):
 def attn_peak(dtype: str, fast: bool, tier: str) -> float:
     """The peak of the arithmetic an attnbench row runs: DEFAULT (--fast)
     puts float32 on TF32 and bf16 on the bf16 tensor cores; HIGHEST runs
-    the flash kernel in f32 on the CUDA cores, and torch's matmul (the
-    xla tier) in f32 for float32 and on the bf16 tensor cores for bf16."""
+    the flash kernel's float32 at d = 128 in 3xTF32 (the tf32x3 route) and
+    bf16 in f32 on the CUDA cores, and torch's matmul (the xla tier) in
+    f32 for float32 and on the bf16 tensor cores for bf16."""
     if fast:
         return PEAK_FLOPS["tf32" if dtype == "float32" else "bf16"]
-    if tier == "xla" and dtype == "bfloat16":
-        return PEAK_FLOPS["bf16"]
-    return PEAK_FLOPS["f32"]
+    if tier == "xla":
+        return PEAK_FLOPS["bf16" if dtype == "bfloat16" else "f32"]
+    return PEAK_FLOPS["tf32x3" if dtype == "float32" else "f32"]
+
+
+def flash_arith(route: str, dtype) -> str:
+    """The PEAK_FLOPS key of a fold's arithmetic on ``route``."""
+    import torch
+
+    if route == "tf32x3":
+        return "tf32x3"
+    if route == "fma":
+        return "f32"
+    return "bf16" if dtype == torch.bfloat16 else "tf32"
 
 
 def check_rate(path, name, tflops, peak):
@@ -4686,8 +4750,8 @@ def run_attention_slice(device, counts, peaks):
             log(line)
         _exact(path, counts[path], want)
         # every launch on the route of its operands: bf16 --fast on the
-        # wgmma route, f32 HIGHEST on the CUDA cores
-        route = "wgmma" if "--fast" in extra else "fma"
+        # wgmma route, f32 HIGHEST on tf32x3
+        route = "wgmma" if "--fast" in extra else "tf32x3"
         for name, n in want.items():
             check_routes(path, name, {route: n} if n else {})
         fused = "fused" in extra
@@ -4901,8 +4965,10 @@ def time_fused_ring_kernel(device, gen):
     """The fused ring attention at (8192, 128), CUDA events (warmed): at
     world 1 (f32 HIGHEST dense and causal, bf16 DEFAULT) and on the
     self-ring k = 4 (f32 HIGHEST dense, bf16 DEFAULT dense, f32 HIGHEST
-    causal striped), beside its plain version, its bound (flops over the
-    peak of the arithmetic, or bytes over 3.35 TB/s) and, where one call
+    causal striped), f32 HIGHEST on the tf32x3 route, beside its plain
+    version, its bound (flops over the peak of the arithmetic, or bytes
+    over 3.35 TB/s; HIGHEST rows also ``bound_f32_ms``, the CUDA cores')
+    and, where one call
     computes the same function, ``F.scaled_dot_product_attention``: q, k,
     v at world 1; K/V tiled k times on the non-causal self-ring (each key
     k times: the same softmax); none on the causal self-ring. The kernel
@@ -4953,17 +5019,20 @@ def time_fused_ring_kernel(device, gen):
             lib = time_cuda(lambda: F.scaled_dot_product_attention(
                 q[None, None], kt[None, None], vt[None, None]), n)
         nbytes, flops = fused_ring_work(L, d, dtype, w, causal, stripe)
-        arith = "f32" if precision == "highest" else (
-            "bf16" if dtype == torch.bfloat16 else "tf32")
+        route = hand.flash_route(dtype, precision, d, True)
+        arith = flash_arith(route, dtype)
         t_ops = flops / PEAK_FLOPS[arith] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        extra = {}
+        if precision == "highest":
+            extra["bound_f32_ms"] = max(
+                flops / PEAK_FLOPS["f32"] * 1e3, t_bytes)
         rows.append({
             "path": ("attnbench --ring-tier fused" if w == 1
                      else "self-ring k=4"),
             "shape": [L, d], "self_ring": ring, "dtype": dt,
             "causal": causal, "stripe": stripe, "precision": precision,
-            "arithmetic": arith,
-            "route": hand.flash_route(dtype, precision, d, True),
+            "arithmetic": arith, "route": route, **extra,
             "ms": ms, "queued_ms": queued, "plain_ms": plain,
             "pipelined_flash_ms": flash,
             "pipelined_flash_queued_ms": flash_queued,
@@ -7256,15 +7325,19 @@ def flash_work(L, d, dtype, causal):
 
 def time_flash_kernel(device, gen):
     """The flash kernel at the main path's shapes, CUDA events (warmed):
-    (8192, 128) f32 HIGHEST non-causal and causal, (8192, 128) bf16
-    DEFAULT, (32768, 128) bf16 DEFAULT causal — one fold from the fresh
-    carry into a second buffer (the same work every launch) — beside its
-    plain version at the same precision, the bound (flops over the peak
-    of the arithmetic, or bytes over 3.35 TB/s) and
+    (8192, 128) f32 HIGHEST non-causal and causal (the tf32x3 route),
+    (8192, 128) bf16 DEFAULT, (32768, 128) bf16 DEFAULT causal — one fold
+    from the fresh carry into a second buffer (the same work every
+    launch) — beside its plain version at the same precision, the bound
+    (flops over the peak of the arithmetic, or bytes over 3.35 TB/s) and
     ``F.scaled_dot_product_attention`` on (1, 1, L, d) as the one-call
-    yardstick (TF32 off for f32; the port never calls it). ``queued_ms``
-    times the same launches queued behind a stall (the wrapper's host
-    time taken out), beside ``ms``."""
+    yardstick (TF32 off for f32; the port never calls it); last the
+    (8192, 128) f32 HIGHEST fold on operands one element off the 16-byte
+    grid, which the fma body runs (the route tf32x3 replaced), for its
+    time in the same run. HIGHEST rows give both bounds: ``bound_ms`` in
+    the route's arithmetic, ``bound_f32_ms`` on the CUDA cores.
+    ``queued_ms`` times the same launches queued behind a stall (the
+    wrapper's host time taken out), beside ``ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -7273,14 +7346,15 @@ def time_flash_kernel(device, gen):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    for L, dtype, causal, precision in (
-            (ATTN_L, torch.float32, False, "highest"),
-            (ATTN_L, torch.float32, True, "highest"),
-            (ATTN_L, torch.bfloat16, False, "default"),
-            (ATTN_L_LONG, torch.bfloat16, True, "default")):
+    for L, dtype, causal, precision, off in (
+            (ATTN_L, torch.float32, False, "highest", 0),
+            (ATTN_L, torch.float32, True, "highest", 0),
+            (ATTN_L, torch.bfloat16, False, "default", 0),
+            (ATTN_L_LONG, torch.bfloat16, True, "default", 0),
+            (ATTN_L, torch.float32, False, "highest", 1)):
         d = ATTN_D
-        q, k, v = (torch.randn((L, d), generator=gen, device=device)
-                   .to(dtype) for _ in range(3))
+        q, k, v = (torch.randn((L * d + off,), generator=gen, device=device)
+                   .to(dtype)[off:].view(L, d) for _ in range(3))
         kw = {"dtype": torch.float32, "device": device}
         carry = (torch.full((L, 1), float("-inf"), **kw),
                  torch.zeros((L, 1), **kw), torch.zeros((L, d), **kw))
@@ -7296,25 +7370,36 @@ def time_flash_kernel(device, gen):
         queued = time_cuda_queued(launch, n)
         plain = time_cuda(lambda: hand.flash_attention_block_ref(
             q, k, v, *carry, 0, 0, k_tile=4096, **args), 2)
-        lib = time_cuda(lambda: F.scaled_dot_product_attention(
-            q[None, None], k[None, None], v[None, None], is_causal=causal),
-            n)
+        # (SDPA faults on operands off the 16-byte grid: the aligned
+        # row above has its time)
+        lib = None if off else time_cuda(
+            lambda: F.scaled_dot_product_attention(
+                q[None, None], k[None, None], v[None, None],
+                is_causal=causal), n)
         nbytes, flops = flash_work(L, d, dtype, causal)
-        arith = "f32" if precision == "highest" else (
-            "bf16" if dtype == torch.bfloat16 else "tf32")
+        route = hand.flash_route(dtype, precision, d,
+                                 hand.flash_aligned(d, q, k, v))
+        arith = flash_arith(route, dtype)
         t_ops = flops / PEAK_FLOPS[arith] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        extra = {}
+        if precision == "highest":
+            extra["bound_f32_ms"] = max(
+                flops / PEAK_FLOPS["f32"] * 1e3, t_bytes)
         rows.append({
-            "path": "attnbench/microbench", "shape": [L, d],
+            "path": "attnbench/microbench" if not off else
+                    "the fma body (operands 4 bytes off 16)",
+            "shape": [L, d],
             "dtype": str(dtype).split(".")[1], "causal": causal,
             "precision": precision, "arithmetic": arith,
-            "route": hand.flash_route(dtype, precision, d, True),
+            "route": route, **extra,
             "ctas": -(-L // hand.FLASH_Q_TILE), "ms": ms,
             "queued_ms": queued, "plain_ms": plain,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib,
-            "library_call": "F.scaled_dot_product_attention (1,1,L,d)"
+            "library_call": None if off else
+                            "F.scaled_dot_product_attention (1,1,L,d)"
                             + (", TF32 off" if dtype == torch.float32
                                else ""),
             "tflops": flops / ms / 1e9, "queued_tflops": flops / queued / 1e9})
@@ -7479,6 +7564,9 @@ def main() -> int:
                     log(f"  ptxas {name}: {line.strip()}")
         ptxas = ptxas_summary(build)
         log(f"PTXAS attention instances {json.dumps(ptxas)}")
+        check_no_spills({"attention": {k: v for k, v in ptxas.items()
+                                       if k != "notes"}},
+                        lambda k: "_x3_" in k or "_wg_" in k)
         coll_ptxas = coll_ptxas_summary(build)
         log(f"PTXAS ring collective instances {json.dumps(coll_ptxas)}")
         halo_ptxas = {lib: coll_ptxas_summary(build, lib)

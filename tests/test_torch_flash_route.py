@@ -2,11 +2,13 @@
 
 The CUDA launchers (``csrc/flash_attention.cu``,
 ``csrc/fused_ring_attention.cu``) take the route the wrapper names and
-refuse any other; the rule lives in ``hand.flash_route``: HIGHEST on the
-CUDA cores ("fma"); DEFAULT through wgmma for bfloat16 at d <= 128 with
-every operand in 16-byte chunks ("wgmma"), else through mma.sync ("mma").
-Here: the route of every geometry class (dtype × precision × d ×
-alignment) and the alignment rule on real tensors; the key tile that
+refuse any other; the rule lives in ``hand.flash_route``: at d <= 128
+with every operand in 16-byte chunks, HIGHEST through 3xTF32 wgmma for
+float32 ("tf32x3") and DEFAULT through wgmma for bfloat16 ("wgmma");
+elsewhere HIGHEST on the CUDA cores ("fma") and DEFAULT through mma.sync
+("mma"). Here: the route of every geometry class (dtype × precision × d ×
+alignment), the route codes against the C enum, and the alignment rule on
+real tensors; the key tile that
 ``attnbench`` reports for the route its operands take; the plain version
 folding at the wgmma route's key tile (128) against the JAX package's
 ``flash_attention_pallas`` and ``flash_attention_block_pallas`` in
@@ -49,8 +51,15 @@ def normal(rng, shape):
 
 ROUTE_CLASSES = [
     # dtype, precision, d, aligned, route
-    (F32, "highest", 128, True, "fma"),
+    (F32, "highest", 128, True, "tf32x3"),
+    (F32, "highest", 64, True, "tf32x3"),
+    (F32, "highest", 4, True, "tf32x3"),
+    (F32, "highest", 136, True, "fma"),
+    (F32, "highest", 256, True, "fma"),
+    (F32, "highest", 128, False, "fma"),
+    (F32, "highest", 17, False, "fma"),
     (BF16, "highest", 128, True, "fma"),
+    (BF16, "highest", 64, True, "fma"),
     (BF16, "highest", 17, False, "fma"),
     (F32, "default", 128, True, "mma"),
     (F32, "default", 64, True, "mma"),
@@ -74,6 +83,30 @@ def test_flash_route_of_each_geometry_class(dtype, precision, d, aligned,
 def test_flash_route_refuses_unknown_precision():
     with pytest.raises(ValueError, match="precision"):
         hand.flash_route(BF16, "high", 128, True)
+
+
+def test_route_codes_are_the_c_enum():
+    """A route's code is its index in FLASH_ROUTES, the FlashRoute enum of
+    csrc/flash_fold.cuh (tf32x3 is code 3); the launchers' rule returns
+    every code, and takes the precision of a code from the two HIGHEST
+    routes, so that a code the rule does not give (any other, 4 and up
+    included) is refused."""
+    import re
+    from pathlib import Path
+
+    src = (Path(hand.__file__).parent / "csrc" / "flash_fold.cuh") \
+        .read_text()
+    enum = re.search(r"enum FlashRoute : int \{([^}]*)\}", src)[1]
+    codes = {name: int(code) for name, code in
+             re.findall(r"kRoute(\w+) = (\d+)", enum)}
+    assert codes == {"Fma": 0, "Mma": 1, "Wgmma": 2, "Tf32x3": 3}
+    assert [r.lower() for r in sorted(codes, key=codes.get)] == \
+        list(hand.FLASH_ROUTES)
+    rule = src[src.index("inline int flash_route("):]
+    rule = rule[:rule.index("\n}\n")]
+    assert all(f"kRoute{name}" in rule for name in codes)
+    highest = src[src.index("inline bool route_is_highest("):]
+    assert "kRouteFma || route == kRouteTf32x3" in highest[:200]
 
 
 @pytest.mark.parametrize("make,d,aligned", [
@@ -114,7 +147,8 @@ def test_route_of_a_misaligned_bf16_operand_is_mma():
     (BF16, "default", 64, "wgmma"),
     (BF16, "default", 256, "mma"),
     (F32, "default", 128, "mma"),
-    (F32, "highest", 128, "fma"),
+    (F32, "highest", 128, "tf32x3"),
+    (F32, "highest", 256, "fma"),
     (BF16, "highest", 128, "fma"),
 ])
 def test_attnbench_reports_the_tile_of_the_route(dtype, precision, d, route):
@@ -126,6 +160,7 @@ def test_route_tiles():
     assert set(hand.FLASH_K_TILES) == set(hand.FLASH_ROUTES)
     assert WG_TILE == 128
     assert hand.FLASH_K_TILES["fma"] == hand.FLASH_K_TILES["mma"] == 64
+    assert hand.FLASH_K_TILES["tf32x3"] == 32
     assert hand.FLASH_Q_TILE == 64
     assert hand.FLASH_WGMMA_MAX_D == 128
 

@@ -592,14 +592,19 @@ def test_flash_wgmma_route_heads_layouts(card, heads_outer, d):
 
 def test_flash_routes_counted_per_geometry(card):
     """bf16 DEFAULT aligned on wgmma, misaligned or d > 128 on mma, f32
-    DEFAULT on mma, HIGHEST on fma: one launch each, on its route."""
+    DEFAULT on mma; f32 HIGHEST aligned on tf32x3, misaligned or d > 128
+    on fma, bf16 HIGHEST on fma: one launch each, on its route."""
     base = rand(card, (64 * 128 + 4,), torch.bfloat16, seed=1)
+    base32 = rand(card, (64 * 128 + 2,), torch.float32, seed=6)
     cases = [
         (rand(card, (64, 128), torch.bfloat16, 2), "default", "wgmma"),
         (base[4:].view(64, 128), "default", "mma"),  # 8 bytes off
         (rand(card, (64, 136), torch.bfloat16, 3), "default", "mma"),
         (rand(card, (64, 128), torch.float32, 4), "default", "mma"),
         (rand(card, (64, 128), torch.bfloat16, 5), "highest", "fma"),
+        (rand(card, (64, 128), torch.float32, 7), "highest", "tf32x3"),
+        (base32[2:].view(64, 128), "highest", "fma"),  # 8 bytes off
+        (rand(card, (64, 136), torch.float32, 8), "highest", "fma"),
     ]
     for q, precision, route in cases:
         assert hand.flash_route(q.dtype, precision, q.shape[-1],
@@ -620,6 +625,97 @@ def test_flash_launch_refuses_another_route(card, monkeypatch):
         hand.flash_attention(q, q, q, precision="default")
     with pytest.raises(RuntimeError, match="wgmma route"):
         hand.fused_ring_attention(q, q, q, precision="default")
+    # code 3 (tf32x3) only where the rule gives it: not for bf16, nor for
+    # f32 at d > 128; and the old body no longer where it does
+    b = rand(card, (64, 128), torch.bfloat16, seed=2)
+    wide = rand(card, (64, 136), torch.float32, seed=3)
+    monkeypatch.setattr(hand, "flash_route", lambda *a: "tf32x3")
+    for t in (b, wide):
+        with pytest.raises(RuntimeError, match="tf32x3 route"):
+            hand.flash_attention(t, t, t, precision="highest")
+        with pytest.raises(RuntimeError, match="tf32x3 route"):
+            hand.fused_ring_attention(t, t, t, precision="highest")
+    monkeypatch.setattr(hand, "flash_route", lambda *a: "fma")
+    with pytest.raises(RuntimeError, match="fma route"):
+        hand.flash_attention(q, q, q, precision="highest")
+    with pytest.raises(RuntimeError, match="fma route"):
+        hand.fused_ring_attention(q, q, q, precision="highest")
+
+
+def carry_close(got, want, tol=1e-5):
+    """chip_smoke's HIGHEST rule: m, l and acc within rtol/atol ``tol``,
+    acc's atol times its row's weight l where l > 1 (acc sums up to Lk
+    terms of size p·|v|), -inf rows equal."""
+    for g, w, what in zip(got, want, ("m", "l", "acc")):
+        atol = tol * want[1].clamp(min=1.0) if what == "acc" else tol
+        ok = ((g - w).abs() <= atol + tol * w.abs()) | (g == w)
+        assert bool(ok.all()), (what, float((g - w).abs().max()))
+
+
+# the tf32x3 route: f32 HIGHEST at d <= 128, every operand in 16-byte
+# chunks (the wgmma route's shape, three TF32 passes a product)
+@pytest.mark.parametrize("L,Lk,d", [(1, 1, 128), (7, 65, 128),
+                                    (65, 129, 64), (300, 1000, 128),
+                                    (129, 7, 4), (8191, 300, 72),
+                                    (100, 257, 96)])
+@pytest.mark.parametrize("causal,offs", WG_OFFSETS)
+def test_flash_tf32x3_route_matches_plain(card, L, Lk, d, causal, offs):
+    """Ragged L and Lk, d that leaves quarters of the 128 columns empty or
+    partly filled, causal offsets (the striped ring's stride, a fully
+    masked block): the carry within chip_smoke's HIGHEST tolerance of the
+    plain version, the launch counted on the tf32x3 route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, m, l, acc = flash_case(card, L, Lk, d, torch.float32,
+                                    seed=L + d)
+    kw = dict(scale=d**-0.5, causal=causal, pos_stride=offs[2])
+    want = hand.flash_attention_block_ref(q, k, v, m, l, acc, *offs[:2], **kw)
+    before = wg_routes()
+    got = hand.flash_attention_block(q, k, v, m, l, acc, *offs[:2], **kw)
+    torch.cuda.synchronize(card)
+    assert wg_routes()["tf32x3"] == before["tf32x3"] + 1
+    carry_close(got, want)
+
+
+@pytest.mark.parametrize("heads_outer", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tf32x3_route_heads_layouts(card, heads_outer, d):
+    """(L, H, d) f32 in one launch, both tensor-map orders."""
+    if heads_outer:
+        q, k, v = (rand(card, (4, 333, d), torch.float32, s).transpose(0, 1)
+                   for s in (1, 2, 3))
+    else:
+        q, k, v = (rand(card, (333, 4, d), torch.float32, s)
+                   for s in (1, 2, 3))
+    before = wg_routes()
+    got = hand.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize(card)
+    assert wg_routes()["tf32x3"] == before["tf32x3"] + 1
+    want = hand.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [None, 2, 4, 8])
+@pytest.mark.parametrize("causal,stripe", [(False, False), (True, False),
+                                           (True, True)])
+def test_fused_ring_tf32x3_route(card, k, causal, stripe):
+    """The fused kernel on the tf32x3 route (its splitters beside the send
+    warp): bit for bit the pipelined tier's flash launches on the same
+    route, counted on it, and within 1e-5 of the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, kk, v = (rand(card, (1000, 128), torch.float32, s) for s in (1, 2, 3))
+    kw = dict(causal=causal, stripe=stripe, precision="highest")
+    before = dict(hand.fused_ring_attention.launches_by_route)
+    got = hand.fused_ring_attention(q, kk, v, self_ring=k, **kw)
+    torch.cuda.synchronize(card)
+    assert hand.fused_ring_attention.launches_by_route["tf32x3"] == \
+        before["tf32x3"] + 1
+    flash_before = wg_routes()
+    flash = hand.fused_ring_world_ref([(q, kk, v)] * (k or 1), kernel=True,
+                                      **kw)[0]
+    assert wg_routes()["tf32x3"] == flash_before["tf32x3"] + (k or 1) ** 2
+    assert torch.equal(got, flash)
+    want = hand.fused_ring_attention_ref(q, kk, v, self_ring=k, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("k", [None, 2, 4, 8])

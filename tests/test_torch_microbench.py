@@ -232,13 +232,15 @@ def test_no_argument_runs_every_ported_group_and_tile_sweeps_raise():
 
 
 def test_stripebalance_rows_and_the_bf16_tag(capsys, monkeypatch):
-    """f32 folds at HIGHEST on the fma route's key tile; bf16 at DEFAULT
-    on wgmma's, every row tagged; the paced proxy is Σ_s max_r and the
-    contig grid's dead cells are counted in its detail."""
+    """f32 folds at HIGHEST on the key tile of the route f32 HIGHEST takes
+    at the group's d (tf32x3); bf16 at DEFAULT on wgmma's, every row tagged; the
+    paced proxy is Σ_s max_r and the contig grid's dead cells are counted
+    in its detail."""
     small = ONE_CARD["stripebalance"]
     recs = microbench.run_groups(["stripebalance"], CPU,
                                  stripebalance=small)
-    kt = hand.FLASH_K_TILES["fma"]
+    kt = hand.FLASH_K_TILES[hand.flash_route(torch.float32, "highest",
+                                             small["d"], True)]
     assert [r["metric"] for r in recs] == [
         f"stripe_contig_kt{kt}_paced_ms", f"stripe_striped_kt{kt}_paced_ms",
         f"stripe_paced_speedup_kt{kt}", "stripe_to_striped_ms",

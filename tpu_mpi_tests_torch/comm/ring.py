@@ -31,7 +31,7 @@ The JAX package's third ring knob, ``flash_tiles/{contig,striped}``
 (the TPU kernel's key tile and causal sub-span skip), has no space
 here: the CUDA fold (``csrc/flash_fold.cuh``) runs one fixed key tile a
 route (``hand.FLASH_K_TILES``: 64 on ``fma`` and ``mma``, 128 on
-``wgmma``) and masks causal tiles by per-row limits (``live_upto``), so
+``wgmma``, 32 on ``tf32x3``) and masks causal tiles by per-row limits (``live_upto``), so
 there is nothing to price until the kernel takes a tile argument. The
 TPU knobs ``k_tile``/``skip_tile`` given explicitly still reach the
 flash kernel's plain version; the card runs its own tile.

@@ -32,7 +32,7 @@
 //
 // The fold bodies live in flash_fold.cuh (shared with the fused ring
 // attention, fused_ring_attention.cu); the kernels below run one body
-// per CTA. Three routes, named by the wrapper (hand.flash_route) and
+// per CTA. Four routes, named by the wrapper (hand.flash_route) and
 // checked here against the same rule:
 //   * wgmma — bf16 at DEFAULT, d <= 128, every operand in 16-byte chunks:
 //     every main-path fold. A CTA is one consumer warpgroup (64 query
@@ -60,9 +60,18 @@
 //     256], with misaligned operands or d not a whole number of chunks.
 //     K/V tiles arrive by cp.async into two buffers (one for TF32 at d >
 //     128, for want of room).
-//   * fma — HIGHEST: f32 FMA on the CUDA cores (flash_fma_fold): bf16
-//     operands are widened to f32 on load, as _qk_operands/_pv_operands
-//     (:2917, :2933) upcast them, and P stays f32 into the PV product.
+//   * tf32x3 — f32 at HIGHEST, d <= 128, every operand in 16-byte
+//     chunks: every f32 HIGHEST main-path fold. The wgmma route's roles
+//     and schedule on f32 tiles (32-column TMA boxes, two stages of 32
+//     keys), every product in three TF32 wgmma passes (small·big,
+//     big·small, big·big) with f32 accumulators, each tile's PV summed
+//     apart and added to acc in f32; warps 5-7 split Q and K, the
+//     consumers transpose V into K-major Vᵀ, P is split in registers
+//     (flash_fold.cuh).
+//   * fma — HIGHEST for the rest: f32 FMA on the CUDA cores
+//     (flash_fma_fold): bf16 operands are widened to f32 on load, as
+//     _qk_operands/_pv_operands (:2917, :2933) upcast them, and P stays
+//     f32 into the PV product.
 //     256 threads; each owns 4 query rows × 4 score columns and 4 rows ×
 //     d/16 output columns, fed by 16-byte shared-memory loads (Q, K and P
 //     stored transposed). At d <= 128 the next K/V tile is fetched into
@@ -72,7 +81,8 @@
 // causal) against ~(3·Lk + 2·L)·d·itemsize + carries bytes — at L = Lk
 // = 8192, d = 128 some 20 MB against 34.4 GFLOP: far above the ridge, so
 // the time is the arithmetic's: 0.0347 ms on the bf16 tensor cores (989
-// TFLOP/s), 0.069 ms in TF32 (495), 0.51 ms on the CUDA cores (67). No
+// TFLOP/s), 0.069 ms in TF32 (495), 0.208 ms in 3xTF32 (three passes at
+// 495), 0.51 ms on the CUDA cores (67). No
 // split of the key axis across CTAs yet: a ring rank's 2048-query block
 // fills 32 SMs.
 //
@@ -126,6 +136,32 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// the tf32x3 route: the wgmma route's roles, warps 5-7 splitting each
+// landed tile into TF32 big and small parts
+__global__ void __launch_bounds__(kX3Threads, 1)
+    flash_x3_kernel(const Params p, const __grid_constant__ WgMaps maps) {
+  extern __shared__ float4 smem4[];
+  constexpr int kSplit0 = kWgConsumers + 32;
+  const uint32_t sb = wg_smem_base(smem4);
+  x3_init(sb, p, kX3Threads - kSplit0);
+  const long long q0 = cta_q0(p);
+  const int h = blockIdx.y;
+  WgPipe pipe;
+  const int warp = wg_warp();
+  if (warp >= kWgConsumers / 32) {
+    regs_dec<kX3ProducerRegs>();
+    if (threadIdx.x == kWgConsumers)
+      flash_x3_produce(p, p.k_off, q0, h, &maps.q, &maps.k, &maps.v, sb,
+                       pipe);
+    else if (warp > kWgConsumers / 32)
+      flash_x3_split(p, p.k_off, q0, sb, pipe, threadIdx.x - kSplit0,
+                     kX3Threads - kSplit0);
+  } else {
+    regs_inc<kX3ConsumerRegs>();
+    flash_x3_consume(p, p.k_off, q0, h, sb, pipe, nullptr);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -145,28 +181,33 @@ int launch(Kernel kernel, int threads, int smem, const Params& p, int heads,
   return cudaGetLastError();
 }
 
-// the wgmma route: the operands' tensor maps, then one launch
-int launch_wg(Params p, int heads, cudaStream_t s) {
+// the wgmma (bf16) or tf32x3 (f32, X3) route: the operands' tensor maps,
+// then one launch
+template <bool X3>
+int launch_tma(Params p, int heads, cudaStream_t s) {
   if (p.L > INT_MAX || p.Lk > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int elem = X3 ? 4 : 2;
+  constexpr int kt = X3 ? kX3KT : kWgKT;
   WgMaps maps;
   bool hq = false, hk = false, hv = false;
   cudaError_t e;
-  if ((e = tma_operand(&maps.q, p.q, p.d, p.L, heads, p.q_rs, p.q_hs, kQT,
-                       &hq)) != cudaSuccess ||
-      (e = tma_operand(&maps.k, p.k, p.d, p.Lk, heads, p.k_rs, p.k_hs, kWgKT,
-                       &hk)) != cudaSuccess ||
-      (e = tma_operand(&maps.v, p.v, p.d, p.Lk, heads, p.v_rs, p.v_hs, kWgKT,
-                       &hv)) != cudaSuccess)
+  if ((e = tma_operand(&maps.q, p.q, elem, p.d, p.L, heads, p.q_rs, p.q_hs,
+                       kQT, &hq)) != cudaSuccess ||
+      (e = tma_operand(&maps.k, p.k, elem, p.d, p.Lk, heads, p.k_rs, p.k_hs,
+                       kt, &hk)) != cudaSuccess ||
+      (e = tma_operand(&maps.v, p.v, elem, p.d, p.Lk, heads, p.v_rs, p.v_hs,
+                       kt, &hv)) != cudaSuccess)
     return e;
   p.head_inner = (hq ? 1 : 0) | (hk ? 2 : 0) | (hv ? 4 : 0);
-  const int smem = WgLayout::bytes();
-  e = cudaFuncSetAttribute(flash_wg_kernel,
+  const auto kernel = X3 ? flash_x3_kernel : flash_wg_kernel;
+  const int smem = X3 ? X3Layout::bytes() : WgLayout::bytes();
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const long long n_qt = (p.L + kQT - 1) / kQT;
   if (n_qt > 0x7fffffffLL || heads > 65535) return cudaErrorInvalidValue;
-  flash_wg_kernel<<<dim3(static_cast<unsigned>(n_qt), heads), kWgThreads, smem,
-                    s>>>(p, maps);
+  kernel<<<dim3(static_cast<unsigned>(n_qt), heads),
+           X3 ? kX3Threads : kWgThreads, smem, s>>>(p, maps);
   return cudaGetLastError();
 }
 
@@ -180,8 +221,8 @@ int launch_dp(const Params& p, int heads, int highest, cudaStream_t s) {
 }
 
 // q, k and v move in 16-byte chunks when every row and head start is
-// 16-byte aligned and d fills whole chunks. `route` must be HIGHEST's or
-// the one flash_route names for DEFAULT at this geometry: a launch never
+// 16-byte aligned and d fills whole chunks. `route` must be the one
+// flash_route names for its precision at this geometry: a launch never
 // takes another route than the caller counted.
 template <typename T>
 int launch_t(Params p, int heads, int route, cudaStream_t s) {
@@ -192,11 +233,12 @@ int launch_t(Params p, int heads, int route, cudaStream_t s) {
   p.vec = aligned && p.d % n == 0 && p.q_rs % n == 0 && p.q_hs % n == 0 &&
           p.k_rs % n == 0 && p.k_hs % n == 0 && p.v_rs % n == 0 &&
           p.v_hs % n == 0;
-  const bool highest = route == kRouteFma;
-  if (!highest &&
-      route != flash_route(sizeof(T) == 2 ? kBF16 : kF32, false, p.d, p.vec))
+  const bool highest = route_is_highest(route);
+  if (route !=
+      flash_route(sizeof(T) == 2 ? kBF16 : kF32, highest, p.d, p.vec))
     return cudaErrorInvalidValue;
-  if (route == kRouteWgmma) return launch_wg(p, heads, s);
+  if (route == kRouteWgmma) return launch_tma<false>(p, heads, s);
+  if (route == kRouteTf32x3) return launch_tma<true>(p, heads, s);
   if (p.d <= 128) return launch_dp<T, 128>(p, heads, highest, s);
   return launch_dp<T, 256>(p, heads, highest, s);
 }
@@ -210,8 +252,9 @@ int launch_t(Params p, int heads, int route, cudaStream_t s) {
 // m_out/l_out/acc_out (the same buffers for the in-place fold, else
 // disjoint ones with the same strides). Every stride is in elements;
 // the last axis of each operand is contiguous. `route`: the FlashRoute
-// code that hand.flash_route names (fma for HIGHEST; wgmma or mma for
-// DEFAULT, by the geometry); a route the rule does not give is refused.
+// code that hand.flash_route names (tf32x3 or fma for HIGHEST, wgmma or
+// mma for DEFAULT, by the geometry); a route the rule does not give is
+// refused.
 extern "C" int tpumt_flash_attention_block(
     const void* q, const void* k, const void* v, const float* m_in,
     const float* l_in, const float* acc_in, float* m_out, float* l_out,

@@ -31,7 +31,32 @@
 //     m16n8k8 (wgmma's TF32 form wants V K-major, which it is not), and
 //     bf16 at d in (128, 256], misaligned operands or ragged chunks, as
 //     bf16 m16n8k16; mma.sync, 4 warps, K/V by cp.async into two buffers.
-//   * fma (flash_fma_fold) — HIGHEST: f32 FMA on the CUDA cores.
+//   * tf32x3 (flash_x3_*) — f32 at HIGHEST, d <= 128, 16-byte chunks:
+//     every f32 HIGHEST main-path fold. 3xTF32 on wgmma, the card's
+//     counterpart of the TPU's multi-pass HIGHEST product: each f32
+//     operand x is split into a TF32 big part and a TF32 small remainder,
+//     and every product accumulates small·big + big·small, then big·big,
+//     in f32 (the dropped small·small is ~2^-22 relative). The big part is
+//     the raw f32 word, which the tensor cores read as TF32 by dropping
+//     its 13 low bits, and the small part the exact residual
+//     (flash_ab's x3rna, both by cvt.rna, ran 12 % slower). The wgmma
+//     route's shape: a consumer warpgroup, a TMA producer lane, one CTA an
+//     SM, S(j) and PV(j-1) as two commit groups, the softmax of S(j)
+//     under PV(j-1); 32-key K stages, two of them. TF32 wgmma has no
+//     transpose bit, so the landed tiles are made into wgmma operands in
+//     shared memory: Q's and K's small parts beside them, by the producer
+//     warpgroup's other warps (the splitters); V transposed into Vᵀ big
+//     and small (K-major) by the consumers while the tensor cores run, its
+//     keys permuted within each group of 8 so that the S accumulator's
+//     registers are P·V's A fragments as they stand; P split in
+//     registers. Each tile's PV is summed from zero and added to acc in
+//     f32: the tensor cores round their f32 sums toward zero, and summed
+//     into acc itself the products biased it by ~1e-4 relative at 8192
+//     keys. Half of acc lives in shared memory, so that the consumers
+//     fit their registers without a spill. Raw tiles are what TMA loads
+//     and what the fused kernel forwards: the ring's bytes do not grow.
+//   * fma (flash_fma_fold) — HIGHEST for the rest (bf16 operands, d > 128,
+//     misaligned or ragged operands): f32 FMA on the CUDA cores.
 // Each folds the 64 query rows [q0, q0 + 64) of one head against the K/V
 // block of its Params into the (m, l, acc) carry. The mma and fma bodies'
 // template flag CG routes every K/V load through L2 (ld.global.cg /
@@ -57,7 +82,12 @@ namespace {
 // dtype codes shared with the Python wrappers (kernels/hand.py)
 enum FlashDType : int { kF32 = 0, kBF16 = 2 };
 // route codes: the index of the route's name in hand.FLASH_ROUTES
-enum FlashRoute : int { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2 };
+enum FlashRoute : int {
+  kRouteFma = 0,
+  kRouteMma = 1,
+  kRouteWgmma = 2,
+  kRouteTf32x3 = 3
+};
 
 constexpr int kQT = 64;  // query rows per CTA
 constexpr int kKT = 64;  // key columns per shared-memory tile
@@ -1346,16 +1376,648 @@ __device__ __forceinline__ void flash_wg_consume(const Params& p,
 }
 
 // ---------------------------------------------------------------------------
+// tf32x3: f32 HIGHEST, d <= 128, 16-byte chunks — 3xTF32 on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kX3KT = 32;  // key rows a K/V stage
+// K stages: two (X3Layout's 224 KB; 64-key tiles in one stage measured
+// 13 % slower before acc moved half into shared memory, and no longer fit)
+constexpr int kX3Stages = 2;
+// A CTA is two warpgroups: the consumers (warps 0-3), which also
+// transpose V; warp 4 loads, warp 5 sends in the fused kernel at w > 1,
+// and the rest split Q and K. The consumers hold half of acc, a tile's PV
+// sum, S and P's two parts in registers: setmaxnreg gives them 248 a
+// thread (at 240 the fused kernel's consumers spill), the producer
+// warpgroup 88. (ptxas caps every region at the launch's share, 65536 /
+// threads: a third warpgroup of splitters would cap the consumers at 168.)
+constexpr int kX3Threads = 2 * kWgConsumers;
+constexpr int kX3ConsumerRegs = 248;
+constexpr int kX3ProducerRegs = 88;
+// big parts by cvt.rna (true); or the raw f32 word, which the tensor
+// cores read as TF32 by dropping its 13 low bits, with the exact residual
+// as the small part (false)
+constexpr bool kX3Rna = false;
+constexpr int kX3Quarters = kWgDP / 32;  // 32-column quarters of d
+static_assert(kX3KT == 32, "S at n32, V^T rows of the 32 keys");
+
+// Shared memory, from a 1024-byte-aligned base: Q big and small, then
+// kX3Stages each of K big, K small, Vᵀ big and Vᵀ small, then the V
+// landing buffer, then the upper half of the consumers' acc, then the
+// mbarriers. Q, K and the landing buffer are quarters of 32 columns (one
+// 128-byte swizzle row per tile row), as TMA writes them; Vᵀ is kWgDP
+// rows (one per column of V) of the tile's 32 keys. acc's columns 64
+// and up live here, not in registers, each consumer thread's 32 floats as
+// 8 float4 rows 2 KB apart (a warp's accesses meet no bank twice): with
+// all of acc in registers the consumers spill.
+struct X3Layout {
+  static constexpr int kRow = 128;
+  static constexpr int kQQuarter = kQT * kRow;
+  static constexpr int kKQuarter = kX3KT * kRow;
+  static constexpr int kQBytes = kX3Quarters * kQQuarter;
+  static constexpr int kKBytes = kX3Quarters * kKQuarter;
+  static constexpr int kVtBytes = kWgDP * kRow;
+  static constexpr int kQb = 0;
+  static constexpr int kQs = kQBytes;
+  static constexpr int kKb = 2 * kQBytes;
+  static constexpr int kKs = kKb + kX3Stages * kKBytes;
+  static constexpr int kVb = kKs + kX3Stages * kKBytes;
+  static constexpr int kVs = kVb + kX3Stages * kVtBytes;
+  static constexpr int kVl = kVs + kX3Stages * kVtBytes;
+  static constexpr int kOh = kVl + kKBytes;
+  static constexpr int kOhBytes = kWgConsumers * kWgDP / 4 * 4;
+  static constexpr int kBar = kOh + kOhBytes;
+  // barriers: full, ready, empty Q; per stage full, ready, empty K; full,
+  // free V (the landing buffer)
+  static constexpr int kBars = 5 + 3 * kX3Stages;
+  static constexpr int bytes() { return kBar + 8 * kBars + 1024; }
+  __device__ static uint32_t bar(uint32_t b, int i) { return b + kBar + 8 * i; }
+  __device__ static uint32_t full_q(uint32_t b) { return bar(b, 0); }
+  __device__ static uint32_t ready_q(uint32_t b) { return bar(b, 1); }
+  __device__ static uint32_t empty_q(uint32_t b) { return bar(b, 2); }
+  __device__ static uint32_t full_k(uint32_t b, int st) {
+    return bar(b, 3 + st);
+  }
+  __device__ static uint32_t ready_k(uint32_t b, int st) {
+    return bar(b, 3 + kX3Stages + st);
+  }
+  __device__ static uint32_t empty_k(uint32_t b, int st) {
+    return bar(b, 3 + 2 * kX3Stages + st);
+  }
+  __device__ static uint32_t full_v(uint32_t b) {
+    return bar(b, 3 + 3 * kX3Stages);
+  }
+  __device__ static uint32_t free_v(uint32_t b) {
+    return bar(b, 4 + 3 * kX3Stages);
+  }
+};
+static_assert(X3Layout::bytes() <= 232448, "one CTA's shared memory");
+
+__device__ __forceinline__ int x3_quarters(const Params& p) {
+  return (p.d + 31) / 32;
+}
+
+__device__ __forceinline__ int x3_tiles(const LiveCols& lc) {
+  return static_cast<int>((lc.live + kX3KT - 1) / kX3KT);
+}
+
+// x as a TF32 big part and a TF32 small part, f32 words: x - big - small
+// is ~2^-22 |x| (kX3Rna; 2^-21 with the hardware's truncation)
+__device__ __forceinline__ void x3_split(float x, uint32_t& big,
+                                         uint32_t& small) {
+  if constexpr (kX3Rna) {
+    big = to_tf32(x);
+    small = to_tf32(x - __uint_as_float(big));
+  } else {
+    big = __float_as_uint(x);
+    small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+  }
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t a, const uint32_t (&w)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t w) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(w) : "memory");
+}
+
+// this thread's shared-memory writes visible to wgmma (the async proxy),
+// then its arrival on `bar`
+__device__ __forceinline__ void x3_ready(uint32_t bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  mbar_arrive(bar);
+}
+
+// Thread 0 initialises the barriers (`nsplit` splitter threads); every
+// thread of the CTA must call it (it ends in a __syncthreads). Quarters of
+// Q and K past d, which TMA never writes, are zeroed once.
+__device__ __forceinline__ void x3_init(uint32_t sb, const Params& p,
+                                        int nsplit) {
+  using X = X3Layout;
+  const int qn = x3_quarters(p);
+  if (qn < kX3Quarters) {
+    for (int part = 0; part < 2 + 2 * kX3Stages; ++part) {
+      const bool q = part < 2;
+      const uint32_t base =
+          q ? sb + part * X::kQBytes : sb + X::kKb + (part - 2) * X::kKBytes;
+      const int words = (q ? X::kQQuarter : X::kKQuarter) / 4;
+      for (int i = qn * words + threadIdx.x; i < kX3Quarters * words;
+           i += blockDim.x)
+        sts32(base + 4 * i, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(X::full_q(sb), 1);
+    mbar_init(X::ready_q(sb), nsplit);
+    mbar_init(X::empty_q(sb), kWgConsumers);
+    for (int st = 0; st < kX3Stages; ++st) {
+      mbar_init(X::full_k(sb, st), 1);
+      mbar_init(X::ready_k(sb, st), nsplit);
+      mbar_init(X::empty_k(sb, st), kWgConsumers);
+    }
+    mbar_init(X::full_v(sb), 1);
+    mbar_init(X::free_v(sb), kWgConsumers);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer's part of one fold (lane 0 of the producer warp): Q of
+// rows [q0, q0 + kQT) of head h, then every live K tile into its stage
+// and V tile into its landing buffer, each quarter of d a TMA box.
+__device__ __forceinline__ void flash_x3_produce(
+    const Params& p, long long k_off, long long q0, int h,
+    const CUtensorMap* qm, const CUtensorMap* km, const CUtensorMap* vm,
+    uint32_t sb, WgPipe& pipe) {
+  using X = X3Layout;
+  const int n = x3_tiles(live_cols(p, q0, k_off));
+  if (n == 0) return;
+  const int qn = x3_quarters(p);
+  mbar_wait(X::empty_q(sb), (pipe.q & 1) ^ 1);
+  mbar_expect_tx(X::full_q(sb), qn * X::kQQuarter);
+  for (int c = 0; c < qn; ++c)
+    tma_tile(sb + X::kQb + c * X::kQQuarter, qm, X::full_q(sb), 32 * c,
+             static_cast<int>(q0), h, p.head_inner & 1);
+  ++pipe.q;
+  for (int j = 0; j < n; ++j, ++pipe.kv) {
+    const int st = pipe.kv % kX3Stages;
+    const uint32_t ph = (pipe.kv / kX3Stages) & 1;
+    const uint32_t kb = sb + X::kKb + st * X::kKBytes;
+    mbar_wait(X::empty_k(sb, st), ph ^ 1);
+    mbar_expect_tx(X::full_k(sb, st), qn * X::kKQuarter);
+    for (int c = 0; c < qn; ++c)
+      tma_tile(kb + c * X::kKQuarter, km, X::full_k(sb, st), 32 * c,
+               j * kX3KT, h, p.head_inner & 2);
+    // one landing buffer: its phase is the V tile's count
+    mbar_wait(X::free_v(sb), (pipe.kv & 1) ^ 1);
+    mbar_expect_tx(X::full_v(sb), qn * X::kKQuarter);
+    for (int c = 0; c < qn; ++c)
+      tma_tile(sb + X::kVl + c * X::kKQuarter, vm, X::full_v(sb), 32 * c,
+               j * kX3KT, h, p.head_inner & 4);
+  }
+}
+
+// The first `bytes` bytes of a landed Q or K tile, split: big in place
+// (with kX3Rna; else the raw word stays), small at the same offset from
+// `small` (the two buffers share the swizzled layout). One 16-byte item a
+// thread at a time: loading four ahead ran 16 % slower (flash_ab, PR 25).
+__device__ __forceinline__ void x3_split_rows(uint32_t raw, uint32_t small,
+                                              int bytes, int tid, int nthr) {
+  for (int c = tid; c < bytes / 16; c += nthr) {
+    const float4 x = lds128(raw + 16 * c);
+    uint32_t b[4], sm[4];
+    x3_split(x.x, b[0], sm[0]);
+    x3_split(x.y, b[1], sm[1]);
+    x3_split(x.z, b[2], sm[2]);
+    x3_split(x.w, b[3], sm[3]);
+    if constexpr (kX3Rna) sts128(raw + 16 * c, b);
+    sts128(small + 16 * c, sm);
+  }
+}
+
+// The landed V tile (kX3KT rows by the quarters of d, swizzled) into Vᵀ
+// big and small, by `nthr` threads: row n holds column n of V, and within
+// each group of 8 keys key 2i at slot i and key 2i + 1 at slot 4 + i —
+// the S accumulator's column order, so that
+// P's A fragments are its registers as they stand. The 32 lanes of a warp
+// take 32 consecutive keys of one 16-byte chunk: neither the loads nor
+// the stores meet a bank twice.
+__device__ __forceinline__ void x3_split_v(uint32_t land, uint32_t vb,
+                                           uint32_t vs, int qn, int tid,
+                                           int nthr) {
+  using X = X3Layout;
+  const int n_it = qn * 8 * kX3KT;
+  for (int it = tid; it < n_it; it += nthr) {
+    const int r = it % kX3KT, cc = it / kX3KT;
+    const float4 x = lds128(land + (cc >> 3) * X::kKQuarter + r * X::kRow +
+                            (((cc & 7) ^ (r & 7)) << 4));
+    const int pos = (r & 24) | ((r & 1) << 2) | ((r & 7) >> 1);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * cc + e;
+      const uint32_t off =
+          n * X::kRow + (((pos >> 2) ^ (n & 7)) << 4) + (pos & 3) * 4;
+      uint32_t b, sm;
+      x3_split(xs[e], b, sm);
+      sts32(vb + off, b);
+      sts32(vs + off, sm);
+    }
+  }
+}
+
+// The splitters' part of one fold (threads tid = 0 .. nthr-1 of the
+// producer warpgroup): Q, then every live K tile as it lands. (V is the
+// consumers' to split: they transpose V(j) while S(j) and PV(j-1) run.)
+__device__ __forceinline__ void flash_x3_split(const Params& p,
+                                               long long k_off, long long q0,
+                                               uint32_t sb, WgPipe& pipe,
+                                               int tid, int nthr) {
+  using X = X3Layout;
+  const int n = x3_tiles(live_cols(p, q0, k_off));
+  if (n == 0) return;
+  const int qn = x3_quarters(p);
+  mbar_wait(X::full_q(sb), pipe.q & 1);
+  x3_split_rows(sb + X::kQb, sb + X::kQs, qn * X::kQQuarter, tid, nthr);
+  x3_ready(X::ready_q(sb));
+  ++pipe.q;
+  for (int j = 0; j < n; ++j, ++pipe.kv) {
+    const int st = pipe.kv % kX3Stages;
+    mbar_wait(X::full_k(sb, st), (pipe.kv / kX3Stages) & 1);
+    x3_split_rows(sb + X::kKb + st * X::kKBytes,
+                  sb + X::kKs + st * X::kKBytes, qn * X::kKQuarter, tid,
+                  nthr);
+    x3_ready(X::ready_k(sb, st));
+  }
+}
+
+// D (64 x 32) = A·B (+ D) in TF32: A and B in shared memory, K-major
+__device__ __forceinline__ void wgmma_x3_ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128) = A·B (+ D) in TF32: A (64 x 8) from registers, B in
+// shared memory, K-major
+__device__ __forceinline__ void wgmma_x3_rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// Descriptors made opaque to the compiler where a product is issued, so
+// that it derives each k-step's operands there and then: hoisted out of
+// the tile loop, the 60 descriptors of a tile's products would hold 120
+// registers and the consumers would spill.
+__device__ __forceinline__ void opaque(uint64_t& a, uint64_t& b, uint64_t& c,
+                                       uint64_t& d) {
+  asm volatile("" : "+l"(a), "+l"(b), "+l"(c), "+l"(d));
+}
+
+// The consumers' part of one fold (warps 0-3), flash_wg_consume's
+// schedule on the split operands: the carry of rows [q0, q0 + kQT) of
+// head h read once, every live tile folded, the carry written once — or,
+// with `out`, acc / l in f32 (rows of p.d elements), as the fused
+// kernel's last step finishes.
+__device__ __forceinline__ void flash_x3_consume(const Params& p,
+                                                 long long k_off, long long q0,
+                                                 int h, uint32_t sb,
+                                                 WgPipe& pipe, float* out) {
+  using X = X3Layout;
+  constexpr int NS = kX3KT / 2;  // S accumulator floats a thread
+  constexpr int NO = kWgDP / 2;  // O accumulator floats a thread
+  constexpr int KS = kX3KT / 8;  // k-steps of the PV product
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const LiveCols lc = live_cols(p, q0, k_off);
+  const int n = x3_tiles(lc);
+  const int j_full = static_cast<int>(lc.full / kX3KT);  // tiles unmasked
+
+  // this thread's rows g and g + 8 of its warp's 16; accumulator element
+  // 4·nt + 2·hr + e sits at row hr, column 8·nt + 2·t4 + e
+  // (lim: the live columns of each row; Lk < 2^31 on this route)
+  const long long row0 = q0 + warp * 16 + g;
+  int lim[2];
+  lim[0] = static_cast<int>(live_upto(p, row0, k_off));
+  lim[1] = static_cast<int>(live_upto(p, row0 + 8, k_off));
+  // acc: columns 8·nt + 2·t4 + e of n-tiles nt < NO / 8 in registers,
+  // the rest as float4 nt - NO / 8 of this thread in X3Layout::kOh
+  constexpr int NL = NO / 2;
+  const uint32_t oh = sb + X::kOh + threadIdx.x * 16;
+  float mr[2], lr[2], o[NL];
+  {
+    const float* a[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const long long i = row0 + 8 * hr;
+      const bool ok = i < p.L;
+      mr[hr] = ok ? p.m_in[h * p.m_hs + i * p.m_rs] : neg_inf();
+      lr[hr] = ok ? p.l_in[h * p.l_hs + i * p.l_rs] : 0.f;
+      a[hr] = ok ? p.acc_in + h * p.acc_hs + i * p.acc_rs : nullptr;
+    }
+#pragma unroll
+    for (int nt = 0; nt < NO / 4; ++nt) {
+      float w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = nt * 8 + 2 * t4 + (k & 1);
+        w[k] = a[k >> 1] != nullptr && c < p.d ? a[k >> 1][c] : 0.f;
+      }
+      if (nt < NO / 8) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[4 * nt + k] = w[k];
+      } else {
+        sts128(oh + (nt - NO / 8) * 2048,
+               {__float_as_uint(w[0]), __float_as_uint(w[1]),
+                __float_as_uint(w[2]), __float_as_uint(w[3])});
+      }
+    }
+  }
+
+  if (n > 0) {
+    const int kv0 = pipe.kv;
+    // K-major operands: rows of 128 bytes (32 floats), 8-row groups 1024
+    // bytes apart; a k-step of 8 columns is 32 bytes along the row, a
+    // quarter of d a block of rows further on
+    const uint64_t dqb = wg_desc(sb + X::kQb, 16, 1024);
+    const uint64_t dqs = wg_desc(sb + X::kQs, 16, 1024);
+    auto issue_s = [&](float(&s)[NS], int j) {
+      const int st = (kv0 + j) % kX3Stages;
+      uint64_t qb = dqb, qs = dqs;
+      uint64_t dkb = wg_desc(sb + X::kKb + st * X::kKBytes, 16, 1024);
+      uint64_t dks = wg_desc(sb + X::kKs + st * X::kKBytes, 16, 1024);
+      opaque(qb, qs, dkb, dks);
+      auto qo = [](int kk) {
+        return static_cast<uint64_t>(((kk / 4) * X::kQQuarter + (kk % 4) * 32)
+                                     >> 4);
+      };
+      auto ko = [](int kk) {
+        return static_cast<uint64_t>(((kk / 4) * X::kKQuarter + (kk % 4) * 32)
+                                     >> 4);
+      };
+      // the cross terms first, then big·big, into one accumulator
+#pragma unroll
+      for (int kk = 0; kk < kWgDP / 8; ++kk)
+        wgmma_x3_ss(s, qs + qo(kk), dkb + ko(kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kWgDP / 8; ++kk)
+        wgmma_x3_ss(s, qb + qo(kk), dks + ko(kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < kWgDP / 8; ++kk)
+        wgmma_x3_ss(s, qb + qo(kk), dkb + ko(kk), 1);
+    };
+    uint32_t pb[KS][4], ps[KS][4];  // P(j - 1)'s big and small A fragments
+    float sacc[NS];                 // S(j), then P(j) in f32
+    // P(j - 1)·V, summed from zero: each tile's sum is added to acc in
+    // f32 (the tensor cores round their f32 sums toward zero, and 3·KS
+    // products a tile into acc itself would bias it by ~1e-4 relative
+    // at 8192 keys)
+    float pv[NO];
+    auto issue_pv = [&](int j) {
+      const int st = (kv0 + j) % kX3Stages;
+      uint64_t dvb = wg_desc(sb + X::kVb + st * X::kVtBytes, 16, 1024);
+      uint64_t dvs = wg_desc(sb + X::kVs + st * X::kVtBytes, 16, 1024);
+      uint64_t unused = 0, unused2 = 0;
+      opaque(dvb, dvs, unused, unused2);
+      auto vo = [](int ks) { return static_cast<uint64_t>(ks * 32 >> 4); };
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        wgmma_x3_rs(pv, ps[ks], dvb + vo(ks), ks > 0);
+        wgmma_x3_rs(pv, pb[ks], dvs + vo(ks), 1);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_x3_rs(pv, pb[ks], dvb + vo(ks), 1);
+    };
+    auto wait_k = [&](int j) {
+      const int t = kv0 + j;
+      mbar_wait(X::ready_k(sb, t % kX3Stages), (t / kX3Stages) & 1);
+    };
+    // V(j) from the landing buffer into its stage's Vᵀ big and small, by
+    // the consumers while the tensor cores run S(j) and PV(j-1) (PV(j-2),
+    // the stage's last reader, is done); every consumer's stores are in
+    // (named barrier 1) before PV(j) is issued
+    const int qn = x3_quarters(p);
+    auto split_v = [&](int j) {
+      const int t = kv0 + j;
+      const int st = t % kX3Stages;
+      mbar_wait(X::full_v(sb), t & 1);
+      x3_split_v(sb + X::kVl, sb + X::kVb + st * X::kVtBytes,
+                 sb + X::kVs + st * X::kVtBytes, qn, threadIdx.x,
+                 kWgConsumers);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(X::free_v(sb));
+      asm volatile("bar.sync 1, %0;" ::"n"(kWgConsumers) : "memory");
+    };
+
+    // scale, mask, online softmax of tile j in place (s becomes p), as
+    // flash_wg_consume's but for corr
+    auto softmax = [&](float(&s)[NS], int j, float(&corr)[2]) {
+      const bool needs_mask = j >= j_full;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        int live = lim[hr] - j * kX3KT;
+        live = live < 0 ? 0 : (live > kX3KT ? kX3KT : live);
+        const int rem = live - 2 * t4;
+        float mt = neg_inf();
+#pragma unroll
+        for (int nt = 0; nt < NS / 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = s[4 * nt + 2 * hr + e] * p.scale;
+            if (needs_mask && nt * 8 + e >= rem) x = neg_inf();
+            s[4 * nt + 2 * hr + e] = x;
+            mt = fmaxf(mt, x);
+          }
+        }
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float mn = fmaxf(mr[hr], mt);
+        const float ms = mn == neg_inf() ? 0.f : mn;
+        const float msl = ms * kLog2e;
+        float ps_ = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NS / 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x =
+                ex2(__fmaf_rn(s[4 * nt + 2 * hr + e], kLog2e, -msl));
+            s[4 * nt + 2 * hr + e] = x;
+            ps_ += x;
+          }
+        }
+        ps_ += __shfl_xor_sync(0xffffffffu, ps_, 1);
+        ps_ += __shfl_xor_sync(0xffffffffu, ps_, 2);
+        // exactly 1 while the row's maximum stands (fma(m, log2e, -msl)
+        // would leave the rounding of msl, and l would drift by it every
+        // tile: ~4e-5 relative over 8192 keys)
+        corr[hr] = ex2((mr[hr] - ms) * kLog2e);
+        lr[hr] = lr[hr] * corr[hr] + ps_;
+        mr[hr] = mn;
+      }
+    };
+    // acc by the rows' factors, plus the tile's PV sum
+    auto add_pv = [&](const float(&f)[2]) {
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+        o[i] = __fmaf_rn(o[i], f[(i >> 1) & 1], pv[i]);
+#pragma unroll
+      for (int g4 = 0; g4 < NO / 8; ++g4) {
+        const float4 a = lds128(oh + g4 * 2048);
+        const float* v = pv + NL + 4 * g4;
+        sts128(oh + g4 * 2048, {__float_as_uint(__fmaf_rn(a.x, f[0], v[0])),
+                                __float_as_uint(__fmaf_rn(a.y, f[0], v[1])),
+                                __float_as_uint(__fmaf_rn(a.z, f[1], v[2])),
+                                __float_as_uint(__fmaf_rn(a.w, f[1], v[3]))});
+      }
+    };
+    // P (in sacc) split into the A fragments: k-slot t4 of k-step ks is
+    // key 8·ks + 2·t4, slot t4 + 4 key 8·ks + 2·t4 + 1 (Vᵀ's key order)
+    auto split_p = [&]() {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        x3_split(sacc[4 * ks + 0], pb[ks][0], ps[ks][0]);
+        x3_split(sacc[4 * ks + 2], pb[ks][1], ps[ks][1]);
+        x3_split(sacc[4 * ks + 1], pb[ks][2], ps[ks][2]);
+        x3_split(sacc[4 * ks + 3], pb[ks][3], ps[ks][3]);
+      }
+    };
+
+    // corr: tile j's factors of acc; corr_pv: those that go with P(j-1)
+    mbar_wait(X::ready_q(sb), pipe.q & 1);
+    float corr[2], corr_pv[2];
+    wait_k(0);
+    wg_fence();
+    issue_s(sacc, 0);
+    wg_commit();
+    split_v(0);
+    wg_wait<0>();
+    reg_fence(sacc);
+    mbar_arrive(X::empty_k(sb, kv0 % kX3Stages));
+    softmax(sacc, 0, corr_pv);
+    split_p();
+    for (int j = 1; j < n; ++j) {
+      wait_k(j);
+      reg_fence(pv);
+      reg_fence(pb);
+      reg_fence(ps);
+      reg_fence(sacc);
+      wg_fence();
+      issue_s(sacc, j);
+      wg_commit();
+      issue_pv(j - 1);
+      wg_commit();
+      reg_fence(pb);
+      reg_fence(ps);
+      split_v(j);
+      wg_wait<1>();
+      reg_fence(sacc);
+      mbar_arrive(X::empty_k(sb, (kv0 + j) % kX3Stages));
+      softmax(sacc, j, corr);
+      wg_wait<0>();
+      reg_fence(pv);
+      reg_fence(pb);
+      reg_fence(ps);
+      add_pv(corr_pv);
+      corr_pv[0] = corr[0];
+      corr_pv[1] = corr[1];
+      split_p();
+    }
+    reg_fence(pv);
+    reg_fence(pb);
+    reg_fence(ps);
+    wg_fence();
+    issue_pv(n - 1);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(pv);
+    reg_fence(pb);
+    reg_fence(ps);
+    mbar_arrive(X::empty_q(sb));
+    add_pv(corr_pv);
+    pipe.kv += n;
+    ++pipe.q;
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const long long i = row0 + 8 * hr;
+    if (i < p.L && out == nullptr && t4 == 0) {
+      p.m_out[h * p.m_hs + i * p.m_rs] = mr[hr];
+      p.l_out[h * p.l_hs + i * p.l_rs] = lr[hr];
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NO / 4; ++nt) {
+    float w[4];
+    if (nt < NO / 8) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) w[k] = o[4 * nt + k];
+    } else {
+      const float4 a = lds128(oh + (nt - NO / 8) * 2048);
+      w[0] = a.x;
+      w[1] = a.y;
+      w[2] = a.z;
+      w[3] = a.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = row0 + 8 * (k >> 1);
+      const int c = nt * 8 + 2 * t4 + (k & 1);
+      if (i >= p.L || c >= p.d) continue;
+      if (out != nullptr)
+        out[i * p.d + c] = __fdiv_rn(w[k], lr[k >> 1]);
+      else
+        p.acc_out[h * p.acc_hs + i * p.acc_rs + c] = w[k];
+    }
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
 // host side: the route rule and the tensor maps
 // ---------------------------------------------------------------------------
 
-// The route of a fold (hand.flash_route's rule): HIGHEST on the CUDA
-// cores; DEFAULT through wgmma for bf16 at d <= 128 in 16-byte chunks,
-// else through mma.sync
+// The route of a fold (hand.flash_route's rule): HIGHEST through 3xTF32
+// wgmma for f32 at d <= 128 in 16-byte chunks, else on the CUDA cores;
+// DEFAULT through wgmma for bf16 at d <= 128 in 16-byte chunks, else
+// through mma.sync
 inline int flash_route(int dtype, bool highest, int d, bool vec) {
-  if (highest) return kRouteFma;
+  if (highest)
+    return dtype == kF32 && d <= kWgDP && vec ? kRouteTf32x3 : kRouteFma;
   if (dtype == kBF16 && d <= kWgDP && vec) return kRouteWgmma;
   return kRouteMma;
+}
+
+// Is `route` a HIGHEST route (f32 arithmetic, or its 3xTF32 counterpart)
+inline bool route_is_highest(int route) {
+  return route == kRouteFma || route == kRouteTf32x3;
 }
 
 using TmaEncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1385,13 +2047,14 @@ inline TmaEncodeFn tma_encoder() {
   return fn;
 }
 
-// The tensor map of a bf16 operand of `rows` rows of d columns (row
-// stride rs, head stride hs, in elements) over `heads` heads, in boxes of
-// 64 columns × box_rows rows with 128-byte swizzle; rows and columns past
-// the operand arrive as zeros. The smaller stride goes nearer the column
-// axis; *head_inner says whether that is the head axis.
-inline cudaError_t tma_operand(CUtensorMap* map, const void* base, int d,
-                               long long rows, int heads, long long rs,
+// The tensor map of a bf16 (elem 2) or f32 (elem 4) operand of `rows`
+// rows of d columns (row stride rs, head stride hs, in elements) over
+// `heads` heads, in boxes of 128 bytes of columns × box_rows rows with
+// 128-byte swizzle; rows and columns past the operand arrive as zeros. The
+// smaller stride goes nearer the column axis; *head_inner says whether
+// that is the head axis.
+inline cudaError_t tma_operand(CUtensorMap* map, const void* base, int elem,
+                               int d, long long rows, int heads, long long rs,
                                long long hs, int box_rows, bool* head_inner) {
   const TmaEncodeFn enc = tma_encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
@@ -1402,13 +2065,17 @@ inline cudaError_t tma_operand(CUtensorMap* map, const void* base, int d,
       static_cast<cuuint64_t>(hin ? heads : rows),
       static_cast<cuuint64_t>(hin ? rows : heads)};
   const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(2 * (hin ? hstride : rs)),
-      static_cast<cuuint64_t>(2 * (hin ? rs : hstride))};
-  const cuuint32_t box[3] = {64u, hin ? 1u : static_cast<cuuint32_t>(box_rows),
+      static_cast<cuuint64_t>(elem * (hin ? hstride : rs)),
+      static_cast<cuuint64_t>(elem * (hin ? rs : hstride))};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem),
+                             hin ? 1u : static_cast<cuuint32_t>(box_rows),
                              hin ? static_cast<cuuint32_t>(box_rows) : 1u};
   const cuuint32_t estr[3] = {1u, 1u, 1u};
   const CUresult r =
-      enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      enc(map,
+          elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+          3, const_cast<void*>(base),
           dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

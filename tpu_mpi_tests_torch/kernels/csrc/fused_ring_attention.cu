@@ -21,8 +21,9 @@
 //     caller's max_ctas cap, so that several instances can share a card).
 //     Every CTA must be resident: CTAs wait on flags that the rank's
 //     other CTAs and its neighbours' CTAs set. The wgmma route's shared
-//     memory (WgLayout, ~145 KB) and registers (256 threads, setmaxnreg
-//     56/216) hold one CTA an SM; the occupancy API counts them.
+//     memory (WgLayout, ~145 KB; X3Layout, ~225 KB) and registers (256
+//     threads, setmaxnreg 56/216; tf32x3 88/248) hold one CTA an SM; the
+//     occupancy API counts them.
 //   * Carry. Each CTA owns the query tiles blockIdx.x, blockIdx.x +
 //     gridDim.x, ... at every step; their f32 carry lives in a global
 //     workspace between steps (the caller's m, l, acc), read and written
@@ -50,7 +51,7 @@
 // The pad words (64-98) are mapped in ring_common.cuh; the local counters
 // are reset by the last CTA of the launch.
 //
-// Two bodies, by hand.flash_route's rule (the flash kernel's own):
+// Three bodies, by hand.flash_route's rule (the flash kernel's own):
 //   * wgmma route (bf16 DEFAULT, d <= 128, 16-byte chunks; every
 //     main-path call): warp-specialised like the flash kernel's — warps
 //     0-3 fold (flash_wg_consume), warp 4's lane 0 loads by TMA
@@ -63,6 +64,16 @@
 //     retired when both the consumer warpgroup and the send warp of every
 //     CTA are done with it (2 arrivals a CTA). The last step's fold writes
 //     the bf16 result straight from its registers.
+//   * tf32x3 route (f32 HIGHEST, d <= 128, 16-byte chunks; every f32
+//     main-path call): the wgmma route's roles on flash_fold.cuh's 3xTF32
+//     fold, and its splitters — warps 5-7 at w = 1, warps 6-7 beside the
+//     send warp at w > 1 — which split Q and K in shared memory (the
+//     consumers transpose V).
+//     The ring forwards the raw f32 block and each rank splits what
+//     arrives: forwarding the split parts would double the bytes over
+//     NVLink and in the slots (K, K small, Vᵀ, Vᵀ small) for work the
+//     splitters do under the products anyway. The last step writes the
+//     f32 result from its registers.
 //   * mma and fma routes (everything else): the send of a step runs
 //     before its fold on the same CTAs, and K/V reads go through L2 only
 //     (ld.global.cg, cp.async.cg).
@@ -71,8 +82,9 @@
 // rank's own, and the full k-step schedule runs into its own slots.
 //
 // Bound on the H100: operations. 4·lq·(w·lk)·d flops (about half of them
-// live when causal) on the route's arithmetic (HIGHEST: f32 on the CUDA
-// cores, 67 TFLOP/s; DEFAULT: bf16 989 or TF32 495 on the tensor cores)
+// live when causal) on the route's arithmetic (HIGHEST: three TF32 passes
+// at 495 TFLOP/s on tf32x3, f32 on the CUDA cores at 67 on fma; DEFAULT:
+// bf16 989 or TF32 495 on the tensor cores)
 // against (w-1)·2·lk·d·itemsize bytes forwarded to the right neighbour
 // (NVLink, 450 GB/s each way) and q, K, V, out read and written once. At
 // (8192, 128) bf16, world 1: 0.0347 ms. A rank with fewer query tiles
@@ -332,76 +344,93 @@ __device__ __forceinline__ long long fra_k_off(const FraArgs& a, int s) {
   return a.stripe ? src : static_cast<long long>(src) * a.lk;
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
-    fused_ring_wg_kernel(const FraArgs a, const __grid_constant__ Params p,
-                         const __grid_constant__ FraMaps maps) {
-  extern __shared__ float4 smem4[];
-  const uint32_t sb = wg_smem_base(smem4);
+// The send warp's part of a launch (w > 1): at each step s < w-1, once
+// block s has landed and the right neighbour has retired the slot it
+// overwrites, this CTA's share of the block into the right's slot, the
+// arrival the last CTA gives, and its retirement of slot s.
+__device__ __forceinline__ void fra_send_warp(const FraArgs& a, int lane) {
+  const int ctas = static_cast<int>(gridDim.x);
+  const int w = a.w;
+  for (int s = 0; s < w - 1; ++s) {
+    const char* cur = a.slots + static_cast<long long>(s % 2) * 2 * a.v_off;
+    const char* kb = s == 0 ? static_cast<const char*>(a.k) : cur;
+    const char* vb = s == 0 ? static_cast<const char*>(a.v) : cur + a.v_off;
+    if (lane == 0) {
+      if (s > 0) pad_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
+      // the right retired the block that sits in the slot I store into
+      if (s >= 2) pad_wait(a.pad + kFraCred + s - 1, a.epoch);
+    }
+    __syncwarp();
+    char* dst =
+        a.right_slots + static_cast<long long>((s + 1) % 2) * 2 * a.v_off;
+    send_warp_share(kb, dst, a.kv_bytes, a.copy16, s > 0);
+    send_warp_share(vb, dst + a.v_off, a.kv_bytes, a.copy16, s > 0);
+    __threadfence_system();
+    __syncwarp();
+    if (lane == 0) {
+      if (atomicAdd(a.pad + kFraSent + s, 1) == ctas - 1) {
+        __threadfence_system();
+        pad_signal(a.right_pad + kFraArr + s + 1, a.epoch);
+      }
+      if (s >= 1 && s <= w - 3) fra_retire(a, s, 2 * ctas);
+    }
+  }
+  if (w > 1 && lane == 0) fra_exit(a, 2 * ctas);
+}
+
+// The producer lane's part of a launch: at each step, once block s has
+// landed (s >= 1), the proxies fenced — the peer stored the slot through
+// the generic proxy, TMA reads through the async one — and every query
+// tile's fold loaded (flash_x3_produce, or flash_wg_produce)
+template <bool X3>
+__device__ __forceinline__ void fra_produce(const FraArgs& a, const Params& p,
+                                            const FraMaps& maps,
+                                            uint32_t sb) {
+  const long long n_qt = (a.lq + kQT - 1) / kQT;
+  const int ctas = static_cast<int>(gridDim.x);
+  WgPipe pipe;
+  for (int s = 0; s < a.w; ++s) {
+    if (s > 0) {
+      pad_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+    }
+    const long long k_off = fra_k_off(a, s);
+    const CUtensorMap* km = s == 0 ? &maps.k : &maps.slot_k[s % 2];
+    const CUtensorMap* vm = s == 0 ? &maps.v : &maps.slot_v[s % 2];
+    for (long long t = blockIdx.x; t < n_qt; t += ctas) {
+      if constexpr (X3)
+        flash_x3_produce(p, k_off, (n_qt - 1 - t) * kQT, 0, &maps.q, km, vm,
+                         sb, pipe);
+      else
+        flash_wg_produce(p, k_off, (n_qt - 1 - t) * kQT, 0, &maps.q, km, vm,
+                         sb, pipe);
+    }
+  }
+}
+
+// The consumer warpgroup's part of a launch: every step's fold
+// (flash_x3_consume into f32, or flash_wg_consume into bf16), the last
+// one finishing into a.out; after each step's fold the CTA's retirement
+// of its slot
+template <bool X3>
+__device__ __forceinline__ void fra_consume(const FraArgs& a, const Params& p,
+                                            uint32_t sb) {
   const long long n_qt = (a.lq + kQT - 1) / kQT;
   const int ctas = static_cast<int>(gridDim.x);
   const int w = a.w;
-
-  fra_enter(a, n_qt, ctas);
-  wg_init(sb, p);  // ends in a __syncthreads: the carry and the entry are done
-
-  const int warp = wg_warp(), lane = threadIdx.x & 31;
   WgPipe pipe;
-  if (warp >= kWgConsumers / 32) {
-    regs_dec<kWgProducerRegs>();
-    if (warp > kWgConsumers / 32 + 1) return;  // no role
-    if (warp == kWgConsumers / 32) {  // the producer: lane 0 loads
-      if (lane != 0) return;
-      for (int s = 0; s < w; ++s) {
-        if (s > 0) {
-          pad_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
-          asm volatile("fence.proxy.async.global;" ::: "memory");
-        }
-        const long long k_off = fra_k_off(a, s);
-        const CUtensorMap* km = s == 0 ? &maps.k : &maps.slot_k[s % 2];
-        const CUtensorMap* vm = s == 0 ? &maps.v : &maps.slot_v[s % 2];
-        for (long long t = blockIdx.x; t < n_qt; t += ctas)
-          flash_wg_produce(p, k_off, (n_qt - 1 - t) * kQT, 0, &maps.q, km, vm,
-                           sb, pipe);
-      }
-      return;
-    }
-    // the send warp
-    for (int s = 0; s < w - 1; ++s) {
-      const char* cur = a.slots + static_cast<long long>(s % 2) * 2 * a.v_off;
-      const char* kb = s == 0 ? static_cast<const char*>(a.k) : cur;
-      const char* vb = s == 0 ? static_cast<const char*>(a.v) : cur + a.v_off;
-      if (lane == 0) {
-        if (s > 0) pad_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
-        // the right retired the block that sits in the slot I store into
-        if (s >= 2) pad_wait(a.pad + kFraCred + s - 1, a.epoch);
-      }
-      __syncwarp();
-      char* dst =
-          a.right_slots + static_cast<long long>((s + 1) % 2) * 2 * a.v_off;
-      send_warp_share(kb, dst, a.kv_bytes, a.copy16, s > 0);
-      send_warp_share(vb, dst + a.v_off, a.kv_bytes, a.copy16, s > 0);
-      __threadfence_system();
-      __syncwarp();
-      if (lane == 0) {
-        if (atomicAdd(a.pad + kFraSent + s, 1) == ctas - 1) {
-          __threadfence_system();
-          pad_signal(a.right_pad + kFraArr + s + 1, a.epoch);
-        }
-        if (s >= 1 && s <= w - 3) fra_retire(a, s, 2 * ctas);
-      }
-    }
-    if (w > 1 && lane == 0) fra_exit(a, 2 * ctas);
-    return;
-  }
-
-  // the consumer warpgroup: every step's fold, the last one finishing
-  regs_inc<kWgConsumerRegs>();
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
   for (int s = 0; s < w; ++s) {
     const long long k_off = fra_k_off(a, s);
-    for (long long t = blockIdx.x; t < n_qt; t += ctas)
-      flash_wg_consume(p, k_off, (n_qt - 1 - t) * kQT, 0, sb, pipe,
-                       s == w - 1 ? out : nullptr);
+    for (long long t = blockIdx.x; t < n_qt; t += ctas) {
+      const long long q0 = (n_qt - 1 - t) * kQT;
+      if constexpr (X3)
+        flash_x3_consume(p, k_off, q0, 0, sb, pipe,
+                         s == w - 1 ? static_cast<float*>(a.out) : nullptr);
+      else
+        flash_wg_consume(
+            p, k_off, q0, 0, sb, pipe,
+            s == w - 1 ? static_cast<__nv_bfloat16*>(a.out) : nullptr);
+    }
     // slot s % 2 is folded by this CTA: with its send warp's arrival,
     // free it for the left's send of step s + 1
     if (s >= 1 && s <= w - 3) {
@@ -412,28 +441,97 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   if (w > 1 && threadIdx.x == 0) fra_exit(a, 2 * ctas);
 }
 
-int launch_fra_wg(FraArgs a, int max_ctas, int* ctas_out, cudaStream_t s) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fused_ring_wg_kernel(const FraArgs a, const __grid_constant__ Params p,
+                         const __grid_constant__ FraMaps maps) {
+  extern __shared__ float4 smem4[];
+  const uint32_t sb = wg_smem_base(smem4);
+  const long long n_qt = (a.lq + kQT - 1) / kQT;
+
+  fra_enter(a, n_qt, static_cast<int>(gridDim.x));
+  wg_init(sb, p);  // ends in a __syncthreads: the carry and the entry are done
+
+  const int warp = wg_warp(), lane = threadIdx.x & 31;
+  if (warp >= kWgConsumers / 32) {
+    regs_dec<kWgProducerRegs>();
+    if (warp > kWgConsumers / 32 + 1) return;  // no role
+    if (warp == kWgConsumers / 32) {  // the producer: lane 0 loads
+      if (lane == 0) fra_produce<false>(a, p, maps, sb);
+      return;
+    }
+    fra_send_warp(a, lane);
+    return;
+  }
+  regs_inc<kWgConsumerRegs>();
+  fra_consume<false>(a, p, sb);
+}
+
+// the tf32x3 route: the wgmma kernel's roles, and the splitters — warps
+// 5-7 at w = 1, warps 6-7 beside the send warp at w > 1
+__global__ void __launch_bounds__(kX3Threads, 1)
+    fused_ring_x3_kernel(const FraArgs a, const __grid_constant__ Params p,
+                         const __grid_constant__ FraMaps maps) {
+  extern __shared__ float4 smem4[];
+  const uint32_t sb = wg_smem_base(smem4);
+  const long long n_qt = (a.lq + kQT - 1) / kQT;
+  const int ctas = static_cast<int>(gridDim.x);
+  const int split0 = kWgConsumers + (a.w > 1 ? 64 : 32);
+
+  fra_enter(a, n_qt, ctas);
+  x3_init(sb, p, kX3Threads - split0);  // ends in a __syncthreads
+
+  const int warp = wg_warp(), lane = threadIdx.x & 31;
+  if (warp >= kWgConsumers / 32) {
+    regs_dec<kX3ProducerRegs>();
+    if (warp == kWgConsumers / 32) {  // the producer: lane 0 loads
+      if (lane == 0) fra_produce<true>(a, p, maps, sb);
+      return;
+    }
+    if (static_cast<int>(threadIdx.x) < split0) {
+      fra_send_warp(a, lane);
+      return;
+    }
+    WgPipe pipe;
+    for (int s = 0; s < a.w; ++s) {
+      const long long k_off = fra_k_off(a, s);
+      for (long long t = blockIdx.x; t < n_qt; t += ctas)
+        flash_x3_split(p, k_off, (n_qt - 1 - t) * kQT, sb, pipe,
+                       threadIdx.x - split0, kX3Threads - split0);
+    }
+    return;
+  }
+  regs_inc<kX3ConsumerRegs>();
+  fra_consume<true>(a, p, sb);
+}
+
+// the wgmma (bf16) or tf32x3 (f32, X3) route: the tensor maps of the
+// inputs and, at w > 1, of my two parity slots, then the persistent grid
+template <bool X3>
+int launch_fra_tma(FraArgs a, int max_ctas, int* ctas_out, cudaStream_t s) {
   if (a.lq > INT_MAX || a.lk > INT_MAX) return cudaErrorInvalidValue;
+  constexpr int elem = X3 ? 4 : 2;
+  constexpr int kt = X3 ? kX3KT : kWgKT;
   FraMaps maps{};
   bool hin = false;
   cudaError_t e;
-  if ((e = tma_operand(&maps.q, a.q, a.d, a.lq, 1, a.d, 0, kQT, &hin)) !=
+  if ((e = tma_operand(&maps.q, a.q, elem, a.d, a.lq, 1, a.d, 0, kQT,
+                       &hin)) != cudaSuccess ||
+      (e = tma_operand(&maps.k, a.k, elem, a.d, a.lk, 1, a.d, 0, kt, &hin)) !=
           cudaSuccess ||
-      (e = tma_operand(&maps.k, a.k, a.d, a.lk, 1, a.d, 0, kWgKT, &hin)) !=
-          cudaSuccess ||
-      (e = tma_operand(&maps.v, a.v, a.d, a.lk, 1, a.d, 0, kWgKT, &hin)) !=
+      (e = tma_operand(&maps.v, a.v, elem, a.d, a.lk, 1, a.d, 0, kt, &hin)) !=
           cudaSuccess)
     return e;
   for (int par = 0; par < 2 && a.w > 1; ++par) {
     const char* slot = a.slots + static_cast<long long>(par) * 2 * a.v_off;
-    if ((e = tma_operand(&maps.slot_k[par], slot, a.d, a.lk, 1, a.d, 0, kWgKT,
-                         &hin)) != cudaSuccess ||
-        (e = tma_operand(&maps.slot_v[par], slot + a.v_off, a.d, a.lk, 1, a.d,
-                         0, kWgKT, &hin)) != cudaSuccess)
+    if ((e = tma_operand(&maps.slot_k[par], slot, elem, a.d, a.lk, 1, a.d, 0,
+                         kt, &hin)) != cudaSuccess ||
+        (e = tma_operand(&maps.slot_v[par], slot + a.v_off, elem, a.d, a.lk,
+                         1, a.d, 0, kt, &hin)) != cudaSuccess)
       return e;
   }
-  const int smem = WgLayout::bytes();
-  e = cudaFuncSetAttribute(fused_ring_wg_kernel,
+  const auto kernel = X3 ? fused_ring_x3_kernel : fused_ring_wg_kernel;
+  const int smem = X3 ? X3Layout::bytes() : WgLayout::bytes();
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
@@ -441,9 +539,9 @@ int launch_fra_wg(FraArgs a, int max_ctas, int* ctas_out, cudaStream_t s) {
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
     return e;
+  const int threads = X3 ? kX3Threads : kWgThreads;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_ring_wg_kernel, kWgThreads, smem)) !=
-      cudaSuccess)
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
     return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   // every CTA resident at once: at most the card's capacity
@@ -453,8 +551,8 @@ int launch_fra_wg(FraArgs a, int max_ctas, int* ctas_out, cudaStream_t s) {
   if (max_ctas > 0 && ctas > max_ctas) ctas = max_ctas;
   if (ctas < 1) ctas = 1;
   if (ctas_out) *ctas_out = static_cast<int>(ctas);
-  fused_ring_wg_kernel<<<static_cast<unsigned>(ctas), kWgThreads, smem,
-                         s>>>(a, fra_params(a), maps);
+  kernel<<<static_cast<unsigned>(ctas), threads, smem, s>>>(a, fra_params(a),
+                                                             maps);
   return cudaGetLastError();
 }
 
@@ -486,8 +584,8 @@ int launch_fra(FraArgs a, int max_ctas, int* ctas_out, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// `route` as the flash kernel's: HIGHEST's, or the one flash_route names
-// for DEFAULT at this geometry (else refused)
+// `route` as the flash kernel's: the one flash_route names for its
+// precision at this geometry (else refused)
 template <typename T>
 int launch_fra_t(FraArgs a, int route, int max_ctas, int* ctas_out,
                  cudaStream_t s) {
@@ -499,11 +597,14 @@ int launch_fra_t(FraArgs a, int route, int max_ctas, int* ctas_out,
                          reinterpret_cast<uintptr_t>(a.right_slots);
   a.vec = ptrs % 16 == 0 && a.d % n == 0;
   a.copy16 = ptrs % 16 == 0 && a.kv_bytes % 16 == 0;
-  const bool highest = route == kRouteFma;
-  if (!highest &&
-      route != flash_route(sizeof(T) == 2 ? kBF16 : kF32, false, a.d, a.vec))
+  const bool highest = route_is_highest(route);
+  if (route !=
+      flash_route(sizeof(T) == 2 ? kBF16 : kF32, highest, a.d, a.vec))
     return cudaErrorInvalidValue;
-  if (route == kRouteWgmma) return launch_fra_wg(a, max_ctas, ctas_out, s);
+  if (route == kRouteWgmma)
+    return launch_fra_tma<false>(a, max_ctas, ctas_out, s);
+  if (route == kRouteTf32x3)
+    return launch_fra_tma<true>(a, max_ctas, ctas_out, s);
   if (a.d <= 128) {
     return highest ? launch_fra<T, 128, true>(a, max_ctas, ctas_out, s)
                    : launch_fra<T, 128, false>(a, max_ctas, ctas_out, s);

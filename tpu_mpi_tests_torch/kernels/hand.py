@@ -2327,36 +2327,43 @@ stream_sum3.launches_by_route = dict.fromkeys(COLL_ROUTES, 0)
 #: query rows per CTA (kQT of csrc/flash_fold.cuh), every route
 FLASH_Q_TILE = 64  # tpumt: ignore[TPM701]
 #: the fold's routes (csrc/flash_fold.cuh; a route's code is its index):
-#: "fma" — HIGHEST, f32 on the CUDA cores; "mma" — DEFAULT on mma.sync
-#: (TF32 for float32, and bf16 where wgmma does not take the geometry);
-#: "wgmma" — bf16 DEFAULT at d <= FLASH_WGMMA_MAX_D with every operand in
-#: 16-byte chunks: TMA loads, a producer warpgroup, wgmma products
-FLASH_ROUTES = ("fma", "mma", "wgmma")
-#: key rows per shared-memory tile of each route (kKT, kWgKT)
-FLASH_K_TILES = {  # tpumt: ignore[TPM701]
-    "fma": 64, "mma": 64, "wgmma": 128}
+#: "fma" — HIGHEST where tf32x3 does not take the geometry, f32 on the
+#: CUDA cores; "mma" — DEFAULT on mma.sync (TF32 for float32, and bf16
+#: where wgmma does not take the geometry); "wgmma" — bf16 DEFAULT at d <=
+#: FLASH_WGMMA_MAX_D with every operand in 16-byte chunks: TMA loads, a
+#: producer warpgroup, wgmma products; "tf32x3" — float32 HIGHEST at the
+#: same geometry: the wgmma route's shape with every product in three
+#: TF32 passes (small·big + big·small + big·big, :func:`tf32x3_matmul`)
+FLASH_ROUTES = ("fma", "mma", "wgmma", "tf32x3")
+#: key rows per shared-memory tile of each route (kKT, kWgKT, kX3KT): the
+#: tf32x3 route's two 32-key stages, with Q's and K's two parts, Vᵀ's
+#: two, the V landing buffer and half of acc, fill 224 KB of shared memory
+FLASH_K_TILES = {  # tpumt: ignore[TPM701] (compiled-in tile geometry)
+    "fma": 64, "mma": 64, "wgmma": 128, "tf32x3": 32}
 #: the widest head the kernel takes (d is padded to 128 or 256)
 FLASH_MAX_D = 256
-#: the widest head of the wgmma route (d is padded to 128)
+#: the widest head of the wgmma and tf32x3 routes (d is padded to 128)
 FLASH_WGMMA_MAX_D = 128
-#: "highest": f32 arithmetic (the CUDA cores); "default": the tensor
-#: cores (bf16, or TF32 for float32 operands)
+#: "highest": f32 arithmetic (3xTF32 on the tensor cores, or the CUDA
+#: cores); "default": the tensor cores (bf16, or TF32 for float32
+#: operands)
 FLASH_PRECISIONS = ("highest", "default")
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
 
 
 def flash_route(dtype, precision: str, d: int, aligned: bool) -> str:
     """The route a fold takes (one of :data:`FLASH_ROUTES`), by the rule
-    the C launchers check: HIGHEST → "fma"; DEFAULT → "wgmma" for
-    bfloat16 at d <= :data:`FLASH_WGMMA_MAX_D` with ``aligned`` operands
-    (every pointer, row and head start on 16 bytes and d a whole number of
-    16-byte chunks, :func:`flash_aligned`), else "mma"."""
+    the C launchers check, at d <= :data:`FLASH_WGMMA_MAX_D` with
+    ``aligned`` operands (every pointer, row and head start on 16 bytes
+    and d a whole number of 16-byte chunks, :func:`flash_aligned`):
+    HIGHEST → "tf32x3" for float32, DEFAULT → "wgmma" for bfloat16; every
+    other geometry HIGHEST → "fma" (bfloat16 operands are widened to f32
+    as the JAX kernel upcasts them), DEFAULT → "mma"."""
     _check_precision(precision)
+    tma = d <= FLASH_WGMMA_MAX_D and aligned
     if precision == "highest":
-        return "fma"
-    if dtype == torch.bfloat16 and d <= FLASH_WGMMA_MAX_D and aligned:
-        return "wgmma"
-    return "mma"
+        return "tf32x3" if dtype == torch.float32 and tma else "fma"
+    return "wgmma" if dtype == torch.bfloat16 and tma else "mma"
 
 
 def flash_aligned(d: int, *operands) -> bool:
@@ -2579,9 +2586,10 @@ def flash_attention_block(q, k, v, m, l, acc, q_off, k_off, *, scale,
 
     Causal masking runs in global positions ``off + pos_stride·idx``
     (runtime ints); every K/V tile dead for all of a CTA's rows is
-    skipped. ``precision="highest"`` is f32 arithmetic on the CUDA cores
-    (bf16 operands widened, P kept f32); ``"default"`` is the tensor
-    cores: bf16 ``mma.sync`` with P rounded to bf16, or, for float32
+    skipped. ``precision="highest"`` is f32 arithmetic: 3xTF32 on the
+    tensor cores for float32 at d <= 128 in 16-byte chunks (the "tf32x3"
+    route), else the CUDA cores (bf16 operands widened, P kept f32);
+    ``"default"`` is the tensor cores: bf16 ``mma.sync`` with P rounded to bf16, or, for float32
     operands, TF32 ``mma.sync`` (the card's counterpart of the TPU's
     single-pass DEFAULT, ~3 decimal digits per operand). ``k_tile`` and
     ``skip_tile`` are the TPU kernel's tile knobs: the plain version on
@@ -2680,6 +2688,85 @@ def flash_attention(q, k, v, *, scale=None, causal: bool = False,
     return _normalise(q, carry[1], carry[2])
 
 
+# The tf32x3 route's arithmetic in plain torch, for the CPU tests: the
+# card's path never calls these (the kernel splits in registers and
+# shared memory, csrc/flash_fold.cuh's x3_split).
+
+def tf32_round(x: torch.Tensor, *, truncate: bool = False) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (8 exponent and 10 mantissa bits) by
+    integer operations on its bits, as ``cvt.rna.tf32.f32`` rounds: to
+    nearest on the 13 low bits, ties away from zero (half the dropped
+    range added to the magnitude, then the 13 bits cleared). ``truncate``:
+    the bits only cleared, as the tensor cores read a raw f32 word.
+    Infinities and NaNs pass through."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round: float32 only, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    if not truncate:
+        bits = bits + 0x1000
+    out = (bits & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), out, x)
+
+
+def tf32_split(x: torch.Tensor, *, truncate: bool = False):
+    """``(big, small)``, the tf32x3 route's split of float32 ``x``: big =
+    tf32(x), small = tf32(x - big); x - big - small is ~2^-22·|x| (2^-21
+    with ``truncate``, the kernel's compile-time alternative)."""
+    big = tf32_round(x, truncate=truncate)
+    return big, tf32_round(x - big, truncate=truncate)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, *, passes: int = 3,
+                  truncate: bool = False) -> torch.Tensor:
+    """``a @ b`` of float32 matrices as the tf32x3 route's products
+    compute it: both split by :func:`tf32_split`, then small·big +
+    big·small, then + big·big (a product of two TF32 values is exact in
+    f32; the sums round in f32). ``passes=1``: big·big alone — one TF32
+    pass, the DEFAULT route's arithmetic."""
+    if passes not in (1, 3):
+        raise ValueError(f"tf32x3_matmul: passes must be 1 or 3, got "
+                         f"{passes}")
+    a_big, a_small = tf32_split(a, truncate=truncate)
+    b_big, b_small = tf32_split(b, truncate=truncate)
+    if passes == 1:
+        return a_big @ b_big
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def flash_attention_tf32x3_emulated(q, k, v, *, scale=None,
+                                    causal: bool = False, passes: int = 3,
+                                    truncate: bool = False,
+                                    k_tile: "int | None" = None):
+    """The tf32x3 route's fold emulated on float32 (L, d) self-attention
+    operands from the fresh carry: :func:`flash_attention_block_ref`'s
+    online softmax over key tiles of the route's width
+    (``FLASH_K_TILES["tf32x3"]``), S = Q·Kᵀ and P·V by
+    :func:`tf32x3_matmul` (P split as the kernel splits it in registers),
+    then acc / l. ``passes=1`` folds with one TF32 pass instead."""
+    from tpu_mpi_tests_torch.comm.ring import online_softmax_update
+
+    _check_flash_operands("flash_attention_tf32x3_emulated", q, k, v)
+    if q.dtype != torch.float32 or q.dim() != 2:
+        raise ValueError("flash_attention_tf32x3_emulated: (L, d) float32 "
+                         "operands")
+    L, d = q.shape
+    scale = d**-0.5 if scale is None else scale
+    kt = k_tile or FLASH_K_TILES["tf32x3"]
+    mm = functools.partial(tf32x3_matmul, passes=passes, truncate=truncate)
+    m, l, acc = _attention_carry(q)
+    q_pos = torch.arange(L)
+    for j0 in range(0, k.shape[0], kt):
+        kb, vb = k[j0:j0 + kt], v[j0:j0 + kt]
+        s = mm(q, kb.T) * scale
+        if causal:
+            k_pos = torch.arange(j0, j0 + kb.shape[0])
+            s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                            float("-inf"))
+        m, l, p, corr = online_softmax_update(m, l, s, keepdims=True)
+        acc = acc * corr + mm(p, vb)
+    return acc / l
+
+
 # ---------------------------------------------------------------------------
 # fused ring attention: every ring step in one launch
 # ---------------------------------------------------------------------------
@@ -2703,7 +2790,9 @@ def fused_ring_feasible(lq: int, lk: int, d: int, dtype,
     where one exists (on the CPU the plain version needs none; one rank
     forwards nothing). The JAX gate's VMEM model and
     sublane rule (``collectives_pallas.py:344-373``) are the TPU's: the
-    CUDA kernel streams 64-row tiles through shared memory at any length.
+    CUDA kernel streams 64-row tiles through shared memory at any length,
+    on every route in a fixed footprint (the tf32x3 route's, 224 KB, the
+    largest, holds one CTA an SM at any lq, lk and d <= 128).
     Drivers consult it to decline with a NOTE (``attnbench``)."""
     if dtype not in _FLASH_DTYPES or not 1 <= d <= FLASH_MAX_D \
             or lq < 1 or lk < 1:
@@ -2818,7 +2907,8 @@ def fused_ring_attention(q, k, v, *, scale=None, causal: bool = False,
     body at JAX's causal positions (contiguous or ``stripe``d), so the
     result equals the pipelined flash tier's (w launches of
     :func:`flash_attention_block`) bit for bit. ``precision``: "highest"
-    (f32 on the CUDA cores) or "default" (the tensor cores).
+    (f32 arithmetic: 3xTF32 on the tensor cores or the CUDA cores, by
+    :func:`flash_route`) or "default" (the tensor cores).
 
     ``self_ring=k`` (world 1 only, 2 <= k <= 8): the full k-step schedule
     into the rank's own slots, folding its own block k times. An

@@ -387,11 +387,11 @@ def bench_stripebalance(results, device, w=8, lq=4096, d=128,
     the future are dead (every tile skipped) and set to 0 unmeasured.
     ``TPU_MPI_STRIPE_DTYPE=bfloat16`` runs the grids at bf16 DEFAULT (the
     ``wgmma`` route) and tags the rows ``_bfloat16``; float32 runs at
-    HIGHEST (the ``fma`` route). Then the ``to_striped``/``from_striped``
+    HIGHEST (the ``tf32x3`` route). Then the ``to_striped``/``from_striped``
     permutes at the ring's global (L, d).
 
-    The key tile is the route's own (``hand.FLASH_K_TILES``: 64 on
-    ``fma``, 128 on ``wgmma``) where the JAX group sweeps its kernel's
+    The key tile is the route's own (``hand.FLASH_K_TILES``: 32 on
+    ``tf32x3``, 128 on ``wgmma``) where the JAX group sweeps its kernel's
     ``k_tile``; the card's fold takes no tile argument. Left out: the JAX
     rows ``stripe_striped_coupled_*`` and ``stripe_skip_decouple_gain_*``,
     which price the TPU kernel's ``skip_tile``: the CUDA fold masks by
