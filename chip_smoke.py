@@ -376,7 +376,22 @@ failure exits non-zero and prints no result line):
    also queued), its flop bound (live pairs of this run's masks) and
    ``F.scaled_dot_product_attention`` where one call computes the same
    function (K/V tiled k times on the dense self-ring);
-6. print the card line, the ``kernels`` JSON line and, last, the device
+6. the chained rows, eager and graph (``run_chain_slice``): every
+   chained path this script drives, timed by ``chain_rate`` both ways in
+   the same run (``graph=False``: the Python loop of launches between
+   CUDA events; the default on the card: replays of CUDA graphs), one
+   ``CHAIN <path> eager_s= graph_s= host_gap=`` line each (host_gap = 1 -
+   graph/eager): the bench tiers ``blocks`` (f32 at 8192, its prior k
+   and S), ``rdma-chained`` and ``rdma-fused`` (k = 4), ``collbench``'s
+   body at world 1 from 4 KiB to 16 MiB, one ``decode`` row, one flash
+   attention chain and microbench ``roofline2``'s heat chains at 2048²
+   with both fits (``HEATFIT``); each graph chain's final state equal to
+   the eager chain's bit for bit, and the periodic RDMA self-ring chains
+   (``ring_halo`` + iterate, and the fused kernel) captured once and
+   replayed :data:`CHAIN_REPLAYS` times, equal to the eager chain after
+   every replay (the kernels read their epochs from the pad's launch
+   counter, so a replay takes new ones);
+7. print the card line, the ``kernels`` JSON line and, last, the device
    JSON line.
 """
 
@@ -550,10 +565,9 @@ STAGED_EXCHANGES = 20
 # the route each staged operand's pack and unpack take (hand.pack_route):
 # whole 16-byte vectors along axis 0; an 8-byte band a row along axis 1
 STAGED_ROUTES = {0: "vec16", 1: "vec8"}
-# roofline2 a second time at sizes whose per-body device work outlasts the
-# host's enqueue time on this card (the JAX sizes, 2048^2 and 2056..4104,
-# are host-bound in a Python loop of launches); same size ratios, so the
-# same chain lengths
+# roofline2 a second time at larger sizes (the JAX sizes, 2048^2 and
+# 2056..4104, were host-bound before the chains were graph replays); same
+# size ratios, so the same chain lengths
 ROOFLINE_LARGE = {"n": GRID_N, "sizes": (4104, 5800, 8200)}
 STENCIL1D_N = 32 * 1024 * 1024   # the 1-D driver's default size
 RING_SOURCE = "tpu_mpi_tests_torch/kernels/csrc/ring_halo.cu"
@@ -622,6 +636,18 @@ COLLBENCH_N_ITER = 500
 #: the timed operand: a 16 MiB float32 shard, on a 4-step self-ring
 COLL_TIMED_N, COLL_TIMED_K = 4 * 1024 * 1024, 4
 N26, N28 = 1 << 26, 1 << 28
+#: the chain phase (run_chain_slice): collbench's bodies at world 1 (the
+#: library tier and the three hand kernels' rows) and their chains
+CHAIN_COLL_NAMES = ("allreduce", "allreduce_rdma", "allreduce_oneshot",
+                    "allgather_rdma")
+CHAIN_COLL_ITERS = (100, 1100)
+#: replays of one captured RDMA self-ring chain, each held against the
+#: eager chain
+CHAIN_REPLAYS = 3
+#: calls of each captured RDMA chain (even: the result is the input half)
+CHAIN_REPLAY_CALLS = 20
+#: microbench roofline2's heat fit at the JAX size
+HEAT_FIT_N, HEAT_FIT_KS = 2048, (2, 4, 6, 8)
 # launches each microbench group's schedule makes (microbench.py):
 # dispatch_rate = 1 warm + n_base + (n_base + n_iter) calls; chain_rate =
 # 3 warm + n_short + n_long launches
@@ -5471,6 +5497,172 @@ def run_coll_slice(device, counts, peaks):
              float(r[2]), "n": int(r[4])} for r in rows]
 
 
+def _clone_state(state):
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return type(state)(_clone_state(t) for t in state)
+
+
+def chain_both(path, run, state, n_short, n_long, repeats=1):
+    """``chain_rate`` over ``run`` from copies of one start, eagerly
+    (``graph=False``) and as CUDA graph replays (the default on the
+    card), logged as a ``CHAIN`` line; fails unless the two final states
+    are equal bit for bit. Returns ``{"eager_s", "graph_s",
+    "host_gap"}``."""
+    from tpu_mpi_tests_torch.instrument.timers import chain_rate
+
+    eager_s, eager = chain_rate(run, _clone_state(state), n_short=n_short,
+                                n_long=n_long, repeats=repeats, graph=False)
+    graph_s, graph = chain_rate(run, _clone_state(state), n_short=n_short,
+                                n_long=n_long, repeats=repeats)
+    if not _states_equal(eager, graph):
+        raise SmokeFailure(f"CHAIN {path}: the graph chain's final state "
+                           f"differs from the eager chain's")
+    gap = 1.0 - graph_s / eager_s
+    log(f"CHAIN {path} eager_s={eager_s:.6e} graph_s={graph_s:.6e} "
+        f"host_gap={gap:.4f} n={n_short},{n_long} final state bit for bit")
+    return {"eager_s": eager_s, "graph_s": graph_s, "host_gap": gap}
+
+
+def replay_check(path, run, state, calls=CHAIN_REPLAY_CALLS,
+                 replays=CHAIN_REPLAYS):
+    """Capture ``run(state, calls)`` once and replay it ``replays`` times
+    on its own output, an eager chain of the same calls beside it from
+    the same start; fails unless the two are equal bit for bit after
+    every replay. Returns the replays that matched."""
+    import torch
+
+    eager = run(_clone_state(state), 3)
+    mine = run(_clone_state(state), 3)  # warm: the peer pair, the build
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run(mine, calls)
+    matched = 0
+    for i in range(replays):
+        g.replay()
+        eager = run(eager, calls)
+        torch.cuda.synchronize()
+        if not _states_equal(out, eager):
+            raise SmokeFailure(f"REPLAY {path}: replay {i + 1} of the "
+                               f"captured chain differs from the eager "
+                               f"chain")
+        matched += 1
+        if out.data_ptr() != mine.data_ptr():
+            mine.copy_(out)
+    del g
+    log(f"REPLAY {path}: {replays} replays of {calls} captured calls equal "
+        f"the eager chain bit for bit after each")
+    return matched
+
+
+def run_chain_slice(device):
+    """Phase 6: each chained path timed eagerly and as graph replays in
+    one run (:func:`chain_both`), the RDMA self-ring replays
+    (:func:`replay_check`). Returns the rows by path."""
+    import numpy as np
+    import torch
+
+    from tpu_mpi_tests_torch import bench
+    from tpu_mpi_tests_torch.comm import halo as H
+    from tpu_mpi_tests_torch.drivers import collbench
+    from tpu_mpi_tests_torch.kernels import hand
+    from tpu_mpi_tests_torch.tune import priors
+
+    rows = {}
+    k = priors.BENCH_STEPS
+    for tier, steps in (("blocks", k), ("rdma-chained", 4),
+                        ("rdma-fused", 4)):
+        run, state, _, _ = bench.build_schedule(
+            "float32", n=BENCH_N, steps=steps,
+            n_blocks=priors.bench_blocks("float32"), tier=tier,
+            device=device)
+        n_short = max(1, BENCH_ITERS_SHORT // steps)
+        n_long = max(n_short + 1, BENCH_ITERS_LONG // steps)
+        rows[f"bench {tier}"] = chain_both(
+            f"bench_{tier}_float32_{BENCH_N}_k{steps}", run, state,
+            n_short, n_long)
+        del run, state
+    torch.cuda.empty_cache()
+
+    # the RDMA self-ring: periodic at world 1, so every launch signals
+    # itself and waits for its own arrivals at the launch's epoch
+    K = 2 * 4
+    z = torch.randn((BENCH_N, BENCH_N + 2 * K), device=device,
+                    generator=torch.Generator(device=device).manual_seed(9))
+    rows["replay ring_halo"] = replay_check(
+        "ring_halo + iterate, periodic self-ring, k=4",
+        H.iterate_hand_fn(K, BENCH_SE, axis=1, steps=4, periodic=True,
+                          rdma=True), z)
+    zf = torch.randn((BENCH_N + 2 * K, BENCH_N), device=device,
+                     generator=torch.Generator(device=device).manual_seed(8))
+    rows["replay fused"] = replay_check(
+        "stencil2d_fused_rdma, periodic self-ring, k=4",
+        H.iterate_fused_rdma_fn(K, BENCH_SE, axis=0, steps=4,
+                                periodic=True), zf)
+    del z, zf
+    torch.cuda.empty_cache()
+
+    for name in CHAIN_COLL_NAMES:
+        for kib in COLLBENCH_SIZES_KIB:
+            x = torch.ones(kib * 1024 // 4, device=device)
+            rows[f"collbench {name} {kib} KiB"] = chain_both(
+                f"collbench_{name}_{kib}KiB_world1",
+                collbench._loop_fn(name, 1, 0), x, *CHAIN_COLL_ITERS)
+    x = torch.ones(8 * DECODE_HEADS, dtype=torch.bfloat16, device=device)
+    rows["decode"] = chain_both(
+        f"decode_allreduce[oneshot]_batch8_heads{DECODE_HEADS}_bf16",
+        collbench._loop_fn("allreduce_oneshot", 1, 0), x,
+        DECODE_N_ITER // 10, DECODE_N_ITER)
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    qkv = tuple(torch.randn((ATTN_L, ATTN_D), generator=gen, device=device)
+                for _ in range(3))
+
+    def attn_loop(st, n):
+        q, kk, v = st
+        for _ in range(n):
+            q = hand.flash_attention(q, kk, v, precision="highest")
+        return q, kk, v
+
+    rows["attention"] = chain_both(
+        f"flash_attention_{ATTN_L}x{ATTN_D}_float32_highest", attn_loop,
+        qkv, 10, 110)
+    del qkv
+
+    karr = np.array(HEAT_FIT_KS, np.float64)
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        t = {"eager_s": [], "graph_s": []}
+        for k in HEAT_FIT_KS:
+            z = (torch.randn((HEAT_FIT_N + 2 * k,) * 2, generator=gen,
+                             device=device) / 10).to(dtype)
+            r = chain_both(f"heat_{dname}_{HEAT_FIT_N}_k{k}",
+                           H.heat_step2d_fn(k, 0.05, 0.05, steps=k,
+                                            kernel="hand"), z,
+                           max(2, 50 // k), max(20, 2000 // k))
+            for key in t:
+                t[key].append(r[key])
+        fits = {key: np.polyfit(karr, np.array(v), 1)
+                for key, v in t.items()}
+        # a step that costs nothing is no fit (microbench prints NaN)
+        b = {key: float(f[0]) if f[0] > 0 else float("nan")
+             for key, f in fits.items()}
+        log(f"HEATFIT roofline_heat_{dname} {HEAT_FIT_N}^2 marginal "
+            f"eager {b['eager_s'] * 1e6:.4f} us/step (a="
+            f"{fits['eager_s'][1] * 1e6:.2f} us), graph "
+            f"{b['graph_s'] * 1e6:.4f} us/step (a="
+            f"{fits['graph_s'][1] * 1e6:.2f} us), finite "
+            f"{math.isfinite(b['graph_s'])}")
+        rows[f"heatfit {dname}"] = {"eager_marginal_s": b["eager_s"],
+                                    "graph_marginal_s": b["graph_s"],
+                                    "eager_s": t["eager_s"],
+                                    "graph_s": t["graph_s"]}
+    return rows
+
+
 def time_coll_kernels(device, gen):
     """Per-launch device times of the collective kernels (CUDA events,
     warmed, the launches queued behind a stall: most of these launches are
@@ -7601,6 +7793,8 @@ def main() -> int:
         errs = check_kernels(device)
         torch.cuda.empty_cache()
         counts, per_step, recs = run_main_path(device)
+        torch.cuda.empty_cache()
+        recs["chain"] = run_chain_slice(device)
         torch.cuda.empty_cache()
         rows = time_kernels(device)
         ceiling = next(r["value"] for r in recs["microbench"]

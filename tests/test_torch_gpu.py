@@ -2192,3 +2192,140 @@ def test_bench_tune_on_card(card, monkeypatch, capsys, tmp_path):
     rec2 = bench.main(["--device", "cuda"])
     err = capsys.readouterr().err
     assert "(cache)" in err and rec2["schedule"] == rec["schedule"]
+
+
+# ---------------------------------------------------------------------------
+# chained rows as CUDA graph replays (instrument/timers.chain_rate) and
+# the RDMA kernels' epochs from the pad's launch counter
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tier", ["blocks", "rdma-chained", "rdma-fused"])
+def test_bench_graph_chain_equals_eager(card, tier):
+    """A bench run's chain as graph replays ends where the eager chain
+    ends, bit for bit (chip_smoke.chain_both raises otherwise)."""
+    from tpu_mpi_tests_torch import bench
+
+    run, state, _, _ = bench.build_schedule("float32", n=512, steps=4,
+                                            n_blocks=2, tier=tier,
+                                            device=card)
+    got = CS.chain_both(f"bench {tier}", run, state, 3, 17, repeats=2)
+    assert got["eager_s"] > 0 and got["graph_s"] > 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_rdma_self_ring_chain_replayed_three_times(card, fused):
+    """One capture of a periodic self-ring chain, replayed three times on
+    its own output, equals the eager chain after every replay: each
+    replayed launch reads a new epoch from the pad."""
+    K = 8
+    if fused:
+        run = TH.iterate_fused_rdma_fn(K, 1e-4, axis=0, steps=4,
+                                       periodic=True)
+        z = rand(card, (384 + 2 * K, 256), torch.float32, seed=11)
+    else:
+        run = TH.iterate_hand_fn(K, 1e-4, axis=1, steps=4, periodic=True,
+                                 rdma=True)
+        z = rand(card, (256, 384 + 2 * K), torch.float32, seed=12)
+    assert CS.replay_check(f"self-ring fused={fused}", run, z, calls=6,
+                           replays=3) == 3
+
+
+def test_graph_chain_keeps_the_route_counts(card):
+    """The counts after a graph chain are the launches the card ran: the
+    same, per kernel and per route, as the eager chain's."""
+    from tpu_mpi_tests_torch.instrument.timers import chain_rate
+
+    run = TH.iterate_hand_fn(8, 1e-4, axis=1, steps=4, periodic=True,
+                             rdma=True)
+    z = rand(card, (256, 272), torch.float32, seed=13)
+    got = {}
+    for graph in (False, None):
+        hand.reset_launch_counts()
+        chain_rate(run, z.clone(), n_short=4, n_long=20, repeats=2,
+                   graph=graph)
+        got[graph] = (hand.launch_counts(), hand.route_counts())
+    assert got[None] == got[False]
+    assert got[None][0]["ring_halo"] == 3 + 2 * (4 + 20)
+    assert got[None][0]["stencil2d_iterate"] == 3 + 2 * (4 + 20)
+
+
+#: one process: seed the pad's launch counter (words 60-61, one 64-bit
+#: word: the launches before, in its high half), then two periodic
+#: self-ring halo launches, each waited for
+_EPOCH_SCRIPT = """
+import sys
+import torch
+from tpu_mpi_tests_torch.comm import peer
+from tpu_mpi_tests_torch.kernels import hand
+
+dev = torch.device("cuda", 0)
+z = torch.zeros((64, 48), device=dev)
+hand.ring_halo(z, 1, 8, True)
+pad = peer.peer_ring(dev).pad
+pad[60:62].view(torch.int64).fill_(int(sys.argv[1]) << 32)
+for i in range(2):
+    hand.ring_halo(z, 1, 8, True)
+    torch.cuda.synchronize(dev)
+    print("LAUNCHES", int(pad[61]), flush=True)
+"""
+
+
+@pytest.mark.parametrize("before, ran", [(5, [6, 7]),
+                                         (2**31 - 2, [2**31 - 1])])
+def test_epoch_overflow_traps(card, before, ran):
+    """The launch after a pad's 2^31 - 1st fails (the kernel traps)
+    instead of taking a wrapped epoch that meets every wait at once."""
+    import subprocess
+    import sys
+
+    repo = Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "-c", _EPOCH_SCRIPT, str(before)],
+                       cwd=repo, capture_output=True, text=True, timeout=300)
+    got = [int(line.split()[1]) for line in r.stdout.splitlines()
+           if line.startswith("LAUNCHES")]
+    assert got == ran, r.stdout + r.stderr
+    assert (r.returncode == 0) == (len(ran) == 2), r.stderr
+
+
+def test_a_launch_outside_the_capture_raises(card):
+    """A hand launch that the capture counted but did not record (queued
+    on a stream outside the capture, it runs once, eagerly) fails the
+    graph chain: the graphs' kernel nodes are held against the counts."""
+    from tpu_mpi_tests_torch.instrument.timers import chain_rate
+
+    side = torch.cuda.Stream(card)
+    src, dst = torch.ones(1024, device=card), torch.empty(1024, device=card)
+
+    def run(x, n):
+        for _ in range(n):
+            with torch.cuda.stream(side):
+                hand.daxpy(2.0, src, src, out=dst)
+            x = x + 1
+        return x
+
+    with pytest.raises(RuntimeError, match="daxpy.*counted"):
+        chain_rate(run, torch.zeros(1024, device=card), n_short=1,
+                   n_long=3)
+    torch.cuda.synchronize(card)
+
+
+def _positive(x) -> float:
+    """A host read (a helper's: the capture-purity rule is lexical)."""
+    return float(x.sum().item() > 0)
+
+
+def test_a_failed_capture_raises(card):
+    """A body that reads to the host cannot be captured: the error is
+    raised, with no eager chain in its place."""
+    from tpu_mpi_tests_torch.instrument.timers import chain_rate
+
+    def run(x, n):
+        for _ in range(n):
+            x = x + _positive(x)
+        return x
+
+    with pytest.raises(RuntimeError):
+        chain_rate(run, torch.zeros(8, device=card), n_short=1, n_long=3)
+    # the card is usable after it
+    assert chain_rate(lambda x, n: x + n, torch.zeros(8, device=card),
+                      n_short=1, n_long=3)[1].sum().item() == 8 * 7

@@ -26,8 +26,8 @@ FIXTURES = REPO / "tpu_mpi_tests_torch" / "analysis" / "fixtures"
 JAX_FIXTURES = REPO / "tpu_mpi_tests" / "analysis" / "fixtures"
 
 #: the single-file families' fixture stems
-FILE_FAMILIES = ["tpm1", "tpm302", "tpm6", "tpm7", "tpm8", "tpm10",
-                 "tpm1102", "tpm1301", "tpm14"]
+FILE_FAMILIES = ["tpm1", "tpm210", "tpm302", "tpm6", "tpm7", "tpm8",
+                 "tpm10", "tpm1102", "tpm1301", "tpm14"]
 #: the whole-program families: mini package trees, the hazard and the
 #: helper it reaches in different files
 TREE_FAMILIES = ["tpm4", "tpm11", "tpm16", "tpm17"]

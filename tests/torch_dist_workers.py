@@ -268,7 +268,6 @@ def suite_rdma(rank, world, out_dir):
     from tpu_mpi_tests_torch import bench
     from tpu_mpi_tests_torch.comm import halo as H
     from tpu_mpi_tests_torch.comm import peer
-    from tpu_mpi_tests_torch.utils import TpuMtError
 
     for st, ax, per, nd in EXCHANGE_CASES:
         if st != "pallas":
@@ -341,13 +340,21 @@ def suite_rdma(rank, world, out_dir):
                   lambda argv: json.dumps(bench.main(argv)), ["--device",
                                                                "cpu"])
     os.environ["TPU_MPI_BENCH_N"] = "65"  # not a multiple of the world
-    try:
-        bench.main(["--device", "cpu"])
-        got = "no error"
-    except TpuMtError as e:
-        got = str(e)
+    got = _error_text(bench.main, ["--device", "cpu"])
     with open(os.path.join(out_dir, f"bench_n65.r{rank}.txt"), "w") as f:
         f.write(got)
+
+
+def _error_text(fn, *args) -> str:
+    """The text of the ``TpuMtError`` that ``fn(*args)`` raises, or "no
+    error"."""
+    from tpu_mpi_tests_torch.utils import TpuMtError
+
+    try:
+        fn(*args)
+    except TpuMtError as e:
+        return str(e)
+    return "no error"
 
 
 #: the collectives' shard cases: (name, global shape, dtype); the 1-D and

@@ -25,6 +25,10 @@ rule families (stable codes, the JAX linter's meanings):
                           (torch.cuda.synchronize, Event.synchronize,
                           .item(), timers.block/block_stream, comm_span);
                           TPM102: through a helper, via the summaries
+  TPM210 capture-purity   host wait/read, host epoch (next_epoch),
+                          time read, print or Reporter record in a body
+                          captured into a CUDA graph (torch.cuda.graph,
+                          chain_rate's run without graph=False)
   TPM302 epoch-precision  time.time() onto a tensor at the default
                           float32 (128 s at today's epoch)
   TPM4xx import-hygiene   module-level `import torch` reachable from
@@ -55,7 +59,7 @@ rule families (stable codes, the JAX linter's meanings):
                           seq-stamped span streams: TPM1704 stream no
                           static path generates, TPM1705 rank stream
                           ending with a mandatory collective un-emitted
-  not carried: TPM2xx (the port has no traced functions), TPM301
+  not carried: TPM201 (the port has no traced functions), TPM301
   (torch's float32 default is documented), TPM5xx (process groups are
   objects, not named axes), TPM12xx (torch has no donate_argnums)
 

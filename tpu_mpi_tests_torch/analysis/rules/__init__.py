@@ -2,18 +2,20 @@
 
 Codes keep the JAX package's meanings (a code is never reused for a
 different hazard), so a suppression means the same in both trees. The
-families that do not carry over leave their codes unused: TPM2xx trace
-purity (the port has no traced functions), TPM301 (torch's float32
-default is documented behaviour, not a flag), TPM5xx axis consistency
-(process groups are objects, not named mesh axes) and TPM12xx donation
-(torch has no ``donate_argnums``). File-scope rules see one parsed file;
-project-scope rules see the whole linted program as serialized facts
-(``analysis/program.py``).
+families that do not carry over leave their codes unused: TPM201 trace
+purity (the port has no traced functions; its TPM2xx code is TPM210,
+capture purity, for the bodies it captures into CUDA graphs), TPM301
+(torch's float32 default is documented behaviour, not a flag), TPM5xx
+axis consistency (process groups are objects, not named mesh axes) and
+TPM12xx donation (torch has no ``donate_argnums``). File-scope rules see
+one parsed file; project-scope rules see the whole linted program as
+serialized facts (``analysis/program.py``).
 """
 
 from tpu_mpi_tests_torch.analysis.rules.broadcast_consistency import (
     BroadcastConsistency,
 )
+from tpu_mpi_tests_torch.analysis.rules.capture_purity import CapturePurity
 from tpu_mpi_tests_torch.analysis.rules.chaos_containment import (
     ChaosContainment,
 )
@@ -52,6 +54,7 @@ from tpu_mpi_tests_torch.analysis.rules.sync_honesty import (
 ALL_RULES = [
     SyncHonesty(),
     InterprocSyncHonesty(),
+    CapturePurity(),
     EpochPrecision(),
     ImportHygiene(),
     UnlockedSharedWrite(),

@@ -34,8 +34,9 @@ exchange in flight on a comm stream under the iterate kernel, where the
 JAX bench applies it — on the card, the ``blocks`` tier's dim-1 single
 buffer at ``_STEPS=1``; anywhere else a NOTE, and the serialized
 schedule runs). The schedule string names the depth that ran
-(``_ov1``/``_ov2``). Chaining is a Python loop of launches;
-two run lengths are differenced with CUDA events on the card.
+(``_ov1``/``_ov2``). Chaining is ``chain_rate``: on the card two run
+lengths are captured as CUDA graphs, replayed between CUDA events and
+differenced.
 ``vs_baseline`` compares against the V100 equal-width roofline the root
 bench defines (``bench.py:445-448``): (2 reads + 1 write) × itemsize ×
 8192² bytes per iteration over 810 GB/s.

@@ -9,7 +9,7 @@ Design contract (README "Chaos & diagnosis"):
   (:func:`~tpu_mpi_tests_torch.instrument.timers.add_phase_hook`), the
   serve loop's flood slot (``serve/loop._CHAOS_FLOOD``) and, for the
   uniform straggler, :func:`~tpu_mpi_tests_torch.instrument.timers.block`
-  itself. A disarmed run installs nothing.
+  and ``block_stream`` themselves. A disarmed run installs nothing.
 * **Decisions resolve at arm time, not per call.** ``arm()`` bakes the
   rank, op, phase and threshold choices into closures; the per-event
   hook does a prefix match and a counter bump. Faults whose rank does
@@ -237,29 +237,35 @@ def _flood_hook_for(spec: FaultSpec):
 
 
 def _wrap_block(spec: FaultSpec) -> None:
-    """Uniform straggler: wrap ``timers.block``, the sync point every
-    measured phase passes through (``comm_span`` and the specs import it
-    at call time), so the delay lands inside the measured windows and the
-    rank reads as a uniformly slow device. Restored by :func:`disarm`."""
+    """Uniform straggler: wrap ``timers.block`` and
+    ``timers.block_stream``, the sync points every measured phase and
+    span passes through (``comm_span`` and the specs look them up at call
+    time), so the delay lands inside the measured windows and the rank
+    reads as a uniformly slow device. One count over both. Restored by
+    :func:`disarm`."""
     global _ORIG_BLOCK
     from tpu_mpi_tests_torch.instrument import timers
 
     if _ORIG_BLOCK is not None:
         return  # already wrapped (one uniform straggler is enough)
-    _ORIG_BLOCK = orig = timers.block
+    _ORIG_BLOCK = (timers.block, timers.block_stream)
     count = [0]
     slowed = [False]
 
-    def slow_block(*trees):
-        count[0] += 1
-        if count[0] >= spec.after:
-            if not slowed[0]:
-                slowed[0] = True
-                _fire_record(spec)
-            time.sleep(spec.delay_ms / 1e3)
-        return orig(*trees)
+    def slowed_down(orig):
+        def slow(*trees):
+            count[0] += 1
+            if count[0] >= spec.after:
+                if not slowed[0]:
+                    slowed[0] = True
+                    _fire_record(spec)
+                time.sleep(spec.delay_ms / 1e3)
+            return orig(*trees)
 
-    timers.block = slow_block
+        return slow
+
+    timers.block = slowed_down(_ORIG_BLOCK[0])
+    timers.block_stream = slowed_down(_ORIG_BLOCK[1])
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +345,6 @@ def disarm() -> None:
         timers.remove_phase_hook(_PHASE_HOOK)
         _PHASE_HOOK = None
     if _ORIG_BLOCK is not None:
-        timers.block = _ORIG_BLOCK
+        timers.block, timers.block_stream = _ORIG_BLOCK
         _ORIG_BLOCK = None
     serve_loop._CHAOS_FLOOD = None

@@ -17,7 +17,8 @@ or, with ``kernel="hand"``, by the CUDA pack/unpack kernels; torch is
 row-major, so the dim-1 bands are always packed before a send.
 
 Runners (``run(state, n_iter) -> state``) chain ``n_iter`` iterations as
-a Python loop of launches:
+a Python loop of launches, which ``chain_rate`` captures into a CUDA
+graph on the card (no host wait or read inside a runner):
 
 * :func:`iterate_fused_fn` — the torch-op tier (≅ the XLA tier,
   ``halo.py:591``): exchange, 5-point derivative, ``interior += eps·dz``
@@ -659,8 +660,12 @@ def _phys_kwargs(ring, periodic: bool, device, side=(True, True)):
     if ring.size == 1:
         return {"phys_static": tuple(int(s) for s in side)}
     lo, hi = ring.phys(periodic)
-    flags = [lo if side[0] else 0, hi if side[1] else 0]
-    return {"phys": torch.tensor(flags, dtype=torch.int32, device=device)}
+    phys = torch.empty(2, dtype=torch.int32, device=device)
+    # filled on the device, not copied from the host: a chained runner's
+    # body stays legal inside a CUDA graph capture
+    phys[0].fill_(int(lo if side[0] else 0))
+    phys[1].fill_(int(hi if side[1] else 0))
+    return {"phys": phys}
 
 
 def iterate_hand_fn(n_bnd: int, scale_eps: float, axis: int = 1,
@@ -1281,6 +1286,17 @@ def _post_edges(z, ring, axis: int, nb: int, periodic: bool):
     return ring.sendrecv_start(lo, hi, periodic)
 
 
+def _comm_stream(z: torch.Tensor, ring):
+    """The overlap runner's comm stream: one on the card at world > 1;
+    None at world 1, where nothing is in flight (the self-ring's edges
+    are views of ``z``), so a fork and join would wrap no work. Such
+    empty forks make a captured chain's instantiation superlinear in its
+    length (``gpu/capture_cost.py`` times both at one commit)."""
+    if z.is_cuda and ring.size > 1:
+        return torch.cuda.Stream(device=z.device)
+    return None
+
+
 def iterate_overlap_fn(n_bnd: int, scale_eps: float, axis: int = 1,
                        periodic: bool = False):
     """The per-step iterate with the exchange in flight under the kernel
@@ -1301,7 +1317,8 @@ def iterate_overlap_fn(n_bnd: int, scale_eps: float, axis: int = 1,
     The result equals :func:`iterate_hand_fn` at ``steps=1`` bit for bit
     (the JAX function's strips take ``stencil1d_5``'s arithmetic and
     agree to roundoff). ``n_bnd`` must be the stencil radius. No host
-    wait inside the loop: ``chain_rate`` times it with events."""
+    wait inside the loop: ``chain_rate`` captures it into a CUDA graph.
+    At world 1 no comm stream is forked (:func:`_comm_stream`)."""
     _check_radius("iterate_overlap_fn", n_bnd)
     nb = n_bnd
 
@@ -1309,7 +1326,7 @@ def iterate_overlap_fn(n_bnd: int, scale_eps: float, axis: int = 1,
         ring = make_mesh()
         flags = _phys_kwargs(ring, periodic, z.device)
         spare = torch.empty_like(z)
-        comm = torch.cuda.Stream(device=z.device) if z.is_cuda else None
+        comm = _comm_stream(z, ring)
         se, c1, c2 = (coef(v, z) for v in (scale_eps, STENCIL5[3],
                                            STENCIL5[4]))
         for _ in range(n_iter):

@@ -37,18 +37,23 @@ only by the rank's own CTAs (the work ticket and the done counter, each
 reset to 0 by the last CTA of a launch). Words 6-59 belong to the
 collective kernels: per-step arrival flags for the all-gather, arrival
 and credit flags for the reduce-scatter, per-rank barrier and arrival
-flags for the one-shot, and their CTAs' own counters. Words 64-98
-belong to the fused ring attention: its entry barrier from either
-neighbour, per-step arrival and credit flags, and its CTAs' per-step
-send and retire counters and exit counter. So the collectives and the
-fused ring attention run on at most :data:`COLL_MAX_WORLD` ranks
-(:class:`PeerError` beyond).
+flags for the one-shot, and their CTAs' own counters. Words 60-61 are
+the pad's launch counter (one 64-bit word). Words 64-98 belong to the
+fused ring attention: its entry barrier from either neighbour, per-step
+arrival and credit flags, and its CTAs' per-step send and retire
+counters and exit counter. So the collectives and the fused ring
+attention run on at most :data:`COLL_MAX_WORLD` ranks (:class:`PeerError`
+beyond).
 
-Epochs count every RDMA launch of the process up from 1 (:meth:`PeerRing.
-next_epoch`), one per launch of any RDMA kernel — the ring halo kernels,
-the collectives and the fused ring attention share the count — so they agree across ranks as long
-as every rank makes the same sequence of RDMA launches (SPMD), and a
-peer's later epoch never reads as an earlier one.
+Epochs count the RDMA launches on a pad up from 1, one per launch of
+any RDMA kernel — the ring halo kernels, the collectives and the fused
+ring attention share the count — so they agree across ranks as long as
+every rank makes the same sequence of RDMA launches (SPMD), and a
+peer's later epoch never reads as an earlier one. The count lives on
+the card, in the pad's launch counter: each kernel reads its epoch there
+at entry and its last CTA to enter advances it (``launch_epoch``,
+``ring_common.cuh``). No launch takes an epoch from the host, so a
+launch captured into a CUDA graph takes a new epoch at every replay.
 """
 
 from __future__ import annotations
@@ -82,8 +87,9 @@ class _Allocation:
 
 
 class PeerRing:
-    """The ring's peer memory on one device: the signal pad, the
-    allocations made in peer memory, and the epoch counter.
+    """The ring's peer memory on one device: the signal pad (with its
+    launch counter, the epochs' count) and the allocations made in peer
+    memory.
 
     An allocation lives as long as a tensor views it: when the last one
     goes, torch frees the memory and the ring forgets the allocation and
@@ -93,7 +99,6 @@ class PeerRing:
     def __init__(self, ring: Ring, device: torch.device):
         self.ring = ring
         self.device = device
-        self.epoch = 0
         self._allocs: dict[int, _Allocation] = {}
         self._workspaces: dict[str, torch.Tensor] = {}
         self.symmetric = device.type == "cuda" and ring.size > 1
@@ -242,13 +247,6 @@ class PeerRing:
             self._workspaces.pop(name, None)
             ws = self._workspaces[name] = self.empty((nbytes,), torch.uint8)
         return ws[:nbytes]
-
-    def next_epoch(self) -> int:
-        """The epoch of the next RDMA launch (1, 2, ...)."""
-        self.epoch += 1
-        if self.epoch >= 2**31:
-            raise PeerError("signal epoch overflow")
-        return self.epoch
 
 
 _RINGS: dict = {}

@@ -7,7 +7,9 @@ The reference is an MPI collective/neighbour-exchange suite (Allgather
 at a few fixed sizes; this driver sweeps every collective over a geometric
 ladder of message sizes, each measured as a chained loop
 (``instrument.timers.chain_rate``: two run lengths differenced, CUDA
-events on the card).
+graph replays between CUDA events on the card; over ranks the
+point-to-point rows, ``ppermute`` and ``alltoall``, time the Python loop
+of calls instead).
 
 Output per (collective, size), the JAX driver's line::
 
@@ -397,8 +399,14 @@ def run(args) -> int:
                     max(args.n_iter, args.n_iter * (1 << 20)
                         // max(shard_bytes, 1)),
                 )
+                # over ranks ppermute and alltoall ride NCCL point-to-point
+                # (Ring.shift, all_to_all_single's grouped sends), whose
+                # chain of 51200 calls at 4 KiB gave no row in 420 s as a
+                # graph on four cards (gpu/graph_worlds.sh): timed eagerly
+                p2p = world > 1 and name in ("ppermute", "alltoall")
                 sec, x = chain_rate(
-                    run_fn, x, n_short=n_eff // 10 or 1, n_long=n_eff
+                    run_fn, x, n_short=n_eff // 10 or 1, n_long=n_eff,
+                    graph=False if p2p else None,
                 )
                 moved = _busbw_bytes(name, shard_bytes, world)
                 # nothing moves at world 1: 0 GB/s, even where a host

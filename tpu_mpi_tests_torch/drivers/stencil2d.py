@@ -416,7 +416,7 @@ def _state_size(state) -> tuple[int, int]:
 def _iterate_tier_test(args, topo, rep) -> int:
     """The kernel-tier iterate leg: resolve ``stencil/tier`` (``auto``:
     explicit > cached > prior; under ``--tune`` a cache miss sweeps the
-    tiers first, each candidate timed by chained CUDA events on the card,
+    tiers first, each candidate timed by a chain of CUDA graph replays,
     a tier the world cannot run declined with its reason), time the
     exchange + update hot loop under it, then run the honesty checks of
     the JAX driver (``drivers/stencil2d.py:471``):

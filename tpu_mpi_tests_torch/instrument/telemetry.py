@@ -377,14 +377,15 @@ def _under_capture() -> bool:
 def comm_span(op: str, nbytes: int = 0, axis_name: str | None = None,
               world: int = 1, **meta):
     """Record one communication op: seconds (sync-honest when the body
-    sets ``span.result``), payload bytes and the derived bandwidth. An
-    inert span when telemetry is off. Spans nest: each level records its
-    own event and counter line."""
+    sets ``span.result``: the span waits for the current stream of the
+    result's device, not for the whole device), payload bytes and the
+    derived bandwidth. An inert span when telemetry is off. Spans nest:
+    each level records its own event and counter line."""
     reg = _TELEMETRY
     if not reg.enabled or _under_capture():
         yield _Span()
         return
-    from tpu_mpi_tests_torch.instrument.timers import block
+    from tpu_mpi_tests_torch.instrument import timers
 
     chaos_hook = _CHAOS_SPAN_HOOK
     if chaos_hook is not None:
@@ -399,7 +400,9 @@ def comm_span(op: str, nbytes: int = 0, axis_name: str | None = None,
         yield span
     finally:
         if span.result is not None:
-            block(span.result)
+            # the result's stream only (≅ JAX's wait for the span's own
+            # result): work on other streams is not the span's op
+            timers.block_stream(span.result)
         t1 = time.perf_counter()
         dt = t1 - t0
         gbps = (nbytes / dt / 1e9) if (nbytes and dt > 0) else None

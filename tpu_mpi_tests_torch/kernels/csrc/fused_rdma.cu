@@ -130,7 +130,10 @@ __global__ void __launch_bounds__(kK ? kRegsThreads : 256)
                       typename Word<sizeof(T)>::type* stage) {
   using C = typename Elt<T>::C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int ticket_slot;
+  __shared__ int ticket_slot, epoch_slot;
+  // every launch takes an epoch, the compute-only instance too, so the
+  // ranks' counts stay equal whatever each launch sends
+  r.epoch = launch_epoch(r.pad, &epoch_slot);
   const int ticket = take_ticket(r.pad, &ticket_slot);
   const T* z = reinterpret_cast<const T*>(r.z);
 
@@ -240,7 +243,8 @@ int launch_as(const RingView<typename Word<sizeof(T)>::type>& r, void* out,
   if constexpr (kK == 0) {
     smem = kstep_smem_bytes<T, 0>(g.B, g.steps);
     if (smem > 227 * 1024 - 1024) return cudaErrorInvalidValue;
-    // the ticket's static word counts against the 48 KiB default too
+    // the ticket's and the epoch's static words count against the
+    // 48 KiB default too
     if (smem > 47 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -269,15 +273,15 @@ int launch_comm(bool comm, const RingView<typename Word<sizeof(T)>::type>& r,
 
 template <typename T>
 int launch(int route, void* z, void* out, void* left_z, void* right_z,
-           int* pad, int* left_pad, int* right_pad, int epoch, long long n0,
+           int* pad, int* left_pad, int* right_pad, long long n0,
            long long n1, int steps, int B, double se, double c1, double c2,
            int phys_lo, int phys_hi, const int* phys, int send_lo,
            int send_hi, void* stage, int* block_rows, cudaStream_t s) {
   using W = typename Word<sizeof(T)>::type;
   const int K = steps * kRadius;
   RingView<W> r{static_cast<const W*>(z), static_cast<W*>(left_z),
-                static_cast<W*>(right_z), pad, left_pad, right_pad, epoch,
-                0, n0, n1, K, send_lo, send_hi};
+                static_cast<W*>(right_z), pad, left_pad, right_pad, 0, 0,
+                n0, n1, K, send_lo, send_hi};
   FusedGeom g{};
   g.n0 = n0;
   g.n1 = n1;
@@ -320,8 +324,9 @@ int launch(int route, void* z, void* out, void* left_z, void* right_z,
 // the launch was accepted. `z` (my input, in peer memory) and `out` are
 // contiguous (n0, n1) float32, float64 or bfloat16 arrays that share no
 // storage;
-// `left_z` / `right_z` are the neighbours' copies of `z`; pads and epoch as
-// in ring_halo.cu. B rows per block must divide n0 and hold the seam
+// `left_z` / `right_z` are the neighbours' copies of `z`; the pads as in
+// ring_halo.cu (my pad's launch counter gives the launch its epoch). B
+// rows per block must divide n0 and hold the seam
 // (B >= 2K, K = 2*steps; on the smem route B <= 256), or be 0 on the regs
 // route (the launcher's block); the block launched goes to *block_rows
 // unless it is NULL. n0 > 2K. send_lo =
@@ -331,7 +336,7 @@ int launch(int route, void* z, void* out, void* left_z, void* right_z,
 // 2*K*n1 elements of scratch when n0 < 3K.
 extern "C" int tpumt_stencil2d_fused_rdma(
     void* z, void* out, void* left_z, void* right_z, void* pad,
-    void* left_pad, void* right_pad, int epoch, int dtype, long long n0,
+    void* left_pad, void* right_pad, int dtype, long long n0,
     long long n1, int steps, int B, double se, double c1, double c2,
     int phys_lo, int phys_hi, const void* phys, int send_lo, int send_hi,
     int route, void* stage, int* block_rows, void* stream) {
@@ -341,7 +346,6 @@ extern "C" int tpumt_stencil2d_fused_rdma(
   const bool chosen = B == 0 && route == kKStepRegs;
   if (steps < 1 || n1 < 1 || n0 <= 2 * K ||
       (!chosen && (B < 2 * K || n0 % B != 0)) || n0 > INT_MAX ||
-      ((send_lo || send_hi) && epoch < 1) ||
       route != kstep_route(steps, z, out, n1, itemsize, kFusedRowBytes) ||
       (route == kKStepSmem && B > kMaxB))
     return cudaErrorInvalidValue;
@@ -355,16 +359,16 @@ extern "C" int tpumt_stencil2d_fused_rdma(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch<float>(route, z, out, left_z, right_z, p, lp, rp, epoch,
+      return launch<float>(route, z, out, left_z, right_z, p, lp, rp,
                            n0, n1, steps, B, se, c1, c2, phys_lo, phys_hi,
                            ph, send_lo, send_hi, st, block_rows, s);
     case kF64:
-      return launch<double>(route, z, out, left_z, right_z, p, lp, rp, epoch,
+      return launch<double>(route, z, out, left_z, right_z, p, lp, rp,
                             n0, n1, steps, B, se, c1, c2, phys_lo, phys_hi,
                             ph, send_lo, send_hi, st, block_rows, s);
     case kBF16:
       return launch<__nv_bfloat16>(route, z, out, left_z, right_z, p, lp, rp,
-                                   epoch, n0, n1, steps, B, se, c1, c2,
+                                   n0, n1, steps, B, se, c1, c2,
                                    phys_lo, phys_hi, ph, send_lo, send_hi,
                                    st, block_rows, s);
     default:

@@ -28,7 +28,9 @@
 //     gridDim.x, ... at every step; their f32 carry lives in a global
 //     workspace between steps (the caller's m, l, acc), read and written
 //     by the same CTA only.
-//   * Entry barrier. Thread 0 of CTA 0 tells both neighbours that this
+//   * Entry barrier. Every CTA reads the launch's epoch from my pad's
+//     launch counter (launch_epoch; a replayed CUDA graph's launch takes
+//     a new one). Thread 0 of CTA 0 tells both neighbours that this
 //     rank entered launch `epoch`; every CTA waits until both have
 //     entered theirs (their previous launch on the slots has finished).
 //   * Sends. At step s < w-1 the CTAs split the current block (the
@@ -111,7 +113,7 @@ struct FraArgs {
   int* pad;
   int* left_pad;
   int* right_pad;
-  int epoch, w, my, causal, stripe, d;
+  int w, my, causal, stripe, d;
   long long lq, lk;
   long long kv_bytes;  // bytes of one K (or V) block
   long long v_off;     // V's offset in a slot; a slot is 2·v_off bytes
@@ -126,6 +128,16 @@ struct FraMaps {
   CUtensorMap q, k, v;
   CUtensorMap slot_k[2], slot_v[2];
 };
+
+// This launch's epoch (launch_epoch, ring_common.cuh), set at entry by
+// every kernel below that signals (w > 1). Read from shared memory where a
+// wait or a signal needs it, so that no thread keeps it in a register
+// across the fold.
+__shared__ int fra_epoch_slot;
+
+__device__ __forceinline__ int fra_epoch() {
+  return *static_cast<volatile int*>(&fra_epoch_slot);
+}
 
 // The flash fold's view of a fused launch: the carry updated in place,
 // one head; each step sets the block (k, v, k_off). The wgmma route gets
@@ -168,11 +180,11 @@ __device__ __forceinline__ void fra_enter(const FraArgs& a, long long n_qt,
   }
   if (a.w > 1 && threadIdx.x == 0) {
     if (blockIdx.x == 0) {
-      pad_signal(a.left_pad + kFraBarFromRight, a.epoch);
-      pad_signal(a.right_pad + kFraBarFromLeft, a.epoch);
+      pad_signal(a.left_pad + kFraBarFromRight, fra_epoch());
+      pad_signal(a.right_pad + kFraBarFromLeft, fra_epoch());
     }
-    pad_wait(a.pad + kFraBarFromLeft, a.epoch);
-    pad_wait(a.pad + kFraBarFromRight, a.epoch);
+    pad_wait(a.pad + kFraBarFromLeft, fra_epoch());
+    pad_wait(a.pad + kFraBarFromRight, fra_epoch());
   }
 }
 
@@ -217,6 +229,7 @@ __global__ void __launch_bounds__(HIGHEST ? kFmaThreads : kMmaThreads)
   const int w = a.w;
   const int d = a.d;
 
+  if (w > 1) launch_epoch(a.pad, &fra_epoch_slot);
   fra_enter(a, n_qt, ctas);
   __syncthreads();
 
@@ -226,16 +239,17 @@ __global__ void __launch_bounds__(HIGHEST ? kFmaThreads : kMmaThreads)
     const char* cur = a.slots + static_cast<long long>(s % 2) * 2 * a.v_off;
     const char* kb = s == 0 ? static_cast<const char*>(a.k) : cur;
     const char* vb = s == 0 ? static_cast<const char*>(a.v) : cur + a.v_off;
-    if (s > 0) coll_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
+    // block s landed
+    if (s > 0) coll_wait(a.pad + kFraArr + s, fra_epoch());
     if (s < w - 1) {
       // the right retired the block that sits in the slot I store into
-      if (s >= 2) coll_wait(a.pad + kFraCred + s - 1, a.epoch);
+      if (s >= 2) coll_wait(a.pad + kFraCred + s - 1, fra_epoch());
       char* dst = a.right_slots + static_cast<long long>((s + 1) % 2) * 2 *
                                       a.v_off;
       send_share(kb, dst, a.kv_bytes, a.copy16, s > 0);
       send_share(vb, dst + a.v_off, a.kv_bytes, a.copy16, s > 0);
       coll_arrive(a.pad + kFraSent + s, ctas, a.right_pad + kFraArr + s + 1,
-                  a.epoch);
+                  fra_epoch());
     }
     const int src = ((a.my - s) % w + w) % w;
     p.k = kb;
@@ -254,7 +268,7 @@ __global__ void __launch_bounds__(HIGHEST ? kFmaThreads : kMmaThreads)
     // for the left's send of step s + 1
     if (s >= 1 && s <= w - 3)
       coll_arrive(a.pad + kFraRetired + s, ctas, a.left_pad + kFraCred + s,
-                  a.epoch);
+                  fra_epoch());
   }
 
   __syncthreads();  // this CTA's carry writes are visible to its threads
@@ -322,7 +336,7 @@ __device__ __forceinline__ void fra_retire(const FraArgs& a, int s,
   __threadfence_system();
   if (atomicAdd(a.pad + kFraRetired + s, 1) == arrivals - 1) {
     __threadfence_system();
-    pad_signal(a.left_pad + kFraCred + s, a.epoch);
+    pad_signal(a.left_pad + kFraCred + s, fra_epoch());
   }
 }
 
@@ -356,9 +370,10 @@ __device__ __forceinline__ void fra_send_warp(const FraArgs& a, int lane) {
     const char* kb = s == 0 ? static_cast<const char*>(a.k) : cur;
     const char* vb = s == 0 ? static_cast<const char*>(a.v) : cur + a.v_off;
     if (lane == 0) {
-      if (s > 0) pad_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
+      // block s landed
+      if (s > 0) pad_wait(a.pad + kFraArr + s, fra_epoch());
       // the right retired the block that sits in the slot I store into
-      if (s >= 2) pad_wait(a.pad + kFraCred + s - 1, a.epoch);
+      if (s >= 2) pad_wait(a.pad + kFraCred + s - 1, fra_epoch());
     }
     __syncwarp();
     char* dst =
@@ -370,7 +385,7 @@ __device__ __forceinline__ void fra_send_warp(const FraArgs& a, int lane) {
     if (lane == 0) {
       if (atomicAdd(a.pad + kFraSent + s, 1) == ctas - 1) {
         __threadfence_system();
-        pad_signal(a.right_pad + kFraArr + s + 1, a.epoch);
+        pad_signal(a.right_pad + kFraArr + s + 1, fra_epoch());
       }
       if (s >= 1 && s <= w - 3) fra_retire(a, s, 2 * ctas);
     }
@@ -391,7 +406,7 @@ __device__ __forceinline__ void fra_produce(const FraArgs& a, const Params& p,
   WgPipe pipe;
   for (int s = 0; s < a.w; ++s) {
     if (s > 0) {
-      pad_wait(a.pad + kFraArr + s, a.epoch);  // block s landed
+      pad_wait(a.pad + kFraArr + s, fra_epoch());  // block s landed
       asm volatile("fence.proxy.async.global;" ::: "memory");
     }
     const long long k_off = fra_k_off(a, s);
@@ -448,6 +463,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const uint32_t sb = wg_smem_base(smem4);
   const long long n_qt = (a.lq + kQT - 1) / kQT;
 
+  if (a.w > 1) launch_epoch(a.pad, &fra_epoch_slot);
   fra_enter(a, n_qt, static_cast<int>(gridDim.x));
   wg_init(sb, p);  // ends in a __syncthreads: the carry and the entry are done
 
@@ -477,6 +493,7 @@ __global__ void __launch_bounds__(kX3Threads, 1)
   const int ctas = static_cast<int>(gridDim.x);
   const int split0 = kWgConsumers + (a.w > 1 ? 64 : 32);
 
+  if (a.w > 1) launch_epoch(a.pad, &fra_epoch_slot);
   fra_enter(a, n_qt, ctas);
   x3_init(sb, p, kX3Threads - split0);  // ends in a __syncthreads
 
@@ -623,9 +640,9 @@ int launch_fra_t(FraArgs a, int route, int max_ctas, int* ctas_out,
 // my two parity slots of 2·v_off bytes each (K at 0, V at v_off, v_off a
 // multiple of 16 of at least lk·d·itemsize), `right_slots` the right
 // neighbour's (both unused at w = 1); the pads are int32 words
-// (comm/peer.py). `epoch` counts this process's RDMA launches from 1; `w`
-// is the ring's size (world, or k on the self-ring, where every pointer
-// is the rank's own and `my` is 0). `route`: the FlashRoute code of
+// (comm/peer.py), my pad's launch counter giving the launch its epoch at
+// w > 1; `w` is the ring's size (world, or k on the self-ring, where
+// every pointer is the rank's own and `my` is 0). `route`: the FlashRoute code of
 // hand.flash_route, as for the flash kernel (a route the rule does not
 // give is refused). `max_ctas` caps the grid (0: the
 // card's resident capacity), so that several instances can share a card;
@@ -633,14 +650,14 @@ int launch_fra_t(FraArgs a, int route, int max_ctas, int* ctas_out,
 extern "C" int tpumt_fused_ring_attention(
     const void* q, const void* k, const void* v, void* out, float* m,
     float* l, float* acc, void* slots, void* right_slots, void* pad,
-    void* left_pad, void* right_pad, int epoch, int dtype, long long lq,
+    void* left_pad, void* right_pad, int dtype, long long lq,
     long long lk, int d, int w, int my, long long v_off, double scale,
     int causal, int stripe, int route, int max_ctas, int* ctas_out,
     void* stream) {
   using namespace tpumt;
   const int item = dtype == kF32 ? 4 : 2;
   if (lq < 1 || lk < 1 || d < 1 || d > 256 || w < 1 || w > kCollMaxWorld ||
-      my < 0 || my >= w || epoch < 1 || max_ctas < 0 ||
+      my < 0 || my >= w || max_ctas < 0 ||
       (stripe && !causal) || (dtype != kF32 && dtype != kBF16) ||
       lk > LLONG_MAX / (static_cast<long long>(d) * item * 2))
     return cudaErrorInvalidValue;
@@ -660,7 +677,6 @@ extern "C" int tpumt_fused_ring_attention(
             static_cast<int*>(pad),
             static_cast<int*>(left_pad),
             static_cast<int*>(right_pad),
-            epoch,
             w,
             my,
             causal,

@@ -77,6 +77,8 @@ struct OsArgs {
 // or a uint4 of 16 / sizeof(T) elements).
 template <typename T, typename V>
 __global__ void __launch_bounds__(kThreads) oneshot_kernel(OsArgs<V> a) {
+  __shared__ int epoch_slot;
+  if (a.w > 1) a.epoch = launch_epoch(a.pad, &epoch_slot);
   constexpr int kU = kUnrollOf<V>;
   const int ctas = static_cast<int>(gridDim.x);
   const long long n = a.n;
@@ -159,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) oneshot_kernel(OsArgs<V> a) {
 // n, in items of V
 template <typename T, typename V>
 int launch(const void* x, void* out, void* const* comms, void* const* pads,
-           int epoch, int w, int my, long long n, int sum, int max_ctas,
+           int w, int my, long long n, int sum, int max_ctas,
            cudaStream_t s) {
   static int resident = 0;
   const cudaError_t rc = coll_resident_ctas(
@@ -175,7 +177,6 @@ int launch(const void* x, void* out, void* const* comms, void* const* pads,
     a.comm[p] = static_cast<V*>(comms[p]);
     a.pads[p] = static_cast<int*>(pads[p]);
   }
-  a.epoch = epoch;
   a.w = w;
   a.my = my;
   a.sum = sum;
@@ -189,14 +190,13 @@ int launch(const void* x, void* out, void* const* comms, void* const* pads,
 
 template <typename T>
 int launch_route(const void* x, void* out, void* const* comms,
-                 void* const* pads, int epoch, int w, int my, long long n,
-                 int sum, int route, int max_ctas, cudaStream_t s) {
+                 void* const* pads, int w, int my, long long n, int sum,
+                 int route, int max_ctas, cudaStream_t s) {
   if (route == kRouteVec16)
-    return launch<T, uint4>(x, out, comms, pads, epoch, w, my,
+    return launch<T, uint4>(x, out, comms, pads, w, my,
                             n * static_cast<long long>(sizeof(T)) / 16, sum,
                             max_ctas, s);
-  return launch<T, T>(x, out, comms, pads, epoch, w, my, n, sum, max_ctas,
-                      s);
+  return launch<T, T>(x, out, comms, pads, w, my, n, sum, max_ctas, s);
 }
 
 }  // namespace
@@ -207,18 +207,18 @@ int launch_route(const void* x, void* out, void* const* comms,
 // stencil_common.cuh); `out` holds n (sum = 1) or w·n (sum = 0) elements;
 // `comms` and `pads` are host arrays of the w ranks' comm buffers (w·n
 // elements each, written by the peers; at w = 1 any pointer, never read)
-// and signal pads, indexed by rank; `epoch` counts this process's RDMA
-// launches from 1; `route` is the CollRoute code that hand.coll_route
-// names for x, out and the comm buffers over the shard's n elements (any
-// other value is refused); `max_ctas` caps the grid (0: the card's
-// resident count for the kernel).
+// and signal pads, indexed by rank (at w > 1 my pad's launch counter
+// gives the launch its epoch); `route` is the CollRoute code that
+// hand.coll_route names for x, out and the comm buffers over the shard's
+// n elements (any other value is refused); `max_ctas` caps the grid (0:
+// the card's resident count for the kernel).
 extern "C" int tpumt_oneshot(const void* x, void* out, void* const* comms,
-                             void* const* pads, int epoch, int dtype, int w,
+                             void* const* pads, int dtype, int w,
                              int my, long long n, int sum, int route,
                              int max_ctas, void* stream) {
   using namespace tpumt;
   if (n < 1 || w < 1 || w > kCollMaxWorld || my < 0 || my >= w ||
-      epoch < 1 || max_ctas < 0 || n > LLONG_MAX / w / 8 ||
+      max_ctas < 0 || n > LLONG_MAX / w / 8 ||
       comms == nullptr || pads == nullptr ||
       (dtype != kF32 && dtype != kF64 && dtype != kBF16))
     return cudaErrorInvalidValue;
@@ -230,13 +230,13 @@ extern "C" int tpumt_oneshot(const void* x, void* out, void* const* comms,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_route<float>(x, out, comms, pads, epoch, w, my, n, sum,
+      return launch_route<float>(x, out, comms, pads, w, my, n, sum,
                                  route, max_ctas, s);
     case kF64:
-      return launch_route<double>(x, out, comms, pads, epoch, w, my, n, sum,
+      return launch_route<double>(x, out, comms, pads, w, my, n, sum,
                                   route, max_ctas, s);
     default:
-      return launch_route<__nv_bfloat16>(x, out, comms, pads, epoch, w, my,
+      return launch_route<__nv_bfloat16>(x, out, comms, pads, w, my,
                                          n, sum, route, max_ctas, s);
   }
 }

@@ -114,6 +114,8 @@ struct AgArgs {
 template <typename V, int kU>
 __global__ void __launch_bounds__(kThreads)
     ring_allgather_kernel(AgArgs<V> a) {
+  __shared__ int epoch_slot;
+  a.epoch = launch_epoch(a.pad, &epoch_slot);
   const int ctas = static_cast<int>(gridDim.x);
   const long long n = a.n;
   const int w = a.w, steps = a.w - 1;
@@ -188,6 +190,8 @@ struct RsArgs {
 template <typename T, typename V, int kU>
 __global__ void __launch_bounds__(kThreads)
     ring_reduce_scatter_kernel(RsArgs<V> a) {
+  __shared__ int epoch_slot;
+  a.epoch = launch_epoch(a.pad, &epoch_slot);
   const int ctas = static_cast<int>(gridDim.x);
   const long long cn = a.cn;
   const int w = a.w, credits = a.credits;
@@ -268,13 +272,13 @@ int launch_copy(const void* x, void* out, long long n, cudaStream_t s) {
 // n, in items of V (elements, or 16-byte vectors on the vec16 route)
 template <typename V, int kU>
 int launch_allgather(const void* x, void* out, void* buf, void* right_buf,
-                     int* pad, int* left_pad, int* right_pad, int epoch,
-                     int w, int my, long long n, int seed_all, int max_ctas,
+                     int* pad, int* left_pad, int* right_pad, int w,
+                     int my, long long n, int seed_all, int max_ctas,
                      cudaStream_t s) {
   if (w == 1) return launch_copy<V, kU>(x, out, n, s);
   AgArgs<V> a{static_cast<const V*>(x), static_cast<V*>(out),
               static_cast<V*>(buf), static_cast<V*>(right_buf), pad,
-              left_pad, right_pad, epoch, w, my, seed_all, n};
+              left_pad, right_pad, 0, w, my, seed_all, n};
   static int resident = 0;
   return launch_resident<kU>(ring_allgather_kernel<V, kU>, &resident, n,
                              max_ctas, s, a);
@@ -284,13 +288,13 @@ int launch_allgather(const void* x, void* out, void* buf, void* right_buf,
 template <typename T, typename V, int kU>
 int launch_reduce_scatter(const void* x, void* out, void* comm,
                           void* right_comm, void* send, int* pad,
-                          int* left_pad, int* right_pad, int epoch, int w,
-                          int my, long long cn, int credits, int max_ctas,
+                          int* left_pad, int* right_pad, int w, int my,
+                          long long cn, int credits, int max_ctas,
                           cudaStream_t s) {
   if (w == 1) return launch_copy<V, kU>(x, out, cn, s);
   RsArgs<V> a{static_cast<const V*>(x), static_cast<V*>(out),
               static_cast<V*>(comm), static_cast<V*>(right_comm),
-              static_cast<V*>(send), pad, left_pad, right_pad, epoch, w, my,
+              static_cast<V*>(send), pad, left_pad, right_pad, 0, w, my,
               credits, cn};
   static int resident = 0;
   return launch_resident<kU>(ring_reduce_scatter_kernel<T, V, kU>, &resident,
@@ -301,8 +305,9 @@ int launch_reduce_scatter(const void* x, void* out, void* comm,
 }  // namespace tpumt
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t: 0
-// when the launch was accepted. The pads are int32 words (comm/peer.py);
-// `epoch` counts this process's RDMA launches from 1; `w` is the ring's
+// when the launch was accepted. The pads are int32 words (comm/peer.py),
+// my pad's launch counter giving each launch its epoch (every launch at
+// w > 1; the copy of w = 1 touches no pad); `w` is the ring's
 // size (world, or k on the self-ring, where every pointer is the rank's
 // own and `my` is 0); `route` is the CollRoute code that hand.coll_route
 // names for these pointers and this length (a launch never takes another
@@ -317,12 +322,12 @@ int launch_reduce_scatter(const void* x, void* out, void* comm,
 extern "C" int tpumt_ring_allgather(const void* x, void* out, void* buf,
                                     void* right_buf, void* pad,
                                     void* left_pad, void* right_pad,
-                                    int epoch, int itemsize, int w, int my,
+                                    int itemsize, int w, int my,
                                     long long n, int seed_all, int route,
                                     int max_ctas, void* stream) {
   using namespace tpumt;
   if (n < 1 || w < 1 || w > kCollMaxWorld || my < 0 || my >= w ||
-      epoch < 1 || max_ctas < 0 || (seed_all && (my != 0 || w < 2)) ||
+      max_ctas < 0 || (seed_all && (my != 0 || w < 2)) ||
       n > LLONG_MAX / w / 8 ||
       (itemsize != 2 && itemsize != 4 && itemsize != 8) ||
       route != coll_route(n * itemsize, {x, out, buf, right_buf}))
@@ -333,21 +338,21 @@ extern "C" int tpumt_ring_allgather(const void* x, void* out, void* buf,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteVec16)
     return launch_allgather<uint4, kUnroll>(x, out, buf, right_buf, p, lp,
-                                            rp, epoch, w, my,
+                                            rp, w, my,
                                             n * itemsize / 16, seed_all,
                                             max_ctas, s);
   switch (itemsize) {
     case 2:
       return launch_allgather<Bits<2>::U, 1>(x, out, buf, right_buf, p, lp,
-                                             rp, epoch, w, my, n, seed_all,
+                                             rp, w, my, n, seed_all,
                                              max_ctas, s);
     case 4:
       return launch_allgather<Bits<4>::U, 1>(x, out, buf, right_buf, p, lp,
-                                             rp, epoch, w, my, n, seed_all,
+                                             rp, w, my, n, seed_all,
                                              max_ctas, s);
     default:
       return launch_allgather<Bits<8>::U, 1>(x, out, buf, right_buf, p, lp,
-                                             rp, epoch, w, my, n, seed_all,
+                                             rp, w, my, n, seed_all,
                                              max_ctas, s);
   }
 }
@@ -358,17 +363,17 @@ namespace {
 template <typename T>
 int reduce_scatter_route(const void* x, void* out, void* comm,
                          void* right_comm, void* send, int* pad,
-                         int* left_pad, int* right_pad, int epoch, int w,
-                         int my, long long cn, int credits, int route,
+                         int* left_pad, int* right_pad, int w, int my,
+                         long long cn, int credits, int route,
                          int max_ctas, cudaStream_t s) {
   if (route == kRouteVec16)
     return launch_reduce_scatter<T, uint4, kUnroll>(
-        x, out, comm, right_comm, send, pad, left_pad, right_pad, epoch, w,
-        my, cn * static_cast<long long>(sizeof(T)) / 16, credits, max_ctas,
+        x, out, comm, right_comm, send, pad, left_pad, right_pad, w, my,
+        cn * static_cast<long long>(sizeof(T)) / 16, credits, max_ctas,
         s);
   return launch_reduce_scatter<T, T, 1>(x, out, comm, right_comm, send, pad,
-                                        left_pad, right_pad, epoch, w, my,
-                                        cn, credits, max_ctas, s);
+                                        left_pad, right_pad, w, my, cn,
+                                        credits, max_ctas, s);
 }
 
 }  // namespace
@@ -383,14 +388,14 @@ extern "C" int tpumt_ring_reduce_scatter(const void* x, void* out,
                                          void* comm, void* right_comm,
                                          void* send, void* pad,
                                          void* left_pad, void* right_pad,
-                                         int epoch, int dtype, int w, int my,
+                                         int dtype, int w, int my,
                                          long long cn, int credits,
                                          int route, int max_ctas,
                                          void* stream) {
   using namespace tpumt;
   const int itemsize = dtype == kF64 ? 8 : dtype == kBF16 ? 2 : 4;
   if (cn < 1 || w < 1 || w > kCollMaxWorld || my < 0 || my >= w ||
-      epoch < 1 || max_ctas < 0 || (credits != 1 && credits != 2) ||
+      max_ctas < 0 || (credits != 1 && credits != 2) ||
       cn > LLONG_MAX / w / 8 ||
       route != coll_route(cn * itemsize, {x, out, comm, right_comm, send}))
     return cudaErrorInvalidValue;
@@ -401,15 +406,15 @@ extern "C" int tpumt_ring_reduce_scatter(const void* x, void* out,
   switch (dtype) {
     case kF32:
       return reduce_scatter_route<float>(x, out, comm, right_comm, send, p,
-                                         lp, rp, epoch, w, my, cn, credits,
+                                         lp, rp, w, my, cn, credits,
                                          route, max_ctas, s);
     case kF64:
       return reduce_scatter_route<double>(x, out, comm, right_comm, send, p,
-                                          lp, rp, epoch, w, my, cn, credits,
+                                          lp, rp, w, my, cn, credits,
                                           route, max_ctas, s);
     case kBF16:
       return reduce_scatter_route<__nv_bfloat16>(
-          x, out, comm, right_comm, send, p, lp, rp, epoch, w, my, cn,
+          x, out, comm, right_comm, send, p, lp, rp, w, my, cn,
           credits, route, max_ctas, s);
     default:
       return cudaErrorInvalidValue;

@@ -40,7 +40,9 @@
 //                                  launch `epoch`
 //   52 + p kOsArr[p]               remote, one-shot: rank p's shard
 //                                  landed in my slot p
-//   60-63                          unused
+//   60-61 kLaunches                local: the pad's launch counter, one
+//                                  64-bit word (launch_epoch)
+//   62-63                          unused
 //   64 kFraBarFromLeft / 65 kFraBarFromRight  remote, fused ring
 //                                  attention: the left / right neighbour
 //                                  entered launch `epoch`
@@ -59,11 +61,15 @@
 // kCollMaxWorld) and p < kCollMaxWorld: the collectives and the fused
 // ring attention run on at most 8 ranks (or an 8-step self-ring), which
 // is what the pad holds.
-// Epochs count every RDMA launch up from 1 on every rank (all kernel
-// families share the count), so a wait for `word >= epoch` is met by this
-// launch's signal or a later one, never by an earlier one, and no remote
-// word is ever reset. Per-step words keep a step's wait from being met by
-// a later step's signal.
+// Epochs count every RDMA launch on a pad up from 1 (all kernel families
+// share the count), so a wait for `word >= epoch` is met by this launch's
+// signal or a later one, never by an earlier one, and no remote word is
+// ever reset. Every rank makes the same sequence of launches, so the
+// ranks' epochs stay equal. The count lives on the card, in the pad's
+// launch counter (launch_epoch): each CTA reads its launch's epoch there
+// at entry, so a launch captured into a CUDA graph takes a new epoch at
+// every replay, as an eager launch does. Per-step words keep a step's
+// wait from being met by a later step's signal.
 //
 // Memory order: a signal is a st.release.sys after the sender's peer
 // stores were ordered, by __threadfence_system() in every thread
@@ -79,6 +85,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <initializer_list>
@@ -109,6 +116,7 @@ enum PadWord : int {
   kOsBar = kRsCred + kCollMaxSteps,
   kOsArr = kOsBar + kCollMaxWorld,
   kCollWordsEnd = kOsArr + kCollMaxWorld,
+  kLaunches = kCollWordsEnd,  // two words: one 64-bit counter
   kFraBarFromLeft = 64,
   kFraBarFromRight = kFraBarFromLeft + 1,
   kFraArr = kFraBarFromRight + 1,
@@ -119,7 +127,8 @@ enum PadWord : int {
   kPadWordsUsed = kFraExit + 1,
 };
 static_assert(kCollFolded == 16 && kAgArr == 23 && kOsBar == 44 &&
-                  kCollWordsEnd == 60,
+                  kCollWordsEnd == 60 && kLaunches % 2 == 0 &&
+                  kLaunches + 2 <= kFraBarFromLeft,
               "the pad map above");
 static_assert(kFraArr == 66 && kFraCred == 74 && kFraSent == 82 &&
                   kFraRetired == 90 && kFraExit == 98,
@@ -264,6 +273,33 @@ __device__ __forceinline__ void ring_stage(const RingView<W>& r, W* stage) {
     const long long e = hi ? k - band : k;
     stage[k] = r.z[band_offset(e, r.axis, r.n1, b, hi ? n - 2 * b : b)];
   }
+}
+
+// The epoch of this launch, by every thread of the CTA (thread 0 reads,
+// `slot` in shared memory passes it on, a __syncthreads ends it). The
+// pad's launch counter (kLaunches) is one 64-bit word: its low half
+// counts the CTAs of the running launch that entered, its high half the
+// launches before it. Each CTA adds 1 at entry; the CTA that enters last
+// turns the count into the next launch's in one more add (low half back
+// to 0, high half + 1). So every CTA of a launch reads one epoch, the
+// launches before it + 1. The next launch on the stream enters only
+// after this one has left, whatever its grid: an eager launch and a
+// replay of a captured one advance the same count. Epochs are positive
+// ints: a launch after the pad's 2^31 - 1st traps (the signal words
+// hold int32 epochs, and a wrapped one would meet every wait at once).
+__device__ __forceinline__ int launch_epoch(int* pad, int* slot) {
+  if (threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0) {
+    auto* word = reinterpret_cast<unsigned long long*>(pad + kLaunches);
+    const unsigned long long ctas =
+        static_cast<unsigned long long>(gridDim.x) * gridDim.y * gridDim.z;
+    const unsigned long long old = atomicAdd(word, 1ull);
+    if ((old >> 32) >= static_cast<unsigned long long>(INT_MAX)) __trap();
+    if ((old & 0xffffffffull) == ctas - 1)
+      atomicAdd(word, (1ull << 32) - ctas);
+    *slot = static_cast<int>(old >> 32) + 1;
+  }
+  __syncthreads();
+  return *slot;
 }
 
 // This CTA's work ticket (the order CTAs started in); the last ticket

@@ -17,6 +17,9 @@
 // neighbours' buffers are mapped by the peer layer (comm/peer.py:
 // symmetric memory at world > 1, my own buffer on the self-ring at
 // world = 1). The schedule, CTAs ordered by a work ticket:
+//   0. every CTA reads the launch's epoch from my pad's launch counter
+//      (launch_epoch, ring_common.cuh), so a replayed CUDA graph's launch
+//      takes a new epoch as an eager one does;
 //   1. entry barrier (ticket 0 signals, every CTA waits): a neighbour's
 //      buffer is written only after it entered this launch, i.e. after its
 //      previous launch on the buffer finished — the receiver back-pressure
@@ -79,7 +82,8 @@ constexpr int kUnroll = 4;
 template <typename V, bool kSys>
 __global__ void __launch_bounds__(kThreads)
     ring_halo_kernel(RingView<V> r, HaloWalk h, V* stage) {
-  __shared__ int ticket_slot;
+  __shared__ int ticket_slot, epoch_slot;
+  r.epoch = launch_epoch(r.pad, &epoch_slot);
   const int ticket = take_ticket(r.pad, &ticket_slot);
   constexpr bool kScalar = sizeof(V) <= 8;
   if constexpr (kScalar) {
@@ -106,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename V, bool kSys>
 int launch(void* z, void* left_z, void* right_z, int* pad, int* left_pad,
-           int* right_pad, int epoch, int axis, long long n0, long long n1,
+           int* right_pad, int axis, long long n0, long long n1,
            long long b, int send_lo, int send_hi, long long v, void* stage,
            int max_ctas, cudaStream_t s) {
   static int resident = 0;
@@ -115,7 +119,7 @@ int launch(void* z, void* left_z, void* right_z, int* pad, int* left_pad,
       &resident);
   if (rc != cudaSuccess) return rc;
   RingView<V> r{static_cast<const V*>(z), static_cast<V*>(left_z),
-                static_cast<V*>(right_z), pad, left_pad, right_pad, epoch,
+                static_cast<V*>(right_z), pad, left_pad, right_pad, 0,
                 axis, n0, n1, b, send_lo, send_hi};
   const HaloWalk h = walk_of(axis, n0, n1, b, v);
   const long long items = send_lo || send_hi ? h.rows * h.vb : 0;
@@ -130,15 +134,15 @@ int launch(void* z, void* left_z, void* right_z, int* pad, int* left_pad,
 // buffer and pad my own), else at system scope.
 template <typename V>
 int launch_scoped(void* z, void* left_z, void* right_z, int* pad,
-                  int* left_pad, int* right_pad, int epoch, int axis,
+                  int* left_pad, int* right_pad, int axis,
                   long long n0, long long n1, long long b, int send_lo,
                   int send_hi, long long v, void* stage, int max_ctas,
                   cudaStream_t s) {
   const bool one_card = left_z == z && right_z == z && left_pad == pad &&
                         right_pad == pad;
   const auto go = one_card ? launch<V, false> : launch<V, true>;
-  return go(z, left_z, right_z, pad, left_pad, right_pad, epoch, axis, n0,
-            n1, b, send_lo, send_hi, v, stage, max_ctas, s);
+  return go(z, left_z, right_z, pad, left_pad, right_pad, axis, n0, n1, b,
+            send_lo, send_hi, v, stage, max_ctas, s);
 }
 
 }  // namespace
@@ -147,8 +151,8 @@ int launch_scoped(void* z, void* left_z, void* right_z, int* pad,
 // Plain C entry point (bound with ctypes). Returns a cudaError_t: 0 when
 // the launch was accepted. `z` is my contiguous (n0, n1) array of
 // `itemsize`-byte elements; `left_z` / `right_z` the neighbours' copies of
-// it (z itself on the self-ring); the pads are int32 words (comm/peer.py);
-// `epoch` counts this process's RDMA launches from 1; `stage` is NULL, or
+// it (z itself on the self-ring); the pads are int32 words (comm/peer.py),
+// my pad's launch counter giving the launch its epoch; `stage` is NULL, or
 // 2*b*extent elements of scratch when the extent along `axis` is under
 // 3*b. The extent must hold both bands (>= 2*b). `route` is the CollRoute
 // code that hand.halo_route names for these pointers and this geometry
@@ -156,14 +160,14 @@ int launch_scoped(void* z, void* left_z, void* right_z, int* pad,
 // resident count for the kernel).
 extern "C" int tpumt_ring_halo(void* z, void* left_z, void* right_z,
                                void* pad, void* left_pad, void* right_pad,
-                               int epoch, int itemsize, int axis, long long n0,
+                               int itemsize, int axis, long long n0,
                                long long n1, long long b, int send_lo,
                                int send_hi, void* stage, int route,
                                int max_ctas, void* stream) {
   using namespace tpumt;
   const long long n = axis == 0 ? n0 : n1;
   if ((axis != 0 && axis != 1) || n0 < 1 || n1 < 1 || b < 1 || n < 2 * b ||
-      epoch < 1 || max_ctas < 0 || n0 > LLONG_MAX / n1 / 8 ||
+      max_ctas < 0 || n0 > LLONG_MAX / n1 / 8 ||
       (itemsize != 2 && itemsize != 4 && itemsize != 8) ||
       route != halo_route(itemsize, axis, n0, n1, b, z, left_z, right_z))
     return cudaErrorInvalidValue;
@@ -175,20 +179,20 @@ extern "C" int tpumt_ring_halo(void* z, void* left_z, void* right_z,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* st = n < 3 * b ? stage : nullptr;
   if (route == kRouteVec16)
-    return launch_scoped<uint4>(z, left_z, right_z, p, lp, rp, epoch, axis,
+    return launch_scoped<uint4>(z, left_z, right_z, p, lp, rp, axis,
                                 n0, n1, b, send_lo, send_hi, 16 / itemsize,
                                 nullptr, max_ctas, s);
   switch (itemsize) {
     case 2:
-      return launch_scoped<uint16_t>(z, left_z, right_z, p, lp, rp, epoch,
+      return launch_scoped<uint16_t>(z, left_z, right_z, p, lp, rp,
                                      axis, n0, n1, b, send_lo, send_hi, 1,
                                      st, max_ctas, s);
     case 4:
-      return launch_scoped<uint32_t>(z, left_z, right_z, p, lp, rp, epoch,
+      return launch_scoped<uint32_t>(z, left_z, right_z, p, lp, rp,
                                      axis, n0, n1, b, send_lo, send_hi, 1,
                                      st, max_ctas, s);
     default:
-      return launch_scoped<uint64_t>(z, left_z, right_z, p, lp, rp, epoch,
+      return launch_scoped<uint64_t>(z, left_z, right_z, p, lp, rp,
                                      axis, n0, n1, b, send_lo, send_hi, 1,
                                      st, max_ctas, s);
   }

@@ -202,43 +202,43 @@ _SIGNATURES = {
     "tpumt_flash_attention_block": (
         [_c_void_p] * 9 + [_c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_ll] * 15 + [_c_double, _c_int, _c_int, _c_void_p], _c_int),
-    # z, left z, right z, pad, left pad, right pad; epoch, itemsize, axis,
-    # n0, n1, n_bnd, send_lo, send_hi; stage; route (COLL_ROUTES index),
-    # max_ctas, stream
+    # z, left z, right z, pad, left pad, right pad; itemsize, axis, n0,
+    # n1, n_bnd, send_lo, send_hi; stage; route (COLL_ROUTES index),
+    # max_ctas, stream (every RDMA kernel reads its epoch from the pad)
     "tpumt_ring_halo": (
-        [_c_void_p] * 6 + [_c_int, _c_int, _c_int, _c_ll, _c_ll, _c_ll,
+        [_c_void_p] * 6 + [_c_int, _c_int, _c_ll, _c_ll, _c_ll,
                            _c_int, _c_int, _c_void_p, _c_int, _c_int,
                            _c_void_p], _c_int),
-    # z, out, left z, right z, pad, left pad, right pad; epoch, dtype, n0,
-    # n1, steps, rows per block; se, c1, c2; phys_lo, phys_hi, phys;
+    # z, out, left z, right z, pad, left pad, right pad; dtype, n0, n1,
+    # steps, rows per block; se, c1, c2; phys_lo, phys_hi, phys;
     # send_lo, send_hi; route (KSTEP_ROUTES index); stage; rows per block
     # launched (out), stream
     "tpumt_stencil2d_fused_rdma": (
-        [_c_void_p] * 7 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int]
+        [_c_void_p] * 7 + [_c_int, _c_ll, _c_ll, _c_int, _c_int]
         + [_c_double] * 3 + [_c_int, _c_int, _c_void_p, _c_int, _c_int,
                              _c_int, _c_void_p, ctypes.POINTER(_c_int),
                              _c_void_p], _c_int),
-    # x, out, buf, right buf, pad, left pad, right pad; epoch, itemsize, w,
-    # my, n, seed_all, route (COLL_ROUTES index), max_ctas, stream
+    # x, out, buf, right buf, pad, left pad, right pad; itemsize, w, my,
+    # n, seed_all, route (COLL_ROUTES index), max_ctas, stream
     "tpumt_ring_allgather": (
-        [_c_void_p] * 7 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
+        [_c_void_p] * 7 + [_c_int, _c_int, _c_int, _c_ll, _c_int,
                            _c_int, _c_int, _c_void_p], _c_int),
-    # x, out, comm, right comm, send, pad, left pad, right pad; epoch,
-    # dtype, w, my, chunk elements, credits, route (COLL_ROUTES index),
-    # max_ctas, stream
+    # x, out, comm, right comm, send, pad, left pad, right pad; dtype, w,
+    # my, chunk elements, credits, route (COLL_ROUTES index), max_ctas,
+    # stream
     "tpumt_ring_reduce_scatter": (
-        [_c_void_p] * 8 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
+        [_c_void_p] * 8 + [_c_int, _c_int, _c_int, _c_ll, _c_int,
                            _c_int, _c_int, _c_void_p], _c_int),
-    # x, out, comm buffers (w), pads (w); epoch, dtype, w, my, n, sum,
-    # route (COLL_ROUTES index), max_ctas, stream
+    # x, out, comm buffers (w), pads (w); dtype, w, my, n, sum, route
+    # (COLL_ROUTES index), max_ctas, stream
     "tpumt_oneshot": (
-        [_c_void_p] * 4 + [_c_int, _c_int, _c_int, _c_int, _c_ll, _c_int,
+        [_c_void_p] * 4 + [_c_int, _c_int, _c_int, _c_ll, _c_int,
                            _c_int, _c_int, _c_void_p], _c_int),
     # q, k, v, out, m, l, acc, slots, right slots, pad, left pad, right
-    # pad; epoch, dtype, lq, lk, d, w, my, v_off; scale; causal, stripe,
-    # route (FLASH_ROUTES index), max_ctas; CTAs launched (out), stream
+    # pad; dtype, lq, lk, d, w, my, v_off; scale; causal, stripe, route
+    # (FLASH_ROUTES index), max_ctas; CTAs launched (out), stream
     "tpumt_fused_ring_attention": (
-        [_c_void_p] * 12 + [_c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int,
+        [_c_void_p] * 12 + [_c_int, _c_ll, _c_ll, _c_int, _c_int,
                             _c_int, _c_ll, _c_double, _c_int, _c_int,
                             _c_int, _c_int, ctypes.POINTER(_c_int),
                             _c_void_p], _c_int),
@@ -1487,7 +1487,7 @@ def ring_halo(z: torch.Tensor, axis: int = 0,
     fn = _entry("ring_halo", "tpumt_ring_halo")
     with torch.cuda.device(z.device):
         rc = fn(zz.data_ptr(), left_z, right_z, pad, left_pad, right_pad,
-                peer.next_epoch(), zz.element_size(), axis, n0, n1, n_bnd,
+                zz.element_size(), axis, n0, n1, n_bnd,
                 int(send_lo), int(send_hi),
                 None if stage is None else stage.data_ptr(),
                 coll_route_code(route), 0, _stream(z))
@@ -1678,7 +1678,7 @@ def stencil2d_fused_rdma(z: torch.Tensor, scale_eps: float,
     fn = _entry("fused_rdma", "tpumt_stencil2d_fused_rdma")
     with torch.cuda.device(z.device):
         rc = fn(z.data_ptr(), out.data_ptr(), left_z, right_z, pad,
-                left_pad, right_pad, peer.next_epoch(), DTYPE_CODES[z.dtype],
+                left_pad, right_pad, DTYPE_CODES[z.dtype],
                 z.shape[0], z.shape[1], steps, B,
                 _rounded(scale_eps, z.dtype), _rounded(_C1, z.dtype),
                 _rounded(_C2, z.dtype), plo, phi,
@@ -1794,7 +1794,7 @@ def ring_allgather(x: torch.Tensor, self_ring: "int | None" = None
     fn = _entry("ring_collectives", "tpumt_ring_allgather")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), buf, right, pad, left_pad,
-                right_pad, peer.next_epoch(), x.element_size(), k, my,
+                right_pad, x.element_size(), k, my,
                 x.numel(), int(self_ring is not None),
                 coll_route_code(route), 0, _stream(x))
     if rc != 0:
@@ -1903,8 +1903,8 @@ def ring_reduce_scatter(x: torch.Tensor, credits: int = 1,
     fn = _entry("ring_collectives", "tpumt_ring_reduce_scatter")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), comm, right, send, pad,
-                left_pad, right_pad, peer.next_epoch(),
-                DTYPE_CODES[x.dtype], k, my, cn, credits,
+                left_pad, right_pad, DTYPE_CODES[x.dtype], k, my, cn,
+                credits,
                 coll_route_code(route), 0, _stream(x))
     if rc != 0:
         _raise_launch(f"ring_reduce_scatter ({route} route)", rc)
@@ -1984,8 +1984,8 @@ def oneshot(x: torch.Tensor, op: str = "gather") -> torch.Tensor:
     fn = _entry("oneshot", "tpumt_oneshot")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), (_c_void_p * k)(*comms),
-                (_c_void_p * k)(*pads), peer.next_epoch(),
-                DTYPE_CODES[x.dtype], k, my, x.numel(), int(op == "sum"),
+                (_c_void_p * k)(*pads), DTYPE_CODES[x.dtype], k, my,
+                x.numel(), int(op == "sum"),
                 coll_route_code(route), 0, _stream(x))
     if rc != 0:
         _raise_launch(f"oneshot ({route} route)", rc)
@@ -2082,7 +2082,7 @@ def cross_wired(name: str, shards, credits: int = 1,
             route = coll_route(shards[r], x0.numel(), *ptrs)
             return fn(shards[r].data_ptr(), *ptrs,
                       pads[r].data_ptr(), pads[(r - 1) % k].data_ptr(),
-                      pads[(r + 1) % k].data_ptr(), 1, item, k, r,
+                      pads[(r + 1) % k].data_ptr(), item, k, r,
                       x0.numel(), 0, coll_route_code(route), max_ctas,
                       streams[r].cuda_stream)
     elif name == "ring_reduce_scatter":
@@ -2102,7 +2102,7 @@ def cross_wired(name: str, shards, credits: int = 1,
             route = coll_route(shards[r], cn, *ptrs)
             return fn(shards[r].data_ptr(), *ptrs, pads[r].data_ptr(),
                       pads[(r - 1) % k].data_ptr(),
-                      pads[(r + 1) % k].data_ptr(), 1,
+                      pads[(r + 1) % k].data_ptr(),
                       DTYPE_CODES[x0.dtype], k, r, cn, credits,
                       coll_route_code(route), max_ctas,
                       streams[r].cuda_stream)
@@ -2129,7 +2129,7 @@ def cross_wired(name: str, shards, credits: int = 1,
             route = coll_route(shards[r], x0.numel(), outs[r].data_ptr(),
                                *(c.data_ptr() for c in comms))
             return fn(shards[r].data_ptr(), outs[r].data_ptr(), comm_ptrs,
-                      pad_ptrs, 1, DTYPE_CODES[x0.dtype], k, r, x0.numel(),
+                      pad_ptrs, DTYPE_CODES[x0.dtype], k, r, x0.numel(),
                       int(not gather), coll_route_code(route), max_ctas,
                       streams[r].cuda_stream)
     else:
@@ -2957,8 +2957,8 @@ def fused_ring_attention(q, k, v, *, scale=None, causal: bool = False,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 m.data_ptr(), l.data_ptr(), acc.data_ptr(), slots, right,
-                pad, left_pad, right_pad, peer.next_epoch(),
-                _FLASH_DTYPES[q.dtype], lq, lk, d, w, my, v_off,
+                pad, left_pad, right_pad, _FLASH_DTYPES[q.dtype], lq, lk,
+                d, w, my, v_off,
                 float(scale), int(bool(causal)), int(bool(stripe)),
                 FLASH_ROUTES.index(route), 0, None, _stream(q))
     if rc != 0:
@@ -3007,7 +3007,7 @@ def _ring_halo_cross(shards, pads, streams, max_ctas, *, axis: int = 0,
                            right.data_ptr())
         return fn(views[r].data_ptr(), left.data_ptr(), right.data_ptr(),
                   pads[r].data_ptr(), pads[(r - 1) % w].data_ptr(),
-                  pads[(r + 1) % w].data_ptr(), 1, z0.element_size(), axis,
+                  pads[(r + 1) % w].data_ptr(), z0.element_size(), axis,
                   z0.shape[0], z0.shape[1], n_bnd, int(send_lo),
                   int(send_hi),
                   None if stages[r] is None else stages[r].data_ptr(),
@@ -3043,7 +3043,7 @@ def _fused_rdma_cross(shards, pads, streams, *, scale_eps: float,
         return fn(zs[r].data_ptr(), outs[r].data_ptr(),
                   zs[(r - 1) % w].data_ptr(), zs[(r + 1) % w].data_ptr(),
                   pads[r].data_ptr(), pads[(r - 1) % w].data_ptr(),
-                  pads[(r + 1) % w].data_ptr(), 1, DTYPE_CODES[z0.dtype],
+                  pads[(r + 1) % w].data_ptr(), DTYPE_CODES[z0.dtype],
                   z0.shape[0], z0.shape[1], steps, B,
                   _rounded(scale_eps, z0.dtype), _rounded(_C1, z0.dtype),
                   _rounded(_C2, z0.dtype), plo, phi, None, int(send_lo),
@@ -3101,7 +3101,7 @@ def _fused_ring_cross(blocks, pads, streams, max_ctas, *, scale=None,
                   *(t.data_ptr() for t in carries[r]), slots[r].data_ptr(),
                   slots[(r + 1) % w].data_ptr(), pads[r].data_ptr(),
                   pads[(r - 1) % w].data_ptr(), pads[(r + 1) % w].data_ptr(),
-                  1, _FLASH_DTYPES[q.dtype], lq, lk, d, w, r, v_off,
+                  _FLASH_DTYPES[q.dtype], lq, lk, d, w, r, v_off,
                   float(scale), int(bool(causal)), int(bool(stripe)),
                   FLASH_ROUTES.index(route), max_ctas, None,
                   streams[r].cuda_stream)
@@ -3128,6 +3128,45 @@ WRAPPERS = {
     "stream_sum3": stream_sum3,
     "flash_attention_block": flash_attention_block,
     "fused_ring_attention": fused_ring_attention,
+}
+
+#: every CUDA kernel of ``csrc/`` (the identifier its mangled name ends
+#: in, below namespace ``tpumt``) → the wrappers whose counted launch may
+#: run it. A counted launch runs exactly one kernel of its wrapper's, so
+#: a graph's nodes of a group of wrappers that share kernels number their
+#: launches (``instrument/timers.check_graph_launches``); ``()`` marks a
+#: kernel a launch runs beside its own (the dual step's one-CTA sum).
+KERNELS = {
+    "iterate_kernel": ("stencil2d_iterate",),
+    "iterate_regs_dim0": ("stencil2d_iterate",),
+    "iterate_regs_dim1": ("stencil2d_iterate",),
+    "deriv_kernel": ("stencil2d_deriv",),
+    "deriv_regs_dim0": ("stencil2d_deriv",),
+    "deriv_regs_dim1": ("stencil2d_deriv",),
+    "heat2d_kernel": ("heat2d",),
+    "heat2d_regs": ("heat2d",),
+    "dual_kernel": ("dual_dim_step",),
+    "dual_regs_kernel": ("dual_dim_step",),
+    "reduce_kernel": (),
+    "probe_kernel": ("alu_probe",),
+    "probe_cluster_kernel": ("alu_probe",),
+    "flat_copy_kernel": ("pack_edges", "unpack_ghosts"),
+    "seam_walk_kernel": ("pack_edges", "unpack_ghosts"),
+    "ring_halo_kernel": ("ring_halo",),
+    "fused_rdma_kernel": ("stencil2d_fused_rdma",),
+    "coll_copy_kernel": ("ring_allgather", "ring_reduce_scatter"),
+    "ring_allgather_kernel": ("ring_allgather",),
+    "ring_reduce_scatter_kernel": ("ring_reduce_scatter",),
+    "oneshot_kernel": ("oneshot",),
+    "stream_vec16_kernel": ("daxpy", "stream_scale", "stream_sum3"),
+    "stream_scalar_kernel": ("daxpy", "stream_scale", "stream_sum3"),
+    "flash_fma_kernel": ("flash_attention_block",),
+    "flash_mma_kernel": ("flash_attention_block",),
+    "flash_wg_kernel": ("flash_attention_block",),
+    "flash_x3_kernel": ("flash_attention_block",),
+    "fused_ring_attention_kernel": ("fused_ring_attention",),
+    "fused_ring_wg_kernel": ("fused_ring_attention",),
+    "fused_ring_x3_kernel": ("fused_ring_attention",),
 }
 
 

@@ -15,9 +15,12 @@ Two layers, as in the JAX package:
   ``device`` is ``torch.cuda.get_device_name()`` (``;`` replaced by
   ``,``), ``ndev`` the global rank count, ``procs`` the process count,
   ``hosts`` and ``rph`` the host layout when it is not flat (one host),
-  and ``stack=torch``: the JAX package's fingerprints never carry it, so
+  ``stack=torch``: the JAX package's fingerprints never carry it, so
   one cache file may hold both packages' entries and neither resolves
-  the other's;
+  the other's; and on the card ``chain=graph``: the sweeps' chains are
+  replays of CUDA graphs (``instrument.timers.chain_rate``), so a
+  winner timed by an older port's Python loop of launches, which priced
+  the host path and not the kernel, no longer matches;
 * :func:`compose` — the pure composition, the JAX function's.
 
 Call sites differ in how much context they have, so lookups may fall
@@ -52,6 +55,8 @@ def device_fields() -> tuple[tuple[str, str], ...]:
         ("procs", str(topo.process_count)),
         ("stack", "torch"),
     )
+    if topo.platform == "gpu":
+        fields += (("chain", "graph"),)
     if topo.hosts > 1:
         fields += (("hosts", str(topo.hosts)),
                    ("rph", str(topo.local_device_count)))

@@ -47,9 +47,9 @@ def feedback_rate(fn, state, n_short: int = 4, n_long: int = 12):
     """Seconds per call of a single-step function whose output is fed
     back as its next input (``state = fn(state)``), by differencing two
     run lengths after a warm run: ``instrument.timers.chain_rate`` over
-    the loop, so on the card the runs are bracketed by CUDA events.
-    Returns ``(seconds_per_call, final_state)``; NaN on a non-positive
-    delta."""
+    the loop, so on the card the runs are replays of CUDA graphs between
+    CUDA events. Returns ``(seconds_per_call, final_state)``; NaN on a
+    non-positive delta."""
     from tpu_mpi_tests_torch.instrument.timers import chain_rate
 
     def run(state, n):

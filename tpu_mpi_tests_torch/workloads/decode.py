@@ -18,11 +18,10 @@ cannot run at a payload (the ring reduce-scatter's chunking,
 ``comm/collectives.allreduce_rdma_refusal``; a world the peer kernels
 cannot map) runs the library tier instead, with a ``NOTE``.
 
-The rows are timed by ``instrument/timers.chain_rate``: CUDA events
-around a Python loop of launches, two chain lengths differenced. The JAX
-µs/op is a device-side ``fori_loop``; the port's includes every call's
-host path (the wrapper, the launches, over ranks the NCCL call), which
-at these payloads is most of the row (ROADMAP queue 3 fault 1).
+The rows are timed by ``instrument/timers.chain_rate``: two chain
+lengths captured as CUDA graphs, replayed between CUDA events and
+differenced, so a row prices the device's work as the JAX µs/op (a
+device-side ``fori_loop``) does, not each call's host path.
 
 Output per (collective, batch), the JAX lines (``[variant]`` is the
 resolved tier: ``torch``, ``rdma`` or ``oneshot``)::
